@@ -1,0 +1,327 @@
+"""Chip smoke test of the PyTorch/CUDA port on one NVIDIA GPU (written for an H100).
+
+    python3 chip_smoke.py
+
+Builds the hand-written CUDA attention kernels from
+``office_person_detection_vit_torch/csrc`` with nvcc, holds each against its
+plain PyTorch version at the shapes DETR's main path gives it, then drives the
+port through its entry point ``DETRDetector``:
+
+1. device: the card's name and power limit; the kernel build and its time;
+2. kernels against the plain version at the shapes phases 3-5 give them,
+   with times, bounds and SDPA's time;
+3. full-width DETR-R50 detect at 736x1280 in bf16 (random seeded weights),
+   whose 18 attention calls per chunk must all be K1, and a float32 run of
+   the same model on the card against the CPU (plain attention);
+4. DETR-DC5 detect, whose 3680-token attention must go through K2;
+5. the committed DETR-small checkpoint finds the person drawn into a frame,
+   with all 9 of its attention calls through K1;
+6. Phase 3-4 (homography -> zones -> counts) on those foot points against
+   float64 numpy.
+
+Any failed check raises, so the script exits non-zero and prints no result.
+Its last two lines are JSON: the kernels (launches, error, times, bound) and
+the device.
+"""
+
+from __future__ import annotations
+
+import importlib.util
+import json
+import subprocess
+import sys
+import time
+from datetime import datetime, timedelta
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT))
+
+# Published H100 SXM peaks (dense): HBM bytes/s, bf16 tensor-core and
+# non-tensor float32 FLOP/s.
+PEAK_BYTES = 3.35e12
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# Kernel vs its plain version evaluated in float32 on the same input values.
+# float32: summation order only. bf16: the kernels round the probabilities
+# and the output to bf16 (relative 2^-8 each) on outputs of size ~1.
+TOLERANCE = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+# Whole-model float32, card vs CPU: the repo's DETR bar
+# (tests/test_detr_parity.py), with TF32 off on the card.
+LOGITS_ATOL, LOGITS_RTOL, BOXES_ATOL = 2e-3, 1e-3, 1e-3
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise AssertionError(msg)
+
+
+def load_render_frame():
+    spec = importlib.util.spec_from_file_location(
+        "synthetic_video", ROOT / "tests" / "helpers" / "synthetic_video.py"
+    )
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.render_frame
+
+
+def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    for _ in range(warmup):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+# ------------------------------------------------------------------- phase 2
+def kernel_case(attention_reference, fn, B, H, Lq, Lk, D, dtype, masked, seed):
+    g = torch.Generator().manual_seed(seed)
+    q, k, v = (torch.randn(B, H, L, D, generator=g).to("cuda", dtype) for L in (Lq, Lk, Lk))
+    mask = None
+    if masked:  # ragged key padding, as a letterboxed batch gives
+        mask = torch.ones(B, Lk, dtype=torch.bool)
+        for b in range(B):
+            mask[b, Lk - ((b + 1) * Lk) // (4 * B):] = False
+        mask = mask.cuda()
+    out = fn(q, k, v, mask)
+    torch.cuda.synchronize()
+    want = attention_reference(q.float(), k.float(), v.float(), mask)
+    err = (out.float() - want).abs().max().item()
+    tol = TOLERANCE[dtype]
+    name = fn.__name__
+    check(bool(torch.isfinite(out).all()), f"{name} {B,H,Lq,Lk,D}: non-finite output")
+    check(err <= tol, f"{name} {B,H,Lq,Lk,D} {dtype}: max|err| {err:.3e} > {tol:.0e}")
+
+    sdpa_mask = None if mask is None else mask[:, None, None, :]
+    ms = cuda_ms(lambda: fn(q, k, v, mask))
+    plain_ms = cuda_ms(lambda: attention_reference(q, k, v, mask), iters=5)
+    library_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=sdpa_mask))
+    item = q.element_size()
+    valid_keys = Lk * B if mask is None else int(mask.sum().item())
+    flops = 4.0 * H * Lq * valid_keys * D  # QK^T and P.V over the valid keys
+    nbytes = (2 * B * H * Lq * D + 2 * B * H * Lk * D) * item + (0 if mask is None else B * Lk)
+    t_ops, t_bytes = flops / PEAK_FLOPS[dtype] * 1e3, nbytes / PEAK_BYTES * 1e3
+    row = {
+        "name": name, "shape": [B, H, Lq, Lk, D], "dtype": str(dtype).replace("torch.", ""),
+        "masked": masked, "max_abs_err": err, "tolerance": tol, "ms": ms, "plain_ms": plain_ms,
+        "library_ms": library_ms, "bound_ms": max(t_ops, t_bytes),
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+    }
+    log(f"  {name:19s} {str(tuple(row['shape'])):26s} {row['dtype']:8s} err {err:.2e} (tol {tol:.0e}) "
+        f"ms {ms:.4f} plain {plain_ms:.4f} sdpa {library_ms:.4f} bound {row['bound_ms']:.4f} ({row['bound_by']})")
+    return row
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs the port on the card only", file=sys.stderr)
+        return 1
+    from office_person_detection_vit_torch.detection.detector import DETRDetector
+    from office_person_detection_vit_torch.device import resolve_device
+    from office_person_detection_vit_torch.kernels import attention as ka
+    from office_person_detection_vit_torch.models.detr import DETR, DETRConfig
+    from office_person_detection_vit_torch.ops.aggregation import zone_count_matrix
+    from office_person_detection_vit_torch.ops.attention import attention_reference
+    from office_person_detection_vit_torch.ops.geometry import homography_transform, validate_homography
+    from office_person_detection_vit_torch.ops.preprocessing import preprocess_frames
+    from office_person_detection_vit_torch.ops.zones import ZoneClassifier
+
+    # ---- 1. device and build
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    log(f"[1] card: {smi}")
+    t0 = time.perf_counter()
+    ka.load_library()
+    log(f"[1] built and loaded the attention kernels (nvcc, sm_90a) in {time.perf_counter() - t0:.1f} s")
+
+    # ---- 2. kernels against the plain version at the main-path shapes
+    log("[2] kernels vs plain version (times: CUDA events, mean of 20 after 3 warm-up launches)")
+    bf16, f32 = torch.bfloat16, torch.float32
+    k1, k2 = ka.attention_whole_kv, ka.attention_flash
+    cases = [
+        (k1, 8, 8, 920, 920, 32, bf16, True),  # encoder self-attention, 736x1280, B=8
+        (k1, 8, 8, 100, 920, 32, bf16, True),  # decoder cross-attention
+        (k1, 8, 8, 100, 100, 32, bf16, False),  # decoder self-attention
+        (k2, 2, 8, 3680, 3680, 32, bf16, True),  # DC5 encoder self-attention, B=2
+        (k2, 2, 8, 100, 3680, 32, bf16, True),  # DC5 decoder cross-attention
+        (k2, 8, 8, 920, 920, 32, bf16, True),  # K2 at the main path's encoder shape, timed beside K1
+        (k2, 8, 8, 920, 920, 32, f32, True),  # float32 encoder (K/V exceed shared memory)
+        (k2, 2, 8, 100, 920, 32, f32, True),  # float32 DETR-R50 of phase 3: cross-attention
+        (k1, 2, 8, 100, 100, 32, f32, False),  # and its decoder self-attention
+        (k1, 1, 8, 84, 84, 16, f32, True),  # DETR-small checkpoint of phase 5 (224x384): encoder
+        (k1, 1, 8, 25, 84, 16, f32, True),  # its cross-attention
+        (k1, 1, 8, 25, 25, 16, f32, False),  # its decoder self-attention
+    ]
+    rows = [kernel_case(attention_reference, *c, seed=i) for i, c in enumerate(cases)]
+
+    render_frame = load_render_frame()
+    t_start = datetime(2025, 1, 20, 9, 0, 0)
+    frames = np.stack([
+        render_frame(t_start + timedelta(minutes=5 * i),
+                     people=[(300 + 20 * i, 300, 0), (800 - 15 * i, 360, 1)], seed=i)
+        for i in range(19)
+    ])  # 16 frames = two full chunks of 8, plus a tail of 3 (bucket 4)
+
+    # ---- 3. full-width DETR-R50 detect, bf16
+    det = DETRDetector({
+        "detection.model_size": "full", "detection.dtype": "bfloat16", "detection.device": "cuda",
+        "detection.batch_size": 8, "detection.input_height": 736, "detection.input_width": 1280,
+        "detection.confidence_threshold": 0.5, "detection.nms_threshold": 0.4,
+    })
+    det.load_model()
+    det.detect_batch(frames[:8])  # warm-up (cuDNN algorithm choice)
+    torch.cuda.synchronize()
+    ka.reset_launch_counts()
+    batch = det.detect_batch(frames)
+    main_counts = dict(ka.launch_counts)
+    chunks = 3
+    check(batch.boxes_xywh.shape == (19, 100, 4), f"detect_batch shape {batch.boxes_xywh.shape}")
+    check(all(np.isfinite(a).all() for a in (batch.boxes_xywh, batch.scores, batch.foot)), "non-finite detections")
+    check(main_counts["attention_whole_kv"] == 18 * chunks and main_counts["attention_flash"] == 0,
+          f"full-width detect launched {main_counts}, expected 18 K1 launches per chunk x {chunks}")
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        det.detect_batch(frames[:16])
+        times.append(time.perf_counter() - t)
+    fps = 16 / min(times)
+    log(f"[3] DETR-R50 bf16 736x1280 batch 8: launches {main_counts} over {chunks} chunks "
+        f"(18 K1 per chunk); {fps:.2f} frames/s (best of 3 x 16 frames, host clock, "
+        f"uint8 frames in, DetectionBatch out) on {smi}")
+    det.cleanup()
+
+    resolve_device("cuda", "float32")  # TF32 off for the float32 comparison
+    cfg32 = DETRConfig(dtype="float32")
+    cpu_model = DETR(cfg32)
+    cpu_model.init_weights(torch.Generator().manual_seed(0))
+    cpu_model.eval()
+    gpu_model = DETR(cfg32).eval()
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    gpu_model.cuda()
+    pixels, mask = preprocess_frames(torch.from_numpy(frames[:2]), target_hw=(736, 1280))
+    ka.reset_launch_counts()
+    with torch.inference_mode():
+        got = gpu_model(pixels.cuda(), mask.cuda())
+        torch.cuda.synchronize()
+        f32_counts = dict(ka.launch_counts)
+        want = cpu_model(pixels, mask)
+    d_logits = (got["logits"].cpu() - want["logits"]).abs()
+    d_boxes = (got["boxes"].cpu() - want["boxes"]).abs().max().item()
+    logits_ok = bool((d_logits <= LOGITS_ATOL + LOGITS_RTOL * want["logits"].abs()).all())
+    check(f32_counts == {"attention_whole_kv": 6, "attention_flash": 12},
+          f"float32 forward launched {f32_counts}, expected 6 K1 + 12 K2")
+    check(logits_ok and d_boxes <= BOXES_ATOL,
+          f"float32 card vs CPU: max|dlogits| {d_logits.max().item():.2e}, max|dboxes| {d_boxes:.2e}")
+    log(f"[3] float32 DETR-R50 on the card (K1 x6, K2 x12) vs CPU (plain): max|dlogits| "
+        f"{d_logits.max().item():.2e} (atol {LOGITS_ATOL} rtol {LOGITS_RTOL}), max|dboxes| {d_boxes:.2e} (atol {BOXES_ATOL})")
+    del cpu_model, gpu_model, got
+
+    # ---- 4. DETR-DC5 detect: 3680 tokens go through K2
+    dc5 = DETRDetector({
+        "detection.model_size": "full", "detection.dtype": "bfloat16", "detection.device": "cuda",
+        "detection.dilate_c5": True, "detection.batch_size": 2, "detection.input_height": 736,
+        "detection.input_width": 1280, "detection.nms_threshold": 0.4,
+    })
+    dc5.load_model()
+    dc5.detect_batch(frames[:2])  # warm-up
+    ka.reset_launch_counts()
+    dc5_batch = dc5.detect_batch(frames[:2])
+    dc5_counts = dict(ka.launch_counts)
+    check(np.isfinite(dc5_batch.boxes_xywh).all(), "non-finite DC5 detections")
+    check(dc5_counts == {"attention_whole_kv": 6, "attention_flash": 12},
+          f"DC5 detect launched {dc5_counts}, expected 12 K2 (encoder, cross) + 6 K1 (decoder self)")
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    dc5.detect_batch(frames[:2])
+    log(f"[4] DETR-DC5 bf16 736x1280 batch 2: launches {dc5_counts}; "
+        f"{2 / (time.perf_counter() - t):.2f} frames/s on {smi}")
+    dc5.cleanup()
+
+    # ---- 5. the committed DETR-small checkpoint finds the drawn person
+    small = DETRDetector({
+        "detection.model_size": "small", "detection.score_mode": "sigmoid",
+        "detection.checkpoint_path": str(ROOT / "docs" / "artifacts" / "detr_small_weights.npz"),
+        "detection.device": "cuda", "detection.dtype": "float32",
+        "detection.input_height": 224, "detection.input_width": 384,
+        "detection.confidence_threshold": 0.2, "detection.nms_threshold": 0.3,
+        "detection.batch_size": 1,
+    })
+    px, py = 500, 350
+    frame = render_frame(t_start, people=[(px, py, 2)], seed=4)
+    small.load_model()
+    ka.reset_launch_counts()
+    dets = small.detect(frame)
+    small_counts = dict(ka.launch_counts)
+    check(small_counts == {"attention_whole_kv": 9, "attention_flash": 0},
+          f"DETR-small detect launched {small_counts}, expected 9 K1 (3 encoder, 3+3 decoder)")
+    check(len(dets) >= 1, "the small checkpoint detected nobody")
+    want_c = (px + 25.0, py - 26 + 156 / 2)  # GT box (x, y - 26, 50, 156)
+    dist = min(max(abs(d.bbox[0] + d.bbox[2] / 2 - want_c[0]), abs(d.bbox[1] + d.bbox[3] / 2 - want_c[1]))
+               for d in dets)
+    check(dist < 60, f"no detection within 60 px of the person at {want_c}: {[d.bbox for d in dets]}")
+    log(f"[5] DETR-small checkpoint: launches {small_counts}; {len(dets)} detection(s), "
+        f"nearest centre {dist:.1f} px from the person")
+
+    # ---- 6. Phase 3-4 on the detections' foot points
+    H = np.array([
+        [-0.8795888447, -2.8974379541, 417.8510123786],
+        [-1.5459702925, -3.4570021203, 1054.0107447082],
+        [-0.0011928509, -0.0035480452, 1.0000000000],
+    ])
+    zones = [
+        {"id": f"zone_{i + 1}", "polygon": [[x0, 912], [x0 + 236, 912], [x0 + 236, 1350], [x0, 1350]], "priority": i + 1}
+        for i, x0 in enumerate((859, 1095, 1331))
+    ]
+    validate_homography(H)
+    foot = np.asarray([d.foot_point for d in dets], np.float32)
+    floor = homography_transform(torch.tensor(H, dtype=torch.float32, device="cuda"),
+                                 torch.from_numpy(foot).cuda()).cpu().numpy()
+    hom = np.c_[foot.astype(np.float64), np.ones(len(foot))] @ H.T
+    floor64 = hom[:, :2] / hom[:, 2:]
+    check(np.abs(floor - floor64).max() < 1e-2, f"homography off float64 by {np.abs(floor - floor64).max():.3e} px")
+    zc = ZoneClassifier(zones, device="cuda")
+    membership = zc.membership(floor64)
+    counts = zone_count_matrix(torch.from_numpy(membership[None]).cuda(),
+                               torch.ones(1, len(foot), dtype=torch.bool, device="cuda")).cpu().numpy()[0]
+    x, y = floor64[:, 0:1], floor64[:, 1:2]
+    x0 = np.asarray([z["polygon"][0][0] for z in zones])[None]
+    want_counts = ((x > x0) & (x < x0 + 236) & (y > 912) & (y < 1350)).sum(0)
+    check(np.array_equal(counts, want_counts), f"zone counts {counts} != float64 {want_counts}")
+    check(counts.sum() >= 1, f"no detection in a zone: floor points {floor64.tolist()}")
+    log(f"[6] Phase 3-4: floor points {np.round(floor64, 1).tolist()}, zone counts {counts.tolist()} "
+        f"(float64 numpy agrees; max homography gap {np.abs(floor - floor64).max():.2e} px)")
+
+    # ---- result
+    replaces = {"attention_whole_kv": "office_person_detection_vit_tpu/ops/attention.py:60",
+                "attention_flash": "office_person_detection_vit_tpu/ops/attention.py:159"}
+    launches = {"attention_whole_kv": main_counts["attention_whole_kv"],  # full-width detect
+                "attention_flash": dc5_counts["attention_flash"]}  # the DC5 detect
+    headline = {"attention_whole_kv": rows[0], "attention_flash": rows[3]}  # the encoder shapes
+    kernels = [
+        {"name": name, "route": "cuda", "source": "office_person_detection_vit_torch/csrc/attention.cu",
+         "replaces": replaces[name], "launches": launches[name],
+         **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                "shape", "dtype")}}
+        for name, row in headline.items()
+    ]
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,156 @@
+"""Port attention (office_person_detection_vit_torch) against the JAX package.
+
+The plain version is held against JAX ``attention_reference`` and against the
+Pallas kernels run in interpret mode, as tests/test_attention_ops.py runs
+them. Inputs are made with numpy from a seed. float32 throughout; tolerance
+1e-5 absolute (sums in another order). Rows with no valid key are left out
+of the Pallas comparisons: the JAX paths disagree there (ROADMAP quirk C1).
+"""
+
+import ast
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from office_person_detection_vit_torch.kernels import attention as kernels
+from office_person_detection_vit_torch.ops import attention as port
+from office_person_detection_vit_tpu.ops import attention as ref
+
+torch.set_num_threads(2)
+REPO = Path(__file__).resolve().parent.parent
+
+
+def _inputs(seed, B, H, Lq, Lk, D, mask_frac):
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(B, H, Lq, D)).astype(np.float32)
+    k = rng.normal(size=(B, H, Lk, D)).astype(np.float32)
+    v = rng.normal(size=(B, H, Lk, D)).astype(np.float32)
+    mask = None if mask_frac is None else rng.random((B, Lk)) > mask_frac
+    return q, k, v, mask
+
+
+def _port(q, k, v, mask, fn=port.attention_reference):
+    t = [torch.from_numpy(a) for a in (q, k, v)]
+    m = None if mask is None else torch.from_numpy(mask)
+    return fn(*t, m).numpy()
+
+
+def _jax(fn, q, k, v, mask, **kw):
+    m = None if mask is None else jnp.asarray(mask)
+    return np.asarray(fn(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), m, **kw))
+
+
+@pytest.mark.parametrize(
+    "shape,mask_frac",
+    [((2, 4, 37, 53, 32), None), ((2, 4, 37, 53, 32), 0.3), ((1, 2, 100, 260, 16), 0.2)],
+)
+def test_reference_matches_jax_reference(shape, mask_frac):
+    q, k, v, mask = _inputs(0, *shape, mask_frac)
+    np.testing.assert_allclose(_port(q, k, v, mask), _jax(ref.attention_reference, q, k, v, mask), atol=1e-5)
+
+
+@pytest.mark.parametrize("mask_frac", [None, 0.3])
+def test_reference_matches_whole_kv_pallas(mask_frac):
+    q, k, v, mask = _inputs(1, 2, 4, 37, 53, 32, mask_frac)
+    got = _port(q, k, v, mask)
+    want = _jax(ref.attention_pallas, q, k, v, mask, interpret=True)
+    np.testing.assert_allclose(got, want, atol=1e-5)
+
+
+@pytest.mark.parametrize("lq,lk", [(64, 64), (100, 1008)])
+def test_reference_matches_flash_pallas(lq, lk):
+    q, k, v, mask = _inputs(2, 2, 2, lq, lk, 32, 0.2)
+    got = _port(q, k, v, mask)
+    want = _jax(ref.attention_pallas_flash, q, k, v, mask, interpret=True)
+    np.testing.assert_allclose(got, want, atol=2e-5)
+
+
+def test_fully_masked_entry_gives_mean_of_v():
+    """Quirk C1: the port follows attention_reference, mean(V) over Lk."""
+    q, k, v, mask = _inputs(3, 2, 2, 5, 9, 16, 0.3)
+    mask[0] = False
+    got = _port(q, k, v, mask)
+    np.testing.assert_allclose(got[0], np.broadcast_to(v[0].mean(1, keepdims=True), got[0].shape), atol=1e-6)
+    np.testing.assert_allclose(got, _jax(ref.attention_reference, q, k, v, mask), atol=1e-5)
+
+
+def test_return_probs_match_jax():
+    q, k, v, mask = _inputs(4, 1, 2, 5, 7, 8, 0.3)
+    t = [torch.from_numpy(a) for a in (q, k, v)]
+    out, probs = port.attention_reference(*t, torch.from_numpy(mask), return_probs=True)
+    _, jprobs = ref.attention_reference(*(jnp.asarray(a) for a in (q, k, v)), jnp.asarray(mask), return_probs=True)
+    np.testing.assert_allclose(probs.numpy(), np.asarray(jprobs), atol=1e-6)
+    np.testing.assert_allclose(probs.sum(-1).numpy(), 1.0, atol=1e-5)
+
+
+@pytest.mark.parametrize("fn", [kernels.attention_whole_kv, kernels.attention_flash, port.multi_head_attention])
+def test_cpu_tensors_take_the_plain_version(fn):
+    q, k, v, mask = _inputs(5, 1, 2, 11, 13, 16, 0.3)
+    np.testing.assert_array_equal(_port(q, k, v, mask, fn), _port(q, k, v, mask))
+
+
+@pytest.mark.parametrize("fn", [kernels.attention_whole_kv, kernels.attention_flash, port.multi_head_attention])
+def test_non_cuda_device_raises(fn):
+    """A tensor that is not on the CPU takes the kernel path, which raises on
+    anything but a CUDA tensor instead of falling back to the plain version."""
+    q = torch.empty(1, 2, 8, 16, device="meta")
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        fn(q, q, q)
+
+
+def test_load_library_raises_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        kernels.load_library()
+
+
+def test_build_raises_without_nvcc(monkeypatch, tmp_path):
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setattr(kernels, "BUILD_DIR", tmp_path / "build")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        kernels.build_library()
+
+
+@pytest.mark.parametrize(
+    "lk,d,dtype,flash",
+    [
+        (920, 32, torch.bfloat16, False),  # DETR-R50 encoder/cross-attention in bf16
+        (920, 32, torch.float32, True),  # the same in float32: 244,632 B > 227 KB
+        (100, 32, torch.float32, False),  # decoder self-attention
+        (3680, 32, torch.bfloat16, True),  # DETR-DC5 at 736x1280
+        (84, 16, torch.float32, False),  # small tier at 224x384
+    ],
+)
+def test_dispatch_rule(lk, d, dtype, flash):
+    assert kernels.use_flash(lk, d, dtype) is flash
+
+
+def test_whole_kv_smem_arithmetic():
+    assert kernels.whole_kv_smem_bytes(920, 32, torch.bfloat16) == 122_776
+    assert kernels.whole_kv_smem_bytes(920, 32, torch.float32) == 244_632
+
+
+_FORBIDDEN = ("jax", "flax", "ml_dtypes", "office_person_detection_vit_tpu")
+
+
+def _port_sources():
+    return sorted((REPO / "office_person_detection_vit_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+
+
+@pytest.mark.parametrize("path", _port_sources(), ids=lambda p: str(p.relative_to(REPO)))
+def test_port_imports_nothing_of_jax(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""] if node.level == 0 else []
+        else:
+            continue
+        for name in names:
+            assert name.split(".")[0] not in _FORBIDDEN, f"{path}: imports {name}"

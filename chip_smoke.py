@@ -2,10 +2,10 @@
 
     python3 chip_smoke.py
 
-Builds the hand-written CUDA attention kernels from
-``office_person_detection_vit_torch/csrc`` with nvcc, holds each against its
-plain PyTorch version at the shapes DETR's main path gives it, then drives the
-port through its entry point ``DETRDetector``:
+Builds the hand-written CUDA kernels from
+``office_person_detection_vit_torch/csrc`` (one nvcc call), holds each against
+its plain PyTorch version at the shapes its path gives it, then drives the
+port through its entry points ``DETRDetector`` and the fused-bottleneck bench:
 
 1. device: the card's name and power limit; the kernel build and its time;
 2. kernels against the plain version at the shapes phases 3-5 give them,
@@ -17,7 +17,14 @@ port through its entry point ``DETRDetector``:
 5. the committed DETR-small checkpoint finds the person drawn into a frame,
    with all 9 of its attention calls through K1;
 6. Phase 3-4 (homography -> zones -> counts) on those foot points against
-   float64 numpy.
+   float64 numpy;
+7. the fused bottleneck K3: (a) the bench entry point
+   (``bottleneck_kernel_bench``) at both stage geometries in bf16 and in
+   float32, against the plain version; (b) the 12 identity blocks of a
+   full-width DETR-R50 (736x1280, batch 8, float32, seeded random FrozenBN),
+   K3 on each folded block against the block's own output; (c) the same 12
+   inputs in bf16 against the plain version; each stage timed against the
+   cuDNN chain.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 Its last two lines are JSON: the kernels (launches, error, times, bound) and
@@ -48,6 +55,14 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 # float32: summation order only. bf16: the kernels round the probabilities
 # and the output to bf16 (relative 2^-8 each) on outputs of size ~1.
 TOLERANCE = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+# K3 against the plain version, relative to max(1, |ref|). float32 (TF32
+# off): summation order only. bf16, the plain version on the same bf16
+# values: two ulps of the output, 2^-6 -- one for the output's own rounding,
+# one for a y1 or y2 value next to a rounding midpoint that rounds the other
+# way and is carried through the next product.
+K3_TOL = {torch.float32: 1e-4, torch.bfloat16: 2.0**-6}
+# K3's tile_h at each DETR-R50 stage at 736x1280 (heights 184/92/46/23), by C.
+DETR_TILE_H = {256: 8, 512: 4, 1024: 2, 2048: 1}
 # Whole-model float32, card vs CPU: the repo's DETR bar
 # (tests/test_detr_parity.py), with TF32 off on the card.
 LOGITS_ATOL, LOGITS_RTOL, BOXES_ATOL = 2e-3, 1e-3, 1e-3
@@ -122,6 +137,123 @@ def kernel_case(attention_reference, fn, B, H, Lq, Lk, D, dtype, masked, seed):
     return row
 
 
+# ------------------------------------------------------------------- phase 7
+def bottleneck_phase(frames: np.ndarray, smi: str) -> dict:
+    """K3 through the bench entry point and on DETR-R50's 12 identity blocks;
+    returns K3's row of the kernels line (stage-1 bench geometry, bf16)."""
+    from office_person_detection_vit_torch import bottleneck_kernel_bench as bench
+    from office_person_detection_vit_torch.device import resolve_device
+    from office_person_detection_vit_torch.kernels import bottleneck as kb
+    from office_person_detection_vit_torch.models.detr import DETR, DETRConfig
+    from office_person_detection_vit_torch.models.resnet import FrozenBatchNorm
+    from office_person_detection_vit_torch.ops.fused_bottleneck import (
+        bottleneck_reference, fold_identity_bottleneck, fused_bottleneck,
+    )
+    from office_person_detection_vit_torch.ops.preprocessing import preprocess_frames
+
+    # (a) the bench entry point: both geometries, in bf16 and in float32
+    kb.reset_launch_counts()
+    runs = {"bfloat16": bench.main(["--iters", "5"]), "float32": bench.main(["--iters", "3", "--dtype", "float32"])}
+    bench_launches = kb.launch_counts["fused_bottleneck"]
+    made = sum(v for r in runs.values() for e in r["shapes"].values() for k, v in e.items() if k.endswith("_launches"))
+    check(bench_launches > 0 and bench_launches == made,
+          f"the bench launched K3 {bench_launches} times, its calls {made}")
+    for dt, r in runs.items():
+        for label, e in r["shapes"].items():
+            for key in (k for k in e if k.endswith("_relerr")):
+                tol = K3_TOL[bench.DTYPES[dt]]
+                check(e[key] <= tol, f"K3 {label} {dt} {key}: {e[key]:.3e} > {tol:.1e}")
+    log(f"[7a] bench: {bench_launches} K3 launches, every error within tolerance "
+        f"(float32 {K3_TOL[torch.float32]:.0e}, bf16 {K3_TOL[torch.bfloat16]:.2e} relative to max(1,|ref|)) on {smi}")
+
+    # (b) the 12 identity blocks of a full-width DETR-R50, float32, TF32 off
+    resolve_device("cuda", "float32")
+    model = DETR(DETRConfig(dtype="float32"))
+    model.init_weights(torch.Generator().manual_seed(0))
+    g = torch.Generator().manual_seed(7)  # init_weights leaves FrozenBN at the identity
+    with torch.no_grad():
+        for mod in model.backbone.modules():
+            if isinstance(mod, FrozenBatchNorm):
+                mod.scale.uniform_(0.5, 1.5, generator=g)
+                mod.bias.normal_(0.0, 0.5, generator=g)
+    backbone = model.backbone.cuda().eval()
+    del model
+    blocks = [(n, getattr(backbone, n)) for n in backbone.blocks if getattr(backbone, n).shortcut_conv is None]
+    check(len(blocks) == 12, f"DETR-R50 has {len(blocks)} identity blocks, expected 12")
+    io = {}
+
+    def keep(mod, inp, out, name):  # NHWC copies of the block's input and output
+        io[name] = (inp[0].permute(0, 2, 3, 1).contiguous(), out.permute(0, 2, 3, 1).contiguous())
+
+    hooks = [blk.register_forward_hook(lambda m, i, o, n=n: keep(m, i, o, n)) for n, blk in blocks]
+    pixels, _ = preprocess_frames(torch.from_numpy(frames), target_hw=(736, 1280))
+    with torch.inference_mode():
+        backbone(pixels.cuda())
+    for h in hooks:
+        h.remove()
+    folded = {n: fold_identity_bottleneck(blk) for n, blk in blocks}
+
+    def bf16(ws):
+        return [w.bfloat16() if w.dim() > 1 else w for w in ws]
+
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        kb.reset_launch_counts()
+        for n, _ in blocks:
+            x, block_out = io[n]
+            ws = folded[n]
+            if dtype == torch.bfloat16:
+                x, ws = x.bfloat16(), bf16(ws)
+                want = bottleneck_reference(x, *ws)  # (c) the plain version on the bf16 values
+            else:
+                want = block_out  # (b) the unfolded block's own output
+            got = fused_bottleneck(x, *ws, tile_h=DETR_TILE_H[x.shape[-1]])
+            errs[n, dtype] = bench.errors(got, want)
+            check(bool(torch.isfinite(got).all()), f"K3 {n} {dtype}: non-finite output")
+        launches = kb.launch_counts["fused_bottleneck"]
+        check(launches == len(blocks), f"the {dtype} identity blocks launched K3 {launches} times, expected 12")
+        worst = max(errs[n, dtype][1] for n, _ in blocks)
+        check(worst <= K3_TOL[dtype], f"K3 on DETR-R50 blocks {dtype}: relative error {worst:.3e} > {K3_TOL[dtype]:.1e}")
+        log(f"[7{'b' if dtype == torch.float32 else 'c'}] DETR-R50 identity blocks {str(dtype)[6:]}: "
+            f"{launches} K3 launches; max |err| relative to max(1,|ref|) {worst:.3e} (tol {K3_TOL[dtype]:.1e}) "
+            f"against {'the unfolded block' if dtype == torch.float32 else 'the plain version'}")
+    for n, _ in blocks:
+        x = io[n][0]
+        log(f"     {n:13s} {str(tuple(x.shape)):22s} float32 err {errs[n, torch.float32][0]:.3e} "
+            f"(rel {errs[n, torch.float32][1]:.3e}); bf16 err {errs[n, torch.bfloat16][0]:.3e} "
+            f"(rel {errs[n, torch.bfloat16][1]:.3e})")
+
+    # Each stage's first identity block, timed against the cuDNN chain
+    log("[7] per-stage block times (CUDA events, mean of 5 after 2 warm-up; plain: 2 after 1)")
+    for n in ("stage0_layer1", "stage1_layer1", "stage2_layer1", "stage3_layer1"):
+        for dtype in (torch.float32, torch.bfloat16):
+            x, ws = io[n][0], folded[n]
+            if dtype == torch.bfloat16:
+                x, ws = x.bfloat16(), bf16(ws)
+            B, H, W, C = x.shape
+            M = ws[0].shape[1]
+            th = DETR_TILE_H[C]
+            cw = bench.chain_weights(*ws)
+            ms = bench.cuda_ms(lambda: fused_bottleneck(x, *ws, tile_h=th), 5)
+            cudnn = bench.cuda_ms(lambda: bench.cudnn_chain(x, *cw), 5)
+            plain = bench.cuda_ms(lambda: bottleneck_reference(x, *ws), 2, 1)
+            bound_ms, bound_by = bench.bound(B, H, W, C, M, dtype)
+            gflop = bench.flops(B, H, W, C, M) / 1e9
+            log(f"     {n:13s} {str((B, H, W, C, M)):24s} {str(dtype)[6:]:8s} tile_h {th}: K3 {ms:.4f} ms "
+                f"({gflop / ms:.1f} TFLOP/s) cuDNN chain {cudnn:.4f} plain {plain:.4f} bound {bound_ms:.4f} ({bound_by})")
+    del io, folded, backbone
+    torch.cuda.empty_cache()
+
+    e = runs["bfloat16"]["shapes"][bench.SHAPES[0][0]]
+    return {
+        "name": "fused_bottleneck", "route": "cuda", "source": "office_person_detection_vit_torch/csrc/bottleneck.cu",
+        "replaces": "office_person_detection_vit_tpu/ops/fused_bottleneck.py:47", "launches": bench_launches,
+        "max_abs_err": e["cuda_th8_maxerr"], "ms": e["cuda_th8_ms"], "plain_ms": e["plain_ms"],
+        "bound_ms": e["bound_ms"], "bound_by": e["bound_by"], "library_ms": e["cudnn_ms"],
+        "shape": e["shape"], "dtype": "bfloat16", "tile_h": 8, "detr_block_launches": 2 * len(blocks),
+    }
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs the port on the card only", file=sys.stderr)
@@ -129,6 +261,8 @@ def main() -> int:
     from office_person_detection_vit_torch.detection.detector import DETRDetector
     from office_person_detection_vit_torch.device import resolve_device
     from office_person_detection_vit_torch.kernels import attention as ka
+    from office_person_detection_vit_torch.kernels import bottleneck as kb
+    from office_person_detection_vit_torch.kernels import build
     from office_person_detection_vit_torch.models.detr import DETR, DETRConfig
     from office_person_detection_vit_torch.ops.aggregation import zone_count_matrix
     from office_person_detection_vit_torch.ops.attention import attention_reference
@@ -144,7 +278,9 @@ def main() -> int:
     log(f"[1] card: {smi}")
     t0 = time.perf_counter()
     ka.load_library()
-    log(f"[1] built and loaded the attention kernels (nvcc, sm_90a) in {time.perf_counter() - t0:.1f} s")
+    kb.load_library()
+    log(f"[1] built and loaded the kernel library ({', '.join(p.name for p in build.sources())}; "
+        f"one nvcc call, sm_90a) in {time.perf_counter() - t0:.1f} s")
 
     # ---- 2. kernels against the plain version at the main-path shapes
     log("[2] kernels vs plain version (times: CUDA events, mean of 20 after 3 warm-up launches)")
@@ -304,6 +440,9 @@ def main() -> int:
     log(f"[6] Phase 3-4: floor points {np.round(floor64, 1).tolist()}, zone counts {counts.tolist()} "
         f"(float64 numpy agrees; max homography gap {np.abs(floor - floor64).max():.2e} px)")
 
+    del small
+    k3_row = bottleneck_phase(frames[:8], smi)
+
     # ---- result
     replaces = {"attention_whole_kv": "office_person_detection_vit_tpu/ops/attention.py:60",
                 "attention_flash": "office_person_detection_vit_tpu/ops/attention.py:159"}
@@ -316,7 +455,7 @@ def main() -> int:
          **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                                 "shape", "dtype")}}
         for name, row in headline.items()
-    ]
+    ] + [k3_row]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

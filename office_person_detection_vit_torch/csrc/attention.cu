@@ -407,6 +407,7 @@ extern "C" int attention_flash(int dtype, const void* q, const void* k, const vo
   return dispatch(true, dtype, q, k, v, mask, out, B, H, Lq, Lk, D, stream);
 }
 
-extern "C" const char* attention_error_string(int err) {
+// The message of a cudaError_t, for every kernel of the library.
+extern "C" const char* cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

@@ -10,8 +10,9 @@ Counterparts of the Pallas kernels in
   ``_flash_attn_kernel`` (K2): the same grid, streaming K/V in 64-key tiles
   with an online softmax.
 
-The source is compiled with ``nvcc`` for ``sm_90a`` into a shared library
-with a plain C interface at first use (:func:`load_library`) and bound with
+The source is compiled with the port's other CUDA sources, in one ``nvcc``
+call for ``sm_90a``, into a shared library with a plain C interface at first
+use (:func:`load_library`, see ``kernels/build.py``) and bound with
 ``ctypes``. Importing this module builds nothing, so it imports on machines
 without ``nvcc`` or a card.
 
@@ -23,38 +24,22 @@ on a CUDA tensor it launches its kernel or raises. There is no fall-back.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-from pathlib import Path
 
 import torch
 
 from ..ops.attention import attention_reference
-
-_PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "attention.cu"
-BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-)
+from . import build
+from .build import BLOCK_SMEM_BYTES
 
 #: Launches of each kernel since the last :func:`reset_launch_counts`. Each
 #: wrapper adds one where it launches its kernel, and nowhere else.
 launch_counts = {"attention_whole_kv": 0, "attention_flash": 0}
 
-#: Shared memory one block may use on sm_90 (227 KB, opt-in dynamic).
-BLOCK_SMEM_BYTES = 232_448
 #: Query rows per block (kRows in the source).
 QUERY_TILE = 64
 #: Head dims the source is instantiated for: 16 (tiny, small) and 32 (full).
 HEAD_DIMS = (16, 32)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-
-_lib: ctypes.CDLL | None = None
 
 
 def reset_launch_counts() -> None:
@@ -82,59 +67,14 @@ def use_flash(lk: int, head_dim: int, dtype: torch.dtype) -> bool:
     return whole_kv_smem_bytes(lk, head_dim, dtype) > BLOCK_SMEM_BYTES
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    candidate = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
-    if candidate.exists():
-        return str(candidate)
-    raise RuntimeError(
-        "nvcc not found (PATH or $CUDA_HOME/bin): the CUDA attention kernels "
-        "cannot be built"
-    )
-
-
-def build_library() -> Path:
-    """Compile ``csrc/attention.cu`` (cached by source and flags) -> .so path."""
-    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    target = BUILD_DIR / f"libattention_{digest[:16]}.so"
-    if target.exists():
-        return target
-    nvcc = _nvcc()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        proc = subprocess.run(
-            [nvcc, *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
-            capture_output=True, text=True,
-        )
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-        os.replace(tmp, target)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return target
-
-
 def load_library() -> ctypes.CDLL:
     """Build (once) and load the kernels. Raises when there is no card."""
-    global _lib
-    if _lib is not None:
-        return _lib
-    if not torch.cuda.is_available():
-        raise RuntimeError("CUDA attention kernels need a CUDA device; none is available")
-    lib = ctypes.CDLL(str(build_library()))
+    lib = build.load_library()
     args = [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     for name in launch_counts:
         fn = getattr(lib, name)
         fn.argtypes = args
         fn.restype = ctypes.c_int
-    lib.attention_error_string.argtypes = [ctypes.c_int]
-    lib.attention_error_string.restype = ctypes.c_char_p
-    _lib = lib
     return lib
 
 
@@ -178,8 +118,7 @@ def _launch(name: str, q, k, v, mask) -> torch.Tensor:
             None if mask is None else mask.data_ptr(), out.data_ptr(),
             B, H, Lq, k.shape[2], D, stream,
         )
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: {lib.attention_error_string(err).decode()}")
+    build.check_launch(lib, name, err)
     launch_counts[name] += 1
     return out
 

@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from office_person_detection_vit_torch.kernels import attention as kernels
+from office_person_detection_vit_torch.kernels import build
 from office_person_detection_vit_torch.ops import attention as port
 from office_person_detection_vit_tpu.ops import attention as ref
 
@@ -111,9 +112,16 @@ def test_load_library_raises_without_a_card():
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
-    monkeypatch.setattr(kernels, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "build")
     with pytest.raises(RuntimeError, match="nvcc not found"):
-        kernels.build_library()
+        build.build_library()
+
+
+def test_one_library_builds_every_source():
+    """Both wrappers load the library that one nvcc call builds from every
+    ``csrc/*.cu``."""
+    names = [p.name for p in build.sources()]
+    assert names == ["attention.cu", "bottleneck.cu"]
 
 
 @pytest.mark.parametrize(

@@ -1,23 +1,31 @@
-"""The CUDA attention kernels against their plain version, on the card.
+"""The CUDA kernels (attention K1/K2, fused bottleneck K3) against their plain
+version, on the card.
 
 Marked ``cuda``; each test skips where there is no CUDA device (the CUDA
 kernels have no CPU mode). On a GPU machine:
 
     python -m pytest tests/test_torch_cuda_kernels.py --noconftest -m cuda -q
 
-Tolerance: float32 1e-5 (summation order); bf16 1e-2 against the plain
-version in float32 on the same values (probabilities and output rounded to
-bf16).
+Attention tolerance: float32 1e-5 (summation order); bf16 1e-2 against the
+plain version in float32 on the same values (probabilities and output rounded
+to bf16). K3, relative to max(1, |ref|) against the plain version on the same
+values: float32 1e-4 with TF32 off (summation order); bf16 2^-6, two ulps of
+the output (its own rounding, and a y1 or y2 value next to a rounding
+midpoint carried through the next product).
 """
 
 import pytest
 import torch
 
+from office_person_detection_vit_torch import bottleneck_kernel_bench as bench
 from office_person_detection_vit_torch.kernels import attention as kernels
+from office_person_detection_vit_torch.kernels import bottleneck as k3
 from office_person_detection_vit_torch.ops.attention import attention_reference, multi_head_attention
+from office_person_detection_vit_torch.ops.fused_bottleneck import bottleneck_reference, fused_bottleneck
 
 pytestmark = pytest.mark.cuda
 TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+K3_TOL = {torch.float32: 1e-4, torch.bfloat16: 2.0**-6}
 
 
 @pytest.fixture
@@ -70,3 +78,40 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(card):
         kernels.attention_flash(q.transpose(2, 3), k, v)
     with pytest.raises(ValueError):
         kernels.attention_whole_kv(*_case(1, 1, 8, 4000, 32, torch.float32, False)[:3])
+
+
+def _bottleneck_case(B, H, W, C, M, dtype, b1=None, seed=0):
+    x, ws = bench.make_inputs(B, H, W, C, M, dtype, "cuda", seed)
+    if b1 is not None:
+        ws[1].fill_(b1)  # relu(b1) != 0 would leak into the border rows and columns
+    return x, list(ws)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C,M,tile_h", [(256, 64, 4), (2048, 512, 1)], ids=["stage1", "stage4"])
+@pytest.mark.parametrize("b1", [None, 3.0], ids=["random_b1", "border_b1_3"])
+def test_bottleneck_matches_plain(card, dtype, C, M, tile_h, b1):
+    """W = 20 leaves a ragged last patch of columns; every patch touches a border."""
+    x, ws = _bottleneck_case(2, 8, 20, C, M, dtype, b1)
+    before = k3.launch_counts["fused_bottleneck"]
+    out = fused_bottleneck(x, *ws, tile_h=tile_h)
+    torch.cuda.synchronize()
+    assert k3.launch_counts["fused_bottleneck"] == before + 1
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        want = bottleneck_reference(x, *ws).float()
+    assert out.dtype == dtype and out.shape == x.shape
+    rel = ((out.float() - want).abs() / want.abs().clamp(min=1.0)).max().item()
+    assert rel <= K3_TOL[dtype]
+
+
+def test_bottleneck_wrapper_rejects_what_the_kernel_does_not_take(card):
+    x, ws = _bottleneck_case(1, 4, 8, 64, 16, torch.float32)
+    wide, _ = _bottleneck_case(1, 4, 16, 64, 16, torch.float32)
+    with pytest.raises(ValueError, match="contiguous"):
+        k3.fused_bottleneck(wide[:, :, ::2], *ws, tile_h=4)
+    half = [w.half() if w.dim() > 1 else w for w in ws]
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        k3.fused_bottleneck(x.half(), *half, tile_h=4)
+    bad_w2 = torch.zeros(3, 3, 16, 24, device="cuda")
+    with pytest.raises(ValueError, match="w2"):
+        k3.fused_bottleneck(x, ws[0], ws[1], bad_w2, *ws[3:], tile_h=4)

@@ -8,11 +8,18 @@ its plain PyTorch version at the shapes its path gives it, then drives the
 port through its entry points ``DETRDetector`` and the fused-bottleneck bench:
 
 1. device: the card's name and power limit; the kernel build and its time;
-2. kernels against the plain version at the shapes phases 3-5 give them,
-   with times, bounds and SDPA's time;
+   each attention kernel's registers, spills and shared memory, and the
+   tensor-core instructions (HMMA) in its machine code;
+2. kernels against the plain version at the shapes phases 3-5 give them
+   (``attention_kernel_bench.CASES``), with times, bounds, the share of the
+   bound, SDPA's time and, labelled as such, the time recorded for the
+   CUDA-core kernels that the bf16 tensor-core kernels replaced; K1 and K2
+   both at the main path's three bf16 shapes, which the dispatch rule
+   (``kernels/attention.py::use_flash``) was set from;
 3. full-width DETR-R50 detect at 736x1280 in bf16 (random seeded weights),
-   whose 18 attention calls per chunk must all be K1, and a float32 run of
-   the same model on the card against the CPU (plain attention);
+   whose 18 attention calls per chunk go to K1 or K2 as the dispatch rule
+   says (frames/s best and median of 7 runs), and a float32 run of the same
+   model on the card against the CPU (plain attention);
 4. DETR-DC5 detect, whose 3680-token attention must go through K2;
 5. the committed DETR-small checkpoint finds the person drawn into a frame,
    with all 9 of its attention calls through K1;
@@ -47,14 +54,26 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT))
 
-# Published H100 SXM peaks (dense): HBM bytes/s, bf16 tensor-core and
-# non-tensor float32 FLOP/s.
-PEAK_BYTES = 3.35e12
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
-# Kernel vs its plain version evaluated in float32 on the same input values.
-# float32: summation order only. bf16: the kernels round the probabilities
-# and the output to bf16 (relative 2^-8 each) on outputs of size ~1.
-TOLERANCE = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+# Recorded times of the attention kernels by (kernel, shape, type): the
+# CUDA-core kernels before bf16 moved to the tensor cores, measured by this
+# script's phase 2 on an NVIDIA H100 80GB HBM3, 700.00 W (PERF.md, "earlier ms").
+# That loop also timed the wrapper's host cost, so they are printed beside
+# the new times and not divided by them; ``attention_kernel_bench --against``
+# times both versions by one method.
+EARLIER_MS = {
+    ("attention_whole_kv", (8, 8, 920, 920, 32), "bfloat16"): 0.9081,
+    ("attention_whole_kv", (8, 8, 100, 920, 32), "bfloat16"): 0.1395,
+    ("attention_whole_kv", (8, 8, 100, 100, 32), "bfloat16"): 0.0278,
+    ("attention_flash", (2, 8, 3680, 3680, 32), "bfloat16"): 1.5187,
+    ("attention_flash", (2, 8, 100, 3680, 32), "bfloat16"): 0.3023,
+    ("attention_flash", (8, 8, 920, 920, 32), "bfloat16"): 0.4138,
+    ("attention_flash", (8, 8, 920, 920, 32), "float32"): 0.4890,
+    ("attention_flash", (2, 8, 100, 920, 32), "float32"): 0.0859,
+    ("attention_whole_kv", (2, 8, 100, 100, 32), "float32"): 0.0260,
+    ("attention_whole_kv", (1, 8, 84, 84, 16), "float32"): 0.0258,
+    ("attention_whole_kv", (1, 8, 25, 84, 16), "float32"): 0.0263,
+    ("attention_whole_kv", (1, 8, 25, 25, 16), "float32"): 0.0267,
+}
 # K3 against the plain version, relative to max(1, |ref|). float32 (TF32
 # off): summation order only. bf16, the plain version on the same bf16
 # values: two ulps of the output, 2^-6 -- one for the output's own rounding,
@@ -86,55 +105,44 @@ def load_render_frame():
     return mod.render_frame
 
 
-def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    for _ in range(warmup):
-        fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+def kernel_resources(ka, build) -> None:
+    """Phase 1: each attention kernel's registers, spills and shared memory
+    (cudaFuncGetAttributes; K1's dynamic shared memory from its plan at the
+    main path's encoder shape), and the HMMA instructions in its SASS."""
+    hmma = {}
+    cuobjdump = Path(build._nvcc()).parent / "cuobjdump"  # beside the nvcc that built the library
+    check(cuobjdump.exists(), f"{cuobjdump} not found: the tensor-core instructions cannot be read")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(build.build_library())], capture_output=True, text=True,
+                          check=True).stdout
+    fn = None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            hmma[fn] = 0
+        elif fn is not None and "HMMA" in line:
+            hmma[fn] += 1
+    for a in ka.kernel_attributes():
+        base, args = a["name"].split("<")
+        dtype = torch.bfloat16 if args.startswith("bf16") else torch.float32
+        d = int(args.rstrip(">").split(",")[1])
+        dyn = ka.whole_kv_plan(920, 920, d, dtype)["smem_bytes"] if "whole_kv" in base else 0
+        fits = "whole_kv" not in base or ka.whole_kv_fits(920, d, dtype)
+        # Itanium-mangled template names carry the head dim as ILi<D>E.
+        counts = [n for f, n in hmma.items() if base in f and f"ILi{d}E" in f]
+        check(len(counts) == 1, f"{a['name']}: {len(counts)} functions of its name in the SASS")
+        n_hmma = counts[0]
+        check(bool(n_hmma) == (dtype == torch.bfloat16), f"{a['name']}: {n_hmma} HMMA instructions in its SASS")
+        log(f"[1] {a['name']:36s} regs {a['regs']:3d}  spill (local) {a['local_bytes']:4d} B  static smem "
+            f"{a['static_smem']:6d} B  dynamic smem {f'{dyn:6d} B' if fits else 'none (K2 at Lk 920)'} at Lk 920  "
+            f"HMMA in SASS {n_hmma}")
 
 
-# ------------------------------------------------------------------- phase 2
-def kernel_case(attention_reference, fn, B, H, Lq, Lk, D, dtype, masked, seed):
-    g = torch.Generator().manual_seed(seed)
-    q, k, v = (torch.randn(B, H, L, D, generator=g).to("cuda", dtype) for L in (Lq, Lk, Lk))
-    mask = None
-    if masked:  # ragged key padding, as a letterboxed batch gives
-        mask = torch.ones(B, Lk, dtype=torch.bool)
-        for b in range(B):
-            mask[b, Lk - ((b + 1) * Lk) // (4 * B):] = False
-        mask = mask.cuda()
-    out = fn(q, k, v, mask)
-    torch.cuda.synchronize()
-    want = attention_reference(q.float(), k.float(), v.float(), mask)
-    err = (out.float() - want).abs().max().item()
-    tol = TOLERANCE[dtype]
-    name = fn.__name__
-    check(bool(torch.isfinite(out).all()), f"{name} {B,H,Lq,Lk,D}: non-finite output")
-    check(err <= tol, f"{name} {B,H,Lq,Lk,D} {dtype}: max|err| {err:.3e} > {tol:.0e}")
-
-    sdpa_mask = None if mask is None else mask[:, None, None, :]
-    ms = cuda_ms(lambda: fn(q, k, v, mask))
-    plain_ms = cuda_ms(lambda: attention_reference(q, k, v, mask), iters=5)
-    library_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=sdpa_mask))
-    item = q.element_size()
-    valid_keys = Lk * B if mask is None else int(mask.sum().item())
-    flops = 4.0 * H * Lq * valid_keys * D  # QK^T and P.V over the valid keys
-    nbytes = (2 * B * H * Lq * D + 2 * B * H * Lk * D) * item + (0 if mask is None else B * Lk)
-    t_ops, t_bytes = flops / PEAK_FLOPS[dtype] * 1e3, nbytes / PEAK_BYTES * 1e3
-    row = {
-        "name": name, "shape": [B, H, Lq, Lk, D], "dtype": str(dtype).replace("torch.", ""),
-        "masked": masked, "max_abs_err": err, "tolerance": tol, "ms": ms, "plain_ms": plain_ms,
-        "library_ms": library_ms, "bound_ms": max(t_ops, t_bytes),
-        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-    }
-    log(f"  {name:19s} {str(tuple(row['shape'])):26s} {row['dtype']:8s} err {err:.2e} (tol {tol:.0e}) "
-        f"ms {ms:.4f} plain {plain_ms:.4f} sdpa {library_ms:.4f} bound {row['bound_ms']:.4f} ({row['bound_by']})")
-    return row
+def expected_launches(ka, tokens: int, dtype, chunks: int) -> dict:
+    """K1/K2 launches of DETR's 6 encoder (tokens keys), 6 cross- (tokens
+    keys) and 6 decoder self-attention calls (100 keys) per chunk, by the
+    dispatch rule."""
+    flash = 6 * (2 * ka.use_flash(tokens, 32, dtype) + ka.use_flash(100, 32, dtype))
+    return {"attention_whole_kv": (18 - flash) * chunks, "attention_flash": flash * chunks}
 
 
 # ------------------------------------------------------------------- phase 7
@@ -258,6 +266,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs the port on the card only", file=sys.stderr)
         return 1
+    from office_person_detection_vit_torch import attention_kernel_bench as abench
     from office_person_detection_vit_torch.detection.detector import DETRDetector
     from office_person_detection_vit_torch.device import resolve_device
     from office_person_detection_vit_torch.kernels import attention as ka
@@ -265,7 +274,6 @@ def main() -> int:
     from office_person_detection_vit_torch.kernels import build
     from office_person_detection_vit_torch.models.detr import DETR, DETRConfig
     from office_person_detection_vit_torch.ops.aggregation import zone_count_matrix
-    from office_person_detection_vit_torch.ops.attention import attention_reference
     from office_person_detection_vit_torch.ops.geometry import homography_transform, validate_homography
     from office_person_detection_vit_torch.ops.preprocessing import preprocess_frames
     from office_person_detection_vit_torch.ops.zones import ZoneClassifier
@@ -281,26 +289,25 @@ def main() -> int:
     kb.load_library()
     log(f"[1] built and loaded the kernel library ({', '.join(p.name for p in build.sources())}; "
         f"one nvcc call, sm_90a) in {time.perf_counter() - t0:.1f} s")
+    kernel_resources(ka, build)
 
     # ---- 2. kernels against the plain version at the main-path shapes
-    log("[2] kernels vs plain version (times: CUDA events, mean of 20 after 3 warm-up launches)")
-    bf16, f32 = torch.bfloat16, torch.float32
-    k1, k2 = ka.attention_whole_kv, ka.attention_flash
-    cases = [
-        (k1, 8, 8, 920, 920, 32, bf16, True),  # encoder self-attention, 736x1280, B=8
-        (k1, 8, 8, 100, 920, 32, bf16, True),  # decoder cross-attention
-        (k1, 8, 8, 100, 100, 32, bf16, False),  # decoder self-attention
-        (k2, 2, 8, 3680, 3680, 32, bf16, True),  # DC5 encoder self-attention, B=2
-        (k2, 2, 8, 100, 3680, 32, bf16, True),  # DC5 decoder cross-attention
-        (k2, 8, 8, 920, 920, 32, bf16, True),  # K2 at the main path's encoder shape, timed beside K1
-        (k2, 8, 8, 920, 920, 32, f32, True),  # float32 encoder (K/V exceed shared memory)
-        (k2, 2, 8, 100, 920, 32, f32, True),  # float32 DETR-R50 of phase 3: cross-attention
-        (k1, 2, 8, 100, 100, 32, f32, False),  # and its decoder self-attention
-        (k1, 1, 8, 84, 84, 16, f32, True),  # DETR-small checkpoint of phase 5 (224x384): encoder
-        (k1, 1, 8, 25, 84, 16, f32, True),  # its cross-attention
-        (k1, 1, 8, 25, 25, 16, f32, False),  # its decoder self-attention
-    ]
-    rows = [kernel_case(attention_reference, *c, seed=i) for i, c in enumerate(cases)]
+    log("[2] kernels vs plain version (device ms: mean of 20 calls queued behind a sleep kernel, after 3 "
+        "warm-up calls; attention_kernel_bench.cuda_ms)")
+    bf16 = torch.bfloat16
+    rows = {}
+    for seed, case in enumerate(abench.CASES):
+        row = abench.measure(ka, case, seed)
+        name, shape, dt = case[:3]
+        was = EARLIER_MS.get((name, shape, dt))
+        was = "-" if was is None else f"{was:.4f}"
+        log(f"  {abench.describe(row)} [CUDA-core ms {was}, recorded, host cost included]")
+        rows[name, shape, dt] = row
+    for shape in ((8, 8, 920, 920, 32), (8, 8, 100, 920, 32), (8, 8, 100, 100, 32)):  # DETR-R50, B 8
+        t1, t2 = (rows[name, shape, "bfloat16"]["ms"] for name in ("attention_whole_kv", "attention_flash"))
+        rule = "K2" if ka.use_flash(shape[3], shape[4], bf16) else "K1"
+        log(f"[2] dispatch at {shape} bf16: K1 {t1:.4f} ms, K2 {t2:.4f} ms -> faster {'K1' if t1 <= t2 else 'K2'}; "
+            f"use_flash takes {rule}")
 
     render_frame = load_render_frame()
     t_start = datetime(2025, 1, 20, 9, 0, 0)
@@ -325,18 +332,19 @@ def main() -> int:
     chunks = 3
     check(batch.boxes_xywh.shape == (19, 100, 4), f"detect_batch shape {batch.boxes_xywh.shape}")
     check(all(np.isfinite(a).all() for a in (batch.boxes_xywh, batch.scores, batch.foot)), "non-finite detections")
-    check(main_counts["attention_whole_kv"] == 18 * chunks and main_counts["attention_flash"] == 0,
-          f"full-width detect launched {main_counts}, expected 18 K1 launches per chunk x {chunks}")
+    want_main = expected_launches(ka, 920, bf16, chunks)
+    check(main_counts == want_main and sum(main_counts.values()) == 18 * chunks,
+          f"full-width detect launched {main_counts}, expected {want_main} (18 per chunk x {chunks})")
     times = []
-    for _ in range(3):
+    for _ in range(7):
         torch.cuda.synchronize()
         t = time.perf_counter()
         det.detect_batch(frames[:16])
         times.append(time.perf_counter() - t)
-    fps = 16 / min(times)
+    fps = sorted(16 / t for t in times)
     log(f"[3] DETR-R50 bf16 736x1280 batch 8: launches {main_counts} over {chunks} chunks "
-        f"(18 K1 per chunk); {fps:.2f} frames/s (best of 3 x 16 frames, host clock, "
-        f"uint8 frames in, DetectionBatch out) on {smi}")
+        f"(18 per chunk, as use_flash says); {fps[-1]:.2f} frames/s best, {fps[len(fps) // 2]:.2f} median, "
+        f"{fps[0]:.2f} worst (7 runs x 16 frames, host clock, uint8 frames in, DetectionBatch out) on {smi}")
     det.cleanup()
 
     resolve_device("cuda", "float32")  # TF32 off for the float32 comparison
@@ -377,8 +385,8 @@ def main() -> int:
     dc5_batch = dc5.detect_batch(frames[:2])
     dc5_counts = dict(ka.launch_counts)
     check(np.isfinite(dc5_batch.boxes_xywh).all(), "non-finite DC5 detections")
-    check(dc5_counts == {"attention_whole_kv": 6, "attention_flash": 12},
-          f"DC5 detect launched {dc5_counts}, expected 12 K2 (encoder, cross) + 6 K1 (decoder self)")
+    want_dc5 = expected_launches(ka, 3680, bf16, 1)
+    check(dc5_counts == want_dc5, f"DC5 detect launched {dc5_counts}, expected {want_dc5}")
     torch.cuda.synchronize()
     t = time.perf_counter()
     dc5.detect_batch(frames[:2])
@@ -446,15 +454,21 @@ def main() -> int:
     # ---- result
     replaces = {"attention_whole_kv": "office_person_detection_vit_tpu/ops/attention.py:60",
                 "attention_flash": "office_person_detection_vit_tpu/ops/attention.py:159"}
-    launches = {"attention_whole_kv": main_counts["attention_whole_kv"],  # full-width detect
-                "attention_flash": dc5_counts["attention_flash"]}  # the DC5 detect
-    headline = {"attention_whole_kv": rows[0], "attention_flash": rows[3]}  # the encoder shapes
+    # Each attention kernel's row at the encoder shape of the path that
+    # launches it, beside that path's own count: K2 runs the bf16 main path
+    # (use_flash sends every bf16 call to it), K1 the float32 DETR-small.
+    headline = {
+        "attention_whole_kv": (("attention_whole_kv", (1, 8, 84, 84, 16), "float32"), small_counts,
+                               "DETR-small float32 detect, phase 5"),
+        "attention_flash": (("attention_flash", (8, 8, 920, 920, 32), "bfloat16"), main_counts,
+                            "DETR-R50 bf16 detect, phase 3 (the main path)"),
+    }
     kernels = [
         {"name": name, "route": "cuda", "source": "office_person_detection_vit_torch/csrc/attention.cu",
-         "replaces": replaces[name], "launches": launches[name],
-         **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-                                "shape", "dtype")}}
-        for name, row in headline.items()
+         "replaces": replaces[name], "launches": counts[name], "launches_on": path,
+         **{k: rows[key][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                      "shape", "dtype", "instruction")}}
+        for name, (key, counts, path) in headline.items()
     ] + [k3_row]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,10 +4,9 @@ Mirrors ``office_person_detection_vit_tpu/ops/attention.py``.
 :func:`attention_reference` is the plain PyTorch version of
 ``attention_reference`` there. :func:`multi_head_attention` runs it for CPU
 tensors; for CUDA tensors it runs the hand-written kernels of
-``kernels/attention.py`` and nothing else: whole-KV (K1) when a head's K and V
-fit in one block's shared memory, flash (K2) otherwise
-(:func:`~office_person_detection_vit_torch.kernels.attention.use_flash` states
-the rule and its arithmetic). The JAX package's ``use_pallas_attention``
+``kernels/attention.py`` and nothing else: whole-KV (K1) or flash (K2) as
+:func:`~office_person_detection_vit_torch.kernels.attention.use_flash` decides
+(it states the rule and the H100 measurement behind it). The JAX package's ``use_pallas_attention``
 choice has no counterpart here: on the card attention is always the kernel.
 """
 

@@ -24,7 +24,7 @@ from .detection.detector import DETRDetector
 
 BATCH, CHUNKS, TOP = 8, 2, 20
 CATEGORIES = (  # first match wins, on the lower-cased kernel name
-    ("attention (K1/K2)", ("attention_whole_kv_kernel", "attention_flash_kernel")),
+    ("attention (K1/K2)", ("attention_whole_kv", "attention_flash")),
     ("convolution", ("conv", "implicit_gemm", "xmma_fprop", "cudnn", "nchwtonhwc", "nhwctonchw")),
     ("matmul", ("gemm", "cutlass", "nvjet", "cublas")),
     ("layer norm", ("layer_norm",)),

@@ -15,12 +15,13 @@ import numpy as np
 import pytest
 import torch
 
+from office_person_detection_vit_torch import attention_kernel_bench as abench
 from office_person_detection_vit_torch.kernels import attention as kernels
 from office_person_detection_vit_torch.kernels import build
 from office_person_detection_vit_torch.ops import attention as port
 from office_person_detection_vit_tpu.ops import attention as ref
+from tests.helpers.torch_threads import two_torch_threads  # noqa: F401 (autouse: 2 torch threads)
 
-torch.set_num_threads(2)
 REPO = Path(__file__).resolve().parent.parent
 
 
@@ -127,7 +128,8 @@ def test_one_library_builds_every_source():
 @pytest.mark.parametrize(
     "lk,d,dtype,flash",
     [
-        (920, 32, torch.bfloat16, False),  # DETR-R50 encoder/cross-attention in bf16
+        (920, 32, torch.bfloat16, True),  # DETR-R50 encoder/cross-attention in bf16: K2 measured faster
+        (100, 32, torch.bfloat16, True),  # its decoder self-attention in bf16: K2 measured faster too
         (920, 32, torch.float32, True),  # the same in float32: 244,632 B > 227 KB
         (100, 32, torch.float32, False),  # decoder self-attention
         (3680, 32, torch.bfloat16, True),  # DETR-DC5 at 736x1280
@@ -139,8 +141,81 @@ def test_dispatch_rule(lk, d, dtype, flash):
 
 
 def test_whole_kv_smem_arithmetic():
-    assert kernels.whole_kv_smem_bytes(920, 32, torch.bfloat16) == 122_776
+    assert kernels.whole_kv_smem_bytes(920, 32, torch.bfloat16) == 126_720  # 960 keys: 15 tiles of 64
+    assert kernels.whole_kv_smem_bytes(100, 32, torch.bfloat16) == 16_896  # 128 keys
     assert kernels.whole_kv_smem_bytes(920, 32, torch.float32) == 244_632
+
+
+@pytest.mark.parametrize(
+    "lk,d,dtype,fits",
+    [(920, 32, torch.bfloat16, True), (1728, 32, torch.bfloat16, True), (1729, 32, torch.bfloat16, False),
+     (920, 32, torch.float32, False), (84, 16, torch.float32, True), (3680, 32, torch.bfloat16, False)],
+)
+def test_whole_kv_fits(lk, d, dtype, fits):
+    """K1 takes K/V that fit a block's 227 KB; it raises beyond (K2 is there)."""
+    assert kernels.whole_kv_fits(lk, d, dtype) is fits
+
+
+@pytest.mark.parametrize(
+    "lq,lk,d,dtype,blocks,threads",
+    [
+        (920, 920, 32, torch.bfloat16, 4, 480),  # R50 encoder: 58 warp tiles, 4 blocks of 15 warps
+        (100, 920, 32, torch.bfloat16, 1, 224),  # R50 cross-attention: 7 warps
+        (100, 100, 32, torch.bfloat16, 1, 224),  # R50 decoder self-attention
+        (256, 256, 32, torch.bfloat16, 1, 512),  # 16 warps, the most a block takes
+        (257, 256, 32, torch.bfloat16, 2, 288),  # 17 warp tiles: 2 blocks of 9 warps
+        (1, 1, 16, torch.bfloat16, 1, 32),
+        (84, 84, 16, torch.float32, 2, 256),  # DETR-small (float32): 64-row blocks
+    ],
+)
+def test_whole_kv_plan(lq, lk, d, dtype, blocks, threads):
+    plan = kernels.whole_kv_plan(lq, lk, d, dtype)
+    assert plan == {"blocks_per_head": blocks, "threads": threads,
+                    "smem_bytes": kernels.whole_kv_smem_bytes(lk, d, dtype)}
+    if dtype == torch.bfloat16:  # every query row has a warp; no block is idle
+        rows = blocks * threads // 32 * kernels.WARP_ROWS
+        assert rows >= lq and rows - lq < blocks * kernels.WARP_ROWS
+        assert threads <= 32 * kernels.WHOLE_KV_MAX_WARPS
+
+
+@pytest.mark.parametrize(
+    "shape,dtype,flops,nbytes,by",
+    [
+        ((8, 8, 920, 920, 32), torch.bfloat16, 4 * 8 * 920 * 8 * 920 * 32, 4 * 8 * 8 * 920 * 32 * 2, "operations"),
+        ((8, 8, 100, 100, 32), torch.bfloat16, 4 * 8 * 100 * 8 * 100 * 32, 4 * 8 * 8 * 100 * 32 * 2, "bytes"),
+        ((1, 8, 84, 84, 16), torch.float32, 4 * 8 * 84 * 84 * 16, 4 * 8 * 84 * 16 * 4, "operations"),
+    ],
+    ids=["r50_encoder_bf16", "r50_decoder_self_bf16", "small_encoder_f32"],
+)
+def test_bench_bound(shape, dtype, flops, nbytes, by):
+    """The bound: the larger of the FLOPs over the type's peak and the bytes
+    of q, k, v and out over the HBM rate; a mask counts only its valid keys
+    and adds its bytes."""
+    t = max(flops / abench.PEAK_FLOPS[dtype], nbytes / abench.PEAK_BYTES) * 1e3
+    assert abench.bound(shape, dtype, None) == (pytest.approx(t, rel=1e-12), by)
+    B, Lk = shape[0], shape[3]
+    mask = abench.ragged_mask(B, Lk)
+    share = mask.sum().item() / (B * Lk)
+    t_masked = max(flops * share / abench.PEAK_FLOPS[dtype], (nbytes + B * Lk) / abench.PEAK_BYTES) * 1e3
+    assert abench.bound(shape, dtype, mask)[0] == pytest.approx(t_masked, rel=1e-12)
+
+
+def test_bench_ragged_mask():
+    """Entry b of B keeps its first Lk - (b + 1) Lk / 4B keys: at DETR-R50's
+    B 8 and 920 keys, 892 down to 690."""
+    mask = abench.ragged_mask(8, 920)
+    assert mask.sum(1).tolist() == [892, 863, 834, 805, 777, 748, 719, 690]
+    assert all(bool(mask[b, : n].all()) for b, n in enumerate(mask.sum(1).tolist()))
+
+
+def test_bench_loads_another_checkout_beside_this_one():
+    """``--against`` imports another checkout's wrappers under a name of their
+    own; on the CPU they run their plain version, equal to this one's."""
+    other = abench.load_kernels(REPO)
+    assert other is not kernels and other.__name__.endswith(".kernels.attention")
+    q, k, v, mask = abench.make_inputs((1, 2, 5, 7, 16), torch.float32, True, seed=0, device="cpu")
+    for name in ("attention_whole_kv", "attention_flash"):
+        assert torch.equal(getattr(other, name)(q, k, v, mask), getattr(kernels, name)(q, k, v, mask))
 
 
 _FORBIDDEN = ("jax", "flax", "ml_dtypes", "office_person_detection_vit_tpu")

@@ -8,7 +8,7 @@ kernels have no CPU mode). On a GPU machine:
 
 Attention tolerance: float32 1e-5 (summation order); bf16 1e-2 against the
 plain version in float32 on the same values (probabilities and output rounded
-to bf16). K3, relative to max(1, |ref|) against the plain version on the same
+to bf16), relative to max(1, |ref|) at the tile-edge lengths (see there). K3, relative to max(1, |ref|) against the plain version on the same
 values: float32 1e-4 with TF32 off (summation order); bf16 2^-6, two ulps of
 the output (its own rounding, and a y1 or y2 value next to a rounding
 midpoint carried through the next product).
@@ -46,28 +46,103 @@ def _case(B, H, Lq, Lk, D, dtype, masked, seed=0):
     return q, k, v, mask
 
 
-@pytest.mark.parametrize("fn", [kernels.attention_whole_kv, kernels.attention_flash])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("D", kernels.HEAD_DIMS)
-@pytest.mark.parametrize("masked", [False, True])
-def test_kernel_matches_plain(card, fn, dtype, D, masked):
-    q, k, v, mask = _case(2, 3, 67, 131, D, dtype, masked)
+def _check_kernel(fn, q, k, v, mask, relative=False):
     before = kernels.launch_counts[fn.__name__]
     out = fn(q, k, v, mask)
     torch.cuda.synchronize()
     assert kernels.launch_counts[fn.__name__] == before + 1
     want = attention_reference(q.float(), k.float(), v.float(), mask)
-    assert out.dtype == dtype and out.shape == q.shape
-    assert (out.float() - want).abs().max().item() <= TOL[dtype]
+    assert out.dtype == q.dtype and out.shape == q.shape
+    assert bool(torch.isfinite(out).all())
+    scale = want.abs().clamp(min=1.0) if relative else 1.0
+    assert ((out.float() - want).abs() / scale).max().item() <= TOL[q.dtype]
+
+
+# Lengths that cross the bf16 kernels' edges: 16-row warp tiles, 64-key
+# tiles, K1's blocks of up to 16 warps (920 rows: 4 blocks of 15 warps) and
+# the float32 kernels' 64-row blocks.
+LQ, LK = (1, 67, 100, 920), (1, 15, 131, 920, 1000)
+
+
+@pytest.mark.parametrize("fn", [kernels.attention_whole_kv, kernels.attention_flash])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", kernels.HEAD_DIMS)
+@pytest.mark.parametrize("masked", [False, True])
+def test_kernel_matches_plain(card, fn, dtype, D, masked):
+    _check_kernel(fn, *_case(2, 3, 67, 131, D, dtype, masked))
+
+
+@pytest.mark.parametrize("fn", [kernels.attention_whole_kv, kernels.attention_flash])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", kernels.HEAD_DIMS)
+@pytest.mark.parametrize("masked", [False, True])
+def test_kernel_matches_plain_at_tile_edges(card, fn, dtype, D, masked):
+    """Every (Lq, Lk) pair of LQ x LK; with the mask, batch entry 0 has every
+    key masked (mean(V)).
+
+    bf16 is held relative to max(1, |ref|): with 15 keys an output reaches
+    2.6, and the two roundings of the Pallas kernels (probabilities, then
+    the output, each half an ulp, 2^-9 relative) give 1.19e-2 absolute there
+    in an exact emulation of K1's rounding on the CPU, which the kernel
+    matches. float32 stays absolute (summation order only).
+    """
+    for i, lq in enumerate(LQ):
+        for j, lk in enumerate(LK):
+            if fn is kernels.attention_whole_kv and not kernels.whole_kv_fits(lk, D, dtype):
+                continue
+            _check_kernel(fn, *_case(2, 3, lq, lk, D, dtype, masked, seed=10 * i + j),
+                          relative=dtype == torch.bfloat16)
+
+
+@pytest.mark.parametrize("fn", [kernels.attention_whole_kv, kernels.attention_flash])
+@pytest.mark.parametrize(
+    "shape", [(8, 8, 920, 920, 32), (8, 8, 100, 920, 32), (8, 8, 100, 100, 32)],
+    ids=["encoder", "cross", "decoder_self"],
+)
+def test_kernel_matches_plain_at_the_main_path_shapes(card, fn, shape):
+    """DETR-R50 at 736x1280, batch 8, bf16; ragged key padding, no entry all masked."""
+    q, k, v, _ = _case(*shape, torch.bfloat16, False, seed=1)
+    B, Lk = shape[0], shape[3]
+    mask = torch.ones(B, Lk, dtype=torch.bool)
+    for b in range(B):
+        mask[b, Lk - ((b + 1) * Lk) // (4 * B):] = False
+    _check_kernel(fn, q, k, v, mask.cuda())
 
 
 def test_dispatch_takes_the_kernels(card):
+    """multi_head_attention launches the kernel use_flash names: bf16 K2 at
+    920 and at 100 keys; float32 K2 at 920 keys (K1 does not fit), K1 at 100."""
     q, k, v, mask = _case(1, 2, 50, 920, 32, torch.float32, True)
+    short = [t[:, :, :100].contiguous() for t in (k, v)]
     before = dict(kernels.launch_counts)
     multi_head_attention(q, k, v, mask)
+    multi_head_attention(q, *short, mask[:, :100].contiguous())
     multi_head_attention(q.bfloat16(), k.bfloat16(), v.bfloat16(), mask)
-    assert kernels.launch_counts["attention_flash"] == before["attention_flash"] + 1
+    multi_head_attention(q.bfloat16(), *(t.bfloat16() for t in short), mask[:, :100].contiguous())
+    assert kernels.launch_counts["attention_flash"] == before["attention_flash"] + 3
     assert kernels.launch_counts["attention_whole_kv"] == before["attention_whole_kv"] + 1
+
+
+@pytest.mark.parametrize(
+    "dtype,blocks,threads",
+    [(torch.bfloat16, 1, 192), (torch.bfloat16, 0, 224), (torch.bfloat16, 1, 544), (torch.bfloat16, 1, 200),
+     (torch.float32, 1, 256), (torch.float32, 2, 128)],
+    ids=["bf16_96_of_100_rows", "bf16_no_block", "bf16_17_warps", "bf16_part_warp", "f32_64_of_100_rows",
+         "f32_not_256_threads"],
+)
+def test_whole_kv_refuses_a_grid_short_of_the_query_rows(card, dtype, blocks, threads):
+    """K1's entry point takes its grid from whole_kv_plan and refuses one that
+    leaves query rows without a warp, before it launches anything."""
+    lib = kernels.load_library()
+    q, k, v, _ = _case(1, 1, 100, 100, 32, dtype, False)
+    out = torch.empty_like(q)
+    plan = kernels.whole_kv_plan(100, 100, 32, dtype)
+    assert (blocks, threads) != (plan["blocks_per_head"], plan["threads"])
+    err = lib.attention_whole_kv(1 if dtype == torch.bfloat16 else 0, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                 None, out.data_ptr(), 1, 1, 100, 100, 32, blocks, threads,
+                                 torch.cuda.current_stream().cuda_stream)
+    assert err != 0
+    _check_kernel(kernels.attention_whole_kv, q, k, v, None)  # the plan's grid still launches
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take(card):

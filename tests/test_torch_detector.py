@@ -29,8 +29,8 @@ from office_person_detection_vit_tpu.models.detr import DETRConfig as JaxDETRCon
 from office_person_detection_vit_tpu.ops import aggregation as jax_agg
 from office_person_detection_vit_tpu.ops import geometry as jax_geo
 from office_person_detection_vit_tpu.ops import zones as jax_zones
+from tests.helpers.torch_threads import two_torch_threads  # noqa: F401 (autouse: 2 torch threads)
 
-torch.set_num_threads(2)
 
 DETECTION = {
     "confidence_threshold": 0.3, "nms_threshold": 0.4, "batch_size": 2,

@@ -23,8 +23,8 @@ from office_person_detection_vit_tpu.models import detr as jax_detr
 from office_person_detection_vit_tpu.models.position_encoding import (
     sine_position_embedding as jax_sine,
 )
+from tests.helpers.torch_threads import two_torch_threads  # noqa: F401 (autouse: 2 torch threads)
 
-torch.set_num_threads(2)
 
 CASES = {
     "tiny": dict(tier="tiny", kw=dict(num_classes=5), hw=(96, 128)),

@@ -26,8 +26,8 @@ from office_person_detection_vit_torch.kernels.build import BLOCK_SMEM_BYTES
 from office_person_detection_vit_torch.models.resnet import Bottleneck
 from office_person_detection_vit_torch.ops import fused_bottleneck as port
 from office_person_detection_vit_tpu.ops import fused_bottleneck as ref
+from tests.helpers.torch_threads import two_torch_threads  # noqa: F401 (autouse: 2 torch threads)
 
-torch.set_num_threads(2)
 BF16_REL = 2.0**-6
 
 

@@ -18,8 +18,8 @@ from office_person_detection_vit_torch.ops import preprocessing as port_pre
 from office_person_detection_vit_tpu.models import postprocess as jax_post
 from office_person_detection_vit_tpu.ops import boxes as jax_boxes
 from office_person_detection_vit_tpu.ops import preprocessing as jax_pre
+from tests.helpers.torch_threads import two_torch_threads  # noqa: F401 (autouse: 2 torch threads)
 
-torch.set_num_threads(2)
 
 
 @pytest.mark.parametrize("target_hw", [(736, 1280), (224, 384)])

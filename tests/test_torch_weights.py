@@ -24,8 +24,8 @@ from office_person_detection_vit_tpu.detection.export import save_weights_npz
 from office_person_detection_vit_tpu.models import detr as jax_detr
 from office_person_detection_vit_tpu.models.weights import convert_torch_state_dict, load_any_checkpoint
 from office_person_detection_vit_tpu.ops.preprocessing import preprocess_frames
+from tests.helpers.torch_threads import two_torch_threads  # noqa: F401 (autouse: 2 torch threads)
 
-torch.set_num_threads(2)
 WEIGHTS = Path(__file__).resolve().parent.parent / "docs" / "artifacts" / "detr_small_weights.npz"
 
 

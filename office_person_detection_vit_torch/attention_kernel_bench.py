@@ -180,8 +180,8 @@ def describe(row: dict) -> str:
             f"({row['bound_by']}, {100 * row['bound_ms'] / row['ms']:.1f}% of it)")
 
 
-def load_kernels(root: Path):
-    """``kernels/attention.py`` of the port checkout at ``root``, imported as
+def load_kernels(root: Path, module: str = "attention"):
+    """``kernels/<module>.py`` of the port checkout at ``root``, imported as
     a package of its own name, so that it and this checkout's can be loaded
     side by side."""
     pkg_dir = (Path(root) / "office_person_detection_vit_torch").resolve()
@@ -192,7 +192,7 @@ def load_kernels(root: Path):
         pkg = importlib.util.module_from_spec(spec)
         sys.modules[alias] = pkg
         spec.loader.exec_module(pkg)
-    return importlib.import_module(f"{alias}.kernels.attention")
+    return importlib.import_module(f"{alias}.kernels.{module}")
 
 
 def main(argv=None) -> dict:

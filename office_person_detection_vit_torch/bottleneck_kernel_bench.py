@@ -1,21 +1,31 @@
 """The fused bottleneck (K3) head to head with the unfused cuDNN chain, on the card.
 
     python -m office_person_detection_vit_torch.bottleneck_kernel_bench \\
-        [--json-out PATH] [--iters 16] [--dtype bfloat16|float32] \\
-        [--device auto|cuda|cpu]
+        [--against DIR] [--json-out PATH] [--iters 16] \\
+        [--dtype bfloat16|float32] [--device auto|cuda|cpu]
 
 Counterpart of ``tools/bottleneck_kernel_bench.py`` of the JAX package, at its
-DETR-R50 stage geometries (:data:`SHAPES`) and tile sweep. Inputs are made on
+stage geometries and tile sweep, and at the four stages of DETR-R50's
+identity blocks at 736x1280, batch 8 (:data:`SHAPES`). Inputs are made on
 the card from a seeded ``torch.Generator`` (the stage-1 x is 482 MB in bf16).
 For each shape and ``tile_h`` it reports K3's time (CUDA events, mean of
 ``--iters`` launches after warm-up), TFLOP/s and max |err| against the plain
-version on the same inputs; the unfused cuDNN chain (three channels-last
-``F.conv2d`` calls in x's type, with bias and ReLU, and the residual) as the
-yardstick; the plain version's time; the bound (the larger of the bytes over
+version on the same inputs (bf16 on the card: with float32 and with exact
+sums, :func:`bf16_verdict`); the unfused cuDNN chain (three channels-last ``F.conv2d`` calls in x's type,
+with bias and ReLU, and the residual) as the yardstick; the plain version's time; the bound (the larger of the bytes over
 3.35 TB/s and the FLOPs over the peak of x's type); and the card's name and
 power limit. ``--device auto`` (the default) and ``cuda`` need a card and
 raise without one. ``--device cpu`` drives the same code at a small size
 (B, H, W = 2, 16, 24) through the plain version: parity only, nothing timed.
+
+Each shape also prints the launch plan at each ``tile_h``
+(``kernels/bottleneck.py::plan_report``): pixels a block, blocks, the
+weight bytes read from L2, the y1 recompute factor and shared bytes.
+
+``--against DIR`` also runs K3 of the port checkout at ``DIR`` (an earlier
+commit, unpacked with ``git archive``) on the same inputs, through that
+checkout's own wrapper and library, and times each tile this, other, other,
+this in one process (``attention_kernel_bench.load_kernels``). Needs a card.
 """
 
 from __future__ import annotations
@@ -36,6 +46,10 @@ from .ops.fused_bottleneck import bottleneck_reference, fused_bottleneck
 SHAPES = [
     ("stage1-184x320-c256", (16, 184, 320, 256, 64), (4, 8)),
     ("stage2-92x160-c512", (16, 92, 160, 512, 128), (4,)),
+    ("detr-stage1", (8, 184, 320, 256, 64), (8,)),
+    ("detr-stage2", (8, 92, 160, 512, 128), (4,)),
+    ("detr-stage3", (8, 46, 80, 1024, 256), (2,)),
+    ("detr-stage4", (8, 23, 40, 2048, 512), (1,)),
 ]
 #: The size of a ``--device cpu`` drive: (B, H, W) of every shape.
 CPU_BHW = (2, 16, 24)
@@ -122,6 +136,26 @@ def errors(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
     return diff.max().item(), diff.div_(want.abs().clamp_(min=1.0)).max().item()
 
 
+def bf16_verdict(vs_f32: float, vs_exact: float, f32_vs_exact: float, tol: float) -> str:
+    """How a bf16 K3 reading stands against its bar ``tol`` (relative to
+    max(1, |ref|)), from three readings: the kernel against the plain
+    version with float32 sums (the plain version as the JAX package defines
+    it) and with exact (float64) sums, and the float32 sums against the
+    exact ones.
+
+    "met": within ``tol`` of both. "float32 sums off": within ``tol`` of
+    the exact sums, but not of the float32 ones, which are themselves more
+    than ``tol`` from exact: their own rounding has moved a y1 or y2 value
+    across a bf16 rounding point, which a kernel summing in another order
+    does not follow. "failed": anything else.
+    """
+    if vs_exact > tol:
+        return "failed"
+    if vs_f32 <= tol:
+        return "met"
+    return "float32 sums off" if f32_vs_exact > tol else "failed"
+
+
 def card() -> str:
     """The card's name and power limit, as nvidia-smi gives them."""
     return subprocess.run(
@@ -138,14 +172,23 @@ def main(argv=None) -> dict:
     p.add_argument("--iters", type=int, default=16)
     p.add_argument("--dtype", default="bfloat16", choices=sorted(DTYPES))
     p.add_argument("--device", default="auto")
+    p.add_argument("--against", type=Path, help="a port checkout whose K3 is timed beside this one")
     args = p.parse_args(argv)
 
     device = resolve_device(args.device, args.dtype)  # float32: TF32 off
     on_card = device.type == "cuda"
+    if args.against and not on_card:
+        raise RuntimeError("--against times K3 on the card and needs one")
+    other = None
+    if args.against:
+        from .attention_kernel_bench import load_kernels
+
+        other = load_kernels(args.against, "bottleneck")
     dtype = DTYPES[args.dtype]
     smi = card() if on_card else "cpu"
     print(f"device: {smi}", flush=True)
-    results = {"device": smi, "dtype": args.dtype, "iters": args.iters, "shapes": {}}
+    results = {"device": smi, "dtype": args.dtype, "iters": args.iters,
+               "against": str(args.against) if args.against else None, "shapes": {}}
     for label, (B, H, W, C, M), tiles in SHAPES:
         if not on_card:
             B, H, W = CPU_BHW
@@ -155,7 +198,14 @@ def main(argv=None) -> dict:
         entry = {"shape": [B, H, W, C, M], "gflop": round(gflop, 1),
                  "io_gb": round(2 * B * H * W * C * x.element_size() / 1e9, 3),
                  "bound_ms": bound_ms, "bound_by": bound_by}
+        # On the CPU the wrapper runs the plain version itself: its error
+        # there is 0, which shows that it took that path. bf16 on the card is
+        # also read against the plain version with exact sums.
         want = bottleneck_reference(x, *ws)
+        exact = None
+        if on_card and dtype == torch.bfloat16:
+            exact = bottleneck_reference(x, *ws, accumulate=torch.float64)
+            entry["plain_relerr_exact"] = errors(want, exact)[1]
         if on_card:
             cw = chain_weights(*ws)
             t = cuda_ms(lambda: cudnn_chain(x, *cw), args.iters)
@@ -166,21 +216,41 @@ def main(argv=None) -> dict:
         for th in tiles:
             if H % th:
                 continue
+            report = kernels.plan_report(B, H, W, C, M, th, dtype)
+            entry[f"plan_th{th}"] = report
+            print(f"{label} {args.dtype}: plan at tile_h={th}: {kernels.describe_plan(report)}", flush=True)
             before = kernels.launch_counts["fused_bottleneck"]
-            maxerr, relerr = errors(fused_bottleneck(x, *ws, tile_h=th), want)
+            got = fused_bottleneck(x, *ws, tile_h=th)
+            maxerr, relerr = errors(got, want)
             entry[f"cuda_th{th}_maxerr"] = maxerr
             entry[f"cuda_th{th}_relerr"] = relerr
             kind = "K3" if on_card else "plain version (CPU)"
-            line = f"{label} {args.dtype}: {kind} tile_h={th} max|err| {maxerr:.3e} (rel {relerr:.3e})"
+            line = f"{label} {args.dtype}: {kind} tile_h={th} max|err| {maxerr:.3e} (rel {relerr:.3e}"
+            if exact is not None:
+                entry[f"cuda_th{th}_relerr_exact"] = errors(got, exact)[1]
+                line += (f"; against exact sums {entry[f'cuda_th{th}_relerr_exact']:.3e}, float32 sums against "
+                         f"exact {entry['plain_relerr_exact']:.3e}")
+            line += ")"
+            del got
             if on_card:
                 t = cuda_ms(lambda: fused_bottleneck(x, *ws, tile_h=th), args.iters)
                 entry[f"cuda_th{th}_ms"] = t
                 entry[f"cuda_th{th}_tflops"] = gflop / t
                 line += f", {t:.4f} ms ({gflop / t:.1f} TFLOP/s, {bound_ms / t:.1%} of the bound)"
+            if other is not None:
+                mine = lambda: fused_bottleneck(x, *ws, tile_h=th)  # noqa: E731
+                theirs = lambda: other.fused_bottleneck(x, *ws, tile_h=th)  # noqa: E731
+                entry[f"against_th{th}_maxerr"], entry[f"against_th{th}_relerr"] = errors(theirs(), want)
+                abba = [cuda_ms(f, args.iters) for f in (mine, theirs, theirs, mine)]
+                entry[f"cuda_th{th}_ms_abba"], entry[f"against_th{th}_ms_abba"] = [abba[0], abba[3]], abba[1:3]
+                entry[f"cuda_th{th}_ms"] = (abba[0] + abba[3]) / 2
+                entry[f"against_th{th}_ms"] = t_other = (abba[1] + abba[2]) / 2
+                line += (f" | A-B-B-A this {abba[0]:.4f} {abba[3]:.4f}, against {abba[1]:.4f} {abba[2]:.4f} ms "
+                         f"(rel err {entry[f'against_th{th}_relerr']:.3e}) -> {t_other / entry[f'cuda_th{th}_ms']:.2f}x")
             entry[f"cuda_th{th}_launches"] = kernels.launch_counts["fused_bottleneck"] - before
             print(line, flush=True)
         results["shapes"][label] = entry
-        del x, ws, want
+        del x, ws, want, exact
         if on_card:
             torch.cuda.empty_cache()
 

@@ -2,8 +2,9 @@
 ``nvcc`` call, for ``sm_90a``, into one shared library with a plain C
 interface, bound with ``ctypes``.
 
-The library is cached under ``_build/`` by a hash of every source and the
-flags, so the first caller in a process builds it and every wrapper module
+The library is cached under ``_build/`` by a hash of every source, every
+header they include (``csrc/*.cuh``) and the flags (:func:`digest`), so
+the first caller in a process builds it and every wrapper module
 (``kernels/attention.py``, ``kernels/bottleneck.py``) shares it. Importing
 this module builds nothing, so it imports on machines without ``nvcc`` or a
 card.
@@ -36,7 +37,17 @@ _lib: ctypes.CDLL | None = None
 
 
 def sources() -> list[Path]:
+    """The compiled sources, one nvcc input each."""
     return sorted(CSRC.glob("*.cu"))
+
+
+def digest(csrc: Path = CSRC, flags: tuple[str, ...] = NVCC_FLAGS) -> str:
+    """Hash of the flags and of every ``*.cu`` and ``*.cuh`` under ``csrc``:
+    a changed header builds a new library as a changed source does."""
+    h = hashlib.sha256(" ".join(flags).encode())
+    for src in sorted([*csrc.glob("*.cu"), *csrc.glob("*.cuh")]):
+        h.update(src.name.encode() + b"\0" + src.read_bytes())
+    return h.hexdigest()[:16]
 
 
 def _nvcc() -> str:
@@ -49,13 +60,13 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (PATH or $CUDA_HOME/bin): the CUDA kernels cannot be built")
 
 
-def build_library() -> Path:
-    """Compile every ``csrc/*.cu`` in one nvcc call (cached) -> .so path."""
+def build_library(defines: tuple[str, ...] = ()) -> Path:
+    """Compile every ``csrc/*.cu`` in one nvcc call (cached) -> .so path.
+    ``defines`` (``-D`` flags) builds a variant of the library, such as the
+    fused bottleneck's phase profile, cached under its own key."""
     srcs = sources()
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in srcs:
-        digest.update(src.name.encode() + b"\0" + src.read_bytes())
-    target = BUILD_DIR / f"libkernels_{digest.hexdigest()[:16]}.so"
+    flags = (*NVCC_FLAGS, *defines)
+    target = BUILD_DIR / f"libkernels_{digest(flags=flags)}.so"
     if target.exists():
         return target
     nvcc = _nvcc()
@@ -64,7 +75,7 @@ def build_library() -> Path:
     os.close(fd)
     try:
         proc = subprocess.run(
-            [nvcc, *NVCC_FLAGS, "-o", tmp, *map(str, srcs)],
+            [nvcc, *flags, "-o", tmp, *map(str, srcs)],
             capture_output=True, text=True,
         )
         if proc.returncode != 0:

@@ -24,25 +24,34 @@ import torch.nn.functional as F
 from ..models.resnet import Bottleneck
 
 
-def _oihw_1x1(w: torch.Tensor) -> torch.Tensor:  # (Cin, Cout) -> (Cout, Cin, 1, 1)
-    return w.float().t()[:, :, None, None]
-
-
-def bottleneck_reference(x, w1, b1, w2, b2, w3, b3) -> torch.Tensor:
+def bottleneck_reference(x, w1, b1, w2, b2, w3, b3, *, accumulate: torch.dtype = torch.float32) -> torch.Tensor:
     """The same block with plain convolutions, rounding where the JAX
     ``bottleneck_reference`` does: each convolution runs in float32 on the
     upcast values and adds its bias in float32, y1 and y2 are rounded to x's
     type, the residual is added in float32 and the output cast to x's type.
 
+    ``accumulate=torch.float64`` runs the convolutions, the biases and the
+    residual in float64 instead (each value rounded to float32 before it is
+    rounded to x's type): the same rounding points with exact sums. A bf16
+    kernel is held there on the card, since the float32 convolutions' own
+    rounding moves some y1 and y2 values across bf16 rounding points (PERF.md).
+
     On the card, float32 convolutions need cuDNN's TF32 off
     (``device.resolve_device(..., "float32")`` turns it off).
     """
-    dtype = x.dtype
-    xf = x.float().permute(0, 3, 1, 2)  # NCHW view of NHWC memory
-    y = torch.relu(F.conv2d(xf, _oihw_1x1(w1), b1.float())).to(dtype).float()
-    y = torch.relu(F.conv2d(y, w2.float().permute(3, 2, 0, 1), b2.float(), padding=1)).to(dtype).float()
-    y = F.conv2d(y, _oihw_1x1(w3), b3.float())
-    return torch.relu(y + xf).to(dtype).permute(0, 2, 3, 1).contiguous()
+    dtype, acc = x.dtype, accumulate
+
+    def round_to_x(t):
+        return t.float().to(dtype).to(acc)
+
+    def oihw_1x1(w):  # (Cin, Cout) -> (Cout, Cin, 1, 1)
+        return w.to(acc).t()[:, :, None, None]
+
+    xf = x.to(acc).permute(0, 3, 1, 2)  # NCHW view of NHWC memory
+    y = round_to_x(torch.relu(F.conv2d(xf, oihw_1x1(w1), b1.to(acc))))
+    y = round_to_x(torch.relu(F.conv2d(y, w2.to(acc).permute(3, 2, 0, 1), b2.to(acc), padding=1)))
+    y = F.conv2d(y, oihw_1x1(w3), b3.to(acc))
+    return torch.relu(y + xf).float().to(dtype).permute(0, 2, 3, 1).contiguous()
 
 
 def fused_bottleneck(x, w1, b1, w2, b2, w3, b3, *, tile_h: int = 8) -> torch.Tensor:

@@ -11,7 +11,9 @@ plain version in float32 on the same values (probabilities and output rounded
 to bf16), relative to max(1, |ref|) at the tile-edge lengths (see there). K3, relative to max(1, |ref|) against the plain version on the same
 values: float32 1e-4 with TF32 off (summation order); bf16 2^-6, two ulps of
 the output (its own rounding, and a y1 or y2 value next to a rounding
-midpoint carried through the next product).
+midpoint carried through the next product). The bf16 tiling's edge tests
+hold it there against the plain version with float32 sums and with exact
+sums (``bottleneck_kernel_bench.bf16_verdict``).
 """
 
 import pytest
@@ -190,3 +192,88 @@ def test_bottleneck_wrapper_rejects_what_the_kernel_does_not_take(card):
     bad_w2 = torch.zeros(3, 3, 16, 24, device="cuda")
     with pytest.raises(ValueError, match="w2"):
         k3.fused_bottleneck(x, ws[0], ws[1], bad_w2, *ws[3:], tile_h=4)
+
+
+def _check_bottleneck(x, ws, out):
+    """bf16 K3 within K3's bar of the plain version with float32 sums and
+    with exact sums."""
+    torch.cuda.synchronize()
+    assert out.dtype == x.dtype and out.shape == x.shape and bool(torch.isfinite(out).all())
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        plain32 = bottleneck_reference(x, *ws)
+        exact = bottleneck_reference(x, *ws, accumulate=torch.float64)
+    readings = (bench.errors(out, plain32)[1], bench.errors(out, exact)[1], bench.errors(plain32, exact)[1])
+    assert bench.bf16_verdict(*readings, K3_TOL[x.dtype]) == "met", readings
+
+
+@pytest.mark.parametrize(
+    "W,tile_h,tile_w,rows",
+    [(40, 4, 16, 160), (20, 4, 16, 160), (40, 8, 12, 160), (41, 2, 30, 128), (20, 1, 32, 128), (40, 1, 16, 128)],
+    ids=["w40_p4x16", "w20_p4x16", "w40_p8x12", "w41_p2x30", "w20_p1x32", "w40_p1x16"],
+)
+@pytest.mark.parametrize("b1", [None, 3.0], ids=["random_b1", "border_b1_3"])
+def test_bf16_bottleneck_ragged_patches(card, W, tile_h, tile_w, rows, b1):
+    """The bf16 tiles at patch widths that do not divide W (the last patch of
+    a row is ragged, or wider than the image), through the launch with the
+    tiles given; b1 = 3 would leak relu(b1) into the border if SAME padding
+    were not zero in y1."""
+    x, ws = _bottleneck_case(2, 8, W, 256, 64, torch.bfloat16, b1)
+    before = k3.launch_counts["fused_bottleneck"]
+    out = k3._launch(x, *ws, tile_h, tile_w, rows)
+    assert k3.launch_counts["fused_bottleneck"] == before + 1
+    _check_bottleneck(x, ws, out)
+
+
+@pytest.mark.parametrize("W", [40, 20])
+@pytest.mark.parametrize("C,M,tile_h", [(256, 64, 8), (512, 128, 4), (1024, 256, 2), (2048, 512, 1)],
+                         ids=["stage1", "stage2", "stage3", "stage4"])
+def test_bf16_bottleneck_at_the_detr_channels(card, W, C, M, tile_h):
+    """Each DETR-R50 (C, M) pair with its tile_h, at a small B*H*W, through
+    the plan's tiles."""
+    x, ws = _bottleneck_case(2, 8, W, C, M, torch.bfloat16, seed=C)
+    _check_bottleneck(x, ws, fused_bottleneck(x, *ws, tile_h=tile_h))
+
+
+@pytest.mark.parametrize("H,W,C,M,tile_h", [(23, 40, 2048, 512, 1), (46, 80, 1024, 256, 2)],
+                         ids=["h23_tile_h1", "h46_tile_h2"])
+def test_bf16_bottleneck_at_the_detr_heights(card, H, W, C, M, tile_h):
+    x, ws = _bottleneck_case(1, H, W, C, M, torch.bfloat16, seed=H)
+    _check_bottleneck(x, ws, fused_bottleneck(x, *ws, tile_h=tile_h))
+
+
+@pytest.mark.parametrize(
+    "H,M,tile_h,tile_w,rows",
+    [(8, 64, 8, 16, 160), (8, 64, 8, 16, 128), (8, 64, 4, 16, 96), (8, 1024, 4, 16, 160), (10, 64, 4, 16, 160),
+     (8, 64, 4, 0, 160)],
+    ids=["ring_180_of_160_rows", "ring_180_of_128_rows", "no_such_tiles", "smem_over_227KB", "tile_h_not_dividing_H",
+         "empty_patch"],
+)
+def test_bf16_bottleneck_launch_refuses_what_its_tiles_do_not_cover(card, H, M, tile_h, tile_w, rows):
+    """The C entry point takes the tiles it is given and refuses, before it
+    launches anything, a ring its warps' tiles do not cover, tiles it does
+    not have, a block over 227 KB of shared memory, or rows of patches that
+    do not tile the image."""
+    lib = k3.load_library()
+    x, ws = _bottleneck_case(1, H, 40, 256, M, torch.bfloat16)
+    out = torch.empty_like(x)
+    ptrs = [t.data_ptr() for t in (x, *ws, out)]
+    err = lib.fused_bottleneck(1, *ptrs, 1, H, 40, 256, M, tile_h, tile_w, rows,
+                               torch.cuda.current_stream().cuda_stream)
+    assert err != 0
+    if H % tile_h == 0:
+        _check_bottleneck(x, ws, fused_bottleneck(x, *ws, tile_h=tile_h))  # the plan's tiles still launch
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("width,channels,mid,tile_h",
+                         [(320, 256, 64, 8), (160, 512, 128, 4), (80, 1024, 256, 2), (40, 2048, 512, 1), (20, 32, 8, 4)])
+def test_bottleneck_smem_matches_the_library(card, dtype, width, channels, mid, tile_h):
+    """The plan's shared bytes are what the launch requests, at the plan's
+    tiles and at every other tile of the type."""
+    lib = k3.load_library()
+    code = 1 if dtype == torch.bfloat16 else 0
+    rows, tile_w, smem = k3.plan(width, mid, tile_h, dtype, channels)
+    assert lib.bottleneck_smem_bytes(code, rows, tile_h, tile_w, mid) == smem
+    for other in k3.MMA_TILES if dtype == torch.bfloat16 else k3.GEMM_ROWS:
+        assert lib.bottleneck_smem_bytes(code, other, tile_h, 5, mid) == k3.smem_bytes(other, tile_h, 5, mid, dtype)
+    assert lib.bottleneck_smem_bytes(code, 96, tile_h, 5, mid) == -1

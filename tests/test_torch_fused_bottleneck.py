@@ -21,7 +21,9 @@ import pytest
 import torch
 
 from office_person_detection_vit_torch import bottleneck_kernel_bench as bench
+from office_person_detection_vit_torch import bottleneck_phase_profile as profile
 from office_person_detection_vit_torch.kernels import bottleneck as kernels
+from office_person_detection_vit_torch.kernels import build
 from office_person_detection_vit_torch.kernels.build import BLOCK_SMEM_BYTES
 from office_person_detection_vit_torch.models.resnet import Bottleneck
 from office_person_detection_vit_torch.ops import fused_bottleneck as port
@@ -169,25 +171,105 @@ def test_fold_layouts_and_types():
     assert w2[2, 0, 3, 5].float().item() == pytest.approx(want.bfloat16().float().item())
 
 
-# DETR-R50 stages at 736x1280: (width, M, tile_h), and the plan's (rows,
-# tile_w, shared bytes) in bf16 and float32.
+# DETR-R50 stages at 736x1280: (width, C, M, tile_h); the float32 plan's (rows,
+# tile_w, shared bytes); and the tile_w of the bf16 plan of the CUDA-core
+# body that the tensor-core body replaced (tile_h x tile_w pixels a block).
 PLANS = [
-    ((320, 64, 8), (64, 8, 37_888), (64, 8, 58_880)),
-    ((320, 64, 4), (64, 16, 38_912), (64, 16, 60_928)),
-    ((160, 128, 4), (64, 16, 60_928), (64, 16, 104_960)),
-    ((80, 256, 2), (32, 16, 74_240), (16, 8, 92_672)),
-    ((40, 512, 1), (16, 16, 107_008), (16, 16, 178_688)),
+    ((320, 256, 64, 8), (64, 8, 58_880), 8),
+    ((320, 256, 64, 4), (64, 16, 60_928), 16),
+    ((160, 512, 128, 4), (64, 16, 104_960), 16),
+    ((80, 1024, 256, 2), (16, 8, 92_672), 16),
+    ((40, 2048, 512, 1), (16, 16, 178_688), 16),
 ]
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("geometry,bf16,f32", PLANS)
-def test_plan_fits_a_block(dtype, geometry, bf16, f32):
-    width, mid, tile_h = geometry
-    rows, tile_w, smem = kernels.plan(width, mid, tile_h, dtype)
-    assert (rows, tile_w, smem) == (bf16 if dtype == torch.bfloat16 else f32)
-    assert tile_h * tile_w <= rows and smem <= BLOCK_SMEM_BYTES
-    assert smem == kernels.smem_bytes(rows, tile_h, tile_w, mid, dtype)
+@pytest.mark.parametrize("geometry,f32,cuda_core_tile_w", PLANS)
+def test_plan_fits_a_block(dtype, geometry, f32, cuda_core_tile_w):
+    """float32 keeps its plan exactly. bf16: the ring fits the tiles, the
+    block fits 227 KB (half an SM's shared memory for the two-block tiles),
+    and a block holds at least as many pixels as the CUDA-core body's did."""
+    width, channels, mid, tile_h = geometry
+    rows, tile_w, smem = kernels.plan(width, mid, tile_h, dtype, channels)
+    assert smem == kernels.smem_bytes(rows, tile_h, tile_w, mid, dtype) and smem <= BLOCK_SMEM_BYTES
+    if dtype == torch.float32:
+        assert (rows, tile_w, smem) == f32 and tile_h * tile_w <= rows
+        return
+    assert rows in kernels.MMA_TILES and (tile_h + 2) * (tile_w + 2) <= rows and tile_w <= width
+    if kernels.MMA_TILES[rows][2] == 2:
+        assert smem <= kernels.TWO_BLOCK_SMEM_BYTES
+    assert tile_w >= cuda_core_tile_w
+
+
+# DETR-R50's identity-block stages at 736x1280, batch 8: (B, H, W, C, M,
+# tile_h) and the bf16 plan's (rows, tile_h x tile_w).
+DETR_STAGES = [
+    ((8, 184, 320, 256, 64, 8), (160, 8, 14)),
+    ((8, 92, 160, 512, 128, 4), (128, 4, 16)),
+    ((8, 46, 80, 1024, 256, 2), (128, 2, 27)),
+    ((8, 23, 40, 2048, 512, 1), (128, 1, 40)),
+]
+
+
+@pytest.mark.parametrize("geometry,tiles", DETR_STAGES, ids=["stage1", "stage2", "stage3", "stage4"])
+def test_bf16_plan_report_at_the_detr_stages(geometry, tiles):
+    """The tiles the plan picks, and the report's numbers from them: the
+    grid covers the image, every block reads W1, W2 and W3 once from L2."""
+    B, H, W, C, M, tile_h = geometry
+    r = kernels.plan_report(B, H, W, C, M, tile_h, torch.bfloat16)
+    assert (r["rows"], r["tile_h"], r["tile_w"]) == tiles
+    patches = -(-W // r["tile_w"])
+    assert patches * r["tile_w"] >= W > (patches - 1) * r["tile_w"]
+    assert r["blocks"] == B * (H // tile_h) * patches and r["pixels"] == tile_h * r["tile_w"]
+    assert r["weight_l2_bytes"] == r["blocks"] * (2 * C * M + 9 * M * M) * 2
+    assert r["recompute"] == pytest.approx((tile_h + 2) * (r["tile_w"] + 2) / r["pixels"])
+    assert r["smem_bytes"] == kernels.smem_bytes(r["rows"], tile_h, r["tile_w"], M, torch.bfloat16)
+
+
+def test_build_digest_covers_the_headers(tmp_path):
+    """The cached library's key changes with a header's bytes, as with a
+    source's; only the .cu files are compiled."""
+    for src in (*build.CSRC.glob("*.cu"), *build.CSRC.glob("*.cuh")):
+        (tmp_path / src.name).write_bytes(src.read_bytes())
+    assert (tmp_path / "sm90.cuh").exists()
+    before = build.digest(tmp_path)
+    assert build.digest(tmp_path) == before
+    header = tmp_path / "sm90.cuh"
+    header.write_bytes(header.read_bytes() + b"\n")
+    assert build.digest(tmp_path) != before
+    assert all(p.suffix == ".cu" for p in build.sources())
+
+
+def test_phase_profile_builds_a_library_of_its_own():
+    """The phase profile's build (the counters behind its define in the
+    source) is cached under another key than the library's, so neither
+    replaces the other (the build itself needs nvcc and a card)."""
+    flags = (*build.NVCC_FLAGS, *profile.PROFILE_DEFINES)
+    assert build.digest(flags=flags) != build.digest()
+    define = profile.PROFILE_DEFINES[0].removeprefix("-D")
+    assert f"#ifdef {define}" in (build.CSRC / "bottleneck.cu").read_text()
+
+
+@pytest.mark.parametrize("price", [11, kernels.WEIGHT_READ_MACS, 68])
+def test_bf16_plan_is_the_same_over_its_range_of_weight_prices(monkeypatch, price):
+    """The weight-read price is empirical: every price from 11 to 68 picks
+    the same patches at DETR-R50's four stages."""
+    monkeypatch.setattr(kernels, "WEIGHT_READ_MACS", price)
+    for (B, H, W, C, M, tile_h), (rows, _, tile_w) in DETR_STAGES:
+        assert kernels.plan(W, M, tile_h, torch.bfloat16, C)[:2] == (rows, tile_w)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_reference_with_float64_sums(dtype):
+    """The plain version with float64 sums rounds at the same points: within
+    the float32 bar of the float32 sums, and of JAX's bf16 reference within
+    the bf16 bar."""
+    x, ws = _inputs(6, 2, 8, 6, 32, 8)
+    got = _port(port.bottleneck_reference, x, ws, dtype=dtype, accumulate=torch.float64)
+    if dtype == torch.float32:
+        np.testing.assert_allclose(got, _port(port.bottleneck_reference, x, ws), atol=1e-4, rtol=1e-4)
+    else:
+        assert _rel_err(got, _jax(ref.bottleneck_reference, x, ws, dtype=jnp.bfloat16)) <= BF16_REL
 
 
 def test_bound_at_the_stage1_bench_geometry():
@@ -210,6 +292,10 @@ def test_bench_drives_on_the_cpu(tmp_path):
             assert f"cuda_th{th}_ms" not in entry  # nothing is timed on the CPU
 
 
-def test_plan_refuses_a_tile_taller_than_the_gemm_tile():
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_plan_refuses_a_tile_taller_than_the_gemm_tile(dtype):
+    """float32: tile_h above the GEMM tile's rows; bf16: a ring of tile_h + 2
+    rows three pixels wide that no tiles cover."""
+    tallest = max(kernels.GEMM_ROWS) if dtype == torch.float32 else max(kernels.MMA_TILES) // 3 - 2
     with pytest.raises(ValueError, match="no tile"):
-        kernels.plan(320, 64, max(kernels.GEMM_ROWS) + 1, torch.bfloat16)
+        kernels.plan(320, 64, tallest + 1, dtype, 256)

@@ -5,7 +5,8 @@
 Builds the hand-written CUDA kernels from
 ``office_person_detection_vit_torch/csrc`` (one nvcc call), holds each against
 its plain PyTorch version at the shapes its path gives it, then drives the
-port through its entry points ``DETRDetector`` and the fused-bottleneck bench:
+port through its entry points ``DETRDetector``, the fused-bottleneck bench
+and the pipeline phases 2-4:
 
 1. device: the card's name and power limit; the kernel build and its time;
    each kernel's registers, spills and shared memory (attention K1/K2 and
@@ -35,7 +36,17 @@ port through its entry points ``DETRDetector`` and the fused-bottleneck bench:
    inputs in bf16 against the plain version, with float32 and with exact
    sums (``bottleneck_kernel_bench.bf16_verdict``); each stage timed against
    the cuDNN chain, beside its plan and the recorded time of the CUDA-core
-   K3 that the tensor-core body replaced.
+   K3 that the tensor-core body replaced;
+8. the slice, phases 2-4 through the port's own phases: (a) DETR-R50 bf16
+   at 736x1280 over 288 rendered frames (a day at 5-minute intervals)
+   through ``DetectionPhase`` -> ``TransformPhase`` -> ``AggregationPhase``
+   (18 K2 launches a chunk, the four artifacts with the JAX keys, a
+   ``zone_counts.csv`` row a frame, each phase's wall time), then the
+   transform and aggregation phases at a user's load (288 frames x 50
+   detections) with homography, PWA and TPS, lens undistortion and both
+   overlap modes, held against float64 numpy; (b) the committed DETR-small
+   checkpoint through the phases, whose zone counts must place each drawn
+   person in their zone, with its features and attention map.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 Its last two lines are JSON: the kernels (launches, error, times, bound) and
@@ -44,11 +55,13 @@ the device.
 
 from __future__ import annotations
 
+import csv
 import importlib.util
 import json
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from datetime import datetime, timedelta
 from pathlib import Path
@@ -83,8 +96,14 @@ EARLIER_MS = {
 # |ref|). float32 (TF32 off): summation order only. bf16: two ulps of the
 # output, 2^-6 -- one for the output's own rounding, one for a y1 or y2 value
 # next to a rounding midpoint that rounds the other way and is carried
-# through the next product -- against the plain version with float32 sums
-# and with exact sums (bottleneck_kernel_bench.bf16_verdict).
+# through the next product. The bf16 bar is read against the plain version
+# with exact (float64) sums. The reading against float32 sums is printed as a
+# diagnostic and must also be within the bar, except where those float32 sums
+# are themselves more than the bar from exact: their own rounding has then
+# moved a y1 or y2 value across a bf16 rounding point, which a kernel
+# summing in another order does not follow (one DETR-R50 block,
+# stage1_layer3; bottleneck_kernel_bench.bf16_verdict). The card tests hold
+# both readings within the bar.
 K3_TOL = {torch.float32: 1e-4, torch.bfloat16: 2.0**-6}
 # The earlier bf16 K3, whose products ran on the CUDA cores, at each DETR-R50
 # stage's geometry (B, H, W, C, M): recorded by ``bottleneck_kernel_bench
@@ -115,20 +134,22 @@ def check(cond: bool, msg: str) -> None:
         raise AssertionError(msg)
 
 
-def check_k3_bf16(where: str, vs_f32: float, vs_exact: float, f32_vs_exact: float, unmet: list) -> None:
+def check_k3_bf16(where: str, vs_f32: float, vs_exact: float, f32_vs_exact: float, off: list) -> None:
     """Hold a bf16 K3 reading to ``K3_TOL`` (``bottleneck_kernel_bench.bf16_verdict``):
-    fail unless it is within the bar of the plain version with exact sums,
-    and of the plain version with float32 sums wherever those are within the
-    bar of exact. A reading over the bar against float32 sums that are
-    themselves over it goes to ``unmet``, which phase 7 prints as not met."""
+    fail unless it is within the bar of the plain version with exact sums
+    (the bar reading), and of the plain version with float32 sums (the
+    diagnostic) wherever those are within the bar of exact. A diagnostic
+    over the bar where the float32 sums are themselves over it goes to
+    ``off``, which phase 7 prints with that reason."""
     from office_person_detection_vit_torch.bottleneck_kernel_bench import bf16_verdict
 
     tol = K3_TOL[torch.bfloat16]
     verdict = bf16_verdict(vs_f32, vs_exact, f32_vs_exact, tol)
-    check(verdict != "failed", f"K3 {where} bf16: {vs_f32:.3e} from the plain version with float32 sums, "
-          f"{vs_exact:.3e} with exact sums (the float32 sums {f32_vs_exact:.3e} from exact); bar {tol:.2e}")
+    check(verdict != "failed", f"K3 {where} bf16: {vs_exact:.3e} from the plain version with exact sums (the bar "
+          f"reading), {vs_f32:.3e} with float32 sums (the float32 sums {f32_vs_exact:.3e} from exact); bar {tol:.2e}")
     if verdict == "float32 sums off":
-        unmet.append(f"{where}: {vs_f32:.3e}, where the float32 sums are {f32_vs_exact:.3e} from exact")
+        off.append(f"{where}: bar reading {vs_exact:.3e}; float32-sum diagnostic {vs_f32:.3e}, where the float32 "
+                   f"sums are themselves {f32_vs_exact:.3e} from exact")
 
 
 def load_render_frame():
@@ -242,7 +263,7 @@ def bottleneck_phase(frames: np.ndarray, smi: str) -> dict:
     made = sum(v for r in runs.values() for e in r["shapes"].values() for k, v in e.items() if k.endswith("_launches"))
     check(bench_launches > 0 and bench_launches == made,
           f"the bench launched K3 {bench_launches} times, its calls {made}")
-    unmet = []  # bf16 readings over the bar against the float32 sums only, where those are off themselves
+    off_f32 = []  # bf16 diagnostics over the bar (float32 sums), where those sums are off exact themselves
     for dt, r in runs.items():
         for label, _, tiles in bench.SHAPES:
             e = r["shapes"][label]
@@ -251,13 +272,14 @@ def bottleneck_phase(frames: np.ndarray, smi: str) -> dict:
                 if dt == "float32":
                     check(rel <= K3_TOL[torch.float32], f"K3 {where} float32: {rel:.3e} > {K3_TOL[torch.float32]:.1e}")
                 else:
-                    check_k3_bf16(where, rel, e[f"cuda_th{th}_relerr_exact"], e["plain_relerr_exact"], unmet)
+                    check_k3_bf16(where, rel, e[f"cuda_th{th}_relerr_exact"], e["plain_relerr_exact"], off_f32)
     for label, (B, H, W, C, M), tiles in bench.SHAPES:
         for th in tiles:
             log(f"[7a] {label} tile_h {th} bf16 plan: {kb.describe_plan(kb.plan_report(B, H, W, C, M, th, torch.bfloat16))}")
     log(f"[7a] bench: {bench_launches} K3 launches, every error within tolerance "
         f"(float32 {K3_TOL[torch.float32]:.0e}, bf16 {K3_TOL[torch.bfloat16]:.2e} relative to max(1,|ref|); bf16 "
-        f"against the plain version with float32 and with exact sums, {len(unmet)} not met) on {smi}")
+        f"against the plain version with exact sums, and with float32 sums as a diagnostic, {len(off_f32)} over "
+        f"the bar where the float32 sums are off themselves) on {smi}")
 
     # (b) the 12 identity blocks of a full-width DETR-R50, float32, TF32 off
     resolve_device("cuda", "float32")
@@ -309,7 +331,7 @@ def bottleneck_phase(frames: np.ndarray, smi: str) -> dict:
             errs[n, dtype] = bench.errors(got, plain32)
             errs[n, "exact"] = bench.errors(got, exact)
             errs[n, "plain"] = bench.errors(plain32, exact)
-            check_k3_bf16(n, errs[n, dtype][1], errs[n, "exact"][1], errs[n, "plain"][1], unmet)
+            check_k3_bf16(n, errs[n, dtype][1], errs[n, "exact"][1], errs[n, "plain"][1], off_f32)
             del exact, plain32
         launches = kb.launch_counts["fused_bottleneck"]
         check(launches == len(blocks), f"the {dtype} identity blocks launched K3 {launches} times, expected 12")
@@ -320,19 +342,20 @@ def bottleneck_phase(frames: np.ndarray, smi: str) -> dict:
                 f"{worst:.3e} (tol {K3_TOL[dtype]:.1e}) against the unfolded block")
         else:
             log(f"[7c] DETR-R50 identity blocks bfloat16: {launches} K3 launches; max |err| relative to max(1,|ref|) "
-                f"against the plain version {worst:.3e} with float32 sums, "
-                f"{max(errs[n, 'exact'][1] for n, _ in blocks):.3e} with exact sums (tol {K3_TOL[dtype]:.2e})")
+                f"against the plain version with exact sums (the bar reading) "
+                f"{max(errs[n, 'exact'][1] for n, _ in blocks):.3e} (bar {K3_TOL[dtype]:.2e}); with float32 sums "
+                f"(diagnostic) {worst:.3e}")
     for n, _ in blocks:
         x = io[n][0]
         verdict = bench.bf16_verdict(errs[n, torch.bfloat16][1], errs[n, "exact"][1], errs[n, "plain"][1],
                                      K3_TOL[torch.bfloat16])
         log(f"     {n:13s} {str(tuple(x.shape)):22s} float32 err {errs[n, torch.float32][0]:.3e} "
-            f"(rel {errs[n, torch.float32][1]:.3e}); bf16 err {errs[n, torch.bfloat16][0]:.3e} "
-            f"(rel {errs[n, torch.bfloat16][1]:.3e} against float32 sums, {errs[n, 'exact'][1]:.3e} against exact "
-            f"sums; float32 sums against exact {errs[n, 'plain'][1]:.3e}): {verdict}")
-    for u in unmet:
-        log(f"[7] NOT MET: bf16 K3 over {K3_TOL[torch.bfloat16]:.2e} against the plain version with float32 sums "
-            f"at {u}")
+            f"(rel {errs[n, torch.float32][1]:.3e}); bf16 bar reading (rel, exact sums) {errs[n, 'exact'][1]:.3e}, "
+            f"diagnostic (rel, float32 sums) {errs[n, torch.bfloat16][1]:.3e}, float32 sums against exact "
+            f"{errs[n, 'plain'][1]:.3e}: {verdict}")
+    for u in off_f32:
+        log(f"[7] met against exact sums; float32-sum diagnostic over {K3_TOL[torch.bfloat16]:.2e} because those "
+            f"sums are off exact themselves, at {u}")
 
     # Each stage's first identity block, timed against the cuDNN chain
     log("[7] per-stage block times (CUDA events, mean of 5 after 2 warm-up; plain: 2 after 1); "
@@ -370,8 +393,342 @@ def bottleneck_phase(frames: np.ndarray, smi: str) -> dict:
         "max_abs_err": e["cuda_th8_maxerr"], "ms": e["cuda_th8_ms"], "plain_ms": e["plain_ms"],
         "bound_ms": e["bound_ms"], "bound_by": e["bound_by"], "library_ms": e["cudnn_ms"],
         "shape": e["shape"], "dtype": "bfloat16", "tile_h": 8, "detr_block_launches": 2 * len(blocks),
-        "bf16_not_met_against_float32_sums": unmet,
+        "bf16_float32_sum_diagnostic_over_bar": off_f32,
     }
+
+
+# ------------------------------------------------------------------- phase 8
+# The load of phases 3-4 (8a): a homography that puts a 1280x720 frame on the
+# 1878x1369 floormap with some perspective (the reference matrix of phase 6
+# sends most of such a frame past its horizon), lens distortion, and four
+# floormap zones of which zone_2 overlaps zone_1.
+LOAD_H = np.array([[1.2, 0.1, 50.0], [0.05, 1.5, 60.0], [1e-5, 2e-4, 1.0]])
+LOAD_LENS = {"enabled": True, "k1": -0.12, "k2": 0.03, "p1": 1.5e-3, "p2": -8e-4, "k3": 0.0,
+             "focal_length_x": 1250.0, "focal_length_y": 1250.0, "center_x": 640.0, "center_y": 360.0}
+LOAD_ZONES = [
+    {"id": "zone_1", "polygon": [[100, 100], [700, 100], [700, 600], [100, 600]], "priority": 2},
+    {"id": "zone_2", "polygon": [[600, 450], [1300, 400], [1400, 1000], [550, 950]], "priority": 1},
+    {"id": "zone_3", "polygon": [[800, 80], [1420, 100], [1150, 380]], "priority": 3},
+    {"id": "zone_4", "polygon": [[100, 700], [520, 700], [520, 1040], [100, 1040]], "priority": 4},
+]
+#: Floor pixels: float32 against float64 numpy. Zone edges: points closer than
+#: this to one are counted apart, since float32 may put them on either side.
+FLOOR_TOL, EDGE_PX = 1e-2, 1e-3
+STATISTICS_KEYS = {"total_frames", "total_detections", "avg_detections_per_frame", "max_detections_per_frame",
+                   "min_detections_per_frame", "confidence", "transfer_format"}
+
+
+def run_phases(cfg: dict, results: list, out: Path, frames=None, detection=None) -> tuple[dict, dict]:
+    """The port's phases into ``out``: detection (when ``detection``, a
+    built ``DetectionPhase``, is given), transform and aggregation. Returns
+    each phase's wall seconds (host clock, the card synchronised) and the
+    phase objects."""
+    from office_person_detection_vit_torch.pipeline.phases import AggregationPhase, TransformPhase
+
+    phases = {} if detection is None else {"detection": (detection, (frames, results, out))}
+    phases["transform"] = (TransformPhase(cfg), (results, out))
+    phases["aggregation"] = (AggregationPhase(cfg), (results, out))
+    secs = {}
+    for name, (phase, args) in phases.items():
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        t = time.perf_counter()
+        phase.execute(*args)
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t
+    return secs, {name: phase for name, (phase, _) in phases.items()}
+
+
+def check_artifacts(out: Path, zone_ids: list, frames: int) -> None:
+    """The four artifacts exist, with the keys the JAX package writes
+    (``schemas/coordinate_transformations.schema.json`` for the transform's),
+    and ``zone_counts.csv`` has a row per frame."""
+    schema = json.loads((ROOT / "schemas" / "coordinate_transformations.schema.json").read_text())
+    det_keys = set(schema["$defs"]["detection"]["properties"])
+    dets = json.loads((out / "detections.json").read_text())
+    check(set(dets) == {"frames"} and len(dets["frames"]) == frames, "detections.json: frames")
+    for f in dets["frames"]:
+        check(set(f) == {"frame_number", "timestamp", "detections"}, f"detections.json frame keys {set(f)}")
+        for d in f["detections"]:
+            check({"bbox", "confidence", "camera_coords"} <= set(d) <= det_keys, f"detection keys {set(d)}")
+    stats = json.loads((out / "detection_statistics.json").read_text())
+    check(set(stats) == STATISTICS_KEYS, f"detection_statistics.json keys {set(stats)}")
+    coords = json.loads((out / "coordinate_transformations.json").read_text())
+    check(set(schema["required"]) <= set(coords) <= set(schema["properties"]), f"transform keys {set(coords)}")
+    check(set(coords["transformer_info"]) <= set(schema["properties"]["transformer_info"]["properties"]),
+          "transformer_info keys")
+    frame_keys = set(schema["$defs"]["frame"]["properties"])
+    check(len(coords["frames"]) == frames, "coordinate_transformations.json frames")
+    for f in coords["frames"]:
+        check(set(f) <= frame_keys, f"transform frame keys {set(f)}")
+        for d in f["detections"]:
+            check({"bbox", "confidence", "camera_coords", "floor_coords_px", "floor_coords_mm"} <= set(d) <= det_keys,
+                  f"transform detection keys {set(d)}")
+    rows = (out / "zone_counts.csv").read_text().splitlines()
+    check(rows[0].split(",") == ["timestamp", *zone_ids, "unclassified", "total"], f"zone_counts.csv header {rows[0]}")
+    check(len(rows) == frames + 1, f"zone_counts.csv has {len(rows) - 1} rows, expected {frames}")
+
+
+def seeded_frame_results(n_frames: int, per_frame: int, t_start: datetime, seed: int = 0) -> list:
+    """n_frames FrameResults of per_frame seeded detections each, foot points
+    anywhere in a 1280x720 frame."""
+    from office_person_detection_vit_torch.core.dto import Detection, FrameResult
+
+    rng = np.random.default_rng(seed)
+    feet = rng.uniform([10, 40], [1270, 715], (n_frames, per_frame, 2))
+    wh = rng.uniform([35, 90], [75, 210], (n_frames, per_frame, 2))
+    conf = rng.uniform(0.3, 1.0, (n_frames, per_frame))
+    return [FrameResult(f, t_start + timedelta(minutes=5 * f), [
+        Detection(bbox=(float(x - w / 2), float(y - h), float(w), float(h)), confidence=float(c))
+        for (x, y), (w, h), c in zip(feet[f], wh[f], conf[f])]) for f in range(n_frames)]
+
+
+def floor64(transformer, method: str, feet: np.ndarray) -> np.ndarray:
+    """float64 numpy evaluation of the fitted model the transformer holds
+    (its float32 parameters, widened), on float64 foot points."""
+    if method == "homography":
+        hom = np.c_[feet, np.ones(len(feet))] @ transformer.H.T
+        return hom[:, :2] / hom[:, 2:]
+    if method == "thin_plate_spline":
+        m = transformer.model
+        c, w, a, off = (np.asarray(v, np.float64) for v in (m.control, m.w, m.a, m.offset))
+        pts = (feet - off) / float(np.float32(m.scale))
+        d2 = ((pts[:, None, :] - c[None]) ** 2).sum(-1)
+        phi = np.where(d2 > 0, 0.5 * d2 * np.log(np.maximum(d2, 1e-300)), 0.0)
+        return phi @ w + np.c_[np.ones(len(pts)), pts] @ a
+    p = feet
+    und = transformer.undistorter
+    if und is not None:  # the fixed-point iteration, in float64
+        K, d = und.params.camera_matrix, und.params.dist_coeffs.astype(np.float32).astype(np.float64)
+        k1, k2, p1, p2, k3 = d
+        xd, yd = (p[:, 0] - K[0, 2]) / K[0, 0], (p[:, 1] - K[1, 2]) / K[1, 1]
+        x, y = xd, yd
+        for _ in range(und.UNDISTORT_ITERS):
+            r2 = x * x + y * y
+            radial = 1 + k1 * r2 + k2 * r2 * r2 + k3 * r2 ** 3
+            x, y = ((xd - (2 * p1 * x * y + p2 * (r2 + 2 * x * x))) / radial,
+                    (yd - (p1 * (r2 + 2 * y * y) + 2 * p2 * x * y)) / radial)
+        p = np.stack([x * K[0, 0] + K[0, 2], y * K[1, 1] + K[1, 2]], -1)
+    m = transformer.model
+    tri, aff, cen = (np.asarray(v, np.float64) for v in (m.triangles, m.affines, m.centroids))
+    a = tri[None, :, 0]
+    v0, v1, v2 = tri[None, :, 2] - a, tri[None, :, 1] - a, p[:, None] - a
+    d00, d01, d11 = (v0 * v0).sum(-1), (v0 * v1).sum(-1), (v1 * v1).sum(-1)
+    d20, d21 = (v2 * v0).sum(-1), (v2 * v1).sum(-1)
+    den = d00 * d11 - d01 * d01
+    u, v = (d11 * d20 - d01 * d21) / den, (d00 * d21 - d01 * d20) / den
+    inside = (u >= -1e-7) & (v >= -1e-7) & (u + v <= 1 + 1e-7)
+    dist2 = ((p[:, None] - cen[None]) ** 2).sum(-1)
+    t = np.argmin(np.where(inside, dist2, dist2 + 1e30), axis=1)
+    return np.einsum("nij,nj->ni", aff[t], np.c_[p, np.ones(len(p))])
+
+
+def zones64(floor: np.ndarray, zones: list, mode: str) -> tuple[np.ndarray, np.ndarray]:
+    """float64 even-odd membership (N, Z) under the overlap mode, and
+    whether each point lies within EDGE_PX of a zone edge."""
+    member = np.zeros((len(floor), len(zones)), bool)
+    near = np.zeros(len(floor), bool)
+    x, y = floor[:, 0:1], floor[:, 1:2]
+    for z, zone in enumerate(zones):
+        v0 = np.asarray(zone["polygon"], np.float64)
+        v1 = np.roll(v0, -1, axis=0)
+        cross = ((v0[:, 1] > y) != (v1[:, 1] > y)) & (
+            x < v0[:, 0] + (y - v0[:, 1]) * (v1[:, 0] - v0[:, 0]) / (v1[:, 1] - v0[:, 1] + (v1[:, 1] == v0[:, 1])))
+        member[:, z] = cross.sum(1) % 2 == 1
+        e = v1 - v0
+        s = np.clip(((x - v0[:, 0]) * e[:, 0] + (y - v0[:, 1]) * e[:, 1]) / (e ** 2).sum(1), 0, 1)
+        near |= (np.hypot(x - v0[:, 0] - s * e[:, 0], y - v0[:, 1] - s * e[:, 1]) < EDGE_PX).any(1)
+    if mode == "priority":
+        prio = np.asarray([zone["priority"] for zone in zones])
+        best = np.argmin(np.where(member, prio, 2**30), axis=1)
+        member = member.any(1, keepdims=True) & (np.arange(len(zones))[None] == best[:, None])
+    return member, near
+
+
+def load_phase(device: str, smi: str, t_start: datetime, n_frames: int = 288, per_frame: int = 50) -> None:
+    """8a, the load: n_frames x per_frame seeded detections through the
+    transform and aggregation phases with homography, PWA and TPS (each
+    fitted on a 7x7 grid made from LOAD_H, lens undistortion on), overlap
+    modes all and priority, held against float64 numpy."""
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        gx, gy = np.meshgrid(np.linspace(0, 1280, 7), np.linspace(0, 720, 7))
+        cam = np.stack([gx.ravel(), gy.ravel()], 1)
+        hom = np.c_[cam, np.ones(len(cam))] @ LOAD_H.T
+        corr = tmp / "correspondences.json"
+        corr.write_text(json.dumps({"camera": cam.tolist(), "floormap": (hom[:, :2] / hom[:, 2:]).tolist()}))
+        for method in ("homography", "piecewise_affine", "thin_plate_spline"):
+            for mode in ("all", "priority"):
+                cfg = {"detection.device": device, "transform.method": method, "homography.matrix": LOAD_H.tolist(),
+                       "calibration.correspondence_file": str(corr), "zones": LOAD_ZONES, "zones_overlap_mode": mode,
+                       **{f"transform.lens_distortion.{k}": v for k, v in LOAD_LENS.items()}}
+                results = seeded_frame_results(n_frames, per_frame, t_start)
+                out = tmp / f"{method}_{mode}"
+                secs, phases = run_phases(cfg, results, out)
+                tphase = phases["transform"]
+                dets = [d for fr in results for d in fr.detections]
+                feet = np.asarray([d.foot_point for d in dets], np.float32).astype(np.float64)
+                got = np.asarray([d.floor_coords_px for d in dets])
+                want = floor64(tphase.transformer, method, feet)
+                gap = float(np.abs(got - want).max())
+                check(gap < FLOOR_TOL, f"8a {method}: floor points {gap:.3e} px from float64 (tol {FLOOR_TOL})")
+                member, near = zones64(want, LOAD_ZONES, mode)
+                ids = [z["id"] for z in LOAD_ZONES]
+                port = np.asarray([[z in d.zone_ids for z in ids] for d in dets])
+                differ = (port != member).any(1)
+                check(not (differ & ~near).any(), f"8a {method} {mode}: {int((differ & ~near).sum())} detections away "
+                      f"from every zone edge are zoned differently from float64")
+                # zone_counts.csv against the float64 membership (the port's
+                # own at the few points within EDGE_PX of an edge)
+                member = np.where(near[:, None], port, member)
+                rows = list(csv.reader((out / "zone_counts.csv").open()))[1:]
+                check(len(rows) == n_frames, f"8a {method} {mode}: {len(rows)} rows of zone_counts.csv")
+                csv_counts = np.asarray([[int(v) for v in r[1:1 + len(ids)]] for r in rows])
+                want_counts = member.reshape(n_frames, per_frame, len(ids)).sum(1)
+                check(np.array_equal(csv_counts, want_counts), f"8a {method} {mode}: zone counts differ from float64")
+                uncls = np.asarray([int(r[1 + len(ids)]) for r in rows])
+                check(np.array_equal(uncls, (~member.any(1)).reshape(n_frames, per_frame).sum(1)),
+                      f"8a {method} {mode}: unclassified counts differ from float64")
+                lens = "undistorted" if method == "piecewise_affine" and tphase.undistorter is not None else "no lens"
+                log(f"[8a] load {method:17s} {mode:8s} ({lens}): {len(dets)} foot points, max floor gap {gap:.2e} px "
+                    f"from float64; {int(near.sum())} within {EDGE_PX} px of a zone edge; counts "
+                    f"{want_counts.sum(0).tolist()} (+{int(uncls.sum())} unclassified) equal; transform "
+                    f"{secs['transform']:.3f} s, aggregation {secs['aggregation']:.3f} s (host clock) on {smi}")
+
+
+def full_width_phase(ka, smi: str, render_frame, t_start: datetime, H: np.ndarray, zones: list) -> dict:
+    """8a: DETR-R50 bf16 at 736x1280, batch 8, seeded random weights, over
+    288 rendered 720p frames (a day at 5-minute intervals), through the
+    port's DetectionPhase, TransformPhase (phase 6's homography and zones)
+    and AggregationPhase. Returns the attention launches of that run."""
+    from office_person_detection_vit_torch.core.dto import FrameResult
+    from office_person_detection_vit_torch.pipeline.phases import DetectionPhase
+
+    n = 288
+    stamps = [t_start + timedelta(minutes=5 * i) for i in range(n)]
+    frames = [render_frame(ts, people=[(80 + 37 * i % 1100, 120 + 53 * i % 400, i % 6)], seed=100 + i)
+              for i, ts in enumerate(stamps)]
+    cfg = {"detection.model_size": "full", "detection.dtype": "bfloat16", "detection.device": "cuda",
+           "detection.batch_size": 8, "detection.input_height": 736, "detection.input_width": 1280,
+           "detection.confidence_threshold": 0.0, "detection.nms_threshold": 0.4,
+           "transform.method": "homography", "homography.matrix": H.tolist(), "zones": zones}
+    detection = DetectionPhase(cfg)
+    detection.initialize()
+    detection.detector.detect_batch(np.stack(frames[:8]))  # warm-up: one chunk
+    results = [FrameResult(i, ts) for i, ts in enumerate(stamps)]
+    with tempfile.TemporaryDirectory() as tmp:
+        ka.reset_launch_counts()
+        secs, _ = run_phases(cfg, results, Path(tmp), frames, detection)
+        counts = dict(ka.launch_counts)
+        failed = detection.detector.last_failed_chunks
+        check_artifacts(Path(tmp), [z["id"] for z in zones], n)
+    # detect_batch isolates a chunk that raises into all-invalid results; with
+    # random weights those look like a clean run of 0 detections.
+    check(failed == 0, f"8a: {failed} of {n // 8} chunks raised in the detection phase")
+    want = expected_launches(ka, 920, torch.bfloat16, n // 8)
+    check(counts == want and counts["attention_flash"] == 18 * (n // 8),
+          f"8a: the detection phase launched {counts}, expected {want} (18 K2 a chunk x {n // 8})")
+    found = sum(len(r.detections) for r in results)
+    zoned = sum(bool(d.zone_ids) for r in results for d in r.detections)
+    loop = detection.detector.last_inference_time
+    # Random weights may leave few detections; the features' width is
+    # d_model (256) whatever their number.
+    dets, feats = detection.detector.detect_with_features(frames[0])
+    check(feats.shape == (len(dets), 256), f"8a: features {feats.shape} for {len(dets)} detections")
+    check(bool(np.all(np.abs(np.linalg.norm(feats, axis=1) - 1) < 1e-3)), "8a: features are not L2-normalised")
+    log(f"[8a] full width: {n} frames, DETR-R50 bf16 736x1280 batch 8 -> DetectionPhase -> TransformPhase "
+        f"(homography) -> AggregationPhase: launches {counts} over {n // 8} chunks (18 K2 a chunk, none raised); "
+        f"{found} detections (confidence 0.0), {zoned} in a zone; the four artifacts carry the JAX keys and "
+        f"zone_counts.csv {n} rows; detect_with_features {feats.shape} L2-normalised")
+    log(f"[8a] wall time (host clock, card synchronised): detection phase {secs['detection']:.3f} s "
+        f"({n / secs['detection']:.2f} frames/s with its artifacts; the chunk loop {loop:.3f} s, "
+        f"{n / loop:.2f} frames/s), transform {secs['transform']:.3f} s, aggregation {secs['aggregation']:.3f} s, "
+        f"on {smi}")
+    detection.cleanup()
+    return counts
+
+
+def without_timestamp(frame: np.ndarray, seed: int) -> np.ndarray:
+    """The rendered frame with its burned-in timestamp band (x >= 0.70 W,
+    y < 0.105 H) repainted in the renderer's background, 40 plus noise in
+    [0, 12)."""
+    h, w = frame.shape[:2]
+    y1, x0 = int(np.ceil(0.105 * h)), int(0.70 * w)
+    out = frame.copy()
+    out[:y1, x0:] = 40 + np.random.default_rng(seed).integers(0, 12, out[:y1, x0:].shape, np.uint8)
+    return out
+
+
+def trained_phase(ka, smi: str, render_frame, t_start: datetime) -> dict:
+    """8b: the committed DETR-small checkpoint at 224x384 in float32 over the
+    frame of phase 5 and three more, one person each, inside a known
+    camera-pixel zone (identity homography); zone_counts.csv must count each
+    frame's person in their zone and nothing else. The frames carry no
+    timestamp: the checkpoint fires at 0.20-0.22 on the text as some OpenCV
+    builds draw it, and this check is of the people. Then its features,
+    attention map, and detect_batch's launches after the attention map.
+    Returns the attention launches of the phases."""
+    from office_person_detection_vit_torch.core.dto import FrameResult
+    from office_person_detection_vit_torch.pipeline.phases import DetectionPhase
+
+    people = [((500, 350, 2), 4, "zone_sw"), ((150, 200, 0), 5, "zone_nw"), ((900, 150, 1), 6, "zone_ne"),
+              ((1000, 450, 3), 7, "zone_se")]
+    stamps = [t_start + timedelta(minutes=5 * i) for i in range(len(people))]
+    frames = [without_timestamp(render_frame(ts, people=[p], seed=seed), seed)
+              for ts, (p, seed, _) in zip(stamps, people)]
+    quads = {"zone_nw": (0, 0), "zone_ne": (640, 0), "zone_sw": (0, 360), "zone_se": (640, 360)}
+    zones = [{"id": z, "polygon": [[x, y], [x + 640, y], [x + 640, y + 360], [x, y + 360]], "priority": i + 1}
+             for i, (z, (x, y)) in enumerate(quads.items())]
+    cfg = {"detection.model_size": "small", "detection.score_mode": "sigmoid",
+           "detection.checkpoint_path": str(ROOT / "docs" / "artifacts" / "detr_small_weights.npz"),
+           "detection.device": "cuda", "detection.dtype": "float32", "detection.input_height": 224,
+           "detection.input_width": 384, "detection.confidence_threshold": 0.2, "detection.nms_threshold": 0.3,
+           "detection.batch_size": 1, "transform.method": "homography", "homography.matrix": np.eye(3).tolist(),
+           "zones": zones}
+    detection = DetectionPhase(cfg)
+    detection.initialize()
+    results = [FrameResult(i, ts) for i, ts in enumerate(stamps)]
+    with tempfile.TemporaryDirectory() as tmp:
+        ka.reset_launch_counts()
+        run_phases(cfg, results, Path(tmp), frames, detection)
+        counts = dict(ka.launch_counts)
+        failed = detection.detector.last_failed_chunks
+        check_artifacts(Path(tmp), list(quads), len(frames))
+        rows = list(csv.reader((Path(tmp) / "zone_counts.csv").open()))
+    want = {"attention_whole_kv": 9 * len(frames), "attention_flash": 0}
+    check(counts == want, f"8b: the detection phase launched {counts}, expected {want} (9 K1 a frame)")
+    check(failed == 0, f"8b: {failed} of {len(frames)} chunks raised in the detection phase")
+    for row, result, ((px, py, _), _, zone) in zip(rows[1:], results, people):
+        # one detection, at the drawn person (GT box (px, py - 26, 50, 156)),
+        # in its zone
+        dets = [(d.bbox, d.zone_ids) for d in result.detections]
+        d = result.detections[0] if len(dets) == 1 else None
+        check(d is not None and abs(d.center[0] - px - 25) < 60 and abs(d.center[1] - py + 26 - 78) < 60
+              and d.zone_ids == [zone], f"8b: {result.timestamp_str}: detections {dets}, expected one person in {zone}")
+        got = dict(zip(rows[0][1:], row[1:]))
+        want_row = {z: str(int(z == zone)) for z in quads} | {"unclassified": "0", "total": "1"}
+        check({k: got[k] for k in want_row} == want_row,
+              f"8b: {result.timestamp_str}: zone_counts.csv {got}, expected one person in {zone}")
+    det = detection.detector
+    dets, feats = det.detect_with_features(frames[0])
+    d_model = det.detr_config.d_model
+    check(len(dets) >= 1 and feats.shape == (len(dets), d_model), f"8b: features {feats.shape} for {len(dets)}")
+    check(bool(np.all(np.abs(np.linalg.norm(feats, axis=1) - 1) < 1e-5)), "8b: features are not L2-normalised")
+    amap = det.get_attention_map(frames[0])
+    check(amap.shape == det.feature_hw and bool(np.isfinite(amap).all()), f"8b: attention map {amap.shape}")
+    ka.reset_launch_counts()
+    det.detect_batch(np.stack(frames))
+    after = dict(ka.launch_counts)
+    check(after == counts, f"8b: detect_batch launched {after} after the attention map, {counts} before it")
+    log(f"[8b] DETR-small checkpoint 224x384 float32 through the phases: launches {counts} (9 K1 a frame); "
+        f"zone_counts.csv places each of the {len(frames)} people in their zone "
+        f"({', '.join(z for _, _, z in people)}) and counts nothing else; "
+        f"detect_with_features {feats.shape} L2-normalised (d_model "
+        f"{d_model}); attention map {amap.shape} finite, peak/mean {amap.max() / amap.mean():.2f}; detect_batch "
+        f"launches after it {after}, unchanged")
+    detection.cleanup()
+    return counts
 
 
 def main() -> int:
@@ -442,6 +799,7 @@ def main() -> int:
     batch = det.detect_batch(frames)
     main_counts = dict(ka.launch_counts)
     chunks = 3
+    check(det.last_failed_chunks == 0, f"full-width detect: {det.last_failed_chunks} of {chunks} chunks raised")
     check(batch.boxes_xywh.shape == (19, 100, 4), f"detect_batch shape {batch.boxes_xywh.shape}")
     check(all(np.isfinite(a).all() for a in (batch.boxes_xywh, batch.scores, batch.foot)), "non-finite detections")
     want_main = expected_launches(ka, 920, bf16, chunks)
@@ -563,21 +921,30 @@ def main() -> int:
     del small
     k3_row = bottleneck_phase(frames[:8], smi)
 
+    # ---- 8. the slice: phases 2-4 through the port's phases, on the card
+    slice_counts = full_width_phase(ka, smi, render_frame, t_start, H, zones)
+    load_phase("cuda", smi, t_start)
+    trained_counts = trained_phase(ka, smi, render_frame, t_start)
+
     # ---- result
     replaces = {"attention_whole_kv": "office_person_detection_vit_tpu/ops/attention.py:60",
                 "attention_flash": "office_person_detection_vit_tpu/ops/attention.py:159"}
     # Each attention kernel's row at the encoder shape of the path that
     # launches it, beside that path's own count: K2 runs the bf16 main path
-    # (use_flash sends every bf16 call to it), K1 the float32 DETR-small.
+    # (use_flash sends every bf16 call to it), K1 the float32 DETR-small;
+    # the slice's phases (8a, 8b) drive both paths.
     headline = {
-        "attention_whole_kv": (("attention_whole_kv", (1, 8, 84, 84, 16), "float32"), small_counts,
-                               "DETR-small float32 detect, phase 5"),
-        "attention_flash": (("attention_flash", (8, 8, 920, 920, 32), "bfloat16"), main_counts,
-                            "DETR-R50 bf16 detect, phase 3 (the main path)"),
+        "attention_whole_kv": (("attention_whole_kv", (1, 8, 84, 84, 16), "float32"), trained_counts,
+                               "DETR-small float32 through the port's phases 2-4, phase 8b"),
+        "attention_flash": (("attention_flash", (8, 8, 920, 920, 32), "bfloat16"), slice_counts,
+                            "DETR-R50 bf16 through the port's phases 2-4 over 288 frames, phase 8a (the main path)"),
     }
+    other_paths = {"attention_whole_kv": {"phase 5 DETR-small detect": small_counts["attention_whole_kv"]},
+                   "attention_flash": {"phase 3 DETR-R50 detect": main_counts["attention_flash"]}}
     kernels = [
         {"name": name, "route": "cuda", "source": "office_person_detection_vit_torch/csrc/attention.cu",
          "replaces": replaces[name], "launches": counts[name], "launches_on": path,
+         "launches_other_paths": other_paths[name],
          **{k: rows[key][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                                       "shape", "dtype", "instruction")}}
         for name, (key, counts, path) in headline.items()

@@ -139,15 +139,15 @@ def errors(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
 def bf16_verdict(vs_f32: float, vs_exact: float, f32_vs_exact: float, tol: float) -> str:
     """How a bf16 K3 reading stands against its bar ``tol`` (relative to
     max(1, |ref|)), from three readings: the kernel against the plain
-    version with float32 sums (the plain version as the JAX package defines
-    it) and with exact (float64) sums, and the float32 sums against the
-    exact ones.
+    version with exact (float64) sums (the bar reading) and with float32
+    sums (the plain version as the JAX package defines it; a diagnostic),
+    and the float32 sums against the exact ones.
 
     "met": within ``tol`` of both. "float32 sums off": within ``tol`` of
     the exact sums, but not of the float32 ones, which are themselves more
     than ``tol`` from exact: their own rounding has moved a y1 or y2 value
     across a bf16 rounding point, which a kernel summing in another order
-    does not follow. "failed": anything else.
+    does not follow; the bar is met. "failed": anything else.
     """
     if vs_exact > tol:
         return "failed"

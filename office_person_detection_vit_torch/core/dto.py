@@ -1,10 +1,11 @@
 """Host-side detection records.
 
-Mirrors ``office_person_detection_vit_tpu/core/dto.py`` for what the slice
-needs: ``Detection``, ``FrameResult``, ``DetectionBatch`` and
-``detections_to_batch``. The JAX copy registers ``DetectionBatch`` as a pytree
-of device arrays; here it is a plain dataclass whose fields are host numpy
-arrays.
+Mirrors ``office_person_detection_vit_tpu/core/dto.py``: ``Detection`` (with
+its JSON forms ``to_dict`` and ``to_compact_dict``, whose keys and rounding
+are the JAX package's), ``FrameResult``, ``AggregationResult``,
+``DetectionBatch`` and ``detections_to_batch``. The JAX copy registers
+``DetectionBatch`` as a pytree of device arrays; here it is a plain dataclass
+whose fields are host numpy arrays.
 """
 
 from __future__ import annotations
@@ -25,6 +26,12 @@ class Detection:
     confidence: float
     center: tuple[float, float] | None = None
     foot_point: tuple[float, float] | None = None
+    track_id: int | None = None
+    floor_coords_px: tuple[float, float] | None = None
+    floor_coords_mm: tuple[float, float] | None = None
+    zone_ids: list[str] = field(default_factory=list)
+    feature: np.ndarray | None = None
+    class_id: int = 1  # COCO "person"
 
     def __post_init__(self) -> None:
         x, y, w, h = self.bbox
@@ -32,6 +39,50 @@ class Detection:
             self.center = (x + w / 2.0, y + h / 2.0)
         if self.foot_point is None:
             self.foot_point = (x + w / 2.0, y + h)
+
+    def to_dict(self, *, precision: int | None = None) -> dict[str, Any]:
+        """The full-key JSON form of ``detections.json`` and
+        ``coordinate_transformations.json``; ``precision`` rounds coordinates."""
+
+        def _r(v: float) -> float:
+            return round(float(v), precision) if precision is not None else float(v)
+
+        d: dict[str, Any] = {
+            "bbox": {"x": _r(self.bbox[0]), "y": _r(self.bbox[1]),
+                     "width": _r(self.bbox[2]), "height": _r(self.bbox[3])},
+            "confidence": float(self.confidence),
+            "camera_coords": {"x": _r(self.foot_point[0]), "y": _r(self.foot_point[1])},
+        }
+        if self.floor_coords_px is not None:
+            d["floor_coords_px"] = {"x": _r(self.floor_coords_px[0]), "y": _r(self.floor_coords_px[1])}
+        if self.floor_coords_mm is not None:
+            d["floor_coords_mm"] = {"x": _r(self.floor_coords_mm[0]), "y": _r(self.floor_coords_mm[1])}
+        if self.zone_ids:
+            d["zone_ids"] = list(self.zone_ids)
+        if self.track_id is not None:
+            d["track_id"] = int(self.track_id)
+        return d
+
+    def to_compact_dict(self, *, precision: int = 1, exclude_px: bool = True) -> dict[str, Any]:
+        """The compact-key JSON form (``output.json_optimization.compact_keys``)."""
+
+        def _r(v: float) -> float:
+            return round(float(v), precision)
+
+        d: dict[str, Any] = {
+            "bb": [_r(v) for v in self.bbox],
+            "conf": round(float(self.confidence), 3),
+            "cam": [_r(self.foot_point[0]), _r(self.foot_point[1])],
+        }
+        if self.floor_coords_px is not None and not exclude_px:
+            d["floor_px"] = [_r(self.floor_coords_px[0]), _r(self.floor_coords_px[1])]
+        if self.floor_coords_mm is not None:
+            d["floor_mm"] = [_r(self.floor_coords_mm[0]), _r(self.floor_coords_mm[1])]
+        if self.zone_ids:
+            d["zones"] = list(self.zone_ids)
+        if self.track_id is not None:
+            d["id"] = int(self.track_id)
+        return d
 
 
 @dataclass
@@ -41,6 +92,37 @@ class FrameResult:
     frame_number: int
     timestamp: datetime | str | None
     detections: list[Detection] = field(default_factory=list)
+    frame_path: str | None = None
+    zone_counts: dict[str, int] = field(default_factory=dict)
+
+    @property
+    def timestamp_str(self) -> str:
+        if self.timestamp is None:
+            return ""
+        if isinstance(self.timestamp, datetime):
+            return self.timestamp.strftime("%Y-%m-%d %H:%M:%S")
+        return str(self.timestamp)
+
+    @property
+    def timestamp_stem(self) -> str:
+        """Filename-safe stem of every per-frame artifact:
+        ``YYYYMMDD_HHMMSS``, or the zero-padded frame number when the frame
+        has no timestamp."""
+        ts = self.timestamp_str.replace(":", "").replace("-", "").replace(" ", "_")
+        return ts if ts else f"{self.frame_number:06d}"
+
+
+@dataclass
+class AggregationResult:
+    """Per-timestamp zone occupancy counts."""
+
+    timestamp: str
+    zone_counts: dict[str, int]
+    total_count: int = 0
+
+    def __post_init__(self) -> None:
+        if not self.total_count:
+            self.total_count = int(sum(self.zone_counts.values()))
 
 
 @dataclass

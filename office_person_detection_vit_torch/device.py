@@ -7,6 +7,9 @@ machine without one raises: there is no quiet fall-back to the CPU.
 
 from __future__ import annotations
 
+from contextlib import contextmanager
+from typing import Any
+
 import torch
 
 
@@ -30,3 +33,28 @@ def resolve_device(pref: str = "auto", dtype: str = "float32") -> torch.device:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     return device
+
+
+def config_device(config: Any) -> str:
+    """``detection.device`` of a config (any object with ``.get(key,
+    default)``), ``"auto"`` when unset: the one device key of the JAX
+    package's config, which every phase of the port reads."""
+    return str(config.get("detection.device", "auto"))
+
+
+@contextmanager
+def full_float32():
+    """TF32 off for matmuls and cuDNN convolutions inside the block, and the
+    caller's settings restored after it.
+
+    Not ``torch.backends.cudnn.flags(allow_tf32=False)``: that context also
+    sets every other cuDNN flag to its own defaults, ``enabled=False``
+    among them, which takes the convolutions off cuDNN.
+    """
+    matmul, cudnn = torch.backends.cuda.matmul, torch.backends.cudnn
+    before = (matmul.allow_tf32, cudnn.allow_tf32)
+    matmul.allow_tf32 = cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        matmul.allow_tf32, cudnn.allow_tf32 = before

@@ -181,6 +181,7 @@ def _check(q, k, v, mask) -> None:
 
 def _launch(name: str, q, k, v, mask, *grid: int) -> torch.Tensor:
     _check(q, k, v, mask)
+    build.refuse_autograd(name, q, k, v)
     lib = load_library()
     B, H, Lq, D = q.shape
     out = torch.empty_like(q)

@@ -239,6 +239,7 @@ def fused_bottleneck(x, w1, b1, w2, b2, w3, b3, *, tile_h: int = 8) -> torch.Ten
 def _launch(x, w1, b1, w2, b2, w3, b3, tile_h: int, tile_w: int, rows: int) -> torch.Tensor:
     """K3 on checked CUDA tensors with the tiles it is given (the C entry
     point refuses a geometry they do not cover); :func:`plan` chooses them."""
+    build.refuse_autograd("fused_bottleneck", x, w1, b1, w2, b2, w3, b3)
     lib = load_library()
     B, H, W, C = x.shape
     M = w1.shape[1]

@@ -101,6 +101,18 @@ def load_library() -> ctypes.CDLL:
     return lib
 
 
+def refuse_autograd(name: str, *tensors) -> None:
+    """Raise where a kernel would drop autograd: the kernels fill their
+    output through ctypes, so it has no ``grad_fn``. Under ``no_grad`` or
+    ``inference_mode`` (the detect path), or with no input that requires
+    grad, nothing is refused. A backward waits for ROADMAP B.4."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: an input requires grad, and the CUDA kernel has no backward; its output would "
+            "carry no gradient (ROADMAP B.4). Run it under torch.no_grad() or torch.inference_mode()."
+        )
+
+
 def check_launch(lib: ctypes.CDLL, name: str, err: int) -> None:
     """Raise on a nonzero cudaError_t returned by a launch."""
     if err != 0:

@@ -14,7 +14,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from ..ops.attention import multi_head_attention
+from ..ops.attention import attention_reference, multi_head_attention
 
 LN_EPS = 1e-6
 
@@ -27,6 +27,10 @@ class MultiHeadAttention(nn.Module):
     def __init__(self, d_model: int, num_heads: int):
         super().__init__()
         self.num_heads = num_heads
+        #: None, or a list that the next calls append their attention
+        #: probabilities to: those calls run the plain version, which forms
+        #: them (``DETRDetector.get_attention_map``).
+        self.kept_probs: list | None = None
         self.q_proj = nn.Linear(d_model, d_model)
         self.k_proj = nn.Linear(d_model, d_model)
         self.v_proj = nn.Linear(d_model, d_model)
@@ -45,7 +49,11 @@ class MultiHeadAttention(nn.Module):
         q = heads(self.q_proj(query), Lq)
         k = heads(self.k_proj(key), Lk)
         v = heads(self.v_proj(value), Lk)
-        out = multi_head_attention(q, k, v, key_padding_mask)
+        if self.kept_probs is not None:
+            out, probs = attention_reference(q, k, v, key_padding_mask, return_probs=True)
+            self.kept_probs.append(probs)
+        else:
+            out = multi_head_attention(q, k, v, key_padding_mask)
         return self.out_proj(out.transpose(1, 2).reshape(B, Lq, C))
 
 

@@ -21,6 +21,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..device import full_float32
 from ..models.resnet import Bottleneck
 
 
@@ -36,8 +37,9 @@ def bottleneck_reference(x, w1, b1, w2, b2, w3, b3, *, accumulate: torch.dtype =
     kernel is held there on the card, since the float32 convolutions' own
     rounding moves some y1 and y2 values across bf16 rounding points (PERF.md).
 
-    On the card, float32 convolutions need cuDNN's TF32 off
-    (``device.resolve_device(..., "float32")`` turns it off).
+    TF32 is off inside (:func:`~office_person_detection_vit_torch.device.full_float32`),
+    and the caller's setting is restored after: the float32 convolutions
+    are float32 whatever the caller's cuDNN flags say.
     """
     dtype, acc = x.dtype, accumulate
 
@@ -47,10 +49,11 @@ def bottleneck_reference(x, w1, b1, w2, b2, w3, b3, *, accumulate: torch.dtype =
     def oihw_1x1(w):  # (Cin, Cout) -> (Cout, Cin, 1, 1)
         return w.to(acc).t()[:, :, None, None]
 
-    xf = x.to(acc).permute(0, 3, 1, 2)  # NCHW view of NHWC memory
-    y = round_to_x(torch.relu(F.conv2d(xf, oihw_1x1(w1), b1.to(acc))))
-    y = round_to_x(torch.relu(F.conv2d(y, w2.to(acc).permute(3, 2, 0, 1), b2.to(acc), padding=1)))
-    y = F.conv2d(y, oihw_1x1(w3), b3.to(acc))
+    with full_float32():
+        xf = x.to(acc).permute(0, 3, 1, 2)  # NCHW view of NHWC memory
+        y = round_to_x(torch.relu(F.conv2d(xf, oihw_1x1(w1), b1.to(acc))))
+        y = round_to_x(torch.relu(F.conv2d(y, w2.to(acc).permute(3, 2, 0, 1), b2.to(acc), padding=1)))
+        y = F.conv2d(y, oihw_1x1(w3), b3.to(acc))
     return torch.relu(y + xf).float().to(dtype).permute(0, 2, 3, 1).contiguous()
 
 

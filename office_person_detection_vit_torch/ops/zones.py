@@ -3,7 +3,9 @@
 Mirrors ``office_person_detection_vit_tpu/ops/zones.py``: ``PackedZones``
 (polygons padded to one vertex count), the even-odd ray cast
 ``points_in_zones`` over (points x zones x edges), ``classify_priority`` and
-the host facade ``ZoneClassifier``.
+the facade ``ZoneClassifier`` (which ``zone/zone_classifier.py`` re-exports),
+whose :meth:`ZoneClassifier.zone_mask` also takes a tensor already on the
+device.
 """
 
 from __future__ import annotations
@@ -121,7 +123,12 @@ class ZoneClassifier:
         return self.packed.ids
 
     def _membership(self, points) -> torch.Tensor:
-        pts = torch.tensor(np.atleast_2d(np.asarray(points, np.float32)), device=self.device)
+        """(N, 2) points (host array, or a tensor on any device) -> (N, Z)
+        bool membership on this classifier's device."""
+        if isinstance(points, torch.Tensor):
+            pts = points.to(self.device, torch.float32).reshape(-1, 2)
+        else:
+            pts = torch.tensor(np.atleast_2d(np.asarray(points, np.float32)), device=self.device)
         if self._vertices.shape[0] == 0:
             return torch.zeros((pts.shape[0], 0), dtype=torch.bool, device=self.device)
         return points_in_zones(pts, self._vertices, self._num_vertices)
@@ -130,15 +137,26 @@ class ZoneClassifier:
         """(N, 2) -> (N, Z) bool membership matrix (host numpy)."""
         return self._membership(points).cpu().numpy()
 
+    def zone_mask(self, points) -> torch.Tensor:
+        """(N, 2) -> (N, Z) bool on the device: the zones each point is
+        counted in under the overlap mode (every zone it is in, or only the
+        one of smallest priority)."""
+        m = self._membership(points)
+        if self.overlap_mode == "all" or m.shape[-1] == 0:
+            return m
+        best = classify_priority(m, self._priorities)
+        zones = torch.arange(m.shape[-1], device=m.device)
+        return best[:, None] == zones[None, :]
+
+    def zone_lists(self, mask: np.ndarray) -> list[list[str]]:
+        """A host (N, Z) :meth:`zone_mask` -> each point's zone ids."""
+        return [[self.packed.ids[z] for z in np.nonzero(row)[0]] for row in mask]
+
     def classify(self, point: tuple[float, float]) -> list[str]:
         return self.classify_batch(np.asarray([point], np.float32))[0]
 
     def classify_batch(self, points) -> list[list[str]]:
-        m = self._membership(points)
-        if self.overlap_mode == "all":
-            return [[self.packed.ids[z] for z in np.nonzero(row)[0]] for row in m.cpu().numpy()]
-        idxs = classify_priority(m, self._priorities).cpu().tolist()
-        return [[self.packed.ids[i]] if i >= 0 else [] for i in idxs]
+        return self.zone_lists(self.zone_mask(points).cpu().numpy())
 
     def classify_with_unclassified(self, points) -> list[list[str]]:
         return [zs if zs else ["unclassified"] for zs in self.classify_batch(points)]

@@ -237,3 +237,19 @@ def test_port_imports_nothing_of_jax(path):
             continue
         for name in names:
             assert name.split(".")[0] not in _FORBIDDEN, f"{path}: imports {name}"
+
+
+@pytest.mark.parametrize("grad_input", [0, 1, 2])
+def test_kernels_refuse_inputs_that_require_grad(grad_input):
+    """The kernels' output has no grad_fn: with grad enabled and an input
+    that requires grad, the launch path refuses before it launches (the CUDA
+    branch cannot run here, so the check is held directly)."""
+    q, k, v = (torch.zeros(1, 2, 4, 16) for _ in range(3))
+    (q, k, v)[grad_input].requires_grad_(True)
+    with pytest.raises(RuntimeError, match="B.4"):
+        build.refuse_autograd("attention_flash", q, k, v)
+    with torch.no_grad():
+        build.refuse_autograd("attention_flash", q, k, v)
+    with torch.inference_mode():
+        build.refuse_autograd("attention_flash", q, k, v)
+    build.refuse_autograd("attention_flash", q.detach(), k.detach(), v.detach(), None)

@@ -203,6 +203,8 @@ def _check_bottleneck(x, ws, out):
         plain32 = bottleneck_reference(x, *ws)
         exact = bottleneck_reference(x, *ws, accumulate=torch.float64)
     readings = (bench.errors(out, plain32)[1], bench.errors(out, exact)[1], bench.errors(plain32, exact)[1])
+    print(f"K3 bf16 {tuple(x.shape)}: bar reading (against exact sums) {readings[1]:.3e}; float32 sums "
+          f"(diagnostic) {readings[0]:.3e}, themselves {readings[2]:.3e} from exact")
     assert bench.bf16_verdict(*readings, K3_TOL[x.dtype]) == "met", readings
 
 
@@ -277,3 +279,41 @@ def test_bottleneck_smem_matches_the_library(card, dtype, width, channels, mid, 
     for other in k3.MMA_TILES if dtype == torch.bfloat16 else k3.GEMM_ROWS:
         assert lib.bottleneck_smem_bytes(code, other, tile_h, 5, mid) == k3.smem_bytes(other, tile_h, 5, mid, dtype)
     assert lib.bottleneck_smem_bytes(code, 96, tile_h, 5, mid) == -1
+
+
+def test_kernels_refuse_inputs_that_require_grad(card):
+    """Their output would carry no gradient (ROADMAP B.4): the launch path
+    refuses, and runs under inference_mode."""
+    q, k, v = (torch.randn(1, 2, 32, 16, device="cuda") for _ in range(3))
+    k.requires_grad_(True)
+    with pytest.raises(RuntimeError, match="B.4"):
+        kernels.attention_flash(q, k, v)
+    with pytest.raises(RuntimeError, match="B.4"):
+        kernels.attention_whole_kv(q, k, v)
+    with torch.inference_mode():
+        kernels.attention_flash(q, k, v)
+    x, ws = _bottleneck_case(1, 4, 8, 64, 16, torch.float32)
+    ws[0].requires_grad_(True)
+    with pytest.raises(RuntimeError, match="B.4"):
+        fused_bottleneck(x, *ws, tile_h=4)
+
+
+def test_attention_map_leaves_detect_launch_counts(card):
+    """get_attention_map runs the last cross-attention on the plain version
+    for that one call; detect_batch launches the same kernels after it."""
+    import numpy as np
+
+    from office_person_detection_vit_torch.detection.detector import DETRDetector
+    from office_person_detection_vit_torch.models.detr import DETRConfig
+
+    det = DETRDetector({"detection.device": "cuda", "detection.batch_size": 2, "detection.input_height": 96,
+                        "detection.input_width": 128}, detr_config=DETRConfig.tiny(dtype="bfloat16"))
+    frames = np.random.default_rng(0).integers(0, 256, (2, 120, 160, 3), np.uint8)
+    counts = []
+    for _ in range(2):
+        kernels.reset_launch_counts()
+        det.detect_batch(frames)
+        counts.append(dict(kernels.launch_counts))
+        amap = det.get_attention_map(frames[0])
+        assert amap.shape == det.feature_hw and np.isfinite(amap).all()
+    assert counts[0] == counts[1] and sum(counts[0].values()) == 6  # 2 encoder, 2 + 2 decoder calls

@@ -299,3 +299,39 @@ def test_plan_refuses_a_tile_taller_than_the_gemm_tile(dtype):
     tallest = max(kernels.GEMM_ROWS) if dtype == torch.float32 else max(kernels.MMA_TILES) // 3 - 2
     with pytest.raises(ValueError, match="no tile"):
         kernels.plan(320, 64, tallest + 1, dtype, 256)
+
+
+@pytest.mark.parametrize("caller", [True, False])
+def test_reference_turns_tf32_off_and_restores_the_callers_setting(monkeypatch, caller):
+    """The plain version's convolutions run with TF32 off whatever the
+    caller's cuDNN and matmul flags say, and leave those flags as they were."""
+    seen = []
+    conv2d = torch.nn.functional.conv2d
+
+    def spy(*args, **kwargs):
+        seen.append((torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32))
+        return conv2d(*args, **kwargs)
+
+    monkeypatch.setattr(torch.nn.functional, "conv2d", spy)
+    before = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.enabled)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = caller
+    try:
+        x, ws = _inputs(0, 1, 4, 4, 16, 8)
+        x, ws = torch.from_numpy(x), [torch.from_numpy(w) for w in ws]
+        port.bottleneck_reference(x, *ws)
+        port.bottleneck_reference(x, *ws, accumulate=torch.float64)
+        assert seen and all(flags == (False, False) for flags in seen)
+        assert (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32) == (caller, caller)
+        assert torch.backends.cudnn.enabled == before[2]
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = before[:2]
+
+
+def test_k3_refuses_inputs_that_require_grad():
+    x, ws = _inputs(0, 1, 4, 4, 16, 8)
+    x, ws = torch.from_numpy(x), [torch.from_numpy(w) for w in ws]
+    ws[2].requires_grad_(True)
+    with pytest.raises(RuntimeError, match="B.4"):
+        build.refuse_autograd("fused_bottleneck", x, *ws)
+    with torch.inference_mode():
+        build.refuse_autograd("fused_bottleneck", x, *ws)

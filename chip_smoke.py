@@ -46,7 +46,20 @@ and the pipeline phases 2-4:
    detections) with homography, PWA and TPS, lens undistortion and both
    overlap modes, held against float64 numpy; (b) the committed DETR-small
    checkpoint through the phases, whose zone counts must place each drawn
-   person in their zone, with its features and attention map.
+   person in their zone, with its features and attention map;
+9. the whole flow through the port's entry point
+   ``office_person_detection_vit_torch.main.main`` (what ``python -m
+   office_person_detection_vit_torch --config <yaml>`` runs), from a video to
+   ``summary.json``: (a) a 12-hour 720p timelapse (08:00-20:00, ratio 313),
+   DETR-R50 bf16 at 736x1280, batch 8, seeded random weights: every 5-minute
+   target extracted with the timestamp the video burned in, each phase's
+   checkpoint, the artifacts with the JAX keys and the JSON schemas, a
+   floormap PNG a frame, 18 K2 launches a chunk, each phase's seconds; (b)
+   the committed DETR-small checkpoint on a one-hour video, run on the card
+   and on the CPU: the same extraction, detections matched one to one, floor
+   points and zone counts; (c) the card session resumed: phases 1-4 skipped,
+   no kernel launch and no frame decoded, the same ``zone_counts.csv``. The
+   videos are written by a child process while phases 1-8 run.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 Its last two lines are JSON: the kernels (launches, error, times, bound) and
@@ -55,10 +68,14 @@ the device.
 
 from __future__ import annotations
 
+import contextlib
 import csv
 import importlib.util
+import io
 import json
+import math
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -440,21 +457,24 @@ def run_phases(cfg: dict, results: list, out: Path, frames=None, detection=None)
     return secs, {name: phase for name, (phase, _) in phases.items()}
 
 
-def check_artifacts(out: Path, zone_ids: list, frames: int) -> None:
+def check_artifacts(out: Path, zone_ids: list, frames: int, session: bool = False) -> None:
     """The four artifacts exist, with the keys the JAX package writes
     (``schemas/coordinate_transformations.schema.json`` for the transform's),
-    and ``zone_counts.csv`` has a row per frame."""
+    and ``zone_counts.csv`` has a row per frame. ``out`` holds all four, or
+    with ``session`` is a session directory with each in its phase's."""
+    det_dir, tr_dir, agg_dir = ((out / "02_detection", out / "04_transform", out / "05_aggregation") if session
+                                else (out, out, out))
     schema = json.loads((ROOT / "schemas" / "coordinate_transformations.schema.json").read_text())
     det_keys = set(schema["$defs"]["detection"]["properties"])
-    dets = json.loads((out / "detections.json").read_text())
+    dets = json.loads((det_dir / "detections.json").read_text())
     check(set(dets) == {"frames"} and len(dets["frames"]) == frames, "detections.json: frames")
     for f in dets["frames"]:
         check(set(f) == {"frame_number", "timestamp", "detections"}, f"detections.json frame keys {set(f)}")
         for d in f["detections"]:
             check({"bbox", "confidence", "camera_coords"} <= set(d) <= det_keys, f"detection keys {set(d)}")
-    stats = json.loads((out / "detection_statistics.json").read_text())
+    stats = json.loads((det_dir / "detection_statistics.json").read_text())
     check(set(stats) == STATISTICS_KEYS, f"detection_statistics.json keys {set(stats)}")
-    coords = json.loads((out / "coordinate_transformations.json").read_text())
+    coords = json.loads((tr_dir / "coordinate_transformations.json").read_text())
     check(set(schema["required"]) <= set(coords) <= set(schema["properties"]), f"transform keys {set(coords)}")
     check(set(coords["transformer_info"]) <= set(schema["properties"]["transformer_info"]["properties"]),
           "transformer_info keys")
@@ -465,7 +485,7 @@ def check_artifacts(out: Path, zone_ids: list, frames: int) -> None:
         for d in f["detections"]:
             check({"bbox", "confidence", "camera_coords", "floor_coords_px", "floor_coords_mm"} <= set(d) <= det_keys,
                   f"transform detection keys {set(d)}")
-    rows = (out / "zone_counts.csv").read_text().splitlines()
+    rows = (agg_dir / "zone_counts.csv").read_text().splitlines()
     check(rows[0].split(",") == ["timestamp", *zone_ids, "unclassified", "total"], f"zone_counts.csv header {rows[0]}")
     check(len(rows) == frames + 1, f"zone_counts.csv has {len(rows) - 1} rows, expected {frames}")
 
@@ -731,10 +751,352 @@ def trained_phase(ka, smi: str, render_frame, t_start: datetime) -> dict:
     return counts
 
 
+# ------------------------------------------------------------------- phase 9
+# The videos of phase 9: timelapses at 30 fps and ratio 313 (a wall-clock
+# second is 1/313 video second), 720p, written by write_video. The scan of
+# Phase 1 reads every 6th frame (tolerance 60 wall seconds is 0.19 video
+# seconds, 5.75 frames, rounded), and the targets run from the first read
+# timestamp to the last: a video has frames until the scan reaches the end of
+# its span, so that the last target is one of them.
+FPS, RATIO, TOLERANCE_S, SCAN_STRIDE = 30, 313.0, 60, 6
+DAY_START, DAY_HOURS = datetime(2025, 1, 20, 8, 0, 0), 12
+HOUR_START = datetime(2025, 1, 20, 9, 0, 0)
+EXTRACTION_HEADER = ["frame_number", "timestamp", "target_timestamp", "confidence", "time_error_seconds",
+                     "frame_path"]
+PHASES = ["01_extraction", "02_detection", "03_tracking", "04_transform", "05_aggregation", "06_visualization"]
+
+
+def video_frames(span_hours: float) -> int:
+    """Frames of a video whose scan (every SCAN_STRIDE-th frame) reaches
+    ``span_hours`` of wall clock."""
+    last = math.ceil(span_hours * 3600 * FPS / RATIO / SCAN_STRIDE) * SCAN_STRIDE
+    return last + 1
+
+
+def burned_in(start: datetime, frame_number: int) -> datetime:
+    """The wall-clock time write_video draws on a frame, to the second."""
+    return (start + timedelta(seconds=frame_number / FPS * RATIO)).replace(microsecond=0)
+
+
+def day_people(i: int) -> list:
+    """Three people walking across the office, wrapping at the edges."""
+    return [(80 + (7 * i + 380 * k) % 1100, 140 + 190 * k, k) for k in range(3)]
+
+
+def hour_people(i: int) -> list:
+    """Two people at known places, one in the west half, one in the east."""
+    return [(150 + (5 * i) % 400, 200, 1), (760 + (3 * i) % 400, 420, 2)]
+
+
+def write_videos(out_dir: str) -> None:
+    """Phase 9's two videos (a day and an hour), in a child process."""
+    spec = importlib.util.spec_from_file_location("synthetic_video", ROOT / "tests" / "helpers" / "synthetic_video.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    out = Path(out_dir)
+    mod.write_video(out / "hour.mp4", num_frames=video_frames(1), start_time=HOUR_START, people_fn=hour_people)
+    mod.write_video(out / "day.mp4", num_frames=video_frames(DAY_HOURS), start_time=DAY_START, people_fn=day_people)
+
+
+def start_video_writer(out_dir: Path) -> subprocess.Popen:
+    code = f"import sys; sys.path.insert(0, {str(ROOT)!r}); import chip_smoke; chip_smoke.write_videos({str(out_dir)!r})"
+    return subprocess.Popen([sys.executable, "-c", code], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def flow_config(video: Path, out: Path, detection: dict, homography, zones: list) -> dict:
+    """A config as a user writes one: the video, the detector, the floor
+    transform and zones, the outputs. The card machine has no matplotlib, so
+    the charts of phase 5 are off (ROADMAP C.5); the floormaps are on."""
+    return {
+        "video": {"input_path": str(video), "fps": FPS, "frame_interval_minutes": 5,
+                  "tolerance_seconds": TOLERANCE_S, "time_compression_ratio": RATIO},
+        "detection": detection,
+        "transform": {"method": "homography"},
+        "homography": {"matrix": np.asarray(homography).tolist()},
+        "zones": zones,
+        "output": {"directory": str(out), "save_floormap_images": True, "save_charts": False},
+        # max_frames above the scan's frame count, so the stride stays within
+        # the tolerance (frame_extraction_pipeline widens it to fit the budget)
+        "timestamp": {"extraction_mode": "auto_targets", "auto_targets": {"max_frames": 800}},
+    }
+
+
+class FlowProbe:
+    """What a run of ``main`` did below its entry point: each detect_batch's
+    failed chunks, and every frame decoded from the video or reloaded from
+    disk for detection. Installed around the port's classes for phase 9."""
+
+    def __init__(self):
+        from office_person_detection_vit_torch.detection.detector import DETRDetector
+        from office_person_detection_vit_torch.pipeline.orchestrator import PipelineOrchestrator
+        from office_person_detection_vit_torch.video.video_processor import VideoProcessor
+
+        self.failed_chunks, self.chunks, self.decoded, self.reloads = [], 0, 0, 0
+        probe = self
+        detect, get_frame, iter_frames = DETRDetector.detect_batch, VideoProcessor.get_frame, VideoProcessor.iter_frames
+        prepare = PipelineOrchestrator.prepare_frames_for_detection
+
+        def detect_batch(det, frames):
+            out = detect(det, frames)
+            probe.failed_chunks.append(det.last_failed_chunks)
+            probe.chunks += math.ceil(len(frames) / det.batch_size)
+            return out
+
+        def counted_get_frame(vp, n):
+            probe.decoded += 1
+            return get_frame(vp, n)
+
+        def counted_iter_frames(vp, numbers):
+            for item in iter_frames(vp, numbers):
+                probe.decoded += 1
+                yield item
+
+        def counted_prepare(orch):
+            probe.reloads += 1
+            return prepare(orch)
+
+        DETRDetector.detect_batch = detect_batch
+        VideoProcessor.get_frame, VideoProcessor.iter_frames = counted_get_frame, counted_iter_frames
+        PipelineOrchestrator.prepare_frames_for_detection = counted_prepare
+
+    def reset(self):
+        self.failed_chunks, self.chunks, self.decoded, self.reloads = [], 0, 0, 0
+
+
+def run_main(ka, probe: FlowProbe, cfg: dict, path: Path, *flags: str) -> tuple[int, dict, float, Path]:
+    """``main.main`` on a YAML config: exit code, attention launches (counts
+    set to 0 just before), host seconds, and the session directory. main's
+    console log goes to a file beside the config, whose end is printed when
+    main fails."""
+    import logging
+
+    import yaml
+
+    from office_person_detection_vit_torch.main import main as port_main
+
+    path.write_text(yaml.safe_dump(cfg))
+    probe.reset()
+    ka.reset_launch_counts()
+    with path.with_suffix(".log").open("w") as console, contextlib.redirect_stdout(console):
+        t = time.perf_counter()
+        rc = port_main(["--config", str(path), *flags])
+        secs = time.perf_counter() - t
+        root = logging.getLogger()
+        for handler in list(root.handlers):  # main's handlers write to the file and the session
+            root.removeHandler(handler)
+            handler.close()
+    counts = dict(ka.launch_counts)
+    if rc != 0:
+        log("\n".join(path.with_suffix(".log").read_text().splitlines()[-60:]))
+    out = Path(cfg["output"]["directory"])
+    sessions = sorted(p for p in out.iterdir() if p.is_dir() and not p.is_symlink())
+    check(len(sessions) == 1, f"9: {len(sessions)} sessions under {out}")
+    return rc, counts, secs, sessions[0]
+
+
+def extraction_rows(session: Path) -> list:
+    rows = list(csv.reader((session / "01_extraction" / "extraction_results.csv").open()))
+    check(rows[0] == EXTRACTION_HEADER, f"9: extraction_results.csv header {rows[0]}")
+    return [r[:-1] + [Path(r[-1]).name] for r in rows[1:]]
+
+
+def check_extraction(session: Path, start: datetime, hours: float, where: str) -> list:
+    """Every 5-minute target of the span extracted once, within the
+    tolerance, with the timestamp the video burned into that frame."""
+    rows = extraction_rows(session)
+    targets = [start + timedelta(minutes=5 * i) for i in range(int(hours * 12) + 1)]
+    got = {datetime.fromisoformat(r[2]): r for r in rows}
+    missing = [t for t in targets if t not in got]
+    check(not missing and len(rows) == len(targets),
+          f"{where}: {len(rows)} frames extracted, {len(targets)} targets; missing {[str(t) for t in missing]} "
+          f"(a target without a scanned frame within {TOLERANCE_S} s, or past the last read timestamp)")
+    for target, r in got.items():
+        fn, ts = int(r[0]), datetime.fromisoformat(r[1])
+        check(ts == burned_in(start, fn), f"{where}: frame {fn} read {ts}, the video burned in {burned_in(start, fn)}")
+        check(abs((ts - target).total_seconds()) <= TOLERANCE_S and float(r[4]) <= TOLERANCE_S,
+              f"{where}: frame {fn} at {ts} is {r[4]} s from its target {target}")
+    return rows
+
+
+def check_session(session: Path, zone_ids: list, frames: int, where: str) -> dict:
+    """summary.json completed, every phase's checkpoint (tracking skipped),
+    the artifacts with the JAX keys and the repo's JSON schemas, and a
+    floormap PNG a frame. Returns the summary."""
+    sys.path.insert(0, str(ROOT / "tools"))
+    from validate_artifacts import validate_session
+
+    summary = json.loads((session / "summary.json").read_text())
+    check(summary["status"] == "completed", f"{where}: summary status {summary['status']}")
+    check(summary["statistics"]["frames_extracted"] == frames, f"{where}: summary statistics {summary['statistics']}")
+    phases = json.loads((session / "pipeline_checkpoint.json").read_text())["phases"]
+    want = {p: ("skipped" if p == "03_tracking" else "completed") for p in PHASES}
+    check({p: e["status"] for p, e in phases.items()} == want, f"{where}: checkpoints {phases}")
+    check_artifacts(session, zone_ids, frames, session=True)
+    with contextlib.redirect_stdout(io.StringIO()):  # it prints a line an artifact
+        errors = validate_session(session, ROOT / "schemas")
+    check(not errors, f"{where}: schema errors {errors}")
+    floormaps = list((session / "06_visualization" / "floormaps").glob("floormap_*.png"))
+    check(len(floormaps) == frames, f"{where}: {len(floormaps)} floormap PNGs for {frames} frames")
+    return summary
+
+
+def phase_seconds(summary: dict) -> str:
+    return ", ".join(f"{k} {v['total_time']:.3f} s" for k, v in summary["performance"].items())
+
+
+def day_flow(ka, probe, smi: str, videos: Path, tmp: Path, H: np.ndarray, zones: list) -> dict:
+    """9a: the 12-hour video through main, DETR-R50 bf16 at full width."""
+    detection = {"model": "detr", "model_size": "full", "dtype": "bfloat16", "device": "cuda", "batch_size": 8,
+                 "input_height": 736, "input_width": 1280, "checkpoint_path": None, "confidence_threshold": 0.0,
+                 "nms_threshold": 0.4}
+    cfg = flow_config(videos / "day.mp4", tmp / "day", detection, H, zones)
+    rc, counts, secs, session = run_main(ka, probe, cfg, tmp / "day.yaml")
+    check(rc == 0, f"9a: main exited {rc}")
+    n = DAY_HOURS * 12 + 1
+    check_extraction(session, DAY_START, DAY_HOURS, "9a")
+    summary = check_session(session, [z["id"] for z in zones], n, "9a")
+    chunks = math.ceil(n / 8)
+    check(probe.chunks == chunks and sum(probe.failed_chunks) == 0,
+          f"9a: {sum(probe.failed_chunks)} of {probe.chunks} chunks raised (expected {chunks} chunks)")
+    want = expected_launches(ka, 920, torch.bfloat16, chunks)
+    check(counts == want and counts["attention_flash"] == 18 * chunks and counts["attention_whole_kv"] == 0,
+          f"9a: main launched {counts}, expected {want} (18 K2 a chunk x {chunks}, no K1)")
+    scanned = math.ceil(video_frames(DAY_HOURS) / SCAN_STRIDE)
+    log(f"[9a] main, {video_frames(DAY_HOURS)}-frame 720p video 08:00-20:00 ({scanned} frames scanned and OCR'd, "
+        f"stride {SCAN_STRIDE}): {n} frames extracted, each at its 5-minute target within {TOLERANCE_S} s and with "
+        f"the timestamp burned in; DETR-R50 bf16 736x1280 batch 8: launches {counts} over {chunks} chunks (18 K2 a "
+        f"chunk, none raised); checkpoints 01-06 (03_tracking skipped), the artifacts with the JAX keys and schemas, "
+        f"{n} floormap PNGs; {summary['statistics']['total_detections']} detections (random weights)")
+    log(f"[9a] phase seconds (summary.json, the card synchronised at each phase's end): {phase_seconds(summary)}; "
+        f"main {secs:.3f} s in all (host clock) on {smi}")
+    return counts
+
+
+def matched(card: list, cpu: list) -> tuple[list, list]:
+    """Card and CPU detections of a frame paired one to one (nearest box
+    centre); the ones left over on either side."""
+    pairs, rest = [], list(cpu)
+    for d in card:
+        j = min(range(len(rest)), key=lambda k: np.hypot(*(np.subtract(box_centre(d), box_centre(rest[k])))),
+                default=None)
+        if j is not None and np.hypot(*(np.subtract(box_centre(d), box_centre(rest[j])))) < 10:
+            pairs.append((d, rest.pop(j)))
+    left = [d for d in card if all(d is not a for a, _ in pairs)] + rest
+    return pairs, left
+
+
+def box_centre(d: dict) -> tuple:
+    b = d["bbox"]
+    return b["x"] + b["width"] / 2, b["y"] + b["height"] / 2
+
+
+def hour_flow(ka, probe, smi: str, videos: Path, tmp: Path) -> tuple[dict, Path, Path]:
+    """9b: the committed DETR-small checkpoint on the one-hour video, on the
+    card and on the CPU, held to each other."""
+    quads = {"zone_nw": (0, 0), "zone_ne": (640, 0), "zone_sw": (0, 360), "zone_se": (640, 360)}
+    zones = [{"id": z, "polygon": [[x, y], [x + 640, y], [x + 640, y + 360], [x, y + 360]], "priority": i + 1}
+             for i, (z, (x, y)) in enumerate(quads.items())]
+    detection = {"model_size": "small", "score_mode": "sigmoid", "dtype": "float32", "input_height": 224,
+                 "input_width": 384, "confidence_threshold": 0.2, "nms_threshold": 0.3, "batch_size": 1,
+                 "checkpoint_path": str(ROOT / "docs" / "artifacts" / "detr_small_weights.npz")}
+    runs = {}
+    n = 13
+    for device in ("cuda", "cpu"):
+        cfg = flow_config(videos / "hour.mp4", tmp / f"hour_{device}", dict(detection, device=device), np.eye(3), zones)
+        rc, counts, secs, session = run_main(ka, probe, cfg, tmp / f"hour_{device}.yaml")
+        check(rc == 0, f"9b {device}: main exited {rc}")
+        check_extraction(session, HOUR_START, 1, f"9b {device}")
+        summary = check_session(session, list(quads), n, f"9b {device}")
+        check(sum(probe.failed_chunks) == 0, f"9b {device}: {sum(probe.failed_chunks)} chunks raised")
+        runs[device] = (counts, secs, session, summary, cfg)
+    (counts, secs, card, card_summary, card_cfg), (cpu_counts, cpu_secs, cpu, cpu_summary, _) = runs["cuda"], runs["cpu"]
+    want = {"attention_whole_kv": 9 * n, "attention_flash": 0}
+    check(counts == want, f"9b: the card run launched {counts}, expected {want} (9 K1 a frame)")
+    check(cpu_counts == {"attention_whole_kv": 0, "attention_flash": 0}, f"9b: the CPU run launched {cpu_counts}")
+    check(extraction_rows(card) == extraction_rows(cpu), "9b: extraction_results.csv differs between card and CPU")
+    thr = detection["confidence_threshold"]
+    dets = {k: json.loads((s / "04_transform" / "coordinate_transformations.json").read_text())["frames"]
+            for k, s in (("card", card), ("cpu", cpu))}
+    near, n_pairs, worst = set(), 0, {"conf": 0.0, "box": 0.0, "floor": 0.0}
+    for fc, fp in zip(dets["card"], dets["cpu"]):
+        check(fc["frame_number"] == fp["frame_number"], "9b: frames differ")
+        pairs, left = matched(fc["detections"], fp["detections"])
+        for d in left:
+            check(abs(d["confidence"] - thr) <= 1e-3, f"9b: frame {fc['frame_number']}: unmatched detection {d}")
+            near.add(fc["timestamp"])
+        for a, b in pairs:
+            n_pairs += 1
+            worst["conf"] = max(worst["conf"], abs(a["confidence"] - b["confidence"]))
+            worst["box"] = max(worst["box"], *(abs(a["bbox"][k] - b["bbox"][k]) / (1280 if k in ("x", "width") else 720)
+                                               for k in a["bbox"]))
+            worst["floor"] = max(worst["floor"], *(abs(a["floor_coords_px"][k] - b["floor_coords_px"][k]) for k in "xy"))
+            if min(a["confidence"], b["confidence"]) - thr <= 1e-3:
+                near.add(fc["timestamp"])
+    check(worst["conf"] <= 1e-3 and worst["box"] <= 1e-3 and worst["floor"] <= FLOOR_TOL,
+          f"9b: card against CPU {worst} (confidence 1e-3, box 1e-3 of the frame, floor {FLOOR_TOL} px)")
+    check(n_pairs >= n, f"9b: {n_pairs} detections matched over {n} frames")
+    rows = {k: list(csv.reader((s / "05_aggregation" / "zone_counts.csv").open())) for k, s in (("card", card), ("cpu", cpu))}
+    differ = [rc[0] for rc, rp in zip(rows["card"], rows["cpu"]) if rc != rp]
+    check(len(rows["card"]) == len(rows["cpu"]) == n + 1 and all(t in near for t in differ),
+          f"9b: zone_counts.csv rows {differ} differ between card and CPU, away from the threshold")
+    log(f"[9b] main, DETR-small checkpoint 224x384 float32 on the {video_frames(1)}-frame one-hour video, card and "
+        f"CPU: {n} frames extracted, extraction_results.csv identical; {n_pairs} detections matched one to one: "
+        f"confidence {worst['conf']:.2e}, box {worst['box']:.2e} of the frame, floor {worst['floor']:.2e} px; "
+        f"zone_counts.csv: {len(differ)} rows differ (only a row with a detection within 1e-3 of the threshold may); "
+        f"{len(near)} frames hold a detection within 1e-3 of the threshold; card launches {counts} (9 K1 a frame)")
+    log(f"[9b] phase seconds, card: {phase_seconds(card_summary)}; main {secs:.3f} s. CPU: "
+        f"{phase_seconds(cpu_summary)}; main {cpu_secs:.3f} s (host clock) on {smi}")
+    return counts, card, card_cfg
+
+
+def resume_flow(ka, probe, card: Path, cfg: dict, tmp: Path) -> None:
+    """9c: main --resume on 9b's card session: phases 1-4 (01 to 04) and
+    visualization reloaded, no kernel launch, no frame decoded, the same
+    zone_counts.csv."""
+    before = (card / "05_aggregation" / "zone_counts.csv").read_bytes()
+    rc, counts, secs, session = run_main(ka, probe, cfg, tmp / "hour_resume.yaml", "--resume", str(card))
+    check(rc == 0 and session == card, f"9c: main --resume exited {rc}")
+    summary = json.loads((card / "summary.json").read_text())
+    ran = set(summary["performance"])
+    check(summary["status"] == "completed" and ran == {"05_aggregation"},
+          f"9c: resumed run timed {sorted(ran)}, expected only 05_aggregation (01-04 and 06 reloaded)")
+    check(sum(counts.values()) == 0 and probe.decoded == 0 and probe.reloads == 0 and probe.chunks == 0,
+          f"9c: resumed run launched {counts}, decoded {probe.decoded} frames, reloaded frames {probe.reloads} times, "
+          f"detected {probe.chunks} chunks")
+    check((card / "05_aggregation" / "zone_counts.csv").read_bytes() == before, "9c: zone_counts.csv changed on resume")
+    log(f"[9c] main --resume: phases 01-04 and 06 skipped (only 05_aggregation ran, {phase_seconds(summary)}); "
+        f"launches {counts}, 0 frames decoded; zone_counts.csv byte-identical; main {secs:.3f} s")
+
+
+def flow_phase(ka, smi: str, writer: subprocess.Popen, videos: Path, H: np.ndarray, zones: list) -> tuple[dict, dict]:
+    """Phase 9: the videos, then 9a, 9b and 9c. Returns the launches of 9a
+    and of 9b's card run."""
+    out, _ = writer.communicate(timeout=900)
+    check(writer.returncode == 0, f"9: the video writer exited {writer.returncode}: {out[-2000:]}")
+    probe = FlowProbe()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        day_counts = day_flow(ka, probe, smi, videos, tmp, H, zones)
+        hour_counts, card, cfg = hour_flow(ka, probe, smi, videos, tmp)
+        resume_flow(ka, probe, card, cfg, tmp)
+    return day_counts, hour_counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs the port on the card only", file=sys.stderr)
         return 1
+    with tempfile.TemporaryDirectory() as videos:
+        writer = start_video_writer(Path(videos))  # phase 9's videos, written while phases 1-8 run
+        try:
+            return run(writer, Path(videos))
+        finally:
+            if writer.poll() is None:
+                writer.kill()
+                writer.wait()
+
+
+def run(writer: subprocess.Popen, videos: Path) -> int:
     from office_person_detection_vit_torch import attention_kernel_bench as abench
     from office_person_detection_vit_torch.detection.detector import DETRDetector
     from office_person_detection_vit_torch.device import resolve_device
@@ -926,21 +1288,26 @@ def main() -> int:
     load_phase("cuda", smi, t_start)
     trained_counts = trained_phase(ka, smi, render_frame, t_start)
 
+    # ---- 9. the whole flow through the port's entry point, on the card
+    day_counts, hour_counts = flow_phase(ka, smi, writer, videos, H, zones)
+
     # ---- result
     replaces = {"attention_whole_kv": "office_person_detection_vit_tpu/ops/attention.py:60",
                 "attention_flash": "office_person_detection_vit_tpu/ops/attention.py:159"}
     # Each attention kernel's row at the encoder shape of the path that
     # launches it, beside that path's own count: K2 runs the bf16 main path
     # (use_flash sends every bf16 call to it), K1 the float32 DETR-small;
-    # the slice's phases (8a, 8b) drive both paths.
+    # the port's entry point (9a, 9b) drives both paths.
     headline = {
-        "attention_whole_kv": (("attention_whole_kv", (1, 8, 84, 84, 16), "float32"), trained_counts,
-                               "DETR-small float32 through the port's phases 2-4, phase 8b"),
-        "attention_flash": (("attention_flash", (8, 8, 920, 920, 32), "bfloat16"), slice_counts,
-                            "DETR-R50 bf16 through the port's phases 2-4 over 288 frames, phase 8a (the main path)"),
+        "attention_whole_kv": (("attention_whole_kv", (1, 8, 84, 84, 16), "float32"), hour_counts,
+                               "DETR-small float32 through main on the card, 13 frames, phase 9b"),
+        "attention_flash": (("attention_flash", (8, 8, 920, 920, 32), "bfloat16"), day_counts,
+                            "DETR-R50 bf16 through main over a 12-hour video, 145 frames, phase 9a (the main path)"),
     }
-    other_paths = {"attention_whole_kv": {"phase 5 DETR-small detect": small_counts["attention_whole_kv"]},
-                   "attention_flash": {"phase 3 DETR-R50 detect": main_counts["attention_flash"]}}
+    other_paths = {"attention_whole_kv": {"phase 5 DETR-small detect": small_counts["attention_whole_kv"],
+                                          "phase 8b DETR-small through phases 2-4": trained_counts["attention_whole_kv"]},
+                   "attention_flash": {"phase 3 DETR-R50 detect": main_counts["attention_flash"],
+                                       "phase 8a DETR-R50 through phases 2-4": slice_counts["attention_flash"]}}
     kernels = [
         {"name": name, "route": "cuda", "source": "office_person_detection_vit_torch/csrc/attention.cu",
          "replaces": replaces[name], "launches": counts[name], "launches_on": path,

@@ -5,8 +5,8 @@ every sampled frame goes through the port's ``DETRDetector`` in device
 batches, the detections are written into the ``FrameResult``s, and the
 phase writes ``detections.json`` and ``detection_statistics.json`` (the JAX
 package's keys) and, with ``output.save_detection_images``, annotated
-frames. ``output.save_attention_maps`` raises until visualization is
-ported, and so do the detectors other than DETR (ROADMAP A.7).
+frames. ``output.save_attention_maps`` raises until the overlays are
+ported (ROADMAP A.3), and so do the detectors other than DETR (ROADMAP A.7).
 """
 
 from __future__ import annotations
@@ -47,8 +47,7 @@ class DetectionPhase(BasePhase):
         super().__init__(config, logger)
         if config.get("output.save_attention_maps", False):
             raise NotImplementedError(
-                "output.save_attention_maps: the attention-map overlays need the visualization module, "
-                "which the port does not have yet (ROADMAP)"
+                "output.save_attention_maps: the attention-map overlays are not ported yet (ROADMAP A.3)"
             )
         self.detector = detector
         self.save_images = bool(config.get("output.save_detection_images", False))

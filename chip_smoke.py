@@ -6,7 +6,7 @@ Builds the hand-written CUDA kernels from
 ``office_person_detection_vit_torch/csrc`` (one nvcc call), holds each against
 its plain PyTorch version at the shapes its path gives it, then drives the
 port through its entry points ``DETRDetector``, the fused-bottleneck bench
-and the pipeline phases 2-4:
+the pipeline phases 2-4, the entry point and the trainer:
 
 1. device: the card's name and power limit; the kernel build and its time;
    each kernel's registers, spills and shared memory (attention K1/K2 and
@@ -50,7 +50,7 @@ and the pipeline phases 2-4:
 9. the whole flow through the port's entry point
    ``office_person_detection_vit_torch.main.main`` (what ``python -m
    office_person_detection_vit_torch --config <yaml>`` runs), from a video to
-   ``summary.json``: (a) a 12-hour 720p timelapse (08:00-20:00, ratio 313),
+   ``summary.json``: (a) an 8-hour 720p timelapse (08:00-16:00, ratio 313),
    DETR-R50 bf16 at 736x1280, batch 8, seeded random weights: every 5-minute
    target extracted with the timestamp the video burned in, each phase's
    checkpoint, the artifacts with the JAX keys and the JSON schemas, a
@@ -59,11 +59,26 @@ and the pipeline phases 2-4:
    and on the CPU: the same extraction, detections matched one to one, floor
    points and zone counts; (c) the card session resumed: phases 1-4 skipped,
    no kernel launch and no frame decoded, the same ``zone_counts.csv``. The
-   videos are written by a child process while phases 1-8 run.
+   videos are written by a child process while phases 1-8 run. Phase 5's
+   three charts are drawn (with OpenCV; the card machine has no matplotlib);
+10. the training slice: (a) B.4, the differentiable attention
+   (``ops.attention.KernelAttention``: K1/K2 forward, the plain version's
+   autograd recomputed for the backward), at DETR-R50's training shapes at
+   768x1344 in bf16 and DETR-small's in float32: forward and dq/dk/dv against
+   plain autograd at the kernels' bars, forward+backward timed against plain
+   autograd and SDPA; (b) DETR-R50 bf16 (float32 master weights) at
+   768x1344, batch 8, dropout 0.1, aux loss, augmentation, on 16 synthetic
+   720p images (``tools/gen_recipe_dataset.py``, a child process) through the
+   port's ``COCOBatchLoader``: 2 warm-up and 6 timed steps, the split of a
+   step, 18 K2 launches through B.4 a step, finite losses, every parameter
+   moved; (c) the committed DETR-small checkpoint, one float32 step on the
+   card and one on the CPU: the same matches, losses and gradients; (d)
+   ``main --fine-tune`` with the ``training.*`` keys at full size for one
+   epoch, and its ``weights.npz`` in ``DETRDetector`` on the card.
 
 Any failed check raises, so the script exits non-zero and prints no result.
-Its last two lines are JSON: the kernels (launches, error, times, bound) and
-the device.
+Its last two lines are JSON: the kernels (launches, error, times, bound; K1,
+K2, K3 and B.4) and the device.
 """
 
 from __future__ import annotations
@@ -759,7 +774,9 @@ def trained_phase(ka, smi: str, render_frame, t_start: datetime) -> dict:
 # timestamp to the last: a video has frames until the scan reaches the end of
 # its span, so that the last target is one of them.
 FPS, RATIO, TOLERANCE_S, SCAN_STRIDE = 30, 313.0, 60, 6
-DAY_START, DAY_HOURS = datetime(2025, 1, 20, 8, 0, 0), 12
+# 9a's span: 8 hours keep the whole script near half of its time limit
+# (Phase 1's OCR of the scanned frames takes most of it).
+DAY_START, DAY_HOURS = datetime(2025, 1, 20, 8, 0, 0), 8
 HOUR_START = datetime(2025, 1, 20, 9, 0, 0)
 EXTRACTION_HEADER = ["frame_number", "timestamp", "target_timestamp", "confidence", "time_error_seconds",
                      "frame_path"]
@@ -805,8 +822,8 @@ def start_video_writer(out_dir: Path) -> subprocess.Popen:
 
 def flow_config(video: Path, out: Path, detection: dict, homography, zones: list) -> dict:
     """A config as a user writes one: the video, the detector, the floor
-    transform and zones, the outputs. The card machine has no matplotlib, so
-    the charts of phase 5 are off (ROADMAP C.5); the floormaps are on."""
+    transform and zones, the outputs: the floormaps and the three charts of
+    phase 5 (drawn without matplotlib, which the card machine lacks)."""
     return {
         "video": {"input_path": str(video), "fps": FPS, "frame_interval_minutes": 5,
                   "tolerance_seconds": TOLERANCE_S, "time_compression_ratio": RATIO},
@@ -814,7 +831,7 @@ def flow_config(video: Path, out: Path, detection: dict, homography, zones: list
         "transform": {"method": "homography"},
         "homography": {"matrix": np.asarray(homography).tolist()},
         "zones": zones,
-        "output": {"directory": str(out), "save_floormap_images": True, "save_charts": False},
+        "output": {"directory": str(out), "save_floormap_images": True},
         # max_frames above the scan's frame count, so the stride stays within
         # the tolerance (frame_extraction_pipeline widens it to fit the budget)
         "timestamp": {"extraction_mode": "auto_targets", "auto_targets": {"max_frames": 800}},
@@ -937,7 +954,16 @@ def check_session(session: Path, zone_ids: list, frames: int, where: str) -> dic
     check(not errors, f"{where}: schema errors {errors}")
     floormaps = list((session / "06_visualization" / "floormaps").glob("floormap_*.png"))
     check(len(floormaps) == frames, f"{where}: {len(floormaps)} floormap PNGs for {frames} frames")
+    import cv2
+
+    for chart in CHARTS:
+        img = cv2.imread(str(session / "06_visualization" / chart))
+        check(img is not None and img.size > 0 and img.std() > 0, f"{where}: chart {chart} missing or blank")
     return summary
+
+
+#: Phase 5's charts, drawn with OpenCV (ROADMAP C.5).
+CHARTS = ("zone_time_series.png", "zone_statistics.png", "zone_heatmap.png")
 
 
 def phase_seconds(summary: dict) -> str:
@@ -945,7 +971,7 @@ def phase_seconds(summary: dict) -> str:
 
 
 def day_flow(ka, probe, smi: str, videos: Path, tmp: Path, H: np.ndarray, zones: list) -> dict:
-    """9a: the 12-hour video through main, DETR-R50 bf16 at full width."""
+    """9a: the day video (DAY_HOURS) through main, DETR-R50 bf16 at full width."""
     detection = {"model": "detr", "model_size": "full", "dtype": "bfloat16", "device": "cuda", "batch_size": 8,
                  "input_height": 736, "input_width": 1280, "checkpoint_path": None, "confidence_threshold": 0.0,
                  "nms_threshold": 0.4}
@@ -962,11 +988,13 @@ def day_flow(ka, probe, smi: str, videos: Path, tmp: Path, H: np.ndarray, zones:
     check(counts == want and counts["attention_flash"] == 18 * chunks and counts["attention_whole_kv"] == 0,
           f"9a: main launched {counts}, expected {want} (18 K2 a chunk x {chunks}, no K1)")
     scanned = math.ceil(video_frames(DAY_HOURS) / SCAN_STRIDE)
-    log(f"[9a] main, {video_frames(DAY_HOURS)}-frame 720p video 08:00-20:00 ({scanned} frames scanned and OCR'd, "
+    span = f"{DAY_START:%H:%M}-{DAY_START + timedelta(hours=DAY_HOURS):%H:%M}"
+    log(f"[9a] main, {video_frames(DAY_HOURS)}-frame 720p video {span} ({scanned} frames scanned and OCR'd, "
         f"stride {SCAN_STRIDE}): {n} frames extracted, each at its 5-minute target within {TOLERANCE_S} s and with "
         f"the timestamp burned in; DETR-R50 bf16 736x1280 batch 8: launches {counts} over {chunks} chunks (18 K2 a "
         f"chunk, none raised); checkpoints 01-06 (03_tracking skipped), the artifacts with the JAX keys and schemas, "
-        f"{n} floormap PNGs; {summary['statistics']['total_detections']} detections (random weights)")
+        f"{n} floormap PNGs and the three charts ({', '.join(CHARTS)}); "
+        f"{summary['statistics']['total_detections']} detections (random weights)")
     log(f"[9a] phase seconds (summary.json, the card synchronised at each phase's end): {phase_seconds(summary)}; "
         f"main {secs:.3f} s in all (host clock) on {smi}")
     return counts
@@ -1082,21 +1110,377 @@ def flow_phase(ka, smi: str, writer: subprocess.Popen, videos: Path, H: np.ndarr
     return day_counts, hour_counts
 
 
+# ------------------------------------------------------------------ phase 10
+# The training slice at full width: the JAX trainer's full-size defaults
+# (tools/train_detr.py:245-246,471): DETR-R50, bf16 compute, 768x1344, batch
+# 8, dropout 0.1, aux loss on; float32 master weights.
+TRAIN_HW, TRAIN_BATCH, TRAIN_IMAGES = (768, 1344), 8, 16
+# B.4 at the training shapes: DETR-R50 at 768x1344 (1008 tokens, 100
+# queries) in bf16, and DETR-small at 224x384 in float32.
+B4_CASES = [((8, 8, 1008, 1008, 32), "bfloat16", True, "R50 encoder, 768x1344"),
+            ((8, 8, 100, 1008, 32), "bfloat16", True, "R50 cross, 768x1344"),
+            ((8, 8, 100, 100, 32), "bfloat16", False, "R50 decoder self"),
+            ((1, 8, 84, 84, 16), "float32", True, "DETR-small encoder")]
+# DETR-small's card step against its CPU step (float32, TF32 off): each
+# parameter's gradient within 1e-3 of that leaf's max |grad|. The card's
+# forward is within 2.6e-6 of the CPU's in logits (K1 and cuDNN sum in
+# another order); the backward carries that through 3+3 layers and the
+# ResNet, and cuDNN's weight gradients sum over pixels in another order.
+SMALL_GRAD_RTOL = 1e-3
+
+
+def exact_zero_gradient(key: str) -> bool:
+    """Leaves whose gradient is zero in exact arithmetic, so that both sides
+    hold only rounding noise (read against the largest gradient instead):
+    every key-projection bias (it adds the same q.b to each score of a query,
+    which the softmax cancels), and the first decoder layer's self-attention
+    q and k projections and v weight (it reads tgt = 0, so every value is the
+    v bias and the output does not depend on the probabilities)."""
+    first = "decoder.layer_0.self_attn."
+    return key.endswith("k_proj.bias") or key.startswith((first + "q_proj.", first + "k_proj.",
+                                                          first + "v_proj.weight"))
+
+
+def start_dataset_writer(out_dir: Path) -> subprocess.Popen:
+    """Phase 10's data: 16 synthetic 720p COCO images (tools/gen_recipe_dataset.py)."""
+    return subprocess.Popen([sys.executable, str(ROOT / "tools" / "gen_recipe_dataset.py"), "--out", str(out_dir),
+                             "--train", str(TRAIN_IMAGES), "--val", "0"],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def b4_bound(shape, dtype, mask) -> tuple[float, str]:
+    """(least ms, "bytes" or "operations") of B.4's forward and backward:
+    q, k, v, the mask and dO read once, O, dQ, dK, dV written once; the
+    products of the forward (QK^T, P.V) and of the backward (QK^T again,
+    dV = P^T dO, dP = dO V^T, dQ = dS K, dK = dS^T Q) over this mask's valid
+    keys: 14 H Lq D flops a valid key."""
+    from office_person_detection_vit_torch import attention_kernel_bench as abench
+
+    B, H, Lq, Lk, D = shape
+    item = torch.empty((), dtype=dtype).element_size()
+    valid = Lk * B if mask is None else int(mask.sum().item())
+    flops = 14.0 * H * Lq * valid * D
+    nbytes = 4 * B * H * (Lq + Lk) * D * item + (0 if mask is None else B * Lk)
+    t_ops, t_bytes = flops / abench.PEAK_FLOPS[dtype] * 1e3, nbytes / abench.PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def b4_phase(smi: str) -> dict:
+    """10a: B.4 (ops.attention.KernelAttention) against plain autograd on the
+    card at the training shapes: forward at the kernels' bars, dq/dk/dv
+    against plain autograd in the input's type at the same bars (and, as a
+    diagnostic, against float32 autograd), and times."""
+    from office_person_detection_vit_torch import attention_kernel_bench as abench
+    from office_person_detection_vit_torch.ops import attention as oa
+    from office_person_detection_vit_torch.ops.attention import KernelAttention, attention_reference
+
+    rows = {}
+    for seed, (shape, dt, masked, path) in enumerate(B4_CASES):
+        dtype = abench.DTYPES[dt]
+        q, k, v, mask = abench.make_inputs(shape, dtype, masked, 100 + seed)
+        g = torch.randn(q.shape, generator=torch.Generator().manual_seed(200 + seed)).to("cuda", dtype)
+        q, k, v = (t.requires_grad_(True) for t in (q, k, v))
+        tol = abench.TOLERANCE[dtype]
+        oa.reset_launch_counts()
+        out = KernelAttention.apply(q, k, v, mask)
+        grads = torch.autograd.grad(out, (q, k, v), g, retain_graph=True)
+        check(oa.launch_counts["attention_diff"] == 1, f"10a {shape}: B.4 launched {oa.launch_counts}")
+        ref = attention_reference(q, k, v, mask)
+        ref_grads = torch.autograd.grad(ref, (q, k, v), g)
+        f32 = [t.detach().float().requires_grad_(True) for t in (q, k, v)]
+        ref32 = attention_reference(*f32, mask)
+        grads32 = torch.autograd.grad(ref32, f32, g.float())
+        fwd_err = (out.float() - ref32.detach()).abs().max().item()
+        grad_err = max((a.float() - b.float()).abs().max().item() for a, b in zip(grads, ref_grads))
+        f32_err = max(((a.float() - b) / b.abs().clamp(min=1.0)).abs().max().item() for a, b in zip(grads, grads32))
+        check(all(bool(torch.isfinite(t).all()) for t in (out, *grads)), f"10a {shape}: non-finite B.4 output")
+        check(fwd_err <= tol and grad_err <= tol,
+              f"10a {shape} {dt}: forward err {fwd_err:.2e}, gradient err {grad_err:.2e} (bar {tol:.0e})")
+
+        def fwd_bwd(fn):
+            def run():
+                o = fn(q, k, v, mask)
+                torch.autograd.grad(o, (q, k, v), g)
+            return run
+
+        sdpa_mask = None if mask is None else mask[:, None, None, :]
+        b_ms, b_by = b4_bound(shape, dtype, mask)
+        row = {
+            "shape": list(shape), "dtype": dt, "path": path, "max_abs_err": max(fwd_err, grad_err),
+            "forward_err": fwd_err, "grad_err": grad_err, "grad_err_vs_float32_rel": f32_err,
+            "ms": abench.cuda_ms(fwd_bwd(KernelAttention.apply), 10),
+            "forward_ms": abench.cuda_ms(lambda: KernelAttention.apply(q.detach(), k.detach(), v.detach(), mask), 10),
+            "backward_ms": abench.cuda_ms(lambda: torch.autograd.grad(out, (q, k, v), g, retain_graph=True), 10),
+            "plain_ms": abench.cuda_ms(fwd_bwd(attention_reference), 5),
+            "library_ms": abench.cuda_ms(fwd_bwd(lambda q, k, v, m: torch.nn.functional.scaled_dot_product_attention(
+                q, k, v, attn_mask=sdpa_mask)), 10),
+            "bound_ms": b_ms, "bound_by": b_by,
+        }
+        rows[shape] = row
+        log(f"[10a] B.4 {shape} {dt} ({path}): forward err {fwd_err:.2e}, dq/dk/dv vs plain autograd in {dt} "
+            f"{grad_err:.2e} (bar {tol:.0e}; vs float32 autograd {f32_err:.2e} relative to max(1,|ref|), "
+            f"diagnostic); forward+backward {row['ms']:.4f} ms (forward {row['forward_ms']:.4f}, backward "
+            f"{row['backward_ms']:.4f}), plain autograd {row['plain_ms']:.4f}, SDPA {row['library_ms']:.4f}, "
+            f"bound {b_ms:.4f} ({b_by}) on {smi}")
+        del q, k, v, g, out, grads, ref, ref_grads, f32, ref32, grads32
+    torch.cuda.empty_cache()
+    return rows
+
+
+def wait_dataset(writer: subprocess.Popen, data: Path) -> list:
+    from office_person_detection_vit_torch.train_detr import load_coco_dataset
+
+    out, _ = writer.communicate(timeout=300)
+    check(writer.returncode == 0, f"10: gen_recipe_dataset exited {writer.returncode}: {out[-2000:]}")
+    samples = load_coco_dataset(data / "train" / "images", data / "train" / "coco.json")
+    check(len(samples) == TRAIN_IMAGES, f"10: {len(samples)} samples, expected {TRAIN_IMAGES}")
+    return samples
+
+
+def to_device(host_batch: dict, hw, dtype) -> dict:
+    from office_person_detection_vit_torch.ops.preprocessing import preprocess_frames
+
+    pixels, mask = preprocess_frames(torch.from_numpy(host_batch["frames_u8"]).cuda(), target_hw=hw, out_dtype=dtype)
+    return {"pixels": pixels, "pixel_mask": mask,
+            **{k: torch.from_numpy(host_batch[k]).cuda() for k in ("labels", "boxes", "valid")}}
+
+
+def moved_check(where: str, keys, before, params) -> int:
+    """Every leaf with a nonzero gradient moved. The first decoder layer's
+    self-attention reads tgt = 0, so its q, k and v projections get none;
+    their weight decay alone (lr x 1e-4 of the value) is under float32's
+    resolution and leaves them as they were, as it does in JAX."""
+    for k, a, p in zip(keys, before, params):
+        if torch.equal(a, p.detach()):
+            check(p.grad is None or not p.grad.any(), f"{where}: {k} has a gradient and did not move")
+    return sum(not torch.equal(a, p.detach()) for a, p in zip(before, params))
+
+
+def train_full_width(ka, smi: str, samples: list) -> dict:
+    """10b: DETR-R50 bf16 training steps at 768x1344, batch 8, through the
+    port's loader, augmentation and train step."""
+    from office_person_detection_vit_torch.models.detr import DETR, DETRConfig
+    from office_person_detection_vit_torch.ops import attention as oa
+    from office_person_detection_vit_torch.training import (AugmentConfig, COCOBatchLoader, TrainState,
+                                                            content_width, make_optimizer, make_train_step)
+
+    cfg = DETRConfig(dtype="bfloat16", dropout=0.1)
+    model = DETR(cfg)
+    model.init_weights(torch.Generator().manual_seed(0))
+    model.cuda()
+    check(all(p.dtype == torch.float32 for p in model.parameters()), "10b: master weights are not float32")
+    tx = make_optimizer(learning_rate=1e-4, backbone_lr=1e-5)
+    state = TrainState.create(model, tx)
+    check(len(state.params) == 424, f"10b: {len(state.params)} trainable tensors, expected the 424 Flax leaves")
+    step = make_train_step(model, tx, augment=AugmentConfig(content_w=content_width(TRAIN_HW)))
+    loader = COCOBatchLoader(samples, TRAIN_BATCH, capacity=32, seed=0)
+    generator = torch.Generator().manual_seed(1)
+    before = [p.detach().clone() for p in state.params]
+
+    def batches():
+        for epoch in range(4):
+            yield from loader.epoch(epoch)
+
+    names = ["forward", "matcher", "loss", "backward", "optimizer"]
+    split = {n: [] for n in names}
+    host, dev, k2, b4, losses = [], [], [], [], []
+    torch.cuda.reset_peak_memory_stats()
+    for i, host_batch in enumerate(batches()):
+        torch.cuda.synchronize()
+        ka.reset_launch_counts()
+        oa.reset_launch_counts()
+        events = {n: torch.cuda.Event(enable_timing=True) for n in ["start", *names]}
+        t = time.perf_counter()
+        events["start"].record()
+        state, metrics = step(state, to_device(host_batch, TRAIN_HW, cfg.torch_dtype), generator,
+                              mark=lambda n: events[n].record())
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        k2.append(dict(ka.launch_counts))
+        b4.append(oa.launch_counts["attention_diff"])
+        losses.append({k: v.item() for k, v in metrics.items()})
+        if i >= 2:  # 2 warm-up steps
+            host.append(secs * 1e3)
+            dev.append(events["start"].elapsed_time(events["optimizer"]))
+            prev = "start"
+            for n in names:
+                split[n].append(events[prev].elapsed_time(events[n]))
+                prev = n
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check(len(host) == 6, f"10b: {len(host)} timed steps")
+    check(all(c == {"attention_whole_kv": 0, "attention_flash": 18} for c in k2) and all(n == 18 for n in b4),
+          f"10b: launches a step {k2}, B.4 {b4} (expected 18 K2 through B.4, no K1)")
+    check(all(math.isfinite(v) for row in losses for v in row.values()), f"10b: non-finite losses {losses}")
+    moved = moved_check("10b", state.keys, before, state.params)
+    mean = {n: sum(v) / len(v) for n, v in split.items()}
+    dev_ms, host_ms = sum(dev) / len(dev), sum(host) / len(host)
+    log(f"[10b] DETR-R50 bf16 (float32 master weights) 768x1344 batch {TRAIN_BATCH}, dropout 0.1, aux loss, "
+        f"augment; {TRAIN_IMAGES} synthetic 720p images through COCOBatchLoader; 2 warm-up + 6 timed steps: "
+        f"{dev_ms:.3f} ms a step (CUDA events; steps {', '.join(f'{x:.3f}' for x in dev)}), host "
+        f"{host_ms:.3f} ms a step with the upload and preprocessing ({', '.join(f'{x:.3f}' for x in host)}), "
+        f"{TRAIN_BATCH * 1e3 / host_ms:.2f} images/s, peak memory {peak:.2f} GiB on {smi}")
+    log("[10b] split of a step (mean ms, CUDA events): "
+        + ", ".join(f"{n} {mean[n]:.3f} ({100 * mean[n] / dev_ms:.1f}%)" for n in names))
+    log(f"[10b] launches a step: {k2[-1]} through B.4 ({b4[-1]} forwards); {moved} of {len(state.keys)} "
+        f"parameters moved (every one with a gradient); losses first {losses[0]}, last {losses[-1]}")
+    counts = {"attention_flash": sum(c["attention_flash"] for c in k2[2:]), "attention_diff": sum(b4[2:]),
+              "attention_whole_kv": sum(c["attention_whole_kv"] for c in k2[2:])}
+    del state, model, step
+    torch.cuda.empty_cache()
+    return {"counts": counts, "step_ms": dev_ms, "host_ms": host_ms, "split": mean, "peak_gib": peak}
+
+
+def train_small_card_vs_cpu(ka, smi: str, samples: list) -> dict:
+    """10c: one step of the committed DETR-small checkpoint (float32) on the
+    card (K1 forward through B.4, TF32 off) and on the CPU, from the same
+    weights and batch: the same matches, the losses within 1e-4 relative,
+    every gradient within SMALL_GRAD_RTOL of its leaf's max |grad|."""
+    from office_person_detection_vit_torch.device import full_float32
+    from office_person_detection_vit_torch.models.detr import DETR, DETRConfig
+    from office_person_detection_vit_torch.models.weights import load_checkpoint
+    from office_person_detection_vit_torch.ops import attention as oa
+    from office_person_detection_vit_torch.ops.preprocessing import preprocess_frames
+    from office_person_detection_vit_torch.training import COCOBatchLoader, CriterionConfig
+    from office_person_detection_vit_torch.training.criterion import match
+    from office_person_detection_vit_torch.training.train_step import gradients, loss_fn, ordered_parameters
+
+    cfg = DETRConfig.small()
+    sd = load_checkpoint(ROOT / "docs" / "artifacts" / "detr_small_weights.npz", cfg)
+    host_batch = next(iter(COCOBatchLoader(samples[:2], 2, capacity=cfg.num_queries, seed=0).epoch(0)))
+    pixels, mask = preprocess_frames(torch.from_numpy(host_batch["frames_u8"]), target_hw=(224, 384))
+    batch = {"pixels": pixels, "pixel_mask": mask, **{k: torch.from_numpy(host_batch[k])
+                                                    for k in ("labels", "boxes", "valid")}}
+    crit = CriterionConfig(num_classes=cfg.num_classes)
+    runs = {}
+    for where in ("cuda", "cpu"):
+        model = DETR(cfg)
+        model.load_state_dict(sd)
+        model.to(where).train()
+        b = {k: v.to(where) for k, v in batch.items()}
+        ka.reset_launch_counts()
+        oa.reset_launch_counts()
+        with full_float32():
+            out = model(b["pixels"], b["pixel_mask"], return_aux=True)
+            logits = torch.cat([out["aux_logits"], out["logits"][None]])
+            boxes = torch.cat([out["aux_boxes"], out["boxes"][None]])
+            L = logits.shape[0]
+            idx = match(logits, boxes, b["labels"].expand(L, *b["labels"].shape),
+                        b["boxes"].expand(L, *b["boxes"].shape), b["valid"].expand(L, *b["valid"].shape), crit)
+            model.zero_grad(set_to_none=True)
+            total, metrics = loss_fn(model, crit, b, None, True)
+            total.backward()
+            if where == "cuda":
+                torch.cuda.synchronize()
+        keys, params = ordered_parameters(model)
+        runs[where] = {"idx": idx.cpu(), "metrics": {k: v.item() for k, v in metrics.items()},
+                       "grads": [g.detach().cpu() for g in gradients(params)], "keys": keys,
+                       "counts": dict(ka.launch_counts), "b4": oa.launch_counts["attention_diff"]}
+    card, cpu = runs["cuda"], runs["cpu"]
+    check(torch.equal(card["idx"], cpu["idx"]), f"10c: matches differ, card {card['idx'].tolist()} cpu {cpu['idx'].tolist()}")
+    check(card["counts"] == {"attention_whole_kv": 18, "attention_flash": 0} and card["b4"] == 18,
+          f"10c: card launches {card['counts']}, B.4 {card['b4']} (expected 18 K1: two forwards of 9 calls)")
+    loss_err = max(abs(card["metrics"][k] - v) / max(abs(v), 1e-12) for k, v in cpu["metrics"].items())
+    check(loss_err <= 1e-4, f"10c: losses card {card['metrics']} cpu {cpu['metrics']}")
+    worst, worst_key = 0.0, ""
+    top = max(g.abs().max().item() for g in cpu["grads"])
+    for key, a, b in zip(card["keys"], card["grads"], cpu["grads"]):
+        scale = top if exact_zero_gradient(key) else max(b.abs().max().item(), 1e-30)
+        r = (a - b).abs().max().item() / scale
+        if r > worst:
+            worst, worst_key = r, key
+    check(worst <= SMALL_GRAD_RTOL, f"10c: gradient {worst_key} off by {worst:.2e} of its leaf's max |grad|")
+    log(f"[10c] DETR-small checkpoint, one float32 step (batch 2, 224x384, aux loss) on the card (K1 through "
+        f"B.4: {card['counts']}) and on the CPU: matches equal ({card['idx'].shape[0]} layers x 2 images), "
+        f"losses within {loss_err:.2e} relative (bar 1e-4), worst gradient {worst:.2e} of its leaf's max |grad| "
+        f"({worst_key}; bar {SMALL_GRAD_RTOL:.0e}) on {smi}")
+    return {"attention_whole_kv": card["counts"]["attention_whole_kv"]}
+
+
+def fine_tune_handoff(ka, smi: str, data: Path, tmp: Path, frame: np.ndarray) -> dict:
+    """10d: ``main --fine-tune`` with the training.* keys on 10b's data at
+    full size for one epoch, then its weights.npz in DETRDetector on the card."""
+    import logging
+
+    import yaml
+
+    from office_person_detection_vit_torch.detection.detector import DETRDetector
+    from office_person_detection_vit_torch.main import main as port_main
+    from office_person_detection_vit_torch.ops import attention as oa
+
+    out = tmp / "fine_tune"
+    cfg = {"detection": {"device": "cuda"}, "output": {"directory": str(tmp / "logs")},
+           "training": {"images_dir": str(data / "train" / "images"), "annotations": str(data / "train" / "coco.json"),
+                        "epochs": 1, "batch_size": TRAIN_BATCH, "output_dir": str(out),
+                        "input_height": TRAIN_HW[0], "input_width": TRAIN_HW[1], "learning_rate": 1e-4,
+                        "augment": True}}
+    path = tmp / "fine_tune.yaml"
+    path.write_text(yaml.safe_dump(cfg))
+    ka.reset_launch_counts()
+    oa.reset_launch_counts()
+    t = time.perf_counter()
+    with path.with_suffix(".log").open("w") as console, contextlib.redirect_stdout(console):
+        rc = port_main(["--config", str(path), "--fine-tune"])
+        root = logging.getLogger()
+        for handler in list(root.handlers):
+            root.removeHandler(handler)
+            handler.close()
+    secs = time.perf_counter() - t
+    counts = {**ka.launch_counts, "attention_diff": oa.launch_counts["attention_diff"]}
+    if rc != 0:
+        log("\n".join(path.with_suffix(".log").read_text().splitlines()[-60:]))
+    check(rc == 0, f"10d: main --fine-tune exited {rc}")
+    history = json.loads((out / "history.json").read_text())
+    steps = TRAIN_IMAGES // TRAIN_BATCH
+    check(len(history["step_losses"]) == steps and all(math.isfinite(x) for x in history["step_losses"]),
+          f"10d: history {history['step_losses']}")
+    check(counts["attention_flash"] == 18 * steps and counts["attention_diff"] == 18 * steps,
+          f"10d: launches {counts}, expected 18 K2 through B.4 a step x {steps}")
+    det = DETRDetector({"detection.model_size": "full", "detection.dtype": "bfloat16", "detection.device": "cuda",
+                        "detection.checkpoint_path": str(out / "weights.npz"), "detection.batch_size": 1,
+                        "detection.input_height": 736, "detection.input_width": 1280,
+                        "detection.confidence_threshold": 0.0})
+    det.load_model()
+    batch = det.detect_batch(frame[None])
+    check(det.last_failed_chunks == 0 and np.isfinite(batch.boxes_xywh).all() and np.isfinite(batch.scores).all(),
+          "10d: the trained weights do not detect")
+    log(f"[10d] main --fine-tune (training.* keys, full size, 1 epoch, {steps} steps): exit 0 in {secs:.3f} s, "
+        f"launches {counts}; history.json losses {[round(x, 4) for x in history['step_losses']]}; weights.npz "
+        f"({(out / 'weights.npz').stat().st_size} bytes) loaded into DETRDetector on the card, one frame detected "
+        f"({int(batch.valid.sum())} boxes at confidence 0) on {smi}")
+    det.cleanup()
+    return counts
+
+
+def training_phase(ka, smi: str, dataset_writer: subprocess.Popen, data: Path, frame: np.ndarray) -> dict:
+    """Phase 10: the training slice on the card."""
+    t = time.perf_counter()
+    b4_rows = b4_phase(smi)
+    samples = wait_dataset(dataset_writer, data)
+    full = train_full_width(ka, smi, samples)
+    small = train_small_card_vs_cpu(ka, smi, samples)
+    with tempfile.TemporaryDirectory() as tmp:
+        handoff = fine_tune_handoff(ka, smi, data, Path(tmp), frame)
+    log(f"[10] training phase {time.perf_counter() - t:.1f} s")
+    return {"b4": b4_rows, "full": full, "small": small, "handoff": handoff}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs the port on the card only", file=sys.stderr)
         return 1
-    with tempfile.TemporaryDirectory() as videos:
+    with tempfile.TemporaryDirectory() as videos, tempfile.TemporaryDirectory() as data:
         writer = start_video_writer(Path(videos))  # phase 9's videos, written while phases 1-8 run
+        dataset_writer = start_dataset_writer(Path(data))  # phase 10's images
         try:
-            return run(writer, Path(videos))
+            return run(writer, Path(videos), dataset_writer, Path(data))
         finally:
-            if writer.poll() is None:
-                writer.kill()
-                writer.wait()
+            for child in (writer, dataset_writer):
+                if child.poll() is None:
+                    child.kill()
+                    child.wait()
 
 
-def run(writer: subprocess.Popen, videos: Path) -> int:
+def run(writer: subprocess.Popen, videos: Path, dataset_writer: subprocess.Popen, data: Path) -> int:
     from office_person_detection_vit_torch import attention_kernel_bench as abench
     from office_person_detection_vit_torch.detection.detector import DETRDetector
     from office_person_detection_vit_torch.device import resolve_device
@@ -1291,6 +1675,9 @@ def run(writer: subprocess.Popen, videos: Path) -> int:
     # ---- 9. the whole flow through the port's entry point, on the card
     day_counts, hour_counts = flow_phase(ka, smi, writer, videos, H, zones)
 
+    # ---- 10. the training slice on the card
+    train = training_phase(ka, smi, dataset_writer, data, frames[0])
+
     # ---- result
     replaces = {"attention_whole_kv": "office_person_detection_vit_tpu/ops/attention.py:60",
                 "attention_flash": "office_person_detection_vit_tpu/ops/attention.py:159"}
@@ -1302,12 +1689,17 @@ def run(writer: subprocess.Popen, videos: Path) -> int:
         "attention_whole_kv": (("attention_whole_kv", (1, 8, 84, 84, 16), "float32"), hour_counts,
                                "DETR-small float32 through main on the card, 13 frames, phase 9b"),
         "attention_flash": (("attention_flash", (8, 8, 920, 920, 32), "bfloat16"), day_counts,
-                            "DETR-R50 bf16 through main over a 12-hour video, 145 frames, phase 9a (the main path)"),
+                            f"DETR-R50 bf16 through main over a {DAY_HOURS}-hour video, {DAY_HOURS * 12 + 1} frames, "
+                            "phase 9a (the main path)"),
     }
     other_paths = {"attention_whole_kv": {"phase 5 DETR-small detect": small_counts["attention_whole_kv"],
-                                          "phase 8b DETR-small through phases 2-4": trained_counts["attention_whole_kv"]},
+                                          "phase 8b DETR-small through phases 2-4": trained_counts["attention_whole_kv"],
+                                          "phase 10c DETR-small training step (two forwards)":
+                                              train["small"]["attention_whole_kv"]},
                    "attention_flash": {"phase 3 DETR-R50 detect": main_counts["attention_flash"],
-                                       "phase 8a DETR-R50 through phases 2-4": slice_counts["attention_flash"]}}
+                                       "phase 8a DETR-R50 through phases 2-4": slice_counts["attention_flash"],
+                                       "phase 10b DETR-R50 training, 6 timed steps": train["full"]["counts"]["attention_flash"],
+                                       "phase 10d main --fine-tune, 2 steps": train["handoff"]["attention_flash"]}}
     kernels = [
         {"name": name, "route": "cuda", "source": "office_person_detection_vit_torch/csrc/attention.cu",
          "replaces": replaces[name], "launches": counts[name], "launches_on": path,
@@ -1316,6 +1708,21 @@ def run(writer: subprocess.Popen, videos: Path) -> int:
                                       "shape", "dtype", "instruction")}}
         for name, (key, counts, path) in headline.items()
     ] + [k3_row]
+    # B.4: K1/K2 forward, recompute backward; its row at the full-width
+    # encoder shape of training, its launches (forwards) on phase 10b's path.
+    enc = train["b4"][B4_CASES[0][0]]
+    kernels.append({
+        "name": "attention_diff", "route": "cuda",
+        "source": "office_person_detection_vit_torch/ops/attention.py",
+        "replaces": "office_person_detection_vit_tpu/ops/attention.py:306",
+        "launches": train["full"]["counts"]["attention_diff"],
+        "launches_on": "DETR-R50 bf16 training at 768x1344, batch 8, 6 timed steps, phase 10b",
+        "launches_other_paths": {"phase 10c DETR-small training step (card)": train["small"]["attention_whole_kv"],
+                                 "phase 10d main --fine-tune, 2 steps": train["handoff"]["attention_diff"]},
+        **{k: enc[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                               "forward_ms", "backward_ms", "shape", "dtype")},
+        "instruction": "mma.sync.m16n8k16 (forward); the backward is the plain version's autograd",
+    })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

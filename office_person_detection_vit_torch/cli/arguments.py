@@ -21,7 +21,7 @@ def parse_arguments(argv: list[str] | None = None) -> argparse.Namespace:
         "--evaluate", action="store_true", help="run detection evaluation after the pipeline (the port refuses it: ROADMAP A.3)"
     )
     parser.add_argument(
-        "--fine-tune", action="store_true", help="run detector fine-tuning (the port refuses it: ROADMAP A.6)"
+        "--fine-tune", action="store_true", help="run detector fine-tuning (train_detr) with the training.* config keys"
     )
     parser.add_argument(
         "--start-time", type=str, default=None,

@@ -104,12 +104,16 @@ def load_library() -> ctypes.CDLL:
 def refuse_autograd(name: str, *tensors) -> None:
     """Raise where a kernel would drop autograd: the kernels fill their
     output through ctypes, so it has no ``grad_fn``. Under ``no_grad`` or
-    ``inference_mode`` (the detect path), or with no input that requires
-    grad, nothing is refused. A backward waits for ROADMAP B.4."""
+    ``inference_mode`` (the detect path, and the forward of an autograd
+    Function), or with no input that requires grad, nothing is refused.
+    Attention has a backward through ``ops.attention.multi_head_attention``
+    (ROADMAP B.4); the fused bottleneck has none, as in the JAX package."""
     if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
         raise RuntimeError(
-            f"{name}: an input requires grad, and the CUDA kernel has no backward; its output would "
-            "carry no gradient (ROADMAP B.4). Run it under torch.no_grad() or torch.inference_mode()."
+            f"{name}: an input requires grad, and the CUDA kernel has no backward of its own; its "
+            "output would carry no gradient (ROADMAP B.4: attention is differentiable through "
+            "ops.attention.multi_head_attention, the fused bottleneck is not). Run it under "
+            "torch.no_grad() or torch.inference_mode()."
         )
 
 

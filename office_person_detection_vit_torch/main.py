@@ -10,9 +10,14 @@ raises) unless the config asks for ``cpu``. Exit codes: 0 ok, 1 config
 error, 2 runtime error, 130 SIGINT (reference main.py:120-131); a failed or
 cancelled run still writes its ``summary.json``.
 
+``--fine-tune`` hands off to the port's trainer (``train_detr.main``) with the
+argument list the root ``main.py`` builds from the ``training.*`` keys
+(:func:`fine_tune_args`), plus ``--device`` from ``detection.device`` when the
+config sets it, and returns its exit code.
+
 What the port does not have yet is refused with ``NotImplementedError``
 before any session directory is written, and the run exits 2: ``--evaluate``
-(ROADMAP A.3), ``--fine-tune`` (A.6), and the config keys of
+(ROADMAP A.3), the YOLO trainer (``training.model: yolo``, A.7), and the config keys of
 ``pipeline.orchestrator.UNPORTED_KEYS`` (tracking A.5, multi-host A.8, the
 side-by-side video A.3). There is no compile cache to enable: the CUDA
 kernels are built once into ``_build/``.
@@ -34,8 +39,65 @@ logger = logging.getLogger(__name__)
 #: ROADMAP item that brings each.
 UNPORTED_FLAGS = {
     "evaluate": "--evaluate: detection evaluation (evaluation/) is not ported yet (ROADMAP A.3)",
-    "fine_tune": "--fine-tune: detector training is not ported yet (ROADMAP A.6)",
 }
+
+
+def fine_tune_args(config) -> list[str]:
+    """The trainer's argument list from the ``training.*`` keys, as the root
+    ``main.py`` builds it (reference --fine-tune path, main.py:20-136)."""
+    train_args = [
+        "--images", str(config.get("training.images_dir", "data/train/images")),
+        "--annotations", str(config.get("training.annotations", "data/train/coco.json")),
+        "--epochs", str(config.get("training.epochs", 10)),
+        "--batch", str(config.get("training.batch_size", 8)),
+        "--checkpoint", str(config.get("training.output_dir", "runs/detr_ft")),
+        "--height", str(config.get("training.input_height", 768)),
+        "--width", str(config.get("training.input_width", 1344)),
+        "--lr", str(config.get("training.learning_rate", 1e-4)),
+        "--model", str(config.get("training.model", "detr")),
+        "--model-parallel", str(config.get("training.model_parallel", 1)),
+    ]
+    if config.get("training.model", "detr") == "yolo":
+        train_args += ["--yolo-variant", str(config.get("training.yolo_variant", "s"))]
+    if config.get("training.tiny", False):
+        train_args += ["--tiny"]
+    if config.get("training.remat", False):
+        train_args += ["--remat"]
+    # A present-but-null YAML key means "default" (config.get falls back
+    # only for missing keys).
+    schedule = config.get("training.schedule", None)
+    if schedule and schedule != "none":
+        train_args += ["--schedule", str(schedule)]
+        drop_at = config.get("training.drop_at", None)
+        if drop_at is not None:
+            train_args += ["--drop-at", str(drop_at)]
+    warmup = int(config.get("training.warmup_steps", 0) or 0)
+    if warmup > 0:
+        train_args += ["--warmup-steps", str(warmup)]
+    accum = int(config.get("training.accum_steps", 1) or 1)
+    if accum > 1:
+        train_args += ["--accum-steps", str(accum)]
+    ema = float(config.get("training.ema", 0.0) or 0.0)
+    if ema > 0:
+        train_args += ["--ema", str(ema)]
+    if config.get("training.augment", False):
+        train_args += ["--augment"]
+    init = config.get("detection.checkpoint_path", None)
+    if init:
+        train_args += ["--init", str(init)]
+    if config.get("training.evaluate", False):
+        train_args += [
+            "--evaluate",
+            "--eval-every", str(config.get("training.eval_every", 0)),
+            "--eval-conf", str(config.get("training.eval_confidence", 0.25)),
+        ]
+        val_images = config.get("training.val_images_dir", None)
+        val_ann = config.get("training.val_annotations", None)
+        if val_images:
+            train_args += ["--val-images", str(val_images)]
+        if val_ann:
+            train_args += ["--val-annotations", str(val_ann)]
+    return train_args
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -52,6 +114,17 @@ def main(argv: list[str] | None = None) -> int:
         for flag, why in UNPORTED_FLAGS.items():
             if getattr(args, flag):
                 raise NotImplementedError(why)
+        if args.fine_tune:
+            from .train_detr import REFUSED
+            from .train_detr import main as train_main
+
+            if config.get("training.model", "detr") == "yolo":
+                raise NotImplementedError(REFUSED["yolo"])
+            train_args = fine_tune_args(config)
+            device = config.get("detection.device", None)
+            if device is not None:
+                train_args += ["--device", str(device)]
+            return train_main(train_args)
 
         orchestrator = PipelineOrchestrator(config, logging.getLogger("pipeline"))
         start, end = orchestrator.parse_datetime_range(args.start_time, args.end_time)

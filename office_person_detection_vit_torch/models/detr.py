@@ -8,9 +8,17 @@ pass. ``use_pallas_attention`` is accepted so configs carry over, and is
 ignored: on the card attention always runs the CUDA kernels. The backbone is
 ResNet; the ``vit`` backbone waits for a later slice.
 
-In bfloat16 the weights are rounded to bf16 once, when the model is moved to
-its dtype, which matches Flax computing in ``dtype`` from float32 params.
+Parameters are cast to ``config.dtype`` where they are used (models/layers.py),
+as Flax casts its float32 params: a training model keeps float32 parameters
+and computes in bf16. The detector moves its model to its dtype once, so the
+casts are no-ops there and its bf16 numbers are those of weights rounded once.
 Logits and boxes come back in float32.
+
+Training (``model.train()``): ``dropout`` (0.1 at full size, 0.0 in the tiny and
+small tiers, as in JAX) draws from the ``generator`` given to :meth:`DETR.forward`;
+``remat`` reruns each transformer layer in the backward
+(``torch.utils.checkpoint``); ``return_aux`` adds every earlier decoder
+layer's logits and boxes through the shared heads (deep supervision).
 """
 
 from __future__ import annotations
@@ -22,6 +30,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from .layers import Conv2d, Linear
 from .position_encoding import sine_position_embedding
 from .resnet import FrozenBatchNorm, ResNet
 from .transformer import Decoder, Encoder
@@ -38,6 +47,8 @@ class DETRConfig:
     num_decoder_layers: int = 6
     ffn_dim: int = 2048
     num_classes: int = 91  # COCO labels; +1 no-object column in the head
+    #: Transformer dropout in train() mode (the paper's 0.1; 0 in tiny/small).
+    dropout: float = 0.1
     backbone_depths: tuple[int, ...] = (3, 4, 6, 3)
     backbone_hidden: tuple[int, ...] = (256, 512, 1024, 2048)
     backbone_embedding: int = 64
@@ -52,6 +63,9 @@ class DETRConfig:
     dtype: str = "float32"
     #: Read for config compatibility and ignored (see module docstring).
     use_pallas_attention: bool = False
+    #: Rerun each transformer layer in the backward instead of keeping its
+    #: activations (``jax.checkpoint`` / ``nn.remat`` in the JAX model).
+    remat: bool = False
     person_class_id: int = 1  # COCO "person"
 
     @property
@@ -64,7 +78,7 @@ class DETRConfig:
         defaults = dict(
             num_queries=10, d_model=64, num_heads=4, num_encoder_layers=2,
             num_decoder_layers=2, ffn_dim=128, backbone_depths=(1, 1, 1, 1),
-            backbone_hidden=(32, 64, 128, 256), backbone_embedding=16,
+            backbone_hidden=(32, 64, 128, 256), backbone_embedding=16, dropout=0.0,
         )
         defaults.update(kw)
         return cls(**defaults)
@@ -76,7 +90,7 @@ class DETRConfig:
             num_queries=25, d_model=128, num_heads=8, num_encoder_layers=3,
             num_decoder_layers=3, ffn_dim=512, backbone_depths=(2, 2, 2, 2),
             backbone_hidden=(64, 128, 256, 512), backbone_embedding=32,
-            enc_objectness=True,
+            dropout=0.0, enc_objectness=True,
         )
         defaults.update(kw)
         return cls(**defaults)
@@ -87,9 +101,9 @@ class BBoxMLP(nn.Module):
 
     def __init__(self, hidden: int):
         super().__init__()
-        self.dense0 = nn.Linear(hidden, hidden)
-        self.dense1 = nn.Linear(hidden, hidden)
-        self.dense2 = nn.Linear(hidden, 4)
+        self.dense0 = Linear(hidden, hidden)
+        self.dense1 = Linear(hidden, hidden)
+        self.dense2 = Linear(hidden, 4)
 
     def forward(self, x):
         x = torch.relu(self.dense0(x))
@@ -106,7 +120,8 @@ class DETR(nn.Module):
     logits (B, Q, num_classes + 1) float32, boxes (B, Q, 4) float32 sigmoid
     cxcywh normalized to the padded input, encoder_output (B, L, C),
     feature_hw; with ``enc_objectness`` also enc_obj_logits (B, L) and
-    feature_mask (B, fh, fw)."""
+    feature_mask (B, fh, fw); with ``return_aux`` also aux_logits
+    (L-1, B, Q, num_classes + 1) and aux_boxes (L-1, B, Q, 4), float32."""
 
     def __init__(self, config: DETRConfig = DETRConfig()):
         super().__init__()
@@ -114,14 +129,16 @@ class DETR(nn.Module):
         c = config
         self.backbone = ResNet(c.backbone_depths, c.backbone_hidden, c.backbone_embedding,
                                dilate_last_stage=c.dilate_c5)
-        self.input_projection = nn.Conv2d(c.backbone_hidden[-1], c.d_model, 1)
+        self.input_projection = Conv2d(c.backbone_hidden[-1], c.d_model, 1)
         self.query_position_embeddings = nn.Parameter(torch.empty(c.num_queries, c.d_model))
-        self.encoder = Encoder(c.d_model, c.num_heads, c.ffn_dim, c.num_encoder_layers)
-        self.decoder = Decoder(c.d_model, c.num_heads, c.ffn_dim, c.num_decoder_layers)
-        self.class_labels_classifier = nn.Linear(c.d_model, c.num_classes + 1)
+        self.encoder = Encoder(c.d_model, c.num_heads, c.ffn_dim, c.num_encoder_layers,
+                               c.dropout, c.remat)
+        self.decoder = Decoder(c.d_model, c.num_heads, c.ffn_dim, c.num_decoder_layers,
+                               c.dropout, c.remat)
+        self.class_labels_classifier = Linear(c.d_model, c.num_classes + 1)
         self.bbox_predictor = BBoxMLP(c.d_model)
         if c.enc_objectness:
-            self.encoder_objectness = nn.Linear(c.d_model, 1)
+            self.encoder_objectness = Linear(c.d_model, 1)
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> None:
@@ -147,7 +164,19 @@ class DETR(nn.Module):
         if self.config.enc_objectness:
             self.encoder_objectness.bias.fill_(_prior_logit(0.01))
 
-    def forward(self, pixel_values: torch.Tensor, pixel_mask: torch.Tensor | None = None):
+    def _layer_seeds(self, n: int, generator: torch.Generator | None) -> list[int] | None:
+        """One dropout seed a layer, drawn from the caller's CPU generator
+        (no device sync), or ``None`` when dropout is off."""
+        if not (self.training and self.config.dropout > 0.0):
+            return None
+        if generator is None:
+            raise ValueError("dropout in train() mode draws from an explicit generator: pass generator=")
+        return [int(s) for s in torch.randint(0, 2**62, (n,), generator=generator)]
+
+    def forward(self, pixel_values: torch.Tensor, pixel_mask: torch.Tensor | None = None,
+                return_aux: bool = False, generator: torch.Generator | None = None):
+        """``generator``: a CPU ``torch.Generator``, the counterpart of the
+        JAX step's dropout rng; read only in train() mode with dropout on."""
         cfg = self.config
         dtype = cfg.torch_dtype
         B, H, W, _ = pixel_values.shape
@@ -171,16 +200,24 @@ class DETR(nn.Module):
         pos_flat = pos.reshape(B, fh * fw, cfg.d_model)
         key_mask = fmask.reshape(B, fh * fw).contiguous()
 
-        memory = self.encoder(src, pos_flat, key_mask)
+        memory = self.encoder(src, pos_flat, key_mask,
+                              self._layer_seeds(cfg.num_encoder_layers, generator))
         query_pos = self.query_position_embeddings.to(dtype)[None].expand(B, -1, -1)
-        hs = self.decoder(torch.zeros_like(query_pos), query_pos, memory, pos_flat, key_mask)
+        hs = self.decoder(torch.zeros_like(query_pos), query_pos, memory, pos_flat, key_mask,
+                          self._layer_seeds(cfg.num_decoder_layers, generator))
 
+        heads_in = hs if return_aux else hs[-1:]
+        logits_all = self.class_labels_classifier(heads_in).float()
+        boxes_all = torch.sigmoid(self.bbox_predictor(heads_in).float())
         out = {
-            "logits": self.class_labels_classifier(hs[-1]).float(),
-            "boxes": torch.sigmoid(self.bbox_predictor(hs[-1]).float()),
+            "logits": logits_all[-1],
+            "boxes": boxes_all[-1],
             "encoder_output": memory,
             "feature_hw": (fh, fw),
         }
+        if return_aux:
+            out["aux_logits"] = logits_all[:-1]
+            out["aux_boxes"] = boxes_all[:-1]
         if cfg.enc_objectness:
             out["enc_obj_logits"] = self.encoder_objectness(memory)[..., 0].float()
             out["feature_mask"] = fmask

@@ -8,7 +8,10 @@ cuDNN runs them channels-last. Padding follows the Flax module: the stem is
 and the 3/2 max pool pads with -inf.
 
 Submodule names are the Flax module names, so a Flax parameter path maps to
-the port's state_dict key directly (models/weights.py).
+the port's state_dict key directly (models/weights.py). FrozenBN's ``scale``
+and ``bias`` are parameters, as the Flax module's ``self.param`` are: a
+training step updates them with the backbone group. Parameters stay in their
+own dtype and are cast to the input's at use (models/layers.py).
 """
 
 from __future__ import annotations
@@ -19,21 +22,23 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .layers import Conv2d
+
 
 class FrozenBatchNorm(nn.Module):
     """Per-channel affine y = x * scale + bias (BatchNorm folded)."""
 
     def __init__(self, features: int):
         super().__init__()
-        self.register_buffer("scale", torch.ones(features))
-        self.register_buffer("bias", torch.zeros(features))
+        self.scale = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:  # x (B, C, H, W)
-        return x * self.scale[:, None, None] + self.bias[:, None, None]
+        return x * self.scale.to(x.dtype)[:, None, None] + self.bias.to(x.dtype)[:, None, None]
 
 
 def _conv(cin: int, cout: int, k: int, stride: int = 1, padding: int = 0, dilation: int = 1):
-    return nn.Conv2d(cin, cout, k, stride=stride, padding=padding, dilation=dilation, bias=False)
+    return Conv2d(cin, cout, k, stride=stride, padding=padding, dilation=dilation, bias=False)
 
 
 class Bottleneck(nn.Module):

@@ -13,6 +13,10 @@ conversion) and the weight files of ``detection/export.py`` and the trainer:
   flattens nested dicts in sorted key order at every level, so the leaf order
   is the sorted order of the Flax paths that :func:`flax_param_map`
   enumerates for a config (string order: ``layer_10`` < ``layer_2``).
+- :func:`flat_leaves_from_state_dict` / :func:`save_flat_npz`: the reverse
+  map, port state_dict -> the flat ``leaf_i`` npz that the JAX trainer writes
+  and :func:`load_flat_npz` (and the JAX package's ``load_any_checkpoint``)
+  reads;
 - :func:`state_dict_from_hf`: a HF ``DetrForObjectDetection`` state_dict
   (HF-native or timm backbone names) by key mapping, BN folded as in
   ``convert_torch_state_dict``.
@@ -149,6 +153,26 @@ def load_flat_npz(path, config: DETRConfig) -> dict:
                 )
             _set(out, e.flax_path, arr)
     return out
+
+
+def flat_leaves_from_state_dict(sd: Mapping[str, torch.Tensor], config: DETRConfig) -> list[np.ndarray]:
+    """Port state_dict -> float32 Flax leaves in flattening order (conv
+    OIHW -> HWIO, dense (out, in) -> (in, out))."""
+    leaves = []
+    for e in flax_param_map(config):
+        arr = sd[e.key].detach().float().cpu().numpy()
+        if e.kind == "conv":
+            arr = arr.transpose(2, 3, 1, 0)
+        elif e.kind == "dense":
+            arr = arr.T
+        leaves.append(np.ascontiguousarray(arr, np.float32))
+    return leaves
+
+
+def save_flat_npz(path, sd: Mapping[str, torch.Tensor], config: DETRConfig) -> None:
+    """Write ``sd`` as the trainer's flat ``leaf_i`` npz (``weights.npz``)."""
+    leaves = flat_leaves_from_state_dict(sd, config)
+    np.savez(path, **{f"leaf_{i}": a for i, a in enumerate(leaves)})
 
 
 # ------------------------------------------------------------------ HF names

@@ -1,7 +1,8 @@
 """Box utilities on tensors.
 
 Mirrors ``office_person_detection_vit_tpu/ops/boxes.py`` (the functions the
-detector path uses). All take leading batch dimensions.
+detector path, the matcher and the set loss use). All take leading batch
+dimensions.
 """
 
 from __future__ import annotations
@@ -41,6 +42,22 @@ def iou_matrix_xyxy(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     inter = wh[..., 0] * wh[..., 1]
     union = box_area_xyxy(a) + box_area_xyxy(b) - inter
     return torch.where(union > 0, inter / union, torch.zeros_like(inter))
+
+
+def generalized_iou_xyxy(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Pairwise GIoU: a (..., N, 4), b (..., M, 4) xyxy -> (..., N, M); the
+    DETR matcher's and set loss's box term."""
+    iou = iou_matrix_xyxy(a, b)
+    a = a[..., :, None, :]
+    b = b[..., None, :, :]
+    lt = torch.minimum(a[..., :2], b[..., :2])
+    rb = torch.maximum(a[..., 2:], b[..., 2:])
+    wh = (rb - lt).clamp(min=0.0)
+    enclose = wh[..., 0] * wh[..., 1]
+    inter_wh = (torch.minimum(a[..., 2:], b[..., 2:]) - torch.maximum(a[..., :2], b[..., :2])).clamp(min=0.0)
+    inter = inter_wh[..., 0] * inter_wh[..., 1]
+    union = box_area_xyxy(a) + box_area_xyxy(b) - inter
+    return iou - torch.where(enclose > 0, (enclose - union) / enclose, torch.zeros_like(enclose))
 
 
 def nms_mask(

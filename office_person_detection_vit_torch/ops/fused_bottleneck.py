@@ -96,8 +96,10 @@ def fold_identity_bottleneck(block: Bottleneck):
     w1 = scaled(block.conv0, block.bn0)[:, :, 0, 0].t()
     w2 = scaled(block.conv1, block.bn1).permute(2, 3, 1, 0)
     w3 = scaled(block.conv2, block.bn2)[:, :, 0, 0].t()
-    return (
+    # detach: a float32 BN bias is returned as is by .float(), and it is a
+    # parameter now that FrozenBN trains.
+    return tuple(t.detach() for t in (
         w1.to(dtype).contiguous(), block.bn0.bias.float().contiguous(),
         w2.to(dtype).contiguous(), block.bn1.bias.float().contiguous(),
         w3.to(dtype).contiguous(), block.bn2.bias.float().contiguous(),
-    )
+    ))

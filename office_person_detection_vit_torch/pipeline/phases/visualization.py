@@ -2,13 +2,12 @@
 (reference src/pipeline/phases/visualization.py:29-138).
 
 Mirrors ``office_person_detection_vit_tpu/pipeline/phases/visualization.py``:
-time-series, statistics and heatmap PNGs (matplotlib), and one floormap PNG a
-frame (OpenCV) rendered on a thread pool (reference visualization.py:88-95).
-All host-side; runs after the device phases. Two differences:
+time-series, statistics and heatmap PNGs, and one floormap PNG a frame
+rendered on a thread pool (reference visualization.py:88-95), all with
+OpenCV. All host-side; runs after the device phases. Two differences:
 
-* ``output.save_charts`` (default true) turns the matplotlib charts off, for
-  a machine without matplotlib (ROADMAP C.5); with it on and no matplotlib,
-  the phase raises.
+* ``output.save_charts`` (a port-only key, default true) turns the three
+  charts off. The port draws them without matplotlib (ROADMAP C.5).
 * ``output.save_side_by_side_video: true`` raises ``NotImplementedError``:
   the side-by-side exporter is not ported (ROADMAP A.3).
 """

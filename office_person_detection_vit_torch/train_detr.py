@@ -1,0 +1,372 @@
+"""Fine-tune the DETR detector on a COCO-format dataset, on the card.
+
+The port's counterpart of the DETR branch of the repo's ``tools/train_detr.py``
+(same flags): a COCO folder -> ``COCOBatchLoader`` -> preprocessing and the
+train step (``training/``) -> ``weights.npz`` (the flat ``leaf_i`` npz that
+the port's ``DETRDetector`` and the JAX package's ``load_any_checkpoint``
+read), ``history.json``, and ``train_state.npz`` with
+``train_state_meta.json`` for ``--resume-from``. Run it as
+
+    python -m office_person_detection_vit_torch.train_detr --images DIR \\
+        --annotations coco.json [--epochs 10] [--batch 8] [--height 768] \\
+        [--width 1344] [--checkpoint out_dir] [--init weights] [--device cpu]
+
+It runs on the card (``--device auto``/``cuda``; no card raises) unless
+``--device cpu`` is given; ``--device`` takes the place of ``--platform``.
+The full size is DETR-R50 with bf16 compute and float32 master weights;
+``--model-size small``/``tiny`` train in float32. Refused, naming their
+ROADMAP item: ``--model yolo`` and ``--backbone vit`` (A.7),
+``--model-parallel`` above 1 (A.8), ``--evaluate`` and ``--eval-every`` (A.3).
+The train state is the port's own npz (a JAX ``train_state.npz`` does not
+load).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import logging
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from .device import resolve_device
+
+logger = logging.getLogger("train_detr")
+
+#: Resolution every frame is resized to before the letterbox (the pipeline's
+#: 1280x720 input).
+EVAL_WH = (1280, 720)
+
+#: Flags of the JAX trainer the port refuses, with the ROADMAP item of each.
+REFUSED = {
+    "yolo": "--model yolo: the YOLO detector and its criterion are not ported yet (ROADMAP A.7)",
+    "vit": "--backbone vit: the ViT backbone is not ported yet (ROADMAP A.7)",
+    "model_parallel": "--model-parallel > 1: the sharded train step is not ported yet (ROADMAP A.8)",
+    "evaluate": "--evaluate / --eval-every: detection evaluation (benchmark/detection_benchmark.py) "
+                "is not ported yet (ROADMAP A.3)",
+}
+
+
+def load_coco_dataset(images_dir: Path, annotations: Path):
+    """-> list of (image_path, boxes_cxcywh_norm (N, 4), labels)."""
+    doc = json.loads(annotations.read_text())
+    images = {img["id"]: img for img in doc["images"]}
+    per_image: dict[int, list] = {img_id: [] for img_id in images}
+    for ann in doc.get("annotations", []):
+        if ann["image_id"] in per_image:
+            per_image[ann["image_id"]].append(ann)
+    samples = []
+    for img_id, anns in per_image.items():
+        info = images[img_id]
+        path = images_dir / info["file_name"]
+        if not path.exists():
+            continue
+        w, h = float(info["width"]), float(info["height"])
+        boxes, labels = [], []
+        for ann in anns:
+            x, y, bw, bh = ann["bbox"]
+            boxes.append([(x + bw / 2) / w, (y + bh / 2) / h, bw / w, bh / h])
+            labels.append(int(ann.get("category_id", 1)))
+        samples.append((path, np.asarray(boxes, np.float32).reshape(-1, 4), labels))
+    return samples
+
+
+def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
+    parser = argparse.ArgumentParser(description="Fine-tune DETR (PyTorch/CUDA port)")
+    parser.add_argument("--images", required=True, type=Path)
+    parser.add_argument("--annotations", required=True, type=Path)
+    parser.add_argument("--epochs", type=int, default=10)
+    parser.add_argument("--batch", type=int, default=8)
+    parser.add_argument("--height", type=int, default=768)
+    parser.add_argument("--width", type=int, default=1344)
+    parser.add_argument("--lr", type=float, default=1e-4)
+    parser.add_argument("--checkpoint", type=Path, default=Path("runs/detr_ft"))
+    parser.add_argument("--init", type=Path, default=None,
+                        help="initial weights (flat or path-keyed .npz, HF .pt/.bin/.safetensors)")
+    parser.add_argument("--model-parallel", type=int, default=1, help="refused above 1 (ROADMAP A.8)")
+    parser.add_argument("--max-targets", type=int, default=32)
+    parser.add_argument("--tiny", action="store_true", help="tiny model (smoke tests)")
+    parser.add_argument("--model-size", choices=["full", "small", "tiny"], default=None,
+                        help="DETR capacity tier; --tiny is shorthand for --model-size tiny")
+    parser.add_argument("--model", choices=["detr", "yolo"], default="detr",
+                        help="detector family; yolo is refused (ROADMAP A.7)")
+    parser.add_argument("--yolo-variant", default="s", help="read with --model yolo, which is refused")
+    parser.add_argument("--backbone", choices=["resnet50", "vit"], default="resnet50",
+                        help="detector backbone; vit is refused (ROADMAP A.7)")
+    parser.add_argument("--patch-size", type=int, default=16, help="read with --backbone vit, which is refused")
+    parser.add_argument("--enc-layers", type=int, default=None, help="override encoder depth")
+    parser.add_argument("--dec-layers", type=int, default=None, help="override decoder depth")
+    parser.add_argument("--dilate-c5", action="store_true", help="DETR-DC5: dilate the last stage")
+    parser.add_argument("--class-loss", choices=("ce", "focal"), default="ce",
+                        help="'ce' softmax CE with eos down-weighting; 'focal' per-class sigmoid focal "
+                             "(with the prior-bias head init and sigmoid scores)")
+    parser.add_argument("--w-class", type=float, default=None,
+                        help="classification loss weight (default 1.0 for ce, 2.0 for focal)")
+    parser.add_argument("--focal-alpha", type=float, default=0.25)
+    parser.add_argument("--remat", action="store_true",
+                        help="rerun each transformer layer in the backward (less memory, one more forward)")
+    parser.add_argument("--dropout", type=float, default=None,
+                        help="transformer dropout (default 0.1 full size, 0.0 small and tiny)")
+    parser.add_argument("--save-every", type=int, default=1, help="save a train state every N epochs")
+    parser.add_argument("--seed", type=int, default=0, help="seed of init, shuffling and the step's draws")
+    parser.add_argument("--schedule", choices=["none", "cosine", "step"], default="none")
+    parser.add_argument("--warmup-steps", type=int, default=0)
+    parser.add_argument("--backbone-lr-scale", type=float, default=0.1,
+                        help="backbone LR as a fraction of --lr")
+    parser.add_argument("--drop-at", type=int, default=None, help="step of the --schedule step drop")
+    parser.add_argument("--accum-steps", type=int, default=1,
+                        help="gradient accumulation micro-steps per update")
+    parser.add_argument("--ema", type=float, default=0.0,
+                        help="EMA decay of a weight average (0 = off); weights.npz then holds the EMA")
+    parser.add_argument("--augment", action="store_true", help="flip + photometric augmentation on the card")
+    parser.add_argument("--evaluate", action="store_true", help="refused (ROADMAP A.3)")
+    parser.add_argument("--eval-every", type=int, default=0, help="refused above 0 (ROADMAP A.3)")
+    parser.add_argument("--eval-conf", type=float, default=0.25, help="read with --evaluate, which is refused")
+    parser.add_argument("--eval-iou", type=float, default=0.5, help="read with --evaluate, which is refused")
+    parser.add_argument("--eval-nms", type=float, default=None, help="read with --evaluate, which is refused")
+    parser.add_argument("--val-images", type=Path, default=None, help="read with --evaluate, which is refused")
+    parser.add_argument("--val-annotations", type=Path, default=None,
+                        help="read with --evaluate, which is refused")
+    parser.add_argument("--resume-from", type=Path, default=None,
+                        help="resume from a train_state.npz this trainer saved")
+    parser.add_argument("--device", default="auto",
+                        help="auto | cuda | cuda:N | cpu (auto and cuda need a card)")
+    return parser.parse_args(argv)
+
+
+def refuse_unported(args: argparse.Namespace) -> None:
+    if args.model == "yolo":
+        raise NotImplementedError(REFUSED["yolo"])
+    if args.backbone == "vit":
+        raise NotImplementedError(REFUSED["vit"])
+    if args.model_parallel > 1:
+        raise NotImplementedError(REFUSED["model_parallel"])
+    if args.evaluate or args.eval_every:
+        raise NotImplementedError(REFUSED["evaluate"])
+
+
+def detr_config(args: argparse.Namespace, size: str):
+    """The JAX trainer's DETRConfig for these flags: the tiny and small tiers
+    in float32, full size in bf16."""
+    from .models.detr import DETRConfig
+
+    extra: dict = {}
+    if args.dropout is not None:
+        extra["dropout"] = args.dropout
+    if args.dilate_c5:
+        extra["dilate_c5"] = True
+    if args.class_loss == "focal":
+        extra["class_prior"] = 0.01
+        extra["score_mode"] = "sigmoid"
+    if args.enc_layers is not None:
+        extra["num_encoder_layers"] = args.enc_layers
+    if args.dec_layers is not None:
+        extra["num_decoder_layers"] = args.dec_layers
+    if size in ("tiny", "small"):
+        return getattr(DETRConfig, size)(remat=args.remat, **extra)
+    return DETRConfig(dtype="bfloat16", remat=args.remat, **extra)
+
+
+def save_train_state(path: Path, state) -> None:
+    """The port's train state: step and optimizer counters, then params, Adam
+    moments, the accumulated gradient and the EMA, keyed by state_dict key."""
+    opt = state.opt_state
+    arrays = {"meta/step": np.int64(state.step), "meta/count": np.int64(opt.count),
+              "meta/mini_step": np.int64(opt.mini_step)}
+    groups = {"param": state.params, "mu": opt.mu, "nu": opt.nu, "acc": opt.acc, "ema": state.ema_params}
+    for group, tensors in groups.items():
+        if tensors is not None:
+            for key, t in zip(state.keys, tensors):
+                arrays[f"{group}/{key}"] = t.detach().float().cpu().numpy()
+    np.savez(path, **arrays)
+
+
+def load_train_state(path: Path, state) -> None:
+    """Restore a saved train state into ``state`` in place. A checkpoint
+    without an EMA resumed with ``--ema`` restarts the average from the
+    resumed weights; an EMA checkpoint resumed without ``--ema`` drops it.
+    A different model or ``--accum-steps`` raises."""
+    opt = state.opt_state
+    with np.load(path) as data:
+        files = set(data.files)
+        want = {f"param/{k}" for k in state.keys}
+        if not want <= files:
+            raise ValueError(f"{path} holds another model's train state ({len(want - files)} params missing)")
+        if any(f.startswith("acc/") for f in files) != (opt.acc is not None):
+            raise ValueError(f"{path}: the optimizer configuration (e.g. --accum-steps) must match the saving run")
+
+        def restore(group: str, tensors) -> None:
+            with torch.no_grad():
+                for key, t in zip(state.keys, tensors):
+                    arr = data[f"{group}/{key}"]
+                    if tuple(arr.shape) != tuple(t.shape):
+                        raise ValueError(f"{path}: {group}/{key} has shape {arr.shape}, expected {tuple(t.shape)}")
+                    t.copy_(torch.from_numpy(arr))
+
+        for group, tensors in (("param", state.params), ("mu", opt.mu), ("nu", opt.nu), ("acc", opt.acc)):
+            if tensors is not None:
+                restore(group, tensors)
+        has_ema = any(f.startswith("ema/") for f in files)
+        if state.ema_params is not None:
+            if has_ema:
+                restore("ema", state.ema_params)
+            else:
+                logger.info("resumed checkpoint has no EMA; restarting the average from the resumed weights")
+                for e, p in zip(state.ema_params, state.params):
+                    e.copy_(p.detach())
+        elif has_ema:
+            logger.info("resumed checkpoint carries EMA weights; --ema 0 drops them")
+        state.step = int(data["meta/step"])
+        opt.count = int(data["meta/count"])
+        opt.mini_step = int(data["meta/mini_step"])
+
+
+def main(argv: list[str] | None = None) -> int:
+    args = parse_args(argv)
+    size = args.model_size or ("tiny" if args.tiny else "full")
+    args.tiny = size == "tiny"
+    logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
+    refuse_unported(args)
+
+    from .models.detr import DETR
+    from .models.weights import load_checkpoint, save_flat_npz
+    from .ops.preprocessing import preprocess_frames
+    from .training import (AugmentConfig, COCOBatchLoader, CriterionConfig, TrainState, content_width,
+                           make_optimizer, make_train_step)
+
+    cfg = detr_config(args, size)
+    device = resolve_device(args.device, cfg.dtype)
+    samples = load_coco_dataset(args.images, args.annotations)
+    if not samples:
+        logger.error("no usable samples under %s", args.images)
+        return 1
+    if len(samples) < args.batch:
+        logger.warning("dataset (%d) smaller than --batch %d; clamping batch", len(samples), args.batch)
+        args.batch = len(samples)
+    logger.info("dataset: %d images", len(samples))
+    target_hw = (args.height, args.width)
+
+    model = DETR(cfg)
+    model.init_weights(torch.Generator().manual_seed(args.seed))
+    if args.init:
+        if args.init.exists():
+            model.load_state_dict(load_checkpoint(args.init, cfg))
+            logger.info("initialized from %s", args.init)
+        else:
+            logger.warning("--init %s not found; training from random init", args.init)
+    model.to(device)  # float32 parameters; the forward computes in cfg.dtype
+
+    steps_per_epoch = max(1, len(samples) // args.batch)
+    tx = make_optimizer(
+        learning_rate=args.lr, backbone_lr=args.lr * args.backbone_lr_scale,
+        schedule=None if args.schedule == "none" else args.schedule,
+        total_steps=args.epochs * steps_per_epoch, warmup_steps=args.warmup_steps,
+        drop_at=args.drop_at, accum_steps=args.accum_steps,
+    )
+    use_ema = args.ema > 0
+    state = TrainState.create(model, tx, ema=use_ema)
+    aug_cfg = AugmentConfig(content_w=content_width(target_hw)) if args.augment else None
+    step_kwargs: dict = dict(ema_decay=args.ema if use_ema else None, augment=aug_cfg)
+    if args.class_loss == "focal" or args.w_class is not None:
+        default_w = 2.0 if args.class_loss == "focal" else 1.0
+        step_kwargs["criterion"] = CriterionConfig(
+            num_classes=cfg.num_classes, class_loss=args.class_loss,
+            w_class=args.w_class if args.w_class is not None else default_w,
+            focal_alpha=args.focal_alpha,
+        )
+    start_epoch = 0
+    if args.resume_from and args.resume_from.exists():
+        load_train_state(args.resume_from, state)
+        meta = args.resume_from.parent / "train_state_meta.json"
+        if meta.exists():
+            start_epoch = json.loads(meta.read_text()).get("epoch", 0)
+        logger.info("resumed train state from %s (epoch %d)", args.resume_from, start_epoch)
+    step = make_train_step(model, tx, **step_kwargs)
+
+    if args.max_targets > cfg.num_queries:
+        logger.warning("--max-targets %d exceeds the model's %d queries; clamping (images with more "
+                       "than %d boxes lose the excess)", args.max_targets, cfg.num_queries, cfg.num_queries)
+        args.max_targets = cfg.num_queries
+    loader = COCOBatchLoader(samples, args.batch, capacity=args.max_targets, resize_wh=EVAL_WH,
+                             seed=args.seed, depth=2)
+
+    def to_device(host_batch: dict) -> dict:
+        frames = torch.from_numpy(host_batch["frames_u8"]).to(device)
+        pixels, mask = preprocess_frames(frames, target_hw=target_hw, out_dtype=cfg.torch_dtype)
+        batch = {"pixels": pixels, "pixel_mask": mask}
+        for k in ("labels", "boxes", "valid"):
+            batch[k] = torch.from_numpy(host_batch[k]).to(device)
+        return batch
+
+    def save_state(epoch: int) -> None:
+        args.checkpoint.mkdir(parents=True, exist_ok=True)
+        save_train_state(args.checkpoint / "train_state.npz", state)
+        (args.checkpoint / "train_state_meta.json").write_text(json.dumps({"epoch": epoch}))
+
+    history_path = args.checkpoint / "history.json"
+    history: dict = {"step_losses": [], "epoch_losses": [], "config": {
+        "batch": args.batch, "lr": args.lr, "devices": 1, "data_parallel": 1,
+        "model_parallel": args.model_parallel, "tiny": args.tiny, "model_size": size,
+        "schedule": args.schedule, "warmup_steps": args.warmup_steps,
+        "accum_steps": args.accum_steps, "ema": args.ema, "augment": bool(args.augment),
+        "class_loss": args.class_loss, "w_class": args.w_class, "focal_alpha": args.focal_alpha,
+        "backbone_lr_scale": args.backbone_lr_scale, "eval_nms": args.eval_nms,
+        "max_targets": args.max_targets, "enc_objectness": bool(cfg.enc_objectness),
+        "device": str(device),
+    }}
+    if args.resume_from and history_path.exists():
+        prev = json.loads(history_path.read_text())
+        history["step_losses"] = prev.get("step_losses", [])
+        history["epoch_losses"] = prev.get("epoch_losses", [])
+        history["resumed_at_step"] = len(history["step_losses"])
+
+    # Full-batch runs (batch x accum covers the dataset) reuse epoch 0's
+    # device batches: every epoch is the same batch, and augmentation still
+    # draws anew each step.
+    cache_device_batch = args.batch * args.accum_steps >= len(samples)
+    device_batches: list | None = None
+    generator = torch.Generator().manual_seed(args.seed + 1)
+
+    for epoch in range(start_epoch, args.epochs):
+        t0 = time.perf_counter()
+        losses, comps = [], {}
+        if cache_device_batch and device_batches is not None:
+            batches = device_batches
+        else:
+            batches = (to_device(b) for b in loader.epoch(epoch))
+            if cache_device_batch:
+                batches = device_batches = list(batches)
+        for batch in batches:
+            state, metrics = step(state, batch, generator)
+            losses.append(metrics["loss"])
+            for k, v in metrics.items():
+                if k != "loss":
+                    comps.setdefault(k, []).append(v)
+        losses = [float(v) for v in losses]
+        comp_means = {k: float(torch.stack(v).float().mean()) for k, v in comps.items()}
+        logger.info("epoch %d/%d: loss %.4f [%s] (%.1fs)", epoch + 1, args.epochs,
+                    float(np.mean(losses)) if losses else float("nan"),
+                    " ".join(f"{k}={v:.3f}" for k, v in sorted(comp_means.items())),
+                    time.perf_counter() - t0)
+        history["step_losses"].extend(losses)
+        history["epoch_losses"].append(float(np.mean(losses)) if losses else None)
+        history.setdefault("epoch_metrics", []).append(comp_means)
+        args.checkpoint.mkdir(parents=True, exist_ok=True)
+        history_path.write_text(json.dumps(history))
+        if (epoch + 1) % args.save_every == 0:
+            save_state(epoch + 1)
+
+    args.checkpoint.mkdir(parents=True, exist_ok=True)
+    sd = dict(zip(state.keys, state.ema_params if use_ema else state.params))
+    ckpt_path = args.checkpoint / "weights.npz"
+    save_flat_npz(ckpt_path, sd, cfg)
+    logger.info("saved checkpoint -> %s%s", ckpt_path, " (EMA weights)" if use_ema else "")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

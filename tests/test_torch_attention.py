@@ -239,6 +239,14 @@ def test_port_imports_nothing_of_jax(path):
             assert name.split(".")[0] not in _FORBIDDEN, f"{path}: imports {name}"
 
 
+def test_import_guard_covers_the_training_slice():
+    names = {str(p.relative_to(REPO)) for p in _port_sources()}
+    pkg = "office_person_detection_vit_torch"
+    want = {f"{pkg}/train_detr.py", f"{pkg}/models/layers.py"} | {
+        f"{pkg}/training/{m}.py" for m in ("__init__", "augment", "criterion", "data", "matcher", "train_step")}
+    assert want <= names
+
+
 @pytest.mark.parametrize("grad_input", [0, 1, 2])
 def test_kernels_refuse_inputs_that_require_grad(grad_input):
     """The kernels' output has no grad_fn: with grad enabled and an input

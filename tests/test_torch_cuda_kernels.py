@@ -1,5 +1,6 @@
 """The CUDA kernels (attention K1/K2, fused bottleneck K3) against their plain
-version, on the card.
+version, on the card, and B.4 (attention under autograd) against plain
+autograd.
 
 Marked ``cuda``; each test skips where there is no CUDA device (the CUDA
 kernels have no CPU mode). On a GPU machine:
@@ -296,6 +297,32 @@ def test_kernels_refuse_inputs_that_require_grad(card):
     ws[0].requires_grad_(True)
     with pytest.raises(RuntimeError, match="B.4"):
         fused_bottleneck(x, *ws, tile_h=4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Lq,Lk,D", [(84, 84, 16), (100, 1008, 32), (67, 131, 32)])
+def test_b4_gradients_match_plain_autograd(card, dtype, Lq, Lk, D):
+    """B.4: multi_head_attention under grad runs K1/K2 through
+    KernelAttention; its forward is held to the kernel's bar against the
+    plain version in float32, dq/dk/dv to the same bar against plain autograd
+    in the input's type (the recompute the backward runs)."""
+    from office_person_detection_vit_torch.ops import attention as oa
+
+    q, k, v, mask = _case(2, 2, Lq, Lk, D, dtype, True, seed=5)
+    mask[0] = True  # B.4's rows have keys; the all-masked entry is the kernels' own test
+    q, k, v = (t.requires_grad_(True) for t in (q, k, v))
+    g = torch.randn_like(q)
+    before = dict(kernels.launch_counts)
+    oa.reset_launch_counts()
+    out = multi_head_attention(q, k, v, mask)
+    assert type(out.grad_fn).__name__ == "KernelAttentionBackward" and oa.launch_counts["attention_diff"] == 1
+    assert sum(kernels.launch_counts.values()) == sum(before.values()) + 1
+    grads = torch.autograd.grad(out, (q, k, v), g)
+    ref = attention_reference(q, k, v, mask)
+    want = torch.autograd.grad(ref, (q, k, v), g)
+    assert (out.float() - attention_reference(q.float(), k.float(), v.float(), mask)).abs().max().item() <= TOL[dtype]
+    for a, b in zip(grads, want):
+        assert bool(torch.isfinite(a).all()) and (a.float() - b.float()).abs().max().item() <= TOL[dtype]
 
 
 def test_attention_map_leaves_detect_launch_counts(card):

@@ -1,6 +1,7 @@
 """Chip smoke test of the PyTorch/CUDA port on one NVIDIA GPU (written for an H100).
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --phase 10a   # B.4 and its backward pair alone
 
 Builds the hand-written CUDA kernels from
 ``office_person_detection_vit_torch/csrc`` (one nvcc call), holds each against
@@ -62,23 +63,31 @@ the pipeline phases 2-4, the entry point and the trainer:
    videos are written by a child process while phases 1-8 run. Phase 5's
    three charts are drawn (with OpenCV; the card machine has no matplotlib);
 10. the training slice: (a) B.4, the differentiable attention
-   (``ops.attention.KernelAttention``: K1/K2 forward, the plain version's
-   autograd recomputed for the backward), at DETR-R50's training shapes at
-   768x1344 in bf16 and DETR-small's in float32: forward and dq/dk/dv against
-   plain autograd at the kernels' bars, forward+backward timed against plain
-   autograd and SDPA; (b) DETR-R50 bf16 (float32 master weights) at
-   768x1344, batch 8, dropout 0.1, aux loss, augmentation, on 16 synthetic
-   720p images (``tools/gen_recipe_dataset.py``, a child process) through the
-   port's ``COCOBatchLoader``: 2 warm-up and 6 timed steps, the split of a
-   step, 18 K2 launches through B.4 a step, finite losses, every parameter
-   moved; (c) the committed DETR-small checkpoint, one float32 step on the
-   card and one on the CPU: the same matches, losses and gradients; (d)
-   ``main --fine-tune`` with the ``training.*`` keys at full size for one
-   epoch, and its ``weights.npz`` in ``DETRDetector`` on the card.
+   (``ops.attention.KernelAttention``: K1/K2 forward writing each row's
+   log-sum-exp, the backward kernel pair ``attention_backward``), at
+   DETR-R50's training shapes at 768x1344 in bf16 and DETR-small's in
+   float32: the forward's output bit-identical with and without the
+   log-sum-exp (also at the detect path's three shapes) and the log-sum-exp
+   against ``attention_lse``; the forward at the kernels' bars; dq/dk/dv
+   against float64 autograd of the plain version (the gate) and against the
+   pair's plain version (``attention_backward_reference``), two calls
+   bit-identical, the plain bf16 autograd's own error printed beside them;
+   forward+backward, the forward and the backward timed against plain
+   autograd, the plain version of the pair and SDPA (and SDPA's backward
+   alone); (b) DETR-R50 bf16 (float32 master weights) at 768x1344, batch 8,
+   dropout 0.1, aux loss, augmentation, on 16 synthetic 720p images
+   (``tools/gen_recipe_dataset.py``, a child process) through the port's
+   ``COCOBatchLoader``: 2 warm-up and 6 timed steps, the split of a step, 18
+   K2 launches through B.4 and 18 backward pairs a step, finite losses,
+   every parameter moved; (c) the committed DETR-small checkpoint, one
+   float32 step on the card and one on the CPU: the same matches, losses and
+   gradients; (d) ``main --fine-tune`` with the ``training.*`` keys at full
+   size for one epoch, and its ``weights.npz`` in ``DETRDetector`` on the
+   card.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 Its last two lines are JSON: the kernels (launches, error, times, bound; K1,
-K2, K3 and B.4) and the device.
+K2, K3, B.4 and its backward pair) and the device.
 """
 
 from __future__ import annotations
@@ -266,12 +275,17 @@ def kernel_resources(ka, kb, build) -> None:
             f"({tile_h} x {tile_w}, {rows} rows)  HMMA in SASS {n_hmma}")
 
 
+def launches(whole_kv: int = 0, flash: int = 0, backward: int = 0) -> dict:
+    """The attention kernels' launch counts as ``kernels.attention.launch_counts`` holds them."""
+    return {"attention_whole_kv": whole_kv, "attention_flash": flash, "attention_backward": backward}
+
+
 def expected_launches(ka, tokens: int, dtype, chunks: int) -> dict:
     """K1/K2 launches of DETR's 6 encoder (tokens keys), 6 cross- (tokens
     keys) and 6 decoder self-attention calls (100 keys) per chunk, by the
-    dispatch rule."""
+    dispatch rule; no backward."""
     flash = 6 * (2 * ka.use_flash(tokens, 32, dtype) + ka.use_flash(100, 32, dtype))
-    return {"attention_whole_kv": (18 - flash) * chunks, "attention_flash": flash * chunks}
+    return launches((18 - flash) * chunks, flash * chunks)
 
 
 # ------------------------------------------------------------------- phase 7
@@ -731,7 +745,7 @@ def trained_phase(ka, smi: str, render_frame, t_start: datetime) -> dict:
         failed = detection.detector.last_failed_chunks
         check_artifacts(Path(tmp), list(quads), len(frames))
         rows = list(csv.reader((Path(tmp) / "zone_counts.csv").open()))
-    want = {"attention_whole_kv": 9 * len(frames), "attention_flash": 0}
+    want = launches(whole_kv=9 * len(frames))
     check(counts == want, f"8b: the detection phase launched {counts}, expected {want} (9 K1 a frame)")
     check(failed == 0, f"8b: {failed} of {len(frames)} chunks raised in the detection phase")
     for row, result, ((px, py, _), _, zone) in zip(rows[1:], results, people):
@@ -1038,9 +1052,9 @@ def hour_flow(ka, probe, smi: str, videos: Path, tmp: Path) -> tuple[dict, Path,
         check(sum(probe.failed_chunks) == 0, f"9b {device}: {sum(probe.failed_chunks)} chunks raised")
         runs[device] = (counts, secs, session, summary, cfg)
     (counts, secs, card, card_summary, card_cfg), (cpu_counts, cpu_secs, cpu, cpu_summary, _) = runs["cuda"], runs["cpu"]
-    want = {"attention_whole_kv": 9 * n, "attention_flash": 0}
+    want = launches(whole_kv=9 * n)
     check(counts == want, f"9b: the card run launched {counts}, expected {want} (9 K1 a frame)")
-    check(cpu_counts == {"attention_whole_kv": 0, "attention_flash": 0}, f"9b: the CPU run launched {cpu_counts}")
+    check(cpu_counts == launches(), f"9b: the CPU run launched {cpu_counts}")
     check(extraction_rows(card) == extraction_rows(cpu), "9b: extraction_results.csv differs between card and CPU")
     thr = detection["confidence_threshold"]
     dets = {k: json.loads((s / "04_transform" / "coordinate_transformations.json").read_text())["frames"]
@@ -1127,6 +1141,18 @@ B4_CASES = [((8, 8, 1008, 1008, 32), "bfloat16", True, "R50 encoder, 768x1344"),
 # another order); the backward carries that through 3+3 layers and the
 # ResNet, and cuDNN's weight gradients sum over pixels in another order.
 SMALL_GRAD_RTOL = 1e-3
+# B.4's dq/dk/dv against float64 autograd of the plain version on the same
+# values, and against the pair's plain version (relative_error: each element
+# relative to max(1, |ref|) and each tensor relative to its max |ref|): bf16
+# 2^-6 (P and dS are rounded to bf16 for the products, and so are the
+# results); float32 1e-5 (summation order). The gate must reject the
+# B4_FAULTS, planted in the pair's plain version, at every B4_CASES shape.
+B4_BAR = {torch.bfloat16: 2.0**-6, torch.float32: 1e-5}
+B4_FAULTS = ("D dropped", "zero scale in dQ/dK of the all-masked entry", "scale off by 2^-5")
+# The forward's log-sum-exp against attention_lse, relative to max(1,
+# |lse|): float32 summation order; bf16 scores are summed on the tensor cores
+# from bf16 products, in another order than the plain version's.
+LSE_TOL = {torch.bfloat16: 1e-4, torch.float32: 1e-5}
 
 
 def exact_zero_gradient(key: str) -> bool:
@@ -1148,54 +1174,152 @@ def start_dataset_writer(out_dir: Path) -> subprocess.Popen:
                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
 
 
-def b4_bound(shape, dtype, mask) -> tuple[float, str]:
+def b4_bound(shape, dtype, mask, backward_only: bool = False) -> tuple[float, str]:
     """(least ms, "bytes" or "operations") of B.4's forward and backward:
     q, k, v, the mask and dO read once, O, dQ, dK, dV written once; the
     products of the forward (QK^T, P.V) and of the backward (QK^T again,
     dV = P^T dO, dP = dO V^T, dQ = dS K, dK = dS^T Q) over this mask's valid
-    keys: 14 H Lq D flops a valid key."""
+    keys: 14 H Lq D flops a valid key. ``backward_only``: the backward pair's
+    own work, q, k, v, O, dO, the mask and the log-sum-exp read once, dQ, dK,
+    dV written once, and its five products: 10 H Lq D flops a valid key."""
     from office_person_detection_vit_torch import attention_kernel_bench as abench
 
     B, H, Lq, Lk, D = shape
     item = torch.empty((), dtype=dtype).element_size()
     valid = Lk * B if mask is None else int(mask.sum().item())
-    flops = 14.0 * H * Lq * valid * D
+    flops = (10.0 if backward_only else 14.0) * H * Lq * valid * D
     nbytes = 4 * B * H * (Lq + Lk) * D * item + (0 if mask is None else B * Lk)
+    if backward_only:
+        nbytes = (3 * Lq + 2 * Lk + Lq + 2 * Lk) * B * H * D * item + 4 * B * H * Lq + (0 if mask is None else B * Lk)
     t_ops, t_bytes = flops / abench.PEAK_FLOPS[dtype] * 1e3, nbytes / abench.PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def b4_phase(smi: str) -> dict:
-    """10a: B.4 (ops.attention.KernelAttention) against plain autograd on the
-    card at the training shapes: forward at the kernels' bars, dq/dk/dv
-    against plain autograd in the input's type at the same bars (and, as a
-    diagnostic, against float32 autograd), and times."""
+def relative_error(got, want) -> float:
+    """The larger of attention_kernel_bench.relative_errors' two readings:
+    what B.4's gate holds to B4_BAR."""
+    from office_person_detection_vit_torch.attention_kernel_bench import relative_errors
+
+    return max(relative_errors(got, want))
+
+
+def planted_fault_grads(q, k, v, mask, out, lse, g) -> dict:
+    """(dq, dk, dv) of the pair's plain version with each B4_FAULTS fault
+    planted: D = rowsum(g * out) left out of dS; dQ and dK of a batch entry
+    with every key masked scaled by the zero score scale that P uses there
+    (``mask``'s last entry must be all masked); dQ and dK scaled by
+    (1 + 2^-5)/sqrt(D). A gate that passes any of them cannot tell a wrong
+    backward from bf16 rounding."""
+    from office_person_detection_vit_torch.ops.attention import _scores
+
+    qf, kf, vf, gf = (t.float() for t in (q, k, v, g))
+    p = torch.exp(_scores(q, k, mask) - lse[..., None])
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, gf)
+    dp = torch.einsum("bhqd,bhkd->bhqk", gf, vf)
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    dead = (~mask.any(-1)).view(-1, 1, 1, 1)
+
+    def grads(ds, dq_dk_scale):
+        dq = torch.einsum("bhqk,bhkd->bhqd", ds, kf) * dq_dk_scale
+        dk = torch.einsum("bhqk,bhqd->bhkd", ds, qf) * dq_dk_scale
+        return tuple(t.to(q.dtype) for t in (dq, dk, dv))
+
+    ds = p * (dp - (gf * out.float()).sum(-1, keepdim=True))
+    return dict(zip(B4_FAULTS, (grads(p * dp, scale), grads(ds, torch.where(dead, 0.0, scale)),
+                                grads(ds, scale * (1 + 2.0**-5)))))
+
+
+def lse_phase(ka, smi: str) -> None:
+    """10a, first: the forward kernel that B.4 takes at each B4_CASES shape,
+    and K2 at the detect path's three bf16 shapes (736x1280: 920 tokens),
+    give the same bits with and without the log-sum-exp pointer, and the
+    log-sum-exp matches attention_lse (LSE_TOL)."""
+    from office_person_detection_vit_torch import attention_kernel_bench as abench
+    from office_person_detection_vit_torch.ops.attention import attention_lse
+
+    detect = [((8, 8, 920, 920, 32), "bfloat16", True, "R50 detect encoder"),
+              ((8, 8, 100, 920, 32), "bfloat16", True, "R50 detect cross"),
+              ((8, 8, 100, 100, 32), "bfloat16", False, "R50 detect decoder self")]
+    for seed, (shape, dt, masked, path) in enumerate(B4_CASES + detect):
+        dtype = abench.DTYPES[dt]
+        q, k, v, mask = abench.make_inputs(shape, dtype, masked, 300 + seed)
+        fn = ka.attention_flash if ka.use_flash(shape[3], shape[4], dtype) else ka.attention_whole_kv
+        plain = fn(q, k, v, mask)
+        out, lse = fn(q, k, v, mask, with_lse=True)
+        want = attention_lse(q, k, mask)
+        err = ((lse - want).abs() / want.abs().clamp(min=1.0)).max().item()
+        check(torch.equal(plain, out), f"10a {shape} {dt}: {fn.__name__} with the lse pointer changed its output")
+        check(err <= LSE_TOL[dtype], f"10a {shape} {dt}: lse off attention_lse by {err:.2e} (bar {LSE_TOL[dtype]:.0e})")
+        log(f"[10a] {fn.__name__} {shape} {dt} ({path}): output bit-identical with and without lse; lse within "
+            f"{err:.2e} of attention_lse relative to max(1,|lse|) (bar {LSE_TOL[dtype]:.0e})")
+
+
+def b4_phase(ka, smi: str) -> dict:
+    """10a: B.4 (ops.attention.KernelAttention: K1/K2 forward with the
+    log-sum-exp, the backward kernel pair) on the card at the training
+    shapes: the forward at the kernels' bars; dq/dk/dv against float64
+    autograd of the plain version (the gate, B4_BAR) and against the pair's
+    plain version on the card (the same bar); two calls of the pair
+    bit-identical; the plain autograd's own error against float64 printed
+    beside them; the same values with the last batch entry all masked, where
+    the pair passes the gate and each of B4_FAULTS fails it; and times."""
     from office_person_detection_vit_torch import attention_kernel_bench as abench
     from office_person_detection_vit_torch.ops import attention as oa
-    from office_person_detection_vit_torch.ops.attention import KernelAttention, attention_reference
+    from office_person_detection_vit_torch.ops.attention import (KernelAttention, attention_backward_reference,
+                                                                 attention_reference)
 
+    lse_phase(ka, smi)
     rows = {}
     for seed, (shape, dt, masked, path) in enumerate(B4_CASES):
         dtype = abench.DTYPES[dt]
         q, k, v, mask = abench.make_inputs(shape, dtype, masked, 100 + seed)
         g = torch.randn(q.shape, generator=torch.Generator().manual_seed(200 + seed)).to("cuda", dtype)
         q, k, v = (t.requires_grad_(True) for t in (q, k, v))
-        tol = abench.TOLERANCE[dtype]
+        tol, bar = abench.TOLERANCE[dtype], B4_BAR[dtype]
         oa.reset_launch_counts()
+        ka.reset_launch_counts()
         out = KernelAttention.apply(q, k, v, mask)
         grads = torch.autograd.grad(out, (q, k, v), g, retain_graph=True)
-        check(oa.launch_counts["attention_diff"] == 1, f"10a {shape}: B.4 launched {oa.launch_counts}")
-        ref = attention_reference(q, k, v, mask)
-        ref_grads = torch.autograd.grad(ref, (q, k, v), g)
-        f32 = [t.detach().float().requires_grad_(True) for t in (q, k, v)]
-        ref32 = attention_reference(*f32, mask)
-        grads32 = torch.autograd.grad(ref32, f32, g.float())
-        fwd_err = (out.float() - ref32.detach()).abs().max().item()
-        grad_err = max((a.float() - b.float()).abs().max().item() for a, b in zip(grads, ref_grads))
-        f32_err = max(((a.float() - b) / b.abs().clamp(min=1.0)).abs().max().item() for a, b in zip(grads, grads32))
+        torch.cuda.synchronize()
+        check(oa.launch_counts["attention_diff"] == 1 and ka.launch_counts["attention_backward"] == 1,
+              f"10a {shape}: B.4 launched {oa.launch_counts}, {ka.launch_counts}")
+        x = [t.detach() for t in (q, k, v)]
+        fn = ka.attention_flash if ka.use_flash(shape[3], shape[4], dtype) else ka.attention_whole_kv
+        out2, lse = fn(*x, mask, with_lse=True)
+        pair = [ka.attention_backward(*x, mask, out2, lse, g) for _ in range(2)]
+        x64 = [t.double().requires_grad_(True) for t in x]
+        exact = torch.autograd.grad(attention_reference(*x64, mask), x64, g.double())
+        twin = attention_backward_reference(*x, mask, out2, lse, g)
+        plain_grads = torch.autograd.grad(attention_reference(q, k, v, mask), (q, k, v), g)
+        fwd_err = (out.float() - attention_reference(*(t.float() for t in x), mask)).abs().max().item()
+        grad_err, twin_err = relative_error(grads, exact), relative_error(grads, twin)
+        plain_err = relative_error(plain_grads, exact)
+        grad_abs = max((a.double() - b).abs().max().item() for a, b in zip(grads, exact))
         check(all(bool(torch.isfinite(t).all()) for t in (out, *grads)), f"10a {shape}: non-finite B.4 output")
-        check(fwd_err <= tol and grad_err <= tol,
-              f"10a {shape} {dt}: forward err {fwd_err:.2e}, gradient err {grad_err:.2e} (bar {tol:.0e})")
+        check(torch.equal(out, out2) and all(torch.equal(a, b) for a, b in zip(pair[0], pair[1]))
+              and all(torch.equal(a, b) for a, b in zip(pair[0], grads)),
+              f"10a {shape} {dt}: the forward or the backward pair is not the same bits from call to call")
+        check(fwd_err <= tol and grad_err <= bar and twin_err <= bar,
+              f"10a {shape} {dt}: forward err {fwd_err:.2e} (bar {tol:.0e}); dq/dk/dv against float64 autograd "
+              f"{grad_err:.2e}, against attention_backward_reference {twin_err:.2e} (bar {bar:.2e})")
+        # the same values with the last batch entry's keys all masked: the pair, and the planted faults
+        dead = (torch.ones(shape[0], shape[3], dtype=torch.bool, device="cuda") if mask is None else mask).clone()
+        dead[-1] = False
+        xd = [t.clone().requires_grad_(True) for t in x]
+        dead_grads = torch.autograd.grad(KernelAttention.apply(*xd, dead), xd, g)
+        x64 = [t.double().requires_grad_(True) for t in x]
+        exact_dead = torch.autograd.grad(attention_reference(*x64, dead), x64, g.double())
+        dead_err = relative_error(dead_grads, exact_dead)
+        planted = planted_fault_grads(*x, dead, *fn(*x, dead, with_lse=True), g)
+        faults = {name: abench.relative_errors(f, exact_dead) for name, f in planted.items()}
+        fault_text = "; ".join(f"{name} {e:.2e} / {m:.2e}" for name, (e, m) in faults.items())
+        check(dead_err <= bar and all(max(r) > bar for r in faults.values()),
+              f"10a {shape} {dt}, last entry all masked: the pair {dead_err:.2e} (bar {bar:.2e}); the planted "
+              f"faults must read over the bar (per element / per tensor): {fault_text}")
+        log(f"[10a] B.4 {shape} {dt}, last entry all masked: the pair against float64 autograd {dead_err:.2e} "
+            f"(bar {bar:.2e}); planted faults in the pair's plain version, rejected (per element / per tensor): "
+            f"{fault_text}")
+        del xd, dead_grads, exact_dead, planted
 
         def fwd_bwd(fn):
             def run():
@@ -1204,25 +1328,40 @@ def b4_phase(smi: str) -> dict:
             return run
 
         sdpa_mask = None if mask is None else mask[:, None, None, :]
+
+        def sdpa(q, k, v, mask):
+            return torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=sdpa_mask)
+
+        sdpa_out = sdpa(q, k, v, mask)
         b_ms, b_by = b4_bound(shape, dtype, mask)
+        bb_ms, bb_by = b4_bound(shape, dtype, mask, backward_only=True)
         row = {
-            "shape": list(shape), "dtype": dt, "path": path, "max_abs_err": max(fwd_err, grad_err),
-            "forward_err": fwd_err, "grad_err": grad_err, "grad_err_vs_float32_rel": f32_err,
+            "shape": list(shape), "dtype": dt, "path": path, "max_abs_err": max(fwd_err, grad_abs),
+            "forward_err": fwd_err, "grad_err_vs_float64_rel": grad_err, "grad_err_vs_twin_rel": twin_err,
+            "plain_autograd_err_vs_float64_rel": plain_err, "grad_bar": bar, "all_masked_entry_err": dead_err,
+            "planted_faults_rel": {name: max(r) for name, r in faults.items()},
             "ms": abench.cuda_ms(fwd_bwd(KernelAttention.apply), 10),
-            "forward_ms": abench.cuda_ms(lambda: KernelAttention.apply(q.detach(), k.detach(), v.detach(), mask), 10),
+            "forward_ms": abench.cuda_ms(lambda: KernelAttention.apply(*x, mask), 10),
             "backward_ms": abench.cuda_ms(lambda: torch.autograd.grad(out, (q, k, v), g, retain_graph=True), 10),
+            "pair_ms": abench.cuda_ms(lambda: ka.attention_backward(*x, mask, out2, lse, g), 10),
             "plain_ms": abench.cuda_ms(fwd_bwd(attention_reference), 5),
-            "library_ms": abench.cuda_ms(fwd_bwd(lambda q, k, v, m: torch.nn.functional.scaled_dot_product_attention(
-                q, k, v, attn_mask=sdpa_mask)), 10),
-            "bound_ms": b_ms, "bound_by": b_by,
+            "plain_backward_ms": abench.cuda_ms(lambda: attention_backward_reference(*x, mask, out2, lse, g), 5),
+            "library_ms": abench.cuda_ms(fwd_bwd(sdpa), 10),
+            "library_backward_ms": abench.cuda_ms(
+                lambda: torch.autograd.grad(sdpa_out, (q, k, v), g, retain_graph=True), 10),
+            "bound_ms": b_ms, "bound_by": b_by, "backward_bound_ms": bb_ms, "backward_bound_by": bb_by,
         }
         rows[shape] = row
-        log(f"[10a] B.4 {shape} {dt} ({path}): forward err {fwd_err:.2e}, dq/dk/dv vs plain autograd in {dt} "
-            f"{grad_err:.2e} (bar {tol:.0e}; vs float32 autograd {f32_err:.2e} relative to max(1,|ref|), "
-            f"diagnostic); forward+backward {row['ms']:.4f} ms (forward {row['forward_ms']:.4f}, backward "
-            f"{row['backward_ms']:.4f}), plain autograd {row['plain_ms']:.4f}, SDPA {row['library_ms']:.4f}, "
-            f"bound {b_ms:.4f} ({b_by}) on {smi}")
-        del q, k, v, g, out, grads, ref, ref_grads, f32, ref32, grads32
+        log(f"[10a] B.4 {shape} {dt} ({path}): forward err {fwd_err:.2e} (bar {tol:.0e}); dq/dk/dv of the "
+            f"backward pair against float64 autograd {grad_err:.2e}, against attention_backward_reference "
+            f"{twin_err:.2e} (bar {bar:.2e}, relative_error); plain autograd in {dt} against float64 "
+            f"{plain_err:.2e} (diagnostic); two calls of the pair bit-identical")
+        log(f"[10a] B.4 {shape} {dt}: forward+backward {row['ms']:.4f} ms (forward {row['forward_ms']:.4f}, "
+            f"backward {row['backward_ms']:.4f}, the pair alone {row['pair_ms']:.4f}), plain autograd "
+            f"{row['plain_ms']:.4f}, the pair's plain version {row['plain_backward_ms']:.4f}, SDPA "
+            f"{row['library_ms']:.4f} (backward alone {row['library_backward_ms']:.4f}); bound {b_ms:.4f} ({b_by}), "
+            f"the backward's {bb_ms:.4f} ({bb_by}, {100 * bb_ms / row['pair_ms']:.1f}% of it) on {smi}")
+        del q, k, v, g, out, grads, x, x64, exact, twin, plain_grads, pair, out2, lse, sdpa_out
     torch.cuda.empty_cache()
     return rows
 
@@ -1308,8 +1447,8 @@ def train_full_width(ka, smi: str, samples: list) -> dict:
                 prev = n
     peak = torch.cuda.max_memory_allocated() / 2**30
     check(len(host) == 6, f"10b: {len(host)} timed steps")
-    check(all(c == {"attention_whole_kv": 0, "attention_flash": 18} for c in k2) and all(n == 18 for n in b4),
-          f"10b: launches a step {k2}, B.4 {b4} (expected 18 K2 through B.4, no K1)")
+    check(all(c == launches(flash=18, backward=18) for c in k2) and all(n == 18 for n in b4),
+          f"10b: launches a step {k2}, B.4 {b4} (expected 18 K2 through B.4 and 18 backward pairs, no K1)")
     check(all(math.isfinite(v) for row in losses for v in row.values()), f"10b: non-finite losses {losses}")
     moved = moved_check("10b", state.keys, before, state.params)
     mean = {n: sum(v) / len(v) for n, v in split.items()}
@@ -1321,10 +1460,9 @@ def train_full_width(ka, smi: str, samples: list) -> dict:
         f"{TRAIN_BATCH * 1e3 / host_ms:.2f} images/s, peak memory {peak:.2f} GiB on {smi}")
     log("[10b] split of a step (mean ms, CUDA events): "
         + ", ".join(f"{n} {mean[n]:.3f} ({100 * mean[n] / dev_ms:.1f}%)" for n in names))
-    log(f"[10b] launches a step: {k2[-1]} through B.4 ({b4[-1]} forwards); {moved} of {len(state.keys)} "
+    log(f"[10b] launches a step: {k2[-1]} through B.4 ({b4[-1]} forwards, one backward pair each); {moved} of {len(state.keys)} "
         f"parameters moved (every one with a gradient); losses first {losses[0]}, last {losses[-1]}")
-    counts = {"attention_flash": sum(c["attention_flash"] for c in k2[2:]), "attention_diff": sum(b4[2:]),
-              "attention_whole_kv": sum(c["attention_whole_kv"] for c in k2[2:])}
+    counts = {"attention_diff": sum(b4[2:]), **{name: sum(c[name] for c in k2[2:]) for name in launches()}}
     del state, model, step
     torch.cuda.empty_cache()
     return {"counts": counts, "step_ms": dev_ms, "host_ms": host_ms, "split": mean, "peak_gib": peak}
@@ -1377,8 +1515,9 @@ def train_small_card_vs_cpu(ka, smi: str, samples: list) -> dict:
                        "counts": dict(ka.launch_counts), "b4": oa.launch_counts["attention_diff"]}
     card, cpu = runs["cuda"], runs["cpu"]
     check(torch.equal(card["idx"], cpu["idx"]), f"10c: matches differ, card {card['idx'].tolist()} cpu {cpu['idx'].tolist()}")
-    check(card["counts"] == {"attention_whole_kv": 18, "attention_flash": 0} and card["b4"] == 18,
-          f"10c: card launches {card['counts']}, B.4 {card['b4']} (expected 18 K1: two forwards of 9 calls)")
+    check(card["counts"] == launches(whole_kv=18, backward=9) and card["b4"] == 18,
+          f"10c: card launches {card['counts']}, B.4 {card['b4']} (expected 18 K1: two forwards of 9 calls, the "
+          "matcher's and the loss's, and 9 backward pairs: the loss's graph)")
     loss_err = max(abs(card["metrics"][k] - v) / max(abs(v), 1e-12) for k, v in cpu["metrics"].items())
     check(loss_err <= 1e-4, f"10c: losses card {card['metrics']} cpu {cpu['metrics']}")
     worst, worst_key = 0.0, ""
@@ -1393,7 +1532,8 @@ def train_small_card_vs_cpu(ka, smi: str, samples: list) -> dict:
         f"B.4: {card['counts']}) and on the CPU: matches equal ({card['idx'].shape[0]} layers x 2 images), "
         f"losses within {loss_err:.2e} relative (bar 1e-4), worst gradient {worst:.2e} of its leaf's max |grad| "
         f"({worst_key}; bar {SMALL_GRAD_RTOL:.0e}) on {smi}")
-    return {"attention_whole_kv": card["counts"]["attention_whole_kv"]}
+    return {"attention_whole_kv": card["counts"]["attention_whole_kv"],
+            "attention_backward": card["counts"]["attention_backward"]}
 
 
 def fine_tune_handoff(ka, smi: str, data: Path, tmp: Path, frame: np.ndarray) -> dict:
@@ -1433,8 +1573,8 @@ def fine_tune_handoff(ka, smi: str, data: Path, tmp: Path, frame: np.ndarray) ->
     steps = TRAIN_IMAGES // TRAIN_BATCH
     check(len(history["step_losses"]) == steps and all(math.isfinite(x) for x in history["step_losses"]),
           f"10d: history {history['step_losses']}")
-    check(counts["attention_flash"] == 18 * steps and counts["attention_diff"] == 18 * steps,
-          f"10d: launches {counts}, expected 18 K2 through B.4 a step x {steps}")
+    check(counts == {**launches(flash=18 * steps, backward=18 * steps), "attention_diff": 18 * steps},
+          f"10d: launches {counts}, expected 18 K2 through B.4 and 18 backward pairs a step x {steps}")
     det = DETRDetector({"detection.model_size": "full", "detection.dtype": "bfloat16", "detection.device": "cuda",
                         "detection.checkpoint_path": str(out / "weights.npz"), "detection.batch_size": 1,
                         "detection.input_height": 736, "detection.input_width": 1280,
@@ -1454,7 +1594,7 @@ def fine_tune_handoff(ka, smi: str, data: Path, tmp: Path, frame: np.ndarray) ->
 def training_phase(ka, smi: str, dataset_writer: subprocess.Popen, data: Path, frame: np.ndarray) -> dict:
     """Phase 10: the training slice on the card."""
     t = time.perf_counter()
-    b4_rows = b4_phase(smi)
+    b4_rows = b4_phase(ka, smi)
     samples = wait_dataset(dataset_writer, data)
     full = train_full_width(ka, smi, samples)
     small = train_small_card_vs_cpu(ka, smi, samples)
@@ -1464,10 +1604,32 @@ def training_phase(ka, smi: str, dataset_writer: subprocess.Popen, data: Path, f
     return {"b4": b4_rows, "full": full, "small": small, "handoff": handoff}
 
 
-def main() -> int:
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    parser = argparse.ArgumentParser(description="Chip smoke test of the PyTorch/CUDA port.")
+    parser.add_argument("--phase", choices=["10a"], help="run only this phase (after the build) and print its rows")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs the port on the card only", file=sys.stderr)
         return 1
+    if args.phase == "10a":
+        from office_person_detection_vit_torch.kernels import attention as ka
+
+        smi = card_line()
+        log(f"[1] card: {smi}")
+        ka.load_library()
+        rows = b4_phase(ka, smi)
+        print(json.dumps({"b4": list(rows.values())}), flush=True)
+        return 0
     with tempfile.TemporaryDirectory() as videos, tempfile.TemporaryDirectory() as data:
         writer = start_video_writer(Path(videos))  # phase 9's videos, written while phases 1-8 run
         dataset_writer = start_dataset_writer(Path(data))  # phase 10's images
@@ -1494,10 +1656,7 @@ def run(writer: subprocess.Popen, videos: Path, dataset_writer: subprocess.Popen
     from office_person_detection_vit_torch.ops.zones import ZoneClassifier
 
     # ---- 1. device and build
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
+    smi = card_line()
     log(f"[1] card: {smi}")
     t0 = time.perf_counter()
     ka.load_library()
@@ -1581,7 +1740,7 @@ def run(writer: subprocess.Popen, videos: Path, dataset_writer: subprocess.Popen
     d_logits = (got["logits"].cpu() - want["logits"]).abs()
     d_boxes = (got["boxes"].cpu() - want["boxes"]).abs().max().item()
     logits_ok = bool((d_logits <= LOGITS_ATOL + LOGITS_RTOL * want["logits"].abs()).all())
-    check(f32_counts == {"attention_whole_kv": 6, "attention_flash": 12},
+    check(f32_counts == launches(whole_kv=6, flash=12),
           f"float32 forward launched {f32_counts}, expected 6 K1 + 12 K2")
     check(logits_ok and d_boxes <= BOXES_ATOL,
           f"float32 card vs CPU: max|dlogits| {d_logits.max().item():.2e}, max|dboxes| {d_boxes:.2e}")
@@ -1625,7 +1784,7 @@ def run(writer: subprocess.Popen, videos: Path, dataset_writer: subprocess.Popen
     ka.reset_launch_counts()
     dets = small.detect(frame)
     small_counts = dict(ka.launch_counts)
-    check(small_counts == {"attention_whole_kv": 9, "attention_flash": 0},
+    check(small_counts == launches(whole_kv=9),
           f"DETR-small detect launched {small_counts}, expected 9 K1 (3 encoder, 3+3 decoder)")
     check(len(dets) >= 1, "the small checkpoint detected nobody")
     want_c = (px + 25.0, py - 26 + 156 / 2)  # GT box (x, y - 26, 50, 156)
@@ -1708,20 +1867,37 @@ def run(writer: subprocess.Popen, videos: Path, dataset_writer: subprocess.Popen
                                       "shape", "dtype", "instruction")}}
         for name, (key, counts, path) in headline.items()
     ] + [k3_row]
-    # B.4: K1/K2 forward, recompute backward; its row at the full-width
-    # encoder shape of training, its launches (forwards) on phase 10b's path.
+    # B.4: K1/K2 forward with the log-sum-exp, the backward kernel pair; its
+    # row at the full-width encoder shape of training, its launches
+    # (forwards) on phase 10b's path. The pair has a row of its own beside
+    # it: its launches on the same path, its time alone, the plain version of
+    # the pair and SDPA's backward alone.
     enc = train["b4"][B4_CASES[0][0]]
+    train_path = "DETR-R50 bf16 training at 768x1344, batch 8, 6 timed steps, phase 10b"
     kernels.append({
         "name": "attention_diff", "route": "cuda",
-        "source": "office_person_detection_vit_torch/ops/attention.py",
+        "source": "office_person_detection_vit_torch/csrc/attention.cu",
+        "function": "office_person_detection_vit_torch/ops/attention.py KernelAttention",
         "replaces": "office_person_detection_vit_tpu/ops/attention.py:306",
-        "launches": train["full"]["counts"]["attention_diff"],
-        "launches_on": "DETR-R50 bf16 training at 768x1344, batch 8, 6 timed steps, phase 10b",
+        "launches": train["full"]["counts"]["attention_diff"], "launches_on": train_path,
         "launches_other_paths": {"phase 10c DETR-small training step (card)": train["small"]["attention_whole_kv"],
                                  "phase 10d main --fine-tune, 2 steps": train["handoff"]["attention_diff"]},
         **{k: enc[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-                               "forward_ms", "backward_ms", "shape", "dtype")},
-        "instruction": "mma.sync.m16n8k16 (forward); the backward is the plain version's autograd",
+                               "forward_ms", "backward_ms", "backward_bound_ms", "backward_bound_by",
+                               "shape", "dtype")},
+        "backward_library_ms": enc["library_backward_ms"],
+        "instruction": "mma.sync.m16n8k16 (bf16: the K2 forward and the backward pair); FFMA (float32)",
+    })
+    kernels.append({
+        "name": "attention_backward", "route": "cuda", "source": "office_person_detection_vit_torch/csrc/attention.cu",
+        "replaces": "office_person_detection_vit_tpu/ops/attention.py:322",
+        "launches": train["full"]["counts"]["attention_backward"], "launches_on": train_path,
+        "launches_other_paths": {"phase 10c DETR-small training step (card)": train["small"]["attention_backward"],
+                                 "phase 10d main --fine-tune, 2 steps": train["handoff"]["attention_backward"]},
+        "max_abs_err": enc["grad_err_vs_float64_rel"], "ms": enc["pair_ms"], "plain_ms": enc["plain_backward_ms"],
+        "bound_ms": enc["backward_bound_ms"], "bound_by": enc["backward_bound_by"],
+        "library_ms": enc["library_backward_ms"], "shape": enc["shape"], "dtype": enc["dtype"],
+        "instruction": "mma.sync.m16n8k16 (bf16); FFMA (float32)",
     })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

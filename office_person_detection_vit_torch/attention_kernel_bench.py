@@ -65,6 +65,16 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 _cycles_per_ms: float | None = None
 
 
+def relative_errors(got, want) -> tuple[float, float]:
+    """B.4's gradients against a reference, over tensors paired in order:
+    (max |got - want| / max(1, |want|), max |got - want| / max |want|). Its
+    bars hold both: the first alone is an absolute bar wherever |want| < 1,
+    as every gradient is at DETR-R50's training encoder."""
+    pairs = [((a.double() - b.double()).abs(), b.double().abs()) for a, b in zip(got, want)]
+    return (max((err / ref.clamp(min=1.0)).max().item() for err, ref in pairs),
+            max((err.max() / ref.max().clamp(min=1e-30)).item() for err, ref in pairs))
+
+
 def ragged_mask(B: int, Lk: int) -> torch.Tensor:
     """Key padding as a letterboxed batch gives it: entry b keeps its first
     Lk - (b + 1) Lk / 4B keys (True = valid)."""
@@ -180,10 +190,10 @@ def describe(row: dict) -> str:
             f"({row['bound_by']}, {100 * row['bound_ms'] / row['ms']:.1f}% of it)")
 
 
-def load_kernels(root: Path, module: str = "attention"):
-    """``kernels/<module>.py`` of the port checkout at ``root``, imported as
-    a package of its own name, so that it and this checkout's can be loaded
-    side by side."""
+def load_port_module(root: Path, name: str):
+    """Module ``name`` (dotted, inside the package) of the port checkout at
+    ``root``, imported under a package name of its own, so that it and this
+    checkout's can be loaded side by side."""
     pkg_dir = (Path(root) / "office_person_detection_vit_torch").resolve()
     alias = f"_port_{abs(hash(str(pkg_dir))):x}"
     if alias not in sys.modules:
@@ -192,7 +202,13 @@ def load_kernels(root: Path, module: str = "attention"):
         pkg = importlib.util.module_from_spec(spec)
         sys.modules[alias] = pkg
         spec.loader.exec_module(pkg)
-    return importlib.import_module(f"{alias}.kernels.{module}")
+    return importlib.import_module(f"{alias}.{name}")
+
+
+def load_kernels(root: Path, module: str = "attention"):
+    """``kernels/<module>.py`` of the port checkout at ``root`` (see
+    :func:`load_port_module`)."""
+    return load_port_module(root, f"kernels.{module}")
 
 
 def main(argv=None) -> dict:

@@ -1,17 +1,23 @@
 // Scaled-dot-product attention with a key padding mask, hand-written for
-// Hopper (sm_90a). Two kernels with one contract:
+// Hopper (sm_90a). Two forward kernels with one contract:
 //
 //   out[b,h,i,:] = sum_j round_T(p[i,j]) * v[b,h,j,:],
 //   p[i,:] = softmax over the valid keys j of (q[b,h,i,:] . k[b,h,j,:]) / sqrt(D)
 //
 // with q/k/v laid out (B, H, L, D) contiguous, T = float or bfloat16, scores,
-// softmax and accumulation in float32, the output in T.
+// softmax and accumulation in float32, the output in T. Given a pointer, K2
+// (both types) and K1's float32 body also write lse[b,h,i], the float32
+// natural log-sum-exp of row i's scaled, biased scores, for the backward; a
+// null pointer writes nothing and changes nothing else. The backward pair is
+// at the end of this file.
 //
 // Replaces
 //   attention_whole_kv  <- office_person_detection_vit_tpu/ops/attention.py
 //                          attention_pallas / _fused_attn_kernel (K1)
 //   attention_flash     <- office_person_detection_vit_tpu/ops/attention.py
 //                          attention_pallas_flash / _flash_attn_kernel (K2)
+//   attention_backward  <- office_person_detection_vit_tpu/ops/attention.py
+//                          _attention_pallas_diff's backward, _attn_bwd (B.4)
 // Each rounds where its Pallas kernel does: K1 the normalized probabilities
 // (probs.astype(v.dtype) before P.V), K2 the unnormalized p = exp(s - running
 // max), with the sum divided out at the end.
@@ -74,6 +80,7 @@
 #include <stdint.h>
 
 #include <cmath>
+#include <type_traits>
 
 #include "sm90.cuh"
 
@@ -81,6 +88,7 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 __device__ __forceinline__ int any_valid_key(const uint8_t* mask_b, int Lk) {
   int any = 0;
@@ -204,7 +212,8 @@ template <int D>
 __global__ void __launch_bounds__(kThreads)
 attention_whole_kv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                           const float* __restrict__ v, const uint8_t* __restrict__ mask,
-                          float* __restrict__ out, int H, int Lq, int Lk, float scale_log2) {
+                          float* __restrict__ out, float* __restrict__ lse, int H, int Lq, int Lk,
+                          float scale_log2) {
   extern __shared__ __align__(16) uint8_t smem[];
   float* sk = reinterpret_cast<float*>(smem);
   float* sv = sk + (size_t)Lk * D;
@@ -251,6 +260,7 @@ attention_whole_kv_kernel(const float* __restrict__ q, const float* __restrict__
   float unused;
   merge_stats(m, l, unused);
   const float inv_l = live ? 1.f / l : 0.f;
+  if (lse != nullptr && live && split == 0) lse[(size_t)bh * Lq + q0 + row] = (m + log2f(l)) * kLn2;
 
   // Pass 2: normalized probabilities times V.
   float acc[D];
@@ -271,7 +281,8 @@ template <int D>
 __global__ void __launch_bounds__(kThreads)
 attention_flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
                        const float* __restrict__ v, const uint8_t* __restrict__ mask,
-                       float* __restrict__ out, int H, int Lq, int Lk, float scale_log2) {
+                       float* __restrict__ out, float* __restrict__ lse, int H, int Lq, int Lk,
+                       float scale_log2) {
   __shared__ __align__(16) float sk[kFlashKeys * D];
   __shared__ __align__(16) float sv[kFlashKeys * D];
   __shared__ uint8_t smask[kFlashKeys];
@@ -332,6 +343,7 @@ attention_flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   float self_scale;
   merge_stats(m, l, self_scale);
+  if (lse != nullptr && live && split == 0) lse[(size_t)bh * Lq + q0 + row] = (m + log2f(l)) * kLn2;
 #pragma unroll
   for (int d = 0; d < D; ++d) acc[d] *= self_scale;
   write_row<D>(acc, live ? 1.f / l : 0.f, out + ((size_t)bh * Lq + q0 + row) * D, split, live);
@@ -395,29 +407,38 @@ __device__ __forceinline__ void load_q(const bf16* q_bh, int row0, int Lq,
   }
 }
 
-// s = (Q K^T) * scale + bias for the 64 keys from key0 of the swizzled rows at
-// sk. s[n] is the m16n8 accumulator of keys key0 + 8n .. + 7: s[n][0..1] row
-// g, keys 2t, 2t+1; s[n][2..3] row g + 8.
+// s = A B^T for the warp's 16 rows of A (fragments a, D deep) and the 64
+// rows from row0 of the swizzled rows at sb. s[n] is the m16n8 accumulator
+// of B rows row0 + 8n .. + 7: s[n][0..1] A row g, B rows 2t, 2t+1; s[n][2..3]
+// A row g + 8.
 template <int D>
-__device__ __forceinline__ void score_tile(const uint32_t (&qa)[D / 16][4], uint32_t sk,
-                                           const float* bias, int key0, float scale,
-                                           float (&s)[8][4]) {
+__device__ __forceinline__ void product_tile(const uint32_t (&a)[D / 16][4], uint32_t sb, int row0,
+                                             float (&s)[8][4]) {
   const int lane = threadIdx.x % 32;
 #pragma unroll
   for (int n = 0; n < 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-  // 8 key groups x D/8 chunks = D 8x8 matrices, four per ldmatrix.
+  // 8 row groups x D/8 chunks = D 8x8 matrices, four per ldmatrix.
 #pragma unroll
   for (int c = 0; c < D / 4; ++c) {
     const int m = 4 * c + lane / 8;
     uint32_t b[4];
-    ldsm_x4(sk + Rows<D>::offset(key0 + 8 * (m / (D / 8)) + lane % 8, m % (D / 8)), b);
+    ldsm_x4(sb + Rows<D>::offset(row0 + 8 * (m / (D / 8)) + lane % 8, m % (D / 8)), b);
 #pragma unroll
     for (int i = 0; i < 4; i += 2) {
-      const int mi = 4 * c + i;  // chunks 2kk and 2kk+1 of one key group
-      mma_bf16(s[mi / (D / 8)], qa[(mi % (D / 8)) / 2], b[i], b[i + 1]);
+      const int mi = 4 * c + i;  // chunks 2kk and 2kk+1 of one row group
+      mma_bf16(s[mi / (D / 8)], a[(mi % (D / 8)) / 2], b[i], b[i + 1]);
     }
   }
-  const int t = lane % 4;
+}
+
+// s = (Q K^T) * scale + bias for the 64 keys from key0 of the swizzled rows at
+// sk, in product_tile's layout (B rows = keys).
+template <int D>
+__device__ __forceinline__ void score_tile(const uint32_t (&qa)[D / 16][4], uint32_t sk,
+                                           const float* bias, int key0, float scale,
+                                           float (&s)[8][4]) {
+  product_tile<D>(qa, sk, key0, s);
+  const int t = threadIdx.x % 4;
 #pragma unroll
   for (int n = 0; n < 8; ++n) {
     const float2 bb = *reinterpret_cast<const float2*>(bias + key0 + 8 * n + 2 * t);
@@ -593,7 +614,8 @@ template <int D>
 __global__ void __launch_bounds__(kFlashWarps * 32, 4)
 attention_flash_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, const uint8_t* __restrict__ mask,
-                    bf16* __restrict__ out, int H, int Lq, int Lk, float scale_log2) {
+                    bf16* __restrict__ out, float* __restrict__ lse, int H, int Lq, int Lk,
+                    float scale_log2) {
   __shared__ __align__(128) bf16 ring_k[kFlashStages][kTileKeys * D];
   __shared__ __align__(128) bf16 ring_v[kFlashStages][kTileKeys * D];
   __shared__ __align__(16) float ring_bias[kFlashStages][kTileKeys];
@@ -671,8 +693,361 @@ attention_flash_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
   cp_async_wait<0>();
   if (!live) return;
-  const float inv[2] = {1.f / quad_sum(l[0]), 1.f / quad_sum(l[1])};
+  const float sum[2] = {quad_sum(l[0]), quad_sum(l[1])};
+  const float inv[2] = {1.f / sum[0], 1.f / sum[1]};
   store_o<D>(o, inv, out + (size_t)bh * Lq * D, row0, Lq);
+  if (lse != nullptr && tid % 4 == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + (tid % 32) / 4 + 8 * r;
+      if (row < Lq) lse[(size_t)bh * Lq + row] = (m[r] + log2f(sum[r])) * kLn2;
+    }
+  }
+}
+
+// ================================================== backward (B.4), both types
+// The vector-Jacobian product of the plain version (attention_reference) at
+// (q, k, v) for the output gradient g, as FlashAttention-2 computes it: the
+// probabilities are recomputed tile by tile from the forward's log-sum-exp,
+// so no (Lq, Lk) array exists:
+//
+//   P = exp(S - lse), D_i = sum_d g[i,d] out[i,d], dP = g V^T,
+//   dS = P * (dP - D), dQ = scale dS K, dK = scale dS^T Q, dV = P^T g,
+//
+// with S the forward's scaled, biased scores and scale = 1/sqrt(D). An entry
+// whose keys are all masked has S = 0 on every key (the forward's zero score
+// scale) but keeps the true scale in dQ and dK: the plain version's autograd
+// passes the score gradient through its -1e30 bias, so they are not zero.
+//
+// Two launches, deterministic (no atomics). The dQ kernel: one block per 64
+// query rows of a (batch*head), walking K/V tiles through K2's ring; first it
+// writes, for its rows, lse in base 2 (+inf past Lq, so that padded rows get
+// P = 0) and D to a float32 scratch of Lq rounded up to 64 rows. Then the
+// dK/dV kernel: one block per 64 keys, which keeps its K, V and key bias and
+// walks 64-row tiles of Q, g and the scratch through the same kind of ring.
+//
+// What bounds it on an H100: seven products of 2 Lq Lk D flops over the
+// valid keys (QK^T and gV^T in both kernels, dS K, P^T g, dS^T Q), 10 flops a
+// query-key-dim counting the recomputed two once, on the tensor cores in
+// bf16, against the bytes of q, k, v, out, g, dq, dk, dv: operations. At the
+// training encoder (8,8,1008,1008,32) 29 GFLOP and 130 M exponentials (P in
+// both kernels) against 33 MB.
+//
+// bf16 (tensor cores): K2's body. mma.sync.m16n8k16 with the A operand held
+// in registers (Q and g in the dQ kernel, K and V in the dK/dV kernel), B
+// from swizzled rows by ldmatrix, and a product's float32 accumulator
+// rounded to bf16 and repacked in registers as the A operand of the next (dS
+// for dS K; P and dS for P^T g and dS^T Q). The dK/dV kernel computes
+// S^T = K Q^T, so that P^T comes out in the layout pack_p turns into an A
+// operand. float32 keeps a CUDA-core body, four threads a row as the
+// forwards' float32 bodies.
+
+static_assert(kRows == kFlashWarps * kWarpRows && kRows == kTileKeys && kRows == kFlashKeys,
+              "the backward's row and key tiles are 64 in both types");
+
+// The bf16 pair of a fragment register as floats (lower column in .x).
+__device__ __forceinline__ float2 unpack_bf16(uint32_t x) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&x));
+}
+
+// ------------------------------------------------------------------ dQ, bf16
+template <int D>
+__global__ void __launch_bounds__(kFlashWarps * 32, 3)
+attention_bwd_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v, const uint8_t* __restrict__ mask,
+                     const bf16* __restrict__ out, const float* __restrict__ lse,
+                     const bf16* __restrict__ g, bf16* __restrict__ dq,
+                     float* __restrict__ lse2_pad, float* __restrict__ dsum_pad, int H, int Lq,
+                     int Lk, int Lq_pad, float scale_log2, float scale) {
+  __shared__ __align__(128) bf16 ring_k[kFlashStages][kTileKeys * D];
+  __shared__ __align__(128) bf16 ring_v[kFlashStages][kTileKeys * D];
+  __shared__ __align__(16) float ring_bias[kFlashStages][kTileKeys];
+
+  const int bh = blockIdx.x;
+  const uint8_t* mask_b = mask ? mask + (size_t)(bh / H) * Lk : nullptr;
+  const bf16* k_bh = k + (size_t)bh * Lk * D;
+  const bf16* v_bh = v + (size_t)bh * Lk * D;
+  const int tiles = (Lk + kTileKeys - 1) / kTileKeys;
+  const bool all_masked = !any_valid_key(mask_b, Lk);
+  const float scale_p = all_masked ? 0.f : scale_log2;
+  const int tid = threadIdx.x;
+
+  auto issue = [&](int t) {  // as K2
+    if (t < tiles) {
+      const int k0 = t * kTileKeys, n = min(kTileKeys, Lk - k0);
+      stage_async<D>(smem_u32(ring_k[t % kFlashStages]), k_bh + (size_t)k0 * D, n, kTileKeys);
+      stage_async<D>(smem_u32(ring_v[t % kFlashStages]), v_bh + (size_t)k0 * D, n, kTileKeys);
+    }
+    cp_async_commit();
+  };
+  for (int t = 0; t < kFlashStages - 1; ++t) {
+    issue(t);
+    if (tid < kTileKeys) ring_bias[t][tid] = key_bias(mask_b, t * kTileKeys + tid, Lk, all_masked);
+  }
+
+  const int row0 = blockIdx.y * kFlashWarps * kWarpRows + tid / 32 * kWarpRows;
+  const bool live = row0 < Lq;
+  const size_t q_off = (size_t)bh * Lq * D;
+  uint32_t qa[D / 16][4], ga[D / 16][4];
+  load_q<D>(q + q_off, row0, Lq, qa);
+  load_q<D>(g + q_off, row0, Lq, ga);
+
+  // D and lse in base 2 of the warp's rows g and g + 8, into registers and
+  // the scratch. Rows past Lq have g = 0, so D = 0, and lse2 = +inf.
+  const int quad_row = (tid % 32) / 4;
+  float dsum[2], lse2[2];
+  {
+    uint32_t oa[D / 16][4];
+    load_q<D>(out + q_off, row0, Lq, oa);
+    float part[2] = {0.f, 0.f};
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {  // registers 0, 2 hold row g; 1, 3 row g + 8
+        const float2 a = unpack_bf16(ga[kk][j]), b = unpack_bf16(oa[kk][j]);
+        part[j % 2] = fmaf(a.y, b.y, fmaf(a.x, b.x, part[j % 2]));
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + quad_row + 8 * r;
+      dsum[r] = quad_sum(part[r]);
+      lse2[r] = row < Lq ? lse[(size_t)bh * Lq + row] * kLog2e : INFINITY;
+      if (tid % 4 == 0) {
+        lse2_pad[(size_t)bh * Lq_pad + row] = lse2[r];
+        dsum_pad[(size_t)bh * Lq_pad + row] = dsum[r];
+      }
+    }
+  }
+
+  float o[D / 8][4] = {};
+  for (int t = 0; t < tiles; ++t) {
+    cp_async_wait<kFlashStages - 2>();  // tile t has landed
+    __syncthreads();                    // ... for every thread; tile t - 1's slot is free
+    const int next = t + kFlashStages - 1;
+    issue(next);
+    const float next_bias =
+        tid < kTileKeys ? key_bias(mask_b, next * kTileKeys + tid, Lk, all_masked) : 0.f;
+
+    if (live) {
+      const int slot = t % kFlashStages;
+      float s[8][4], dp[8][4];
+      score_tile<D>(qa, smem_u32(ring_k[slot]), ring_bias[slot], 0, scale_p, s);
+      product_tile<D>(ga, smem_u32(ring_v[slot]), 0, dp);
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = ex2(s[n][e] - lse2[e / 2]) * (dp[n][e] - dsum[e / 2]);
+      uint32_t da[4][4];
+      pack_p(s, da);
+      pv_tile<D>(da, smem_u32(ring_k[slot]), 0, o);  // dQ += dS K
+    }
+    if (tid < kTileKeys) ring_bias[next % kFlashStages][tid] = next_bias;
+  }
+  cp_async_wait<0>();
+  if (!live) return;
+  const float sc[2] = {scale, scale};
+  store_o<D>(o, sc, dq + q_off, row0, Lq);
+}
+
+// ---------------------------------------------------------------- dK/dV, bf16
+template <int D>
+__global__ void __launch_bounds__(kFlashWarps * 32, 3)
+attention_bwd_dkdv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                       const bf16* __restrict__ v, const uint8_t* __restrict__ mask,
+                       const bf16* __restrict__ g, bf16* __restrict__ dk, bf16* __restrict__ dv,
+                       const float* __restrict__ lse2_pad, const float* __restrict__ dsum_pad,
+                       int H, int Lq, int Lk, int Lq_pad, float scale_log2, float scale) {
+  __shared__ __align__(128) bf16 ring_q[kFlashStages][kTileKeys * D];
+  __shared__ __align__(128) bf16 ring_g[kFlashStages][kTileKeys * D];
+  __shared__ __align__(16) float ring_lse2[kFlashStages][kTileKeys];
+  __shared__ __align__(16) float ring_dsum[kFlashStages][kTileKeys];
+
+  const int bh = blockIdx.x;
+  const uint8_t* mask_b = mask ? mask + (size_t)(bh / H) * Lk : nullptr;
+  const bool all_masked = !any_valid_key(mask_b, Lk);
+  const float scale_p = all_masked ? 0.f : scale_log2;
+  const int tid = threadIdx.x;
+  const size_t q_off = (size_t)bh * Lq * D, pad_off = (size_t)bh * Lq_pad;
+  const int tiles = Lq_pad / kTileKeys;
+
+  // Start query tile t's copies: Q and g rows (zero past Lq), and its lse2
+  // and D, 16 chunks of 16 bytes each (the scratch is padded to the tile).
+  auto issue = [&](int t) {
+    if (t < tiles) {
+      const int r0 = t * kTileKeys, n = min(kTileKeys, Lq - r0), slot = t % kFlashStages;
+      stage_async<D>(smem_u32(ring_q[slot]), q + q_off + (size_t)r0 * D, n, kTileKeys);
+      stage_async<D>(smem_u32(ring_g[slot]), g + q_off + (size_t)r0 * D, n, kTileKeys);
+      constexpr int kChunks = kTileKeys / 4;
+      if (tid < 2 * kChunks) {
+        const int c = 4 * (tid % kChunks);
+        const bool is_lse = tid < kChunks;
+        cp_async16(smem_u32((is_lse ? ring_lse2[slot] : ring_dsum[slot]) + c),
+                   (is_lse ? lse2_pad : dsum_pad) + pad_off + r0 + c, true);
+      }
+    }
+    cp_async_commit();
+  };
+  for (int t = 0; t < kFlashStages - 1; ++t) issue(t);
+
+  const int key0 = blockIdx.y * kFlashWarps * kWarpRows + tid / 32 * kWarpRows;
+  const bool live = key0 < Lk;
+  const size_t kv_off = (size_t)bh * Lk * D;
+  uint32_t ka[D / 16][4], va[D / 16][4];
+  load_q<D>(k + kv_off, key0, Lk, ka);
+  load_q<D>(v + kv_off, key0, Lk, va);
+  const int quad_row = (tid % 32) / 4, t4 = tid % 4;
+  const float kbias[2] = {key_bias(mask_b, key0 + quad_row, Lk, all_masked),
+                          key_bias(mask_b, key0 + quad_row + 8, Lk, all_masked)};
+
+  float dk_acc[D / 8][4] = {}, dv_acc[D / 8][4] = {};
+  for (int t = 0; t < tiles; ++t) {
+    cp_async_wait<kFlashStages - 2>();  // tile t has landed
+    __syncthreads();                    // ... for every thread; tile t - 1's slot is free
+    issue(t + kFlashStages - 1);
+    if (live) {
+      const int slot = t % kFlashStages;
+      const uint32_t sq = smem_u32(ring_q[slot]), sg = smem_u32(ring_g[slot]);
+      float p[8][4], ds[8][4];
+      product_tile<D>(ka, sq, 0, p);   // S^T (unscaled): the warp's keys x the tile's queries
+      product_tile<D>(va, sg, 0, ds);  // dP^T = V g^T
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        const float2 l2 = *reinterpret_cast<const float2*>(ring_lse2[slot] + 8 * n + 2 * t4);
+        const float2 dd = *reinterpret_cast<const float2*>(ring_dsum[slot] + 8 * n + 2 * t4);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {  // e % 2: query 2 t4 + e % 2; e / 2: key row g or g + 8
+          p[n][e] = ex2(fmaf(p[n][e], scale_p, kbias[e / 2]) - (e % 2 ? l2.y : l2.x));
+          ds[n][e] = p[n][e] * (ds[n][e] - (e % 2 ? dd.y : dd.x));
+        }
+      }
+      uint32_t pa[4][4];
+      pack_p(p, pa);
+      pv_tile<D>(pa, sg, 0, dv_acc);  // dV += P^T g
+      pack_p(ds, pa);
+      pv_tile<D>(pa, sq, 0, dk_acc);  // dK += dS^T Q
+    }
+  }
+  cp_async_wait<0>();
+  if (!live) return;
+  const float sc[2] = {scale, scale}, one[2] = {1.f, 1.f};
+  store_o<D>(dk_acc, sc, dk + kv_off, key0, Lk);
+  store_o<D>(dv_acc, one, dv + kv_off, key0, Lk);
+}
+
+// --------------------------------------------------------------- dQ, float32
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+attention_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                        const float* __restrict__ v, const uint8_t* __restrict__ mask,
+                        const float* __restrict__ out, const float* __restrict__ lse,
+                        const float* __restrict__ g, float* __restrict__ dq,
+                        float* __restrict__ lse2_pad, float* __restrict__ dsum_pad, int H, int Lq,
+                        int Lk, int Lq_pad, float scale_log2, float scale) {
+  __shared__ __align__(16) float sk[kFlashKeys * D];
+  __shared__ __align__(16) float sv[kFlashKeys * D];
+  __shared__ uint8_t smask[kFlashKeys];
+
+  const int bh = blockIdx.x;
+  const int q0 = blockIdx.y * kRows;
+  const int nq = min(kRows, Lq - q0);
+  const size_t kv_off = (size_t)bh * Lk * D;
+  const uint8_t* mask_b = mask ? mask + (size_t)(bh / H) * Lk : nullptr;
+  const bool all_masked = !any_valid_key(mask_b, Lk);
+
+  const int row = threadIdx.x / kSplit;
+  const int split = threadIdx.x % kSplit;
+  const bool live = row < nq;
+  const size_t q_row = (size_t)bh * Lq + q0 + (live ? row : 0);
+  float qf[D], gf[D];
+  load_query<D>(q + q_row * D, qf);
+  load_query<D>(g + q_row * D, gf);
+  float dsum = 0.f;
+  {
+    float of[D];
+    load_query<D>(out + q_row * D, of);
+#pragma unroll
+    for (int d = 0; d < D; ++d) dsum = fmaf(gf[d], of[d], dsum);
+  }
+  if (!live) dsum = 0.f;
+  const float lse2 = live ? lse[q_row] * kLog2e : INFINITY;
+  if (split == 0) {
+    lse2_pad[(size_t)bh * Lq_pad + q0 + row] = lse2;
+    dsum_pad[(size_t)bh * Lq_pad + q0 + row] = dsum;
+  }
+
+  float acc[D];
+#pragma unroll
+  for (int d = 0; d < D; ++d) acc[d] = 0.f;
+  for (int k0 = 0; k0 < Lk; k0 += kFlashKeys) {
+    const int nk = min(kFlashKeys, Lk - k0);
+    __syncthreads();  // the previous tile is consumed
+    stage_rows<D>(sk, k + kv_off + (size_t)k0 * D, nk);
+    stage_rows<D>(sv, v + kv_off + (size_t)k0 * D, nk);
+    stage_mask(smask, mask_b, k0, nk);
+    __syncthreads();
+    if (!live) continue;
+    for (int j = split; j < nk; j += kSplit) {
+      if (!all_masked && !smask[j]) continue;
+      const float s = all_masked ? 0.f : dot_row<D>(sk, j, qf) * scale_log2;
+      const float ds = exp2f(s - lse2) * (dot_row<D>(sv, j, gf) - dsum);
+      axpy_row<D>(sk, j, ds, acc);
+    }
+  }
+  write_row<D>(acc, scale, dq + ((size_t)bh * Lq + q0 + row) * D, split, live);
+}
+
+// ------------------------------------------------------------ dK/dV, float32
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+attention_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                          const float* __restrict__ v, const uint8_t* __restrict__ mask,
+                          const float* __restrict__ g, float* __restrict__ dk,
+                          float* __restrict__ dv, const float* __restrict__ lse2_pad,
+                          const float* __restrict__ dsum_pad, int H, int Lq, int Lk, int Lq_pad,
+                          float scale_log2, float scale) {
+  __shared__ __align__(16) float sq[kRows * D];
+  __shared__ __align__(16) float sg[kRows * D];
+  __shared__ float slse2[kRows], sdsum[kRows];
+
+  const int bh = blockIdx.x;
+  const int k0 = blockIdx.y * kFlashKeys;
+  const int nk = min(kFlashKeys, Lk - k0);
+  const uint8_t* mask_b = mask ? mask + (size_t)(bh / H) * Lk : nullptr;
+  const bool all_masked = !any_valid_key(mask_b, Lk);
+
+  const int row = threadIdx.x / kSplit;
+  const int split = threadIdx.x % kSplit;
+  const bool live = row < nk;
+  const bool valid = live && (all_masked || mask_b == nullptr || mask_b[k0 + row]);
+  const size_t k_row = (size_t)bh * Lk + k0 + (live ? row : 0);
+  float kf[D], vf[D];
+  load_query<D>(k + k_row * D, kf);
+  load_query<D>(v + k_row * D, vf);
+
+  float dk_acc[D], dv_acc[D];
+#pragma unroll
+  for (int d = 0; d < D; ++d) dk_acc[d] = dv_acc[d] = 0.f;
+  for (int r0 = 0; r0 < Lq; r0 += kRows) {
+    const int nq = min(kRows, Lq - r0);
+    __syncthreads();  // the previous tile is consumed
+    stage_rows<D>(sq, q + ((size_t)bh * Lq + r0) * D, nq);
+    stage_rows<D>(sg, g + ((size_t)bh * Lq + r0) * D, nq);
+    if (threadIdx.x < kRows) {
+      slse2[threadIdx.x] = lse2_pad[(size_t)bh * Lq_pad + r0 + threadIdx.x];
+      sdsum[threadIdx.x] = dsum_pad[(size_t)bh * Lq_pad + r0 + threadIdx.x];
+    }
+    __syncthreads();
+    if (!valid) continue;  // a masked key gets dK = dV = 0
+    for (int i = split; i < nq; i += kSplit) {
+      const float s = all_masked ? 0.f : dot_row<D>(sq, i, kf) * scale_log2;
+      const float p = exp2f(s - slse2[i]);
+      axpy_row<D>(sg, i, p, dv_acc);
+      axpy_row<D>(sq, i, p * (dot_row<D>(sg, i, vf) - sdsum[i]), dk_acc);
+    }
+  }
+  const size_t out_row = (size_t)bh * Lk + k0 + row;
+  write_row<D>(dk_acc, scale, dk + out_row * D, split, live);
+  write_row<D>(dv_acc, 1.f, dv + out_row * D, split, live);
 }
 
 // ===================================================================== launch
@@ -682,14 +1057,15 @@ size_t whole_kv_f32_smem_bytes(int Lk, int D) {
 
 // K1's grid: `blocks` query-row blocks per (batch*head) of `threads`
 // threads each, as kernels/attention.py::whole_kv_plan gives it. K2's grid
-// has no choice in it and is set here.
+// has no choice in it and is set here. lse may be null; K1's bf16 body
+// writes none and refuses a pointer.
 template <int D>
 cudaError_t launch_f32(bool flash, const float* q, const float* k, const float* v,
-                       const uint8_t* mask, float* out, int B, int H, int Lq, int Lk,
+                       const uint8_t* mask, float* out, float* lse, int B, int H, int Lq, int Lk,
                        int blocks, int threads, float scale_log2, cudaStream_t stream) {
   if (flash) {
     const dim3 grid(B * H, (Lq + kRows - 1) / kRows);
-    attention_flash_kernel<D><<<grid, kThreads, 0, stream>>>(q, k, v, mask, out, H, Lq, Lk,
+    attention_flash_kernel<D><<<grid, kThreads, 0, stream>>>(q, k, v, mask, out, lse, H, Lq, Lk,
                                                              scale_log2);
   } else {
     if (threads != kThreads || blocks < 1 || blocks * kRows < Lq) return cudaErrorInvalidValue;
@@ -698,25 +1074,25 @@ cudaError_t launch_f32(bool flash, const float* q, const float* k, const float* 
     cudaError_t err = cudaFuncSetAttribute(attention_whole_kv_kernel<D>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
-    attention_whole_kv_kernel<D><<<grid, kThreads, smem, stream>>>(q, k, v, mask, out, H, Lq, Lk,
-                                                                   scale_log2);
+    attention_whole_kv_kernel<D><<<grid, kThreads, smem, stream>>>(q, k, v, mask, out, lse, H, Lq,
+                                                                   Lk, scale_log2);
   }
   return cudaGetLastError();
 }
 
 template <int D>
 cudaError_t launch_bf16(bool flash, const bf16* q, const bf16* k, const bf16* v,
-                        const uint8_t* mask, bf16* out, int B, int H, int Lq, int Lk,
+                        const uint8_t* mask, bf16* out, float* lse, int B, int H, int Lq, int Lk,
                         int blocks, int threads, float scale_log2, cudaStream_t stream) {
   if (flash) {
     const int warp_tiles = (Lq + kWarpRows - 1) / kWarpRows;
     const dim3 grid(B * H, (warp_tiles + kFlashWarps - 1) / kFlashWarps);
-    attention_flash_mma<D><<<grid, kFlashWarps * 32, 0, stream>>>(q, k, v, mask, out, H, Lq, Lk,
-                                                                  scale_log2);
+    attention_flash_mma<D><<<grid, kFlashWarps * 32, 0, stream>>>(q, k, v, mask, out, lse, H, Lq,
+                                                                  Lk, scale_log2);
   } else {
     const int warps = threads / 32;
-    if (threads % 32 != 0 || warps < 1 || warps > kWholeKvMaxWarps || blocks < 1 ||
-        blocks * warps * kWarpRows < Lq)
+    if (lse != nullptr || threads % 32 != 0 || warps < 1 || warps > kWholeKvMaxWarps ||
+        blocks < 1 || blocks * warps * kWarpRows < Lq)
       return cudaErrorInvalidValue;
     const size_t smem = whole_kv_bf16_smem_bytes<D>(Lk);
     cudaError_t err = cudaFuncSetAttribute(attention_whole_kv_mma<D>,
@@ -729,30 +1105,80 @@ cudaError_t launch_bf16(bool flash, const bf16* q, const bf16* k, const bf16* v,
 }
 
 int dispatch(bool flash, int dtype, const void* q, const void* k, const void* v,
-             const void* mask, void* out, int B, int H, int Lq, int Lk, int D, int blocks,
-             int threads, void* stream) {
+             const void* mask, void* out, void* lse, int B, int H, int Lq, int Lk, int D,
+             int blocks, int threads, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float scale_log2 = kLog2e / std::sqrt((float)D);
   const uint8_t* m = static_cast<const uint8_t*>(mask);
+  float* l = static_cast<float*>(lse);
   cudaError_t err = cudaErrorInvalidValue;
   if (dtype == 0) {
     const float *fq = static_cast<const float*>(q), *fk = static_cast<const float*>(k),
                 *fv = static_cast<const float*>(v);
     float* fo = static_cast<float*>(out);
     if (D == 16)
-      err = launch_f32<16>(flash, fq, fk, fv, m, fo, B, H, Lq, Lk, blocks, threads, scale_log2, s);
+      err = launch_f32<16>(flash, fq, fk, fv, m, fo, l, B, H, Lq, Lk, blocks, threads, scale_log2, s);
     if (D == 32)
-      err = launch_f32<32>(flash, fq, fk, fv, m, fo, B, H, Lq, Lk, blocks, threads, scale_log2, s);
+      err = launch_f32<32>(flash, fq, fk, fv, m, fo, l, B, H, Lq, Lk, blocks, threads, scale_log2, s);
   } else if (dtype == 1) {
     const bf16 *bq = static_cast<const bf16*>(q), *bk = static_cast<const bf16*>(k),
                *bv = static_cast<const bf16*>(v);
     bf16* bo = static_cast<bf16*>(out);
     if (D == 16)
-      err = launch_bf16<16>(flash, bq, bk, bv, m, bo, B, H, Lq, Lk, blocks, threads, scale_log2, s);
+      err = launch_bf16<16>(flash, bq, bk, bv, m, bo, l, B, H, Lq, Lk, blocks, threads, scale_log2, s);
     if (D == 32)
-      err = launch_bf16<32>(flash, bq, bk, bv, m, bo, B, H, Lq, Lk, blocks, threads, scale_log2, s);
+      err = launch_bf16<32>(flash, bq, bk, bv, m, bo, l, B, H, Lq, Lk, blocks, threads, scale_log2, s);
   }
   return (int)err;
+}
+
+// The backward pair: the dQ kernel (which writes the scratch), then the
+// dK/dV kernel, both on `stream`. scratch holds lse2 then D, each
+// (B*H, Lq_pad) floats.
+template <typename T, int D>
+cudaError_t launch_backward(const T* q, const T* k, const T* v, const uint8_t* mask, const T* out,
+                            const float* lse, const T* g, T* dq, T* dk, T* dv, float* scratch,
+                            int B, int H, int Lq, int Lk, cudaStream_t stream) {
+  const int Lq_pad = (Lq + kRows - 1) / kRows * kRows;
+  float* lse2_pad = scratch;
+  float* dsum_pad = scratch + (size_t)B * H * Lq_pad;
+  // scale_log2 as the forward computes it, so that S is the forward's to the bit
+  const float scale = 1.f / std::sqrt((float)D), scale_log2 = kLog2e / std::sqrt((float)D);
+  const dim3 grid_q(B * H, Lq_pad / kRows), grid_k(B * H, (Lk + kTileKeys - 1) / kTileKeys);
+  if constexpr (std::is_same_v<T, float>) {
+    attention_bwd_dq_kernel<D><<<grid_q, kThreads, 0, stream>>>(
+        q, k, v, mask, out, lse, g, dq, lse2_pad, dsum_pad, H, Lq, Lk, Lq_pad, scale_log2, scale);
+  } else {
+    attention_bwd_dq_mma<D><<<grid_q, kFlashWarps * 32, 0, stream>>>(
+        q, k, v, mask, out, lse, g, dq, lse2_pad, dsum_pad, H, Lq, Lk, Lq_pad, scale_log2, scale);
+  }
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  if constexpr (std::is_same_v<T, float>) {
+    attention_bwd_dkdv_kernel<D><<<grid_k, kThreads, 0, stream>>>(
+        q, k, v, mask, g, dk, dv, lse2_pad, dsum_pad, H, Lq, Lk, Lq_pad, scale_log2, scale);
+  } else {
+    attention_bwd_dkdv_mma<D><<<grid_k, kFlashWarps * 32, 0, stream>>>(
+        q, k, v, mask, g, dk, dv, lse2_pad, dsum_pad, H, Lq, Lk, Lq_pad, scale_log2, scale);
+  }
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dispatch_backward(int D, const void* q, const void* k, const void* v, const void* mask,
+                              const void* out, const void* lse, const void* g, void* dq, void* dk,
+                              void* dv, void* scratch, int B, int H, int Lq, int Lk,
+                              cudaStream_t stream) {
+  const T *tq = static_cast<const T*>(q), *tk = static_cast<const T*>(k),
+          *tv = static_cast<const T*>(v), *to = static_cast<const T*>(out),
+          *tg = static_cast<const T*>(g);
+  T *tdq = static_cast<T*>(dq), *tdk = static_cast<T*>(dk), *tdv = static_cast<T*>(dv);
+  const uint8_t* m = static_cast<const uint8_t*>(mask);
+  const float* l = static_cast<const float*>(lse);
+  float* sc = static_cast<float*>(scratch);
+  if (D == 16) return launch_backward<T, 16>(tq, tk, tv, m, to, l, tg, tdq, tdk, tdv, sc, B, H, Lq, Lk, stream);
+  if (D == 32) return launch_backward<T, 32>(tq, tk, tv, m, to, l, tg, tdq, tdk, tdv, sc, B, H, Lq, Lk, stream);
+  return cudaErrorInvalidValue;
 }
 
 // Every attention kernel instantiation, for attention_kernel_attributes.
@@ -769,26 +1195,54 @@ const Entry kKernels[] = {
     {"attention_whole_kv_kernel<float,32>", (const void*)attention_whole_kv_kernel<32>},
     {"attention_flash_kernel<float,16>", (const void*)attention_flash_kernel<16>},
     {"attention_flash_kernel<float,32>", (const void*)attention_flash_kernel<32>},
+    {"attention_bwd_dq_mma<bf16,16>", (const void*)attention_bwd_dq_mma<16>},
+    {"attention_bwd_dq_mma<bf16,32>", (const void*)attention_bwd_dq_mma<32>},
+    {"attention_bwd_dkdv_mma<bf16,16>", (const void*)attention_bwd_dkdv_mma<16>},
+    {"attention_bwd_dkdv_mma<bf16,32>", (const void*)attention_bwd_dkdv_mma<32>},
+    {"attention_bwd_dq_kernel<float,16>", (const void*)attention_bwd_dq_kernel<16>},
+    {"attention_bwd_dq_kernel<float,32>", (const void*)attention_bwd_dq_kernel<32>},
+    {"attention_bwd_dkdv_kernel<float,16>", (const void*)attention_bwd_dkdv_kernel<16>},
+    {"attention_bwd_dkdv_kernel<float,32>", (const void*)attention_bwd_dkdv_kernel<32>},
 };
 
 }  // namespace
 
 // Plain C interface, loaded with ctypes. dtype: 0 = float32, 1 = bfloat16.
-// mask: (B, Lk) bytes (torch.bool), or null for no mask. stream: a
-// cudaStream_t. Returns the cudaError_t of the launch (0 = success). K1 takes
-// its grid (blocks per batch*head, threads a block) from
-// kernels/attention.py::whole_kv_plan, and refuses one that leaves query rows
-// without a warp (cudaErrorInvalidValue).
+// mask: (B, Lk) bytes (torch.bool), or null for no mask. lse: (B, H, Lq)
+// float32, or null to write none. stream: a cudaStream_t. Returns the
+// cudaError_t of the launch (0 = success). K1 takes its grid (blocks per
+// batch*head, threads a block) from kernels/attention.py::whole_kv_plan, and
+// refuses one that leaves query rows without a warp, and an lse pointer in
+// bf16 (cudaErrorInvalidValue).
 extern "C" int attention_whole_kv(int dtype, const void* q, const void* k, const void* v,
-                                  const void* mask, void* out, int B, int H, int Lq, int Lk,
-                                  int D, int blocks, int threads, void* stream) {
-  return dispatch(false, dtype, q, k, v, mask, out, B, H, Lq, Lk, D, blocks, threads, stream);
+                                  const void* mask, void* out, void* lse, int B, int H, int Lq,
+                                  int Lk, int D, int blocks, int threads, void* stream) {
+  return dispatch(false, dtype, q, k, v, mask, out, lse, B, H, Lq, Lk, D, blocks, threads, stream);
 }
 
 extern "C" int attention_flash(int dtype, const void* q, const void* k, const void* v,
-                               const void* mask, void* out, int B, int H, int Lq, int Lk, int D,
-                               void* stream) {
-  return dispatch(true, dtype, q, k, v, mask, out, B, H, Lq, Lk, D, 0, 0, stream);
+                               const void* mask, void* out, void* lse, int B, int H, int Lq,
+                               int Lk, int D, void* stream) {
+  return dispatch(true, dtype, q, k, v, mask, out, lse, B, H, Lq, Lk, D, 0, 0, stream);
+}
+
+// B.4's backward: dq, dk, dv (each like its input) from q, k, v, the mask,
+// the forward's out and lse (non-null), and the output gradient g. scratch:
+// 2 x B x H x Lq_pad floats, Lq_pad = Lq rounded up to 64 (the wrapper
+// allocates it; the dQ kernel fills it for the dK/dV kernel).
+extern "C" int attention_backward(int dtype, const void* q, const void* k, const void* v,
+                                  const void* mask, const void* out, const void* lse,
+                                  const void* g, void* dq, void* dk, void* dv, void* scratch,
+                                  int B, int H, int Lq, int Lk, int D, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (lse == nullptr || scratch == nullptr) return (int)cudaErrorInvalidValue;
+  if (dtype == 0)
+    return (int)dispatch_backward<float>(D, q, k, v, mask, out, lse, g, dq, dk, dv, scratch, B, H,
+                                         Lq, Lk, s);
+  if (dtype == 1)
+    return (int)dispatch_backward<bf16>(D, q, k, v, mask, out, lse, g, dq, dk, dv, scratch, B, H,
+                                        Lq, Lk, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 // The compiled resources of attention kernel i (0 <= i < count, in the order

@@ -8,11 +8,18 @@ Counterparts of the Pallas kernels in
   exact two-pass softmax;
 - :func:`attention_flash` replaces ``attention_pallas_flash`` /
   ``_flash_attn_kernel`` (K2): K/V streamed in 64-key tiles with an online
-  softmax.
+  softmax;
+- :func:`attention_backward` is the backward of ``_attention_pallas_diff``
+  (B.4), which the JAX package computes by differentiating
+  ``attention_reference`` (``_attn_bwd``): a pair of kernels (the end of
+  ``csrc/attention.cu``) that recompute the probabilities tile by tile from
+  the log-sum-exp the forward wrote (``with_lse=True``), FlashAttention-2's
+  scheme: a dQ kernel over query tiles, then a dK/dV kernel over key tiles.
 
-In bf16 both run QK^T and P.V on the tensor cores (``mma.sync`` m16n8k16, one
-warp per 16 query rows; :func:`whole_kv_plan` gives K1's grid); in float32
-they keep their CUDA-core body (four threads per query row, 64-row blocks).
+In bf16 the forwards and the backward pair run their products on the tensor
+cores (``mma.sync`` m16n8k16, one warp per 16 query or key rows;
+:func:`whole_kv_plan` gives K1's grid); in float32 they keep a CUDA-core
+body (four threads per row, 64-row blocks).
 
 The source is compiled with the port's other CUDA sources, in one ``nvcc``
 call for ``sm_90a``, into a shared library with a plain C interface at first
@@ -20,9 +27,13 @@ use (:func:`load_library`, see ``kernels/build.py``) and bound with
 ``ctypes``. Importing this module builds nothing, so it imports on machines
 without ``nvcc`` or a card.
 
-On a CPU tensor each wrapper runs the plain version
-(:func:`~office_person_detection_vit_torch.ops.attention.attention_reference`);
+On a CPU tensor each forward wrapper runs the plain version
+(:func:`~office_person_detection_vit_torch.ops.attention.attention_reference`,
+and :func:`~office_person_detection_vit_torch.ops.attention.attention_lse`);
 on a CUDA tensor it launches its kernel or raises. There is no fall-back.
+:func:`attention_backward` raises on a CPU tensor:
+``ops.attention.KernelAttention`` runs its plain version
+(``attention_backward_reference``) there itself.
 """
 
 from __future__ import annotations
@@ -31,13 +42,13 @@ import ctypes
 
 import torch
 
-from ..ops.attention import attention_reference
+from ..ops.attention import attention_lse, attention_reference
 from . import build
 from .build import BLOCK_SMEM_BYTES
 
 #: Launches of each kernel since the last :func:`reset_launch_counts`. Each
 #: wrapper adds one where it launches its kernel, and nowhere else.
-launch_counts = {"attention_whole_kv": 0, "attention_flash": 0}
+launch_counts = {"attention_whole_kv": 0, "attention_flash": 0, "attention_backward": 0}
 
 #: Query rows per block of the float32 kernels (kRows in the source).
 QUERY_TILE = 64
@@ -123,10 +134,12 @@ def use_flash(lk: int, head_dim: int, dtype: torch.dtype) -> bool:
 def load_library() -> ctypes.CDLL:
     """Build (once) and load the kernels. Raises when there is no card."""
     lib = build.load_library()
-    # (dtype, q, k, v, mask, out, B, H, Lq, Lk, D[, blocks, threads], stream)
-    head = [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+    # (dtype, q, k, v, mask, out, lse, B, H, Lq, Lk, D[, blocks, threads], stream)
+    head = [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
     lib.attention_whole_kv.argtypes = head + [ctypes.c_int] * 2 + [ctypes.c_void_p]
     lib.attention_flash.argtypes = head + [ctypes.c_void_p]
+    # (dtype, q, k, v, mask, out, lse, g, dq, dk, dv, scratch, B, H, Lq, Lk, D, stream)
+    lib.attention_backward.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     for name in launch_counts:
         getattr(lib, name).restype = ctypes.c_int
     fn = lib.attention_kernel_attributes
@@ -179,39 +192,87 @@ def _check(q, k, v, mask) -> None:
             raise ValueError("key_padding_mask must be contiguous on q's device")
 
 
-def _launch(name: str, q, k, v, mask, *grid: int) -> torch.Tensor:
+def _launch(name: str, q, k, v, mask, with_lse: bool, *grid: int):
     _check(q, k, v, mask)
     build.refuse_autograd(name, q, k, v)
     lib = load_library()
     B, H, Lq, D = q.shape
     out = torch.empty_like(q)
+    lse = torch.empty(B, H, Lq, dtype=torch.float32, device=q.device) if with_lse else None
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = getattr(lib, name)(
             _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
             None if mask is None else mask.data_ptr(), out.data_ptr(),
-            B, H, Lq, k.shape[2], D, *grid, stream,
+            None if lse is None else lse.data_ptr(), B, H, Lq, k.shape[2], D, *grid, stream,
         )
     build.check_launch(lib, name, err)
     launch_counts[name] += 1
-    return out
+    return (out, lse) if with_lse else out
 
 
-def attention_whole_kv(q, k, v, key_padding_mask=None) -> torch.Tensor:
-    """K1: q (B,H,Lq,D), k/v (B,H,Lk,D), mask (B,Lk) bool True = valid."""
+def _plain(q, k, v, mask, with_lse: bool):
+    out = attention_reference(q, k, v, mask)
+    return (out, attention_lse(q, k, mask)) if with_lse else out
+
+
+def attention_whole_kv(q, k, v, key_padding_mask=None, *, with_lse: bool = False):
+    """K1: q (B,H,Lq,D), k/v (B,H,Lk,D), mask (B,Lk) bool True = valid.
+
+    ``with_lse``: also return each query row's float32 log-sum-exp (B,H,Lq),
+    for the backward; the float32 body only (bf16 calls take K2)."""
     if q.device.type == "cpu":
-        return attention_reference(q, k, v, key_padding_mask)
+        return _plain(q, k, v, key_padding_mask, with_lse)
     if not whole_kv_fits(k.shape[2], q.shape[3], q.dtype):
         raise ValueError(
             f"K/V of {k.shape[2]} keys x {q.shape[3]} in {q.dtype} exceed a block's "
             "shared memory; use attention_flash"
         )
+    if with_lse and q.dtype == torch.bfloat16:
+        raise ValueError("K1's bf16 body writes no log-sum-exp; use_flash sends bf16 calls to K2")
     plan = whole_kv_plan(q.shape[2], k.shape[2], q.shape[3], q.dtype)
-    return _launch("attention_whole_kv", q, k, v, key_padding_mask, plan["blocks_per_head"], plan["threads"])
+    return _launch("attention_whole_kv", q, k, v, key_padding_mask, with_lse,
+                   plan["blocks_per_head"], plan["threads"])
 
 
-def attention_flash(q, k, v, key_padding_mask=None) -> torch.Tensor:
-    """K2: same contract as :func:`attention_whole_kv`, any Lk."""
+def attention_flash(q, k, v, key_padding_mask=None, *, with_lse: bool = False):
+    """K2: same contract as :func:`attention_whole_kv`, any Lk, ``with_lse``
+    in both types."""
     if q.device.type == "cpu":
-        return attention_reference(q, k, v, key_padding_mask)
-    return _launch("attention_flash", q, k, v, key_padding_mask)
+        return _plain(q, k, v, key_padding_mask, with_lse)
+    return _launch("attention_flash", q, k, v, key_padding_mask, with_lse)
+
+
+def attention_backward(q, k, v, key_padding_mask, out, lse, g):
+    """B.4's backward on the card: (dq, dk, dv) of ``attention_reference`` at
+    (q, k, v) for the output gradient g, from the forward's ``out`` and
+    ``lse`` (``with_lse=True``). Two launches, counted as one: the dQ kernel
+    (which also writes D = rowsum(g * out) and the log-sum-exp in base 2 to a
+    float32 scratch), then the dK/dV kernel. Deterministic: no atomics.
+    Raises on a CPU tensor (its plain version is
+    ``ops.attention.attention_backward_reference``)."""
+    _check(q, k, v, key_padding_mask)
+    B, H, Lq, D = q.shape
+    for name, t in (("out", out), ("g", g)):
+        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(f"{name} must match q {tuple(q.shape)} {q.dtype}, got {tuple(t.shape)} {t.dtype}")
+        if not t.is_contiguous() or t.data_ptr() % 16 != 0:
+            raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+    if lse.shape != (B, H, Lq) or lse.dtype != torch.float32 or lse.device != q.device or not lse.is_contiguous():
+        raise ValueError(f"lse must be float32 (B,H,Lq) = {(B, H, Lq)} on q's device, got {lse.dtype} {tuple(lse.shape)}")
+    lib = load_library()
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    # lse in base 2 and D for each query row, Lq padded to whole 64-row tiles
+    # (the dK/dV kernel copies whole tiles); the dQ kernel fills it.
+    scratch = torch.empty(2, B * H, _ceil(Lq, QUERY_TILE) * QUERY_TILE, dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.attention_backward(
+            _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            None if key_padding_mask is None else key_padding_mask.data_ptr(), out.data_ptr(), lse.data_ptr(),
+            g.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), scratch.data_ptr(),
+            B, H, Lq, k.shape[2], D, stream,
+        )
+    build.check_launch(lib, "attention_backward", err)
+    launch_counts["attention_backward"] += 1
+    return dq, dk, dv

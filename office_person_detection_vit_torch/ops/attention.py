@@ -11,20 +11,26 @@ choice has no counterpart here: on the card attention is always the kernel.
 
 Under autograd (grad enabled and an input that requires grad) the card runs
 :class:`KernelAttention`, the counterpart of ``_attention_pallas_diff``
-(ROADMAP B.4): K1 or K2 forward, and a backward that recomputes
-:func:`attention_reference` from the saved inputs and returns its
-vector-Jacobian product, as ``_attn_bwd`` does. The JAX package has no
-backward kernel, so neither has the port.
+(ROADMAP B.4): K1 or K2 forward, which also writes each query row's
+log-sum-exp (:func:`attention_lse`), and the backward kernel pair
+(``kernels/attention.py::attention_backward``, FlashAttention-2's scheme)
+that recomputes the probabilities tile by tile from it. Its function is the
+vector-Jacobian product of :func:`attention_reference`, which ``_attn_bwd``
+returns; :func:`attention_backward_reference` is the pair's plain version
+and runs in its place on the CPU.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
 NEG_INF = -1e30
 
 #: Forwards of :class:`KernelAttention` on the card since the last
-#: :func:`reset_launch_counts`: one where it launches K1 or K2.
+#: :func:`reset_launch_counts`: one where it launches K1 or K2 (its backward
+#: is counted by the kernel wrapper, ``attention_backward``).
 launch_counts = {"attention_diff": 0}
 
 
@@ -55,38 +61,85 @@ def attention_reference(q, k, v, key_padding_mask=None, return_probs=False):
     return out
 
 
-def _kernel_forward(q, k, v, key_padding_mask):
+def _scores(q, k, key_padding_mask):
+    """float32 scaled, biased scores (B,H,Lq,Lk). A batch entry with every
+    key masked scores 0 on every key (the uniform probabilities that
+    :func:`attention_reference` gives it), as the kernels compute it."""
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) / math.sqrt(q.shape[-1])
+    if key_padding_mask is None:
+        return s
+    s = s + torch.where(key_padding_mask, 0.0, NEG_INF)[:, None, None, :]
+    return torch.where(~key_padding_mask.any(-1)[:, None, None, None], 0.0, s)
+
+
+def attention_lse(q, k, key_padding_mask=None):
+    """The float32 log-sum-exp of each query row's scaled, biased scores,
+    (B,H,Lq): what the forward kernels write for the backward. An entry with
+    every key masked gets log(Lk) (its scores are all 0)."""
+    return torch.logsumexp(_scores(q, k, key_padding_mask), dim=-1)
+
+
+def attention_backward_reference(q, k, v, key_padding_mask, out, lse, g):
+    """(dq, dk, dv) of :func:`attention_reference` at (q, k, v) for the
+    output gradient g, from the forward's output and log-sum-exp: the plain
+    version of the backward kernel pair. In float32, cast to q's dtype:
+
+        P = exp(S - lse), dV = P^T g, dP = g V^T, D_i = sum(g_i * out_i),
+        dS = P * (dP - D), dQ = scale dS K, dK = scale dS^T Q,
+
+    with scale = 1/sqrt(D). An entry with every key masked has S = 0 (uniform
+    P) and keeps the true scale in dQ and dK: the plain version's autograd
+    passes the score gradient through its -1e30 bias, so they are not zero.
+    """
+    qf, kf, vf, gf = (t.float() for t in (q, k, v, g))
+    p = torch.exp(_scores(q, k, key_padding_mask) - lse[..., None])
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, gf)
+    dp = torch.einsum("bhqd,bhkd->bhqk", gf, vf)
+    ds = p * (dp - (gf * out.float()).sum(-1, keepdim=True))
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kf) * scale
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, qf) * scale
+    return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
+
+
+def _kernel_forward(q, k, v, key_padding_mask, with_lse=False):
     from ..kernels import attention as kernels
 
-    if kernels.use_flash(k.shape[2], q.shape[3], q.dtype):
-        return kernels.attention_flash(q, k, v, key_padding_mask)
-    return kernels.attention_whole_kv(q, k, v, key_padding_mask)
+    fn = kernels.attention_flash if kernels.use_flash(k.shape[2], q.shape[3], q.dtype) else kernels.attention_whole_kv
+    return fn(q, k, v, key_padding_mask, with_lse=with_lse)
 
 
 class KernelAttention(torch.autograd.Function):
-    """K1/K2 forward, recompute-through-the-plain-version backward (B.4).
+    """K1/K2 forward with the log-sum-exp, backward kernel pair (B.4).
 
     The forward runs with grad off, so the kernels' wrappers launch; on a CPU
-    tensor they run the plain version instead. Under
+    tensor they run the plain version instead, and so does the backward
+    (:func:`attention_backward_reference`). On the card the backward is the
+    kernel pair and nothing else: no recompute through the plain version, no
+    fallback. K1's bf16 body writes no log-sum-exp, and its wrapper raises if
+    asked for one (``use_flash`` sends every bf16 call to K2). Under
     ``torch.utils.checkpoint`` the forward runs again in the recompute, so a
     layer launches its kernel twice, as ``jax.checkpoint`` does.
     """
 
     @staticmethod
     def forward(ctx, q, k, v, key_padding_mask):
-        ctx.save_for_backward(q, k, v, key_padding_mask)
-        out = _kernel_forward(q, k, v, key_padding_mask)
+        out, lse = _kernel_forward(q, k, v, key_padding_mask, with_lse=True)
+        ctx.save_for_backward(q, k, v, key_padding_mask, out, lse)
         if q.device.type == "cuda":
             launch_counts["attention_diff"] += 1
         return out
 
     @staticmethod
     def backward(ctx, g):
-        q, k, v, key_padding_mask = ctx.saved_tensors
-        with torch.enable_grad():
-            q, k, v = (t.detach().requires_grad_(True) for t in (q, k, v))
-            out = attention_reference(q, k, v, key_padding_mask)
-        dq, dk, dv = torch.autograd.grad(out, (q, k, v), g)
+        q, k, v, key_padding_mask, out, lse = ctx.saved_tensors
+        g = g.contiguous()
+        if q.device.type == "cpu":
+            dq, dk, dv = attention_backward_reference(q, k, v, key_padding_mask, out, lse, g)
+        else:
+            from ..kernels import attention as kernels
+
+            dq, dk, dv = kernels.attention_backward(q, k, v, key_padding_mask, out, lse, g)
         return dq, dk, dv, None
 
 

@@ -1,6 +1,6 @@
 """The CUDA kernels (attention K1/K2, fused bottleneck K3) against their plain
-version, on the card, and B.4 (attention under autograd) against plain
-autograd.
+version, on the card, and B.4 (attention under autograd: K1/K2 forward, the
+backward kernel pair) against float64 autograd of the plain version.
 
 Marked ``cuda``; each test skips where there is no CUDA device (the CUDA
 kernels have no CPU mode). On a GPU machine:
@@ -14,7 +14,10 @@ values: float32 1e-4 with TF32 off (summation order); bf16 2^-6, two ulps of
 the output (its own rounding, and a y1 or y2 value next to a rounding
 midpoint carried through the next product). The bf16 tiling's edge tests
 hold it there against the plain version with float32 sums and with exact
-sums (``bottleneck_kernel_bench.bf16_verdict``).
+sums (``bottleneck_kernel_bench.bf16_verdict``). B.4's dq/dk/dv against float64
+autograd of the plain version on the same values, and against the pair's plain
+version (``attention_backward_reference``): bf16 2^-6 relative to max(1, |ref|)
+(the bf16 rounding of P, dS and the results), float32 1e-5 (summation order).
 """
 
 import pytest
@@ -28,6 +31,11 @@ from office_person_detection_vit_torch.ops.fused_bottleneck import bottleneck_re
 
 pytestmark = pytest.mark.cuda
 TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+B4_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0**-6}
+#: The forward's log-sum-exp against attention_lse, relative to max(1,
+#: |lse|): float32 summation order; bf16 scores are summed on the tensor
+#: cores from bf16 products, in another order than the plain version's.
+LSE_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-4}
 K3_TOL = {torch.float32: 1e-4, torch.bfloat16: 2.0**-6}
 
 
@@ -142,7 +150,7 @@ def test_whole_kv_refuses_a_grid_short_of_the_query_rows(card, dtype, blocks, th
     plan = kernels.whole_kv_plan(100, 100, 32, dtype)
     assert (blocks, threads) != (plan["blocks_per_head"], plan["threads"])
     err = lib.attention_whole_kv(1 if dtype == torch.bfloat16 else 0, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                 None, out.data_ptr(), 1, 1, 100, 100, 32, blocks, threads,
+                                 None, out.data_ptr(), None, 1, 1, 100, 100, 32, blocks, threads,
                                  torch.cuda.current_stream().cuda_stream)
     assert err != 0
     _check_kernel(kernels.attention_whole_kv, q, k, v, None)  # the plan's grid still launches
@@ -299,17 +307,29 @@ def test_kernels_refuse_inputs_that_require_grad(card):
         fused_bottleneck(x, *ws, tile_h=4)
 
 
+def _b4_errors(got, want):
+    """The larger of relative_errors' two readings over dq, dk, dv: each
+    element relative to max(1, |want|), each tensor relative to its max."""
+    from office_person_detection_vit_torch.attention_kernel_bench import relative_errors
+
+    return max(relative_errors(got, want))
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("Lq,Lk,D", [(84, 84, 16), (100, 1008, 32), (67, 131, 32)])
-def test_b4_gradients_match_plain_autograd(card, dtype, Lq, Lk, D):
+@pytest.mark.parametrize("Lq,Lk,D", [(84, 84, 16), (100, 1008, 32), (67, 131, 32), (37, 53, 16)])
+@pytest.mark.parametrize("all_masked", [False, True], ids=["ragged", "all_masked_entry"])
+def test_b4_gradients_match_plain_autograd(card, dtype, Lq, Lk, D, all_masked):
     """B.4: multi_head_attention under grad runs K1/K2 through
-    KernelAttention; its forward is held to the kernel's bar against the
-    plain version in float32, dq/dk/dv to the same bar against plain autograd
-    in the input's type (the recompute the backward runs)."""
+    KernelAttention and its backward through the kernel pair, once each;
+    dq/dk/dv are held against float64 autograd of the plain version on the
+    same values and against the pair's plain version at B4_TOL (the forward
+    at the kernel's bar against the plain version in float32). With
+    ``all_masked`` batch entry 0 has every key masked: uniform probabilities,
+    and dq, dk not zero."""
     from office_person_detection_vit_torch.ops import attention as oa
 
     q, k, v, mask = _case(2, 2, Lq, Lk, D, dtype, True, seed=5)
-    mask[0] = True  # B.4's rows have keys; the all-masked entry is the kernels' own test
+    mask[0] = not all_masked
     q, k, v = (t.requires_grad_(True) for t in (q, k, v))
     g = torch.randn_like(q)
     before = dict(kernels.launch_counts)
@@ -318,11 +338,78 @@ def test_b4_gradients_match_plain_autograd(card, dtype, Lq, Lk, D):
     assert type(out.grad_fn).__name__ == "KernelAttentionBackward" and oa.launch_counts["attention_diff"] == 1
     assert sum(kernels.launch_counts.values()) == sum(before.values()) + 1
     grads = torch.autograd.grad(out, (q, k, v), g)
-    ref = attention_reference(q, k, v, mask)
-    want = torch.autograd.grad(ref, (q, k, v), g)
-    assert (out.float() - attention_reference(q.float(), k.float(), v.float(), mask)).abs().max().item() <= TOL[dtype]
-    for a, b in zip(grads, want):
-        assert bool(torch.isfinite(a).all()) and (a.float() - b.float()).abs().max().item() <= TOL[dtype]
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["attention_backward"] == before["attention_backward"] + 1
+    assert sum(kernels.launch_counts.values()) == sum(before.values()) + 2
+    x64 = [t.detach().double().requires_grad_(True) for t in (q, k, v)]
+    want = torch.autograd.grad(attention_reference(*x64, mask), x64, g.double())
+    f32 = [t.detach().float() for t in (q, k, v)]
+    fwd = attention_reference(*f32, mask)
+    lse = oa.attention_lse(*f32[:2], mask)
+    twin = oa.attention_backward_reference(*f32, mask, out.detach().float(), lse, g.float())
+    assert (out.float() - fwd).abs().max().item() <= TOL[dtype]
+    assert all(a.dtype == dtype and bool(torch.isfinite(a).all()) for a in grads)
+    assert _b4_errors(grads, want) <= B4_TOL[dtype]
+    assert _b4_errors(grads, twin) <= B4_TOL[dtype]
+    if all_masked:
+        assert all(a[0].abs().max().item() > 1e-3 for a in grads[:2])
+
+
+@pytest.mark.parametrize(
+    "fn,dtype,Lq,Lk,D",
+    [(kernels.attention_flash, torch.bfloat16, 67, 131, 32), (kernels.attention_flash, torch.bfloat16, 920, 920, 32),
+     (kernels.attention_flash, torch.bfloat16, 100, 1008, 32), (kernels.attention_flash, torch.bfloat16, 37, 53, 16),
+     (kernels.attention_flash, torch.float32, 67, 131, 32), (kernels.attention_flash, torch.float32, 84, 84, 16),
+     (kernels.attention_whole_kv, torch.float32, 67, 131, 32), (kernels.attention_whole_kv, torch.float32, 84, 84, 16),
+     (kernels.attention_whole_kv, torch.float32, 25, 84, 16)],
+    ids=["k2_bf16_67x131", "k2_bf16_encoder_920", "k2_bf16_cross_1008", "k2_bf16_d16", "k2_float32_67x131",
+         "k2_float32_d16", "k1_float32_67x131", "k1_float32_d16", "k1_float32_cross_d16"],
+)
+def test_forward_with_lse_is_bit_identical(card, fn, dtype, Lq, Lk, D):
+    """K2 (both types) and K1 (float32) give the same bits with and without
+    the lse pointer, which the detect path leaves null, and the lse they
+    write matches attention_lse (batch entry 0 has every key masked: log Lk)."""
+    from office_person_detection_vit_torch.ops.attention import attention_lse
+
+    q, k, v, mask = _case(2, 3, Lq, Lk, D, dtype, True, seed=7)
+    plain = fn(q, k, v, mask)
+    out, lse = fn(q, k, v, mask, with_lse=True)
+    torch.cuda.synchronize()
+    assert torch.equal(plain, out)
+    want = attention_lse(q, k, mask)
+    assert lse.dtype == torch.float32 and lse.shape == q.shape[:3]
+    assert ((lse - want).abs() / want.abs().clamp(min=1.0)).max().item() <= LSE_TOL[dtype]
+
+
+def test_k1_bf16_refuses_lse(card):
+    q, k, v, _ = _case(1, 2, 50, 100, 32, torch.bfloat16, False)
+    with pytest.raises(ValueError, match="log-sum-exp"):
+        kernels.attention_whole_kv(q, k, v, with_lse=True)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_backward_pair_is_deterministic(card, dtype):
+    """Two calls of the pair on the same inputs give the same bits (no
+    atomics), at a shape with several blocks per head both ways."""
+    q, k, v, mask = _case(2, 4, 300, 260, 32, dtype, True, seed=9)
+    out, lse = kernels.attention_flash(q, k, v, mask, with_lse=True)
+    g = torch.randn_like(q)
+    first = kernels.attention_backward(q, k, v, mask, out, lse, g)
+    second = kernels.attention_backward(q, k, v, mask, out, lse, g)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_backward_wrapper_rejects_what_the_pair_does_not_take(card):
+    q, k, v, mask = _case(1, 2, 40, 70, 32, torch.float32, True)
+    out, lse = kernels.attention_flash(q, k, v, mask, with_lse=True)
+    g = torch.randn_like(q)
+    with pytest.raises(ValueError, match="lse"):
+        kernels.attention_backward(q, k, v, mask, out, lse.double(), g)
+    with pytest.raises(ValueError, match="g must match"):
+        kernels.attention_backward(q, k, v, mask, out, lse, g.bfloat16())
+    with pytest.raises(ValueError, match="out must"):
+        kernels.attention_backward(q, k, v, mask, out.transpose(2, 3).contiguous().transpose(2, 3), lse, g)
 
 
 def test_attention_map_leaves_detect_launch_counts(card):

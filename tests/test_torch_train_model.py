@@ -1,10 +1,12 @@
 """B.4 and the training model of the port against the JAX package, on the CPU.
 
 - B.4, ``ops.attention.KernelAttention`` (the custom VJP
-  ``_attention_pallas_diff``), with the plain forward in place of the kernel
-  (CPU tensors): output and dq/dk/dv within 1e-5 of ``jax.vjp`` through
+  ``_attention_pallas_diff``), with the plain forward and the backward
+  kernel pair's plain version in place of the kernels (CPU tensors): output
+  and dq/dk/dv within 1e-5 of ``jax.vjp`` through
   ``multi_head_attention(..., use_pallas=True, interpret=True)`` (sums in
-  another order). ``multi_head_attention`` takes it whenever grad is on and
+  another order), at head dims 16 and 32, Lq != Lk off the 64-row tiles, no
+  mask, a ragged mask and an entry with every key masked. ``multi_head_attention`` takes it whenever grad is on and
   an input requires grad; K3 still refuses under grad.
 - The model (tiny tier, float32): ``return_aux`` logits and boxes at the DETR
   bar (logits atol 2e-3 / rtol 1e-3, boxes 1e-3); bf16 compute from float32
@@ -35,12 +37,32 @@ T_ = torch.from_numpy
 
 
 # ------------------------------------------------------------------- B.4
-@pytest.mark.parametrize("shape,mask_frac", [((2, 2, 37, 53, 16), 0.3), ((1, 2, 100, 130, 32), None)])
+#: (B, H, Lq, Lk, D), and the key mask: None, the fraction of keys masked,
+#: or "all_masked_entry" (0.3 masked, the last entry's keys all masked).
+#: Head dims 16 and 32; Lq != Lk, off the 64-row tiles.
+_FIRST_B4_CASES = [((2, 2, 37, 53, 16), 0.3), ((1, 2, 100, 130, 32), None)]
+B4_GRAD_CASES = _FIRST_B4_CASES + [
+    case for case in (((B, H, Lq, Lk, D), m) for D in (16, 32)
+                      for B, H, Lq, Lk in ((2, 2, 37, 53), (1, 2, 100, 130), (2, 1, 67, 131))
+                      for m in (None, 0.3, "all_masked_entry"))
+    if case not in _FIRST_B4_CASES
+]
+
+
+@pytest.mark.parametrize("shape,mask_frac", B4_GRAD_CASES)
 def test_kernel_attention_grads_match_jax(shape, mask_frac):
+    """KernelAttention on CPU tensors: the forward's plain version with its
+    log-sum-exp (attention_lse), and the backward's plain version
+    attention_backward_reference, against jax.vjp. An entry with every key
+    masked has uniform probabilities, and its dq and dk are not zero: the
+    -1e30 bias passes the score gradient through."""
     B, H, Lq, Lk, D = shape
     rng = np.random.default_rng(0)
     q, k, v = (rng.normal(size=(B, H, L, D)).astype(np.float32) for L in (Lq, Lk, Lk))
-    mask = None if mask_frac is None else rng.random((B, Lk)) > mask_frac
+    frac = 0.3 if mask_frac == "all_masked_entry" else mask_frac
+    mask = None if frac is None else rng.random((B, Lk)) > frac
+    if mask_frac == "all_masked_entry":
+        mask[-1] = False
     g = rng.normal(size=(B, H, Lq, D)).astype(np.float32)
 
     tq, tk, tv = (T_(a).requires_grad_(True) for a in (q, k, v))
@@ -53,9 +75,15 @@ def test_kernel_attention_grads_match_jax(shape, mask_frac):
         return jax_attn.multi_head_attention(q, k, v, jm, use_pallas=True, interpret=True)
 
     want, vjp = jax.vjp(f, jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    if mask_frac == "all_masked_entry":
+        # the Pallas forward in interpret mode averages over its padded keys
+        # there too; the plain version's uniform average is the contract
+        want = want.at[-1].set(jax_attn.attention_reference(q[-1:], k[-1:], v[-1:], jnp.asarray(mask[-1:]))[0])
     np.testing.assert_allclose(out.detach().numpy(), np.asarray(want), atol=1e-5)
     for got, ref in zip((tq.grad, tk.grad, tv.grad), vjp(jnp.asarray(g))):
         np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-5)
+    if mask_frac == "all_masked_entry":
+        assert all(t.grad[-1].abs().max().item() > 1e-3 for t in (tq, tk))
 
 
 def test_multi_head_attention_routes_grad_through_b4(monkeypatch):
@@ -65,9 +93,10 @@ def test_multi_head_attention_routes_grad_through_b4(monkeypatch):
     the plain version."""
     calls = []
 
-    def fake_kernel(q, k, v, mask):
+    def fake_kernel(q, k, v, mask, with_lse=False):
         calls.append(torch.is_grad_enabled())
-        return port_attn.attention_reference(q, k, v, mask)
+        out = port_attn.attention_reference(q, k, v, mask)
+        return (out, port_attn.attention_lse(q, k, mask)) if with_lse else out
 
     monkeypatch.setattr(port_attn, "_kernel_forward", fake_kernel)
     q = torch.empty(1, 2, 8, 16, device="meta", requires_grad=True)

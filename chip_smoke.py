@@ -2,6 +2,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --phase 10a   # B.4 and its backward pair alone
+    python3 chip_smoke.py --phase 11    # the tracking slice alone
 
 Builds the hand-written CUDA kernels from
 ``office_person_detection_vit_torch/csrc`` (one nvcc call), holds each against
@@ -51,7 +52,7 @@ the pipeline phases 2-4, the entry point and the trainer:
 9. the whole flow through the port's entry point
    ``office_person_detection_vit_torch.main.main`` (what ``python -m
    office_person_detection_vit_torch --config <yaml>`` runs), from a video to
-   ``summary.json``: (a) an 8-hour 720p timelapse (08:00-16:00, ratio 313),
+   ``summary.json``: (a) a 4-hour 720p timelapse (08:00-12:00, ratio 313),
    DETR-R50 bf16 at 736x1280, batch 8, seeded random weights: every 5-minute
    target extracted with the timestamp the video burned in, each phase's
    checkpoint, the artifacts with the JAX keys and the JSON schemas, a
@@ -83,7 +84,25 @@ the pipeline phases 2-4, the entry point and the trainer:
    float32 step on the card and one on the CPU: the same matches, losses and
    gradients; (d) ``main --fine-tune`` with the ``training.*`` keys at full
    size for one epoch, and its ``weights.npz`` in ``DETRDetector`` on the
-   card.
+   card;
+11. the tracking slice (Phase 2.5): (a) a workday of dense tracking (8
+   hours on the 10 s grid, 2,880 frames of 30 people on seeded random walks,
+   box noise, 5% dropped, 2 false positives a frame, 256-d features, 64
+   slots) through the scan tracker on the card, inside
+   ``torch.cuda.set_sync_debug_mode("error")``, through the port's scan on
+   the CPU (the same ids, exactly) and through the cascade on the host: each
+   engine's MOTA, IDF1 and HOTA (the port's ``mot_metrics``) against the
+   generator's ground truth, seconds a 1,000 frames, the scan's device
+   operations a frame (``torch.profiler``); (b) the committed showcase
+   (``tools/e2e_showcase.py`` gen-video, gen-config, gold-gt, in child
+   processes): the DETR-small checkpoint through ``main`` on the card with
+   tracking and dense tracking, then Phases 2-5 of the same session on the
+   CPU (a copy resumed after 01_extraction): MOTA and IDF1 within 0.01 of
+   the CPU's, ``tracks_mot.csv`` row for row where the detections pair,
+   ``zone_counts.csv`` with one count a track id a 5-minute window; (c)
+   DETR-R50 bf16 over 8a's 288 frames into ``TrackingPhase`` (cascade, then
+   scan on the card, the same ids as the CPU scan), ``TransformPhase`` and
+   ``AggregationPhase``, each phase's seconds.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 Its last two lines are JSON: the kernels (launches, error, times, bound; K1,
@@ -646,18 +665,26 @@ def load_phase(device: str, smi: str, t_start: datetime, n_frames: int = 288, pe
                     f"{secs['transform']:.3f} s, aggregation {secs['aggregation']:.3f} s (host clock) on {smi}")
 
 
+def slice_frames(render_frame, t_start: datetime, n: int = 288) -> tuple[list, list]:
+    """8a's load: n rendered 720p frames at 5-minute intervals, one person
+    each, and their timestamps."""
+    stamps = [t_start + timedelta(minutes=5 * i) for i in range(n)]
+    frames = [render_frame(ts, people=[(80 + 37 * i % 1100, 120 + 53 * i % 400, i % 6)], seed=100 + i)
+              for i, ts in enumerate(stamps)]
+    return frames, stamps
+
+
 def full_width_phase(ka, smi: str, render_frame, t_start: datetime, H: np.ndarray, zones: list) -> dict:
     """8a: DETR-R50 bf16 at 736x1280, batch 8, seeded random weights, over
     288 rendered 720p frames (a day at 5-minute intervals), through the
     port's DetectionPhase, TransformPhase (phase 6's homography and zones)
-    and AggregationPhase. Returns the attention launches of that run."""
+    and AggregationPhase. Returns the attention launches of that run, and
+    the frames and their timestamps (phase 11c's load)."""
     from office_person_detection_vit_torch.core.dto import FrameResult
     from office_person_detection_vit_torch.pipeline.phases import DetectionPhase
 
-    n = 288
-    stamps = [t_start + timedelta(minutes=5 * i) for i in range(n)]
-    frames = [render_frame(ts, people=[(80 + 37 * i % 1100, 120 + 53 * i % 400, i % 6)], seed=100 + i)
-              for i, ts in enumerate(stamps)]
+    frames, stamps = slice_frames(render_frame, t_start)
+    n = len(frames)
     cfg = {"detection.model_size": "full", "detection.dtype": "bfloat16", "detection.device": "cuda",
            "detection.batch_size": 8, "detection.input_height": 736, "detection.input_width": 1280,
            "detection.confidence_threshold": 0.0, "detection.nms_threshold": 0.4,
@@ -695,7 +722,7 @@ def full_width_phase(ka, smi: str, render_frame, t_start: datetime, H: np.ndarra
         f"{n / loop:.2f} frames/s), transform {secs['transform']:.3f} s, aggregation {secs['aggregation']:.3f} s, "
         f"on {smi}")
     detection.cleanup()
-    return counts
+    return counts, frames, stamps
 
 
 def without_timestamp(frame: np.ndarray, seed: int) -> np.ndarray:
@@ -788,9 +815,10 @@ def trained_phase(ka, smi: str, render_frame, t_start: datetime) -> dict:
 # timestamp to the last: a video has frames until the scan reaches the end of
 # its span, so that the last target is one of them.
 FPS, RATIO, TOLERANCE_S, SCAN_STRIDE = 30, 313.0, 60, 6
-# 9a's span: 8 hours keep the whole script near half of its time limit
-# (Phase 1's OCR of the scanned frames takes most of it).
-DAY_START, DAY_HOURS = datetime(2025, 1, 20, 8, 0, 0), 8
+# 9a's span: 4 hours keep the whole script, phase 11 included, near half of
+# its time limit (Phase 1's OCR of the scanned frames takes most of 9a; 8
+# hours took 294 s of it on an H100 machine).
+DAY_START, DAY_HOURS = datetime(2025, 1, 20, 8, 0, 0), 4
 HOUR_START = datetime(2025, 1, 20, 9, 0, 0)
 EXTRACTION_HEADER = ["frame_number", "timestamp", "target_timestamp", "confidence", "time_error_seconds",
                      "frame_path"]
@@ -950,7 +978,8 @@ def check_extraction(session: Path, start: datetime, hours: float, where: str) -
 
 
 def check_session(session: Path, zone_ids: list, frames: int, where: str) -> dict:
-    """summary.json completed, every phase's checkpoint (tracking skipped),
+    """summary.json completed, every phase's checkpoint (tracking skipped:
+    phase 9's configs leave it off),
     the artifacts with the JAX keys and the repo's JSON schemas, and a
     floormap PNG a frame. Returns the summary."""
     sys.path.insert(0, str(ROOT / "tools"))
@@ -1110,9 +1139,11 @@ def resume_flow(ka, probe, card: Path, cfg: dict, tmp: Path) -> None:
         f"launches {counts}, 0 frames decoded; zone_counts.csv byte-identical; main {secs:.3f} s")
 
 
-def flow_phase(ka, smi: str, writer: subprocess.Popen, videos: Path, H: np.ndarray, zones: list) -> tuple[dict, dict]:
+def flow_phase(ka, smi: str, writer: subprocess.Popen, videos: Path, H: np.ndarray,
+               zones: list) -> tuple[dict, dict, FlowProbe]:
     """Phase 9: the videos, then 9a, 9b and 9c. Returns the launches of 9a
-    and of 9b's card run."""
+    and of 9b's card run, and the probe installed around the port's classes
+    (phase 11b runs main under it too)."""
     out, _ = writer.communicate(timeout=900)
     check(writer.returncode == 0, f"9: the video writer exited {writer.returncode}: {out[-2000:]}")
     probe = FlowProbe()
@@ -1121,7 +1152,7 @@ def flow_phase(ka, smi: str, writer: subprocess.Popen, videos: Path, H: np.ndarr
         day_counts = day_flow(ka, probe, smi, videos, tmp, H, zones)
         hour_counts, card, cfg = hour_flow(ka, probe, smi, videos, tmp)
         resume_flow(ka, probe, card, cfg, tmp)
-    return day_counts, hour_counts
+    return day_counts, hour_counts, probe
 
 
 # ------------------------------------------------------------------ phase 10
@@ -1604,6 +1635,460 @@ def training_phase(ka, smi: str, dataset_writer: subprocess.Popen, data: Path, f
     return {"b4": b4_rows, "full": full, "small": small, "handoff": handoff}
 
 
+# ------------------------------------------------------------------ phase 11
+# [11a]'s load: a workday of dense tracking, 8 hours on the default 10 s grid
+# of video.dense_tracking (2,880 frames), 30 people on seeded random walks in
+# a 1280x720 frame, as Phase 2 would hand them to the tracker: box noise, 5%
+# of detections dropped, 2 false positives a frame, and a 256-d feature a
+# detection (DETR's d_model: the person's mean plus noise, L2-normalised);
+# 64 track slots.
+WORKDAY_FRAMES, WORKDAY_STEP_S, WORKDAY_PEOPLE, WORKDAY_FP, WORKDAY_DROP = 8 * 3600 // 10, 10, 30, 2, 0.05
+WORKDAY_CAPACITY, FEATURE_DIM = 64, 256
+#: Frames of the profiled window that counts the scan's kernel launches.
+LAUNCH_WINDOW = 50
+# [11b]: the committed showcase (tools/e2e_showcase.py): 600 video frames on
+# a 60 s dense grid (104 frames), the DETR-small checkpoint at conf 0.2, NMS
+# 0.3, sigmoid scores. The card's MOTA and IDF1 must be within this of the
+# CPU's on the same extracted frames.
+SHOWCASE_FRAMES, SHOWCASE_SCORE_TOL = 600, 0.01
+# [11c]: random weights find nobody at the usual threshold, so the threshold
+# is set from the scores of a run at 0.0 to give each frame 20-60
+# detections, a load on the ROI-pooled features and the association (not a
+# test of quality). A random class head makes person the top class of about
+# one query in 91, and postprocess keeps only those, so every other class's
+# row of the head is set to -20 (person_head); and the scores are sigmoids,
+# since a softmax over 92 classes puts a random model's person score near
+# 1/92, under the trackers' floor (0.1) and their threshold to start a track
+# (0.3).
+LOAD_DETECTIONS = (20, 60)
+
+
+def workday_load(frames: int = WORKDAY_FRAMES, people: int = WORKDAY_PEOPLE, seed: int = 11) -> tuple[dict, list]:
+    """[11a]'s ground truth {MOT frame: [(person id, xywh)]} and its
+    FrameResults (timestamps every WORKDAY_STEP_S seconds, the detections
+    in a seeded order, features on every detection)."""
+    from office_person_detection_vit_torch.core.dto import Detection, FrameResult
+
+    rng = np.random.default_rng(seed)
+    wh = rng.uniform([45, 120], [80, 200], (people, 2))
+    pos = rng.uniform([0, 0], [1280 - 80, 720 - 200], (people, 2))
+    vel = np.zeros((people, 2))
+    looks = rng.normal(size=(people, FEATURE_DIM))
+    looks /= np.linalg.norm(looks, axis=1, keepdims=True)
+    gt, results = {}, []
+    for f in range(frames):
+        vel = 0.7 * vel + rng.normal(0, 12, (people, 2))
+        pos += vel
+        lo, hi = np.zeros(2), np.array([1280.0, 720.0]) - wh
+        over, under = pos > hi, pos < lo  # reflect at the frame's edges
+        pos = np.where(over, 2 * hi - pos, np.where(under, 2 * lo - pos, pos))
+        vel = np.where(over | under, -vel, vel)
+        gt[f + 1] = [(p + 1, (float(pos[p, 0]), float(pos[p, 1]), float(wh[p, 0]), float(wh[p, 1])))
+                     for p in range(people)]
+        dets = []
+        for p in range(people):
+            if rng.random() < WORKDAY_DROP:
+                continue
+            box = (*(pos[p] + rng.normal(0, 3, 2)), *(wh[p] + rng.normal(0, 2, 2)))
+            feat = looks[p] + rng.normal(0, 0.4 / np.sqrt(FEATURE_DIM), FEATURE_DIM)
+            dets.append(Detection(bbox=tuple(float(v) for v in box), confidence=float(rng.uniform(0.5, 0.99)),
+                                  feature=(feat / np.linalg.norm(feat)).astype(np.float32)))
+        for _ in range(WORKDAY_FP):
+            xy = rng.uniform([0, 0], [1200, 560])
+            feat = rng.normal(size=FEATURE_DIM)
+            dets.append(Detection(bbox=(float(xy[0]), float(xy[1]), 60.0, 150.0),
+                                  confidence=float(rng.uniform(0.3, 0.6)),
+                                  feature=(feat / np.linalg.norm(feat)).astype(np.float32)))
+        results.append(FrameResult(f, HOUR_START + timedelta(seconds=WORKDAY_STEP_S * f),
+                                   [dets[i] for i in rng.permutation(len(dets))]))
+    return gt, results
+
+
+def hypothesis(results: list, ids: np.ndarray | None = None) -> dict:
+    """{MOT frame: [(track id, xywh)]} of the tracked detections: the ids of
+    the (F, D) matrix when given, else each detection's track_id."""
+    hyp = {}
+    for f, fr in enumerate(results):
+        tids = [d.track_id for d in fr.detections] if ids is None else [int(i) for i in ids[f, :len(fr.detections)]]
+        hyp[f + 1] = [(t, tuple(d.bbox)) for t, d in zip(tids, fr.detections) if t is not None and t >= 0]
+    return hyp
+
+
+def scores(gt: dict, hyp: dict) -> dict:
+    """MOTA, IDF1 and HOTA of the port's mot_metrics."""
+    from office_person_detection_vit_torch.benchmark.mot_metrics import evaluate_hota, evaluate_mot
+
+    mot = evaluate_mot(gt, hyp).to_dict()
+    return {"mota": mot["mota"], "idf1": mot["idf1"], "hota": evaluate_hota(gt, hyp).hota, "idsw": mot["id_switches"]}
+
+
+def scan_launches(arrays: list, kw: dict) -> float | None:
+    """Device operations (kernels, copies, fills) a frame of the scan on the
+    card, counted by torch.profiler over LAUNCH_WINDOW frames; None when the
+    profiler sees no device activity."""
+    from torch.profiler import DeviceType, ProfilerActivity, profile
+
+    from office_person_detection_vit_torch.tracking.scan_tracker import init_state, scan_track
+
+    window = [a[:LAUNCH_WINDOW] for a in arrays]
+    state = init_state(WORKDAY_CAPACITY, arrays[3].shape[-1], "cuda")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        scan_track(state, *window, **kw)
+        torch.cuda.synchronize()
+    n = sum(e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
+    return n / LAUNCH_WINDOW if n else None
+
+
+def workday_phase(smi: str) -> dict:
+    """[11a]: the workday through the scan on the card (inside
+    set_sync_debug_mode("error")), the port's scan on the CPU and the
+    cascade on the host; the card's ids equal to the CPU scan's; each
+    engine's scores against the generator's ground truth, its seconds a
+    1,000 frames, and the scan's device operations a frame."""
+    import copy
+
+    from office_person_detection_vit_torch.tracking.scan_tracker import init_state, pack_frame_results, scan_track
+    from office_person_detection_vit_torch.tracking.tracker import Tracker
+
+    t = time.perf_counter()
+    gt, results = workday_load()
+    arrays = [torch.from_numpy(a) for a in pack_frame_results(results)]
+    F, D = arrays[1].shape
+    log(f"[11a] workday load: {F} frames ({F * WORKDAY_STEP_S / 3600:.0f} h at {WORKDAY_STEP_S} s), {WORKDAY_PEOPLE} "
+        f"people, {sum(len(r.detections) for r in results)} detections (at most {D} a frame), features "
+        f"{arrays[3].shape[-1]}-d, capacity {WORKDAY_CAPACITY}; made in {time.perf_counter() - t:.1f} s")
+    kw = {"max_age": 100, "min_hits": 1, "appearance_weight": 0.9, "motion_weight": 0.1,
+          "max_position_distance": 10000.0}  # Tracker.from_config's defaults, as the phase passes them
+    card_in = [a.cuda() for a in arrays]
+    scan_track(init_state(WORKDAY_CAPACITY, FEATURE_DIM, "cuda"), *(a[:20] for a in card_in), **kw)  # warm-up
+    state = init_state(WORKDAY_CAPACITY, FEATURE_DIM, "cuda")
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")  # a host sync inside the loop raises
+    try:
+        state, card_ids = scan_track(state, *card_in, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    secs = {"scan (card)": time.perf_counter() - t}
+    check(card_ids.is_cuda and state.kf_x.is_cuda, "11a: the scan's state left the card")
+    t = time.perf_counter()
+    _, cpu_ids = scan_track(init_state(WORKDAY_CAPACITY, FEATURE_DIM), *arrays, **kw)
+    secs["scan (CPU)"] = time.perf_counter() - t
+    card_ids = card_ids.cpu().numpy()
+    differ = int((card_ids != cpu_ids.numpy()).sum())
+    check(differ == 0, f"11a: the card's scan ids differ from the CPU's at {differ} of {card_ids.size} places")
+    cascade = copy.deepcopy(results)
+    tracker = Tracker(max_age=kw["max_age"], min_hits=kw["min_hits"])
+    t = time.perf_counter()
+    for fr in cascade:
+        tracker.update(fr.detections, fr.timestamp.timestamp())
+    secs["cascade (host)"] = time.perf_counter() - t
+    per_frame = scan_launches(card_in, kw)
+    t = time.perf_counter()
+    got = {"scan": scores(gt, hypothesis(results, card_ids)), "cascade": scores(gt, hypothesis(cascade))}
+    scored = time.perf_counter() - t
+    for name, s in got.items():
+        check(all(math.isfinite(v) for v in s.values()) and s["mota"] > 0.5,
+              f"11a: {name} scores {s} (MOTA must be above 0.5 on this load)")
+    log(f"[11a] card scan ids == CPU scan ids at all {card_ids.size} (frame, detection) places, "
+        f"{len(np.unique(card_ids[card_ids > 0]))} track ids; the loop ran under set_sync_debug_mode('error')")
+    for name, s in got.items():
+        log(f"[11a] {name}: MOTA {s['mota']:.4f}, IDF1 {s['idf1']:.4f}, HOTA {s['hota']:.4f}, ID switches {s['idsw']} "
+            f"(port mot_metrics against the generator's ground truth; the card's and the CPU's scan ids are equal)")
+    log(f"[11a] seconds a 1,000 frames: " + ", ".join(f"{k} {1000 * v / F:.3f}" for k, v in secs.items())
+        + f" (host clock, the card synchronised; {F} frames); the scan's device operations a frame: "
+        + (f"{per_frame:.1f} (torch.profiler over {LAUNCH_WINDOW} frames)" if per_frame else "not measured (the "
+           "profiler saw no device activity)") + f"; scoring {scored:.1f} s; on {smi}")
+    return {"secs": secs, "scores": got, "launches_per_frame": per_frame}
+
+
+def showcase_tool(*args: str) -> None:
+    """``tools/e2e_showcase.py`` in a child process (gen-video, gen-config
+    and gold-gt import nothing of the JAX package)."""
+    out = subprocess.run([sys.executable, str(ROOT / "tools" / "e2e_showcase.py"), *args], capture_output=True,
+                         text=True, timeout=600)
+    check(out.returncode == 0, f"11b: e2e_showcase {args[0]} exited {out.returncode}: {out.stderr[-2000:]}")
+
+
+def mot_rows(session: Path) -> dict:
+    """tracks_mot.csv as {MOT frame: [(id, x, y, w, h, conf)]}."""
+    rows = {}
+    for r in csv.reader((session / "03_tracking" / "tracks_mot.csv").open()):
+        rows.setdefault(int(r[0]), []).append((int(r[1]), *(float(v) for v in r[2:7])))
+    return rows
+
+
+def check_showcase_sessions(card: Path, cpu: Path, frames: int) -> tuple[int, int, list]:
+    """[11b]'s gates on the two sessions' files: tracks_mot.csv row for row
+    where the runs' detections pair one to one, and zone_counts.csv with the
+    dense-tracking dedup. Returns the rows with the same id, the rows in one
+    run only and zone_counts.csv's rows."""
+    # tracks_mot.csv row for row where the two runs' detections pair one to
+    # one (the [9b] pairing): one consistent id map, the identity unless a
+    # detection within 1e-3 of the threshold is in one run only.
+    card_rows, cpu_rows = mot_rows(card), mot_rows(cpu)
+    id_map, rows_equal, left = {}, 0, 0
+    as_dict = lambda r: {"bbox": dict(zip(("x", "y", "width", "height"), r[1:5])), "id": r[0], "conf": r[5]}
+    for f in sorted(set(card_rows) | set(cpu_rows)):
+        pairs, rest = matched([as_dict(r) for r in card_rows.get(f, [])], [as_dict(r) for r in cpu_rows.get(f, [])])
+        left += len(rest)
+        for d in rest:
+            check(abs(d["conf"] - 0.2) <= 1.5e-3 or abs(d["conf"] - 0.3) <= 1.5e-3,
+                  f"11b: MOT frame {f}: a track row in one run only, away from the thresholds: {d}")
+        for a, b in pairs:
+            check(id_map.setdefault(a["id"], b["id"]) == b["id"],
+                  f"11b: MOT frame {f}: card id {a['id']} is CPU id {b['id']} here, {id_map[a['id']]} before")
+            check(max(abs(a["bbox"][k] - b["bbox"][k]) for k in a["bbox"]) <= 1.3 + 0.01
+                  and abs(a["conf"] - b["conf"]) <= 2e-3, f"11b: MOT frame {f}: {a} against {b}")
+            rows_equal += a["id"] == b["id"]
+    check(len(set(id_map.values())) == len(id_map), f"11b: card ids map onto CPU ids {id_map} not one to one")
+    check(left > 0 or all(k == v for k, v in id_map.items()), f"11b: card and CPU ids differ: {id_map}")
+
+    # zone_counts.csv has the dense-tracking dedup: one row an output window,
+    # and each row counts the track ids seen in its window once.
+    window_s = 60 * 5
+    index = list(csv.DictReader((card / "03_tracking" / "frames_index.csv").open()))
+    windows = {}
+    for r in index:
+        windows.setdefault(int(datetime.fromisoformat(r["timestamp"]).timestamp() // window_s), set())
+    for r in csv.DictReader((card / "03_tracking" / "tracks.csv").open()):
+        windows[int(datetime.fromisoformat(r["timestamp"]).timestamp() // window_s)].add(int(r["track_id"]))
+    zone_rows = list(csv.DictReader((card / "05_aggregation" / "zone_counts.csv").open()))
+    check(len(zone_rows) == len(windows) < frames,
+          f"11b: zone_counts.csv has {len(zone_rows)} rows for {len(windows)} windows of {frames} frames")
+    totals = [int(r["total"]) for r in zone_rows]
+    check(totals == [len(windows[w]) for w in sorted(windows)],
+          f"11b: zone_counts.csv totals {totals}, distinct track ids a window {[len(windows[w]) for w in sorted(windows)]}")
+    return rows_equal, left, zone_rows
+
+
+def resumable_copy(src: Path, dst: Path) -> Path:
+    """A session for ``main --resume`` at ``dst`` holding only ``src``'s Phase
+    1: its frames and extraction_results.csv (frame paths moved to the
+    copy), metadata and config, and a checkpoint of 01_extraction alone."""
+    shutil.copytree(src / "01_extraction", dst / "01_extraction")
+    for name in ("metadata.json", "config.yaml"):
+        shutil.copy(src / name, dst / name)
+    state = json.loads((src / "pipeline_checkpoint.json").read_text())
+    state["phases"] = {"01_extraction": state["phases"]["01_extraction"]}
+    (dst / "pipeline_checkpoint.json").write_text(json.dumps(state))
+    csv_path = dst / "01_extraction" / "extraction_results.csv"
+    rows = list(csv.reader(csv_path.open()))
+    for r in rows[1:]:
+        r[-1] = str(dst / "01_extraction" / "frames" / Path(r[-1]).name)
+    with csv_path.open("w", newline="") as f:
+        csv.writer(f).writerows(rows)
+    return dst
+
+
+def showcase_phase(ka, probe, smi: str, tmp: Path, given: Path | None = None) -> dict:
+    """[11b]: the committed showcase through main on the card, then Phases
+    2-5 of the same session on the CPU (a copy resumed after 01_extraction,
+    so the OCR runs once); both tracks_mot.csv scored against the gold GT.
+
+    The video is gen-video's, made here. With ``given``, a directory holding
+    ``session/`` (a showcase session made on another machine) and its
+    ``scenario.json``, the card resumes that session after its Phase 1
+    instead: OpenCV builds draw the burned-in timestamp differently, the
+    DETR-small checkpoint sees that band, and the OCR's templates are drawn
+    by the local build, so scores compare across machines only on the same
+    extracted frames."""
+    import yaml
+
+    from office_person_detection_vit_torch.benchmark.mot_metrics import (
+        evaluate_hota, evaluate_mot, load_gold_gt, load_mot_csv)
+
+    video = tmp / "showcase" / "video.mp4"
+    scenario = video.parent / "scenario.json" if given is None else given / "scenario.json"
+    if given is None:
+        showcase_tool("gen-video", "--out", str(video), "--frames", str(SHOWCASE_FRAMES))
+    showcase_tool("gen-config", "--video", str(video), "--weights",
+                  str(ROOT / "docs" / "artifacts" / "detr_small_weights.npz"), "--out", str(tmp / "showcase.yaml"),
+                  "--out-dir", str(tmp / "showcase_card"), "--size", "small", "--score-mode", "sigmoid",
+                  "--conf", "0.2", "--nms", "0.3", "--device", "cuda")
+    cfg = yaml.safe_load((tmp / "showcase.yaml").read_text())
+    cfg["detection"]["dtype"] = "float32"  # the CPU run's type, so that card and CPU are held to each other
+    if given is None:
+        rc, counts, secs, card = run_main(ka, probe, cfg, tmp / "showcase_card.yaml")
+    else:
+        card = resumable_copy(given / "session", tmp / "showcase_card" / "given")
+        rc, counts, secs, _ = run_main(ka, probe, cfg, tmp / "showcase_card.yaml", "--resume", str(card))
+    check(rc == 0, f"11b: main exited {rc} on the card")
+    frames = len((card / "03_tracking" / "frames_index.csv").read_text().splitlines()) - 1
+    chunks = math.ceil(frames / cfg["detection"]["batch_size"])
+    want = launches(whole_kv=9 * chunks)  # DETR-small: 3 encoder and 3+3 decoder calls a chunk, all K1
+    check(counts == want, f"11b: main launched {counts} on the card, expected {want} ({chunks} chunks)")
+    check(sum(probe.failed_chunks) == 0, f"11b: {sum(probe.failed_chunks)} chunks raised")
+
+    cpu_cfg = json.loads(json.dumps(cfg))
+    cpu_cfg["detection"]["device"] = "cpu"
+    cpu_cfg["output"]["directory"] = str(tmp / "showcase_cpu")
+    cpu = resumable_copy(card, tmp / "showcase_cpu" / card.name)
+    rc, cpu_counts, cpu_secs, session = run_main(ka, probe, cpu_cfg, tmp / "showcase_cpu.yaml", "--resume", str(cpu))
+    check(rc == 0 and session == cpu and cpu_counts == launches(), f"11b: the CPU run exited {rc}, {cpu_counts}")
+
+    showcase_tool("gold-gt", "--session", str(card), "--scenario", str(scenario), "--out", str(tmp / "gold.json"))
+    gt = load_gold_gt(tmp / "gold.json")
+    got = {}
+    for name, s in (("card", card), ("cpu", cpu)):
+        pred = load_mot_csv(s / "03_tracking" / "tracks_mot.csv")
+        got[name] = {**evaluate_mot(gt, pred).to_dict(), "hota": evaluate_hota(gt, pred).hota}
+    gap = {k: abs(got["card"][k] - got["cpu"][k]) for k in ("mota", "idf1")}
+    check(max(gap.values()) <= SHOWCASE_SCORE_TOL,
+          f"11b: card {got['card']} against CPU {got['cpu']}: MOTA/IDF1 apart by {gap} (bar {SHOWCASE_SCORE_TOL})")
+
+    rows_equal, left, zone_rows = check_showcase_sessions(card, cpu, frames)
+    card_summary = json.loads((card / "summary.json").read_text())
+    phase25 = {k: json.loads((s / "summary.json").read_text())["performance"]["03_tracking"]["total_time"]
+               for k, s in (("card", card), ("cpu", cpu))}
+    log(f"[11b] showcase (tools/e2e_showcase.py, {SHOWCASE_FRAMES} video frames, {frames} on the 60 s grid), DETR-small "
+        f"checkpoint float32 224x384 conf 0.2 NMS 0.3, {'video made here' if given is None else f'Phase 1 of {given}'}, "
+        f"cascade: card " + ", ".join(
+            f"{k} {got['card'][k]:.4f}" for k in ("mota", "idf1", "hota")) + f"; CPU " + ", ".join(
+            f"{k} {got['cpu'][k]:.4f}" for k in ("mota", "idf1", "hota"))
+        + f" (port mot_metrics against the gold GT); card IDSW {got['card']['id_switches']}, FP "
+        f"{got['card']['false_positives']}, FN {got['card']['false_negatives']} of {got['card']['num_objects']}")
+    log(f"[11b] tracks_mot.csv: {rows_equal} matched rows with the same id, {left} rows in one run only (within "
+        f"1e-3 of a threshold); zone_counts.csv {len(zone_rows)} rows, one a 5-minute window, each counting a "
+        f"track id once; card launches {counts} ({chunks} chunks); Phase 2.5 seconds (summary.json): card "
+        f"{phase25['card']:.3f}, CPU {phase25['cpu']:.3f}; main card {secs:.3f} s "
+        f"({phase_seconds(card_summary)}), CPU phases 2-5 {cpu_secs:.3f} s, on {smi}")
+    return {"counts": counts, "scores": got, "phase25": phase25}
+
+
+def load_threshold(scores_valid: list) -> float:
+    """The confidence threshold that leaves the most frames within
+    LOAD_DETECTIONS detections (ties: the median nearest the middle), from
+    each frame's scores at threshold 0 (NMS keeps a box by the boxes scored
+    above it only, so raising the threshold keeps the rest of that run's
+    boxes)."""
+    lo, hi = LOAD_DETECTIONS
+    target = (lo + hi) // 2
+    per_frame = [np.sort(s)[::-1] for s in scores_valid]
+    check(all(len(s) >= lo for s in per_frame), f"11c: a frame has only {min(len(s) for s in per_frame)} boxes at 0.0")
+    cands = sorted({float(s[min(target, len(s)) - 1]) for s in per_frame})
+    def spread(t):
+        n = [int((s >= t).sum()) for s in per_frame]
+        return sum(not lo <= k <= hi for k in n), abs(np.median(n) - target)
+    return min(cands, key=spread)
+
+
+def person_head(detector) -> None:
+    """Every class but person (and no-object) of the detector's class head
+    gets a zero weight row and a bias of -20, so that person is each query's
+    top class and its score is the random model's own."""
+    head = detector.model.class_labels_classifier
+    others = [c for c in range(head.out_features - 1) if c != detector.detr_config.person_class_id]
+    with torch.no_grad():
+        head.weight[others] = 0.0
+        head.bias[others] = -20.0
+
+
+def full_width_tracking_phase(ka, smi: str, frames: list, stamps: list) -> dict:
+    """[11c]: DETR-R50 bf16 at 736x1280, batch 8, seeded random weights,
+    over [8a]'s frames: DetectionPhase, TrackingPhase (cascade, then scan on
+    the card), TransformPhase and AggregationPhase (8a's load homography and
+    zones); the scan's ids equal to the port's scan on the CPU over the same
+    detections and features."""
+    H, zones = LOAD_H, LOAD_ZONES
+    import copy
+
+    from office_person_detection_vit_torch.core.dto import FrameResult
+    from office_person_detection_vit_torch.pipeline.phases import DetectionPhase, TrackingPhase
+    from office_person_detection_vit_torch.tracking.scan_tracker import assign_track_ids
+
+    n = len(frames)
+    cfg = {"detection.model_size": "full", "detection.dtype": "bfloat16", "detection.device": "cuda",
+           "detection.batch_size": 8, "detection.input_height": 736, "detection.input_width": 1280,
+           "detection.score_mode": "sigmoid", "detection.confidence_threshold": 0.0, "detection.nms_threshold": 0.4,
+           "tracking.enabled": True,
+           "transform.method": "homography", "homography.matrix": H.tolist(), "zones": zones}
+    scout = DetectionPhase(cfg)
+    scout.initialize()
+    person_head(scout.detector)
+    batch = scout.detector.detect_batch(np.stack(frames))
+    kept = [s[v] for s, v in zip(batch.scores, batch.valid)]
+    if min(len(k) for k in kept) < LOAD_DETECTIONS[0]:  # NMS 0.4 leaves too few of the random boxes
+        cfg["detection.nms_threshold"] = None
+        scout.detector.nms_threshold = None
+        batch = scout.detector.detect_batch(np.stack(frames))
+        kept = [s[v] for s, v in zip(batch.scores, batch.valid)]
+    thr = load_threshold(kept)
+    scout.cleanup()
+    cfg["detection.confidence_threshold"] = thr
+    detection = DetectionPhase(cfg)
+    detection.initialize()
+    person_head(detection.detector)
+    detection.detector.detect_batch(np.stack(frames[:8]))  # warm-up
+    results = [FrameResult(i, ts) for i, ts in enumerate(stamps)]
+    secs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp)
+        torch.cuda.synchronize()
+        ka.reset_launch_counts()
+        t = time.perf_counter()
+        detection.execute(frames, results, out)
+        torch.cuda.synchronize()
+        secs["detection"] = time.perf_counter() - t
+        counts = dict(ka.launch_counts)
+        per = [len(r.detections) for r in results]
+        lo, hi = LOAD_DETECTIONS
+        in_range = sum(lo <= k <= hi for k in per) / n
+        check(lo <= np.median(per) <= hi, f"11c: detections a frame {min(per)}-{max(per)}, median "
+              f"{np.median(per)}, at threshold {thr}")
+        want = expected_launches(ka, 920, torch.bfloat16, n // 8)
+        check(counts == want and counts["attention_flash"] == 18 * (n // 8),
+              f"11c: the detection phase launched {counts}, expected {want} (18 K2 a chunk)")
+        engines = {}
+        for engine in ("cascade", "scan"):
+            runs = copy.deepcopy(results) if engine == "scan" else results
+            phase = TrackingPhase({**cfg, "tracking.engine": engine})
+            phase.set_detector(detection.detector)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            phase.execute(runs, frames, out / engine, detection_batch=detection.last_batch)
+            torch.cuda.synchronize()
+            secs[f"tracking ({engine})"] = time.perf_counter() - t
+            width = detection.detector.detr_config.d_model
+            check(all(d.feature is not None and d.feature.shape == (width,) for r in runs for d in r.detections),
+                  f"11c: {engine}: a detection without its {width}-d encoder feature")
+            check(phase.statistics["unique_tracks"] > 0, f"11c: {engine}: no track ({phase.statistics})")
+            engines[engine] = (runs, phase.statistics)
+        scan_runs = engines["scan"][0]
+        card_ids = [[d.track_id for d in r.detections] for r in scan_runs]
+        cpu_runs = copy.deepcopy(scan_runs)
+        assign_track_ids(cpu_runs, device="cpu")
+        check(card_ids == [[d.track_id for d in r.detections] for r in cpu_runs],
+              "11c: the scan's ids on the card differ from the port's scan on the CPU")
+        phase_secs, _ = run_phases(cfg, results, out)
+        secs.update(phase_secs)
+        check_artifacts(out, [z["id"] for z in zones], n)
+    log(f"[11c] full width into tracking: {n} frames, DETR-R50 bf16 736x1280 batch 8, seeded random weights, "
+        f"threshold {thr:.6f}, NMS {cfg['detection.nms_threshold']} (set from the scores at 0.0; a load, not a test "
+        f"of quality): {min(per)}-{max(per)} detections a frame, median {np.median(per):.0f}, {100 * in_range:.1f}% "
+        f"of frames within {lo}-{hi} ({sum(per)} in all), each with its 256-d ROI-pooled encoder feature; launches "
+        f"{counts} (18 K2 a chunk); sigmoid scores, person the top class of every query (person_head); cascade {engines['cascade'][1]}; scan {engines['scan'][1]}, its "
+        f"ids equal to the port's CPU scan on the same detections and features")
+    log(f"[11c] wall seconds (host clock, card synchronised): " + ", ".join(f"{k} {v:.3f}" for k, v in secs.items())
+        + f" on {smi}")
+    return counts
+
+
+def tracking_slice(ka, probe, smi: str, frames: list, stamps: list, showcase: Path | None = None) -> dict:
+    """Phase 11: the tracking slice on the card; ``frames`` and ``stamps``
+    are 8a's load, ``probe`` the FlowProbe of phase 9, ``showcase`` [11b]'s
+    session made elsewhere (``showcase_phase``), if any."""
+    t = time.perf_counter()
+    workday = workday_phase(smi)
+    with tempfile.TemporaryDirectory() as tmp:
+        showcase = showcase_phase(ka, probe, smi, Path(tmp), showcase)
+    load_counts = full_width_tracking_phase(ka, smi, frames, stamps)
+    log(f"[11] tracking phase {time.perf_counter() - t:.1f} s")
+    return {"workday": workday, "showcase": showcase, "load": load_counts}
+
+
 def card_line() -> str:
     """The card's name and power limit, as nvidia-smi gives them."""
     return subprocess.run(
@@ -1616,7 +2101,11 @@ def main(argv=None) -> int:
     import argparse
 
     parser = argparse.ArgumentParser(description="Chip smoke test of the PyTorch/CUDA port.")
-    parser.add_argument("--phase", choices=["10a"], help="run only this phase (after the build) and print its rows")
+    parser.add_argument("--phase", choices=["10a", "11"], help="run only this phase (after the build) and print "
+                        "its rows")
+    parser.add_argument("--showcase-session", type=Path, default=None,
+                        help="[11b]: resume this directory's session/ (a showcase session made elsewhere, its "
+                        "scenario.json beside it) after Phase 1, instead of making the video here")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs the port on the card only", file=sys.stderr)
@@ -1630,11 +2119,22 @@ def main(argv=None) -> int:
         rows = b4_phase(ka, smi)
         print(json.dumps({"b4": list(rows.values())}), flush=True)
         return 0
+    if args.phase == "11":
+        from office_person_detection_vit_torch.kernels import attention as ka
+
+        smi = card_line()
+        log(f"[1] card: {smi}")
+        ka.load_library()
+        frames, stamps = slice_frames(load_render_frame(), datetime(2025, 1, 20, 9, 0, 0))
+        got = tracking_slice(ka, FlowProbe(), smi, frames, stamps, args.showcase_session)
+        print(json.dumps({"tracking": {"workday": got["workday"], "showcase_k1": got["showcase"]["counts"],
+                                       "load_k2": got["load"]}}, default=str), flush=True)
+        return 0
     with tempfile.TemporaryDirectory() as videos, tempfile.TemporaryDirectory() as data:
         writer = start_video_writer(Path(videos))  # phase 9's videos, written while phases 1-8 run
         dataset_writer = start_dataset_writer(Path(data))  # phase 10's images
         try:
-            return run(writer, Path(videos), dataset_writer, Path(data))
+            return run(writer, Path(videos), dataset_writer, Path(data), args.showcase_session)
         finally:
             for child in (writer, dataset_writer):
                 if child.poll() is None:
@@ -1642,7 +2142,8 @@ def main(argv=None) -> int:
                     child.wait()
 
 
-def run(writer: subprocess.Popen, videos: Path, dataset_writer: subprocess.Popen, data: Path) -> int:
+def run(writer: subprocess.Popen, videos: Path, dataset_writer: subprocess.Popen, data: Path,
+        showcase_session: Path | None = None) -> int:
     from office_person_detection_vit_torch import attention_kernel_bench as abench
     from office_person_detection_vit_torch.detection.detector import DETRDetector
     from office_person_detection_vit_torch.device import resolve_device
@@ -1827,15 +2328,18 @@ def run(writer: subprocess.Popen, videos: Path, dataset_writer: subprocess.Popen
     k3_row = bottleneck_phase(frames[:8], smi)
 
     # ---- 8. the slice: phases 2-4 through the port's phases, on the card
-    slice_counts = full_width_phase(ka, smi, render_frame, t_start, H, zones)
+    slice_counts, day_frames, day_stamps = full_width_phase(ka, smi, render_frame, t_start, H, zones)
     load_phase("cuda", smi, t_start)
     trained_counts = trained_phase(ka, smi, render_frame, t_start)
 
     # ---- 9. the whole flow through the port's entry point, on the card
-    day_counts, hour_counts = flow_phase(ka, smi, writer, videos, H, zones)
+    day_counts, hour_counts, probe = flow_phase(ka, smi, writer, videos, H, zones)
 
     # ---- 10. the training slice on the card
     train = training_phase(ka, smi, dataset_writer, data, frames[0])
+
+    # ---- 11. the tracking slice on the card
+    tracking = tracking_slice(ka, probe, smi, day_frames, day_stamps, showcase_session)
 
     # ---- result
     replaces = {"attention_whole_kv": "office_person_detection_vit_tpu/ops/attention.py:60",
@@ -1854,11 +2358,15 @@ def run(writer: subprocess.Popen, videos: Path, dataset_writer: subprocess.Popen
     other_paths = {"attention_whole_kv": {"phase 5 DETR-small detect": small_counts["attention_whole_kv"],
                                           "phase 8b DETR-small through phases 2-4": trained_counts["attention_whole_kv"],
                                           "phase 10c DETR-small training step (two forwards)":
-                                              train["small"]["attention_whole_kv"]},
+                                              train["small"]["attention_whole_kv"],
+                                          "phase 11b the DETR-small showcase through main into tracking":
+                                              tracking["showcase"]["counts"]["attention_whole_kv"]},
                    "attention_flash": {"phase 3 DETR-R50 detect": main_counts["attention_flash"],
                                        "phase 8a DETR-R50 through phases 2-4": slice_counts["attention_flash"],
                                        "phase 10b DETR-R50 training, 6 timed steps": train["full"]["counts"]["attention_flash"],
-                                       "phase 10d main --fine-tune, 2 steps": train["handoff"]["attention_flash"]}}
+                                       "phase 10d main --fine-tune, 2 steps": train["handoff"]["attention_flash"],
+                                       "phase 11c DETR-R50 through phases 2-4 with tracking":
+                                           tracking["load"]["attention_flash"]}}
     kernels = [
         {"name": name, "route": "cuda", "source": "office_person_detection_vit_torch/csrc/attention.cu",
          "replaces": replaces[name], "launches": counts[name], "launches_on": path,

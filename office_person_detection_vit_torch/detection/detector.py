@@ -13,8 +13,9 @@ device for the appearance features.
 ``detection.device``: ``"auto"``/``"cuda"`` run on the card (and raise when
 there is none), ``"cpu"`` on the CPU. Weights: a flat or path-keyed ``.npz``,
 a HF ``.pt``/``.bin``/``.safetensors``, otherwise a seeded random init with a
-warning. The data-parallel mesh and the I420 transfer formats have no
-counterpart on one card.
+warning. The data-parallel mesh has no counterpart on one card;
+``detection.transfer_format`` ``i420``/``i420d`` raise until ROADMAP A.4, and
+``auto`` resolves to ``bgr``.
 """
 
 from __future__ import annotations
@@ -41,6 +42,27 @@ logger = logging.getLogger(__name__)
 INIT_SEED = 0
 
 
+def check_transfer_format(value: Any) -> str:
+    """The upload format ``detection.transfer_format`` comes to: ``bgr``.
+
+    ``auto`` (the JAX detector races ``bgr``, ``i420`` and ``i420d`` on the
+    first batch) resolves to ``bgr``, one of the race's candidates, and says
+    so in the log; ``i420`` and ``i420d`` raise until the I420 routes are
+    ported (ROADMAP A.4): their chroma subsampling changes the pixels the
+    model sees.
+    """
+    fmt = str(value).lower()
+    if fmt in ("i420", "i420d"):
+        raise NotImplementedError(
+            f"detection.transfer_format={fmt!r}: the I420 transfer routes are not ported yet (ROADMAP A.4)")
+    if fmt == "auto":
+        logger.info("detection.transfer_format 'auto' resolves to 'bgr' (one of the race's candidates; the I420 "
+                    "routes wait for ROADMAP A.4)")
+    elif fmt != "bgr":
+        raise ValueError(f"detection.transfer_format={value!r}: expected bgr, i420, i420d or auto")
+    return "bgr"
+
+
 def _host_merge(chunks: list[DetectionBatch], n: int) -> DetectionBatch:
     """Concatenate per-chunk results and strip the padded frames."""
     fields = {
@@ -54,7 +76,8 @@ class DETRDetector:
     """Batched DETR person detector on one device."""
 
     #: How frames go up to the device: BGR uint8 (the I420 routes wait for
-    #: ROADMAP A.4). ``detection_statistics.json`` records it.
+    #: ROADMAP A.4; ``check_transfer_format``). ``detection_statistics.json``
+    #: records it.
     transfer_format = "bgr"
 
     def __init__(self, config: Any = None, *, detr_config: DETRConfig | None = None):
@@ -69,6 +92,7 @@ class DETRDetector:
         _nms = get("detection.nms_threshold", None)
         self.nms_threshold = float(_nms) if _nms is not None else None
         self.device_pref = str(get("detection.device", "auto"))
+        self.transfer_format = check_transfer_format(get("detection.transfer_format", "bgr"))
         if detr_config is None:
             if str(get("detection.backbone", "resnet50")) != "resnet50":
                 raise NotImplementedError("only the resnet50 backbone is ported")

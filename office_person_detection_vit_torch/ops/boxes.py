@@ -1,12 +1,14 @@
 """Box utilities on tensors.
 
 Mirrors ``office_person_detection_vit_tpu/ops/boxes.py`` (the functions the
-detector path, the matcher and the set loss use). All take leading batch
-dimensions.
+detector path, the matcher, the set loss and the trackers use). All take
+leading batch dimensions. ``iou_matrix_xywh_np`` is the host numpy form that
+the cascade tracker and the MOT metrics use.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -26,6 +28,17 @@ def foot_point_xywh(boxes_xywh: torch.Tensor) -> torch.Tensor:
     return torch.stack([x + w / 2, y + h], dim=-1)
 
 
+def xywh_to_xyxy(boxes: torch.Tensor) -> torch.Tensor:
+    x, y, w, h = boxes.unbind(-1)
+    return torch.stack([x, y, x + w, y + h], dim=-1)
+
+
+def center_xywh(boxes_xywh: torch.Tensor) -> torch.Tensor:
+    """Box centre (x + w/2, y + h/2) -> (..., 2)."""
+    x, y, w, h = boxes_xywh.unbind(-1)
+    return torch.stack([x + w / 2, y + h / 2], dim=-1)
+
+
 def box_area_xyxy(boxes: torch.Tensor) -> torch.Tensor:
     w = (boxes[..., 2] - boxes[..., 0]).clamp(min=0.0)
     h = (boxes[..., 3] - boxes[..., 1]).clamp(min=0.0)
@@ -42,6 +55,26 @@ def iou_matrix_xyxy(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     inter = wh[..., 0] * wh[..., 1]
     union = box_area_xyxy(a) + box_area_xyxy(b) - inter
     return torch.where(union > 0, inter / union, torch.zeros_like(inter))
+
+
+def iou_matrix_xywh(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return iou_matrix_xyxy(xywh_to_xyxy(a), xywh_to_xyxy(b))
+
+
+def iou_matrix_xywh_np(a, b) -> np.ndarray:
+    """Host numpy IoU of xywh boxes: (N, 4) x (M, 4) -> (N, M) float32, 0
+    where the union is empty (the divide is guarded, not only the select)."""
+    a = np.asarray(a, np.float32).reshape(-1, 4)
+    b = np.asarray(b, np.float32).reshape(-1, 4)
+    ax0, ay0, ax1, ay1 = a[:, 0], a[:, 1], a[:, 0] + a[:, 2], a[:, 1] + a[:, 3]
+    bx0, by0, bx1, by1 = b[:, 0], b[:, 1], b[:, 0] + b[:, 2], b[:, 1] + b[:, 3]
+    iw = np.maximum(np.minimum(ax1[:, None], bx1[None, :]) - np.maximum(ax0[:, None], bx0[None, :]), 0.0)
+    ih = np.maximum(np.minimum(ay1[:, None], by1[None, :]) - np.maximum(ay0[:, None], by0[None, :]), 0.0)
+    inter = iw * ih
+    area_a = np.maximum(ax1 - ax0, 0.0) * np.maximum(ay1 - ay0, 0.0)
+    area_b = np.maximum(bx1 - bx0, 0.0) * np.maximum(by1 - by0, 0.0)
+    union = area_a[:, None] + area_b[None, :] - inter
+    return np.where(union > 0, inter / np.maximum(union, 1e-12), 0.0).astype(np.float32)
 
 
 def generalized_iou_xyxy(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

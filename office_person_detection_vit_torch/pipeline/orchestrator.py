@@ -9,8 +9,10 @@ completed phases by reloading their artifacts.
 What the port does not have yet is refused when the orchestrator is built,
 before any session directory is written (:func:`refuse_unported`), and so is
 a card that is asked for and missing (``device.resolve_device``). Tracking
-is off by default, and then Phase 2.5 writes the same ``skipped`` checkpoint
-as in JAX.
+(Phase 2.5) is off by default, and then writes the same ``skipped``
+checkpoint as in JAX; with ``tracking.enabled`` it shares Phase 2's
+detector, and with ``video.dense_tracking.enabled`` it turns the dense frames
+into output windows before Phase 3.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from typing import Any
 import numpy as np
 
 from ..core.dto import AggregationResult, Detection, FrameResult
+from ..detection.detector import check_transfer_format
 from ..device import config_device, resolve_device
 from ..services.checkpoint_service import CheckpointService
 from ..services.output_service import OutputService
@@ -32,14 +35,13 @@ from ..video.video_processor import VideoProcessor
 from .frame_extraction_pipeline import ExtractedFrame, FrameExtractionPipeline
 from .phases.aggregation import AggregationPhase
 from .phases.detection import DetectionPhase
+from .phases.tracking import TrackingPhase
 from .phases.transform import TransformPhase
 from .phases.visualization import SIDE_BY_SIDE_REFUSAL, VisualizationPhase
 
 #: Config keys whose ``true`` asks for a part the port does not have yet,
 #: with the ROADMAP item that brings it.
 UNPORTED_KEYS = {
-    "tracking.enabled": "tracking (Phase 2.5) is not ported yet (ROADMAP A.5)",
-    "video.dense_tracking.enabled": "dense tracking needs tracking (Phase 2.5), which is not ported yet (ROADMAP A.5)",
     "parallel.distributed.enabled": "multi-host runs are not ported yet (ROADMAP A.8)",
     "output.save_side_by_side_video": SIDE_BY_SIDE_REFUSAL,
     "output.save_attention_maps": "the attention-map overlays are not ported yet (ROADMAP A.3)",
@@ -48,10 +50,12 @@ UNPORTED_KEYS = {
 
 def refuse_unported(config: Any) -> None:
     """Raise ``NotImplementedError`` for the first key of
-    :data:`UNPORTED_KEYS` that the config turns on."""
+    :data:`UNPORTED_KEYS` that the config turns on, and for a
+    ``detection.transfer_format`` the port does not have."""
     for key, why in UNPORTED_KEYS.items():
         if config.get(key, False):
             raise NotImplementedError(f"{key}: {why}")
+    check_transfer_format(config.get("detection.transfer_format", "bgr"))
 
 
 class PipelineOrchestrator:
@@ -224,11 +228,23 @@ class PipelineOrchestrator:
 
     # ------------------------------------------------------------ phase 2.5
     def run_tracking(self) -> list[FrameResult]:
-        """(reference orchestrator.py:234-281) Tracking is refused when
-        enabled (``refuse_unported``), so the phase is skipped, with the JAX
-        package's checkpoint."""
-        self.logger.info("tracking disabled; skipping phase 2.5")
-        self.checkpoints.save("03_tracking", status="skipped")
+        """(reference orchestrator.py:234-281; skipped when disabled)"""
+        if not self.config.get("tracking.enabled", False):
+            self.logger.info("tracking disabled; skipping phase 2.5")
+            self.checkpoints.save("03_tracking", status="skipped")
+            return self.frame_results
+        out_dir = self._phase_dir("03_tracking")
+        phase = TrackingPhase(self.config, self.logger)
+        detection_batch = None
+        if self.detection_phase is not None:
+            phase.set_detector(self.detection_phase.detector)
+            detection_batch = self.detection_phase.last_batch
+        with self.perf.measure("03_tracking"):
+            phase.execute(self.frame_results, self.frames or None, out_dir, detection_batch=detection_batch)
+            if self.config.get("video.dense_tracking.enabled", False):
+                self.frame_results = phase.aggregate_to_output_intervals(self.frame_results)
+        self.checkpoints.save("03_tracking", data=phase.statistics)
+        phase.cleanup()
         return self.frame_results
 
     # -------------------------------------------------------------- phase 3
@@ -380,7 +396,7 @@ class PipelineOrchestrator:
             return {"frames": len(self.frame_results)}
 
         needs_frames = not (done("02_detection") and done("04_transform"))
-        if needs_frames:
+        if needs_frames or self.config.get("tracking.enabled", False):
             self.prepare_frames_for_detection()
 
         if not done("02_detection"):

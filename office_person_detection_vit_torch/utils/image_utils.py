@@ -1,7 +1,8 @@
 """Annotated detection frames (host OpenCV).
 
 The detection-image part of ``office_person_detection_vit_tpu/utils/image_utils.py``:
-``draw_detections`` and ``save_detection_image`` with the JAX package's
+``draw_detections``, ``save_detection_image`` and
+``save_tracked_detection_image`` with the JAX package's
 colours, labels and label placement. OpenCV is imported inside each
 function, so the module imports where there is no ``cv2``.
 """
@@ -76,3 +77,8 @@ def save_detection_image(frame: np.ndarray, detections: Sequence[Detection], out
     out.parent.mkdir(parents=True, exist_ok=True)
     cv2.imwrite(str(out), draw_detections(frame, detections, **kwargs))
     return out
+
+
+def save_tracked_detection_image(frame: np.ndarray, detections: Sequence[Detection], output_path: str | Path) -> Path:
+    """A tracked frame: each track id's own colour and an ID label."""
+    return save_detection_image(frame, detections, output_path, draw_track_ids=True)

@@ -247,6 +247,16 @@ def test_import_guard_covers_the_training_slice():
     assert want <= names
 
 
+def test_import_guard_covers_the_tracking_slice():
+    names = {str(p.relative_to(REPO)) for p in _port_sources()}
+    pkg = "office_person_detection_vit_torch"
+    want = {f"{pkg}/tracking/{m}.py" for m in ("__init__", "similarity", "track", "tracker", "lightweight_tracker",
+                                                "reid_feature_extractor", "scan_tracker")} | {
+        f"{pkg}/benchmark/__init__.py", f"{pkg}/benchmark/mot_metrics.py", f"{pkg}/ops/kalman.py",
+        f"{pkg}/ops/assignment.py", f"{pkg}/utils/export_utils.py", f"{pkg}/pipeline/phases/tracking.py"}
+    assert want <= names
+
+
 @pytest.mark.parametrize("grad_input", [0, 1, 2])
 def test_kernels_refuse_inputs_that_require_grad(grad_input):
     """The kernels' output has no grad_fn: with grad enabled and an input

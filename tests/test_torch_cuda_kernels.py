@@ -1,6 +1,7 @@
 """The CUDA kernels (attention K1/K2, fused bottleneck K3) against their plain
 version, on the card, and B.4 (attention under autograd: K1/K2 forward, the
-backward kernel pair) against float64 autograd of the plain version.
+backward kernel pair) against float64 autograd of the plain version. Also the
+scan tracker's loop on the card against the CPU, with no host sync inside it.
 
 Marked ``cuda``; each test skips where there is no CUDA device (the CUDA
 kernels have no CPU mode). On a GPU machine:
@@ -431,3 +432,49 @@ def test_attention_map_leaves_detect_launch_counts(card):
         amap = det.get_attention_map(frames[0])
         assert amap.shape == det.feature_hw and np.isfinite(amap).all()
     assert counts[0] == counts[1] and sum(counts[0].values()) == 6  # 2 encoder, 2 + 2 decoder calls
+
+
+@pytest.mark.parametrize("features", [True, False])
+def test_scan_tracker_on_the_card_matches_the_cpu(features):
+    """The scan tracker's whole loop on the card, under
+    ``set_sync_debug_mode("error")`` (any host synchronisation inside it
+    raises): the same (F, D) ids as on the CPU, and the same final state
+    (the cost's products are summed in float64 and rounded, everything else
+    is elementwise)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import numpy as np
+
+    from office_person_detection_vit_torch.tracking import scan_tracker as scan
+
+    rng = np.random.default_rng(3)
+    F, D, people, Fd = 60, 12, 9, 64
+    pos = rng.uniform([0, 0], [1200, 600], (people, 2))
+    looks = rng.normal(size=(people, Fd))
+    boxes = np.zeros((F, D, 4), np.float32)
+    conf = np.zeros((F, D), np.float32)
+    valid = np.zeros((F, D), bool)
+    feats = np.zeros((F, D, Fd if features else 1), np.float32)
+    for f in range(F):
+        pos += rng.normal(0, 6, pos.shape)
+        for k, p in enumerate(rng.permutation(people)[: rng.integers(6, people + 1)]):
+            boxes[f, k] = [*(pos[p] + rng.normal(0, 2, 2)), 50, 150]
+            conf[f, k], valid[f, k] = rng.uniform(0.2, 0.95), True
+            if features:
+                v = looks[p] + rng.normal(0, 0.3, Fd)
+                feats[f, k] = v / np.linalg.norm(v)
+    arrays = (boxes, conf, valid, feats, np.full((F,), 10.0, np.float32))
+    kw = {"min_hits": 2, "max_age": 5}
+    cpu_state, cpu_ids = scan.scan_track(scan.init_state(16, feats.shape[-1]), *map(torch.from_numpy, arrays), **kw)
+    inputs = [torch.from_numpy(a).cuda() for a in arrays]
+    state = scan.init_state(16, feats.shape[-1], "cuda")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, ids = scan.scan_track(state, *inputs, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert ids.is_cuda and state.kf_x.is_cuda
+    assert torch.equal(ids.cpu(), cpu_ids) and (cpu_ids > 0).sum() > valid.sum() // 2
+    for name, value in scan.state_to_numpy(state).items():
+        np.testing.assert_array_equal(value, getattr(cpu_state, name).numpy(), err_msg=name)

@@ -6,8 +6,11 @@ Both detectors run the tiny tier on the CPU in float32 with the same weights
 ``nms_threshold`` 0.4, and a tail chunk that exercises a power-of-two bucket.
 Boxes and foot points agree to 1e-3 px, scores to 1e-5, valid flags exactly.
 The Phase 3-4 functions then take the same points: floor coordinates agree to
-1e-5 relative, zone membership and counts exactly.
+1e-5 relative, zone membership and counts exactly. ``detection.transfer_format``:
+the I420 formats are refused and ``auto`` resolves to ``bgr`` (ROADMAP C.6).
 """
+
+import logging
 
 import jax.numpy as jnp
 import numpy as np
@@ -166,3 +169,24 @@ def test_device_names():
     assert resolve_device("cpu") == torch.device("cpu")
     with pytest.raises(ValueError):
         resolve_device("tpu")
+
+
+@pytest.mark.parametrize("fmt", ["i420", "i420d", "I420"])
+def test_i420_transfer_formats_are_refused(fmt):
+    """ROADMAP C.6: the I420 routes change the pixels the model sees, and the
+    port does not have them yet (A.4), so it refuses them where JAX would
+    run them."""
+    with pytest.raises(NotImplementedError, match="ROADMAP A.4"):
+        DETRDetector({"detection.device": "cpu", "detection.transfer_format": fmt})
+
+
+@pytest.mark.parametrize("fmt", ["auto", "bgr"])
+def test_auto_transfer_format_resolves_to_bgr(fmt, caplog):
+    """``auto`` (the shipped config.yaml's value) takes ``bgr``, one of the JAX
+    race's candidates, and says so in the log."""
+    with caplog.at_level(logging.INFO, logger="office_person_detection_vit_torch.detection.detector"):
+        det = DETRDetector({"detection.device": "cpu", "detection.transfer_format": fmt})
+    assert det.transfer_format == "bgr"
+    said = [r.getMessage() for r in caplog.records if "transfer_format" in r.getMessage()]
+    assert said == (["detection.transfer_format 'auto' resolves to 'bgr' (one of the race's candidates; the I420 "
+                     "routes wait for ROADMAP A.4)"] if fmt == "auto" else [])

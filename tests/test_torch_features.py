@@ -7,7 +7,8 @@ on the CPU in float32.
   ``detect_with_features`` gives the same valid detections (boxes within
   1e-3 px) and features within 1e-5; ``get_attention_map`` agrees to 1e-5,
   and it leaves ``detect_batch`` as it was;
-- a failed chunk yields all-invalid detections and zero features.
+- a failed chunk yields all-invalid detections and zero features;
+- the ReID ``detr`` backend over both detectors: the same features (1e-5).
 """
 
 from datetime import datetime
@@ -20,9 +21,11 @@ import torch
 
 from office_person_detection_vit_torch.detection import features as port_features
 from office_person_detection_vit_torch.detection.detector import DETRDetector
+from office_person_detection_vit_torch.tracking.reid_feature_extractor import ReIDFeatureExtractor
 from office_person_detection_vit_tpu.config.config_manager import ConfigManager
 from office_person_detection_vit_tpu.detection import features as jax_features
 from office_person_detection_vit_tpu.detection.detector import DETRDetector as JaxDETRDetector
+from office_person_detection_vit_tpu.tracking.reid_feature_extractor import ReIDFeatureExtractor as JaxReIDFeatureExtractor
 from tests.helpers.synthetic_video import render_frame
 from tests.helpers.torch_threads import two_torch_threads  # noqa: F401 (autouse: 2 torch threads)
 
@@ -128,3 +131,22 @@ def test_failed_chunk_yields_zero_features(small_detectors, monkeypatch):
     assert not feats[1].any() and feats[0].any()
     enc = port_det._last_encoder_output
     assert enc.shape == (3, 7 * 12, port_det.detr_config.d_model) and not enc[1].any()
+
+
+def test_reid_detr_backend_matches_jax(small_detectors):
+    """``tracking.reid.model_type: detr``: a requested box that overlaps one
+    of the detector's own detections (IoU > 0.5) takes its encoder feature,
+    one that overlaps none a crop histogram; features within 1e-5."""
+    jax_det, port_det, frame = small_detectors
+    dets, _ = port_det.detect_with_features(frame)
+    boxes = [tuple(float(v) + 2.0 for v in d.bbox) for d in dets] + [(0.0, 600.0, 40.0, 80.0)]
+    got_ex, want_ex = ReIDFeatureExtractor(detector=port_det), JaxReIDFeatureExtractor(detector=jax_det)
+    for ex in (got_ex, want_ex):
+        ex.load_model()
+    dim = port_det.detr_config.d_model
+    assert (got_ex.backend, got_ex.feature_dim) == (want_ex.backend, want_ex.feature_dim) == ("detr", dim)
+    got, want = got_ex.extract_features(frame, boxes), want_ex.extract_features(frame, boxes)
+    assert got.shape == (len(boxes), dim) and len(dets) >= 1
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+    np.testing.assert_array_equal(got[-1], port_features.crop_histogram_features(frame, np.asarray(boxes[-1:]), dim)[0])
+    assert not np.array_equal(got[0], port_features.crop_histogram_features(frame, np.asarray(boxes[:1]), dim)[0])

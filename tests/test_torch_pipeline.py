@@ -9,7 +9,10 @@ package's, on the CPU.
   ``extraction_results.csv`` and extracted frames; detections within the
   DETR bar; ``coordinate_transformations.json``'s floor points within 1e-3
   px of the JAX run's, and of the JAX transform of the port's own
-  detections; the same ``zone_counts.csv``; ``summary.json``,
+  detections; Phase 2.5 (``tracking.enabled``, the cascade over the encoder
+  features) with the same track ids, ``tracking_statistics.json`` and frame
+  index, boxes in the track files within the DETR bar; the same
+  ``zone_counts.csv``; ``summary.json``,
   ``pipeline_checkpoint.json`` and ``metadata.json`` with the same keys and
   statistics; the same session layout, floormap PNGs of the same size.
 - Resume skips the same phases in both, and rewrites the same
@@ -65,7 +68,7 @@ from office_person_detection_vit_tpu.visualization.visualizer import Visualizer 
 from tests.helpers.synthetic_video import write_video
 from tests.helpers.torch_threads import two_torch_threads  # noqa: F401 (autouse: 2 torch threads)
 from tests.test_torch_features import SMALL
-from tests.test_torch_phases import DETECTION_PX_KEYS, _assert_json_close
+from tests.test_torch_phases import DETECTION_PX_KEYS, DETECTION_PX_TOL, _assert_json_close
 from tests.test_torch_timestamp import read_extraction_csv
 
 REPO = Path(__file__).resolve().parents[1]
@@ -97,6 +100,7 @@ def flow_config(out: Path, video: Path, **overrides) -> dict:
         "homography": {"matrix": H},
         "zones": ZONES,
         "output": {"directory": str(out), "save_floormap_images": True},
+        "tracking": {"enabled": True},
         "timestamp": {"extraction_mode": "auto_targets", "auto_targets": {"max_frames": 60, "disable_validation": True},
                       "sampling": {"coarse_interval_seconds": 0.5}, "extraction": {"confidence_threshold": 0.3}},
     }
@@ -227,6 +231,36 @@ def test_flow_transform_matches_jax(flow):
             assert d.get("zone_ids", []) == want.zone_ids
 
 
+def _track_rows(text: str, header: bool) -> list:
+    """A track CSV's rows: the ids and timestamps as text, boxes and
+    confidences as numbers."""
+    rows = list(csv.reader(text.splitlines()))[1 if header else 0:]
+    return [[float(v) if i in ((3, 4, 5, 6, 7) if header else (2, 3, 4, 5, 6)) else v for i, v in enumerate(r)]
+            for r in rows]
+
+
+def test_flow_tracking_matches_jax(flow):
+    """Phase 2.5 over the encoder features of the same detections: the same
+    track ids on the same frames, statistics and frame index; boxes within
+    the DETR bar (and one unit of their rounding), confidences within 1e-3."""
+    got = {k[len("03_tracking/"):]: v for k, v in flow["port"].items() if k.startswith("03_tracking/")}
+    want = {k[len("03_tracking/"):]: v for k, v in flow["jax"].items() if k.startswith("03_tracking/")}
+    assert set(got) == set(want) == {"tracks.csv", "tracks_mot.csv", "tracks.json", "frames_index.csv",
+                                     "tracking_statistics.json"}
+    assert got["tracking_statistics.json"] == want["tracking_statistics.json"]
+    assert got["tracking_statistics.json"]["unique_tracks"] >= 2 and got["frames_index.csv"] == want["frames_index.csv"]
+    for name, header, tol in (("tracks.csv", True, 0.1), ("tracks_mot.csv", False, 0.01)):
+        g, w = _track_rows(got[name], header), _track_rows(want[name], header)
+        assert len(g) == len(w) >= 4, name
+        for gr, wr in zip(g, w):
+            assert [v for v in gr if isinstance(v, str)] == [v for v in wr if isinstance(v, str)], name
+            nums = [(a, b) for a, b in zip(gr, wr) if isinstance(a, float)]
+            assert all(abs(a - b) <= DETECTION_PX_TOL + tol for a, b in nums[:4]), (name, gr, wr)
+            assert abs(nums[4][0] - nums[4][1]) <= 2e-3, (name, gr, wr)
+    _assert_json_close(got["tracks.json"], want["tracks.json"], 2e-3, "tracks.json",
+                       {"bbox": DETECTION_PX_TOL + 0.1})
+
+
 def test_flow_zone_counts_match_jax(flow):
     text = flow["port"]["05_aggregation/zone_counts.csv"]
     assert text == flow["jax"]["05_aggregation/zone_counts.csv"]
@@ -239,8 +273,8 @@ def test_flow_summary_and_checkpoints_match_jax(flow):
     got, want = flow["port"]["summary.json"], flow["jax"]["summary.json"]
     assert got.keys() == want.keys() and got["statistics"] == want["statistics"]
     assert got["performance"].keys() == want["performance"].keys()
-    assert set(got["performance"]) == {"01_extraction", "02_detection", "04_transform", "05_aggregation",
-                                       "06_visualization"}
+    assert set(got["performance"]) == {"01_extraction", "02_detection", "03_tracking", "04_transform",
+                                       "05_aggregation", "06_visualization"}
     got, want = flow["port"]["pipeline_checkpoint.json"], flow["jax"]["pipeline_checkpoint.json"]
     assert got.keys() == want.keys() and got["last_phase"] == want["last_phase"] == "06_visualization"
     assert got["phases"].keys() == want["phases"].keys()
@@ -251,7 +285,8 @@ def test_flow_summary_and_checkpoints_match_jax(flow):
             for d in data:
                 d.pop("transfer_format")
         _assert_json_close(*data, 1e-3)
-    assert got["phases"]["03_tracking"]["status"] == "skipped"
+    assert got["phases"]["03_tracking"]["status"] == "completed"
+    assert got["phases"]["03_tracking"]["data"] == want["phases"]["03_tracking"]["data"]
 
 
 def test_flow_metadata_and_layout_match_jax(flow):
@@ -321,8 +356,7 @@ def test_missing_video_returns_1_like_jax_main(tmp_path):
 
 
 REFUSALS = {
-    "tracking": ({"tracking.enabled": True}, [], "A.5"),
-    "dense_tracking": ({"video.dense_tracking.enabled": True}, [], "A.5"),
+    "i420": ({"detection.transfer_format": "i420"}, [], "A.4"),
     "distributed": ({"parallel.distributed.enabled": True}, [], "A.8"),
     "side_by_side_video": ({"output.save_side_by_side_video": True}, [], "A.3"),
     "attention_maps": ({"output.save_attention_maps": True}, [], "A.3"),

@@ -3,6 +3,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --phase 10a   # B.4 and its backward pair alone
     python3 chip_smoke.py --phase 11    # the tracking slice alone
+    python3 chip_smoke.py --phase 12    # the ViT slice alone
 
 Builds the hand-written CUDA kernels from
 ``office_person_detection_vit_torch/csrc`` (one nvcc call), holds each against
@@ -102,11 +103,27 @@ the pipeline phases 2-4, the entry point and the trainer:
    ``zone_counts.csv`` with one count a track id a 5-minute window; (c)
    DETR-R50 bf16 over 8a's 288 frames into ``TrackingPhase`` (cascade, then
    scan on the card, the same ids as the CPU scan), ``TransformPhase`` and
-   ``AggregationPhase``, each phase's seconds.
+   ``AggregationPhase``, each phase's seconds;
+12. the ViT slice (ViT-base/16 as DETR's backbone, head dim 64): (a) every
+   head-dim-64 body's registers, spills (none allowed) and HMMA count; K1
+   and K2 at head dim 64 and at a padded 48 in both types against the plain
+   version, the ViT's main-path shape (8, 12, 3681, 3681, 64) timed against
+   SDPA and the bound; B.4 at [10a]'s gate at head dim 64 and 48; B.4 at
+   ViT-base's training shape (8, 12, 4033, 4033, 64) timed against SDPA;
+   (b) ViT-base/16 DETR detect at 736x1280, bf16, batch 8 through
+   ``DETRDetector`` (30 K2 a chunk, frames/s), the float32 model on the card
+   against the CPU at the DETR bar, and ``main`` with ``detection.backbone:
+   vit`` on the one-hour video; (c) ViT-base/16 DETR training at 768x1344,
+   bf16, batch 8 (6 timed steps, their split, 30 B.4 pairs a step, every
+   parameter with a gradient moved), then ``train_detr --backbone vit``;
+   (d) ``main --evaluate`` and the trainer's ``--evaluate`` with the DETR-small
+   checkpoint against a ground-truth file of the persons drawn into the
+   one-hour video, card tp/fp/fn within 1 of the CPU's.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 Its last two lines are JSON: the kernels (launches, error, times, bound; K1,
-K2, K3, B.4 and its backward pair) and the device.
+K2, K3, B.4 and its backward pair, and K2, B.4 and the pair at head dim 64 on
+the ViT's path) and the device.
 """
 
 from __future__ import annotations
@@ -263,13 +280,18 @@ def kernel_resources(ka, kb, build) -> None:
         base, args = a["name"].split("<")
         dtype = torch.bfloat16 if args.startswith("bf16") else torch.float32
         d = int(args.rstrip(">").split(",")[1])
-        dyn = ka.whole_kv_plan(920, 920, d, dtype)["smem_bytes"] if "whole_kv" in base else 0
-        fits = "whole_kv" not in base or ka.whole_kv_fits(920, d, dtype)
+        if "whole_kv" in base:
+            fits = ka.whole_kv_fits(920, d, dtype)
+            dyn = f"{ka.whole_kv_plan(920, 920, d, dtype)['smem_bytes']:6d} B at Lk 920" if fits else \
+                "none at Lk 920 (K2)"
+        elif dtype == torch.bfloat16:  # the ring of csrc/attention.cu::Ring: 3 slots of two tiles and the vectors
+            dyn = f"{3 * (2 * 64 * d * 2 + (2 if 'dkdv' in base else 1) * 64 * 4):6d} B (ring)"
+        else:
+            dyn = "     0 B"
         n_hmma = hmma_of(hmma, a["name"])
         check(bool(n_hmma) == (dtype == torch.bfloat16), f"{a['name']}: {n_hmma} HMMA instructions in its SASS")
         log(f"[1] {a['name']:36s} regs {a['regs']:3d}  spill (local) {a['local_bytes']:4d} B  static smem "
-            f"{a['static_smem']:6d} B  dynamic smem {f'{dyn:6d} B' if fits else 'none (K2 at Lk 920)'} at Lk 920  "
-            f"HMMA in SASS {n_hmma}")
+            f"{a['static_smem']:6d} B  dynamic smem {dyn}  HMMA in SASS {n_hmma}")
     # K3: the dynamic shared memory of each instantiation (rows) at a
     # geometry whose plan takes it (bf16: DETR-R50 stage 1 the 160-row
     # tiles, stage 4 the 128-row ones; float32: stage 1 64 rows, stage 4 16,
@@ -292,6 +314,40 @@ def kernel_resources(ka, kb, build) -> None:
         log(f"[1] {a['name']:36s} regs {a['regs']:3d}  spill (local) {a['local_bytes']:4d} B  static smem "
             f"{a['static_smem']:6d} B  dynamic smem {smem:6d} B at W {width}, M {mid}, tile_h {tile_h} "
             f"({tile_h} x {tile_w}, {rows} rows)  HMMA in SASS {n_hmma}")
+
+
+def float32_card_vs_cpu(ka, cfg, frames: np.ndarray, want_counts: dict, where: str) -> tuple[float, float, float]:
+    """The float32 model ``cfg`` (seeded random weights) on the card, TF32
+    off, against the same weights on the CPU (the plain attention), on
+    ``frames`` at 736x1280: the launches must be ``want_counts`` and the
+    outputs within the repo's DETR bar. -> (max |dlogits|, max |dboxes|,
+    the CPU's seconds)."""
+    from office_person_detection_vit_torch.device import resolve_device
+    from office_person_detection_vit_torch.models.detr import DETR
+    from office_person_detection_vit_torch.ops.preprocessing import preprocess_frames
+
+    resolve_device("cuda", "float32")  # TF32 off for the float32 comparison
+    cpu_model = DETR(cfg)
+    cpu_model.init_weights(torch.Generator().manual_seed(0))
+    cpu_model.eval()
+    gpu_model = DETR(cfg).eval()
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    gpu_model.cuda()
+    pixels, mask = preprocess_frames(torch.from_numpy(frames), target_hw=(736, 1280))
+    ka.reset_launch_counts()
+    with torch.inference_mode():
+        got = gpu_model(pixels.cuda(), mask.cuda())
+        torch.cuda.synchronize()
+        counts = dict(ka.launch_counts)
+        t = time.perf_counter()
+        want = cpu_model(pixels, mask)
+        cpu_secs = time.perf_counter() - t
+    d_logits = (got["logits"].cpu() - want["logits"]).abs()
+    d_boxes = (got["boxes"].cpu() - want["boxes"]).abs().max().item()
+    check(counts == want_counts, f"{where}: float32 forward launched {counts}, expected {want_counts}")
+    check(bool((d_logits <= LOGITS_ATOL + LOGITS_RTOL * want["logits"].abs()).all()) and d_boxes <= BOXES_ATOL,
+          f"{where}: float32 card vs CPU: max|dlogits| {d_logits.max().item():.2e}, max|dboxes| {d_boxes:.2e}")
+    return d_logits.max().item(), d_boxes, cpu_secs
 
 
 def launches(whole_kv: int = 0, flash: int = 0, backward: int = 0) -> dict:
@@ -753,9 +809,7 @@ def trained_phase(ka, smi: str, render_frame, t_start: datetime) -> dict:
     stamps = [t_start + timedelta(minutes=5 * i) for i in range(len(people))]
     frames = [without_timestamp(render_frame(ts, people=[p], seed=seed), seed)
               for ts, (p, seed, _) in zip(stamps, people)]
-    quads = {"zone_nw": (0, 0), "zone_ne": (640, 0), "zone_sw": (0, 360), "zone_se": (640, 360)}
-    zones = [{"id": z, "polygon": [[x, y], [x + 640, y], [x + 640, y + 360], [x, y + 360]], "priority": i + 1}
-             for i, (z, (x, y)) in enumerate(quads.items())]
+    quads, zones = HOUR_QUADS, hour_zones()
     cfg = {"detection.model_size": "small", "detection.score_mode": "sigmoid",
            "detection.checkpoint_path": str(ROOT / "docs" / "artifacts" / "detr_small_weights.npz"),
            "detection.device": "cuda", "detection.dtype": "float32", "detection.input_height": 224,
@@ -845,6 +899,15 @@ def day_people(i: int) -> list:
 def hour_people(i: int) -> list:
     """Two people at known places, one in the west half, one in the east."""
     return [(150 + (5 * i) % 400, 200, 1), (760 + (3 * i) % 400, 420, 2)]
+
+
+#: Phase 9b's zones of the one-hour video: its four quadrants.
+HOUR_QUADS = {"zone_nw": (0, 0), "zone_ne": (640, 0), "zone_sw": (0, 360), "zone_se": (640, 360)}
+
+
+def hour_zones() -> list:
+    return [{"id": z, "polygon": [[x, y], [x + 640, y], [x + 640, y + 360], [x, y + 360]], "priority": i + 1}
+            for i, (z, (x, y)) in enumerate(HOUR_QUADS.items())]
 
 
 def write_videos(out_dir: str) -> None:
@@ -1260,7 +1323,12 @@ def planted_fault_grads(q, k, v, mask, out, lse, g) -> dict:
                                 grads(ds, scale * (1 + 2.0**-5)))))
 
 
-def lse_phase(ka, smi: str) -> None:
+DETECT_LSE_CASES = [((8, 8, 920, 920, 32), "bfloat16", True, "R50 detect encoder"),
+                    ((8, 8, 100, 920, 32), "bfloat16", True, "R50 detect cross"),
+                    ((8, 8, 100, 100, 32), "bfloat16", False, "R50 detect decoder self")]
+
+
+def lse_phase(ka, smi: str, cases=B4_CASES + DETECT_LSE_CASES, tag: str = "10a") -> None:
     """10a, first: the forward kernel that B.4 takes at each B4_CASES shape,
     and K2 at the detect path's three bf16 shapes (736x1280: 920 tokens),
     give the same bits with and without the log-sum-exp pointer, and the
@@ -1268,10 +1336,7 @@ def lse_phase(ka, smi: str) -> None:
     from office_person_detection_vit_torch import attention_kernel_bench as abench
     from office_person_detection_vit_torch.ops.attention import attention_lse
 
-    detect = [((8, 8, 920, 920, 32), "bfloat16", True, "R50 detect encoder"),
-              ((8, 8, 100, 920, 32), "bfloat16", True, "R50 detect cross"),
-              ((8, 8, 100, 100, 32), "bfloat16", False, "R50 detect decoder self")]
-    for seed, (shape, dt, masked, path) in enumerate(B4_CASES + detect):
+    for seed, (shape, dt, masked, path) in enumerate(cases):
         dtype = abench.DTYPES[dt]
         q, k, v, mask = abench.make_inputs(shape, dtype, masked, 300 + seed)
         fn = ka.attention_flash if ka.use_flash(shape[3], shape[4], dtype) else ka.attention_whole_kv
@@ -1279,13 +1344,13 @@ def lse_phase(ka, smi: str) -> None:
         out, lse = fn(q, k, v, mask, with_lse=True)
         want = attention_lse(q, k, mask)
         err = ((lse - want).abs() / want.abs().clamp(min=1.0)).max().item()
-        check(torch.equal(plain, out), f"10a {shape} {dt}: {fn.__name__} with the lse pointer changed its output")
-        check(err <= LSE_TOL[dtype], f"10a {shape} {dt}: lse off attention_lse by {err:.2e} (bar {LSE_TOL[dtype]:.0e})")
-        log(f"[10a] {fn.__name__} {shape} {dt} ({path}): output bit-identical with and without lse; lse within "
+        check(torch.equal(plain, out), f"{tag} {shape} {dt}: {fn.__name__} with the lse pointer changed its output")
+        check(err <= LSE_TOL[dtype], f"{tag} {shape} {dt}: lse off attention_lse by {err:.2e} (bar {LSE_TOL[dtype]:.0e})")
+        log(f"[{tag}] {fn.__name__} {shape} {dt} ({path}): output bit-identical with and without lse; lse within "
             f"{err:.2e} of attention_lse relative to max(1,|lse|) (bar {LSE_TOL[dtype]:.0e})")
 
 
-def b4_phase(ka, smi: str) -> dict:
+def b4_phase(ka, smi: str, cases=B4_CASES, lse_cases=B4_CASES + DETECT_LSE_CASES, tag: str = "10a") -> dict:
     """10a: B.4 (ops.attention.KernelAttention: K1/K2 forward with the
     log-sum-exp, the backward kernel pair) on the card at the training
     shapes: the forward at the kernels' bars; dq/dk/dv against float64
@@ -1299,9 +1364,9 @@ def b4_phase(ka, smi: str) -> dict:
     from office_person_detection_vit_torch.ops.attention import (KernelAttention, attention_backward_reference,
                                                                  attention_reference)
 
-    lse_phase(ka, smi)
+    lse_phase(ka, smi, lse_cases, tag)
     rows = {}
-    for seed, (shape, dt, masked, path) in enumerate(B4_CASES):
+    for seed, (shape, dt, masked, path) in enumerate(cases):
         dtype = abench.DTYPES[dt]
         q, k, v, mask = abench.make_inputs(shape, dtype, masked, 100 + seed)
         g = torch.randn(q.shape, generator=torch.Generator().manual_seed(200 + seed)).to("cuda", dtype)
@@ -1313,7 +1378,7 @@ def b4_phase(ka, smi: str) -> dict:
         grads = torch.autograd.grad(out, (q, k, v), g, retain_graph=True)
         torch.cuda.synchronize()
         check(oa.launch_counts["attention_diff"] == 1 and ka.launch_counts["attention_backward"] == 1,
-              f"10a {shape}: B.4 launched {oa.launch_counts}, {ka.launch_counts}")
+              f"{tag} {shape}: B.4 launched {oa.launch_counts}, {ka.launch_counts}")
         x = [t.detach() for t in (q, k, v)]
         fn = ka.attention_flash if ka.use_flash(shape[3], shape[4], dtype) else ka.attention_whole_kv
         out2, lse = fn(*x, mask, with_lse=True)
@@ -1326,12 +1391,12 @@ def b4_phase(ka, smi: str) -> dict:
         grad_err, twin_err = relative_error(grads, exact), relative_error(grads, twin)
         plain_err = relative_error(plain_grads, exact)
         grad_abs = max((a.double() - b).abs().max().item() for a, b in zip(grads, exact))
-        check(all(bool(torch.isfinite(t).all()) for t in (out, *grads)), f"10a {shape}: non-finite B.4 output")
+        check(all(bool(torch.isfinite(t).all()) for t in (out, *grads)), f"{tag} {shape}: non-finite B.4 output")
         check(torch.equal(out, out2) and all(torch.equal(a, b) for a, b in zip(pair[0], pair[1]))
               and all(torch.equal(a, b) for a, b in zip(pair[0], grads)),
-              f"10a {shape} {dt}: the forward or the backward pair is not the same bits from call to call")
+              f"{tag} {shape} {dt}: the forward or the backward pair is not the same bits from call to call")
         check(fwd_err <= tol and grad_err <= bar and twin_err <= bar,
-              f"10a {shape} {dt}: forward err {fwd_err:.2e} (bar {tol:.0e}); dq/dk/dv against float64 autograd "
+              f"{tag} {shape} {dt}: forward err {fwd_err:.2e} (bar {tol:.0e}); dq/dk/dv against float64 autograd "
               f"{grad_err:.2e}, against attention_backward_reference {twin_err:.2e} (bar {bar:.2e})")
         # the same values with the last batch entry's keys all masked: the pair, and the planted faults
         dead = (torch.ones(shape[0], shape[3], dtype=torch.bool, device="cuda") if mask is None else mask).clone()
@@ -1345,9 +1410,9 @@ def b4_phase(ka, smi: str) -> dict:
         faults = {name: abench.relative_errors(f, exact_dead) for name, f in planted.items()}
         fault_text = "; ".join(f"{name} {e:.2e} / {m:.2e}" for name, (e, m) in faults.items())
         check(dead_err <= bar and all(max(r) > bar for r in faults.values()),
-              f"10a {shape} {dt}, last entry all masked: the pair {dead_err:.2e} (bar {bar:.2e}); the planted "
+              f"{tag} {shape} {dt}, last entry all masked: the pair {dead_err:.2e} (bar {bar:.2e}); the planted "
               f"faults must read over the bar (per element / per tensor): {fault_text}")
-        log(f"[10a] B.4 {shape} {dt}, last entry all masked: the pair against float64 autograd {dead_err:.2e} "
+        log(f"[{tag}] B.4 {shape} {dt}, last entry all masked: the pair against float64 autograd {dead_err:.2e} "
             f"(bar {bar:.2e}); planted faults in the pair's plain version, rejected (per element / per tensor): "
             f"{fault_text}")
         del xd, dead_grads, exact_dead, planted
@@ -1383,11 +1448,11 @@ def b4_phase(ka, smi: str) -> dict:
             "bound_ms": b_ms, "bound_by": b_by, "backward_bound_ms": bb_ms, "backward_bound_by": bb_by,
         }
         rows[shape] = row
-        log(f"[10a] B.4 {shape} {dt} ({path}): forward err {fwd_err:.2e} (bar {tol:.0e}); dq/dk/dv of the "
+        log(f"[{tag}] B.4 {shape} {dt} ({path}): forward err {fwd_err:.2e} (bar {tol:.0e}); dq/dk/dv of the "
             f"backward pair against float64 autograd {grad_err:.2e}, against attention_backward_reference "
             f"{twin_err:.2e} (bar {bar:.2e}, relative_error); plain autograd in {dt} against float64 "
             f"{plain_err:.2e} (diagnostic); two calls of the pair bit-identical")
-        log(f"[10a] B.4 {shape} {dt}: forward+backward {row['ms']:.4f} ms (forward {row['forward_ms']:.4f}, "
+        log(f"[{tag}] B.4 {shape} {dt}: forward+backward {row['ms']:.4f} ms (forward {row['forward_ms']:.4f}, "
             f"backward {row['backward_ms']:.4f}, the pair alone {row['pair_ms']:.4f}), plain autograd "
             f"{row['plain_ms']:.4f}, the pair's plain version {row['plain_backward_ms']:.4f}, SDPA "
             f"{row['library_ms']:.4f} (backward alone {row['library_backward_ms']:.4f}); bound {b_ms:.4f} ({b_by}), "
@@ -1426,22 +1491,25 @@ def moved_check(where: str, keys, before, params) -> int:
     return sum(not torch.equal(a, p.detach()) for a, p in zip(before, params))
 
 
-def train_full_width(ka, smi: str, samples: list) -> dict:
+def train_full_width(ka, smi: str, samples: list, cfg=None, tag: str = "10b", calls: int = 18,
+                     leaves: int = 424, name: str = "DETR-R50") -> dict:
     """10b: DETR-R50 bf16 training steps at 768x1344, batch 8, through the
-    port's loader, augmentation and train step."""
+    port's loader, augmentation and train step (another model with ``cfg``:
+    ``calls`` attention calls a step, ``leaves`` Flax leaves)."""
     from office_person_detection_vit_torch.models.detr import DETR, DETRConfig
     from office_person_detection_vit_torch.ops import attention as oa
     from office_person_detection_vit_torch.training import (AugmentConfig, COCOBatchLoader, TrainState,
                                                             content_width, make_optimizer, make_train_step)
 
-    cfg = DETRConfig(dtype="bfloat16", dropout=0.1)
+    cfg = cfg or DETRConfig(dtype="bfloat16", dropout=0.1)
     model = DETR(cfg)
     model.init_weights(torch.Generator().manual_seed(0))
     model.cuda()
-    check(all(p.dtype == torch.float32 for p in model.parameters()), "10b: master weights are not float32")
+    check(all(p.dtype == torch.float32 for p in model.parameters()), f"{tag}: master weights are not float32")
     tx = make_optimizer(learning_rate=1e-4, backbone_lr=1e-5)
     state = TrainState.create(model, tx)
-    check(len(state.params) == 424, f"10b: {len(state.params)} trainable tensors, expected the 424 Flax leaves")
+    check(len(state.params) == leaves,
+          f"{tag}: {len(state.params)} trainable tensors, expected the {leaves} Flax leaves")
     step = make_train_step(model, tx, augment=AugmentConfig(content_w=content_width(TRAIN_HW)))
     loader = COCOBatchLoader(samples, TRAIN_BATCH, capacity=32, seed=0)
     generator = torch.Generator().manual_seed(1)
@@ -1477,21 +1545,21 @@ def train_full_width(ka, smi: str, samples: list) -> dict:
                 split[n].append(events[prev].elapsed_time(events[n]))
                 prev = n
     peak = torch.cuda.max_memory_allocated() / 2**30
-    check(len(host) == 6, f"10b: {len(host)} timed steps")
-    check(all(c == launches(flash=18, backward=18) for c in k2) and all(n == 18 for n in b4),
-          f"10b: launches a step {k2}, B.4 {b4} (expected 18 K2 through B.4 and 18 backward pairs, no K1)")
-    check(all(math.isfinite(v) for row in losses for v in row.values()), f"10b: non-finite losses {losses}")
-    moved = moved_check("10b", state.keys, before, state.params)
+    check(len(host) == 6, f"{tag}: {len(host)} timed steps")
+    check(all(c == launches(flash=calls, backward=calls) for c in k2) and all(n == calls for n in b4),
+          f"{tag}: launches a step {k2}, B.4 {b4} (expected {calls} K2 through B.4 and {calls} backward pairs, no K1)")
+    check(all(math.isfinite(v) for row in losses for v in row.values()), f"{tag}: non-finite losses {losses}")
+    moved = moved_check(tag, state.keys, before, state.params)
     mean = {n: sum(v) / len(v) for n, v in split.items()}
     dev_ms, host_ms = sum(dev) / len(dev), sum(host) / len(host)
-    log(f"[10b] DETR-R50 bf16 (float32 master weights) 768x1344 batch {TRAIN_BATCH}, dropout 0.1, aux loss, "
+    log(f"[{tag}] {name} bf16 (float32 master weights) 768x1344 batch {TRAIN_BATCH}, dropout 0.1, aux loss, "
         f"augment; {TRAIN_IMAGES} synthetic 720p images through COCOBatchLoader; 2 warm-up + 6 timed steps: "
         f"{dev_ms:.3f} ms a step (CUDA events; steps {', '.join(f'{x:.3f}' for x in dev)}), host "
         f"{host_ms:.3f} ms a step with the upload and preprocessing ({', '.join(f'{x:.3f}' for x in host)}), "
         f"{TRAIN_BATCH * 1e3 / host_ms:.2f} images/s, peak memory {peak:.2f} GiB on {smi}")
-    log("[10b] split of a step (mean ms, CUDA events): "
+    log(f"[{tag}] split of a step (mean ms, CUDA events): "
         + ", ".join(f"{n} {mean[n]:.3f} ({100 * mean[n] / dev_ms:.1f}%)" for n in names))
-    log(f"[10b] launches a step: {k2[-1]} through B.4 ({b4[-1]} forwards, one backward pair each); {moved} of {len(state.keys)} "
+    log(f"[{tag}] launches a step: {k2[-1]} through B.4 ({b4[-1]} forwards, one backward pair each); {moved} of {len(state.keys)} "
         f"parameters moved (every one with a gradient); losses first {losses[0]}, last {losses[-1]}")
     counts = {"attention_diff": sum(b4[2:]), **{name: sum(c[name] for c in k2[2:]) for name in launches()}}
     del state, model, step
@@ -2089,6 +2157,342 @@ def tracking_slice(ka, probe, smi: str, frames: list, stamps: list, showcase: Pa
     return {"workday": workday, "showcase": showcase, "load": load_counts}
 
 
+# ------------------------------------------------------------------ phase 12
+# The ViT slice: ViT-base/16 (hidden 768, 12 layers of 12 heads, head dim 64,
+# MLP 3072, native grid 14; models/vit.py) as the DETR backbone at the
+# detector's full size. At 736x1280 the ViT sees 46 x 80 patches and the CLS
+# token, 3681 tokens, and DETR's encoder the 3680 patches; at 768x1344
+# training, 48 x 84 + 1 = 4033. Each chunk (training step) makes 30 attention
+# calls: 12 ViT (D 64, no mask), 6 encoder, 6 cross, 6 decoder self (D 32).
+VIT_CALLS = 30
+VIT_DETECT = (8, 12, 46 * 80 + 1, 46 * 80 + 1, 64)
+VIT_TRAIN = (8, 12, 48 * 84 + 1, 48 * 84 + 1, 64)
+# [12a]: the forward kernels at head dim 64 and at a padded 48, both types,
+# at [2]'s bars (attention_kernel_bench.TOLERANCE): the ViT's main-path shape
+# (bf16 K2), the same in float32, ViT-base at 224x224 (197 tokens, where K1's
+# block fits), and head dim 48 padded to 64.
+VIT_KERNEL_CASES = [
+    ("attention_flash", VIT_DETECT, "bfloat16", False, "ViT-base/16 self-attention at 736x1280, batch 8 (main path)"),
+    ("attention_flash", (1, 12, 3681, 3681, 64), "float32", False, "the same in float32, batch 1"),
+    ("attention_whole_kv", (8, 12, 197, 197, 64), "bfloat16", False, "ViT-base at 224x224, K1's bf16 body"),
+    ("attention_whole_kv", (8, 12, 197, 197, 64), "float32", False, "ViT-base at 224x224, float32"),
+    ("attention_flash", (2, 12, 3681, 3681, 48), "bfloat16", True, "head dim 48, padded to 64"),
+    ("attention_flash", (2, 8, 920, 920, 48), "float32", True, "head dim 48, float32 K2"),
+    ("attention_whole_kv", (2, 8, 197, 197, 48), "float32", True, "head dim 48, float32 K1"),
+]
+# [12a]: B.4 at [10a]'s gate at head dim 64 (ViT-base training, batch 1 so
+# that float64 autograd fits beside it; ViT at 224x224 in float32) and 48.
+VIT_B4_CASES = [((1, 12, 4033, 4033, 64), "bfloat16", False, "ViT-base training 768x1344, batch 1"),
+                ((2, 12, 197, 197, 64), "float32", False, "ViT-base 224x224 float32 (K1)"),
+                ((2, 4, 300, 260, 48), "bfloat16", True, "head dim 48, padded to 64"),
+                ((2, 4, 300, 260, 48), "float32", True, "head dim 48 float32")]
+VIT_LSE_CASES = VIT_B4_CASES + [(VIT_DETECT, "bfloat16", False, "ViT detect")]
+def vit_kernels_phase(ka, build, smi: str) -> dict:
+    """[12a]: [1]'s readings of every head-dim-64 body (no spill allowed),
+    the forward kernels at VIT_KERNEL_CASES, B.4 at VIT_B4_CASES, and B.4 at
+    ViT-base's full training shape timed against SDPA and the bound."""
+    from office_person_detection_vit_torch import attention_kernel_bench as abench
+
+    hmma = sass_hmma(build)
+    for a in ka.kernel_attributes():
+        if a["name"].endswith(",64>"):
+            n_hmma = hmma_of(hmma, a["name"])
+            check(a["local_bytes"] == 0, f"12a: {a['name']} spills {a['local_bytes']} B a thread")
+            log(f"[12a] {a['name']:36s} regs {a['regs']:3d}  spill (local) {a['local_bytes']} B  HMMA in SASS {n_hmma}")
+    rows = {}
+    for seed, case in enumerate(VIT_KERNEL_CASES):
+        row = abench.measure(ka, case, 500 + seed)
+        log(f"[12a] {abench.describe(row)} [{case[4]}]")
+        rows[case[:3]] = row
+        torch.cuda.empty_cache()
+    b4_phase(ka, smi, VIT_B4_CASES, VIT_LSE_CASES, tag="12a")
+    return {"forward": rows, "b4": vit_b4_timing(ka, smi)}
+
+
+def vit_b4_timing(ka, smi: str) -> dict:
+    """[12a]: B.4 at ViT-base's training shape VIT_TRAIN in bf16: the
+    gradients against the pair's plain version (B4_BAR), then the times of
+    forward+backward, the forward, the pair, plain autograd, the pair's plain
+    version and SDPA (forward+backward and its backward alone)."""
+    from office_person_detection_vit_torch import attention_kernel_bench as abench
+    from office_person_detection_vit_torch.ops import attention as oa
+    from office_person_detection_vit_torch.ops.attention import (KernelAttention, attention_backward_reference,
+                                                                 attention_reference)
+
+    shape, dtype = VIT_TRAIN, torch.bfloat16
+    q, k, v, _ = abench.make_inputs(shape, dtype, False, 600)
+    g = torch.randn(q.shape, generator=torch.Generator().manual_seed(601)).to("cuda", dtype)
+    q, k, v = (t.requires_grad_(True) for t in (q, k, v))
+    oa.reset_launch_counts()
+    ka.reset_launch_counts()
+    out = KernelAttention.apply(q, k, v, None)
+    grads = torch.autograd.grad(out, (q, k, v), g, retain_graph=True)
+    torch.cuda.synchronize()
+    check(oa.launch_counts["attention_diff"] == 1 and ka.launch_counts == launches(flash=1, backward=1),
+          f"12a: B.4 at {shape} launched {oa.launch_counts}, {ka.launch_counts}")
+    x = [t.detach() for t in (q, k, v)]
+    out2, lse = ka.attention_flash(*x, None, with_lse=True)
+    twin = attention_backward_reference(*x, None, out2, lse, g)
+    twin_err = relative_error(grads, twin)
+    grad_abs = max((a.float() - b.float()).abs().max().item() for a, b in zip(grads, twin))
+    del twin
+    check(all(bool(torch.isfinite(t).all()) for t in (out, *grads)) and twin_err <= B4_BAR[dtype],
+          f"12a: B.4 at {shape}: gradients {twin_err:.2e} from the pair's plain version (bar {B4_BAR[dtype]:.2e})")
+
+    def fwd_bwd(fn):
+        def run():
+            torch.autograd.grad(fn(q, k, v, None), (q, k, v), g)
+        return run
+
+    def sdpa(q, k, v, mask):
+        return torch.nn.functional.scaled_dot_product_attention(q, k, v)
+
+    sdpa_out = sdpa(q, k, v, None)
+    b_ms, b_by = b4_bound(shape, dtype, None)
+    bb_ms, bb_by = b4_bound(shape, dtype, None, backward_only=True)
+    f_ms, f_by = abench.bound(shape, dtype, None)
+    row = {
+        "shape": list(shape), "dtype": "bfloat16", "max_abs_err": grad_abs, "grad_err_vs_twin_rel": twin_err,
+        "ms": abench.cuda_ms(fwd_bwd(KernelAttention.apply), 5, 2),
+        "forward_ms": abench.cuda_ms(lambda: KernelAttention.apply(*x, None), 5, 2),
+        "backward_ms": abench.cuda_ms(lambda: torch.autograd.grad(out, (q, k, v), g, retain_graph=True), 5, 2),
+        "pair_ms": abench.cuda_ms(lambda: ka.attention_backward(*x, None, out2, lse, g), 5, 2),
+        "plain_ms": abench.cuda_ms(fwd_bwd(attention_reference), 2, 1),
+        "plain_backward_ms": abench.cuda_ms(lambda: attention_backward_reference(*x, None, out2, lse, g), 2, 1),
+        "library_ms": abench.cuda_ms(fwd_bwd(sdpa), 5, 2),
+        "library_forward_ms": abench.cuda_ms(lambda: sdpa(*x, None), 5, 2),
+        "library_backward_ms": abench.cuda_ms(
+            lambda: torch.autograd.grad(sdpa_out, (q, k, v), g, retain_graph=True), 5, 2),
+        "bound_ms": b_ms, "bound_by": b_by, "backward_bound_ms": bb_ms, "backward_bound_by": bb_by,
+        "forward_bound_ms": f_ms, "forward_bound_by": f_by,
+    }
+    log(f"[12a] B.4 {shape} bf16 (ViT-base training at 768x1344, batch 8): gradients {twin_err:.2e} from the pair's "
+        f"plain version (bar {B4_BAR[dtype]:.2e}); forward+backward {row['ms']:.4f} ms (forward {row['forward_ms']:.4f}, "
+        f"backward {row['backward_ms']:.4f}, the pair alone {row['pair_ms']:.4f}), plain autograd {row['plain_ms']:.4f}, "
+        f"the pair's plain version {row['plain_backward_ms']:.4f}, SDPA {row['library_ms']:.4f} (forward "
+        f"{row['library_forward_ms']:.4f}, backward {row['library_backward_ms']:.4f}); bound {b_ms:.4f} ({b_by}; "
+        f"{100 * b_ms / row['ms']:.1f}% of it), the forward's {f_ms:.4f}, the backward's {bb_ms:.4f} ({bb_by}, "
+        f"{100 * bb_ms / row['pair_ms']:.1f}% of the pair) on {smi}")
+    del q, k, v, g, out, grads, x, out2, lse, sdpa_out
+    torch.cuda.empty_cache()
+    return row
+
+
+def vit_detector_config(device: str = "cuda") -> dict:
+    """DETRDetector's keys for ViT-base/16 DETR at its full size, bf16, batch 8, 736x1280."""
+    return {"backbone": "vit", "patch_size": 16, "model_size": "full", "dtype": "bfloat16", "device": device,
+            "batch_size": 8, "input_height": 736, "input_width": 1280, "confidence_threshold": 0.5,
+            "nms_threshold": 0.4}
+
+
+def vit_detect_phase(ka, probe, smi: str, frames: np.ndarray, videos: Path, tmp: Path) -> dict:
+    """[12b]: ViT-base/16 DETR (seeded random weights) through
+    DETRDetector.detect_batch at full width, bf16, batch 8 (30 K2 a chunk,
+    frames/s), the float32 model on the card against the CPU at batch 1 at
+    the repo's DETR bar, and ``main`` with ``detection.backbone: vit`` on the
+    one-hour video."""
+    from office_person_detection_vit_torch.detection.detector import DETRDetector
+    from office_person_detection_vit_torch.models.detr import DETRConfig
+
+    det = DETRDetector({f"detection.{k}": v for k, v in vit_detector_config().items()})
+    det.load_model()
+    check(det.feature_stride == 16 and det.feature_hw == (46, 80), f"12b: feature grid {det.feature_hw}")
+    det.detect_batch(frames[:8])  # warm-up
+    torch.cuda.synchronize()
+    ka.reset_launch_counts()
+    batch = det.detect_batch(frames[:16])
+    counts = dict(ka.launch_counts)
+    check(det.last_failed_chunks == 0 and batch.boxes_xywh.shape == (16, 100, 4), "12b: ViT detect failed")
+    check(all(np.isfinite(a).all() for a in (batch.boxes_xywh, batch.scores, batch.foot)), "12b: non-finite detections")
+    check(counts == launches(flash=VIT_CALLS * 2), f"12b: ViT detect launched {counts}, expected {VIT_CALLS} K2 x 2 chunks")
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        det.detect_batch(frames[:16])
+        times.append(time.perf_counter() - t)
+    fps = sorted(16 / t for t in times)
+    log(f"[12b] ViT-base/16 DETR bf16 736x1280 batch 8 (3681 ViT tokens, 3680 encoder tokens): launches {counts} over "
+        f"2 chunks ({VIT_CALLS} K2 a chunk); {fps[-1]:.2f} frames/s best, {fps[1]:.2f} median, {fps[0]:.2f} worst "
+        f"(3 runs x 16 frames, host clock, uint8 frames in) on {smi}")
+    det.cleanup()
+    del det
+    torch.cuda.empty_cache()
+
+    # 12 ViT + 12 DETR calls at 3680-3681 keys take K2 in float32, the 6 decoder self-attentions K1
+    d_logits, d_boxes, cpu_secs = float32_card_vs_cpu(ka, DETRConfig(dtype="float32", backbone="vit"), frames[:1],
+                                                      launches(whole_kv=6, flash=24), "12b")
+    log(f"[12b] float32 ViT-base/16 DETR at 736x1280, batch 1, on the card (K1 x6, K2 x24) vs the CPU (plain, "
+        f"{cpu_secs:.1f} s): max|dlogits| {d_logits:.2e} (atol {LOGITS_ATOL} rtol {LOGITS_RTOL}), "
+        f"max|dboxes| {d_boxes:.2e} (atol {BOXES_ATOL})")
+    torch.cuda.empty_cache()
+
+    n = 13  # the one-hour video's 5-minute targets
+    cfg = flow_config(videos / "hour.mp4", tmp / "vit_out", vit_detector_config(), np.eye(3), hour_zones())
+    rc, main_counts, secs, session = run_main(ka, probe, cfg, tmp / "vit.yaml")
+    check(rc == 0, f"12b: main with detection.backbone vit exited {rc}")
+    summary = check_session(session, list(HOUR_QUADS), n, "12b")
+    check(sum(probe.failed_chunks) == 0, f"12b: {sum(probe.failed_chunks)} chunks raised")
+    check(main_counts == launches(flash=VIT_CALLS * 2),
+          f"12b: main launched {main_counts}, expected {VIT_CALLS} K2 x 2 chunks ({n} frames, batch 8)")
+    log(f"[12b] main with detection.backbone vit (ViT-base/16, bf16, batch 8) on the one-hour video: {n} frames, "
+        f"launches {main_counts}; phase seconds {phase_seconds(summary)}; main {secs:.3f} s (host clock) on {smi}")
+    return {"main_counts": main_counts, "detect_counts": counts, "fps_median": fps[1], "session": session}
+
+
+def vit_train_phase(ka, smi: str, data: Path, tmp: Path) -> dict:
+    """[12c]: ViT-base/16 DETR training at 768x1344, bf16 (float32 master
+    weights), batch 8: [10b]'s harness (2 warm-up + 6 timed steps, the split
+    of a step, every loss finite, every parameter with a gradient moved, 30
+    B.4 pairs a step), then ``train_detr --backbone vit`` for one epoch."""
+    from office_person_detection_vit_torch import train_detr
+    from office_person_detection_vit_torch.models.detr import DETRConfig
+    from office_person_detection_vit_torch.models.weights import flax_param_map
+    from office_person_detection_vit_torch.ops import attention as oa
+
+    samples = train_detr.load_coco_dataset(data / "train" / "images", data / "train" / "coco.json")
+    cfg = DETRConfig(dtype="bfloat16", dropout=0.1, backbone="vit")
+    full = train_full_width(ka, smi, samples, cfg, tag="12c", calls=VIT_CALLS, leaves=len(flax_param_map(cfg)),
+                            name="ViT-base/16 DETR")
+    out = tmp / "vit_train"
+    argv = ["--images", str(data / "train" / "images"), "--annotations", str(data / "train" / "coco.json"),
+            "--backbone", "vit", "--epochs", "1", "--batch", str(TRAIN_BATCH), "--height", str(TRAIN_HW[0]),
+            "--width", str(TRAIN_HW[1]), "--checkpoint", str(out), "--device", "cuda", "--augment"]
+    ka.reset_launch_counts()
+    oa.reset_launch_counts()
+    t = time.perf_counter()
+    rc = train_detr.main(argv)
+    secs = time.perf_counter() - t
+    steps = TRAIN_IMAGES // TRAIN_BATCH
+    counts = {**ka.launch_counts, "attention_diff": oa.launch_counts["attention_diff"]}
+    history = json.loads((out / "history.json").read_text())
+    check(rc == 0 and len(history["step_losses"]) == steps and all(map(math.isfinite, history["step_losses"])),
+          f"12c: train_detr --backbone vit exited {rc}, losses {history.get('step_losses')}")
+    check(counts == {**launches(flash=VIT_CALLS * steps, backward=VIT_CALLS * steps), "attention_diff": VIT_CALLS * steps},
+          f"12c: train_detr --backbone vit launched {counts}, expected {VIT_CALLS} B.4 pairs a step x {steps}")
+    log(f"[12c] train_detr --backbone vit (ViT-base/16, bf16, 768x1344, batch {TRAIN_BATCH}, augment), one epoch of "
+        f"{steps} steps: exit 0 in {secs:.3f} s (build of the model and first steps included), launches {counts}, "
+        f"losses {[round(x, 4) for x in history['step_losses']]} on {smi}")
+    return {"full": full, "entry_counts": counts}
+
+
+def hour_ground_truth(session: Path, path: Path) -> int:
+    """A COCO file of the persons drawn into each frame of ``session``'s
+    one-hour video (write_video draws hour_people(frame); a person at (x, y)
+    is the box (x, y - 26, 50, 156)), keyed by the saved frames' names.
+    Returns the number of boxes."""
+    rows = list(csv.reader((session / "01_extraction" / "extraction_results.csv").open()))[1:]
+    images, annotations = [], []
+    for i, r in enumerate(rows):
+        images.append({"id": i, "file_name": Path(r[-1]).name, "width": 1280, "height": 720})
+        for x, y, _ in hour_people(int(r[0])):
+            annotations.append({"id": len(annotations), "image_id": i, "bbox": [x, y - 26, 50, 156],
+                                "category_id": 1})
+    path.write_text(json.dumps({"images": images, "annotations": annotations,
+                                "categories": [{"id": 1, "name": "person"}]}))
+    return len(annotations)
+
+
+def vit_eval_phase(ka, probe, smi: str, session: Path, videos: Path, tmp: Path) -> dict:
+    """[12d]: detection evaluation with the committed DETR-small checkpoint
+    against hour_ground_truth: ``main --evaluate`` (phases 2-6 of a copy of
+    [12b]'s session resumed after 01_extraction) and the trainer's
+    ``--evaluate`` (the baseline score before training) on the same frames,
+    each on the card and on the CPU; card tp/fp/fn within 1 of the CPU's.
+    The trainer scores before its first epoch (its baseline) and writes
+    ``history.json`` at an epoch's end, so it trains one epoch here and the
+    baseline is read."""
+    from office_person_detection_vit_torch import train_detr
+
+    gt = tmp / "hour_gt.json"
+    n_gt = hour_ground_truth(session, gt)
+    ckpt = ROOT / "docs" / "artifacts" / "detr_small_weights.npz"
+    detection = {"model_size": "small", "score_mode": "sigmoid", "dtype": "float32", "input_height": 224,
+                 "input_width": 384, "confidence_threshold": 0.2, "nms_threshold": 0.3, "batch_size": 1,
+                 "checkpoint_path": str(ckpt)}
+    results = {}
+    for device in ("cuda", "cpu"):
+        copy = resumable_copy(session, tmp / f"eval_{device}" / session.name)
+        cfg = flow_config(videos / "hour.mp4", copy.parent, dict(detection, device=device), np.eye(3), hour_zones())
+        cfg["evaluation"] = {"ground_truth_path": str(gt), "iou_threshold": 0.5}
+        rc, counts, secs, got = run_main(ka, probe, cfg, tmp / f"eval_{device}.yaml", "--resume", str(copy), "--evaluate")
+        check(rc == 0 and got == copy, f"12d {device}: main --resume --evaluate exited {rc}")
+        main_metrics = json.loads((copy / "evaluation" / "evaluation_metrics.json").read_text())
+        argv = ["--images", str(session / "01_extraction" / "frames"), "--annotations", str(gt), "--model-size",
+                "small", "--class-loss", "focal", "--init", str(ckpt), "--epochs", "1", "--evaluate",
+                "--eval-conf", "0.2", "--eval-nms", "0.3", "--height", "224", "--width", "384", "--batch", "8",
+                "--device", device, "--checkpoint", str(tmp / f"train_eval_{device}")]
+        check(train_detr.main(argv) == 0, f"12d {device}: train_detr --evaluate failed")
+        evals = json.loads((tmp / f"train_eval_{device}" / "history.json").read_text())["evals"]
+        check([e["epoch"] for e in evals] == [0, 1], f"12d {device}: train_detr --evaluate scored {evals}")
+        train_metrics = evals[0]
+        results[device] = {"main": main_metrics, "train": train_metrics, "launches": counts}
+    for run in ("main", "train"):
+        card, cpu = results["cuda"][run], results["cpu"][run]
+        off = {k: abs(card[k] - cpu[k]) for k in ("true_positives", "false_positives", "false_negatives")}
+        check(max(off.values()) <= 1, f"12d {run} --evaluate: card {card} vs CPU {cpu}")
+        check(card["true_positives"] + card["false_negatives"] == n_gt, f"12d {run}: {card} over {n_gt} GT boxes")
+        log(f"[12d] {run} --evaluate, DETR-small checkpoint on the one-hour video's {n_gt} drawn persons: card "
+            f"tp/fp/fn {card['true_positives']}/{card['false_positives']}/{card['false_negatives']} (precision "
+            f"{card['precision']:.4f}, recall {card['recall']:.4f}), CPU {cpu['true_positives']}/"
+            f"{cpu['false_positives']}/{cpu['false_negatives']}; within {max(off.values())} (bar 1)"
+            + (f"; AP@50 card {card['ap_50']:.4f}, CPU {cpu['ap_50']:.4f}" if run == "train" else ""))
+    return results
+
+
+def vit_slice(ka, build, probe, smi: str, frames: np.ndarray, videos: Path, data: Path) -> dict:
+    """Phase 12: the ViT slice on the card."""
+    t = time.perf_counter()
+    kernels = vit_kernels_phase(ka, build, smi)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        detect = vit_detect_phase(ka, probe, smi, frames, videos, tmp)
+        train = vit_train_phase(ka, smi, data, tmp)
+        evaluation = vit_eval_phase(ka, probe, smi, detect["session"], videos, tmp)
+    log(f"[12] ViT phase {time.perf_counter() - t:.1f} s")
+    return {"kernels": kernels, "detect": detect, "train": train, "eval": evaluation}
+
+
+def vit_kernel_rows(vit: dict) -> list:
+    """The kernels line's rows of the head-dim-64 path: K2 at the ViT's
+    shape beside its launches through main ([12b]), B.4 and its backward
+    pair at ViT-base's training shape beside their launches in [12c]."""
+    src = "office_person_detection_vit_torch/csrc/attention.cu"
+    k2 = vit["kernels"]["forward"][VIT_KERNEL_CASES[0][:3]]
+    b4 = vit["kernels"]["b4"]
+    steps = vit["train"]["full"]["counts"]
+    train_path = "ViT-base/16 DETR bf16 training at 768x1344, batch 8, 6 timed steps, phase 12c"
+    return [
+        {"name": "attention_flash_d64", "route": "cuda", "source": src,
+         "replaces": "office_person_detection_vit_tpu/ops/attention.py:159",
+         "launches": vit["detect"]["main_counts"]["attention_flash"],
+         "launches_on": "ViT-base/16 DETR bf16 through main on the one-hour video, 13 frames, phase 12b",
+         **{k: k2[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape",
+                               "dtype", "instruction")}},
+        {"name": "attention_diff_d64", "route": "cuda", "source": src,
+         "function": "office_person_detection_vit_torch/ops/attention.py KernelAttention",
+         "replaces": "office_person_detection_vit_tpu/ops/attention.py:306", "launches": steps["attention_diff"],
+         "launches_on": train_path,
+         **{k: b4[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "forward_ms",
+                               "backward_ms", "shape", "dtype")}},
+        {"name": "attention_backward_d64", "route": "cuda", "source": src,
+         "replaces": "office_person_detection_vit_tpu/ops/attention.py:322", "launches": steps["attention_backward"],
+         "launches_on": train_path, "max_abs_err": b4["max_abs_err"], "ms": b4["pair_ms"],
+         "plain_ms": b4["plain_backward_ms"], "bound_ms": b4["backward_bound_ms"],
+         "bound_by": b4["backward_bound_by"], "library_ms": b4["library_backward_ms"], "shape": b4["shape"],
+         "dtype": b4["dtype"]},
+    ]
+
+
+def write_hour_video(out_dir: str) -> None:
+    """Phase 12's one-hour video alone (``--phase 12``), in a child process."""
+    spec = importlib.util.spec_from_file_location("synthetic_video", ROOT / "tests" / "helpers" / "synthetic_video.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    mod.write_video(Path(out_dir) / "hour.mp4", num_frames=video_frames(1), start_time=HOUR_START,
+                    people_fn=hour_people)
+
+
 def card_line() -> str:
     """The card's name and power limit, as nvidia-smi gives them."""
     return subprocess.run(
@@ -2101,8 +2505,8 @@ def main(argv=None) -> int:
     import argparse
 
     parser = argparse.ArgumentParser(description="Chip smoke test of the PyTorch/CUDA port.")
-    parser.add_argument("--phase", choices=["10a", "11"], help="run only this phase (after the build) and print "
-                        "its rows")
+    parser.add_argument("--phase", choices=["10a", "11", "12"], help="run only this phase (after the build) and "
+                        "print its rows")
     parser.add_argument("--showcase-session", type=Path, default=None,
                         help="[11b]: resume this directory's session/ (a showcase session made elsewhere, its "
                         "scenario.json beside it) after Phase 1, instead of making the video here")
@@ -2130,6 +2534,8 @@ def main(argv=None) -> int:
         print(json.dumps({"tracking": {"workday": got["workday"], "showcase_k1": got["showcase"]["counts"],
                                        "load_k2": got["load"]}}, default=str), flush=True)
         return 0
+    if args.phase == "12":
+        return vit_phase_alone()
     with tempfile.TemporaryDirectory() as videos, tempfile.TemporaryDirectory() as data:
         writer = start_video_writer(Path(videos))  # phase 9's videos, written while phases 1-8 run
         dataset_writer = start_dataset_writer(Path(data))  # phase 10's images
@@ -2142,18 +2548,48 @@ def main(argv=None) -> int:
                     child.wait()
 
 
+def vit_phase_alone() -> int:
+    """``--phase 12``: the build, [1]'s kernel table, and phase 12 with its
+    own one-hour video and training images, written by child processes."""
+    from office_person_detection_vit_torch.kernels import attention as ka
+    from office_person_detection_vit_torch.kernels import build
+
+    smi = card_line()
+    log(f"[1] card: {smi}")
+    with tempfile.TemporaryDirectory() as videos, tempfile.TemporaryDirectory() as data:
+        code = f"import sys; sys.path.insert(0, {str(ROOT)!r}); import chip_smoke; chip_smoke.write_hour_video({videos!r})"
+        children = [subprocess.Popen([sys.executable, "-c", code], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                     text=True), start_dataset_writer(Path(data))]
+        try:
+            ka.load_library()
+            render_frame = load_render_frame()
+            t0 = datetime(2025, 1, 20, 9, 0, 0)
+            frames = np.stack([render_frame(t0 + timedelta(minutes=5 * i),
+                                            people=[(300 + 20 * i, 300, 0), (800 - 15 * i, 360, 1)], seed=i)
+                               for i in range(16)])
+            for child in children:
+                out, _ = child.communicate(timeout=600)
+                check(child.returncode == 0, f"12: a writer exited {child.returncode}: {out[-2000:]}")
+            vit = vit_slice(ka, build, FlowProbe(), smi, frames, Path(videos), Path(data))
+        finally:
+            for child in children:
+                if child.poll() is None:
+                    child.kill()
+                    child.wait()
+    print(json.dumps({"kernels": vit_kernel_rows(vit)}, default=str), flush=True)
+    return 0
+
+
 def run(writer: subprocess.Popen, videos: Path, dataset_writer: subprocess.Popen, data: Path,
         showcase_session: Path | None = None) -> int:
     from office_person_detection_vit_torch import attention_kernel_bench as abench
     from office_person_detection_vit_torch.detection.detector import DETRDetector
-    from office_person_detection_vit_torch.device import resolve_device
     from office_person_detection_vit_torch.kernels import attention as ka
     from office_person_detection_vit_torch.kernels import bottleneck as kb
     from office_person_detection_vit_torch.kernels import build
-    from office_person_detection_vit_torch.models.detr import DETR, DETRConfig
+    from office_person_detection_vit_torch.models.detr import DETRConfig
     from office_person_detection_vit_torch.ops.aggregation import zone_count_matrix
     from office_person_detection_vit_torch.ops.geometry import homography_transform, validate_homography
-    from office_person_detection_vit_torch.ops.preprocessing import preprocess_frames
     from office_person_detection_vit_torch.ops.zones import ZoneClassifier
 
     # ---- 1. device and build
@@ -2223,31 +2659,10 @@ def run(writer: subprocess.Popen, videos: Path, dataset_writer: subprocess.Popen
         f"{fps[0]:.2f} worst (7 runs x 16 frames, host clock, uint8 frames in, DetectionBatch out) on {smi}")
     det.cleanup()
 
-    resolve_device("cuda", "float32")  # TF32 off for the float32 comparison
-    cfg32 = DETRConfig(dtype="float32")
-    cpu_model = DETR(cfg32)
-    cpu_model.init_weights(torch.Generator().manual_seed(0))
-    cpu_model.eval()
-    gpu_model = DETR(cfg32).eval()
-    gpu_model.load_state_dict(cpu_model.state_dict())
-    gpu_model.cuda()
-    pixels, mask = preprocess_frames(torch.from_numpy(frames[:2]), target_hw=(736, 1280))
-    ka.reset_launch_counts()
-    with torch.inference_mode():
-        got = gpu_model(pixels.cuda(), mask.cuda())
-        torch.cuda.synchronize()
-        f32_counts = dict(ka.launch_counts)
-        want = cpu_model(pixels, mask)
-    d_logits = (got["logits"].cpu() - want["logits"]).abs()
-    d_boxes = (got["boxes"].cpu() - want["boxes"]).abs().max().item()
-    logits_ok = bool((d_logits <= LOGITS_ATOL + LOGITS_RTOL * want["logits"].abs()).all())
-    check(f32_counts == launches(whole_kv=6, flash=12),
-          f"float32 forward launched {f32_counts}, expected 6 K1 + 12 K2")
-    check(logits_ok and d_boxes <= BOXES_ATOL,
-          f"float32 card vs CPU: max|dlogits| {d_logits.max().item():.2e}, max|dboxes| {d_boxes:.2e}")
+    d_logits, d_boxes, _ = float32_card_vs_cpu(ka, DETRConfig(dtype="float32"), frames[:2], launches(whole_kv=6, flash=12),
+                                               "3")
     log(f"[3] float32 DETR-R50 on the card (K1 x6, K2 x12) vs CPU (plain): max|dlogits| "
-        f"{d_logits.max().item():.2e} (atol {LOGITS_ATOL} rtol {LOGITS_RTOL}), max|dboxes| {d_boxes:.2e} (atol {BOXES_ATOL})")
-    del cpu_model, gpu_model, got
+        f"{d_logits:.2e} (atol {LOGITS_ATOL} rtol {LOGITS_RTOL}), max|dboxes| {d_boxes:.2e} (atol {BOXES_ATOL})")
 
     # ---- 4. DETR-DC5 detect: 3680 tokens go through K2
     dc5 = DETRDetector({
@@ -2341,6 +2756,9 @@ def run(writer: subprocess.Popen, videos: Path, dataset_writer: subprocess.Popen
     # ---- 11. the tracking slice on the card
     tracking = tracking_slice(ka, probe, smi, day_frames, day_stamps, showcase_session)
 
+    # ---- 12. the ViT slice on the card
+    vit = vit_slice(ka, build, probe, smi, frames[:16], videos, data)
+
     # ---- result
     replaces = {"attention_whole_kv": "office_person_detection_vit_tpu/ops/attention.py:60",
                 "attention_flash": "office_person_detection_vit_tpu/ops/attention.py:159"}
@@ -2407,6 +2825,7 @@ def run(writer: subprocess.Popen, videos: Path, dataset_writer: subprocess.Popen
         "library_ms": enc["library_backward_ms"], "shape": enc["shape"], "dtype": enc["dtype"],
         "instruction": "mma.sync.m16n8k16 (bf16); FFMA (float32)",
     })
+    kernels += vit_kernel_rows(vit)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

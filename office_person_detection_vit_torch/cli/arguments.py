@@ -18,7 +18,7 @@ def parse_arguments(argv: list[str] | None = None) -> argparse.Namespace:
     )
     parser.add_argument("--debug", action="store_true", help="debug logging")
     parser.add_argument(
-        "--evaluate", action="store_true", help="run detection evaluation after the pipeline (the port refuses it: ROADMAP A.3)"
+        "--evaluate", action="store_true", help="run detection evaluation after the pipeline"
     )
     parser.add_argument(
         "--fine-tune", action="store_true", help="run detector fine-tuning (train_detr) with the training.* config keys"

@@ -126,6 +126,26 @@ class AggregationResult:
 
 
 @dataclass
+class EvaluationMetrics:
+    precision: float
+    recall: float
+    f1_score: float
+    true_positives: int
+    false_positives: int
+    false_negatives: int
+
+    def to_dict(self) -> dict[str, Any]:
+        return {
+            "precision": self.precision,
+            "recall": self.recall,
+            "f1_score": self.f1_score,
+            "true_positives": self.true_positives,
+            "false_positives": self.false_positives,
+            "false_negatives": self.false_negatives,
+        }
+
+
+@dataclass
 class DetectionBatch:
     """Fixed-capacity detections of F frames, Q slots each, as numpy arrays.
 

@@ -42,9 +42,15 @@
 //    two shuffles within the quad of threads that shares a row.
 //  * K and V go to shared memory by 16-byte cp.async copies into rows whose
 //    16-byte chunks are XOR-swizzled by row, so the eight rows an ldmatrix
-//    phase reads fall in eight different bank groups (a bf16 row is 64 B at
-//    D = 32, two rows to a 128-B line). Rows past Lk are zero-filled by the
-//    copy, so no garbage reaches a product.
+//    phase reads fall in eight different bank groups: a bf16 row is 32 B at
+//    D = 16 (four rows to a 128-B line, the chunk XORed with bit 2 of the
+//    row), 64 B at D = 32 (two rows to a line, XORed with bits 1-2) and
+//    128 B at D = 64 (a row a line, its eight chunks XORed with the row's
+//    low three bits). Rows past Lk are zero-filled by the copy, so no
+//    garbage reaches a product.
+//  * Head dims 16, 32 and 64 are instantiated; kernels/attention.py pads any
+//    other D <= 64 with zero columns up to the next of them and passes the
+//    true scale 1/sqrt(D), which every entry point takes as an argument.
 //  * The mask becomes a float bias per key in shared memory (0 valid, -inf
 //    not), read once per batch entry by each block; s = acc * scale + bias.
 //    Ragged Lq and Lk are masked in the kernel; nothing is padded outside.
@@ -63,7 +69,11 @@
 //    the newest tile are loaded into registers and stored as its bias after
 //    the current tile's compute. Online max and normalizer as in
 //    _flash_attn_kernel; the loop inside the block replaces the TPU's
-//    sequential KV grid axis.
+//    sequential KV grid axis. The ring is dynamic shared memory (Ring<D>):
+//    at D = 64 it holds 49,920 B, over the 48 KB a static array may take.
+//    At D = 64 a thread keeps twice the Q fragments and output accumulators,
+//    so K2 asks for 3 blocks an SM (170 registers a thread) instead of 4
+//    (128), and the backward pair for 2 (255) instead of 3 (170).
 //
 // float32 keeps the CUDA-core body (four threads per query row, float32 FMAs,
 // 64-row blocks): TF32 tensor cores would break its 1e-5 tolerance and the
@@ -367,7 +377,7 @@ __device__ __forceinline__ float ex2(float x) {  // 2^x; 2^-inf = 0
 
 // bf16 rows of D values in shared memory, 16-byte chunks XOR-swizzled by row.
 template <int D> struct Rows {
-  static_assert(D == 16 || D == 32, "head dim 16 or 32");
+  static_assert(D == 16 || D == 32 || D == 64, "head dim 16, 32 or 64");
   static constexpr int kBytes = 2 * D;
   static constexpr int kChunks = D / 8;
   static constexpr int kPerLine = 128 / kBytes;
@@ -527,6 +537,29 @@ size_t whole_kv_bf16_smem_bytes(int Lk) {
   return 2 * keys * D * sizeof(bf16) + keys * sizeof(float);
 }
 
+// The ring of K2 and of the backward pair, in dynamic shared memory:
+// kFlashStages slots of two 64-row bf16 tiles (K and V, or Q and g), then
+// kVecs float vectors of 64 per slot (the key bias; lse2 and D).
+template <int D, int kVecs> struct Ring {
+  static constexpr int kTile = kTileKeys * D * (int)sizeof(bf16);
+  static constexpr size_t kBytes = kFlashStages * (2 * kTile + kVecs * kTileKeys * sizeof(float));
+  // Shared addresses of slot s of the first and second tile, and vector i of slot s.
+  __device__ __forceinline__ static uint32_t a(uint32_t base, int s) { return base + s * kTile; }
+  __device__ __forceinline__ static uint32_t b(uint32_t base, int s) {
+    return base + (kFlashStages + s) * kTile;
+  }
+  __device__ __forceinline__ static float* vec(uint8_t* base, int i, int s) {
+    return reinterpret_cast<float*>(base + 2 * kFlashStages * kTile) + (i * kFlashStages + s) * kTileKeys;
+  }
+};
+
+// Opt a kernel in to `bytes` of dynamic shared memory (needed above 48 KB).
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
 // ------------------------------------------------------------------- K1, bf16
 template <int D>
 __global__ void __launch_bounds__(kWholeKvMaxWarps * 32)
@@ -611,14 +644,15 @@ attention_whole_kv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 // ------------------------------------------------------------------- K2, bf16
 template <int D>
-__global__ void __launch_bounds__(kFlashWarps * 32, 4)
+__global__ void __launch_bounds__(kFlashWarps * 32, D <= 32 ? 4 : 3)
 attention_flash_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, const uint8_t* __restrict__ mask,
                     bf16* __restrict__ out, float* __restrict__ lse, int H, int Lq, int Lk,
                     float scale_log2) {
-  __shared__ __align__(128) bf16 ring_k[kFlashStages][kTileKeys * D];
-  __shared__ __align__(128) bf16 ring_v[kFlashStages][kTileKeys * D];
-  __shared__ __align__(16) float ring_bias[kFlashStages][kTileKeys];
+  using R = Ring<D, 1>;
+  extern __shared__ __align__(128) uint8_t smem_kv[];
+  const uint32_t ring = smem_u32(smem_kv);
+  auto ring_bias = [&](int s) { return R::vec(smem_kv, 0, s); };
 
   const int bh = blockIdx.x;
   const uint8_t* mask_b = mask ? mask + (size_t)(bh / H) * Lk : nullptr;
@@ -633,14 +667,14 @@ attention_flash_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
   auto issue = [&](int t) {
     if (t < tiles) {
       const int k0 = t * kTileKeys, n = min(kTileKeys, Lk - k0);
-      stage_async<D>(smem_u32(ring_k[t % kFlashStages]), k_bh + (size_t)k0 * D, n, kTileKeys);
-      stage_async<D>(smem_u32(ring_v[t % kFlashStages]), v_bh + (size_t)k0 * D, n, kTileKeys);
+      stage_async<D>(R::a(ring, t % kFlashStages), k_bh + (size_t)k0 * D, n, kTileKeys);
+      stage_async<D>(R::b(ring, t % kFlashStages), v_bh + (size_t)k0 * D, n, kTileKeys);
     }
     cp_async_commit();
   };
   for (int t = 0; t < kFlashStages - 1; ++t) {
     issue(t);
-    if (tid < kTileKeys) ring_bias[t][tid] = key_bias(mask_b, t * kTileKeys + tid, Lk, all_masked);
+    if (tid < kTileKeys) ring_bias(t)[tid] = key_bias(mask_b, t * kTileKeys + tid, Lk, all_masked);
   }
 
   const int row0 = blockIdx.y * kFlashWarps * kWarpRows + tid / 32 * kWarpRows;
@@ -662,7 +696,7 @@ attention_flash_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
     if (live) {
       const int slot = t % kFlashStages;
       float s[8][4], mx[2];
-      score_tile<D>(qa, smem_u32(ring_k[slot]), ring_bias[slot], 0, scale, s);
+      score_tile<D>(qa, R::a(ring, slot), ring_bias(slot), 0, scale, s);
       tile_max(s, mx);
       float mu[2];
 #pragma unroll
@@ -687,9 +721,9 @@ attention_flash_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
         }
       uint32_t pa[4][4];
       pack_p(s, pa);
-      pv_tile<D>(pa, smem_u32(ring_v[slot]), 0, o);
+      pv_tile<D>(pa, R::b(ring, slot), 0, o);
     }
-    if (tid < kTileKeys) ring_bias[next % kFlashStages][tid] = next_bias;
+    if (tid < kTileKeys) ring_bias(next % kFlashStages)[tid] = next_bias;
   }
   cp_async_wait<0>();
   if (!live) return;
@@ -752,16 +786,17 @@ __device__ __forceinline__ float2 unpack_bf16(uint32_t x) {
 
 // ------------------------------------------------------------------ dQ, bf16
 template <int D>
-__global__ void __launch_bounds__(kFlashWarps * 32, 3)
+__global__ void __launch_bounds__(kFlashWarps * 32, D <= 32 ? 3 : 2)
 attention_bwd_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, const uint8_t* __restrict__ mask,
                      const bf16* __restrict__ out, const float* __restrict__ lse,
                      const bf16* __restrict__ g, bf16* __restrict__ dq,
                      float* __restrict__ lse2_pad, float* __restrict__ dsum_pad, int H, int Lq,
                      int Lk, int Lq_pad, float scale_log2, float scale) {
-  __shared__ __align__(128) bf16 ring_k[kFlashStages][kTileKeys * D];
-  __shared__ __align__(128) bf16 ring_v[kFlashStages][kTileKeys * D];
-  __shared__ __align__(16) float ring_bias[kFlashStages][kTileKeys];
+  using R = Ring<D, 1>;
+  extern __shared__ __align__(128) uint8_t smem_kv[];
+  const uint32_t ring = smem_u32(smem_kv);
+  auto ring_bias = [&](int s) { return R::vec(smem_kv, 0, s); };
 
   const int bh = blockIdx.x;
   const uint8_t* mask_b = mask ? mask + (size_t)(bh / H) * Lk : nullptr;
@@ -775,14 +810,14 @@ attention_bwd_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
   auto issue = [&](int t) {  // as K2
     if (t < tiles) {
       const int k0 = t * kTileKeys, n = min(kTileKeys, Lk - k0);
-      stage_async<D>(smem_u32(ring_k[t % kFlashStages]), k_bh + (size_t)k0 * D, n, kTileKeys);
-      stage_async<D>(smem_u32(ring_v[t % kFlashStages]), v_bh + (size_t)k0 * D, n, kTileKeys);
+      stage_async<D>(R::a(ring, t % kFlashStages), k_bh + (size_t)k0 * D, n, kTileKeys);
+      stage_async<D>(R::b(ring, t % kFlashStages), v_bh + (size_t)k0 * D, n, kTileKeys);
     }
     cp_async_commit();
   };
   for (int t = 0; t < kFlashStages - 1; ++t) {
     issue(t);
-    if (tid < kTileKeys) ring_bias[t][tid] = key_bias(mask_b, t * kTileKeys + tid, Lk, all_masked);
+    if (tid < kTileKeys) ring_bias(t)[tid] = key_bias(mask_b, t * kTileKeys + tid, Lk, all_masked);
   }
 
   const int row0 = blockIdx.y * kFlashWarps * kWarpRows + tid / 32 * kWarpRows;
@@ -831,17 +866,17 @@ attention_bwd_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
     if (live) {
       const int slot = t % kFlashStages;
       float s[8][4], dp[8][4];
-      score_tile<D>(qa, smem_u32(ring_k[slot]), ring_bias[slot], 0, scale_p, s);
-      product_tile<D>(ga, smem_u32(ring_v[slot]), 0, dp);
+      score_tile<D>(qa, R::a(ring, slot), ring_bias(slot), 0, scale_p, s);
+      product_tile<D>(ga, R::b(ring, slot), 0, dp);
 #pragma unroll
       for (int n = 0; n < 8; ++n)
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[n][e] = ex2(s[n][e] - lse2[e / 2]) * (dp[n][e] - dsum[e / 2]);
       uint32_t da[4][4];
       pack_p(s, da);
-      pv_tile<D>(da, smem_u32(ring_k[slot]), 0, o);  // dQ += dS K
+      pv_tile<D>(da, R::a(ring, slot), 0, o);  // dQ += dS K
     }
-    if (tid < kTileKeys) ring_bias[next % kFlashStages][tid] = next_bias;
+    if (tid < kTileKeys) ring_bias(next % kFlashStages)[tid] = next_bias;
   }
   cp_async_wait<0>();
   if (!live) return;
@@ -851,16 +886,17 @@ attention_bwd_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 // ---------------------------------------------------------------- dK/dV, bf16
 template <int D>
-__global__ void __launch_bounds__(kFlashWarps * 32, 3)
+__global__ void __launch_bounds__(kFlashWarps * 32, D <= 32 ? 3 : 2)
 attention_bwd_dkdv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
                        const bf16* __restrict__ v, const uint8_t* __restrict__ mask,
                        const bf16* __restrict__ g, bf16* __restrict__ dk, bf16* __restrict__ dv,
                        const float* __restrict__ lse2_pad, const float* __restrict__ dsum_pad,
                        int H, int Lq, int Lk, int Lq_pad, float scale_log2, float scale) {
-  __shared__ __align__(128) bf16 ring_q[kFlashStages][kTileKeys * D];
-  __shared__ __align__(128) bf16 ring_g[kFlashStages][kTileKeys * D];
-  __shared__ __align__(16) float ring_lse2[kFlashStages][kTileKeys];
-  __shared__ __align__(16) float ring_dsum[kFlashStages][kTileKeys];
+  using R = Ring<D, 2>;
+  extern __shared__ __align__(128) uint8_t smem_kv[];
+  const uint32_t ring = smem_u32(smem_kv);
+  auto ring_lse2 = [&](int s) { return R::vec(smem_kv, 0, s); };
+  auto ring_dsum = [&](int s) { return R::vec(smem_kv, 1, s); };
 
   const int bh = blockIdx.x;
   const uint8_t* mask_b = mask ? mask + (size_t)(bh / H) * Lk : nullptr;
@@ -875,13 +911,13 @@ attention_bwd_dkdv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
   auto issue = [&](int t) {
     if (t < tiles) {
       const int r0 = t * kTileKeys, n = min(kTileKeys, Lq - r0), slot = t % kFlashStages;
-      stage_async<D>(smem_u32(ring_q[slot]), q + q_off + (size_t)r0 * D, n, kTileKeys);
-      stage_async<D>(smem_u32(ring_g[slot]), g + q_off + (size_t)r0 * D, n, kTileKeys);
+      stage_async<D>(R::a(ring, slot), q + q_off + (size_t)r0 * D, n, kTileKeys);
+      stage_async<D>(R::b(ring, slot), g + q_off + (size_t)r0 * D, n, kTileKeys);
       constexpr int kChunks = kTileKeys / 4;
       if (tid < 2 * kChunks) {
         const int c = 4 * (tid % kChunks);
         const bool is_lse = tid < kChunks;
-        cp_async16(smem_u32((is_lse ? ring_lse2[slot] : ring_dsum[slot]) + c),
+        cp_async16(smem_u32((is_lse ? ring_lse2(slot) : ring_dsum(slot)) + c),
                    (is_lse ? lse2_pad : dsum_pad) + pad_off + r0 + c, true);
       }
     }
@@ -906,14 +942,14 @@ attention_bwd_dkdv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
     issue(t + kFlashStages - 1);
     if (live) {
       const int slot = t % kFlashStages;
-      const uint32_t sq = smem_u32(ring_q[slot]), sg = smem_u32(ring_g[slot]);
+      const uint32_t sq = R::a(ring, slot), sg = R::b(ring, slot);
       float p[8][4], ds[8][4];
       product_tile<D>(ka, sq, 0, p);   // S^T (unscaled): the warp's keys x the tile's queries
       product_tile<D>(va, sg, 0, ds);  // dP^T = V g^T
 #pragma unroll
       for (int n = 0; n < 8; ++n) {
-        const float2 l2 = *reinterpret_cast<const float2*>(ring_lse2[slot] + 8 * n + 2 * t4);
-        const float2 dd = *reinterpret_cast<const float2*>(ring_dsum[slot] + 8 * n + 2 * t4);
+        const float2 l2 = *reinterpret_cast<const float2*>(ring_lse2(slot) + 8 * n + 2 * t4);
+        const float2 dd = *reinterpret_cast<const float2*>(ring_dsum(slot) + 8 * n + 2 * t4);
 #pragma unroll
         for (int e = 0; e < 4; ++e) {  // e % 2: query 2 t4 + e % 2; e / 2: key row g or g + 8
           p[n][e] = ex2(fmaf(p[n][e], scale_p, kbias[e / 2]) - (e % 2 ? l2.y : l2.x));
@@ -997,6 +1033,42 @@ attention_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k
 }
 
 // ------------------------------------------------------------ dK/dV, float32
+// A key's four threads split the head dim, not the queries: each keeps a
+// quarter of the key's K and V rows and of both accumulators (D/4 values
+// each, 64 floats a thread at D = 64 instead of 4 D, which spilled), takes
+// its part of each dot product over the query rows of the tile, and the quad
+// sums the parts with two shuffles. The four threads of a warp that read one
+// query row read four different chunks of it: a broadcast, no bank conflict.
+template <int D>
+__device__ __forceinline__ float dot_slice(const float* rows, int i, int split, const float* x) {
+  using L = Layout<D>;
+  constexpr int kC = L::kChunks / kSplit;
+  const uint4* r = reinterpret_cast<const uint4*>(rows) + i * L::kChunks;
+  float acc = 0.f;
+#pragma unroll
+  for (int cc = 0; cc < kC; ++cc) {
+    float y[kVec];
+    unpack(r[L::chunk(i, split * kC + cc)], y);
+#pragma unroll
+    for (int e = 0; e < kVec; ++e) acc = fmaf(x[cc * kVec + e], y[e], acc);
+  }
+  return acc;
+}
+
+template <int D>
+__device__ __forceinline__ void axpy_slice(const float* rows, int i, int split, float p, float* acc) {
+  using L = Layout<D>;
+  constexpr int kC = L::kChunks / kSplit;
+  const uint4* r = reinterpret_cast<const uint4*>(rows) + i * L::kChunks;
+#pragma unroll
+  for (int cc = 0; cc < kC; ++cc) {
+    float y[kVec];
+    unpack(r[L::chunk(i, split * kC + cc)], y);
+#pragma unroll
+    for (int e = 0; e < kVec; ++e) acc[cc * kVec + e] = fmaf(p, y[e], acc[cc * kVec + e]);
+  }
+}
+
 template <int D>
 __global__ void __launch_bounds__(kThreads)
 attention_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
@@ -1005,6 +1077,8 @@ attention_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__
                           float* __restrict__ dv, const float* __restrict__ lse2_pad,
                           const float* __restrict__ dsum_pad, int H, int Lq, int Lk, int Lq_pad,
                           float scale_log2, float scale) {
+  constexpr int kSlice = D / kSplit;  // head-dim values a thread keeps
+  static_assert(kSlice % kVec == 0, "a thread's slice is whole 16-byte chunks");
   __shared__ __align__(16) float sq[kRows * D];
   __shared__ __align__(16) float sg[kRows * D];
   __shared__ float slse2[kRows], sdsum[kRows];
@@ -1017,16 +1091,24 @@ attention_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__
 
   const int row = threadIdx.x / kSplit;
   const int split = threadIdx.x % kSplit;
+  const unsigned quad = 0xfu << (threadIdx.x % 32 / kSplit * kSplit);  // this key's four lanes
   const bool live = row < nk;
   const bool valid = live && (all_masked || mask_b == nullptr || mask_b[k0 + row]);
   const size_t k_row = (size_t)bh * Lk + k0 + (live ? row : 0);
-  float kf[D], vf[D];
-  load_query<D>(k + k_row * D, kf);
-  load_query<D>(v + k_row * D, vf);
-
-  float dk_acc[D], dv_acc[D];
+  float kf[kSlice], vf[kSlice];
+  {
+    const uint4* kr = reinterpret_cast<const uint4*>(k + k_row * D + split * kSlice);
+    const uint4* vr = reinterpret_cast<const uint4*>(v + k_row * D + split * kSlice);
 #pragma unroll
-  for (int d = 0; d < D; ++d) dk_acc[d] = dv_acc[d] = 0.f;
+    for (int cc = 0; cc < kSlice / kVec; ++cc) {
+      unpack(kr[cc], kf + cc * kVec);
+      unpack(vr[cc], vf + cc * kVec);
+    }
+  }
+
+  float dk_acc[kSlice], dv_acc[kSlice];
+#pragma unroll
+  for (int d = 0; d < kSlice; ++d) dk_acc[d] = dv_acc[d] = 0.f;
   for (int r0 = 0; r0 < Lq; r0 += kRows) {
     const int nq = min(kRows, Lq - r0);
     __syncthreads();  // the previous tile is consumed
@@ -1037,17 +1119,25 @@ attention_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__
       sdsum[threadIdx.x] = dsum_pad[(size_t)bh * Lq_pad + r0 + threadIdx.x];
     }
     __syncthreads();
-    if (!valid) continue;  // a masked key gets dK = dV = 0
-    for (int i = split; i < nq; i += kSplit) {
-      const float s = all_masked ? 0.f : dot_row<D>(sq, i, kf) * scale_log2;
-      const float p = exp2f(s - slse2[i]);
-      axpy_row<D>(sg, i, p, dv_acc);
-      axpy_row<D>(sq, i, p * (dot_row<D>(sg, i, vf) - sdsum[i]), dk_acc);
+    if (!valid) continue;  // a masked key gets dK = dV = 0 (its whole quad skips)
+    for (int i = 0; i < nq; ++i) {
+      float s = dot_slice<D>(sq, i, split, kf), dp = dot_slice<D>(sg, i, split, vf);
+      s += __shfl_xor_sync(quad, s, 1);
+      dp += __shfl_xor_sync(quad, dp, 1);
+      s += __shfl_xor_sync(quad, s, 2);
+      dp += __shfl_xor_sync(quad, dp, 2);
+      const float p = exp2f((all_masked ? 0.f : s * scale_log2) - slse2[i]);
+      axpy_slice<D>(sg, i, split, p, dv_acc);
+      axpy_slice<D>(sq, i, split, p * (dp - sdsum[i]), dk_acc);
     }
   }
-  const size_t out_row = (size_t)bh * Lk + k0 + row;
-  write_row<D>(dk_acc, scale, dk + out_row * D, split, live);
-  write_row<D>(dv_acc, 1.f, dv + out_row * D, split, live);
+  if (!live) return;
+  const size_t out = ((size_t)bh * Lk + k0 + row) * D + split * kSlice;
+#pragma unroll
+  for (int d = 0; d < kSlice; ++d) {
+    dk[out + d] = dk_acc[d] * scale;
+    dv[out + d] = dv_acc[d];
+  }
 }
 
 // ===================================================================== launch
@@ -1087,8 +1177,11 @@ cudaError_t launch_bf16(bool flash, const bf16* q, const bf16* k, const bf16* v,
   if (flash) {
     const int warp_tiles = (Lq + kWarpRows - 1) / kWarpRows;
     const dim3 grid(B * H, (warp_tiles + kFlashWarps - 1) / kFlashWarps);
-    attention_flash_mma<D><<<grid, kFlashWarps * 32, 0, stream>>>(q, k, v, mask, out, lse, H, Lq,
-                                                                  Lk, scale_log2);
+    constexpr size_t smem = Ring<D, 1>::kBytes;
+    const cudaError_t err = allow_smem(attention_flash_mma<D>, smem);
+    if (err != cudaSuccess) return err;
+    attention_flash_mma<D><<<grid, kFlashWarps * 32, smem, stream>>>(q, k, v, mask, out, lse, H, Lq,
+                                                                     Lk, scale_log2);
   } else {
     const int warps = threads / 32;
     if (lse != nullptr || threads % 32 != 0 || warps < 1 || warps > kWholeKvMaxWarps ||
@@ -1106,9 +1199,9 @@ cudaError_t launch_bf16(bool flash, const bf16* q, const bf16* k, const bf16* v,
 
 int dispatch(bool flash, int dtype, const void* q, const void* k, const void* v,
              const void* mask, void* out, void* lse, int B, int H, int Lq, int Lk, int D,
-             int blocks, int threads, void* stream) {
+             float scale, int blocks, int threads, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float scale_log2 = kLog2e / std::sqrt((float)D);
+  const float scale_log2 = kLog2e * scale;
   const uint8_t* m = static_cast<const uint8_t*>(mask);
   float* l = static_cast<float*>(lse);
   cudaError_t err = cudaErrorInvalidValue;
@@ -1120,6 +1213,8 @@ int dispatch(bool flash, int dtype, const void* q, const void* k, const void* v,
       err = launch_f32<16>(flash, fq, fk, fv, m, fo, l, B, H, Lq, Lk, blocks, threads, scale_log2, s);
     if (D == 32)
       err = launch_f32<32>(flash, fq, fk, fv, m, fo, l, B, H, Lq, Lk, blocks, threads, scale_log2, s);
+    if (D == 64)
+      err = launch_f32<64>(flash, fq, fk, fv, m, fo, l, B, H, Lq, Lk, blocks, threads, scale_log2, s);
   } else if (dtype == 1) {
     const bf16 *bq = static_cast<const bf16*>(q), *bk = static_cast<const bf16*>(k),
                *bv = static_cast<const bf16*>(v);
@@ -1128,6 +1223,8 @@ int dispatch(bool flash, int dtype, const void* q, const void* k, const void* v,
       err = launch_bf16<16>(flash, bq, bk, bv, m, bo, l, B, H, Lq, Lk, blocks, threads, scale_log2, s);
     if (D == 32)
       err = launch_bf16<32>(flash, bq, bk, bv, m, bo, l, B, H, Lq, Lk, blocks, threads, scale_log2, s);
+    if (D == 64)
+      err = launch_bf16<64>(flash, bq, bk, bv, m, bo, l, B, H, Lq, Lk, blocks, threads, scale_log2, s);
   }
   return (int)err;
 }
@@ -1138,27 +1235,31 @@ int dispatch(bool flash, int dtype, const void* q, const void* k, const void* v,
 template <typename T, int D>
 cudaError_t launch_backward(const T* q, const T* k, const T* v, const uint8_t* mask, const T* out,
                             const float* lse, const T* g, T* dq, T* dk, T* dv, float* scratch,
-                            int B, int H, int Lq, int Lk, cudaStream_t stream) {
+                            int B, int H, int Lq, int Lk, float scale, cudaStream_t stream) {
   const int Lq_pad = (Lq + kRows - 1) / kRows * kRows;
   float* lse2_pad = scratch;
   float* dsum_pad = scratch + (size_t)B * H * Lq_pad;
   // scale_log2 as the forward computes it, so that S is the forward's to the bit
-  const float scale = 1.f / std::sqrt((float)D), scale_log2 = kLog2e / std::sqrt((float)D);
+  const float scale_log2 = kLog2e * scale;
   const dim3 grid_q(B * H, Lq_pad / kRows), grid_k(B * H, (Lk + kTileKeys - 1) / kTileKeys);
+  cudaError_t err;
   if constexpr (std::is_same_v<T, float>) {
     attention_bwd_dq_kernel<D><<<grid_q, kThreads, 0, stream>>>(
         q, k, v, mask, out, lse, g, dq, lse2_pad, dsum_pad, H, Lq, Lk, Lq_pad, scale_log2, scale);
   } else {
-    attention_bwd_dq_mma<D><<<grid_q, kFlashWarps * 32, 0, stream>>>(
+    constexpr size_t smem = Ring<D, 1>::kBytes;
+    if ((err = allow_smem(attention_bwd_dq_mma<D>, smem)) != cudaSuccess) return err;
+    attention_bwd_dq_mma<D><<<grid_q, kFlashWarps * 32, smem, stream>>>(
         q, k, v, mask, out, lse, g, dq, lse2_pad, dsum_pad, H, Lq, Lk, Lq_pad, scale_log2, scale);
   }
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
   if constexpr (std::is_same_v<T, float>) {
     attention_bwd_dkdv_kernel<D><<<grid_k, kThreads, 0, stream>>>(
         q, k, v, mask, g, dk, dv, lse2_pad, dsum_pad, H, Lq, Lk, Lq_pad, scale_log2, scale);
   } else {
-    attention_bwd_dkdv_mma<D><<<grid_k, kFlashWarps * 32, 0, stream>>>(
+    constexpr size_t smem = Ring<D, 2>::kBytes;
+    if ((err = allow_smem(attention_bwd_dkdv_mma<D>, smem)) != cudaSuccess) return err;
+    attention_bwd_dkdv_mma<D><<<grid_k, kFlashWarps * 32, smem, stream>>>(
         q, k, v, mask, g, dk, dv, lse2_pad, dsum_pad, H, Lq, Lk, Lq_pad, scale_log2, scale);
   }
   return cudaGetLastError();
@@ -1167,7 +1268,7 @@ cudaError_t launch_backward(const T* q, const T* k, const T* v, const uint8_t* m
 template <typename T>
 cudaError_t dispatch_backward(int D, const void* q, const void* k, const void* v, const void* mask,
                               const void* out, const void* lse, const void* g, void* dq, void* dk,
-                              void* dv, void* scratch, int B, int H, int Lq, int Lk,
+                              void* dv, void* scratch, int B, int H, int Lq, int Lk, float scale,
                               cudaStream_t stream) {
   const T *tq = static_cast<const T*>(q), *tk = static_cast<const T*>(k),
           *tv = static_cast<const T*>(v), *to = static_cast<const T*>(out),
@@ -1176,8 +1277,9 @@ cudaError_t dispatch_backward(int D, const void* q, const void* k, const void* v
   const uint8_t* m = static_cast<const uint8_t*>(mask);
   const float* l = static_cast<const float*>(lse);
   float* sc = static_cast<float*>(scratch);
-  if (D == 16) return launch_backward<T, 16>(tq, tk, tv, m, to, l, tg, tdq, tdk, tdv, sc, B, H, Lq, Lk, stream);
-  if (D == 32) return launch_backward<T, 32>(tq, tk, tv, m, to, l, tg, tdq, tdk, tdv, sc, B, H, Lq, Lk, stream);
+  if (D == 16) return launch_backward<T, 16>(tq, tk, tv, m, to, l, tg, tdq, tdk, tdv, sc, B, H, Lq, Lk, scale, stream);
+  if (D == 32) return launch_backward<T, 32>(tq, tk, tv, m, to, l, tg, tdq, tdk, tdv, sc, B, H, Lq, Lk, scale, stream);
+  if (D == 64) return launch_backward<T, 64>(tq, tk, tv, m, to, l, tg, tdq, tdk, tdv, sc, B, H, Lq, Lk, scale, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -1189,41 +1291,53 @@ struct Entry {
 const Entry kKernels[] = {
     {"attention_whole_kv_mma<bf16,16>", (const void*)attention_whole_kv_mma<16>},
     {"attention_whole_kv_mma<bf16,32>", (const void*)attention_whole_kv_mma<32>},
+    {"attention_whole_kv_mma<bf16,64>", (const void*)attention_whole_kv_mma<64>},
     {"attention_flash_mma<bf16,16>", (const void*)attention_flash_mma<16>},
     {"attention_flash_mma<bf16,32>", (const void*)attention_flash_mma<32>},
+    {"attention_flash_mma<bf16,64>", (const void*)attention_flash_mma<64>},
     {"attention_whole_kv_kernel<float,16>", (const void*)attention_whole_kv_kernel<16>},
     {"attention_whole_kv_kernel<float,32>", (const void*)attention_whole_kv_kernel<32>},
+    {"attention_whole_kv_kernel<float,64>", (const void*)attention_whole_kv_kernel<64>},
     {"attention_flash_kernel<float,16>", (const void*)attention_flash_kernel<16>},
     {"attention_flash_kernel<float,32>", (const void*)attention_flash_kernel<32>},
+    {"attention_flash_kernel<float,64>", (const void*)attention_flash_kernel<64>},
     {"attention_bwd_dq_mma<bf16,16>", (const void*)attention_bwd_dq_mma<16>},
     {"attention_bwd_dq_mma<bf16,32>", (const void*)attention_bwd_dq_mma<32>},
+    {"attention_bwd_dq_mma<bf16,64>", (const void*)attention_bwd_dq_mma<64>},
     {"attention_bwd_dkdv_mma<bf16,16>", (const void*)attention_bwd_dkdv_mma<16>},
     {"attention_bwd_dkdv_mma<bf16,32>", (const void*)attention_bwd_dkdv_mma<32>},
+    {"attention_bwd_dkdv_mma<bf16,64>", (const void*)attention_bwd_dkdv_mma<64>},
     {"attention_bwd_dq_kernel<float,16>", (const void*)attention_bwd_dq_kernel<16>},
     {"attention_bwd_dq_kernel<float,32>", (const void*)attention_bwd_dq_kernel<32>},
+    {"attention_bwd_dq_kernel<float,64>", (const void*)attention_bwd_dq_kernel<64>},
     {"attention_bwd_dkdv_kernel<float,16>", (const void*)attention_bwd_dkdv_kernel<16>},
     {"attention_bwd_dkdv_kernel<float,32>", (const void*)attention_bwd_dkdv_kernel<32>},
+    {"attention_bwd_dkdv_kernel<float,64>", (const void*)attention_bwd_dkdv_kernel<64>},
 };
 
 }  // namespace
 
 // Plain C interface, loaded with ctypes. dtype: 0 = float32, 1 = bfloat16.
 // mask: (B, Lk) bytes (torch.bool), or null for no mask. lse: (B, H, Lq)
-// float32, or null to write none. stream: a cudaStream_t. Returns the
+// float32, or null to write none. D: 16, 32 or 64; scale: the softmax
+// scale, 1/sqrt of the head dim before any zero padding (the wrapper pads
+// other head dims). stream: a cudaStream_t. Returns the
 // cudaError_t of the launch (0 = success). K1 takes its grid (blocks per
 // batch*head, threads a block) from kernels/attention.py::whole_kv_plan, and
 // refuses one that leaves query rows without a warp, and an lse pointer in
 // bf16 (cudaErrorInvalidValue).
 extern "C" int attention_whole_kv(int dtype, const void* q, const void* k, const void* v,
                                   const void* mask, void* out, void* lse, int B, int H, int Lq,
-                                  int Lk, int D, int blocks, int threads, void* stream) {
-  return dispatch(false, dtype, q, k, v, mask, out, lse, B, H, Lq, Lk, D, blocks, threads, stream);
+                                  int Lk, int D, float scale, int blocks, int threads,
+                                  void* stream) {
+  return dispatch(false, dtype, q, k, v, mask, out, lse, B, H, Lq, Lk, D, scale, blocks, threads,
+                  stream);
 }
 
 extern "C" int attention_flash(int dtype, const void* q, const void* k, const void* v,
                                const void* mask, void* out, void* lse, int B, int H, int Lq,
-                               int Lk, int D, void* stream) {
-  return dispatch(true, dtype, q, k, v, mask, out, lse, B, H, Lq, Lk, D, 0, 0, stream);
+                               int Lk, int D, float scale, void* stream) {
+  return dispatch(true, dtype, q, k, v, mask, out, lse, B, H, Lq, Lk, D, scale, 0, 0, stream);
 }
 
 // B.4's backward: dq, dk, dv (each like its input) from q, k, v, the mask,
@@ -1233,15 +1347,15 @@ extern "C" int attention_flash(int dtype, const void* q, const void* k, const vo
 extern "C" int attention_backward(int dtype, const void* q, const void* k, const void* v,
                                   const void* mask, const void* out, const void* lse,
                                   const void* g, void* dq, void* dk, void* dv, void* scratch,
-                                  int B, int H, int Lq, int Lk, int D, void* stream) {
+                                  int B, int H, int Lq, int Lk, int D, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (lse == nullptr || scratch == nullptr) return (int)cudaErrorInvalidValue;
   if (dtype == 0)
     return (int)dispatch_backward<float>(D, q, k, v, mask, out, lse, g, dq, dk, dv, scratch, B, H,
-                                         Lq, Lk, s);
+                                         Lq, Lk, scale, s);
   if (dtype == 1)
     return (int)dispatch_backward<bf16>(D, q, k, v, mask, out, lse, g, dq, dk, dv, scratch, B, H,
-                                        Lq, Lk, s);
+                                        Lq, Lk, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -10,7 +10,9 @@ the JAX detector reads them. A chunk runs preprocess -> DETR -> postprocess on
 one device and comes back as host numpy; its encoder output stays on the
 device for the appearance features.
 
-``detection.device``: ``"auto"``/``"cuda"`` run on the card (and raise when
+``detection.backbone``: ``resnet50`` or ``vit`` (ViT-base/16 at full size,
+the patch from ``detection.patch_size``; the tiny ViT in the tiny and small
+tiers). ``detection.device``: ``"auto"``/``"cuda"`` run on the card (and raise when
 there is none), ``"cpu"`` on the CPU. Weights: a flat or path-keyed ``.npz``,
 a HF ``.pt``/``.bin``/``.safetensors``, otherwise a seeded random init with a
 warning. The data-parallel mesh has no counterpart on one card;
@@ -32,6 +34,7 @@ from ..core.dto import Detection, DetectionBatch
 from ..device import resolve_device
 from ..models.detr import DETR, DETRConfig
 from ..models.postprocess import postprocess_detr
+from ..models.vit import ViTConfig
 from ..models.weights import load_checkpoint
 from ..ops.preprocessing import compute_resize_geometry, preprocess_frames
 from .features import crop_histogram_features, roi_mean_pool
@@ -94,8 +97,6 @@ class DETRDetector:
         self.device_pref = str(get("detection.device", "auto"))
         self.transfer_format = check_transfer_format(get("detection.transfer_format", "bgr"))
         if detr_config is None:
-            if str(get("detection.backbone", "resnet50")) != "resnet50":
-                raise NotImplementedError("only the resnet50 backbone is ported")
             common = dict(
                 num_queries=int(get("detection.num_queries", 100)),
                 dtype=str(get("detection.dtype", "bfloat16")),
@@ -103,6 +104,11 @@ class DETRDetector:
                 dilate_c5=bool(get("detection.dilate_c5", False)),
                 score_mode=str(get("detection.score_mode", "softmax")),
             )
+            # detection.backbone: "vit" with the patch of detection.patch_size;
+            # any other value is the ResNet, as in JAX.
+            backbone = str(get("detection.backbone", "resnet50"))
+            if backbone == "vit":
+                common.update(backbone="vit", vit_patch_size=int(get("detection.patch_size", 16)))
             model_size = str(get("detection.model_size", "full"))
             if model_size in ("tiny", "small"):
                 # The tier fixes its own query count unless one is configured
@@ -114,12 +120,18 @@ class DETRDetector:
                         "detection.num_queries=%d overrides the %s tier's default query count",
                         requested_q, model_size,
                     )
+                if backbone == "vit":  # the tiny ViT's widths in both small tiers, as in JAX
+                    t = ViTConfig.tiny()
+                    common.update(vit_patch_size=int(get("detection.patch_size", t.patch_size)),
+                                  vit_hidden=t.hidden_size, vit_layers=t.num_layers, vit_heads=t.num_heads,
+                                  vit_mlp=t.mlp_dim, vit_pos_grid=t.pos_grid)
                 detr_config = getattr(DETRConfig, model_size)(**common)
             else:
                 detr_config = DETRConfig(**common)
         self.detr_config = detr_config
-        #: pixels of the input per feature-grid cell (ROI pooling, attention maps)
-        self.feature_stride = 16 if detr_config.dilate_c5 else 32
+        #: pixels of the input per feature-grid cell (ROI pooling, attention
+        #: maps): the ViT's patch, or the ResNet's 32 (16 with DC5)
+        self.feature_stride = detr_config.feature_stride
         self.device: torch.device | None = None
         self.model: DETR | None = None
         #: host seconds of the last detect_batch's chunk loop

@@ -16,6 +16,13 @@ Counterparts of the Pallas kernels in
   the log-sum-exp the forward wrote (``with_lse=True``), FlashAttention-2's
   scheme: a dQ kernel over query tiles, then a dK/dV kernel over key tiles.
 
+The kernels are instantiated for head dims 16, 32 and 64 (:data:`HEAD_DIMS`).
+Any other head dim up to 64 is zero-padded to the next of them on the way in
+and cut back on the way out (:func:`padded_call`), with the softmax scale of
+the true head dim passed to the kernel: zero columns add nothing to a dot
+product, so the scores, the log-sum-exp and the kept columns of every result
+are those of the unpadded call. A head dim above 64 raises (ROADMAP C.7).
+
 In bf16 the forwards and the backward pair run their products on the tensor
 cores (``mma.sync`` m16n8k16, one warp per 16 query or key rows;
 :func:`whole_kv_plan` gives K1's grid); in float32 they keep a CUDA-core
@@ -39,8 +46,10 @@ on a CUDA tensor it launches its kernel or raises. There is no fall-back.
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
+import torch.nn.functional as F
 
 from ..ops.attention import attention_lse, attention_reference
 from . import build
@@ -56,8 +65,9 @@ QUERY_TILE = 64
 #: warps of a K1 block (kWarpRows, kTileKeys, and kWholeKvMaxWarps, the
 #: launch bounds, in the source).
 WARP_ROWS, TILE_KEYS, WHOLE_KV_MAX_WARPS = 16, 64, 16
-#: Head dims the source is instantiated for: 16 (tiny, small) and 32 (full).
-HEAD_DIMS = (16, 32)
+#: Head dims the source is instantiated for: 16 (DETR tiny and small, the
+#: tiny ViT), 32 (DETR full) and 64 (ViT-base). Others up to 64 are padded.
+HEAD_DIMS = (16, 32, 64)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -70,6 +80,43 @@ def _ceil(a: int, b: int) -> int:
     return -(-a // b)
 
 
+def kernel_head_dim(head_dim: int) -> int:
+    """The instantiated head dim a call of ``head_dim`` runs at: the least of
+    :data:`HEAD_DIMS` that holds it. Raises above 64 (ROADMAP C.7)."""
+    for d in HEAD_DIMS:
+        if 1 <= head_dim <= d:
+            return d
+    raise ValueError(
+        f"head dim {head_dim}: the attention kernels take head dims 1 to {HEAD_DIMS[-1]} (instantiated "
+        f"{HEAD_DIMS}, others zero-padded); wider heads are not supported (ROADMAP C.7)"
+    )
+
+
+def padded_call(fn, q, k, v, *like_q):
+    """Call ``fn(q, k, v, *like_q, scale=1/sqrt(D))`` with every tensor's
+    last dim zero-padded from the true head dim D to :func:`kernel_head_dim`,
+    and cut the results back: ``fn`` returns a tensor or a tuple whose
+    (B, H, L, D_padded) members are cut to D; others (the log-sum-exp) pass
+    as they are. The padded columns of q and k add nothing to a score, and
+    those of v, out and g nothing to a kept column, so the result is the
+    unpadded call's."""
+    d = q.shape[-1]
+    dp = kernel_head_dim(d)
+    scale = 1.0 / math.sqrt(d)
+    tensors = (q, k, v, *like_q)
+    if dp != d:
+        tensors = tuple(F.pad(t, (0, dp - d)) for t in tensors)
+        heads = {t.shape for t in tensors}
+    result = fn(*tensors, scale=scale)
+    if dp == d:
+        return result
+
+    def cut(t):
+        return t[..., :d] if t is not None and t.dim() == 4 and t.shape in heads else t
+
+    return tuple(cut(t) for t in result) if isinstance(result, tuple) else cut(result)
+
+
 def whole_kv_smem_bytes(lk: int, head_dim: int, dtype: torch.dtype) -> int:
     """Shared memory K1 takes for one block.
 
@@ -78,6 +125,7 @@ def whole_kv_smem_bytes(lk: int, head_dim: int, dtype: torch.dtype) -> int:
     D 32, 2*960*32*2 + 960*4 = 126,720 B. float32: K and V, the 64-row query
     tile and one mask byte per key: 2*920*32*4 + 64*32*4 + 920 = 244,632 B.
     """
+    head_dim = kernel_head_dim(head_dim)
     if dtype == torch.bfloat16:
         keys = _ceil(lk, TILE_KEYS) * TILE_KEYS
         return 2 * keys * head_dim * 2 + 4 * keys
@@ -134,12 +182,13 @@ def use_flash(lk: int, head_dim: int, dtype: torch.dtype) -> bool:
 def load_library() -> ctypes.CDLL:
     """Build (once) and load the kernels. Raises when there is no card."""
     lib = build.load_library()
-    # (dtype, q, k, v, mask, out, lse, B, H, Lq, Lk, D[, blocks, threads], stream)
-    head = [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+    # (dtype, q, k, v, mask, out, lse, B, H, Lq, Lk, D, scale[, blocks, threads], stream)
+    head = [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_float]
     lib.attention_whole_kv.argtypes = head + [ctypes.c_int] * 2 + [ctypes.c_void_p]
     lib.attention_flash.argtypes = head + [ctypes.c_void_p]
-    # (dtype, q, k, v, mask, out, lse, g, dq, dk, dv, scratch, B, H, Lq, Lk, D, stream)
-    lib.attention_backward.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    # (dtype, q, k, v, mask, out, lse, g, dq, dk, dv, scratch, B, H, Lq, Lk, D, scale, stream)
+    lib.attention_backward.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5
+                                       + [ctypes.c_float, ctypes.c_void_p])
     for name in launch_counts:
         getattr(lib, name).restype = ctypes.c_int
     fn = lib.attention_kernel_attributes
@@ -179,8 +228,7 @@ def _check(q, k, v, mask) -> None:
     B, H, Lq, D = q.shape
     if k.shape[0] != B or k.shape[1] != H or k.shape[3] != D:
         raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} disagree")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"head dim {D} not in {HEAD_DIMS}")
+    kernel_head_dim(D)  # raises above 64; padded_call pads the others to HEAD_DIMS
     if Lq == 0 or k.shape[2] == 0:
         raise ValueError("empty query or key sequence")
     if not all(t.is_contiguous() and t.data_ptr() % 16 == 0 for t in tensors):
@@ -192,7 +240,7 @@ def _check(q, k, v, mask) -> None:
             raise ValueError("key_padding_mask must be contiguous on q's device")
 
 
-def _launch(name: str, q, k, v, mask, with_lse: bool, *grid: int):
+def _launch(name: str, q, k, v, mask, with_lse: bool, scale: float, *grid: int):
     _check(q, k, v, mask)
     build.refuse_autograd(name, q, k, v)
     lib = load_library()
@@ -204,7 +252,7 @@ def _launch(name: str, q, k, v, mask, with_lse: bool, *grid: int):
         err = getattr(lib, name)(
             _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
             None if mask is None else mask.data_ptr(), out.data_ptr(),
-            None if lse is None else lse.data_ptr(), B, H, Lq, k.shape[2], D, *grid, stream,
+            None if lse is None else lse.data_ptr(), B, H, Lq, k.shape[2], D, scale, *grid, stream,
         )
     build.check_launch(lib, name, err)
     launch_counts[name] += 1
@@ -231,8 +279,9 @@ def attention_whole_kv(q, k, v, key_padding_mask=None, *, with_lse: bool = False
     if with_lse and q.dtype == torch.bfloat16:
         raise ValueError("K1's bf16 body writes no log-sum-exp; use_flash sends bf16 calls to K2")
     plan = whole_kv_plan(q.shape[2], k.shape[2], q.shape[3], q.dtype)
-    return _launch("attention_whole_kv", q, k, v, key_padding_mask, with_lse,
-                   plan["blocks_per_head"], plan["threads"])
+    return padded_call(lambda q, k, v, scale: _launch("attention_whole_kv", q, k, v, key_padding_mask, with_lse,
+                                                      scale, plan["blocks_per_head"], plan["threads"]),
+                       q, k, v)
 
 
 def attention_flash(q, k, v, key_padding_mask=None, *, with_lse: bool = False):
@@ -240,7 +289,8 @@ def attention_flash(q, k, v, key_padding_mask=None, *, with_lse: bool = False):
     in both types."""
     if q.device.type == "cpu":
         return _plain(q, k, v, key_padding_mask, with_lse)
-    return _launch("attention_flash", q, k, v, key_padding_mask, with_lse)
+    return padded_call(lambda q, k, v, scale: _launch("attention_flash", q, k, v, key_padding_mask, with_lse, scale),
+                       q, k, v)
 
 
 def attention_backward(q, k, v, key_padding_mask, out, lse, g):
@@ -251,6 +301,11 @@ def attention_backward(q, k, v, key_padding_mask, out, lse, g):
     float32 scratch), then the dK/dV kernel. Deterministic: no atomics.
     Raises on a CPU tensor (its plain version is
     ``ops.attention.attention_backward_reference``)."""
+    return padded_call(lambda q, k, v, out, g, scale: _backward(q, k, v, key_padding_mask, out, lse, g, scale),
+                       q, k, v, out, g)
+
+
+def _backward(q, k, v, key_padding_mask, out, lse, g, scale: float):
     _check(q, k, v, key_padding_mask)
     B, H, Lq, D = q.shape
     for name, t in (("out", out), ("g", g)):
@@ -271,7 +326,7 @@ def attention_backward(q, k, v, key_padding_mask, out, lse, g):
             _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
             None if key_padding_mask is None else key_padding_mask.data_ptr(), out.data_ptr(), lse.data_ptr(),
             g.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), scratch.data_ptr(),
-            B, H, Lq, k.shape[2], D, stream,
+            B, H, Lq, k.shape[2], D, scale, stream,
         )
     build.check_launch(lib, "attention_backward", err)
     launch_counts["attention_backward"] += 1

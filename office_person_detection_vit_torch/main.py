@@ -10,14 +10,17 @@ raises) unless the config asks for ``cpu``. Exit codes: 0 ok, 1 config
 error, 2 runtime error, 130 SIGINT (reference main.py:120-131); a failed or
 cancelled run still writes its ``summary.json``.
 
-``--fine-tune`` hands off to the port's trainer (``train_detr.main``) with the
+``--evaluate`` scores the run's detections against
+``evaluation.ground_truth_path`` after the pipeline
+(``evaluation.evaluation_module.run_evaluation``), as the root ``main.py``
+does. ``--fine-tune`` hands off to the port's trainer (``train_detr.main``) with the
 argument list the root ``main.py`` builds from the ``training.*`` keys
 (:func:`fine_tune_args`), plus ``--device`` from ``detection.device`` when the
 config sets it, and returns its exit code.
 
 What the port does not have yet is refused with ``NotImplementedError``
-before any session directory is written, and the run exits 2: ``--evaluate``
-(ROADMAP A.3), the YOLO trainer (``training.model: yolo``, A.7), and the config keys of
+before any session directory is written, and the run exits 2: the YOLO
+trainer (``training.model: yolo``, A.7), and the config keys of
 ``pipeline.orchestrator.UNPORTED_KEYS`` (tracking A.5, multi-host A.8, the
 side-by-side video A.3). There is no compile cache to enable: the CUDA
 kernels are built once into ``_build/``.
@@ -34,13 +37,6 @@ from .pipeline.orchestrator import PipelineOrchestrator
 from .utils.logging_utils import setup_logging
 
 logger = logging.getLogger(__name__)
-
-#: Command-line flags of the root ``main.py`` that the port refuses, with the
-#: ROADMAP item that brings each.
-UNPORTED_FLAGS = {
-    "evaluate": "--evaluate: detection evaluation (evaluation/) is not ported yet (ROADMAP A.3)",
-}
-
 
 def fine_tune_args(config) -> list[str]:
     """The trainer's argument list from the ``training.*`` keys, as the root
@@ -111,9 +107,6 @@ def main(argv: list[str] | None = None) -> int:
             config.set("output.debug_mode", True)
         # Re-point the file log into the output dir (reference main.py:53-55).
         setup_logging(debug=args.debug, output_dir=config.get("output.directory", "output"))
-        for flag, why in UNPORTED_FLAGS.items():
-            if getattr(args, flag):
-                raise NotImplementedError(why)
         if args.fine_tune:
             from .train_detr import REFUSED
             from .train_detr import main as train_main
@@ -136,6 +129,11 @@ def main(argv: list[str] | None = None) -> int:
             timestamps_only=args.timestamps_only,
         )
         logger.info("pipeline finished: %s", result)
+
+        if args.evaluate:
+            from .evaluation.evaluation_module import run_evaluation
+
+            run_evaluation(config, orchestrator.frame_results, orchestrator.output.session_dir)
         return 0
     except (ConfigValidationError, FileNotFoundError) as e:
         logger.error("configuration error: %s", e)

@@ -1,12 +1,13 @@
-"""DETR person detector: ResNet backbone, 1x1 projection, post-norm
+"""DETR person detector: ResNet or ViT backbone, 1x1 projection, post-norm
 encoder/decoder with sine spatial and learned query embeddings, class head and
 3-layer box MLP.
 
 Mirrors ``office_person_detection_vit_tpu/models/detr.py``. ``DETRConfig``
 carries the tiny/small/full tiers and every field that changes the forward
 pass. ``use_pallas_attention`` is accepted so configs carry over, and is
-ignored: on the card attention always runs the CUDA kernels. The backbone is
-ResNet; the ``vit`` backbone waits for a later slice.
+ignored: on the card attention always runs the CUDA kernels. ``backbone``
+is ``"resnet50"`` (the ResNet of ``backbone_*``) or ``"vit"`` (``models/vit.py``
+at the ``vit_*`` widths, feature stride ``vit_patch_size``).
 
 Parameters are cast to ``config.dtype`` where they are used (models/layers.py),
 as Flax casts its float32 params: a training model keeps float32 parameters
@@ -34,6 +35,7 @@ from .layers import Conv2d, Linear
 from .position_encoding import sine_position_embedding
 from .resnet import FrozenBatchNorm, ResNet
 from .transformer import Decoder, Encoder
+from .vit import ViTBackbone, ViTConfig
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -49,6 +51,8 @@ class DETRConfig:
     num_classes: int = 91  # COCO labels; +1 no-object column in the head
     #: Transformer dropout in train() mode (the paper's 0.1; 0 in tiny/small).
     dropout: float = 0.1
+    #: "resnet50" or "vit" (models/vit.py; feature stride vit_patch_size).
+    backbone: str = "resnet50"
     backbone_depths: tuple[int, ...] = (3, 4, 6, 3)
     backbone_hidden: tuple[int, ...] = (256, 512, 1024, 2048)
     backbone_embedding: int = 64
@@ -60,6 +64,12 @@ class DETRConfig:
     enc_objectness: bool = False
     #: "softmax" (CE head) | "sigmoid" (focal head): how postprocess scores.
     score_mode: str = "softmax"
+    vit_patch_size: int = 16
+    vit_hidden: int = 768
+    vit_layers: int = 12
+    vit_heads: int = 12
+    vit_mlp: int = 3072
+    vit_pos_grid: int = 14
     dtype: str = "float32"
     #: Read for config compatibility and ignored (see module docstring).
     use_pallas_attention: bool = False
@@ -71,6 +81,19 @@ class DETRConfig:
     @property
     def torch_dtype(self) -> torch.dtype:
         return DTYPES[self.dtype]
+
+    @property
+    def vit_config(self) -> ViTConfig:
+        return ViTConfig(patch_size=self.vit_patch_size, hidden_size=self.vit_hidden, num_layers=self.vit_layers,
+                         num_heads=self.vit_heads, mlp_dim=self.vit_mlp, pos_grid=self.vit_pos_grid,
+                         dtype=self.dtype)
+
+    @property
+    def feature_stride(self) -> int:
+        """Input pixels per feature-grid cell."""
+        if self.backbone == "vit":
+            return self.vit_patch_size
+        return 16 if self.dilate_c5 else 32
 
     @classmethod
     def tiny(cls, **kw) -> "DETRConfig":
@@ -127,9 +150,16 @@ class DETR(nn.Module):
         super().__init__()
         self.config = config
         c = config
-        self.backbone = ResNet(c.backbone_depths, c.backbone_hidden, c.backbone_embedding,
-                               dilate_last_stage=c.dilate_c5)
-        self.input_projection = Conv2d(c.backbone_hidden[-1], c.d_model, 1)
+        if c.backbone == "vit":
+            self.backbone = ViTBackbone(c.vit_config)
+            feat_dim = c.vit_hidden
+        elif c.backbone == "resnet50":
+            self.backbone = ResNet(c.backbone_depths, c.backbone_hidden, c.backbone_embedding,
+                                   dilate_last_stage=c.dilate_c5)
+            feat_dim = c.backbone_hidden[-1]
+        else:
+            raise ValueError(f"backbone {c.backbone!r}: expected 'resnet50' or 'vit'")
+        self.input_projection = Conv2d(feat_dim, c.d_model, 1)
         self.query_position_embeddings = nn.Parameter(torch.empty(c.num_queries, c.d_model))
         self.encoder = Encoder(c.d_model, c.num_heads, c.ffn_dim, c.num_encoder_layers,
                                c.dropout, c.remat)
@@ -144,7 +174,8 @@ class DETR(nn.Module):
     def init_weights(self, generator: torch.Generator) -> None:
         """Seeded random init with the Flax initializers' shapes of law:
         LeCun-normal kernels, zero biases, N(0, 1) query embeddings, identity
-        frozen BN and LayerNorm, and the prior biases of the config."""
+        frozen BN and LayerNorm, N(0, 0.02) ViT CLS token and position
+        embeddings, and the prior biases of the config."""
         for mod in self.modules():
             if isinstance(mod, (nn.Conv2d, nn.Linear)):
                 fan_in = mod.weight[0].numel()
@@ -157,6 +188,8 @@ class DETR(nn.Module):
             elif isinstance(mod, FrozenBatchNorm):
                 mod.scale.fill_(1.0)
                 mod.bias.zero_()
+        if isinstance(self.backbone, ViTBackbone):
+            self.backbone.init_embeddings(generator)
         self.query_position_embeddings.normal_(0.0, 1.0, generator=generator)
         if self.config.class_prior is not None:
             self.class_labels_classifier.bias.fill_(_prior_logit(self.config.class_prior))
@@ -183,7 +216,7 @@ class DETR(nn.Module):
         if pixel_mask is None:
             pixel_mask = torch.ones((B, H, W), dtype=torch.bool, device=pixel_values.device)
 
-        feat = self.backbone(pixel_values.to(dtype))  # (B, fh, fw, C5)
+        feat = self.backbone(pixel_values.to(dtype))  # (B, fh, fw, C5 or ViT hidden)
         fh, fw = feat.shape[1], feat.shape[2]
 
         # Nearest mask downsample as torch F.interpolate(mode="nearest") and

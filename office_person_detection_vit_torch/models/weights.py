@@ -19,7 +19,15 @@ conversion) and the weight files of ``detection/export.py`` and the trainer:
   reads;
 - :func:`state_dict_from_hf`: a HF ``DetrForObjectDetection`` state_dict
   (HF-native or timm backbone names) by key mapping, BN folded as in
-  ``convert_torch_state_dict``.
+  ``convert_torch_state_dict``;
+- :func:`convert_vit_state_dict`: a HF ``ViTModel`` state_dict -> the Flax
+  params of a ViT backbone, as the JAX package's function of that name
+  returns them (the ``backbone`` subtree of a ViT DETR, or a
+  ``ViTBackbone`` through :func:`state_dict_from_flax` with its
+  ``ViTConfig``).
+
+Every map covers the ViT DETR (``DETRConfig(backbone="vit")``) as well: its
+backbone's Flax names are the port's module names.
 
 The port's module names are the Flax module names, so one walk over the
 port's own modules gives the whole mapping.
@@ -37,6 +45,7 @@ from torch import nn
 
 from .detr import DETR, DETRConfig
 from .resnet import FrozenBatchNorm
+from .vit import ViTBackbone, ViTConfig
 
 BN_EPS = 1e-5
 _DTYPE_TAG = "##dtype="
@@ -49,11 +58,12 @@ class ParamEntry(NamedTuple):
     flax_shape: tuple[int, ...]
 
 
-def flax_param_map(config: DETRConfig) -> list[ParamEntry]:
-    """Every parameter of DETR(config) as (Flax path, port key), in the order
-    ``jax.tree_util`` flattens the Flax variables."""
+def flax_param_map(config: DETRConfig | ViTConfig) -> list[ParamEntry]:
+    """Every parameter of DETR(config) (or of a ViTBackbone(config) on its
+    own) as (Flax path, port key), in the order ``jax.tree_util`` flattens
+    the Flax variables."""
     with torch.device("meta"):
-        model = DETR(config)
+        model = ViTBackbone(config) if isinstance(config, ViTConfig) else DETR(config)
     entries = []
 
     def add(path, key, kind, tensor):
@@ -77,8 +87,12 @@ def flax_param_map(config: DETRConfig) -> list[ParamEntry]:
         elif isinstance(mod, FrozenBatchNorm):
             add(path + ("scale",), f"{name}.scale", "copy", mod.scale)
             add(path + ("bias",), f"{name}.bias", "copy", mod.bias)
-    add(("query_position_embeddings",), "query_position_embeddings", "copy",
-        model.query_position_embeddings)
+    # Parameters held by no layer: DETR's query embeddings, the ViT's CLS
+    # token and position embeddings.
+    covered = {e.key for e in entries}
+    for key, p in model.named_parameters():
+        if key not in covered:
+            add(tuple(key.split(".")), key, "copy", p)
     return sorted(entries, key=lambda e: e.flax_path)
 
 
@@ -95,12 +109,13 @@ def _count_leaves(tree: Any) -> int:
     return 1
 
 
-def state_dict_from_flax(variables: Mapping[str, Any], config: DETRConfig) -> dict[str, torch.Tensor]:
-    """Flax variables ``{"params": {...}}`` (numpy leaves) -> port state_dict (float32)."""
+def state_dict_from_flax(variables: Mapping[str, Any], config: DETRConfig | ViTConfig) -> dict[str, torch.Tensor]:
+    """Flax variables ``{"params": {...}}`` (numpy leaves) -> port state_dict
+    (float32) of DETR(config), or of a ViTBackbone for a ViTConfig."""
     entries = flax_param_map(config)
     n = _count_leaves(variables["params"])
     if n != len(entries):
-        raise ValueError(f"variables hold {n} params, DETR({config}) has {len(entries)}")
+        raise ValueError(f"variables hold {n} params, {config} has {len(entries)}")
     sd = {}
     for e in entries:
         arr = _leaf(variables, e.flax_path)
@@ -280,6 +295,34 @@ def state_dict_from_hf(sd: Mapping[str, Any], config: DETRConfig) -> dict[str, t
     }
     params["decoder"]["layernorm"] = _ln(sd, "model.decoder.layernorm")
     return state_dict_from_flax({"params": params}, config)
+
+
+def convert_vit_state_dict(sd: Mapping[str, Any], num_layers: int = 12) -> dict:
+    """HF ``transformers.ViTModel`` state_dict -> ``{"params": ...}`` of a
+    ViT backbone, keyed as ``models/vit.py``'s modules (the JAX package's
+    ``convert_vit_state_dict``)."""
+    params: dict = {
+        "cls_token": _np(sd, "embeddings.cls_token"),
+        "position_embeddings": _np(sd, "embeddings.position_embeddings"),
+        "patch_embed": {**_conv(sd, "embeddings.patch_embeddings.projection.weight"),
+                        "bias": _np(sd, "embeddings.patch_embeddings.projection.bias")},
+        "layernorm": _ln(sd, "layernorm"),
+    }
+    for i in range(num_layers):
+        p = f"encoder.layer.{i}"
+        params[f"layer_{i}"] = {
+            "attention": {
+                "q_proj": _dense(sd, f"{p}.attention.attention.query"),
+                "k_proj": _dense(sd, f"{p}.attention.attention.key"),
+                "v_proj": _dense(sd, f"{p}.attention.attention.value"),
+                "out_proj": _dense(sd, f"{p}.attention.output.dense"),
+            },
+            "layernorm_before": _ln(sd, f"{p}.layernorm_before"),
+            "layernorm_after": _ln(sd, f"{p}.layernorm_after"),
+            "intermediate": _dense(sd, f"{p}.intermediate.dense"),
+            "output": _dense(sd, f"{p}.output.dense"),
+        }
+    return {"params": params}
 
 
 def load_checkpoint(path, config: DETRConfig) -> dict[str, torch.Tensor]:

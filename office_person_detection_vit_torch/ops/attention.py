@@ -38,19 +38,23 @@ def reset_launch_counts() -> None:
     launch_counts["attention_diff"] = 0
 
 
-def attention_reference(q, k, v, key_padding_mask=None, return_probs=False):
+def attention_reference(q, k, v, key_padding_mask=None, return_probs=False, scale=None):
     """q (B,H,Lq,D), k/v (B,H,Lk,D), key_padding_mask (B,Lk) bool True = valid.
 
     Scores in q's dtype, masked keys biased by -1e30, softmax in float32,
     probabilities cast back to q's dtype before P.V. A batch entry with every
     key masked gets uniform probabilities, i.e. mean(V) over Lk.
+    ``scale``: the score scale, 1/sqrt(D) when ``None`` (a head dim padded
+    with zero columns passes its true one).
     Returns (B,H,Lq,D), plus the (B,H,Lq,Lk) probabilities when
     ``return_probs``.
     """
     d = q.shape[-1]
-    scores = torch.einsum("bhqd,bhkd->bhqk", q, k) / torch.sqrt(
-        torch.tensor(d, dtype=q.dtype, device=q.device)
-    )
+    scores = torch.einsum("bhqd,bhkd->bhqk", q, k)
+    if scale is None:
+        scores = scores / torch.sqrt(torch.tensor(d, dtype=q.dtype, device=q.device))
+    else:
+        scores = scores * scale
     if key_padding_mask is not None:
         bias = torch.where(key_padding_mask[:, None, None, :], 0.0, NEG_INF)
         scores = scores + bias.to(scores.dtype)
@@ -61,25 +65,30 @@ def attention_reference(q, k, v, key_padding_mask=None, return_probs=False):
     return out
 
 
-def _scores(q, k, key_padding_mask):
+def _scale(q, scale):
+    return 1.0 / math.sqrt(q.shape[-1]) if scale is None else scale
+
+
+def _scores(q, k, key_padding_mask, scale=None):
     """float32 scaled, biased scores (B,H,Lq,Lk). A batch entry with every
     key masked scores 0 on every key (the uniform probabilities that
     :func:`attention_reference` gives it), as the kernels compute it."""
-    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) / math.sqrt(q.shape[-1])
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float())
+    s = s / math.sqrt(q.shape[-1]) if scale is None else s * scale
     if key_padding_mask is None:
         return s
     s = s + torch.where(key_padding_mask, 0.0, NEG_INF)[:, None, None, :]
     return torch.where(~key_padding_mask.any(-1)[:, None, None, None], 0.0, s)
 
 
-def attention_lse(q, k, key_padding_mask=None):
+def attention_lse(q, k, key_padding_mask=None, scale=None):
     """The float32 log-sum-exp of each query row's scaled, biased scores,
     (B,H,Lq): what the forward kernels write for the backward. An entry with
     every key masked gets log(Lk) (its scores are all 0)."""
-    return torch.logsumexp(_scores(q, k, key_padding_mask), dim=-1)
+    return torch.logsumexp(_scores(q, k, key_padding_mask, scale), dim=-1)
 
 
-def attention_backward_reference(q, k, v, key_padding_mask, out, lse, g):
+def attention_backward_reference(q, k, v, key_padding_mask, out, lse, g, scale=None):
     """(dq, dk, dv) of :func:`attention_reference` at (q, k, v) for the
     output gradient g, from the forward's output and log-sum-exp: the plain
     version of the backward kernel pair. In float32, cast to q's dtype:
@@ -87,16 +96,16 @@ def attention_backward_reference(q, k, v, key_padding_mask, out, lse, g):
         P = exp(S - lse), dV = P^T g, dP = g V^T, D_i = sum(g_i * out_i),
         dS = P * (dP - D), dQ = scale dS K, dK = scale dS^T Q,
 
-    with scale = 1/sqrt(D). An entry with every key masked has S = 0 (uniform
+    with scale = 1/sqrt(D) unless given. An entry with every key masked has S = 0 (uniform
     P) and keeps the true scale in dQ and dK: the plain version's autograd
     passes the score gradient through its -1e30 bias, so they are not zero.
     """
     qf, kf, vf, gf = (t.float() for t in (q, k, v, g))
-    p = torch.exp(_scores(q, k, key_padding_mask) - lse[..., None])
+    p = torch.exp(_scores(q, k, key_padding_mask, scale) - lse[..., None])
     dv = torch.einsum("bhqk,bhqd->bhkd", p, gf)
     dp = torch.einsum("bhqd,bhkd->bhqk", gf, vf)
     ds = p * (dp - (gf * out.float()).sum(-1, keepdim=True))
-    scale = 1.0 / math.sqrt(q.shape[-1])
+    scale = _scale(q, scale)
     dq = torch.einsum("bhqk,bhkd->bhqd", ds, kf) * scale
     dk = torch.einsum("bhqk,bhqd->bhkd", ds, qf) * scale
     return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)

@@ -1,9 +1,10 @@
 """Where the time of one full-width detect goes, on the card.
 
-    python -m office_person_detection_vit_torch.profile_detect
+    python -m office_person_detection_vit_torch.profile_detect [--backbone vit]
 
-Runs ``DETRDetector`` (DETR-R50, bf16, 736x1280, batch 8, seeded random
-weights) on synthetic 720p frames: one warm-up chunk, then two chunks under
+Runs ``DETRDetector`` (DETR-R50, or with ``--backbone vit`` the ViT-base/16
+DETR; bf16, 736x1280, batch 8, seeded random weights) on synthetic 720p
+frames: one warm-up chunk, then two chunks under
 ``torch.profiler``. Prints the card, the host-clock frames/s of the profiled
 window, the device busy share (summed kernel time over the window's wall
 time; the port runs on one stream, so kernels do not overlap), the kernel
@@ -12,6 +13,7 @@ time by category and the top kernels. Needs a CUDA device.
 
 from __future__ import annotations
 
+import argparse
 import subprocess
 import time
 from collections import defaultdict
@@ -28,6 +30,7 @@ CATEGORIES = (  # first match wins, on the lower-cased kernel name
     ("convolution", ("conv", "implicit_gemm", "xmma_fprop", "cudnn", "nchwtonhwc", "nhwctonchw")),
     ("matmul", ("gemm", "cutlass", "nvjet", "cublas")),
     ("layer norm", ("layer_norm",)),
+    ("GELU", ("gelu",)),
     ("host-to-device upload", ("memcpy htod",)),
     ("copy / layout", ("copy", "cat", "transpose", "memcpy", "memset")),
     ("bool logic (NMS loop, masks)", ("binaryfunctor<bool",)),
@@ -44,7 +47,10 @@ def _category(name: str) -> str:
     return "other elementwise / reduction"
 
 
-def main() -> None:
+def main(argv: list[str] | None = None) -> None:
+    parser = argparse.ArgumentParser(description="Where a full-width detect's time goes, on the card")
+    parser.add_argument("--backbone", choices=["resnet50", "vit"], default="resnet50")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_detect needs a CUDA device")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -52,7 +58,7 @@ def main() -> None:
     det = DETRDetector({
         "detection.model_size": "full", "detection.dtype": "bfloat16", "detection.device": "cuda",
         "detection.batch_size": BATCH, "detection.input_height": 736,
-        "detection.input_width": 1280, "detection.nms_threshold": 0.4,
+        "detection.input_width": 1280, "detection.nms_threshold": 0.4, "detection.backbone": args.backbone,
     })
     rng = np.random.default_rng(0)
     frames = np.full((BATCH * CHUNKS, 720, 1280, 3), 40, np.uint8)
@@ -75,7 +81,7 @@ def main() -> None:
     for name, ms in by_kernel.items():
         by_cat[_category(name)] += ms
     n = len(frames)
-    print(f"card: {card}")
+    print(f"card: {card}; backbone {args.backbone}")
     print(f"window: {n} frames in {CHUNKS} chunks of {BATCH}; wall {wall * 1e3:.2f} ms "
           f"({n / wall:.2f} frames/s, host clock); device busy {busy:.2f} ms = {100 * busy / (wall * 1e3):.1f}% "
           f"(idle {100 - 100 * busy / (wall * 1e3):.1f}%)")

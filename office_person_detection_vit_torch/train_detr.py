@@ -14,11 +14,17 @@ read), ``history.json``, and ``train_state.npz`` with
 It runs on the card (``--device auto``/``cuda``; no card raises) unless
 ``--device cpu`` is given; ``--device`` takes the place of ``--platform``.
 The full size is DETR-R50 with bf16 compute and float32 master weights;
-``--model-size small``/``tiny`` train in float32. Refused, naming their
-ROADMAP item: ``--model yolo`` and ``--backbone vit`` (A.7),
-``--model-parallel`` above 1 (A.8), ``--evaluate`` and ``--eval-every`` (A.3).
-The train state is the port's own npz (a JAX ``train_state.npz`` does not
-load).
+``--model-size small``/``tiny`` train in float32. ``--backbone vit`` trains
+the ViT DETR (ViT-base at ``--patch-size`` at full size, the tiny ViT in the
+tiny and small tiers), its attention's gradient through B.4 as the
+transformer's. ``--evaluate`` scores P/R/F1 and AP with the port's
+``DetectionBenchmark`` before training and after the last epoch (and every
+``--eval-every`` epochs) into ``history.json``. Refused, naming their ROADMAP
+item: ``--model yolo`` (A.7) and ``--model-parallel`` above 1 (A.8).
+
+``--resume-from`` takes the port's own ``train_state.npz`` (keyed by
+state_dict key) and the flat ``leaf_i`` one the JAX trainer writes
+(:func:`load_jax_train_state`).
 """
 
 from __future__ import annotations
@@ -44,11 +50,52 @@ EVAL_WH = (1280, 720)
 #: Flags of the JAX trainer the port refuses, with the ROADMAP item of each.
 REFUSED = {
     "yolo": "--model yolo: the YOLO detector and its criterion are not ported yet (ROADMAP A.7)",
-    "vit": "--backbone vit: the ViT backbone is not ported yet (ROADMAP A.7)",
     "model_parallel": "--model-parallel > 1: the sharded train step is not ported yet (ROADMAP A.8)",
-    "evaluate": "--evaluate / --eval-every: detection evaluation (benchmark/detection_benchmark.py) "
-                "is not ported yet (ROADMAP A.3)",
 }
+
+
+def evaluate_detector(model, samples, *, target_hw, cfg, device, batch: int = 8, conf: float = 0.25,
+                      iou: float = 0.5, nms_iou: float | None = None):
+    """Score the model on COCO samples with the port's DetectionBenchmark
+    (P/R/F1, AP@50/75, mAP@[.5:.95]), as the JAX trainer's
+    ``evaluate_detector``: each image resized to EVAL_WH, batches padded to
+    ``batch`` with their first image, one forward and decode a batch on
+    ``device``; boxes scored in EVAL_WH pixels. -> BenchmarkResult."""
+    import cv2
+
+    from .benchmark.detection_benchmark import DetectionBenchmark, DetectionRecord
+    from .models.postprocess import postprocess_detr
+    from .ops.preprocessing import preprocess_frames
+
+    was_training = model.training
+    model.eval()
+    records = []
+    try:
+        for start in range(0, len(samples), batch):
+            chunk = samples[start: start + batch]
+            n = len(chunk)
+            imgs = []
+            for path, _, _ in chunk + [chunk[0]] * (batch - n):
+                img = cv2.imread(str(path))
+                imgs.append(cv2.resize(img if img is not None else np.zeros((720, 1280, 3), np.uint8), EVAL_WH))
+            with torch.inference_mode():
+                frames = torch.from_numpy(np.stack(imgs)).to(device)
+                pixels, mask = preprocess_frames(frames, target_hw=target_hw, out_dtype=cfg.torch_dtype)
+                out = model(pixels, mask)
+                det = postprocess_detr(out["logits"], out["boxes"], EVAL_WH, conf, score_mode=cfg.score_mode,
+                                       nms_iou=nms_iou)
+            for f in range(n):
+                for q in np.flatnonzero(det.valid[f]):
+                    records.append(DetectionRecord(str(chunk[f][0]), tuple(float(v) for v in det.boxes_xywh[f, q]),
+                                                   float(det.scores[f, q])))
+    finally:
+        model.train(was_training)
+    w, h = EVAL_WH
+    gt = {}
+    for path, bxs, _ in samples:
+        gt[str(path)] = np.stack([(bxs[:, 0] - bxs[:, 2] / 2) * w, (bxs[:, 1] - bxs[:, 3] / 2) * h,
+                                  bxs[:, 2] * w, bxs[:, 3] * h], axis=-1).astype(np.float32).reshape(-1, 4)
+    return DetectionBenchmark(iou_threshold=iou).evaluate(records, gt)
 
 
 def load_coco_dataset(images_dir: Path, annotations: Path):
@@ -96,8 +143,8 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
                         help="detector family; yolo is refused (ROADMAP A.7)")
     parser.add_argument("--yolo-variant", default="s", help="read with --model yolo, which is refused")
     parser.add_argument("--backbone", choices=["resnet50", "vit"], default="resnet50",
-                        help="detector backbone; vit is refused (ROADMAP A.7)")
-    parser.add_argument("--patch-size", type=int, default=16, help="read with --backbone vit, which is refused")
+                        help="detector backbone (vit = models/vit.py; --patch-size sets its stride)")
+    parser.add_argument("--patch-size", type=int, default=16)
     parser.add_argument("--enc-layers", type=int, default=None, help="override encoder depth")
     parser.add_argument("--dec-layers", type=int, default=None, help="override decoder depth")
     parser.add_argument("--dilate-c5", action="store_true", help="DETR-DC5: dilate the last stage")
@@ -123,16 +170,17 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     parser.add_argument("--ema", type=float, default=0.0,
                         help="EMA decay of a weight average (0 = off); weights.npz then holds the EMA")
     parser.add_argument("--augment", action="store_true", help="flip + photometric augmentation on the card")
-    parser.add_argument("--evaluate", action="store_true", help="refused (ROADMAP A.3)")
-    parser.add_argument("--eval-every", type=int, default=0, help="refused above 0 (ROADMAP A.3)")
-    parser.add_argument("--eval-conf", type=float, default=0.25, help="read with --evaluate, which is refused")
-    parser.add_argument("--eval-iou", type=float, default=0.5, help="read with --evaluate, which is refused")
-    parser.add_argument("--eval-nms", type=float, default=None, help="read with --evaluate, which is refused")
-    parser.add_argument("--val-images", type=Path, default=None, help="read with --evaluate, which is refused")
+    parser.add_argument("--evaluate", action="store_true",
+                        help="score P/R/F1 + AP@50/75 + mAP on the val set (history.json)")
+    parser.add_argument("--eval-every", type=int, default=0, help="evaluate every N epochs (0 = last only)")
+    parser.add_argument("--eval-conf", type=float, default=0.25, help="confidence threshold of --evaluate")
+    parser.add_argument("--eval-iou", type=float, default=0.5)
+    parser.add_argument("--eval-nms", type=float, default=None, help="greedy NMS IoU during --evaluate")
+    parser.add_argument("--val-images", type=Path, default=None, help="val image dir (default: --images)")
     parser.add_argument("--val-annotations", type=Path, default=None,
-                        help="read with --evaluate, which is refused")
+                        help="val COCO json (default: --annotations)")
     parser.add_argument("--resume-from", type=Path, default=None,
-                        help="resume from a train_state.npz this trainer saved")
+                        help="resume from a train_state.npz this trainer or the JAX trainer saved")
     parser.add_argument("--device", default="auto",
                         help="auto | cuda | cuda:N | cpu (auto and cuda need a card)")
     return parser.parse_args(argv)
@@ -141,20 +189,23 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
 def refuse_unported(args: argparse.Namespace) -> None:
     if args.model == "yolo":
         raise NotImplementedError(REFUSED["yolo"])
-    if args.backbone == "vit":
-        raise NotImplementedError(REFUSED["vit"])
     if args.model_parallel > 1:
         raise NotImplementedError(REFUSED["model_parallel"])
-    if args.evaluate or args.eval_every:
-        raise NotImplementedError(REFUSED["evaluate"])
 
 
 def detr_config(args: argparse.Namespace, size: str):
     """The JAX trainer's DETRConfig for these flags: the tiny and small tiers
     in float32, full size in bf16."""
     from .models.detr import DETRConfig
+    from .models.vit import ViTConfig
 
     extra: dict = {}
+    if args.backbone == "vit":
+        extra = dict(backbone="vit", vit_patch_size=args.patch_size)
+        if size == "tiny":
+            t = ViTConfig.tiny()
+            extra.update(vit_patch_size=min(args.patch_size, t.patch_size), vit_hidden=t.hidden_size,
+                         vit_layers=t.num_layers, vit_heads=t.num_heads, vit_mlp=t.mlp_dim, vit_pos_grid=t.pos_grid)
     if args.dropout is not None:
         extra["dropout"] = args.dropout
     if args.dilate_c5:
@@ -185,14 +236,17 @@ def save_train_state(path: Path, state) -> None:
     np.savez(path, **arrays)
 
 
-def load_train_state(path: Path, state) -> None:
-    """Restore a saved train state into ``state`` in place. A checkpoint
+def load_train_state(path: Path, state, tx) -> None:
+    """Restore a saved train state into ``state`` in place: the port's own
+    npz, or the JAX trainer's (:func:`load_jax_train_state`). A checkpoint
     without an EMA resumed with ``--ema`` restarts the average from the
     resumed weights; an EMA checkpoint resumed without ``--ema`` drops it.
     A different model or ``--accum-steps`` raises."""
     opt = state.opt_state
     with np.load(path) as data:
         files = set(data.files)
+        if "leaf_0" in files:
+            return load_jax_train_state(path, state, tx)
         want = {f"param/{k}" for k in state.keys}
         if not want <= files:
             raise ValueError(f"{path} holds another model's train state ({len(want - files)} params missing)")
@@ -223,6 +277,84 @@ def load_train_state(path: Path, state) -> None:
         state.step = int(data["meta/step"])
         opt.count = int(data["meta/count"])
         opt.mini_step = int(data["meta/mini_step"])
+
+
+def jax_state_layout(state, tx, ema: bool) -> list[tuple[str, int | None]]:
+    """The leaves of the JAX trainer's ``TrainState`` for this model and
+    optimizer, in ``jax.tree_util`` order, as (group, parameter index or
+    ``None`` for a scalar): ``step``, the params, the optimizer state, then
+    the EMA. The optimizer state is optax's ``MultiSteps`` (``mini_step``,
+    ``gradient_step``, the inner state, the accumulated gradient) around
+    ``chain(clip_by_global_norm, multi_transform)``, whose inner states come
+    in label order (``backbone``, ``main``): Adam's count, mu and nu over the
+    group's leaves, and a schedule count when the learning rate is a
+    schedule."""
+    n = len(state.keys)
+    groups = {"backbone": [i for i, k in enumerate(state.keys) if k.startswith("backbone.")],
+              "main": [i for i, k in enumerate(state.keys) if not k.startswith("backbone.")]}
+    inner = []
+    for idx in groups.values():
+        inner += [("count", None)] + [("mu", i) for i in idx] + [("nu", i) for i in idx]
+        if tx.scheduled:
+            inner.append(("schedule_count", None))
+    if tx.accum_steps > 1:
+        inner = [("mini_step", None), ("gradient_step", None), *inner] + [("acc", i) for i in range(n)]
+    out = [("step", None)] + [("param", i) for i in range(n)] + inner
+    return out + ([("ema", i) for i in range(n)] if ema else [])
+
+
+def load_jax_train_state(path: Path, state, tx) -> None:
+    """Restore a ``train_state.npz`` of the JAX trainer (its flat ``leaf_i``
+    npz, ``tools/train_detr.py::_save_pytree``) into ``state`` in place. The
+    leaf order comes from :func:`jax_state_layout`; as in the JAX trainer, a
+    state saved with an EMA resumes without one and the reverse (the
+    average then restarts from the resumed weights). Another model, another
+    ``--accum-steps`` or another kind of schedule raises."""
+    opt = state.opt_state
+    with np.load(path) as data:
+        leaves = [data[f"leaf_{i}"] for i in range(len(data.files))]
+    want_ema = state.ema_params is not None
+    layout = None
+    for ema in (want_ema, not want_ema):
+        candidate = jax_state_layout(state, tx, ema)
+        if len(candidate) == len(leaves):
+            layout, has_ema = candidate, ema
+            break
+    if layout is None:
+        raise ValueError(f"{path} holds {len(leaves)} leaves; this model and optimizer's JAX train state has "
+                         f"{len(jax_state_layout(state, tx, want_ema))} (another model, --accum-steps or schedule?)")
+    from .models.weights import flax_param_map
+
+    entries = flax_param_map(state.model.config)  # the order of state.keys
+    targets = {"param": state.params, "mu": opt.mu, "nu": opt.nu, "acc": opt.acc,
+               "ema": state.ema_params if has_ema and want_ema else None}
+    scalars: dict[str, int] = {}
+    with torch.no_grad():
+        for i, ((group, j), arr) in enumerate(zip(layout, leaves)):
+            if j is None:
+                if arr.shape != ():
+                    raise ValueError(f"{path}: leaf_{i} ({group}) has shape {arr.shape}, expected a scalar")
+                scalars.setdefault(group, int(arr))
+                continue
+            e = entries[j]
+            if tuple(arr.shape) != e.flax_shape:
+                raise ValueError(f"{path}: leaf_{i} ({group} of {'/'.join(e.flax_path)}) has shape {arr.shape}, "
+                                 f"expected {e.flax_shape} (another model?)")
+            if e.kind == "conv":  # Flax HWIO -> OIHW
+                arr = arr.transpose(3, 2, 0, 1)
+            elif e.kind == "dense":  # Flax (in, out) -> (out, in)
+                arr = arr.T
+            if targets[group] is not None:
+                targets[group][j].copy_(torch.from_numpy(np.ascontiguousarray(arr, np.float32)))
+        if want_ema and not has_ema:
+            logger.info("resumed checkpoint has no EMA; restarting the average from the resumed weights")
+            for e, p in zip(state.ema_params, state.params):
+                e.copy_(p.detach())
+        elif has_ema and not want_ema:
+            logger.info("resumed checkpoint carries EMA weights; --ema 0 drops them")
+    state.step = scalars["step"]
+    opt.count = scalars["count"]
+    opt.mini_step = scalars.get("mini_step", 0)
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -280,7 +412,7 @@ def main(argv: list[str] | None = None) -> int:
         )
     start_epoch = 0
     if args.resume_from and args.resume_from.exists():
-        load_train_state(args.resume_from, state)
+        load_train_state(args.resume_from, state, tx)
         meta = args.resume_from.parent / "train_state_meta.json"
         if meta.exists():
             start_epoch = json.loads(meta.read_text()).get("epoch", 0)
@@ -322,7 +454,38 @@ def main(argv: list[str] | None = None) -> int:
         prev = json.loads(history_path.read_text())
         history["step_losses"] = prev.get("step_losses", [])
         history["epoch_losses"] = prev.get("epoch_losses", [])
+        if prev.get("evals"):
+            history["evals"] = prev["evals"]
         history["resumed_at_step"] = len(history["step_losses"])
+
+    val_samples = samples
+    if args.val_images or args.val_annotations:
+        val_samples = load_coco_dataset(args.val_images or args.images, args.val_annotations or args.annotations)
+
+    def run_eval(epoch: int) -> None:
+        """Score the EMA weights when tracked (the served weights), else the
+        parameters; the parameters are put back afterwards."""
+        kept = None
+        if use_ema:
+            with torch.no_grad():
+                kept = [p.detach().clone() for p in state.params]
+                for p, e in zip(state.params, state.ema_params):
+                    p.copy_(e)
+        try:
+            res = evaluate_detector(model, val_samples, target_hw=target_hw, cfg=cfg, device=device,
+                                    batch=min(args.batch, len(val_samples)), conf=args.eval_conf, iou=args.eval_iou,
+                                    nms_iou=args.eval_nms)
+        finally:
+            if kept is not None:
+                with torch.no_grad():
+                    for p, k in zip(state.params, kept):
+                        p.copy_(k)
+        history.setdefault("evals", []).append({"epoch": epoch, **res.to_dict()})
+        logger.info("eval epoch %d: P %.3f R %.3f F1 %.3f AP50 %.3f mAP %.3f (tp %d fp %d fn %d)", epoch,
+                    res.precision, res.recall, res.f1, res.ap50, res.map_5095, res.tp, res.fp, res.fn)
+
+    if args.evaluate:
+        run_eval(start_epoch)  # the baseline before training (epoch = start)
 
     # Full-batch runs (batch x accum covers the dataset) reuse epoch 0's
     # device batches: every epoch is the same batch, and augmentation still
@@ -355,6 +518,8 @@ def main(argv: list[str] | None = None) -> int:
         history["step_losses"].extend(losses)
         history["epoch_losses"].append(float(np.mean(losses)) if losses else None)
         history.setdefault("epoch_metrics", []).append(comp_means)
+        if args.evaluate and (epoch + 1 == args.epochs or (args.eval_every and (epoch + 1) % args.eval_every == 0)):
+            run_eval(epoch + 1)
         args.checkpoint.mkdir(parents=True, exist_ok=True)
         history_path.write_text(json.dumps(history))
         if (epoch + 1) % args.save_every == 0:

@@ -126,6 +126,10 @@ class AdamW:
     weight_decay: float = 1e-4
     max_grad_norm: float = 0.1
     accum_steps: int = 1
+    #: Whether optax would see a schedule (a callable learning rate, whose
+    #: ``scale_by_schedule`` keeps a count in the optimizer state) rather
+    #: than a constant: the layout of a JAX train state depends on it.
+    scheduled: bool = False
 
     def init(self, params: list[torch.Tensor]) -> OptState:
         zeros = lambda: [torch.zeros_like(p) for p in params]  # noqa: E731
@@ -196,7 +200,8 @@ def make_optimizer(learning_rate: float = 1e-4, backbone_lr: float = 1e-5, weigh
               warmup_steps=applied(warmup_steps) if warmup_steps else 0,
               drop_at=applied(drop_at), drop_factor=drop_factor)
     return AdamW(make_schedule(learning_rate, **kw), make_schedule(backbone_lr, **kw),
-                 weight_decay, max_grad_norm, accum_steps)
+                 weight_decay, max_grad_norm, accum_steps,
+                 scheduled=schedule not in (None, "none", "constant") or bool(warmup_steps))
 
 
 def ordered_parameters(model: DETR) -> tuple[list[str], list[torch.nn.Parameter]]:

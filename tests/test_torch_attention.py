@@ -47,7 +47,8 @@ def _jax(fn, q, k, v, mask, **kw):
 
 @pytest.mark.parametrize(
     "shape,mask_frac",
-    [((2, 4, 37, 53, 32), None), ((2, 4, 37, 53, 32), 0.3), ((1, 2, 100, 260, 16), 0.2)],
+    [((2, 4, 37, 53, 32), None), ((2, 4, 37, 53, 32), 0.3), ((1, 2, 100, 260, 16), 0.2),
+     ((1, 2, 67, 131, 64), None), ((1, 2, 67, 131, 64), 0.3), ((1, 2, 37, 53, 48), 0.3)],
 )
 def test_reference_matches_jax_reference(shape, mask_frac):
     q, k, v, mask = _inputs(0, *shape, mask_frac)
@@ -55,16 +56,17 @@ def test_reference_matches_jax_reference(shape, mask_frac):
 
 
 @pytest.mark.parametrize("mask_frac", [None, 0.3])
-def test_reference_matches_whole_kv_pallas(mask_frac):
-    q, k, v, mask = _inputs(1, 2, 4, 37, 53, 32, mask_frac)
+@pytest.mark.parametrize("D", [32, 64, 48])
+def test_reference_matches_whole_kv_pallas(mask_frac, D):
+    q, k, v, mask = _inputs(1, 2, 4, 37, 53, D, mask_frac)
     got = _port(q, k, v, mask)
     want = _jax(ref.attention_pallas, q, k, v, mask, interpret=True)
     np.testing.assert_allclose(got, want, atol=1e-5)
 
 
-@pytest.mark.parametrize("lq,lk", [(64, 64), (100, 1008)])
-def test_reference_matches_flash_pallas(lq, lk):
-    q, k, v, mask = _inputs(2, 2, 2, lq, lk, 32, 0.2)
+@pytest.mark.parametrize("lq,lk,D", [(64, 64, 32), (100, 1008, 32), (197, 197, 64), (67, 131, 48)])
+def test_reference_matches_flash_pallas(lq, lk, D):
+    q, k, v, mask = _inputs(2, 2, 2, lq, lk, D, 0.2)
     got = _port(q, k, v, mask)
     want = _jax(ref.attention_pallas_flash, q, k, v, mask, interpret=True)
     np.testing.assert_allclose(got, want, atol=2e-5)
@@ -134,22 +136,93 @@ def test_one_library_builds_every_source():
         (100, 32, torch.float32, False),  # decoder self-attention
         (3680, 32, torch.bfloat16, True),  # DETR-DC5 at 736x1280
         (84, 16, torch.float32, False),  # small tier at 224x384
+        (3681, 64, torch.bfloat16, True),  # ViT-base/16 at 736x1280
+        (3681, 64, torch.float32, True),  # the same in float32
+        (197, 64, torch.float32, False),  # ViT-base at 224x224: K1 fits (117,445 B)
+        (65, 48, torch.float32, False),  # a padded head dim takes the padded width's plan (64)
     ],
 )
 def test_dispatch_rule(lk, d, dtype, flash):
     assert kernels.use_flash(lk, d, dtype) is flash
 
 
+@pytest.mark.parametrize("d,want", [(1, 16), (16, 16), (17, 32), (32, 32), (33, 64), (48, 64), (64, 64)])
+def test_kernel_head_dim(d, want):
+    assert kernels.kernel_head_dim(d) == want
+
+
+@pytest.mark.parametrize("d", [65, 80, 128, 0])
+def test_head_dims_off_the_kernels_raise_naming_c7(d):
+    with pytest.raises(ValueError, match="C.7"):
+        kernels.kernel_head_dim(d)
+    if d:
+        q = torch.zeros(1, 1, 4, d)
+        with pytest.raises(ValueError, match="C.7"):
+            kernels.padded_call(lambda *t, scale: t[0], q, q, q)
+
+
+def _scaled_plain(q, k, v, mask, with_lse):
+    """The plain version with an explicit scale: padded_call's callee here,
+    where the card's would be the kernel."""
+    def call(q, k, v, scale):
+        out = port.attention_reference(q, k, v, mask, scale=scale)
+        return (out, port.attention_lse(q, k, mask, scale=scale)) if with_lse else out
+    return call
+
+
+@pytest.mark.parametrize("D", [8, 20, 48, 16, 64])
+@pytest.mark.parametrize("with_lse", [False, True])
+def test_padded_call_with_the_plain_version_is_the_unpadded_call(D, with_lse):
+    """Zero columns up to the kernel's head dim, the true scale 1/sqrt(D)
+    and the result cut back: the unpadded plain version's output and
+    log-sum-exp (float32 summation order)."""
+    q, k, v, mask = (torch.from_numpy(a) if a is not None else None for a in _inputs(3, 2, 3, 37, 53, D, 0.3))
+    seen = []
+
+    def callee(q, k, v, scale):
+        seen.append((q.shape[-1], scale))
+        return _scaled_plain(q, k, v, mask, with_lse)(q, k, v, scale)
+
+    got = kernels.padded_call(callee, q, k, v)
+    assert seen == [(kernels.kernel_head_dim(D), pytest.approx(D**-0.5, rel=1e-15))]
+    want = port.attention_reference(q, k, v, mask)
+    out = got[0] if with_lse else got
+    assert out.shape == q.shape
+    np.testing.assert_allclose(out.numpy(), want.numpy(), atol=1e-6)
+    if with_lse:
+        np.testing.assert_allclose(got[1].numpy(), port.attention_lse(q, k, mask).numpy(), atol=1e-5)
+
+
+@pytest.mark.parametrize("D", [20, 48])
+def test_padded_call_of_the_backward_is_the_unpadded_backward(D):
+    """The backward pair's padding: q, k, v, out and g padded, dq/dk/dv cut
+    back; with the true scale the plain pair's gradients are unchanged."""
+    q, k, v, mask = (torch.from_numpy(a) if a is not None else None for a in _inputs(4, 1, 2, 37, 53, D, 0.3))
+    out, lse = port.attention_reference(q, k, v, mask), port.attention_lse(q, k, mask)
+    g = torch.from_numpy(np.random.default_rng(5).normal(size=q.shape).astype(np.float32))
+    got = kernels.padded_call(
+        lambda q, k, v, out, g, scale: port.attention_backward_reference(q, k, v, mask, out, lse, g, scale=scale),
+        q, k, v, out, g)
+    want = port.attention_backward_reference(q, k, v, mask, out, lse, g)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-6)
+
+
 def test_whole_kv_smem_arithmetic():
     assert kernels.whole_kv_smem_bytes(920, 32, torch.bfloat16) == 126_720  # 960 keys: 15 tiles of 64
     assert kernels.whole_kv_smem_bytes(100, 32, torch.bfloat16) == 16_896  # 128 keys
     assert kernels.whole_kv_smem_bytes(920, 32, torch.float32) == 244_632
+    assert kernels.whole_kv_smem_bytes(197, 64, torch.float32) == 117_445  # ViT-base at 224x224
+    assert kernels.whole_kv_smem_bytes(197, 48, torch.float32) == 117_445  # padded to 64
 
 
 @pytest.mark.parametrize(
     "lk,d,dtype,fits",
     [(920, 32, torch.bfloat16, True), (1728, 32, torch.bfloat16, True), (1729, 32, torch.bfloat16, False),
-     (920, 32, torch.float32, False), (84, 16, torch.float32, True), (3680, 32, torch.bfloat16, False)],
+     (920, 32, torch.float32, False), (84, 16, torch.float32, True), (3680, 32, torch.bfloat16, False),
+     (421, 64, torch.float32, True), (422, 64, torch.float32, False), (832, 64, torch.bfloat16, True),
+     (833, 64, torch.bfloat16, False), (421, 40, torch.float32, True), (422, 33, torch.float32, False)],
 )
 def test_whole_kv_fits(lk, d, dtype, fits):
     """K1 takes K/V that fit a block's 227 KB; it raises beyond (K2 is there)."""

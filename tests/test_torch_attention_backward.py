@@ -52,7 +52,7 @@ def _inputs(B, H, Lq, Lk, D, mask_kind, seed=0):
 
 @pytest.mark.parametrize("mask_kind", MASKS)
 @pytest.mark.parametrize("shape", SHAPES, ids=lambda s: f"{s[2]}x{s[3]}")
-@pytest.mark.parametrize("D", [16, 32])
+@pytest.mark.parametrize("D", [16, 32, 64, 48])
 def test_backward_reference_bf16_against_float64(D, shape, mask_kind):
     """bf16 inputs: the out the kernel reads (float32 forward, rounded to
     bf16), the twin's bf16 results within 2^-6 of float64 autograd of the
@@ -73,7 +73,7 @@ def test_backward_reference_bf16_against_float64(D, shape, mask_kind):
 
 
 @pytest.mark.parametrize("mask_kind", MASKS)
-@pytest.mark.parametrize("D", [16, 32])
+@pytest.mark.parametrize("D", [16, 32, 64, 48])
 def test_lse_matches_jax_logsumexp(D, mask_kind):
     B, H, Lq, Lk = 3, 2, 67, 131
     q, k, v, _, mask = _inputs(B, H, Lq, Lk, D, mask_kind, seed=2)

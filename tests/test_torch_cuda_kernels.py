@@ -78,7 +78,7 @@ LQ, LK = (1, 67, 100, 920), (1, 15, 131, 920, 1000)
 
 @pytest.mark.parametrize("fn", [kernels.attention_whole_kv, kernels.attention_flash])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("D", kernels.HEAD_DIMS)
+@pytest.mark.parametrize("D", [*kernels.HEAD_DIMS, 48])
 @pytest.mark.parametrize("masked", [False, True])
 def test_kernel_matches_plain(card, fn, dtype, D, masked):
     _check_kernel(fn, *_case(2, 3, 67, 131, D, dtype, masked))
@@ -86,7 +86,7 @@ def test_kernel_matches_plain(card, fn, dtype, D, masked):
 
 @pytest.mark.parametrize("fn", [kernels.attention_whole_kv, kernels.attention_flash])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("D", kernels.HEAD_DIMS)
+@pytest.mark.parametrize("D", [*kernels.HEAD_DIMS, 48])
 @pytest.mark.parametrize("masked", [False, True])
 def test_kernel_matches_plain_at_tile_edges(card, fn, dtype, D, masked):
     """Every (Lq, Lk) pair of LQ x LK; with the mask, batch entry 0 has every
@@ -151,7 +151,7 @@ def test_whole_kv_refuses_a_grid_short_of_the_query_rows(card, dtype, blocks, th
     plan = kernels.whole_kv_plan(100, 100, 32, dtype)
     assert (blocks, threads) != (plan["blocks_per_head"], plan["threads"])
     err = lib.attention_whole_kv(1 if dtype == torch.bfloat16 else 0, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                 None, out.data_ptr(), None, 1, 1, 100, 100, 32, blocks, threads,
+                                 None, out.data_ptr(), None, 1, 1, 100, 100, 32, 32**-0.5, blocks, threads,
                                  torch.cuda.current_stream().cuda_stream)
     assert err != 0
     _check_kernel(kernels.attention_whole_kv, q, k, v, None)  # the plan's grid still launches
@@ -159,6 +159,8 @@ def test_whole_kv_refuses_a_grid_short_of_the_query_rows(card, dtype, blocks, th
 
 def test_wrapper_rejects_what_the_kernel_does_not_take(card):
     q, k, v, _ = _case(1, 2, 8, 8, 32, torch.float32, False)
+    with pytest.raises(ValueError, match="C.7"):
+        kernels.attention_flash(*_case(1, 2, 8, 8, 80, torch.float32, False)[:3])
     with pytest.raises(ValueError):
         kernels.attention_flash(q.half(), k.half(), v.half())
     with pytest.raises(ValueError):
@@ -317,7 +319,8 @@ def _b4_errors(got, want):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("Lq,Lk,D", [(84, 84, 16), (100, 1008, 32), (67, 131, 32), (37, 53, 16)])
+@pytest.mark.parametrize("Lq,Lk,D", [(84, 84, 16), (100, 1008, 32), (67, 131, 32), (37, 53, 16), (131, 67, 64),
+                                     (100, 1008, 64), (37, 53, 48)])
 @pytest.mark.parametrize("all_masked", [False, True], ids=["ragged", "all_masked_entry"])
 def test_b4_gradients_match_plain_autograd(card, dtype, Lq, Lk, D, all_masked):
     """B.4: multi_head_attention under grad runs K1/K2 through
@@ -362,9 +365,12 @@ def test_b4_gradients_match_plain_autograd(card, dtype, Lq, Lk, D, all_masked):
      (kernels.attention_flash, torch.bfloat16, 100, 1008, 32), (kernels.attention_flash, torch.bfloat16, 37, 53, 16),
      (kernels.attention_flash, torch.float32, 67, 131, 32), (kernels.attention_flash, torch.float32, 84, 84, 16),
      (kernels.attention_whole_kv, torch.float32, 67, 131, 32), (kernels.attention_whole_kv, torch.float32, 84, 84, 16),
-     (kernels.attention_whole_kv, torch.float32, 25, 84, 16)],
+     (kernels.attention_whole_kv, torch.float32, 25, 84, 16), (kernels.attention_flash, torch.bfloat16, 197, 197, 64),
+     (kernels.attention_flash, torch.float32, 67, 131, 64), (kernels.attention_whole_kv, torch.float32, 67, 131, 64),
+     (kernels.attention_flash, torch.bfloat16, 67, 131, 48), (kernels.attention_whole_kv, torch.float32, 67, 131, 48)],
     ids=["k2_bf16_67x131", "k2_bf16_encoder_920", "k2_bf16_cross_1008", "k2_bf16_d16", "k2_float32_67x131",
-         "k2_float32_d16", "k1_float32_67x131", "k1_float32_d16", "k1_float32_cross_d16"],
+         "k2_float32_d16", "k1_float32_67x131", "k1_float32_d16", "k1_float32_cross_d16", "k2_bf16_d64",
+         "k2_float32_d64", "k1_float32_d64", "k2_bf16_d48", "k1_float32_d48"],
 )
 def test_forward_with_lse_is_bit_identical(card, fn, dtype, Lq, Lk, D):
     """K2 (both types) and K1 (float32) give the same bits with and without
@@ -389,10 +395,11 @@ def test_k1_bf16_refuses_lse(card):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_backward_pair_is_deterministic(card, dtype):
+@pytest.mark.parametrize("D", [32, 64, 48])
+def test_backward_pair_is_deterministic(card, dtype, D):
     """Two calls of the pair on the same inputs give the same bits (no
     atomics), at a shape with several blocks per head both ways."""
-    q, k, v, mask = _case(2, 4, 300, 260, 32, dtype, True, seed=9)
+    q, k, v, mask = _case(2, 4, 300, 260, D, dtype, True, seed=9)
     out, lse = kernels.attention_flash(q, k, v, mask, with_lse=True)
     g = torch.randn_like(q)
     first = kernels.attention_backward(q, k, v, mask, out, lse, g)

@@ -325,6 +325,38 @@ def test_resume_skips_the_same_phases_as_jax(flow):
     assert text == (flow["jax_session"] / "05_aggregation" / "zone_counts.csv").read_text()
 
 
+def test_resume_with_evaluate_scores_like_jax(flow, tmp_path):
+    """``--evaluate`` after the pipeline (here a resumed session): the frames'
+    detections joined to a COCO ground-truth file by the saved frame's name,
+    ``evaluation/evaluation_metrics.{json,csv}`` written, in both entry
+    points. The ground truth is the JAX run's detections of two of the three
+    frames, so the counts are exact on both sides."""
+    import main as root_main
+
+    session = flow["jax_session"]
+    with (session / "01_extraction" / "extraction_results.csv").open() as f:
+        paths = {int(r["frame_number"]): r["frame_path"] for r in csv.DictReader(f) if r.get("frame_path")}
+    frames = json.loads((session / "02_detection" / "detections.json").read_bytes())["frames"]
+    images, annotations = [], []
+    for i, fr in enumerate(frames[:2]):
+        images.append({"id": i, "file_name": Path(paths[fr["frame_number"]]).name, "width": 1280, "height": 720})
+        for d in fr["detections"]:
+            b = d["bbox"]
+            annotations.append({"id": len(annotations), "image_id": i, "bbox": [b["x"], b["y"], b["width"], b["height"]],
+                                "category_id": 1})
+    gt = tmp_path / "gt.json"
+    gt.write_text(json.dumps({"images": images, "annotations": annotations}))
+    got = {}
+    for name, entry in (("port", port_main), ("jax", root_main.main)):
+        doc = yaml.safe_load(flow["port_cfg"].read_text())
+        doc["evaluation"] = {"ground_truth_path": str(gt), "iou_threshold": 0.5}
+        cfg = write_config(tmp_path / f"{name}.yaml", doc)
+        assert entry(["--config", str(cfg), "--resume", str(flow[f"{name}_session"]), "--evaluate"]) == 0, name
+        got[name] = json.loads((flow[f"{name}_session"] / "evaluation" / "evaluation_metrics.json").read_text())
+    assert got["port"] == got["jax"]
+    assert got["port"]["true_positives"] == len(annotations) > 0 and got["port"]["false_negatives"] == 0
+
+
 # ---------------------------------------------------------------------- main
 def test_main_missing_config_returns_1(tmp_path):
     assert port_main(["--config", str(tmp_path / "missing.yaml")]) == 1
@@ -360,7 +392,6 @@ REFUSALS = {
     "distributed": ({"parallel.distributed.enabled": True}, [], "A.8"),
     "side_by_side_video": ({"output.save_side_by_side_video": True}, [], "A.3"),
     "attention_maps": ({"output.save_attention_maps": True}, [], "A.3"),
-    "evaluate": ({}, ["--evaluate"], "A.3"),
     "fine_tune": ({"training.model": "yolo"}, ["--fine-tune"], "A.7"),  # the YOLO trainer
 }
 

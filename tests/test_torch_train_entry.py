@@ -8,6 +8,12 @@
   JAX package's ``load_any_checkpoint``; the two models give the same logits
   and boxes within the DETR bar (logits atol 2e-3 / rtol 1e-3, boxes 1e-3);
 - the flags the port refuses raise, naming their ROADMAP item;
+- ``--backbone vit`` trains the tiny ViT DETR, and ``--evaluate`` scores it
+  before and after training as the JAX trainer does;
+- a ``train_state.npz`` that the JAX trainer saves resumes in the port
+  (ROADMAP C.8): every leaf lands where the JAX state holds it, with an
+  accumulated gradient and a schedule count too, and the next step matches
+  JAX's (losses within 1e-4 relative, as tests/test_torch_train_step.py);
 - the port's ``main --fine-tune`` passes the root ``main.py``'s argument list
   (plus ``--device`` from ``detection.device``) and trains.
 """
@@ -120,10 +126,7 @@ def test_weights_load_in_both_packages(trained):
 
 REFUSED = {
     "yolo": (["--model", "yolo"], "A.7"),
-    "vit": (["--backbone", "vit"], "A.7"),
     "model_parallel": (["--model-parallel", "2"], "A.8"),
-    "evaluate": (["--evaluate"], "A.3"),
-    "eval_every": (["--eval-every", "2"], "A.3"),
 }
 
 
@@ -169,3 +172,179 @@ def test_fine_tune_trains_and_refuses_yolo(dataset, tmp_path, capsys):
     assert port_main_module.main(["--config", str(cfg), "--fine-tune"]) == 2
     assert "ROADMAP A.7" in capsys.readouterr().out
     assert not (tmp_path / "y").exists()
+
+
+def test_vit_backbone_trains_and_evaluates(dataset, tmp_path):
+    """``--backbone vit`` at the tiny tier (the tiny ViT, patch 8) with
+    ``--evaluate --eval-every 1``: the baseline and one score an epoch, as
+    the JAX trainer writes them, and weights that load as a ViT DETR."""
+    ckpt = tmp_path / "vit"
+    assert train_detr.main(_args(dataset, ckpt, "--epochs", "2", "--backbone", "vit", "--patch-size", "16",
+                                 "--evaluate", "--eval-every", "1", "--eval-conf", "0.0")) == 0
+    history = json.loads((ckpt / "history.json").read_text())
+    assert [e["epoch"] for e in history["evals"]] == [0, 1, 2]
+    keys = {"precision", "recall", "f1_score", "ap_50", "ap_75", "map_50_95", "num_images", "num_gt",
+            "true_positives", "false_positives", "false_negatives"}
+    assert all(set(e) == keys | {"epoch"} for e in history["evals"])
+    assert history["evals"][0]["num_images"] == 6 and all(np.isfinite(history["step_losses"]))
+    cfg = port_detr.DETRConfig.tiny(backbone="vit", vit_patch_size=8, vit_hidden=64, vit_layers=2, vit_heads=4,
+                                    vit_mlp=128, vit_pos_grid=4)
+    sd = load_checkpoint(ckpt / "weights.npz", cfg)
+    assert "backbone.cls_token" in sd and "backbone.layer_1.attention.q_proj.weight" in sd
+
+
+# ------------------------------------------------------------------ C.8
+C8_HW, C8_B, C8_T, C8_C = (64, 96), 2, 3, 5
+
+
+def _c8_batch(seed):
+    rng = np.random.default_rng(seed)
+    mask = np.ones((C8_B, *C8_HW), bool)
+    mask[1, :, 80:] = False
+    return {
+        "pixels": rng.normal(size=(C8_B, *C8_HW, 3)).astype(np.float32),
+        "pixel_mask": mask,
+        "labels": rng.integers(0, C8_C, (C8_B, C8_T)).astype(np.int32),
+        "boxes": np.concatenate([rng.uniform(0.2, 0.8, (C8_B, C8_T, 2)), rng.uniform(0.05, 0.3, (C8_B, C8_T, 2))],
+                                -1).astype(np.float32),
+        "valid": np.array([[True, True, False], [True, False, False]]),
+    }
+
+
+def _jax_state(opt_kw, ema, randomize, seed=0, **cfg_kw):
+    """A JAX tiny DETR and its TrainState; with ``randomize`` every leaf is
+    replaced by a seeded random value (scalars by small counts), so that a
+    leaf read from the wrong place shows."""
+    import dataclasses
+
+    from office_person_detection_vit_tpu.training import train_step as jax_step
+
+    jcfg = jax_detr.DETRConfig.tiny(num_classes=C8_C, **cfg_kw)
+    jmodel, variables = jax_detr.init_detr(jcfg, jax.random.PRNGKey(seed), input_hw=C8_HW)
+    tx = jax_step.make_optimizer(**opt_kw)
+    state = jax_step.TrainState.create(variables["params"], tx, ema=ema)
+    if randomize:
+        rng = np.random.default_rng(seed + 1)
+        state = jax.tree_util.tree_map(
+            lambda x: (np.asarray(rng.integers(1, 50), np.asarray(x).dtype) if np.ndim(x) == 0
+                       else rng.normal(size=np.shape(x)).astype(np.float32)), jax.device_get(state))
+    fields = {f.name for f in dataclasses.fields(port_detr.DETRConfig)}
+    pcfg = port_detr.DETRConfig(**{k: v for k, v in dataclasses.asdict(jcfg).items() if k in fields})
+    return jmodel, tx, state, pcfg
+
+
+def _adam_states(opt_state):
+    import optax
+
+    def is_adam(x):
+        return isinstance(x, optax.ScaleByAdamState)
+
+    return [x for x in jax.tree_util.tree_leaves(opt_state, is_leaf=is_adam) if is_adam(x)]
+
+
+def _port_state(pcfg, opt_kw, ema):
+    from office_person_detection_vit_torch.training import train_step as port_step
+
+    model = port_detr.DETR(pcfg)
+    model.init_weights(torch.Generator().manual_seed(9))
+    tx = port_step.make_optimizer(**opt_kw)
+    return port_step.TrainState.create(model, tx, ema=ema), tx
+
+
+def _port_leaves(state, tensors):
+    from office_person_detection_vit_torch.models.weights import flat_leaves_from_state_dict
+
+    return flat_leaves_from_state_dict(dict(zip(state.keys, tensors)), state.model.config)
+
+
+@pytest.mark.parametrize(
+    "opt_kw,saved_ema,resumed_ema",
+    [(dict(learning_rate=1e-3, backbone_lr=1e-4), True, True),
+     (dict(learning_rate=1e-3, backbone_lr=1e-4, schedule="cosine", total_steps=20, accum_steps=2), False, False),
+     (dict(learning_rate=1e-3, backbone_lr=1e-4, warmup_steps=3), True, False),
+     (dict(learning_rate=1e-3, backbone_lr=1e-4), False, True)],
+    ids=["ema", "accum_cosine", "ema_dropped", "ema_restarted"],
+)
+def test_jax_train_state_leaves_land_where_jax_holds_them(tmp_path, opt_kw, saved_ema, resumed_ema):
+    from tools.train_detr import _save_pytree
+
+    _, _, jstate, pcfg = _jax_state(opt_kw, saved_ema, randomize=True)
+    path = tmp_path / "train_state.npz"
+    _save_pytree(path, jstate)
+    state, tx = _port_state(pcfg, opt_kw, resumed_ema)
+    train_detr.load_train_state(path, state, tx)
+
+    def same(got, want_tree):
+        want = jax.tree_util.tree_leaves(want_tree)
+        assert len(got) == len(want)
+        assert all(np.array_equal(a, np.asarray(b)) for a, b in zip(got, want))
+
+    same(_port_leaves(state, state.params), jstate.params)
+    adam = _adam_states(jstate.opt_state)
+    is_bb = [k.startswith("backbone.") for k in state.keys]
+    for group in ("mu", "nu"):
+        got = _port_leaves(state, getattr(state.opt_state, group))
+        same([a for a, b in zip(got, is_bb) if b], getattr(adam[0], group))
+        same([a for a, b in zip(got, is_bb) if not b], getattr(adam[1], group))
+    assert state.step == int(jstate.step) and state.opt_state.count == int(adam[0].count)
+    if opt_kw.get("accum_steps", 1) > 1:
+        same(_port_leaves(state, state.opt_state.acc), jstate.opt_state.acc_grads)
+        assert state.opt_state.mini_step == int(jstate.opt_state.mini_step)
+    if saved_ema and resumed_ema:
+        same(_port_leaves(state, state.ema_params), jstate.ema_params)
+    elif resumed_ema:  # restarted from the resumed weights
+        same(_port_leaves(state, state.ema_params), jstate.params)
+
+
+def test_jax_train_state_of_another_model_raises(tmp_path):
+    from tools.train_detr import _save_pytree
+
+    opt_kw = dict(learning_rate=1e-3, backbone_lr=1e-4)
+    _, _, jstate, _ = _jax_state(opt_kw, False, randomize=False)
+    path = tmp_path / "train_state.npz"
+    _save_pytree(path, jstate)
+    state, tx = _port_state(port_detr.DETRConfig.tiny(num_classes=C8_C, num_queries=12), opt_kw, False)
+    with pytest.raises(ValueError, match="another model"):
+        train_detr.load_train_state(path, state, tx)
+    state, tx = _port_state(port_detr.DETRConfig.tiny(num_classes=C8_C, num_encoder_layers=1), opt_kw, False)
+    with pytest.raises(ValueError, match="leaves"):
+        train_detr.load_train_state(path, state, tx)
+    state, tx = _port_state(port_detr.DETRConfig.tiny(num_classes=C8_C), dict(opt_kw, schedule="cosine",
+                                                                            total_steps=9), False)
+    with pytest.raises(ValueError, match="schedule"):
+        train_detr.load_train_state(path, state, tx)
+
+
+def test_jax_train_state_resumes_and_the_next_step_matches_jax(tmp_path):
+    """The JAX trainer's state after one step (EMA on), saved as its trainer
+    saves it, resumed in the port; then one more step on both sides."""
+    from office_person_detection_vit_tpu.training import train_step as jax_step
+    from tools.train_detr import _save_pytree
+
+    from office_person_detection_vit_torch.training import train_step as port_step
+
+    opt_kw = dict(learning_rate=1e-3, backbone_lr=1e-4)
+    jmodel, jtx, jstate, pcfg = _jax_state(opt_kw, True, randomize=False, seed=2, enc_objectness=True)
+    jstep = jax_step.make_train_step(jmodel, jtx, ema_decay=0.9)
+    jb1, jb2 = ({k: jnp.asarray(v) for k, v in _c8_batch(s).items()} for s in (3, 4))
+    jstate, _ = jstep(jstate, jb1, jax.random.PRNGKey(0))
+    path = tmp_path / "train_state.npz"
+    _save_pytree(path, jax.device_get(jstate))
+
+    state, tx = _port_state(pcfg, opt_kw, True)
+    train_detr.load_train_state(path, state, tx)
+    assert state.step == 1 and state.opt_state.count == 1
+    jstate2, jmet = jstep(jstate, jb2, jax.random.PRNGKey(1))
+    step = port_step.make_train_step(state.model, tx, ema_decay=0.9)
+    state, met = step(state, {k: torch.from_numpy(v) for k, v in _c8_batch(4).items()}, torch.Generator())
+    assert state.step == 2 and state.opt_state.count == 2
+    for key in met:
+        np.testing.assert_allclose(met[key].item(), float(jmet[key]), rtol=1e-4, err_msg=key)
+    # The update itself: Adam moves each leaf by about the learning rate, so
+    # the parameters after the step agree to a small part of it (a leaf whose
+    # gradient is rounding noise on both sides, see test_torch_train_step,
+    # may move by up to twice the rate in either direction).
+    got = _port_leaves(state, state.params)
+    for key, a, b in zip(state.keys, got, jax.tree_util.tree_leaves(jstate2.params)):
+        lr = opt_kw["backbone_lr" if key.startswith("backbone.") else "learning_rate"]
+        assert np.abs(a - np.asarray(b)).max() <= 2.5 * lr, key

@@ -54,7 +54,8 @@ the pipeline phases 2-4, the entry point and the trainer:
    ``office_person_detection_vit_torch.main.main`` (what ``python -m
    office_person_detection_vit_torch --config <yaml>`` runs), from a video to
    ``summary.json``: (a) a 4-hour 720p timelapse (08:00-12:00, ratio 313),
-   DETR-R50 bf16 at 736x1280, batch 8, seeded random weights: every 5-minute
+   DETR-R50 bf16 at 736x1280, batch 8, seeded random weights, the shipped
+   ``detection.transfer_format: auto`` (the race's pick): every 5-minute
    target extracted with the timestamp the video burned in, each phase's
    checkpoint, the artifacts with the JAX keys and the JSON schemas, a
    floormap PNG a frame, 18 K2 launches a chunk, each phase's seconds; (b)
@@ -119,11 +120,26 @@ the pipeline phases 2-4, the entry point and the trainer:
    (d) ``main --evaluate`` and the trainer's ``--evaluate`` with the DETR-small
    checkpoint against a ground-truth file of the persons drawn into the
    one-hour video, card tp/fp/fn within 1 of the CPU's.
+13. the detector slice: (a) head dims up to 128 (C.7): every head-dim-128
+   body's registers, spills (none allowed) and HMMA count; K1/K2 at ViT-H's
+   head dim 80 (padded to 128) and at 128 in both types against the plain
+   version, timed against SDPA and the bound; B.4 at [10a]'s gate at 128 and
+   80; then DETR with ViT-H/16's widths (4 of 32 layers) through
+   ``detect_batch``, its float32 forward at 224x224 card against CPU, and 8
+   of its training steps, which launch the D-128 bodies; (b) the upload
+   routes (A.4, A.9): [8a]'s 288 frames through DETR-R50 bf16 on bgr, i420
+   and i420d (i420d's detections equal to i420's bit for bit), the staging
+   library's bytes equal to cv2's, the float32 i420 forward card against CPU,
+   ``auto``'s race; (c) YOLOv8x and the single-shot detector (A.7b) at
+   736x1280, bf16, batch 8 (frames/s), each in float32 card against CPU, the
+   ultralytics ``.pt`` route on the card, and ``main`` with
+   ``detection.model: yolo`` on the one-hour video.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 Its last two lines are JSON: the kernels (launches, error, times, bound; K1,
-K2, K3, B.4 and its backward pair, and K2, B.4 and the pair at head dim 64 on
-the ViT's path) and the device.
+K2, K3, B.4 and its backward pair, K2, B.4 and the pair at head dim 64 on
+the ViT's path, and K1, K2, B.4 and the pair at head dim 128 on the ViT-H-width
+path) and the device.
 """
 
 from __future__ import annotations
@@ -286,6 +302,10 @@ def kernel_resources(ka, kb, build) -> None:
                 "none at Lk 920 (K2)"
         elif dtype == torch.bfloat16:  # the ring of csrc/attention.cu::Ring: 3 slots of two tiles and the vectors
             dyn = f"{3 * (2 * 64 * d * 2 + (2 if 'dkdv' in base else 1) * 64 * 4):6d} B (ring)"
+        elif "dkdv" in base:  # a 64-row tile of Q and g, their lse2 and D
+            dyn = f"{2 * 64 * d * 4 + 2 * 64 * 4:6d} B"
+        elif "slice" in base:  # a 64-key tile of K and V and its mask bytes
+            dyn = f"{2 * 64 * d * 4 + 64:6d} B"
         else:
             dyn = "     0 B"
         n_hmma = hmma_of(hmma, a["name"])
@@ -316,15 +336,18 @@ def kernel_resources(ka, kb, build) -> None:
             f"({tile_h} x {tile_w}, {rows} rows)  HMMA in SASS {n_hmma}")
 
 
-def float32_card_vs_cpu(ka, cfg, frames: np.ndarray, want_counts: dict, where: str) -> tuple[float, float, float]:
+def float32_card_vs_cpu(ka, cfg, frames: np.ndarray, want_counts: dict, where: str, route: str = "bgr",
+                        hw: tuple = (736, 1280)) -> tuple[float, float, float]:
     """The float32 model ``cfg`` (seeded random weights) on the card, TF32
     off, against the same weights on the CPU (the plain attention), on
-    ``frames`` at 736x1280: the launches must be ``want_counts`` and the
-    outputs within the repo's DETR bar. -> (max |dlogits|, max |dboxes|,
-    the CPU's seconds)."""
+    ``frames`` at ``hw`` through the ``route`` upload's preprocessing (bgr,
+    or i420 from the staging library): the launches must be ``want_counts``
+    and the outputs within the repo's DETR bar. -> (max |dlogits|, max
+    |dboxes|, the CPU's seconds)."""
     from office_person_detection_vit_torch.device import resolve_device
     from office_person_detection_vit_torch.models.detr import DETR
-    from office_person_detection_vit_torch.ops.preprocessing import preprocess_frames
+    from office_person_detection_vit_torch.ops import staging
+    from office_person_detection_vit_torch.ops.preprocessing import preprocess_frames, preprocess_frames_i420
 
     resolve_device("cuda", "float32")  # TF32 off for the float32 comparison
     cpu_model = DETR(cfg)
@@ -333,7 +356,10 @@ def float32_card_vs_cpu(ka, cfg, frames: np.ndarray, want_counts: dict, where: s
     gpu_model = DETR(cfg).eval()
     gpu_model.load_state_dict(cpu_model.state_dict())
     gpu_model.cuda()
-    pixels, mask = preprocess_frames(torch.from_numpy(frames), target_hw=(736, 1280))
+    if route == "bgr":
+        pixels, mask = preprocess_frames(torch.from_numpy(frames), target_hw=hw)
+    else:
+        pixels, mask = preprocess_frames_i420(torch.from_numpy(staging.bgr_to_i420(frames)), target_hw=hw)
     ka.reset_launch_counts()
     with torch.inference_mode():
         got = gpu_model(pixels.cuda(), mask.cuda())
@@ -561,7 +587,8 @@ def run_phases(cfg: dict, results: list, out: Path, frames=None, detection=None)
     return secs, {name: phase for name, (phase, _) in phases.items()}
 
 
-def check_artifacts(out: Path, zone_ids: list, frames: int, session: bool = False) -> None:
+def check_artifacts(out: Path, zone_ids: list, frames: int, session: bool = False,
+                    stats_keys: set = STATISTICS_KEYS) -> None:
     """The four artifacts exist, with the keys the JAX package writes
     (``schemas/coordinate_transformations.schema.json`` for the transform's),
     and ``zone_counts.csv`` has a row per frame. ``out`` holds all four, or
@@ -577,7 +604,7 @@ def check_artifacts(out: Path, zone_ids: list, frames: int, session: bool = Fals
         for d in f["detections"]:
             check({"bbox", "confidence", "camera_coords"} <= set(d) <= det_keys, f"detection keys {set(d)}")
     stats = json.loads((det_dir / "detection_statistics.json").read_text())
-    check(set(stats) == STATISTICS_KEYS, f"detection_statistics.json keys {set(stats)}")
+    check(set(stats) == stats_keys, f"detection_statistics.json keys {set(stats)}")
     coords = json.loads((tr_dir / "coordinate_transformations.json").read_text())
     check(set(schema["required"]) <= set(coords) <= set(schema["properties"]), f"transform keys {set(coords)}")
     check(set(coords["transformer_info"]) <= set(schema["properties"]["transformer_info"]["properties"]),
@@ -869,9 +896,9 @@ def trained_phase(ka, smi: str, render_frame, t_start: datetime) -> dict:
 # timestamp to the last: a video has frames until the scan reaches the end of
 # its span, so that the last target is one of them.
 FPS, RATIO, TOLERANCE_S, SCAN_STRIDE = 30, 313.0, 60, 6
-# 9a's span: 4 hours keep the whole script, phase 11 included, near half of
-# its time limit (Phase 1's OCR of the scanned frames takes most of 9a; 8
-# hours took 294 s of it on an H100 machine).
+# 9a's span: 4 hours since phase 11 (Phase 1's OCR of the scanned frames
+# takes most of 9a: 8 hours took 294 s of it on an H100 machine, 4 hours
+# 140.5 s).
 DAY_START, DAY_HOURS = datetime(2025, 1, 20, 8, 0, 0), 4
 HOUR_START = datetime(2025, 1, 20, 9, 0, 0)
 EXTRACTION_HEADER = ["frame_number", "timestamp", "target_timestamp", "confidence", "time_error_seconds",
@@ -950,19 +977,22 @@ class FlowProbe:
 
     def __init__(self):
         from office_person_detection_vit_torch.detection.detector import DETRDetector
+        from office_person_detection_vit_torch.detection.ssd_detector import SSDDetector
         from office_person_detection_vit_torch.pipeline.orchestrator import PipelineOrchestrator
         from office_person_detection_vit_torch.video.video_processor import VideoProcessor
 
         self.failed_chunks, self.chunks, self.decoded, self.reloads = [], 0, 0, 0
         probe = self
-        detect, get_frame, iter_frames = DETRDetector.detect_batch, VideoProcessor.get_frame, VideoProcessor.iter_frames
+        get_frame, iter_frames = VideoProcessor.get_frame, VideoProcessor.iter_frames
         prepare = PipelineOrchestrator.prepare_frames_for_detection
 
-        def detect_batch(det, frames):
-            out = detect(det, frames)
-            probe.failed_chunks.append(det.last_failed_chunks)
-            probe.chunks += math.ceil(len(frames) / det.batch_size)
-            return out
+        def counted(detect):
+            def detect_batch(det, frames):
+                out = detect(det, frames)
+                probe.failed_chunks.append(det.last_failed_chunks)
+                probe.chunks += math.ceil(len(frames) / det.batch_size)
+                return out
+            return detect_batch
 
         def counted_get_frame(vp, n):
             probe.decoded += 1
@@ -977,7 +1007,8 @@ class FlowProbe:
             probe.reloads += 1
             return prepare(orch)
 
-        DETRDetector.detect_batch = detect_batch
+        for cls in (DETRDetector, SSDDetector):  # SSDDetector's is YOLODetector's too
+            cls.detect_batch = counted(cls.detect_batch)
         VideoProcessor.get_frame, VideoProcessor.iter_frames = counted_get_frame, counted_iter_frames
         PipelineOrchestrator.prepare_frames_for_detection = counted_prepare
 
@@ -1040,7 +1071,7 @@ def check_extraction(session: Path, start: datetime, hours: float, where: str) -
     return rows
 
 
-def check_session(session: Path, zone_ids: list, frames: int, where: str) -> dict:
+def check_session(session: Path, zone_ids: list, frames: int, where: str, stats_keys: set = STATISTICS_KEYS) -> dict:
     """summary.json completed, every phase's checkpoint (tracking skipped:
     phase 9's configs leave it off),
     the artifacts with the JAX keys and the repo's JSON schemas, and a
@@ -1054,7 +1085,7 @@ def check_session(session: Path, zone_ids: list, frames: int, where: str) -> dic
     phases = json.loads((session / "pipeline_checkpoint.json").read_text())["phases"]
     want = {p: ("skipped" if p == "03_tracking" else "completed") for p in PHASES}
     check({p: e["status"] for p, e in phases.items()} == want, f"{where}: checkpoints {phases}")
-    check_artifacts(session, zone_ids, frames, session=True)
+    check_artifacts(session, zone_ids, frames, session=True, stats_keys=stats_keys)
     with contextlib.redirect_stdout(io.StringIO()):  # it prints a line an artifact
         errors = validate_session(session, ROOT / "schemas")
     check(not errors, f"{where}: schema errors {errors}")
@@ -1076,11 +1107,24 @@ def phase_seconds(summary: dict) -> str:
     return ", ".join(f"{k} {v['total_time']:.3f} s" for k, v in summary["performance"].items())
 
 
+#: Chunks the ``auto`` race runs on the first batch: each format once to
+#: warm it, then 3 interleaved rounds (DETRDetector._autotune_transfer).
+RACE_CHUNKS = 3 + 3 * 3
+
+
 def day_flow(ka, probe, smi: str, videos: Path, tmp: Path, H: np.ndarray, zones: list) -> dict:
-    """9a: the day video (DAY_HOURS) through main, DETR-R50 bf16 at full width."""
+    """9a: the day video (DAY_HOURS) through main, DETR-R50 bf16 at full
+    width, with the shipped config.yaml's ``detection.transfer_format:
+    auto`` (the race's winner in detection_statistics.json, whose keys
+    check_session holds to the JAX phase's)."""
+    import yaml
+
+    from office_person_detection_vit_torch.detection.detector import TRANSFER_FORMATS
+
+    shipped = yaml.safe_load((ROOT / "config.yaml").read_text())["detection"]["transfer_format"]
     detection = {"model": "detr", "model_size": "full", "dtype": "bfloat16", "device": "cuda", "batch_size": 8,
                  "input_height": 736, "input_width": 1280, "checkpoint_path": None, "confidence_threshold": 0.0,
-                 "nms_threshold": 0.4}
+                 "nms_threshold": 0.4, "transfer_format": shipped}
     cfg = flow_config(videos / "day.mp4", tmp / "day", detection, H, zones)
     rc, counts, secs, session = run_main(ka, probe, cfg, tmp / "day.yaml")
     check(rc == 0, f"9a: main exited {rc}")
@@ -1090,16 +1134,19 @@ def day_flow(ka, probe, smi: str, videos: Path, tmp: Path, H: np.ndarray, zones:
     chunks = math.ceil(n / 8)
     check(probe.chunks == chunks and sum(probe.failed_chunks) == 0,
           f"9a: {sum(probe.failed_chunks)} of {probe.chunks} chunks raised (expected {chunks} chunks)")
-    want = expected_launches(ka, 920, torch.bfloat16, chunks)
-    check(counts == want and counts["attention_flash"] == 18 * chunks and counts["attention_whole_kv"] == 0,
-          f"9a: main launched {counts}, expected {want} (18 K2 a chunk x {chunks}, no K1)")
+    raced = RACE_CHUNKS if shipped == "auto" else 0
+    want = expected_launches(ka, 920, torch.bfloat16, chunks + raced)
+    check(counts == want and counts["attention_flash"] == 18 * (chunks + raced) and counts["attention_whole_kv"] == 0,
+          f"9a: main launched {counts}, expected {want} (18 K2 a chunk x {chunks} and {raced} raced, no K1)")
+    pick = json.loads((session / "02_detection" / "detection_statistics.json").read_text())["transfer_format"]
+    check(pick in TRANSFER_FORMATS, f"9a: detection.transfer_format {shipped!r} ran {pick!r}")
     scanned = math.ceil(video_frames(DAY_HOURS) / SCAN_STRIDE)
     span = f"{DAY_START:%H:%M}-{DAY_START + timedelta(hours=DAY_HOURS):%H:%M}"
     log(f"[9a] main, {video_frames(DAY_HOURS)}-frame 720p video {span} ({scanned} frames scanned and OCR'd, "
         f"stride {SCAN_STRIDE}): {n} frames extracted, each at its 5-minute target within {TOLERANCE_S} s and with "
-        f"the timestamp burned in; DETR-R50 bf16 736x1280 batch 8: launches {counts} over {chunks} chunks (18 K2 a "
-        f"chunk, none raised); checkpoints 01-06 (03_tracking skipped), the artifacts with the JAX keys and schemas, "
-        f"{n} floormap PNGs and the three charts ({', '.join(CHARTS)}); "
+        f"the timestamp burned in; DETR-R50 bf16 736x1280 batch 8, transfer_format {shipped}: launches {counts} "
+        f"over {chunks} chunks and {raced} raced (18 K2 a chunk, none raised; the race kept {pick}); checkpoints "
+        f"01-06 (03_tracking skipped), the artifacts with the JAX keys and schemas, {n} floormap PNGs and the three charts ({', '.join(CHARTS)}); "
         f"{summary['statistics']['total_detections']} detections (random weights)")
     log(f"[9a] phase seconds (summary.json, the card synchronised at each phase's end): {phase_seconds(summary)}; "
         f"main {secs:.3f} s in all (host clock) on {smi}")
@@ -2209,19 +2256,21 @@ def vit_kernels_phase(ka, build, smi: str) -> dict:
     return {"forward": rows, "b4": vit_b4_timing(ka, smi)}
 
 
-def vit_b4_timing(ka, smi: str) -> dict:
-    """[12a]: B.4 at ViT-base's training shape VIT_TRAIN in bf16: the
-    gradients against the pair's plain version (B4_BAR), then the times of
-    forward+backward, the forward, the pair, plain autograd, the pair's plain
-    version and SDPA (forward+backward and its backward alone)."""
+def vit_b4_timing(ka, smi: str, shape=VIT_TRAIN, tag: str = "12a", seed: int = 600,
+                  what: str = "ViT-base training at 768x1344, batch 8") -> dict:
+    """[12a]: B.4 at a ViT's training shape (ViT-base's VIT_TRAIN by
+    default) in bf16: the gradients against the pair's plain version
+    (B4_BAR), then the times of forward+backward, the forward, the pair,
+    plain autograd, the pair's plain version and SDPA (forward+backward and
+    its backward alone)."""
     from office_person_detection_vit_torch import attention_kernel_bench as abench
     from office_person_detection_vit_torch.ops import attention as oa
     from office_person_detection_vit_torch.ops.attention import (KernelAttention, attention_backward_reference,
                                                                  attention_reference)
 
-    shape, dtype = VIT_TRAIN, torch.bfloat16
-    q, k, v, _ = abench.make_inputs(shape, dtype, False, 600)
-    g = torch.randn(q.shape, generator=torch.Generator().manual_seed(601)).to("cuda", dtype)
+    dtype = torch.bfloat16
+    q, k, v, _ = abench.make_inputs(shape, dtype, False, seed)
+    g = torch.randn(q.shape, generator=torch.Generator().manual_seed(seed + 1)).to("cuda", dtype)
     q, k, v = (t.requires_grad_(True) for t in (q, k, v))
     oa.reset_launch_counts()
     ka.reset_launch_counts()
@@ -2229,7 +2278,7 @@ def vit_b4_timing(ka, smi: str) -> dict:
     grads = torch.autograd.grad(out, (q, k, v), g, retain_graph=True)
     torch.cuda.synchronize()
     check(oa.launch_counts["attention_diff"] == 1 and ka.launch_counts == launches(flash=1, backward=1),
-          f"12a: B.4 at {shape} launched {oa.launch_counts}, {ka.launch_counts}")
+          f"{tag}: B.4 at {shape} launched {oa.launch_counts}, {ka.launch_counts}")
     x = [t.detach() for t in (q, k, v)]
     out2, lse = ka.attention_flash(*x, None, with_lse=True)
     twin = attention_backward_reference(*x, None, out2, lse, g)
@@ -2237,7 +2286,7 @@ def vit_b4_timing(ka, smi: str) -> dict:
     grad_abs = max((a.float() - b.float()).abs().max().item() for a, b in zip(grads, twin))
     del twin
     check(all(bool(torch.isfinite(t).all()) for t in (out, *grads)) and twin_err <= B4_BAR[dtype],
-          f"12a: B.4 at {shape}: gradients {twin_err:.2e} from the pair's plain version (bar {B4_BAR[dtype]:.2e})")
+          f"{tag}: B.4 at {shape}: gradients {twin_err:.2e} from the pair's plain version (bar {B4_BAR[dtype]:.2e})")
 
     def fwd_bwd(fn):
         def run():
@@ -2266,7 +2315,7 @@ def vit_b4_timing(ka, smi: str) -> dict:
         "bound_ms": b_ms, "bound_by": b_by, "backward_bound_ms": bb_ms, "backward_bound_by": bb_by,
         "forward_bound_ms": f_ms, "forward_bound_by": f_by,
     }
-    log(f"[12a] B.4 {shape} bf16 (ViT-base training at 768x1344, batch 8): gradients {twin_err:.2e} from the pair's "
+    log(f"[{tag}] B.4 {shape} bf16 ({what}): gradients {twin_err:.2e} from the pair's "
         f"plain version (bar {B4_BAR[dtype]:.2e}); forward+backward {row['ms']:.4f} ms (forward {row['forward_ms']:.4f}, "
         f"backward {row['backward_ms']:.4f}, the pair alone {row['pair_ms']:.4f}), plain autograd {row['plain_ms']:.4f}, "
         f"the pair's plain version {row['plain_backward_ms']:.4f}, SDPA {row['library_ms']:.4f} (forward "
@@ -2484,6 +2533,560 @@ def vit_kernel_rows(vit: dict) -> list:
     ]
 
 
+# ------------------------------------------------------------------ phase 13
+# C.7: head dims up to 128. [13a] holds every D-128 body against the plain
+# version at [2]'s bars (attention_kernel_bench.TOLERANCE) and B.4 at
+# [10a]'s gate: ViT-H/16's heads (hidden 1280 over 16 heads: 80, padded to
+# 128) on the ViT detect's 3681 tokens, head dim 128 there, K1 at ViT-H's
+# 224x224 (197 tokens) in float32, B.4 at ViT-H's training tokens (4033,
+# batch 1 so that float64 autograd fits beside it; batch 8 is timed and held
+# against the pair's plain version), and the remaining bodies (K1 bf16, K2
+# float32, the float32 backward pair). The path that launches them: DETR
+# with ViT-H/16's widths as its backbone, its 32 layers cut to 4 (VITH).
+D128_KERNEL_CASES = [
+    ("attention_flash", (8, 16, 3681, 3681, 80), "bfloat16", False,
+     "ViT-H/16's heads (80, padded to 128) at 736x1280, batch 8"),
+    ("attention_flash", (8, 8, 3681, 3681, 128), "bfloat16", False, "head dim 128 on the ViT detect's 3681 tokens"),
+    ("attention_whole_kv", (8, 16, 197, 197, 80), "float32", False, "ViT-H/16 at 224x224, float32 (K1)"),
+    ("attention_whole_kv", (8, 8, 197, 197, 128), "bfloat16", True, "K1's bf16 body at head dim 128"),
+    ("attention_flash", (1, 8, 3681, 3681, 128), "float32", True, "K2's float32 body at head dim 128, batch 1"),
+]
+D128_B4_CASES = [((1, 16, 4033, 4033, 80), "bfloat16", False, "ViT-H/16's heads training at 768x1344, batch 1"),
+                 ((8, 8, 1008, 1008, 128), "bfloat16", False, "head dim 128 at DETR-R50's training tokens"),
+                 ((2, 8, 197, 197, 128), "float32", True, "head dim 128 float32 (K1, the float32 pair)"),
+                 ((2, 4, 300, 260, 80), "bfloat16", True, "head dim 80, padded to 128")]
+D128_LSE_CASES = D128_B4_CASES + [((8, 8, 3681, 3681, 128), "bfloat16", False, "head dim 128 detect")]
+#: DETR with ViT-H/16's widths (hidden 1280, 16 heads of 80, MLP 5120) as its
+#: backbone, 4 of its 32 layers: 4 ViT + 18 DETR attention calls a chunk.
+VITH = dict(backbone="vit", vit_hidden=1280, vit_heads=16, vit_mlp=5120, vit_layers=4)
+VITH_CALLS = 4 + 18
+#: B.4's shape on that model's training path: 768x1344 (48x84 patches and the
+#: class token), batch 8, ViT-H/16's 16 heads of 80.
+VITH_TRAIN = (8, 16, 48 * 84 + 1, 48 * 84 + 1, 80)
+
+
+def d128_count(ka, name: str) -> int:
+    return ka.head_dim_counts.get((name, 128), 0)
+
+
+def d128_phase(ka, build, smi: str, frames: np.ndarray, samples: list) -> dict:
+    """[13a]: [1]'s readings of every head-dim-128 body (no spill allowed);
+    the forward cases and B.4 at [10a]'s gate; then the D-128 bodies on a
+    model's path: the ViT-H-width DETR through DETRDetector.detect_batch
+    (bf16, 736x1280, batch 8: K2), its float32 forward at 224x224 on the card
+    against the CPU (K1), and 8 of its bf16 training steps at 768x1344 (B.4)."""
+    from office_person_detection_vit_torch import attention_kernel_bench as abench
+    from office_person_detection_vit_torch.detection.detector import DETRDetector
+    from office_person_detection_vit_torch.models.detr import DETRConfig
+    from office_person_detection_vit_torch.models.weights import flax_param_map
+
+    t0 = time.perf_counter()
+    hmma = sass_hmma(build)
+    bodies = {}
+    for a in ka.kernel_attributes():
+        if a["name"].endswith(",128>"):
+            n_hmma = hmma_of(hmma, a["name"])
+            check(a["local_bytes"] == 0, f"13a: {a['name']} spills {a['local_bytes']} B a thread")
+            check(bool(n_hmma) == ("bf16" in a["name"]), f"13a: {a['name']}: {n_hmma} HMMA instructions")
+            bodies[a["name"]] = {"regs": a["regs"], "local_bytes": a["local_bytes"], "hmma": n_hmma}
+            log(f"[13a] {a['name']:36s} regs {a['regs']:3d}  spill (local) {a['local_bytes']} B  HMMA in SASS {n_hmma}")
+    check(len(bodies) == 8, f"13a: {len(bodies)} head-dim-128 bodies, expected 8")
+    rows = {}
+    for seed, case in enumerate(D128_KERNEL_CASES):
+        row = abench.measure(ka, case, 700 + seed)
+        log(f"[13a] {abench.describe(row)} [{case[4]}]")
+        rows[case[:3]] = row
+        torch.cuda.empty_cache()
+    b4 = b4_phase(ka, smi, D128_B4_CASES, D128_LSE_CASES, tag="13a")
+    b4_path = vit_b4_timing(ka, smi, VITH_TRAIN, "13a", 800, "ViT-H/16-width training at 768x1344, batch 8")
+
+    # The ViT-H-width DETR's detect: 4 K2 at head dim 128 and 18 at 32 a chunk.
+    cfg = DETRConfig(dtype="bfloat16", **VITH)
+    det = DETRDetector({f"detection.{k}": v for k, v in vit_detector_config().items()}, detr_config=cfg)
+    det.load_model()
+    det.detect_batch(frames[:8])  # warm-up
+    torch.cuda.synchronize()
+    ka.reset_launch_counts()
+    ka.reset_head_dim_counts()
+    batch = det.detect_batch(frames[:16])
+    torch.cuda.synchronize()
+    detect_counts, k2_d128 = dict(ka.launch_counts), d128_count(ka, "attention_flash")
+    check(det.last_failed_chunks == 0 and all(np.isfinite(a).all() for a in (batch.boxes_xywh, batch.scores)),
+          "13a: ViT-H-width detect failed or gave non-finite detections")
+    check(detect_counts == launches(flash=VITH_CALLS * 2) and k2_d128 == 8,
+          f"13a: ViT-H-width detect launched {detect_counts}, {k2_d128} at head dim 128 "
+          f"(expected {VITH_CALLS} K2 a chunk x 2, 4 a chunk at 128)")
+    log(f"[13a] DETR with ViT-H/16's widths (4 of 32 layers) bf16 736x1280 batch 8 through detect_batch: launches "
+        f"{detect_counts} over 2 chunks, {k2_d128} of them K2 at head dim 128")
+    det.cleanup()
+    del det
+    torch.cuda.empty_cache()
+
+    # float32 at 224x224: the ViT's 197 tokens take K1 at head dim 80 -> 128
+    ka.reset_head_dim_counts()
+    d_logits, d_boxes, cpu_secs = float32_card_vs_cpu(ka, DETRConfig(dtype="float32", **VITH), frames[:1],
+                                                      launches(whole_kv=VITH_CALLS), "13a", hw=(224, 224))
+    k1_d128 = d128_count(ka, "attention_whole_kv")
+    check(k1_d128 == 4, f"13a: the float32 forward launched {k1_d128} K1 at head dim 128, expected 4")
+    log(f"[13a] float32 ViT-H-width DETR at 224x224 on the card (K1 x{VITH_CALLS}, {k1_d128} at head dim 128) vs the "
+        f"CPU ({cpu_secs:.1f} s): max|dlogits| {d_logits:.2e} (atol {LOGITS_ATOL} rtol {LOGITS_RTOL}), max|dboxes| "
+        f"{d_boxes:.2e} (atol {BOXES_ATOL})")
+    torch.cuda.empty_cache()
+
+    # B.4 at head dim 128 on a training path: 2 warm-up + 6 timed steps
+    ka.reset_head_dim_counts()
+    tcfg = DETRConfig(dtype="bfloat16", dropout=0.1, **VITH)
+    train = train_full_width(ka, smi, samples, tcfg, tag="13a", calls=VITH_CALLS, leaves=len(flax_param_map(tcfg)),
+                             name="ViT-H/16-width DETR (4 of 32 layers)")
+    train_d128 = {"attention_diff": d128_count(ka, "attention_flash"),
+                  "attention_backward": d128_count(ka, "attention_backward")}
+    check(train_d128 == {"attention_diff": 32, "attention_backward": 32},
+          f"13a: 8 training steps launched {train_d128} at head dim 128, expected 4 B.4 pairs a step")
+    log(f"[13a] phase {time.perf_counter() - t0:.1f} s")
+    return {"bodies": bodies, "forward": rows, "b4": b4, "b4_path": b4_path, "detect_counts": detect_counts,
+            "k2_d128": k2_d128, "k1_d128": k1_d128, "train_d128": train_d128, "train": train}
+
+
+# [13b]: the upload routes (ROADMAP A.4, A.9) at DETR-R50's main path: [8a]'s
+# 288 frames, bf16, batch 8, seeded random weights with the person head and
+# sigmoid scores of [11c], no NMS, the threshold chosen for 20-60 detections
+# a frame.
+ROUTE_BYTES = {"bgr": 720 * 1280 * 3, "i420": 720 * 3 // 2 * 1280, "i420d": 720 * 3 // 2 * 1280}
+
+
+def median_ms(fn, n: int = 5) -> float:
+    times = []
+    for _ in range(n):
+        t = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t) * 1e3)
+    return sorted(times)[n // 2]
+
+
+def transfer_phase(ka, smi: str, frames: list, tmp: Path) -> dict:
+    """[13b]: DETR-R50 bf16 at 736x1280, batch 8, over the 288 frames on each
+    of bgr, i420 and i420d (i420d's detections equal to i420's bit for bit),
+    the staging library's bytes equal to cv2's on every frame, the float32
+    i420 forward on the card within the DETR bar of the CPU, and ``auto``'s
+    race; for each route the upload bytes a chunk, the host ms of its
+    conversion, and ms a chunk through detect_batch. The person-headed
+    weights go to ``tmp`` for route_mains."""
+    from office_person_detection_vit_torch.detection.detector import TRANSFER_FORMATS, DETRDetector
+    from office_person_detection_vit_torch.models.detr import DETRConfig
+    from office_person_detection_vit_torch.models.weights import save_flat_npz
+    from office_person_detection_vit_torch.ops import staging
+
+    t0 = time.perf_counter()
+    weights = tmp / "detr_r50_person.npz"
+    arr = np.stack(frames)
+    n, chunks = len(arr), math.ceil(len(arr) / 8)
+    planes = staging.bgr_to_i420(arr)
+    check(np.array_equal(planes, staging.bgr_to_i420_reference(arr)),
+          "13b: the staging library's I420 differs from cv2's")
+    zeros = np.zeros(planes.shape[1:], np.uint8)
+    conv_ms = {"bgr": 0.0, "i420": median_ms(lambda: staging.bgr_to_i420(arr[:8])),
+               "i420d": median_ms(lambda: staging.i420_delta_encode(staging.bgr_to_i420(arr[:8]), zeros))}
+    log(f"[13b] staging library (g++, {staging.library_path().name}): I420 of {n} frames byte-equal to cv2's; host ms "
+        f"a chunk of 8 (median of 5): i420 {conv_ms['i420']:.3f}, i420 + XOR delta {conv_ms['i420d']:.3f}")
+    # [11c]'s load without NMS (0.4 leaves one of the random model's near-equal boxes a frame)
+    base = {"detection.model_size": "full", "detection.dtype": "bfloat16", "detection.device": "cuda",
+            "detection.batch_size": 8, "detection.input_height": 736, "detection.input_width": 1280,
+            "detection.score_mode": "sigmoid", "detection.nms_threshold": None,
+            "detection.confidence_threshold": 0.0}
+    out, threshold = {}, None
+    for fmt in TRANSFER_FORMATS:
+        det = DETRDetector(base | {"detection.transfer_format": fmt})
+        det.load_model()
+        person_head(det)
+        if threshold is None:
+            zero = det.detect_batch(arr[:64])
+            threshold = load_threshold([s[v] for s, v in zip(zero.scores, zero.valid)])
+            save_flat_npz(weights, det.model.state_dict(), det.detr_config)
+        det.confidence_threshold = threshold
+        det.detect_batch(arr[:8])  # warm-up (and i420d's chain)
+        torch.cuda.synchronize()
+        ka.reset_launch_counts()
+        t = time.perf_counter()
+        batch = det.detect_batch(arr)
+        secs = time.perf_counter() - t
+        counts = dict(ka.launch_counts)
+        check(det.last_failed_chunks == 0 and counts == expected_launches(ka, 920, torch.bfloat16, chunks),
+              f"13b {fmt}: {det.last_failed_chunks} chunks raised; launched {counts}")
+        per_frame = batch.valid.sum(1)
+        out[fmt] = {"batch": batch, "counts": counts, "ms_chunk": secs * 1e3 / chunks, "fps": n / secs,
+                    "upload_bytes_chunk": 8 * ROUTE_BYTES[fmt], "host_conversion_ms_chunk": conv_ms[fmt],
+                    "detections_per_frame": [int(per_frame.min()), float(per_frame.mean()), int(per_frame.max())]}
+        log(f"[13b] {fmt:5s}: {n} frames in {secs:.3f} s ({n / secs:.2f} frames/s, {secs * 1e3 / chunks:.3f} ms a "
+            f"chunk, host clock, the conversion included); upload {8 * ROUTE_BYTES[fmt]} B a chunk; launches {counts}; "
+            f"detections a frame min/mean/max {out[fmt]['detections_per_frame']} at threshold {threshold:.6f}")
+        det.cleanup()
+        del det
+    a, b = out["i420"]["batch"], out["i420d"]["batch"]
+    check(all(np.array_equal(getattr(a, f), getattr(b, f)) for f in ("boxes_xywh", "scores", "valid", "foot")),
+          "13b: i420d's detections differ from i420's")
+    log(f"[13b] i420d's detections equal i420's bit for bit over {n} frames ({int(a.valid.sum())} detections)")
+    race = DETRDetector(base | {"detection.transfer_format": "auto", "detection.confidence_threshold": threshold})
+    race.load_model()
+    race.detect_batch(arr[:16])
+    pick, race_ms = race.transfer_format, race.transfer_race_ms
+    check(pick in TRANSFER_FORMATS and set(race_ms) == set(TRANSFER_FORMATS), f"13b: the race kept {pick}")
+    log(f"[13b] auto: the race kept {pick} (best ms a chunk of 8, host clock to the results on the host: "
+        f"{', '.join(f'{k} {v:.3f}' for k, v in race_ms.items())}) on {smi}")
+    race.cleanup()
+    del race
+    torch.cuda.empty_cache()
+    d_logits, d_boxes, cpu_secs = float32_card_vs_cpu(ka, DETRConfig(dtype="float32"), arr[:2],
+                                                      launches(whole_kv=6, flash=12), "13b", route="i420")
+    log(f"[13b] float32 DETR-R50 through the i420 route on the card vs the CPU ({cpu_secs:.1f} s): max|dlogits| "
+        f"{d_logits:.2e} (atol {LOGITS_ATOL} rtol {LOGITS_RTOL}), max|dboxes| {d_boxes:.2e} (atol {BOXES_ATOL})")
+    log(f"[13b] phase {time.perf_counter() - t0:.1f} s")
+    for row in out.values():
+        del row["batch"]
+    return {"routes": out, "race_pick": pick, "race_ms": race_ms, "threshold": threshold, "weights": weights,
+            "float32_i420": {"max_dlogits": d_logits, "max_dboxes": d_boxes}}
+
+
+def route_mains(ka, probe, smi: str, hour_session: Path, videos: Path, tmp: Path, weights: Path,
+                threshold: float) -> dict:
+    """[13b]: ``main`` on the card with DETR-R50 bf16 (transfer_phase's
+    person-headed ``weights`` and ``threshold``, sigmoid scores, no NMS) on ``i420``
+    and on ``i420d``, each resuming a copy of [13c]'s one-hour session after
+    its Phase 1 (the OCR runs once): each session checked as 9a's, the route
+    in detection_statistics.json, and the two detections.json equal byte
+    for byte. bgr runs through main in 9b-12 and ``auto`` in 9a."""
+    n, out, written = 13, {}, {}
+    for fmt in ("i420", "i420d"):
+        detection = {"model": "detr", "model_size": "full", "dtype": "bfloat16", "device": "cuda", "batch_size": 8,
+                     "input_height": 736, "input_width": 1280, "checkpoint_path": str(weights),
+                     "confidence_threshold": threshold, "score_mode": "sigmoid", "nms_threshold": None,
+                     "transfer_format": fmt}
+        cfg = flow_config(videos / "hour.mp4", tmp / f"{fmt}_out", detection, np.eye(3), hour_zones())
+        copy = resumable_copy(hour_session, tmp / f"{fmt}_out" / hour_session.name)
+        rc, counts, secs, session = run_main(ka, probe, cfg, tmp / f"{fmt}.yaml", "--resume", str(copy))
+        check(rc == 0 and session == copy, f"13b {fmt}: main --resume exited {rc}")
+        summary = check_session(session, list(HOUR_QUADS), n, f"13b {fmt}")
+        want = expected_launches(ka, 920, torch.bfloat16, 2)
+        check(sum(probe.failed_chunks) == 0 and probe.chunks == 2 and counts == want,
+              f"13b {fmt}: main: {sum(probe.failed_chunks)} chunks raised of {probe.chunks}; launched {counts}, "
+              f"expected {want}")
+        stats = json.loads((session / "02_detection" / "detection_statistics.json").read_text())
+        check(stats["transfer_format"] == fmt,
+              f"13b {fmt}: detection_statistics.json records {stats['transfer_format']}")
+        written[fmt] = (session / "02_detection" / "detections.json").read_bytes()
+        out[fmt] = {"detections": stats["total_detections"], "seconds": secs, "performance": summary["performance"]}
+        log(f"[13b] main with transfer_format {fmt} (DETR-R50 bf16, batch 8), resumed after the one-hour session's "
+            f"Phase 1: {n} frames in {probe.chunks} chunks, {stats['total_detections']} detections, launches {counts}; "
+            f"phase seconds {phase_seconds(summary)}; main {secs:.3f} s (host clock) on {smi}")
+    check(written["i420"] == written["i420d"], "13b: main's detections.json differs between i420 and i420d")
+    log(f"[13b] main: detections.json of i420d equal to i420's byte for byte ({out['i420']['detections']} detections)")
+    return out
+
+
+# [13c]: the single-shot families at full width (ROADMAP A.7b, serving):
+# YOLOv8x (YOLOConfig(): variant x, person-only head) and the single-shot
+# detector (SingleShotConfig(): ResNet-50, FPN head 256), bf16, 736x1280,
+# batch 8, seeded random weights, the threshold chosen for 20-60 detections a
+# frame. float32 on the card against the CPU at batch 1: boxes 1e-3 px and
+# scores 1e-3 (the CPU sums the convolutions in another order).
+SINGLE_SHOT_TOL = {"boxes": 1e-3, "scores": 1e-3}
+
+
+def single_shot_config(model: str, device: str = "cuda", dtype: str = "bfloat16", **kw) -> dict:
+    """The detector's keys at full width. NMS at 0.9 IoU: the random model's
+    top boxes are near-equal neighbours, and the family's 0.45 keeps about 7
+    of them a frame, under the load's 20-60."""
+    return {"model": model, "model_size": "full", "dtype": dtype, "device": device, "batch_size": 8,
+            "input_height": 736, "input_width": 1280, "confidence_threshold": 0.0, "nms_threshold": 0.9} | kw
+
+
+#: The gain on YOLOv8x's seeded LeCun-normal kernels for the load: at 1.0 the
+#: activations shrink tenfold a stage (C5 out about 3e-5 at 128x160, float32),
+#: so every class logit is its prior bias and the scores tie; at 1.4 they stay
+#: of order 1 to 7 through the 22 modules on N(0, 1) pixels (at 1.7 they reach
+#: 1e5), though on a 720p frame the head's outputs spread by 20-90, where
+#: sigmoid and the DFL softmax saturate.
+YOLO_LOAD_GAIN = 1.4
+
+
+def yolo_load_weights(det, frames: np.ndarray, factors: list | None = None) -> list:
+    """The load of the seeded YOLOv8x (the analog of [11c]'s push of DETR's
+    class head): every kernel times YOLO_LOAD_GAIN, then each level's box and
+    class output convolution divided by the spread of its outputs less their
+    bias on ``frames`` (or by ``factors``, from another device's run), so the
+    scores and the DFL bins are of order 1. Returns the factors."""
+    from office_person_detection_vit_torch.ops.preprocessing import preprocess_frames
+
+    model = det.model
+    heads = [getattr(model.detect, f"{branch}_{l}_2") for l in range(model.detect.levels) for branch in ("cv2", "cv3")]
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, torch.nn.Conv2d):
+                mod.weight.mul_(YOLO_LOAD_GAIN)
+    if factors is None:
+        pixels, _ = preprocess_frames(torch.from_numpy(frames).to(det.device), target_hw=det.input_hw,
+                                      out_dtype=det.model_config.torch_dtype)
+        with torch.inference_mode():
+            levels = model(pixels)["levels"]
+        outs = [lv[key] for lv in levels for key in ("box_dist", "class_logits")]
+        factors = [(o - conv.bias.float()).std().item() for o, conv in zip(outs, heads)]
+    with torch.no_grad():
+        for conv, f in zip(heads, factors):
+            conv.weight.div_(f)
+    return factors
+
+
+def single_shot_card_vs_cpu(model: str, frame: np.ndarray) -> dict:
+    """The float32 detector on the card (TF32 off) against the same weights
+    on the CPU, one frame at threshold 0, then both at the threshold midway
+    between the CPU's 40th and 41st kept scores (so that no score sits on
+    it): the same number of detections, each of the CPU's within
+    SINGLE_SHOT_TOL of one of the card's (taken in the CPU's score order, so
+    that two near-equal scores that the two devices order the other way
+    still pair)."""
+    from office_person_detection_vit_torch.detection import build_detector
+
+    got, factors = {}, None
+    for device in ("cpu", "cuda"):  # the load's factors from the CPU's run, for both
+        det = build_detector({f"detection.{k}": v for k, v in single_shot_config(model, device, "float32").items()})
+        det.load_model()
+        if model == "yolo":
+            factors = yolo_load_weights(det, frame[None], factors)
+        t = time.perf_counter()
+        got[device] = det.detect_batch(frame[None])
+        got[f"{device}_s"] = time.perf_counter() - t
+        det.cleanup()
+    a, b = got["cuda"], got["cpu"]
+    kept = np.sort(b.scores[0][b.valid[0]])[::-1]
+    check(len(kept) > 41, f"13c {model}: the CPU kept {len(kept)} boxes at threshold 0")
+    thr = float(kept[39] + kept[40]) / 2
+    va, vb = a.valid[0] & (a.scores[0] >= thr), b.valid[0] & (b.scores[0] >= thr)
+    ba, sa, bb, sb = a.boxes_xywh[0][va], a.scores[0][va], b.boxes_xywh[0][vb], b.scores[0][vb]
+    check(len(ba) == len(bb) == 40, f"13c {model}: {len(ba)} detections on the card, {len(bb)} on the CPU")
+    free, d_boxes, d_scores = list(range(len(ba))), 0.0, 0.0
+    for i in np.argsort(-sb, kind="stable"):
+        fits = [j for j in free if abs(sa[j] - sb[i]) <= SINGLE_SHOT_TOL["scores"]
+                and np.abs(ba[j] - bb[i]).max() <= SINGLE_SHOT_TOL["boxes"]]
+        check(bool(fits), f"13c {model}: the CPU's detection {bb[i].tolist()} ({sb[i]:.6f}) has no card "
+              f"detection within {SINGLE_SHOT_TOL}")
+        j = min(fits, key=lambda j: np.abs(ba[j] - bb[i]).max())
+        free.remove(j)
+        d_boxes, d_scores = max(d_boxes, float(np.abs(ba[j] - bb[i]).max())), max(d_scores, float(abs(sa[j] - sb[i])))
+    return {"max_dboxes": d_boxes, "max_dscores": d_scores, "cpu_s": got["cpu_s"], "threshold": thr,
+            "detections": len(bb)}
+
+
+def ultralytics_route(frames: np.ndarray, tmp: Path) -> dict:
+    """An ultralytics-layout YOLOv8x state_dict (tests/helpers/torch_yolov8.py,
+    seeded weights and BN statistics) saved as ``.pt`` and loaded by the
+    port's YOLODetector on the card; its raw outputs against the
+    ultralytics-layout model's own forward on the card, float32, TF32 off."""
+    from office_person_detection_vit_torch.detection import YOLODetector
+    from office_person_detection_vit_torch.models.yolo import VARIANTS
+    from office_person_detection_vit_torch.ops.preprocessing import preprocess_frames
+
+    spec = importlib.util.spec_from_file_location("torch_yolov8", ROOT / "tests" / "helpers" / "torch_yolov8.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    tm = mod.DetectionModel(VARIANTS["x"], nc=1)
+    g = torch.Generator().manual_seed(13)
+    with torch.no_grad():  # the load's kernels (a fixed 0.05 overflows 100 layers deep), small biases
+        for name, p in tm.named_parameters():
+            if "dfl" not in name:
+                std = YOLO_LOAD_GAIN / math.sqrt(p[0].numel()) if p.dim() == 4 else 0.05
+                p.copy_(torch.randn(p.shape, generator=g) * std)
+    mod.randomize_bn_stats(tm, 14)
+    tm.eval()
+    path = tmp / "best.pt"
+    torch.save(tm.state_dict(), path)
+    det = YOLODetector({f"detection.{k}": v for k, v in single_shot_config("yolo", dtype="float32").items()}
+                       | {"detection.checkpoint_path": str(path)})
+    det.load_model()
+    batch = det.detect_batch(frames[:1])
+    pixels, _ = preprocess_frames(torch.from_numpy(frames[:1]).cuda(), target_hw=(736, 1280))
+    tm = tm.cuda()
+    with torch.inference_mode():
+        levels = det.model(pixels)["levels"]
+        ref = tm(pixels.permute(0, 3, 1, 2).contiguous())
+    err, spread = 0.0, 0.0
+    for lv, (box, cls) in zip(levels, ref):
+        for got, want in ((lv["box_dist"], box.permute(0, 2, 3, 1)), (lv["class_logits"], cls.permute(0, 2, 3, 1))):
+            err = max(err, ((got - want).abs() / want.abs().clamp(min=1.0)).max().item())
+            spread = max(spread, want.std().item())
+    check(err <= 1e-3 and spread > 1e-2 and batch.boxes_xywh.shape == (1, 100, 4),
+          f"13c: the ultralytics .pt route on the card: raw outputs {err:.2e} from the ultralytics-layout model "
+          f"(their spread {spread:.2e})")
+    det.cleanup()
+    del tm, det
+    torch.cuda.empty_cache()
+    return {"rel_err": err, "output_spread": spread}
+
+
+def single_shot_phase(ka, probe, smi: str, frames: np.ndarray, videos: Path, tmp: Path) -> dict:
+    """[13c]: YOLOv8x and the single-shot detector through detect_batch at
+    full width (frames/s, median of 3; no attention kernel launched), each
+    float32 on the card against the CPU, the ultralytics ``.pt`` route on the
+    card, and ``main`` with ``detection.model: yolo`` on the one-hour video."""
+    from office_person_detection_vit_torch.detection import build_detector
+    from office_person_detection_vit_torch.models.weights import save_flat_npz
+
+    t0 = time.perf_counter()
+    out = {}
+    for model in ("yolo", "ssd"):
+        det = build_detector({f"detection.{k}": v for k, v in single_shot_config(model).items()})
+        det.load_model()
+        if model == "yolo":
+            yolo_load_weights(det, frames[:8])
+        zero = det.detect_batch(frames[:16])  # warm-up at threshold 0
+        threshold = load_threshold([s[v] for s, v in zip(zero.scores, zero.valid)])
+        det.confidence_threshold = threshold
+        torch.cuda.synchronize()
+        ka.reset_launch_counts()
+        batch = det.detect_batch(frames[:16])
+        counts = dict(ka.launch_counts)
+        per_frame = batch.valid.sum(1)
+        check(det.last_failed_chunks == 0 and batch.boxes_xywh.shape == (16, 100, 4)
+              and all(np.isfinite(a).all() for a in (batch.boxes_xywh, batch.scores, batch.foot)),
+              f"13c {model}: detect failed or gave non-finite detections")
+        check(counts == launches(), f"13c {model}: launched attention kernels {counts}")
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            det.detect_batch(frames[:16])
+            times.append(time.perf_counter() - t)
+        fps = sorted(16 / t for t in times)
+        params = sum(p.numel() for p in det.model.parameters())
+        out[model] = {"fps_median": fps[1], "fps": fps, "threshold": threshold, "params": params,
+                      "detections_per_frame": [int(per_frame.min()), float(per_frame.mean()), int(per_frame.max())]}
+        log(f"[13c] {type(det).__name__} ({params / 1e6:.2f} M parameters) bf16 736x1280 batch 8: {fps[-1]:.2f} "
+            f"frames/s best, {fps[1]:.2f} median, {fps[0]:.2f} worst (3 runs x 16 frames, host clock, uint8 frames in, "
+            f"DetectionBatch out); detections a frame min/mean/max {out[model]['detections_per_frame']} at threshold "
+            f"{threshold:.6f}; no attention kernel launched on {smi}")
+        if model == "yolo":
+            weights = tmp / "yolov8x_seeded.npz"
+            save_flat_npz(weights, det.model.state_dict(), det.model_config)
+            out[model]["weights"], out[model]["threshold"] = weights, threshold
+        det.cleanup()
+        del det
+        torch.cuda.empty_cache()
+        # a noise frame: the rendered ones' flat regions give many cells the same score to the bit
+        noise = np.random.default_rng(13).integers(0, 256, frames[0].shape, np.uint8)
+        out[model]["float32"] = single_shot_card_vs_cpu(model, noise)
+        f32 = out[model]["float32"]
+        log(f"[13c] {model} float32 at 736x1280, batch 1, on the card vs the CPU ({f32['cpu_s']:.1f} s): "
+            f"{f32['detections']} detections each at threshold {f32['threshold']:.6f}, paired within max|dboxes| "
+            f"{f32['max_dboxes']:.2e} px, max|dscores| {f32['max_dscores']:.2e} (bars {SINGLE_SHOT_TOL})")
+        torch.cuda.empty_cache()
+    out["ultralytics"] = ultralytics_route(frames, tmp)
+    log(f"[13c] the ultralytics .pt route (YOLOv8x state_dict, BN folded with eps 1e-3) on the card: raw outputs "
+        f"within {out['ultralytics']['rel_err']:.2e} of the ultralytics-layout model's, relative to max(1,|ref|) "
+        f"(outputs spread by up to {out['ultralytics']['output_spread']:.2e})")
+    n = 13
+    detection = single_shot_config("yolo", checkpoint_path=str(out["yolo"].pop("weights")),
+                                   confidence_threshold=out["yolo"]["threshold"])
+    cfg = flow_config(videos / "hour.mp4", tmp / "yolo_out", detection, np.eye(3), hour_zones())
+    rc, main_counts, secs, session = run_main(ka, probe, cfg, tmp / "yolo.yaml")
+    check(rc == 0, f"13c: main with detection.model yolo exited {rc}")
+    summary = check_session(session, list(HOUR_QUADS), n, "13c", stats_keys=STATISTICS_KEYS - {"transfer_format"})
+    check(sum(probe.failed_chunks) == 0 and probe.chunks == 2 and main_counts == launches(),
+          f"13c: main: {sum(probe.failed_chunks)} chunks raised of {probe.chunks}; launched {main_counts}")
+    stats = json.loads((session / "02_detection" / "detection_statistics.json").read_text())
+    out["main"] = {"detections": stats["total_detections"], "seconds": secs, "performance": summary["performance"],
+                   "session": session}
+    log(f"[13c] main with detection.model yolo (YOLOv8x, bf16, batch 8) on the one-hour video: {n} frames in "
+        f"{probe.chunks} chunks, {stats['total_detections']} detections; phase seconds {phase_seconds(summary)}; main "
+        f"{secs:.3f} s (host clock) on {smi}")
+    log(f"[13c] phase {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def detector_slice(ka, build, probe, smi: str, frames: np.ndarray, day_frames: list, videos: Path,
+                   samples: list) -> dict:
+    """Phase 13: head dims up to 128, the upload routes, the single-shot
+    families."""
+    t = time.perf_counter()
+    d128 = d128_phase(ka, build, smi, frames, samples)
+    with tempfile.TemporaryDirectory() as tmp:
+        routes = transfer_phase(ka, smi, day_frames, Path(tmp))
+        single = single_shot_phase(ka, probe, smi, frames, videos, Path(tmp))
+        routes["main"] = route_mains(ka, probe, smi, single["main"].pop("session"), videos, Path(tmp),
+                                     routes.pop("weights"), routes["threshold"])
+    log(f"[13] detector phase {time.perf_counter() - t:.1f} s")
+    return {"d128": d128, "routes": routes, "single_shot": single}
+
+
+def d128_kernel_rows(res: dict) -> list:
+    """The kernels line's rows of the head-dim-128 bodies, each at the shape
+    of the path its launches come from: K2 at the ViT-H-width DETR's detect,
+    K1 at its float32 forward, B.4 and its backward pair at its training
+    shape VITH_TRAIN beside their launches in that model's 8 steps."""
+    src = "office_person_detection_vit_torch/csrc/attention.cu"
+    d128 = res["d128"]
+    k2 = d128["forward"][D128_KERNEL_CASES[0][:3]]
+    k1 = d128["forward"][D128_KERNEL_CASES[2][:3]]
+    b4 = d128["b4_path"]
+    train_path = "ViT-H/16-width DETR (4 of 32 layers) bf16 training at 768x1344, batch 8, 8 steps, phase 13a"
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape", "dtype")
+    return [
+        {"name": "attention_flash_d128", "route": "cuda", "source": src,
+         "replaces": "office_person_detection_vit_tpu/ops/attention.py:159",
+         "launches": d128["k2_d128"],
+         "launches_on": "ViT-H/16-width DETR (4 of 32 layers) bf16 through detect_batch at 736x1280, 16 frames, "
+                        "phase 13a", **{k: k2[k] for k in keys + ("instruction",)}},
+        {"name": "attention_whole_kv_d128", "route": "cuda", "source": src,
+         "replaces": "office_person_detection_vit_tpu/ops/attention.py:60", "launches": d128["k1_d128"],
+         "launches_on": "ViT-H/16-width DETR float32 forward at 224x224 on the card, phase 13a",
+         **{k: k1[k] for k in keys + ("instruction",)}},
+        {"name": "attention_diff_d128", "route": "cuda", "source": src,
+         "function": "office_person_detection_vit_torch/ops/attention.py KernelAttention",
+         "replaces": "office_person_detection_vit_tpu/ops/attention.py:306",
+         "launches": d128["train_d128"]["attention_diff"], "launches_on": train_path,
+         **{k: b4[k] for k in keys + ("forward_ms", "backward_ms")}},
+        {"name": "attention_backward_d128", "route": "cuda", "source": src,
+         "replaces": "office_person_detection_vit_tpu/ops/attention.py:322",
+         "launches": d128["train_d128"]["attention_backward"], "launches_on": train_path,
+         "max_abs_err": b4["max_abs_err"], "ms": b4["pair_ms"], "plain_ms": b4["plain_backward_ms"],
+         "bound_ms": b4["backward_bound_ms"], "bound_by": b4["backward_bound_by"],
+         "library_ms": b4["library_backward_ms"], "shape": b4["shape"], "dtype": b4["dtype"]},
+    ]
+
+
+def detector_phase_alone() -> int:
+    """``--phase 13``: the build and phase 13 with its own one-hour video and
+    training images (child processes) and [8a]'s 288 frames."""
+    from office_person_detection_vit_torch import train_detr
+    from office_person_detection_vit_torch.kernels import attention as ka
+    from office_person_detection_vit_torch.kernels import build
+
+    smi = card_line()
+    log(f"[1] card: {smi}")
+    with tempfile.TemporaryDirectory() as videos, tempfile.TemporaryDirectory() as data:
+        code = f"import sys; sys.path.insert(0, {str(ROOT)!r}); import chip_smoke; chip_smoke.write_hour_video({videos!r})"
+        children = [subprocess.Popen([sys.executable, "-c", code], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                     text=True), start_dataset_writer(Path(data))]
+        try:
+            ka.load_library()
+            render_frame = load_render_frame()
+            t0 = datetime(2025, 1, 20, 9, 0, 0)
+            frames = np.stack([render_frame(t0 + timedelta(minutes=5 * i),
+                                            people=[(300 + 20 * i, 300, 0), (800 - 15 * i, 360, 1)], seed=i)
+                               for i in range(16)])
+            day_frames, _ = slice_frames(render_frame, t0)
+            for child in children:
+                out, _ = child.communicate(timeout=600)
+                check(child.returncode == 0, f"13: a writer exited {child.returncode}: {out[-2000:]}")
+            samples = train_detr.load_coco_dataset(Path(data) / "train" / "images", Path(data) / "train" / "coco.json")
+            res = detector_slice(ka, build, FlowProbe(), smi, frames, day_frames, Path(videos), samples)
+        finally:
+            for child in children:
+                if child.poll() is None:
+                    child.kill()
+                    child.wait()
+    print(json.dumps({"kernels": d128_kernel_rows(res)}, default=str), flush=True)
+    print(json.dumps({"routes": res["routes"], "single_shot": res["single_shot"]}, default=str), flush=True)
+    return 0
+
+
 def write_hour_video(out_dir: str) -> None:
     """Phase 12's one-hour video alone (``--phase 12``), in a child process."""
     spec = importlib.util.spec_from_file_location("synthetic_video", ROOT / "tests" / "helpers" / "synthetic_video.py")
@@ -2505,7 +3108,7 @@ def main(argv=None) -> int:
     import argparse
 
     parser = argparse.ArgumentParser(description="Chip smoke test of the PyTorch/CUDA port.")
-    parser.add_argument("--phase", choices=["10a", "11", "12"], help="run only this phase (after the build) and "
+    parser.add_argument("--phase", choices=["10a", "11", "12", "13"], help="run only this phase (after the build) and "
                         "print its rows")
     parser.add_argument("--showcase-session", type=Path, default=None,
                         help="[11b]: resume this directory's session/ (a showcase session made elsewhere, its "
@@ -2536,6 +3139,8 @@ def main(argv=None) -> int:
         return 0
     if args.phase == "12":
         return vit_phase_alone()
+    if args.phase == "13":
+        return detector_phase_alone()
     with tempfile.TemporaryDirectory() as videos, tempfile.TemporaryDirectory() as data:
         writer = start_video_writer(Path(videos))  # phase 9's videos, written while phases 1-8 run
         dataset_writer = start_dataset_writer(Path(data))  # phase 10's images
@@ -2759,6 +3364,12 @@ def run(writer: subprocess.Popen, videos: Path, dataset_writer: subprocess.Popen
     # ---- 12. the ViT slice on the card
     vit = vit_slice(ka, build, probe, smi, frames[:16], videos, data)
 
+    # ---- 13. head dims up to 128, the upload routes, YOLOv8 and the single-shot detector
+    from office_person_detection_vit_torch.train_detr import load_coco_dataset
+
+    samples = load_coco_dataset(data / "train" / "images", data / "train" / "coco.json")
+    detectors = detector_slice(ka, build, probe, smi, frames[:16], day_frames, videos, samples)
+
     # ---- result
     replaces = {"attention_whole_kv": "office_person_detection_vit_tpu/ops/attention.py:60",
                 "attention_flash": "office_person_detection_vit_tpu/ops/attention.py:159"}
@@ -2771,7 +3382,7 @@ def run(writer: subprocess.Popen, videos: Path, dataset_writer: subprocess.Popen
                                "DETR-small float32 through main on the card, 13 frames, phase 9b"),
         "attention_flash": (("attention_flash", (8, 8, 920, 920, 32), "bfloat16"), day_counts,
                             f"DETR-R50 bf16 through main over a {DAY_HOURS}-hour video, {DAY_HOURS * 12 + 1} frames, "
-                            "phase 9a (the main path)"),
+                            "transfer_format auto (its race included), phase 9a (the main path)"),
     }
     other_paths = {"attention_whole_kv": {"phase 5 DETR-small detect": small_counts["attention_whole_kv"],
                                           "phase 8b DETR-small through phases 2-4": trained_counts["attention_whole_kv"],
@@ -2826,6 +3437,7 @@ def run(writer: subprocess.Popen, videos: Path, dataset_writer: subprocess.Popen
         "instruction": "mma.sync.m16n8k16 (bf16); FFMA (float32)",
     })
     kernels += vit_kernel_rows(vit)
+    kernels += d128_kernel_rows(detectors)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

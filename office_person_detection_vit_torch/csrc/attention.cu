@@ -44,13 +44,15 @@
 //    16-byte chunks are XOR-swizzled by row, so the eight rows an ldmatrix
 //    phase reads fall in eight different bank groups: a bf16 row is 32 B at
 //    D = 16 (four rows to a 128-B line, the chunk XORed with bit 2 of the
-//    row), 64 B at D = 32 (two rows to a line, XORed with bits 1-2) and
+//    row), 64 B at D = 32 (two rows to a line, XORed with bits 1-2),
 //    128 B at D = 64 (a row a line, its eight chunks XORed with the row's
-//    low three bits). Rows past Lk are zero-filled by the copy, so no
-//    garbage reaches a product.
-//  * Head dims 16, 32 and 64 are instantiated; kernels/attention.py pads any
-//    other D <= 64 with zero columns up to the next of them and passes the
-//    true scale 1/sqrt(D), which every entry point takes as an argument.
+//    low three bits) and 256 B at D = 128 (a row two lines, each chunk's
+//    low three bits XORed with the row's). Rows past Lk are zero-filled by
+//    the copy, so no garbage reaches a product.
+//  * Head dims 16, 32, 64 and 128 are instantiated; kernels/attention.py
+//    pads any other D <= 128 with zero columns up to the next of them and
+//    passes the true scale 1/sqrt(D), which every entry point takes as an
+//    argument.
 //  * The mask becomes a float bias per key in shared memory (0 valid, -inf
 //    not), read once per batch entry by each block; s = acc * scale + bias.
 //    Ragged Lq and Lk are masked in the kernel; nothing is padded outside.
@@ -73,13 +75,20 @@
 //    at D = 64 it holds 49,920 B, over the 48 KB a static array may take.
 //    At D = 64 a thread keeps twice the Q fragments and output accumulators,
 //    so K2 asks for 3 blocks an SM (170 registers a thread) instead of 4
-//    (128), and the backward pair for 2 (255) instead of 3 (170).
+//    (128), and the backward pair for 2 (255) instead of 3 (170). At D = 128
+//    K2 asks for 2 (a 99,072 B ring each) and K1 takes at most 8 warps a
+//    block (255 registers a thread instead of 128).
 //
 // float32 keeps the CUDA-core body (four threads per query row, float32 FMAs,
 // 64-row blocks): TF32 tensor cores would break its 1e-5 tolerance and the
 // whole-model float32 bar, and at the encoder shape K2 in float32 already ran
 // level with SDPA in float32 (0.4890 against 0.4934 ms, NVIDIA H100 80GB
-// HBM3, 700.00 W, chip_smoke.py phase 2).
+// HBM3, 700.00 W, chip_smoke.py phase 2). Up to D = 64 a row's four threads
+// split its keys and each keeps the whole row of q and of the output; at
+// D = 128 that is 256 floats a thread, so the *_slice bodies split the head
+// dim instead (each thread a quarter of q and of the output, the quad
+// summing each dot product with two shuffles), and stage K/V in dynamic
+// shared memory (64 KB a tile, over the 48 KB a static array may take).
 //
 // A batch entry whose keys are all masked gives mean(V) over its Lk keys, as
 // the plain version (attention_reference) does: all keys count as valid with
@@ -121,9 +130,11 @@ template <int D> struct Layout {
   static constexpr int kChunks = D / kVec;            // chunks per row
   static constexpr int kRowsPerLine = D * 4 >= 128 ? 1 : 128 / (D * 4);
   static constexpr int kSwizzle = kChunks < 4 ? kChunks : 4;
-  // Physical chunk of logical chunk c in row j.
+  // Physical chunk of logical chunk c in row j. At D = 128 the quarter c / 8
+  // (the slice of one of a row's four threads, which read one row together)
+  // adds to the XOR, so the four read four different bank groups.
   __device__ __forceinline__ static int chunk(int j, int c) {
-    return c ^ ((j / kRowsPerLine) % kSwizzle);
+    return c ^ ((j / kRowsPerLine + (D > 64 ? c / 8 : 0)) % kSwizzle);
   }
 };
 
@@ -362,7 +373,9 @@ attention_flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // ===================================================== bf16 (tensor cores)
 constexpr int kWarpRows = 16;          // query rows per warp (one m16 tile)
 constexpr int kTileKeys = 64;          // keys per score tile
-constexpr int kWholeKvMaxWarps = 16;   // K1: at most 256 query rows a block (launch bounds)
+// K1: at most 256 query rows a block (launch bounds); 128 at D = 128, where
+// a thread needs more than the 128 registers 16 warps leave it.
+constexpr int whole_kv_max_warps(int D) { return D <= 64 ? 16 : 8; }
 constexpr int kFlashWarps = 4;         // K2: 64 query rows a block
 constexpr int kFlashStages = 3;        // K2: tiles in the shared-memory ring
 
@@ -377,12 +390,13 @@ __device__ __forceinline__ float ex2(float x) {  // 2^x; 2^-inf = 0
 
 // bf16 rows of D values in shared memory, 16-byte chunks XOR-swizzled by row.
 template <int D> struct Rows {
-  static_assert(D == 16 || D == 32 || D == 64, "head dim 16, 32 or 64");
+  static_assert(D == 16 || D == 32 || D == 64 || D == 128, "head dim 16, 32, 64 or 128");
   static constexpr int kBytes = 2 * D;
   static constexpr int kChunks = D / 8;
-  static constexpr int kPerLine = 128 / kBytes;
+  static constexpr int kPerLine = kBytes >= 128 ? 1 : 128 / kBytes;
+  static constexpr int kSwizzle = kChunks < 8 ? kChunks : 8;  // 16-byte chunks in a 128-B line
   __device__ __forceinline__ static uint32_t offset(int r, int c) {
-    return r * kBytes + ((c ^ ((r / kPerLine) % kChunks)) << 4);
+    return r * kBytes + ((c ^ ((r / kPerLine) % kSwizzle)) << 4);
   }
 };
 
@@ -417,19 +431,19 @@ __device__ __forceinline__ void load_q(const bf16* q_bh, int row0, int Lq,
   }
 }
 
-// s = A B^T for the warp's 16 rows of A (fragments a, D deep) and the 64
-// rows from row0 of the swizzled rows at sb. s[n] is the m16n8 accumulator
-// of B rows row0 + 8n .. + 7: s[n][0..1] A row g, B rows 2t, 2t+1; s[n][2..3]
-// A row g + 8.
-template <int D>
+// s = A B^T for the warp's 16 rows of A (fragments a, D deep) and the 8N
+// rows (64 by default) from row0 of the swizzled rows at sb. s[n] is the
+// m16n8 accumulator of B rows row0 + 8n .. + 7: s[n][0..1] A row g, B rows
+// 2t, 2t+1; s[n][2..3] A row g + 8.
+template <int D, int N = 8>
 __device__ __forceinline__ void product_tile(const uint32_t (&a)[D / 16][4], uint32_t sb, int row0,
-                                             float (&s)[8][4]) {
+                                             float (&s)[N][4]) {
   const int lane = threadIdx.x % 32;
 #pragma unroll
-  for (int n = 0; n < 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-  // 8 row groups x D/8 chunks = D 8x8 matrices, four per ldmatrix.
+  for (int n = 0; n < N; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+  // N row groups x D/8 chunks = N D / 8 8x8 matrices, four per ldmatrix.
 #pragma unroll
-  for (int c = 0; c < D / 4; ++c) {
+  for (int c = 0; c < N * D / 32; ++c) {
     const int m = 4 * c + lane / 8;
     uint32_t b[4];
     ldsm_x4(sb + Rows<D>::offset(row0 + 8 * (m / (D / 8)) + lane % 8, m % (D / 8)), b);
@@ -441,16 +455,16 @@ __device__ __forceinline__ void product_tile(const uint32_t (&a)[D / 16][4], uin
   }
 }
 
-// s = (Q K^T) * scale + bias for the 64 keys from key0 of the swizzled rows at
-// sk, in product_tile's layout (B rows = keys).
-template <int D>
+// s = (Q K^T) * scale + bias for the 8N keys from key0 of the swizzled rows
+// at sk, in product_tile's layout (B rows = keys).
+template <int D, int N = 8>
 __device__ __forceinline__ void score_tile(const uint32_t (&qa)[D / 16][4], uint32_t sk,
                                            const float* bias, int key0, float scale,
-                                           float (&s)[8][4]) {
-  product_tile<D>(qa, sk, key0, s);
+                                           float (&s)[N][4]) {
+  product_tile<D, N>(qa, sk, key0, s);
   const int t = threadIdx.x % 4;
 #pragma unroll
-  for (int n = 0; n < 8; ++n) {
+  for (int n = 0; n < N; ++n) {
     const float2 bb = *reinterpret_cast<const float2*>(bias + key0 + 8 * n + 2 * t);
     s[n][0] = fmaf(s[n][0], scale, bb.x);
     s[n][1] = fmaf(s[n][1], scale, bb.y);
@@ -459,31 +473,34 @@ __device__ __forceinline__ void score_tile(const uint32_t (&qa)[D / 16][4], uint
   }
 }
 
-// o += P V for the 64 keys from key0 of the swizzled rows at sv; pa[kk] is
-// the A fragment of keys key0 + 16kk .. + 15.
-template <int D>
-__device__ __forceinline__ void pv_tile(const uint32_t (&pa)[4][4], uint32_t sv, int key0,
-                                        float (&o)[D / 8][4]) {
+// o += P V for the 16KK keys (64 by default) from key0 of the swizzled rows
+// at sv, over the DO columns (all D by default) from column chunk c0 (8
+// columns a chunk); pa[kk] is the A fragment of keys key0 + 16kk .. + 15.
+template <int D, int KK = 4, int DO = D>
+__device__ __forceinline__ void pv_tile(const uint32_t (&pa)[KK][4], uint32_t sv, int key0,
+                                        float (&o)[DO / 8][4], int c0 = 0) {
   const int lane = threadIdx.x % 32;
-  // 4 key steps x D/8 column groups x 2 key halves = D matrices.
+  // KK key steps x DO/8 column groups x 2 key halves = KK DO / 4 matrices.
 #pragma unroll
-  for (int c = 0; c < D / 4; ++c) {
+  for (int c = 0; c < KK * DO / 16; ++c) {
     const int m = 4 * c + lane / 8;
-    const int half = m % 2, dn = (m / 2) % (D / 8), kk = m / (D / 4);
+    const int half = m % 2, dn = (m / 2) % (DO / 8), kk = m / (DO / 4);
     uint32_t b[4];
-    ldsm_x4_trans(sv + Rows<D>::offset(key0 + 16 * kk + 8 * half + lane % 8, dn), b);
+    ldsm_x4_trans(sv + Rows<D>::offset(key0 + 16 * kk + 8 * half + lane % 8, c0 + dn), b);
 #pragma unroll
     for (int i = 0; i < 4; i += 2) {
       const int mi = 4 * c + i;  // both key halves of one column group
-      mma_bf16(o[(mi / 2) % (D / 8)], pa[mi / (D / 4)], b[i], b[i + 1]);
+      mma_bf16(o[(mi / 2) % (DO / 8)], pa[mi / (DO / 4)], b[i], b[i + 1]);
     }
   }
 }
 
-// Round p (a score tile's layout) to bf16 and repack it as P.V's A fragments.
-__device__ __forceinline__ void pack_p(const float (&p)[8][4], uint32_t (&pa)[4][4]) {
+// Round p (a score tile's layout, 8N keys) to bf16 and repack it as P.V's A
+// fragments.
+template <int N = 8>
+__device__ __forceinline__ void pack_p(const float (&p)[N][4], uint32_t (&pa)[N / 2][4]) {
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
+  for (int kk = 0; kk < N / 2; ++kk) {
     pa[kk][0] = pack_bf16(p[2 * kk][0], p[2 * kk][1]);
     pa[kk][1] = pack_bf16(p[2 * kk][2], p[2 * kk][3]);
     pa[kk][2] = pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]);
@@ -511,18 +528,19 @@ __device__ __forceinline__ void tile_max(const float (&s)[8][4], float (&mx)[2])
   }
 }
 
-// Write the warp's 16 output rows (o times inv per row) as bf16.
-template <int D>
-__device__ __forceinline__ void store_o(const float (&o)[D / 8][4], const float (&inv)[2],
-                                        bf16* o_bh, int row0, int Lq) {
+// Write the warp's 16 output rows (o times inv per row) as bf16: the DO
+// columns (all D by default) from column col0 of rows D wide.
+template <int D, int DO = D>
+__device__ __forceinline__ void store_o(const float (&o)[DO / 8][4], const float (&inv)[2],
+                                        bf16* o_bh, int row0, int Lq, int col0 = 0) {
   const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = row0 + g + 8 * r;
     if (row >= Lq) continue;
-    uint32_t* dst = reinterpret_cast<uint32_t*>(o_bh + (size_t)row * D);
+    uint32_t* dst = reinterpret_cast<uint32_t*>(o_bh + (size_t)row * D + col0);
 #pragma unroll
-    for (int dn = 0; dn < D / 8; ++dn)
+    for (int dn = 0; dn < DO / 8; ++dn)
       dst[4 * dn + t] = pack_bf16(o[dn][2 * r] * inv[r], o[dn][2 * r + 1] * inv[r]);
   }
 }
@@ -562,7 +580,7 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
 
 // ------------------------------------------------------------------- K1, bf16
 template <int D>
-__global__ void __launch_bounds__(kWholeKvMaxWarps * 32)
+__global__ void __launch_bounds__(whole_kv_max_warps(D) * 32)
 attention_whole_kv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
                        const bf16* __restrict__ v, const uint8_t* __restrict__ mask,
                        bf16* __restrict__ out, int H, int Lq, int Lk, float scale_log2) {
@@ -644,7 +662,7 @@ attention_whole_kv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 // ------------------------------------------------------------------- K2, bf16
 template <int D>
-__global__ void __launch_bounds__(kFlashWarps * 32, D <= 32 ? 4 : 3)
+__global__ void __launch_bounds__(kFlashWarps * 32, D <= 32 ? 4 : D <= 64 ? 3 : 2)
 attention_flash_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, const uint8_t* __restrict__ mask,
                     bf16* __restrict__ out, float* __restrict__ lse, int H, int Lq, int Lk,
@@ -775,6 +793,15 @@ attention_flash_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // S^T = K Q^T, so that P^T comes out in the layout pack_p turns into an A
 // operand. float32 keeps a CUDA-core body, four threads a row as the
 // forwards' float32 bodies.
+//
+// At D = 128 a warp's two A operands are 64 registers and the dK/dV
+// accumulators 128, over the 255 a thread may hold. So each bf16 kernel of
+// the pair runs as Backward<D>::kHalves = 2 blocks for each tile (grid z),
+// each accumulating one half of the head dim of its outputs, and walks a
+// ring tile in kSub = 32-row steps, half the score and dP tiles, one step at
+// a time (unrolled, ptxas keeps two steps' operands live and spills 8-24 B
+// a thread; one at a time the pair takes 214 / 240 registers, no spill). S
+// and dP are computed in full by both halves: 4 of the 7 products twice.
 
 static_assert(kRows == kFlashWarps * kWarpRows && kRows == kTileKeys && kRows == kFlashKeys,
               "the backward's row and key tiles are 64 in both types");
@@ -783,6 +810,14 @@ static_assert(kRows == kFlashWarps * kWarpRows && kRows == kTileKeys && kRows ==
 __device__ __forceinline__ float2 unpack_bf16(uint32_t x) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&x));
 }
+
+// How the bf16 pair splits its work at head dim D (see above).
+template <int D> struct Backward {
+  static constexpr int kHalves = D > 64 ? 2 : 1;  // blocks a tile (grid z), each DO output columns
+  static constexpr int DO = D / kHalves;
+  static constexpr int kSub = D > 64 ? 32 : 64;  // rows of a ring tile a step takes (one step, not unrolled)
+  static constexpr int N = kSub / 8;             // score tile: N m16n8 accumulators
+};
 
 // ------------------------------------------------------------------ dQ, bf16
 template <int D>
@@ -847,14 +882,16 @@ attention_bwd_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
       const int row = row0 + quad_row + 8 * r;
       dsum[r] = quad_sum(part[r]);
       lse2[r] = row < Lq ? lse[(size_t)bh * Lq + row] * kLog2e : INFINITY;
-      if (tid % 4 == 0) {
+      if (tid % 4 == 0 && blockIdx.z == 0) {
         lse2_pad[(size_t)bh * Lq_pad + row] = lse2[r];
         dsum_pad[(size_t)bh * Lq_pad + row] = dsum[r];
       }
     }
   }
 
-  float o[D / 8][4] = {};
+  using W = Backward<D>;
+  constexpr int N = W::N;
+  float o[W::DO / 8][4] = {};
   for (int t = 0; t < tiles; ++t) {
     cp_async_wait<kFlashStages - 2>();  // tile t has landed
     __syncthreads();                    // ... for every thread; tile t - 1's slot is free
@@ -865,23 +902,26 @@ attention_bwd_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
     if (live) {
       const int slot = t % kFlashStages;
-      float s[8][4], dp[8][4];
-      score_tile<D>(qa, R::a(ring, slot), ring_bias(slot), 0, scale_p, s);
-      product_tile<D>(ga, R::b(ring, slot), 0, dp);
+#pragma unroll 1
+      for (int kb = 0; kb < kTileKeys; kb += W::kSub) {
+        float s[N][4], dp[N][4];
+        score_tile<D, N>(qa, R::a(ring, slot), ring_bias(slot), kb, scale_p, s);
+        product_tile<D, N>(ga, R::b(ring, slot), kb, dp);
 #pragma unroll
-      for (int n = 0; n < 8; ++n)
+        for (int n = 0; n < N; ++n)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) s[n][e] = ex2(s[n][e] - lse2[e / 2]) * (dp[n][e] - dsum[e / 2]);
-      uint32_t da[4][4];
-      pack_p(s, da);
-      pv_tile<D>(da, R::a(ring, slot), 0, o);  // dQ += dS K
+          for (int e = 0; e < 4; ++e) s[n][e] = ex2(s[n][e] - lse2[e / 2]) * (dp[n][e] - dsum[e / 2]);
+        uint32_t da[N / 2][4];
+        pack_p<N>(s, da);
+        pv_tile<D, N / 2, W::DO>(da, R::a(ring, slot), kb, o, blockIdx.z * W::DO / 8);  // dQ += dS K
+      }
     }
     if (tid < kTileKeys) ring_bias(next % kFlashStages)[tid] = next_bias;
   }
   cp_async_wait<0>();
   if (!live) return;
   const float sc[2] = {scale, scale};
-  store_o<D>(o, sc, dq + q_off, row0, Lq);
+  store_o<D, W::DO>(o, sc, dq + q_off, row0, Lq, blockIdx.z * W::DO);
 }
 
 // ---------------------------------------------------------------- dK/dV, bf16
@@ -935,7 +975,10 @@ attention_bwd_dkdv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const float kbias[2] = {key_bias(mask_b, key0 + quad_row, Lk, all_masked),
                           key_bias(mask_b, key0 + quad_row + 8, Lk, all_masked)};
 
-  float dk_acc[D / 8][4] = {}, dv_acc[D / 8][4] = {};
+  using W = Backward<D>;
+  constexpr int N = W::N;
+  const int c0 = blockIdx.z * W::DO / 8;  // this block's first output column chunk
+  float dk_acc[W::DO / 8][4] = {}, dv_acc[W::DO / 8][4] = {};
   for (int t = 0; t < tiles; ++t) {
     cp_async_wait<kFlashStages - 2>();  // tile t has landed
     __syncthreads();                    // ... for every thread; tile t - 1's slot is free
@@ -943,31 +986,34 @@ attention_bwd_dkdv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
     if (live) {
       const int slot = t % kFlashStages;
       const uint32_t sq = R::a(ring, slot), sg = R::b(ring, slot);
-      float p[8][4], ds[8][4];
-      product_tile<D>(ka, sq, 0, p);   // S^T (unscaled): the warp's keys x the tile's queries
-      product_tile<D>(va, sg, 0, ds);  // dP^T = V g^T
+#pragma unroll 1
+      for (int qb = 0; qb < kTileKeys; qb += W::kSub) {
+        float p[N][4], ds[N][4];
+        product_tile<D, N>(ka, sq, qb, p);   // S^T (unscaled): the warp's keys x the step's queries
+        product_tile<D, N>(va, sg, qb, ds);  // dP^T = V g^T
 #pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        const float2 l2 = *reinterpret_cast<const float2*>(ring_lse2(slot) + 8 * n + 2 * t4);
-        const float2 dd = *reinterpret_cast<const float2*>(ring_dsum(slot) + 8 * n + 2 * t4);
+        for (int n = 0; n < N; ++n) {
+          const float2 l2 = *reinterpret_cast<const float2*>(ring_lse2(slot) + qb + 8 * n + 2 * t4);
+          const float2 dd = *reinterpret_cast<const float2*>(ring_dsum(slot) + qb + 8 * n + 2 * t4);
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {  // e % 2: query 2 t4 + e % 2; e / 2: key row g or g + 8
-          p[n][e] = ex2(fmaf(p[n][e], scale_p, kbias[e / 2]) - (e % 2 ? l2.y : l2.x));
-          ds[n][e] = p[n][e] * (ds[n][e] - (e % 2 ? dd.y : dd.x));
+          for (int e = 0; e < 4; ++e) {  // e % 2: query 2 t4 + e % 2; e / 2: key row g or g + 8
+            p[n][e] = ex2(fmaf(p[n][e], scale_p, kbias[e / 2]) - (e % 2 ? l2.y : l2.x));
+            ds[n][e] = p[n][e] * (ds[n][e] - (e % 2 ? dd.y : dd.x));
+          }
         }
+        uint32_t pa[N / 2][4];
+        pack_p<N>(p, pa);
+        pv_tile<D, N / 2, W::DO>(pa, sg, qb, dv_acc, c0);  // dV += P^T g
+        pack_p<N>(ds, pa);
+        pv_tile<D, N / 2, W::DO>(pa, sq, qb, dk_acc, c0);  // dK += dS^T Q
       }
-      uint32_t pa[4][4];
-      pack_p(p, pa);
-      pv_tile<D>(pa, sg, 0, dv_acc);  // dV += P^T g
-      pack_p(ds, pa);
-      pv_tile<D>(pa, sq, 0, dk_acc);  // dK += dS^T Q
     }
   }
   cp_async_wait<0>();
   if (!live) return;
   const float sc[2] = {scale, scale}, one[2] = {1.f, 1.f};
-  store_o<D>(dk_acc, sc, dk + kv_off, key0, Lk);
-  store_o<D>(dv_acc, one, dv + kv_off, key0, Lk);
+  store_o<D, W::DO>(dk_acc, sc, dk + kv_off, key0, Lk, c0 * 8);
+  store_o<D, W::DO>(dv_acc, one, dv + kv_off, key0, Lk, c0 * 8);
 }
 
 // --------------------------------------------------------------- dQ, float32
@@ -1079,9 +1125,12 @@ attention_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__
                           float scale_log2, float scale) {
   constexpr int kSlice = D / kSplit;  // head-dim values a thread keeps
   static_assert(kSlice % kVec == 0, "a thread's slice is whole 16-byte chunks");
-  __shared__ __align__(16) float sq[kRows * D];
-  __shared__ __align__(16) float sg[kRows * D];
-  __shared__ float slse2[kRows], sdsum[kRows];
+  // Dynamic (bwd_dkdv_f32_smem_bytes): the two tiles are 64 KB at D = 128.
+  extern __shared__ __align__(16) uint8_t smem[];
+  float* sq = reinterpret_cast<float*>(smem);
+  float* sg = sq + kRows * D;
+  float* slse2 = sg + kRows * D;
+  float* sdsum = slse2 + kRows;
 
   const int bh = blockIdx.x;
   const int k0 = blockIdx.y * kFlashKeys;
@@ -1140,10 +1189,236 @@ attention_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__
   }
 }
 
-// ===================================================================== launch
-size_t whole_kv_f32_smem_bytes(int Lk, int D) {
-  return (size_t)2 * Lk * D * sizeof(float) + (size_t)kRows * D * sizeof(float) + Lk;
+
+// Sum a dot product's four parts over the quad of a row (quad: its lanes).
+__device__ __forceinline__ float quad_total(unsigned quad, float x) {
+  x += __shfl_xor_sync(quad, x, 1);
+  return x + __shfl_xor_sync(quad, x, 2);
 }
+
+// This thread's quarter of a row of D floats from device memory.
+template <int D>
+__device__ __forceinline__ void load_slice(const float* row, int split, float* x) {
+  const uint4* r = reinterpret_cast<const uint4*>(row + split * (D / kSplit));
+#pragma unroll
+  for (int cc = 0; cc < D / kSplit / kVec; ++cc) unpack(r[cc], x + cc * kVec);
+}
+
+template <int D>
+__device__ __forceinline__ void store_slice(float* row, int split, const float* x, float mul) {
+  float4* r = reinterpret_cast<float4*>(row + split * (D / kSplit));
+#pragma unroll
+  for (int cc = 0; cc < D / kSplit / kVec; ++cc)
+    r[cc] = make_float4(x[4 * cc] * mul, x[4 * cc + 1] * mul, x[4 * cc + 2] * mul, x[4 * cc + 3] * mul);
+}
+
+// ---------------------------------------------------- K1, float32, D = 128
+// The contract of attention_whole_kv_kernel with the head dim split over a
+// row's four threads: every thread of a row walks every key, so the branch
+// on the mask is uniform over the warp and the shuffles over the quad.
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+attention_whole_kv_slice(const float* __restrict__ q, const float* __restrict__ k,
+                         const float* __restrict__ v, const uint8_t* __restrict__ mask,
+                         float* __restrict__ out, float* __restrict__ lse, int H, int Lq, int Lk,
+                         float scale_log2) {
+  constexpr int kSlice = D / kSplit;
+  extern __shared__ __align__(16) uint8_t smem[];
+  float* sk = reinterpret_cast<float*>(smem);
+  float* sv = sk + (size_t)Lk * D;
+  uint8_t* smask = reinterpret_cast<uint8_t*>(sv + (size_t)Lk * D);
+
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int q0 = blockIdx.y * kRows;
+  const int nq = min(kRows, Lq - q0);
+  const size_t kv_off = (size_t)bh * Lk * D;
+  const uint8_t* mask_b = mask ? mask + (size_t)b * Lk : nullptr;
+  stage_rows<D>(sk, k + kv_off, Lk);
+  stage_rows<D>(sv, v + kv_off, Lk);
+  stage_mask(smask, mask_b, 0, Lk);
+  const bool all_masked = !any_valid_key(mask_b, Lk);  // also the barrier for the staging
+
+  const int row = threadIdx.x / kSplit;
+  const int split = threadIdx.x % kSplit;
+  const unsigned quad = 0xfu << (threadIdx.x % 32 / kSplit * kSplit);
+  const bool live = row < nq;
+  const size_t q_row = (size_t)bh * Lq + q0 + (live ? row : 0);
+  float qf[kSlice];
+  load_slice<D>(q + q_row * D, split, qf);
+  if (!live) return;  // a row's four threads leave together
+
+  // Pass 1: row max and normalizer, online over the keys.
+  float m = -INFINITY, l = 0.f;
+  for (int j = 0; j < Lk; ++j) {
+    if (!all_masked && !smask[j]) continue;
+    const float dot = quad_total(quad, dot_slice<D>(sk, j, split, qf));
+    const float s = all_masked ? 0.f : dot * scale_log2;
+    if (s > m) {
+      l = l * exp2f(m - s) + 1.f;
+      m = s;
+    } else {
+      l += exp2f(s - m);
+    }
+  }
+  const float inv_l = 1.f / l;
+  if (lse != nullptr && split == 0) lse[q_row] = (m + log2f(l)) * kLn2;
+
+  // Pass 2: normalized probabilities times V.
+  float acc[kSlice];
+#pragma unroll
+  for (int d = 0; d < kSlice; ++d) acc[d] = 0.f;
+  for (int j = 0; j < Lk; ++j) {
+    if (!all_masked && !smask[j]) continue;
+    const float dot = quad_total(quad, dot_slice<D>(sk, j, split, qf));
+    const float s = all_masked ? 0.f : dot * scale_log2;
+    axpy_slice<D>(sv, j, split, exp2f(s - m) * inv_l, acc);
+  }
+  store_slice<D>(out + q_row * D, split, acc, 1.f);
+}
+
+// ---------------------------------------------------- K2, float32, D = 128
+// attention_flash_kernel's contract with the head dim split as above; the
+// running max moves key by key, and the output is rescaled only when it
+// rises.
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+attention_flash_slice(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v, const uint8_t* __restrict__ mask,
+                      float* __restrict__ out, float* __restrict__ lse, int H, int Lq, int Lk,
+                      float scale_log2) {
+  constexpr int kSlice = D / kSplit;
+  extern __shared__ __align__(16) uint8_t smem[];  // flash_f32_slice_smem_bytes
+  float* sk = reinterpret_cast<float*>(smem);
+  float* sv = sk + kFlashKeys * D;
+  uint8_t* smask = reinterpret_cast<uint8_t*>(sv + kFlashKeys * D);
+
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int q0 = blockIdx.y * kRows;
+  const int nq = min(kRows, Lq - q0);
+  const size_t kv_off = (size_t)bh * Lk * D;
+  const uint8_t* mask_b = mask ? mask + (size_t)b * Lk : nullptr;
+  const bool all_masked = !any_valid_key(mask_b, Lk);
+
+  const int row = threadIdx.x / kSplit;
+  const int split = threadIdx.x % kSplit;
+  const unsigned quad = 0xfu << (threadIdx.x % 32 / kSplit * kSplit);
+  const bool live = row < nq;
+  const size_t q_row = (size_t)bh * Lq + q0 + (live ? row : 0);
+  float qf[kSlice], acc[kSlice];
+  load_slice<D>(q + q_row * D, split, qf);
+#pragma unroll
+  for (int d = 0; d < kSlice; ++d) acc[d] = 0.f;
+
+  float m = -INFINITY, l = 0.f;
+  for (int k0 = 0; k0 < Lk; k0 += kFlashKeys) {
+    const int nk = min(kFlashKeys, Lk - k0);
+    __syncthreads();  // the previous tile is consumed
+    stage_rows<D>(sk, k + kv_off + (size_t)k0 * D, nk);
+    stage_rows<D>(sv, v + kv_off + (size_t)k0 * D, nk);
+    stage_mask(smask, mask_b, k0, nk);
+    __syncthreads();
+    if (!live) continue;
+    for (int j = 0; j < nk; ++j) {
+      if (!all_masked && !smask[j]) continue;
+      const float dot = quad_total(quad, dot_slice<D>(sk, j, split, qf));
+      const float s = all_masked ? 0.f : dot * scale_log2;
+      float p = 1.f;
+      if (s > m) {  // the max rises: rescale what is summed so far (0 while m is -inf)
+        const float alpha = exp2f(m - s);
+        l *= alpha;
+#pragma unroll
+        for (int d = 0; d < kSlice; ++d) acc[d] *= alpha;
+        m = s;
+      } else {
+        p = exp2f(s - m);
+      }
+      l += p;
+      axpy_slice<D>(sv, j, split, p, acc);
+    }
+  }
+  if (!live) return;
+  if (lse != nullptr && split == 0) lse[q_row] = (m + log2f(l)) * kLn2;
+  store_slice<D>(out + q_row * D, split, acc, 1.f / l);
+}
+
+// ---------------------------------------------------- dQ, float32, D = 128
+// attention_bwd_dq_kernel's contract with the head dim split as above.
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+attention_bwd_dq_slice(const float* __restrict__ q, const float* __restrict__ k,
+                       const float* __restrict__ v, const uint8_t* __restrict__ mask,
+                       const float* __restrict__ out, const float* __restrict__ lse,
+                       const float* __restrict__ g, float* __restrict__ dq,
+                       float* __restrict__ lse2_pad, float* __restrict__ dsum_pad, int H, int Lq,
+                       int Lk, int Lq_pad, float scale_log2, float scale) {
+  constexpr int kSlice = D / kSplit;
+  extern __shared__ __align__(16) uint8_t smem[];  // flash_f32_slice_smem_bytes
+  float* sk = reinterpret_cast<float*>(smem);
+  float* sv = sk + kFlashKeys * D;
+  uint8_t* smask = reinterpret_cast<uint8_t*>(sv + kFlashKeys * D);
+
+  const int bh = blockIdx.x;
+  const int q0 = blockIdx.y * kRows;
+  const int nq = min(kRows, Lq - q0);
+  const size_t kv_off = (size_t)bh * Lk * D;
+  const uint8_t* mask_b = mask ? mask + (size_t)(bh / H) * Lk : nullptr;
+  const bool all_masked = !any_valid_key(mask_b, Lk);
+
+  const int row = threadIdx.x / kSplit;
+  const int split = threadIdx.x % kSplit;
+  const unsigned quad = 0xfu << (threadIdx.x % 32 / kSplit * kSplit);
+  const bool live = row < nq;
+  const size_t q_row = (size_t)bh * Lq + q0 + (live ? row : 0);
+  float qf[kSlice], gf[kSlice], acc[kSlice];
+  load_slice<D>(q + q_row * D, split, qf);
+  load_slice<D>(g + q_row * D, split, gf);
+  float dsum = 0.f;
+  {
+    float of[kSlice];
+    load_slice<D>(out + q_row * D, split, of);
+#pragma unroll
+    for (int d = 0; d < kSlice; ++d) dsum = fmaf(gf[d], of[d], dsum);
+  }
+  dsum = live ? quad_total(quad, dsum) : 0.f;
+  const float lse2 = live ? lse[q_row] * kLog2e : INFINITY;
+  if (split == 0) {
+    lse2_pad[(size_t)bh * Lq_pad + q0 + row] = lse2;
+    dsum_pad[(size_t)bh * Lq_pad + q0 + row] = dsum;
+  }
+
+#pragma unroll
+  for (int d = 0; d < kSlice; ++d) acc[d] = 0.f;
+  for (int k0 = 0; k0 < Lk; k0 += kFlashKeys) {
+    const int nk = min(kFlashKeys, Lk - k0);
+    __syncthreads();  // the previous tile is consumed
+    stage_rows<D>(sk, k + kv_off + (size_t)k0 * D, nk);
+    stage_rows<D>(sv, v + kv_off + (size_t)k0 * D, nk);
+    stage_mask(smask, mask_b, k0, nk);
+    __syncthreads();
+    if (!live) continue;
+    for (int j = 0; j < nk; ++j) {
+      if (!all_masked && !smask[j]) continue;
+      const float dot = quad_total(quad, dot_slice<D>(sk, j, split, qf));
+      const float dp = quad_total(quad, dot_slice<D>(sv, j, split, gf));
+      const float s = all_masked ? 0.f : dot * scale_log2;
+      axpy_slice<D>(sk, j, split, exp2f(s - lse2) * (dp - dsum), acc);
+    }
+  }
+  if (live) store_slice<D>(dq + q_row * D, split, acc, scale);
+}
+
+// ===================================================================== launch
+// Dynamic shared memory of the float32 bodies: K1 (K and V, the query tile
+// below D = 128 and the mask bytes), the D = 128 K2 and dQ bodies (a 64-key
+// tile of K and V and its mask bytes) and dK/dV (a 64-row tile of Q and g,
+// and their lse2 and D).
+size_t whole_kv_f32_smem_bytes(int Lk, int D) {
+  return (size_t)2 * Lk * D * sizeof(float) + (D > 64 ? 0 : (size_t)kRows * D * sizeof(float)) + Lk;
+}
+constexpr size_t flash_f32_slice_smem_bytes(int D) { return (size_t)2 * kFlashKeys * D * sizeof(float) + kFlashKeys; }
+constexpr size_t bwd_dkdv_f32_smem_bytes(int D) { return ((size_t)2 * kRows * D + 2 * kRows) * sizeof(float); }
 
 // K1's grid: `blocks` query-row blocks per (batch*head) of `threads`
 // threads each, as kernels/attention.py::whole_kv_plan gives it. K2's grid
@@ -1155,17 +1430,28 @@ cudaError_t launch_f32(bool flash, const float* q, const float* k, const float* 
                        int blocks, int threads, float scale_log2, cudaStream_t stream) {
   if (flash) {
     const dim3 grid(B * H, (Lq + kRows - 1) / kRows);
-    attention_flash_kernel<D><<<grid, kThreads, 0, stream>>>(q, k, v, mask, out, lse, H, Lq, Lk,
-                                                             scale_log2);
+    if constexpr (D > 64) {
+      constexpr size_t smem = flash_f32_slice_smem_bytes(D);
+      const cudaError_t err = allow_smem(attention_flash_slice<D>, smem);
+      if (err != cudaSuccess) return err;
+      attention_flash_slice<D><<<grid, kThreads, smem, stream>>>(q, k, v, mask, out, lse, H, Lq, Lk,
+                                                                 scale_log2);
+    } else {
+      attention_flash_kernel<D><<<grid, kThreads, 0, stream>>>(q, k, v, mask, out, lse, H, Lq, Lk,
+                                                               scale_log2);
+    }
   } else {
     if (threads != kThreads || blocks < 1 || blocks * kRows < Lq) return cudaErrorInvalidValue;
     const dim3 grid(B * H, blocks);
     const size_t smem = whole_kv_f32_smem_bytes(Lk, D);
-    cudaError_t err = cudaFuncSetAttribute(attention_whole_kv_kernel<D>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    auto kernel = [] {
+      if constexpr (D > 64) return attention_whole_kv_slice<D>;
+      else return attention_whole_kv_kernel<D>;
+    }();
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
-    attention_whole_kv_kernel<D><<<grid, kThreads, smem, stream>>>(q, k, v, mask, out, lse, H, Lq,
-                                                                   Lk, scale_log2);
+    kernel<<<grid, kThreads, smem, stream>>>(q, k, v, mask, out, lse, H, Lq, Lk, scale_log2);
   }
   return cudaGetLastError();
 }
@@ -1184,7 +1470,7 @@ cudaError_t launch_bf16(bool flash, const bf16* q, const bf16* k, const bf16* v,
                                                                      Lk, scale_log2);
   } else {
     const int warps = threads / 32;
-    if (lse != nullptr || threads % 32 != 0 || warps < 1 || warps > kWholeKvMaxWarps ||
+    if (lse != nullptr || threads % 32 != 0 || warps < 1 || warps > whole_kv_max_warps(D) ||
         blocks < 1 || blocks * warps * kWarpRows < Lq)
       return cudaErrorInvalidValue;
     const size_t smem = whole_kv_bf16_smem_bytes<D>(Lk);
@@ -1215,6 +1501,8 @@ int dispatch(bool flash, int dtype, const void* q, const void* k, const void* v,
       err = launch_f32<32>(flash, fq, fk, fv, m, fo, l, B, H, Lq, Lk, blocks, threads, scale_log2, s);
     if (D == 64)
       err = launch_f32<64>(flash, fq, fk, fv, m, fo, l, B, H, Lq, Lk, blocks, threads, scale_log2, s);
+    if (D == 128)
+      err = launch_f32<128>(flash, fq, fk, fv, m, fo, l, B, H, Lq, Lk, blocks, threads, scale_log2, s);
   } else if (dtype == 1) {
     const bf16 *bq = static_cast<const bf16*>(q), *bk = static_cast<const bf16*>(k),
                *bv = static_cast<const bf16*>(v);
@@ -1225,6 +1513,8 @@ int dispatch(bool flash, int dtype, const void* q, const void* k, const void* v,
       err = launch_bf16<32>(flash, bq, bk, bv, m, bo, l, B, H, Lq, Lk, blocks, threads, scale_log2, s);
     if (D == 64)
       err = launch_bf16<64>(flash, bq, bk, bv, m, bo, l, B, H, Lq, Lk, blocks, threads, scale_log2, s);
+    if (D == 128)
+      err = launch_bf16<128>(flash, bq, bk, bv, m, bo, l, B, H, Lq, Lk, blocks, threads, scale_log2, s);
   }
   return (int)err;
 }
@@ -1241,9 +1531,17 @@ cudaError_t launch_backward(const T* q, const T* k, const T* v, const uint8_t* m
   float* dsum_pad = scratch + (size_t)B * H * Lq_pad;
   // scale_log2 as the forward computes it, so that S is the forward's to the bit
   const float scale_log2 = kLog2e * scale;
-  const dim3 grid_q(B * H, Lq_pad / kRows), grid_k(B * H, (Lk + kTileKeys - 1) / kTileKeys);
+  // bf16: Backward<D>::kHalves blocks a tile (grid z), each half the head dim of the outputs
+  const int halves = std::is_same_v<T, float> ? 1 : Backward<D>::kHalves;
+  const dim3 grid_q(B * H, Lq_pad / kRows, halves),
+      grid_k(B * H, (Lk + kTileKeys - 1) / kTileKeys, halves);
   cudaError_t err;
-  if constexpr (std::is_same_v<T, float>) {
+  if constexpr (std::is_same_v<T, float> && D > 64) {
+    constexpr size_t smem = flash_f32_slice_smem_bytes(D);
+    if ((err = allow_smem(attention_bwd_dq_slice<D>, smem)) != cudaSuccess) return err;
+    attention_bwd_dq_slice<D><<<grid_q, kThreads, smem, stream>>>(
+        q, k, v, mask, out, lse, g, dq, lse2_pad, dsum_pad, H, Lq, Lk, Lq_pad, scale_log2, scale);
+  } else if constexpr (std::is_same_v<T, float>) {
     attention_bwd_dq_kernel<D><<<grid_q, kThreads, 0, stream>>>(
         q, k, v, mask, out, lse, g, dq, lse2_pad, dsum_pad, H, Lq, Lk, Lq_pad, scale_log2, scale);
   } else {
@@ -1254,7 +1552,9 @@ cudaError_t launch_backward(const T* q, const T* k, const T* v, const uint8_t* m
   }
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   if constexpr (std::is_same_v<T, float>) {
-    attention_bwd_dkdv_kernel<D><<<grid_k, kThreads, 0, stream>>>(
+    constexpr size_t smem = bwd_dkdv_f32_smem_bytes(D);
+    if ((err = allow_smem(attention_bwd_dkdv_kernel<D>, smem)) != cudaSuccess) return err;
+    attention_bwd_dkdv_kernel<D><<<grid_k, kThreads, smem, stream>>>(
         q, k, v, mask, g, dk, dv, lse2_pad, dsum_pad, H, Lq, Lk, Lq_pad, scale_log2, scale);
   } else {
     constexpr size_t smem = Ring<D, 2>::kBytes;
@@ -1280,6 +1580,7 @@ cudaError_t dispatch_backward(int D, const void* q, const void* k, const void* v
   if (D == 16) return launch_backward<T, 16>(tq, tk, tv, m, to, l, tg, tdq, tdk, tdv, sc, B, H, Lq, Lk, scale, stream);
   if (D == 32) return launch_backward<T, 32>(tq, tk, tv, m, to, l, tg, tdq, tdk, tdv, sc, B, H, Lq, Lk, scale, stream);
   if (D == 64) return launch_backward<T, 64>(tq, tk, tv, m, to, l, tg, tdq, tdk, tdv, sc, B, H, Lq, Lk, scale, stream);
+  if (D == 128) return launch_backward<T, 128>(tq, tk, tv, m, to, l, tg, tdq, tdk, tdv, sc, B, H, Lq, Lk, scale, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -1292,34 +1593,42 @@ const Entry kKernels[] = {
     {"attention_whole_kv_mma<bf16,16>", (const void*)attention_whole_kv_mma<16>},
     {"attention_whole_kv_mma<bf16,32>", (const void*)attention_whole_kv_mma<32>},
     {"attention_whole_kv_mma<bf16,64>", (const void*)attention_whole_kv_mma<64>},
+    {"attention_whole_kv_mma<bf16,128>", (const void*)attention_whole_kv_mma<128>},
     {"attention_flash_mma<bf16,16>", (const void*)attention_flash_mma<16>},
     {"attention_flash_mma<bf16,32>", (const void*)attention_flash_mma<32>},
     {"attention_flash_mma<bf16,64>", (const void*)attention_flash_mma<64>},
+    {"attention_flash_mma<bf16,128>", (const void*)attention_flash_mma<128>},
     {"attention_whole_kv_kernel<float,16>", (const void*)attention_whole_kv_kernel<16>},
     {"attention_whole_kv_kernel<float,32>", (const void*)attention_whole_kv_kernel<32>},
     {"attention_whole_kv_kernel<float,64>", (const void*)attention_whole_kv_kernel<64>},
+    {"attention_whole_kv_slice<float,128>", (const void*)attention_whole_kv_slice<128>},
     {"attention_flash_kernel<float,16>", (const void*)attention_flash_kernel<16>},
     {"attention_flash_kernel<float,32>", (const void*)attention_flash_kernel<32>},
     {"attention_flash_kernel<float,64>", (const void*)attention_flash_kernel<64>},
+    {"attention_flash_slice<float,128>", (const void*)attention_flash_slice<128>},
     {"attention_bwd_dq_mma<bf16,16>", (const void*)attention_bwd_dq_mma<16>},
     {"attention_bwd_dq_mma<bf16,32>", (const void*)attention_bwd_dq_mma<32>},
     {"attention_bwd_dq_mma<bf16,64>", (const void*)attention_bwd_dq_mma<64>},
+    {"attention_bwd_dq_mma<bf16,128>", (const void*)attention_bwd_dq_mma<128>},
     {"attention_bwd_dkdv_mma<bf16,16>", (const void*)attention_bwd_dkdv_mma<16>},
     {"attention_bwd_dkdv_mma<bf16,32>", (const void*)attention_bwd_dkdv_mma<32>},
     {"attention_bwd_dkdv_mma<bf16,64>", (const void*)attention_bwd_dkdv_mma<64>},
+    {"attention_bwd_dkdv_mma<bf16,128>", (const void*)attention_bwd_dkdv_mma<128>},
     {"attention_bwd_dq_kernel<float,16>", (const void*)attention_bwd_dq_kernel<16>},
     {"attention_bwd_dq_kernel<float,32>", (const void*)attention_bwd_dq_kernel<32>},
     {"attention_bwd_dq_kernel<float,64>", (const void*)attention_bwd_dq_kernel<64>},
+    {"attention_bwd_dq_slice<float,128>", (const void*)attention_bwd_dq_slice<128>},
     {"attention_bwd_dkdv_kernel<float,16>", (const void*)attention_bwd_dkdv_kernel<16>},
     {"attention_bwd_dkdv_kernel<float,32>", (const void*)attention_bwd_dkdv_kernel<32>},
     {"attention_bwd_dkdv_kernel<float,64>", (const void*)attention_bwd_dkdv_kernel<64>},
+    {"attention_bwd_dkdv_kernel<float,128>", (const void*)attention_bwd_dkdv_kernel<128>},
 };
 
 }  // namespace
 
 // Plain C interface, loaded with ctypes. dtype: 0 = float32, 1 = bfloat16.
 // mask: (B, Lk) bytes (torch.bool), or null for no mask. lse: (B, H, Lq)
-// float32, or null to write none. D: 16, 32 or 64; scale: the softmax
+// float32, or null to write none. D: 16, 32, 64 or 128; scale: the softmax
 // scale, 1/sqrt of the head dim before any zero padding (the wrapper pads
 // other head dims). stream: a cudaStream_t. Returns the
 // cudaError_t of the launch (0 = success). K1 takes its grid (blocks per

@@ -15,9 +15,21 @@ the patch from ``detection.patch_size``; the tiny ViT in the tiny and small
 tiers). ``detection.device``: ``"auto"``/``"cuda"`` run on the card (and raise when
 there is none), ``"cpu"`` on the CPU. Weights: a flat or path-keyed ``.npz``,
 a HF ``.pt``/``.bin``/``.safetensors``, otherwise a seeded random init with a
-warning. The data-parallel mesh has no counterpart on one card;
-``detection.transfer_format`` ``i420``/``i420d`` raise until ROADMAP A.4, and
-``auto`` resolves to ``bgr``.
+warning. The data-parallel mesh has no counterpart on one card.
+
+``detection.transfer_format`` (JAX ``detector.py:77-87, 283-404``): ``bgr``
+uploads the uint8 BGR frames; ``i420`` converts them on the host to I420
+(``ops/staging.py``, 1.5 bytes a pixel instead of 3) and decodes on the
+device (``ops/preprocessing.py::preprocess_frames_i420``); ``i420d`` also
+XORs each chunk's frames with their predecessors on the host, the previous
+chunk's last frame chaining the chunks, and undoes it on the device against
+that frame, which stays on the device (``reconstruct_i420_delta``): the same
+pixels as ``i420``, bit for bit. ``auto`` races the three on the first batch
+(interleaved best of 3, each call ending in the host fetch of its results)
+and keeps the winner, which ``detection_statistics.json`` records. A frame
+whose H % 4 or W % 2 is not 0 takes ``bgr``, with a warning, as in JAX.
+Unlike JAX, the value is read without regard to case (JAX runs ``bgr`` for
+``I420``).
 """
 
 from __future__ import annotations
@@ -36,7 +48,9 @@ from ..models.detr import DETR, DETRConfig
 from ..models.postprocess import postprocess_detr
 from ..models.vit import ViTConfig
 from ..models.weights import load_checkpoint
-from ..ops.preprocessing import compute_resize_geometry, preprocess_frames
+from ..ops import staging
+from ..ops.preprocessing import (compute_resize_geometry, preprocess_frames, preprocess_frames_i420,
+                                 reconstruct_i420_delta)
 from .features import crop_histogram_features, roi_mean_pool
 
 logger = logging.getLogger(__name__)
@@ -45,25 +59,17 @@ logger = logging.getLogger(__name__)
 INIT_SEED = 0
 
 
-def check_transfer_format(value: Any) -> str:
-    """The upload format ``detection.transfer_format`` comes to: ``bgr``.
+#: The upload formats ``auto`` races, in the order it tries them.
+TRANSFER_FORMATS = ("bgr", "i420", "i420d")
 
-    ``auto`` (the JAX detector races ``bgr``, ``i420`` and ``i420d`` on the
-    first batch) resolves to ``bgr``, one of the race's candidates, and says
-    so in the log; ``i420`` and ``i420d`` raise until the I420 routes are
-    ported (ROADMAP A.4): their chroma subsampling changes the pixels the
-    model sees.
-    """
+
+def check_transfer_format(value: Any) -> str:
+    """``detection.transfer_format``, lower-cased: one of
+    :data:`TRANSFER_FORMATS` or ``auto``; anything else raises."""
     fmt = str(value).lower()
-    if fmt in ("i420", "i420d"):
-        raise NotImplementedError(
-            f"detection.transfer_format={fmt!r}: the I420 transfer routes are not ported yet (ROADMAP A.4)")
-    if fmt == "auto":
-        logger.info("detection.transfer_format 'auto' resolves to 'bgr' (one of the race's candidates; the I420 "
-                    "routes wait for ROADMAP A.4)")
-    elif fmt != "bgr":
+    if fmt != "auto" and fmt not in TRANSFER_FORMATS:
         raise ValueError(f"detection.transfer_format={value!r}: expected bgr, i420, i420d or auto")
-    return "bgr"
+    return fmt
 
 
 def _host_merge(chunks: list[DetectionBatch], n: int) -> DetectionBatch:
@@ -78,9 +84,9 @@ def _host_merge(chunks: list[DetectionBatch], n: int) -> DetectionBatch:
 class DETRDetector:
     """Batched DETR person detector on one device."""
 
-    #: How frames go up to the device: BGR uint8 (the I420 routes wait for
-    #: ROADMAP A.4; ``check_transfer_format``). ``detection_statistics.json``
-    #: records it.
+    #: How frames go up to the device: ``bgr``, ``i420``, ``i420d``, or
+    #: ``auto`` until the first batch's race replaces it with the winner.
+    #: ``detection_statistics.json`` records it.
     transfer_format = "bgr"
 
     def __init__(self, config: Any = None, *, detr_config: DETRConfig | None = None):
@@ -144,6 +150,11 @@ class DETRDetector:
         self._last_encoder_output: torch.Tensor | None = None
         self._last_frame_count = 0
         self._last_orig_wh = (0, 0)
+        #: best ms a chunk of each format in the ``auto`` race, once it ran
+        self.transfer_race_ms: dict[str, float] | None = None
+        # i420d's chain: the last I420 frame sent (host) and its device copy.
+        self._delta_prev_host: np.ndarray | None = None
+        self._delta_prev_dev: torch.Tensor | None = None
 
     # ------------------------------------------------------------------ load
     def load_model(self) -> None:
@@ -202,13 +213,38 @@ class DETRDetector:
         return batch, torch.zeros((n, fh * fw, self.detr_config.d_model), dtype=self.detr_config.torch_dtype,
                                   device=self.device)
 
-    def _pixels(self, frames_u8: np.ndarray) -> tuple[torch.Tensor, torch.Tensor]:
-        frames = torch.from_numpy(np.ascontiguousarray(frames_u8)).to(self.device)
-        return preprocess_frames(frames, target_hw=self.input_hw, out_dtype=self.detr_config.torch_dtype)
+    def _upload(self, payload: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(payload)).to(self.device)
+
+    def _pixels(self, payload: np.ndarray, fmt: str = "bgr") -> tuple[torch.Tensor, torch.Tensor]:
+        """A chunk's payload (BGR frames, or I420 planes for the I420 routes)
+        -> the model's pixels and mask on the device. ``i420d`` XORs the
+        planes with their predecessors here, uploads the deltas and undoes
+        them on the device against the chain's last frame."""
+        dtype = self.detr_config.torch_dtype
+        if fmt == "bgr":
+            return preprocess_frames(self._upload(payload), target_hw=self.input_hw, out_dtype=dtype)
+        if fmt == "i420d":
+            if self._delta_prev_host is None or self._delta_prev_host.shape != payload.shape[1:]:
+                # The first chunk (or a new frame size): a zero seed.
+                self._delta_prev_host = np.zeros(payload.shape[1:], np.uint8)
+                self._delta_prev_dev = self._upload(self._delta_prev_host)
+            deltas = staging.i420_delta_encode(payload, self._delta_prev_host)
+            planes = reconstruct_i420_delta(self._upload(deltas), self._delta_prev_dev)
+            self._delta_prev_host = payload[-1].copy()
+            self._delta_prev_dev = planes[-1].clone()  # not a view that keeps the chunk
+        else:
+            planes = self._upload(payload)
+        return preprocess_frames_i420(planes, target_hw=self.input_hw, out_dtype=dtype)
+
+    def _detect_chunk(self, payload: np.ndarray, orig_wh: tuple[int, int]) -> tuple[DetectionBatch, torch.Tensor]:
+        """One chunk on the route of ``transfer_format`` (resolved)."""
+        return self._run_chunk(payload, orig_wh, self.transfer_format)
 
     @torch.inference_mode()
-    def _detect_chunk(self, frames_u8: np.ndarray, orig_wh: tuple[int, int]) -> tuple[DetectionBatch, torch.Tensor]:
-        out = self.model(*self._pixels(frames_u8))
+    def _run_chunk(self, payload: np.ndarray, orig_wh: tuple[int, int],
+                   fmt: str) -> tuple[DetectionBatch, torch.Tensor]:
+        out = self.model(*self._pixels(payload, fmt))
         batch = postprocess_detr(
             out["logits"], out["boxes"], orig_wh, self.confidence_threshold,
             person_class_id=self.detr_config.person_class_id,
@@ -216,6 +252,33 @@ class DETRDetector:
             nms_iou=self.nms_threshold,
         )
         return batch, out["encoder_output"]
+
+    def _autotune_transfer(self, frames: np.ndarray) -> str:
+        """Race :data:`TRANSFER_FORMATS` on the first batch (already padded to a
+        bucket) and return the fastest, as JAX's ``_autotune_transfer``: each
+        format once to warm it, then 3 interleaved rounds, each call timed on
+        the host clock up to the host fetch of its results (which waits for
+        the card); the best of each format's 3 wins. Each I420 route is
+        timed with its host conversion (and ``i420d`` its delta), which
+        detect_batch pays too; JAX converts the sample once before its race
+        and times only the delta."""
+        sample = frames[: self.batch_size]
+        _, H, W, _ = sample.shape
+        payloads = {"bgr": lambda: sample, "i420": lambda: staging.bgr_to_i420(sample),
+                    "i420d": lambda: staging.bgr_to_i420(sample)}
+        best = {fmt: float("inf") for fmt in TRANSFER_FORMATS}
+        for fmt in TRANSFER_FORMATS:  # warm each
+            self._run_chunk(payloads[fmt](), (W, H), fmt)
+        for _ in range(3):
+            for fmt in TRANSFER_FORMATS:
+                t0 = time.perf_counter()
+                self._run_chunk(payloads[fmt](), (W, H), fmt)
+                best[fmt] = min(best[fmt], time.perf_counter() - t0)
+        winner = min(best, key=best.get)
+        self.transfer_race_ms = {fmt: 1e3 * t for fmt, t in best.items()}
+        logger.info("transfer autotune: %s (%s per batch)", winner,
+                    ", ".join(f"{fmt} {1e3 * t:.1f} ms" for fmt, t in best.items()))
+        return winner
 
     # ---------------------------------------------------------------- detect
     def detect_batch(self, frames: np.ndarray) -> DetectionBatch:
@@ -228,6 +291,14 @@ class DETRDetector:
         pad = (self._tail_bucket(tail) - tail) if tail else 0
         if pad:
             frames = np.concatenate([frames, np.zeros((pad, H, W, 3), np.uint8)])
+        if self.transfer_format != "bgr" and (H % 4 or W % 2):
+            logger.warning("i420 transfer unsupported for %dx%d (H%%4/W%%2); using bgr", H, W)
+            self.transfer_format = "bgr"
+        if self.transfer_format == "auto":
+            self.transfer_format = self._autotune_transfer(frames)
+        fmt = self.transfer_format
+        if fmt != "bgr":
+            frames = staging.bgr_to_i420(frames)  # (F, H*3/2, W): half the bytes
         t0 = time.perf_counter()
         chunks, encs = [], []
         self.last_failed_chunks = 0

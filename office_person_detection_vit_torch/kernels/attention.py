@@ -16,17 +16,20 @@ Counterparts of the Pallas kernels in
   the log-sum-exp the forward wrote (``with_lse=True``), FlashAttention-2's
   scheme: a dQ kernel over query tiles, then a dK/dV kernel over key tiles.
 
-The kernels are instantiated for head dims 16, 32 and 64 (:data:`HEAD_DIMS`).
-Any other head dim up to 64 is zero-padded to the next of them on the way in
-and cut back on the way out (:func:`padded_call`), with the softmax scale of
-the true head dim passed to the kernel: zero columns add nothing to a dot
-product, so the scores, the log-sum-exp and the kept columns of every result
-are those of the unpadded call. A head dim above 64 raises (ROADMAP C.7).
+The kernels are instantiated for head dims 16, 32, 64 and 128
+(:data:`HEAD_DIMS`). Any other head dim up to 128 is zero-padded to the next
+of them on the way in and cut back on the way out (:func:`padded_call`), with
+the softmax scale of the true head dim passed to the kernel: zero columns add
+nothing to a dot product, so the scores, the log-sum-exp and the kept columns
+of every result are those of the unpadded call. A head dim above 128 raises
+(ROADMAP C.7).
 
 In bf16 the forwards and the backward pair run their products on the tensor
 cores (``mma.sync`` m16n8k16, one warp per 16 query or key rows;
-:func:`whole_kv_plan` gives K1's grid); in float32 they keep a CUDA-core
-body (four threads per row, 64-row blocks).
+:func:`whole_kv_plan` gives K1's grid; at head dim 128 the pair runs two
+blocks a tile, each half of the head dim of its outputs); in float32 they keep
+a CUDA-core body (four threads per row, 64-row blocks; at head dim 128 the
+four split the head dim instead of the keys).
 
 The source is compiled with the port's other CUDA sources, in one ``nvcc``
 call for ``sm_90a``, into a shared library with a plain C interface at first
@@ -58,16 +61,20 @@ from .build import BLOCK_SMEM_BYTES
 #: Launches of each kernel since the last :func:`reset_launch_counts`. Each
 #: wrapper adds one where it launches its kernel, and nowhere else.
 launch_counts = {"attention_whole_kv": 0, "attention_flash": 0, "attention_backward": 0}
+#: The same launches by (wrapper, instantiated head dim), counted at the same
+#: place; :func:`reset_launch_counts` leaves them, :func:`reset_head_dim_counts`
+#: sets them to 0.
+head_dim_counts: dict[tuple[str, int], int] = {}
 
 #: Query rows per block of the float32 kernels (kRows in the source).
 QUERY_TILE = 64
-#: bf16: query rows per warp (one m16 tile), keys per score tile and most
-#: warps of a K1 block (kWarpRows, kTileKeys, and kWholeKvMaxWarps, the
-#: launch bounds, in the source).
-WARP_ROWS, TILE_KEYS, WHOLE_KV_MAX_WARPS = 16, 64, 16
+#: bf16: query rows per warp (one m16 tile) and keys per score tile
+#: (kWarpRows, kTileKeys in the source).
+WARP_ROWS, TILE_KEYS = 16, 64
 #: Head dims the source is instantiated for: 16 (DETR tiny and small, the
-#: tiny ViT), 32 (DETR full) and 64 (ViT-base). Others up to 64 are padded.
-HEAD_DIMS = (16, 32, 64)
+#: tiny ViT), 32 (DETR full), 64 (ViT-base) and 128 (ViT-H's 80 padded, and
+#: any head up to 128). Others up to 128 are padded.
+HEAD_DIMS = (16, 32, 64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -76,13 +83,29 @@ def reset_launch_counts() -> None:
         launch_counts[name] = 0
 
 
+def reset_head_dim_counts() -> None:
+    head_dim_counts.clear()
+
+
+def _count(name: str, head_dim: int) -> None:
+    launch_counts[name] += 1
+    head_dim_counts[name, head_dim] = head_dim_counts.get((name, head_dim), 0) + 1
+
+
 def _ceil(a: int, b: int) -> int:
     return -(-a // b)
 
 
+def whole_kv_max_warps(head_dim: int) -> int:
+    """Most warps of a bf16 K1 block (``whole_kv_max_warps`` in the source,
+    the launch bounds): 16, and 8 at head dim 128, whose thread needs more
+    than the 128 registers 16 warps leave it."""
+    return 16 if kernel_head_dim(head_dim) <= 64 else 8
+
+
 def kernel_head_dim(head_dim: int) -> int:
     """The instantiated head dim a call of ``head_dim`` runs at: the least of
-    :data:`HEAD_DIMS` that holds it. Raises above 64 (ROADMAP C.7)."""
+    :data:`HEAD_DIMS` that holds it. Raises above 128 (ROADMAP C.7)."""
     for d in HEAD_DIMS:
         if 1 <= head_dim <= d:
             return d
@@ -123,14 +146,17 @@ def whole_kv_smem_bytes(lk: int, head_dim: int, dtype: torch.dtype) -> int:
     bf16: K and V of one (batch*head) padded to whole 64-key tiles (the pad
     rows are zero-filled), and a float bias per key: at DETR's 920 keys and
     D 32, 2*960*32*2 + 960*4 = 126,720 B. float32: K and V, the 64-row query
-    tile and one mask byte per key: 2*920*32*4 + 64*32*4 + 920 = 244,632 B.
+    tile and one mask byte per key: 2*920*32*4 + 64*32*4 + 920 = 244,632 B;
+    at head dim 128 no query tile (each thread loads its quarter of the row):
+    2*197*128*4 + 197 = 201,925 B at ViT-H's 197 keys.
     """
     head_dim = kernel_head_dim(head_dim)
     if dtype == torch.bfloat16:
         keys = _ceil(lk, TILE_KEYS) * TILE_KEYS
         return 2 * keys * head_dim * 2 + 4 * keys
     item = torch.empty((), dtype=dtype).element_size()
-    return 2 * lk * head_dim * item + QUERY_TILE * head_dim * item + lk
+    query_tile = 0 if head_dim > 64 else QUERY_TILE * head_dim * item
+    return 2 * lk * head_dim * item + query_tile + lk
 
 
 def whole_kv_fits(lk: int, head_dim: int, dtype: torch.dtype) -> bool:
@@ -143,15 +169,16 @@ def whole_kv_plan(lq: int, lk: int, head_dim: int, dtype: torch.dtype) -> dict:
     which the wrapper passes to the kernel's entry point, and shared bytes a
     block.
 
-    bf16: one warp per 16 query rows; the fewest blocks of at most 16 warps,
-    the warps spread evenly over them. Only one block fits on an SM at DETR's
-    920 keys (126,720 B), so a block takes as many rows as it can: 920 rows
-    are 58 warp tiles, 4 blocks of 15 warps (480 threads); 100 rows (the
-    decoder) one block of 7 warps. float32: 64-row blocks of 256 threads.
+    bf16: one warp per 16 query rows; the fewest blocks of at most 16 warps
+    (8 at head dim 128, :func:`whole_kv_max_warps`), the warps spread evenly
+    over them. Only one block fits on an SM at DETR's 920 keys (126,720 B),
+    so a block takes as many rows as it can: 920 rows are 58 warp tiles, 4
+    blocks of 15 warps (480 threads); 100 rows (the decoder) one block of 7
+    warps. float32: 64-row blocks of 256 threads.
     """
     if dtype == torch.bfloat16:
         tiles = _ceil(lq, WARP_ROWS)
-        blocks = _ceil(tiles, WHOLE_KV_MAX_WARPS)
+        blocks = _ceil(tiles, whole_kv_max_warps(head_dim))
         threads = 32 * _ceil(tiles, blocks)
     else:
         blocks, threads = _ceil(lq, QUERY_TILE), 4 * QUERY_TILE
@@ -228,7 +255,7 @@ def _check(q, k, v, mask) -> None:
     B, H, Lq, D = q.shape
     if k.shape[0] != B or k.shape[1] != H or k.shape[3] != D:
         raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} disagree")
-    kernel_head_dim(D)  # raises above 64; padded_call pads the others to HEAD_DIMS
+    kernel_head_dim(D)  # raises above 128; padded_call pads the others to HEAD_DIMS
     if Lq == 0 or k.shape[2] == 0:
         raise ValueError("empty query or key sequence")
     if not all(t.is_contiguous() and t.data_ptr() % 16 == 0 for t in tensors):
@@ -255,7 +282,7 @@ def _launch(name: str, q, k, v, mask, with_lse: bool, scale: float, *grid: int):
             None if lse is None else lse.data_ptr(), B, H, Lq, k.shape[2], D, scale, *grid, stream,
         )
     build.check_launch(lib, name, err)
-    launch_counts[name] += 1
+    _count(name, D)
     return (out, lse) if with_lse else out
 
 
@@ -329,5 +356,5 @@ def _backward(q, k, v, key_padding_mask, out, lse, g, scale: float):
             B, H, Lq, k.shape[2], D, scale, stream,
         )
     build.check_launch(lib, "attention_backward", err)
-    launch_counts["attention_backward"] += 1
+    _count("attention_backward", D)
     return dq, dk, dv

@@ -20,7 +20,7 @@ config sets it, and returns its exit code.
 
 What the port does not have yet is refused with ``NotImplementedError``
 before any session directory is written, and the run exits 2: the YOLO
-trainer (``training.model: yolo``, A.7), and the config keys of
+trainer (``training.model: yolo``, A.7c), and the config keys of
 ``pipeline.orchestrator.UNPORTED_KEYS`` (tracking A.5, multi-host A.8, the
 side-by-side video A.3). There is no compile cache to enable: the CUDA
 kernels are built once into ``_build/``.

@@ -71,12 +71,17 @@ class Bottleneck(nn.Module):
 
 class ResNet(nn.Module):
     """Returns the last stage's feature map, (B, H/32, W/32, C) NHWC
-    ((B, H/16, W/16, C) with ``dilate_last_stage``, DETR-DC5)."""
+    ((B, H/16, W/16, C) with ``dilate_last_stage``, DETR-DC5); with
+    ``return_pyramid`` the last three stages' maps (C3, C4, C5 at strides 8,
+    16, 32), as the single-shot detector takes them."""
 
     def __init__(self, depths: Sequence[int] = (3, 4, 6, 3),
                  hidden_sizes: Sequence[int] = (256, 512, 1024, 2048),
-                 embedding_size: int = 64, dilate_last_stage: bool = False):
+                 embedding_size: int = 64, dilate_last_stage: bool = False,
+                 return_pyramid: bool = False):
         super().__init__()
+        self.return_pyramid = return_pyramid
+        self.stage_ends: list[str] = []
         self.embedder_conv = _conv(3, embedding_size, 7, 2, 3)
         self.embedder_bn = FrozenBatchNorm(embedding_size)
         self.blocks: list[str] = []
@@ -90,11 +95,15 @@ class ResNet(nn.Module):
                                                  2 if dilate else 1))
                 self.blocks.append(name)
                 in_feat = hidden
+            self.stage_ends.append(self.blocks[-1])
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:  # x (B, H, W, 3)
+    def forward(self, x: torch.Tensor):  # x (B, H, W, 3)
         y = x.permute(0, 3, 1, 2)  # NCHW view of channels-last memory
         y = torch.relu(self.embedder_bn(self.embedder_conv(y)))
         y = F.max_pool2d(y, 3, 2, 1)
+        stages = []
         for name in self.blocks:
             y = getattr(self, name)(y)
-        return y.permute(0, 2, 3, 1)
+            if name in self.stage_ends:
+                stages.append(y.permute(0, 2, 3, 1))
+        return tuple(stages[-3:]) if self.return_pyramid else stages[-1]

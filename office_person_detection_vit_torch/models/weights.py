@@ -27,7 +27,12 @@ conversion) and the weight files of ``detection/export.py`` and the trainer:
   ``ViTConfig``).
 
 Every map covers the ViT DETR (``DETRConfig(backbone="vit")``) as well: its
-backbone's Flax names are the port's module names.
+backbone's Flax names are the port's module names. The Flax maps and the flat
+npz take a ``YOLOConfig`` or a ``SingleShotConfig`` as well, for the
+single-shot families (``models/yolo.py``, ``models/single_shot.py``), whose
+module names are their Flax names too; and
+:func:`convert_yolov8_state_dict` carries an ultralytics ``DetectionModel``
+state_dict into the port's YOLOv8 (JAX ``models/weights.py:222-307``).
 
 The port's module names are the Flax module names, so one walk over the
 port's own modules gives the whole mapping.
@@ -45,7 +50,24 @@ from torch import nn
 
 from .detr import DETR, DETRConfig
 from .resnet import FrozenBatchNorm
+from .single_shot import SingleShotConfig, SingleShotDetector
 from .vit import ViTBackbone, ViTConfig
+from .yolo import YOLOConfig, YOLOv8
+
+#: A configuration of any model the maps take.
+ModelConfig = DETRConfig | ViTConfig | YOLOConfig | SingleShotConfig
+
+
+def build_model(config: ModelConfig) -> nn.Module:
+    """The port's model of ``config``: DETR, a ViT backbone on its own, YOLOv8
+    or the single-shot detector."""
+    if isinstance(config, ViTConfig):
+        return ViTBackbone(config)
+    if isinstance(config, YOLOConfig):
+        return YOLOv8(config)
+    if isinstance(config, SingleShotConfig):
+        return SingleShotDetector(config)
+    return DETR(config)
 
 BN_EPS = 1e-5
 _DTYPE_TAG = "##dtype="
@@ -58,12 +80,12 @@ class ParamEntry(NamedTuple):
     flax_shape: tuple[int, ...]
 
 
-def flax_param_map(config: DETRConfig | ViTConfig) -> list[ParamEntry]:
-    """Every parameter of DETR(config) (or of a ViTBackbone(config) on its
-    own) as (Flax path, port key), in the order ``jax.tree_util`` flattens
-    the Flax variables."""
+def flax_param_map(config: ModelConfig) -> list[ParamEntry]:
+    """Every parameter of the model of ``config`` (:func:`build_model`) as
+    (Flax path, port key), in the order ``jax.tree_util`` flattens the Flax
+    variables."""
     with torch.device("meta"):
-        model = ViTBackbone(config) if isinstance(config, ViTConfig) else DETR(config)
+        model = build_model(config)
     entries = []
 
     def add(path, key, kind, tensor):
@@ -81,7 +103,7 @@ def flax_param_map(config: DETRConfig | ViTConfig) -> list[ParamEntry]:
                 "conv" if isinstance(mod, nn.Conv2d) else "dense", mod.weight)
             if mod.bias is not None:
                 add(path + ("bias",), f"{name}.bias", "copy", mod.bias)
-        elif isinstance(mod, nn.LayerNorm):
+        elif isinstance(mod, (nn.LayerNorm, nn.GroupNorm)):
             add(path + ("scale",), f"{name}.weight", "copy", mod.weight)
             add(path + ("bias",), f"{name}.bias", "copy", mod.bias)
         elif isinstance(mod, FrozenBatchNorm):
@@ -109,9 +131,9 @@ def _count_leaves(tree: Any) -> int:
     return 1
 
 
-def state_dict_from_flax(variables: Mapping[str, Any], config: DETRConfig | ViTConfig) -> dict[str, torch.Tensor]:
+def state_dict_from_flax(variables: Mapping[str, Any], config: ModelConfig) -> dict[str, torch.Tensor]:
     """Flax variables ``{"params": {...}}`` (numpy leaves) -> port state_dict
-    (float32) of DETR(config), or of a ViTBackbone for a ViTConfig."""
+    (float32) of the model of ``config`` (:func:`build_model`)."""
     entries = flax_param_map(config)
     n = _count_leaves(variables["params"])
     if n != len(entries):
@@ -151,14 +173,14 @@ def load_path_npz(path) -> dict:
     return out
 
 
-def load_flat_npz(path, config: DETRConfig) -> dict:
+def load_flat_npz(path, config: ModelConfig) -> dict:
     """Trainer's flat ``leaf_i`` npz -> nested variables dict, leaf order from
     :func:`flax_param_map` (no JAX needed)."""
     entries = flax_param_map(config)
     out: dict = {}
     with np.load(path) as data:
         if len(data.files) != len(entries):
-            raise ValueError(f"{path}: {len(data.files)} leaves, DETR({config}) has {len(entries)}")
+            raise ValueError(f"{path}: {len(data.files)} leaves, {config} has {len(entries)}")
         for i, e in enumerate(entries):
             arr = data[f"leaf_{i}"]
             if arr.shape != e.flax_shape:
@@ -170,7 +192,7 @@ def load_flat_npz(path, config: DETRConfig) -> dict:
     return out
 
 
-def flat_leaves_from_state_dict(sd: Mapping[str, torch.Tensor], config: DETRConfig) -> list[np.ndarray]:
+def flat_leaves_from_state_dict(sd: Mapping[str, torch.Tensor], config: ModelConfig) -> list[np.ndarray]:
     """Port state_dict -> float32 Flax leaves in flattening order (conv
     OIHW -> HWIO, dense (out, in) -> (in, out))."""
     leaves = []
@@ -184,7 +206,7 @@ def flat_leaves_from_state_dict(sd: Mapping[str, torch.Tensor], config: DETRConf
     return leaves
 
 
-def save_flat_npz(path, sd: Mapping[str, torch.Tensor], config: DETRConfig) -> None:
+def save_flat_npz(path, sd: Mapping[str, torch.Tensor], config: ModelConfig) -> None:
     """Write ``sd`` as the trainer's flat ``leaf_i`` npz (``weights.npz``)."""
     leaves = flat_leaves_from_state_dict(sd, config)
     np.savez(path, **{f"leaf_{i}": a for i, a in enumerate(leaves)})
@@ -325,15 +347,25 @@ def convert_vit_state_dict(sd: Mapping[str, Any], num_layers: int = 12) -> dict:
     return {"params": params}
 
 
-def load_checkpoint(path, config: DETRConfig) -> dict[str, torch.Tensor]:
-    """Any weight file the detector takes -> port state_dict: a flat or a
-    path-keyed ``.npz``, or a HF ``.pt``/``.bin``/``.safetensors``."""
+def load_checkpoint(path, config: ModelConfig) -> dict[str, torch.Tensor]:
+    """Any weight file the detector of ``config`` takes -> port state_dict
+    (JAX ``load_any_checkpoint``, :325): a flat or a path-keyed ``.npz`` for
+    every family; for DETR a HF ``.pt``/``.bin``/``.safetensors``; for YOLOv8
+    an ultralytics ``.pt``/``.pth``/``.bin`` (:func:`convert_yolov8_state_dict`).
+    The JAX package's orbax directories need JAX to read and are not taken."""
     p = Path(str(path))
     if p.suffix == ".npz":
         with np.load(p) as data:
             flat = "leaf_0" in data.files
         variables = load_flat_npz(p, config) if flat else load_path_npz(p)
         return state_dict_from_flax(variables, config)
+    if isinstance(config, YOLOConfig) and p.suffix in (".pt", ".pth", ".bin"):
+        sd = torch.load(p, map_location="cpu", weights_only=True)
+        if isinstance(sd, dict) and "model" in sd and isinstance(sd["model"], dict):
+            sd = sd["model"]
+        return state_dict_from_flax(convert_yolov8_state_dict(sd), config)
+    if not isinstance(config, DETRConfig):
+        raise ValueError(f"unsupported checkpoint format for {type(config).__name__}: {p}")
     if p.suffix == ".safetensors":
         from safetensors.torch import load_file
 
@@ -345,3 +377,69 @@ def load_checkpoint(path, config: DETRConfig) -> dict[str, torch.Tensor]:
     else:
         raise ValueError(f"unsupported checkpoint format: {p}")
     return state_dict_from_hf(sd, config)
+
+
+# ------------------------------------------------------------- ultralytics
+#: ultralytics BatchNorm2d eps (their Conv block overrides torch's 1e-5).
+YOLO_BN_EPS = 1e-3
+
+
+def _fold_bn_eps(sd, prefix: str, eps: float) -> dict:
+    scale = _np(sd, f"{prefix}.weight") / np.sqrt(_np(sd, f"{prefix}.running_var") + eps)
+    return {"scale": scale, "bias": _np(sd, f"{prefix}.bias") - _np(sd, f"{prefix}.running_mean") * scale}
+
+
+def convert_yolov8_state_dict(sd: Mapping[str, Any]) -> dict:
+    """ultralytics ``DetectionModel.state_dict()`` -> the Flax params of a
+    YOLOv8, as JAX ``convert_yolov8_state_dict`` returns them (numpy; the
+    port's state_dict through :func:`state_dict_from_flax` with its
+    ``YOLOConfig``).
+
+    ``model.{i}.conv`` / ``model.{i}.bn`` -> ``m{i}/conv|bn``;
+    ``model.{i}.cv1|cv2`` and ``model.{i}.m.{j}.cv1|cv2`` -> ``m{i}/cv1``,
+    ``m{i}/m{j}/cv1``; ``model.22.cv2|cv3.{l}.{0,1}`` ->
+    ``detect/cv2_{l}_{0,1}``; the plain ``model.22.cv2|cv3.{l}.2`` convs
+    with their bias -> ``detect/cv2_{l}_2``. BN folds with eps 1e-3; the
+    fixed ``dfl.conv`` kernel is dropped (``models/yolo.py::dfl_expectation``
+    is its closed form). Bare ``model.N`` keys or a ``model.model.N``
+    wrapper; other keys are ignored."""
+    if any(k.startswith("model.model.") for k in sd):
+        sd = {k[len("model."):]: v for k, v in sd.items() if k.startswith("model.model.")}
+    params: dict = {}
+    for key in sd:
+        m = re.match(r"model\.(\d+)\.(.*)$", key)
+        if not m:
+            continue
+        idx, rest = int(m.group(1)), m.group(2)
+        cm = re.match(r"((?:m\.\d+\.)?cv\d\.|)(conv)\.weight$", rest)
+        if cm:  # ConvBlocks of the backbone and neck: m{i}[/m{j}][/cv{k}]
+            inner = cm.group(1).rstrip(".")
+            toks = [t for t in inner.split(".") if t]
+            norm, i = [], 0
+            while i < len(toks):
+                if toks[i] == "m" and i + 1 < len(toks) and toks[i + 1].isdigit():
+                    norm.append(f"m{toks[i + 1]}")
+                    i += 2
+                else:
+                    norm.append(toks[i])
+                    i += 1
+            path = (f"m{idx}", *norm)
+            _set(params, path + ("conv",), _conv(sd, key))
+            _set(params, path + ("bn",), _fold_bn_eps(sd, f"model.{idx}.{inner + '.' if inner else ''}bn",
+                                                      YOLO_BN_EPS))
+            continue
+        hm = re.match(r"(cv[23])\.(\d+)\.(\d+)\.conv\.weight$", rest)
+        if hm:  # the head's ConvBlocks
+            name = f"{hm.group(1)}_{hm.group(2)}_{hm.group(3)}"
+            _set(params, ("detect", name, "conv"), _conv(sd, key))
+            _set(params, ("detect", name, "bn"),
+                 _fold_bn_eps(sd, f"model.{idx}.{hm.group(1)}.{hm.group(2)}.{hm.group(3)}.bn", YOLO_BN_EPS))
+            continue
+        hm = re.match(r"(cv[23])\.(\d+)\.2\.weight$", rest)
+        if hm:  # the head's plain 1x1 output convs
+            leaf = _conv(sd, key)
+            bias_key = f"model.{idx}.{hm.group(1)}.{hm.group(2)}.2.bias"
+            if bias_key in sd:
+                leaf["bias"] = _np(sd, bias_key)
+            _set(params, ("detect", f"{hm.group(1)}_{hm.group(2)}_2"), leaf)
+    return {"params": params}

@@ -50,8 +50,9 @@ UNPORTED_KEYS = {
 
 def refuse_unported(config: Any) -> None:
     """Raise ``NotImplementedError`` for the first key of
-    :data:`UNPORTED_KEYS` that the config turns on, and for a
-    ``detection.transfer_format`` the port does not have."""
+    :data:`UNPORTED_KEYS` that the config turns on, and ``ValueError`` for a
+    ``detection.transfer_format`` that is none of bgr, i420, i420d and
+    auto, before Phase 1 runs."""
     for key, why in UNPORTED_KEYS.items():
         if config.get(key, False):
             raise NotImplementedError(f"{key}: {why}")

@@ -1,12 +1,15 @@
 """Phase 2: batched person detection.
 
 Mirrors ``office_person_detection_vit_tpu/pipeline/phases/detection.py``:
-every sampled frame goes through the port's ``DETRDetector`` in device
-batches, the detections are written into the ``FrameResult``s, and the
-phase writes ``detections.json`` and ``detection_statistics.json`` (the JAX
-package's keys) and, with ``output.save_detection_images``, annotated
-frames. ``output.save_attention_maps`` raises until the overlays are
-ported (ROADMAP A.3), and so do the detectors other than DETR (ROADMAP A.7).
+every sampled frame goes through the detector ``detection.model`` names
+(``detection/ssd_detector.py::build_detector``: DETR, the single-shot
+detector or YOLOv8) in device batches, the detections are written into the
+``FrameResult``s, and the phase writes ``detections.json`` and
+``detection_statistics.json`` (the JAX package's keys; the DETR detector's
+``transfer_format``, after an ``auto`` race the winner, whose times the
+detector logs as JAX's does) and, with ``output.save_detection_images``, annotated
+frames. ``output.save_attention_maps`` raises until the overlays are ported
+(ROADMAP A.3).
 """
 
 from __future__ import annotations
@@ -19,31 +22,15 @@ from typing import Any
 import numpy as np
 
 from ...core.dto import DetectionBatch, FrameResult
-from ...detection.detector import DETRDetector
+from ...detection import build_detector
 from ...utils.image_utils import save_detection_image
 from ...utils.stats_utils import calculate_detection_statistics
 from .base import BasePhase
 
-#: ``detection.model`` values of detectors the port does not have yet.
-UNPORTED_DETECTORS = ("ssd", "single_shot", "fcos", "yolo", "yolov8")
-
-
-def build_detector(config: Any) -> DETRDetector:
-    """The detector ``detection.model`` names: DETR (the default), or a
-    ``NotImplementedError`` for the single-shot and YOLO detectors."""
-    model = str(config.get("detection.model", "detr")).lower()
-    if model in UNPORTED_DETECTORS:
-        raise NotImplementedError(
-            f"detection.model={model!r}: the port has only the DETR detector; the single-shot and YOLO "
-            "detectors wait for ROADMAP A.7"
-        )
-    return DETRDetector(config)
-
-
 class DetectionPhase(BasePhase):
     name = "02_detection"
 
-    def __init__(self, config: Any, logger=None, detector: DETRDetector | None = None):
+    def __init__(self, config: Any, logger=None, detector: Any = None):
         super().__init__(config, logger)
         if config.get("output.save_attention_maps", False):
             raise NotImplementedError(
@@ -88,7 +75,9 @@ class DetectionPhase(BasePhase):
             fr.detections = det_fr.detections
 
         self.statistics = calculate_detection_statistics(batch)
-        self.statistics["transfer_format"] = str(self.detector.transfer_format)
+        fmt = getattr(self.detector, "transfer_format", None)
+        if fmt is not None:
+            self.statistics["transfer_format"] = str(fmt)
         if output_dir is not None:
             out = Path(output_dir)
             self._export_statistics(out)

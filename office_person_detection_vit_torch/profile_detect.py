@@ -1,10 +1,11 @@
 """Where the time of one full-width detect goes, on the card.
 
-    python -m office_person_detection_vit_torch.profile_detect [--backbone vit]
+    python -m office_person_detection_vit_torch.profile_detect [--backbone vit] [--model yolo|ssd]
 
 Runs ``DETRDetector`` (DETR-R50, or with ``--backbone vit`` the ViT-base/16
-DETR; bf16, 736x1280, batch 8, seeded random weights) on synthetic 720p
-frames: one warm-up chunk, then two chunks under
+DETR), or with ``--model`` YOLOv8x (``yolo``) or the single-shot detector
+(``ssd``), in bf16 at 736x1280, batch 8, seeded random weights, on synthetic
+720p frames: one warm-up chunk, then two chunks under
 ``torch.profiler``. Prints the card, the host-clock frames/s of the profiled
 window, the device busy share (summed kernel time over the window's wall
 time; the port runs on one stream, so kernels do not overlap), the kernel
@@ -22,7 +23,7 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from .detection.detector import DETRDetector
+from .detection import build_detector
 
 BATCH, CHUNKS, TOP = 8, 2, 20
 CATEGORIES = (  # first match wins, on the lower-cased kernel name
@@ -36,6 +37,9 @@ CATEGORIES = (  # first match wins, on the lower-cased kernel name
     ("bool logic (NMS loop, masks)", ("binaryfunctor<bool",)),
     ("elementwise mul/add (FrozenBN, residual)", ("mulfunctor", "functor_add", "binaryfunctor")),
     ("ReLU (clamp)", ("clamp",)),
+    ("SiLU", ("silu",)),
+    ("max pool", ("max_pool", "maxpool")),
+    ("sort / top-K", ("sort", "radix")),
 )
 
 
@@ -50,14 +54,16 @@ def _category(name: str) -> str:
 def main(argv: list[str] | None = None) -> None:
     parser = argparse.ArgumentParser(description="Where a full-width detect's time goes, on the card")
     parser.add_argument("--backbone", choices=["resnet50", "vit"], default="resnet50")
+    parser.add_argument("--model", choices=["detr", "yolo", "ssd"], default="detr",
+                        help="detection.model: DETR (with --backbone), YOLOv8x or the single-shot detector")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_detect needs a CUDA device")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    det = DETRDetector({
-        "detection.model_size": "full", "detection.dtype": "bfloat16", "detection.device": "cuda",
-        "detection.batch_size": BATCH, "detection.input_height": 736,
+    det = build_detector({
+        "detection.model": args.model, "detection.model_size": "full", "detection.dtype": "bfloat16",
+        "detection.device": "cuda", "detection.batch_size": BATCH, "detection.input_height": 736,
         "detection.input_width": 1280, "detection.nms_threshold": 0.4, "detection.backbone": args.backbone,
     })
     rng = np.random.default_rng(0)
@@ -81,7 +87,7 @@ def main(argv: list[str] | None = None) -> None:
     for name, ms in by_kernel.items():
         by_cat[_category(name)] += ms
     n = len(frames)
-    print(f"card: {card}; backbone {args.backbone}")
+    print(f"card: {card}; model {args.model}" + (f", backbone {args.backbone}" if args.model == "detr" else ""))
     print(f"window: {n} frames in {CHUNKS} chunks of {BATCH}; wall {wall * 1e3:.2f} ms "
           f"({n / wall:.2f} frames/s, host clock); device busy {busy:.2f} ms = {100 * busy / (wall * 1e3):.1f}% "
           f"(idle {100 - 100 * busy / (wall * 1e3):.1f}%)")

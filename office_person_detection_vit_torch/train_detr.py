@@ -20,7 +20,7 @@ tiny and small tiers), its attention's gradient through B.4 as the
 transformer's. ``--evaluate`` scores P/R/F1 and AP with the port's
 ``DetectionBenchmark`` before training and after the last epoch (and every
 ``--eval-every`` epochs) into ``history.json``. Refused, naming their ROADMAP
-item: ``--model yolo`` (A.7) and ``--model-parallel`` above 1 (A.8).
+item: ``--model yolo`` (A.7c) and ``--model-parallel`` above 1 (A.8).
 
 ``--resume-from`` takes the port's own ``train_state.npz`` (keyed by
 state_dict key) and the flat ``leaf_i`` one the JAX trainer writes
@@ -49,7 +49,7 @@ EVAL_WH = (1280, 720)
 
 #: Flags of the JAX trainer the port refuses, with the ROADMAP item of each.
 REFUSED = {
-    "yolo": "--model yolo: the YOLO detector and its criterion are not ported yet (ROADMAP A.7)",
+    "yolo": "--model yolo: the YOLO criterion and trainer are not ported yet (ROADMAP A.7c)",
     "model_parallel": "--model-parallel > 1: the sharded train step is not ported yet (ROADMAP A.8)",
 }
 
@@ -140,7 +140,7 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     parser.add_argument("--model-size", choices=["full", "small", "tiny"], default=None,
                         help="DETR capacity tier; --tiny is shorthand for --model-size tiny")
     parser.add_argument("--model", choices=["detr", "yolo"], default="detr",
-                        help="detector family; yolo is refused (ROADMAP A.7)")
+                        help="detector family; yolo is refused (ROADMAP A.7c)")
     parser.add_argument("--yolo-variant", default="s", help="read with --model yolo, which is refused")
     parser.add_argument("--backbone", choices=["resnet50", "vit"], default="resnet50",
                         help="detector backbone (vit = models/vit.py; --patch-size sets its stride)")

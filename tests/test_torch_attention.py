@@ -48,7 +48,8 @@ def _jax(fn, q, k, v, mask, **kw):
 @pytest.mark.parametrize(
     "shape,mask_frac",
     [((2, 4, 37, 53, 32), None), ((2, 4, 37, 53, 32), 0.3), ((1, 2, 100, 260, 16), 0.2),
-     ((1, 2, 67, 131, 64), None), ((1, 2, 67, 131, 64), 0.3), ((1, 2, 37, 53, 48), 0.3)],
+     ((1, 2, 67, 131, 64), None), ((1, 2, 67, 131, 64), 0.3), ((1, 2, 37, 53, 48), 0.3),
+     ((1, 2, 37, 53, 80), 0.3), ((1, 2, 37, 53, 128), 0.3)],
 )
 def test_reference_matches_jax_reference(shape, mask_frac):
     q, k, v, mask = _inputs(0, *shape, mask_frac)
@@ -56,7 +57,7 @@ def test_reference_matches_jax_reference(shape, mask_frac):
 
 
 @pytest.mark.parametrize("mask_frac", [None, 0.3])
-@pytest.mark.parametrize("D", [32, 64, 48])
+@pytest.mark.parametrize("D", [32, 64, 48, 80, 128])
 def test_reference_matches_whole_kv_pallas(mask_frac, D):
     q, k, v, mask = _inputs(1, 2, 4, 37, 53, D, mask_frac)
     got = _port(q, k, v, mask)
@@ -64,7 +65,8 @@ def test_reference_matches_whole_kv_pallas(mask_frac, D):
     np.testing.assert_allclose(got, want, atol=1e-5)
 
 
-@pytest.mark.parametrize("lq,lk,D", [(64, 64, 32), (100, 1008, 32), (197, 197, 64), (67, 131, 48)])
+@pytest.mark.parametrize("lq,lk,D", [(64, 64, 32), (100, 1008, 32), (197, 197, 64), (67, 131, 48), (67, 131, 80),
+                                     (67, 131, 128)])
 def test_reference_matches_flash_pallas(lq, lk, D):
     q, k, v, mask = _inputs(2, 2, 2, lq, lk, D, 0.2)
     got = _port(q, k, v, mask)
@@ -140,18 +142,21 @@ def test_one_library_builds_every_source():
         (3681, 64, torch.float32, True),  # the same in float32
         (197, 64, torch.float32, False),  # ViT-base at 224x224: K1 fits (117,445 B)
         (65, 48, torch.float32, False),  # a padded head dim takes the padded width's plan (64)
+        (197, 80, torch.float32, False),  # ViT-H/14 at 224x224 (80 padded to 128): K1 fits (201,925 B)
+        (3681, 128, torch.bfloat16, True),  # head dim 128 on the ViT detect's token count
     ],
 )
 def test_dispatch_rule(lk, d, dtype, flash):
     assert kernels.use_flash(lk, d, dtype) is flash
 
 
-@pytest.mark.parametrize("d,want", [(1, 16), (16, 16), (17, 32), (32, 32), (33, 64), (48, 64), (64, 64)])
+@pytest.mark.parametrize("d,want", [(1, 16), (16, 16), (17, 32), (32, 32), (33, 64), (48, 64), (64, 64),
+                                    (65, 128), (80, 128), (128, 128)])
 def test_kernel_head_dim(d, want):
     assert kernels.kernel_head_dim(d) == want
 
 
-@pytest.mark.parametrize("d", [65, 80, 128, 0])
+@pytest.mark.parametrize("d", [129, 256, 0])
 def test_head_dims_off_the_kernels_raise_naming_c7(d):
     with pytest.raises(ValueError, match="C.7"):
         kernels.kernel_head_dim(d)
@@ -170,7 +175,7 @@ def _scaled_plain(q, k, v, mask, with_lse):
     return call
 
 
-@pytest.mark.parametrize("D", [8, 20, 48, 16, 64])
+@pytest.mark.parametrize("D", [8, 20, 48, 16, 64, 80, 128])
 @pytest.mark.parametrize("with_lse", [False, True])
 def test_padded_call_with_the_plain_version_is_the_unpadded_call(D, with_lse):
     """Zero columns up to the kernel's head dim, the true scale 1/sqrt(D)
@@ -193,7 +198,7 @@ def test_padded_call_with_the_plain_version_is_the_unpadded_call(D, with_lse):
         np.testing.assert_allclose(got[1].numpy(), port.attention_lse(q, k, mask).numpy(), atol=1e-5)
 
 
-@pytest.mark.parametrize("D", [20, 48])
+@pytest.mark.parametrize("D", [20, 48, 80])
 def test_padded_call_of_the_backward_is_the_unpadded_backward(D):
     """The backward pair's padding: q, k, v, out and g padded, dq/dk/dv cut
     back; with the true scale the plain pair's gradients are unchanged."""
@@ -215,6 +220,8 @@ def test_whole_kv_smem_arithmetic():
     assert kernels.whole_kv_smem_bytes(920, 32, torch.float32) == 244_632
     assert kernels.whole_kv_smem_bytes(197, 64, torch.float32) == 117_445  # ViT-base at 224x224
     assert kernels.whole_kv_smem_bytes(197, 48, torch.float32) == 117_445  # padded to 64
+    assert kernels.whole_kv_smem_bytes(197, 80, torch.float32) == 201_925  # ViT-H: padded to 128, no query tile
+    assert kernels.whole_kv_smem_bytes(197, 128, torch.bfloat16) == 132_096  # 256 keys
 
 
 @pytest.mark.parametrize(
@@ -222,7 +229,9 @@ def test_whole_kv_smem_arithmetic():
     [(920, 32, torch.bfloat16, True), (1728, 32, torch.bfloat16, True), (1729, 32, torch.bfloat16, False),
      (920, 32, torch.float32, False), (84, 16, torch.float32, True), (3680, 32, torch.bfloat16, False),
      (421, 64, torch.float32, True), (422, 64, torch.float32, False), (832, 64, torch.bfloat16, True),
-     (833, 64, torch.bfloat16, False), (421, 40, torch.float32, True), (422, 33, torch.float32, False)],
+     (833, 64, torch.bfloat16, False), (421, 40, torch.float32, True), (422, 33, torch.float32, False),
+     (226, 128, torch.float32, True), (227, 80, torch.float32, False), (448, 128, torch.bfloat16, True),
+     (449, 100, torch.bfloat16, False)],
 )
 def test_whole_kv_fits(lk, d, dtype, fits):
     """K1 takes K/V that fit a block's 227 KB; it raises beyond (K2 is there)."""
@@ -239,6 +248,8 @@ def test_whole_kv_fits(lk, d, dtype, fits):
         (257, 256, 32, torch.bfloat16, 2, 288),  # 17 warp tiles: 2 blocks of 9 warps
         (1, 1, 16, torch.bfloat16, 1, 32),
         (84, 84, 16, torch.float32, 2, 256),  # DETR-small (float32): 64-row blocks
+        (256, 256, 128, torch.bfloat16, 2, 256),  # head dim 128: at most 8 warps a block
+        (197, 197, 80, torch.bfloat16, 2, 224),  # ViT-H (80 padded to 128): 13 warp tiles, 2 blocks of 7
     ],
 )
 def test_whole_kv_plan(lq, lk, d, dtype, blocks, threads):
@@ -248,7 +259,7 @@ def test_whole_kv_plan(lq, lk, d, dtype, blocks, threads):
     if dtype == torch.bfloat16:  # every query row has a warp; no block is idle
         rows = blocks * threads // 32 * kernels.WARP_ROWS
         assert rows >= lq and rows - lq < blocks * kernels.WARP_ROWS
-        assert threads <= 32 * kernels.WHOLE_KV_MAX_WARPS
+        assert threads <= 32 * kernels.whole_kv_max_warps(d)
 
 
 @pytest.mark.parametrize(
@@ -344,3 +355,12 @@ def test_kernels_refuse_inputs_that_require_grad(grad_input):
     with torch.inference_mode():
         build.refuse_autograd("attention_flash", q, k, v)
     build.refuse_autograd("attention_flash", q.detach(), k.detach(), v.detach(), None)
+
+
+def test_import_guard_covers_the_detector_slice():
+    names = {str(p.relative_to(REPO)) for p in _port_sources()}
+    pkg = "office_person_detection_vit_torch"
+    want = {f"{pkg}/models/yolo.py", f"{pkg}/models/single_shot.py", f"{pkg}/detection/ssd_detector.py",
+            f"{pkg}/detection/yolo_detector.py", f"{pkg}/ops/staging.py", f"{pkg}/ops/preprocessing.py",
+            f"{pkg}/profile_detect.py"}
+    assert want <= names

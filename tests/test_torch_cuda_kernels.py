@@ -78,7 +78,7 @@ LQ, LK = (1, 67, 100, 920), (1, 15, 131, 920, 1000)
 
 @pytest.mark.parametrize("fn", [kernels.attention_whole_kv, kernels.attention_flash])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("D", [*kernels.HEAD_DIMS, 48])
+@pytest.mark.parametrize("D", [*kernels.HEAD_DIMS, 48, 80])
 @pytest.mark.parametrize("masked", [False, True])
 def test_kernel_matches_plain(card, fn, dtype, D, masked):
     _check_kernel(fn, *_case(2, 3, 67, 131, D, dtype, masked))
@@ -86,7 +86,7 @@ def test_kernel_matches_plain(card, fn, dtype, D, masked):
 
 @pytest.mark.parametrize("fn", [kernels.attention_whole_kv, kernels.attention_flash])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("D", [*kernels.HEAD_DIMS, 48])
+@pytest.mark.parametrize("D", [*kernels.HEAD_DIMS, 48, 80])
 @pytest.mark.parametrize("masked", [False, True])
 def test_kernel_matches_plain_at_tile_edges(card, fn, dtype, D, masked):
     """Every (Lq, Lk) pair of LQ x LK; with the mask, batch entry 0 has every
@@ -159,8 +159,8 @@ def test_whole_kv_refuses_a_grid_short_of_the_query_rows(card, dtype, blocks, th
 
 def test_wrapper_rejects_what_the_kernel_does_not_take(card):
     q, k, v, _ = _case(1, 2, 8, 8, 32, torch.float32, False)
-    with pytest.raises(ValueError, match="C.7"):
-        kernels.attention_flash(*_case(1, 2, 8, 8, 80, torch.float32, False)[:3])
+    with pytest.raises(ValueError, match="C.7"):  # above 128 (80 runs, padded to 128)
+        kernels.attention_flash(*_case(1, 2, 8, 8, 136, torch.float32, False)[:3])
     with pytest.raises(ValueError):
         kernels.attention_flash(q.half(), k.half(), v.half())
     with pytest.raises(ValueError):
@@ -320,7 +320,8 @@ def _b4_errors(got, want):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("Lq,Lk,D", [(84, 84, 16), (100, 1008, 32), (67, 131, 32), (37, 53, 16), (131, 67, 64),
-                                     (100, 1008, 64), (37, 53, 48)])
+                                     (100, 1008, 64), (37, 53, 48), (131, 67, 128), (100, 1008, 128),
+                                     (37, 53, 80)])
 @pytest.mark.parametrize("all_masked", [False, True], ids=["ragged", "all_masked_entry"])
 def test_b4_gradients_match_plain_autograd(card, dtype, Lq, Lk, D, all_masked):
     """B.4: multi_head_attention under grad runs K1/K2 through
@@ -395,7 +396,7 @@ def test_k1_bf16_refuses_lse(card):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("D", [32, 64, 48])
+@pytest.mark.parametrize("D", [32, 64, 48, 128])
 def test_backward_pair_is_deterministic(card, dtype, D):
     """Two calls of the pair on the same inputs give the same bits (no
     atomics), at a shape with several blocks per head both ways."""

@@ -7,7 +7,9 @@ Both detectors run the tiny tier on the CPU in float32 with the same weights
 Boxes and foot points agree to 1e-3 px, scores to 1e-5, valid flags exactly.
 The Phase 3-4 functions then take the same points: floor coordinates agree to
 1e-5 relative, zone membership and counts exactly. ``detection.transfer_format``:
-the I420 formats are refused and ``auto`` resolves to ``bgr`` (ROADMAP C.6).
+the port's ``i420`` and ``i420d`` give the same detections bit for bit, within
+the same bars of the JAX detector's ``i420``; ``auto`` races the three formats
+and keeps one of them.
 """
 
 import logging
@@ -18,7 +20,7 @@ import pytest
 import torch
 
 from office_person_detection_vit_torch.core.dto import Detection, detections_to_batch
-from office_person_detection_vit_torch.detection.detector import DETRDetector
+from office_person_detection_vit_torch.detection.detector import TRANSFER_FORMATS, DETRDetector
 from office_person_detection_vit_torch.device import resolve_device
 from office_person_detection_vit_torch.models.detr import DETRConfig
 from office_person_detection_vit_torch.ops import aggregation as port_agg
@@ -171,22 +173,67 @@ def test_device_names():
         resolve_device("tpu")
 
 
+@pytest.fixture(scope="module")
+def i420_outputs(tmp_path_factory):
+    """The JAX detector's ``i420`` run and the port's ``i420``, ``i420d`` and
+    ``I420`` runs on the same weights and frames (two calls each, so that
+    i420d's chain crosses calls), with ``slice_outputs``' settings."""
+    detection = dict(DETECTION, transfer_format="i420")
+    jax_det = JaxDETRDetector(
+        ConfigManager.from_dict({"detection": detection, "parallel": {"mesh": {"data": 1}}}),
+        detr_config=JaxDETRConfig.tiny(num_classes=2),
+    )
+    jax_det.load_model()
+    path = tmp_path_factory.mktemp("w") / "tiny.npz"
+    save_weights_npz(jax_det.variables, path)
+    rng = np.random.default_rng(1)
+    calls = [rng.integers(0, 256, (5, 120, 160, 3), np.uint8), rng.integers(0, 256, (3, 120, 160, 3), np.uint8)]
+    want = [jax_det.detect_batch(f) for f in calls]
+    got = {}
+    for fmt in ("i420", "i420d", "I420"):
+        det = DETRDetector({f"detection.{k}": v for k, v in detection.items()}
+                           | {"detection.checkpoint_path": str(path), "detection.transfer_format": fmt},
+                           detr_config=DETRConfig.tiny(num_classes=2))
+        got[fmt] = [det.detect_batch(f) for f in calls]
+        assert det.transfer_format == fmt.lower()
+    return want, got
+
+
 @pytest.mark.parametrize("fmt", ["i420", "i420d", "I420"])
-def test_i420_transfer_formats_are_refused(fmt):
-    """ROADMAP C.6: the I420 routes change the pixels the model sees, and the
-    port does not have them yet (A.4), so it refuses them where JAX would
-    run them."""
-    with pytest.raises(NotImplementedError, match="ROADMAP A.4"):
-        DETRDetector({"detection.device": "cpu", "detection.transfer_format": fmt})
+def test_i420_transfer_formats_run(i420_outputs, fmt):
+    """Each I420 route (the value read without regard to case) gives the
+    JAX detector's i420 detections at the DETR bars of the BGR test, and
+    i420d the i420 route's, bit for bit, over two calls (the delta chain
+    crosses chunks and calls)."""
+    want, got = i420_outputs
+    for w, g, ref in zip(want, got[fmt], got["i420"]):
+        np.testing.assert_array_equal(g.valid, np.asarray(w.valid))
+        np.testing.assert_allclose(g.scores, np.asarray(w.scores), atol=1e-5)
+        np.testing.assert_allclose(g.boxes_xywh, np.asarray(w.boxes_xywh), atol=1e-3)
+        np.testing.assert_allclose(g.foot, np.asarray(w.foot), atol=1e-3)
+        for name in ("boxes_xywh", "scores", "valid", "foot"):
+            np.testing.assert_array_equal(getattr(g, name), getattr(ref, name))
+    assert any(np.asarray(w.valid).any() for w in want)
 
 
 @pytest.mark.parametrize("fmt", ["auto", "bgr"])
-def test_auto_transfer_format_resolves_to_bgr(fmt, caplog):
-    """``auto`` (the shipped config.yaml's value) takes ``bgr``, one of the JAX
-    race's candidates, and says so in the log."""
+def test_auto_transfer_format_races(fmt, caplog):
+    """``auto`` (the shipped config.yaml's value) races bgr, i420 and i420d on
+    the first batch, logs the times, keeps the fastest and runs it; ``bgr``
+    runs no race."""
+    det = DETRDetector({"detection.device": "cpu", "detection.transfer_format": fmt, "detection.model_size": "tiny",
+                        "detection.batch_size": 2, "detection.input_height": 64, "detection.input_width": 96,
+                        "detection.dtype": "float32"})
+    assert det.transfer_format == fmt
+    frames = np.random.default_rng(2).integers(0, 256, (3, 72, 96, 3), np.uint8)
     with caplog.at_level(logging.INFO, logger="office_person_detection_vit_torch.detection.detector"):
-        det = DETRDetector({"detection.device": "cpu", "detection.transfer_format": fmt})
-    assert det.transfer_format == "bgr"
-    said = [r.getMessage() for r in caplog.records if "transfer_format" in r.getMessage()]
-    assert said == (["detection.transfer_format 'auto' resolves to 'bgr' (one of the race's candidates; the I420 "
-                     "routes wait for ROADMAP A.4)"] if fmt == "auto" else [])
+        batch = det.detect_batch(frames)
+    assert batch.scores.shape[0] == 3
+    said = [r.getMessage() for r in caplog.records if "transfer autotune" in r.getMessage()]
+    if fmt == "bgr":
+        assert det.transfer_format == "bgr" and det.transfer_race_ms is None and said == []
+    else:
+        assert det.transfer_format in TRANSFER_FORMATS
+        assert set(det.transfer_race_ms) == set(TRANSFER_FORMATS)
+        assert det.transfer_format == min(det.transfer_race_ms, key=det.transfer_race_ms.get)
+        assert len(said) == 1 and said[0].startswith(f"transfer autotune: {det.transfer_format} (")

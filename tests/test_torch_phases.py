@@ -275,11 +275,47 @@ def test_empty_run_writes_the_same_artifacts(tmp_path):
 
 
 # -------------------------------------------------------------------- refusals
+@pytest.fixture(scope="module")
+def single_shot_weights(tmp_path_factory):
+    """The JAX tiny single-shot and YOLOv8 inits as the trainer's flat npz."""
+    import jax
+
+    from office_person_detection_vit_tpu.models.single_shot import SingleShotConfig, init_single_shot
+    from office_person_detection_vit_tpu.models.yolo import YOLOConfig, init_yolo
+
+    tmp = tmp_path_factory.mktemp("ss")
+    paths = {}
+    for name, init, cfg in (("ssd", init_single_shot, SingleShotConfig.tiny()), ("yolo", init_yolo, YOLOConfig.tiny())):
+        _, variables = init(cfg, jax.random.PRNGKey(2), input_hw=(64, 64))
+        paths[name] = tmp / f"{name}.npz"
+        np.savez(paths[name], **{f"leaf_{i}": np.asarray(a)
+                                 for i, a in enumerate(jax.tree_util.tree_leaves(jax.device_get(variables)))})
+    return paths
+
+
 @pytest.mark.parametrize("model", ["ssd", "fcos", "yolo"])
-def test_detection_phase_refuses_detectors_not_ported(tmp_path, model):
-    phase = DetectionPhase(_config(tmp_path, detection={"device": "cpu", "model": model}))
-    with pytest.raises(NotImplementedError, match="A.7"):
-        phase.initialize()
+def test_detection_phase_runs_the_single_shot_detectors(tmp_path, single_shot_weights, model):
+    """``detection.model`` ssd / fcos (the single-shot detector) and yolo
+    (YOLOv8) build the port's detectors, which detect through the phase and
+    write the JAX phase's artifacts on the same weights (no transfer_format:
+    neither JAX facade has one)."""
+    family = "yolo" if model == "yolo" else "ssd"
+    detection = {"device": "cpu", "model": model, "model_size": "tiny", "batch_size": 2, "input_height": 96,
+                 "input_width": 128, "confidence_threshold": 0.0, "checkpoint_path": str(single_shot_weights[family])}
+    cfg = _config(tmp_path, detection=detection)
+    frames = [render_frame(T0 + timedelta(minutes=5 * i), people=[(300 + 200 * i, 300, i)], seed=i)[::6, ::8].copy()
+              for i in range(3)]
+    for name, phase_cls, dto in (("jax", JaxDetectionPhase, jax_dto), ("port", DetectionPhase, port_dto)):
+        results = [dto.FrameResult(i, T0 + timedelta(minutes=5 * i)) for i in range(len(frames))]
+        phase_cls(cfg).execute(frames, results, tmp_path / name)
+    phase = DetectionPhase(cfg)
+    phase.initialize()
+    assert type(phase.detector).__name__ == ("YOLODetector" if model == "yolo" else "SSDDetector")
+    for name in ("detections.json", "detection_statistics.json"):
+        got, want = (json.loads((tmp_path / d / name).read_text()) for d in ("port", "jax"))
+        _assert_json_close(got, want, 1e-3, name, DETECTION_PX_KEYS)
+    stats = json.loads((tmp_path / "port" / "detection_statistics.json").read_text())
+    assert stats["total_detections"] > 0 and "transfer_format" not in stats
 
 
 def test_detection_phase_refuses_attention_overlays(tmp_path):

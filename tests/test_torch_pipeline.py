@@ -18,8 +18,9 @@ package's, on the CPU.
 - Resume skips the same phases in both, and rewrites the same
   ``zone_counts.csv``.
 - ``main``: a missing config returns 1; ``--timestamps-only`` returns 0 with
-  the JAX ``main.py``'s frames; each refusal returns 2 before any session
-  directory exists.
+  the JAX ``main.py``'s frames; the ``i420`` upload and the tiny YOLOv8 run to
+  ``summary.json``; each refusal returns 2 before any session directory
+  exists.
 - ``ConfigManager`` and the CLI; the services (session layout, checkpoint
   JSON, metadata, retention), the performance monitor and its trace, the
   memory and logging utilities; the floormap renders (pixel-equal) and the
@@ -42,6 +43,7 @@ import yaml
 from office_person_detection_vit_torch.cli.arguments import parse_arguments
 from office_person_detection_vit_torch.config.config_manager import ConfigManager, ConfigValidationError
 from office_person_detection_vit_torch.core import dto as port_dto
+from office_person_detection_vit_torch.detection.detector import TRANSFER_FORMATS
 from office_person_detection_vit_torch.main import main as port_main
 from office_person_detection_vit_torch.pipeline.orchestrator import PipelineOrchestrator
 from office_person_detection_vit_torch.pipeline.phases import VisualizationPhase
@@ -387,8 +389,42 @@ def test_missing_video_returns_1_like_jax_main(tmp_path):
         assert entry(["--config", str(cfg), "--timestamps-only"]) == 1, name
 
 
+#: Configurations that ran into a refusal, or ran another route, before this
+#: slice and run now: the I420 transfer route (A.4), ``auto``'s race (it ran
+#: bgr) and the YOLOv8 detector (A.7b; tiny, seeded init).
+RUNS = {
+    "i420": {"detection.transfer_format": "i420"},
+    "auto": {"detection.transfer_format": "auto"},
+    "yolo": {"detection.model": "yolo", "detection.model_size": "tiny", "detection.checkpoint_path": None,
+             "detection.confidence_threshold": 0.0},
+}
+
+
+#: The keys of the JAX phase's detection_statistics.json for a DETR detector.
+STATISTICS_KEYS = {"total_frames", "total_detections", "avg_detections_per_frame", "max_detections_per_frame",
+                   "min_detections_per_frame", "confidence", "transfer_format"}
+
+
+@pytest.mark.parametrize("case", list(RUNS))
+def test_main_runs_what_was_refused(tmp_path, video, case):
+    """``main`` on the synthetic video to ``summary.json`` and
+    ``zone_counts.csv``, with the upload or the detector the case names."""
+    cfg = write_config(tmp_path / "c.yaml", flow_config(tmp_path / "out", video, **RUNS[case]))
+    assert port_main(["--config", str(cfg)]) == 0
+    (session,) = sessions(tmp_path / "out")
+    summary = json.loads((session / "summary.json").read_text())
+    assert summary["status"] == "completed" and "02_detection" in summary["performance"]
+    assert (session / "05_aggregation" / "zone_counts.csv").exists()
+    stats = json.loads((session / "02_detection" / "detection_statistics.json").read_text())
+    assert stats["total_frames"] == 3
+    if case == "yolo":
+        assert "transfer_format" not in stats and stats["total_detections"] > 0
+    else:  # the JAX phase's keys: the race's winner is recorded, its times only logged
+        want = set(TRANSFER_FORMATS) if case == "auto" else {case}
+        assert stats["transfer_format"] in want and set(stats) == STATISTICS_KEYS
+
+
 REFUSALS = {
-    "i420": ({"detection.transfer_format": "i420"}, [], "A.4"),
     "distributed": ({"parallel.distributed.enabled": True}, [], "A.8"),
     "side_by_side_video": ({"output.save_side_by_side_video": True}, [], "A.3"),
     "attention_maps": ({"output.save_attention_maps": True}, [], "A.3"),

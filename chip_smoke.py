@@ -4,6 +4,8 @@
     python3 chip_smoke.py --phase 10a   # B.4 and its backward pair alone
     python3 chip_smoke.py --phase 11    # the tracking slice alone
     python3 chip_smoke.py --phase 12    # the ViT slice alone
+    python3 chip_smoke.py --phase 13    # the detector slice alone
+    python3 chip_smoke.py --phase 14    # head dims above 128, training, export, serving, scale-out
 
 Builds the hand-written CUDA kernels from
 ``office_person_detection_vit_torch/csrc`` (one nvcc call), holds each against
@@ -53,7 +55,7 @@ the pipeline phases 2-4, the entry point and the trainer:
 9. the whole flow through the port's entry point
    ``office_person_detection_vit_torch.main.main`` (what ``python -m
    office_person_detection_vit_torch --config <yaml>`` runs), from a video to
-   ``summary.json``: (a) a 4-hour 720p timelapse (08:00-12:00, ratio 313),
+   ``summary.json``: (a) a 2-hour 720p timelapse (08:00-10:00, ratio 313),
    DETR-R50 bf16 at 736x1280, batch 8, seeded random weights, the shipped
    ``detection.transfer_format: auto`` (the race's pick): every 5-minute
    target extracted with the timestamp the video burned in, each phase's
@@ -134,12 +136,28 @@ the pipeline phases 2-4, the entry point and the trainer:
    736x1280, bf16, batch 8 (frames/s), each in float32 card against CPU, the
    ultralytics ``.pt`` route on the card, and ``main`` with
    ``detection.model: yolo`` on the one-hour video.
+14. the scale-out slice: (a) head dims above 128 (C.7 closed): every
+   chunked body's registers, spills (none allowed) and HMMA count (none:
+   CUDA cores); K1/K2 at head dims 136, 192 and 256 in both types against
+   the plain version, timed against SDPA and the bound; B.4 at [10a]'s gate
+   at the same head dims; DETR with a ViT of 256-wide heads through
+   ``detect_batch``, its float32 forward card against CPU, and 8 of its
+   training steps, which launch the chunked bodies; (b) YOLOv8x and the
+   single-shot detector trained at 768x1344, bf16, batch 8 (ms a step,
+   images/s, peak memory, falling losses), a float32 step of each on the
+   card against the CPU, and ``main --fine-tune`` with ``training.model:
+   yolo`` whose weights detect; (c) DETR-R50 bf16 exported
+   (``torch.export``, symbolic batch; the attention is the port's operator)
+   and served by ``serve.py --artifact`` in a fresh process: 8 concurrent
+   JPEG posts coalesced, detections against ``detect_batch``, K2's launches
+   read from ``/stats``; (d) ``torchrun --nproc_per_node 1`` on NCCL: the
+   sharded DETR and YOLO steps against the one-process step.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 Its last two lines are JSON: the kernels (launches, error, times, bound; K1,
 K2, K3, B.4 and its backward pair, K2, B.4 and the pair at head dim 64 on
-the ViT's path, and K1, K2, B.4 and the pair at head dim 128 on the ViT-H-width
-path) and the device.
+the ViT's path, K1, K2, B.4 and the pair at head dim 128 on the ViT-H-width path,
+and the chunked bodies above head dim 128 on the VITW path) and the device.
 """
 
 from __future__ import annotations
@@ -152,6 +170,7 @@ import json
 import math
 import re
 import shutil
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -294,6 +313,14 @@ def kernel_resources(ka, kb, build) -> None:
     hmma = sass_hmma(build)
     for a in ka.kernel_attributes():
         base, args = a["name"].split("<")
+        if base.startswith("attention_wide"):  # the chunked bodies above head dim 128: CUDA cores in both types
+            smem = {"attention_wide": ka.WIDE_FWD_SMEM_BYTES, "attention_wide_bwd_dq": 5 * 64 * 65 * 4 + 64,
+                    "attention_wide_bwd_dkdv": (6 * 64 * 65 + 2 * 64) * 4}[base]
+            n_hmma = hmma_of_wide(hmma, a["name"])
+            check(n_hmma == 0, f"{a['name']}: {n_hmma} HMMA instructions in its SASS (a CUDA-core body)")
+            log(f"[1] {a['name']:36s} regs {a['regs']:3d}  spill (local) {a['local_bytes']:4d} B  static smem "
+                f"{a['static_smem']:6d} B  dynamic smem {smem:6d} B (any head dim)  HMMA in SASS {n_hmma}")
+            continue
         dtype = torch.bfloat16 if args.startswith("bf16") else torch.float32
         d = int(args.rstrip(">").split(",")[1])
         if "whole_kv" in base:
@@ -896,10 +923,10 @@ def trained_phase(ka, smi: str, render_frame, t_start: datetime) -> dict:
 # timestamp to the last: a video has frames until the scan reaches the end of
 # its span, so that the last target is one of them.
 FPS, RATIO, TOLERANCE_S, SCAN_STRIDE = 30, 313.0, 60, 6
-# 9a's span: 4 hours since phase 11 (Phase 1's OCR of the scanned frames
+# 9a's span: 2 hours since phase 14 (Phase 1's OCR of the scanned frames
 # takes most of 9a: 8 hours took 294 s of it on an H100 machine, 4 hours
-# 140.5 s).
-DAY_START, DAY_HOURS = datetime(2025, 1, 20, 8, 0, 0), 4
+# 128.3 s; the script with [14] must stay well inside its 1200 s).
+DAY_START, DAY_HOURS = datetime(2025, 1, 20, 8, 0, 0), 2
 HOUR_START = datetime(2025, 1, 20, 9, 0, 0)
 EXTRACTION_HEADER = ["frame_number", "timestamp", "target_timestamp", "confidence", "time_error_seconds",
                      "frame_path"]
@@ -2260,7 +2287,8 @@ def vit_b4_timing(ka, smi: str, shape=VIT_TRAIN, tag: str = "12a", seed: int = 6
                   what: str = "ViT-base training at 768x1344, batch 8") -> dict:
     """[12a]: B.4 at a ViT's training shape (ViT-base's VIT_TRAIN by
     default) in bf16: the gradients against the pair's plain version
-    (B4_BAR), then the times of forward+backward, the forward, the pair,
+    (B4_BAR) and the forward against the plain version in float32 (the
+    bench's TOLERANCE), then the times of forward+backward, the forward, the pair,
     plain autograd, the pair's plain version and SDPA (forward+backward and
     its backward alone)."""
     from office_person_detection_vit_torch import attention_kernel_bench as abench
@@ -2287,6 +2315,12 @@ def vit_b4_timing(ka, smi: str, shape=VIT_TRAIN, tag: str = "12a", seed: int = 6
     del twin
     check(all(bool(torch.isfinite(t).all()) for t in (out, *grads)) and twin_err <= B4_BAR[dtype],
           f"{tag}: B.4 at {shape}: gradients {twin_err:.2e} from the pair's plain version (bar {B4_BAR[dtype]:.2e})")
+    with torch.no_grad():  # the forward against the plain version in float32, a batch entry at a time
+        fwd_err = max((out[b].float() - attention_reference(*(t[b:b + 1].float() for t in x))[0]).abs().max().item()
+                      for b in range(shape[0]))
+    check(fwd_err <= abench.TOLERANCE[dtype],
+          f"{tag}: B.4's forward at {shape}: max|err| {fwd_err:.2e} from the plain version in float32 "
+          f"(tol {abench.TOLERANCE[dtype]:.0e})")
 
     def fwd_bwd(fn):
         def run():
@@ -2302,6 +2336,7 @@ def vit_b4_timing(ka, smi: str, shape=VIT_TRAIN, tag: str = "12a", seed: int = 6
     f_ms, f_by = abench.bound(shape, dtype, None)
     row = {
         "shape": list(shape), "dtype": "bfloat16", "max_abs_err": grad_abs, "grad_err_vs_twin_rel": twin_err,
+        "forward_max_abs_err": fwd_err,
         "ms": abench.cuda_ms(fwd_bwd(KernelAttention.apply), 5, 2),
         "forward_ms": abench.cuda_ms(lambda: KernelAttention.apply(*x, None), 5, 2),
         "backward_ms": abench.cuda_ms(lambda: torch.autograd.grad(out, (q, k, v), g, retain_graph=True), 5, 2),
@@ -2316,7 +2351,8 @@ def vit_b4_timing(ka, smi: str, shape=VIT_TRAIN, tag: str = "12a", seed: int = 6
         "forward_bound_ms": f_ms, "forward_bound_by": f_by,
     }
     log(f"[{tag}] B.4 {shape} bf16 ({what}): gradients {twin_err:.2e} from the pair's "
-        f"plain version (bar {B4_BAR[dtype]:.2e}); forward+backward {row['ms']:.4f} ms (forward {row['forward_ms']:.4f}, "
+        f"plain version (bar {B4_BAR[dtype]:.2e}), the forward {fwd_err:.2e} from the plain version "
+        f"(tol {abench.TOLERANCE[dtype]:.0e}); forward+backward {row['ms']:.4f} ms (forward {row['forward_ms']:.4f}, "
         f"backward {row['backward_ms']:.4f}, the pair alone {row['pair_ms']:.4f}), plain autograd {row['plain_ms']:.4f}, "
         f"the pair's plain version {row['plain_backward_ms']:.4f}, SDPA {row['library_ms']:.4f} (forward "
         f"{row['library_forward_ms']:.4f}, backward {row['library_backward_ms']:.4f}); bound {b_ms:.4f} ({b_by}; "
@@ -3051,6 +3087,581 @@ def d128_kernel_rows(res: dict) -> list:
     ]
 
 
+# ------------------------------------------------------------------ phase 14
+# C.7 closed: head dims above 128 run the chunked bodies (attention_wide* in
+# csrc/attention.cu; CUDA cores in both types, Q.K^T over 64-wide head-dim
+# chunks, output columns split over 128-wide grid-z blocks). [14a] holds K1,
+# K2 and B.4 at head dims 136 (padded to 192), 192 and 256 in both types
+# against the plain version at [2]'s bars and B.4 at [10a]'s gate, times them
+# against SDPA and the bound, and drives them on a model's path: DETR with a
+# ViT backbone whose heads are 256 wide (hidden 1024 over 4 heads, MLP 4096,
+# 2 layers; VITW), which no published model has, so that a detect, a float32
+# forward and training steps launch them.
+WIDE_KERNEL_CASES = [
+    ("attention_flash", (8, 4, 46 * 80 + 1, 46 * 80 + 1, 256), "bfloat16", False,
+     "the VITW detect's ViT at 736x1280, heads of 256 (K2, the path's shape)"),
+    ("attention_flash", (8, 4, 1008, 1008, 256), "bfloat16", True, "heads of 256 at 1008 tokens (K2)"),
+    ("attention_flash", (8, 4, 1008, 1008, 256), "float32", True, "heads of 256 at 1008 tokens, float32 (K2)"),
+    ("attention_flash", (8, 4, 1008, 1008, 192), "bfloat16", True, "heads of 192 at 1008 tokens (K2)"),
+    ("attention_flash", (8, 4, 1008, 1008, 192), "float32", True, "heads of 192 at 1008 tokens, float32 (K2)"),
+    ("attention_whole_kv", (8, 4, 197, 197, 256), "float32", False, "heads of 256 at 224x224 tokens (K1)"),
+    ("attention_whole_kv", (8, 4, 197, 197, 256), "bfloat16", False, "heads of 256 at 224x224, bf16 (K1)"),
+    ("attention_whole_kv", (8, 4, 197, 197, 192), "float32", False, "heads of 192 at 224x224 tokens (K1)"),
+    ("attention_whole_kv", (8, 4, 197, 197, 192), "bfloat16", False, "heads of 192 at 224x224, bf16 (K1)"),
+    ("attention_flash", (2, 4, 300, 260, 136), "bfloat16", True, "head dim 136, padded to 192 (K2)"),
+    ("attention_flash", (2, 4, 300, 260, 136), "float32", True, "head dim 136, padded to 192, float32 (K2)"),
+    ("attention_whole_kv", (2, 4, 300, 260, 136), "bfloat16", True, "head dim 136, padded to 192 (K1)"),
+    ("attention_whole_kv", (2, 4, 300, 260, 136), "float32", True, "head dim 136, padded to 192, float32 (K1)"),
+]
+WIDE_B4_CASES = [((2, 4, 300, 260, 136), "bfloat16", True, "head dim 136, padded to 192"),
+                 ((2, 4, 300, 260, 136), "float32", True, "head dim 136, padded to 192, float32"),
+                 ((1, 4, 1008, 1008, 192), "bfloat16", True, "heads of 192 at 1008 tokens"),
+                 ((2, 4, 197, 197, 192), "float32", False, "heads of 192 at 224x224, float32"),
+                 ((1, 4, 1008, 1008, 256), "bfloat16", False, "heads of 256 at 1008 tokens"),
+                 ((2, 4, 197, 197, 256), "float32", True, "heads of 256 at 224x224, float32")]
+VITW = dict(backbone="vit", vit_hidden=1024, vit_heads=4, vit_mlp=4096, vit_layers=2)
+VITW_CALLS = 2 + 18
+#: B.4 on that model's training path: 768x1344 (4033 tokens), batch 8.
+VITW_TRAIN = (8, 4, 48 * 84 + 1, 48 * 84 + 1, 256)
+
+
+def wide_count(ka, name: str) -> int:
+    """Launches at a head dim above 128 since the last reset_head_dim_counts."""
+    return sum(n for (wrapper, d), n in ka.head_dim_counts.items() if wrapper == name and d > 128)
+
+
+def hmma_of_wide(hmma: dict, name: str) -> int:
+    """hmma_of for the chunked bodies, named ``base<type[,K1|K2]>``: their
+    template takes the type and, in the forward, whether it runs two passes
+    (K1, ``Lb1E``) or one (K2, ``Lb0E``)."""
+    base, args = name.rstrip(">").split("<")
+    dtype, *kind = args.split(",")
+    typ = "13__nv_bfloat16" if dtype == "bf16" else "f"
+    passes = {"K1": "Lb1E", "K2": "Lb0E"}[kind[0]] if kind else ""
+    mangled = re.compile(rf"{len(base)}{base}I{typ}{passes}E")
+    counts = [n for f, n in hmma.items() if mangled.search(f)]
+    check(len(counts) == 1, f"{name}: {len(counts)} functions of its name in the SASS")
+    return counts[0]
+
+
+def wide_phase(ka, build, smi: str, frames: np.ndarray, samples: list) -> dict:
+    """[14a]: the chunked bodies' registers and spills (none allowed) and
+    HMMA count (none: CUDA cores); the forward cases and B.4 at [10a]'s gate;
+    then the VITW DETR through detect_batch (bf16, 736x1280, batch 8: K2),
+    its float32 forward at 224x224 card against CPU (K1), and 8 of its bf16
+    training steps at 768x1344 (B.4)."""
+    from office_person_detection_vit_torch import attention_kernel_bench as abench
+    from office_person_detection_vit_torch.detection.detector import DETRDetector
+    from office_person_detection_vit_torch.models.detr import DETRConfig
+    from office_person_detection_vit_torch.models.weights import flax_param_map
+
+    t0 = time.perf_counter()
+    hmma = sass_hmma(build)
+    bodies = {}
+    for a in ka.kernel_attributes():
+        if a["name"].startswith("attention_wide"):
+            n_hmma = hmma_of_wide(hmma, a["name"])
+            check(a["local_bytes"] == 0, f"14a: {a['name']} spills {a['local_bytes']} B a thread")
+            check(n_hmma == 0, f"14a: {a['name']}: {n_hmma} HMMA instructions (a CUDA-core body)")
+            bodies[a["name"]] = {"regs": a["regs"], "local_bytes": a["local_bytes"], "hmma": n_hmma}
+            log(f"[14a] {a['name']:36s} regs {a['regs']:3d}  spill (local) {a['local_bytes']} B  HMMA in SASS {n_hmma}")
+    check(len(bodies) == 8, f"14a: {len(bodies)} chunked bodies, expected 8")
+    rows = {}
+    for seed, case in enumerate(WIDE_KERNEL_CASES):
+        row = abench.measure(ka, case, 900 + seed)
+        log(f"[14a] {abench.describe(row)} [{case[4]}]")
+        rows[case[:3]] = row
+        torch.cuda.empty_cache()
+    b4 = b4_phase(ka, smi, WIDE_B4_CASES, WIDE_B4_CASES, tag="14a")
+    b4_path = vit_b4_timing(ka, smi, VITW_TRAIN, "14a", 950, "VITW (heads of 256) training at 768x1344, batch 8")
+
+    cfg = DETRConfig(dtype="bfloat16", **VITW)
+    det = DETRDetector({f"detection.{k}": v for k, v in vit_detector_config().items()}, detr_config=cfg)
+    det.load_model()
+    det.detect_batch(frames[:8])  # warm-up
+    torch.cuda.synchronize()
+    ka.reset_launch_counts()
+    ka.reset_head_dim_counts()
+    batch = det.detect_batch(frames[:16])
+    torch.cuda.synchronize()
+    detect_counts, k2_wide = dict(ka.launch_counts), wide_count(ka, "attention_flash")
+    check(det.last_failed_chunks == 0 and all(np.isfinite(a).all() for a in (batch.boxes_xywh, batch.scores)),
+          "14a: VITW detect failed or gave non-finite detections")
+    check(detect_counts == launches(flash=VITW_CALLS * 2) and k2_wide == 4,
+          f"14a: VITW detect launched {detect_counts}, {k2_wide} above head dim 128 (expected {VITW_CALLS} K2 a "
+          "chunk x 2, 2 a chunk at 256)")
+    log(f"[14a] DETR with a ViT of 256-wide heads (VITW) bf16 736x1280 batch 8 through detect_batch: launches "
+        f"{detect_counts} over 2 chunks, {k2_wide} of them K2 at head dim 256")
+    det.cleanup()
+    del det
+    torch.cuda.empty_cache()
+
+    fcfg = DETRConfig(dtype="float32", **VITW)
+    flash = 2 * ka.use_flash(197, 256, torch.float32) + 6 * (2 * ka.use_flash(196, 32, torch.float32)
+                                                             + ka.use_flash(100, 32, torch.float32))
+    ka.reset_head_dim_counts()
+    d_logits, d_boxes, cpu_secs = float32_card_vs_cpu(ka, fcfg, frames[:1], launches(whole_kv=20 - flash, flash=flash),
+                                                      "14a", hw=(224, 224))
+    f32_wide = wide_count(ka, "attention_whole_kv")
+    check(f32_wide == 2, f"14a: the float32 forward launched {f32_wide} K1 above head dim 128, expected 2")
+    log(f"[14a] float32 VITW DETR at 224x224 on the card ({20 - flash} K1, {flash} K2; {f32_wide} K1 at head dim 256) "
+        f"vs the CPU ({cpu_secs:.1f} s): max|dlogits| {d_logits:.2e} (atol {LOGITS_ATOL} rtol {LOGITS_RTOL}), "
+        f"max|dboxes| {d_boxes:.2e} (atol {BOXES_ATOL})")
+    torch.cuda.empty_cache()
+
+    ka.reset_head_dim_counts()
+    tcfg = DETRConfig(dtype="bfloat16", dropout=0.1, **VITW)
+    train = train_full_width(ka, smi, samples, tcfg, tag="14a", calls=VITW_CALLS, leaves=len(flax_param_map(tcfg)),
+                             name="VITW DETR (heads of 256)")
+    train_wide = {"attention_diff": wide_count(ka, "attention_flash"),
+                  "attention_backward": wide_count(ka, "attention_backward")}
+    check(train_wide == {"attention_diff": 16, "attention_backward": 16},
+          f"14a: 8 training steps launched {train_wide} above head dim 128, expected 2 B.4 pairs a step")
+    log(f"[14a] phase {time.perf_counter() - t0:.1f} s")
+    return {"bodies": bodies, "forward": rows, "b4": b4, "b4_path": b4_path, "detect_counts": detect_counts,
+            "k2_wide": k2_wide, "f32_wide": f32_wide, "train_wide": train_wide, "train": train}
+
+
+# [14b]: the single-shot trainers at full width (A.7c): the JAX trainer's
+# full size, bf16 compute from float32 master weights at 768x1344, batch 8,
+# lr 1e-4, over [10]'s 16 images; the float32 card step against the CPU's at
+# batch 1. A step's gradients are held as [10c] holds DETR-small's (each leaf
+# within SMALL_GRAD_RTOL of its max |grad|), and the update where it is
+# stable: AdamW's first step moves an element by lr g / (|g| + eps), about lr
+# times the sign of its gradient, so an element whose gradient is noise on
+# both sides may move either way, and an error dg moves the update by at
+# most lr dg / |g|. Where the CPU's gradient is at least
+# SINGLE_SHOT_UPDATE_FLOOR of its leaf's max, dg / |g| is under
+# SMALL_GRAD_RTOL / SINGLE_SHOT_UPDATE_FLOOR, and so is the update's error
+# in units of lr.
+SINGLE_SHOT_UPDATE_FLOOR = 0.1
+SINGLE_SHOT_UPDATE_TOL = SMALL_GRAD_RTOL / SINGLE_SHOT_UPDATE_FLOOR
+
+
+def single_shot_train_setup(model_name: str, dtype: str, device: str):
+    """A seeded YOLOv8x or single-shot model (float32 master weights) on
+    ``device``, its TrainState and train step (the YOLO or FCOS criterion on
+    the letterboxed content), and its config."""
+    from office_person_detection_vit_torch.models.single_shot import SingleShotConfig, SingleShotDetector
+    from office_person_detection_vit_torch.models.yolo import YOLOConfig, YOLOv8
+    from office_person_detection_vit_torch.ops.preprocessing import compute_resize_geometry
+    from office_person_detection_vit_torch.training import (TrainState, make_optimizer, make_ssd_train_step,
+                                                            make_yolo_train_step)
+
+    content = compute_resize_geometry((720, 1280), TRAIN_HW)
+    if model_name == "yolo":
+        cfg = YOLOConfig(variant="x", dtype=dtype)
+        model, make = YOLOv8(cfg), make_yolo_train_step
+    else:
+        cfg = SingleShotConfig(dtype=dtype)
+        model, make = SingleShotDetector(cfg), make_ssd_train_step
+    model.init_weights(torch.Generator().manual_seed(0))
+    model.to(device)
+    tx = make_optimizer(learning_rate=1e-4, backbone_lr=1e-5)
+    return cfg, model, TrainState.create(model, tx), make(model, tx, TRAIN_HW, content_hw=content)
+
+
+def single_shot_steps(smi: str, samples: list, model_name: str, n: int = 8) -> dict:
+    """2 warm-up and n - 2 timed bf16 steps over the loader's two batches of
+    8 (two per epoch): ms a step (CUDA events), images/s, peak memory; every
+    loss finite, and each batch's loss lower at its last visit than at its
+    first."""
+    from office_person_detection_vit_torch.training import COCOBatchLoader
+
+    cfg, model, state, step = single_shot_train_setup(model_name, "bfloat16", "cuda")
+    n_params = sum(p.numel() for p in state.params)
+    loader = COCOBatchLoader(samples, TRAIN_BATCH, capacity=32, seed=0)
+    batches = [{k: v for k, v in to_device(b, TRAIN_HW, torch.bfloat16).items() if k != "pixel_mask"}
+               for b in loader.epoch(0)]
+    generator = torch.Generator().manual_seed(1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms, losses = [], []
+    for i in range(n):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, metrics = step(state, batches[i % len(batches)], generator)
+        end.record()
+        torch.cuda.synchronize()
+        losses.append(metrics["loss"].item())
+        if i >= 2:
+            ms.append(start.elapsed_time(end))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check(all(math.isfinite(x) for x in losses), f"14b {model_name}: non-finite losses {losses}")
+    first, last = losses[:len(batches)], losses[-len(batches):]
+    check(all(b < a for a, b in zip(first, last)), f"14b {model_name}: losses did not fall: {losses}")
+    med = statistics.median(ms)
+    name = {"yolo": "YOLOv8x", "ssd": "the single-shot detector (ResNet-50 + FPN)"}[model_name]
+    log(f"[14b] {name} ({n_params / 1e6:.2f} M parameters, seeded) bf16 (float32 master weights) 768x1344 batch "
+        f"{TRAIN_BATCH}, lr 1e-4, {len(samples)} images: {n - 2} timed steps after 2 warm-up, median {med:.3f} ms a "
+        f"step (CUDA events; {min(ms):.3f}-{max(ms):.3f}), {TRAIN_BATCH * 1e3 / med:.2f} images/s, peak memory "
+        f"{peak:.2f} GiB; losses {', '.join(f'{x:.4f}' for x in losses)} on {smi}")
+    del state, model, step, batches
+    torch.cuda.empty_cache()
+    return {"params_m": n_params / 1e6, "step_ms": med, "step_ms_min": min(ms), "step_ms_max": max(ms),
+            "images_per_s": TRAIN_BATCH * 1e3 / med, "peak_gib": peak, "losses": losses}
+
+
+def train_step_card_vs_cpu(smi: str, samples: list, model_name: str) -> dict:
+    """One float32 step at batch 1, 768x1344, on the card (TF32 off) and on
+    the CPU from the same weights and batch: the losses within 1e-4
+    relative, every gradient within SMALL_GRAD_RTOL of its leaf's max, the
+    stable updates within SINGLE_SHOT_UPDATE_TOL of lr."""
+    from office_person_detection_vit_torch.device import full_float32
+    from office_person_detection_vit_torch.training import COCOBatchLoader
+
+    host_batch = next(iter(COCOBatchLoader(samples[:1], 1, capacity=32, seed=0).epoch(0)))
+    runs = {}
+    for where in ("cuda", "cpu"):
+        cfg, model, state, step = single_shot_train_setup(model_name, "float32", where)
+        before = [p.detach().clone() for p in state.params]
+        b = {k: v.to(where) for k, v in to_device(host_batch, TRAIN_HW, torch.float32).items() if k != "pixel_mask"}
+        t = time.perf_counter()
+        with full_float32():
+            state, metrics = step(state, b, torch.Generator().manual_seed(1))
+        secs = time.perf_counter() - t
+        runs[where] = {"metrics": {k: v.item() for k, v in metrics.items()}, "secs": secs,
+                       "grads": [p.grad.detach().cpu() if p.grad is not None else torch.zeros_like(p).cpu()
+                                 for p in state.params],
+                       "updates": [(p.detach() - a).cpu() for p, a in zip(state.params, before)], "keys": state.keys}
+        del model, state, step
+    card, cpu = runs["cuda"], runs["cpu"]
+    loss_err = max(abs(card["metrics"][k] - v) / max(abs(v), 1e-12) for k, v in cpu["metrics"].items())
+    grad_worst, update_worst, stable = 0.0, 0.0, 0
+    for a, b, ua, ub in zip(card["grads"], cpu["grads"], card["updates"], cpu["updates"]):
+        top = max(b.abs().max().item(), 1e-30)
+        grad_worst = max(grad_worst, (a - b).abs().max().item() / top)
+        sel = b.abs() >= SINGLE_SHOT_UPDATE_FLOOR * top
+        stable += int(sel.sum())
+        if sel.any():
+            update_worst = max(update_worst, (ua - ub)[sel].abs().max().item() / 1e-4)
+    n = sum(g.numel() for g in cpu["grads"])
+    check(loss_err <= 1e-4 and grad_worst <= SMALL_GRAD_RTOL and update_worst <= SINGLE_SHOT_UPDATE_TOL,
+          f"14b {model_name} float32 card vs CPU: losses {loss_err:.2e} (bar 1e-4), gradients {grad_worst:.2e} of "
+          f"the leaf's max (bar {SMALL_GRAD_RTOL:.0e}), stable updates {update_worst:.2e} of lr "
+          f"(bar {SINGLE_SHOT_UPDATE_TOL:.0e})")
+    log(f"[14b] {model_name} one float32 step at batch 1, 768x1344, card vs CPU ({cpu['secs']:.1f} s): losses within "
+        f"{loss_err:.2e} relative (bar 1e-4), worst gradient {grad_worst:.2e} of its leaf's max |grad| (bar "
+        f"{SMALL_GRAD_RTOL:.0e}), updates of the {stable} of {n} elements whose gradient is at least "
+        f"{SINGLE_SHOT_UPDATE_FLOOR:.0%} of the leaf's max within {update_worst:.2e} of lr (bar "
+        f"{SINGLE_SHOT_UPDATE_TOL:.0e}); card losses {card['metrics']} on {smi}")
+    torch.cuda.empty_cache()
+    return {"loss_err": loss_err, "grad_rel": grad_worst, "update_rel_lr": update_worst, "cpu_s": cpu["secs"]}
+
+
+def yolo_fine_tune(smi: str, data: Path, tmp: Path, frame: np.ndarray) -> dict:
+    """``main --fine-tune`` with ``training.model: yolo`` and
+    ``training.yolo_variant: x`` at full size for one epoch (the trainer's
+    ``--model yolo``), then its weights.npz in the YOLO detector on the card."""
+    import logging
+
+    import yaml
+
+    from office_person_detection_vit_torch.detection.yolo_detector import YOLODetector
+    from office_person_detection_vit_torch.main import main as port_main
+
+    out = tmp / "yolo_fine_tune"
+    cfg = {"detection": {"device": "cuda"}, "output": {"directory": str(tmp / "yolo_logs")},
+           "training": {"images_dir": str(data / "train" / "images"), "annotations": str(data / "train" / "coco.json"),
+                        "epochs": 1, "batch_size": TRAIN_BATCH, "output_dir": str(out), "model": "yolo",
+                        "yolo_variant": "x", "input_height": TRAIN_HW[0], "input_width": TRAIN_HW[1],
+                        "learning_rate": 1e-4, "augment": True}}
+    path = tmp / "yolo_fine_tune.yaml"
+    path.write_text(yaml.safe_dump(cfg))
+    t = time.perf_counter()
+    with path.with_suffix(".log").open("w") as console, contextlib.redirect_stdout(console):
+        rc = port_main(["--config", str(path), "--fine-tune"])
+        root = logging.getLogger()
+        for handler in list(root.handlers):
+            root.removeHandler(handler)
+            handler.close()
+    secs = time.perf_counter() - t
+    if rc != 0:
+        log("\n".join(path.with_suffix(".log").read_text().splitlines()[-60:]))
+    check(rc == 0, f"14b: main --fine-tune with training.model yolo exited {rc}")
+    history = json.loads((out / "history.json").read_text())
+    steps = TRAIN_IMAGES // TRAIN_BATCH
+    check(len(history["step_losses"]) == steps and all(math.isfinite(x) for x in history["step_losses"]),
+          f"14b: history {history['step_losses']}")
+    det = YOLODetector({"detection.model_size": "full", "detection.yolo_variant": "x", "detection.dtype": "bfloat16",
+                        "detection.device": "cuda", "detection.checkpoint_path": str(out / "weights.npz"),
+                        "detection.batch_size": 1, "detection.input_height": 736, "detection.input_width": 1280,
+                        "detection.confidence_threshold": 0.0})
+    det.load_model()
+    batch = det.detect_batch(frame[None])
+    check(det.last_failed_chunks == 0 and np.isfinite(batch.boxes_xywh).all() and int(batch.valid.sum()) > 0,
+          "14b: the fine-tuned YOLOv8x weights do not detect")
+    log(f"[14b] main --fine-tune, training.model yolo, yolo_variant x (full size, augment, 1 epoch, {steps} steps): "
+        f"exit 0 in {secs:.3f} s; history.json losses {[round(x, 4) for x in history['step_losses']]}; weights.npz "
+        f"({(out / 'weights.npz').stat().st_size} bytes) in the YOLO detector on the card: {int(batch.valid.sum())} "
+        f"boxes on one frame at confidence 0 on {smi}")
+    det.cleanup()
+    return {"secs": secs, "losses": history["step_losses"]}
+
+
+def single_shot_train_phase(smi: str, samples: list, data: Path, frame: np.ndarray) -> dict:
+    """[14b]: YOLOv8x and the single-shot detector trained at full width,
+    each float32 step on the card against the CPU's, and ``main --fine-tune``
+    with ``training.model: yolo``."""
+    t = time.perf_counter()
+    out = {m: single_shot_steps(smi, samples, m, 8 if m == "yolo" else 6) for m in ("yolo", "ssd")}
+    for m in ("yolo", "ssd"):
+        out[m]["float32"] = train_step_card_vs_cpu(smi, samples, m)
+    with tempfile.TemporaryDirectory() as tmp:
+        out["fine_tune"] = yolo_fine_tune(smi, data, Path(tmp), frame)
+    log(f"[14b] phase {time.perf_counter() - t:.1f} s")
+    return out
+
+
+# [14c]: export and serve (A.8). DETR-R50 bf16 at 736x1280 (720p frames),
+# seeded weights with [11c]'s person head (every query's top class is person,
+# so every query is a detection at confidence 0), exported with a symbolic
+# batch; served by `python -m office_person_detection_vit_torch.serve
+# --artifact ... --weights ...` in a fresh process. The served detections of
+# 8 concurrent JPEG posts are held against detect_batch of the decoded frames
+# by the same weights: scores within SERVE_SCORE_TOL and boxes within
+# SERVE_BOX_TOL px (bf16: the micro-batcher's batches are not detect_batch's,
+# and cuDNN may pick other algorithms at another batch size; a bf16 score
+# near 1 is 2^-8 apart from its neighbours, a coordinate of 1280 px 5 px).
+SERVE_SCORE_TOL, SERVE_BOX_TOL = 2.0**-5, 8.0
+
+
+def export_serve_phase(ka, smi: str, frames: np.ndarray, tmp: Path) -> dict:
+    import socket
+    import urllib.request
+
+    import cv2
+
+    from office_person_detection_vit_torch.detection import export as port_export
+    from office_person_detection_vit_torch.detection.detector import DETRDetector
+
+    t0 = time.perf_counter()
+    det = DETRDetector({"detection.model_size": "full", "detection.dtype": "bfloat16", "detection.device": "cuda",
+                        "detection.batch_size": 8, "detection.input_height": 736, "detection.input_width": 1280,
+                        "detection.confidence_threshold": 0.0})
+    det.load_model()
+    person_head(det)
+    t = time.perf_counter()
+    program = port_export.export_detect(det)
+    export_s = time.perf_counter() - t
+    artifact, weights = tmp / "detr_r50_bf16.pt2", tmp / "detr_r50_bf16_weights.npz"
+    size = port_export.save_exported(program, artifact)
+    leaves = port_export.save_weights_npz(det, weights)
+    ops = [str(n.target) for n in program.graph.nodes if n.op == "call_function"]
+    n_op = sum(o == "office_person_detection_vit_torch.attention.default" for o in ops)
+    check(n_op == 18 and not any("scaled_dot_product" in o for o in ops),
+          f"14c: the exported graph holds {n_op} calls of the attention operator (expected 18) and "
+          f"{sum('scaled_dot_product' in o for o in ops)} SDPA")
+    log(f"[14c] exported DETR-R50 bf16 (symbolic batch, 720x1280 frames) in {export_s:.1f} s: {size} bytes, "
+        f"{len(ops)} graph calls, {n_op} of them torch.ops.office_person_detection_vit_torch.attention, no SDPA; "
+        f"weights {leaves} leaves, path-keyed")
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    server = subprocess.Popen([sys.executable, "-m", "office_person_detection_vit_torch.serve", "--artifact",
+                               str(artifact), "--weights", str(weights), "--confidence", "0.0", "--host", "127.0.0.1",
+                               "--port", str(port)], cwd=ROOT, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+    url = f"http://127.0.0.1:{port}"
+    try:
+        lines, t = [], time.perf_counter()
+        while time.perf_counter() - t < 300:
+            line = server.stdout.readline()
+            if not line:
+                break
+            lines.append(line)
+            if line.startswith("serving on"):
+                break
+        check(lines and lines[-1].startswith("serving on"), f"14c: the server did not start: {''.join(lines)[-3000:]}")
+        start_s = time.perf_counter() - t
+
+        def get(path):
+            with urllib.request.urlopen(f"{url}{path}", timeout=60) as r:
+                return json.loads(r.read())
+
+        warm = get("/stats")
+        jpegs = [cv2.imencode(".jpg", f, [cv2.IMWRITE_JPEG_QUALITY, 95])[1].tobytes() for f in frames[:8]]
+        docs, latency = [None] * len(jpegs), [None] * len(jpegs)
+
+        def post(i):
+            t = time.perf_counter()
+            req = urllib.request.Request(f"{url}/detect", data=jpegs[i], method="POST")
+            with urllib.request.urlopen(req, timeout=120) as r:
+                docs[i] = json.loads(r.read())
+            latency[i] = (time.perf_counter() - t) * 1e3
+
+        import threading
+
+        threads = [threading.Thread(target=post, args=(i,)) for i in range(len(jpegs))]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        stats = get("/stats")
+    finally:
+        server.terminate()
+        try:
+            server.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            server.kill()
+            server.wait()
+    check(all(d is not None for d in docs), "14c: a request got no answer")
+    served = stats["requests"] - warm["requests"]
+    batches = stats["batches"] - warm["batches"]
+    k2 = stats["attention_launches"]["attention_flash"] - warm["attention_launches"]["attention_flash"]
+    check(served == 8 and batches < 8, f"14c: {served} requests in {batches} batches (expected 8, coalesced)")
+    warm_k2 = warm["attention_launches"]["attention_flash"]
+    check(k2 == 18 * batches and warm_k2 == 18 * 4 and stats["attention_launches"]["attention_whole_kv"] == 0,
+          f"14c: the server launched {k2} K2 for {batches} batches (expected 18 a batch), {warm_k2} warming its "
+          f"4 buckets (expected 72) and {stats['attention_launches']['attention_whole_kv']} K1")
+    decoded = np.stack([cv2.imdecode(np.frombuffer(j, np.uint8), cv2.IMREAD_COLOR) for j in jpegs])
+    want = det.detect_batch(decoded).to_frame_results()
+    score_err = box_err = 0.0
+    for doc, fr in zip(docs, want):
+        check(len(doc["detections"]) == len(fr.detections),
+              f"14c: {len(doc['detections'])} served detections against {len(fr.detections)} of detect_batch")
+        for g, w in zip(doc["detections"], fr.detections):
+            score_err = max(score_err, abs(g["confidence"] - w.confidence))
+            b = g["bbox"]
+            box_err = max(box_err, max(abs(x - y) for x, y in zip((b["x"], b["y"], b["width"], b["height"]), w.bbox)))
+    check(score_err <= SERVE_SCORE_TOL and box_err <= SERVE_BOX_TOL,
+          f"14c: served detections off detect_batch's by {score_err:.3e} in score (bar {SERVE_SCORE_TOL:.3e}) and "
+          f"{box_err:.3f} px (bar {SERVE_BOX_TOL})")
+    lat = sorted(latency)
+    log(f"[14c] serve --artifact in a fresh process: up in {start_s:.1f} s (artifact load, weights, the buckets "
+        f"1, 2, 4 and 8 warmed: {warm_k2} K2 launches); 8 concurrent JPEG posts answered in {batches} device batches, K2 launched "
+        f"{k2} times (18 a batch; the served program ran the hand-written kernel); latency ms min/median/max "
+        f"{lat[0]:.1f}/{lat[len(lat) // 2]:.1f}/{lat[-1]:.1f} (host clock, client side); detections against "
+        f"detect_batch of the decoded frames: {sum(len(d['detections']) for d in docs)} boxes, scores within "
+        f"{score_err:.3e}, boxes within {box_err:.3f} px on {smi}")
+    det.cleanup()
+    del det, program
+    torch.cuda.empty_cache()
+    log(f"[14c] phase {time.perf_counter() - t0:.1f} s")
+    return {"artifact_bytes": size, "export_s": export_s, "server_start_s": start_s, "batches": batches,
+            "k2_launches": k2, "latency_ms": lat, "score_err": score_err, "box_err": box_err}
+
+
+def scale_out_phase(smi: str, tmp: Path) -> dict:
+    """[14d]: ``torchrun --nproc_per_node 1`` on NCCL runs the scale-out
+    self-check (``parallel/selfcheck.py``): the sharded DETR and YOLO steps
+    against the one-process step (loss to 1e-5 relative, parameters and EMA
+    to 1e-5 of max(1, |leaf|)), sharded detection against one forward, an
+    all-reduce over the group; and a grid of 2 model ranks over 1 raises."""
+    import socket
+
+    from office_person_detection_vit_torch.parallel.mesh import make_mesh
+
+    t0 = time.perf_counter()
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    proc = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", "1", "--master_addr",
+                           "127.0.0.1", "--master_port", str(port), "-m",
+                           "office_person_detection_vit_torch.parallel.selfcheck", "dp", str(tmp), "cuda"],
+                          cwd=ROOT, capture_output=True, text=True, timeout=600)
+    check(proc.returncode == 0, f"14d: torchrun exited {proc.returncode}: {(proc.stdout + proc.stderr)[-3000:]}")
+    res = json.loads((tmp / "rank0.json").read_text())
+    check(res["backend"] == "nccl" and res["all_reduce"] == 1.0, f"14d: {res.get('backend')} {res.get('all_reduce')}")
+    for model in ("detr", "yolo"):
+        got = res[model]
+        check(got["metrics"] and got["moved"] and max(got["loss"], got["params"], got["ema"]) <= 1e-5,
+              f"14d: the sharded {model} step against the one-process step: {got}")
+    check(res["detect"]["valid"] == 0 and res["detect"]["scores"] <= 1e-5 and res["detect"]["boxes_xywh"] <= 1e-3,
+          f"14d: sharded detection {res['detect']}")
+    try:
+        make_mesh(model_parallel=2)
+        raised = False
+    except ValueError as e:
+        raised = "must divide" in str(e)
+    check(raised, "14d: make_mesh(model_parallel=2) on one process did not raise")
+    log(f"[14d] torchrun --nproc_per_node 1 (NCCL, grid {res['shape']}): the sharded DETR step (dropout, augment, "
+        f"EMA) against the one-process step: loss {res['detr']['loss']:.2e}, parameters {res['detr']['params']:.2e}, "
+        f"EMA {res['detr']['ema']:.2e}; YOLO loss {res['yolo']['loss']:.2e}, parameters {res['yolo']['params']:.2e}; "
+        f"sharded detect {res['detect']}; make_mesh(model_parallel=2) over 1 rank raises; "
+        f"{time.perf_counter() - t0:.1f} s on {smi}")
+    return res
+
+
+def scale_slice(ka, build, smi: str, frames: np.ndarray, samples: list, data: Path) -> dict:
+    """Phase 14: head dims above 128, the single-shot trainers, export and
+    serving, scale-out on one card."""
+    t = time.perf_counter()
+    wide = wide_phase(ka, build, smi, frames, samples)
+    trainers = single_shot_train_phase(smi, samples, data, frames[0])
+    with tempfile.TemporaryDirectory() as tmp:
+        serving = export_serve_phase(ka, smi, frames, Path(tmp))
+    with tempfile.TemporaryDirectory() as tmp:
+        scale = scale_out_phase(smi, Path(tmp))
+    log(f"[14] phase {time.perf_counter() - t:.1f} s")
+    return {"wide": wide, "trainers": trainers, "serving": serving, "scale_out": scale}
+
+
+def wide_kernel_rows(res: dict) -> list:
+    """The kernels line's rows of the chunked bodies (head dims above 128),
+    each at the shape of the path its launches come from, as
+    d128_kernel_rows: K2 at the VITW detect's ViT shape, K1 at its float32
+    forward's, B.4 and its pair at VITW_TRAIN."""
+    src = "office_person_detection_vit_torch/csrc/attention.cu"
+    wide = res["wide"]
+    k2 = wide["forward"][WIDE_KERNEL_CASES[0][:3]]
+    k1 = wide["forward"][WIDE_KERNEL_CASES[5][:3]]
+    b4 = wide["b4_path"]
+    train_path = "VITW DETR (ViT heads of 256) bf16 training at 768x1344, batch 8, 8 steps, phase 14a"
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape", "dtype")
+    return [
+        {"name": "attention_flash_wide", "route": "cuda", "source": src,
+         "replaces": "office_person_detection_vit_tpu/ops/attention.py:159", "launches": wide["k2_wide"],
+         "launches_on": "VITW DETR bf16 through detect_batch at 736x1280, 16 frames, phase 14a",
+         **{k: k2[k] for k in keys + ("instruction",)}},
+        {"name": "attention_whole_kv_wide", "route": "cuda", "source": src,
+         "replaces": "office_person_detection_vit_tpu/ops/attention.py:60", "launches": wide["f32_wide"],
+         "launches_on": "VITW DETR float32 forward at 224x224 on the card, phase 14a",
+         **{k: k1[k] for k in keys + ("instruction",)}},
+        {"name": "attention_diff_wide", "route": "cuda", "source": src,
+         "function": "office_person_detection_vit_torch/ops/attention.py KernelAttention",
+         "replaces": "office_person_detection_vit_tpu/ops/attention.py:306",
+         "launches": wide["train_wide"]["attention_diff"], "launches_on": train_path,
+         **{k: b4[k] for k in keys + ("forward_ms", "backward_ms")}},
+        {"name": "attention_backward_wide", "route": "cuda", "source": src,
+         "replaces": "office_person_detection_vit_tpu/ops/attention.py:322",
+         "launches": wide["train_wide"]["attention_backward"], "launches_on": train_path,
+         "max_abs_err": b4["max_abs_err"], "ms": b4["pair_ms"], "plain_ms": b4["plain_backward_ms"],
+         "bound_ms": b4["backward_bound_ms"], "bound_by": b4["backward_bound_by"],
+         "library_ms": b4["library_backward_ms"], "shape": b4["shape"], "dtype": b4["dtype"]},
+    ]
+
+
+def scale_phase_alone() -> int:
+    """``--phase 14``: the build and phase 14 with its own training images
+    (a child process)."""
+    from office_person_detection_vit_torch import train_detr
+    from office_person_detection_vit_torch.kernels import attention as ka
+    from office_person_detection_vit_torch.kernels import build
+
+    smi = card_line()
+    log(f"[1] card: {smi}")
+    with tempfile.TemporaryDirectory() as data:
+        writer = start_dataset_writer(Path(data))
+        try:
+            ka.load_library()
+            render_frame = load_render_frame()
+            t0 = datetime(2025, 1, 20, 9, 0, 0)
+            frames = np.stack([render_frame(t0 + timedelta(minutes=5 * i),
+                                            people=[(300 + 20 * i, 300, 0), (800 - 15 * i, 360, 1)], seed=i)
+                               for i in range(16)])
+            samples = wait_dataset(writer, Path(data))
+            res = scale_slice(ka, build, smi, frames, samples, Path(data))
+        finally:
+            if writer.poll() is None:
+                writer.kill()
+                writer.wait()
+    print(json.dumps({"kernels": wide_kernel_rows(res)}, default=str), flush=True)
+    print(json.dumps({k: res[k] for k in ("trainers", "serving", "scale_out")}, default=str), flush=True)
+    return 0
+
+
 def detector_phase_alone() -> int:
     """``--phase 13``: the build and phase 13 with its own one-hour video and
     training images (child processes) and [8a]'s 288 frames."""
@@ -3108,7 +3719,7 @@ def main(argv=None) -> int:
     import argparse
 
     parser = argparse.ArgumentParser(description="Chip smoke test of the PyTorch/CUDA port.")
-    parser.add_argument("--phase", choices=["10a", "11", "12", "13"], help="run only this phase (after the build) and "
+    parser.add_argument("--phase", choices=["10a", "11", "12", "13", "14"], help="run only this phase (after the build) and "
                         "print its rows")
     parser.add_argument("--showcase-session", type=Path, default=None,
                         help="[11b]: resume this directory's session/ (a showcase session made elsewhere, its "
@@ -3141,6 +3752,8 @@ def main(argv=None) -> int:
         return vit_phase_alone()
     if args.phase == "13":
         return detector_phase_alone()
+    if args.phase == "14":
+        return scale_phase_alone()
     with tempfile.TemporaryDirectory() as videos, tempfile.TemporaryDirectory() as data:
         writer = start_video_writer(Path(videos))  # phase 9's videos, written while phases 1-8 run
         dataset_writer = start_dataset_writer(Path(data))  # phase 10's images
@@ -3370,6 +3983,9 @@ def run(writer: subprocess.Popen, videos: Path, dataset_writer: subprocess.Popen
     samples = load_coco_dataset(data / "train" / "images", data / "train" / "coco.json")
     detectors = detector_slice(ka, build, probe, smi, frames[:16], day_frames, videos, samples)
 
+    # ---- 14. head dims above 128, the single-shot trainers, export and serving, scale-out
+    scale = scale_slice(ka, build, smi, frames[:16], samples, data)
+
     # ---- result
     replaces = {"attention_whole_kv": "office_person_detection_vit_tpu/ops/attention.py:60",
                 "attention_flash": "office_person_detection_vit_tpu/ops/attention.py:159"}
@@ -3438,6 +4054,7 @@ def run(writer: subprocess.Popen, videos: Path, dataset_writer: subprocess.Popen
     })
     kernels += vit_kernel_rows(vit)
     kernels += d128_kernel_rows(detectors)
+    kernels += wide_kernel_rows(scale)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

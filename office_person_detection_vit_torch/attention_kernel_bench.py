@@ -57,6 +57,8 @@ DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 TOLERANCE = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 #: The instruction that does the products, by type.
 INSTRUCTION = {torch.bfloat16: "mma.sync.m16n8k16", torch.float32: "FFMA (CUDA cores)"}
+#: Above head dim 128 both types run the chunked bodies (ROADMAP C.7).
+WIDE_INSTRUCTION = "FFMA (CUDA cores, head dim in 64-wide chunks)"
 # Published H100 SXM peaks (dense): HBM bytes/s; bf16 tensor-core and
 # non-tensor float32 FLOP/s.
 PEAK_BYTES = 3.35e12
@@ -178,7 +180,8 @@ def measure(kernels, case, seed: int, iters: int = 20) -> dict:
         "plain_ms": cuda_ms(lambda: attention_reference(q, k, v, mask), 5),
         "library_ms": cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
             q, k, v, attn_mask=sdpa_mask), iters),
-        "bound_ms": bound_ms, "bound_by": bound_by, "instruction": INSTRUCTION[dtype],
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "instruction": WIDE_INSTRUCTION if kernels.is_wide(shape[4]) else INSTRUCTION[dtype],
     }
 
 

@@ -52,7 +52,8 @@
 //  * Head dims 16, 32, 64 and 128 are instantiated; kernels/attention.py
 //    pads any other D <= 128 with zero columns up to the next of them and
 //    passes the true scale 1/sqrt(D), which every entry point takes as an
-//    argument.
+//    argument. Above 128 the chunked bodies of the C.7 section below take
+//    any multiple of 64 (the wrapper pads up to one), in both types.
 //  * The mask becomes a float bias per key in shared memory (0 valid, -inf
 //    not), read once per batch entry by each block; s = acc * scale + bias.
 //    Ragged Lq and Lk are masked in the kernel; nothing is padded outside.
@@ -1409,6 +1410,393 @@ attention_bwd_dq_slice(const float* __restrict__ q, const float* __restrict__ k,
   if (live) store_slice<D>(dq + q_row * D, split, acc, scale);
 }
 
+// ============================================== head dims above 128 (C.7)
+// The bodies above keep a row's q (bf16: its Q fragments) and its output in
+// registers and, in K1, a head's whole K and V in shared memory; above 128
+// neither fits (K1 at D 256 float32 and 197 keys needs 403 KB of K/V, and
+// the bf16 mma bodies already sit at 214-240 registers at D 128). These
+// bodies take the head dim in chunks instead, one template for both types,
+// on the CUDA cores: Q.K^T (and g.V^T) is summed over 64-wide chunks of the
+// head dim staged through shared memory as float32, and the output columns
+// are split over grid z in 128-wide chunks; each z block recomputes the
+// scores, the way the D-128 bf16 pair splits its halves. The wrapper pads
+// D to a multiple of 64 (kernels/attention.py::kernel_head_dim). A block is
+// 64 query rows (the backward's dK/dV: 64 keys) of four threads each; a
+// thread holds 16 scores of a 64-key tile (key split + 4m) and 32 output
+// columns (column split + 4c of its chunk). Staged rows are padded to 65
+// (129) floats so that the four threads of a row, which read four rows of
+// the other operand, hit four banks. Rounding follows the mma bodies: K2
+// rounds the unnormalised p to T before P.V, K1 (two passes) the
+// normalised p; the backward sums in float32 and rounds only its results.
+// Bound: operations, on the CUDA cores; they re-read their operands from
+// shared memory for every product, and speed is not their aim: no model of
+// the repo has a head dim above 128.
+constexpr int kWideChunk = 64;                 // head-dim columns of one staged chunk
+constexpr int kWideOut = 128;                  // output columns of one grid-z block
+constexpr int kWideS = kWideChunk + 1;         // staged row stride (floats)
+constexpr int kWideO = kWideOut + 1;           // output-chunk row stride (floats)
+constexpr int kWideKeys = kFlashKeys / kSplit; // scores a thread keeps (16)
+constexpr int kWideCols = kWideOut / kSplit;   // output columns a thread keeps (32)
+constexpr int kWideTile = kRows * kWideS;      // floats of one staged 64 x 64 chunk
+constexpr int kWideOutTile = kRows * kWideO;   // floats of one staged 64 x 128 chunk
+
+__device__ __forceinline__ float wide_f(float x) { return x; }
+__device__ __forceinline__ float wide_f(bf16 x) { return __bfloat162float(x); }
+template <typename T> __device__ __forceinline__ T wide_t(float x);
+template <> __device__ __forceinline__ float wide_t<float>(float x) { return x; }
+template <> __device__ __forceinline__ bf16 wide_t<bf16>(float x) { return __float2bfloat16(x); }
+
+// Rows [0, n) of src (row stride D), columns [c0, c0 + w), as float32 into
+// dst (row stride `stride`, kRows rows); zero past n rows and w columns.
+template <typename T>
+__device__ __forceinline__ void wide_stage(float* dst, int stride, const T* src, int n, int D, int c0,
+                                           int w, int cols) {
+  for (int idx = threadIdx.x; idx < kRows * cols; idx += blockDim.x) {
+    const int r = idx / cols, c = idx % cols;
+    dst[r * stride + c] = (r < n && c < w) ? wide_f(src[(size_t)r * D + c0 + c]) : 0.f;
+  }
+}
+
+// s[m] += x[row] . y[split + 4m] over one staged chunk (x, y: kWideTile each).
+__device__ __forceinline__ void wide_dots(const float* x, int row, const float* y, int split, float* s) {
+#pragma unroll 4
+  for (int d = 0; d < kWideChunk; ++d) {
+    const float a = x[row * kWideS + d];
+#pragma unroll
+    for (int m = 0; m < kWideKeys; ++m) s[m] = fmaf(a, y[(split + kSplit * m) * kWideS + d], s[m]);
+  }
+}
+
+// acc[c] += sum_j p[row][j] * y[j][split + 4c] over j < n (p: kWideTile,
+// y: kWideOutTile), for the first nc of a thread's columns.
+__device__ __forceinline__ void wide_axpy(const float* p, int row, const float* y, int split, int n, int nc,
+                                          float* acc) {
+  for (int j = 0; j < n; ++j) {
+    const float pj = p[row * kWideS + j];
+#pragma unroll
+    for (int c = 0; c < kWideCols; ++c)
+      if (c < nc) acc[c] = fmaf(pj, y[j * kWideO + split + kSplit * c], acc[c]);
+  }
+}
+
+__device__ __forceinline__ float quad_max(unsigned quad, float x) {
+  x = fmaxf(x, __shfl_xor_sync(quad, x, 1));
+  return fmaxf(x, __shfl_xor_sync(quad, x, 2));
+}
+
+// K1 (kTwoPass) and K2 for D > 128. Grid (B*H, ceil(Lq/64), ceil(D/128)),
+// kThreads threads, wide_fwd_smem_bytes() of dynamic shared memory.
+template <typename T, bool kTwoPass>
+__global__ void __launch_bounds__(kThreads)
+attention_wide(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+               const uint8_t* __restrict__ mask, T* __restrict__ out, float* __restrict__ lse, int H,
+               int Lq, int Lk, int D, float scale_log2) {
+  extern __shared__ __align__(16) float wsm[];
+  float* sq = wsm;                     // the Q chunk
+  float* sk = sq + kWideTile;          // the K chunk
+  float* sp = sk + kWideTile;          // the tile's rounded p
+  float* sv = sp + kWideTile;          // the V tile's output columns
+  uint8_t* svalid = reinterpret_cast<uint8_t*>(sv + kWideOutTile);
+
+  const int bh = blockIdx.x, r0 = blockIdx.y * kRows, c0 = blockIdx.z * kWideOut;
+  const int nq = min(kRows, Lq - r0), w = min(kWideOut, D - c0), nc = w / kSplit;
+  const uint8_t* mask_b = mask ? mask + (size_t)(bh / H) * Lk : nullptr;
+  const bool all_masked = !any_valid_key(mask_b, Lk);
+  const int row = threadIdx.x / kSplit, split = threadIdx.x % kSplit;
+  const unsigned quad = 0xfu << (threadIdx.x % 32 / kSplit * kSplit);
+  const T* qb = q + ((size_t)bh * Lq + r0) * D;
+  const T* kb = k + (size_t)bh * Lk * D;
+  const T* vb = v + (size_t)bh * Lk * D;
+
+  // This thread's 16 scaled, biased scores (log2 domain) of the tile at k0.
+  auto scores = [&](int k0, int nk, float* s) {
+#pragma unroll
+    for (int m = 0; m < kWideKeys; ++m) s[m] = 0.f;
+    for (int d0 = 0; d0 < D; d0 += kWideChunk) {
+      __syncthreads();  // the previous chunk (or tile) is consumed
+      wide_stage(sq, kWideS, qb, nq, D, d0, kWideChunk, kWideChunk);
+      wide_stage(sk, kWideS, kb + (size_t)k0 * D, nk, D, d0, kWideChunk, kWideChunk);
+      if (d0 == 0 && threadIdx.x < kFlashKeys) {
+        const int j = threadIdx.x;
+        svalid[j] = j < nk && (all_masked || mask_b == nullptr || mask_b[k0 + j]);
+      }
+      __syncthreads();
+      wide_dots(sq, row, sk, split, s);
+    }
+#pragma unroll
+    for (int m = 0; m < kWideKeys; ++m) {
+      const int j = split + kSplit * m;
+      s[m] = !svalid[j] ? -INFINITY : all_masked ? 0.f : s[m] * scale_log2;
+    }
+  };
+
+  float m_run = -INFINITY, l_run = 0.f;
+  if constexpr (kTwoPass) {  // pass 1: the row's max and normaliser
+    for (int k0 = 0; k0 < Lk; k0 += kFlashKeys) {
+      float s[kWideKeys];
+      scores(k0, min(kFlashKeys, Lk - k0), s);
+      float mt = -INFINITY;
+#pragma unroll
+      for (int m = 0; m < kWideKeys; ++m) mt = fmaxf(mt, s[m]);
+      const float m_new = fmaxf(m_run, quad_max(quad, mt));
+      if (m_new == -INFINITY) continue;
+      float sum = 0.f;
+#pragma unroll
+      for (int m = 0; m < kWideKeys; ++m) sum += exp2f(s[m] - m_new);
+      l_run = l_run * exp2f(m_run - m_new) + quad_total(quad, sum);
+      m_run = m_new;
+    }
+  }
+  float acc[kWideCols];
+#pragma unroll
+  for (int c = 0; c < kWideCols; ++c) acc[c] = 0.f;
+  for (int k0 = 0; k0 < Lk; k0 += kFlashKeys) {
+    const int nk = min(kFlashKeys, Lk - k0);
+    float s[kWideKeys];
+    scores(k0, nk, s);
+    if constexpr (kTwoPass) {
+      const float inv = 1.f / l_run;
+#pragma unroll
+      for (int m = 0; m < kWideKeys; ++m)
+        sp[row * kWideS + split + kSplit * m] = wide_f(wide_t<T>(exp2f(s[m] - m_run) * inv));
+    } else {
+      float mt = -INFINITY;
+#pragma unroll
+      for (int m = 0; m < kWideKeys; ++m) mt = fmaxf(mt, s[m]);
+      const float m_new = fmaxf(m_run, quad_max(quad, mt));
+      const float alpha = m_new == -INFINITY ? 1.f : exp2f(m_run - m_new);
+      float sum = 0.f;
+#pragma unroll
+      for (int m = 0; m < kWideKeys; ++m) {
+        const float p = m_new == -INFINITY ? 0.f : exp2f(s[m] - m_new);
+        sum += p;
+        sp[row * kWideS + split + kSplit * m] = wide_f(wide_t<T>(p));
+      }
+      l_run = l_run * alpha + quad_total(quad, sum);
+      m_run = m_new;
+#pragma unroll
+      for (int c = 0; c < kWideCols; ++c) acc[c] *= alpha;
+    }
+    __syncthreads();  // the last chunk's readers are done before sv reuses nothing, sp is written
+    wide_stage(sv, kWideO, vb + (size_t)k0 * D, nk, D, c0, w, kWideOut);
+    __syncthreads();
+    wide_axpy(sp, row, sv, split, nk, nc, acc);
+  }
+  if (row >= nq) return;
+  const float inv = kTwoPass ? 1.f : 1.f / l_run;
+  T* o = out + ((size_t)bh * Lq + r0 + row) * D + c0;
+#pragma unroll
+  for (int c = 0; c < kWideCols; ++c)
+    if (c < nc) o[split + kSplit * c] = wide_t<T>(acc[c] * inv);
+  if (lse != nullptr && blockIdx.z == 0 && split == 0)
+    lse[(size_t)bh * Lq + r0 + row] = (m_run + log2f(l_run)) * kLn2;
+}
+
+// B.4's dQ for D > 128, grid (B*H, Lq_pad/64, ceil(D/128)). Its z = 0 blocks
+// also write each row's lse2 (base 2) and D = rowsum(g * out) to the scratch
+// for the dK/dV kernel, as attention_bwd_dq_* do.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+attention_wide_bwd_dq(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                      const uint8_t* __restrict__ mask, const T* __restrict__ out,
+                      const float* __restrict__ lse, const T* __restrict__ g, T* __restrict__ dq,
+                      float* __restrict__ lse2_pad, float* __restrict__ dsum_pad, int H, int Lq, int Lk,
+                      int D, int Lq_pad, float scale_log2, float scale) {
+  extern __shared__ __align__(16) float wsm[];
+  float* sq = wsm;                  // Q, K, g, V chunks; then the K tile's output columns
+  float* sk = sq + kWideTile;
+  float* sg = sk + kWideTile;
+  float* sv = sg + kWideTile;
+  float* sout = wsm;
+  float* sds = sv + kWideTile;      // the tile's dS
+  uint8_t* svalid = reinterpret_cast<uint8_t*>(sds + kWideTile);
+
+  const int bh = blockIdx.x, r0 = blockIdx.y * kRows, c0 = blockIdx.z * kWideOut;
+  const int nq = max(0, min(kRows, Lq - r0)), w = min(kWideOut, D - c0), nc = w / kSplit;
+  const uint8_t* mask_b = mask ? mask + (size_t)(bh / H) * Lk : nullptr;
+  const bool all_masked = !any_valid_key(mask_b, Lk);
+  const int row = threadIdx.x / kSplit, split = threadIdx.x % kSplit;
+  const unsigned quad = 0xfu << (threadIdx.x % 32 / kSplit * kSplit);
+  const bool live = row < nq;
+  const size_t q_row = (size_t)bh * Lq + r0 + (live ? row : 0);
+
+  // D_i = sum(g_i * out_i) over the whole head dim, a quarter a thread.
+  float dsum = 0.f;
+  if (live)
+    for (int d = split; d < D; d += kSplit) dsum = fmaf(wide_f(g[q_row * D + d]), wide_f(out[q_row * D + d]), dsum);
+  dsum = quad_total(quad, dsum);
+  const float lse2 = live ? lse[q_row] * kLog2e : 0.f;
+  if (blockIdx.z == 0 && split == 0) {
+    lse2_pad[(size_t)bh * Lq_pad + r0 + row] = lse2;
+    dsum_pad[(size_t)bh * Lq_pad + r0 + row] = dsum;
+  }
+  const T* qb = q + ((size_t)bh * Lq + r0) * D;
+  const T* gb = g + ((size_t)bh * Lq + r0) * D;
+  const T* kb = k + (size_t)bh * Lk * D;
+  const T* vb = v + (size_t)bh * Lk * D;
+  float acc[kWideCols];
+#pragma unroll
+  for (int c = 0; c < kWideCols; ++c) acc[c] = 0.f;
+  for (int k0 = 0; k0 < Lk; k0 += kFlashKeys) {
+    const int nk = min(kFlashKeys, Lk - k0);
+    float s[kWideKeys], dp[kWideKeys];
+#pragma unroll
+    for (int m = 0; m < kWideKeys; ++m) s[m] = dp[m] = 0.f;
+    for (int d0 = 0; d0 < D; d0 += kWideChunk) {
+      __syncthreads();
+      wide_stage(sq, kWideS, qb, nq, D, d0, kWideChunk, kWideChunk);
+      wide_stage(sg, kWideS, gb, nq, D, d0, kWideChunk, kWideChunk);
+      wide_stage(sk, kWideS, kb + (size_t)k0 * D, nk, D, d0, kWideChunk, kWideChunk);
+      wide_stage(sv, kWideS, vb + (size_t)k0 * D, nk, D, d0, kWideChunk, kWideChunk);
+      if (d0 == 0 && threadIdx.x < kFlashKeys) {
+        const int j = threadIdx.x;
+        svalid[j] = j < nk && (all_masked || mask_b == nullptr || mask_b[k0 + j]);
+      }
+      __syncthreads();
+      wide_dots(sq, row, sk, split, s);
+      wide_dots(sg, row, sv, split, dp);
+    }
+#pragma unroll
+    for (int m = 0; m < kWideKeys; ++m) {
+      const int j = split + kSplit * m;
+      const float p = svalid[j] ? exp2f((all_masked ? 0.f : s[m] * scale_log2) - lse2) : 0.f;
+      sds[row * kWideS + j] = live ? p * (dp[m] - dsum) : 0.f;
+    }
+    __syncthreads();  // the chunks are consumed; sout reuses them
+    wide_stage(sout, kWideO, kb + (size_t)k0 * D, nk, D, c0, w, kWideOut);
+    __syncthreads();
+    wide_axpy(sds, row, sout, split, nk, nc, acc);
+  }
+  if (!live) return;
+  T* o = dq + q_row * D + c0;
+#pragma unroll
+  for (int c = 0; c < kWideCols; ++c)
+    if (c < nc) o[split + kSplit * c] = wide_t<T>(acc[c] * scale);
+}
+
+// B.4's dK/dV for D > 128, grid (B*H, ceil(Lk/64), ceil(D/128)): a block
+// owns 64 keys (a key's four threads split the query rows of a tile) and
+// 128 columns of dK and dV, and walks the query rows in 64-row tiles.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+attention_wide_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                        const uint8_t* __restrict__ mask, const T* __restrict__ g, T* __restrict__ dk,
+                        T* __restrict__ dv, const float* __restrict__ lse2_pad,
+                        const float* __restrict__ dsum_pad, int H, int Lq, int Lk, int D, int Lq_pad,
+                        float scale_log2, float scale) {
+  extern __shared__ __align__(16) float wsm[];
+  float* sk = wsm;                  // K, V, Q, g chunks; then Q's and g's output columns
+  float* sv = sk + kWideTile;
+  float* sq = sv + kWideTile;
+  float* sg = sq + kWideTile;
+  float* soq = wsm;
+  float* sog = wsm + kWideOutTile;
+  float* sp = sg + kWideTile;       // P^T and dS^T of the tile (key rows)
+  float* sds = sp + kWideTile;
+  float* slse2 = sds + kWideTile;
+  float* sdsum = slse2 + kRows;
+
+  const int bh = blockIdx.x, k0 = blockIdx.y * kFlashKeys, c0 = blockIdx.z * kWideOut;
+  const int nk = min(kFlashKeys, Lk - k0), w = min(kWideOut, D - c0), nc = w / kSplit;
+  const uint8_t* mask_b = mask ? mask + (size_t)(bh / H) * Lk : nullptr;
+  const bool all_masked = !any_valid_key(mask_b, Lk);
+  const int row = threadIdx.x / kSplit, split = threadIdx.x % kSplit;
+  const bool live = row < nk;
+  const bool valid = live && (all_masked || mask_b == nullptr || mask_b[k0 + row]);
+  const T* kb = k + ((size_t)bh * Lk + k0) * D;
+  const T* vb = v + ((size_t)bh * Lk + k0) * D;
+  float dk_acc[kWideCols], dv_acc[kWideCols];
+#pragma unroll
+  for (int c = 0; c < kWideCols; ++c) dk_acc[c] = dv_acc[c] = 0.f;
+  for (int r0 = 0; r0 < Lq; r0 += kRows) {
+    const int nq = min(kRows, Lq - r0);
+    const T* qb = q + ((size_t)bh * Lq + r0) * D;
+    const T* gb = g + ((size_t)bh * Lq + r0) * D;
+    float s[kWideKeys], dp[kWideKeys];
+#pragma unroll
+    for (int m = 0; m < kWideKeys; ++m) s[m] = dp[m] = 0.f;
+    for (int d0 = 0; d0 < D; d0 += kWideChunk) {
+      __syncthreads();
+      wide_stage(sk, kWideS, kb, nk, D, d0, kWideChunk, kWideChunk);
+      wide_stage(sv, kWideS, vb, nk, D, d0, kWideChunk, kWideChunk);
+      wide_stage(sq, kWideS, qb, nq, D, d0, kWideChunk, kWideChunk);
+      wide_stage(sg, kWideS, gb, nq, D, d0, kWideChunk, kWideChunk);
+      if (d0 == 0 && threadIdx.x < kRows) {
+        slse2[threadIdx.x] = lse2_pad[(size_t)bh * Lq_pad + r0 + threadIdx.x];
+        sdsum[threadIdx.x] = dsum_pad[(size_t)bh * Lq_pad + r0 + threadIdx.x];
+      }
+      __syncthreads();
+      wide_dots(sk, row, sq, split, s);   // s[m] = k_row . q_(split+4m)
+      wide_dots(sv, row, sg, split, dp);  // dp[m] = v_row . g_(split+4m)
+    }
+#pragma unroll
+    for (int m = 0; m < kWideKeys; ++m) {
+      const int i = split + kSplit * m;
+      const float p = valid && i < nq ? exp2f((all_masked ? 0.f : s[m] * scale_log2) - slse2[i]) : 0.f;
+      sp[row * kWideS + i] = p;
+      sds[row * kWideS + i] = p * (dp[m] - sdsum[i]);
+    }
+    __syncthreads();  // the chunks are consumed; soq and sog reuse them
+    wide_stage(soq, kWideO, qb, nq, D, c0, w, kWideOut);
+    wide_stage(sog, kWideO, gb, nq, D, c0, w, kWideOut);
+    __syncthreads();
+    wide_axpy(sp, row, sog, split, nq, nc, dv_acc);
+    wide_axpy(sds, row, soq, split, nq, nc, dk_acc);
+  }
+  if (!live) return;
+  const size_t o = ((size_t)bh * Lk + k0 + row) * D + c0;
+#pragma unroll
+  for (int c = 0; c < kWideCols; ++c) {
+    if (c < nc) {
+      dk[o + split + kSplit * c] = wide_t<T>(dk_acc[c] * scale);
+      dv[o + split + kSplit * c] = wide_t<T>(dv_acc[c]);
+    }
+  }
+}
+
+constexpr size_t wide_fwd_smem_bytes() {
+  return (size_t)(3 * kWideTile + kWideOutTile) * sizeof(float) + kFlashKeys;
+}
+constexpr size_t wide_dq_smem_bytes() { return (size_t)5 * kWideTile * sizeof(float) + kFlashKeys; }
+constexpr size_t wide_dkdv_smem_bytes() { return (size_t)(6 * kWideTile + 2 * kRows) * sizeof(float); }
+static_assert(2 * kWideOutTile <= 4 * kWideTile, "the output chunks fit where the four staged chunks were");
+
+template <typename T>
+cudaError_t launch_wide(bool flash, const T* q, const T* k, const T* v, const uint8_t* mask, T* out,
+                        float* lse, int B, int H, int Lq, int Lk, int D, float scale_log2,
+                        cudaStream_t stream) {
+  if (D % kWideChunk != 0) return cudaErrorInvalidValue;
+  const dim3 grid(B * H, (Lq + kRows - 1) / kRows, (D + kWideOut - 1) / kWideOut);
+  constexpr size_t smem = wide_fwd_smem_bytes();
+  auto kernel = flash ? attention_wide<T, false> : attention_wide<T, true>;
+  const cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, kThreads, smem, stream>>>(q, k, v, mask, out, lse, H, Lq, Lk, D, scale_log2);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_backward_wide(const T* q, const T* k, const T* v, const uint8_t* mask, const T* out,
+                                 const float* lse, const T* g, T* dq, T* dk, T* dv, float* scratch, int B,
+                                 int H, int Lq, int Lk, int D, float scale, cudaStream_t stream) {
+  if (D % kWideChunk != 0) return cudaErrorInvalidValue;
+  const int Lq_pad = (Lq + kRows - 1) / kRows * kRows;
+  float* lse2_pad = scratch;
+  float* dsum_pad = scratch + (size_t)B * H * Lq_pad;
+  const float scale_log2 = kLog2e * scale;
+  const int zs = (D + kWideOut - 1) / kWideOut;
+  cudaError_t err;
+  if ((err = allow_smem(attention_wide_bwd_dq<T>, wide_dq_smem_bytes())) != cudaSuccess) return err;
+  attention_wide_bwd_dq<T><<<dim3(B * H, Lq_pad / kRows, zs), kThreads, wide_dq_smem_bytes(), stream>>>(
+      q, k, v, mask, out, lse, g, dq, lse2_pad, dsum_pad, H, Lq, Lk, D, Lq_pad, scale_log2, scale);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if ((err = allow_smem(attention_wide_bwd_dkdv<T>, wide_dkdv_smem_bytes())) != cudaSuccess) return err;
+  attention_wide_bwd_dkdv<T><<<dim3(B * H, (Lk + kFlashKeys - 1) / kFlashKeys, zs), kThreads,
+                               wide_dkdv_smem_bytes(), stream>>>(
+      q, k, v, mask, g, dk, dv, lse2_pad, dsum_pad, H, Lq, Lk, D, Lq_pad, scale_log2, scale);
+  return cudaGetLastError();
+}
+
 // ===================================================================== launch
 // Dynamic shared memory of the float32 bodies: K1 (K and V, the query tile
 // below D = 128 and the mask bytes), the D = 128 K2 and dQ bodies (a 64-key
@@ -1491,6 +1879,17 @@ int dispatch(bool flash, int dtype, const void* q, const void* k, const void* v,
   const uint8_t* m = static_cast<const uint8_t*>(mask);
   float* l = static_cast<float*>(lse);
   cudaError_t err = cudaErrorInvalidValue;
+  if (D > 128) {  // the chunked bodies (C.7); K1's grid arguments do not apply
+    if (dtype == 0)
+      err = launch_wide(flash, static_cast<const float*>(q), static_cast<const float*>(k),
+                        static_cast<const float*>(v), m, static_cast<float*>(out), l, B, H, Lq, Lk, D,
+                        scale_log2, s);
+    if (dtype == 1)
+      err = launch_wide(flash, static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                        static_cast<const bf16*>(v), m, static_cast<bf16*>(out), l, B, H, Lq, Lk, D,
+                        scale_log2, s);
+    return (int)err;
+  }
   if (dtype == 0) {
     const float *fq = static_cast<const float*>(q), *fk = static_cast<const float*>(k),
                 *fv = static_cast<const float*>(v);
@@ -1581,6 +1980,7 @@ cudaError_t dispatch_backward(int D, const void* q, const void* k, const void* v
   if (D == 32) return launch_backward<T, 32>(tq, tk, tv, m, to, l, tg, tdq, tdk, tdv, sc, B, H, Lq, Lk, scale, stream);
   if (D == 64) return launch_backward<T, 64>(tq, tk, tv, m, to, l, tg, tdq, tdk, tdv, sc, B, H, Lq, Lk, scale, stream);
   if (D == 128) return launch_backward<T, 128>(tq, tk, tv, m, to, l, tg, tdq, tdk, tdv, sc, B, H, Lq, Lk, scale, stream);
+  if (D > 128) return launch_backward_wide<T>(tq, tk, tv, m, to, l, tg, tdq, tdk, tdv, sc, B, H, Lq, Lk, D, scale, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -1622,13 +2022,22 @@ const Entry kKernels[] = {
     {"attention_bwd_dkdv_kernel<float,32>", (const void*)attention_bwd_dkdv_kernel<32>},
     {"attention_bwd_dkdv_kernel<float,64>", (const void*)attention_bwd_dkdv_kernel<64>},
     {"attention_bwd_dkdv_kernel<float,128>", (const void*)attention_bwd_dkdv_kernel<128>},
+    {"attention_wide<bf16,K1>", (const void*)attention_wide<bf16, true>},
+    {"attention_wide<bf16,K2>", (const void*)attention_wide<bf16, false>},
+    {"attention_wide<float,K1>", (const void*)attention_wide<float, true>},
+    {"attention_wide<float,K2>", (const void*)attention_wide<float, false>},
+    {"attention_wide_bwd_dq<bf16>", (const void*)attention_wide_bwd_dq<bf16>},
+    {"attention_wide_bwd_dkdv<bf16>", (const void*)attention_wide_bwd_dkdv<bf16>},
+    {"attention_wide_bwd_dq<float>", (const void*)attention_wide_bwd_dq<float>},
+    {"attention_wide_bwd_dkdv<float>", (const void*)attention_wide_bwd_dkdv<float>},
 };
 
 }  // namespace
 
 // Plain C interface, loaded with ctypes. dtype: 0 = float32, 1 = bfloat16.
 // mask: (B, Lk) bytes (torch.bool), or null for no mask. lse: (B, H, Lq)
-// float32, or null to write none. D: 16, 32, 64 or 128; scale: the softmax
+// float32, or null to write none. D: 16, 32, 64, 128, or a multiple of 64
+// above 128 (the chunked bodies, which take any lse); scale: the softmax
 // scale, 1/sqrt of the head dim before any zero padding (the wrapper pads
 // other head dims). stream: a cudaStream_t. Returns the
 // cudaError_t of the launch (0 = success). K1 takes its grid (blocks per

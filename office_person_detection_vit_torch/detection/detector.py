@@ -15,7 +15,16 @@ the patch from ``detection.patch_size``; the tiny ViT in the tiny and small
 tiers). ``detection.device``: ``"auto"``/``"cuda"`` run on the card (and raise when
 there is none), ``"cpu"`` on the CPU. Weights: a flat or path-keyed ``.npz``,
 a HF ``.pt``/``.bin``/``.safetensors``, otherwise a seeded random init with a
-warning. The data-parallel mesh has no counterpart on one card.
+warning.
+
+``parallel.mesh.{data,model}`` (JAX ``detector.py:95-96, 216-250``): the
+ranks of a running process group (one card each, ``torchrun``) form a
+(data, model) grid (``data: -1`` all of them); every rank calls
+``detect_batch`` with the same frames, detects its slice of each chunk and
+gathers the whole chunk's results (``parallel/inference.py``), and
+``model`` above 1 splits the transformer over the model ranks. One process
+has no mesh. With a mesh ``auto`` races ``bgr`` and ``i420`` only, and
+``i420d`` runs as ``i420`` (its chain runs along the frame axis).
 
 ``detection.transfer_format`` (JAX ``detector.py:77-87, 283-404``): ``bgr``
 uploads the uint8 BGR frames; ``i420`` converts them on the host to I420
@@ -28,8 +37,8 @@ pixels as ``i420``, bit for bit. ``auto`` races the three on the first batch
 (interleaved best of 3, each call ending in the host fetch of its results)
 and keeps the winner, which ``detection_statistics.json`` records. A frame
 whose H % 4 or W % 2 is not 0 takes ``bgr``, with a warning, as in JAX.
-Unlike JAX, the value is read without regard to case (JAX runs ``bgr`` for
-``I420``).
+The value is matched exactly, as the JAX detector matches it; a value that
+names no route (``I420`` among them) raises.
 """
 
 from __future__ import annotations
@@ -64,9 +73,10 @@ TRANSFER_FORMATS = ("bgr", "i420", "i420d")
 
 
 def check_transfer_format(value: Any) -> str:
-    """``detection.transfer_format``, lower-cased: one of
-    :data:`TRANSFER_FORMATS` or ``auto``; anything else raises."""
-    fmt = str(value).lower()
+    """``detection.transfer_format`` as written: one of
+    :data:`TRANSFER_FORMATS` or ``auto``; anything else (another case too)
+    raises."""
+    fmt = str(value)
     if fmt != "auto" and fmt not in TRANSFER_FORMATS:
         raise ValueError(f"detection.transfer_format={value!r}: expected bgr, i420, i420d or auto")
     return fmt
@@ -102,6 +112,10 @@ class DETRDetector:
         self.nms_threshold = float(_nms) if _nms is not None else None
         self.device_pref = str(get("detection.device", "auto"))
         self.transfer_format = check_transfer_format(get("detection.transfer_format", "bgr"))
+        self.data_parallel = int(get("parallel.mesh.data", -1))
+        self.model_parallel = int(get("parallel.mesh.model", 1))
+        self.mesh = None
+        self._data_size = 1
         if detr_config is None:
             common = dict(
                 num_queries=int(get("detection.num_queries", 100)),
@@ -176,12 +190,30 @@ class DETRDetector:
             else:
                 logger.warning("no checkpoint configured; using random init (seed %d)", INIT_SEED)
             model.init_weights(torch.Generator().manual_seed(INIT_SEED))
+        self._setup_mesh()
+        if self.mesh is not None:
+            from ..parallel.inference import detect_shardings
+
+            model, self._place_frames = detect_shardings(model, self.mesh, tensor_parallel=self.model_parallel > 1)
         self.model = model.to(device=self.device, dtype=self.detr_config.torch_dtype).eval()
 
+    def _setup_mesh(self) -> None:
+        """The (data, model) grid of ``parallel.mesh.*`` (see module doc;
+        ``parallel.mesh.detect_mesh``), and with a mesh ``i420d`` runs as
+        ``i420``."""
+        from ..parallel.mesh import detect_mesh
+
+        self.mesh, self._data_size, self.batch_size = detect_mesh(self.data_parallel, self.model_parallel,
+                                                                  self.batch_size)
+        if self.mesh is not None and self.transfer_format == "i420d":
+            logger.warning("i420d transfer is single-device; using i420")
+            self.transfer_format = "i420"
+
     def _bucket_sizes(self) -> list[int]:
-        """Chunk sizes up to batch_size: powers of two, then batch_size."""
+        """Chunk sizes up to batch_size: powers of two (times the data
+        axis, so that every chunk splits over it), then batch_size."""
         sizes = []
-        b = 1
+        b = self._data_size
         while b < self.batch_size:
             sizes.append(b)
             b *= 2
@@ -244,6 +276,8 @@ class DETRDetector:
     @torch.inference_mode()
     def _run_chunk(self, payload: np.ndarray, orig_wh: tuple[int, int],
                    fmt: str) -> tuple[DetectionBatch, torch.Tensor]:
+        if self.mesh is not None:  # this rank's slice of the chunk
+            payload = self._place_frames(payload)
         out = self.model(*self._pixels(payload, fmt))
         batch = postprocess_detr(
             out["logits"], out["boxes"], orig_wh, self.confidence_threshold,
@@ -251,6 +285,10 @@ class DETRDetector:
             score_mode=self.detr_config.score_mode,
             nms_iou=self.nms_threshold,
         )
+        if self.mesh is not None:
+            from ..parallel.inference import gather_detections
+
+            return gather_detections(batch, self.mesh, out["encoder_output"])
         return batch, out["encoder_output"]
 
     def _autotune_transfer(self, frames: np.ndarray) -> str:
@@ -266,11 +304,13 @@ class DETRDetector:
         _, H, W, _ = sample.shape
         payloads = {"bgr": lambda: sample, "i420": lambda: staging.bgr_to_i420(sample),
                     "i420d": lambda: staging.bgr_to_i420(sample)}
-        best = {fmt: float("inf") for fmt in TRANSFER_FORMATS}
-        for fmt in TRANSFER_FORMATS:  # warm each
+        # A mesh races bgr and i420 only: i420d's chain is single-device (JAX :361).
+        formats = TRANSFER_FORMATS if self.mesh is None else ("bgr", "i420")
+        best = {fmt: float("inf") for fmt in formats}
+        for fmt in formats:  # warm each
             self._run_chunk(payloads[fmt](), (W, H), fmt)
         for _ in range(3):
-            for fmt in TRANSFER_FORMATS:
+            for fmt in formats:
                 t0 = time.perf_counter()
                 self._run_chunk(payloads[fmt](), (W, H), fmt)
                 best[fmt] = min(best[fmt], time.perf_counter() - t0)

@@ -53,6 +53,11 @@ class SSDDetector:
         )
         self.checkpoint_path = get("detection.checkpoint_path", None)
         self.device_pref = str(get("detection.device", "auto"))
+        #: the data-parallel grid (the DETR detector's ``parallel.mesh.data``
+        #: contract; no tensor parallelism: no rule matches a convolution)
+        self.data_parallel = int(get("parallel.mesh.data", -1))
+        self.mesh = None
+        self._data_size = 1
         #: the model's configuration (``SingleShotConfig``, or ``YOLOConfig``
         #: in the YOLOv8 facade), from ``detection.*`` unless given
         self.model_config = ss_config if ss_config is not None else self._config_from(get)
@@ -76,8 +81,14 @@ class SSDDetector:
     def _make_model(self) -> torch.nn.Module:
         return SingleShotDetector(self.model_config)
 
-    def _decode(self, out: dict, orig_wh: tuple[int, int]) -> DetectionBatch:
-        return decode_single_shot(out, orig_wh, self.input_hw, self.model_config, self.confidence_threshold)
+    def _decode(self, out: dict, orig_wh, conf=None, host: bool = True) -> DetectionBatch:
+        """Raw outputs -> detections at ``conf`` (default: the configured
+        threshold); ``host=False`` the device tensors (the exported program)."""
+        conf = self.confidence_threshold if conf is None else conf
+        return decode_single_shot(out, orig_wh, self.input_hw, self.model_config, conf, host)
+
+    def _decode_tensors(self, out: dict, orig_wh, conf) -> dict:
+        return self._decode(out, orig_wh, conf, host=False)
 
     # ------------------------------------------------------------------ load
     def load_model(self) -> None:
@@ -97,11 +108,18 @@ class SSDDetector:
             else:
                 logger.warning("no checkpoint configured; using random init (seed %d)", INIT_SEED)
             model.init_weights(torch.Generator().manual_seed(INIT_SEED))
+        self._setup_mesh()
         self.model = model.to(device=self.device, dtype=cfg.torch_dtype).eval()
 
+    def _setup_mesh(self) -> None:
+        from ..parallel.mesh import detect_mesh
+
+        self.mesh, self._data_size, self.batch_size = detect_mesh(self.data_parallel, 1, self.batch_size)
+
     def _tail_bucket(self, remainder: int) -> int:
-        """Smallest power of two (or batch_size) that holds a partial tail."""
-        b = 1
+        """Smallest power of two (times the data axis; or batch_size) that
+        holds a partial tail."""
+        b = self._data_size
         while b < remainder:
             b *= 2
         return min(b, self.batch_size)
@@ -113,9 +131,18 @@ class SSDDetector:
 
     @torch.inference_mode()
     def _detect_chunk(self, frames_u8: np.ndarray, orig_wh: tuple[int, int]) -> DetectionBatch:
+        if self.mesh is not None:  # this rank's slice of the chunk
+            from ..parallel.mesh import batch_slice
+
+            frames_u8 = batch_slice(frames_u8, self.mesh.data_index, self.mesh.data_parallel)
         frames = torch.from_numpy(np.ascontiguousarray(frames_u8)).to(self.device)
         pixels, _ = preprocess_frames(frames, target_hw=self.input_hw, out_dtype=self.model_config.torch_dtype)
-        return self._decode(self.model(pixels), orig_wh)
+        batch = self._decode(self.model(pixels), orig_wh)
+        if self.mesh is not None:
+            from ..parallel.inference import gather_detections
+
+            batch = gather_detections(batch, self.mesh)[0]
+        return batch
 
     # ---------------------------------------------------------------- detect
     def detect_batch(self, frames: np.ndarray) -> DetectionBatch:

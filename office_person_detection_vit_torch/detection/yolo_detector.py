@@ -41,5 +41,6 @@ class YOLODetector(SSDDetector):
     def _make_model(self) -> torch.nn.Module:
         return YOLOv8(self.model_config)
 
-    def _decode(self, out: dict, orig_wh: tuple[int, int]) -> DetectionBatch:
-        return decode_yolo(out, orig_wh, self.input_hw, self.model_config, self.confidence_threshold)
+    def _decode(self, out: dict, orig_wh, conf=None, host: bool = True) -> DetectionBatch:
+        conf = self.confidence_threshold if conf is None else conf
+        return decode_yolo(out, orig_wh, self.input_hw, self.model_config, conf, host)

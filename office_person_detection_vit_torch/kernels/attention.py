@@ -21,8 +21,10 @@ The kernels are instantiated for head dims 16, 32, 64 and 128
 of them on the way in and cut back on the way out (:func:`padded_call`), with
 the softmax scale of the true head dim passed to the kernel: zero columns add
 nothing to a dot product, so the scores, the log-sum-exp and the kept columns
-of every result are those of the unpadded call. A head dim above 128 raises
-(ROADMAP C.7).
+of every result are those of the unpadded call. Above 128 every wrapper runs
+the chunked bodies (``attention_wide*`` in the source, C.7), which take any
+multiple of :data:`WIDE_CHUNK`: a head dim is padded up to the next one the
+same way, so every head dim runs.
 
 In bf16 the forwards and the backward pair run their products on the tensor
 cores (``mma.sync`` m16n8k16, one warp per 16 query or key rows;
@@ -75,7 +77,14 @@ WARP_ROWS, TILE_KEYS = 16, 64
 #: tiny ViT), 32 (DETR full), 64 (ViT-base) and 128 (ViT-H's 80 padded, and
 #: any head up to 128). Others up to 128 are padded.
 HEAD_DIMS = (16, 32, 64, 128)
+#: Above 128 the chunked bodies sum Q.K^T over head-dim chunks of this width
+#: (kWideChunk in the source) and take any multiple of it.
+WIDE_CHUNK = 64
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+#: Dynamic shared memory of the chunked forward body (wide_fwd_smem_bytes in
+#: the source): Q and K chunks and the tile's p (64 x 65 floats each), the V
+#: tile's output columns (64 x 129 floats) and a valid byte a key.
+WIDE_FWD_SMEM_BYTES = (3 * 64 * 65 + 64 * 129) * 4 + 64
 
 
 def reset_launch_counts() -> None:
@@ -104,15 +113,20 @@ def whole_kv_max_warps(head_dim: int) -> int:
 
 
 def kernel_head_dim(head_dim: int) -> int:
-    """The instantiated head dim a call of ``head_dim`` runs at: the least of
-    :data:`HEAD_DIMS` that holds it. Raises above 128 (ROADMAP C.7)."""
+    """The head dim a call of ``head_dim`` runs at: the least of
+    :data:`HEAD_DIMS` that holds it, and above 128 the next multiple of
+    :data:`WIDE_CHUNK` (the chunked bodies)."""
+    if head_dim < 1:
+        raise ValueError(f"head dim {head_dim}: must be at least 1")
     for d in HEAD_DIMS:
-        if 1 <= head_dim <= d:
+        if head_dim <= d:
             return d
-    raise ValueError(
-        f"head dim {head_dim}: the attention kernels take head dims 1 to {HEAD_DIMS[-1]} (instantiated "
-        f"{HEAD_DIMS}, others zero-padded); wider heads are not supported (ROADMAP C.7)"
-    )
+    return _ceil(head_dim, WIDE_CHUNK) * WIDE_CHUNK
+
+
+def is_wide(head_dim: int) -> bool:
+    """Whether a call of ``head_dim`` runs the chunked bodies (above 128)."""
+    return kernel_head_dim(head_dim) > HEAD_DIMS[-1]
 
 
 def padded_call(fn, q, k, v, *like_q):
@@ -148,8 +162,12 @@ def whole_kv_smem_bytes(lk: int, head_dim: int, dtype: torch.dtype) -> int:
     D 32, 2*960*32*2 + 960*4 = 126,720 B. float32: K and V, the 64-row query
     tile and one mask byte per key: 2*920*32*4 + 64*32*4 + 920 = 244,632 B;
     at head dim 128 no query tile (each thread loads its quarter of the row):
-    2*197*128*4 + 197 = 201,925 B at ViT-H's 197 keys.
+    2*197*128*4 + 197 = 201,925 B at ViT-H's 197 keys. Above 128 the
+    chunked body stages 64-key tiles, whatever Lk: 3 tiles of 64 x 65 and one
+    of 64 x 129 floats, and a byte a key of the tile (83,008 B).
     """
+    if is_wide(head_dim):
+        return WIDE_FWD_SMEM_BYTES
     head_dim = kernel_head_dim(head_dim)
     if dtype == torch.bfloat16:
         keys = _ceil(lk, TILE_KEYS) * TILE_KEYS
@@ -174,9 +192,10 @@ def whole_kv_plan(lq: int, lk: int, head_dim: int, dtype: torch.dtype) -> dict:
     over them. Only one block fits on an SM at DETR's 920 keys (126,720 B),
     so a block takes as many rows as it can: 920 rows are 58 warp tiles, 4
     blocks of 15 warps (480 threads); 100 rows (the decoder) one block of 7
-    warps. float32: 64-row blocks of 256 threads.
+    warps. float32, and both types above head dim 128 (whose grid the
+    source sets itself): 64-row blocks of 256 threads.
     """
-    if dtype == torch.bfloat16:
+    if dtype == torch.bfloat16 and not is_wide(head_dim):
         tiles = _ceil(lq, WARP_ROWS)
         blocks = _ceil(tiles, whole_kv_max_warps(head_dim))
         threads = 32 * _ceil(tiles, blocks)
@@ -202,6 +221,9 @@ def use_flash(lk: int, head_dim: int, dtype: torch.dtype) -> bool:
     otherwise (DETR-R50's 920 keys need 244,632 B; DC5's 3680 more).
     (The JAX package's 8 MB ``_FLASH_BYTES_THRESHOLD`` is a TPU VMEM figure
     and does not apply.)
+    Above head dim 128 both are the chunked body, which stages 64-key tiles
+    whatever Lk, so K1's always fits: bf16 takes K2 and float32 K1, by the
+    same rule.
     """
     return dtype == torch.bfloat16 or not whole_kv_fits(lk, head_dim, dtype)
 
@@ -255,7 +277,9 @@ def _check(q, k, v, mask) -> None:
     B, H, Lq, D = q.shape
     if k.shape[0] != B or k.shape[1] != H or k.shape[3] != D:
         raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} disagree")
-    kernel_head_dim(D)  # raises above 128; padded_call pads the others to HEAD_DIMS
+    if D != kernel_head_dim(D):
+        raise ValueError(f"head dim {D} is not one the kernels are built for; padded_call pads it to "
+                         f"{kernel_head_dim(D)}")
     if Lq == 0 or k.shape[2] == 0:
         raise ValueError("empty query or key sequence")
     if not all(t.is_contiguous() and t.data_ptr() % 16 == 0 for t in tensors):
@@ -303,7 +327,7 @@ def attention_whole_kv(q, k, v, key_padding_mask=None, *, with_lse: bool = False
             f"K/V of {k.shape[2]} keys x {q.shape[3]} in {q.dtype} exceed a block's "
             "shared memory; use attention_flash"
         )
-    if with_lse and q.dtype == torch.bfloat16:
+    if with_lse and q.dtype == torch.bfloat16 and not is_wide(q.shape[3]):
         raise ValueError("K1's bf16 body writes no log-sum-exp; use_flash sends bf16 calls to K2")
     plan = whole_kv_plan(q.shape[2], k.shape[2], q.shape[3], q.dtype)
     return padded_call(lambda q, k, v, scale: _launch("attention_whole_kv", q, k, v, key_padding_mask, with_lse,

@@ -15,14 +15,17 @@ cancelled run still writes its ``summary.json``.
 (``evaluation.evaluation_module.run_evaluation``), as the root ``main.py``
 does. ``--fine-tune`` hands off to the port's trainer (``train_detr.main``) with the
 argument list the root ``main.py`` builds from the ``training.*`` keys
-(:func:`fine_tune_args`), plus ``--device`` from ``detection.device`` when the
-config sets it, and returns its exit code.
+(:func:`fine_tune_args`; ``training.model: yolo`` with
+``training.yolo_variant``), plus ``--device`` from ``detection.device`` when
+the config sets it, and returns its exit code. ``parallel.distributed.enabled``
+starts the process group from ``parallel.distributed.{coordinator_address,
+num_processes,process_id}`` before Phase 1 (or the trainer), as the root
+``main.py`` does (``parallel.mesh.initialize_distributed``).
 
 What the port does not have yet is refused with ``NotImplementedError``
-before any session directory is written, and the run exits 2: the YOLO
-trainer (``training.model: yolo``, A.7c), and the config keys of
-``pipeline.orchestrator.UNPORTED_KEYS`` (tracking A.5, multi-host A.8, the
-side-by-side video A.3). There is no compile cache to enable: the CUDA
+before any session directory is written, and the run exits 2: the config
+keys of ``pipeline.orchestrator.UNPORTED_KEYS`` (the side-by-side video and
+the attention maps, A.3). There is no compile cache to enable: the CUDA
 kernels are built once into ``_build/``.
 """
 
@@ -107,12 +110,17 @@ def main(argv: list[str] | None = None) -> int:
             config.set("output.debug_mode", True)
         # Re-point the file log into the output dir (reference main.py:53-55).
         setup_logging(debug=args.debug, output_dir=config.get("output.directory", "output"))
+        if config.get("parallel.distributed.enabled", False):
+            from .parallel.mesh import initialize_distributed
+
+            initialize_distributed(
+                coordinator_address=config.get("parallel.distributed.coordinator_address", None),
+                num_processes=config.get("parallel.distributed.num_processes", None),
+                process_id=config.get("parallel.distributed.process_id", None),
+            )
         if args.fine_tune:
-            from .train_detr import REFUSED
             from .train_detr import main as train_main
 
-            if config.get("training.model", "detr") == "yolo":
-                raise NotImplementedError(REFUSED["yolo"])
             train_args = fine_tune_args(config)
             device = config.get("detection.device", None)
             if device is not None:

@@ -15,6 +15,8 @@ of casts that neither the JAX package nor the port's detect path has.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -40,14 +42,48 @@ class LayerNorm(nn.LayerNorm):
                             _cast(self.bias, x.dtype), self.eps)
 
 
-def dropout(x: torch.Tensor, p: float, generator: torch.Generator | None) -> torch.Tensor:
+#: The slice of the whole batch that this rank's tensors hold, as (index,
+#: count) of equal slices, while a data-parallel step runs
+#: (:func:`batch_draws`); None otherwise.
+_batch_slice: tuple[int, int] | None = None
+
+
+@contextlib.contextmanager
+def batch_draws(index: int, count: int):
+    """Within the block, :func:`dropout` draws the whole batch's mask and
+    keeps slice ``index`` of ``count``, so that a data-parallel rank drops
+    what the one-device step drops on its samples."""
+    global _batch_slice
+    saved, _batch_slice = _batch_slice, (index, count)
+    try:
+        yield
+    finally:
+        _batch_slice = saved
+
+
+def dropout(x: torch.Tensor, p: float, generator: torch.Generator | None,
+            feature_shard: tuple[int, int] | None = None) -> torch.Tensor:
     """Inverted dropout drawn from ``generator`` (``None``: off), as Flax's
     ``nn.Dropout``: keep where a uniform draw is below 1 - p, scale the kept
-    values by 1 / (1 - p), zero the rest."""
+    values by 1 / (1 - p), zero the rest. ``feature_shard`` (index, count):
+    ``x`` is that slice of the last axis (a tensor-parallel layer's output);
+    the mask is drawn at the full width and sliced, and so is the batch axis
+    under :func:`batch_draws`."""
     if generator is None or p == 0.0:
         return x
     keep = 1.0 - p
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    shape = list(x.shape)
+    if _batch_slice is not None:
+        shape[0] *= _batch_slice[1]
+    if feature_shard is not None:
+        shape[-1] *= feature_shard[1]
+    mask = torch.rand(shape, generator=generator, device=x.device) < keep
+    if _batch_slice is not None:
+        i, n = _batch_slice[0], x.shape[0]
+        mask = mask[i * n:(i + 1) * n]
+    if feature_shard is not None:
+        i, n = feature_shard[0], x.shape[-1]
+        mask = mask[..., i * n:(i + 1) * n]
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 

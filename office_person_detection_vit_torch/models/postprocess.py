@@ -22,15 +22,18 @@ def postprocess_detr(
     person_class_id: int = 1,
     score_mode: str = "softmax",
     nms_iou: float | None = None,
-) -> DetectionBatch:
+    host: bool = True,
+) -> DetectionBatch | dict:
+    """``orig_size`` and ``confidence_threshold`` may be tensors (an exported
+    program's inputs). ``host=False``: a dict of the four device tensors
+    instead of the host ``DetectionBatch``."""
     if score_mode == "sigmoid":
         probs = torch.sigmoid(logits[..., :-1])
     else:
         probs = torch.softmax(logits, dim=-1)[..., :-1]
     scores, labels = probs.max(dim=-1)
 
-    w, h = float(orig_size[0]), float(orig_size[1])
-    scale = torch.tensor([w, h, w, h], dtype=torch.float32, device=logits.device)
+    scale = torch.as_tensor(orig_size, dtype=torch.float32, device=logits.device).repeat(2)  # (w, h, w, h)
     boxes_xyxy = box_ops.cxcywh_to_xyxy(pred_boxes) * scale
     boxes_xywh = box_ops.xyxy_to_xywh(boxes_xyxy)
 
@@ -38,12 +41,8 @@ def postprocess_detr(
     if nms_iou is not None:
         valid = valid & box_ops.nms_mask(boxes_xyxy, scores, nms_iou, valid)
     foot = box_ops.foot_point_xywh(boxes_xywh)
-    return DetectionBatch(
-        boxes_xywh=boxes_xywh.cpu().numpy(),
-        scores=scores.cpu().numpy(),
-        valid=valid.cpu().numpy(),
-        foot=foot.cpu().numpy(),
-    )
+    out = {"boxes_xywh": boxes_xywh, "scores": scores, "valid": valid, "foot": foot}
+    return DetectionBatch(**{k: v.cpu().numpy() for k, v in out.items()}) if host else out
 
 
 def person_scores(logits: torch.Tensor, person_class_id: int = 1,

@@ -152,7 +152,7 @@ def orig_wh_tensors(orig_wh, device) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 def decode_single_shot(outputs: dict, orig_wh, input_hw: tuple[int, int], config: SingleShotConfig,
-                       confidence_threshold: float) -> DetectionBatch:
+                       confidence_threshold: float, host: bool = True) -> DetectionBatch:
     """Per-level raw head outputs -> host ``DetectionBatch`` (F,
     max_detections): score sigmoid(obj) x max sigmoid(cls), boxes from the
     cell centres in stride units, then :func:`candidates_to_batch`."""
@@ -178,16 +178,17 @@ def decode_single_shot(outputs: dict, orig_wh, input_hw: tuple[int, int], config
         scores.append(score.reshape(B, -1))
         boxes.append(torch.stack([c.reshape(B, -1) for c in (x0, y0, x1, y1)], dim=-1) * inv)
     return candidates_to_batch(torch.cat(scores, 1), torch.cat(boxes, 1), (W, H), config.max_detections,
-                               config.nms_iou_threshold, confidence_threshold)
+                               config.nms_iou_threshold, confidence_threshold, host)
 
 
 def candidates_to_batch(flat_score: torch.Tensor, boxes: torch.Tensor, orig_wh, max_detections: int,
-                        nms_iou_threshold: float, confidence_threshold: float) -> DetectionBatch:
+                        nms_iou_threshold: float, confidence_threshold: float, host: bool = True) -> DetectionBatch:
     """The decode tail of both single-shot families: the top ``max_detections``
     candidates by score (a stable sort, so ties keep the lower index, as
     ``lax.top_k`` does; zero-padded past the candidates), greedy NMS per
     image, ``score >= threshold`` and ``> 0``, boxes clipped to the original
-    image, xywh and the foot point, to host numpy."""
+    image, xywh and the foot point, to host numpy (``host=False``: a dict of
+    the four device tensors)."""
     K = max_detections
     W, H = orig_wh_tensors(orig_wh, flat_score.device)
     k = min(K, flat_score.shape[1])
@@ -202,9 +203,5 @@ def candidates_to_batch(flat_score: torch.Tensor, boxes: torch.Tensor, orig_wh, 
     x0, y0, x1, y1 = (top_boxes[..., i].clamp(min=0.0).minimum(W if i % 2 == 0 else H) for i in range(4))
     xywh = torch.stack([x0, y0, x1 - x0, y1 - y0], dim=-1)
     foot = torch.stack([(x0 + x1) / 2, y1], dim=-1)
-    return DetectionBatch(
-        boxes_xywh=xywh.float().cpu().numpy(),
-        scores=top_scores.float().cpu().numpy(),
-        valid=valid.cpu().numpy().astype(bool),
-        foot=foot.float().cpu().numpy(),
-    )
+    out = {"boxes_xywh": xywh.float(), "scores": top_scores.float(), "valid": valid.bool(), "foot": foot.float()}
+    return DetectionBatch(**{k: v.cpu().numpy() for k, v in out.items()}) if host else out

@@ -55,12 +55,12 @@ class MultiHeadAttention(nn.Module):
     def forward(self, query, key, value, key_padding_mask=None):
         """query (B, Lq, C) and key (B, Lk, C) with position embeddings,
         value (B, Lk, C) without; key_padding_mask (B, Lk) True = valid."""
-        B, Lq, C = query.shape
+        B, Lq, _ = query.shape
         Lk = key.shape[1]
-        H = self.num_heads
+        H = self.num_heads  # this rank's heads under tensor parallelism (parallel/sharding.py)
 
         def heads(x, L):
-            return x.reshape(B, L, H, C // H).transpose(1, 2).contiguous()
+            return x.reshape(B, L, H, -1).transpose(1, 2).contiguous()
 
         q = heads(self.q_proj(query), Lq)
         k = heads(self.k_proj(key), Lk)
@@ -70,7 +70,7 @@ class MultiHeadAttention(nn.Module):
             self.kept_probs.append(probs)
         else:
             out = multi_head_attention(q, k, v, key_padding_mask)
-        return self.out_proj(out.transpose(1, 2).reshape(B, Lq, C))
+        return self.out_proj(out.transpose(1, 2).reshape(B, Lq, -1))
 
 
 class EncoderLayer(nn.Module):
@@ -88,7 +88,7 @@ class EncoderLayer(nn.Module):
         qk = src + pos
         attn = dropout(self.self_attn(qk, qk, src, key_padding_mask), self.dropout, g)
         src = self.self_attn_layer_norm(src + attn)
-        y = dropout(torch.relu(self.fc1(src)), self.dropout, g)
+        y = dropout(torch.relu(self.fc1(src)), self.dropout, g, getattr(self.fc1, "shard", None))
         y = dropout(self.fc2(y), self.dropout, g)
         return self.final_layer_norm(src + y)
 
@@ -113,7 +113,7 @@ class DecoderLayer(nn.Module):
         attn = self.encoder_attn(tgt + query_pos, memory + memory_pos, memory,
                                  memory_key_padding_mask)
         tgt = self.encoder_attn_layer_norm(tgt + dropout(attn, self.dropout, g))
-        y = dropout(torch.relu(self.fc1(tgt)), self.dropout, g)
+        y = dropout(torch.relu(self.fc1(tgt)), self.dropout, g, getattr(self.fc1, "shard", None))
         y = dropout(self.fc2(y), self.dropout, g)
         return self.final_layer_norm(tgt + y)
 

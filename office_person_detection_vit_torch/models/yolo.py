@@ -250,7 +250,7 @@ def dfl_expectation(box_dist: torch.Tensor, reg_max: int) -> torch.Tensor:
 
 
 def decode_yolo(outputs: dict, orig_wh, input_hw: tuple[int, int], config: YOLOConfig,
-                confidence_threshold: float):
+                confidence_threshold: float, host: bool = True):
     """Raw head outputs -> host ``DetectionBatch`` (F, max_detections): DFL
     decode of each level, the candidates of all levels, then
     :func:`~office_person_detection_vit_torch.models.single_shot.candidates_to_batch`."""
@@ -274,4 +274,4 @@ def decode_yolo(outputs: dict, orig_wh, input_hw: tuple[int, int], config: YOLOC
         scores.append(score.reshape(B, -1))
         boxes.append(torch.stack([c.reshape(B, -1) for c in (x0, y0, x1, y1)], dim=-1) * inv)
     return candidates_to_batch(torch.cat(scores, 1), torch.cat(boxes, 1), (W, H), config.max_detections,
-                               config.nms_iou_threshold, confidence_threshold)
+                               config.nms_iou_threshold, confidence_threshold, host)

@@ -152,9 +152,32 @@ class KernelAttention(torch.autograd.Function):
         return dq, dk, dv, None
 
 
+@torch.library.custom_op("office_person_detection_vit_torch::attention", mutates_args=())
+def attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 key_padding_mask: torch.Tensor | None = None) -> torch.Tensor:
+    """The forward as one operator, ``torch.ops.office_person_detection_vit_torch.attention``:
+    K1 or K2 on a CUDA tensor (through their wrappers, which count the
+    launches), the plain version on a CPU one. ``torch.export`` records the
+    operator itself (its fake below gives the shape), so an exported detect
+    program calls the hand-written kernel when it runs on the card; the
+    loader imports this module, which registers it."""
+    if q.device.type == "cpu":
+        return attention_reference(q, k, v, key_padding_mask)
+    return _kernel_forward(q, k, v, key_padding_mask)
+
+
+@attention_op.register_fake
+def _(q, k, v, key_padding_mask=None):
+    return torch.empty_like(q)
+
+
 def multi_head_attention(q, k, v, key_padding_mask=None):
     """Plain version on the CPU; on the card K1 or K2, through
-    :class:`KernelAttention` when a gradient is wanted (see module doc)."""
+    :class:`KernelAttention` when a gradient is wanted (see module doc).
+    While ``torch.export`` traces, every call is :func:`attention_op`, which
+    runs the same two when the exported program runs."""
+    if torch.compiler.is_exporting():
+        return attention_op(q, k, v, key_padding_mask)
     if q.device.type == "cpu":
         return attention_reference(q, k, v, key_padding_mask)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):

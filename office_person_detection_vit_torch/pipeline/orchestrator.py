@@ -42,7 +42,6 @@ from .phases.visualization import SIDE_BY_SIDE_REFUSAL, VisualizationPhase
 #: Config keys whose ``true`` asks for a part the port does not have yet,
 #: with the ROADMAP item that brings it.
 UNPORTED_KEYS = {
-    "parallel.distributed.enabled": "multi-host runs are not ported yet (ROADMAP A.8)",
     "output.save_side_by_side_video": SIDE_BY_SIDE_REFUSAL,
     "output.save_attention_maps": "the attention-map overlays are not ported yet (ROADMAP A.3)",
 }

@@ -1,7 +1,7 @@
-"""Where the time of a full-size DETR training step goes, on the card.
+"""Where the time of a full-size DETR or YOLOv8x training step goes, on the card.
 
     python -m office_person_detection_vit_torch.profile_train \\
-        [--against DIR] [--json-out PATH]
+        [--model detr|yolo] [--against DIR] [--json-out PATH]
 
 Trains DETR-R50 at the JAX trainer's full size (bf16 compute from float32
 master weights, 768x1344, batch 8, dropout 0.1, aux loss; seeded random
@@ -14,7 +14,9 @@ profiles 2 steps under ``torch.profiler``: the device's busy share of the
 window (summed kernel time over the window's wall time; the port runs on one
 stream) and of an unprofiled step (the same kernel time over the median
 step), and its kernel time by category, B.4's forward (K1/K2) and its
-backward pair apart.
+backward pair apart. ``--model yolo`` trains YOLOv8x the same way (bf16 from
+float32 master weights, 768x1344, batch 8, the YOLO criterion on the
+letterboxed content; no pixel mask, no matcher mark).
 
 ``--against DIR`` trains the port checkout at ``DIR`` (an earlier commit
 unpacked with ``git archive``) beside this one in one process, on the same
@@ -42,6 +44,7 @@ from .bottleneck_kernel_bench import card
 HW, BATCH, TARGETS, WARMUP, PROFILED = (768, 1344), 8, 2, 2, 2
 STEPS, ROUNDS = 6, 4  # timed steps a round; rounds, alternating with --against
 MARKS = ("forward", "matcher", "loss", "backward", "optimizer")
+YOLO_MARKS = ("forward", "loss", "backward", "optimizer")
 CATEGORIES = (  # first match wins, on the lower-cased kernel name
     ("B.4 backward pair", ("attention_bwd",)),
     ("B.4 forward (K1/K2)", ("attention_whole_kv", "attention_flash")),
@@ -86,25 +89,36 @@ def make_batch(seed: int = 0) -> dict:
 class Trainer:
     """One port checkout's model, optimizer state and train step."""
 
-    def __init__(self, root: Path | None, label: str):
+    def __init__(self, root: Path | None, label: str, model_name: str = "detr"):
         def module(name):
             return importlib.import_module(f"{__package__}.{name}") if root is None else load_port_module(root, name)
 
-        detr, training = module("models.detr"), module("training")
+        training = module("training")
         self.label = label
-        model = detr.DETR(detr.DETRConfig(dtype="bfloat16", dropout=0.1))
+        self.marks = MARKS
+        if model_name == "yolo":
+            yolo, pre = module("models.yolo"), module("ops.preprocessing")
+            model = yolo.YOLOv8(yolo.YOLOConfig(variant="x"))
+            self.marks = YOLO_MARKS
+        else:
+            detr = module("models.detr")
+            model = detr.DETR(detr.DETRConfig(dtype="bfloat16", dropout=0.1))
         model.init_weights(torch.Generator().manual_seed(0))
         model.cuda()
         tx = training.make_optimizer(learning_rate=1e-4, backbone_lr=1e-5)
         self.state = training.TrainState.create(model, tx)
-        self.step_fn = training.make_train_step(model, tx)
+        if model_name == "yolo":
+            self.step_fn = training.make_yolo_train_step(
+                model, tx, HW, content_hw=pre.compute_resize_geometry((720, 1280), HW))
+        else:
+            self.step_fn = training.make_train_step(model, tx)
         self.generator = torch.Generator().manual_seed(1)
         self.steps: list[dict] = []
 
     def step(self, batch: dict) -> dict:
         """One step: device ms of each part (CUDA events at the marks), of
         the whole step, and host ms."""
-        events = {n: torch.cuda.Event(enable_timing=True) for n in ("start", *MARKS)}
+        events = {n: torch.cuda.Event(enable_timing=True) for n in ("start", *self.marks)}
         torch.cuda.synchronize()
         t = time.perf_counter()
         events["start"].record()
@@ -114,7 +128,7 @@ class Trainer:
         if not all(torch.isfinite(v).all() for v in metrics.values()):
             raise RuntimeError(f"{self.label}: non-finite loss {metrics}")
         parts, prev = {}, "start"
-        for n in MARKS:
+        for n in self.marks:
             parts[n] = events[prev].elapsed_time(events[n])
             prev = n
         return {"step_ms": events["start"].elapsed_time(events["optimizer"]), "host_ms": host, **parts}
@@ -152,6 +166,7 @@ def summary(steps: list[dict]) -> dict:
 
 def main(argv=None) -> dict:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--model", choices=("detr", "yolo"), default="detr")
     p.add_argument("--against", type=Path, help="a port checkout trained beside this one")
     p.add_argument("--json-out", type=Path)
     args = p.parse_args(argv)
@@ -161,7 +176,10 @@ def main(argv=None) -> dict:
     smi = card()
     print(f"device: {smi}", flush=True)
     batch = make_batch()
-    trainers = [Trainer(None, "this")] + ([Trainer(args.against, "other")] if args.against else [])
+    if args.model == "yolo":
+        del batch["pixel_mask"]
+    trainers = [Trainer(None, "this", args.model)] + (
+        [Trainer(args.against, "other", args.model)] if args.against else [])
     for tr in trainers:
         for _ in range(WARMUP):
             tr.step(batch)
@@ -170,7 +188,7 @@ def main(argv=None) -> dict:
         order += trainers if r % 2 == 0 else trainers[::-1]
     for tr in order:
         tr.steps += [tr.step(batch) for _ in range(STEPS)]
-    results = {"device": smi, "against": str(args.against) if args.against else None,
+    results = {"device": smi, "model": args.model, "against": str(args.against) if args.against else None,
                "steps_per_round": STEPS, "rounds": ROUNDS, "order": [tr.label for tr in order]}
     for tr in trainers:
         med = summary(tr.steps)
@@ -179,7 +197,7 @@ def main(argv=None) -> dict:
         results[tr.label] = {"median": med, "steps": tr.steps, "profile": prof}
         print(f"[{tr.label}] {len(tr.steps)} steps, median step {med['step_ms']:.3f} ms on the card (CUDA events; "
               f"steps {min(s['step_ms'] for s in tr.steps):.3f}-{max(s['step_ms'] for s in tr.steps):.3f}), host "
-              f"{med['host_ms']:.3f} ms; " + ", ".join(f"{n} {med[n]:.3f}" for n in MARKS), flush=True)
+              f"{med['host_ms']:.3f} ms; " + ", ".join(f"{n} {med[n]:.3f}" for n in tr.marks), flush=True)
         print(f"[{tr.label}] profiled {PROFILED} steps: wall {prof['wall_ms_per_step']:.3f} ms a step, device busy "
               f"{prof['busy_ms_per_step']:.3f} ms ({100 * prof['busy_share']:.1f}% of the profiled window, "
               f"{100 * prof['busy_share_of_unprofiled_step']:.1f}% of the median unprofiled step), "

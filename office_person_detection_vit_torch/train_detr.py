@@ -1,11 +1,11 @@
-"""Fine-tune the DETR detector on a COCO-format dataset, on the card.
+"""Fine-tune the DETR or YOLOv8 detector on a COCO-format dataset, on the card.
 
-The port's counterpart of the DETR branch of the repo's ``tools/train_detr.py``
-(same flags): a COCO folder -> ``COCOBatchLoader`` -> preprocessing and the
-train step (``training/``) -> ``weights.npz`` (the flat ``leaf_i`` npz that
-the port's ``DETRDetector`` and the JAX package's ``load_any_checkpoint``
-read), ``history.json``, and ``train_state.npz`` with
-``train_state_meta.json`` for ``--resume-from``. Run it as
+The port's counterpart of the repo's ``tools/train_detr.py`` (same flags): a
+COCO folder -> ``COCOBatchLoader`` -> preprocessing and the train step
+(``training/``) -> ``weights.npz`` (the flat ``leaf_i`` npz that the port's
+detectors and the JAX package's ``load_any_checkpoint`` read),
+``history.json``, and ``train_state.npz`` with ``train_state_meta.json`` for
+``--resume-from``. Run it as
 
     python -m office_person_detection_vit_torch.train_detr --images DIR \\
         --annotations coco.json [--epochs 10] [--batch 8] [--height 768] \\
@@ -17,10 +17,21 @@ The full size is DETR-R50 with bf16 compute and float32 master weights;
 ``--model-size small``/``tiny`` train in float32. ``--backbone vit`` trains
 the ViT DETR (ViT-base at ``--patch-size`` at full size, the tiny ViT in the
 tiny and small tiers), its attention's gradient through B.4 as the
-transformer's. ``--evaluate`` scores P/R/F1 and AP with the port's
-``DetectionBenchmark`` before training and after the last epoch (and every
-``--eval-every`` epochs) into ``history.json``. Refused, naming their ROADMAP
-item: ``--model yolo`` (A.7c) and ``--model-parallel`` above 1 (A.8).
+transformer's. ``--model yolo`` trains YOLOv8 (``--yolo-variant``, bf16
+compute with float32 master weights; ``--tiny`` the tiny variant in float32)
+with the YOLO criterion, from ``--init`` (the port's npz or an ultralytics
+``.pt`` state dict) or a seeded init; its ground truth is normalised to the
+letterboxed content (``content_hw``), and the batch has no pixel mask.
+``--evaluate`` scores P/R/F1 and AP with the port's ``DetectionBenchmark``
+before training and after the last epoch (and every ``--eval-every`` epochs)
+into ``history.json``.
+
+Scale-out (``parallel/``): under ``torchrun --nproc_per_node N`` every rank
+loads the same batches and runs the sharded step
+(``make_sharded_train_step``, or ``make_yolo_sharded_train_step``, data
+parallel only) over a (data, model) grid with ``--model-parallel`` model
+ranks; rank 0 writes the outputs. As in JAX, one process (or a batch the
+data axis does not divide) runs the one-device step.
 
 ``--resume-from`` takes the port's own ``train_state.npz`` (keyed by
 state_dict key) and the flat ``leaf_i`` one the JAX trainer writes
@@ -30,6 +41,7 @@ state_dict key) and the flat ``leaf_i`` one the JAX trainer writes
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import logging
 import sys
@@ -47,24 +59,19 @@ logger = logging.getLogger("train_detr")
 #: 1280x720 input).
 EVAL_WH = (1280, 720)
 
-#: Flags of the JAX trainer the port refuses, with the ROADMAP item of each.
-REFUSED = {
-    "yolo": "--model yolo: the YOLO criterion and trainer are not ported yet (ROADMAP A.7c)",
-    "model_parallel": "--model-parallel > 1: the sharded train step is not ported yet (ROADMAP A.8)",
-}
-
-
 def evaluate_detector(model, samples, *, target_hw, cfg, device, batch: int = 8, conf: float = 0.25,
-                      iou: float = 0.5, nms_iou: float | None = None):
+                      iou: float = 0.5, nms_iou: float | None = None, is_yolo: bool = False):
     """Score the model on COCO samples with the port's DetectionBenchmark
     (P/R/F1, AP@50/75, mAP@[.5:.95]), as the JAX trainer's
     ``evaluate_detector``: each image resized to EVAL_WH, batches padded to
     ``batch`` with their first image, one forward and decode a batch on
-    ``device``; boxes scored in EVAL_WH pixels. -> BenchmarkResult."""
+    ``device`` (``decode_yolo`` with ``is_yolo``); boxes scored in EVAL_WH
+    pixels. -> BenchmarkResult."""
     import cv2
 
     from .benchmark.detection_benchmark import DetectionBenchmark, DetectionRecord
     from .models.postprocess import postprocess_detr
+    from .models.yolo import decode_yolo
     from .ops.preprocessing import preprocess_frames
 
     was_training = model.training
@@ -81,9 +88,12 @@ def evaluate_detector(model, samples, *, target_hw, cfg, device, batch: int = 8,
             with torch.inference_mode():
                 frames = torch.from_numpy(np.stack(imgs)).to(device)
                 pixels, mask = preprocess_frames(frames, target_hw=target_hw, out_dtype=cfg.torch_dtype)
-                out = model(pixels, mask)
-                det = postprocess_detr(out["logits"], out["boxes"], EVAL_WH, conf, score_mode=cfg.score_mode,
-                                       nms_iou=nms_iou)
+                if is_yolo:
+                    det = decode_yolo(model(pixels), EVAL_WH, target_hw, cfg, conf)
+                else:
+                    out = model(pixels, mask)
+                    det = postprocess_detr(out["logits"], out["boxes"], EVAL_WH, conf, score_mode=cfg.score_mode,
+                                           nms_iou=nms_iou)
             for f in range(n):
                 for q in np.flatnonzero(det.valid[f]):
                     records.append(DetectionRecord(str(chunk[f][0]), tuple(float(v) for v in det.boxes_xywh[f, q]),
@@ -134,14 +144,15 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     parser.add_argument("--checkpoint", type=Path, default=Path("runs/detr_ft"))
     parser.add_argument("--init", type=Path, default=None,
                         help="initial weights (flat or path-keyed .npz, HF .pt/.bin/.safetensors)")
-    parser.add_argument("--model-parallel", type=int, default=1, help="refused above 1 (ROADMAP A.8)")
+    parser.add_argument("--model-parallel", type=int, default=1,
+                        help="tensor-parallel ranks (model axis) under torchrun; the rest split the batch")
     parser.add_argument("--max-targets", type=int, default=32)
     parser.add_argument("--tiny", action="store_true", help="tiny model (smoke tests)")
     parser.add_argument("--model-size", choices=["full", "small", "tiny"], default=None,
                         help="DETR capacity tier; --tiny is shorthand for --model-size tiny")
     parser.add_argument("--model", choices=["detr", "yolo"], default="detr",
-                        help="detector family; yolo is refused (ROADMAP A.7c)")
-    parser.add_argument("--yolo-variant", default="s", help="read with --model yolo, which is refused")
+                        help="detr (set loss) or yolo (YOLOv8, BCE + CIoU + DFL)")
+    parser.add_argument("--yolo-variant", default="s", help="YOLO family size n|s|m|l|x (--model yolo)")
     parser.add_argument("--backbone", choices=["resnet50", "vit"], default="resnet50",
                         help="detector backbone (vit = models/vit.py; --patch-size sets its stride)")
     parser.add_argument("--patch-size", type=int, default=16)
@@ -184,13 +195,6 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     parser.add_argument("--device", default="auto",
                         help="auto | cuda | cuda:N | cpu (auto and cuda need a card)")
     return parser.parse_args(argv)
-
-
-def refuse_unported(args: argparse.Namespace) -> None:
-    if args.model == "yolo":
-        raise NotImplementedError(REFUSED["yolo"])
-    if args.model_parallel > 1:
-        raise NotImplementedError(REFUSED["model_parallel"])
 
 
 def detr_config(args: argparse.Namespace, size: str):
@@ -236,16 +240,21 @@ def save_train_state(path: Path, state) -> None:
     np.savez(path, **arrays)
 
 
-def load_train_state(path: Path, state, tx) -> None:
+def load_train_state(path: Path, state, tx, mesh=None) -> None:
     """Restore a saved train state into ``state`` in place: the port's own
     npz, or the JAX trainer's (:func:`load_jax_train_state`). A checkpoint
     without an EMA resumed with ``--ema`` restarts the average from the
     resumed weights; an EMA checkpoint resumed without ``--ema`` drops it.
-    A different model or ``--accum-steps`` raises."""
+    A different model or ``--accum-steps`` raises. With a tensor-parallel
+    ``mesh`` each tensor of the port's npz is cut to this rank's part."""
+    from .parallel.sharding import shard, spec_of
+
     opt = state.opt_state
     with np.load(path) as data:
         files = set(data.files)
         if "leaf_0" in files:
+            if mesh is not None and mesh.model_parallel > 1:
+                raise ValueError(f"{path}: a JAX train state resumes on one model rank (--model-parallel 1)")
             return load_jax_train_state(path, state, tx)
         want = {f"param/{k}" for k in state.keys}
         if not want <= files:
@@ -257,9 +266,11 @@ def load_train_state(path: Path, state, tx) -> None:
             with torch.no_grad():
                 for key, t in zip(state.keys, tensors):
                     arr = data[f"{group}/{key}"]
+                    if mesh is not None:
+                        arr = shard(torch.from_numpy(arr), spec_of(key), mesh.model_index, mesh.model_parallel)
                     if tuple(arr.shape) != tuple(t.shape):
                         raise ValueError(f"{path}: {group}/{key} has shape {arr.shape}, expected {tuple(t.shape)}")
-                    t.copy_(torch.from_numpy(arr))
+                    t.copy_(torch.as_tensor(arr))
 
         for group, tensors in (("param", state.params), ("mu", opt.mu), ("nu", opt.nu), ("acc", opt.acc)):
             if tensors is not None:
@@ -357,21 +368,69 @@ def load_jax_train_state(path: Path, state, tx) -> None:
     opt.mini_step = scalars.get("mini_step", 0)
 
 
+def build_model(args: argparse.Namespace, size: str, target_hw: tuple[int, int]):
+    """The model of these flags with its seeded init or ``--init``, its
+    config, and the one-device and sharded step factories (each
+    ``(model, tx, [mesh,] **step_kwargs)``), as the JAX trainer builds them."""
+    from .models.weights import load_checkpoint
+    from .training import make_sharded_train_step, make_train_step
+
+    if args.model == "yolo":
+        from .models.weights import convert_yolov8_state_dict, state_dict_from_flax
+        from .models.yolo import YOLOConfig, YOLOv8
+        from .ops.preprocessing import compute_resize_geometry
+        from .training import make_yolo_sharded_train_step, make_yolo_train_step
+
+        cfg = YOLOConfig.tiny() if size == "tiny" else YOLOConfig(variant=args.yolo_variant)
+        model = YOLOv8(cfg)
+        model.init_weights(torch.Generator().manual_seed(args.seed))
+        if args.init:
+            if args.init.exists():
+                if args.init.suffix in (".pt", ".pth", ".bin"):
+                    sd = torch.load(str(args.init), map_location="cpu", weights_only=True)
+                    if isinstance(sd, dict) and isinstance(sd.get("model"), dict):
+                        sd = sd["model"]
+                    model.load_state_dict(state_dict_from_flax(convert_yolov8_state_dict(sd), cfg))
+                else:
+                    model.load_state_dict(load_checkpoint(args.init, cfg))
+                logger.info("initialized from %s", args.init)
+            else:
+                logger.warning("--init %s not found; training from random init", args.init)
+        # GT boxes are normalised to the source frame, the letterboxed valid
+        # content; the criterion scales them by its extent (the grid spans
+        # the canvas).
+        content_hw = compute_resize_geometry((EVAL_WH[1], EVAL_WH[0]), target_hw)
+        return (model, cfg,
+                lambda m, t, **kw: make_yolo_train_step(m, t, target_hw, content_hw=content_hw, **kw),
+                lambda m, t, mesh, **kw: make_yolo_sharded_train_step(m, t, mesh, target_hw, content_hw=content_hw,
+                                                                      **kw))
+    from .models.detr import DETR
+
+    cfg = detr_config(args, size)
+    model = DETR(cfg)
+    model.init_weights(torch.Generator().manual_seed(args.seed))
+    if args.init:
+        if args.init.exists():
+            model.load_state_dict(load_checkpoint(args.init, cfg))
+            logger.info("initialized from %s", args.init)
+        else:
+            logger.warning("--init %s not found; training from random init", args.init)
+    return model, cfg, make_train_step, make_sharded_train_step
+
+
 def main(argv: list[str] | None = None) -> int:
     args = parse_args(argv)
     size = args.model_size or ("tiny" if args.tiny else "full")
     args.tiny = size == "tiny"
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
-    refuse_unported(args)
+    is_yolo = args.model == "yolo"
 
-    from .models.detr import DETR
-    from .models.weights import load_checkpoint, save_flat_npz
+    from .models.weights import save_flat_npz
     from .ops.preprocessing import preprocess_frames
-    from .training import (AugmentConfig, COCOBatchLoader, CriterionConfig, TrainState, content_width,
-                           make_optimizer, make_train_step)
+    from .parallel.mesh import initialize_distributed, make_mesh, world
+    from .parallel.sharding import gather_full, shard_model
+    from .training import AugmentConfig, COCOBatchLoader, CriterionConfig, TrainState, content_width, make_optimizer
 
-    cfg = detr_config(args, size)
-    device = resolve_device(args.device, cfg.dtype)
     samples = load_coco_dataset(args.images, args.annotations)
     if not samples:
         logger.error("no usable samples under %s", args.images)
@@ -382,14 +441,18 @@ def main(argv: list[str] | None = None) -> int:
     logger.info("dataset: %d images", len(samples))
     target_hw = (args.height, args.width)
 
-    model = DETR(cfg)
-    model.init_weights(torch.Generator().manual_seed(args.seed))
-    if args.init:
-        if args.init.exists():
-            model.load_state_dict(load_checkpoint(args.init, cfg))
-            logger.info("initialized from %s", args.init)
-        else:
-            logger.warning("--init %s not found; training from random init", args.init)
+    initialize_distributed()  # under torchrun; one process is left as it is
+    rank, n_dev = world()
+    model, cfg, make_single, make_sharded = build_model(args, size, target_hw)
+    device = resolve_device(args.device, cfg.dtype)
+    data_parallel = n_dev // args.model_parallel
+    mesh = None
+    if n_dev > 1 and args.batch % max(data_parallel, 1) == 0:
+        mesh = make_mesh(n_dev, model_parallel=args.model_parallel)
+        model = shard_model(model, mesh)
+    elif n_dev > 1 or args.model_parallel > 1:
+        logger.warning("batch %d over %d rank(s) with --model-parallel %d: one-device step", args.batch, n_dev,
+                       args.model_parallel)
     model.to(device)  # float32 parameters; the forward computes in cfg.dtype
 
     steps_per_epoch = max(1, len(samples) // args.batch)
@@ -403,7 +466,7 @@ def main(argv: list[str] | None = None) -> int:
     state = TrainState.create(model, tx, ema=use_ema)
     aug_cfg = AugmentConfig(content_w=content_width(target_hw)) if args.augment else None
     step_kwargs: dict = dict(ema_decay=args.ema if use_ema else None, augment=aug_cfg)
-    if args.class_loss == "focal" or args.w_class is not None:
+    if not is_yolo and (args.class_loss == "focal" or args.w_class is not None):
         default_w = 2.0 if args.class_loss == "focal" else 1.0
         step_kwargs["criterion"] = CriterionConfig(
             num_classes=cfg.num_classes, class_loss=args.class_loss,
@@ -412,14 +475,14 @@ def main(argv: list[str] | None = None) -> int:
         )
     start_epoch = 0
     if args.resume_from and args.resume_from.exists():
-        load_train_state(args.resume_from, state, tx)
+        load_train_state(args.resume_from, state, tx, mesh)
         meta = args.resume_from.parent / "train_state_meta.json"
         if meta.exists():
             start_epoch = json.loads(meta.read_text()).get("epoch", 0)
         logger.info("resumed train state from %s (epoch %d)", args.resume_from, start_epoch)
-    step = make_train_step(model, tx, **step_kwargs)
+    step = make_sharded(model, tx, mesh, **step_kwargs) if mesh is not None else make_single(model, tx, **step_kwargs)
 
-    if args.max_targets > cfg.num_queries:
+    if not is_yolo and args.max_targets > cfg.num_queries:
         logger.warning("--max-targets %d exceeds the model's %d queries; clamping (images with more "
                        "than %d boxes lose the excess)", args.max_targets, cfg.num_queries, cfg.num_queries)
         args.max_targets = cfg.num_queries
@@ -429,25 +492,34 @@ def main(argv: list[str] | None = None) -> int:
     def to_device(host_batch: dict) -> dict:
         frames = torch.from_numpy(host_batch["frames_u8"]).to(device)
         pixels, mask = preprocess_frames(frames, target_hw=target_hw, out_dtype=cfg.torch_dtype)
-        batch = {"pixels": pixels, "pixel_mask": mask}
+        batch = {"pixels": pixels} if is_yolo else {"pixels": pixels, "pixel_mask": mask}  # YOLO takes no mask
         for k in ("labels", "boxes", "valid"):
             batch[k] = torch.from_numpy(host_batch[k]).to(device)
         return batch
 
+    def full(tensors):
+        return tensors if mesh is None or tensors is None else gather_full(tensors, state.keys, mesh)
+
     def save_state(epoch: int) -> None:
-        args.checkpoint.mkdir(parents=True, exist_ok=True)
-        save_train_state(args.checkpoint / "train_state.npz", state)
-        (args.checkpoint / "train_state_meta.json").write_text(json.dumps({"epoch": epoch}))
+        saved = dataclasses.replace(state, params=full(state.params), ema_params=full(state.ema_params),
+                                    opt_state=dataclasses.replace(state.opt_state, mu=full(state.opt_state.mu),
+                                                                  nu=full(state.opt_state.nu),
+                                                                  acc=full(state.opt_state.acc)))
+        if rank == 0:
+            args.checkpoint.mkdir(parents=True, exist_ok=True)
+            save_train_state(args.checkpoint / "train_state.npz", saved)
+            (args.checkpoint / "train_state_meta.json").write_text(json.dumps({"epoch": epoch}))
 
     history_path = args.checkpoint / "history.json"
     history: dict = {"step_losses": [], "epoch_losses": [], "config": {
-        "batch": args.batch, "lr": args.lr, "devices": 1, "data_parallel": 1,
+        "batch": args.batch, "lr": args.lr, "devices": n_dev,
+        "data_parallel": int(max(data_parallel, 1)) if mesh is not None else 1,
         "model_parallel": args.model_parallel, "tiny": args.tiny, "model_size": size,
         "schedule": args.schedule, "warmup_steps": args.warmup_steps,
         "accum_steps": args.accum_steps, "ema": args.ema, "augment": bool(args.augment),
         "class_loss": args.class_loss, "w_class": args.w_class, "focal_alpha": args.focal_alpha,
         "backbone_lr_scale": args.backbone_lr_scale, "eval_nms": args.eval_nms,
-        "max_targets": args.max_targets, "enc_objectness": bool(cfg.enc_objectness),
+        "max_targets": args.max_targets, "enc_objectness": bool(not is_yolo and cfg.enc_objectness),
         "device": str(device),
     }}
     if args.resume_from and history_path.exists():
@@ -464,7 +536,8 @@ def main(argv: list[str] | None = None) -> int:
 
     def run_eval(epoch: int) -> None:
         """Score the EMA weights when tracked (the served weights), else the
-        parameters; the parameters are put back afterwards."""
+        parameters; the parameters are put back afterwards. Every rank runs
+        it (a tensor-parallel forward needs them all)."""
         kept = None
         if use_ema:
             with torch.no_grad():
@@ -474,7 +547,7 @@ def main(argv: list[str] | None = None) -> int:
         try:
             res = evaluate_detector(model, val_samples, target_hw=target_hw, cfg=cfg, device=device,
                                     batch=min(args.batch, len(val_samples)), conf=args.eval_conf, iou=args.eval_iou,
-                                    nms_iou=args.eval_nms)
+                                    nms_iou=args.eval_nms, is_yolo=is_yolo)
         finally:
             if kept is not None:
                 with torch.no_grad():
@@ -520,16 +593,18 @@ def main(argv: list[str] | None = None) -> int:
         history.setdefault("epoch_metrics", []).append(comp_means)
         if args.evaluate and (epoch + 1 == args.epochs or (args.eval_every and (epoch + 1) % args.eval_every == 0)):
             run_eval(epoch + 1)
-        args.checkpoint.mkdir(parents=True, exist_ok=True)
-        history_path.write_text(json.dumps(history))
+        if rank == 0:
+            args.checkpoint.mkdir(parents=True, exist_ok=True)
+            history_path.write_text(json.dumps(history))
         if (epoch + 1) % args.save_every == 0:
             save_state(epoch + 1)
 
-    args.checkpoint.mkdir(parents=True, exist_ok=True)
-    sd = dict(zip(state.keys, state.ema_params if use_ema else state.params))
-    ckpt_path = args.checkpoint / "weights.npz"
-    save_flat_npz(ckpt_path, sd, cfg)
-    logger.info("saved checkpoint -> %s%s", ckpt_path, " (EMA weights)" if use_ema else "")
+    weights = full(state.ema_params if use_ema else state.params)
+    if rank == 0:
+        args.checkpoint.mkdir(parents=True, exist_ok=True)
+        ckpt_path = args.checkpoint / "weights.npz"
+        save_flat_npz(ckpt_path, dict(zip(state.keys, weights)), cfg)
+        logger.info("saved checkpoint -> %s%s", ckpt_path, " (EMA weights)" if use_ema else "")
     return 0
 
 

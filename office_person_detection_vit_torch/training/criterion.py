@@ -66,10 +66,17 @@ def _focal(logits, target, alpha, gamma):
 
 def detr_loss(logits, pred_boxes, tgt_labels, tgt_boxes, tgt_valid,
               config: CriterionConfig = CriterionConfig(),
-              match_idx: torch.Tensor | None = None) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+              match_idx: torch.Tensor | None = None,
+              total_of=None) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """(B, Q, C+1) logits, (B, Q, 4) cxcywh in [0, 1], (B, T) labels,
     (B, T, 4) boxes, (B, T) valid -> total weighted loss and its components.
-    ``match_idx`` (B, T): the matching, when already made."""
+    ``match_idx`` (B, T): the matching, when already made. ``total_of``:
+    maps a denominator (the box count, the class weights' sum) of this
+    slice of the batch to the whole batch's (the data-parallel step's
+    all-reduce); the sums over the ranks of the losses are then the whole
+    batch's."""
+    if total_of is None:
+        total_of = lambda t: t  # noqa: E731
     B, Q, _ = logits.shape
     logits = logits.float()
     pred_boxes = pred_boxes.float()
@@ -86,7 +93,7 @@ def detr_loss(logits, pred_boxes, tgt_labels, tgt_boxes, tgt_valid,
     classes = classes[:, :Q]
     safe_q = torch.where(tgt_valid, match_idx, 0)  # box gathers only
     validf = tgt_valid.float()
-    num_boxes = validf.sum().clamp(min=1.0)
+    num_boxes = total_of(validf.sum()).clamp(min=1.0)
 
     if config.class_loss == "focal":
         cls_logits = logits[..., :no_object]
@@ -97,7 +104,7 @@ def detr_loss(logits, pred_boxes, tgt_labels, tgt_boxes, tgt_valid,
         log_probs = torch.log_softmax(logits, dim=-1)
         nll = -torch.gather(log_probs, -1, classes[..., None])[..., 0]
         weights = torch.where(classes == no_object, config.eos_coef, 1.0)
-        loss_class = (nll * weights).sum() / weights.sum().clamp(min=1.0)
+        loss_class = (nll * weights).sum() / total_of(weights.sum()).clamp(min=1.0)
 
     matched = torch.gather(pred_boxes, 1, safe_q[..., None].expand(B, safe_q.shape[1], 4))
     l1 = (matched - tgt_boxes).abs().sum(-1)
@@ -123,7 +130,7 @@ def detr_loss(logits, pred_boxes, tgt_labels, tgt_boxes, tgt_valid,
 
 
 def encoder_objectness_loss(enc_logits, feature_mask, tgt_boxes, tgt_valid,
-                            config: CriterionConfig = CriterionConfig()) -> torch.Tensor:
+                            config: CriterionConfig = CriterionConfig(), total_of=None) -> torch.Tensor:
     """Dense token objectness: sigmoid focal loss against "a valid target box
     covers this token's center", letterbox tokens masked out, normalized by
     the number of boxes. Token centers of the padded grid are mapped into the
@@ -149,7 +156,8 @@ def encoder_objectness_loss(enc_logits, feature_mask, tgt_boxes, tgt_valid,
 
     focal = _focal(enc_logits.float(), target, config.focal_alpha, config.focal_gamma)
     focal = focal * maskf.reshape(B, fh * fw)
-    return focal.sum() / tgt_valid.float().sum().clamp(min=1.0)
+    count = tgt_valid.float().sum()
+    return focal.sum() / (count if total_of is None else total_of(count)).clamp(min=1.0)
 
 
 def pack_targets(per_image_boxes: list[Any], per_image_labels: list[Any], capacity: int,

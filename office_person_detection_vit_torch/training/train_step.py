@@ -3,7 +3,8 @@
 Mirrors the single-chip part of
 ``office_person_detection_vit_tpu/training/train_step.py``: forward (with deep
 supervision over the decoder layers) -> Hungarian matching -> set losses ->
-backward -> AdamW with the DETR recipe. The sharded step waits for ROADMAP A.8.
+backward -> AdamW with the DETR recipe, and ``make_sharded_train_step``
+(JAX :313) over a (data, model) grid of ranks (``parallel/``).
 
 The optimizer is a plain loop over the parameters (``torch._foreach_*``) that
 computes what the JAX package's optax chain does:
@@ -137,8 +138,10 @@ class AdamW:
 
     @torch.no_grad()
     def update(self, grads: list[torch.Tensor], state: OptState, params: list[torch.Tensor],
-               backbone: list[bool]) -> bool:
-        """Take one micro-step in place; True when the update was applied."""
+               backbone: list[bool], norm_fn: Callable | None = None) -> bool:
+        """Take one micro-step in place; True when the update was applied.
+        ``norm_fn``: the gradients' global norm where this rank holds parts of
+        some (tensor parallelism); by default the norm of ``grads``."""
         if self.accum_steps > 1:
             diff = torch._foreach_sub(grads, state.acc)
             torch._foreach_div_(diff, float(state.mini_step + 1))
@@ -152,7 +155,8 @@ class AdamW:
 
         # clip_by_global_norm: t unchanged when g_norm < max_norm, else
         # (t / g_norm) * max_norm (one host sync a step).
-        g_norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        g_norm = norm_fn(grads) if norm_fn is not None else torch.linalg.vector_norm(
+            torch.stack(torch._foreach_norm(grads)))
         if not bool(g_norm < self.max_grad_norm):
             grads = torch._foreach_div(grads, g_norm)
             torch._foreach_mul_(grads, self.max_grad_norm)
@@ -235,14 +239,15 @@ class TrainState:
 
 
 def apply_update(state: TrainState, grads: list[torch.Tensor], tx: AdamW,
-                 ema_decay: float | None = None) -> TrainState:
+                 ema_decay: float | None = None, norm_fn: Callable | None = None) -> TrainState:
     """Optimizer update and EMA, in place; the EMA advances only when the
-    update is applied (every ``accum_steps``-th micro-step)."""
+    update is applied (every ``accum_steps``-th micro-step). ``norm_fn``:
+    see :meth:`AdamW.update`."""
     if ema_decay is not None and state.ema_params is None:
         raise ValueError("ema_decay was requested but the TrainState carries no ema_params; "
                          "create it with TrainState.create(..., ema=True)")
     backbone = [k.startswith("backbone.") for k in state.keys]
-    applied = tx.update(grads, state.opt_state, state.params, backbone)
+    applied = tx.update(grads, state.opt_state, state.params, backbone, norm_fn)
     if applied and ema_decay is not None:
         d = np.float32(ema_decay)
         with torch.no_grad():
@@ -254,9 +259,10 @@ def apply_update(state: TrainState, grads: list[torch.Tensor], tx: AdamW,
 
 
 def loss_fn(model: DETR, criterion: CriterionConfig, batch: dict, generator: torch.Generator | None,
-            aux_loss: bool, mark: Callable[[str], None] = lambda _name: None):
+            aux_loss: bool, mark: Callable[[str], None] = lambda _name: None, total_of=None):
     """Forward and set losses -> (total, metrics); ``mark`` is called after
-    the forward, the matching and the losses (phase timing)."""
+    the forward, the matching and the losses (phase timing). ``total_of``:
+    see ``criterion.detr_loss``."""
     out = model(batch["pixels"], batch["pixel_mask"], return_aux=aux_loss, generator=generator)
     mark("forward")
     labels, boxes, valid = batch["labels"], batch["boxes"], batch["valid"]
@@ -268,16 +274,18 @@ def loss_fn(model: DETR, criterion: CriterionConfig, batch: dict, generator: tor
     idx = match(logits, pred, labels.expand(L, *labels.shape), boxes.expand(L, *boxes.shape),
                 valid.expand(L, *valid.shape), criterion)
     mark("matcher")
-    total, metrics = detr_loss(out["logits"], out["boxes"], labels, boxes, valid, criterion, idx[-1])
+    total, metrics = detr_loss(out["logits"], out["boxes"], labels, boxes, valid, criterion, idx[-1], total_of)
     if aux_loss:
         aux_total = torch.zeros((), device=total.device)
         for i in range(L - 1):
-            aux_total = aux_total + detr_loss(logits[i], pred[i], labels, boxes, valid, criterion, idx[i])[0]
+            aux_total = aux_total + detr_loss(logits[i], pred[i], labels, boxes, valid, criterion, idx[i],
+                                              total_of)[0]
         total = total + aux_total
         metrics["loss_aux"] = aux_total
         metrics["loss"] = total
     if "enc_obj_logits" in out:
-        enc = encoder_objectness_loss(out["enc_obj_logits"], out["feature_mask"], boxes, valid, criterion)
+        enc = encoder_objectness_loss(out["enc_obj_logits"], out["feature_mask"], boxes, valid, criterion,
+                                      total_of)
         total = total + criterion.w_enc_obj * enc
         metrics["loss_enc_obj"] = enc
         metrics["loss"] = total
@@ -313,5 +321,68 @@ def make_train_step(model: DETR, tx: AdamW, criterion: CriterionConfig | None = 
         apply_update(state, gradients(state.params), tx, ema_decay)
         mark("optimizer")
         return state, {k: v.detach() for k, v in metrics.items()}
+
+    return train_step
+
+
+def make_sharded_train_step(model: DETR, tx: AdamW, mesh, criterion: CriterionConfig | None = None,
+                            aux_loss: bool = True, ema_decay: float | None = None, augment=None) -> Callable:
+    """The same step over a (data, model) grid of ranks (``parallel/``;
+    JAX ``make_sharded_train_step``). Give it ``model`` already sharded
+    (``parallel.sharding.shard_model``) and its ``TrainState``, and the
+    whole batch on every rank, as the one-device step takes it.
+
+    - data: each rank takes its slice of the batch after the whole batch's
+      augmentation, drops what the one-device step drops on those samples
+      (``models.layers.batch_draws``), divides its loss sums by the
+      all-reduced box counts (``total_of``), and the gradients are
+      all-reduced over the data ranks, so the update is the one-device
+      step's;
+    - model: the tensor-parallel layers all-reduce inside the forward and
+      backward, and the clip's global norm sums the shards' squares over
+      the model group.
+
+    The metrics are the whole batch's (all-reduced; the cardinality error
+    is a mean over the data ranks' equal slices)."""
+    from ..models.layers import batch_draws
+    from ..parallel.sharding import spec_of
+
+    if criterion is None:
+        criterion = CriterionConfig(num_classes=model.config.num_classes)
+    data = mesh.data_group()
+
+    def norm_fn(keys):
+        sharded = [bool(spec_of(k)) for k in keys]
+
+        def norm(grads):
+            sq = [g.float().pow(2).sum() for g in grads]
+            split = torch.stack([s for s, sh in zip(sq, sharded) if sh]).sum() if any(sharded) else sq[0] * 0
+            if mesh.model_group is not None:
+                torch.distributed.all_reduce(split, group=mesh.model_group)
+            rest = torch.stack([s for s, sh in zip(sq, sharded) if not sh]).sum()
+            return torch.sqrt(split + rest)
+
+        return norm
+
+    def train_step(state: TrainState, batch: dict, generator: torch.Generator,
+                   mark: Callable[[str], None] = lambda _name: None):
+        if augment is not None:
+            from .augment import augment_batch
+
+            batch = augment_batch(generator, batch, augment)  # the whole batch's draws
+        batch = data.local(batch)
+        state.model.train()
+        state.model.zero_grad(set_to_none=True)
+        with batch_draws(data.index, data.size):
+            total, metrics = loss_fn(state.model, criterion, batch, generator, aux_loss, mark, data.all_sum)
+        total.backward()
+        mark("backward")
+        grads = gradients(state.params)
+        data.all_sum_(grads)
+        apply_update(state, grads, tx, ema_decay, norm_fn(state.keys) if mesh.model_parallel > 1 else None)
+        mark("optimizer")
+        metrics = {k: data.all_sum(v) for k, v in metrics.items()}
+        metrics["cardinality_error"] = metrics["cardinality_error"] / data.size
+        return state, metrics
 
     return train_step

@@ -57,8 +57,10 @@ def test_reference_matches_jax_reference(shape, mask_frac):
 
 
 @pytest.mark.parametrize("mask_frac", [None, 0.3])
-@pytest.mark.parametrize("D", [32, 64, 48, 80, 128])
+@pytest.mark.parametrize("D", [32, 64, 48, 80, 128, 160])
 def test_reference_matches_whole_kv_pallas(mask_frac, D):
+    """The plain version (the kernels' twin, above 128 too: 160 runs the
+    chunked bodies on the card) against K1 in interpret mode."""
     q, k, v, mask = _inputs(1, 2, 4, 37, 53, D, mask_frac)
     got = _port(q, k, v, mask)
     want = _jax(ref.attention_pallas, q, k, v, mask, interpret=True)
@@ -144,6 +146,9 @@ def test_one_library_builds_every_source():
         (65, 48, torch.float32, False),  # a padded head dim takes the padded width's plan (64)
         (197, 80, torch.float32, False),  # ViT-H/14 at 224x224 (80 padded to 128): K1 fits (201,925 B)
         (3681, 128, torch.bfloat16, True),  # head dim 128 on the ViT detect's token count
+        (197, 256, torch.float32, False),  # above 128 the chunked K1 fits at any Lk: float32 takes it
+        (8192, 136, torch.float32, False),
+        (8192, 256, torch.bfloat16, True),
     ],
 )
 def test_dispatch_rule(lk, d, dtype, flash):
@@ -151,19 +156,27 @@ def test_dispatch_rule(lk, d, dtype, flash):
 
 
 @pytest.mark.parametrize("d,want", [(1, 16), (16, 16), (17, 32), (32, 32), (33, 64), (48, 64), (64, 64),
-                                    (65, 128), (80, 128), (128, 128)])
+                                    (65, 128), (80, 128), (128, 128), (129, 192), (136, 192), (192, 192),
+                                    (193, 256), (256, 256), (300, 320)])
 def test_kernel_head_dim(d, want):
     assert kernels.kernel_head_dim(d) == want
+    assert kernels.is_wide(d) is (want > 128)
 
 
 @pytest.mark.parametrize("d", [129, 256, 0])
 def test_head_dims_off_the_kernels_raise_naming_c7(d):
-    with pytest.raises(ValueError, match="C.7"):
-        kernels.kernel_head_dim(d)
-    if d:
-        q = torch.zeros(1, 1, 4, d)
-        with pytest.raises(ValueError, match="C.7"):
-            kernels.padded_call(lambda *t, scale: t[0], q, q, q)
+    """Until C.7 closed, head dims above 128 raised; now every head dim of
+    at least 1 runs: above 128 padded to a multiple of 64 for the chunked
+    bodies, and only a head dim of 0 raises."""
+    if not d:
+        with pytest.raises(ValueError, match="at least 1"):
+            kernels.kernel_head_dim(d)
+        return
+    q = torch.zeros(1, 1, 4, d)
+    seen = []
+    out = kernels.padded_call(lambda *t, scale: seen.append((t[0].shape[-1], scale)) or t[0], q, q, q)
+    assert out.shape == q.shape and seen == [(kernels.kernel_head_dim(d), pytest.approx(d**-0.5))]
+    assert not kernels.use_flash(197, d, torch.float32) and kernels.whole_kv_fits(4096, d, torch.float32)
 
 
 def _scaled_plain(q, k, v, mask, with_lse):
@@ -175,7 +188,7 @@ def _scaled_plain(q, k, v, mask, with_lse):
     return call
 
 
-@pytest.mark.parametrize("D", [8, 20, 48, 16, 64, 80, 128])
+@pytest.mark.parametrize("D", [8, 20, 48, 16, 64, 80, 128, 136, 200])
 @pytest.mark.parametrize("with_lse", [False, True])
 def test_padded_call_with_the_plain_version_is_the_unpadded_call(D, with_lse):
     """Zero columns up to the kernel's head dim, the true scale 1/sqrt(D)
@@ -198,7 +211,7 @@ def test_padded_call_with_the_plain_version_is_the_unpadded_call(D, with_lse):
         np.testing.assert_allclose(got[1].numpy(), port.attention_lse(q, k, mask).numpy(), atol=1e-5)
 
 
-@pytest.mark.parametrize("D", [20, 48, 80])
+@pytest.mark.parametrize("D", [20, 48, 80, 160])
 def test_padded_call_of_the_backward_is_the_unpadded_backward(D):
     """The backward pair's padding: q, k, v, out and g padded, dq/dk/dv cut
     back; with the true scale the plain pair's gradients are unchanged."""
@@ -222,6 +235,9 @@ def test_whole_kv_smem_arithmetic():
     assert kernels.whole_kv_smem_bytes(197, 48, torch.float32) == 117_445  # padded to 64
     assert kernels.whole_kv_smem_bytes(197, 80, torch.float32) == 201_925  # ViT-H: padded to 128, no query tile
     assert kernels.whole_kv_smem_bytes(197, 128, torch.bfloat16) == 132_096  # 256 keys
+    # above 128 the chunked body stages 64-key tiles whatever Lk (3 tiles of 64 x 65 floats, one of 64 x 129, a
+    # byte a key)
+    assert kernels.whole_kv_smem_bytes(4096, 256, torch.float32) == (3 * 64 * 65 + 64 * 129) * 4 + 64 == 83_008
 
 
 @pytest.mark.parametrize(

@@ -74,11 +74,13 @@ def _check_kernel(fn, q, k, v, mask, relative=False):
 # tiles, K1's blocks of up to 16 warps (920 rows: 4 blocks of 15 warps) and
 # the float32 kernels' 64-row blocks.
 LQ, LK = (1, 67, 100, 920), (1, 15, 131, 920, 1000)
+#: Head dims above 128 (C.7): the chunked bodies, at a multiple of 64 and padded.
+WIDE_DIMS = (136, 192, 256)
 
 
 @pytest.mark.parametrize("fn", [kernels.attention_whole_kv, kernels.attention_flash])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("D", [*kernels.HEAD_DIMS, 48, 80])
+@pytest.mark.parametrize("D", [*kernels.HEAD_DIMS, 48, 80, *WIDE_DIMS])
 @pytest.mark.parametrize("masked", [False, True])
 def test_kernel_matches_plain(card, fn, dtype, D, masked):
     _check_kernel(fn, *_case(2, 3, 67, 131, D, dtype, masked))
@@ -86,7 +88,7 @@ def test_kernel_matches_plain(card, fn, dtype, D, masked):
 
 @pytest.mark.parametrize("fn", [kernels.attention_whole_kv, kernels.attention_flash])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("D", [*kernels.HEAD_DIMS, 48, 80])
+@pytest.mark.parametrize("D", [*kernels.HEAD_DIMS, 48, 80, *WIDE_DIMS])
 @pytest.mark.parametrize("masked", [False, True])
 def test_kernel_matches_plain_at_tile_edges(card, fn, dtype, D, masked):
     """Every (Lq, Lk) pair of LQ x LK; with the mask, batch entry 0 has every
@@ -159,8 +161,8 @@ def test_whole_kv_refuses_a_grid_short_of_the_query_rows(card, dtype, blocks, th
 
 def test_wrapper_rejects_what_the_kernel_does_not_take(card):
     q, k, v, _ = _case(1, 2, 8, 8, 32, torch.float32, False)
-    with pytest.raises(ValueError, match="C.7"):  # above 128 (80 runs, padded to 128)
-        kernels.attention_flash(*_case(1, 2, 8, 8, 136, torch.float32, False)[:3])
+    # head dim 136 raised until C.7 closed; it now runs the chunked body (padded to 192)
+    _check_kernel(kernels.attention_flash, *_case(1, 2, 8, 8, 136, torch.float32, False))
     with pytest.raises(ValueError):
         kernels.attention_flash(q.half(), k.half(), v.half())
     with pytest.raises(ValueError):
@@ -321,7 +323,7 @@ def _b4_errors(got, want):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("Lq,Lk,D", [(84, 84, 16), (100, 1008, 32), (67, 131, 32), (37, 53, 16), (131, 67, 64),
                                      (100, 1008, 64), (37, 53, 48), (131, 67, 128), (100, 1008, 128),
-                                     (37, 53, 80)])
+                                     (37, 53, 80), (131, 67, 136), (100, 260, 192), (67, 131, 256)])
 @pytest.mark.parametrize("all_masked", [False, True], ids=["ragged", "all_masked_entry"])
 def test_b4_gradients_match_plain_autograd(card, dtype, Lq, Lk, D, all_masked):
     """B.4: multi_head_attention under grad runs K1/K2 through
@@ -368,10 +370,13 @@ def test_b4_gradients_match_plain_autograd(card, dtype, Lq, Lk, D, all_masked):
      (kernels.attention_whole_kv, torch.float32, 67, 131, 32), (kernels.attention_whole_kv, torch.float32, 84, 84, 16),
      (kernels.attention_whole_kv, torch.float32, 25, 84, 16), (kernels.attention_flash, torch.bfloat16, 197, 197, 64),
      (kernels.attention_flash, torch.float32, 67, 131, 64), (kernels.attention_whole_kv, torch.float32, 67, 131, 64),
-     (kernels.attention_flash, torch.bfloat16, 67, 131, 48), (kernels.attention_whole_kv, torch.float32, 67, 131, 48)],
+     (kernels.attention_flash, torch.bfloat16, 67, 131, 48), (kernels.attention_whole_kv, torch.float32, 67, 131, 48),
+     (kernels.attention_flash, torch.bfloat16, 67, 131, 192), (kernels.attention_whole_kv, torch.bfloat16, 67, 131, 256),
+     (kernels.attention_flash, torch.float32, 67, 131, 160), (kernels.attention_whole_kv, torch.float32, 67, 131, 192)],
     ids=["k2_bf16_67x131", "k2_bf16_encoder_920", "k2_bf16_cross_1008", "k2_bf16_d16", "k2_float32_67x131",
          "k2_float32_d16", "k1_float32_67x131", "k1_float32_d16", "k1_float32_cross_d16", "k2_bf16_d64",
-         "k2_float32_d64", "k1_float32_d64", "k2_bf16_d48", "k1_float32_d48"],
+         "k2_float32_d64", "k1_float32_d64", "k2_bf16_d48", "k1_float32_d48", "k2_bf16_d192", "k1_bf16_d256",
+         "k2_float32_d160", "k1_float32_d192"],
 )
 def test_forward_with_lse_is_bit_identical(card, fn, dtype, Lq, Lk, D):
     """K2 (both types) and K1 (float32) give the same bits with and without
@@ -396,7 +401,7 @@ def test_k1_bf16_refuses_lse(card):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("D", [32, 64, 48, 128])
+@pytest.mark.parametrize("D", [32, 64, 48, 128, 192])
 def test_backward_pair_is_deterministic(card, dtype, D):
     """Two calls of the pair on the same inputs give the same bits (no
     atomics), at a shape with several blocks per head both ways."""

@@ -20,7 +20,7 @@ import pytest
 import torch
 
 from office_person_detection_vit_torch.core.dto import Detection, detections_to_batch
-from office_person_detection_vit_torch.detection.detector import TRANSFER_FORMATS, DETRDetector
+from office_person_detection_vit_torch.detection.detector import TRANSFER_FORMATS, DETRDetector, check_transfer_format
 from office_person_detection_vit_torch.device import resolve_device
 from office_person_detection_vit_torch.models.detr import DETRConfig
 from office_person_detection_vit_torch.ops import aggregation as port_agg
@@ -175,9 +175,9 @@ def test_device_names():
 
 @pytest.fixture(scope="module")
 def i420_outputs(tmp_path_factory):
-    """The JAX detector's ``i420`` run and the port's ``i420``, ``i420d`` and
-    ``I420`` runs on the same weights and frames (two calls each, so that
-    i420d's chain crosses calls), with ``slice_outputs``' settings."""
+    """The JAX detector's ``i420`` run and the port's ``i420`` and ``i420d``
+    runs on the same weights and frames (two calls each, so that i420d's
+    chain crosses calls), with ``slice_outputs``' settings."""
     detection = dict(DETECTION, transfer_format="i420")
     jax_det = JaxDETRDetector(
         ConfigManager.from_dict({"detection": detection, "parallel": {"mesh": {"data": 1}}}),
@@ -190,21 +190,28 @@ def i420_outputs(tmp_path_factory):
     calls = [rng.integers(0, 256, (5, 120, 160, 3), np.uint8), rng.integers(0, 256, (3, 120, 160, 3), np.uint8)]
     want = [jax_det.detect_batch(f) for f in calls]
     got = {}
-    for fmt in ("i420", "i420d", "I420"):
+    for fmt in ("i420", "i420d"):
         det = DETRDetector({f"detection.{k}": v for k, v in detection.items()}
                            | {"detection.checkpoint_path": str(path), "detection.transfer_format": fmt},
                            detr_config=DETRConfig.tiny(num_classes=2))
         got[fmt] = [det.detect_batch(f) for f in calls]
-        assert det.transfer_format == fmt.lower()
+        assert det.transfer_format == fmt
     return want, got
 
 
 @pytest.mark.parametrize("fmt", ["i420", "i420d", "I420"])
 def test_i420_transfer_formats_run(i420_outputs, fmt):
-    """Each I420 route (the value read without regard to case) gives the
-    JAX detector's i420 detections at the DETR bars of the BGR test, and
-    i420d the i420 route's, bit for bit, over two calls (the delta chain
-    crosses chunks and calls)."""
+    """Each I420 route gives the JAX detector's i420 detections at the DETR
+    bars of the BGR test, and i420d the i420 route's, bit for bit, over two
+    calls (the delta chain crosses chunks and calls). The value is matched
+    exactly, as the JAX detector matches it: ``I420`` is no route (JAX runs
+    ``bgr`` for it) and raises, as any unknown value does."""
+    if fmt == "I420":
+        with pytest.raises(ValueError, match="transfer_format='I420'"):
+            DETRDetector({"detection.device": "cpu", "detection.transfer_format": fmt})
+        with pytest.raises(ValueError, match="transfer_format='I420'"):
+            check_transfer_format(fmt)
+        return
     want, got = i420_outputs
     for w, g, ref in zip(want, got[fmt], got["i420"]):
         np.testing.assert_array_equal(g.valid, np.asarray(w.valid))

@@ -432,9 +432,40 @@ REFUSALS = {
 }
 
 
+#: Refused until their item landed (A.8, A.7c); the cases now hold what runs
+#: in their place.
+LANDED = {"distributed", "fine_tune"}
+
+
 @pytest.mark.parametrize("case", list(REFUSALS))
-def test_main_refuses_what_is_not_ported(tmp_path, video, capsys, case):
+def test_main_refuses_what_is_not_ported(tmp_path, video, capsys, monkeypatch, case):
+    """The A.3 keys are refused before a session is written. Since A.8
+    ``parallel.distributed.enabled`` starts the process group with the
+    config's ``parallel.distributed.*`` (as the root ``main.py`` hands them
+    to ``jax.distributed.initialize``) and the run completes; since A.7c
+    ``--fine-tune`` with ``training.model: yolo`` hands the root
+    ``main.py``'s argument list, ``--yolo-variant`` included, to the trainer."""
     overrides, flags, item = REFUSALS[case]
+    if case in LANDED:
+        from office_person_detection_vit_torch import train_detr
+        from office_person_detection_vit_torch.parallel import mesh
+
+        seen = []
+        monkeypatch.setattr(mesh, "initialize_distributed", lambda **kw: seen.append(kw))
+        monkeypatch.setattr(train_detr, "main", lambda argv: seen.append(argv) or 0)
+        extra = ({"parallel.distributed.coordinator_address": "127.0.0.1:29511",
+                  "parallel.distributed.num_processes": 1, "parallel.distributed.process_id": 0}
+                 if case == "distributed" else {"training.yolo_variant": "x"})
+        cfg = write_config(tmp_path / "c.yaml", flow_config(tmp_path / "out", video, **overrides, **extra))
+        assert port_main(["--config", str(cfg), *flags]) == 0
+        if case == "distributed":
+            assert seen == [dict(coordinator_address="127.0.0.1:29511", num_processes=1, process_id=0)]
+            (session,) = sessions(tmp_path / "out")
+            assert json.loads((session / "summary.json").read_text())["status"] == "completed"
+        else:
+            (argv,) = seen
+            assert argv[argv.index("--model") + 1] == "yolo" and argv[argv.index("--yolo-variant") + 1] == "x"
+        return
     cfg = write_config(tmp_path / "c.yaml", flow_config(tmp_path / "out", video, **overrides))
     assert port_main(["--config", str(cfg), *flags]) == 2
     assert sessions(tmp_path / "out") == []

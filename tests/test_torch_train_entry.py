@@ -125,17 +125,37 @@ def test_weights_load_in_both_packages(trained):
 
 
 REFUSED = {
-    "yolo": (["--model", "yolo"], "A.7"),
+    "yolo": (["--model", "yolo", "--width", "128"], "A.7"),  # YOLOv8 takes multiples of 32
     "model_parallel": (["--model-parallel", "2"], "A.8"),
 }
 
 
 @pytest.mark.parametrize("case", list(REFUSED))
-def test_refused_flags_name_their_roadmap_item(tmp_path, case):
+def test_refused_flags_name_their_roadmap_item(dataset, tmp_path, case):
+    """The two flags the trainer refused until their item landed now train:
+    ``--model yolo`` (A.7c) the tiny YOLOv8, whose ``weights.npz`` the
+    port's YOLO detector loads; ``--model-parallel 2`` (A.8) in one process
+    takes the one-device step, as the JAX trainer does on one device, while
+    a mesh of 2 model ranks over 1 raises."""
     flags, item = REFUSED[case]
-    argv = ["--images", str(tmp_path), "--annotations", str(tmp_path / "none.json"), *flags]
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        train_detr.main(argv)
+    ckpt = tmp_path / "ck"
+    assert train_detr.main(_args(dataset, ckpt, "--epochs", "1", *flags)) == 0
+    history = json.loads((ckpt / "history.json").read_text())
+    assert len(history["step_losses"]) == 2 and all(np.isfinite(history["step_losses"]))
+    if case == "yolo":
+        from office_person_detection_vit_torch.detection.yolo_detector import YOLODetector
+
+        det = YOLODetector({"detection.device": "cpu", "detection.model_size": "tiny",
+                            "detection.checkpoint_path": str(ckpt / "weights.npz"),
+                            "detection.input_height": HW[0], "detection.input_width": 128})
+        det.load_model()
+        assert det.detect_batch(np.zeros((1, 72, 128, 3), np.uint8)).scores.shape[0] == 1
+    else:
+        from office_person_detection_vit_torch.parallel.mesh import make_mesh
+
+        assert history["config"]["model_parallel"] == 2 and history["config"]["devices"] == 1
+        with pytest.raises(ValueError, match="must divide"):
+            make_mesh(model_parallel=2)
 
 
 def _fine_tune_config(path, dataset, out, **training):
@@ -165,13 +185,17 @@ def test_fine_tune_passes_the_root_main_argument_list(dataset, tmp_path, monkeyp
 
 
 def test_fine_tune_trains_and_refuses_yolo(dataset, tmp_path, capsys):
+    """``main --fine-tune`` trains DETR, and since A.7c YOLOv8 too
+    (``training.model: yolo``; the tiny variant with ``training.tiny``)."""
     cfg = _fine_tune_config(tmp_path / "c.yaml", dataset, tmp_path / "out")
     assert port_main_module.main(["--config", str(cfg), "--fine-tune"]) == 0
     assert (tmp_path / "out" / "weights.npz").stat().st_size > 0
-    cfg = _fine_tune_config(tmp_path / "y.yaml", dataset, tmp_path / "y", model="yolo")
-    assert port_main_module.main(["--config", str(cfg), "--fine-tune"]) == 2
-    assert "ROADMAP A.7" in capsys.readouterr().out
-    assert not (tmp_path / "y").exists()
+    cfg = _fine_tune_config(tmp_path / "y.yaml", dataset, tmp_path / "y", model="yolo", input_width=128)
+    assert port_main_module.main(["--config", str(cfg), "--fine-tune"]) == 0
+    from office_person_detection_vit_torch.models.weights import load_checkpoint
+    from office_person_detection_vit_torch.models.yolo import YOLOConfig
+
+    assert len(load_checkpoint(tmp_path / "y" / "weights.npz", YOLOConfig.tiny())) > 0
 
 
 def test_vit_backbone_trains_and_evaluates(dataset, tmp_path):

@@ -6,6 +6,7 @@
     python3 chip_smoke.py --phase 12    # the ViT slice alone
     python3 chip_smoke.py --phase 13    # the detector slice alone
     python3 chip_smoke.py --phase 14    # head dims above 128, training, export, serving, scale-out
+    python3 chip_smoke.py --phase 15    # CLIP Re-ID, the new outputs, RANSAC, diagnostics, benchmark CLI
 
 Builds the hand-written CUDA kernels from
 ``office_person_detection_vit_torch/csrc`` (one nvcc call), holds each against
@@ -152,12 +153,27 @@ the pipeline phases 2-4, the entry point and the trainer:
    JPEG posts coalesced, detections against ``detect_batch``, K2's launches
    read from ``/stats``; (d) ``torchrun --nproc_per_node 1`` on NCCL: the
    sharded DETR and YOLO steps against the one-process step.
+15. the last modules: (a) the CLIP image tower of Re-ID's ``model_type:
+   clip`` at openai/clip-vit-base-patch32's widths (seeded weights written
+   as a HF directory, loaded through ``ReIDFeatureExtractor``): 12 K1
+   launches a call of 64 crops, features card against CPU, crops/s, and K1
+   at (64, 12, 50, 50, 64) float32 against the plain version, SDPA and the
+   bound; (b) [8a]'s frames into ``TrackingPhase`` with CLIP Re-ID (cascade,
+   then the scan on the card with the CPU scan's ids); (c) ``main`` with
+   ``output.save_attention_maps`` and ``save_side_by_side_video`` resumed
+   after [9b]'s Phase 1: an overlay a frame, the attention maps card against
+   CPU, the mp4 read back; (d) RANSAC (2,000 correspondences, 512
+   hypotheses) card against CPU, ``FeatureVisualizer`` on 3,000 of [11a]'s
+   features (silhouette card against CPU, KMeans against the true ids,
+   t-SNE's seconds), ``python -m ...benchmark`` on [11b]'s tracks and
+   ``SessionDataLoader`` over [9a]'s and [15c]'s sessions.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 Its last two lines are JSON: the kernels (launches, error, times, bound; K1,
 K2, K3, B.4 and its backward pair, K2, B.4 and the pair at head dim 64 on
 the ViT's path, K1, K2, B.4 and the pair at head dim 128 on the ViT-H-width path,
-and the chunked bodies above head dim 128 on the VITW path) and the device.
+the chunked bodies above head dim 128 on the VITW path, and K1 on the CLIP
+path) and the device.
 """
 
 from __future__ import annotations
@@ -1276,18 +1292,30 @@ def resume_flow(ka, probe, card: Path, cfg: dict, tmp: Path) -> None:
         f"launches {counts}, 0 frames decoded; zone_counts.csv byte-identical; main {secs:.3f} s")
 
 
+def kept_session(videos: Path, which: str) -> Path:
+    """The session that flow_phase kept under ``videos/<which>_session/``."""
+    (session,) = (videos / f"{which}_session").iterdir()
+    return session
+
+
 def flow_phase(ka, smi: str, writer: subprocess.Popen, videos: Path, H: np.ndarray,
                zones: list) -> tuple[dict, dict, FlowProbe]:
     """Phase 9: the videos, then 9a, 9b and 9c. Returns the launches of 9a
     and of 9b's card run, and the probe installed around the port's classes
-    (phase 11b runs main under it too)."""
+    (phase 11b runs main under it too). 9a's session is kept under
+    ``videos/day_session/`` and 9b's card session, up to its Phase 1, under
+    ``videos/hour_session/``, each by its own name (phase 15 reads them;
+    ``kept_session``)."""
     out, _ = writer.communicate(timeout=900)
     check(writer.returncode == 0, f"9: the video writer exited {writer.returncode}: {out[-2000:]}")
     probe = FlowProbe()
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
         day_counts = day_flow(ka, probe, smi, videos, tmp, H, zones)
+        day = next(p for p in (tmp / "day").iterdir() if p.is_dir() and not p.is_symlink())
+        shutil.copytree(day, videos / "day_session" / day.name)
         hour_counts, card, cfg = hour_flow(ka, probe, smi, videos, tmp)
+        resumable_copy(card, videos / "hour_session" / card.name)
         resume_flow(ka, probe, card, cfg, tmp)
     return day_counts, hour_counts, probe
 
@@ -1805,10 +1833,13 @@ SHOWCASE_FRAMES, SHOWCASE_SCORE_TOL = 600, 0.01
 LOAD_DETECTIONS = (20, 60)
 
 
-def workday_load(frames: int = WORKDAY_FRAMES, people: int = WORKDAY_PEOPLE, seed: int = 11) -> tuple[dict, list]:
+def workday_load(frames: int = WORKDAY_FRAMES, people: int = WORKDAY_PEOPLE, seed: int = 11,
+                 who: list | None = None) -> tuple[dict, list]:
     """[11a]'s ground truth {MOT frame: [(person id, xywh)]} and its
     FrameResults (timestamps every WORKDAY_STEP_S seconds, the detections
-    in a seeded order, features on every detection)."""
+    in a seeded order, features on every detection). ``who``, when given,
+    gets each frame's detections' person indices (-1: a false positive) in
+    that order."""
     from office_person_detection_vit_torch.core.dto import Detection, FrameResult
 
     rng = np.random.default_rng(seed)
@@ -1827,10 +1858,11 @@ def workday_load(frames: int = WORKDAY_FRAMES, people: int = WORKDAY_PEOPLE, see
         vel = np.where(over | under, -vel, vel)
         gt[f + 1] = [(p + 1, (float(pos[p, 0]), float(pos[p, 1]), float(wh[p, 0]), float(wh[p, 1])))
                      for p in range(people)]
-        dets = []
+        dets, pids = [], []
         for p in range(people):
             if rng.random() < WORKDAY_DROP:
                 continue
+            pids.append(p)
             box = (*(pos[p] + rng.normal(0, 3, 2)), *(wh[p] + rng.normal(0, 2, 2)))
             feat = looks[p] + rng.normal(0, 0.4 / np.sqrt(FEATURE_DIM), FEATURE_DIM)
             dets.append(Detection(bbox=tuple(float(v) for v in box), confidence=float(rng.uniform(0.5, 0.99)),
@@ -1841,8 +1873,11 @@ def workday_load(frames: int = WORKDAY_FRAMES, people: int = WORKDAY_PEOPLE, see
             dets.append(Detection(bbox=(float(xy[0]), float(xy[1]), 60.0, 150.0),
                                   confidence=float(rng.uniform(0.3, 0.6)),
                                   feature=(feat / np.linalg.norm(feat)).astype(np.float32)))
-        results.append(FrameResult(f, HOUR_START + timedelta(seconds=WORKDAY_STEP_S * f),
-                                   [dets[i] for i in rng.permutation(len(dets))]))
+            pids.append(-1)
+        order = rng.permutation(len(dets))
+        results.append(FrameResult(f, HOUR_START + timedelta(seconds=WORKDAY_STEP_S * f), [dets[i] for i in order]))
+        if who is not None:
+            who.append(np.asarray(pids)[order])
     return gt, results
 
 
@@ -2097,7 +2132,10 @@ def showcase_phase(ka, probe, smi: str, tmp: Path, given: Path | None = None) ->
         f"track id once; card launches {counts} ({chunks} chunks); Phase 2.5 seconds (summary.json): card "
         f"{phase25['card']:.3f}, CPU {phase25['cpu']:.3f}; main card {secs:.3f} s "
         f"({phase_seconds(card_summary)}), CPU phases 2-5 {cpu_secs:.3f} s, on {smi}")
-    return {"counts": counts, "scores": got, "phase25": phase25}
+    return {"counts": counts, "scores": got, "phase25": phase25,
+            "mot": {"gt_format": "gold", "gt": (tmp / "gold.json").read_text(),
+                    "pred": (card / "03_tracking" / "tracks_mot.csv").read_text(),
+                    "what": "[11b]'s tracks_mot.csv (the showcase on the card) and its gold GT"}}
 
 
 def load_threshold(scores_valid: list) -> float:
@@ -3707,6 +3745,389 @@ def write_hour_video(out_dir: str) -> None:
                     people_fn=hour_people)
 
 
+# ------------------------------------------------------------------ phase 15
+# The last modules. [15a]: the CLIP image tower of Re-ID's model_type clip at
+# openai/clip-vit-base-patch32's published widths (hidden 768, 12 layers of
+# 12 heads of 64, MLP 3072, patch 32 at 224: 50 tokens, projection 512) with
+# seeded random weights (the repo holds no CLIP checkpoint), written as a HF
+# directory and loaded through ReIDFeatureExtractor: 12 K1 launches a call
+# (float32, 50 keys fit K1's block) whatever the number of crops.
+CLIP_CROPS, CLIP_CPU_CROPS, CLIP_CALLS = 64, 16, 12
+CLIP_K1 = ("attention_whole_kv", (CLIP_CROPS, 12, 50, 50, 64), "float32", False,
+           "CLIP ViT-B/32 image tower, 64 crops a call (Re-ID model_type clip)")
+# float32 with TF32 off on both sides; the card sums in another order (cuBLAS,
+# cuDNN, K1) through 12 blocks: each component of the unit feature vectors.
+CLIP_CARD_ATOL = 1e-4
+# [15c]: the attention maps of the DETR-small checkpoint (means of float32
+# softmax probabilities near 1/84), card against CPU.
+ATTENTION_MAP_ATOL = 1e-5
+# [15d]: RANSAC at a calibration tool's load, and the Re-ID diagnostics on
+# [11a]'s features.
+RANSAC_POINTS, RANSAC_HYPOTHESES, VIS_FEATURES = 2000, 512, 3000
+
+
+def write_clip_checkpoint(path: Path, seed: int = 15) -> None:
+    """A HF CLIPModel directory (config.json, model.safetensors) holding the
+    vision tower and visual_projection at ViT-B/32's widths, seeded."""
+    import dataclasses
+
+    from safetensors.torch import save_file
+
+    from office_person_detection_vit_torch.models.clip import CLIPImageTower, CLIPVisionConfig
+
+    c = CLIPVisionConfig()
+    tower = CLIPImageTower(c)
+    tower.init_weights(torch.Generator().manual_seed(seed))
+    path.mkdir(parents=True, exist_ok=True)
+    vision = {k: v for k, v in dataclasses.asdict(c).items() if k != "projection_dim"}
+    (path / "config.json").write_text(json.dumps({"model_type": "clip", "projection_dim": c.projection_dim,
+                                                  "vision_config": vision}))
+    save_file({k.replace("position_embedding.embedding", "position_embedding.weight"): v.contiguous()
+               for k, v in tower.state_dict().items()}, str(path / "model.safetensors"))
+
+
+def clip_boxes(n: int, seed: int = 15) -> list:
+    rng = np.random.default_rng(seed)
+    wh = rng.uniform([40, 100], [120, 300], (n, 2))
+    xy = rng.uniform([0, 0], [1280, 720], (n, 2)) - wh / 2
+    return [tuple(float(v) for v in (*p, *s)) for p, s in zip(xy, wh)]
+
+
+def clip_phase(ka, smi: str, frame: np.ndarray, ckpt: Path) -> dict:
+    """[15a]: the tower loaded through ReIDFeatureExtractor on the card and
+    on the CPU; its features card against CPU; K1 at its shape against the
+    plain version, SDPA and the bound; launches and crops/s."""
+    from office_person_detection_vit_torch import attention_kernel_bench as abench
+    from office_person_detection_vit_torch.tracking.reid_feature_extractor import ReIDFeatureExtractor
+
+    check(not ka.use_flash(50, 64, torch.float32), "15a: use_flash sends CLIP's 50 float32 keys to K2")
+    card = ReIDFeatureExtractor(model_type="clip", model_path=str(ckpt), device="cuda")
+    card.load_model()
+    check(card.backend == "clip" and card.feature_dim == 512, f"15a: backend {card.backend}, {card.feature_dim}-d")
+    boxes = clip_boxes(CLIP_CROPS)
+    card.extract_features(frame, boxes)  # warm-up
+    torch.cuda.synchronize()
+    ka.reset_launch_counts()
+    feats = card.extract_features(frame, boxes)
+    counts = dict(ka.launch_counts)
+    check(counts == launches(whole_kv=CLIP_CALLS), f"15a: a CLIP call launched {counts}, expected {CLIP_CALLS} K1")
+    check(feats.shape == (CLIP_CROPS, 512) and np.isfinite(feats).all()
+          and np.allclose(np.linalg.norm(feats, axis=1), 1.0, atol=1e-5), f"15a: features {feats.shape}")
+    cpu = ReIDFeatureExtractor(model_type="clip", model_path=str(ckpt), device="cpu")
+    cpu.load_model()
+    t = time.perf_counter()
+    want = cpu.extract_features(frame, boxes[:CLIP_CPU_CROPS])
+    cpu_secs = time.perf_counter() - t
+    err = float(np.abs(feats[:CLIP_CPU_CROPS] - want).max())
+    check(err <= CLIP_CARD_ATOL, f"15a: card features {err:.2e} from the CPU's (bar {CLIP_CARD_ATOL})")
+    times = []
+    for _ in range(10):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        card.extract_features(frame, boxes)
+        times.append(time.perf_counter() - t)
+    pixels = torch.randn(CLIP_CROPS, 3, 224, 224, device="cuda", generator=torch.Generator("cuda").manual_seed(1))
+    with torch.inference_mode():
+        tower_ms = abench.cuda_ms(lambda: card._clip(pixels), 10)
+    row = abench.measure(ka, CLIP_K1, 1500)
+    check(row["max_abs_err"] <= row["tolerance"], f"15a: {abench.describe(row)}")
+    rate = CLIP_CROPS / statistics.median(times)
+    log(f"[15a] CLIP ViT-B/32 image tower (seeded weights, HF safetensors through ReIDFeatureExtractor, float32, "
+        f"TF32 off): {CLIP_CROPS} crops a call, launches {counts}; card against CPU on {CLIP_CPU_CROPS} crops: "
+        f"max|dfeature| {err:.2e} (bar {CLIP_CARD_ATOL}; CPU {cpu_secs:.2f} s); {rate:.1f} crops/s median of 10 "
+        f"calls (host clock: crops and cv2.resize on the host, one upload, the tower, L2 norm), the tower alone "
+        f"{tower_ms:.3f} ms a call of {CLIP_CROPS} (CUDA events) on {smi}")
+    log(f"[15a] {abench.describe(row)} [{CLIP_K1[4]}]")
+    return {"counts": counts, "row": row, "crops_per_s": rate, "tower_ms": tower_ms, "err": err}
+
+
+def clip_tracking_phase(ka, smi: str, frames: list, stamps: list, ckpt: Path) -> dict:
+    """[15b]: [8a]'s frames into TrackingPhase with tracking.reid.enabled
+    and model_type clip on the card: the drawn person's box a frame, the
+    cascade, then the scan on the card; the scan's ids equal to the port's
+    CPU scan on the same features; each phase's seconds."""
+    import copy
+
+    from office_person_detection_vit_torch.core.dto import Detection, FrameResult
+    from office_person_detection_vit_torch.pipeline.phases import TrackingPhase
+    from office_person_detection_vit_torch.tracking.scan_tracker import assign_track_ids
+
+    def load() -> list:
+        return [FrameResult(i, ts, [Detection(bbox=(float(80 + 37 * i % 1100), float(120 + 53 * i % 400 - 26), 50.0,
+                                                    156.0), confidence=0.9)])
+                for i, ts in enumerate(stamps)]
+
+    cfg = {"detection.device": "cuda", "tracking.enabled": True, "tracking.reid.enabled": True,
+           "tracking.reid.model_type": "clip", "tracking.reid.model_path": str(ckpt)}
+    secs, runs, counts = {}, {}, {}
+    for engine in ("cascade", "scan"):
+        results = load()
+        phase = TrackingPhase({**cfg, "tracking.engine": engine})
+        phase.initialize()
+        check(phase.reid.backend == "clip", f"15b: {engine}: Re-ID backend {phase.reid.backend}")
+        torch.cuda.synchronize()
+        ka.reset_launch_counts()
+        t = time.perf_counter()
+        phase.execute(results, frames)
+        torch.cuda.synchronize()
+        secs[engine] = time.perf_counter() - t
+        counts[engine] = dict(ka.launch_counts)
+        check(counts[engine] == launches(whole_kv=CLIP_CALLS * len(frames)),
+              f"15b: {engine} launched {counts[engine]}, expected {CLIP_CALLS} K1 a frame")
+        check(all(d.feature is not None and d.feature.shape == (512,) for r in results for d in r.detections),
+              f"15b: {engine}: a detection without its CLIP feature")
+        check(phase.statistics["unique_tracks"] > 0, f"15b: {engine}: no track ({phase.statistics})")
+        runs[engine] = (results, phase.statistics)
+    scan = runs["scan"][0]
+    cpu_runs = copy.deepcopy(scan)
+    t = time.perf_counter()
+    assign_track_ids(cpu_runs, device="cpu")
+    secs["scan ids on the CPU (same features)"] = time.perf_counter() - t
+    check([[d.track_id for d in r.detections] for r in scan] == [[d.track_id for d in r.detections] for r in cpu_runs],
+          "15b: the scan's ids on the card differ from the port's scan on the CPU over the CLIP features")
+    log(f"[15b] {len(frames)} frames of [8a] (the drawn person's box a frame) into TrackingPhase with "
+        f"tracking.reid model_type clip on the card: launches {counts['scan']} a run ({CLIP_CALLS} K1 a frame); "
+        f"cascade {runs['cascade'][1]}; scan {runs['scan'][1]}, its ids equal to the port's CPU scan on the same "
+        f"features; seconds (host clock, card synchronised): " + ", ".join(f"{k} {v:.3f}" for k, v in secs.items())
+        + f" on {smi}")
+    return {"counts": counts["scan"], "secs": secs}
+
+
+def outputs_phase(ka, probe, smi: str, videos: Path, tmp: Path, hour_session: Path | None) -> Path:
+    """[15c]: main with output.save_attention_maps and
+    save_side_by_side_video (side_by_side_zoom, the detection images to
+    pair) and the DETR-small checkpoint on the card, resumed after Phase 1
+    of [9b]'s one-hour session (from the start when there is none): an
+    overlay a frame, the card's attention maps against the CPU's, the mp4
+    read back."""
+    import cv2
+
+    from office_person_detection_vit_torch.detection.detector import DETRDetector
+
+    detection = {"model_size": "small", "score_mode": "sigmoid", "dtype": "float32", "input_height": 224,
+                 "input_width": 384, "confidence_threshold": 0.2, "nms_threshold": 0.3, "batch_size": 1,
+                 "checkpoint_path": str(ROOT / "docs" / "artifacts" / "detr_small_weights.npz"), "device": "cuda"}
+    cfg = flow_config(videos / "hour.mp4", tmp / "outputs", detection, np.eye(3), hour_zones())
+    cfg["output"].update(save_attention_maps=True, save_side_by_side_video=True, side_by_side_zoom=True,
+                         save_detection_images=True, side_by_side_video_fps=2.0)
+    flags = ()
+    if hour_session is not None:
+        session = resumable_copy(hour_session, tmp / "outputs" / hour_session.name)
+        flags = ("--resume", str(session))
+    rc, counts, secs, session = run_main(ka, probe, cfg, tmp / "outputs.yaml", *flags)
+    check(rc == 0, f"15c: main exited {rc}")
+    n = 13
+    summary = check_session(session, list(HOUR_QUADS), n, "15c")
+    overlays = sorted((session / "02_detection").glob("attention_*.jpg"))
+    check(len(overlays) == n, f"15c: {len(overlays)} attention overlays for {n} frames")
+    # 9 K1 a frame for detection and 8 for its map (the last cross-attention
+    # runs the plain version, which forms the probabilities)
+    check(counts == launches(whole_kv=17 * n), f"15c: main launched {counts}, expected {17 * n} K1 (9 + 8 a frame)")
+    cap = cv2.VideoCapture(str(session / "06_visualization" / "side_by_side.mp4"))
+    frames_read, shape = 0, None
+    while True:
+        ok, img = cap.read()
+        if not ok:
+            break
+        frames_read, shape = frames_read + 1, img.shape
+    cap.release()
+    check(frames_read == n and shape is not None and shape[0] == 720 and shape[1] > 1280,
+          f"15c: side_by_side.mp4 read back as {frames_read} frames of {shape}")
+    images = [cv2.imread(str(p)) for p in sorted((session / "01_extraction" / "frames").glob("*"))]
+    maps = {}
+    for device in ("cuda", "cpu"):
+        det = DETRDetector({f"detection.{k}": v for k, v in {**detection, "device": device}.items()})
+        det.load_model()
+        maps[device] = np.stack([det.get_attention_map(f) for f in images])
+    err = float(np.abs(maps["cuda"] - maps["cpu"]).max())
+    check(len(images) == n and err <= ATTENTION_MAP_ATOL,
+          f"15c: attention maps card against CPU {err:.2e} (bar {ATTENTION_MAP_ATOL}) over {len(images)} frames")
+    how = "resumed after [9b]'s Phase 1" if hour_session else "from the video"
+    log(f"[15c] main with save_attention_maps, save_side_by_side_video and side_by_side_zoom, DETR-small checkpoint "
+        f"float32 on the card, {how}: "
+        f"{len(overlays)} attention_*.jpg for {n} frames, launches {counts} (9 K1 a frame to detect, 8 to map); "
+        f"side_by_side.mp4 read back: {frames_read} frames of {shape[1]}x{shape[0]}; attention maps ({maps['cpu'].shape[1]}x"
+        f"{maps['cpu'].shape[2]}) card against CPU max {err:.2e} (bar {ATTENTION_MAP_ATOL}); phase seconds "
+        f"{phase_seconds(summary)}; main {secs:.3f} s on {smi}")
+    return session
+
+
+def ransac_load(n: int, seed: int = 15) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """n camera/floor correspondences under LOAD_H, 0.5 px of noise, 30% of
+    them outliers 30-200 px off."""
+    rng = np.random.default_rng(seed)
+    src = rng.uniform([0, 0], [1280, 720], (n, 2))
+    q = np.c_[src, np.ones(n)] @ LOAD_H.T
+    dst = q[:, :2] / q[:, 2:] + rng.normal(0, 0.5, (n, 2))
+    out = rng.random(n) < 0.3
+    angle, size = rng.uniform(0, 2 * np.pi, n), rng.uniform(30, 200, n)
+    dst[out] += (np.c_[np.cos(angle), np.sin(angle)] * size[:, None])[out]
+    return src.astype(np.float32), dst.astype(np.float32), ~out
+
+
+def remaining_phase(smi: str, sessions: dict, mot: dict | None, tmp: Path) -> dict:
+    """[15d]: RANSAC card against CPU; FeatureVisualizer on [11a]'s
+    features; the tracking-benchmark CLI; SessionDataLoader."""
+    from office_person_detection_vit_torch import benchmark as bench
+    from office_person_detection_vit_torch.ops.homography_fit import fit_homography_ransac
+    from office_person_detection_vit_torch.tracking.scan_tracker import assign_track_ids
+    from office_person_detection_vit_torch.visualization import FeatureVisualizer, SessionDataLoader
+    from office_person_detection_vit_torch.visualization.feature_visualizer import silhouette
+
+    out = {}
+    src, dst, truth = ransac_load(RANSAC_POINTS)
+    fit_homography_ransac(src, dst, iterations=RANSAC_HYPOTHESES, device="cuda")  # warm-up
+    times = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        h, inliers, errors = fit_homography_ransac(src, dst, iterations=RANSAC_HYPOTHESES, device="cuda")
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    t = time.perf_counter()
+    ch, cinliers, _ = fit_homography_ransac(src, dst, iterations=RANSAC_HYPOTHESES, device="cpu")
+    cpu_secs = time.perf_counter() - t
+    same = bool(torch.equal(inliers.cpu(), cinliers))
+    check(same and bool((inliers.cpu().numpy() == truth).all()),
+          f"15d: RANSAC inliers card {int(inliers.sum())}, CPU {int(cinliers.sum())}, true {int(truth.sum())}")
+    out["ransac_ms"] = 1000 * statistics.median(times)
+    log(f"[15d] RANSAC, {RANSAC_POINTS} correspondences (30% outliers), {RANSAC_HYPOTHESES} hypotheses in one batched "
+        f"SVD: the card's inlier mask equal to the CPU's and to the truth ({int(truth.sum())}); "
+        f"{out['ransac_ms']:.2f} ms median of 5 on the card, {1000 * cpu_secs:.1f} ms on the CPU (host clock); "
+        f"max|dH| card-CPU {float((h.cpu() - ch).abs().max()):.2e} on {smi}")
+
+    who: list = []
+    _, results = workday_load(frames=VIS_FEATURES // (WORKDAY_PEOPLE - 2) + 2, who=who)
+    feats = np.stack([d.feature for fr in results for d in fr.detections])
+    ids = np.concatenate(who)
+    keep = np.flatnonzero(ids >= 0)[:VIS_FEATURES]
+    feats, ids = feats[keep], ids[keep]
+    card = FeatureVisualizer(0, device="cuda")
+    t = time.perf_counter()
+    sil = card.quality_report(feats, ids)
+    torch.cuda.synchronize()
+    quality_secs = time.perf_counter() - t
+    t = time.perf_counter()
+    cpu_sil = silhouette(torch.from_numpy(feats).double(), torch.from_numpy(ids))
+    cpu_secs = time.perf_counter() - t
+    check(abs(sil["silhouette_by_track"] - cpu_sil) <= 1e-9, f"15d: silhouette card {sil} against CPU {cpu_sil}")
+    labels, _ = card.cluster(feats, WORKDAY_PEOPLE)
+    pairs = {(int(a), int(b)) for a, b in zip(labels, ids)}
+    check(len(pairs) == WORKDAY_PEOPLE, f"15d: KMeans against the true ids: {len(pairs)} (label, id) pairs "
+                                        f"for {WORKDAY_PEOPLE} people")
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    emb = card.project_tsne(feats)
+    torch.cuda.synchronize()
+    tsne_secs = time.perf_counter() - t
+    emb_sil = silhouette(torch.from_numpy(emb).double(), torch.from_numpy(ids))
+    check(np.isfinite(emb).all() and emb_sil > 0.5, f"15d: t-SNE silhouette by true id {emb_sil:.4f}")
+    out.update(tsne_secs=tsne_secs, silhouette=sil)
+    log(f"[15d] FeatureVisualizer on {len(feats)} of [11a]'s 256-d features of {WORKDAY_PEOPLE} people: silhouette by "
+        f"true id card {sil['silhouette_by_track']:.9f} (CPU {cpu_sil:.9f}), by KMeans "
+        f"{sil['silhouette_by_kmeans']:.6f}; KMeans (k-means++, 10 inits) labels equal to the true ids up to a "
+        f"permutation; quality report (silhouette, KMeans) {quality_secs:.2f} s on the card, the silhouette "
+        f"{cpu_secs:.2f} s on the CPU; exact t-SNE "
+        f"(1,000 iterations) {tsne_secs:.2f} s on the card, silhouette by true id of the embedding {emb_sil:.4f} "
+        f"(host clock) on {smi}")
+
+    if mot is None:  # --phase 15 alone: [11a]'s load through the scan on the card
+        gt, results = workday_load(frames=200)
+        ids_matrix = assign_track_ids(results, device="cuda")
+        mot = {"gt_format": "mot", "what": "[11a]'s generator, 200 frames, scan on the card",
+               "gt": "".join(f"{f},{p},{x:.2f},{y:.2f},{w:.2f},{h:.2f},1,-1,-1,-1\n"
+                             for f, rows in gt.items() for p, (x, y, w, h) in rows),
+               "pred": "".join(f"{f},{t},{x:.2f},{y:.2f},{w:.2f},{h:.2f},0.9,-1,-1,-1\n"
+                               for f, rows in hypothesis(results, ids_matrix).items() for t, (x, y, w, h) in rows)}
+    gt_path = tmp / ("gt.json" if mot["gt_format"] == "gold" else "gt.csv")
+    gt_path.write_text(mot["gt"])
+    (tmp / "tracks_mot.csv").write_text(mot["pred"])
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        rc = bench.main(["--gt", str(gt_path), "--pred", str(tmp / "tracks_mot.csv"), "--gt-format", mot["gt_format"],
+                         "--json", "--report", str(tmp / "report")])
+    doc = json.loads(printed.getvalue())
+    direct = scores(bench.load_gold_gt(gt_path) if mot["gt_format"] == "gold" else bench.load_mot_csv(gt_path),
+                    bench.load_mot_csv(tmp / "tracks_mot.csv"))
+    check(rc == 0 and (tmp / "report" / "tracking_report.md").exists() and doc["mota"] == direct["mota"]
+          and doc["idf1"] == direct["idf1"] and doc["hota"]["hota"] == direct["hota"],
+          f"15d: the benchmark CLI printed {doc}, the metrics give {direct}")
+    out["benchmark"] = {k: doc[k] for k in ("mota", "idf1")} | {"hota": doc["hota"]["hota"]}
+    log(f"[15d] python -m office_person_detection_vit_torch.benchmark on {mot['what']}: MOTA {doc['mota']:.4f}, "
+        f"IDF1 {doc['idf1']:.4f}, HOTA {doc['hota']['hota']:.4f} (equal to mot_metrics called directly); the json, "
+        f"md and diagnostics reports written")
+
+    for name, session in sessions.items():
+        loader = SessionDataLoader(session, device="cuda")
+        status = loader.phase_status()
+        zones, rows = loader.zone_counts()
+        summary = loader.summary() or {}
+        check(status and all(v in ("completed", "skipped") for v in status.values()) and rows
+              and len(loader.extraction_results()) == summary.get("statistics", {}).get("frames_extracted"),
+              f"15d: SessionDataLoader over {name}: {status}, {len(rows)} zone rows")
+        log(f"[15d] SessionDataLoader over {name}: phases {status}; {len(loader.extraction_results())} extracted "
+            f"frames, {len(rows)} zone_counts rows over {zones}, {len(loader.images('06_visualization'))} images in "
+            f"06_visualization, {len(loader.floor_trajectories())} floor trajectories")
+    return out
+
+
+def last_modules_slice(ka, probe, smi: str, frames: list, stamps: list, videos: Path, sessions: dict,
+                       hour_session: Path | None, mot: dict | None) -> dict:
+    """Phase 15: the last modules on the card."""
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        ckpt = tmp / "clip-vit-base-patch32-seeded"
+        write_clip_checkpoint(ckpt)
+        clip = clip_phase(ka, smi, frames[0], ckpt)
+        clip["tracking"] = clip_tracking_phase(ka, smi, frames, stamps, ckpt)
+        session = outputs_phase(ka, probe, smi, videos, tmp, hour_session)
+        rest = remaining_phase(smi, {**sessions, "[15c]'s session": session}, mot, tmp)
+    log(f"[15] last-modules phase {time.perf_counter() - t:.1f} s")
+    return {"clip": clip, "rest": rest}
+
+
+def clip_kernel_rows(res: dict) -> list:
+    """The kernels line's row of K1 on the CLIP path: its launches in one
+    ReIDFeatureExtractor call of [15a] and in [15b]'s scan run."""
+    row = res["clip"]["row"]
+    return [{"name": "attention_whole_kv_clip", "route": "cuda",
+             "source": "office_person_detection_vit_torch/csrc/attention.cu",
+             "replaces": "office_person_detection_vit_tpu/ops/attention.py:60",
+             "launches": res["clip"]["counts"]["attention_whole_kv"],
+             "launches_on": f"ReIDFeatureExtractor(model_type='clip').extract_features, {CLIP_CROPS} crops, "
+                            "CLIP ViT-B/32 float32, phase 15a",
+             "launches_other_paths": {"phase 15b TrackingPhase scan with CLIP Re-ID over 288 frames":
+                                          res["clip"]["tracking"]["counts"]["attention_whole_kv"]},
+             **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape",
+                                    "dtype", "instruction")}}]
+
+
+def last_modules_alone() -> int:
+    """``--phase 15``: the build and phase 15 with its own one-hour video (a
+    child process) and [8a]'s frames; [15c] runs main from the video."""
+    from office_person_detection_vit_torch.kernels import attention as ka
+
+    smi = card_line()
+    log(f"[1] card: {smi}")
+    with tempfile.TemporaryDirectory() as videos:
+        code = f"import sys; sys.path.insert(0, {str(ROOT)!r}); import chip_smoke; chip_smoke.write_hour_video({videos!r})"
+        child = subprocess.Popen([sys.executable, "-c", code], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                 text=True)
+        try:
+            ka.load_library()
+            frames, stamps = slice_frames(load_render_frame(), datetime(2025, 1, 20, 9, 0, 0))
+            out, _ = child.communicate(timeout=600)
+            check(child.returncode == 0, f"15: the video writer exited {child.returncode}: {out[-2000:]}")
+            res = last_modules_slice(ka, FlowProbe(), smi, frames, stamps, Path(videos), {}, None, None)
+        finally:
+            if child.poll() is None:
+                child.kill()
+                child.wait()
+    print(json.dumps({"kernels": clip_kernel_rows(res)}, default=str), flush=True)
+    return 0
+
+
 def card_line() -> str:
     """The card's name and power limit, as nvidia-smi gives them."""
     return subprocess.run(
@@ -3719,7 +4140,7 @@ def main(argv=None) -> int:
     import argparse
 
     parser = argparse.ArgumentParser(description="Chip smoke test of the PyTorch/CUDA port.")
-    parser.add_argument("--phase", choices=["10a", "11", "12", "13", "14"], help="run only this phase (after the build) and "
+    parser.add_argument("--phase", choices=["10a", "11", "12", "13", "14", "15"], help="run only this phase (after the build) and "
                         "print its rows")
     parser.add_argument("--showcase-session", type=Path, default=None,
                         help="[11b]: resume this directory's session/ (a showcase session made elsewhere, its "
@@ -3754,6 +4175,8 @@ def main(argv=None) -> int:
         return detector_phase_alone()
     if args.phase == "14":
         return scale_phase_alone()
+    if args.phase == "15":
+        return last_modules_alone()
     with tempfile.TemporaryDirectory() as videos, tempfile.TemporaryDirectory() as data:
         writer = start_video_writer(Path(videos))  # phase 9's videos, written while phases 1-8 run
         dataset_writer = start_dataset_writer(Path(data))  # phase 10's images
@@ -3986,6 +4409,11 @@ def run(writer: subprocess.Popen, videos: Path, dataset_writer: subprocess.Popen
     # ---- 14. head dims above 128, the single-shot trainers, export and serving, scale-out
     scale = scale_slice(ka, build, smi, frames[:16], samples, data)
 
+    # ---- 15. the last modules: CLIP Re-ID, the new outputs, RANSAC, the diagnostics, the benchmark CLI
+    last = last_modules_slice(ka, probe, smi, day_frames, day_stamps, videos,
+                              {"[9a]'s session": kept_session(videos, "day")}, kept_session(videos, "hour"),
+                              tracking["showcase"]["mot"])
+
     # ---- result
     replaces = {"attention_whole_kv": "office_person_detection_vit_tpu/ops/attention.py:60",
                 "attention_flash": "office_person_detection_vit_tpu/ops/attention.py:159"}
@@ -4055,6 +4483,7 @@ def run(writer: subprocess.Popen, videos: Path, dataset_writer: subprocess.Popen
     kernels += vit_kernel_rows(vit)
     kernels += d128_kernel_rows(detectors)
     kernels += wide_kernel_rows(scale)
+    kernels += clip_kernel_rows(last)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -22,11 +22,8 @@ starts the process group from ``parallel.distributed.{coordinator_address,
 num_processes,process_id}`` before Phase 1 (or the trainer), as the root
 ``main.py`` does (``parallel.mesh.initialize_distributed``).
 
-What the port does not have yet is refused with ``NotImplementedError``
-before any session directory is written, and the run exits 2: the config
-keys of ``pipeline.orchestrator.UNPORTED_KEYS`` (the side-by-side video and
-the attention maps, A.3). There is no compile cache to enable: the CUDA
-kernels are built once into ``_build/``.
+There is no compile cache to enable: the CUDA kernels are built once into
+``_build/``.
 """
 
 from __future__ import annotations

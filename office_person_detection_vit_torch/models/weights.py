@@ -34,13 +34,23 @@ module names are their Flax names too; and
 :func:`convert_yolov8_state_dict` carries an ultralytics ``DetectionModel``
 state_dict into the port's YOLOv8 (JAX ``models/weights.py:222-307``).
 
+The CLIP image tower (``models/clip.py``) loads from a local checkpoint
+directory as ``FlaxCLIPModel.from_pretrained(source, local_files_only=True)``
+reads one (:func:`load_clip_tower`): ``config.json`` beside
+``flax_model.msgpack`` (decoded by :func:`read_flax_msgpack`, without the
+``msgpack`` package), ``model.safetensors`` or ``pytorch_model.bin``; only
+the vision tower and ``visual_projection`` are kept
+(:func:`clip_state_dict_from_flax`, :func:`clip_state_dict_from_hf`).
+
 The port's module names are the Flax module names, so one walk over the
 port's own modules gives the whole mapping.
 """
 
 from __future__ import annotations
 
+import json
 import re
+import struct
 from pathlib import Path
 from typing import Any, Mapping, NamedTuple
 
@@ -48,6 +58,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from .clip import CLIPImageTower, CLIPVisionConfig
 from .detr import DETR, DETRConfig
 from .resnet import FrozenBatchNorm
 from .single_shot import SingleShotConfig, SingleShotDetector
@@ -55,18 +66,20 @@ from .vit import ViTBackbone, ViTConfig
 from .yolo import YOLOConfig, YOLOv8
 
 #: A configuration of any model the maps take.
-ModelConfig = DETRConfig | ViTConfig | YOLOConfig | SingleShotConfig
+ModelConfig = DETRConfig | ViTConfig | YOLOConfig | SingleShotConfig | CLIPVisionConfig
 
 
 def build_model(config: ModelConfig) -> nn.Module:
-    """The port's model of ``config``: DETR, a ViT backbone on its own, YOLOv8
-    or the single-shot detector."""
+    """The port's model of ``config``: DETR, a ViT backbone on its own, YOLOv8,
+    the single-shot detector or the CLIP image tower."""
     if isinstance(config, ViTConfig):
         return ViTBackbone(config)
     if isinstance(config, YOLOConfig):
         return YOLOv8(config)
     if isinstance(config, SingleShotConfig):
         return SingleShotDetector(config)
+    if isinstance(config, CLIPVisionConfig):
+        return CLIPImageTower(config)
     return DETR(config)
 
 BN_EPS = 1e-5
@@ -443,3 +456,148 @@ def convert_yolov8_state_dict(sd: Mapping[str, Any]) -> dict:
                 leaf["bias"] = _np(sd, bias_key)
             _set(params, ("detect", f"{hm.group(1)}_{hm.group(2)}_2"), leaf)
     return {"params": params}
+
+
+# --------------------------------------------------------------------- CLIP
+def _msgpack_value(buf: bytes, pos: int) -> tuple[Any, int]:
+    """One msgpack object of ``buf`` at ``pos`` -> (value, next position)."""
+    b = buf[pos]
+    pos += 1
+    if b <= 0x7F:
+        return b, pos
+    if b >= 0xE0:
+        return b - 0x100, pos
+    if 0x80 <= b <= 0x8F:
+        return _msgpack_map(buf, pos, b & 0x0F)
+    if 0x90 <= b <= 0x9F:
+        return _msgpack_array(buf, pos, b & 0x0F)
+    if 0xA0 <= b <= 0xBF:
+        n = b & 0x1F
+        return buf[pos:pos + n].decode(), pos + n
+    if b in (0xC0, 0xC2, 0xC3):
+        return {0xC0: None, 0xC2: False, 0xC3: True}[b], pos
+    if b in _MSGPACK_SIZED:
+        kind, fmt = _MSGPACK_SIZED[b]
+        (n,), pos = struct.unpack_from(fmt, buf, pos), pos + struct.calcsize(fmt)
+        if kind == "bin":
+            return buf[pos:pos + n], pos + n
+        if kind == "str":
+            return buf[pos:pos + n].decode(), pos + n
+        if kind == "array":
+            return _msgpack_array(buf, pos, n)
+        if kind == "map":
+            return _msgpack_map(buf, pos, n)
+        code = struct.unpack_from(">b", buf, pos)[0]  # ext: a type code, then n bytes
+        return _msgpack_ext(code, buf[pos + 1:pos + 1 + n]), pos + 1 + n
+    if 0xD4 <= b <= 0xD8:  # fixext 1, 2, 4, 8, 16
+        n = 1 << (b - 0xD4)
+        code = struct.unpack_from(">b", buf, pos)[0]
+        return _msgpack_ext(code, buf[pos + 1:pos + 1 + n]), pos + 1 + n
+    if b in _MSGPACK_NUMBERS:
+        fmt = _MSGPACK_NUMBERS[b]
+        return struct.unpack_from(fmt, buf, pos)[0], pos + struct.calcsize(fmt)
+    raise ValueError(f"msgpack: unsupported type byte 0x{b:02x} at {pos - 1}")
+
+
+_MSGPACK_SIZED = {0xC4: ("bin", ">B"), 0xC5: ("bin", ">H"), 0xC6: ("bin", ">I"),
+                  0xC7: ("ext", ">B"), 0xC8: ("ext", ">H"), 0xC9: ("ext", ">I"),
+                  0xD9: ("str", ">B"), 0xDA: ("str", ">H"), 0xDB: ("str", ">I"),
+                  0xDC: ("array", ">H"), 0xDD: ("array", ">I"), 0xDE: ("map", ">H"), 0xDF: ("map", ">I")}
+_MSGPACK_NUMBERS = {0xCA: ">f", 0xCB: ">d", 0xCC: ">B", 0xCD: ">H", 0xCE: ">I", 0xCF: ">Q",
+                    0xD0: ">b", 0xD1: ">h", 0xD2: ">i", 0xD3: ">q"}
+
+
+def _msgpack_array(buf: bytes, pos: int, n: int) -> tuple[list, int]:
+    out = []
+    for _ in range(n):
+        v, pos = _msgpack_value(buf, pos)
+        out.append(v)
+    return out, pos
+
+
+def _msgpack_map(buf: bytes, pos: int, n: int) -> tuple[dict, int]:
+    out = {}
+    for _ in range(n):
+        k, pos = _msgpack_value(buf, pos)
+        out[k], pos = _msgpack_value(buf, pos)
+    return out, pos
+
+
+def _msgpack_ext(code: int, data: bytes) -> Any:
+    """Flax's extension types for arrays: 1 an ndarray and 3 a numpy
+    scalar, each packed as (shape, dtype name, C-order bytes). (Flax's
+    complex numbers, type 2, and the chunked form of arrays over 2**30
+    bytes hold no CLIP weight and are not read.)"""
+    if code not in (1, 3):
+        raise ValueError(f"msgpack: unsupported extension type {code}")
+    (shape, name, raw), _ = _msgpack_value(data, 0)
+    name = name.decode() if isinstance(name, bytes) else name
+    if name == "bfloat16":  # the upper half of a float32
+        arr = (np.frombuffer(raw, np.uint16).astype(np.uint32) << 16).view(np.float32)
+    else:
+        arr = np.frombuffer(raw, np.dtype(name))
+    arr = arr.reshape(shape)
+    return arr if code == 1 else arr[()]
+
+
+def read_flax_msgpack(path) -> dict:
+    """A file of ``flax.serialization.to_bytes`` (``flax_model.msgpack``) ->
+    its nested dict of numpy arrays."""
+    buf = Path(path).read_bytes()
+    tree, end = _msgpack_value(buf, 0)
+    if end != len(buf) or not isinstance(tree, dict):
+        raise ValueError(f"{path}: not one msgpack map ({end} of {len(buf)} bytes read)")
+    return tree
+
+
+def clip_state_dict_from_flax(params: Mapping[str, Any], config: CLIPVisionConfig) -> dict[str, torch.Tensor]:
+    """``FlaxCLIPModel`` params (numpy leaves; those of
+    ``flax_model.msgpack``) -> the CLIP image tower's state_dict: the
+    ``vision_model`` and ``visual_projection`` subtrees, by name."""
+    params = params.get("params", params)
+    return state_dict_from_flax({"params": {k: params[k] for k in ("vision_model", "visual_projection")}}, config)
+
+
+def clip_state_dict_from_hf(sd: Mapping[str, Any], config: CLIPVisionConfig) -> dict[str, torch.Tensor]:
+    """HF ``CLIPModel`` / ``CLIPVisionModelWithProjection`` torch state_dict
+    -> the tower's state_dict: the vision keys and ``visual_projection``,
+    the position table renamed to its Flax leaf; every key and shape held
+    to the tower's."""
+    out = {}
+    for k, v in sd.items():
+        if k.startswith(("vision_model.", "visual_projection.")) and not k.endswith("position_ids"):
+            k = k.replace("position_embedding.weight", "position_embedding.embedding")
+            out[k] = torch.as_tensor(v).detach().float().contiguous()
+    with torch.device("meta"):
+        want = {k: tuple(p.shape) for k, p in CLIPImageTower(config).state_dict().items()}
+    got = {k: tuple(v.shape) for k, v in out.items()}
+    if got != want:
+        bad = sorted(set(got) ^ set(want)) or sorted(k for k in got if got[k] != want[k])
+        raise ValueError(f"CLIP checkpoint does not fit the tower of its config.json: {bad[:5]}")
+    return out
+
+
+def load_clip_tower(source, device: torch.device | str = "cpu") -> CLIPImageTower:
+    """The CLIP image tower of a local checkpoint directory (``config.json``
+    and ``flax_model.msgpack``, ``model.safetensors`` or
+    ``pytorch_model.bin``, looked for in that order), float32 on ``device``,
+    in eval mode. Raises ``FileNotFoundError`` for a missing directory or
+    weight file and ``ValueError``/``KeyError`` for one it cannot read."""
+    root = Path(str(source))
+    if not root.is_dir():
+        raise FileNotFoundError(f"no local CLIP checkpoint directory {root}")
+    config = CLIPVisionConfig.from_hf(json.loads((root / "config.json").read_text()))
+    if (root / "flax_model.msgpack").is_file():
+        sd = clip_state_dict_from_flax(read_flax_msgpack(root / "flax_model.msgpack"), config)
+    elif (root / "model.safetensors").is_file():
+        from safetensors.torch import load_file
+
+        sd = clip_state_dict_from_hf(load_file(str(root / "model.safetensors")), config)
+    elif (root / "pytorch_model.bin").is_file():
+        sd = clip_state_dict_from_hf(torch.load(root / "pytorch_model.bin", map_location="cpu", weights_only=True),
+                                     config)
+    else:
+        raise FileNotFoundError(f"{root}: no flax_model.msgpack, model.safetensors or pytorch_model.bin")
+    model = CLIPImageTower(config)
+    model.load_state_dict(sd)
+    return model.to(device).eval()

@@ -6,9 +6,10 @@ port's own phases: session setup, per-phase time (``performance`` of
 phase, the session summary, and resume: ``run(resume_session=...)`` skips
 completed phases by reloading their artifacts.
 
-What the port does not have yet is refused when the orchestrator is built,
-before any session directory is written (:func:`refuse_unported`), and so is
-a card that is asked for and missing (``device.resolve_device``). Tracking
+A ``detection.transfer_format`` that is none of bgr, i420, i420d and auto
+is refused when the orchestrator is built, before any session directory is
+written, and so is a card that is asked for and missing
+(``device.resolve_device``). Tracking
 (Phase 2.5) is off by default, and then writes the same ``skipped``
 checkpoint as in JAX; with ``tracking.enabled`` it shares Phase 2's
 detector, and with ``video.dense_tracking.enabled`` it turns the dense frames
@@ -37,25 +38,7 @@ from .phases.aggregation import AggregationPhase
 from .phases.detection import DetectionPhase
 from .phases.tracking import TrackingPhase
 from .phases.transform import TransformPhase
-from .phases.visualization import SIDE_BY_SIDE_REFUSAL, VisualizationPhase
-
-#: Config keys whose ``true`` asks for a part the port does not have yet,
-#: with the ROADMAP item that brings it.
-UNPORTED_KEYS = {
-    "output.save_side_by_side_video": SIDE_BY_SIDE_REFUSAL,
-    "output.save_attention_maps": "the attention-map overlays are not ported yet (ROADMAP A.3)",
-}
-
-
-def refuse_unported(config: Any) -> None:
-    """Raise ``NotImplementedError`` for the first key of
-    :data:`UNPORTED_KEYS` that the config turns on, and ``ValueError`` for a
-    ``detection.transfer_format`` that is none of bgr, i420, i420d and
-    auto, before Phase 1 runs."""
-    for key, why in UNPORTED_KEYS.items():
-        if config.get(key, False):
-            raise NotImplementedError(f"{key}: {why}")
-    check_transfer_format(config.get("detection.transfer_format", "bgr"))
+from .phases.visualization import VisualizationPhase
 
 
 class PipelineOrchestrator:
@@ -65,7 +48,7 @@ class PipelineOrchestrator:
         logger: logging.Logger | None = None,
         detector: Any = None,
     ):
-        refuse_unported(config)
+        check_transfer_format(config.get("detection.transfer_format", "bgr"))
         # The device first: a run that asks for a card where there is none
         # fails here, not after Phase 1's OCR.
         resolve_device(config_device(config), str(config.get("detection.dtype", "bfloat16")))

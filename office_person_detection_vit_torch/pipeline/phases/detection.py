@@ -8,8 +8,12 @@ detector or YOLOv8) in device batches, the detections are written into the
 ``detection_statistics.json`` (the JAX package's keys; the DETR detector's
 ``transfer_format``, after an ``auto`` race the winner, whose times the
 detector logs as JAX's does) and, with ``output.save_detection_images``, annotated
-frames. ``output.save_attention_maps`` raises until the overlays are ported
-(ROADMAP A.3).
+frames. With ``output.save_attention_maps`` it writes one
+``attention_{stem}.jpg`` a frame: the detector's attention map
+(``get_attention_map``: DETR's last cross-attention, run through the plain
+version for its probabilities; the forward's other attention calls run the
+kernels on the card) over the frame (``Visualizer.overlay_attention_map``);
+the loop ends at the first frame without a map (a convolutional detector).
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ from ...core.dto import DetectionBatch, FrameResult
 from ...detection import build_detector
 from ...utils.image_utils import save_detection_image
 from ...utils.stats_utils import calculate_detection_statistics
+from ...visualization.visualizer import Visualizer
 from .base import BasePhase
 
 class DetectionPhase(BasePhase):
@@ -32,12 +37,9 @@ class DetectionPhase(BasePhase):
 
     def __init__(self, config: Any, logger=None, detector: Any = None):
         super().__init__(config, logger)
-        if config.get("output.save_attention_maps", False):
-            raise NotImplementedError(
-                "output.save_attention_maps: the attention-map overlays are not ported yet (ROADMAP A.3)"
-            )
         self.detector = detector
         self.save_images = bool(config.get("output.save_detection_images", False))
+        self.save_attention = bool(config.get("output.save_attention_maps", False))
         self.last_batch: DetectionBatch | None = None
         self.statistics: dict[str, Any] = {}
 
@@ -85,6 +87,15 @@ class DetectionPhase(BasePhase):
             if self.save_images:
                 for fr, frame in zip(frame_results, frames):
                     save_detection_image(frame, fr.detections, out / f"detection_{fr.timestamp_stem}.jpg")
+            if self.save_attention:
+                # Decoder cross-attention overlays (reference attention-map
+                # contract, visualizer.py:148-265); None for conv detectors.
+                viz = Visualizer(self.config)
+                for fr, frame in zip(frame_results, frames):
+                    amap = self.detector.get_attention_map(frame)
+                    if amap is None:
+                        break
+                    viz.overlay_attention_map(frame, amap, output_path=out / f"attention_{fr.timestamp_stem}.jpg")
         self.log_statistics()
         return frame_results
 

@@ -2,14 +2,14 @@
 (reference src/pipeline/phases/visualization.py:29-138).
 
 Mirrors ``office_person_detection_vit_tpu/pipeline/phases/visualization.py``:
-time-series, statistics and heatmap PNGs, and one floormap PNG a frame
-rendered on a thread pool (reference visualization.py:88-95), all with
-OpenCV. All host-side; runs after the device phases. Two differences:
-
-* ``output.save_charts`` (a port-only key, default true) turns the three
-  charts off. The port draws them without matplotlib (ROADMAP C.5).
-* ``output.save_side_by_side_video: true`` raises ``NotImplementedError``:
-  the side-by-side exporter is not ported (ROADMAP A.3).
+time-series, statistics and heatmap PNGs, one floormap PNG a frame
+rendered on a thread pool (reference visualization.py:88-95), and with
+``output.save_side_by_side_video`` the side-by-side MP4 of the detection
+images and the floormaps (``output.side_by_side_video_fps``, and
+``output.side_by_side_zoom`` to crop each floormap around its frame's floor
+points), all with OpenCV. All host-side; runs after the device phases. One
+difference: ``output.save_charts`` (a port-only key, default true) turns
+the three charts off. The port draws them without matplotlib (ROADMAP C.5).
 """
 
 from __future__ import annotations
@@ -19,27 +19,21 @@ from pathlib import Path
 from typing import Any
 
 from ...core.dto import AggregationResult, FrameResult
+from ...utils.export_utils import SideBySideVideoExporter
 from ...visualization.floormap_visualizer import FloormapVisualizer
 from ...visualization.visualizer import Visualizer
 from .base import BasePhase
-
-SIDE_BY_SIDE_REFUSAL = (
-    "output.save_side_by_side_video: the side-by-side video exporter (utils/export_utils.py) is not ported "
-    "yet (ROADMAP A.3)"
-)
-
 
 class VisualizationPhase(BasePhase):
     name = "06_visualization"
 
     def __init__(self, config: Any, logger=None):
         super().__init__(config, logger)
-        if config.get("output.save_side_by_side_video", False):
-            raise NotImplementedError(SIDE_BY_SIDE_REFUSAL)
         self.visualizer = Visualizer(config)
         self.floormap_visualizer = FloormapVisualizer(config)
         self.save_charts = bool(config.get("output.save_charts", True))
         self.save_floormaps = bool(config.get("output.save_floormap_images", True))
+        self.save_video = bool(config.get("output.save_side_by_side_video", False))
         self.generated: dict[str, Any] = {}
 
     def execute(
@@ -84,6 +78,18 @@ class VisualizationPhase(BasePhase):
                 list(ex.map(_render, enumerate(frame_results)))
             generated["floormaps"] = len(frame_results)
             self.logger.info("rendered %d floormaps", len(frame_results))
+
+        if self.save_video and detection_image_dir is not None:
+            exporter = SideBySideVideoExporter(fps=float(self.config.get("output.side_by_side_video_fps", 1.0)))
+            # Optional floormap crop/zoom around each frame's floor points
+            # (reference export_utils.py:498 crop_and_zoom_floormap).
+            points_by_key = None
+            if bool(self.config.get("output.side_by_side_zoom", False)):
+                points_by_key = {fr.timestamp_stem: [d.floor_coords_px for d in fr.detections
+                                                     if d.floor_coords_px is not None]
+                                 for fr in frame_results}
+            generated["side_by_side"] = exporter.export(detection_image_dir, floormap_dir, out / "side_by_side.mp4",
+                                                        floor_points_by_key=points_by_key)
 
         self.generated = generated
         return generated

@@ -1,22 +1,33 @@
-"""Re-ID appearance features: the detector's encoder features, or crop
-histograms.
+"""Re-ID appearance features: the detector's encoder features, a CLIP image
+tower, or crop histograms.
 
 Mirrors ``office_person_detection_vit_tpu/tracking/reid_feature_extractor.py``:
 ``model_type: detr`` with a detector takes the features of the detector's
 own detections (``detect_with_features``), matched to the requested boxes by
-IoU, with a crop histogram for a box that matches none; every other case
-ends at crop histograms. ``model_type: clip`` with a model source set raises:
-a torch CLIP image tower needs weights that the repo does not hold (ROADMAP
-A.3b); without a source it warns and takes the histograms, as in JAX.
+IoU, with a crop histogram for a box that matches none. ``model_type: clip``
+loads the CLIP image tower (``models/clip.py``) of the local checkpoint
+directory ``model_path`` or ``model_name`` (``models/weights.py::
+load_clip_tower``) on ``device`` (``detection.device``: the card unless the
+config asks for the CPU; no card raises) and embeds each box's crop:
+resized to the tower's input on the host as JAX does, uploaded once a call,
+normalised, through the tower (float32, TF32 off; its attention runs the
+CUDA kernels on the card) and L2-normalised there. Without a source, or
+with a checkpoint that is missing or cannot be read, it warns and takes the
+crop histograms, as in JAX; an error of the forward pass is raised.
 """
 
 from __future__ import annotations
 
 import logging
 
+import cv2
 import numpy as np
+import torch
 
 from ..detection.features import crop_histogram_features
+from ..device import config_device, full_float32, resolve_device
+from ..models.clip import CLIP_MEAN, CLIP_STD
+from ..models.weights import load_clip_tower
 from .similarity import SimilarityCalculator
 
 logger = logging.getLogger(__name__)
@@ -24,11 +35,13 @@ logger = logging.getLogger(__name__)
 
 class ReIDFeatureExtractor:
     def __init__(self, model_type: str = "detr", model_name: str | None = None, model_path: str | None = None,
-                 detector=None):
+                 detector=None, device: torch.device | str = "auto"):
         self.model_type = model_type
         self.model_name = model_name
         self.model_path = model_path
         self.detector = detector
+        self.device = device
+        self._clip = None
         self.backend = "histogram"
         self.feature_dim = 256
 
@@ -39,10 +52,12 @@ class ReIDFeatureExtractor:
             model_name=cfg.get("tracking.reid.model_name", None),
             model_path=cfg.get("tracking.reid.model_path", None),
             detector=detector,
+            device=config_device(cfg),
         )
 
     def cleanup(self) -> None:
         self.detector = None
+        self._clip = None
 
     def load_model(self) -> None:
         """Take the first backend of the chain that is available."""
@@ -53,12 +68,22 @@ class ReIDFeatureExtractor:
             return
         if self.model_type == "clip":
             source = self.model_path or self.model_name
-            if source:
-                raise NotImplementedError(
-                    f"tracking.reid.model_type=clip with {source!r}: the CLIP image tower is not ported "
-                    "(ROADMAP A.3b)")
-            logger.warning("CLIP unavailable (%s); falling back to histogram",
-                           ValueError("tracking.reid.model_path/model_name not set"))
+            if not source:
+                logger.warning("CLIP unavailable (%s); falling back to histogram",
+                               ValueError("tracking.reid.model_path/model_name not set"))
+            else:
+                device = resolve_device(str(self.device))
+                try:
+                    # A local directory only: the deployment has no network.
+                    self._clip = load_clip_tower(source, device)
+                except (OSError, ValueError, KeyError) as e:  # missing or unreadable checkpoint
+                    logger.warning("CLIP unavailable (%s); falling back to histogram", e)
+                else:
+                    self.device = device
+                    self.backend = "clip"
+                    self.feature_dim = self._clip.config.projection_dim
+                    logger.info("ReID backend: CLIP image tower (%d-d) on %s", self.feature_dim, device)
+                    return
         self.backend = "histogram"
         self.feature_dim = 256
         logger.info("ReID backend: crop histograms (256-d)")
@@ -80,4 +105,29 @@ class ReIDFeatureExtractor:
                         out[i] = crop_histogram_features(frame, np.asarray([bboxes[i]], np.float32),
                                                          dim=self.feature_dim)[0]
                 return out
+        if self.backend == "clip":
+            return self._extract_clip(frame, bboxes)
         return crop_histogram_features(frame, np.asarray(bboxes, np.float32), dim=self.feature_dim)
+
+    @torch.inference_mode()
+    def _extract_clip(self, frame: np.ndarray, bboxes) -> np.ndarray:
+        """Crop (clamped to the frame; an empty crop is 8x8 black) -> resized
+        to the tower's input (``cv2.resize``, bilinear) -> RGB on the host,
+        as the JAX extractor does; then one upload, CLIP's normalisation, the
+        tower and the L2 norm on the device."""
+        size = self._clip.config.image_size
+        H, W = frame.shape[:2]
+        crops = []
+        for x, y, w, h in bboxes:
+            x0, y0 = max(int(x), 0), max(int(y), 0)
+            x1, y1 = min(int(x + w), W), min(int(y + h), H)
+            crop = frame[y0:y1, x0:x1]
+            if crop.size == 0:
+                crop = np.zeros((8, 8, 3), np.uint8)
+            crops.append(cv2.resize(crop, (size, size))[..., ::-1])  # BGR -> RGB
+        pixels = torch.from_numpy(np.ascontiguousarray(np.stack(crops))).to(self.device)
+        mean, std = (torch.tensor(v, dtype=torch.float32, device=self.device) for v in (CLIP_MEAN, CLIP_STD))
+        pixels = ((pixels.float() / 255.0 - mean) / std).permute(0, 3, 1, 2)
+        with full_float32():
+            feats = self._clip(pixels)
+        return (feats / feats.norm(dim=1, keepdim=True).clamp_min(1e-12)).cpu().numpy()

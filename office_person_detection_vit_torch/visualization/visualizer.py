@@ -126,6 +126,51 @@ class _Chart:
         return out
 
 
+def scatter_chart(groups: Sequence[tuple[str, np.ndarray, tuple, str]], output_path: str | Path, title: str,
+                  figsize: tuple[float, float], segments: Sequence[tuple[np.ndarray, np.ndarray]] = (),
+                  invert_y: bool = False, legend: bool = True) -> Path:
+    """A scatter plot drawn with OpenCV, as the matplotlib scatters of the
+    JAX package lay it out: ``groups`` of (name, (N, 2) points, BGR colour,
+    marker ``"o"`` or ``"x"``), grey ``segments`` (start and end points,
+    each (M, 2)) under them, both axes fitted to the data with a 5% margin
+    and five labelled ticks each, ``invert_y`` puts y's smallest value at
+    the top, and a legend of the group names."""
+    c = _Chart(figsize, 1.0, title, "", margins=(90, 60, 40, 60))
+    cv2 = c.cv2
+    pts = np.concatenate([np.asarray(p, np.float64).reshape(-1, 2) for _, p, _, _ in groups]
+                         + [np.asarray(s, np.float64).reshape(-1, 2) for pair in segments for s in pair])
+    lo, hi = (pts.min(0), pts.max(0)) if len(pts) else (np.zeros(2), np.ones(2))
+    pad = np.maximum(hi - lo, 1e-9) * 0.05
+    lo, hi = lo - pad, hi + pad
+
+    def px(p: np.ndarray) -> np.ndarray:
+        f = (np.asarray(p, np.float64).reshape(-1, 2) - lo) / (hi - lo)
+        y = c.y0 + f[:, 1] * (c.y1 - c.y0) if invert_y else c.y1 - f[:, 1] * (c.y1 - c.y0)
+        return np.round(np.stack([c.x0 + f[:, 0] * (c.x1 - c.x0), y], 1)).astype(np.int32)
+
+    for t in np.linspace(0.0, 1.0, 5):
+        x = int(round(c.x0 + t * (c.x1 - c.x0)))
+        y = int(round(c.y0 + t * (c.y1 - c.y0) if invert_y else c.y1 - t * (c.y1 - c.y0)))
+        cv2.line(c.img, (x, c.y1), (x, c.y1 + 5), (0, 0, 0), 1)
+        c.text(f"{lo[0] + t * (hi[0] - lo[0]):.4g}", (x, c.y1 + 22), 0.4, center=True)
+        cv2.line(c.img, (c.x0 - 5, y), (c.x0, y), (0, 0, 0), 1)
+        c.text(f"{lo[1] + t * (hi[1] - lo[1]):.4g}", (c.x0 - 8, y + 5), 0.4, right=True)
+    cv2.rectangle(c.img, (c.x0, c.y0), (c.x1, c.y1), (0, 0, 0), 1)
+    for a, b in segments:
+        for p, q in zip(px(a), px(b)):
+            cv2.line(c.img, tuple(map(int, p)), tuple(map(int, q)), (153, 153, 153), 1, cv2.LINE_AA)
+    for _, points, color, marker in groups:
+        for x, y in px(points):
+            if marker == "x":
+                cv2.line(c.img, (x - 4, y - 4), (x + 4, y + 4), color, 2, cv2.LINE_AA)
+                cv2.line(c.img, (x - 4, y + 4), (x + 4, y - 4), color, 2, cv2.LINE_AA)
+            else:
+                cv2.circle(c.img, (int(x), int(y)), 4, color, -1, cv2.LINE_AA)
+    if legend:
+        c.legend([name for name, _, _, _ in groups], [color for _, _, color, _ in groups])
+    return c.save(output_path)
+
+
 def _ylorrd(t: np.ndarray) -> np.ndarray:
     """Values in [0, 1] -> BGR uint8 on the YlOrRd ramp."""
     pos = np.clip(t, 0.0, 1.0) * (len(_YLORRD) - 1)

@@ -318,7 +318,10 @@ def test_bench_loads_another_checkout_beside_this_one():
         assert torch.equal(getattr(other, name)(q, k, v, mask), getattr(kernels, name)(q, k, v, mask))
 
 
-_FORBIDDEN = ("jax", "flax", "ml_dtypes", "office_person_detection_vit_tpu")
+#: Neither JAX nor what only the JAX package's side of the repo uses (the card
+#: machine has none of transformers, sklearn, matplotlib and msgpack).
+_FORBIDDEN = ("jax", "flax", "ml_dtypes", "office_person_detection_vit_tpu", "transformers", "sklearn", "matplotlib",
+              "msgpack")
 
 
 def _port_sources():
@@ -371,6 +374,25 @@ def test_kernels_refuse_inputs_that_require_grad(grad_input):
     with torch.inference_mode():
         build.refuse_autograd("attention_flash", q, k, v)
     build.refuse_autograd("attention_flash", q.detach(), k.detach(), v.detach(), None)
+
+
+def test_import_guard_covers_the_last_modules():
+    names = {str(p.relative_to(REPO)) for p in _port_sources()}
+    pkg = "office_person_detection_vit_torch"
+    want = {f"{pkg}/{m}.py" for m in (
+        "ops/homography_fit", "calibration/reprojection_error", "calibration/camera_calibrator",
+        "evaluation/transform_evaluator", "benchmark/tracking_benchmark", "benchmark/__main__",
+        "visualization/dashboard_app", "visualization/dashboard_utils", "visualization/feature_visualizer",
+        "core/interfaces", "core/policy", "detection/preprocessing", "models/clip", "models/weights",
+        "tracking/reid_feature_extractor", "utils/export_utils")}
+    assert want <= names
+    # streamlit only inside dashboard_app.main(), as in JAX
+    tree = ast.parse((REPO / pkg / "visualization" / "dashboard_app.py").read_text())
+    main = next(n for n in tree.body if isinstance(n, ast.FunctionDef) and n.name == "main")
+    inside = {id(n) for n in ast.walk(main)}
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import) and any(a.name.split(".")[0] == "streamlit" for a in node.names):
+            assert id(node) in inside
 
 
 def test_import_guard_covers_the_detector_slice():

@@ -16,7 +16,8 @@ the CPU in float32.
   and with piecewise-affine plus lens undistortion (and thin-plate spline,
   compact JSON): ``coordinate_transformations.json`` within 1e-3 px,
   ``zone_counts.csv`` byte-identical.
-- The phase-level refusals: non-DETR detectors and attention-map overlays.
+- The phase-level refusals: non-DETR detectors; attention-map overlays,
+  which the phase now takes.
 """
 
 import json
@@ -319,5 +320,9 @@ def test_detection_phase_runs_the_single_shot_detectors(tmp_path, single_shot_we
 
 
 def test_detection_phase_refuses_attention_overlays(tmp_path):
-    with pytest.raises(NotImplementedError, match="save_attention_maps"):
-        DetectionPhase(_config(tmp_path, output={"save_attention_maps": True}))
+    """Refused until the overlays were ported (ROADMAP A.3b); the phase now
+    takes the key as the JAX phase does (the overlays themselves are held
+    to JAX's in ``tests/test_torch_host_leftovers.py``)."""
+    cfg = _config(tmp_path, output={"save_attention_maps": True})
+    assert DetectionPhase(cfg).save_attention and JaxDetectionPhase(cfg).save_attention
+    assert not DetectionPhase(_config(tmp_path)).save_attention

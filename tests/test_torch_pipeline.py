@@ -19,8 +19,10 @@ package's, on the CPU.
   ``zone_counts.csv``.
 - ``main``: a missing config returns 1; ``--timestamps-only`` returns 0 with
   the JAX ``main.py``'s frames; the ``i420`` upload and the tiny YOLOv8 run to
-  ``summary.json``; each refusal returns 2 before any session directory
-  exists.
+  ``summary.json``; what was refused before it was ported now completes
+  (the distributed start, the YOLO fine-tune hand-off, the side-by-side
+  video and the attention overlays); a card asked for where there is none
+  returns 2 before any session directory exists.
 - ``ConfigManager`` and the CLI; the services (session layout, checkpoint
   JSON, metadata, retention), the performance monitor and its trace, the
   memory and logging utilities; the floormap renders (pixel-equal) and the
@@ -424,57 +426,58 @@ def test_main_runs_what_was_refused(tmp_path, video, case):
         assert stats["transfer_format"] in want and set(stats) == STATISTICS_KEYS
 
 
+#: Keys and flags that the port refused until their ROADMAP item landed
+#: (A.8, A.3b, A.7c): each case now holds what runs in their place.
 REFUSALS = {
     "distributed": ({"parallel.distributed.enabled": True}, [], "A.8"),
-    "side_by_side_video": ({"output.save_side_by_side_video": True}, [], "A.3"),
-    "attention_maps": ({"output.save_attention_maps": True}, [], "A.3"),
-    "fine_tune": ({"training.model": "yolo"}, ["--fine-tune"], "A.7"),  # the YOLO trainer
+    "side_by_side_video": ({"output.save_side_by_side_video": True, "output.save_detection_images": True}, [],
+                           "A.3b"),
+    "attention_maps": ({"output.save_attention_maps": True}, [], "A.3b"),
+    "fine_tune": ({"training.model": "yolo"}, ["--fine-tune"], "A.7c"),  # the YOLO trainer
 }
 
 
-#: Refused until their item landed (A.8, A.7c); the cases now hold what runs
-#: in their place.
-LANDED = {"distributed", "fine_tune"}
-
-
 @pytest.mark.parametrize("case", list(REFUSALS))
-def test_main_refuses_what_is_not_ported(tmp_path, video, capsys, monkeypatch, case):
-    """The A.3 keys are refused before a session is written. Since A.8
+def test_main_refuses_what_is_not_ported(tmp_path, video, monkeypatch, case):
+    """Each case was refused before a session was written. Since A.8
     ``parallel.distributed.enabled`` starts the process group with the
     config's ``parallel.distributed.*`` (as the root ``main.py`` hands them
     to ``jax.distributed.initialize``) and the run completes; since A.7c
     ``--fine-tune`` with ``training.model: yolo`` hands the root
-    ``main.py``'s argument list, ``--yolo-variant`` included, to the trainer."""
-    overrides, flags, item = REFUSALS[case]
-    if case in LANDED:
-        from office_person_detection_vit_torch import train_detr
-        from office_person_detection_vit_torch.parallel import mesh
+    ``main.py``'s argument list, ``--yolo-variant`` included, to the trainer;
+    since A.3b the side-by-side video (one frame a matched detection image)
+    and the attention overlays (one a frame) are written and the run
+    completes."""
+    overrides, flags, _ = REFUSALS[case]
+    from office_person_detection_vit_torch import train_detr
+    from office_person_detection_vit_torch.parallel import mesh
 
-        seen = []
-        monkeypatch.setattr(mesh, "initialize_distributed", lambda **kw: seen.append(kw))
-        monkeypatch.setattr(train_detr, "main", lambda argv: seen.append(argv) or 0)
-        extra = ({"parallel.distributed.coordinator_address": "127.0.0.1:29511",
-                  "parallel.distributed.num_processes": 1, "parallel.distributed.process_id": 0}
-                 if case == "distributed" else {"training.yolo_variant": "x"})
-        cfg = write_config(tmp_path / "c.yaml", flow_config(tmp_path / "out", video, **overrides, **extra))
-        assert port_main(["--config", str(cfg), *flags]) == 0
-        if case == "distributed":
-            assert seen == [dict(coordinator_address="127.0.0.1:29511", num_processes=1, process_id=0)]
-            (session,) = sessions(tmp_path / "out")
-            assert json.loads((session / "summary.json").read_text())["status"] == "completed"
-        else:
-            (argv,) = seen
-            assert argv[argv.index("--model") + 1] == "yolo" and argv[argv.index("--yolo-variant") + 1] == "x"
+    seen = []
+    monkeypatch.setattr(mesh, "initialize_distributed", lambda **kw: seen.append(kw))
+    monkeypatch.setattr(train_detr, "main", lambda argv: seen.append(argv) or 0)
+    extra = {"distributed": {"parallel.distributed.coordinator_address": "127.0.0.1:29511",
+                             "parallel.distributed.num_processes": 1, "parallel.distributed.process_id": 0},
+             "fine_tune": {"training.yolo_variant": "x"}}.get(case, {})
+    cfg = write_config(tmp_path / "c.yaml", flow_config(tmp_path / "out", video, **overrides, **extra))
+    assert port_main(["--config", str(cfg), *flags]) == 0
+    if case == "fine_tune":
+        (argv,) = seen
+        assert argv[argv.index("--model") + 1] == "yolo" and argv[argv.index("--yolo-variant") + 1] == "x"
         return
-    cfg = write_config(tmp_path / "c.yaml", flow_config(tmp_path / "out", video, **overrides))
-    assert port_main(["--config", str(cfg), *flags]) == 2
-    assert sessions(tmp_path / "out") == []
-    log = capsys.readouterr().out  # main's log handler writes to stdout
-    assert "NotImplementedError" in log and f"ROADMAP {item}" in log
-    if overrides and not flags:  # a config key the orchestrator itself refuses
-        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-            PipelineOrchestrator(ConfigManager.from_dict(flow_config(tmp_path / "out", video, **overrides)))
-        assert sessions(tmp_path / "out") == []
+    (session,) = sessions(tmp_path / "out")
+    assert json.loads((session / "summary.json").read_text())["status"] == "completed"
+    frames = len(list((session / "01_extraction" / "frames").glob("*")))
+    if case == "distributed":
+        assert seen == [dict(coordinator_address="127.0.0.1:29511", num_processes=1, process_id=0)]
+    elif case == "attention_maps":
+        assert len(list((session / "02_detection").glob("attention_*.jpg"))) == frames == 3
+    else:
+        import cv2
+
+        cap = cv2.VideoCapture(str(session / "06_visualization" / "side_by_side.mp4"))
+        n = int(cap.get(cv2.CAP_PROP_FRAME_COUNT))
+        cap.release()
+        assert n == frames == 3
 
 
 @pytest.mark.skipif(torch.cuda.is_available(), reason="checks the refusal where there is no card")
@@ -752,5 +755,5 @@ def test_visualization_phase_without_charts(tmp_path):
     cfg = ConfigManager.from_dict({"zones": ZONES, "output": {"save_floormap_images": True, "save_charts": False}})
     made = VisualizationPhase(cfg).execute(frs, [], tmp_path)
     assert made == {"floormaps": 4} and sorted(p.name for p in tmp_path.iterdir()) == ["floormaps"]
-    with pytest.raises(NotImplementedError, match="ROADMAP A.3"):
-        VisualizationPhase(ConfigManager.from_dict({"output": {"save_side_by_side_video": True}}))
+    # Refused until A.3b; the phase now takes the side-by-side video.
+    assert VisualizationPhase(ConfigManager.from_dict({"output": {"save_side_by_side_video": True}})).save_video

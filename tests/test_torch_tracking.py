@@ -312,11 +312,18 @@ def test_reid_histogram_and_clip_cases(caplog):
         np.testing.assert_array_equal(port.extract_features(frame, boxes), ref.extract_features(frame, boxes))
         assert port.extract_features(frame, []).shape == (0, 256)
     assert sum("CLIP unavailable" in r.getMessage() for r in caplog.records) == 2  # one a package
+    # A source that is no local checkpoint: histograms in both, with the
+    # warning (refused until A.3b; the CLIP tower is in tests/test_torch_clip.py).
     for key in ("model_name", "model_path"):
-        clip = port_reid.ReIDFeatureExtractor.from_config({"tracking.reid.model_type": "clip",
-                                                           f"tracking.reid.{key}": "openai/clip-vit-base-patch32"})
-        with pytest.raises(NotImplementedError, match="ROADMAP A.3b"):
-            clip.load_model()
+        cfg = {"tracking.reid.model_type": "clip", f"tracking.reid.{key}": "openai/clip-vit-base-patch32",
+               "detection.device": "cpu"}
+        caplog.clear()
+        for cls in (port_reid.ReIDFeatureExtractor, jax_reid.ReIDFeatureExtractor):
+            clip = cls.from_config(cfg)
+            with caplog.at_level(logging.WARNING):
+                clip.load_model()
+            assert (clip.backend, clip.feature_dim) == ("histogram", 256)
+        assert sum("CLIP unavailable" in r.getMessage() for r in caplog.records) == 2
 
 
 # ------------------------------------------------------- exports and phase

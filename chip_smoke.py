@@ -16,8 +16,10 @@ the pipeline phases 2-4, the entry point and the trainer:
 
 1. device: the card's name and power limit; the kernel build and its time;
    each kernel's registers, spills and shared memory (attention K1/K2 and
-   the fused bottleneck K3), and the tensor-core instructions (HMMA) in its
-   machine code: every bf16 kernel must have them, every float32 one none;
+   the fused bottleneck K3), and the tensor-core instructions in its
+   machine code: every bf16 kernel must have them (HMMA; the Hopper bodies
+   ``*_wgmma`` HGMMA and UTMALDG, the TMA's loads, and no spill), every
+   float32 one none;
 2. kernels against the plain version at the shapes phases 3-5 give them
    (``attention_kernel_bench.CASES``), with times, bounds, the share of the
    bound, SDPA's time and, labelled as such, the time recorded for the
@@ -109,7 +111,8 @@ the pipeline phases 2-4, the entry point and the trainer:
    scan on the card, the same ids as the CPU scan), ``TransformPhase`` and
    ``AggregationPhase``, each phase's seconds;
 12. the ViT slice (ViT-base/16 as DETR's backbone, head dim 64): (a) every
-   head-dim-64 body's registers, spills (none allowed) and HMMA count; K1
+   head-dim-64 body's registers, spills (none allowed) and HMMA, HGMMA and
+   UTMALDG counts (K2 and the pair run the Hopper bodies); K1
    and K2 at head dim 64 and at a padded 48 in both types against the plain
    version, the ViT's main-path shape (8, 12, 3681, 3681, 64) timed against
    SDPA and the bound; B.4 at [10a]'s gate at head dim 64 and 48; B.4 at
@@ -124,7 +127,8 @@ the pipeline phases 2-4, the entry point and the trainer:
    checkpoint against a ground-truth file of the persons drawn into the
    one-hour video, card tp/fp/fn within 1 of the CPU's.
 13. the detector slice: (a) head dims up to 128 (C.7): every head-dim-128
-   body's registers, spills (none allowed) and HMMA count; K1/K2 at ViT-H's
+   body's registers, spills (none allowed) and HMMA, HGMMA and UTMALDG
+   counts; K1/K2 at ViT-H's
    head dim 80 (padded to 128) and at 128 in both types against the plain
    version, timed against SDPA and the bound; B.4 at [10a]'s gate at 128 and
    80; then DETR with ViT-H/16's widths (4 of 32 layers) through
@@ -289,26 +293,38 @@ def load_render_frame():
     return mod.render_frame
 
 
-def sass_hmma(build) -> dict:
-    """HMMA instructions (tensor-core products) per function of the built
-    library's SASS (``cuobjdump``, beside the nvcc that built it)."""
-    hmma = {}
+#: The SASS instructions counted per function: HMMA (mma.sync, the
+#: tensor-core product of the sm_80 bodies), HGMMA (wgmma, Hopper's warpgroup
+#: product) and UTMALDG (a TMA tile load). HGMMA does not contain "HMMA".
+SASS_OPS = ("HMMA", "HGMMA", "UTMALDG")
+
+
+def sass_counts(build) -> dict:
+    """count_ops of the built library's SASS (``cuobjdump``, beside the nvcc
+    that built it)."""
     cuobjdump = Path(build._nvcc()).parent / "cuobjdump"
     check(cuobjdump.exists(), f"{cuobjdump} not found: the tensor-core instructions cannot be read")
-    sass = subprocess.run([str(cuobjdump), "-sass", str(build.build_library())], capture_output=True, text=True,
-                          check=True).stdout
+    return count_ops(subprocess.run([str(cuobjdump), "-sass", str(build.build_library())], capture_output=True,
+                                    text=True, check=True).stdout)
+
+
+def count_ops(sass: str) -> dict:
+    """{function: {op: count}} for each of SASS_OPS, per function of a
+    ``cuobjdump -sass`` listing."""
+    counts = {}
+    op = re.compile(rf"\b({'|'.join(SASS_OPS)})\b")
     fn = None
     for line in sass.splitlines():
         if "Function :" in line:
             fn = line.split("Function :")[1].strip()
-            hmma[fn] = 0
-        elif fn is not None and "HMMA" in line:
-            hmma[fn] += 1
-    return hmma
+            counts[fn] = dict.fromkeys(SASS_OPS, 0)
+        elif fn is not None and (m := op.search(line)):
+            counts[fn][m.group(1)] += 1
+    return counts
 
 
-def hmma_of(hmma: dict, name: str) -> int:
-    """The HMMA count of the one SASS function of a kernel named as the
+def ops_of(counts: dict, name: str) -> dict:
+    """The SASS_OPS counts of the one SASS function of a kernel named as the
     attributes entries name it (``base<type,int,...>``). Itanium-mangled
     names carry the base's length and name, then the template arguments: a
     type as one letter (``f`` for float), where the template takes one, and
@@ -316,23 +332,41 @@ def hmma_of(hmma: dict, name: str) -> int:
     base, args = name.rstrip(">").split("<")
     ints = "".join(f"Li{n}E" for n in args.split(",")[1:])
     mangled = re.compile(rf"{len(base)}{base}I[a-z]?{ints}E")
-    counts = [n for f, n in hmma.items() if mangled.search(f)]
-    check(len(counts) == 1, f"{name}: {len(counts)} functions of its name in the SASS")
-    return counts[0]
+    found = [n for f, n in counts.items() if mangled.search(f)]
+    check(len(found) == 1, f"{name}: {len(found)} functions of its name in the SASS")
+    return found[0]
+
+
+def check_tensor_cores(a: dict, ops: dict, where: str) -> str:
+    """A bf16 body runs its products on the tensor cores, a float32 one on
+    the CUDA cores: the Hopper bodies (``*_wgmma``) have HGMMA and UTMALDG,
+    no HMMA and no spill; the other bf16 bodies HMMA; float32 none of them.
+    Returns the counts as a log fragment."""
+    name = a["name"]
+    if "wgmma" in name:
+        check(ops["HGMMA"] > 0 and ops["UTMALDG"] > 0 and ops["HMMA"] == 0 and a["local_bytes"] == 0,
+              f"{where}: {name}: HGMMA {ops['HGMMA']}, UTMALDG {ops['UTMALDG']}, HMMA {ops['HMMA']}, spill "
+              f"{a['local_bytes']} B (a Hopper body needs wgmma and TMA and may not spill)")
+    else:
+        bf16 = "bf16" in name.split("<")[1]
+        check(bool(ops["HMMA"]) == bf16 and ops["HGMMA"] == 0,
+              f"{where}: {name}: {ops['HMMA']} HMMA, {ops['HGMMA']} HGMMA instructions in its SASS")
+    return f"HMMA {ops['HMMA']}  HGMMA {ops['HGMMA']}  UTMALDG {ops['UTMALDG']}"
 
 
 def kernel_resources(ka, kb, build) -> None:
     """Phase 1: each kernel's registers, spills and shared memory
     (cudaFuncGetAttributes; dynamic shared memory from its plan at a main
     path or DETR-R50 shape), and the HMMA instructions in its SASS: every
-    bf16 kernel must have them, every float32 kernel none."""
-    hmma = sass_hmma(build)
+    bf16 kernel must have them (the Hopper bodies HGMMA and UTMALDG), every
+    float32 kernel none."""
+    counts = sass_counts(build)
     for a in ka.kernel_attributes():
         base, args = a["name"].split("<")
         if base.startswith("attention_wide"):  # the chunked bodies above head dim 128: CUDA cores in both types
             smem = {"attention_wide": ka.WIDE_FWD_SMEM_BYTES, "attention_wide_bwd_dq": 5 * 64 * 65 * 4 + 64,
                     "attention_wide_bwd_dkdv": (6 * 64 * 65 + 2 * 64) * 4}[base]
-            n_hmma = hmma_of_wide(hmma, a["name"])
+            n_hmma = hmma_of_wide(counts, a["name"])
             check(n_hmma == 0, f"{a['name']}: {n_hmma} HMMA instructions in its SASS (a CUDA-core body)")
             log(f"[1] {a['name']:36s} regs {a['regs']:3d}  spill (local) {a['local_bytes']:4d} B  static smem "
                 f"{a['static_smem']:6d} B  dynamic smem {smem:6d} B (any head dim)  HMMA in SASS {n_hmma}")
@@ -343,6 +377,8 @@ def kernel_resources(ka, kb, build) -> None:
             fits = ka.whole_kv_fits(920, d, dtype)
             dyn = f"{ka.whole_kv_plan(920, 920, d, dtype)['smem_bytes']:6d} B at Lk 920" if fits else \
                 "none at Lk 920 (K2)"
+        elif "wgmma" in base:  # the Hopper bodies: the source's WgLayout, bounded there by a static_assert
+            dyn = "WgLayout (source)"
         elif dtype == torch.bfloat16:  # the ring of csrc/attention.cu::Ring: 3 slots of two tiles and the vectors
             dyn = f"{3 * (2 * 64 * d * 2 + (2 if 'dkdv' in base else 1) * 64 * 4):6d} B (ring)"
         elif "dkdv" in base:  # a 64-row tile of Q and g, their lse2 and D
@@ -351,10 +387,9 @@ def kernel_resources(ka, kb, build) -> None:
             dyn = f"{2 * 64 * d * 4 + 64:6d} B"
         else:
             dyn = "     0 B"
-        n_hmma = hmma_of(hmma, a["name"])
-        check(bool(n_hmma) == (dtype == torch.bfloat16), f"{a['name']}: {n_hmma} HMMA instructions in its SASS")
+        ops = check_tensor_cores(a, ops_of(counts, a["name"]), "1")
         log(f"[1] {a['name']:36s} regs {a['regs']:3d}  spill (local) {a['local_bytes']:4d} B  static smem "
-            f"{a['static_smem']:6d} B  dynamic smem {dyn}  HMMA in SASS {n_hmma}")
+            f"{a['static_smem']:6d} B  dynamic smem {dyn}  {ops}")
     # K3: the dynamic shared memory of each instantiation (rows) at a
     # geometry whose plan takes it (bf16: DETR-R50 stage 1 the 160-row
     # tiles, stage 4 the 128-row ones; float32: stage 1 64 rows, stage 4 16,
@@ -368,7 +403,7 @@ def kernel_resources(ka, kb, build) -> None:
     check(sorted(a["name"] for a in attrs) == sorted(at), f"K3 instantiations {[a['name'] for a in attrs]}")
     for a in attrs:
         want_rows, width, channels, mid, tile_h, dtype = at[a["name"]]
-        n_hmma = hmma_of(hmma, a["name"])
+        n_hmma = ops_of(counts, a["name"])["HMMA"]
         check(bool(n_hmma) == (dtype == torch.bfloat16), f"{a['name']}: {n_hmma} HMMA instructions in its SASS")
         rows, tile_w, smem = kb.plan(width, mid, tile_h, dtype, channels)
         check(rows == want_rows, f"{a['name']}: the plan at W {width}, M {mid}, tile_h {tile_h} takes {rows} rows")
@@ -1371,24 +1406,10 @@ def start_dataset_writer(out_dir: Path) -> subprocess.Popen:
 
 
 def b4_bound(shape, dtype, mask, backward_only: bool = False) -> tuple[float, str]:
-    """(least ms, "bytes" or "operations") of B.4's forward and backward:
-    q, k, v, the mask and dO read once, O, dQ, dK, dV written once; the
-    products of the forward (QK^T, P.V) and of the backward (QK^T again,
-    dV = P^T dO, dP = dO V^T, dQ = dS K, dK = dS^T Q) over this mask's valid
-    keys: 14 H Lq D flops a valid key. ``backward_only``: the backward pair's
-    own work, q, k, v, O, dO, the mask and the log-sum-exp read once, dQ, dK,
-    dV written once, and its five products: 10 H Lq D flops a valid key."""
+    """B.4's least time and what bounds it (attention_kernel_bench.b4_bound)."""
     from office_person_detection_vit_torch import attention_kernel_bench as abench
 
-    B, H, Lq, Lk, D = shape
-    item = torch.empty((), dtype=dtype).element_size()
-    valid = Lk * B if mask is None else int(mask.sum().item())
-    flops = (10.0 if backward_only else 14.0) * H * Lq * valid * D
-    nbytes = 4 * B * H * (Lq + Lk) * D * item + (0 if mask is None else B * Lk)
-    if backward_only:
-        nbytes = (3 * Lq + 2 * Lk + Lq + 2 * Lk) * B * H * D * item + 4 * B * H * Lq + (0 if mask is None else B * Lk)
-    t_ops, t_bytes = flops / abench.PEAK_FLOPS[dtype] * 1e3, nbytes / abench.PEAK_BYTES * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    return abench.b4_bound(shape, dtype, mask, backward_only)
 
 
 def relative_error(got, want) -> float:
@@ -2305,12 +2326,12 @@ def vit_kernels_phase(ka, build, smi: str) -> dict:
     ViT-base's full training shape timed against SDPA and the bound."""
     from office_person_detection_vit_torch import attention_kernel_bench as abench
 
-    hmma = sass_hmma(build)
+    counts = sass_counts(build)
     for a in ka.kernel_attributes():
         if a["name"].endswith(",64>"):
-            n_hmma = hmma_of(hmma, a["name"])
+            ops = check_tensor_cores(a, ops_of(counts, a["name"]), "12a")
             check(a["local_bytes"] == 0, f"12a: {a['name']} spills {a['local_bytes']} B a thread")
-            log(f"[12a] {a['name']:36s} regs {a['regs']:3d}  spill (local) {a['local_bytes']} B  HMMA in SASS {n_hmma}")
+            log(f"[12a] {a['name']:36s} regs {a['regs']:3d}  spill (local) {a['local_bytes']} B  {ops}")
     rows = {}
     for seed, case in enumerate(VIT_KERNEL_CASES):
         row = abench.measure(ka, case, 500 + seed)
@@ -2326,9 +2347,10 @@ def vit_b4_timing(ka, smi: str, shape=VIT_TRAIN, tag: str = "12a", seed: int = 6
     """[12a]: B.4 at a ViT's training shape (ViT-base's VIT_TRAIN by
     default) in bf16: the gradients against the pair's plain version
     (B4_BAR) and the forward against the plain version in float32 (the
-    bench's TOLERANCE), then the times of forward+backward, the forward, the pair,
-    plain autograd, the pair's plain version and SDPA (forward+backward and
-    its backward alone)."""
+    bench's TOLERANCE), then the times of forward+backward, the forward,
+    plain autograd and SDPA (forward+backward and its forward alone), and the
+    pair beside its plain version, SDPA's backward and its bound
+    (attention_kernel_bench.measure_backward, on the same inputs)."""
     from office_person_detection_vit_torch import attention_kernel_bench as abench
     from office_person_detection_vit_torch.ops import attention as oa
     from office_person_detection_vit_torch.ops.attention import (KernelAttention, attention_backward_reference,
@@ -2346,8 +2368,7 @@ def vit_b4_timing(ka, smi: str, shape=VIT_TRAIN, tag: str = "12a", seed: int = 6
     check(oa.launch_counts["attention_diff"] == 1 and ka.launch_counts == launches(flash=1, backward=1),
           f"{tag}: B.4 at {shape} launched {oa.launch_counts}, {ka.launch_counts}")
     x = [t.detach() for t in (q, k, v)]
-    out2, lse = ka.attention_flash(*x, None, with_lse=True)
-    twin = attention_backward_reference(*x, None, out2, lse, g)
+    twin = attention_backward_reference(*x, None, *ka.attention_flash(*x, None, with_lse=True), g)
     twin_err = relative_error(grads, twin)
     grad_abs = max((a.float() - b.float()).abs().max().item() for a, b in zip(grads, twin))
     del twin
@@ -2368,9 +2389,7 @@ def vit_b4_timing(ka, smi: str, shape=VIT_TRAIN, tag: str = "12a", seed: int = 6
     def sdpa(q, k, v, mask):
         return torch.nn.functional.scaled_dot_product_attention(q, k, v)
 
-    sdpa_out = sdpa(q, k, v, None)
     b_ms, b_by = b4_bound(shape, dtype, None)
-    bb_ms, bb_by = b4_bound(shape, dtype, None, backward_only=True)
     f_ms, f_by = abench.bound(shape, dtype, None)
     row = {
         "shape": list(shape), "dtype": "bfloat16", "max_abs_err": grad_abs, "grad_err_vs_twin_rel": twin_err,
@@ -2378,16 +2397,17 @@ def vit_b4_timing(ka, smi: str, shape=VIT_TRAIN, tag: str = "12a", seed: int = 6
         "ms": abench.cuda_ms(fwd_bwd(KernelAttention.apply), 5, 2),
         "forward_ms": abench.cuda_ms(lambda: KernelAttention.apply(*x, None), 5, 2),
         "backward_ms": abench.cuda_ms(lambda: torch.autograd.grad(out, (q, k, v), g, retain_graph=True), 5, 2),
-        "pair_ms": abench.cuda_ms(lambda: ka.attention_backward(*x, None, out2, lse, g), 5, 2),
         "plain_ms": abench.cuda_ms(fwd_bwd(attention_reference), 2, 1),
-        "plain_backward_ms": abench.cuda_ms(lambda: attention_backward_reference(*x, None, out2, lse, g), 2, 1),
         "library_ms": abench.cuda_ms(fwd_bwd(sdpa), 5, 2),
         "library_forward_ms": abench.cuda_ms(lambda: sdpa(*x, None), 5, 2),
-        "library_backward_ms": abench.cuda_ms(
-            lambda: torch.autograd.grad(sdpa_out, (q, k, v), g, retain_graph=True), 5, 2),
-        "bound_ms": b_ms, "bound_by": b_by, "backward_bound_ms": bb_ms, "backward_bound_by": bb_by,
-        "forward_bound_ms": f_ms, "forward_bound_by": f_by,
+        "bound_ms": b_ms, "bound_by": b_by, "forward_bound_ms": f_ms, "forward_bound_by": f_by,
     }
+    del out, grads
+    pair = abench.measure_backward(ka, (tuple(shape), "bfloat16", what), seed, iters=5)
+    row.update(pair_ms=pair["ms"], pair_host_us=pair["host_us"], pair_err_vs_twin_rel=pair["max_rel_err"],
+               plain_backward_ms=pair["plain_ms"], library_backward_ms=pair["library_ms"],
+               backward_bound_ms=pair["bound_ms"], backward_bound_by=pair["bound_by"])
+    bb_ms, bb_by = pair["bound_ms"], pair["bound_by"]
     log(f"[{tag}] B.4 {shape} bf16 ({what}): gradients {twin_err:.2e} from the pair's "
         f"plain version (bar {B4_BAR[dtype]:.2e}), the forward {fwd_err:.2e} from the plain version "
         f"(tol {abench.TOLERANCE[dtype]:.0e}); forward+backward {row['ms']:.4f} ms (forward {row['forward_ms']:.4f}, "
@@ -2396,7 +2416,7 @@ def vit_b4_timing(ka, smi: str, shape=VIT_TRAIN, tag: str = "12a", seed: int = 6
         f"{row['library_forward_ms']:.4f}, backward {row['library_backward_ms']:.4f}); bound {b_ms:.4f} ({b_by}; "
         f"{100 * b_ms / row['ms']:.1f}% of it), the forward's {f_ms:.4f}, the backward's {bb_ms:.4f} ({bb_by}, "
         f"{100 * bb_ms / row['pair_ms']:.1f}% of the pair) on {smi}")
-    del q, k, v, g, out, grads, x, out2, lse, sdpa_out
+    del q, k, v, g, x
     torch.cuda.empty_cache()
     return row
 
@@ -2586,19 +2606,21 @@ def vit_kernel_rows(vit: dict) -> list:
     steps = vit["train"]["full"]["counts"]
     train_path = "ViT-base/16 DETR bf16 training at 768x1344, batch 8, 6 timed steps, phase 12c"
     return [
-        {"name": "attention_flash_d64", "route": "cuda", "source": src,
+        {"name": "attention_flash_d64", "route": "cuda", "source": src, "body": "attention_flash_wgmma<bf16,64>",
          "replaces": "office_person_detection_vit_tpu/ops/attention.py:159",
          "launches": vit["detect"]["main_counts"]["attention_flash"],
          "launches_on": "ViT-base/16 DETR bf16 through main on the one-hour video, 13 frames, phase 12b",
          **{k: k2[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape",
                                "dtype", "instruction")}},
         {"name": "attention_diff_d64", "route": "cuda", "source": src,
+         "body": "attention_flash_wgmma<bf16,64> + attention_bwd_dq_wgmma<bf16,64> + attention_bwd_dkdv_wgmma<bf16,64>",
          "function": "office_person_detection_vit_torch/ops/attention.py KernelAttention",
          "replaces": "office_person_detection_vit_tpu/ops/attention.py:306", "launches": steps["attention_diff"],
          "launches_on": train_path,
          **{k: b4[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "forward_ms",
                                "backward_ms", "shape", "dtype")}},
         {"name": "attention_backward_d64", "route": "cuda", "source": src,
+         "body": "attention_bwd_dq_wgmma<bf16,64> + attention_bwd_dkdv_wgmma<bf16,64>",
          "replaces": "office_person_detection_vit_tpu/ops/attention.py:322", "launches": steps["attention_backward"],
          "launches_on": train_path, "max_abs_err": b4["max_abs_err"], "ms": b4["pair_ms"],
          "plain_ms": b4["plain_backward_ms"], "bound_ms": b4["backward_bound_ms"],
@@ -2655,15 +2677,16 @@ def d128_phase(ka, build, smi: str, frames: np.ndarray, samples: list) -> dict:
     from office_person_detection_vit_torch.models.weights import flax_param_map
 
     t0 = time.perf_counter()
-    hmma = sass_hmma(build)
+    counts = sass_counts(build)
     bodies = {}
     for a in ka.kernel_attributes():
         if a["name"].endswith(",128>"):
-            n_hmma = hmma_of(hmma, a["name"])
+            ops = ops_of(counts, a["name"])
             check(a["local_bytes"] == 0, f"13a: {a['name']} spills {a['local_bytes']} B a thread")
-            check(bool(n_hmma) == ("bf16" in a["name"]), f"13a: {a['name']}: {n_hmma} HMMA instructions")
-            bodies[a["name"]] = {"regs": a["regs"], "local_bytes": a["local_bytes"], "hmma": n_hmma}
-            log(f"[13a] {a['name']:36s} regs {a['regs']:3d}  spill (local) {a['local_bytes']} B  HMMA in SASS {n_hmma}")
+            text = check_tensor_cores(a, ops, "13a")
+            bodies[a["name"]] = {"regs": a["regs"], "local_bytes": a["local_bytes"], "hmma": ops["HMMA"],
+                                 "hgmma": ops["HGMMA"], "utmaldg": ops["UTMALDG"]}
+            log(f"[13a] {a['name']:36s} regs {a['regs']:3d}  spill (local) {a['local_bytes']} B  {text}")
     check(len(bodies) == 8, f"13a: {len(bodies)} head-dim-128 bodies, expected 8")
     rows = {}
     for seed, case in enumerate(D128_KERNEL_CASES):
@@ -3102,7 +3125,7 @@ def d128_kernel_rows(res: dict) -> list:
     train_path = "ViT-H/16-width DETR (4 of 32 layers) bf16 training at 768x1344, batch 8, 8 steps, phase 13a"
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape", "dtype")
     return [
-        {"name": "attention_flash_d128", "route": "cuda", "source": src,
+        {"name": "attention_flash_d128", "route": "cuda", "source": src, "body": "attention_flash_wgmma<bf16,128>",
          "replaces": "office_person_detection_vit_tpu/ops/attention.py:159",
          "launches": d128["k2_d128"],
          "launches_on": "ViT-H/16-width DETR (4 of 32 layers) bf16 through detect_batch at 736x1280, 16 frames, "
@@ -3112,11 +3135,14 @@ def d128_kernel_rows(res: dict) -> list:
          "launches_on": "ViT-H/16-width DETR float32 forward at 224x224 on the card, phase 13a",
          **{k: k1[k] for k in keys + ("instruction",)}},
         {"name": "attention_diff_d128", "route": "cuda", "source": src,
+         "body": "attention_flash_wgmma<bf16,128> + attention_bwd_dq_wgmma<bf16,128> + "
+                 "attention_bwd_dkdv_wgmma<bf16,128>",
          "function": "office_person_detection_vit_torch/ops/attention.py KernelAttention",
          "replaces": "office_person_detection_vit_tpu/ops/attention.py:306",
          "launches": d128["train_d128"]["attention_diff"], "launches_on": train_path,
          **{k: b4[k] for k in keys + ("forward_ms", "backward_ms")}},
         {"name": "attention_backward_d128", "route": "cuda", "source": src,
+         "body": "attention_bwd_dq_wgmma<bf16,128> + attention_bwd_dkdv_wgmma<bf16,128>",
          "replaces": "office_person_detection_vit_tpu/ops/attention.py:322",
          "launches": d128["train_d128"]["attention_backward"], "launches_on": train_path,
          "max_abs_err": b4["max_abs_err"], "ms": b4["pair_ms"], "plain_ms": b4["plain_backward_ms"],
@@ -3168,18 +3194,19 @@ def wide_count(ka, name: str) -> int:
     return sum(n for (wrapper, d), n in ka.head_dim_counts.items() if wrapper == name and d > 128)
 
 
-def hmma_of_wide(hmma: dict, name: str) -> int:
-    """hmma_of for the chunked bodies, named ``base<type[,K1|K2]>``: their
-    template takes the type and, in the forward, whether it runs two passes
-    (K1, ``Lb1E``) or one (K2, ``Lb0E``)."""
+def hmma_of_wide(counts: dict, name: str) -> int:
+    """The HMMA count (ops_of) of the chunked bodies, named
+    ``base<type[,K1|K2]>``: their template takes the type and, in the
+    forward, whether it runs two passes (K1, ``Lb1E``) or one (K2,
+    ``Lb0E``)."""
     base, args = name.rstrip(">").split("<")
     dtype, *kind = args.split(",")
     typ = "13__nv_bfloat16" if dtype == "bf16" else "f"
     passes = {"K1": "Lb1E", "K2": "Lb0E"}[kind[0]] if kind else ""
     mangled = re.compile(rf"{len(base)}{base}I{typ}{passes}E")
-    counts = [n for f, n in hmma.items() if mangled.search(f)]
-    check(len(counts) == 1, f"{name}: {len(counts)} functions of its name in the SASS")
-    return counts[0]
+    found = [n["HMMA"] for f, n in counts.items() if mangled.search(f)]
+    check(len(found) == 1, f"{name}: {len(found)} functions of its name in the SASS")
+    return found[0]
 
 
 def wide_phase(ka, build, smi: str, frames: np.ndarray, samples: list) -> dict:
@@ -3194,11 +3221,11 @@ def wide_phase(ka, build, smi: str, frames: np.ndarray, samples: list) -> dict:
     from office_person_detection_vit_torch.models.weights import flax_param_map
 
     t0 = time.perf_counter()
-    hmma = sass_hmma(build)
+    counts = sass_counts(build)
     bodies = {}
     for a in ka.kernel_attributes():
         if a["name"].startswith("attention_wide"):
-            n_hmma = hmma_of_wide(hmma, a["name"])
+            n_hmma = hmma_of_wide(counts, a["name"])
             check(a["local_bytes"] == 0, f"14a: {a['name']} spills {a['local_bytes']} B a thread")
             check(n_hmma == 0, f"14a: {a['name']}: {n_hmma} HMMA instructions (a CUDA-core body)")
             bodies[a["name"]] = {"regs": a["regs"], "local_bytes": a["local_bytes"], "hmma": n_hmma}

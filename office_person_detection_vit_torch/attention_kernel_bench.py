@@ -3,18 +3,22 @@
     python -m office_person_detection_vit_torch.attention_kernel_bench \\
         [--against DIR] [--iters 20] [--json-out PATH]
 
-For each case of :data:`CASES` it holds the kernel (``kernels/attention.py``)
+For each case of :data:`CASES` and :data:`VIT_CASES` it holds the kernel (``kernels/attention.py``)
 against the plain version on the same inputs (:data:`TOLERANCE`, absolute)
 and reports its device time (:func:`cuda_ms`), the plain version's, SDPA's
 (``scaled_dot_product_attention``, the library call for the same function),
-the bound and the card's name and power limit.
+the bound, the host's microseconds a wrapper call (:func:`host_us`) and the
+card's name and power limit. Then B.4's backward pair at each of
+:data:`BACKWARD_CASES` against the pair's plain version (:data:`B4_BAR`),
+beside the plain version's time, SDPA's backward and the pair's bound.
 
 ``--against DIR`` also times the kernels of the port checkout at ``DIR`` (an
 earlier commit, unpacked with ``git archive``) on the same inputs, through
 that checkout's own wrappers and library, built from its own sources into its
 own ``_build/``. Each case is timed this, other, other, this in one process,
-so both versions are timed by one method on one card. Needs a card: it raises
-without one.
+so both versions are timed by one method on one card (the pair on the same
+out, lse and g, from this checkout's forward), and so is the host's time a
+call. Needs a card: it raises without one.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ import argparse
 import importlib
 import importlib.util
 import json
+import statistics
 import sys
 import time
 from pathlib import Path
@@ -50,6 +55,25 @@ CASES = [
     ("attention_whole_kv", (1, 8, 25, 84, 16), "float32", True, "DETR-small cross"),
     ("attention_whole_kv", (1, 8, 25, 25, 16), "float32", False, "DETR-small decoder self"),
 ]
+#: The ViT paths' shapes (head dims 64 and 128, and 80 padded to 128): the
+#: Hopper bodies. ``chip_smoke.py`` times them in [12a] and [13a], not in [2].
+VIT_CASES = [
+    ("attention_flash", (8, 12, 3681, 3681, 64), "bfloat16", False, "ViT-base/16 detect at 736x1280 (main path)"),
+    ("attention_flash", (8, 8, 3681, 3681, 128), "bfloat16", False, "head dim 128 on the ViT detect's tokens"),
+    ("attention_flash", (8, 16, 3681, 3681, 80), "bfloat16", False, "ViT-H/16's heads (80, padded to 128)"),
+]
+#: B.4's backward pair: ((B, H, Lq, Lk, D), type, the path that gives the
+#: shape). ViT-base/16 training at 768x1344 (4033 tokens), head dim 128 at
+#: DETR-R50's training tokens (1008), ViT-H/16's heads at 4033 tokens.
+BACKWARD_CASES = [
+    ((8, 12, 4033, 4033, 64), "bfloat16", "ViT-base/16 training at 768x1344, batch 8"),
+    ((8, 8, 1008, 1008, 128), "bfloat16", "head dim 128 at DETR-R50's training tokens"),
+    ((8, 16, 4033, 4033, 80), "bfloat16", "ViT-H/16's heads training (80, padded to 128)"),
+    ((8, 8, 1008, 1008, 32), "bfloat16", "DETR-R50 training encoder (mma.sync bodies)"),
+]
+#: The pair against its plain version on the same values, relative
+#: (relative_errors): bf16 2^-6, the rounding of P, dS and the results.
+B4_BAR = {torch.bfloat16: 2.0**-6, torch.float32: 1e-5}
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 #: Kernel against the plain version in float32 on the same input values.
 #: float32: summation order only. bf16: the kernels round the probabilities
@@ -57,6 +81,8 @@ DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 TOLERANCE = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 #: The instruction that does the products, by type.
 INSTRUCTION = {torch.bfloat16: "mma.sync.m16n8k16", torch.float32: "FFMA (CUDA cores)"}
+#: bf16 at head dims 64 and 128: the Hopper bodies.
+WGMMA_INSTRUCTION = "wgmma.m64nNk16 + TMA"
 #: Above head dim 128 both types run the chunked bodies (ROADMAP C.7).
 WIDE_INSTRUCTION = "FFMA (CUDA cores, head dim in 64-wide chunks)"
 # Published H100 SXM peaks (dense): HBM bytes/s; bf16 tensor-core and
@@ -108,6 +134,25 @@ def bound(shape, dtype: torch.dtype, mask) -> tuple[float, str]:
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def b4_bound(shape, dtype, mask, backward_only: bool = False) -> tuple[float, str]:
+    """(least ms, "bytes" or "operations") of B.4's forward and backward:
+    q, k, v, the mask and dO read once, O, dQ, dK, dV written once; the
+    products of the forward (QK^T, P.V) and of the backward (QK^T again,
+    dV = P^T dO, dP = dO V^T, dQ = dS K, dK = dS^T Q) over this mask's valid
+    keys: 14 H Lq D flops a valid key. ``backward_only``: the backward pair's
+    own work, q, k, v, O, dO, the mask and the log-sum-exp read once, dQ, dK,
+    dV written once, and its five products: 10 H Lq D flops a valid key."""
+    B, H, Lq, Lk, D = shape
+    item = torch.empty((), dtype=dtype).element_size()
+    valid = Lk * B if mask is None else int(mask.sum().item())
+    flops = (10.0 if backward_only else 14.0) * H * Lq * valid * D
+    nbytes = 4 * B * H * (Lq + Lk) * D * item + (0 if mask is None else B * Lk)
+    if backward_only:
+        nbytes = (3 * Lq + 2 * Lk + Lq + 2 * Lk) * B * H * D * item + 4 * B * H * Lq + (0 if mask is None else B * Lk)
+    t_ops, t_bytes = flops / PEAK_FLOPS[dtype] * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
 def _sleep_cycles_per_ms() -> float:
     """The card's clock as ``torch.cuda._sleep`` counts it, measured once."""
     global _cycles_per_ms
@@ -149,6 +194,23 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def host_us(fn, iters: int = 5, rounds: int = 3) -> float:
+    """The host's microseconds of one fn() call: the median over ``rounds``
+    of ``iters`` calls queued back to back on the host clock, each round
+    started on an idle device and not waiting for it (the calls run on the
+    device behind them)."""
+    fn()
+    per_call = []
+    for _ in range(rounds):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        per_call.append((time.perf_counter() - t) * 1e6 / iters)
+    torch.cuda.synchronize()
+    return statistics.median(per_call)
+
+
 def max_error(fn, q, k, v, mask) -> float:
     """max |fn - plain version in float32 on the same values|; raises on a
     non-finite output or an error above the tolerance."""
@@ -177,20 +239,98 @@ def measure(kernels, case, seed: int, iters: int = 20) -> dict:
         "name": name, "shape": list(shape), "dtype": dt, "masked": masked, "path": path,
         "max_abs_err": err, "tolerance": TOLERANCE[dtype],
         "ms": cuda_ms(lambda: fn(q, k, v, mask), iters),
+        "host_us": host_us(lambda: fn(q, k, v, mask)),
         "plain_ms": cuda_ms(lambda: attention_reference(q, k, v, mask), 5),
         "library_ms": cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
             q, k, v, attn_mask=sdpa_mask), iters),
         "bound_ms": bound_ms, "bound_by": bound_by,
-        "instruction": WIDE_INSTRUCTION if kernels.is_wide(shape[4]) else INSTRUCTION[dtype],
+        "instruction": instruction(kernels, name, shape[4], dtype),
     }
+
+
+def instruction(kernels, name: str, head_dim: int, dtype: torch.dtype) -> str:
+    """The instruction of the body that wrapper ``name`` runs at ``head_dim``
+    in ``dtype`` (K1 has no Hopper body)."""
+    if kernels.is_wide(head_dim):
+        return WIDE_INSTRUCTION
+    hopper = name != "attention_whole_kv" and kernels.is_wgmma(head_dim, dtype)
+    return WGMMA_INSTRUCTION if hopper else INSTRUCTION[dtype]
+
+
+def measure_backward(kernels, case, seed: int, other=None, iters: int = 10) -> dict:
+    """One case of :data:`BACKWARD_CASES`: the pair (``attention_backward``
+    on this checkout's forward out and lse) against its plain version
+    (``attention_backward_reference``) at :data:`B4_BAR`, its time and the
+    host's time a call, the plain version's time, SDPA's backward and the
+    bound; with ``other`` (another checkout's wrappers) that checkout's pair
+    too, this, other, other, this."""
+    from .ops.attention import attention_backward_reference
+
+    shape, dt, path = case
+    dtype = DTYPES[dt]
+    q, k, v, _ = make_inputs(shape, dtype, False, seed)
+    g = torch.randn(q.shape, generator=torch.Generator().manual_seed(seed + 1)).to("cuda", dtype)
+    out, lse = kernels.attention_flash(q, k, v, None, with_lse=True)
+    twin = attention_backward_reference(q, k, v, None, out, lse, g)
+    fns = {"this": kernels.attention_backward}
+    if other is not None:
+        fns["other"] = other.attention_backward
+    errs = {}
+    for name, fn in fns.items():
+        errs[name] = max(relative_errors(fn(q, k, v, None, out, lse, g), twin))
+        if errs[name] > B4_BAR[dtype]:
+            raise AssertionError(f"{name} pair {shape} {dt}: {errs[name]:.3e} from its plain version > {B4_BAR[dtype]:.2e}")
+    del twin
+    qq, kk, vv = (t.detach().requires_grad_(True) for t in (q, k, v))
+    sdpa_out = torch.nn.functional.scaled_dot_product_attention(qq, kk, vv)
+    bound_ms, bound_by = b4_bound(shape, dtype, None, backward_only=True)
+    row = {"name": "attention_backward", "shape": list(shape), "dtype": dt, "path": path, "max_rel_err": errs["this"],
+           "bar": B4_BAR[dtype], "instruction": instruction(kernels, "attention_backward", shape[4], dtype),
+           "library_ms": cuda_ms(lambda: torch.autograd.grad(sdpa_out, (qq, kk, vv), g, retain_graph=True), iters),
+           "plain_ms": cuda_ms(lambda: attention_backward_reference(q, k, v, None, out, lse, g), 2, 1),
+           "bound_ms": bound_ms, "bound_by": bound_by}
+    mine = lambda: kernels.attention_backward(q, k, v, None, out, lse, g)  # noqa: E731
+    if other is None:
+        row.update(ms=cuda_ms(mine, iters), host_us=host_us(mine))
+    else:
+        theirs = lambda: other.attention_backward(q, k, v, None, out, lse, g)  # noqa: E731
+        row.update(abba(mine, theirs, iters), against_max_rel_err=errs["other"])
+    return row
+
+
+def abba(mine, theirs, iters: int) -> dict:
+    """Device ms and host microseconds a call of two versions of one
+    function, timed this, other, other, this."""
+    t = [cuda_ms(f, iters) for f in (mine, theirs, theirs, mine)]
+    h = [host_us(f) for f in (mine, theirs, theirs, mine)]
+    return {"ms_abba": [t[0], t[3]], "against_ms_abba": [t[1], t[2]], "ms": (t[0] + t[3]) / 2,
+            "against_ms": (t[1] + t[2]) / 2, "host_us": (h[0] + h[3]) / 2, "against_host_us": (h[1] + h[2]) / 2}
+
+
+def describe_backward(row: dict) -> str:
+    """One line of a measured backward case."""
+    line = (f"{row['name']:19s} {str(tuple(row['shape'])):26s} {row['dtype']:8s} {row['instruction']:18s} "
+            f"err {row['max_rel_err']:.2e} (bar {row['bar']:.2e}) ms {row['ms']:.4f} host {row['host_us']:.1f} us "
+            f"plain {row['plain_ms']:.4f} sdpa backward {row['library_ms']:.4f} bound {row['bound_ms']:.4f} "
+            f"({row['bound_by']}, {100 * row['bound_ms'] / row['ms']:.1f}% of it)")
+    if "against_ms" in row:
+        line += against(row, row["against_max_rel_err"])
+    return line
+
+
+def against(row: dict, err: float) -> str:
+    """The line's part for the other checkout of a row timed by abba."""
+    return (f" | against {row['against_ms']:.4f} ms host {row['against_host_us']:.1f} us (err {err:.2e}; "
+            f"readings {row['against_ms_abba'][0]:.4f} {row['against_ms_abba'][1]:.4f}, this {row['ms_abba'][0]:.4f} "
+            f"{row['ms_abba'][1]:.4f}) -> {row['against_ms'] / row['ms']:.2f}x")
 
 
 def describe(row: dict) -> str:
     """One line of a measured case."""
     return (f"{row['name']:19s} {str(tuple(row['shape'])):26s} {row['dtype']:8s} {row['instruction']:18s} "
             f"err {row['max_abs_err']:.2e} (tol {row['tolerance']:.0e}) ms {row['ms']:.4f} "
-            f"plain {row['plain_ms']:.4f} sdpa {row['library_ms']:.4f} bound {row['bound_ms']:.4f} "
-            f"({row['bound_by']}, {100 * row['bound_ms'] / row['ms']:.1f}% of it)")
+            f"host {row['host_us']:.1f} us plain {row['plain_ms']:.4f} sdpa {row['library_ms']:.4f} "
+            f"bound {row['bound_ms']:.4f} ({row['bound_by']}, {100 * row['bound_ms'] / row['ms']:.1f}% of it)")
 
 
 def load_port_module(root: Path, name: str):
@@ -232,26 +372,28 @@ def main(argv=None) -> dict:
     print(f"device: {smi}", flush=True)
     other = load_kernels(args.against) if args.against else None
     rows = []
-    for seed, case in enumerate(CASES):
+    for seed, case in enumerate(CASES + VIT_CASES):
         row = measure(kernels, case, seed, args.iters)
         if other is not None:
             name, shape, dt, masked, _ = case
             q, k, v, mask = make_inputs(shape, DTYPES[dt], masked, seed)
             mine, theirs = getattr(kernels, name), getattr(other, name)
             row["against_max_abs_err"] = max_error(theirs, q, k, v, mask)
-            t = [cuda_ms(lambda f=f: f(q, k, v, mask), args.iters) for f in (mine, theirs, theirs, mine)]
-            row.update(ms_abba=[t[0], t[3]], against_ms_abba=[t[1], t[2]],
-                       ms=(t[0] + t[3]) / 2, against_ms=(t[1] + t[2]) / 2)
+            row.update(abba(lambda: mine(q, k, v, mask), lambda: theirs(q, k, v, mask), args.iters))
         line = describe(row)
         if other is not None:
-            line += (f" | against {row['against_ms']:.4f} ms (err {row['against_max_abs_err']:.2e}; "
-                     f"readings {row['against_ms_abba'][0]:.4f} {row['against_ms_abba'][1]:.4f}, "
-                     f"this {row['ms_abba'][0]:.4f} {row['ms_abba'][1]:.4f}) -> {row['against_ms'] / row['ms']:.2f}x")
+            line += against(row, row["against_max_abs_err"])
         print(line, flush=True)
         rows.append(row)
         torch.cuda.empty_cache()
+    backward = []
+    for seed, case in enumerate(BACKWARD_CASES):
+        row = measure_backward(kernels, case, 900 + seed, other, max(args.iters // 2, 5))
+        print(describe_backward(row), flush=True)
+        backward.append(row)
+        torch.cuda.empty_cache()
     results = {"device": smi, "iters": args.iters, "against": str(args.against) if args.against else None,
-               "cases": rows}
+               "cases": rows, "backward": backward}
     if args.json_out:
         args.json_out.parent.mkdir(parents=True, exist_ok=True)
         args.json_out.write_text(json.dumps(results, indent=1))

@@ -31,7 +31,11 @@
 // with 100 queries (decoder cross- and self-attention, 0.0025 and 0.0005 ms)
 // are bound by the bytes of K and V.
 //
-// bf16 design (tensor cores).
+// bf16 design (tensor cores). K2 and the backward pair at head dims 64 and
+// 128 run the Hopper bodies of the wgmma section below (two warpgroups of
+// 64 rows, TMA, wgmma; ViT-base/16's D 64, ViT-H/16's 80 padded to 128).
+// K1 at every head dim, and K2 and the pair at 16 and 32 (DETR's), run the
+// mma.sync bodies described here:
 //  * One warp owns 16 query rows. QK^T and P.V are
 //    mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32: the warp's Q
 //    fragments are loaded once from device memory and stay in registers, K
@@ -72,13 +76,9 @@
 //    the newest tile are loaded into registers and stored as its bias after
 //    the current tile's compute. Online max and normalizer as in
 //    _flash_attn_kernel; the loop inside the block replaces the TPU's
-//    sequential KV grid axis. The ring is dynamic shared memory (Ring<D>):
-//    at D = 64 it holds 49,920 B, over the 48 KB a static array may take.
-//    At D = 64 a thread keeps twice the Q fragments and output accumulators,
-//    so K2 asks for 3 blocks an SM (170 registers a thread) instead of 4
-//    (128), and the backward pair for 2 (255) instead of 3 (170). At D = 128
-//    K2 asks for 2 (a 99,072 B ring each) and K1 takes at most 8 warps a
-//    block (255 registers a thread instead of 128).
+//    sequential KV grid axis. The ring is dynamic shared memory (Ring<D>).
+//    At D = 128 K1 takes at most 8 warps a block (255 registers a thread
+//    instead of 128).
 //
 // float32 keeps the CUDA-core body (four threads per query row, float32 FMAs,
 // 64-row blocks): TF32 tensor cores would break its 1e-5 tolerance and the
@@ -663,7 +663,7 @@ attention_whole_kv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 // ------------------------------------------------------------------- K2, bf16
 template <int D>
-__global__ void __launch_bounds__(kFlashWarps * 32, D <= 32 ? 4 : D <= 64 ? 3 : 2)
+__global__ void __launch_bounds__(kFlashWarps * 32, 4)
 attention_flash_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, const uint8_t* __restrict__ mask,
                     bf16* __restrict__ out, float* __restrict__ lse, int H, int Lq, int Lk,
@@ -775,8 +775,9 @@ attention_flash_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // Two launches, deterministic (no atomics). The dQ kernel: one block per 64
 // query rows of a (batch*head), walking K/V tiles through K2's ring; first it
 // writes, for its rows, lse in base 2 (+inf past Lq, so that padded rows get
-// P = 0) and D to a float32 scratch of Lq rounded up to 64 rows. Then the
-// dK/dV kernel: one block per 64 keys, which keeps its K, V and key bias and
+// P = 0) and D to a float32 scratch of Lq rounded up to its row blocks
+// (scratch_rows: 64 here, 128 for the Hopper pair). Then the dK/dV kernel:
+// one block per 64 keys, which keeps its K, V and key bias and
 // walks 64-row tiles of Q, g and the scratch through the same kind of ring.
 //
 // What bounds it on an H100: seven products of 2 Lq Lk D flops over the
@@ -786,23 +787,16 @@ attention_flash_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // training encoder (8,8,1008,1008,32) 29 GFLOP and 130 M exponentials (P in
 // both kernels) against 33 MB.
 //
-// bf16 (tensor cores): K2's body. mma.sync.m16n8k16 with the A operand held
-// in registers (Q and g in the dQ kernel, K and V in the dK/dV kernel), B
-// from swizzled rows by ldmatrix, and a product's float32 accumulator
-// rounded to bf16 and repacked in registers as the A operand of the next (dS
-// for dS K; P and dS for P^T g and dS^T Q). The dK/dV kernel computes
-// S^T = K Q^T, so that P^T comes out in the layout pack_p turns into an A
-// operand. float32 keeps a CUDA-core body, four threads a row as the
-// forwards' float32 bodies.
-//
-// At D = 128 a warp's two A operands are 64 registers and the dK/dV
-// accumulators 128, over the 255 a thread may hold. So each bf16 kernel of
-// the pair runs as Backward<D>::kHalves = 2 blocks for each tile (grid z),
-// each accumulating one half of the head dim of its outputs, and walks a
-// ring tile in kSub = 32-row steps, half the score and dP tiles, one step at
-// a time (unrolled, ptxas keeps two steps' operands live and spills 8-24 B
-// a thread; one at a time the pair takes 214 / 240 registers, no spill). S
-// and dP are computed in full by both halves: 4 of the 7 products twice.
+// bf16 at head dims 16 and 32 (tensor cores): K2's body. mma.sync.m16n8k16
+// with the A operand held in registers (Q and g in the dQ kernel, K and V in
+// the dK/dV kernel), B from swizzled rows by ldmatrix, and a product's
+// float32 accumulator rounded to bf16 and repacked in registers as the A
+// operand of the next (dS for dS K; P and dS for P^T g and dS^T Q). The
+// dK/dV kernel computes S^T = K Q^T, so that P^T comes out in the layout
+// pack_p turns into an A operand. At head dims 64 and 128 the pair runs the
+// Hopper bodies of the section after this one (wgmma, TMA), on the same
+// scheme with 128-row blocks. float32 keeps a CUDA-core body, four threads a
+// row as the forwards' float32 bodies.
 
 static_assert(kRows == kFlashWarps * kWarpRows && kRows == kTileKeys && kRows == kFlashKeys,
               "the backward's row and key tiles are 64 in both types");
@@ -812,7 +806,12 @@ __device__ __forceinline__ float2 unpack_bf16(uint32_t x) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&x));
 }
 
-// How the bf16 pair splits its work at head dim D (see above).
+// How the bf16 pair splits its work at head dim D. Above 64 (no longer
+// instantiated: the Hopper bodies take 64 and 128) it ran two blocks a tile
+// (grid z), each half the head dim of its outputs, in 32-row steps. At 16
+// and 32 it is one block a tile in one 64-row step; the bodies and their
+// helpers keep this text, so that they compile to the code DETR's path has
+// been measured with.
 template <int D> struct Backward {
   static constexpr int kHalves = D > 64 ? 2 : 1;  // blocks a tile (grid z), each DO output columns
   static constexpr int DO = D / kHalves;
@@ -1015,6 +1014,516 @@ attention_bwd_dkdv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const float sc[2] = {scale, scale}, one[2] = {1.f, 1.f};
   store_o<D, W::DO>(dk_acc, sc, dk + kv_off, key0, Lk, c0 * 8);
   store_o<D, W::DO>(dv_acc, one, dv + kv_off, key0, Lk, c0 * 8);
+}
+
+// ============================== bf16 at head dims 64 and 128 (wgmma, TMA)
+// K2 and B.4's pair at head dims 64 and 128 (and those padded to them), on
+// Hopper's warpgroup products, in the shape FlashAttention-3 published: a
+// block is two consumer warpgroups of 64 rows each (128 query rows; the
+// dK/dV kernel 128 keys) and a producer warp.
+//  * The producer warp keeps the TMA busy: the block's fixed tiles (K2's Q;
+//    the dQ kernel's Q and g; the dK/dV kernel's K and V) once, then the
+//    streamed tiles through a ring of two stages with a full and an empty
+//    mbarrier each. The 3-D tensor maps (D, L, B*H) zero-fill rows
+//    past L, so a tile that runs past the sequence never reads the next
+//    head; keys past Lk also get a -inf bias. A bf16 row of 64 values is one
+//    128-byte panel; at D = 128 a tile is two panels of 64 columns.
+//  * The producer is one warp after the consumers' two warpgroups (288
+//    threads). An SM quadrant then holds three of a block's warps, so a
+//    thread may use 168 registers; a producer warpgroup that hands its
+//    registers to the consumers by setmaxnreg left ptxas's allocation at
+//    168 all the same (nvcc -Xptxas -v, the same spills at 200, 232 and
+//    240), so the bodies are sized to 168: K2 keeps 128-key score tiles and
+//    one tile's P.V at a time, the pair 64-row tiles, and the dK/dV kernel
+//    accumulates 64 columns of dK and dV a block (grid z; at D = 128 its two
+//    blocks both compute S^T and dP^T, 2 of the pair's 7 products twice).
+//  * S = Q K^T (and dP = g V^T) is wgmma.m64nNk16 with both operands read
+//    from shared memory through descriptors (the TMA's 128-byte swizzle,
+//    K-major). The score tile's accumulator layout is mma.sync's, so
+//    softmax, bias and the online max and sum are K2's; P (dS) is rounded to
+//    bf16 and repacked in registers as the A operand of the next wgmma, with
+//    V (K, g, Q) as B read MN-major from the same tiles: P never goes
+//    through shared memory.
+//  * The pair keeps FlashAttention-2's split (dQ over query blocks, then
+//    dK/dV over key blocks, no atomics); the dK/dV kernel computes S^T =
+//    K Q^T and dP^T = V g^T, so that P^T and dS^T land in registers as the A
+//    operands of dV += P^T g and dK += dS^T Q. Its lse2 / D vectors come by
+//    bulk copy from the dQ kernel's scratch, whose rows are padded to 128.
+//  * What bounds them: K2 at ViT-base/16's (8, 12, 3681, 3681, 64) does
+//    333 GFLOP (0.337 ms at 989 TFLOP/s) and 1.3 G exponentials, which the
+//    SFUs issue at 16 an SM a clock (about 0.35 ms at 1.755 GHz): the
+//    products and the softmax each take about the bound, and the two
+//    consumer warpgroups of a block overlap one's softmax with the other's
+//    products only as far as they drift apart.
+constexpr int kWgThreads = 128;                                     // a warpgroup
+constexpr int kWgConsumers = 2;                                     // consumer warpgroups a block
+constexpr int kWgConsumerThreads = kWgThreads * kWgConsumers;
+constexpr int kWgBlockThreads = kWgConsumerThreads + 32;           // and one producer warp
+constexpr int kWgRows = 64 * kWgConsumers;                         // query rows (dK/dV: keys) a block
+constexpr int kPanel = 64;                                          // bf16 columns of a 128-byte panel
+
+// Descriptor of the k16 step kk of rows [r0, r0 + 64) of an R-row tile
+// (K-major: the step runs along the rows' D values; panel kk / 4).
+template <int R>
+__device__ __forceinline__ uint64_t desc_k(uint32_t tile, int r0, int kk) {
+  return gmma_desc(tile + (kk / 4) * R * 128 + r0 * 128 + (kk % 4) * 32, 16, 1024);
+}
+// Descriptor of rows [16 kk, 16 kk + 16) of an R-row tile as the depth of a
+// product over all its D columns (MN-major; the panels R * 128 bytes apart).
+template <int R>
+__device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int kk) {
+  return gmma_desc(tile + kk * 16 * 128, R * 128, 1024);
+}
+
+// Round a score tile's accumulator (N columns, mma.sync's layout) to bf16
+// and repack it as the A operands of its N / 16 k16 steps.
+template <int N>
+__device__ __forceinline__ void pack_a(const float (&s)[N / 2], uint32_t (&a)[N / 16][4]) {
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) a[kk][j] = pack_bf16(s[8 * kk + 2 * j], s[8 * kk + 2 * j + 1]);
+}
+
+// K2's online softmax of one tile's N scores in sc (mma.sync's layout):
+// s * scale + the keys' bias; the rows' new max m (base 2) and sum l; sc
+// becomes p = 2^(s - m), and alpha the factor the rows' earlier output takes.
+template <int N>
+__device__ __forceinline__ void flash_softmax(float (&sc)[N / 2], const float* bias, float scale, float (&m)[2],
+                                              float (&l)[2], float (&alpha)[2]) {
+  const int t4 = threadIdx.x % 4;
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int n = 0; n < N / 8; ++n) {
+    const float2 bb = *reinterpret_cast<const float2*>(bias + 8 * n + 2 * t4);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) sc[4 * n + e] = fmaf(sc[4 * n + e], scale, e % 2 ? bb.y : bb.x);
+    mx[0] = fmaxf(mx[0], fmaxf(sc[4 * n], sc[4 * n + 1]));
+    mx[1] = fmaxf(mx[1], fmaxf(sc[4 * n + 2], sc[4 * n + 3]));
+  }
+  float mu[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float m_new = fmaxf(m[r], quad_max(mx[r]));
+    mu[r] = m_new == -INFINITY ? 0.f : m_new;
+    alpha[r] = ex2(m[r] - mu[r]);  // 0 while m is -inf
+    l[r] *= alpha[r];
+    m[r] = m_new;
+  }
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) {
+    sc[i] = ex2(sc[i] - mu[(i / 2) % 2]);
+    l[(i / 2) % 2] += sc[i];
+  }
+}
+
+// Write a warp's 16 rows (from row0) of a 64 x N accumulator times f[r]
+// into columns [col0, col0 + N) of bf16 rows of D values; rows at or past L
+// are skipped.
+template <int D, int N = D>
+__device__ __forceinline__ void store_acc(const float (&a)[N / 2], const float (&f)[2], bf16* x_bh, int row0,
+                                          int L, int col0 = 0) {
+  const int lane = threadIdx.x % 32, t = lane % 4;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + lane / 4 + 8 * r;
+    if (row >= L) continue;
+    uint32_t* dst = reinterpret_cast<uint32_t*>(x_bh + (size_t)row * D + col0);
+#pragma unroll
+    for (int dn = 0; dn < N / 8; ++dn) dst[4 * dn + t] = pack_bf16(a[4 * dn + 2 * r] * f[r], a[4 * dn + 2 * r + 1] * f[r]);
+  }
+}
+
+// Shared memory of the three kernels, byte offsets from a 1024-byte
+// aligned base: the fixed tiles (two of kWgRows rows; K2 one), the ring's
+// kStages stages of two tiles of kRing rows, its float vectors (K2 and dQ:
+// the key bias; dK/dV: lse2 and D) and the mbarriers (fixed, full[s],
+// empty[s]). kSmem counts the 1024 bytes the base may need.
+template <int D, int kFixed, int kRing, int kVecs> struct WgLayout {
+  static constexpr int kStages = 2;
+  static constexpr uint32_t kTile = kRing * D * 2;
+  static constexpr uint32_t kFix = kWgRows * D * 2;
+  static constexpr uint32_t kA = kFixed * kFix;                     // the ring's first tiles
+  static constexpr uint32_t kB = kA + kStages * kTile;            // and second
+  static constexpr uint32_t kVec = kB + kStages * kTile;          // kVecs x kRing floats a stage
+  static constexpr uint32_t kBar = kVec + kStages * kVecs * kRing * 4;
+  static constexpr size_t kSmem = kBar + 8 * (1 + 2 * kStages) + 1024;
+  static_assert(kA % 1024 == 0 && kTile % 1024 == 0, "swizzle atoms are 1024-byte aligned");
+  static_assert(kSmem <= 232448, "a block's shared memory");
+};
+// Keys (K2, dQ) or query rows (dK/dV) of a ring tile.
+template <int D> struct WgTiles {
+  static_assert(D == 64 || D == 128, "the wgmma bodies take head dims 64 and 128");
+  static constexpr int kFlashKeys = 128;
+  static constexpr int kDqKeys = 64;
+  static constexpr int kDkdvRows = 64;
+};
+template <int D> using FlashLayout = WgLayout<D, 1, WgTiles<D>::kFlashKeys, 1>;
+template <int D> using DqLayout = WgLayout<D, 2, WgTiles<D>::kDqKeys, 1>;
+template <int D> using DkdvLayout = WgLayout<D, 2, WgTiles<D>::kDkdvRows, 2>;
+
+// The block's shared base, 1024-byte aligned, as a shared address and as a
+// generic pointer.
+struct WgSmem {
+  uint32_t base;
+  uint8_t* ptr;  // the same byte, generic
+  __device__ __forceinline__ explicit WgSmem(uint8_t* raw) {
+    base = (smem_u32(raw) + 1023) & ~1023u;
+    ptr = raw + (base - smem_u32(raw));
+  }
+};
+
+// ------------------------------------------------------------- K2, wgmma
+template <int D>
+__global__ void __launch_bounds__(kWgBlockThreads, 1)
+attention_flash_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                      const __grid_constant__ CUtensorMap tv, const uint8_t* __restrict__ mask,
+                      bf16* __restrict__ out, float* __restrict__ lse, int H, int Lq, int Lk,
+                      float scale_log2) {
+  using L = FlashLayout<D>;
+  constexpr int kKeys = WgTiles<D>::kFlashKeys;
+  extern __shared__ __align__(128) uint8_t smem_raw[];
+  const WgSmem sm(smem_raw);
+  const uint32_t s_q = sm.base, bar_q = sm.base + L::kBar;
+  auto s_k = [&](int s) { return sm.base + L::kA + s * L::kTile; };
+  auto s_v = [&](int s) { return sm.base + L::kB + s * L::kTile; };
+  auto bias = [&](int s) { return reinterpret_cast<float*>(sm.ptr + L::kVec) + s * kKeys; };
+  auto full = [&](int s) { return bar_q + 8 * (1 + s); };
+  auto empty = [&](int s) { return bar_q + 8 * (1 + L::kStages + s); };
+
+  const int q0 = blockIdx.x * kWgRows, bh = blockIdx.y, tid = threadIdx.x;
+  const uint8_t* mask_b = mask ? mask + (size_t)(bh / H) * Lk : nullptr;
+  const int tiles = (Lk + kKeys - 1) / kKeys;
+  if (tid == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < L::kStages; ++s) {
+      mbar_init(full(s), 32);  // the producer warp's lanes, each after its bias values
+      mbar_init(empty(s), kWgConsumerThreads);
+    }
+    mbar_init_fence();
+  }
+  const bool all_masked = !any_valid_key(mask_b, Lk);  // also the barrier for the init
+
+  if (tid >= kWgConsumerThreads) {  // the producer warp
+    const int lane = tid - kWgConsumerThreads;
+    if (lane == 0) {
+      mbar_expect_tx(bar_q, L::kFix);
+#pragma unroll
+      for (int h = 0; h < D / kPanel; ++h) tma_load(s_q + h * kWgRows * 128, &tq, h * kPanel, q0, bh, bar_q);
+    }
+    for (int t = 0; t < tiles; ++t) {
+      const int s = t % L::kStages;
+      if (t >= L::kStages) mbar_wait(empty(s), (t / L::kStages - 1) & 1);
+      for (int j = lane; j < kKeys; j += 32) bias(s)[j] = key_bias(mask_b, t * kKeys + j, Lk, all_masked);
+      if (lane == 0) {
+        mbar_expect_tx(full(s), 2 * L::kTile);
+#pragma unroll
+        for (int h = 0; h < D / kPanel; ++h) {
+          tma_load(s_k(s) + h * kKeys * 128, &tk, h * kPanel, t * kKeys, bh, full(s));
+          tma_load(s_v(s) + h * kKeys * 128, &tv, h * kPanel, t * kKeys, bh, full(s));
+        }
+      } else {
+        mbar_arrive(full(s));
+      }
+    }
+  } else {  // the consumers
+    const int wc = tid / kWgThreads, w = (tid / 32) % 4, lane = tid % 32, t4 = lane % 4;
+    const float scale = all_masked ? 0.f : scale_log2;
+    float o[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, alpha[2];
+    mbar_wait(bar_q, 0);
+    for (int t = 0; t < tiles; ++t) {
+      const int s = t % L::kStages;
+      mbar_wait(full(s), (t / L::kStages) & 1);
+      float sc[kKeys / 2];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        Gmma<kKeys>::template ss<0>(sc, desc_k<kWgRows>(s_q, 64 * wc, kk), desc_k<kKeys>(s_k(s), 0, kk), kk);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+      flash_softmax<kKeys>(sc, bias(s), scale, m, l, alpha);
+#pragma unroll
+      for (int dn = 0; dn < D / 8; ++dn)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[4 * dn + e] *= alpha[e / 2];
+      uint32_t pa[kKeys / 16][4];
+      pack_a<kKeys>(sc, pa);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kKeys / 16; ++kk) Gmma<D>::template rs<1>(o, pa[kk], desc_mn<kKeys>(s_v(s), kk));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(o);
+      mbar_arrive(empty(s));
+    }
+    const int row0 = q0 + 64 * wc + 16 * w;
+    const float sum[2] = {quad_sum(l[0]), quad_sum(l[1])};
+    const float inv[2] = {1.f / sum[0], 1.f / sum[1]};
+    store_acc<D>(o, inv, out + (size_t)bh * Lq * D, row0, Lq);
+    if (lse != nullptr && t4 == 0) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = row0 + lane / 4 + 8 * r;
+        if (row < Lq) lse[(size_t)bh * Lq + row] = (m[r] + log2f(sum[r])) * kLn2;
+      }
+    }
+  }
+}
+
+// -------------------------------------------------------------- dQ, wgmma
+template <int D>
+__global__ void __launch_bounds__(kWgBlockThreads, 1)
+attention_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tg,
+                       const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
+                       const uint8_t* __restrict__ mask, const bf16* __restrict__ out,
+                       const float* __restrict__ lse, const bf16* __restrict__ g, bf16* __restrict__ dq,
+                       float* __restrict__ lse2_pad, float* __restrict__ dsum_pad, int H, int Lq, int Lk,
+                       int Lq_pad, float scale_log2, float scale) {
+  using L = DqLayout<D>;
+  constexpr int kKeys = WgTiles<D>::kDqKeys;
+  extern __shared__ __align__(128) uint8_t smem_raw[];
+  const WgSmem sm(smem_raw);
+  const uint32_t s_q = sm.base, s_g = sm.base + L::kFix, bar_q = sm.base + L::kBar;
+  auto s_k = [&](int s) { return sm.base + L::kA + s * L::kTile; };
+  auto s_v = [&](int s) { return sm.base + L::kB + s * L::kTile; };
+  auto bias = [&](int s) { return reinterpret_cast<float*>(sm.ptr + L::kVec) + s * kKeys; };
+  auto full = [&](int s) { return bar_q + 8 * (1 + s); };
+  auto empty = [&](int s) { return bar_q + 8 * (1 + L::kStages + s); };
+
+  const int q0 = blockIdx.x * kWgRows, bh = blockIdx.y, tid = threadIdx.x;
+  const uint8_t* mask_b = mask ? mask + (size_t)(bh / H) * Lk : nullptr;
+  const int tiles = (Lk + kKeys - 1) / kKeys;
+  if (tid == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < L::kStages; ++s) {
+      mbar_init(full(s), 32);
+      mbar_init(empty(s), kWgConsumerThreads);
+    }
+    mbar_init_fence();
+  }
+  const bool all_masked = !any_valid_key(mask_b, Lk);
+
+  if (tid >= kWgConsumerThreads) {  // the producer warp, as K2's
+    const int lane = tid - kWgConsumerThreads;
+    if (lane == 0) {
+      mbar_expect_tx(bar_q, 2 * L::kFix);
+#pragma unroll
+      for (int h = 0; h < D / kPanel; ++h) {
+        tma_load(s_q + h * kWgRows * 128, &tq, h * kPanel, q0, bh, bar_q);
+        tma_load(s_g + h * kWgRows * 128, &tg, h * kPanel, q0, bh, bar_q);
+      }
+    }
+    for (int t = 0; t < tiles; ++t) {
+      const int s = t % L::kStages;
+      if (t >= L::kStages) mbar_wait(empty(s), (t / L::kStages - 1) & 1);
+      for (int j = lane; j < kKeys; j += 32) bias(s)[j] = key_bias(mask_b, t * kKeys + j, Lk, all_masked);
+      if (lane == 0) {
+        mbar_expect_tx(full(s), 2 * L::kTile);
+#pragma unroll
+        for (int h = 0; h < D / kPanel; ++h) {
+          tma_load(s_k(s) + h * kKeys * 128, &tk, h * kPanel, t * kKeys, bh, full(s));
+          tma_load(s_v(s) + h * kKeys * 128, &tv, h * kPanel, t * kKeys, bh, full(s));
+        }
+      } else {
+        mbar_arrive(full(s));
+      }
+    }
+  } else {  // the consumers
+    const int wc = tid / kWgThreads, w = (tid / 32) % 4, lane = tid % 32, t4 = lane % 4;
+    const float scale_p = all_masked ? 0.f : scale_log2;
+    const int row0 = q0 + 64 * wc + 16 * w;
+    const size_t q_off = (size_t)bh * Lq * D;
+    // D and lse in base 2 of the warp's rows lane / 4 and + 8, into registers
+    // and the scratch. Rows past Lq have g = 0, so D = 0, and lse2 = +inf.
+    float dsum[2], lse2[2];
+    {
+      uint32_t ga[D / 16][4], oa[D / 16][4];
+      load_q<D>(g + q_off, row0, Lq, ga);
+      load_q<D>(out + q_off, row0, Lq, oa);
+      float part[2] = {0.f, 0.f};
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {  // registers 0, 2 hold row lane / 4; 1, 3 row lane / 4 + 8
+          const float2 a = unpack_bf16(ga[kk][j]), b = unpack_bf16(oa[kk][j]);
+          part[j % 2] = fmaf(a.y, b.y, fmaf(a.x, b.x, part[j % 2]));
+        }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = row0 + lane / 4 + 8 * r;
+        dsum[r] = quad_sum(part[r]);
+        lse2[r] = row < Lq ? lse[(size_t)bh * Lq + row] * kLog2e : INFINITY;
+        if (t4 == 0) {
+          lse2_pad[(size_t)bh * Lq_pad + row] = lse2[r];
+          dsum_pad[(size_t)bh * Lq_pad + row] = dsum[r];
+        }
+      }
+    }
+
+    float acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    mbar_wait(bar_q, 0);
+    for (int t = 0; t < tiles; ++t) {
+      const int s = t % L::kStages;
+      mbar_wait(full(s), (t / L::kStages) & 1);
+      float sc[kKeys / 2], dp[kKeys / 2];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        Gmma<kKeys>::template ss<0>(sc, desc_k<kWgRows>(s_q, 64 * wc, kk), desc_k<kKeys>(s_k(s), 0, kk), kk);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        Gmma<kKeys>::template ss<0>(dp, desc_k<kWgRows>(s_g, 64 * wc, kk), desc_k<kKeys>(s_v(s), 0, kk), kk);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+      fence_regs(dp);
+      const float* b = bias(s);
+#pragma unroll
+      for (int n = 0; n < kKeys / 8; ++n) {
+        const float2 bb = *reinterpret_cast<const float2*>(b + 8 * n + 2 * t4);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = 4 * n + e;
+          sc[i] = ex2(fmaf(sc[i], scale_p, e % 2 ? bb.y : bb.x) - lse2[e / 2]) * (dp[i] - dsum[e / 2]);
+        }
+      }
+      uint32_t da[kKeys / 16][4];
+      pack_a<kKeys>(sc, da);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kKeys / 16; ++kk) Gmma<D>::template rs<1>(acc, da[kk], desc_mn<kKeys>(s_k(s), kk));
+      wgmma_commit();  // dQ += dS K
+      wgmma_wait<0>();
+      fence_regs(acc);
+      mbar_arrive(empty(s));
+    }
+    const float sc2[2] = {scale, scale};
+    store_acc<D>(acc, sc2, dq + q_off, row0, Lq);
+  }
+}
+
+// ----------------------------------------------------------- dK/dV, wgmma
+template <int D>
+__global__ void __launch_bounds__(kWgBlockThreads, 1)
+attention_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
+                         const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tg,
+                         const uint8_t* __restrict__ mask, bf16* __restrict__ dk, bf16* __restrict__ dv,
+                         const float* __restrict__ lse2_pad, const float* __restrict__ dsum_pad, int H,
+                         int Lq, int Lk, int Lq_pad, float scale_log2, float scale) {
+  using L = DkdvLayout<D>;
+  constexpr int kQRows = WgTiles<D>::kDkdvRows;
+  extern __shared__ __align__(128) uint8_t smem_raw[];
+  const WgSmem sm(smem_raw);
+  const uint32_t s_k = sm.base, s_v = sm.base + L::kFix, bar_kv = sm.base + L::kBar;
+  auto s_q = [&](int s) { return sm.base + L::kA + s * L::kTile; };
+  auto s_g = [&](int s) { return sm.base + L::kB + s * L::kTile; };
+  auto vec = [&](int s) { return sm.base + L::kVec + s * 2 * kQRows * 4; };  // lse2, then D
+  auto full = [&](int s) { return bar_kv + 8 * (1 + s); };
+  auto empty = [&](int s) { return bar_kv + 8 * (1 + L::kStages + s); };
+
+  const int k0 = blockIdx.x * kWgRows, bh = blockIdx.y, tid = threadIdx.x;
+  const uint8_t* mask_b = mask ? mask + (size_t)(bh / H) * Lk : nullptr;
+  const int tiles = Lq_pad / kQRows;
+  const size_t pad_off = (size_t)bh * Lq_pad;
+  if (tid == 0) {
+    mbar_init(bar_kv, 1);
+    for (int s = 0; s < L::kStages; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), kWgConsumerThreads);
+    }
+    mbar_init_fence();
+  }
+  const bool all_masked = !any_valid_key(mask_b, Lk);
+
+  if (tid >= kWgConsumerThreads) {  // the producer warp: K and V once, then Q, g, lse2 and D a query tile
+    const int lane = tid - kWgConsumerThreads;
+    if (lane == 0) {
+      mbar_expect_tx(bar_kv, 2 * L::kFix);
+#pragma unroll
+      for (int h = 0; h < D / kPanel; ++h) {
+        tma_load(s_k + h * kWgRows * 128, &tk, h * kPanel, k0, bh, bar_kv);
+        tma_load(s_v + h * kWgRows * 128, &tv, h * kPanel, k0, bh, bar_kv);
+      }
+      for (int t = 0; t < tiles; ++t) {
+        const int s = t % L::kStages, r0 = t * kQRows;
+        if (t >= L::kStages) mbar_wait(empty(s), (t / L::kStages - 1) & 1);
+        mbar_expect_tx(full(s), 2 * L::kTile + 2 * kQRows * 4);
+#pragma unroll
+        for (int h = 0; h < D / kPanel; ++h) {
+          tma_load(s_q(s) + h * kQRows * 128, &tq, h * kPanel, r0, bh, full(s));
+          tma_load(s_g(s) + h * kQRows * 128, &tg, h * kPanel, r0, bh, full(s));
+        }
+        bulk_load(vec(s), lse2_pad + pad_off + r0, kQRows * 4, full(s));
+        bulk_load(vec(s) + kQRows * 4, dsum_pad + pad_off + r0, kQRows * 4, full(s));
+      }
+    }
+  } else {  // the consumers
+    const int wc = tid / kWgThreads, w = (tid / 32) % 4, lane = tid % 32, t4 = lane % 4;
+    const float scale_p = all_masked ? 0.f : scale_log2;
+    const int key0 = k0 + 64 * wc + 16 * w;
+    const float kbias[2] = {key_bias(mask_b, key0 + lane / 4, Lk, all_masked),
+                            key_bias(mask_b, key0 + lane / 4 + 8, Lk, all_masked)};
+    const int c0 = blockIdx.z * kPanel;  // this block's 64 columns of dK and dV
+    float dka[kPanel / 2], dva[kPanel / 2];
+#pragma unroll
+    for (int i = 0; i < kPanel / 2; ++i) dka[i] = dva[i] = 0.f;
+    mbar_wait(bar_kv, 0);
+    for (int t = 0; t < tiles; ++t) {
+      const int s = t % L::kStages;
+      mbar_wait(full(s), (t / L::kStages) & 1);
+      float p[kQRows / 2], ds[kQRows / 2];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)  // S^T (unscaled): this warpgroup's keys x the tile's queries
+        Gmma<kQRows>::template ss<0>(p, desc_k<kWgRows>(s_k, 64 * wc, kk), desc_k<kQRows>(s_q(s), 0, kk), kk);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)  // dP^T = V g^T
+        Gmma<kQRows>::template ss<0>(ds, desc_k<kWgRows>(s_v, 64 * wc, kk), desc_k<kQRows>(s_g(s), 0, kk), kk);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(p);
+      fence_regs(ds);
+      const float* l2 = reinterpret_cast<const float*>(sm.ptr + (vec(s) - sm.base));
+      const float* dd = l2 + kQRows;
+#pragma unroll
+      for (int n = 0; n < kQRows / 8; ++n) {
+        const float2 l2p = *reinterpret_cast<const float2*>(l2 + 8 * n + 2 * t4);
+        const float2 ddp = *reinterpret_cast<const float2*>(dd + 8 * n + 2 * t4);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {  // e % 2: query 8n + 2 t4 + e % 2; e / 2: key row lane / 4 or + 8
+          const int i = 4 * n + e;
+          p[i] = ex2(fmaf(p[i], scale_p, kbias[e / 2]) - (e % 2 ? l2p.y : l2p.x));
+          ds[i] = p[i] * (ds[i] - (e % 2 ? ddp.y : ddp.x));
+        }
+      }
+      uint32_t pa[kQRows / 16][4], da[kQRows / 16][4];
+      pack_a<kQRows>(p, pa);
+      pack_a<kQRows>(ds, da);
+      wgmma_fence();
+      const uint32_t panel = blockIdx.z * kQRows * 128;  // columns c0.. of the g and Q tiles
+#pragma unroll
+      for (int kk = 0; kk < kQRows / 16; ++kk)
+        Gmma<kPanel>::template rs<1>(dva, pa[kk], desc_mn<kQRows>(s_g(s) + panel, kk));
+#pragma unroll
+      for (int kk = 0; kk < kQRows / 16; ++kk)
+        Gmma<kPanel>::template rs<1>(dka, da[kk], desc_mn<kQRows>(s_q(s) + panel, kk));
+      wgmma_commit();  // dV += P^T g, dK += dS^T Q
+      wgmma_wait<0>();
+      fence_regs(dva);
+      fence_regs(dka);
+      mbar_arrive(empty(s));
+    }
+    const size_t kv_off = (size_t)bh * Lk * D;
+    const float sc[2] = {scale, scale}, one[2] = {1.f, 1.f};
+    store_acc<D, kPanel>(dka, sc, dk + kv_off, key0, Lk, c0);
+    store_acc<D, kPanel>(dva, one, dv + kv_off, key0, Lk, c0);
+  }
 }
 
 // --------------------------------------------------------------- dQ, float32
@@ -1775,12 +2284,21 @@ cudaError_t launch_wide(bool flash, const T* q, const T* k, const T* v, const ui
   return cudaGetLastError();
 }
 
+// Query rows of the backward's scratch for one (batch*head): Lq rounded up
+// to the dQ kernel's row block, 128 for the bf16 Hopper pair (head dims 64
+// and 128) and 64 for every other body. The one rule for it: the launchers
+// pad by it, and the wrapper allocates by attention_backward_scratch_rows.
+int scratch_rows(int dtype, int Lq, int D) {
+  const int tile = dtype == 1 && (D == 64 || D == 128) ? kWgRows : kRows;
+  return (Lq + tile - 1) / tile * tile;
+}
+
 template <typename T>
 cudaError_t launch_backward_wide(const T* q, const T* k, const T* v, const uint8_t* mask, const T* out,
                                  const float* lse, const T* g, T* dq, T* dk, T* dv, float* scratch, int B,
                                  int H, int Lq, int Lk, int D, float scale, cudaStream_t stream) {
   if (D % kWideChunk != 0) return cudaErrorInvalidValue;
-  const int Lq_pad = (Lq + kRows - 1) / kRows * kRows;
+  const int Lq_pad = scratch_rows(std::is_same_v<T, float> ? 0 : 1, Lq, D);
   float* lse2_pad = scratch;
   float* dsum_pad = scratch + (size_t)B * H * Lq_pad;
   const float scale_log2 = kLog2e * scale;
@@ -1807,6 +2325,80 @@ size_t whole_kv_f32_smem_bytes(int Lk, int D) {
 }
 constexpr size_t flash_f32_slice_smem_bytes(int D) { return (size_t)2 * kFlashKeys * D * sizeof(float) + kFlashKeys; }
 constexpr size_t bwd_dkdv_f32_smem_bytes(int D) { return ((size_t)2 * kRows * D + 2 * kRows) * sizeof(float); }
+
+// The 3-D TMA map of a (B*H, L, D) bf16 tensor, read in boxes of `rows`
+// rows x 64 columns (a 128-byte panel, swizzled by 128 bytes): zero past row
+// L, and never into the next head.
+bool head_map(CUtensorMap* map, const void* x, int BH, int L, int D, int rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)L, (cuuint64_t)BH};
+  const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)L * D * 2};
+  const cuuint32_t box[3] = {kPanel, (cuuint32_t)rows, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(x), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Make the context of the device that holds x current on this thread. The
+// driver's tensor-map encoder needs one, and a thread whose first CUDA call
+// is a launch here has none: autograd runs a backward on a thread of its own.
+cudaError_t bind_device(const void* x) {
+  cudaPointerAttributes a;
+  const cudaError_t err = cudaPointerGetAttributes(&a, x);
+  return err != cudaSuccess ? err : cudaSetDevice(a.device);
+}
+
+// K2 at head dim 64 or 128: ceil(Lq / 128) x B*H blocks (a head's query
+// blocks side by side, so that its K and V stay in L2).
+template <int D>
+cudaError_t launch_flash_wgmma(const bf16* q, const bf16* k, const bf16* v, const uint8_t* mask, bf16* out,
+                               float* lse, int B, int H, int Lq, int Lk, float scale_log2, cudaStream_t stream) {
+  constexpr int kKeys = WgTiles<D>::kFlashKeys;
+  constexpr size_t smem = FlashLayout<D>::kSmem;
+  cudaError_t err = bind_device(q);
+  if (err != cudaSuccess) return err;
+  CUtensorMap tq, tk, tv;
+  if (B * H > 65535 || !head_map(&tq, q, B * H, Lq, D, kWgRows) || !head_map(&tk, k, B * H, Lk, D, kKeys) ||
+      !head_map(&tv, v, B * H, Lk, D, kKeys))
+    return cudaErrorInvalidValue;
+  if ((err = allow_smem(attention_flash_wgmma<D>, smem)) != cudaSuccess) return err;
+  const dim3 grid((Lq + kWgRows - 1) / kWgRows, B * H);
+  attention_flash_wgmma<D><<<grid, kWgBlockThreads, smem, stream>>>(tq, tk, tv, mask, out, lse, H, Lq, Lk,
+                                                                    scale_log2);
+  return cudaGetLastError();
+}
+
+// B.4's pair at head dim 64 or 128: the dQ kernel over 128-row query blocks
+// (it writes the scratch, rows padded to 128), then the dK/dV kernel over
+// 128-key blocks.
+template <int D>
+cudaError_t launch_backward_wgmma(const bf16* q, const bf16* k, const bf16* v, const uint8_t* mask,
+                                  const bf16* out, const float* lse, const bf16* g, bf16* dq, bf16* dk, bf16* dv,
+                                  float* lse2_pad, float* dsum_pad, int B, int H, int Lq, int Lk, int Lq_pad,
+                                  float scale_log2, float scale, cudaStream_t stream) {
+  using T = WgTiles<D>;
+  const int BH = B * H;
+  cudaError_t err = bind_device(q);
+  if (err != cudaSuccess) return err;
+  CUtensorMap tq, tg, tk, tv, tk2, tv2, tq2, tg2;
+  if (BH > 65535 || Lq_pad % kWgRows != 0 || !head_map(&tq, q, BH, Lq, D, kWgRows) ||
+      !head_map(&tg, g, BH, Lq, D, kWgRows) || !head_map(&tk, k, BH, Lk, D, T::kDqKeys) ||
+      !head_map(&tv, v, BH, Lk, D, T::kDqKeys) || !head_map(&tk2, k, BH, Lk, D, kWgRows) ||
+      !head_map(&tv2, v, BH, Lk, D, kWgRows) || !head_map(&tq2, q, BH, Lq, D, T::kDkdvRows) ||
+      !head_map(&tg2, g, BH, Lq, D, T::kDkdvRows))
+    return cudaErrorInvalidValue;
+  if ((err = allow_smem(attention_bwd_dq_wgmma<D>, DqLayout<D>::kSmem)) != cudaSuccess) return err;
+  attention_bwd_dq_wgmma<D><<<dim3(Lq_pad / kWgRows, BH), kWgBlockThreads, DqLayout<D>::kSmem, stream>>>(
+      tq, tg, tk, tv, mask, out, lse, g, dq, lse2_pad, dsum_pad, H, Lq, Lk, Lq_pad, scale_log2, scale);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if ((err = allow_smem(attention_bwd_dkdv_wgmma<D>, DkdvLayout<D>::kSmem)) != cudaSuccess) return err;
+  attention_bwd_dkdv_wgmma<D><<<dim3((Lk + kWgRows - 1) / kWgRows, BH, D / kPanel), kWgBlockThreads,
+                                DkdvLayout<D>::kSmem, stream>>>(tk2, tv2, tq2, tg2, mask, dk, dv, lse2_pad, dsum_pad, H, Lq, Lk, Lq_pad,
+                                          scale_log2, scale);
+  return cudaGetLastError();
+}
 
 // K1's grid: `blocks` query-row blocks per (batch*head) of `threads`
 // threads each, as kernels/attention.py::whole_kv_plan gives it. K2's grid
@@ -1849,13 +2441,17 @@ cudaError_t launch_bf16(bool flash, const bf16* q, const bf16* k, const bf16* v,
                         const uint8_t* mask, bf16* out, float* lse, int B, int H, int Lq, int Lk,
                         int blocks, int threads, float scale_log2, cudaStream_t stream) {
   if (flash) {
-    const int warp_tiles = (Lq + kWarpRows - 1) / kWarpRows;
-    const dim3 grid(B * H, (warp_tiles + kFlashWarps - 1) / kFlashWarps);
-    constexpr size_t smem = Ring<D, 1>::kBytes;
-    const cudaError_t err = allow_smem(attention_flash_mma<D>, smem);
-    if (err != cudaSuccess) return err;
-    attention_flash_mma<D><<<grid, kFlashWarps * 32, smem, stream>>>(q, k, v, mask, out, lse, H, Lq,
-                                                                     Lk, scale_log2);
+    if constexpr (D >= 64) {  // the Hopper body
+      return launch_flash_wgmma<D>(q, k, v, mask, out, lse, B, H, Lq, Lk, scale_log2, stream);
+    } else {
+      const int warp_tiles = (Lq + kWarpRows - 1) / kWarpRows;
+      const dim3 grid(B * H, (warp_tiles + kFlashWarps - 1) / kFlashWarps);
+      constexpr size_t smem = Ring<D, 1>::kBytes;
+      const cudaError_t err = allow_smem(attention_flash_mma<D>, smem);
+      if (err != cudaSuccess) return err;
+      attention_flash_mma<D><<<grid, kFlashWarps * 32, smem, stream>>>(q, k, v, mask, out, lse, H, Lq,
+                                                                       Lk, scale_log2);
+    }
   } else {
     const int warps = threads / 32;
     if (lse != nullptr || threads % 32 != 0 || warps < 1 || warps > whole_kv_max_warps(D) ||
@@ -1925,43 +2521,45 @@ template <typename T, int D>
 cudaError_t launch_backward(const T* q, const T* k, const T* v, const uint8_t* mask, const T* out,
                             const float* lse, const T* g, T* dq, T* dk, T* dv, float* scratch,
                             int B, int H, int Lq, int Lk, float scale, cudaStream_t stream) {
-  const int Lq_pad = (Lq + kRows - 1) / kRows * kRows;
+  const int Lq_pad = scratch_rows(std::is_same_v<T, float> ? 0 : 1, Lq, D);
   float* lse2_pad = scratch;
   float* dsum_pad = scratch + (size_t)B * H * Lq_pad;
   // scale_log2 as the forward computes it, so that S is the forward's to the bit
   const float scale_log2 = kLog2e * scale;
-  // bf16: Backward<D>::kHalves blocks a tile (grid z), each half the head dim of the outputs
-  const int halves = std::is_same_v<T, float> ? 1 : Backward<D>::kHalves;
-  const dim3 grid_q(B * H, Lq_pad / kRows, halves),
-      grid_k(B * H, (Lk + kTileKeys - 1) / kTileKeys, halves);
-  cudaError_t err;
-  if constexpr (std::is_same_v<T, float> && D > 64) {
-    constexpr size_t smem = flash_f32_slice_smem_bytes(D);
-    if ((err = allow_smem(attention_bwd_dq_slice<D>, smem)) != cudaSuccess) return err;
-    attention_bwd_dq_slice<D><<<grid_q, kThreads, smem, stream>>>(
-        q, k, v, mask, out, lse, g, dq, lse2_pad, dsum_pad, H, Lq, Lk, Lq_pad, scale_log2, scale);
-  } else if constexpr (std::is_same_v<T, float>) {
-    attention_bwd_dq_kernel<D><<<grid_q, kThreads, 0, stream>>>(
-        q, k, v, mask, out, lse, g, dq, lse2_pad, dsum_pad, H, Lq, Lk, Lq_pad, scale_log2, scale);
+  if constexpr (!std::is_same_v<T, float> && D >= 64) {  // the Hopper pair
+    return launch_backward_wgmma<D>(q, k, v, mask, out, lse, g, dq, dk, dv, lse2_pad, dsum_pad, B, H, Lq, Lk,
+                                    Lq_pad, scale_log2, scale, stream);
   } else {
-    constexpr size_t smem = Ring<D, 1>::kBytes;
-    if ((err = allow_smem(attention_bwd_dq_mma<D>, smem)) != cudaSuccess) return err;
-    attention_bwd_dq_mma<D><<<grid_q, kFlashWarps * 32, smem, stream>>>(
-        q, k, v, mask, out, lse, g, dq, lse2_pad, dsum_pad, H, Lq, Lk, Lq_pad, scale_log2, scale);
+    const dim3 grid_q(B * H, Lq_pad / kRows), grid_k(B * H, (Lk + kTileKeys - 1) / kTileKeys);
+    cudaError_t err;
+    if constexpr (std::is_same_v<T, float> && D > 64) {
+      constexpr size_t smem = flash_f32_slice_smem_bytes(D);
+      if ((err = allow_smem(attention_bwd_dq_slice<D>, smem)) != cudaSuccess) return err;
+      attention_bwd_dq_slice<D><<<grid_q, kThreads, smem, stream>>>(
+          q, k, v, mask, out, lse, g, dq, lse2_pad, dsum_pad, H, Lq, Lk, Lq_pad, scale_log2, scale);
+    } else if constexpr (std::is_same_v<T, float>) {
+      attention_bwd_dq_kernel<D><<<grid_q, kThreads, 0, stream>>>(
+          q, k, v, mask, out, lse, g, dq, lse2_pad, dsum_pad, H, Lq, Lk, Lq_pad, scale_log2, scale);
+    } else {
+      constexpr size_t smem = Ring<D, 1>::kBytes;
+      if ((err = allow_smem(attention_bwd_dq_mma<D>, smem)) != cudaSuccess) return err;
+      attention_bwd_dq_mma<D><<<grid_q, kFlashWarps * 32, smem, stream>>>(
+          q, k, v, mask, out, lse, g, dq, lse2_pad, dsum_pad, H, Lq, Lk, Lq_pad, scale_log2, scale);
+    }
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    if constexpr (std::is_same_v<T, float>) {
+      constexpr size_t smem = bwd_dkdv_f32_smem_bytes(D);
+      if ((err = allow_smem(attention_bwd_dkdv_kernel<D>, smem)) != cudaSuccess) return err;
+      attention_bwd_dkdv_kernel<D><<<grid_k, kThreads, smem, stream>>>(
+          q, k, v, mask, g, dk, dv, lse2_pad, dsum_pad, H, Lq, Lk, Lq_pad, scale_log2, scale);
+    } else {
+      constexpr size_t smem = Ring<D, 2>::kBytes;
+      if ((err = allow_smem(attention_bwd_dkdv_mma<D>, smem)) != cudaSuccess) return err;
+      attention_bwd_dkdv_mma<D><<<grid_k, kFlashWarps * 32, smem, stream>>>(
+          q, k, v, mask, g, dk, dv, lse2_pad, dsum_pad, H, Lq, Lk, Lq_pad, scale_log2, scale);
+    }
+    return cudaGetLastError();
   }
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  if constexpr (std::is_same_v<T, float>) {
-    constexpr size_t smem = bwd_dkdv_f32_smem_bytes(D);
-    if ((err = allow_smem(attention_bwd_dkdv_kernel<D>, smem)) != cudaSuccess) return err;
-    attention_bwd_dkdv_kernel<D><<<grid_k, kThreads, smem, stream>>>(
-        q, k, v, mask, g, dk, dv, lse2_pad, dsum_pad, H, Lq, Lk, Lq_pad, scale_log2, scale);
-  } else {
-    constexpr size_t smem = Ring<D, 2>::kBytes;
-    if ((err = allow_smem(attention_bwd_dkdv_mma<D>, smem)) != cudaSuccess) return err;
-    attention_bwd_dkdv_mma<D><<<grid_k, kFlashWarps * 32, smem, stream>>>(
-        q, k, v, mask, g, dk, dv, lse2_pad, dsum_pad, H, Lq, Lk, Lq_pad, scale_log2, scale);
-  }
-  return cudaGetLastError();
 }
 
 template <typename T>
@@ -1996,8 +2594,8 @@ const Entry kKernels[] = {
     {"attention_whole_kv_mma<bf16,128>", (const void*)attention_whole_kv_mma<128>},
     {"attention_flash_mma<bf16,16>", (const void*)attention_flash_mma<16>},
     {"attention_flash_mma<bf16,32>", (const void*)attention_flash_mma<32>},
-    {"attention_flash_mma<bf16,64>", (const void*)attention_flash_mma<64>},
-    {"attention_flash_mma<bf16,128>", (const void*)attention_flash_mma<128>},
+    {"attention_flash_wgmma<bf16,64>", (const void*)attention_flash_wgmma<64>},
+    {"attention_flash_wgmma<bf16,128>", (const void*)attention_flash_wgmma<128>},
     {"attention_whole_kv_kernel<float,16>", (const void*)attention_whole_kv_kernel<16>},
     {"attention_whole_kv_kernel<float,32>", (const void*)attention_whole_kv_kernel<32>},
     {"attention_whole_kv_kernel<float,64>", (const void*)attention_whole_kv_kernel<64>},
@@ -2008,12 +2606,12 @@ const Entry kKernels[] = {
     {"attention_flash_slice<float,128>", (const void*)attention_flash_slice<128>},
     {"attention_bwd_dq_mma<bf16,16>", (const void*)attention_bwd_dq_mma<16>},
     {"attention_bwd_dq_mma<bf16,32>", (const void*)attention_bwd_dq_mma<32>},
-    {"attention_bwd_dq_mma<bf16,64>", (const void*)attention_bwd_dq_mma<64>},
-    {"attention_bwd_dq_mma<bf16,128>", (const void*)attention_bwd_dq_mma<128>},
+    {"attention_bwd_dq_wgmma<bf16,64>", (const void*)attention_bwd_dq_wgmma<64>},
+    {"attention_bwd_dq_wgmma<bf16,128>", (const void*)attention_bwd_dq_wgmma<128>},
     {"attention_bwd_dkdv_mma<bf16,16>", (const void*)attention_bwd_dkdv_mma<16>},
     {"attention_bwd_dkdv_mma<bf16,32>", (const void*)attention_bwd_dkdv_mma<32>},
-    {"attention_bwd_dkdv_mma<bf16,64>", (const void*)attention_bwd_dkdv_mma<64>},
-    {"attention_bwd_dkdv_mma<bf16,128>", (const void*)attention_bwd_dkdv_mma<128>},
+    {"attention_bwd_dkdv_wgmma<bf16,64>", (const void*)attention_bwd_dkdv_wgmma<64>},
+    {"attention_bwd_dkdv_wgmma<bf16,128>", (const void*)attention_bwd_dkdv_wgmma<128>},
     {"attention_bwd_dq_kernel<float,16>", (const void*)attention_bwd_dq_kernel<16>},
     {"attention_bwd_dq_kernel<float,32>", (const void*)attention_bwd_dq_kernel<32>},
     {"attention_bwd_dq_kernel<float,64>", (const void*)attention_bwd_dq_kernel<64>},
@@ -2060,8 +2658,9 @@ extern "C" int attention_flash(int dtype, const void* q, const void* k, const vo
 
 // B.4's backward: dq, dk, dv (each like its input) from q, k, v, the mask,
 // the forward's out and lse (non-null), and the output gradient g. scratch:
-// 2 x B x H x Lq_pad floats, Lq_pad = Lq rounded up to 64 (the wrapper
-// allocates it; the dQ kernel fills it for the dK/dV kernel).
+// 2 x B x H x Lq_pad floats, Lq_pad = attention_backward_scratch_rows(dtype,
+// Lq, D) (the wrapper allocates it; the dQ kernel fills it for the dK/dV
+// kernel, which reads it in whole tiles).
 extern "C" int attention_backward(int dtype, const void* q, const void* k, const void* v,
                                   const void* mask, const void* out, const void* lse,
                                   const void* g, void* dq, void* dk, void* dv, void* scratch,
@@ -2075,6 +2674,12 @@ extern "C" int attention_backward(int dtype, const void* q, const void* k, const
     return (int)dispatch_backward<bf16>(D, q, k, v, mask, out, lse, g, dq, dk, dv, scratch, B, H,
                                         Lq, Lk, scale, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// The rows Lq_pad of attention_backward's scratch for one (batch*head), at
+// this dtype, Lq and head dim; -1 for a dtype or Lq it does not take.
+extern "C" int attention_backward_scratch_rows(int dtype, int Lq, int D) {
+  return (dtype == 0 || dtype == 1) && Lq >= 0 ? scratch_rows(dtype, Lq, D) : -1;
 }
 
 // The compiled resources of attention kernel i (0 <= i < count, in the order

@@ -443,45 +443,8 @@ __device__ __forceinline__ uint32_t swz(int r, int c, int row_bytes) {
 __device__ __forceinline__ float bf16_lo(uint32_t v) { return __uint_as_float(v << 16); }
 __device__ __forceinline__ float bf16_hi(uint32_t v) { return __uint_as_float(v & 0xffff0000u); }
 
-// mbarriers and TMA loads (the weight chunks' copies).
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes) : "memory");
-}
-// Wait for phase `parity` of the barrier to complete. A copy that never
-// lands traps the kernel (a launch error) after 2^24 polls instead of
-// hanging the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  for (long long polls = 0;; ++polls) {
-    uint32_t done;
-    asm volatile(
-        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (polls > (1ll << 24)) __trap();
-  }
-}
-// Box (c0, c1[, c2]) of a tensor map (innermost coordinate first) into
-// shared memory at dst; completes `bar`'s transaction bytes.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, int c0, int c1, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%2, %3}], [%4];\n"
-      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
-      : "memory");
-}
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, int c0, int c1, int c2,
-                                         uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%2, %3, %4}], "
-      "[%5];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(bar)
-      : "memory");
-}
+// mbar_init, mbar_expect_tx, mbar_wait and tma_load (the weight chunks'
+// copies) come from sm90.cuh.
 
 // MI: m16 tiles a warp holds (the block covers 32 * MI rows); NJ: n8 tiles a
 // warp holds (a pass covers BN = 32 * NJ columns); MINB: blocks an SM the
@@ -820,25 +783,7 @@ bottleneck_mma(const bf16* __restrict__ x, const __grid_constant__ CUtensorMap t
       });
 }
 
-// cuTensorMapEncodeTiled, looked up through the runtime (the library does
-// not link libcuda), or null.
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err =
-        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(p) : nullptr;
-  }();
-  return fn;
-}
+// encode_tiled (cuTensorMapEncodeTiled) comes from sm90.cuh.
 
 // The TMA map of `planes` row-major (rows, cols) bf16 matrices at w, read
 // in boxes of kChunk rows x 64 columns (128 bytes, swizzled by 128 bytes)

@@ -27,10 +27,12 @@ multiple of :data:`WIDE_CHUNK`: a head dim is padded up to the next one the
 same way, so every head dim runs.
 
 In bf16 the forwards and the backward pair run their products on the tensor
-cores (``mma.sync`` m16n8k16, one warp per 16 query or key rows;
-:func:`whole_kv_plan` gives K1's grid; at head dim 128 the pair runs two
-blocks a tile, each half of the head dim of its outputs); in float32 they keep
-a CUDA-core body (four threads per row, 64-row blocks; at head dim 128 the
+cores: K1, and K2 and the pair at head dims 16 and 32, on ``mma.sync``
+m16n8k16 (one warp per 16 query or key rows; :func:`whole_kv_plan` gives
+K1's grid); K2 and the pair at head dims 64 and 128 on Hopper's ``wgmma``
+with TMA loads (:func:`is_wgmma`; two warpgroups of 64 rows a block; the
+library sizes the pair's scratch). In float32 they keep a
+CUDA-core body (four threads per row, 64-row blocks; at head dim 128 the
 four split the head dim instead of the keys).
 
 The source is compiled with the port's other CUDA sources, in one ``nvcc``
@@ -80,6 +82,9 @@ HEAD_DIMS = (16, 32, 64, 128)
 #: Above 128 the chunked bodies sum Q.K^T over head-dim chunks of this width
 #: (kWideChunk in the source) and take any multiple of it.
 WIDE_CHUNK = 64
+#: bf16 K2 and the bf16 backward pair at these instantiated head dims run the
+#: Hopper bodies (``*_wgmma`` in the source: wgmma, TMA, warpgroups).
+WGMMA_HEAD_DIMS = (64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 #: Dynamic shared memory of the chunked forward body (wide_fwd_smem_bytes in
 #: the source): Q and K chunks and the tile's p (64 x 65 floats each), the V
@@ -228,6 +233,13 @@ def use_flash(lk: int, head_dim: int, dtype: torch.dtype) -> bool:
     return dtype == torch.bfloat16 or not whole_kv_fits(lk, head_dim, dtype)
 
 
+def is_wgmma(head_dim: int, dtype: torch.dtype) -> bool:
+    """Whether bf16 K2 and the backward pair of a call of ``head_dim`` run
+    the Hopper bodies: bf16 at an instantiated head dim of 64 or 128 (48,
+    80, 100 ... padded to them)."""
+    return dtype == torch.bfloat16 and kernel_head_dim(head_dim) in WGMMA_HEAD_DIMS
+
+
 def load_library() -> ctypes.CDLL:
     """Build (once) and load the kernels. Raises when there is no card."""
     lib = build.load_library()
@@ -238,6 +250,9 @@ def load_library() -> ctypes.CDLL:
     # (dtype, q, k, v, mask, out, lse, g, dq, dk, dv, scratch, B, H, Lq, Lk, D, scale, stream)
     lib.attention_backward.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5
                                        + [ctypes.c_float, ctypes.c_void_p])
+    # (dtype, Lq, D): the query rows of the backward's scratch a (batch*head)
+    lib.attention_backward_scratch_rows.argtypes = [ctypes.c_int] * 3
+    lib.attention_backward_scratch_rows.restype = ctypes.c_int
     for name in launch_counts:
         getattr(lib, name).restype = ctypes.c_int
     fn = lib.attention_kernel_attributes
@@ -368,9 +383,11 @@ def _backward(q, k, v, key_padding_mask, out, lse, g, scale: float):
         raise ValueError(f"lse must be float32 (B,H,Lq) = {(B, H, Lq)} on q's device, got {lse.dtype} {tuple(lse.shape)}")
     lib = load_library()
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    # lse in base 2 and D for each query row, Lq padded to whole 64-row tiles
-    # (the dK/dV kernel copies whole tiles); the dQ kernel fills it.
-    scratch = torch.empty(2, B * H, _ceil(Lq, QUERY_TILE) * QUERY_TILE, dtype=torch.float32, device=q.device)
+    # lse in base 2 and D for each query row, Lq padded to the dQ kernel's
+    # row blocks as the library pads it (the dK/dV kernel copies whole
+    # tiles); the dQ kernel fills it.
+    rows = lib.attention_backward_scratch_rows(_DTYPE_CODES[q.dtype], Lq, D)
+    scratch = torch.empty(2, B * H, rows, dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.attention_backward(

@@ -1,7 +1,7 @@
 """Where the time of a full-size DETR or YOLOv8x training step goes, on the card.
 
     python -m office_person_detection_vit_torch.profile_train \\
-        [--model detr|yolo] [--against DIR] [--json-out PATH]
+        [--model detr|yolo] [--backbone resnet50|vit] [--against DIR] [--json-out PATH]
 
 Trains DETR-R50 at the JAX trainer's full size (bf16 compute from float32
 master weights, 768x1344, batch 8, dropout 0.1, aux loss; seeded random
@@ -16,7 +16,10 @@ stream) and of an unprofiled step (the same kernel time over the median
 step), and its kernel time by category, B.4's forward (K1/K2) and its
 backward pair apart. ``--model yolo`` trains YOLOv8x the same way (bf16 from
 float32 master weights, 768x1344, batch 8, the YOLO criterion on the
-letterboxed content; no pixel mask, no matcher mark).
+letterboxed content; no pixel mask, no matcher mark). ``--backbone vit``
+trains DETR with ViT-base/16 as its backbone (``detection.backbone: vit``;
+12 B.4 pairs at head dim 64 a step on 4033 tokens, and 18 in the encoder
+and decoder at 32), as ``profile_detect --backbone vit`` profiles its detect.
 
 ``--against DIR`` trains the port checkout at ``DIR`` (an earlier commit
 unpacked with ``git archive``) beside this one in one process, on the same
@@ -89,7 +92,7 @@ def make_batch(seed: int = 0) -> dict:
 class Trainer:
     """One port checkout's model, optimizer state and train step."""
 
-    def __init__(self, root: Path | None, label: str, model_name: str = "detr"):
+    def __init__(self, root: Path | None, label: str, model_name: str = "detr", backbone: str = "resnet50"):
         def module(name):
             return importlib.import_module(f"{__package__}.{name}") if root is None else load_port_module(root, name)
 
@@ -102,7 +105,7 @@ class Trainer:
             self.marks = YOLO_MARKS
         else:
             detr = module("models.detr")
-            model = detr.DETR(detr.DETRConfig(dtype="bfloat16", dropout=0.1))
+            model = detr.DETR(detr.DETRConfig(dtype="bfloat16", dropout=0.1, backbone=backbone))
         model.init_weights(torch.Generator().manual_seed(0))
         model.cuda()
         tx = training.make_optimizer(learning_rate=1e-4, backbone_lr=1e-5)
@@ -167,19 +170,23 @@ def summary(steps: list[dict]) -> dict:
 def main(argv=None) -> dict:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--model", choices=("detr", "yolo"), default="detr")
+    p.add_argument("--backbone", choices=("resnet50", "vit"), default="resnet50",
+                   help="DETR's backbone (detection.backbone); --model yolo takes none")
     p.add_argument("--against", type=Path, help="a port checkout trained beside this one")
     p.add_argument("--json-out", type=Path)
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("profile_train times training steps on the card and needs one")
+    if args.model == "yolo" and args.backbone != "resnet50":
+        raise SystemExit("--backbone is DETR's; YOLOv8x has its own")
 
     smi = card()
     print(f"device: {smi}", flush=True)
     batch = make_batch()
     if args.model == "yolo":
         del batch["pixel_mask"]
-    trainers = [Trainer(None, "this", args.model)] + (
-        [Trainer(args.against, "other", args.model)] if args.against else [])
+    trainers = [Trainer(None, "this", args.model, args.backbone)] + (
+        [Trainer(args.against, "other", args.model, args.backbone)] if args.against else [])
     for tr in trainers:
         for _ in range(WARMUP):
             tr.step(batch)
@@ -188,7 +195,8 @@ def main(argv=None) -> dict:
         order += trainers if r % 2 == 0 else trainers[::-1]
     for tr in order:
         tr.steps += [tr.step(batch) for _ in range(STEPS)]
-    results = {"device": smi, "model": args.model, "against": str(args.against) if args.against else None,
+    results = {"device": smi, "model": args.model, "backbone": args.backbone,
+               "against": str(args.against) if args.against else None,
                "steps_per_round": STEPS, "rounds": ROUNDS, "order": [tr.label for tr in order]}
     for tr in trainers:
         med = summary(tr.steps)

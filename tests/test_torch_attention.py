@@ -278,6 +278,50 @@ def test_whole_kv_plan(lq, lk, d, dtype, blocks, threads):
         assert threads <= 32 * kernels.whole_kv_max_warps(d)
 
 
+#: Every kernel instantiation the source names in its attributes table.
+_COMPILED = set(__import__("re").findall(r'\{"(attention_[^"]+)", \(const void\*\)',
+                                         (build.CSRC / "attention.cu").read_text()))
+
+
+@pytest.mark.parametrize("d", [16, 32, 48, 64, 80, 100, 128, 136, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_hopper_bodies_take_bf16_at_64_and_128(d, dtype):
+    """is_wgmma (which labels the bench's rows) holds for bf16 at head dims
+    64 and 128 and those padded to them, and there the source compiles K2
+    and the pair as Hopper bodies (K2 and both kernels of the pair, in its
+    attributes table) and no mma.sync body of K2 or the pair is left."""
+    hopper = dtype == torch.bfloat16 and 32 < d <= 128
+    assert kernels.is_wgmma(d, dtype) is hopper
+    if hopper:
+        kd = kernels.kernel_head_dim(d)
+        assert {f"attention_{b}_wgmma<bf16,{kd}>" for b in ("flash", "bwd_dq", "bwd_dkdv")} <= _COMPILED
+    assert not any(n.startswith(("attention_flash_mma", "attention_bwd_dq_mma", "attention_bwd_dkdv_mma"))
+                   and n.endswith((",64>", ",128>")) for n in _COMPILED)
+
+
+def test_chip_smoke_counts_wgmma_apart_from_mma():
+    """chip_smoke.py's SASS reading: HGMMA (wgmma) and UTMALDG (TMA loads)
+    are counted apart from HMMA (mma.sync), and each attributes name finds
+    its one function (the Hopper body's name is no prefix match of the
+    mma.sync one's)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("chip_smoke", REPO / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    sass = """
+        Function : _ZN45_GLOBAL__N__45d6_12_attention_cu_c412ab1f21attention_flash_wgmmaILi64EEEv14CUtensorMap_st
+        /*0a80*/                   UTMALDG.3D [UR8], [UR4], desc[UR10] ;
+        /*0b80*/                   HGMMA.64x128x16.F32.BF16 R24, gdesc[UR4], RZ, !UPT ;
+        /*0c80*/                   HGMMA.64x64x16.F32.BF16 R88, R152, gdesc[UR8], R88 ;
+        Function : _ZN45_GLOBAL__N__45d6_12_attention_cu_c412ab1f19attention_flash_mmaILi32EEEvPK13__nv_bfloat16
+        /*0a80*/                   HMMA.16816.F32.BF16 R4, R12, R20, R4 ;
+    """
+    counts = smoke.count_ops(sass)
+    assert smoke.ops_of(counts, "attention_flash_wgmma<bf16,64>") == {"HMMA": 0, "HGMMA": 2, "UTMALDG": 1}
+    assert smoke.ops_of(counts, "attention_flash_mma<bf16,32>") == {"HMMA": 1, "HGMMA": 0, "UTMALDG": 0}
+
+
 @pytest.mark.parametrize(
     "shape,dtype,flops,nbytes,by",
     [

@@ -76,6 +76,12 @@ def _check_kernel(fn, q, k, v, mask, relative=False):
 LQ, LK = (1, 67, 100, 920), (1, 15, 131, 920, 1000)
 #: Head dims above 128 (C.7): the chunked bodies, at a multiple of 64 and padded.
 WIDE_DIMS = (136, 192, 256)
+#: Lengths that cross the Hopper bodies' edges (bf16 at head dims 64 and
+#: 128): 64-row warpgroups, 128-row blocks, K2's 128-key tiles, the pair's
+#: 64-row tiles, and the ViT-base detect and training token counts.
+HOPPER_L = (1, 127, 128, 129, 3681, 4033)
+#: Head dims the Hopper bodies take: 64, 128 and 80 padded to 128.
+HOPPER_DIMS = (64, 80, 128)
 
 
 @pytest.mark.parametrize("fn", [kernels.attention_whole_kv, kernels.attention_flash])
@@ -88,11 +94,14 @@ def test_kernel_matches_plain(card, fn, dtype, D, masked):
 
 @pytest.mark.parametrize("fn", [kernels.attention_whole_kv, kernels.attention_flash])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("D", [*kernels.HEAD_DIMS, 48, 80, *WIDE_DIMS])
+@pytest.mark.parametrize("D,lengths", [*((d, "detr") for d in (*kernels.HEAD_DIMS, 48, 80, *WIDE_DIMS)),
+                                       *((d, "hopper") for d in HOPPER_DIMS)])
 @pytest.mark.parametrize("masked", [False, True])
-def test_kernel_matches_plain_at_tile_edges(card, fn, dtype, D, masked):
-    """Every (Lq, Lk) pair of LQ x LK; with the mask, batch entry 0 has every
-    key masked (mean(V)).
+def test_kernel_matches_plain_at_tile_edges(card, fn, dtype, D, lengths, masked):
+    """Every (Lq, Lk) pair of LQ x LK ("detr"), or of HOPPER_L x HOPPER_L
+    ("hopper"); with the mask, batch entry 0 has every key masked (mean(V)).
+    B * H = 6, so a tile that runs past L meets the next head's rows in
+    device memory (the Hopper bodies' 3-D tensor maps must not read them).
 
     bf16 is held relative to max(1, |ref|): with 15 keys an output reaches
     2.6, and the two roundings of the Pallas kernels (probabilities, then
@@ -100,8 +109,9 @@ def test_kernel_matches_plain_at_tile_edges(card, fn, dtype, D, masked):
     in an exact emulation of K1's rounding on the CPU, which the kernel
     matches. float32 stays absolute (summation order only).
     """
-    for i, lq in enumerate(LQ):
-        for j, lk in enumerate(LK):
+    lqs, lks = (LQ, LK) if lengths == "detr" else (HOPPER_L, HOPPER_L)
+    for i, lq in enumerate(lqs):
+        for j, lk in enumerate(lks):
             if fn is kernels.attention_whole_kv and not kernels.whole_kv_fits(lk, D, dtype):
                 continue
             _check_kernel(fn, *_case(2, 3, lq, lk, D, dtype, masked, seed=10 * i + j),
@@ -323,7 +333,9 @@ def _b4_errors(got, want):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("Lq,Lk,D", [(84, 84, 16), (100, 1008, 32), (67, 131, 32), (37, 53, 16), (131, 67, 64),
                                      (100, 1008, 64), (37, 53, 48), (131, 67, 128), (100, 1008, 128),
-                                     (37, 53, 80), (131, 67, 136), (100, 260, 192), (67, 131, 256)])
+                                     (37, 53, 80), (131, 67, 136), (100, 260, 192), (67, 131, 256),
+                                     (1, 127, 64), (127, 129, 64), (129, 128, 80), (128, 127, 128), (1, 129, 128),
+                                     (3681, 4033, 64), (4033, 3681, 128)])
 @pytest.mark.parametrize("all_masked", [False, True], ids=["ragged", "all_masked_entry"])
 def test_b4_gradients_match_plain_autograd(card, dtype, Lq, Lk, D, all_masked):
     """B.4: multi_head_attention under grad runs K1/K2 through
@@ -332,7 +344,11 @@ def test_b4_gradients_match_plain_autograd(card, dtype, Lq, Lk, D, all_masked):
     same values and against the pair's plain version at B4_TOL (the forward
     at the kernel's bar against the plain version in float32). With
     ``all_masked`` batch entry 0 has every key masked: uniform probabilities,
-    and dq, dk not zero."""
+    and dq, dk not zero. The Hopper pair's edges (64-row warpgroups, 128-row
+    blocks, 64-row tiles; ViT-base's 3681 and 4033 tokens) are here with a
+    single query; a single key is held in the forward tests only, since
+    there every row's P is 1 and dq, dk vanish: the bar's second reading
+    (relative to the largest |ref|) would divide rounding by rounding."""
     from office_person_detection_vit_torch.ops import attention as oa
 
     q, k, v, mask = _case(2, 2, Lq, Lk, D, dtype, True, seed=5)
@@ -372,11 +388,15 @@ def test_b4_gradients_match_plain_autograd(card, dtype, Lq, Lk, D, all_masked):
      (kernels.attention_flash, torch.float32, 67, 131, 64), (kernels.attention_whole_kv, torch.float32, 67, 131, 64),
      (kernels.attention_flash, torch.bfloat16, 67, 131, 48), (kernels.attention_whole_kv, torch.float32, 67, 131, 48),
      (kernels.attention_flash, torch.bfloat16, 67, 131, 192), (kernels.attention_whole_kv, torch.bfloat16, 67, 131, 256),
-     (kernels.attention_flash, torch.float32, 67, 131, 160), (kernels.attention_whole_kv, torch.float32, 67, 131, 192)],
+     (kernels.attention_flash, torch.float32, 67, 131, 160), (kernels.attention_whole_kv, torch.float32, 67, 131, 192),
+     (kernels.attention_flash, torch.bfloat16, 1, 129, 64), (kernels.attention_flash, torch.bfloat16, 129, 127, 64),
+     (kernels.attention_flash, torch.bfloat16, 3681, 3681, 64), (kernels.attention_flash, torch.bfloat16, 128, 1, 80),
+     (kernels.attention_flash, torch.bfloat16, 127, 128, 128), (kernels.attention_flash, torch.bfloat16, 4033, 4033, 128)],
     ids=["k2_bf16_67x131", "k2_bf16_encoder_920", "k2_bf16_cross_1008", "k2_bf16_d16", "k2_float32_67x131",
          "k2_float32_d16", "k1_float32_67x131", "k1_float32_d16", "k1_float32_cross_d16", "k2_bf16_d64",
          "k2_float32_d64", "k1_float32_d64", "k2_bf16_d48", "k1_float32_d48", "k2_bf16_d192", "k1_bf16_d256",
-         "k2_float32_d160", "k1_float32_d192"],
+         "k2_float32_d160", "k1_float32_d192", "k2_bf16_d64_1x129", "k2_bf16_d64_129x127", "k2_bf16_d64_vit_3681",
+         "k2_bf16_d80_128x1", "k2_bf16_d128_127x128", "k2_bf16_d128_4033"],
 )
 def test_forward_with_lse_is_bit_identical(card, fn, dtype, Lq, Lk, D):
     """K2 (both types) and K1 (float32) give the same bits with and without
@@ -401,17 +421,80 @@ def test_k1_bf16_refuses_lse(card):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("D", [32, 64, 48, 128, 192])
-def test_backward_pair_is_deterministic(card, dtype, D):
+@pytest.mark.parametrize("D", [32, 64, 48, 128, 192, 80])
+@pytest.mark.parametrize("Lq,Lk", [(300, 260), (4033, 3681)])
+def test_backward_pair_is_deterministic(card, dtype, D, Lq, Lk):
     """Two calls of the pair on the same inputs give the same bits (no
-    atomics), at a shape with several blocks per head both ways."""
-    q, k, v, mask = _case(2, 4, 300, 260, D, dtype, True, seed=9)
+    atomics), at shapes with several blocks per head both ways."""
+    q, k, v, mask = _case(2, 4, Lq, Lk, D, dtype, True, seed=9)
     out, lse = kernels.attention_flash(q, k, v, mask, with_lse=True)
     g = torch.randn_like(q)
     first = kernels.attention_backward(q, k, v, mask, out, lse, g)
     second = kernels.attention_backward(q, k, v, mask, out, lse, g)
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.parametrize("D", [64, 128])
+def test_hopper_bodies_launch_from_a_fresh_thread(card, D):
+    """The Hopper bodies encode their TMA maps with the driver, which needs a
+    current context; a thread whose first CUDA call is one of them has none
+    until the launch binds the tensors' device (autograd runs a backward on a
+    thread of its own). K2 and the pair from a new thread match the calls
+    from this one bit for bit."""
+    import threading
+
+    q, k, v, mask = _case(1, 12, 300, 260, D, torch.bfloat16, True, seed=11)
+    g = torch.randn_like(q)
+    here = kernels.attention_flash(q, k, v, mask, with_lse=True)
+    here_grads = kernels.attention_backward(q, k, v, mask, *here, g)
+    got = {}
+
+    def run():
+        out = kernels.attention_flash(q, k, v, mask, with_lse=True)
+        got["fwd"], got["grads"] = out, kernels.attention_backward(q, k, v, mask, *out, g)
+        torch.cuda.synchronize()
+
+    t = threading.Thread(target=run)
+    t.start()
+    t.join()
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got["fwd"], here))
+    assert all(torch.equal(a, b) for a, b in zip(got["grads"], here_grads))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [32, 64, 128, 192])
+@pytest.mark.parametrize("Lq", [1, 127, 128, 129])
+def test_backward_fills_the_scratch_the_library_sizes(card, dtype, D, Lq):
+    """attention_backward_scratch_rows is the one rule for the pair's
+    scratch: at least Lq rows a (batch*head), each of which the dQ kernel
+    writes (the padded rows too, which the dK/dV kernel reads in whole
+    tiles), and nothing past them. A scratch of that size filled with NaN,
+    with a NaN guard after it, comes back with no NaN and the guard
+    untouched, and the gradients are the wrapper's to the bit."""
+    import math
+
+    q, k, v, mask = _case(2, 3, Lq, 131, D, dtype, True, seed=12)
+    out, lse = kernels.attention_flash(q, k, v, mask, with_lse=True)
+    g = torch.randn_like(q)
+    lib = kernels.load_library()
+    code = {torch.float32: 0, torch.bfloat16: 1}[dtype]
+    rows = lib.attention_backward_scratch_rows(code, Lq, D)
+    assert rows >= Lq
+    used = 2 * 2 * 3 * rows
+    scratch = torch.full((used + 4096,), float("nan"), device="cuda")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    err = lib.attention_backward(code, q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), out.data_ptr(),
+                                 lse.data_ptr(), g.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                                 scratch.data_ptr(), 2, 3, Lq, 131, D, 1.0 / math.sqrt(D),
+                                 torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert err == 0
+    assert not bool(scratch[:used].isnan().any()) and bool(scratch[used:].isnan().all())
+    want = kernels.attention_backward(q, k, v, mask, out, lse, g)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip((dq, dk, dv), want))
 
 
 def test_backward_wrapper_rejects_what_the_pair_does_not_take(card):

@@ -99,7 +99,8 @@ the pipeline phases 2-4, the entry point and the trainer:
    ``torch.cuda.set_sync_debug_mode("error")``, through the port's scan on
    the CPU (the same ids, exactly) and through the cascade on the host: each
    engine's MOTA, IDF1 and HOTA (the port's ``mot_metrics``) against the
-   generator's ground truth, seconds a 1,000 frames, the scan's device
+   generator's ground truth (the four scorings in parallel processes),
+   seconds a 1,000 frames, the scan's device
    operations a frame (``torch.profiler``); (b) the committed showcase
    (``tools/e2e_showcase.py`` gen-video, gen-config, gold-gt, in child
    processes): the DETR-small checkpoint through ``main`` on the card with
@@ -143,11 +144,14 @@ the pipeline phases 2-4, the entry point and the trainer:
    ``detection.model: yolo`` on the one-hour video.
 14. the scale-out slice: (a) head dims above 128 (C.7 closed): every
    chunked body's registers, spills (none allowed) and HMMA count (none:
-   CUDA cores); K1/K2 at head dims 136, 192 and 256 in both types against
-   the plain version, timed against SDPA and the bound; B.4 at [10a]'s gate
-   at the same head dims; DETR with a ViT of 256-wide heads through
-   ``detect_batch``, its float32 forward card against CPU, and 8 of its
-   training steps, which launch the chunked bodies; (b) YOLOv8x and the
+   CUDA cores), and every Hopper body at 192 and 256 (bf16 K2 and the
+   pair: no spill, HGMMA and UTMALDG, no HMMA); K1/K2 at head dims 136, 192
+   and 256 in both types and bf16 K2 at 320 against the plain version, timed
+   against SDPA and the bound; B.4 at [10a]'s gate at the same head dims and
+   bf16 at 320; DETR with a ViT of
+   256-wide heads through ``detect_batch`` (K2 on the Hopper body), its
+   float32 forward card against CPU (K1, chunked), and 8 of its training
+   steps (B.4 on the Hopper bodies); (b) YOLOv8x and the
    single-shot detector trained at 768x1344, bf16, batch 8 (ms a step,
    images/s, peak memory, falling losses), a float32 step of each on the
    card against the CPU, and ``main --fine-tune`` with ``training.model:
@@ -1912,12 +1916,34 @@ def hypothesis(results: list, ids: np.ndarray | None = None) -> dict:
     return hyp
 
 
-def scores(gt: dict, hyp: dict) -> dict:
-    """MOTA, IDF1 and HOTA of the port's mot_metrics."""
+def score_part(job: tuple) -> dict:
+    """One of scores' two evaluations: ("mot" or "hota", gt, hyp)."""
     from office_person_detection_vit_torch.benchmark.mot_metrics import evaluate_hota, evaluate_mot
 
+    what, gt, hyp = job
+    if what == "hota":
+        return {"hota": evaluate_hota(gt, hyp).hota}
     mot = evaluate_mot(gt, hyp).to_dict()
-    return {"mota": mot["mota"], "idf1": mot["idf1"], "hota": evaluate_hota(gt, hyp).hota, "idsw": mot["id_switches"]}
+    return {"mota": mot["mota"], "idf1": mot["idf1"], "idsw": mot["id_switches"]}
+
+
+def scores(gt: dict, hyp: dict) -> dict:
+    """MOTA, IDF1 and HOTA of the port's mot_metrics."""
+    return score_part(("mot", gt, hyp)) | score_part(("hota", gt, hyp))
+
+
+def scores_apart(gt: dict, hyps: dict) -> dict:
+    """scores of each named hypothesis, every evaluation in a process of its
+    own (forked: they run numpy and scipy on the host and touch no CUDA)."""
+    import multiprocessing
+
+    jobs = [(name, what) for name in hyps for what in ("mot", "hota")]
+    with multiprocessing.get_context("fork").Pool(len(jobs)) as pool:
+        parts = pool.map_async(score_part, [(what, gt, hyps[name]) for name, what in jobs]).get(timeout=600)
+    got = {name: {} for name in hyps}
+    for (name, _), part in zip(jobs, parts):
+        got[name].update(part)
+    return got
 
 
 def scan_launches(arrays: list, kw: dict) -> float | None:
@@ -1985,7 +2011,7 @@ def workday_phase(smi: str) -> dict:
     secs["cascade (host)"] = time.perf_counter() - t
     per_frame = scan_launches(card_in, kw)
     t = time.perf_counter()
-    got = {"scan": scores(gt, hypothesis(results, card_ids)), "cascade": scores(gt, hypothesis(cascade))}
+    got = scores_apart(gt, {"scan": hypothesis(results, card_ids), "cascade": hypothesis(cascade)})
     scored = time.perf_counter() - t
     for name, s in got.items():
         check(all(math.isfinite(v) for v in s.values()) and s["mota"] > 0.5,
@@ -1998,7 +2024,7 @@ def workday_phase(smi: str) -> dict:
     log(f"[11a] seconds a 1,000 frames: " + ", ".join(f"{k} {1000 * v / F:.3f}" for k, v in secs.items())
         + f" (host clock, the card synchronised; {F} frames); the scan's device operations a frame: "
         + (f"{per_frame:.1f} (torch.profiler over {LAUNCH_WINDOW} frames)" if per_frame else "not measured (the "
-           "profiler saw no device activity)") + f"; scoring {scored:.1f} s; on {smi}")
+           "profiler saw no device activity)") + f"; scoring {scored:.1f} s (four processes); on {smi}")
     return {"secs": secs, "scores": got, "launches_per_frame": per_frame}
 
 
@@ -3152,15 +3178,19 @@ def d128_kernel_rows(res: dict) -> list:
 
 
 # ------------------------------------------------------------------ phase 14
-# C.7 closed: head dims above 128 run the chunked bodies (attention_wide* in
-# csrc/attention.cu; CUDA cores in both types, Q.K^T over 64-wide head-dim
+# C.7 closed: head dims above 128 run. bf16 K2 and B.4's pair at 192 and 256
+# (136 padded to 192) run the Hopper bodies (attention_flash_wgmma_inline,
+# attention_bwd_dq_wgmma_inline and attention_bwd_dkdv_wgmma at <bf16,192|256>
+# in csrc/attention.cu); K1, float32 and bf16 above 256 the chunked bodies
+# (attention_wide*; CUDA cores in both types, Q.K^T over 64-wide head-dim
 # chunks, output columns split over 128-wide grid-z blocks). [14a] holds K1,
-# K2 and B.4 at head dims 136 (padded to 192), 192 and 256 in both types
-# against the plain version at [2]'s bars and B.4 at [10a]'s gate, times them
-# against SDPA and the bound, and drives them on a model's path: DETR with a
-# ViT backbone whose heads are 256 wide (hidden 1024 over 4 heads, MLP 4096,
-# 2 layers; VITW), which no published model has, so that a detect, a float32
-# forward and training steps launch them.
+# K2 and B.4 at head dims 136, 192 and 256 in both types, and bf16 K2 and B.4
+# at 320 (the chunked bf16 bodies), against the plain version at [2]'s bars
+# and B.4 at [10a]'s gate, times them against SDPA and
+# the bound, and drives them on a model's path: DETR with a ViT backbone
+# whose heads are 256 wide (hidden 1024 over 4 heads, MLP 4096, 2 layers;
+# VITW), which no published model has, so that a detect, a float32 forward
+# and training steps launch them.
 WIDE_KERNEL_CASES = [
     ("attention_flash", (8, 4, 46 * 80 + 1, 46 * 80 + 1, 256), "bfloat16", False,
      "the VITW detect's ViT at 736x1280, heads of 256 (K2, the path's shape)"),
@@ -3176,13 +3206,15 @@ WIDE_KERNEL_CASES = [
     ("attention_flash", (2, 4, 300, 260, 136), "float32", True, "head dim 136, padded to 192, float32 (K2)"),
     ("attention_whole_kv", (2, 4, 300, 260, 136), "bfloat16", True, "head dim 136, padded to 192 (K1)"),
     ("attention_whole_kv", (2, 4, 300, 260, 136), "float32", True, "head dim 136, padded to 192, float32 (K1)"),
+    ("attention_flash", (8, 4, 1008, 1008, 320), "bfloat16", True, "heads of 320 at 1008 tokens (bf16 K2, chunked)"),
 ]
 WIDE_B4_CASES = [((2, 4, 300, 260, 136), "bfloat16", True, "head dim 136, padded to 192"),
                  ((2, 4, 300, 260, 136), "float32", True, "head dim 136, padded to 192, float32"),
                  ((1, 4, 1008, 1008, 192), "bfloat16", True, "heads of 192 at 1008 tokens"),
                  ((2, 4, 197, 197, 192), "float32", False, "heads of 192 at 224x224, float32"),
                  ((1, 4, 1008, 1008, 256), "bfloat16", False, "heads of 256 at 1008 tokens"),
-                 ((2, 4, 197, 197, 256), "float32", True, "heads of 256 at 224x224, float32")]
+                 ((2, 4, 197, 197, 256), "float32", True, "heads of 256 at 224x224, float32"),
+                 ((1, 4, 1008, 1008, 320), "bfloat16", True, "heads of 320 at 1008 tokens (the chunked bf16 pair)")]
 VITW = dict(backbone="vit", vit_hidden=1024, vit_heads=4, vit_mlp=4096, vit_layers=2)
 VITW_CALLS = 2 + 18
 #: B.4 on that model's training path: 768x1344 (4033 tokens), batch 8.
@@ -3211,10 +3243,12 @@ def hmma_of_wide(counts: dict, name: str) -> int:
 
 def wide_phase(ka, build, smi: str, frames: np.ndarray, samples: list) -> dict:
     """[14a]: the chunked bodies' registers and spills (none allowed) and
-    HMMA count (none: CUDA cores); the forward cases and B.4 at [10a]'s gate;
-    then the VITW DETR through detect_batch (bf16, 736x1280, batch 8: K2),
-    its float32 forward at 224x224 card against CPU (K1), and 8 of its bf16
-    training steps at 768x1344 (B.4)."""
+    HMMA count (none: CUDA cores), and [1]'s readings of every Hopper body
+    at head dims 192 and 256 (no spill); the forward cases and B.4 at
+    [10a]'s gate; then the VITW DETR through detect_batch (bf16, 736x1280,
+    batch 8: K2 on the Hopper body), its float32 forward at 224x224 card
+    against CPU (K1), and 8 of its bf16 training steps at 768x1344 (B.4 on
+    the Hopper bodies)."""
     from office_person_detection_vit_torch import attention_kernel_bench as abench
     from office_person_detection_vit_torch.detection.detector import DETRDetector
     from office_person_detection_vit_torch.models.detr import DETRConfig
@@ -3231,6 +3265,19 @@ def wide_phase(ka, build, smi: str, frames: np.ndarray, samples: list) -> dict:
             bodies[a["name"]] = {"regs": a["regs"], "local_bytes": a["local_bytes"], "hmma": n_hmma}
             log(f"[14a] {a['name']:36s} regs {a['regs']:3d}  spill (local) {a['local_bytes']} B  HMMA in SASS {n_hmma}")
     check(len(bodies) == 8, f"14a: {len(bodies)} chunked bodies, expected 8")
+    hopper = {}
+    for a in ka.kernel_attributes():
+        if a["name"].endswith((",192>", ",256>")):
+            ops = ops_of(counts, a["name"])
+            check(a["local_bytes"] == 0, f"14a: {a['name']} spills {a['local_bytes']} B a thread")
+            text = check_tensor_cores(a, ops, "14a")
+            hopper[a["name"]] = {"regs": a["regs"], "local_bytes": a["local_bytes"], "hmma": ops["HMMA"],
+                                 "hgmma": ops["HGMMA"], "utmaldg": ops["UTMALDG"]}
+            log(f"[14a] {a['name']:36s} regs {a['regs']:3d}  spill (local) {a['local_bytes']} B  {text}")
+    check(len(hopper) == 6 and all("wgmma" in n for n in hopper),
+          f"14a: Hopper bodies at 192 and 256 {sorted(hopper)}, expected K2 and the pair at each")
+    check(ka.is_wgmma(256, torch.bfloat16) and ka.is_wgmma(136, torch.bfloat16)
+          and not ka.is_wgmma(320, torch.bfloat16), "14a: is_wgmma does not name bf16 at 136-256 alone")
     rows = {}
     for seed, case in enumerate(WIDE_KERNEL_CASES):
         row = abench.measure(ka, case, 900 + seed)
@@ -3256,7 +3303,7 @@ def wide_phase(ka, build, smi: str, frames: np.ndarray, samples: list) -> dict:
           f"14a: VITW detect launched {detect_counts}, {k2_wide} above head dim 128 (expected {VITW_CALLS} K2 a "
           "chunk x 2, 2 a chunk at 256)")
     log(f"[14a] DETR with a ViT of 256-wide heads (VITW) bf16 736x1280 batch 8 through detect_batch: launches "
-        f"{detect_counts} over 2 chunks, {k2_wide} of them K2 at head dim 256")
+        f"{detect_counts} over 2 chunks, {k2_wide} of them K2 at head dim 256 (attention_flash_wgmma_inline<bf16,256>)")
     det.cleanup()
     del det
     torch.cuda.empty_cache()
@@ -3282,9 +3329,12 @@ def wide_phase(ka, build, smi: str, frames: np.ndarray, samples: list) -> dict:
                   "attention_backward": wide_count(ka, "attention_backward")}
     check(train_wide == {"attention_diff": 16, "attention_backward": 16},
           f"14a: 8 training steps launched {train_wide} above head dim 128, expected 2 B.4 pairs a step")
+    log(f"[14a] 8 VITW training steps: {train_wide} above head dim 128, on attention_flash_wgmma_inline<bf16,256> and "
+        "the pair attention_bwd_dq_wgmma_inline<bf16,256> + attention_bwd_dkdv_wgmma<bf16,256>")
     log(f"[14a] phase {time.perf_counter() - t0:.1f} s")
-    return {"bodies": bodies, "forward": rows, "b4": b4, "b4_path": b4_path, "detect_counts": detect_counts,
-            "k2_wide": k2_wide, "f32_wide": f32_wide, "train_wide": train_wide, "train": train}
+    return {"bodies": bodies, "hopper": hopper, "forward": rows, "b4": b4, "b4_path": b4_path,
+            "detect_counts": detect_counts, "k2_wide": k2_wide, "f32_wide": f32_wide, "train_wide": train_wide,
+            "train": train}
 
 
 # [14b]: the single-shot trainers at full width (A.7c): the JAX trainer's
@@ -3664,10 +3714,10 @@ def scale_slice(ka, build, smi: str, frames: np.ndarray, samples: list, data: Pa
 
 
 def wide_kernel_rows(res: dict) -> list:
-    """The kernels line's rows of the chunked bodies (head dims above 128),
-    each at the shape of the path its launches come from, as
-    d128_kernel_rows: K2 at the VITW detect's ViT shape, K1 at its float32
-    forward's, B.4 and its pair at VITW_TRAIN."""
+    """The kernels line's rows above head dim 128, each at the shape of the
+    path its launches come from, as d128_kernel_rows: K2 (the Hopper body) at
+    the VITW detect's ViT shape, K1 (chunked) at its float32 forward's, B.4
+    and its pair (the Hopper bodies) at VITW_TRAIN."""
     src = "office_person_detection_vit_torch/csrc/attention.cu"
     wide = res["wide"]
     k2 = wide["forward"][WIDE_KERNEL_CASES[0][:3]]
@@ -3676,20 +3726,23 @@ def wide_kernel_rows(res: dict) -> list:
     train_path = "VITW DETR (ViT heads of 256) bf16 training at 768x1344, batch 8, 8 steps, phase 14a"
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape", "dtype")
     return [
-        {"name": "attention_flash_wide", "route": "cuda", "source": src,
+        {"name": "attention_flash_wide", "route": "cuda", "source": src, "body": "attention_flash_wgmma_inline<bf16,256>",
          "replaces": "office_person_detection_vit_tpu/ops/attention.py:159", "launches": wide["k2_wide"],
          "launches_on": "VITW DETR bf16 through detect_batch at 736x1280, 16 frames, phase 14a",
          **{k: k2[k] for k in keys + ("instruction",)}},
-        {"name": "attention_whole_kv_wide", "route": "cuda", "source": src,
+        {"name": "attention_whole_kv_wide", "route": "cuda", "source": src, "body": "attention_wide<float,K1>",
          "replaces": "office_person_detection_vit_tpu/ops/attention.py:60", "launches": wide["f32_wide"],
          "launches_on": "VITW DETR float32 forward at 224x224 on the card, phase 14a",
          **{k: k1[k] for k in keys + ("instruction",)}},
         {"name": "attention_diff_wide", "route": "cuda", "source": src,
+         "body": "attention_flash_wgmma_inline<bf16,256> + attention_bwd_dq_wgmma_inline<bf16,256> + "
+                 "attention_bwd_dkdv_wgmma<bf16,256>",
          "function": "office_person_detection_vit_torch/ops/attention.py KernelAttention",
          "replaces": "office_person_detection_vit_tpu/ops/attention.py:306",
          "launches": wide["train_wide"]["attention_diff"], "launches_on": train_path,
          **{k: b4[k] for k in keys + ("forward_ms", "backward_ms")}},
         {"name": "attention_backward_wide", "route": "cuda", "source": src,
+         "body": "attention_bwd_dq_wgmma_inline<bf16,256> + attention_bwd_dkdv_wgmma<bf16,256>",
          "replaces": "office_person_detection_vit_tpu/ops/attention.py:322",
          "launches": wide["train_wide"]["attention_backward"], "launches_on": train_path,
          "max_abs_err": b4["max_abs_err"], "ms": b4["pair_ms"], "plain_ms": b4["plain_backward_ms"],

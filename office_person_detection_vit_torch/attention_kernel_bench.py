@@ -1,7 +1,7 @@
 """The attention kernels K1 and K2 at the shapes DETR's paths give them, on the card.
 
     python -m office_person_detection_vit_torch.attention_kernel_bench \\
-        [--against DIR] [--iters 20] [--json-out PATH]
+        [--against DIR] [--define NAME=VALUE ...] [--iters 20] [--json-out PATH]
 
 For each case of :data:`CASES` and :data:`VIT_CASES` it holds the kernel (``kernels/attention.py``)
 against the plain version on the same inputs (:data:`TOLERANCE`, absolute)
@@ -18,7 +18,12 @@ that checkout's own wrappers and library, built from its own sources into its
 own ``_build/``. Each case is timed this, other, other, this in one process,
 so both versions are timed by one method on one card (the pair on the same
 out, lse and g, from this checkout's forward), and so is the host's time a
-call. Needs a card: it raises without one.
+call. ``--define`` (repeatable) builds that checkout's library (this
+checkout's, where no ``--against`` is given) with that ``nvcc`` define, so
+that a variant of the source is timed against the default in the same way:
+for example ``--define WGMMA_INLINE_ABOVE=0`` runs K2 and the dQ kernel at
+head dims 64 and 128 on the bodies that head dims 192 and 256 run. Needs a
+card: it raises without one.
 """
 
 from __future__ import annotations
@@ -55,21 +60,28 @@ CASES = [
     ("attention_whole_kv", (1, 8, 25, 84, 16), "float32", True, "DETR-small cross"),
     ("attention_whole_kv", (1, 8, 25, 25, 16), "float32", False, "DETR-small decoder self"),
 ]
-#: The ViT paths' shapes (head dims 64 and 128, and 80 padded to 128): the
-#: Hopper bodies. ``chip_smoke.py`` times them in [12a] and [13a], not in [2].
+#: The ViT paths' shapes (head dims 64 and 128, 80 padded to 128, and the
+#: VITW DETR's 256, 192 and 136 padded to 192): the Hopper bodies.
+#: ``chip_smoke.py`` times them in [12a], [13a] and [14a], not in [2].
 VIT_CASES = [
     ("attention_flash", (8, 12, 3681, 3681, 64), "bfloat16", False, "ViT-base/16 detect at 736x1280 (main path)"),
     ("attention_flash", (8, 8, 3681, 3681, 128), "bfloat16", False, "head dim 128 on the ViT detect's tokens"),
     ("attention_flash", (8, 16, 3681, 3681, 80), "bfloat16", False, "ViT-H/16's heads (80, padded to 128)"),
+    ("attention_flash", (8, 4, 3681, 3681, 256), "bfloat16", False, "the VITW DETR's detect (heads of 256)"),
+    ("attention_flash", (8, 4, 1008, 1008, 192), "bfloat16", False, "heads of 192 at 1008 tokens"),
+    ("attention_flash", (2, 4, 300, 260, 136), "bfloat16", True, "head dim 136, padded to 192"),
 ]
 #: B.4's backward pair: ((B, H, Lq, Lk, D), type, the path that gives the
 #: shape). ViT-base/16 training at 768x1344 (4033 tokens), head dim 128 at
-#: DETR-R50's training tokens (1008), ViT-H/16's heads at 4033 tokens.
+#: DETR-R50's training tokens (1008), ViT-H/16's heads at 4033 tokens, the
+#: VITW DETR's training (heads of 256 at 4033 tokens) and heads of 192.
 BACKWARD_CASES = [
     ((8, 12, 4033, 4033, 64), "bfloat16", "ViT-base/16 training at 768x1344, batch 8"),
     ((8, 8, 1008, 1008, 128), "bfloat16", "head dim 128 at DETR-R50's training tokens"),
     ((8, 16, 4033, 4033, 80), "bfloat16", "ViT-H/16's heads training (80, padded to 128)"),
     ((8, 8, 1008, 1008, 32), "bfloat16", "DETR-R50 training encoder (mma.sync bodies)"),
+    ((8, 4, 4033, 4033, 256), "bfloat16", "the VITW DETR's training at 768x1344, batch 8"),
+    ((1, 4, 1008, 1008, 192), "bfloat16", "heads of 192 at 1008 tokens"),
 ]
 #: The pair against its plain version on the same values, relative
 #: (relative_errors): bf16 2^-6, the rounding of P, dS and the results.
@@ -81,9 +93,10 @@ DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 TOLERANCE = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 #: The instruction that does the products, by type.
 INSTRUCTION = {torch.bfloat16: "mma.sync.m16n8k16", torch.float32: "FFMA (CUDA cores)"}
-#: bf16 at head dims 64 and 128: the Hopper bodies.
+#: bf16 K2 and the pair at head dims 64 to 256: the Hopper bodies.
 WGMMA_INSTRUCTION = "wgmma.m64nNk16 + TMA"
-#: Above head dim 128 both types run the chunked bodies (ROADMAP C.7).
+#: Above head dim 128 K1, float32 and bf16 above 256 run the chunked bodies
+#: (ROADMAP C.7).
 WIDE_INSTRUCTION = "FFMA (CUDA cores, head dim in 64-wide chunks)"
 # Published H100 SXM peaks (dense): HBM bytes/s; bf16 tensor-core and
 # non-tensor float32 FLOP/s.
@@ -251,10 +264,9 @@ def measure(kernels, case, seed: int, iters: int = 20) -> dict:
 def instruction(kernels, name: str, head_dim: int, dtype: torch.dtype) -> str:
     """The instruction of the body that wrapper ``name`` runs at ``head_dim``
     in ``dtype`` (K1 has no Hopper body)."""
-    if kernels.is_wide(head_dim):
-        return WIDE_INSTRUCTION
-    hopper = name != "attention_whole_kv" and kernels.is_wgmma(head_dim, dtype)
-    return WGMMA_INSTRUCTION if hopper else INSTRUCTION[dtype]
+    if name != "attention_whole_kv" and kernels.is_wgmma(head_dim, dtype):
+        return WGMMA_INSTRUCTION
+    return WIDE_INSTRUCTION if kernels.is_wide(head_dim) else INSTRUCTION[dtype]
 
 
 def measure_backward(kernels, case, seed: int, other=None, iters: int = 10) -> dict:
@@ -348,9 +360,13 @@ def load_port_module(root: Path, name: str):
     return importlib.import_module(f"{alias}.{name}")
 
 
-def load_kernels(root: Path, module: str = "attention"):
+def load_kernels(root: Path, module: str = "attention", defines: tuple[str, ...] = ()):
     """``kernels/<module>.py`` of the port checkout at ``root`` (see
-    :func:`load_port_module`)."""
+    :func:`load_port_module`), whose library is built with the ``nvcc``
+    ``defines`` added to its flags."""
+    if defines:
+        build = load_port_module(root, "kernels.build")
+        build.NVCC_FLAGS = (*build.NVCC_FLAGS, *defines)
     return load_port_module(root, f"kernels.{module}")
 
 
@@ -362,6 +378,8 @@ def main(argv=None) -> dict:
 
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--against", type=Path, help="a port checkout whose kernels are timed beside these")
+    p.add_argument("--define", action="append", default=[], metavar="NAME=VALUE",
+                   help="an nvcc define of the library timed beside this one (--against's, else this checkout's)")
     p.add_argument("--iters", type=int, default=20)
     p.add_argument("--json-out", type=Path)
     args = p.parse_args(argv)
@@ -370,7 +388,8 @@ def main(argv=None) -> dict:
 
     smi = card()
     print(f"device: {smi}", flush=True)
-    other = load_kernels(args.against) if args.against else None
+    root = args.against or (Path(__file__).resolve().parent.parent if args.define else None)
+    other = load_kernels(root, defines=tuple(f"-D{d}" for d in args.define)) if root else None
     rows = []
     for seed, case in enumerate(CASES + VIT_CASES):
         row = measure(kernels, case, seed, args.iters)
@@ -392,7 +411,8 @@ def main(argv=None) -> dict:
         print(describe_backward(row), flush=True)
         backward.append(row)
         torch.cuda.empty_cache()
-    results = {"device": smi, "iters": args.iters, "against": str(args.against) if args.against else None,
+    results = {"device": smi, "iters": args.iters, "against": str(root) if root else None,
+               "defines": args.define,
                "cases": rows, "backward": backward}
     if args.json_out:
         args.json_out.parent.mkdir(parents=True, exist_ok=True)

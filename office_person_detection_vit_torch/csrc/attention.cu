@@ -31,9 +31,10 @@
 // with 100 queries (decoder cross- and self-attention, 0.0025 and 0.0005 ms)
 // are bound by the bytes of K and V.
 //
-// bf16 design (tensor cores). K2 and the backward pair at head dims 64 and
-// 128 run the Hopper bodies of the wgmma section below (two warpgroups of
-// 64 rows, TMA, wgmma; ViT-base/16's D 64, ViT-H/16's 80 padded to 128).
+// bf16 design (tensor cores). K2 and the backward pair at head dims 64,
+// 128, 192 and 256 run the Hopper bodies of the wgmma section below (two
+// warpgroups of 64 rows, TMA, wgmma; ViT-base/16's D 64, ViT-H/16's 80
+// padded to 128, the VITW DETR's 256).
 // K1 at every head dim, and K2 and the pair at 16 and 32 (DETR's), run the
 // mma.sync bodies described here:
 //  * One warp owns 16 query rows. QK^T and P.V are
@@ -56,8 +57,9 @@
 //  * Head dims 16, 32, 64 and 128 are instantiated; kernels/attention.py
 //    pads any other D <= 128 with zero columns up to the next of them and
 //    passes the true scale 1/sqrt(D), which every entry point takes as an
-//    argument. Above 128 the chunked bodies of the C.7 section below take
-//    any multiple of 64 (the wrapper pads up to one), in both types.
+//    argument. Above 128 the wrapper pads D up to a multiple of 64: bf16
+//    K2 and the pair take the wgmma bodies at 192 and 256, and everything
+//    else there the chunked bodies of the C.7 section below.
 //  * The mask becomes a float bias per key in shared memory (0 valid, -inf
 //    not), read once per batch entry by each block; s = acc * scale + bias.
 //    Ragged Lq and Lk are masked in the kernel; nothing is padded outside.
@@ -793,10 +795,10 @@ attention_flash_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // float32 accumulator rounded to bf16 and repacked in registers as the A
 // operand of the next (dS for dS K; P and dS for P^T g and dS^T Q). The
 // dK/dV kernel computes S^T = K Q^T, so that P^T comes out in the layout
-// pack_p turns into an A operand. At head dims 64 and 128 the pair runs the
-// Hopper bodies of the section after this one (wgmma, TMA), on the same
-// scheme with 128-row blocks. float32 keeps a CUDA-core body, four threads a
-// row as the forwards' float32 bodies.
+// pack_p turns into an A operand. At head dims 64, 128, 192 and 256 the
+// pair runs the Hopper bodies of the section after this one (wgmma, TMA),
+// on the same scheme with 128-row blocks. float32 keeps a CUDA-core body,
+// four threads a row as the forwards' float32 bodies.
 
 static_assert(kRows == kFlashWarps * kWarpRows && kRows == kTileKeys && kRows == kFlashKeys,
               "the backward's row and key tiles are 64 in both types");
@@ -1016,7 +1018,7 @@ attention_bwd_dkdv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
   store_o<D, W::DO>(dv_acc, one, dv + kv_off, key0, Lk, c0 * 8);
 }
 
-// ============================== bf16 at head dims 64 and 128 (wgmma, TMA)
+// ======================= bf16 at head dims 64, 128, 192, 256 (wgmma, TMA)
 // K2 and B.4's pair at head dims 64 and 128 (and those padded to them), on
 // Hopper's warpgroup products, in the shape FlashAttention-3 published: a
 // block is two consumer warpgroups of 64 rows each (128 query rows; the
@@ -1055,12 +1057,36 @@ attention_bwd_dkdv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
 //    products and the softmax each take about the bound, and the two
 //    consumer warpgroups of a block overlap one's softmax with the other's
 //    products only as far as they drift apart.
+//  * Head dims 192 and 256 (bf16 K2 and the pair above 128, and those
+//    padded to them; the VITW DETR's heads of 256). A warpgroup's 64 x D
+//    output (K2) or dQ accumulator is D / 2 floats a thread, which with a
+//    score tile is over the 168 registers of a 288-thread block. So K2 and
+//    the dQ kernel take bodies of their own there, without the producer
+//    warp (attention_flash_wgmma_inline, attention_bwd_dq_wgmma_inline): a
+//    block is the two consumer warpgroups alone (256 threads, two warps a
+//    quadrant, 255 registers a thread), and warp 0 does the producer's work
+//    in line, starting tile t + 2's loads into the stage that tile t freed
+//    once the block has consumed it (a warpgroup runs at most a tile ahead
+//    of the other). The launchers choose by head dim (WGMMA_INLINE_ABOVE).
+//    The dK/dV kernel keeps its producer warp and its 64-column blocks (3 or 4
+//    on grid z, each recomputing S^T and dP^T: 13 products of the pair at
+//    D 256 where 5 would do). P.V and dQ += dS K run one 64-column panel a
+//    wgmma (m64n64k16). Shared memory takes 64-key tiles in K2, and at
+//    D 256 32-row tiles in the pair's rings (Gmma<32>), so that each
+//    layout fits the 227 KB of a block with two stages.
 constexpr int kWgThreads = 128;                                     // a warpgroup
 constexpr int kWgConsumers = 2;                                     // consumer warpgroups a block
 constexpr int kWgConsumerThreads = kWgThreads * kWgConsumers;
 constexpr int kWgBlockThreads = kWgConsumerThreads + 32;           // and one producer warp
 constexpr int kWgRows = 64 * kWgConsumers;                         // query rows (dK/dV: keys) a block
 constexpr int kPanel = 64;                                          // bf16 columns of a 128-byte panel
+// K2 and the dQ kernel above this head dim run the in-line bodies; the
+// in-line bodies are generic over D, and -DWGMMA_INLINE_ABOVE=0 builds a
+// variant of the library that runs them at 64 and 128 too, to time them
+// against the producer-warp bodies (attention_kernel_bench --define).
+#ifndef WGMMA_INLINE_ABOVE
+#define WGMMA_INLINE_ABOVE 128
+#endif
 
 // Descriptor of the k16 step kk of rows [r0, r0 + 64) of an R-row tile
 // (K-major: the step runs along the rows' D values; panel kk / 4).
@@ -1153,10 +1179,10 @@ template <int D, int kFixed, int kRing, int kVecs> struct WgLayout {
 };
 // Keys (K2, dQ) or query rows (dK/dV) of a ring tile.
 template <int D> struct WgTiles {
-  static_assert(D == 64 || D == 128, "the wgmma bodies take head dims 64 and 128");
-  static constexpr int kFlashKeys = 128;
-  static constexpr int kDqKeys = 64;
-  static constexpr int kDkdvRows = 64;
+  static_assert(D == 64 || D == 128 || D == 192 || D == 256, "the wgmma bodies take head dims 64 to 256");
+  static constexpr int kFlashKeys = D <= 128 ? 128 : 64;
+  static constexpr int kDqKeys = D == 256 ? 32 : 64;
+  static constexpr int kDkdvRows = D == 256 ? 32 : 64;
 };
 template <int D> using FlashLayout = WgLayout<D, 1, WgTiles<D>::kFlashKeys, 1>;
 template <int D> using DqLayout = WgLayout<D, 2, WgTiles<D>::kDqKeys, 1>;
@@ -1524,6 +1550,265 @@ attention_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tk, const __grid_co
     store_acc<D, kPanel>(dka, sc, dk + kv_off, key0, Lk, c0);
     store_acc<D, kPanel>(dva, one, dv + kv_off, key0, Lk, c0);
   }
+}
+
+// ------------------------------------------ K2 and dQ at D 192 and 256, wgmma
+// The producer's work for ring tile t of K2 or the dQ kernel (layout L,
+// kKeys keys a tile), done in line by warp 0 of a 256-thread block: wait
+// until tile t - kStages has been consumed, write tile t's key bias, then
+// start its K and V loads (lane 0; the other lanes arrive on full once
+// their bias values are written).
+template <typename L, int D, int kKeys>
+__device__ __forceinline__ void load_kv_tile(const WgSmem& sm, int t, int lane, const CUtensorMap& tk,
+                                             const CUtensorMap& tv, int bh, const uint8_t* mask_b, int Lk,
+                                             bool all_masked) {
+  const int s = t % L::kStages;
+  const uint32_t full = sm.base + L::kBar + 8 * (1 + s), empty = full + 8 * L::kStages;
+  if (t >= L::kStages) mbar_wait(empty, (t / L::kStages - 1) & 1);
+  float* bias = reinterpret_cast<float*>(sm.ptr + L::kVec) + s * kKeys;
+  for (int j = lane; j < kKeys; j += 32) bias[j] = key_bias(mask_b, t * kKeys + j, Lk, all_masked);
+  if (lane == 0) {
+    mbar_expect_tx(full, 2 * L::kTile);
+#pragma unroll
+    for (int h = 0; h < D / kPanel; ++h) {
+      tma_load(sm.base + L::kA + s * L::kTile + h * kKeys * 128, &tk, h * kPanel, t * kKeys, bh, full);
+      tma_load(sm.base + L::kB + s * L::kTile + h * kKeys * 128, &tv, h * kPanel, t * kKeys, bh, full);
+    }
+  } else {
+    mbar_arrive(full);
+  }
+}
+
+// K2 at D 192 and 256 (the section's note): attention_flash_wgmma's
+// contract and tiles, in a block of the two consumer warpgroups alone, with
+// warp 0 as the producer in line and the output accumulator in D / 64
+// panels of 64 columns.
+template <int D>
+__global__ void __launch_bounds__(kWgConsumerThreads, 1)
+attention_flash_wgmma_inline(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                             const __grid_constant__ CUtensorMap tv, const uint8_t* __restrict__ mask,
+                             bf16* __restrict__ out, float* __restrict__ lse, int H, int Lq, int Lk,
+                             float scale_log2) {
+  using L = FlashLayout<D>;
+  constexpr int kKeys = WgTiles<D>::kFlashKeys, kPanels = D / kPanel;
+  extern __shared__ __align__(128) uint8_t smem_raw[];
+  const WgSmem sm(smem_raw);
+  const uint32_t s_q = sm.base, bar_q = sm.base + L::kBar;
+  auto s_k = [&](int s) { return sm.base + L::kA + s * L::kTile; };
+  auto s_v = [&](int s) { return sm.base + L::kB + s * L::kTile; };
+  auto bias = [&](int s) { return reinterpret_cast<float*>(sm.ptr + L::kVec) + s * kKeys; };
+  auto full = [&](int s) { return bar_q + 8 * (1 + s); };
+  auto empty = [&](int s) { return bar_q + 8 * (1 + L::kStages + s); };
+
+  const int q0 = blockIdx.x * kWgRows, bh = blockIdx.y, tid = threadIdx.x;
+  const uint8_t* mask_b = mask ? mask + (size_t)(bh / H) * Lk : nullptr;
+  const int tiles = (Lk + kKeys - 1) / kKeys;
+  if (tid == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < L::kStages; ++s) {
+      mbar_init(full(s), 32);  // warp 0's lanes, each after its bias values
+      mbar_init(empty(s), kWgConsumerThreads);
+    }
+    mbar_init_fence();
+  }
+  const bool all_masked = !any_valid_key(mask_b, Lk);  // also the barrier for the init
+  if (tid < 32) {  // warp 0: Q, then the ring's first tiles
+    if (tid == 0) {
+      mbar_expect_tx(bar_q, L::kFix);
+#pragma unroll
+      for (int h = 0; h < kPanels; ++h) tma_load(s_q + h * kWgRows * 128, &tq, h * kPanel, q0, bh, bar_q);
+    }
+    for (int t = 0; t < min(tiles, L::kStages); ++t)
+      load_kv_tile<L, D, kKeys>(sm, t, tid, tk, tv, bh, mask_b, Lk, all_masked);
+    __syncwarp();
+  }
+  const int wc = tid / kWgThreads, w = (tid / 32) % 4, lane = tid % 32, t4 = lane % 4;
+  const float scale = all_masked ? 0.f : scale_log2;
+  float o[kPanels][kPanel / 2];
+#pragma unroll
+  for (int h = 0; h < kPanels; ++h)
+#pragma unroll
+    for (int i = 0; i < kPanel / 2; ++i) o[h][i] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, alpha[2];
+  mbar_wait(bar_q, 0);
+  for (int t = 0; t < tiles; ++t) {
+    const int s = t % L::kStages;
+    mbar_wait(full(s), (t / L::kStages) & 1);
+    float sc[kKeys / 2];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      Gmma<kKeys>::template ss<0>(sc, desc_k<kWgRows>(s_q, 64 * wc, kk), desc_k<kKeys>(s_k(s), 0, kk), kk);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sc);
+    flash_softmax<kKeys>(sc, bias(s), scale, m, l, alpha);
+#pragma unroll
+    for (int h = 0; h < kPanels; ++h)
+#pragma unroll
+      for (int i = 0; i < kPanel / 2; ++i) o[h][i] *= alpha[(i / 2) % 2];
+    uint32_t pa[kKeys / 16][4];
+    pack_a<kKeys>(sc, pa);
+    wgmma_fence();
+#pragma unroll
+    for (int h = 0; h < kPanels; ++h)
+#pragma unroll
+      for (int kk = 0; kk < kKeys / 16; ++kk)
+        Gmma<kPanel>::template rs<1>(o[h], pa[kk], desc_mn<kKeys>(s_v(s) + h * kKeys * 128, kk));
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int h = 0; h < kPanels; ++h) fence_regs(o[h]);
+    mbar_arrive(empty(s));
+    if (tid < 32 && t + L::kStages < tiles) {  // warp 0 refills the stage once the block has consumed it
+      load_kv_tile<L, D, kKeys>(sm, t + L::kStages, tid, tk, tv, bh, mask_b, Lk, all_masked);
+      __syncwarp();
+    }
+  }
+  const int row0 = q0 + 64 * wc + 16 * w;
+  const float sum[2] = {quad_sum(l[0]), quad_sum(l[1])};
+  const float inv[2] = {1.f / sum[0], 1.f / sum[1]};
+#pragma unroll
+  for (int h = 0; h < kPanels; ++h) store_acc<D, kPanel>(o[h], inv, out + (size_t)bh * Lq * D, row0, Lq, h * kPanel);
+  if (lse != nullptr && t4 == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + lane / 4 + 8 * r;
+      if (row < Lq) lse[(size_t)bh * Lq + row] = (m[r] + log2f(sum[r])) * kLn2;
+    }
+  }
+}
+
+// The dQ kernel at D 192 and 256: attention_bwd_dq_wgmma's contract and
+// tiles (32-key ring tiles at D 256), in a block of the two consumer
+// warpgroups alone, warp 0 the producer in line, the dQ accumulator in
+// D / 64 panels.
+template <int D>
+__global__ void __launch_bounds__(kWgConsumerThreads, 1)
+attention_bwd_dq_wgmma_inline(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tg,
+                              const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
+                              const uint8_t* __restrict__ mask, const bf16* __restrict__ out,
+                              const float* __restrict__ lse, const bf16* __restrict__ g, bf16* __restrict__ dq,
+                              float* __restrict__ lse2_pad, float* __restrict__ dsum_pad, int H, int Lq, int Lk,
+                              int Lq_pad, float scale_log2, float scale) {
+  using L = DqLayout<D>;
+  constexpr int kKeys = WgTiles<D>::kDqKeys, kPanels = D / kPanel;
+  extern __shared__ __align__(128) uint8_t smem_raw[];
+  const WgSmem sm(smem_raw);
+  const uint32_t s_q = sm.base, s_g = sm.base + L::kFix, bar_q = sm.base + L::kBar;
+  auto s_k = [&](int s) { return sm.base + L::kA + s * L::kTile; };
+  auto s_v = [&](int s) { return sm.base + L::kB + s * L::kTile; };
+  auto bias = [&](int s) { return reinterpret_cast<float*>(sm.ptr + L::kVec) + s * kKeys; };
+  auto full = [&](int s) { return bar_q + 8 * (1 + s); };
+  auto empty = [&](int s) { return bar_q + 8 * (1 + L::kStages + s); };
+
+  const int q0 = blockIdx.x * kWgRows, bh = blockIdx.y, tid = threadIdx.x;
+  const uint8_t* mask_b = mask ? mask + (size_t)(bh / H) * Lk : nullptr;
+  const int tiles = (Lk + kKeys - 1) / kKeys;
+  if (tid == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < L::kStages; ++s) {
+      mbar_init(full(s), 32);
+      mbar_init(empty(s), kWgConsumerThreads);
+    }
+    mbar_init_fence();
+  }
+  const bool all_masked = !any_valid_key(mask_b, Lk);
+  if (tid < 32) {  // warp 0: Q and g, then the ring's first tiles
+    if (tid == 0) {
+      mbar_expect_tx(bar_q, 2 * L::kFix);
+#pragma unroll
+      for (int h = 0; h < kPanels; ++h) {
+        tma_load(s_q + h * kWgRows * 128, &tq, h * kPanel, q0, bh, bar_q);
+        tma_load(s_g + h * kWgRows * 128, &tg, h * kPanel, q0, bh, bar_q);
+      }
+    }
+    for (int t = 0; t < min(tiles, L::kStages); ++t)
+      load_kv_tile<L, D, kKeys>(sm, t, tid, tk, tv, bh, mask_b, Lk, all_masked);
+    __syncwarp();
+  }
+  const int wc = tid / kWgThreads, w = (tid / 32) % 4, lane = tid % 32, t4 = lane % 4;
+  const float scale_p = all_masked ? 0.f : scale_log2;
+  const int row0 = q0 + 64 * wc + 16 * w;
+  const size_t q_off = (size_t)bh * Lq * D;
+  // D and lse in base 2 of the warp's rows, as attention_bwd_dq_wgmma's.
+  float dsum[2], lse2[2];
+  {
+    uint32_t ga[D / 16][4], oa[D / 16][4];
+    load_q<D>(g + q_off, row0, Lq, ga);
+    load_q<D>(out + q_off, row0, Lq, oa);
+    float part[2] = {0.f, 0.f};
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float2 a = unpack_bf16(ga[kk][j]), b = unpack_bf16(oa[kk][j]);
+        part[j % 2] = fmaf(a.y, b.y, fmaf(a.x, b.x, part[j % 2]));
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + lane / 4 + 8 * r;
+      dsum[r] = quad_sum(part[r]);
+      lse2[r] = row < Lq ? lse[(size_t)bh * Lq + row] * kLog2e : INFINITY;
+      if (t4 == 0) {
+        lse2_pad[(size_t)bh * Lq_pad + row] = lse2[r];
+        dsum_pad[(size_t)bh * Lq_pad + row] = dsum[r];
+      }
+    }
+  }
+
+  float acc[kPanels][kPanel / 2];
+#pragma unroll
+  for (int h = 0; h < kPanels; ++h)
+#pragma unroll
+    for (int i = 0; i < kPanel / 2; ++i) acc[h][i] = 0.f;
+  mbar_wait(bar_q, 0);
+  for (int t = 0; t < tiles; ++t) {
+    const int s = t % L::kStages;
+    mbar_wait(full(s), (t / L::kStages) & 1);
+    float sc[kKeys / 2], dp[kKeys / 2];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      Gmma<kKeys>::template ss<0>(sc, desc_k<kWgRows>(s_q, 64 * wc, kk), desc_k<kKeys>(s_k(s), 0, kk), kk);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      Gmma<kKeys>::template ss<0>(dp, desc_k<kWgRows>(s_g, 64 * wc, kk), desc_k<kKeys>(s_v(s), 0, kk), kk);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sc);
+    fence_regs(dp);
+    const float* b = bias(s);
+#pragma unroll
+    for (int n = 0; n < kKeys / 8; ++n) {
+      const float2 bb = *reinterpret_cast<const float2*>(b + 8 * n + 2 * t4);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = 4 * n + e;
+        sc[i] = ex2(fmaf(sc[i], scale_p, e % 2 ? bb.y : bb.x) - lse2[e / 2]) * (dp[i] - dsum[e / 2]);
+      }
+    }
+    uint32_t da[kKeys / 16][4];
+    pack_a<kKeys>(sc, da);
+    wgmma_fence();
+#pragma unroll
+    for (int h = 0; h < kPanels; ++h)
+#pragma unroll
+      for (int kk = 0; kk < kKeys / 16; ++kk)
+        Gmma<kPanel>::template rs<1>(acc[h], da[kk], desc_mn<kKeys>(s_k(s) + h * kKeys * 128, kk));
+    wgmma_commit();  // dQ += dS K
+    wgmma_wait<0>();
+#pragma unroll
+    for (int h = 0; h < kPanels; ++h) fence_regs(acc[h]);
+    mbar_arrive(empty(s));
+    if (tid < 32 && t + L::kStages < tiles) {
+      load_kv_tile<L, D, kKeys>(sm, t + L::kStages, tid, tk, tv, bh, mask_b, Lk, all_masked);
+      __syncwarp();
+    }
+  }
+  const float sc2[2] = {scale, scale};
+#pragma unroll
+  for (int h = 0; h < kPanels; ++h) store_acc<D, kPanel>(acc[h], sc2, dq + q_off, row0, Lq, h * kPanel);
 }
 
 // --------------------------------------------------------------- dQ, float32
@@ -1920,13 +2205,17 @@ attention_bwd_dq_slice(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ============================================== head dims above 128 (C.7)
-// The bodies above keep a row's q (bf16: its Q fragments) and its output in
-// registers and, in K1, a head's whole K and V in shared memory; above 128
-// neither fits (K1 at D 256 float32 and 197 keys needs 403 KB of K/V, and
-// the bf16 mma bodies already sit at 214-240 registers at D 128). These
-// bodies take the head dim in chunks instead, one template for both types,
-// on the CUDA cores: Q.K^T (and g.V^T) is summed over 64-wide chunks of the
-// head dim staged through shared memory as float32, and the output columns
+// What reaches these bodies: float32 at every head dim above 128, K1 in
+// both types above 128, and bf16 K2 and the pair above 256 (320, ...); bf16
+// K2 and the pair at 192 and 256 (and those padded to them) run the wgmma
+// bodies above. The float32 and mma.sync bodies keep a row's q (bf16: its Q
+// fragments) and its output in registers and, in K1, a head's whole K and V
+// in shared memory; above 128 neither fits (K1 at D 256 float32 and 197 keys
+// needs 403 KB of K/V, and the bf16 mma bodies already sit at 214-240
+// registers at D 128). These bodies take the head dim in chunks instead,
+// one template for both types, on the CUDA cores: Q.K^T (and g.V^T) is
+// summed over 64-wide chunks of the head dim staged through shared memory
+// as float32, and the output columns
 // are split over grid z in 128-wide chunks; each z block recomputes the
 // scores, the way the D-128 bf16 pair splits its halves. The wrapper pads
 // D to a multiple of 64 (kernels/attention.py::kernel_head_dim). A block is
@@ -1938,8 +2227,9 @@ attention_bwd_dq_slice(const float* __restrict__ q, const float* __restrict__ k,
 // rounds the unnormalised p to T before P.V, K1 (two passes) the
 // normalised p; the backward sums in float32 and rounds only its results.
 // Bound: operations, on the CUDA cores; they re-read their operands from
-// shared memory for every product, and speed is not their aim: no model of
-// the repo has a head dim above 128.
+// shared memory for every product, and speed is not their aim: no path of
+// the repo's models runs them in bf16 (the VITW DETR's heads of 256 take
+// the wgmma bodies; its float32 forward runs K1 here).
 constexpr int kWideChunk = 64;                 // head-dim columns of one staged chunk
 constexpr int kWideOut = 128;                  // output columns of one grid-z block
 constexpr int kWideS = kWideChunk + 1;         // staged row stride (floats)
@@ -2285,11 +2575,12 @@ cudaError_t launch_wide(bool flash, const T* q, const T* k, const T* v, const ui
 }
 
 // Query rows of the backward's scratch for one (batch*head): Lq rounded up
-// to the dQ kernel's row block, 128 for the bf16 Hopper pair (head dims 64
-// and 128) and 64 for every other body. The one rule for it: the launchers
-// pad by it, and the wrapper allocates by attention_backward_scratch_rows.
+// to the dQ kernel's row block, 128 for the bf16 Hopper pair (head dims 64,
+// 128, 192 and 256) and 64 for every other body. The one rule for it: the
+// launchers pad by it, and the wrapper allocates by
+// attention_backward_scratch_rows.
 int scratch_rows(int dtype, int Lq, int D) {
-  const int tile = dtype == 1 && (D == 64 || D == 128) ? kWgRows : kRows;
+  const int tile = dtype == 1 && (D == 64 || D == 128 || D == 192 || D == 256) ? kWgRows : kRows;
   return (Lq + tile - 1) / tile * tile;
 }
 
@@ -2350,8 +2641,8 @@ cudaError_t bind_device(const void* x) {
   return err != cudaSuccess ? err : cudaSetDevice(a.device);
 }
 
-// K2 at head dim 64 or 128: ceil(Lq / 128) x B*H blocks (a head's query
-// blocks side by side, so that its K and V stay in L2).
+// K2 at head dim 64, 128, 192 or 256: ceil(Lq / 128) x B*H blocks (a
+// head's query blocks side by side, so that its K and V stay in L2).
 template <int D>
 cudaError_t launch_flash_wgmma(const bf16* q, const bf16* k, const bf16* v, const uint8_t* mask, bf16* out,
                                float* lse, int B, int H, int Lq, int Lk, float scale_log2, cudaStream_t stream) {
@@ -2363,16 +2654,21 @@ cudaError_t launch_flash_wgmma(const bf16* q, const bf16* k, const bf16* v, cons
   if (B * H > 65535 || !head_map(&tq, q, B * H, Lq, D, kWgRows) || !head_map(&tk, k, B * H, Lk, D, kKeys) ||
       !head_map(&tv, v, B * H, Lk, D, kKeys))
     return cudaErrorInvalidValue;
-  if ((err = allow_smem(attention_flash_wgmma<D>, smem)) != cudaSuccess) return err;
+  constexpr bool kInline = D > WGMMA_INLINE_ABOVE;
+  const auto kernel = [] {
+    if constexpr (kInline) return attention_flash_wgmma_inline<D>;
+    else return attention_flash_wgmma<D>;
+  }();
+  if ((err = allow_smem(kernel, smem)) != cudaSuccess) return err;
   const dim3 grid((Lq + kWgRows - 1) / kWgRows, B * H);
-  attention_flash_wgmma<D><<<grid, kWgBlockThreads, smem, stream>>>(tq, tk, tv, mask, out, lse, H, Lq, Lk,
-                                                                    scale_log2);
+  kernel<<<grid, kInline ? kWgConsumerThreads : kWgBlockThreads, smem, stream>>>(tq, tk, tv, mask, out, lse, H, Lq,
+                                                                                Lk, scale_log2);
   return cudaGetLastError();
 }
 
-// B.4's pair at head dim 64 or 128: the dQ kernel over 128-row query blocks
-// (it writes the scratch, rows padded to 128), then the dK/dV kernel over
-// 128-key blocks.
+// B.4's pair at head dim 64, 128, 192 or 256: the dQ kernel over 128-row
+// query blocks (it writes the scratch, rows padded to 128), then the dK/dV
+// kernel over 128-key blocks, D / 64 of them a key block (grid z).
 template <int D>
 cudaError_t launch_backward_wgmma(const bf16* q, const bf16* k, const bf16* v, const uint8_t* mask,
                                   const bf16* out, const float* lse, const bf16* g, bf16* dq, bf16* dk, bf16* dv,
@@ -2389,9 +2685,15 @@ cudaError_t launch_backward_wgmma(const bf16* q, const bf16* k, const bf16* v, c
       !head_map(&tv2, v, BH, Lk, D, kWgRows) || !head_map(&tq2, q, BH, Lq, D, T::kDkdvRows) ||
       !head_map(&tg2, g, BH, Lq, D, T::kDkdvRows))
     return cudaErrorInvalidValue;
-  if ((err = allow_smem(attention_bwd_dq_wgmma<D>, DqLayout<D>::kSmem)) != cudaSuccess) return err;
-  attention_bwd_dq_wgmma<D><<<dim3(Lq_pad / kWgRows, BH), kWgBlockThreads, DqLayout<D>::kSmem, stream>>>(
-      tq, tg, tk, tv, mask, out, lse, g, dq, lse2_pad, dsum_pad, H, Lq, Lk, Lq_pad, scale_log2, scale);
+  constexpr bool kInline = D > WGMMA_INLINE_ABOVE;
+  const auto dq_kernel = [] {
+    if constexpr (kInline) return attention_bwd_dq_wgmma_inline<D>;
+    else return attention_bwd_dq_wgmma<D>;
+  }();
+  if ((err = allow_smem(dq_kernel, DqLayout<D>::kSmem)) != cudaSuccess) return err;
+  dq_kernel<<<dim3(Lq_pad / kWgRows, BH), kInline ? kWgConsumerThreads : kWgBlockThreads, DqLayout<D>::kSmem,
+              stream>>>(tq, tg, tk, tv, mask, out, lse, g, dq, lse2_pad, dsum_pad, H, Lq, Lk, Lq_pad, scale_log2,
+                        scale);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   if ((err = allow_smem(attention_bwd_dkdv_wgmma<D>, DkdvLayout<D>::kSmem)) != cudaSuccess) return err;
   attention_bwd_dkdv_wgmma<D><<<dim3((Lk + kWgRows - 1) / kWgRows, BH, D / kPanel), kWgBlockThreads,
@@ -2475,6 +2777,14 @@ int dispatch(bool flash, int dtype, const void* q, const void* k, const void* v,
   const uint8_t* m = static_cast<const uint8_t*>(mask);
   float* l = static_cast<float*>(lse);
   cudaError_t err = cudaErrorInvalidValue;
+  if (flash && dtype == 1 && (D == 192 || D == 256)) {  // bf16 K2 above 128: the Hopper bodies
+    const bf16 *bq = static_cast<const bf16*>(q), *bk = static_cast<const bf16*>(k),
+               *bv = static_cast<const bf16*>(v);
+    bf16* bo = static_cast<bf16*>(out);
+    err = D == 192 ? launch_flash_wgmma<192>(bq, bk, bv, m, bo, l, B, H, Lq, Lk, scale_log2, s)
+                   : launch_flash_wgmma<256>(bq, bk, bv, m, bo, l, B, H, Lq, Lk, scale_log2, s);
+    return (int)err;
+  }
   if (D > 128) {  // the chunked bodies (C.7); K1's grid arguments do not apply
     if (dtype == 0)
       err = launch_wide(flash, static_cast<const float*>(q), static_cast<const float*>(k),
@@ -2578,6 +2888,12 @@ cudaError_t dispatch_backward(int D, const void* q, const void* k, const void* v
   if (D == 32) return launch_backward<T, 32>(tq, tk, tv, m, to, l, tg, tdq, tdk, tdv, sc, B, H, Lq, Lk, scale, stream);
   if (D == 64) return launch_backward<T, 64>(tq, tk, tv, m, to, l, tg, tdq, tdk, tdv, sc, B, H, Lq, Lk, scale, stream);
   if (D == 128) return launch_backward<T, 128>(tq, tk, tv, m, to, l, tg, tdq, tdk, tdv, sc, B, H, Lq, Lk, scale, stream);
+  if constexpr (!std::is_same_v<T, float>) {  // bf16 above 128: the Hopper pair at 192 and 256
+    if (D == 192)
+      return launch_backward<T, 192>(tq, tk, tv, m, to, l, tg, tdq, tdk, tdv, sc, B, H, Lq, Lk, scale, stream);
+    if (D == 256)
+      return launch_backward<T, 256>(tq, tk, tv, m, to, l, tg, tdq, tdk, tdv, sc, B, H, Lq, Lk, scale, stream);
+  }
   if (D > 128) return launch_backward_wide<T>(tq, tk, tv, m, to, l, tg, tdq, tdk, tdv, sc, B, H, Lq, Lk, D, scale, stream);
   return cudaErrorInvalidValue;
 }
@@ -2596,6 +2912,8 @@ const Entry kKernels[] = {
     {"attention_flash_mma<bf16,32>", (const void*)attention_flash_mma<32>},
     {"attention_flash_wgmma<bf16,64>", (const void*)attention_flash_wgmma<64>},
     {"attention_flash_wgmma<bf16,128>", (const void*)attention_flash_wgmma<128>},
+    {"attention_flash_wgmma_inline<bf16,192>", (const void*)attention_flash_wgmma_inline<192>},
+    {"attention_flash_wgmma_inline<bf16,256>", (const void*)attention_flash_wgmma_inline<256>},
     {"attention_whole_kv_kernel<float,16>", (const void*)attention_whole_kv_kernel<16>},
     {"attention_whole_kv_kernel<float,32>", (const void*)attention_whole_kv_kernel<32>},
     {"attention_whole_kv_kernel<float,64>", (const void*)attention_whole_kv_kernel<64>},
@@ -2608,10 +2926,14 @@ const Entry kKernels[] = {
     {"attention_bwd_dq_mma<bf16,32>", (const void*)attention_bwd_dq_mma<32>},
     {"attention_bwd_dq_wgmma<bf16,64>", (const void*)attention_bwd_dq_wgmma<64>},
     {"attention_bwd_dq_wgmma<bf16,128>", (const void*)attention_bwd_dq_wgmma<128>},
+    {"attention_bwd_dq_wgmma_inline<bf16,192>", (const void*)attention_bwd_dq_wgmma_inline<192>},
+    {"attention_bwd_dq_wgmma_inline<bf16,256>", (const void*)attention_bwd_dq_wgmma_inline<256>},
     {"attention_bwd_dkdv_mma<bf16,16>", (const void*)attention_bwd_dkdv_mma<16>},
     {"attention_bwd_dkdv_mma<bf16,32>", (const void*)attention_bwd_dkdv_mma<32>},
     {"attention_bwd_dkdv_wgmma<bf16,64>", (const void*)attention_bwd_dkdv_wgmma<64>},
     {"attention_bwd_dkdv_wgmma<bf16,128>", (const void*)attention_bwd_dkdv_wgmma<128>},
+    {"attention_bwd_dkdv_wgmma<bf16,192>", (const void*)attention_bwd_dkdv_wgmma<192>},
+    {"attention_bwd_dkdv_wgmma<bf16,256>", (const void*)attention_bwd_dkdv_wgmma<256>},
     {"attention_bwd_dq_kernel<float,16>", (const void*)attention_bwd_dq_kernel<16>},
     {"attention_bwd_dq_kernel<float,32>", (const void*)attention_bwd_dq_kernel<32>},
     {"attention_bwd_dq_kernel<float,64>", (const void*)attention_bwd_dq_kernel<64>},
@@ -2635,7 +2957,8 @@ const Entry kKernels[] = {
 // Plain C interface, loaded with ctypes. dtype: 0 = float32, 1 = bfloat16.
 // mask: (B, Lk) bytes (torch.bool), or null for no mask. lse: (B, H, Lq)
 // float32, or null to write none. D: 16, 32, 64, 128, or a multiple of 64
-// above 128 (the chunked bodies, which take any lse); scale: the softmax
+// above 128 (bf16 K2 and the pair at 192 and 256 on the Hopper bodies, the
+// rest on the chunked ones, which take any lse); scale: the softmax
 // scale, 1/sqrt of the head dim before any zero padding (the wrapper pads
 // other head dims). stream: a cudaStream_t. Returns the
 // cudaError_t of the launch (0 = success). K1 takes its grid (blocks per

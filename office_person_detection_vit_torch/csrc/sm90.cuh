@@ -167,8 +167,25 @@ template <int N> __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 // N accumulator d, N/2 floats a thread (warp w rows 16w..16w+15; d[4j..4j+3]
 // the m16n8 accumulator of columns 8j..8j+7, as mma.sync's). ss: A and B
 // from shared memory (descriptors); accumulate = 0 overwrites d. rs: A from
-// registers in mma.sync's m16n8k16 A layout (warp w its 16 rows).
+// registers in mma.sync's m16n8k16 A layout (warp w its 16 rows). N 32 has
+// ss only (the attention bodies' 32-row score tiles at head dim 256).
 template <int N> struct Gmma;
+
+template <> struct Gmma<32> {
+  // d (+)= A (64 x 16, shared, K-major) * B (16 x 32, shared; kTransB: MN-major).
+  template <int kTransB>
+  __device__ __forceinline__ static void ss(float (&d)[16], uint64_t a, uint64_t b, int accumulate) {
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "%16, %17, p, 1, 1, 0, %19;\n}\n"
+        :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(a), "l"(b), "r"(accumulate), "n"(kTransB));
+  }
+};
 
 template <> struct Gmma<64> {
   // d (+)= A (64 x 16, shared, K-major) * B (16 x 64, shared; kTransB: MN-major).

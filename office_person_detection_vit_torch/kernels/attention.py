@@ -21,17 +21,18 @@ The kernels are instantiated for head dims 16, 32, 64 and 128
 of them on the way in and cut back on the way out (:func:`padded_call`), with
 the softmax scale of the true head dim passed to the kernel: zero columns add
 nothing to a dot product, so the scores, the log-sum-exp and the kept columns
-of every result are those of the unpadded call. Above 128 every wrapper runs
-the chunked bodies (``attention_wide*`` in the source, C.7), which take any
-multiple of :data:`WIDE_CHUNK`: a head dim is padded up to the next one the
-same way, so every head dim runs.
+of every result are those of the unpadded call. Above 128 a head dim is
+padded the same way up to the next multiple of :data:`WIDE_CHUNK`, so every
+head dim runs: bf16 K2 and the pair take the Hopper bodies at 192 and 256,
+and everything else the chunked bodies (``attention_wide*`` in the source,
+C.7), which take any such multiple.
 
 In bf16 the forwards and the backward pair run their products on the tensor
 cores: K1, and K2 and the pair at head dims 16 and 32, on ``mma.sync``
 m16n8k16 (one warp per 16 query or key rows; :func:`whole_kv_plan` gives
-K1's grid); K2 and the pair at head dims 64 and 128 on Hopper's ``wgmma``
-with TMA loads (:func:`is_wgmma`; two warpgroups of 64 rows a block; the
-library sizes the pair's scratch). In float32 they keep a
+K1's grid); K2 and the pair at head dims 64, 128, 192 and 256 on Hopper's
+``wgmma`` with TMA loads (:func:`is_wgmma`; two warpgroups of 64 rows a
+block; the library sizes the pair's scratch). In float32 they keep a
 CUDA-core body (four threads per row, 64-row blocks; at head dim 128 the
 four split the head dim instead of the keys).
 
@@ -83,8 +84,9 @@ HEAD_DIMS = (16, 32, 64, 128)
 #: (kWideChunk in the source) and take any multiple of it.
 WIDE_CHUNK = 64
 #: bf16 K2 and the bf16 backward pair at these instantiated head dims run the
-#: Hopper bodies (``*_wgmma`` in the source: wgmma, TMA, warpgroups).
-WGMMA_HEAD_DIMS = (64, 128)
+#: Hopper bodies (``*_wgmma`` in the source: wgmma, TMA, warpgroups); above
+#: 256 they run the chunked bodies.
+WGMMA_HEAD_DIMS = (64, 128, 192, 256)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 #: Dynamic shared memory of the chunked forward body (wide_fwd_smem_bytes in
 #: the source): Q and K chunks and the tile's p (64 x 65 floats each), the V
@@ -120,7 +122,7 @@ def whole_kv_max_warps(head_dim: int) -> int:
 def kernel_head_dim(head_dim: int) -> int:
     """The head dim a call of ``head_dim`` runs at: the least of
     :data:`HEAD_DIMS` that holds it, and above 128 the next multiple of
-    :data:`WIDE_CHUNK` (the chunked bodies)."""
+    :data:`WIDE_CHUNK` (192 and 256 are also Hopper bodies in bf16)."""
     if head_dim < 1:
         raise ValueError(f"head dim {head_dim}: must be at least 1")
     for d in HEAD_DIMS:
@@ -130,7 +132,8 @@ def kernel_head_dim(head_dim: int) -> int:
 
 
 def is_wide(head_dim: int) -> bool:
-    """Whether a call of ``head_dim`` runs the chunked bodies (above 128)."""
+    """Whether ``head_dim`` is above 128, where K1 and float32 run the
+    chunked bodies (bf16 K2 and the pair too above 256, :func:`is_wgmma`)."""
     return kernel_head_dim(head_dim) > HEAD_DIMS[-1]
 
 
@@ -226,17 +229,17 @@ def use_flash(lk: int, head_dim: int, dtype: torch.dtype) -> bool:
     otherwise (DETR-R50's 920 keys need 244,632 B; DC5's 3680 more).
     (The JAX package's 8 MB ``_FLASH_BYTES_THRESHOLD`` is a TPU VMEM figure
     and does not apply.)
-    Above head dim 128 both are the chunked body, which stages 64-key tiles
-    whatever Lk, so K1's always fits: bf16 takes K2 and float32 K1, by the
-    same rule.
+    Above head dim 128 K1 is the chunked body, which stages 64-key tiles
+    whatever Lk, so it always fits: bf16 takes K2 (at 192 and 256 the
+    Hopper body) and float32 K1, by the same rule.
     """
     return dtype == torch.bfloat16 or not whole_kv_fits(lk, head_dim, dtype)
 
 
 def is_wgmma(head_dim: int, dtype: torch.dtype) -> bool:
     """Whether bf16 K2 and the backward pair of a call of ``head_dim`` run
-    the Hopper bodies: bf16 at an instantiated head dim of 64 or 128 (48,
-    80, 100 ... padded to them)."""
+    the Hopper bodies: bf16 at an instantiated head dim of 64, 128, 192 or
+    256 (48, 80, 100, 136, 200 ... padded to them)."""
     return dtype == torch.bfloat16 and kernel_head_dim(head_dim) in WGMMA_HEAD_DIMS
 
 

@@ -72,6 +72,15 @@ def main(mode: str, out_dir: str, device: str = "cuda") -> None:
                                                             make_yolo_sharded_train_step, make_yolo_train_step)
 
     torch.set_num_threads(1)
+    # cuDNN's fastest convolution backward sums with atomics, so two runs of
+    # one YOLO step differ in the last bits, which AdamW's first step (about
+    # lr times the gradient's sign) carries into the parameters whose
+    # gradient is near zero: up to 1.1e-5 of a leaf on an H100 at one rank.
+    # Both steps run on cuDNN's deterministic algorithms instead: the sharded
+    # step's equality with the one-process step is shown under those, not
+    # under the default algorithms a training run selects, which differ by
+    # up to 1.1e-5 from run to run with no sharding involved.
+    torch.backends.cudnn.deterministic = True
     initialize_distributed(backend="nccl" if device == "cuda" else "gloo")
     rank, world = dist.get_rank(), dist.get_world_size()
     dev = torch.device(device)

@@ -68,7 +68,7 @@ def test_reference_matches_whole_kv_pallas(mask_frac, D):
 
 
 @pytest.mark.parametrize("lq,lk,D", [(64, 64, 32), (100, 1008, 32), (197, 197, 64), (67, 131, 48), (67, 131, 80),
-                                     (67, 131, 128)])
+                                     (67, 131, 128), (67, 131, 192), (67, 131, 256)])
 def test_reference_matches_flash_pallas(lq, lk, D):
     q, k, v, mask = _inputs(2, 2, 2, lq, lk, D, 0.2)
     got = _port(q, k, v, mask)
@@ -283,18 +283,23 @@ _COMPILED = set(__import__("re").findall(r'\{"(attention_[^"]+)", \(const void\*
                                          (build.CSRC / "attention.cu").read_text()))
 
 
-@pytest.mark.parametrize("d", [16, 32, 48, 64, 80, 100, 128, 136, 256])
+@pytest.mark.parametrize("d", [16, 32, 48, 64, 80, 100, 128, 136, 192, 256, 320])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_hopper_bodies_take_bf16_at_64_and_128(d, dtype):
     """is_wgmma (which labels the bench's rows) holds for bf16 at head dims
-    64 and 128 and those padded to them, and there the source compiles K2
-    and the pair as Hopper bodies (K2 and both kernels of the pair, in its
-    attributes table) and no mma.sync body of K2 or the pair is left."""
-    hopper = dtype == torch.bfloat16 and 32 < d <= 128
+    64, 128, 192 and 256 and those padded to them (136 to 192), and there
+    the source compiles K2 and the pair as Hopper bodies (K2 and both
+    kernels of the pair, in its attributes table; K2 and the dQ kernel as
+    the in-line bodies above 128, ``*_wgmma_inline``) and no mma.sync body
+    of K2 or the pair is left; above 256 (320) bf16 stays on the chunked
+    bodies."""
+    hopper = dtype == torch.bfloat16 and 32 < d <= 256
     assert kernels.is_wgmma(d, dtype) is hopper
     if hopper:
         kd = kernels.kernel_head_dim(d)
-        assert {f"attention_{b}_wgmma<bf16,{kd}>" for b in ("flash", "bwd_dq", "bwd_dkdv")} <= _COMPILED
+        inline = "_inline" if kd > 128 else ""
+        assert {f"attention_flash_wgmma{inline}<bf16,{kd}>", f"attention_bwd_dq_wgmma{inline}<bf16,{kd}>",
+                f"attention_bwd_dkdv_wgmma<bf16,{kd}>"} <= _COMPILED
     assert not any(n.startswith(("attention_flash_mma", "attention_bwd_dq_mma", "attention_bwd_dkdv_mma"))
                    and n.endswith((",64>", ",128>")) for n in _COMPILED)
 

@@ -74,14 +74,18 @@ def _check_kernel(fn, q, k, v, mask, relative=False):
 # tiles, K1's blocks of up to 16 warps (920 rows: 4 blocks of 15 warps) and
 # the float32 kernels' 64-row blocks.
 LQ, LK = (1, 67, 100, 920), (1, 15, 131, 920, 1000)
-#: Head dims above 128 (C.7): the chunked bodies, at a multiple of 64 and padded.
-WIDE_DIMS = (136, 192, 256)
-#: Lengths that cross the Hopper bodies' edges (bf16 at head dims 64 and
-#: 128): 64-row warpgroups, 128-row blocks, K2's 128-key tiles, the pair's
-#: 64-row tiles, and the ViT-base detect and training token counts.
+#: Head dims above 128 (C.7), at a multiple of 64 and padded: the chunked
+#: bodies in float32 and K1, the Hopper bodies in bf16 K2 up to 256, and the
+#: chunked bf16 K2 above it (320).
+WIDE_DIMS = (136, 192, 256, 320)
+#: Lengths that cross the Hopper bodies' edges (bf16 at head dims 64 to
+#: 256): 64-row warpgroups, 128-row blocks, K2's 128-key tiles (64 above
+#: 128), the pair's 64-row tiles (32 at 256), and the ViT-base detect and
+#: training token counts.
 HOPPER_L = (1, 127, 128, 129, 3681, 4033)
-#: Head dims the Hopper bodies take: 64, 128 and 80 padded to 128.
-HOPPER_DIMS = (64, 80, 128)
+#: Head dims the Hopper bodies take: 64, 128, 192 and 256, and 80 and 136
+#: padded to 128 and 192.
+HOPPER_DIMS = (64, 80, 128, 136, 192, 256)
 
 
 @pytest.mark.parametrize("fn", [kernels.attention_whole_kv, kernels.attention_flash])
@@ -335,7 +339,8 @@ def _b4_errors(got, want):
                                      (100, 1008, 64), (37, 53, 48), (131, 67, 128), (100, 1008, 128),
                                      (37, 53, 80), (131, 67, 136), (100, 260, 192), (67, 131, 256),
                                      (1, 127, 64), (127, 129, 64), (129, 128, 80), (128, 127, 128), (1, 129, 128),
-                                     (3681, 4033, 64), (4033, 3681, 128)])
+                                     (3681, 4033, 64), (4033, 3681, 128), (1, 129, 192), (129, 65, 192),
+                                     (33, 31, 256), (127, 129, 256), (4033, 3681, 256), (131, 67, 320)])
 @pytest.mark.parametrize("all_masked", [False, True], ids=["ragged", "all_masked_entry"])
 def test_b4_gradients_match_plain_autograd(card, dtype, Lq, Lk, D, all_masked):
     """B.4: multi_head_attention under grad runs K1/K2 through
@@ -345,7 +350,8 @@ def test_b4_gradients_match_plain_autograd(card, dtype, Lq, Lk, D, all_masked):
     at the kernel's bar against the plain version in float32). With
     ``all_masked`` batch entry 0 has every key masked: uniform probabilities,
     and dq, dk not zero. The Hopper pair's edges (64-row warpgroups, 128-row
-    blocks, 64-row tiles; ViT-base's 3681 and 4033 tokens) are here with a
+    blocks, 64-row tiles, 32-row ones at D 256; ViT-base's 3681 and 4033
+    tokens) are here with a
     single query; a single key is held in the forward tests only, since
     there every row's P is 1 and dq, dk vanish: the bar's second reading
     (relative to the largest |ref|) would divide rounding by rounding."""
@@ -421,7 +427,7 @@ def test_k1_bf16_refuses_lse(card):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("D", [32, 64, 48, 128, 192, 80])
+@pytest.mark.parametrize("D", [32, 64, 48, 128, 192, 80, 256, 320])
 @pytest.mark.parametrize("Lq,Lk", [(300, 260), (4033, 3681)])
 def test_backward_pair_is_deterministic(card, dtype, D, Lq, Lk):
     """Two calls of the pair on the same inputs give the same bits (no
@@ -435,7 +441,7 @@ def test_backward_pair_is_deterministic(card, dtype, D, Lq, Lk):
     assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [64, 128, 256])
 def test_hopper_bodies_launch_from_a_fresh_thread(card, D):
     """The Hopper bodies encode their TMA maps with the driver, which needs a
     current context; a thread whose first CUDA call is one of them has none
@@ -464,7 +470,7 @@ def test_hopper_bodies_launch_from_a_fresh_thread(card, D):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("D", [32, 64, 128, 192])
+@pytest.mark.parametrize("D", [32, 64, 128, 192, 256, 320])
 @pytest.mark.parametrize("Lq", [1, 127, 128, 129])
 def test_backward_fills_the_scratch_the_library_sizes(card, dtype, D, Lq):
     """attention_backward_scratch_rows is the one rule for the pair's

@@ -9,7 +9,7 @@
     python3 chip_smoke.py --phase 15    # CLIP Re-ID, the new outputs, RANSAC, diagnostics, benchmark CLI
 
 Builds the hand-written CUDA kernels from
-``office_person_detection_vit_torch/csrc`` (one nvcc call), holds each against
+``office_person_detection_vit_torch/csrc`` (an nvcc a source, in parallel), holds each against
 its plain PyTorch version at the shapes its path gives it, then drives the
 port through its entry points ``DETRDetector``, the fused-bottleneck bench
 the pipeline phases 2-4, the entry point and the trainer:
@@ -142,16 +142,20 @@ the pipeline phases 2-4, the entry point and the trainer:
    736x1280, bf16, batch 8 (frames/s), each in float32 card against CPU, the
    ultralytics ``.pt`` route on the card, and ``main`` with
    ``detection.model: yolo`` on the one-hour video.
-14. the scale-out slice: (a) head dims above 128 (C.7 closed): every
-   chunked body's registers, spills (none allowed) and HMMA count (none:
-   CUDA cores), and every Hopper body at 192 and 256 (bf16 K2 and the
-   pair: no spill, HGMMA and UTMALDG, no HMMA); K1/K2 at head dims 136, 192
-   and 256 in both types and bf16 K2 at 320 against the plain version, timed
-   against SDPA and the bound; B.4 at [10a]'s gate at the same head dims and
-   bf16 at 320; DETR with a ViT of
+14. the scale-out slice: (a) head dims above 128 (C.7 closed): the
+   backward pair's chunked bodies' registers, spills (none allowed) and
+   HMMA count (none: CUDA cores), the forwards' panel bodies (bf16: no
+   spill, HGMMA and UTMALDG, no HMMA; float32: no spill, no HMMA) and
+   their plan against the library's, every Hopper body at 192 and 256
+   (bf16 K2 and the pair: no spill, HGMMA and UTMALDG, no HMMA); every
+   forward above 128 at the tile edges (136 to 384, both types, K1 and
+   K2, with and without a ragged mask: the output, the log-sum-exp and
+   two calls bit for bit); K1/K2 at head dims 136 to 384 in both types
+   against the plain version, timed against SDPA and the bound; B.4 at
+   [10a]'s gate at the same head dims and bf16 at 320; DETR with a ViT of
    256-wide heads through ``detect_batch`` (K2 on the Hopper body), its
-   float32 forward card against CPU (K1, chunked), and 8 of its training
-   steps (B.4 on the Hopper bodies); (b) YOLOv8x and the
+   float32 forward card against CPU (K1 on the float32 panel body), and 8
+   of its training steps (B.4 on the Hopper bodies); (b) YOLOv8x and the
    single-shot detector trained at 768x1344, bf16, batch 8 (ms a step,
    images/s, peak memory, falling losses), a float32 step of each on the
    card against the CPU, and ``main --fine-tune`` with ``training.model:
@@ -180,7 +184,7 @@ Any failed check raises, so the script exits non-zero and prints no result.
 Its last two lines are JSON: the kernels (launches, error, times, bound; K1,
 K2, K3, B.4 and its backward pair, K2, B.4 and the pair at head dim 64 on
 the ViT's path, K1, K2, B.4 and the pair at head dim 128 on the ViT-H-width path,
-the chunked bodies above head dim 128 on the VITW path, and K1 on the CLIP
+the bodies above head dim 128 on the VITW path, and K1 on the CLIP
 path) and the device.
 """
 
@@ -332,9 +336,10 @@ def ops_of(counts: dict, name: str) -> dict:
     attributes entries name it (``base<type,int,...>``). Itanium-mangled
     names carry the base's length and name, then the template arguments: a
     type as one letter (``f`` for float), where the template takes one, and
-    each int as ``Li<n>E``."""
+    each int as ``Li<n>E`` (a K1 / K2 flag, the panel bodies' two passes or
+    one, as the bool ``Lb1E`` / ``Lb0E``)."""
     base, args = name.rstrip(">").split("<")
-    ints = "".join(f"Li{n}E" for n in args.split(",")[1:])
+    ints = "".join({"K1": "Lb1E", "K2": "Lb0E"}.get(n, f"Li{n}E") for n in args.split(",")[1:])
     mangled = re.compile(rf"{len(base)}{base}I[a-z]?{ints}E")
     found = [n for f, n in counts.items() if mangled.search(f)]
     check(len(found) == 1, f"{name}: {len(found)} functions of its name in the SASS")
@@ -361,14 +366,14 @@ def check_tensor_cores(a: dict, ops: dict, where: str) -> str:
 def kernel_resources(ka, kb, build) -> None:
     """Phase 1: each kernel's registers, spills and shared memory
     (cudaFuncGetAttributes; dynamic shared memory from its plan at a main
-    path or DETR-R50 shape), and the HMMA instructions in its SASS: every
-    bf16 kernel must have them (the Hopper bodies HGMMA and UTMALDG), every
-    float32 kernel none."""
+    path or DETR-R50 shape; the panel bodies at the head dim of one panel),
+    and the HMMA instructions in its SASS: every bf16 kernel must have them
+    (the Hopper bodies HGMMA and UTMALDG), every float32 kernel none."""
     counts = sass_counts(build)
     for a in ka.kernel_attributes():
         base, args = a["name"].split("<")
-        if base.startswith("attention_wide"):  # the chunked bodies above head dim 128: CUDA cores in both types
-            smem = {"attention_wide": ka.WIDE_FWD_SMEM_BYTES, "attention_wide_bwd_dq": 5 * 64 * 65 * 4 + 64,
+        if base.startswith("attention_wide"):  # the pair's chunked bodies above head dim 128: CUDA cores
+            smem = {"attention_wide_bwd_dq": 5 * 64 * 65 * 4 + 64,
                     "attention_wide_bwd_dkdv": (6 * 64 * 65 + 2 * 64) * 4}[base]
             n_hmma = hmma_of_wide(counts, a["name"])
             check(n_hmma == 0, f"{a['name']}: {n_hmma} HMMA instructions in its SASS (a CUDA-core body)")
@@ -377,7 +382,9 @@ def kernel_resources(ka, kb, build) -> None:
             continue
         dtype = torch.bfloat16 if args.startswith("bf16") else torch.float32
         d = int(args.rstrip(">").split(",")[1])
-        if "whole_kv" in base:
+        if "panels" in base:  # the forwards above head dim 128: the plan's bytes at the head dim of one panel
+            dyn = f"{ka.wide_forward_plan(d, dtype)['smem_bytes']:6d} B at D {d}, any Lk"
+        elif "whole_kv" in base:
             fits = ka.whole_kv_fits(920, d, dtype)
             dyn = f"{ka.whole_kv_plan(920, 920, d, dtype)['smem_bytes']:6d} B at Lk 920" if fits else \
                 "none at Lk 920 (K2)"
@@ -3181,11 +3188,15 @@ def d128_kernel_rows(res: dict) -> list:
 # C.7 closed: head dims above 128 run. bf16 K2 and B.4's pair at 192 and 256
 # (136 padded to 192) run the Hopper bodies (attention_flash_wgmma_inline,
 # attention_bwd_dq_wgmma_inline and attention_bwd_dkdv_wgmma at <bf16,192|256>
-# in csrc/attention.cu); K1, float32 and bf16 above 256 the chunked bodies
-# (attention_wide*; CUDA cores in both types, Q.K^T over 64-wide head-dim
-# chunks, output columns split over 128-wide grid-z blocks). [14a] holds K1,
-# K2 and B.4 at head dims 136, 192 and 256 in both types, and bf16 K2 and B.4
-# at 320 (the chunked bf16 bodies), against the plain version at [2]'s bars
+# in csrc/attention.cu); every other forward above 128 the panel bodies
+# (attention_panels_wgmma in bf16: wgmma and TMA; attention_panels_fma in
+# float32: register-tiled FP32 FMAs; at most 256 output columns a block,
+# wider heads in column panels on grid z); the float32 pair and the bf16
+# pair above 256 the chunked bodies (attention_wide_bwd_*; CUDA cores, Q.K^T
+# over 64-wide head-dim chunks, output columns split over 128-wide grid-z
+# blocks). [14a] holds every forward above 128 at the tile edges, K1, K2
+# and B.4 at head dims 136, 192 and 256 in both types, K1 and K2 at 320 and
+# 384 and B.4 at 320, against the plain version at [2]'s bars
 # and B.4 at [10a]'s gate, times them against SDPA and
 # the bound, and drives them on a model's path: DETR with a ViT backbone
 # whose heads are 256 wide (hidden 1024 over 4 heads, MLP 4096, 2 layers;
@@ -3206,8 +3217,19 @@ WIDE_KERNEL_CASES = [
     ("attention_flash", (2, 4, 300, 260, 136), "float32", True, "head dim 136, padded to 192, float32 (K2)"),
     ("attention_whole_kv", (2, 4, 300, 260, 136), "bfloat16", True, "head dim 136, padded to 192 (K1)"),
     ("attention_whole_kv", (2, 4, 300, 260, 136), "float32", True, "head dim 136, padded to 192, float32 (K1)"),
-    ("attention_flash", (8, 4, 1008, 1008, 320), "bfloat16", True, "heads of 320 at 1008 tokens (bf16 K2, chunked)"),
+    ("attention_flash", (8, 4, 1008, 1008, 320), "bfloat16", True, "heads of 320 at 1008 tokens (bf16 K2, 2 panels)"),
+    ("attention_flash", (8, 4, 1008, 1008, 384), "bfloat16", True, "heads of 384 at 1008 tokens (bf16 K2, 2 panels)"),
+    ("attention_whole_kv", (8, 4, 1008, 1008, 320), "bfloat16", True, "heads of 320 at 1008 tokens (bf16 K1, 2 panels)"),
+    ("attention_whole_kv", (8, 4, 1008, 1008, 384), "bfloat16", True, "heads of 384 at 1008 tokens (bf16 K1, 2 panels)"),
+    ("attention_whole_kv", (2, 4, 300, 260, 384), "float32", True, "heads of 384, float32 (K1, 2 panels)"),
+    ("attention_flash", (2, 4, 300, 260, 384), "float32", True, "heads of 384, float32 (K2, 2 panels)"),
 ]
+#: [14a]'s tile edges above head dim 128: (Lq, Lk) pairs across the float32
+#: panel body's 64-row blocks, the bf16 one's 128-row blocks and both
+#: bodies' 64-key tiles, at B 2, H 3 (so that a tile past L meets the next
+#: head's rows in device memory).
+WIDE_EDGE_DIMS = (136, 192, 256, 320, 384)
+WIDE_EDGE_LENGTHS = ((1, 1), (1, 129), (63, 65), (65, 63), (127, 129), (129, 127), (300, 260))
 WIDE_B4_CASES = [((2, 4, 300, 260, 136), "bfloat16", True, "head dim 136, padded to 192"),
                  ((2, 4, 300, 260, 136), "float32", True, "head dim 136, padded to 192, float32"),
                  ((1, 4, 1008, 1008, 192), "bfloat16", True, "heads of 192 at 1008 tokens"),
@@ -3227,28 +3249,76 @@ def wide_count(ka, name: str) -> int:
 
 
 def hmma_of_wide(counts: dict, name: str) -> int:
-    """The HMMA count (ops_of) of the chunked bodies, named
-    ``base<type[,K1|K2]>``: their template takes the type and, in the
-    forward, whether it runs two passes (K1, ``Lb1E``) or one (K2,
-    ``Lb0E``)."""
-    base, args = name.rstrip(">").split("<")
-    dtype, *kind = args.split(",")
+    """The HMMA count (ops_of) of the pair's chunked bodies, named
+    ``base<type>``: their template takes the type alone."""
+    base, dtype = name.rstrip(">").split("<")
     typ = "13__nv_bfloat16" if dtype == "bf16" else "f"
-    passes = {"K1": "Lb1E", "K2": "Lb0E"}[kind[0]] if kind else ""
-    mangled = re.compile(rf"{len(base)}{base}I{typ}{passes}E")
+    mangled = re.compile(rf"{len(base)}{base}I{typ}E")
     found = [n["HMMA"] for f, n in counts.items() if mangled.search(f)]
     check(len(found) == 1, f"{name}: {len(found)} functions of its name in the SASS")
     return found[0]
 
 
+def wide_edges(ka) -> dict:
+    """[14a]'s tile edges: every forward above head dim 128 (K1 and K2, both
+    types, at WIDE_EDGE_DIMS and WIDE_EDGE_LENGTHS, with and without a ragged
+    mask whose batch entry 0 has every key masked) against the plain version
+    in float32 on the same values at [2]'s bars (bf16 relative to max(1,
+    |ref|), as the card tests hold the tile edges: a few keys give outputs
+    above 1), its log-sum-exp against attention_lse at LSE_TOL, and the
+    output with and without the log-sum-exp, and a second call, bit for
+    bit. Returns the worst error of each (kernel, D, type)."""
+    from office_person_detection_vit_torch import attention_kernel_bench as abench
+    from office_person_detection_vit_torch.ops.attention import attention_lse, attention_reference
+
+    worst = {}
+    for d in WIDE_EDGE_DIMS:
+        for dt, dtype in abench.DTYPES.items():
+            for name in ("attention_whole_kv", "attention_flash"):
+                fn = getattr(ka, name)
+                for lq, lk in WIDE_EDGE_LENGTHS:
+                    for masked in (False, True):
+                        g = torch.Generator().manual_seed(lq + lk + d)
+                        q, k, v = (torch.randn(2, 3, n, d, generator=g).to("cuda", dtype) for n in (lq, lk, lk))
+                        mask = None
+                        if masked:
+                            mask = torch.rand(2, lk, generator=g) > 0.3
+                            mask[0] = False
+                            mask = mask.cuda()
+                        out, lse = fn(q, k, v, mask, with_lse=True)
+                        bare, again = fn(q, k, v, mask), fn(q, k, v, mask)
+                        f = [t.float() for t in (q, k, v)]
+                        want, want_lse = attention_reference(*f, mask), attention_lse(*f[:2], mask)
+                        scale = want.abs().clamp(min=1.0) if dtype == torch.bfloat16 else 1.0
+                        err = ((out.float() - want).abs() / scale).max().item()
+                        lse_err = ((lse - want_lse).abs() / want_lse.abs().clamp(min=1.0)).max().item()
+                        where = f"14a: {name} {dt} D {d} ({lq}, {lk}){' masked' if masked else ''}"
+                        check(bool(torch.isfinite(out).all()) and err <= abench.TOLERANCE[dtype],
+                              f"{where}: max|err| {err:.3e} (bar {abench.TOLERANCE[dtype]:.0e})")
+                        check(lse_err <= LSE_TOL[dtype], f"{where}: lse {lse_err:.3e} (bar {LSE_TOL[dtype]:.0e})")
+                        check(torch.equal(out, bare) and torch.equal(bare, again),
+                              f"{where}: calls with and without the lse, or two calls, differ")
+                        key = f"{name} {dt} D {d}"
+                        err0, lse0 = worst.get(key, (0.0, 0.0))
+                        worst[key] = (max(err0, err), max(lse0, lse_err))
+    torch.cuda.synchronize()
+    for key, (err, lse_err) in worst.items():
+        log(f"[14a] edges {key:34s} worst |err| {err:.3e}  lse {lse_err:.3e}  (bit-identical twice, "
+            f"{len(WIDE_EDGE_LENGTHS) * 2} shapes)")
+    return worst
+
+
 def wide_phase(ka, build, smi: str, frames: np.ndarray, samples: list) -> dict:
-    """[14a]: the chunked bodies' registers and spills (none allowed) and
-    HMMA count (none: CUDA cores), and [1]'s readings of every Hopper body
-    at head dims 192 and 256 (no spill); the forward cases and B.4 at
-    [10a]'s gate; then the VITW DETR through detect_batch (bf16, 736x1280,
-    batch 8: K2 on the Hopper body), its float32 forward at 224x224 card
-    against CPU (K1), and 8 of its bf16 training steps at 768x1344 (B.4 on
-    the Hopper bodies)."""
+    """[14a]: the pair's chunked bodies' registers and spills (none allowed)
+    and HMMA count (none: CUDA cores), the forwards' panel bodies (no spill;
+    bf16 HGMMA and UTMALDG and no HMMA, float32 no HMMA) and their plan
+    against the library's, and [1]'s readings of every Hopper body at head
+    dims 192 and 256 (no spill); every forward above 128 at the tile edges
+    (wide_edges); the forward cases and B.4 at [10a]'s gate; then the VITW
+    DETR through detect_batch (bf16, 736x1280, batch 8: K2 on the Hopper
+    body), its float32 forward at 224x224 card against CPU (K1 on the
+    float32 panel body), and 8 of its bf16 training steps at 768x1344 (B.4
+    on the Hopper bodies)."""
     from office_person_detection_vit_torch import attention_kernel_bench as abench
     from office_person_detection_vit_torch.detection.detector import DETRDetector
     from office_person_detection_vit_torch.models.detr import DETRConfig
@@ -3257,6 +3327,7 @@ def wide_phase(ka, build, smi: str, frames: np.ndarray, samples: list) -> dict:
     t0 = time.perf_counter()
     counts = sass_counts(build)
     bodies = {}
+    panels = {}
     for a in ka.kernel_attributes():
         if a["name"].startswith("attention_wide"):
             n_hmma = hmma_of_wide(counts, a["name"])
@@ -3264,7 +3335,21 @@ def wide_phase(ka, build, smi: str, frames: np.ndarray, samples: list) -> dict:
             check(n_hmma == 0, f"14a: {a['name']}: {n_hmma} HMMA instructions (a CUDA-core body)")
             bodies[a["name"]] = {"regs": a["regs"], "local_bytes": a["local_bytes"], "hmma": n_hmma}
             log(f"[14a] {a['name']:36s} regs {a['regs']:3d}  spill (local) {a['local_bytes']} B  HMMA in SASS {n_hmma}")
-    check(len(bodies) == 8, f"14a: {len(bodies)} chunked bodies, expected 8")
+        elif a["name"].startswith("attention_panels"):
+            ops = ops_of(counts, a["name"])
+            check(a["local_bytes"] == 0, f"14a: {a['name']} spills {a['local_bytes']} B a thread")
+            text = check_tensor_cores(a, ops, "14a")
+            panels[a["name"]] = {"regs": a["regs"], "local_bytes": a["local_bytes"], "hmma": ops["HMMA"],
+                                 "hgmma": ops["HGMMA"], "utmaldg": ops["UTMALDG"]}
+            log(f"[14a] {a['name']:36s} regs {a['regs']:3d}  spill (local) {a['local_bytes']} B  {text}")
+    check(len(bodies) == 4, f"14a: {len(bodies)} chunked bodies, expected the pair's 4")
+    check(len(panels) == 8, f"14a: {len(panels)} panel bodies, expected 8 (K1 and K2, 192 and 256, both types)")
+    for d in range(192, 1025, 64):
+        for dtype in (torch.float32, torch.bfloat16):
+            mine, lib = ka.wide_forward_plan(d, dtype), ka.library_forward_plan(d, dtype)
+            check(all(lib[key] == mine[key] for key in lib),
+                  f"14a: panel plan at D {d} {dtype}: {mine} != library {lib}")
+    log("[14a] the panel plan of kernels/attention.py equals the library's at every multiple of 64 from 192 to 1024")
     hopper = {}
     for a in ka.kernel_attributes():
         if a["name"].endswith((",192>", ",256>")):
@@ -3276,8 +3361,12 @@ def wide_phase(ka, build, smi: str, frames: np.ndarray, samples: list) -> dict:
             log(f"[14a] {a['name']:36s} regs {a['regs']:3d}  spill (local) {a['local_bytes']} B  {text}")
     check(len(hopper) == 6 and all("wgmma" in n for n in hopper),
           f"14a: Hopper bodies at 192 and 256 {sorted(hopper)}, expected K2 and the pair at each")
-    check(ka.is_wgmma(256, torch.bfloat16) and ka.is_wgmma(136, torch.bfloat16)
-          and not ka.is_wgmma(320, torch.bfloat16), "14a: is_wgmma does not name bf16 at 136-256 alone")
+    bf16 = torch.bfloat16
+    check(ka.is_wgmma_pair(256, bf16) and ka.is_wgmma_pair(136, bf16) and not ka.is_wgmma_pair(320, bf16)
+          and ka.is_wgmma_forward(320, bf16) and ka.is_wgmma_forward(136, bf16, flash=False)
+          and not ka.is_wgmma_forward(256, torch.float32),
+          "14a: is_wgmma_pair does not name bf16 at 136-256 alone, or is_wgmma_forward bf16 K2 and K1 above 128")
+    edges = wide_edges(ka)
     rows = {}
     for seed, case in enumerate(WIDE_KERNEL_CASES):
         row = abench.measure(ka, case, 900 + seed)
@@ -3316,7 +3405,8 @@ def wide_phase(ka, build, smi: str, frames: np.ndarray, samples: list) -> dict:
                                                       "14a", hw=(224, 224))
     f32_wide = wide_count(ka, "attention_whole_kv")
     check(f32_wide == 2, f"14a: the float32 forward launched {f32_wide} K1 above head dim 128, expected 2")
-    log(f"[14a] float32 VITW DETR at 224x224 on the card ({20 - flash} K1, {flash} K2; {f32_wide} K1 at head dim 256) "
+    log(f"[14a] float32 VITW DETR at 224x224 on the card ({20 - flash} K1, {flash} K2; {f32_wide} K1 at head dim 256, "
+        "attention_panels_fma<float,256,K1>) "
         f"vs the CPU ({cpu_secs:.1f} s): max|dlogits| {d_logits:.2e} (atol {LOGITS_ATOL} rtol {LOGITS_RTOL}), "
         f"max|dboxes| {d_boxes:.2e} (atol {BOXES_ATOL})")
     torch.cuda.empty_cache()
@@ -3332,7 +3422,8 @@ def wide_phase(ka, build, smi: str, frames: np.ndarray, samples: list) -> dict:
     log(f"[14a] 8 VITW training steps: {train_wide} above head dim 128, on attention_flash_wgmma_inline<bf16,256> and "
         "the pair attention_bwd_dq_wgmma_inline<bf16,256> + attention_bwd_dkdv_wgmma<bf16,256>")
     log(f"[14a] phase {time.perf_counter() - t0:.1f} s")
-    return {"bodies": bodies, "hopper": hopper, "forward": rows, "b4": b4, "b4_path": b4_path,
+    return {"bodies": bodies, "panels": panels, "edges": edges, "hopper": hopper, "forward": rows, "b4": b4,
+            "b4_path": b4_path,
             "detect_counts": detect_counts, "k2_wide": k2_wide, "f32_wide": f32_wide, "train_wide": train_wide,
             "train": train}
 
@@ -3716,7 +3807,7 @@ def scale_slice(ka, build, smi: str, frames: np.ndarray, samples: list, data: Pa
 def wide_kernel_rows(res: dict) -> list:
     """The kernels line's rows above head dim 128, each at the shape of the
     path its launches come from, as d128_kernel_rows: K2 (the Hopper body) at
-    the VITW detect's ViT shape, K1 (chunked) at its float32 forward's, B.4
+    the VITW detect's ViT shape, K1 (the float32 panel body) at its float32 forward's, B.4
     and its pair (the Hopper bodies) at VITW_TRAIN."""
     src = "office_person_detection_vit_torch/csrc/attention.cu"
     wide = res["wide"]
@@ -3730,7 +3821,8 @@ def wide_kernel_rows(res: dict) -> list:
          "replaces": "office_person_detection_vit_tpu/ops/attention.py:159", "launches": wide["k2_wide"],
          "launches_on": "VITW DETR bf16 through detect_batch at 736x1280, 16 frames, phase 14a",
          **{k: k2[k] for k in keys + ("instruction",)}},
-        {"name": "attention_whole_kv_wide", "route": "cuda", "source": src, "body": "attention_wide<float,K1>",
+        {"name": "attention_whole_kv_wide", "route": "cuda", "source": src,
+         "body": "attention_panels_fma<float,256,K1>",
          "replaces": "office_person_detection_vit_tpu/ops/attention.py:60", "launches": wide["f32_wide"],
          "launches_on": "VITW DETR float32 forward at 224x224 on the card, phase 14a",
          **{k: k1[k] for k in keys + ("instruction",)}},
@@ -4320,7 +4412,7 @@ def run(writer: subprocess.Popen, videos: Path, dataset_writer: subprocess.Popen
     ka.load_library()
     kb.load_library()
     log(f"[1] built and loaded the kernel library ({', '.join(p.name for p in build.sources())}; "
-        f"one nvcc call, sm_90a) in {time.perf_counter() - t0:.1f} s")
+        f"an nvcc a source in parallel, then one link, sm_90a) in {time.perf_counter() - t0:.1f} s")
     kernel_resources(ka, kb, build)
 
     # ---- 2. kernels against the plain version at the main-path shapes

@@ -61,7 +61,9 @@ CASES = [
     ("attention_whole_kv", (1, 8, 25, 25, 16), "float32", False, "DETR-small decoder self"),
 ]
 #: The ViT paths' shapes (head dims 64 and 128, 80 padded to 128, and the
-#: VITW DETR's 256, 192 and 136 padded to 192): the Hopper bodies.
+#: VITW DETR's 256, 192 and 136 padded to 192): the Hopper bodies; then the
+#: panel bodies above head dim 128 (K1 in both types at the VITW DETR's
+#: 224x224 tokens, float32 K2 and bf16 K2 above 256 at 1008 tokens).
 #: ``chip_smoke.py`` times them in [12a], [13a] and [14a], not in [2].
 VIT_CASES = [
     ("attention_flash", (8, 12, 3681, 3681, 64), "bfloat16", False, "ViT-base/16 detect at 736x1280 (main path)"),
@@ -70,6 +72,16 @@ VIT_CASES = [
     ("attention_flash", (8, 4, 3681, 3681, 256), "bfloat16", False, "the VITW DETR's detect (heads of 256)"),
     ("attention_flash", (8, 4, 1008, 1008, 192), "bfloat16", False, "heads of 192 at 1008 tokens"),
     ("attention_flash", (2, 4, 300, 260, 136), "bfloat16", True, "head dim 136, padded to 192"),
+    ("attention_whole_kv", (8, 4, 197, 197, 256), "float32", False, "the VITW DETR's float32 forward (K1, main path)"),
+    ("attention_whole_kv", (8, 4, 197, 197, 256), "bfloat16", False, "heads of 256 at 224x224, bf16 K1"),
+    ("attention_whole_kv", (8, 4, 197, 197, 192), "float32", False, "heads of 192 at 224x224 (K1)"),
+    ("attention_whole_kv", (8, 4, 197, 197, 192), "bfloat16", False, "heads of 192 at 224x224, bf16 K1"),
+    ("attention_whole_kv", (2, 4, 300, 260, 136), "float32", True, "head dim 136, padded to 192 (K1)"),
+    ("attention_whole_kv", (2, 4, 300, 260, 136), "bfloat16", True, "head dim 136, padded to 192, bf16 K1"),
+    ("attention_flash", (8, 4, 1008, 1008, 256), "float32", True, "heads of 256 at 1008 tokens, float32 K2"),
+    ("attention_flash", (8, 4, 1008, 1008, 192), "float32", True, "heads of 192 at 1008 tokens, float32 K2"),
+    ("attention_flash", (8, 4, 1008, 1008, 320), "bfloat16", True, "heads of 320 at 1008 tokens (two panels)"),
+    ("attention_flash", (8, 4, 1008, 1008, 384), "bfloat16", True, "heads of 384 at 1008 tokens (two panels)"),
 ]
 #: B.4's backward pair: ((B, H, Lq, Lk, D), type, the path that gives the
 #: shape). ViT-base/16 training at 768x1344 (4033 tokens), head dim 128 at
@@ -93,11 +105,14 @@ DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 TOLERANCE = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 #: The instruction that does the products, by type.
 INSTRUCTION = {torch.bfloat16: "mma.sync.m16n8k16", torch.float32: "FFMA (CUDA cores)"}
-#: bf16 K2 and the pair at head dims 64 to 256: the Hopper bodies.
+#: The Hopper bodies: bf16 K2 above head dim 32, bf16 K1 above 128 and the
+#: pair at 64 to 256.
 WGMMA_INSTRUCTION = "wgmma.m64nNk16 + TMA"
-#: Above head dim 128 K1, float32 and bf16 above 256 run the chunked bodies
-#: (ROADMAP C.7).
-WIDE_INSTRUCTION = "FFMA (CUDA cores, head dim in 64-wide chunks)"
+#: float32 forwards above head dim 128: the panel body's 4 x 4 register tiles.
+PANEL_FMA_INSTRUCTION = "FFMA (CUDA cores, 4x4 register tiles)"
+#: The backward pair above 128 in float32 and above 256 in bf16: the chunked
+#: bodies (ROADMAP C.7).
+CHUNKED_INSTRUCTION = "FFMA (CUDA cores, head dim in 64-wide chunks)"
 # Published H100 SXM peaks (dense): HBM bytes/s; bf16 tensor-core and
 # non-tensor float32 FLOP/s.
 PEAK_BYTES = 3.35e12
@@ -263,10 +278,14 @@ def measure(kernels, case, seed: int, iters: int = 20) -> dict:
 
 def instruction(kernels, name: str, head_dim: int, dtype: torch.dtype) -> str:
     """The instruction of the body that wrapper ``name`` runs at ``head_dim``
-    in ``dtype`` (K1 has no Hopper body)."""
-    if name != "attention_whole_kv" and kernels.is_wgmma(head_dim, dtype):
+    in ``dtype``."""
+    if name == "attention_backward":
+        if kernels.is_wgmma_pair(head_dim, dtype):
+            return WGMMA_INSTRUCTION
+        return CHUNKED_INSTRUCTION if kernels.is_wide(head_dim) else INSTRUCTION[dtype]
+    if kernels.is_wgmma_forward(head_dim, dtype, flash=name == "attention_flash"):
         return WGMMA_INSTRUCTION
-    return WIDE_INSTRUCTION if kernels.is_wide(head_dim) else INSTRUCTION[dtype]
+    return PANEL_FMA_INSTRUCTION if kernels.is_wide(head_dim) else INSTRUCTION[dtype]
 
 
 def measure_backward(kernels, case, seed: int, other=None, iters: int = 10) -> dict:

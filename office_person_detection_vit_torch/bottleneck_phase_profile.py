@@ -49,8 +49,8 @@ PROFILE_DEFINES = ("-DK3_PHASE_PROFILE",)
 
 
 def instrumented_library() -> ctypes.CDLL:
-    """The kernel library built with :data:`PROFILE_DEFINES` (one nvcc call,
-    cached under its own key beside the library's), loaded."""
+    """The kernel library built with :data:`PROFILE_DEFINES` (an nvcc a
+    source, cached under its own key beside the library's), loaded."""
     lib = ctypes.CDLL(str(build.build_library(PROFILE_DEFINES)))
     lib.fused_bottleneck.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     lib.phase_cycles.argtypes = [ctypes.POINTER(ctypes.c_ulonglong)]

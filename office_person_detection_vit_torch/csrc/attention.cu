@@ -6,7 +6,8 @@
 //
 // with q/k/v laid out (B, H, L, D) contiguous, T = float or bfloat16, scores,
 // softmax and accumulation in float32, the output in T. Given a pointer, K2
-// (both types) and K1's float32 body also write lse[b,h,i], the float32
+// (both types) and K1 (float32, and bf16 above head dim 128) also write
+// lse[b,h,i], the float32
 // natural log-sum-exp of row i's scaled, biased scores, for the backward; a
 // null pointer writes nothing and changes nothing else. The backward pair is
 // at the end of this file.
@@ -34,8 +35,9 @@
 // bf16 design (tensor cores). K2 and the backward pair at head dims 64,
 // 128, 192 and 256 run the Hopper bodies of the wgmma section below (two
 // warpgroups of 64 rows, TMA, wgmma; ViT-base/16's D 64, ViT-H/16's 80
-// padded to 128, the VITW DETR's 256).
-// K1 at every head dim, and K2 and the pair at 16 and 32 (DETR's), run the
+// padded to 128, the VITW DETR's 256), K1 above 128 and K2 above 256 the
+// panel bodies (wgmma, TMA) of the section after the C.7 one.
+// K1 up to 128, and K2 and the pair at 16 and 32 (DETR's), run the
 // mma.sync bodies described here:
 //  * One warp owns 16 query rows. QK^T and P.V are
 //    mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32: the warp's Q
@@ -58,8 +60,10 @@
 //    pads any other D <= 128 with zero columns up to the next of them and
 //    passes the true scale 1/sqrt(D), which every entry point takes as an
 //    argument. Above 128 the wrapper pads D up to a multiple of 64: bf16
-//    K2 and the pair take the wgmma bodies at 192 and 256, and everything
-//    else there the chunked bodies of the C.7 section below.
+//    K2 and the pair take the wgmma bodies at 192 and 256, every other
+//    forward there the panel bodies (both types; wgmma in bf16) and the
+//    float32 pair and the bf16 pair above 256 the chunked bodies of the
+//    C.7 section below.
 //  * The mask becomes a float bias per key in shared memory (0 valid, -inf
 //    not), read once per batch entry by each block; s = acc * scale + bias.
 //    Ragged Lq and Lk are masked in the kernel; nothing is padded outside.
@@ -92,6 +96,8 @@
 // dim instead (each thread a quarter of q and of the output, the quad
 // summing each dot product with two shuffles), and stage K/V in dynamic
 // shared memory (64 KB a tile, over the 48 KB a static array may take).
+// Above 128 float32 forwards run attention_panels_fma (register micro-tiles
+// over shared float4 operands; its section says how).
 //
 // A batch entry whose keys are all masked gives mean(V) over its Lk keys, as
 // the plain version (attention_reference) does: all keys count as valid with
@@ -2204,32 +2210,26 @@ attention_bwd_dq_slice(const float* __restrict__ q, const float* __restrict__ k,
   if (live) store_slice<D>(dq + q_row * D, split, acc, scale);
 }
 
-// ============================================== head dims above 128 (C.7)
-// What reaches these bodies: float32 at every head dim above 128, K1 in
-// both types above 128, and bf16 K2 and the pair above 256 (320, ...); bf16
-// K2 and the pair at 192 and 256 (and those padded to them) run the wgmma
-// bodies above. The float32 and mma.sync bodies keep a row's q (bf16: its Q
-// fragments) and its output in registers and, in K1, a head's whole K and V
-// in shared memory; above 128 neither fits (K1 at D 256 float32 and 197 keys
-// needs 403 KB of K/V, and the bf16 mma bodies already sit at 214-240
-// registers at D 128). These bodies take the head dim in chunks instead,
-// one template for both types, on the CUDA cores: Q.K^T (and g.V^T) is
-// summed over 64-wide chunks of the head dim staged through shared memory
-// as float32, and the output columns
-// are split over grid z in 128-wide chunks; each z block recomputes the
-// scores, the way the D-128 bf16 pair splits its halves. The wrapper pads
-// D to a multiple of 64 (kernels/attention.py::kernel_head_dim). A block is
-// 64 query rows (the backward's dK/dV: 64 keys) of four threads each; a
-// thread holds 16 scores of a 64-key tile (key split + 4m) and 32 output
-// columns (column split + 4c of its chunk). Staged rows are padded to 65
-// (129) floats so that the four threads of a row, which read four rows of
-// the other operand, hit four banks. Rounding follows the mma bodies: K2
-// rounds the unnormalised p to T before P.V, K1 (two passes) the
-// normalised p; the backward sums in float32 and rounds only its results.
-// Bound: operations, on the CUDA cores; they re-read their operands from
-// shared memory for every product, and speed is not their aim: no path of
-// the repo's models runs them in bf16 (the VITW DETR's heads of 256 take
-// the wgmma bodies; its float32 forward runs K1 here).
+// ================================= the backward pair above head dim 128 (C.7)
+// What reaches these bodies: B.4's pair in float32 at every head dim above
+// 128 and in bf16 above 256 (320, ...); the bf16 pair at 192 and 256 (and
+// those padded to them) runs the wgmma bodies above, and every forward
+// above 128 the panel bodies of the next section. The float32 and mma.sync
+// pair keep a row's q (bf16: its Q fragments) in registers; above 128 it
+// does not fit. These bodies take the head dim in chunks instead, one
+// template for both types, on the CUDA cores: Q.K^T and g.V^T are summed
+// over 64-wide chunks of the head dim staged through shared memory as
+// float32, and the output columns are split over grid z in 128-wide
+// chunks, each z block recomputing the scores. The wrapper pads D to a
+// multiple of 64 (kernels/attention.py::kernel_head_dim). A block is 64
+// query rows (dK/dV: 64 keys) of four threads each; a thread holds 16
+// scores of a 64-key tile (key split + 4m) and 32 output columns (column
+// split + 4c of its chunk). Staged rows are padded to 65 (129) floats so
+// that the four threads of a row, which read four rows of the other
+// operand, hit four banks. They sum in float32 and round only their
+// results. Bound: operations, on the CUDA cores; they re-read their
+// operands from shared memory for every product, and speed is not their
+// aim yet (ROADMAP: the next kernel PRs).
 constexpr int kWideChunk = 64;                 // head-dim columns of one staged chunk
 constexpr int kWideOut = 128;                  // output columns of one grid-z block
 constexpr int kWideS = kWideChunk + 1;         // staged row stride (floats)
@@ -2276,119 +2276,6 @@ __device__ __forceinline__ void wide_axpy(const float* p, int row, const float* 
     for (int c = 0; c < kWideCols; ++c)
       if (c < nc) acc[c] = fmaf(pj, y[j * kWideO + split + kSplit * c], acc[c]);
   }
-}
-
-__device__ __forceinline__ float quad_max(unsigned quad, float x) {
-  x = fmaxf(x, __shfl_xor_sync(quad, x, 1));
-  return fmaxf(x, __shfl_xor_sync(quad, x, 2));
-}
-
-// K1 (kTwoPass) and K2 for D > 128. Grid (B*H, ceil(Lq/64), ceil(D/128)),
-// kThreads threads, wide_fwd_smem_bytes() of dynamic shared memory.
-template <typename T, bool kTwoPass>
-__global__ void __launch_bounds__(kThreads)
-attention_wide(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-               const uint8_t* __restrict__ mask, T* __restrict__ out, float* __restrict__ lse, int H,
-               int Lq, int Lk, int D, float scale_log2) {
-  extern __shared__ __align__(16) float wsm[];
-  float* sq = wsm;                     // the Q chunk
-  float* sk = sq + kWideTile;          // the K chunk
-  float* sp = sk + kWideTile;          // the tile's rounded p
-  float* sv = sp + kWideTile;          // the V tile's output columns
-  uint8_t* svalid = reinterpret_cast<uint8_t*>(sv + kWideOutTile);
-
-  const int bh = blockIdx.x, r0 = blockIdx.y * kRows, c0 = blockIdx.z * kWideOut;
-  const int nq = min(kRows, Lq - r0), w = min(kWideOut, D - c0), nc = w / kSplit;
-  const uint8_t* mask_b = mask ? mask + (size_t)(bh / H) * Lk : nullptr;
-  const bool all_masked = !any_valid_key(mask_b, Lk);
-  const int row = threadIdx.x / kSplit, split = threadIdx.x % kSplit;
-  const unsigned quad = 0xfu << (threadIdx.x % 32 / kSplit * kSplit);
-  const T* qb = q + ((size_t)bh * Lq + r0) * D;
-  const T* kb = k + (size_t)bh * Lk * D;
-  const T* vb = v + (size_t)bh * Lk * D;
-
-  // This thread's 16 scaled, biased scores (log2 domain) of the tile at k0.
-  auto scores = [&](int k0, int nk, float* s) {
-#pragma unroll
-    for (int m = 0; m < kWideKeys; ++m) s[m] = 0.f;
-    for (int d0 = 0; d0 < D; d0 += kWideChunk) {
-      __syncthreads();  // the previous chunk (or tile) is consumed
-      wide_stage(sq, kWideS, qb, nq, D, d0, kWideChunk, kWideChunk);
-      wide_stage(sk, kWideS, kb + (size_t)k0 * D, nk, D, d0, kWideChunk, kWideChunk);
-      if (d0 == 0 && threadIdx.x < kFlashKeys) {
-        const int j = threadIdx.x;
-        svalid[j] = j < nk && (all_masked || mask_b == nullptr || mask_b[k0 + j]);
-      }
-      __syncthreads();
-      wide_dots(sq, row, sk, split, s);
-    }
-#pragma unroll
-    for (int m = 0; m < kWideKeys; ++m) {
-      const int j = split + kSplit * m;
-      s[m] = !svalid[j] ? -INFINITY : all_masked ? 0.f : s[m] * scale_log2;
-    }
-  };
-
-  float m_run = -INFINITY, l_run = 0.f;
-  if constexpr (kTwoPass) {  // pass 1: the row's max and normaliser
-    for (int k0 = 0; k0 < Lk; k0 += kFlashKeys) {
-      float s[kWideKeys];
-      scores(k0, min(kFlashKeys, Lk - k0), s);
-      float mt = -INFINITY;
-#pragma unroll
-      for (int m = 0; m < kWideKeys; ++m) mt = fmaxf(mt, s[m]);
-      const float m_new = fmaxf(m_run, quad_max(quad, mt));
-      if (m_new == -INFINITY) continue;
-      float sum = 0.f;
-#pragma unroll
-      for (int m = 0; m < kWideKeys; ++m) sum += exp2f(s[m] - m_new);
-      l_run = l_run * exp2f(m_run - m_new) + quad_total(quad, sum);
-      m_run = m_new;
-    }
-  }
-  float acc[kWideCols];
-#pragma unroll
-  for (int c = 0; c < kWideCols; ++c) acc[c] = 0.f;
-  for (int k0 = 0; k0 < Lk; k0 += kFlashKeys) {
-    const int nk = min(kFlashKeys, Lk - k0);
-    float s[kWideKeys];
-    scores(k0, nk, s);
-    if constexpr (kTwoPass) {
-      const float inv = 1.f / l_run;
-#pragma unroll
-      for (int m = 0; m < kWideKeys; ++m)
-        sp[row * kWideS + split + kSplit * m] = wide_f(wide_t<T>(exp2f(s[m] - m_run) * inv));
-    } else {
-      float mt = -INFINITY;
-#pragma unroll
-      for (int m = 0; m < kWideKeys; ++m) mt = fmaxf(mt, s[m]);
-      const float m_new = fmaxf(m_run, quad_max(quad, mt));
-      const float alpha = m_new == -INFINITY ? 1.f : exp2f(m_run - m_new);
-      float sum = 0.f;
-#pragma unroll
-      for (int m = 0; m < kWideKeys; ++m) {
-        const float p = m_new == -INFINITY ? 0.f : exp2f(s[m] - m_new);
-        sum += p;
-        sp[row * kWideS + split + kSplit * m] = wide_f(wide_t<T>(p));
-      }
-      l_run = l_run * alpha + quad_total(quad, sum);
-      m_run = m_new;
-#pragma unroll
-      for (int c = 0; c < kWideCols; ++c) acc[c] *= alpha;
-    }
-    __syncthreads();  // the last chunk's readers are done before sv reuses nothing, sp is written
-    wide_stage(sv, kWideO, vb + (size_t)k0 * D, nk, D, c0, w, kWideOut);
-    __syncthreads();
-    wide_axpy(sp, row, sv, split, nk, nc, acc);
-  }
-  if (row >= nq) return;
-  const float inv = kTwoPass ? 1.f : 1.f / l_run;
-  T* o = out + ((size_t)bh * Lq + r0 + row) * D + c0;
-#pragma unroll
-  for (int c = 0; c < kWideCols; ++c)
-    if (c < nc) o[split + kSplit * c] = wide_t<T>(acc[c] * inv);
-  if (lse != nullptr && blockIdx.z == 0 && split == 0)
-    lse[(size_t)bh * Lq + r0 + row] = (m_run + log2f(l_run)) * kLn2;
 }
 
 // B.4's dQ for D > 128, grid (B*H, Lq_pad/64, ceil(D/128)). Its z = 0 blocks
@@ -2553,26 +2440,9 @@ attention_wide_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k, const 
   }
 }
 
-constexpr size_t wide_fwd_smem_bytes() {
-  return (size_t)(3 * kWideTile + kWideOutTile) * sizeof(float) + kFlashKeys;
-}
 constexpr size_t wide_dq_smem_bytes() { return (size_t)5 * kWideTile * sizeof(float) + kFlashKeys; }
 constexpr size_t wide_dkdv_smem_bytes() { return (size_t)(6 * kWideTile + 2 * kRows) * sizeof(float); }
 static_assert(2 * kWideOutTile <= 4 * kWideTile, "the output chunks fit where the four staged chunks were");
-
-template <typename T>
-cudaError_t launch_wide(bool flash, const T* q, const T* k, const T* v, const uint8_t* mask, T* out,
-                        float* lse, int B, int H, int Lq, int Lk, int D, float scale_log2,
-                        cudaStream_t stream) {
-  if (D % kWideChunk != 0) return cudaErrorInvalidValue;
-  const dim3 grid(B * H, (Lq + kRows - 1) / kRows, (D + kWideOut - 1) / kWideOut);
-  constexpr size_t smem = wide_fwd_smem_bytes();
-  auto kernel = flash ? attention_wide<T, false> : attention_wide<T, true>;
-  const cudaError_t err = allow_smem(kernel, smem);
-  if (err != cudaSuccess) return err;
-  kernel<<<grid, kThreads, smem, stream>>>(q, k, v, mask, out, lse, H, Lq, Lk, D, scale_log2);
-  return cudaGetLastError();
-}
 
 // Query rows of the backward's scratch for one (batch*head): Lq rounded up
 // to the dQ kernel's row block, 128 for the bf16 Hopper pair (head dims 64,
@@ -2604,6 +2474,601 @@ cudaError_t launch_backward_wide(const T* q, const T* k, const T* v, const uint8
                                wide_dkdv_smem_bytes(), stream>>>(
       q, k, v, mask, g, dk, dv, lse2_pad, dsum_pad, H, Lq, Lk, D, Lq_pad, scale_log2, scale);
   return cudaGetLastError();
+}
+
+// ================================= forwards above head dim 128, both types
+// K1 in both types at every head dim above 128, K2 in float32 above 128 and
+// in bf16 above 256 (bf16 K2 at 192 and 256 keeps
+// attention_flash_wgmma_inline). The wrapper pads D to a multiple of 64
+// (kernels/attention.py::kernel_head_dim). Two bodies on one plan: bf16 on
+// the tensor cores (attention_panels_wgmma: wgmma, TMA) and float32 on the
+// CUDA cores (attention_panels_fma: FP32 FMAs, no TF32, whose 1e-5 bar it
+// would break).
+//  * Output panels. A block accumulates at most 256 output columns. Up to
+//    256 that is the whole head (one block on grid z); above it the output
+//    is cut into n = ceil(D / 256) panels on grid z of P = ceil(D / n / 16)
+//    * 16 columns each (the last D - (n - 1) P: 320 -> 2 x 160, 384 -> 2 x
+//    192, 640 -> 224, 224, 192), and a block accumulates kAcc = ceil(P / 64)
+//    * 64 of them (192 or 256) and stores its P. Each z block recomputes all
+//    of S = Q K^T over the whole head dim: at n panels the scores cost n
+//    times what one block would spend (at D 320, 2 x 320 columns of Q.K^T
+//    products and 2 x 192 of P.V a key, where 320 + 320 would do with no
+//    split: 1.6x the products). panel_plan is the one rule;
+//    kernels/attention.py::wide_forward_plan mirrors it and
+//    attention_forward_plan exports it.
+//  * A stream of items. A block walks one sequence of ring items: for each
+//    64-key tile the scores' operands, then (K2, and K1's second pass) the
+//    tile's V columns of the block's panel. While Q fits beside the ring
+//    (D <= 256, one panel) it stays in shared memory for the whole block,
+//    loaded once, and a tile's scores are one item, its K over all of D;
+//    above 256 they are D / 64 items, each a 64-column chunk of Q and of K,
+//    so that shared memory does not grow with D (Q is read again from L2 for
+//    every key tile). K1 first walks every tile's score items once (pass 1:
+//    each row's max and normaliser), then recomputes the scores and
+//    normalises p before it rounds it (bf16) and multiplies it by V, as
+//    _fused_attn_kernel does; K2 runs K2's online softmax. Shared memory is
+//    independent of Lk, so K1 takes any Lk.
+//  * bf16: two consumer warpgroups of 64 query rows (128 a block, 256
+//    threads, 255 registers a thread: a 64 x 256 accumulator is 128 of
+//    them), warp 0 the producer in line as in attention_flash_wgmma_inline:
+//    it starts item i + kPanelStages once the block has consumed item i.
+//    Items come by TMA (the 128-byte swizzle) into a ring of four slots of
+//    kAcc / 64 x 8 KB; S = Q K^T by wgmma.m64n64k16 from shared memory, the
+//    softmax in mma.sync's accumulator layout, p rounded to bf16 and
+//    repacked in registers as the A operand of P.V (m64n64k16, V MN-major
+//    from the slot). A separate template instance, not a flag on the in-line
+//    K2 body: the panel offsets, the streamed Q and the two passes are
+//    runtime paths that the D 192/256 K2 body does not carry, and ptxas
+//    sized that body's 255 registers without them.
+//  * float32: 64 query rows a block of 256 threads, a 16 x 16 grid of
+//    threads: thread (ty, tx) owns the scores of rows ty + 16 i and keys
+//    tx + 16 j (4 x 4) and the output of rows ty + 16 i and the float4
+//    columns 4 tx + 64 c (4 x kAcc / 64 float4s). Operands come from shared
+//    rows padded by 4 floats as float4s, at compile-time strides: 64 FMAs
+//    for 8 shared loads in S, 256 for 20 in P.V (p goes through shared
+//    memory, since a row's keys are spread over 16 threads). Items come by
+//    16-byte cp.async into two slots, the next item loading under the
+//    current one's products. It runs at about half the FP32 FMA rate; a
+//    warp-tiled layout with a third fewer shared wavefronts in S and half
+//    in P.V (rows 4 apart, a row's max and sum meeting across two warps in
+//    shared memory) was no faster (PERF.md), so the wavefronts are not
+//    what holds it.
+//  * Bound: K1 at the VITW DETR's float32 (8, 4, 197, 197, 256) does 1.3
+//    GFLOP of Q.K^T and P.V, 0.019 ms at 67 TFLOP/s of FP32 FMAs (K1's
+//    second Q.K^T adds half of that again); bf16 K2 at (8, 4, 1008, 1008,
+//    320) 5.2 GFLOP, 0.005 ms at 989 TFLOP/s, and with its two panels about
+//    1.5x that.
+constexpr int kPanelMax = 256;   // most output columns a block accumulates
+constexpr int kPanelKeys = 64;   // keys a tile
+constexpr int kPanelStages = 4;  // bf16: slots of the ring
+
+struct PanelPlan {
+  int panels;  // blocks on grid z
+  int cols;    // output columns a block stores (the last block D - (panels - 1) cols)
+  int acc;     // columns a block accumulates: 192 or 256
+};
+__host__ __device__ constexpr PanelPlan panel_plan(int D) {
+  const int n = (D + kPanelMax - 1) / kPanelMax;
+  const int cols = ((D + n - 1) / n + 15) / 16 * 16;
+  return {n, cols, (cols + kPanel - 1) / kPanel * kPanel};
+}
+
+// Item i of a block's stream: tile t and, among the tile's nqk score
+// items, c; c == nqk is the tile's V (the second pass). K1 walks the
+// tiles' score items once before.
+struct PanelItem {
+  int t, c;
+};
+__device__ __forceinline__ PanelItem panel_item(int i, int tiles, int nqk, bool two_pass) {
+  const int p1 = two_pass ? tiles * nqk : 0;
+  if (i < p1) return {i / nqk, i % nqk};
+  i -= p1;
+  return {i / (nqk + 1), i % (nqk + 1)};
+}
+__device__ __forceinline__ int panel_items(int tiles, int nqk, bool two_pass) {
+  return (two_pass ? tiles * nqk : 0) + tiles * (nqk + 1);
+}
+
+// ----------------------------------------------------- bf16, wgmma and TMA
+// Shared memory, byte offsets from a 1024-byte aligned base: Q when it stays
+// (kNp panels of 128 rows), the ring's slots of kNp x 64 keys x 128 B (a K
+// tile over all of D; a 128-row Q chunk, then a 64-key K chunk; or a V tile
+// of kNp panels), a key-bias vector a slot (written with a tile's last
+// score item), and the mbarriers (Q, full[s], empty[s]).
+template <int kAcc> struct PanelLayout {
+  static constexpr int kNp = kAcc / kPanel;
+  static constexpr uint32_t kSlot = kNp * kPanelKeys * 128;
+  static constexpr uint32_t kQ = kNp * kWgRows * 128;
+  static constexpr uint32_t kQChunk = kWgRows * 128;  // a streamed Q chunk; its K chunk follows
+  __host__ __device__ static constexpr uint32_t ring(bool resident) { return resident ? kQ : 0; }
+  __host__ __device__ static constexpr uint32_t bias(bool resident) { return ring(resident) + kPanelStages * kSlot; }
+  __host__ __device__ static constexpr uint32_t bars(bool resident) {
+    return bias(resident) + kPanelStages * kPanelKeys * 4;
+  }
+  __host__ __device__ static constexpr size_t smem(bool resident) {
+    return bars(resident) + 8 * (1 + 2 * kPanelStages) + 1024;
+  }
+  static_assert(kQChunk + kPanelKeys * 128 <= kSlot, "a Q and a K chunk fit a slot");
+  static_assert(kSlot % 1024 == 0 && kQ % 1024 == 0, "swizzle atoms are 1024-byte aligned");
+};
+static_assert(PanelLayout<256>::smem(true) <= 232448, "a block's shared memory");
+
+// K1's second pass over a tile's N scores in sc (mma.sync's layout): p =
+// 2^(s * scale + bias - mu) * inv, with the rows' max mu and 1 / sum from
+// the first pass.
+template <int N>
+__device__ __forceinline__ void normalized_p(float (&sc)[N / 2], const float* bias, float scale,
+                                             const float (&mu)[2], const float (&inv)[2]) {
+  const int t4 = threadIdx.x % 4;
+#pragma unroll
+  for (int n = 0; n < N / 8; ++n) {
+    const float2 bb = *reinterpret_cast<const float2*>(bias + 8 * n + 2 * t4);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) sc[4 * n + e] = ex2(fmaf(sc[4 * n + e], scale, e % 2 ? bb.y : bb.x) - mu[e / 2]) * inv[e / 2];
+  }
+}
+
+// Write a warp's 16 rows (from row0) of a 64 x N accumulator times f[r]
+// into columns [col0, col0 + min(N, ncols)) of bf16 rows of D values; rows
+// at or past L are skipped.
+template <int N>
+__device__ __forceinline__ void store_acc_cols(const float (&a)[N / 2], const float (&f)[2], bf16* x_bh, int D,
+                                               int row0, int L, int col0, int ncols) {
+  const int lane = threadIdx.x % 32, t = lane % 4;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + lane / 4 + 8 * r;
+    if (row >= L) continue;
+    uint32_t* dst = reinterpret_cast<uint32_t*>(x_bh + (size_t)row * D + col0);
+#pragma unroll
+    for (int dn = 0; dn < N / 8; ++dn)
+      if (8 * dn < ncols) dst[4 * dn + t] = pack_bf16(a[4 * dn + 2 * r] * f[r], a[4 * dn + 2 * r + 1] * f[r]);
+  }
+}
+
+// K1 (kTwoPass) and K2 in bf16 above head dim 128. Grid (ceil(Lq / 128),
+// B*H, panels), 256 threads, PanelLayout<kAcc>::smem(D == kAcc) bytes.
+template <int kAcc, bool kTwoPass>
+__global__ void __launch_bounds__(kWgConsumerThreads, 1)
+attention_panels_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv, const uint8_t* __restrict__ mask,
+                       bf16* __restrict__ out, float* __restrict__ lse, int H, int Lq, int Lk, int D, int P,
+                       float scale_log2) {
+  using L = PanelLayout<kAcc>;
+  constexpr int kNp = L::kNp, S = kPanelStages;
+  extern __shared__ __align__(128) uint8_t smem_raw[];
+  const WgSmem sm(smem_raw);
+  const bool resident = D == kAcc;  // one panel: Q stays
+  const uint32_t s_q = sm.base, ring = sm.base + L::ring(resident), bar_q = sm.base + L::bars(resident);
+  float* bias0 = reinterpret_cast<float*>(sm.ptr + L::bias(resident));
+  auto slot = [&](int s) { return ring + s * L::kSlot; };
+  auto full = [&](int s) { return bar_q + 8 * (1 + s); };
+  auto empty = [&](int s) { return bar_q + 8 * (1 + S + s); };
+
+  const int q0 = blockIdx.x * kWgRows, bh = blockIdx.y, c0 = blockIdx.z * P, tid = threadIdx.x;
+  const int ncols = min(P, D - c0);
+  const uint8_t* mask_b = mask ? mask + (size_t)(bh / H) * Lk : nullptr;
+  const int tiles = (Lk + kPanelKeys - 1) / kPanelKeys, nqk = resident ? 1 : D / kPanel;
+  const int total = panel_items(tiles, nqk, kTwoPass);
+  if (tid == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full(s), 32);  // warp 0's lanes, each after its bias values
+      mbar_init(empty(s), kWgConsumerThreads);
+    }
+    mbar_init_fence();
+  }
+  const bool all_masked = !any_valid_key(mask_b, Lk);  // also the barrier for the init
+
+  // Warp 0's producer work for item i: wait until item i - S has been
+  // consumed, write the tile's key bias with its last score item, then
+  // start the item's loads (lane 0; the other lanes arrive on full once
+  // their bias values are written). V boxes that start past D are not
+  // loaded: their columns are past the block's panel.
+  auto load = [&](int i) {
+    const int s = i % S, lane = tid;
+    if (i >= S) mbar_wait(empty(s), (i / S - 1) & 1);
+    const PanelItem it = panel_item(i, tiles, nqk, kTwoPass);
+    const int k0 = it.t * kPanelKeys;
+    if (it.c == nqk - 1)
+      for (int j = lane; j < kPanelKeys; j += 32) bias0[s * kPanelKeys + j] = key_bias(mask_b, k0 + j, Lk, all_masked);
+    if (lane == 0) {
+      if (it.c == nqk) {
+        const int boxes = min(kNp, (D - c0 + kPanel - 1) / kPanel);
+        mbar_expect_tx(full(s), boxes * kPanelKeys * 128);
+        for (int h = 0; h < boxes; ++h) tma_load(slot(s) + h * kPanelKeys * 128, &tv, c0 + h * kPanel, k0, bh, full(s));
+      } else if (resident) {
+        mbar_expect_tx(full(s), L::kSlot);
+#pragma unroll
+        for (int h = 0; h < kNp; ++h) tma_load(slot(s) + h * kPanelKeys * 128, &tk, h * kPanel, k0, bh, full(s));
+      } else {
+        mbar_expect_tx(full(s), L::kQChunk + kPanelKeys * 128);
+        tma_load(slot(s), &tq, it.c * kPanel, q0, bh, full(s));
+        tma_load(slot(s) + L::kQChunk, &tk, it.c * kPanel, k0, bh, full(s));
+      }
+    } else {
+      mbar_arrive(full(s));
+    }
+  };
+  if (tid < 32) {  // warp 0: Q, then the ring's first items
+    if (resident && tid == 0) {
+      mbar_expect_tx(bar_q, L::kQ);
+#pragma unroll
+      for (int h = 0; h < kNp; ++h) tma_load(s_q + h * kWgRows * 128, &tq, h * kPanel, q0, bh, bar_q);
+    }
+    for (int i = 0; i < min(total, S); ++i) load(i);
+    __syncwarp();
+  }
+
+  const int wc = tid / kWgThreads, w = (tid / 32) % 4, lane = tid % 32, t4 = lane % 4;
+  const float scale = all_masked ? 0.f : scale_log2;
+  int i = 0;  // the item the block consumes next
+  auto release = [&] {  // the block has consumed item i
+    mbar_arrive(empty(i % S));
+    if (tid < 32 && i + S < total) {
+      load(i + S);
+      __syncwarp();
+    }
+    ++i;
+  };
+  // The scores of the next tile into sc; returns its key bias, in the slot
+  // of its last score item, which the caller releases once it has read it.
+  auto scores = [&](float (&sc)[kPanelKeys / 2]) -> const float* {
+    for (int c = 0; c < nqk; ++c) {
+      const int s = i % S;
+      mbar_wait(full(s), (i / S) & 1);
+      wgmma_fence();
+      if (resident) {
+#pragma unroll
+        for (int kk = 0; kk < kNp * 4; ++kk)
+          Gmma<kPanelKeys>::template ss<0>(sc, desc_k<kWgRows>(s_q, 64 * wc, kk),
+                                           desc_k<kPanelKeys>(slot(s), 0, kk), kk);
+      } else {
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          Gmma<kPanelKeys>::template ss<0>(sc, desc_k<kWgRows>(slot(s), 64 * wc, kk),
+                                           desc_k<kPanelKeys>(slot(s) + L::kQChunk, 0, kk), c + kk);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+      if (c + 1 < nqk) release();
+    }
+    return bias0 + (i % S) * kPanelKeys;
+  };
+
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, alpha[2], mu[2], inv[2];
+  if (resident) mbar_wait(bar_q, 0);
+  if constexpr (kTwoPass) {  // pass 1: each row's max and normaliser
+    for (int t = 0; t < tiles; ++t) {
+      float sc[kPanelKeys / 2];
+      const float* bias = scores(sc);
+      flash_softmax<kPanelKeys>(sc, bias, scale, m, l, alpha);
+      release();
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] = quad_sum(l[r]);
+      inv[r] = 1.f / l[r];
+      mu[r] = m[r] == -INFINITY ? 0.f : m[r];
+    }
+  }
+  float o[kNp][kPanel / 2];
+#pragma unroll
+  for (int h = 0; h < kNp; ++h)
+#pragma unroll
+    for (int e = 0; e < kPanel / 2; ++e) o[h][e] = 0.f;
+  for (int t = 0; t < tiles; ++t) {
+    float sc[kPanelKeys / 2];
+    const float* bias = scores(sc);
+    if constexpr (kTwoPass) {
+      normalized_p<kPanelKeys>(sc, bias, scale, mu, inv);
+    } else {
+      flash_softmax<kPanelKeys>(sc, bias, scale, m, l, alpha);
+#pragma unroll
+      for (int h = 0; h < kNp; ++h)
+#pragma unroll
+        for (int e = 0; e < kPanel / 2; ++e) o[h][e] *= alpha[(e / 2) % 2];
+    }
+    release();  // the tile's last score item: its bias has been read
+    uint32_t pa[kPanelKeys / 16][4];
+    pack_a<kPanelKeys>(sc, pa);
+    const int s = i % S;
+    mbar_wait(full(s), (i / S) & 1);
+    wgmma_fence();
+#pragma unroll
+    for (int h = 0; h < kNp; ++h)
+#pragma unroll
+      for (int kk = 0; kk < kPanelKeys / 16; ++kk)
+        Gmma<kPanel>::template rs<1>(o[h], pa[kk], desc_mn<kPanelKeys>(slot(s) + h * kPanelKeys * 128, kk));
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int h = 0; h < kNp; ++h) fence_regs(o[h]);
+    release();
+  }
+  if constexpr (!kTwoPass) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] = quad_sum(l[r]);
+      inv[r] = 1.f / l[r];
+    }
+  }
+  const int row0 = q0 + 64 * wc + 16 * w;
+  const float f[2] = {kTwoPass ? 1.f : inv[0], kTwoPass ? 1.f : inv[1]};
+#pragma unroll
+  for (int h = 0; h < kNp; ++h)
+    store_acc_cols<kPanel>(o[h], f, out + (size_t)bh * Lq * D, D, row0, Lq, c0 + h * kPanel, ncols - h * kPanel);
+  if (lse != nullptr && blockIdx.z == 0 && t4 == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + lane / 4 + 8 * r;
+      if (row < Lq) lse[(size_t)bh * Lq + row] = (m[r] + log2f(l[r])) * kLn2;
+    }
+  }
+}
+
+// ------------------------------------------------- float32, CUDA cores
+constexpr int kPanelLdP = kPanelKeys + 4;  // row stride of a tile's p (floats)
+constexpr int kPanelLdC = kPanel + 4;      // of a streamed 64-column chunk of Q or K
+
+// Shared memory in floats: Q when it stays (64 rows of D + 4), two ring
+// slots of 64 rows of kAcc + 4 (a K tile over all of D, which is then kAcc;
+// a Q chunk and a K chunk of 64 + 4; or a V tile of kAcc columns), and the
+// tile's p (64 x 68). Rows are padded by 4 floats so that the 16 threads
+// that read 16 rows as float4s meet every bank in two wavefronts.
+__host__ __device__ constexpr size_t panel_f32_smem_bytes(int D, int acc) {
+  return ((D <= acc ? (size_t)kRows * (D + 4) : 0) + 2 * (size_t)kRows * (acc + 4) + kRows * kPanelLdP) *
+         sizeof(float);
+}
+static_assert(2 * kPanelLdC <= 192 + 4, "a Q and a K chunk fit a slot");
+static_assert(panel_f32_smem_bytes(256, 256) <= 232448, "a block's shared memory");
+
+// Rows [0, n) of a float array with rows of ld_src from column 0 on, kCols
+// columns, into shared rows of ld_dst floats, a 16-byte cp.async each;
+// zero from row n and column w on.
+template <int kCols>
+__device__ __forceinline__ void stage_panel(float* dst, int ld_dst, const float* src, size_t ld_src, int n, int w) {
+  constexpr int kC4 = kCols / 4;
+  for (int idx = threadIdx.x; idx < kRows * kC4; idx += kThreads) {
+    const int r = idx / kC4, c = idx % kC4 * 4;
+    const bool ok = r < n && c < w;
+    cp_async16(smem_u32(dst + r * ld_dst + c), ok ? src + r * ld_src + c : src, ok);
+  }
+}
+
+// s[i][j] += a[ty + 16 i] . b[tx + 16 j] over DEPTH columns (rows of LD
+// floats, both compile-time, so that every shared load takes an immediate
+// offset), for key groups j < NJ: per step of 4 columns 4 + NJ float4 reads
+// and 16 NJ FMAs.
+template <int NJ, int LD, int DEPTH>
+__device__ __forceinline__ void panel_dots(float (&s)[4][4], const float* a, const float* b) {
+  a += (threadIdx.x / 16) * LD;
+  b += (threadIdx.x % 16) * LD;
+#pragma unroll 4
+  for (int d = 0; d < DEPTH; d += 4) {
+    float4 x[4], y[NJ];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) x[r] = *reinterpret_cast<const float4*>(a + 16 * r * LD + d);
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) y[j] = *reinterpret_cast<const float4*>(b + 16 * j * LD + d);
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+        s[r][j] = fmaf(x[r].w, y[j].w, fmaf(x[r].z, y[j].z, fmaf(x[r].y, y[j].y, fmaf(x[r].x, y[j].x, s[r][j]))));
+  }
+}
+// The same over a tile of nk keys: the groups of 16 keys that hold one.
+template <int LD, int DEPTH>
+__device__ __forceinline__ void panel_dots(float (&s)[4][4], const float* a, const float* b, int nk) {
+  if (nk > 48) panel_dots<4, LD, DEPTH>(s, a, b);
+  else if (nk > 32) panel_dots<3, LD, DEPTH>(s, a, b);
+  else if (nk > 16) panel_dots<2, LD, DEPTH>(s, a, b);
+  else panel_dots<1, LD, DEPTH>(s, a, b);
+}
+
+// o[i][c] += sum_j p[ty + 16 i][j] * v[j][4 tx + 64 c .. + 3] over the
+// keys j < nk (rounded up to 4; p is 0 past nk and v's rows are zero past
+// Lk): per 4 keys 4 + 4 kC4 float4 reads and 64 kC4 FMAs.
+template <int kC4>
+__device__ __forceinline__ void panel_pv(float4 (&o)[4][kC4], const float* sp, const float* sv, int ldv, int nk) {
+  sp += (threadIdx.x / 16) * kPanelLdP;
+  sv += 4 * (threadIdx.x % 16);
+  for (int j = 0; j < nk; j += 4) {
+    float4 p[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) p[r] = *reinterpret_cast<const float4*>(sp + 16 * r * kPanelLdP + j);
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+      float4 y[kC4];
+#pragma unroll
+      for (int c = 0; c < kC4; ++c) y[c] = *reinterpret_cast<const float4*>(sv + (j + jj) * ldv + 64 * c);
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const float pr = jj == 0 ? p[r].x : jj == 1 ? p[r].y : jj == 2 ? p[r].z : p[r].w;
+#pragma unroll
+        for (int c = 0; c < kC4; ++c) {
+          o[r][c].x = fmaf(pr, y[c].x, o[r][c].x);
+          o[r][c].y = fmaf(pr, y[c].y, o[r][c].y);
+          o[r][c].z = fmaf(pr, y[c].z, o[r][c].z);
+          o[r][c].w = fmaf(pr, y[c].w, o[r][c].w);
+        }
+      }
+    }
+  }
+}
+
+// Max and sum over the 16 lanes of a half warp (the threads of a row).
+__device__ __forceinline__ float half_max(float x) {
+#pragma unroll
+  for (int o = 1; o < 16; o *= 2) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+__device__ __forceinline__ float half_sum(float x) {
+#pragma unroll
+  for (int o = 1; o < 16; o *= 2) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+// K1 (kTwoPass) and K2 in float32 above head dim 128. Grid (ceil(Lq / 64),
+// B*H, panels), kThreads threads, panel_f32_smem_bytes(D, kAcc) bytes.
+template <int kAcc, bool kTwoPass>
+__global__ void __launch_bounds__(kThreads, 1)
+attention_panels_fma(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+                     const uint8_t* __restrict__ mask, float* __restrict__ out, float* __restrict__ lse, int H,
+                     int Lq, int Lk, int D, int P, float scale_log2) {
+  constexpr int kC4 = kAcc / 64;  // float4 output columns a thread
+  constexpr int kLdV = kAcc + 4, kSlot = kRows * kLdV;
+  extern __shared__ __align__(16) float fsm[];
+  const bool resident = D <= kAcc;  // one panel: Q stays
+  const int ldq = D + 4;
+  float* sq = fsm;
+  float* ring = fsm + (resident ? kRows * ldq : 0);
+  float* sp = ring + 2 * kSlot;
+
+  const int q0 = blockIdx.x * kRows, bh = blockIdx.y, c0 = blockIdx.z * P, tid = threadIdx.x;
+  const int ty = tid / 16, tx = tid % 16;
+  const int nq = min(kRows, Lq - q0), ncols = min(P, D - c0);
+  const uint8_t* mask_b = mask ? mask + (size_t)(bh / H) * Lk : nullptr;
+  const int tiles = (Lk + kPanelKeys - 1) / kPanelKeys, nqk = resident ? 1 : D / kPanel;
+  const int total = panel_items(tiles, nqk, kTwoPass);
+  const float* qb = q + ((size_t)bh * Lq + q0) * D;
+  const float* kb = k + (size_t)bh * Lk * D;
+  const float* vb = v + (size_t)bh * Lk * D;
+
+  auto issue = [&](int i) {  // item i's copies into slot i % 2
+    float* dst = ring + (i % 2) * kSlot;
+    const PanelItem it = panel_item(i, tiles, nqk, kTwoPass);
+    const int k0 = it.t * kPanelKeys, nk = min(kPanelKeys, Lk - k0);
+    if (it.c == nqk) {
+      stage_panel<kAcc>(dst, kLdV, vb + (size_t)k0 * D + c0, D, nk, D - c0);
+    } else if (resident) {
+      stage_panel<kAcc>(dst, ldq, kb + (size_t)k0 * D, D, nk, D);
+    } else {
+      stage_panel<kPanel>(dst, kPanelLdC, qb + it.c * kPanel, D, nq, kPanel);
+      stage_panel<kPanel>(dst + kRows * kPanelLdC, kPanelLdC, kb + (size_t)k0 * D + it.c * kPanel, D, nk, kPanel);
+    }
+  };
+  if (resident) stage_panel<kAcc>(sq, ldq, qb, D, nq, D);
+  issue(0);
+  cp_async_commit();
+  const bool all_masked = !any_valid_key(mask_b, Lk);
+  int i = 0;  // the item the block consumes next
+  auto acquire = [&]() -> const float* {  // start item i + 1, wait for item i
+    if (i + 1 < total) issue(i + 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    return ring + (i % 2) * kSlot;
+  };
+  auto release = [&] {  // every thread is done with item i's slot
+    __syncthreads();
+    ++i;
+  };
+  // This thread's scaled, biased scores (log2 domain) of the tile at k0.
+  auto scores = [&](int k0, float (&s)[4][4]) {
+    const int nk = min(kPanelKeys, Lk - k0);
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[r][j] = 0.f;
+    for (int c = 0; c < nqk; ++c) {
+      const float* sl = acquire();
+      if (resident) panel_dots<kAcc + 4, kAcc>(s, sq, sl, nk);  // D == kAcc
+      else panel_dots<kPanelLdC, kPanel>(s, sl, sl + kRows * kPanelLdC, nk);
+      release();
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int key = k0 + tx + 16 * j;
+      const bool valid = key < Lk && (all_masked || mask_b == nullptr || mask_b[key]);
+#pragma unroll
+      for (int r = 0; r < 4; ++r) s[r][j] = !valid ? -INFINITY : all_masked ? 0.f : s[r][j] * scale_log2;
+    }
+  };
+
+  float m[4], l[4], inv[4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r) m[r] = -INFINITY, l[r] = 0.f, inv[r] = 1.f;
+  if constexpr (kTwoPass) {  // pass 1: each row's max and normaliser
+    for (int t = 0; t < tiles; ++t) {
+      float s[4][4];
+      scores(t * kPanelKeys, s);
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const float m_new = fmaxf(m[r], half_max(fmaxf(fmaxf(s[r][0], s[r][1]), fmaxf(s[r][2], s[r][3]))));
+        const float mu = m_new == -INFINITY ? 0.f : m_new;
+        float sum = 0.f;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) sum += exp2f(s[r][j] - mu);
+        l[r] = l[r] * exp2f(m[r] - mu) + sum;
+        m[r] = m_new;
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      l[r] = half_sum(l[r]);
+      inv[r] = 1.f / l[r];
+    }
+  }
+  float4 o[4][kC4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int c = 0; c < kC4; ++c) o[r][c] = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int t = 0; t < tiles; ++t) {
+    const int k0 = t * kPanelKeys;
+    float s[4][4];
+    scores(k0, s);
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      if constexpr (kTwoPass) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) s[r][j] = exp2f(s[r][j] - m[r]) * inv[r];
+      } else {
+        const float m_new = fmaxf(m[r], half_max(fmaxf(fmaxf(s[r][0], s[r][1]), fmaxf(s[r][2], s[r][3]))));
+        const float mu = m_new == -INFINITY ? 0.f : m_new;
+        const float alpha = exp2f(m[r] - mu);  // 0 while m is -inf
+        float sum = 0.f;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          s[r][j] = exp2f(s[r][j] - mu);
+          sum += s[r][j];
+        }
+        l[r] = l[r] * alpha + sum;
+        m[r] = m_new;
+#pragma unroll
+        for (int c = 0; c < kC4; ++c) o[r][c] = make_float4(o[r][c].x * alpha, o[r][c].y * alpha, o[r][c].z * alpha,
+                                                            o[r][c].w * alpha);
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) sp[(ty + 16 * r) * kPanelLdP + tx + 16 * j] = s[r][j];
+    }
+    const float* sv = acquire();  // the tile's V; its barrier also publishes p
+    panel_pv<kC4>(o, sp, sv, kLdV, min(kPanelKeys, Lk - k0));
+    release();
+  }
+  if constexpr (!kTwoPass) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      l[r] = half_sum(l[r]);
+      inv[r] = 1.f / l[r];
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int row = ty + 16 * r;
+    if (row >= nq) continue;
+    const float f = kTwoPass ? 1.f : inv[r];
+    float* orow = out + ((size_t)bh * Lq + q0 + row) * D + c0;
+#pragma unroll
+    for (int c = 0; c < kC4; ++c)
+      if (4 * tx + 64 * c < ncols)
+        *reinterpret_cast<float4*>(orow + 4 * tx + 64 * c) =
+            make_float4(o[r][c].x * f, o[r][c].y * f, o[r][c].z * f, o[r][c].w * f);
+    if (lse != nullptr && blockIdx.z == 0 && tx == 0) lse[(size_t)bh * Lq + q0 + row] = (m[r] + log2f(l[r])) * kLn2;
+  }
 }
 
 // ===================================================================== launch
@@ -2702,6 +3167,54 @@ cudaError_t launch_backward_wgmma(const bf16* q, const bf16* k, const bf16* v, c
   return cudaGetLastError();
 }
 
+// The forwards above head dim 128 that take the panel bodies: bf16 K1 at
+// every D and bf16 K2 above 256 (attention_panels_wgmma), float32 K1 and K2
+// (attention_panels_fma). flash: K2 (online softmax), else K1 (two passes).
+bool panel_plan_ok(int D) {
+  const PanelPlan p = panel_plan(D);
+  return D > 128 && D % kPanel == 0 && (p.acc == 192 || p.acc == 256) && D - (p.panels - 1) * p.cols > 0;
+}
+
+size_t panel_smem_bytes(int dtype, int D) {
+  const PanelPlan p = panel_plan(D);
+  if (dtype == 0) return panel_f32_smem_bytes(D, p.acc);
+  return p.acc == 192 ? PanelLayout<192>::smem(D == 192) : PanelLayout<256>::smem(D == 256);
+}
+
+cudaError_t launch_panels(bool flash, const bf16* q, const bf16* k, const bf16* v, const uint8_t* mask, bf16* out,
+                          float* lse, int B, int H, int Lq, int Lk, int D, float scale_log2, cudaStream_t stream) {
+  if (!panel_plan_ok(D) || B * H > 65535) return cudaErrorInvalidValue;
+  const PanelPlan p = panel_plan(D);
+  cudaError_t err = bind_device(q);
+  if (err != cudaSuccess) return err;
+  CUtensorMap tq, tk, tv;
+  if (!head_map(&tq, q, B * H, Lq, D, kWgRows) || !head_map(&tk, k, B * H, Lk, D, kPanelKeys) ||
+      !head_map(&tv, v, B * H, Lk, D, kPanelKeys))
+    return cudaErrorInvalidValue;
+  const auto kernel = p.acc == 192 ? (flash ? attention_panels_wgmma<192, false> : attention_panels_wgmma<192, true>)
+                                   : (flash ? attention_panels_wgmma<256, false> : attention_panels_wgmma<256, true>);
+  const size_t smem = panel_smem_bytes(1, D);
+  if ((err = allow_smem(kernel, smem)) != cudaSuccess) return err;
+  const dim3 grid((Lq + kWgRows - 1) / kWgRows, B * H, p.panels);
+  kernel<<<grid, kWgConsumerThreads, smem, stream>>>(tq, tk, tv, mask, out, lse, H, Lq, Lk, D, p.cols, scale_log2);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_panels(bool flash, const float* q, const float* k, const float* v, const uint8_t* mask,
+                          float* out, float* lse, int B, int H, int Lq, int Lk, int D, float scale_log2,
+                          cudaStream_t stream) {
+  if (!panel_plan_ok(D) || B * H > 65535) return cudaErrorInvalidValue;
+  const PanelPlan p = panel_plan(D);
+  const auto kernel = p.acc == 192 ? (flash ? attention_panels_fma<192, false> : attention_panels_fma<192, true>)
+                                   : (flash ? attention_panels_fma<256, false> : attention_panels_fma<256, true>);
+  const size_t smem = panel_smem_bytes(0, D);
+  const cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((Lq + kRows - 1) / kRows, B * H, p.panels);
+  kernel<<<grid, kThreads, smem, stream>>>(q, k, v, mask, out, lse, H, Lq, Lk, D, p.cols, scale_log2);
+  return cudaGetLastError();
+}
+
 // K1's grid: `blocks` query-row blocks per (batch*head) of `threads`
 // threads each, as kernels/attention.py::whole_kv_plan gives it. K2's grid
 // has no choice in it and is set here. lse may be null; K1's bf16 body
@@ -2777,7 +3290,7 @@ int dispatch(bool flash, int dtype, const void* q, const void* k, const void* v,
   const uint8_t* m = static_cast<const uint8_t*>(mask);
   float* l = static_cast<float*>(lse);
   cudaError_t err = cudaErrorInvalidValue;
-  if (flash && dtype == 1 && (D == 192 || D == 256)) {  // bf16 K2 above 128: the Hopper bodies
+  if (flash && dtype == 1 && (D == 192 || D == 256)) {  // bf16 K2 at 192 and 256: the in-line Hopper body
     const bf16 *bq = static_cast<const bf16*>(q), *bk = static_cast<const bf16*>(k),
                *bv = static_cast<const bf16*>(v);
     bf16* bo = static_cast<bf16*>(out);
@@ -2785,15 +3298,15 @@ int dispatch(bool flash, int dtype, const void* q, const void* k, const void* v,
                    : launch_flash_wgmma<256>(bq, bk, bv, m, bo, l, B, H, Lq, Lk, scale_log2, s);
     return (int)err;
   }
-  if (D > 128) {  // the chunked bodies (C.7); K1's grid arguments do not apply
+  if (D > 128) {  // every other forward above 128: the panel bodies; K1's grid arguments do not apply
     if (dtype == 0)
-      err = launch_wide(flash, static_cast<const float*>(q), static_cast<const float*>(k),
-                        static_cast<const float*>(v), m, static_cast<float*>(out), l, B, H, Lq, Lk, D,
-                        scale_log2, s);
+      err = launch_panels(flash, static_cast<const float*>(q), static_cast<const float*>(k),
+                          static_cast<const float*>(v), m, static_cast<float*>(out), l, B, H, Lq, Lk, D,
+                          scale_log2, s);
     if (dtype == 1)
-      err = launch_wide(flash, static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-                        static_cast<const bf16*>(v), m, static_cast<bf16*>(out), l, B, H, Lq, Lk, D,
-                        scale_log2, s);
+      err = launch_panels(flash, static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                          static_cast<const bf16*>(v), m, static_cast<bf16*>(out), l, B, H, Lq, Lk, D,
+                          scale_log2, s);
     return (int)err;
   }
   if (dtype == 0) {
@@ -2942,10 +3455,14 @@ const Entry kKernels[] = {
     {"attention_bwd_dkdv_kernel<float,32>", (const void*)attention_bwd_dkdv_kernel<32>},
     {"attention_bwd_dkdv_kernel<float,64>", (const void*)attention_bwd_dkdv_kernel<64>},
     {"attention_bwd_dkdv_kernel<float,128>", (const void*)attention_bwd_dkdv_kernel<128>},
-    {"attention_wide<bf16,K1>", (const void*)attention_wide<bf16, true>},
-    {"attention_wide<bf16,K2>", (const void*)attention_wide<bf16, false>},
-    {"attention_wide<float,K1>", (const void*)attention_wide<float, true>},
-    {"attention_wide<float,K2>", (const void*)attention_wide<float, false>},
+    {"attention_panels_wgmma<bf16,192,K1>", (const void*)attention_panels_wgmma<192, true>},
+    {"attention_panels_wgmma<bf16,256,K1>", (const void*)attention_panels_wgmma<256, true>},
+    {"attention_panels_wgmma<bf16,192,K2>", (const void*)attention_panels_wgmma<192, false>},
+    {"attention_panels_wgmma<bf16,256,K2>", (const void*)attention_panels_wgmma<256, false>},
+    {"attention_panels_fma<float,192,K1>", (const void*)attention_panels_fma<192, true>},
+    {"attention_panels_fma<float,256,K1>", (const void*)attention_panels_fma<256, true>},
+    {"attention_panels_fma<float,192,K2>", (const void*)attention_panels_fma<192, false>},
+    {"attention_panels_fma<float,256,K2>", (const void*)attention_panels_fma<256, false>},
     {"attention_wide_bwd_dq<bf16>", (const void*)attention_wide_bwd_dq<bf16>},
     {"attention_wide_bwd_dkdv<bf16>", (const void*)attention_wide_bwd_dkdv<bf16>},
     {"attention_wide_bwd_dq<float>", (const void*)attention_wide_bwd_dq<float>},
@@ -2957,14 +3474,14 @@ const Entry kKernels[] = {
 // Plain C interface, loaded with ctypes. dtype: 0 = float32, 1 = bfloat16.
 // mask: (B, Lk) bytes (torch.bool), or null for no mask. lse: (B, H, Lq)
 // float32, or null to write none. D: 16, 32, 64, 128, or a multiple of 64
-// above 128 (bf16 K2 and the pair at 192 and 256 on the Hopper bodies, the
-// rest on the chunked ones, which take any lse); scale: the softmax
-// scale, 1/sqrt of the head dim before any zero padding (the wrapper pads
-// other head dims). stream: a cudaStream_t. Returns the
-// cudaError_t of the launch (0 = success). K1 takes its grid (blocks per
-// batch*head, threads a block) from kernels/attention.py::whole_kv_plan, and
-// refuses one that leaves query rows without a warp, and an lse pointer in
-// bf16 (cudaErrorInvalidValue).
+// above 128 (bf16 K2 at 192 and 256 on the in-line Hopper body, every other
+// forward there on the panel bodies, which take any lse, and set their own
+// grid); scale: the softmax scale, 1/sqrt of the head dim before any zero
+// padding (the wrapper pads other head dims). stream: a cudaStream_t.
+// Returns the cudaError_t of the launch (0 = success). K1 up to 128 takes
+// its grid (blocks per batch*head, threads a block) from
+// kernels/attention.py::whole_kv_plan, and refuses one that leaves query
+// rows without a warp, and an lse pointer in bf16 (cudaErrorInvalidValue).
 extern "C" int attention_whole_kv(int dtype, const void* q, const void* k, const void* v,
                                   const void* mask, void* out, void* lse, int B, int H, int Lq,
                                   int Lk, int D, float scale, int blocks, int threads,
@@ -3003,6 +3520,21 @@ extern "C" int attention_backward(int dtype, const void* q, const void* k, const
 // this dtype, Lq and head dim; -1 for a dtype or Lq it does not take.
 extern "C" int attention_backward_scratch_rows(int dtype, int Lq, int D) {
   return (dtype == 0 || dtype == 1) && Lq >= 0 ? scratch_rows(dtype, Lq, D) : -1;
+}
+
+// The panel plan of a forward above head dim 128 at this dtype and head
+// dim D (a multiple of 64): blocks on grid z, output columns a block
+// (the last one D - (panels - 1) cols), columns a block accumulates, and
+// dynamic shared bytes a block. Returns cudaErrorInvalidValue for a dtype or
+// D the panel bodies do not take.
+extern "C" int attention_forward_plan(int dtype, int D, int* panels, int* cols, int* acc, int* smem) {
+  if ((dtype != 0 && dtype != 1) || !panel_plan_ok(D)) return (int)cudaErrorInvalidValue;
+  const PanelPlan p = panel_plan(D);
+  *panels = p.panels;
+  *cols = p.cols;
+  *acc = p.acc;
+  *smem = (int)panel_smem_bytes(dtype, D);
+  return 0;
 }
 
 // The compiled resources of attention kernel i (0 <= i < count, in the order

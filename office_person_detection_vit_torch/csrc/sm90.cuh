@@ -6,8 +6,8 @@
 // products (wgmma) with their shared-memory descriptors, fences and waits.
 //
 // Each source that includes this header gets its own copy (the unnamed
-// namespace), so the one nvcc call that links every csrc/*.cu into one
-// library sees no duplicate symbols.
+// namespace), so the link of every csrc/*.cu's object into one library
+// sees no duplicate symbols.
 
 #pragma once
 

@@ -23,22 +23,28 @@ the softmax scale of the true head dim passed to the kernel: zero columns add
 nothing to a dot product, so the scores, the log-sum-exp and the kept columns
 of every result are those of the unpadded call. Above 128 a head dim is
 padded the same way up to the next multiple of :data:`WIDE_CHUNK`, so every
-head dim runs: bf16 K2 and the pair take the Hopper bodies at 192 and 256,
-and everything else the chunked bodies (``attention_wide*`` in the source,
-C.7), which take any such multiple.
+head dim runs: bf16 K2 and the pair take the Hopper bodies at 192 and 256;
+every other forward there takes the panel bodies (``attention_panels_*`` in
+the source: bf16 on ``wgmma`` and TMA, float32 on register-tiled FP32 FMAs;
+at most 256 output columns a block, more in column panels on grid z,
+:func:`wide_forward_plan`), and the float32 pair and the bf16 pair above 256
+the chunked bodies (``attention_wide_bwd_*``, C.7), which take any such
+multiple.
 
 In bf16 the forwards and the backward pair run their products on the tensor
-cores: K1, and K2 and the pair at head dims 16 and 32, on ``mma.sync``
-m16n8k16 (one warp per 16 query or key rows; :func:`whole_kv_plan` gives
-K1's grid); K2 and the pair at head dims 64, 128, 192 and 256 on Hopper's
-``wgmma`` with TMA loads (:func:`is_wgmma`; two warpgroups of 64 rows a
-block; the library sizes the pair's scratch). In float32 they keep a
+cores: K1 up to head dim 128, and K2 and the pair at head dims 16 and 32, on
+``mma.sync`` m16n8k16 (one warp per 16 query or key rows;
+:func:`whole_kv_plan` gives K1's grid); K2 at every head dim above 32, K1
+above 128 and the pair at head dims 64 to 256 on Hopper's ``wgmma`` with TMA
+loads (:func:`is_wgmma_forward`, :func:`is_wgmma_pair`; two warpgroups of 64
+rows a block; the library sizes the pair's scratch). In float32 they keep a
 CUDA-core body (four threads per row, 64-row blocks; at head dim 128 the
-four split the head dim instead of the keys).
+four split the head dim instead of the keys; above 128 the panel body's 16 x
+16 threads, each a 4 x 4 block of scores).
 
-The source is compiled with the port's other CUDA sources, in one ``nvcc``
-call for ``sm_90a``, into a shared library with a plain C interface at first
-use (:func:`load_library`, see ``kernels/build.py``) and bound with
+The source is compiled beside the port's other CUDA sources (an ``nvcc`` a
+source, in parallel) for ``sm_90a`` and linked with them into a shared
+library with a plain C interface at first use (:func:`load_library`, see ``kernels/build.py``) and bound with
 ``ctypes``. Importing this module builds nothing, so it imports on machines
 without ``nvcc`` or a card.
 
@@ -80,18 +86,21 @@ WARP_ROWS, TILE_KEYS = 16, 64
 #: tiny ViT), 32 (DETR full), 64 (ViT-base) and 128 (ViT-H's 80 padded, and
 #: any head up to 128). Others up to 128 are padded.
 HEAD_DIMS = (16, 32, 64, 128)
-#: Above 128 the chunked bodies sum Q.K^T over head-dim chunks of this width
-#: (kWideChunk in the source) and take any multiple of it.
+#: Above 128 a head dim is padded to a multiple of this width (kPanel in the
+#: source): the panel bodies stream Q and K in chunks of it above 256, and
+#: the chunked backward bodies sum Q.K^T over chunks of it.
 WIDE_CHUNK = 64
-#: bf16 K2 and the bf16 backward pair at these instantiated head dims run the
-#: Hopper bodies (``*_wgmma`` in the source: wgmma, TMA, warpgroups); above
-#: 256 they run the chunked bodies.
+#: The bf16 backward pair at these instantiated head dims runs the Hopper
+#: bodies (``*_wgmma`` in the source: wgmma, TMA, warpgroups); above 256 the
+#: chunked ones. bf16 K2 runs a Hopper body at every head dim above 32.
 WGMMA_HEAD_DIMS = (64, 128, 192, 256)
+#: Most output columns a panel body's block accumulates (kPanelMax); wider
+#: heads are cut into column panels on grid z.
+PANEL_MAX = 256
+#: bf16 panel body: query rows a block and slots of its ring of 64-key items
+#: (kWgRows, kPanelStages).
+PANEL_BF16_ROWS, PANEL_BF16_STAGES = 128, 4
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-#: Dynamic shared memory of the chunked forward body (wide_fwd_smem_bytes in
-#: the source): Q and K chunks and the tile's p (64 x 65 floats each), the V
-#: tile's output columns (64 x 129 floats) and a valid byte a key.
-WIDE_FWD_SMEM_BYTES = (3 * 64 * 65 + 64 * 129) * 4 + 64
 
 
 def reset_launch_counts() -> None:
@@ -132,9 +141,50 @@ def kernel_head_dim(head_dim: int) -> int:
 
 
 def is_wide(head_dim: int) -> bool:
-    """Whether ``head_dim`` is above 128, where K1 and float32 run the
-    chunked bodies (bf16 K2 and the pair too above 256, :func:`is_wgmma`)."""
+    """Whether ``head_dim`` is above 128, where every forward but bf16 K2 at
+    192 and 256 runs a panel body (:func:`wide_forward_plan`), and the
+    float32 pair and the bf16 pair above 256 the chunked bodies."""
     return kernel_head_dim(head_dim) > HEAD_DIMS[-1]
+
+
+def wide_forward_plan(head_dim: int, dtype: torch.dtype) -> dict:
+    """The panel bodies' launch above head dim 128 (``panel_plan`` and
+    ``panel_smem_bytes`` in the source, which ``attention_forward_plan``
+    exports): a block accumulates at most :data:`PANEL_MAX` output columns,
+    so the padded head dim D is cut into ``panels`` = ceil(D / 256) column
+    panels on grid z of ``panel_cols`` = ceil(D / panels / 16) * 16 columns
+    each (``widths``: the last takes the rest), a block accumulating
+    ``acc_cols`` = ceil(panel_cols / 64) * 64 of them. Q stays in shared
+    memory when there is one panel (D <= 256) and streams through the ring
+    in 64-column chunks beside K above it, so ``smem_bytes`` does not grow
+    with D beyond 256's, nor with Lk.
+
+    bf16 (128 query rows a block): Q, 128 rows x D x 2 B, when it stays; 4
+    ring slots of acc_cols / 64 x 8 KB; a 64-float key bias a slot; 9
+    mbarriers; 1 KB for the 1024-byte alignment. float32 (64 rows): Q, 64
+    rows of D + 4 floats, when it stays; 2 slots of 64 rows of acc_cols + 4
+    floats; the tile's p, 64 x 68 floats.
+    """
+    d = kernel_head_dim(head_dim)
+    if d <= HEAD_DIMS[-1]:
+        raise ValueError(f"head dim {head_dim} runs no panel body (those take head dims above 128)")
+    panels = _ceil(d, PANEL_MAX)
+    cols = _ceil(_ceil(d, panels), 16) * 16
+    widths = [cols] * (panels - 1) + [d - (panels - 1) * cols]
+    if widths[-1] <= 0:
+        raise ValueError(f"head dim {head_dim}: no panel plan")
+    acc = _ceil(cols, WIDE_CHUNK) * WIDE_CHUNK
+    resident = panels == 1
+    if dtype == torch.bfloat16:
+        np_ = acc // WIDE_CHUNK
+        smem = ((np_ * PANEL_BF16_ROWS * 128 if resident else 0) + PANEL_BF16_STAGES * np_ * 64 * 128
+                + PANEL_BF16_STAGES * 64 * 4 + 8 * (1 + 2 * PANEL_BF16_STAGES) + 1024)
+        rows = PANEL_BF16_ROWS
+    else:
+        smem = ((QUERY_TILE * (d + 4) if resident else 0) + 2 * QUERY_TILE * (acc + 4) + QUERY_TILE * 68) * 4
+        rows = QUERY_TILE
+    return {"head_dim": d, "panels": panels, "panel_cols": cols, "widths": widths, "acc_cols": acc,
+            "query_rows": rows, "smem_bytes": smem}
 
 
 def padded_call(fn, q, k, v, *like_q):
@@ -170,12 +220,12 @@ def whole_kv_smem_bytes(lk: int, head_dim: int, dtype: torch.dtype) -> int:
     D 32, 2*960*32*2 + 960*4 = 126,720 B. float32: K and V, the 64-row query
     tile and one mask byte per key: 2*920*32*4 + 64*32*4 + 920 = 244,632 B;
     at head dim 128 no query tile (each thread loads its quarter of the row):
-    2*197*128*4 + 197 = 201,925 B at ViT-H's 197 keys. Above 128 the
-    chunked body stages 64-key tiles, whatever Lk: 3 tiles of 64 x 65 and one
-    of 64 x 129 floats, and a byte a key of the tile (83,008 B).
+    2*197*128*4 + 197 = 201,925 B at ViT-H's 197 keys. Above 128 the panel
+    body's, whatever Lk (:func:`wide_forward_plan`): float32 at D 256
+    217,088 B, bf16 198,728 B.
     """
     if is_wide(head_dim):
-        return WIDE_FWD_SMEM_BYTES
+        return wide_forward_plan(head_dim, dtype)["smem_bytes"]
     head_dim = kernel_head_dim(head_dim)
     if dtype == torch.bfloat16:
         keys = _ceil(lk, TILE_KEYS) * TILE_KEYS
@@ -200,10 +250,15 @@ def whole_kv_plan(lq: int, lk: int, head_dim: int, dtype: torch.dtype) -> dict:
     over them. Only one block fits on an SM at DETR's 920 keys (126,720 B),
     so a block takes as many rows as it can: 920 rows are 58 warp tiles, 4
     blocks of 15 warps (480 threads); 100 rows (the decoder) one block of 7
-    warps. float32, and both types above head dim 128 (whose grid the
-    source sets itself): 64-row blocks of 256 threads.
+    warps. float32: 64-row blocks of 256 threads. Above head dim 128 the
+    source sets the panel body's grid itself, which this reports: blocks of
+    256 threads, 64 query rows (float32) or 128 (bf16), on each of the
+    plan's column panels (grid z, :func:`wide_forward_plan`).
     """
-    if dtype == torch.bfloat16 and not is_wide(head_dim):
+    if is_wide(head_dim):
+        wide = wide_forward_plan(head_dim, dtype)
+        blocks, threads = _ceil(lq, wide["query_rows"]), 4 * QUERY_TILE
+    elif dtype == torch.bfloat16:
         tiles = _ceil(lq, WARP_ROWS)
         blocks = _ceil(tiles, whole_kv_max_warps(head_dim))
         threads = 32 * _ceil(tiles, blocks)
@@ -229,17 +284,28 @@ def use_flash(lk: int, head_dim: int, dtype: torch.dtype) -> bool:
     otherwise (DETR-R50's 920 keys need 244,632 B; DC5's 3680 more).
     (The JAX package's 8 MB ``_FLASH_BYTES_THRESHOLD`` is a TPU VMEM figure
     and does not apply.)
-    Above head dim 128 K1 is the chunked body, which stages 64-key tiles
-    whatever Lk, so it always fits: bf16 takes K2 (at 192 and 256 the
-    Hopper body) and float32 K1, by the same rule.
+    Above head dim 128 K1 is the panel body, whose shared memory does not
+    depend on Lk, so it always fits: bf16 takes K2 (the in-line Hopper body
+    at 192 and 256, the bf16 panel body above) and float32 K1 (the float32
+    panel body), by the same rule.
     """
     return dtype == torch.bfloat16 or not whole_kv_fits(lk, head_dim, dtype)
 
 
-def is_wgmma(head_dim: int, dtype: torch.dtype) -> bool:
-    """Whether bf16 K2 and the backward pair of a call of ``head_dim`` run
-    the Hopper bodies: bf16 at an instantiated head dim of 64, 128, 192 or
-    256 (48, 80, 100, 136, 200 ... padded to them)."""
+def is_wgmma_forward(head_dim: int, dtype: torch.dtype, flash: bool = True) -> bool:
+    """Whether a forward of ``head_dim`` runs a Hopper body (wgmma, TMA):
+    bf16 K2 (``flash``) at every head dim above 32 (64 and 128 the
+    producer-warp body, 192 and 256 the in-line one, above 256 the panel
+    body), bf16 K1 above 128 (the panel body); K1 up to 128 and K2 at 16
+    and 32 run ``mma.sync``, float32 the CUDA cores."""
+    return dtype == torch.bfloat16 and kernel_head_dim(head_dim) > (32 if flash else HEAD_DIMS[-1])
+
+
+def is_wgmma_pair(head_dim: int, dtype: torch.dtype) -> bool:
+    """Whether the backward pair of a call of ``head_dim`` runs the Hopper
+    bodies: bf16 at an instantiated head dim of 64, 128, 192 or 256 (33 to
+    256: 48, 80, 100, 136, 200 ... padded to them); above 256 the chunked
+    bodies."""
     return dtype == torch.bfloat16 and kernel_head_dim(head_dim) in WGMMA_HEAD_DIMS
 
 
@@ -256,12 +322,29 @@ def load_library() -> ctypes.CDLL:
     # (dtype, Lq, D): the query rows of the backward's scratch a (batch*head)
     lib.attention_backward_scratch_rows.argtypes = [ctypes.c_int] * 3
     lib.attention_backward_scratch_rows.restype = ctypes.c_int
+    # (dtype, D, &panels, &cols, &acc, &smem): the panel bodies' plan
+    lib.attention_forward_plan.argtypes = [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)] * 4
+    lib.attention_forward_plan.restype = ctypes.c_int
     for name in launch_counts:
         getattr(lib, name).restype = ctypes.c_int
     fn = lib.attention_kernel_attributes
     fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_char_p)] + [ctypes.POINTER(ctypes.c_int)] * 4
     fn.restype = ctypes.c_int
     return lib
+
+
+def library_forward_plan(head_dim: int, dtype: torch.dtype) -> dict:
+    """The library's own panel plan at ``head_dim`` (padded) and ``dtype``
+    (``attention_forward_plan``), with :func:`wide_forward_plan`'s keys, to
+    hold that mirror against the source on the card."""
+    d = kernel_head_dim(head_dim)
+    vals = [ctypes.c_int() for _ in range(4)]
+    err = load_library().attention_forward_plan(_DTYPE_CODES[dtype], d, *map(ctypes.byref, vals))
+    if err != 0:
+        raise ValueError(f"the library has no panel plan at head dim {d} in {dtype} (error {err})")
+    panels, cols, acc, smem = (x.value for x in vals)
+    return {"panels": panels, "panel_cols": cols, "acc_cols": acc, "smem_bytes": smem,
+            "widths": [cols] * (panels - 1) + [d - (panels - 1) * cols]}
 
 
 def kernel_attributes() -> list[dict]:
@@ -337,7 +420,8 @@ def attention_whole_kv(q, k, v, key_padding_mask=None, *, with_lse: bool = False
     """K1: q (B,H,Lq,D), k/v (B,H,Lk,D), mask (B,Lk) bool True = valid.
 
     ``with_lse``: also return each query row's float32 log-sum-exp (B,H,Lq),
-    for the backward; the float32 body only (bf16 calls take K2)."""
+    for the backward; in float32, and in bf16 above head dim 128 (the panel
+    body; bf16 calls take K2 on the model paths)."""
     if q.device.type == "cpu":
         return _plain(q, k, v, key_padding_mask, with_lse)
     if not whole_kv_fits(k.shape[2], q.shape[3], q.dtype):

@@ -1,6 +1,7 @@
-"""Build and load the port's CUDA kernels: every ``csrc/*.cu`` source in one
-``nvcc`` call, for ``sm_90a``, into one shared library with a plain C
-interface, bound with ``ctypes``.
+"""Build and load the port's CUDA kernels: every ``csrc/*.cu`` source
+compiled by an ``nvcc`` of its own, all started together, for ``sm_90a``,
+then linked into one shared library with a plain C interface, bound with
+``ctypes``.
 
 The library is cached under ``_build/`` by a hash of every source, every
 header they include (``csrc/*.cuh``) and the flags (:func:`digest`), so
@@ -27,7 +28,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
 #: Shared memory one block may use on sm_90 (227 KB, opt-in dynamic).
@@ -61,9 +62,10 @@ def _nvcc() -> str:
 
 
 def build_library(defines: tuple[str, ...] = ()) -> Path:
-    """Compile every ``csrc/*.cu`` in one nvcc call (cached) -> .so path.
-    ``defines`` (``-D`` flags) builds a variant of the library, such as the
-    fused bottleneck's phase profile, cached under its own key."""
+    """Compile every ``csrc/*.cu`` (cached) -> .so path: one ``nvcc -c`` a
+    source, all running at once, then one ``nvcc -shared`` link. ``defines``
+    (``-D`` flags) builds a variant of the library, such as the fused
+    bottleneck's phase profile, cached under its own key."""
     srcs = sources()
     flags = (*NVCC_FLAGS, *defines)
     target = BUILD_DIR / f"libkernels_{digest(flags=flags)}.so"
@@ -71,19 +73,23 @@ def build_library(defines: tuple[str, ...] = ()) -> Path:
         return target
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        proc = subprocess.run(
-            [nvcc, *flags, "-o", tmp, *map(str, srcs)],
-            capture_output=True, text=True,
-        )
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [Path(tmp) / f"{src.stem}.o" for src in srcs]
+        procs = [subprocess.Popen([nvcc, *flags, "-c", "-o", str(obj), str(src)], stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True) for src, obj in zip(srcs, objs)]
+        failed = []
+        for src, proc in zip(srcs, procs):
+            _, err = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"{src.name} ({proc.returncode}):\n{err}")
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
+        lib = Path(tmp) / "libkernels.so"
+        proc = subprocess.run([nvcc, *flags, "-shared", "-o", str(lib), *map(str, objs)], capture_output=True,
+                              text=True)
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-        os.replace(tmp, target)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+            raise RuntimeError(f"nvcc failed to link ({proc.returncode}):\n{proc.stderr}")
+        os.replace(lib, target)
     return target
 
 

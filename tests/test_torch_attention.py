@@ -57,10 +57,11 @@ def test_reference_matches_jax_reference(shape, mask_frac):
 
 
 @pytest.mark.parametrize("mask_frac", [None, 0.3])
-@pytest.mark.parametrize("D", [32, 64, 48, 80, 128, 160])
+@pytest.mark.parametrize("D", [32, 64, 48, 80, 128, 160, 320, 384])
 def test_reference_matches_whole_kv_pallas(mask_frac, D):
     """The plain version (the kernels' twin, above 128 too: 160 runs the
-    chunked bodies on the card) against K1 in interpret mode."""
+    panel bodies on the card, 320 and 384 in two column panels) against K1
+    in interpret mode."""
     q, k, v, mask = _inputs(1, 2, 4, 37, 53, D, mask_frac)
     got = _port(q, k, v, mask)
     want = _jax(ref.attention_pallas, q, k, v, mask, interpret=True)
@@ -68,7 +69,8 @@ def test_reference_matches_whole_kv_pallas(mask_frac, D):
 
 
 @pytest.mark.parametrize("lq,lk,D", [(64, 64, 32), (100, 1008, 32), (197, 197, 64), (67, 131, 48), (67, 131, 80),
-                                     (67, 131, 128), (67, 131, 192), (67, 131, 256)])
+                                     (67, 131, 128), (67, 131, 192), (67, 131, 256), (67, 131, 320),
+                                     (67, 131, 384)])
 def test_reference_matches_flash_pallas(lq, lk, D):
     q, k, v, mask = _inputs(2, 2, 2, lq, lk, D, 0.2)
     got = _port(q, k, v, mask)
@@ -125,8 +127,8 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
 
 
 def test_one_library_builds_every_source():
-    """Both wrappers load the library that one nvcc call builds from every
-    ``csrc/*.cu``."""
+    """Both wrappers load the library that one build makes from every
+    ``csrc/*.cu`` (an nvcc a source, then one link)."""
     names = [p.name for p in build.sources()]
     assert names == ["attention.cu", "bottleneck.cu"]
 
@@ -235,9 +237,13 @@ def test_whole_kv_smem_arithmetic():
     assert kernels.whole_kv_smem_bytes(197, 48, torch.float32) == 117_445  # padded to 64
     assert kernels.whole_kv_smem_bytes(197, 80, torch.float32) == 201_925  # ViT-H: padded to 128, no query tile
     assert kernels.whole_kv_smem_bytes(197, 128, torch.bfloat16) == 132_096  # 256 keys
-    # above 128 the chunked body stages 64-key tiles whatever Lk (3 tiles of 64 x 65 floats, one of 64 x 129, a
-    # byte a key)
-    assert kernels.whole_kv_smem_bytes(4096, 256, torch.float32) == (3 * 64 * 65 + 64 * 129) * 4 + 64 == 83_008
+    # above 128 the panel bodies, whatever Lk: float32 Q (64 rows of 256 + 4 floats), two slots of the same and the
+    # tile's p (64 x 68 floats); bf16 Q (128 rows x 256 x 2 B), four slots of 4 x 8 KB, four 64-float bias vectors,
+    # nine mbarriers and 1 KB for the alignment
+    assert kernels.whole_kv_smem_bytes(4096, 256, torch.float32) == (3 * 64 * 260 + 64 * 68) * 4 == 217_088
+    assert kernels.whole_kv_smem_bytes(197, 256, torch.bfloat16) == 65_536 + 4 * 32_768 + 4 * 256 + 72 + 1024 == 198_728
+    # streamed Q above 256 (two panels of 160 columns, 192 accumulated): no Q, slots of 192 + 4 floats
+    assert kernels.whole_kv_smem_bytes(4096, 320, torch.float32) == (2 * 64 * 196 + 64 * 68) * 4 == 117_760
 
 
 @pytest.mark.parametrize(
@@ -278,6 +284,33 @@ def test_whole_kv_plan(lq, lk, d, dtype, blocks, threads):
         assert threads <= 32 * kernels.whole_kv_max_warps(d)
 
 
+
+@pytest.mark.parametrize("d", range(192, 1025, 64))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wide_forward_plan(d, dtype):
+    """The panel bodies' plan at every multiple of 64 from 192 to 1024: one
+    block on grid z a panel, at most 256 columns accumulated a block, panel
+    widths that are multiples of 16 and sum to D, Q kept only with one
+    panel, and shared memory that fits a block's 227 KB and does not grow
+    with D beyond 256's (nor with Lk: K1 fits at any)."""
+    plan = kernels.wide_forward_plan(d, dtype)
+    widths = plan["widths"]
+    assert plan["panels"] == len(widths) == -(-d // kernels.PANEL_MAX)
+    assert sum(widths) == d and all(w % 16 == 0 and 0 < w <= plan["panel_cols"] for w in widths)
+    assert plan["panel_cols"] <= plan["acc_cols"] <= kernels.PANEL_MAX and plan["acc_cols"] in (192, 256)
+    assert plan["acc_cols"] - plan["panel_cols"] < 64
+    assert plan["smem_bytes"] <= build.BLOCK_SMEM_BYTES
+    assert plan["smem_bytes"] <= kernels.wide_forward_plan(256, dtype)["smem_bytes"]
+    assert kernels.whole_kv_smem_bytes(100_000, d, dtype) == plan["smem_bytes"]
+    assert kernels.whole_kv_fits(100_000, d, dtype)
+    rows = 128 if dtype == torch.bfloat16 else 64
+    assert kernels.whole_kv_plan(197, 197, d, dtype) == {"blocks_per_head": -(-197 // rows), "threads": 256,
+                                                        "smem_bytes": plan["smem_bytes"]}
+    if d in (320, 384):  # two equal panels, as the source's note gives them
+        assert widths == [d // 2] * 2
+    if d == 640:
+        assert widths == [224, 224, 192]
+
 #: Every kernel instantiation the source names in its attributes table.
 _COMPILED = set(__import__("re").findall(r'\{"(attention_[^"]+)", \(const void\*\)',
                                          (build.CSRC / "attention.cu").read_text()))
@@ -286,20 +319,28 @@ _COMPILED = set(__import__("re").findall(r'\{"(attention_[^"]+)", \(const void\*
 @pytest.mark.parametrize("d", [16, 32, 48, 64, 80, 100, 128, 136, 192, 256, 320])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_hopper_bodies_take_bf16_at_64_and_128(d, dtype):
-    """is_wgmma (which labels the bench's rows) holds for bf16 at head dims
-    64, 128, 192 and 256 and those padded to them (136 to 192), and there
-    the source compiles K2 and the pair as Hopper bodies (K2 and both
+    """is_wgmma_pair (which labels the bench's rows) holds for bf16 at head
+    dims 64, 128, 192 and 256 and those padded to them (136 to 192), and
+    there the source compiles K2 and the pair as Hopper bodies (K2 and both
     kernels of the pair, in its attributes table; K2 and the dQ kernel as
     the in-line bodies above 128, ``*_wgmma_inline``) and no mma.sync body
-    of K2 or the pair is left; above 256 (320) bf16 stays on the chunked
-    bodies."""
-    hopper = dtype == torch.bfloat16 and 32 < d <= 256
-    assert kernels.is_wgmma(d, dtype) is hopper
-    if hopper:
-        kd = kernels.kernel_head_dim(d)
+    of K2 or the pair is left; above 256 (320) the bf16 pair stays on the
+    chunked bodies. is_wgmma_forward holds for bf16 K2 at every head dim
+    above 32 (320 on the panel body) and for bf16 K1 above 128, where the
+    source compiles the panel body for both kernels."""
+    pair = dtype == torch.bfloat16 and 32 < d <= 256
+    assert kernels.is_wgmma_pair(d, dtype) is pair
+    assert kernels.is_wgmma_forward(d, dtype) is (dtype == torch.bfloat16 and d > 32)
+    assert kernels.is_wgmma_forward(d, dtype, flash=False) is (dtype == torch.bfloat16 and d > 128)
+    kd = kernels.kernel_head_dim(d)
+    if pair:
         inline = "_inline" if kd > 128 else ""
         assert {f"attention_flash_wgmma{inline}<bf16,{kd}>", f"attention_bwd_dq_wgmma{inline}<bf16,{kd}>",
                 f"attention_bwd_dkdv_wgmma<bf16,{kd}>"} <= _COMPILED
+    if kd > 128:
+        acc = kernels.wide_forward_plan(d, dtype)["acc_cols"]
+        body = "attention_panels_wgmma<bf16" if dtype == torch.bfloat16 else "attention_panels_fma<float"
+        assert {f"{body},{acc},K1>", f"{body},{acc},K2>"} <= _COMPILED
     assert not any(n.startswith(("attention_flash_mma", "attention_bwd_dq_mma", "attention_bwd_dkdv_mma"))
                    and n.endswith((",64>", ",128>")) for n in _COMPILED)
 

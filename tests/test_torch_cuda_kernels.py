@@ -74,10 +74,10 @@ def _check_kernel(fn, q, k, v, mask, relative=False):
 # tiles, K1's blocks of up to 16 warps (920 rows: 4 blocks of 15 warps) and
 # the float32 kernels' 64-row blocks.
 LQ, LK = (1, 67, 100, 920), (1, 15, 131, 920, 1000)
-#: Head dims above 128 (C.7), at a multiple of 64 and padded: the chunked
-#: bodies in float32 and K1, the Hopper bodies in bf16 K2 up to 256, and the
-#: chunked bf16 K2 above it (320).
-WIDE_DIMS = (136, 192, 256, 320)
+#: Head dims above 128 (C.7), at a multiple of 64 and padded: the panel
+#: bodies in float32 and bf16 K1, the in-line Hopper body in bf16 K2 up to
+#: 256, and above 256 the panel bodies in two column panels (320, 384).
+WIDE_DIMS = (136, 192, 256, 320, 384)
 #: Lengths that cross the Hopper bodies' edges (bf16 at head dims 64 to
 #: 256): 64-row warpgroups, 128-row blocks, K2's 128-key tiles (64 above
 #: 128), the pair's 64-row tiles (32 at 256), and the ViT-base detect and
@@ -99,13 +99,16 @@ def test_kernel_matches_plain(card, fn, dtype, D, masked):
 @pytest.mark.parametrize("fn", [kernels.attention_whole_kv, kernels.attention_flash])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("D,lengths", [*((d, "detr") for d in (*kernels.HEAD_DIMS, 48, 80, *WIDE_DIMS)),
-                                       *((d, "hopper") for d in HOPPER_DIMS)])
+                                       *((d, "hopper") for d in HOPPER_DIMS), (256, "vitw_train")])
 @pytest.mark.parametrize("masked", [False, True])
 def test_kernel_matches_plain_at_tile_edges(card, fn, dtype, D, lengths, masked):
     """Every (Lq, Lk) pair of LQ x LK ("detr"), or of HOPPER_L x HOPPER_L
     ("hopper"); with the mask, batch entry 0 has every key masked (mean(V)).
     B * H = 6, so a tile that runs past L meets the next head's rows in
     device memory (the Hopper bodies' 3-D tensor maps must not read them).
+    "vitw_train": (1, 4, 4033, 4033) at head dim 256, the VITW DETR's
+    training tokens, where float32 K1 (the panel body, which takes any Lk)
+    walks 64 key tiles in each of its two passes.
 
     bf16 is held relative to max(1, |ref|): with 15 keys an output reaches
     2.6, and the two roundings of the Pallas kernels (probabilities, then
@@ -113,12 +116,13 @@ def test_kernel_matches_plain_at_tile_edges(card, fn, dtype, D, lengths, masked)
     in an exact emulation of K1's rounding on the CPU, which the kernel
     matches. float32 stays absolute (summation order only).
     """
-    lqs, lks = (LQ, LK) if lengths == "detr" else (HOPPER_L, HOPPER_L)
+    B, H, lqs, lks = {"detr": (2, 3, LQ, LK), "hopper": (2, 3, HOPPER_L, HOPPER_L),
+                      "vitw_train": (1, 4, (4033,), (4033,))}[lengths]
     for i, lq in enumerate(lqs):
         for j, lk in enumerate(lks):
             if fn is kernels.attention_whole_kv and not kernels.whole_kv_fits(lk, D, dtype):
                 continue
-            _check_kernel(fn, *_case(2, 3, lq, lk, D, dtype, masked, seed=10 * i + j),
+            _check_kernel(fn, *_case(B, H, lq, lk, D, dtype, masked, seed=10 * i + j),
                           relative=dtype == torch.bfloat16)
 
 
@@ -175,7 +179,7 @@ def test_whole_kv_refuses_a_grid_short_of_the_query_rows(card, dtype, blocks, th
 
 def test_wrapper_rejects_what_the_kernel_does_not_take(card):
     q, k, v, _ = _case(1, 2, 8, 8, 32, torch.float32, False)
-    # head dim 136 raised until C.7 closed; it now runs the chunked body (padded to 192)
+    # head dim 136 raised until C.7 closed; it now runs the panel body (padded to 192)
     _check_kernel(kernels.attention_flash, *_case(1, 2, 8, 8, 136, torch.float32, False))
     with pytest.raises(ValueError):
         kernels.attention_flash(q.half(), k.half(), v.half())
@@ -397,17 +401,23 @@ def test_b4_gradients_match_plain_autograd(card, dtype, Lq, Lk, D, all_masked):
      (kernels.attention_flash, torch.float32, 67, 131, 160), (kernels.attention_whole_kv, torch.float32, 67, 131, 192),
      (kernels.attention_flash, torch.bfloat16, 1, 129, 64), (kernels.attention_flash, torch.bfloat16, 129, 127, 64),
      (kernels.attention_flash, torch.bfloat16, 3681, 3681, 64), (kernels.attention_flash, torch.bfloat16, 128, 1, 80),
-     (kernels.attention_flash, torch.bfloat16, 127, 128, 128), (kernels.attention_flash, torch.bfloat16, 4033, 4033, 128)],
+     (kernels.attention_flash, torch.bfloat16, 127, 128, 128), (kernels.attention_flash, torch.bfloat16, 4033, 4033, 128),
+     (kernels.attention_whole_kv, torch.bfloat16, 129, 67, 192), (kernels.attention_flash, torch.bfloat16, 67, 131, 320),
+     (kernels.attention_whole_kv, torch.bfloat16, 131, 67, 384), (kernels.attention_whole_kv, torch.float32, 67, 131, 384),
+     (kernels.attention_flash, torch.float32, 131, 67, 320), (kernels.attention_flash, torch.bfloat16, 300, 260, 384)],
     ids=["k2_bf16_67x131", "k2_bf16_encoder_920", "k2_bf16_cross_1008", "k2_bf16_d16", "k2_float32_67x131",
          "k2_float32_d16", "k1_float32_67x131", "k1_float32_d16", "k1_float32_cross_d16", "k2_bf16_d64",
          "k2_float32_d64", "k1_float32_d64", "k2_bf16_d48", "k1_float32_d48", "k2_bf16_d192", "k1_bf16_d256",
          "k2_float32_d160", "k1_float32_d192", "k2_bf16_d64_1x129", "k2_bf16_d64_129x127", "k2_bf16_d64_vit_3681",
-         "k2_bf16_d80_128x1", "k2_bf16_d128_127x128", "k2_bf16_d128_4033"],
+         "k2_bf16_d80_128x1", "k2_bf16_d128_127x128", "k2_bf16_d128_4033", "k1_bf16_d192", "k2_bf16_d320",
+         "k1_bf16_d384", "k1_float32_d384", "k2_float32_d320", "k2_bf16_d384_300x260"],
 )
 def test_forward_with_lse_is_bit_identical(card, fn, dtype, Lq, Lk, D):
-    """K2 (both types) and K1 (float32) give the same bits with and without
-    the lse pointer, which the detect path leaves null, and the lse they
-    write matches attention_lse (batch entry 0 has every key masked: log Lk)."""
+    """K2 (both types) and K1 (float32, and bf16 above head dim 128) give
+    the same bits with and without the lse pointer, which the detect path
+    leaves null, and the lse they write matches attention_lse (batch entry 0
+    has every key masked: log Lk). Above 256 the lse comes from the z = 0
+    panel."""
     from office_person_detection_vit_torch.ops.attention import attention_lse
 
     q, k, v, mask = _case(2, 3, Lq, Lk, D, dtype, True, seed=7)
@@ -419,6 +429,31 @@ def test_forward_with_lse_is_bit_identical(card, fn, dtype, Lq, Lk, D):
     assert lse.dtype == torch.float32 and lse.shape == q.shape[:3]
     assert ((lse - want).abs() / want.abs().clamp(min=1.0)).max().item() <= LSE_TOL[dtype]
 
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_forward_plan_matches_the_library(card, dtype):
+    """kernels/attention.py::wide_forward_plan mirrors the source's panel
+    plan (attention_forward_plan) at every multiple of 64 from 192 to 1024,
+    and the library refuses head dims the panel bodies do not take."""
+    for d in range(192, 1025, 64):
+        mine = kernels.wide_forward_plan(d, dtype)
+        assert kernels.library_forward_plan(d, dtype) == {k: mine[k] for k in ("panels", "panel_cols", "acc_cols",
+                                                                                 "smem_bytes", "widths")}
+    with pytest.raises(ValueError):
+        kernels.library_forward_plan(128, dtype)
+
+
+@pytest.mark.parametrize("fn", [kernels.attention_whole_kv, kernels.attention_flash])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [320, 384, 640])
+def test_panels_match_plain_and_are_deterministic(card, fn, dtype, D):
+    """Above head dim 256 the panel bodies split the output into column
+    panels on grid z (640: 224, 224 and 192, the last narrower): each panel
+    within the bar of the plain version, and two calls bit-identical."""
+    q, k, v, mask = _case(2, 3, 131, 197, D, dtype, True, seed=13)
+    _check_kernel(fn, q, k, v, mask, relative=dtype == torch.bfloat16)
+    assert torch.equal(fn(q, k, v, mask), fn(q, k, v, mask))
 
 def test_k1_bf16_refuses_lse(card):
     q, k, v, _ = _case(1, 2, 50, 100, 32, torch.bfloat16, False)
@@ -441,7 +476,7 @@ def test_backward_pair_is_deterministic(card, dtype, D, Lq, Lk):
     assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
-@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("D", [64, 128, 256, 320])
 def test_hopper_bodies_launch_from_a_fresh_thread(card, D):
     """The Hopper bodies encode their TMA maps with the driver, which needs a
     current context; a thread whose first CUDA call is one of them has none

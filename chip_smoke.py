@@ -129,7 +129,8 @@ the pipeline phases 2-4, the entry point and the trainer:
    one-hour video, card tp/fp/fn within 1 of the CPU's.
 13. the detector slice: (a) head dims up to 128 (C.7): every head-dim-128
    body's registers, spills (none allowed) and HMMA, HGMMA and UTMALDG
-   counts; K1/K2 at ViT-H's
+   counts (float32 K1 there the register-tiled panel body, two blocks an
+   SM); K1/K2 at ViT-H's
    head dim 80 (padded to 128) and at 128 in both types against the plain
    version, timed against SDPA and the bound; B.4 at [10a]'s gate at 128 and
    80; then DETR with ViT-H/16's widths (4 of 32 layers) through
@@ -142,11 +143,14 @@ the pipeline phases 2-4, the entry point and the trainer:
    736x1280, bf16, batch 8 (frames/s), each in float32 card against CPU, the
    ultralytics ``.pt`` route on the card, and ``main`` with
    ``detection.model: yolo`` on the one-hour video.
-14. the scale-out slice: (a) head dims above 128 (C.7 closed): the
-   backward pair's chunked bodies' registers, spills (none allowed) and
-   HMMA count (none: CUDA cores), the forwards' panel bodies (bf16: no
-   spill, HGMMA and UTMALDG, no HMMA; float32: no spill, no HMMA) and
-   their plan against the library's, every Hopper body at 192 and 256
+14. the scale-out slice: (a) head dims above 128 (C.7 closed): the bf16
+   pair's chunked bodies' registers, spills (none allowed) and HMMA count
+   (none: CUDA cores), the forwards' panel bodies (bf16: no spill, HGMMA
+   and UTMALDG, no HMMA; float32: no spill, no HMMA), the register-tiled
+   float32 bodies (K1 at 64 and 128, the panel bodies, the float32 pair:
+   no spill, FFMA and no HMMA or HGMMA, registers within their launch
+   bounds), their plans and the float32 pair's against the library's,
+   every Hopper body at 192 and 256
    (bf16 K2 and the pair: no spill, HGMMA and UTMALDG, no HMMA); every
    forward above 128 at the tile edges (136 to 384, both types, K1 and
    K2, with and without a ragged mask: the output, the log-sum-exp and
@@ -154,7 +158,8 @@ the pipeline phases 2-4, the entry point and the trainer:
    against the plain version, timed against SDPA and the bound; B.4 at
    [10a]'s gate at the same head dims and bf16 at 320; DETR with a ViT of
    256-wide heads through ``detect_batch`` (K2 on the Hopper body), its
-   float32 forward card against CPU (K1 on the float32 panel body), and 8
+   float32 forward card against CPU (K1 on the float32 panel body), its
+   float32 gradients card against CPU (the float32 pair above 128), and 8
    of its training steps (B.4 on the Hopper bodies); (b) YOLOv8x and the
    single-shot detector trained at 768x1344, bf16, batch 8 (ms a step,
    images/s, peak memory, falling losses), a float32 step of each on the
@@ -168,7 +173,8 @@ the pipeline phases 2-4, the entry point and the trainer:
 15. the last modules: (a) the CLIP image tower of Re-ID's ``model_type:
    clip`` at openai/clip-vit-base-patch32's widths (seeded weights written
    as a HF directory, loaded through ``ReIDFeatureExtractor``): 12 K1
-   launches a call of 64 crops, features card against CPU, crops/s, and K1
+   launches a call of 64 crops (the register-tiled float32 K1, three blocks
+   an SM), features card against CPU, crops/s, and K1
    at (64, 12, 50, 50, 64) float32 against the plain version, SDPA and the
    bound; (b) [8a]'s frames into ``TrackingPhase`` with CLIP Re-ID (cascade,
    then the scan on the card with the CPU scan's ids); (c) ``main`` with
@@ -184,8 +190,8 @@ Any failed check raises, so the script exits non-zero and prints no result.
 Its last two lines are JSON: the kernels (launches, error, times, bound; K1,
 K2, K3, B.4 and its backward pair, K2, B.4 and the pair at head dim 64 on
 the ViT's path, K1, K2, B.4 and the pair at head dim 128 on the ViT-H-width path,
-the bodies above head dim 128 on the VITW path, and K1 on the CLIP
-path) and the device.
+the bodies above head dim 128 on the VITW path (the float32 pair on its
+float32 gradients), and K1 on the CLIP path) and the device.
 """
 
 from __future__ import annotations
@@ -309,26 +315,55 @@ SASS_OPS = ("HMMA", "HGMMA", "UTMALDG")
 
 def sass_counts(build) -> dict:
     """count_ops of the built library's SASS (``cuobjdump``, beside the nvcc
-    that built it)."""
+    that built it), SASS_OPS and FFMA."""
     cuobjdump = Path(build._nvcc()).parent / "cuobjdump"
     check(cuobjdump.exists(), f"{cuobjdump} not found: the tensor-core instructions cannot be read")
     return count_ops(subprocess.run([str(cuobjdump), "-sass", str(build.build_library())], capture_output=True,
-                                    text=True, check=True).stdout)
+                                    text=True, check=True).stdout, (*SASS_OPS, "FFMA"))
 
 
-def count_ops(sass: str) -> dict:
-    """{function: {op: count}} for each of SASS_OPS, per function of a
+def count_ops(sass: str, ops: tuple = SASS_OPS) -> dict:
+    """{function: {op: count}} for each of ``ops``, per function of a
     ``cuobjdump -sass`` listing."""
     counts = {}
-    op = re.compile(rf"\b({'|'.join(SASS_OPS)})\b")
+    op = re.compile(rf"\b({'|'.join(ops)})\b")
     fn = None
     for line in sass.splitlines():
         if "Function :" in line:
             fn = line.split("Function :")[1].strip()
-            counts[fn] = dict.fromkeys(SASS_OPS, 0)
+            counts[fn] = dict.fromkeys(ops, 0)
         elif fn is not None and (m := op.search(line)):
             counts[fn][m.group(1)] += 1
     return counts
+
+
+#: The register-tiled float32 bodies (K1 at 64 and 128, every forward above
+#: 128, the float32 pair above 128): FFMA, the CUDA cores' FP32 FMA, counted
+#: per function as SASS_OPS are.
+REGISTER_TILED = ("attention_panels_fma<float", "attention_bwd_dq_fma<float", "attention_bwd_dkdv_fma<float")
+
+
+def check_register_tiled(ka, counts: dict, where: str) -> dict:
+    """Each register-tiled float32 body: no spill, FFMA and no HMMA or
+    HGMMA in its SASS (``counts``: sass_counts), and its registers within
+    its launch bounds (K1 at 64 three blocks of 256 threads an SM, at 128
+    two, the rest one). Returns {name: {regs, local_bytes, ffma, blocks}}."""
+    rows = {}
+    for a in ka.kernel_attributes():
+        if not a["name"].startswith(REGISTER_TILED):
+            continue
+        ops = ops_of(counts, a["name"])
+        n_ffma = ops["FFMA"]
+        blocks = {64: 3, 128: 2}.get(int(a["name"].split(",")[1]), 1) if "panels" in a["name"] else 1
+        check(a["local_bytes"] == 0 and n_ffma > 0 and ops["HMMA"] == 0 and ops["HGMMA"] == 0
+              and a["regs"] * 256 * blocks <= 65_536,
+              f"{where}: {a['name']}: spill {a['local_bytes']} B, FFMA {n_ffma}, HMMA {ops['HMMA']}, HGMMA "
+              f"{ops['HGMMA']}, {a['regs']} registers for {blocks} blocks of 256 threads an SM")
+        rows[a["name"]] = {"regs": a["regs"], "local_bytes": a["local_bytes"], "ffma": n_ffma, "blocks": blocks}
+        log(f"[{where}] {a['name']:36s} regs {a['regs']:3d}  spill (local) {a['local_bytes']} B  FFMA {n_ffma}  "
+            f"HMMA {ops['HMMA']}  HGMMA {ops['HGMMA']}  ({blocks} block(s) of 256 threads an SM by its launch "
+            f"bounds: {a['regs'] * 256 * blocks} of 65,536 registers)")
+    return rows
 
 
 def ops_of(counts: dict, name: str) -> dict:
@@ -337,10 +372,12 @@ def ops_of(counts: dict, name: str) -> dict:
     names carry the base's length and name, then the template arguments: a
     type as one letter (``f`` for float), where the template takes one, and
     each int as ``Li<n>E`` (a K1 / K2 flag, the panel bodies' two passes or
-    one, as the bool ``Lb1E`` / ``Lb0E``)."""
+    one, as the bool ``Lb1E`` / ``Lb0E``). A kernel that is no template
+    (``base<type>``: the type names its tensors only) ends the source's
+    unnamed namespace, ``E``, after its name."""
     base, args = name.rstrip(">").split("<")
     ints = "".join({"K1": "Lb1E", "K2": "Lb0E"}.get(n, f"Li{n}E") for n in args.split(",")[1:])
-    mangled = re.compile(rf"{len(base)}{base}I[a-z]?{ints}E")
+    mangled = re.compile(rf"{len(base)}{base}I[a-z]?{ints}E" if ints else rf"{len(base)}{base}E")
     found = [n for f, n in counts.items() if mangled.search(f)]
     check(len(found) == 1, f"{name}: {len(found)} functions of its name in the SASS")
     return found[0]
@@ -372,7 +409,14 @@ def kernel_resources(ka, kb, build) -> None:
     counts = sass_counts(build)
     for a in ka.kernel_attributes():
         base, args = a["name"].split("<")
-        if base.startswith("attention_wide"):  # the pair's chunked bodies above head dim 128: CUDA cores
+        if base in ("attention_bwd_dq_fma", "attention_bwd_dkdv_fma"):  # the float32 pair above 128: any D
+            plan = ka.pair_backward_plan(256)
+            smem = plan["dq_smem_bytes" if "_dq_" in base else "dkdv_smem_bytes"]
+            ops = check_tensor_cores(a, ops_of(counts, a["name"]), "1")
+            log(f"[1] {a['name']:36s} regs {a['regs']:3d}  spill (local) {a['local_bytes']:4d} B  static smem "
+                f"{a['static_smem']:6d} B  dynamic smem {smem:6d} B (any head dim)  {ops}")
+            continue
+        if base.startswith("attention_wide"):  # the bf16 pair's chunked bodies above head dim 256: CUDA cores
             smem = {"attention_wide_bwd_dq": 5 * 64 * 65 * 4 + 64,
                     "attention_wide_bwd_dkdv": (6 * 64 * 65 + 2 * 64) * 4}[base]
             n_hmma = hmma_of_wide(counts, a["name"])
@@ -382,8 +426,8 @@ def kernel_resources(ka, kb, build) -> None:
             continue
         dtype = torch.bfloat16 if args.startswith("bf16") else torch.float32
         d = int(args.rstrip(">").split(",")[1])
-        if "panels" in base:  # the forwards above head dim 128: the plan's bytes at the head dim of one panel
-            dyn = f"{ka.wide_forward_plan(d, dtype)['smem_bytes']:6d} B at D {d}, any Lk"
+        if "panels" in base:  # the panel bodies: the plan's bytes at the head dim of one panel
+            dyn = f"{ka.panel_forward_plan(d, dtype)['smem_bytes']:6d} B at D {d}, any Lk"
         elif "whole_kv" in base:
             fits = ka.whole_kv_fits(920, d, dtype)
             dyn = f"{ka.whole_kv_plan(920, 920, d, dtype)['smem_bytes']:6d} B at Lk 920" if fits else \
@@ -401,6 +445,7 @@ def kernel_resources(ka, kb, build) -> None:
         ops = check_tensor_cores(a, ops_of(counts, a["name"]), "1")
         log(f"[1] {a['name']:36s} regs {a['regs']:3d}  spill (local) {a['local_bytes']:4d} B  static smem "
             f"{a['static_smem']:6d} B  dynamic smem {dyn}  {ops}")
+    check_register_tiled(ka, counts, "1")
     # K3: the dynamic shared memory of each instantiation (rows) at a
     # geometry whose plan takes it (bf16: DETR-R50 stage 1 the 160-row
     # tiles, stage 4 the 128-row ones; float32: stage 1 64 rows, stage 4 16,
@@ -463,6 +508,55 @@ def float32_card_vs_cpu(ka, cfg, frames: np.ndarray, want_counts: dict, where: s
     check(bool((d_logits <= LOGITS_ATOL + LOGITS_RTOL * want["logits"].abs()).all()) and d_boxes <= BOXES_ATOL,
           f"{where}: float32 card vs CPU: max|dlogits| {d_logits.max().item():.2e}, max|dboxes| {d_boxes:.2e}")
     return d_logits.max().item(), d_boxes, cpu_secs
+
+
+def float32_grads_card_vs_cpu(ka, cfg, frames: np.ndarray, want_counts: dict, where: str,
+                              hw: tuple = (224, 224)) -> dict:
+    """The float32 model ``cfg`` (seeded random weights, train mode, no
+    dropout) on the card, TF32 off, and on the CPU: the gradients of a fixed
+    seeded projection of its logits and boxes (no matcher, so no tie can
+    pair the queries differently). The launches must be ``want_counts``
+    (one forward, through B.4, and its backward pairs), and each leaf's
+    gradient within SMALL_GRAD_RTOL of max(the leaf's max |grad|, 1e-3 of
+    the largest leaf's): leaves whose gradient is zero in exact arithmetic
+    hold rounding noise on both sides. -> {worst, worst_key, cpu_secs}."""
+    from office_person_detection_vit_torch.device import full_float32, resolve_device
+    from office_person_detection_vit_torch.models.detr import DETR
+    from office_person_detection_vit_torch.ops.preprocessing import preprocess_frames
+
+    resolve_device("cuda", "float32")
+    pixels, mask = preprocess_frames(torch.from_numpy(frames), target_hw=hw)
+    ref = DETR(cfg)
+    ref.init_weights(torch.Generator().manual_seed(0))
+    grads, secs = {}, {}
+    for where_to in ("cuda", "cpu"):
+        model = DETR(cfg)
+        model.load_state_dict(ref.state_dict())
+        model.to(where_to).train()
+        ka.reset_launch_counts()
+        t = time.perf_counter()
+        with full_float32():
+            out = model(pixels.to(where_to), mask.to(where_to))
+            g = torch.Generator().manual_seed(1)
+            loss = sum((out[key] * torch.randn(out[key].shape, generator=g).to(where_to)).sum()
+                       for key in ("logits", "boxes"))
+            model.zero_grad(set_to_none=True)
+            loss.backward()
+        if where_to == "cuda":
+            torch.cuda.synchronize()
+            counts = dict(ka.launch_counts)
+        secs[where_to] = time.perf_counter() - t
+        grads[where_to] = {k: (p.grad if p.grad is not None else torch.zeros_like(p)).detach().cpu()
+                           for k, p in model.named_parameters()}
+    check(counts == want_counts, f"{where}: float32 gradients launched {counts}, expected {want_counts}")
+    top = max(g.abs().max().item() for g in grads["cpu"].values())
+    worst, worst_key = 0.0, ""
+    for key, want in grads["cpu"].items():
+        r = (grads["cuda"][key] - want).abs().max().item() / max(want.abs().max().item(), 1e-3 * top)
+        if r > worst:
+            worst, worst_key = r, key
+    check(worst <= SMALL_GRAD_RTOL, f"{where}: float32 gradient {worst_key} off by {worst:.2e} (card against CPU)")
+    return {"worst": worst, "worst_key": worst_key, "cpu_secs": secs["cpu"]}
 
 
 def launches(whole_kv: int = 0, flash: int = 0, backward: int = 0) -> dict:
@@ -1581,7 +1675,7 @@ def b4_phase(ka, smi: str, cases=B4_CASES, lse_cases=B4_CASES + DETECT_LSE_CASES
                 lambda: torch.autograd.grad(sdpa_out, (q, k, v), g, retain_graph=True), 10),
             "bound_ms": b_ms, "bound_by": b_by, "backward_bound_ms": bb_ms, "backward_bound_by": bb_by,
         }
-        rows[shape] = row
+        rows[shape, dt] = row
         log(f"[{tag}] B.4 {shape} {dt} ({path}): forward err {fwd_err:.2e} (bar {tol:.0e}); dq/dk/dv of the "
             f"backward pair against float64 autograd {grad_err:.2e}, against attention_backward_reference "
             f"{twin_err:.2e} (bar {bar:.2e}, relative_error); plain autograd in {dt} against float64 "
@@ -2712,8 +2806,8 @@ def d128_phase(ka, build, smi: str, frames: np.ndarray, samples: list) -> dict:
     t0 = time.perf_counter()
     counts = sass_counts(build)
     bodies = {}
-    for a in ka.kernel_attributes():
-        if a["name"].endswith(",128>"):
+    for a in ka.kernel_attributes():  # the bodies that head dim 128 runs
+        if a["name"].endswith(",128>") or a["name"] == "attention_panels_fma<float,128,K1>":
             ops = ops_of(counts, a["name"])
             check(a["local_bytes"] == 0, f"13a: {a['name']} spills {a['local_bytes']} B a thread")
             text = check_tensor_cores(a, ops, "13a")
@@ -3163,7 +3257,7 @@ def d128_kernel_rows(res: dict) -> list:
          "launches": d128["k2_d128"],
          "launches_on": "ViT-H/16-width DETR (4 of 32 layers) bf16 through detect_batch at 736x1280, 16 frames, "
                         "phase 13a", **{k: k2[k] for k in keys + ("instruction",)}},
-        {"name": "attention_whole_kv_d128", "route": "cuda", "source": src,
+        {"name": "attention_whole_kv_d128", "route": "cuda", "source": src, "body": "attention_panels_fma<float,128,K1>",
          "replaces": "office_person_detection_vit_tpu/ops/attention.py:60", "launches": d128["k1_d128"],
          "launches_on": "ViT-H/16-width DETR float32 forward at 224x224 on the card, phase 13a",
          **{k: k1[k] for k in keys + ("instruction",)}},
@@ -3236,7 +3330,9 @@ WIDE_B4_CASES = [((2, 4, 300, 260, 136), "bfloat16", True, "head dim 136, padded
                  ((2, 4, 197, 197, 192), "float32", False, "heads of 192 at 224x224, float32"),
                  ((1, 4, 1008, 1008, 256), "bfloat16", False, "heads of 256 at 1008 tokens"),
                  ((2, 4, 197, 197, 256), "float32", True, "heads of 256 at 224x224, float32"),
-                 ((1, 4, 1008, 1008, 320), "bfloat16", True, "heads of 320 at 1008 tokens (the chunked bf16 pair)")]
+                 ((1, 4, 1008, 1008, 320), "bfloat16", True, "heads of 320 at 1008 tokens (the chunked bf16 pair)"),
+                 ((1, 4, 1008, 1008, 256), "float32", False, "heads of 256 at 1008 tokens, float32"),
+                 ((2, 4, 300, 260, 384), "float32", True, "heads of 384, float32 (the pair's dQ on two panels)")]
 VITW = dict(backbone="vit", vit_hidden=1024, vit_heads=4, vit_mlp=4096, vit_layers=2)
 VITW_CALLS = 2 + 18
 #: B.4 on that model's training path: 768x1344 (4033 tokens), batch 8.
@@ -3329,7 +3425,7 @@ def wide_phase(ka, build, smi: str, frames: np.ndarray, samples: list) -> dict:
     bodies = {}
     panels = {}
     for a in ka.kernel_attributes():
-        if a["name"].startswith("attention_wide"):
+        if a["name"].startswith("attention_wide"):  # the bf16 pair above 256
             n_hmma = hmma_of_wide(counts, a["name"])
             check(a["local_bytes"] == 0, f"14a: {a['name']} spills {a['local_bytes']} B a thread")
             check(n_hmma == 0, f"14a: {a['name']}: {n_hmma} HMMA instructions (a CUDA-core body)")
@@ -3342,17 +3438,26 @@ def wide_phase(ka, build, smi: str, frames: np.ndarray, samples: list) -> dict:
             panels[a["name"]] = {"regs": a["regs"], "local_bytes": a["local_bytes"], "hmma": ops["HMMA"],
                                  "hgmma": ops["HGMMA"], "utmaldg": ops["UTMALDG"]}
             log(f"[14a] {a['name']:36s} regs {a['regs']:3d}  spill (local) {a['local_bytes']} B  {text}")
-    check(len(bodies) == 4, f"14a: {len(bodies)} chunked bodies, expected the pair's 4")
-    check(len(panels) == 8, f"14a: {len(panels)} panel bodies, expected 8 (K1 and K2, 192 and 256, both types)")
-    for d in range(192, 1025, 64):
-        for dtype in (torch.float32, torch.bfloat16):
-            mine, lib = ka.wide_forward_plan(d, dtype), ka.library_forward_plan(d, dtype)
+    check(len(bodies) == 2 and all(n.endswith("<bf16>") for n in bodies),
+          f"14a: chunked bodies {sorted(bodies)}, expected the bf16 pair's 2")
+    check(len(panels) == 10, f"14a: {len(panels)} panel bodies, expected 10 (K1 and K2, 192 and 256, both types; "
+                             "float32 K1 at 64 and 128)")
+    register_tiled = check_register_tiled(ka, counts, "14a")
+    check(len(register_tiled) == 9, f"14a: register-tiled float32 bodies {sorted(register_tiled)}, expected 9 "
+                                     "(6 panel bodies, the pair's 2 dQ and 1 dK/dV)")
+    for d in (64, 128, *range(192, 1025, 64)):
+        for dtype in (torch.float32, torch.bfloat16) if d > 128 else (torch.float32,):
+            mine, lib = ka.panel_forward_plan(d, dtype), ka.library_forward_plan(d, dtype)
             check(all(lib[key] == mine[key] for key in lib),
                   f"14a: panel plan at D {d} {dtype}: {mine} != library {lib}")
-    log("[14a] the panel plan of kernels/attention.py equals the library's at every multiple of 64 from 192 to 1024")
+        if d > 128:
+            mine, lib = ka.pair_backward_plan(d), ka.library_backward_plan(d)
+            check(all(lib[key] == mine[key] for key in lib), f"14a: pair plan at D {d}: {mine} != library {lib}")
+    log("[14a] the panel plan of kernels/attention.py equals the library's at every multiple of 64 from 192 to 1024 "
+        "and float32 K1's at 64 and 128; the float32 pair's plan equals the library's from 192 to 1024")
     hopper = {}
     for a in ka.kernel_attributes():
-        if a["name"].endswith((",192>", ",256>")):
+        if a["name"].endswith((",192>", ",256>")) and not a["name"].startswith(REGISTER_TILED):
             ops = ops_of(counts, a["name"])
             check(a["local_bytes"] == 0, f"14a: {a['name']} spills {a['local_bytes']} B a thread")
             text = check_tensor_cores(a, ops, "14a")
@@ -3411,6 +3516,22 @@ def wide_phase(ka, build, smi: str, frames: np.ndarray, samples: list) -> dict:
         f"max|dboxes| {d_boxes:.2e} (atol {BOXES_ATOL})")
     torch.cuda.empty_cache()
 
+    # The float32 pair above 128 on a model's path: the VITW DETR's float32 gradients at 224x224 on the card
+    # (its ViT's 2 calls at head dim 256 run B.4 with the pair attention_bwd_dq_fma<float,256> +
+    # attention_bwd_dkdv_fma) against the CPU's.
+    ka.reset_head_dim_counts()
+    f32_grads = float32_grads_card_vs_cpu(ka, DETRConfig(dtype="float32", dropout=0.0, **VITW), frames[:2],
+                                          launches(whole_kv=20 - flash, flash=flash, backward=20), "14a",
+                                          hw=(224, 224))
+    f32_pair = wide_count(ka, "attention_backward")
+    check(f32_pair == 2, f"14a: the float32 VITW gradients launched {f32_pair} backward pairs above head dim 128, "
+                         "expected 2 (the ViT's layers)")
+    log(f"[14a] float32 VITW DETR gradients at 224x224, card against CPU ({f32_grads['cpu_secs']:.1f} s): worst leaf "
+        f"{f32_grads['worst']:.2e} ({f32_grads['worst_key']}; bar {SMALL_GRAD_RTOL:.0e} of max(the leaf's max |grad|, "
+        f"1e-3 of the largest)); {f32_pair} backward pairs at head dim 256 on attention_bwd_dq_fma<float,256> + "
+        "attention_bwd_dkdv_fma")
+    torch.cuda.empty_cache()
+
     ka.reset_head_dim_counts()
     tcfg = DETRConfig(dtype="bfloat16", dropout=0.1, **VITW)
     train = train_full_width(ka, smi, samples, tcfg, tag="14a", calls=VITW_CALLS, leaves=len(flax_param_map(tcfg)),
@@ -3422,10 +3543,9 @@ def wide_phase(ka, build, smi: str, frames: np.ndarray, samples: list) -> dict:
     log(f"[14a] 8 VITW training steps: {train_wide} above head dim 128, on attention_flash_wgmma_inline<bf16,256> and "
         "the pair attention_bwd_dq_wgmma_inline<bf16,256> + attention_bwd_dkdv_wgmma<bf16,256>")
     log(f"[14a] phase {time.perf_counter() - t0:.1f} s")
-    return {"bodies": bodies, "panels": panels, "edges": edges, "hopper": hopper, "forward": rows, "b4": b4,
-            "b4_path": b4_path,
-            "detect_counts": detect_counts, "k2_wide": k2_wide, "f32_wide": f32_wide, "train_wide": train_wide,
-            "train": train}
+    return {"bodies": bodies, "panels": panels, "register_tiled": register_tiled, "edges": edges, "hopper": hopper,
+            "forward": rows, "b4": b4, "b4_path": b4_path, "detect_counts": detect_counts, "k2_wide": k2_wide,
+            "f32_wide": f32_wide, "f32_pair": f32_pair, "train_wide": train_wide, "train": train}
 
 
 # [14b]: the single-shot trainers at full width (A.7c): the JAX trainer's
@@ -3808,12 +3928,14 @@ def wide_kernel_rows(res: dict) -> list:
     """The kernels line's rows above head dim 128, each at the shape of the
     path its launches come from, as d128_kernel_rows: K2 (the Hopper body) at
     the VITW detect's ViT shape, K1 (the float32 panel body) at its float32 forward's, B.4
-    and its pair (the Hopper bodies) at VITW_TRAIN."""
+    and its pair (the Hopper bodies) at VITW_TRAIN, and the float32 pair at
+    its float32 gradients' (2, 4, 197, 197, 256)."""
     src = "office_person_detection_vit_torch/csrc/attention.cu"
     wide = res["wide"]
     k2 = wide["forward"][WIDE_KERNEL_CASES[0][:3]]
     k1 = wide["forward"][WIDE_KERNEL_CASES[5][:3]]
     b4 = wide["b4_path"]
+    f32 = wide["b4"][WIDE_B4_CASES[5][:2]]  # the float32 pair at (2, 4, 197, 197, 256), its path's shape
     train_path = "VITW DETR (ViT heads of 256) bf16 training at 768x1344, batch 8, 8 steps, phase 14a"
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape", "dtype")
     return [
@@ -3840,6 +3962,13 @@ def wide_kernel_rows(res: dict) -> list:
          "max_abs_err": b4["max_abs_err"], "ms": b4["pair_ms"], "plain_ms": b4["plain_backward_ms"],
          "bound_ms": b4["backward_bound_ms"], "bound_by": b4["backward_bound_by"],
          "library_ms": b4["library_backward_ms"], "shape": b4["shape"], "dtype": b4["dtype"]},
+        {"name": "attention_backward_wide_f32", "route": "cuda", "source": src,
+         "body": "attention_bwd_dq_fma<float,256> + attention_bwd_dkdv_fma<float>",
+         "replaces": "office_person_detection_vit_tpu/ops/attention.py:322", "launches": wide["f32_pair"],
+         "launches_on": "VITW DETR float32 gradients at 224x224 on the card, phase 14a",
+         "max_abs_err": f32["max_abs_err"], "ms": f32["pair_ms"], "plain_ms": f32["plain_backward_ms"],
+         "bound_ms": f32["backward_bound_ms"], "bound_by": f32["backward_bound_by"],
+         "library_ms": f32["library_backward_ms"], "shape": f32["shape"], "dtype": f32["dtype"]},
     ]
 
 
@@ -4264,7 +4393,7 @@ def clip_kernel_rows(res: dict) -> list:
     ReIDFeatureExtractor call of [15a] and in [15b]'s scan run."""
     row = res["clip"]["row"]
     return [{"name": "attention_whole_kv_clip", "route": "cuda",
-             "source": "office_person_detection_vit_torch/csrc/attention.cu",
+             "source": "office_person_detection_vit_torch/csrc/attention.cu", "body": "attention_panels_fma<float,64,K1>",
              "replaces": "office_person_detection_vit_tpu/ops/attention.py:60",
              "launches": res["clip"]["counts"]["attention_whole_kv"],
              "launches_on": f"ReIDFeatureExtractor(model_type='clip').extract_features, {CLIP_CROPS} crops, "
@@ -4625,7 +4754,7 @@ def run(writer: subprocess.Popen, videos: Path, dataset_writer: subprocess.Popen
     # (forwards) on phase 10b's path. The pair has a row of its own beside
     # it: its launches on the same path, its time alone, the plain version of
     # the pair and SDPA's backward alone.
-    enc = train["b4"][B4_CASES[0][0]]
+    enc = train["b4"][B4_CASES[0][:2]]
     train_path = "DETR-R50 bf16 training at 768x1344, batch 8, 6 timed steps, phase 10b"
     kernels.append({
         "name": "attention_diff", "route": "cuda",
@@ -4647,7 +4776,7 @@ def run(writer: subprocess.Popen, videos: Path, dataset_writer: subprocess.Popen
         "launches": train["full"]["counts"]["attention_backward"], "launches_on": train_path,
         "launches_other_paths": {"phase 10c DETR-small training step (card)": train["small"]["attention_backward"],
                                  "phase 10d main --fine-tune, 2 steps": train["handoff"]["attention_backward"]},
-        "max_abs_err": enc["grad_err_vs_float64_rel"], "ms": enc["pair_ms"], "plain_ms": enc["plain_backward_ms"],
+        "max_abs_err": enc["max_abs_err"], "ms": enc["pair_ms"], "plain_ms": enc["plain_backward_ms"],
         "bound_ms": enc["backward_bound_ms"], "bound_by": enc["backward_bound_by"],
         "library_ms": enc["library_backward_ms"], "shape": enc["shape"], "dtype": enc["dtype"],
         "instruction": "mma.sync.m16n8k16 (bf16); FFMA (float32)",

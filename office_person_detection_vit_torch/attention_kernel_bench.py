@@ -82,6 +82,10 @@ VIT_CASES = [
     ("attention_flash", (8, 4, 1008, 1008, 192), "float32", True, "heads of 192 at 1008 tokens, float32 K2"),
     ("attention_flash", (8, 4, 1008, 1008, 320), "bfloat16", True, "heads of 320 at 1008 tokens (two panels)"),
     ("attention_flash", (8, 4, 1008, 1008, 384), "bfloat16", True, "heads of 384 at 1008 tokens (two panels)"),
+    ("attention_whole_kv", (8, 16, 197, 197, 80), "float32", False, "ViT-H/16 at 224x224, float32 K1 (80 padded to 128)"),
+    ("attention_whole_kv", (8, 12, 197, 197, 64), "float32", False, "ViT-base/16 at 224x224, float32 K1"),
+    ("attention_whole_kv", (64, 12, 50, 50, 64), "float32", False, "CLIP ViT-B/32 Re-ID, 64 crops, float32 K1"),
+    ("attention_whole_kv", (8, 8, 197, 197, 128), "float32", False, "head dim 128 at 224x224, float32 K1"),
 ]
 #: B.4's backward pair: ((B, H, Lq, Lk, D), type, the path that gives the
 #: shape). ViT-base/16 training at 768x1344 (4033 tokens), head dim 128 at
@@ -94,6 +98,10 @@ BACKWARD_CASES = [
     ((8, 8, 1008, 1008, 32), "bfloat16", "DETR-R50 training encoder (mma.sync bodies)"),
     ((8, 4, 4033, 4033, 256), "bfloat16", "the VITW DETR's training at 768x1344, batch 8"),
     ((1, 4, 1008, 1008, 192), "bfloat16", "heads of 192 at 1008 tokens"),
+    ((2, 4, 197, 197, 256), "float32", "heads of 256 at 224x224, float32 (the VITW DETR's float32 gradients)"),
+    ((1, 4, 1008, 1008, 256), "float32", "heads of 256 at 1008 tokens, float32"),
+    ((2, 4, 300, 260, 136), "float32", "head dim 136, padded to 192, float32"),
+    ((1, 4, 1008, 1008, 320), "bfloat16", "heads of 320 at 1008 tokens (the chunked bf16 pair)"),
 ]
 #: The pair against its plain version on the same values, relative
 #: (relative_errors): bf16 2^-6, the rounding of P, dS and the results.
@@ -108,10 +116,11 @@ INSTRUCTION = {torch.bfloat16: "mma.sync.m16n8k16", torch.float32: "FFMA (CUDA c
 #: The Hopper bodies: bf16 K2 above head dim 32, bf16 K1 above 128 and the
 #: pair at 64 to 256.
 WGMMA_INSTRUCTION = "wgmma.m64nNk16 + TMA"
-#: float32 forwards above head dim 128: the panel body's 4 x 4 register tiles.
+#: The register-tiled float32 bodies (4 x 4 tiles a thread): float32 K1 at
+#: head dims 64 and 128, every float32 forward above 128 and the float32
+#: pair above 128.
 PANEL_FMA_INSTRUCTION = "FFMA (CUDA cores, 4x4 register tiles)"
-#: The backward pair above 128 in float32 and above 256 in bf16: the chunked
-#: bodies (ROADMAP C.7).
+#: The bf16 backward pair above 256: the chunked bodies (ROADMAP C.7).
 CHUNKED_INSTRUCTION = "FFMA (CUDA cores, head dim in 64-wide chunks)"
 # Published H100 SXM peaks (dense): HBM bytes/s; bf16 tensor-core and
 # non-tensor float32 FLOP/s.
@@ -279,13 +288,38 @@ def measure(kernels, case, seed: int, iters: int = 20) -> dict:
 def instruction(kernels, name: str, head_dim: int, dtype: torch.dtype) -> str:
     """The instruction of the body that wrapper ``name`` runs at ``head_dim``
     in ``dtype``."""
+    wide = kernels.is_wide(head_dim)
     if name == "attention_backward":
         if kernels.is_wgmma_pair(head_dim, dtype):
             return WGMMA_INSTRUCTION
-        return CHUNKED_INSTRUCTION if kernels.is_wide(head_dim) else INSTRUCTION[dtype]
+        if wide:
+            return PANEL_FMA_INSTRUCTION if dtype == torch.float32 else CHUNKED_INSTRUCTION
+        return INSTRUCTION[dtype]
     if kernels.is_wgmma_forward(head_dim, dtype, flash=name == "attention_flash"):
         return WGMMA_INSTRUCTION
-    return PANEL_FMA_INSTRUCTION if kernels.is_wide(head_dim) else INSTRUCTION[dtype]
+    k1_tiled = name == "attention_whole_kv" and dtype == torch.float32 and kernels.kernel_head_dim(head_dim) >= 64
+    return PANEL_FMA_INSTRUCTION if wide or k1_tiled else INSTRUCTION[dtype]
+
+
+def library_kernels(fn, top: int = 3, calls: int = 5) -> list:
+    """The CUDA kernels of ``calls`` fn() calls with the most device time, read
+    with ``torch.profiler`` after two warm-up calls: [(name, device us a
+    call)]; empty where the profiler saw no kernel (then "not measured")."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    totals = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and not e.name.startswith(("Memcpy", "Memset")):
+            totals[e.name[:160]] = totals.get(e.name[:160], 0.0) + e.time_range.elapsed_us() / calls
+    return sorted(totals.items(), key=lambda r: -r[1])[:top]
 
 
 def measure_backward(kernels, case, seed: int, other=None, iters: int = 10) -> dict:
@@ -421,13 +455,28 @@ def main(argv=None) -> dict:
         line = describe(row)
         if other is not None:
             line += against(row, row["against_max_abs_err"])
+        if case[2] == "float32":  # what SDPA runs in float32 there: the yardstick's own kernels
+            q, k, v, mask = make_inputs(case[1], torch.float32, case[3], seed)
+            sdpa_mask = None if mask is None else mask[:, None, None, :]
+            row["library_kernels"] = library_kernels(
+                lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=sdpa_mask))
+            line += f" | sdpa runs {row['library_kernels'] or 'not measured'}"
         print(line, flush=True)
         rows.append(row)
         torch.cuda.empty_cache()
     backward = []
     for seed, case in enumerate(BACKWARD_CASES):
         row = measure_backward(kernels, case, 900 + seed, other, max(args.iters // 2, 5))
-        print(describe_backward(row), flush=True)
+        line = describe_backward(row)
+        if case[1] == "float32":
+            q, k, v, _ = make_inputs(case[0], torch.float32, False, 900 + seed)
+            qq, kk, vv = (t.requires_grad_(True) for t in (q, k, v))
+            out = torch.nn.functional.scaled_dot_product_attention(qq, kk, vv)
+            g = torch.randn_like(out)
+            row["library_kernels"] = library_kernels(
+                lambda: torch.autograd.grad(out, (qq, kk, vv), g, retain_graph=True))
+            line += f" | sdpa backward runs {row['library_kernels'] or 'not measured'}"
+        print(line, flush=True)
         backward.append(row)
         torch.cuda.empty_cache()
     results = {"device": smi, "iters": args.iters, "against": str(root) if root else None,

@@ -86,18 +86,25 @@
 //    At D = 128 K1 takes at most 8 warps a block (255 registers a thread
 //    instead of 128).
 //
-// float32 keeps the CUDA-core body (four threads per query row, float32 FMAs,
-// 64-row blocks): TF32 tensor cores would break its 1e-5 tolerance and the
-// whole-model float32 bar, and at the encoder shape K2 in float32 already ran
-// level with SDPA in float32 (0.4890 against 0.4934 ms, NVIDIA H100 80GB
-// HBM3, 700.00 W, chip_smoke.py phase 2). Up to D = 64 a row's four threads
-// split its keys and each keeps the whole row of q and of the output; at
-// D = 128 that is 256 floats a thread, so the *_slice bodies split the head
-// dim instead (each thread a quarter of q and of the output, the quad
-// summing each dot product with two shuffles), and stage K/V in dynamic
-// shared memory (64 KB a tile, over the 48 KB a static array may take).
-// Above 128 float32 forwards run attention_panels_fma (register micro-tiles
-// over shared float4 operands; its section says how).
+// float32 runs on the CUDA cores (FP32 FMAs): TF32 tensor cores would break
+// its 1e-5 tolerance and the whole-model float32 bar. Two designs:
+//  * four threads per query row, 64-row blocks: K1 at D 16 and 32 (DETR's,
+//    where it beats SDPA), K2 up to 128 and the pair up to 128. Up to D = 64
+//    a row's four threads split its keys and each keeps the whole row of q
+//    and of the output; at D = 128 that is 256 floats a thread, so the
+//    *_slice bodies split the head dim instead (each thread a quarter of q
+//    and of the output, the quad summing each dot product with two
+//    shuffles), and stage K/V in dynamic shared memory (64 KB a tile, over
+//    the 48 KB a static array may take). Each of its FMAs reads its operand
+//    from shared memory, a float4 for four FMAs, so it runs at a fraction
+//    of the FMA rate; at DETR-R50's encoder shape K2 in float32 runs level
+//    with SDPA in float32 (0.4890 against 0.4934 ms, NVIDIA H100 80GB HBM3,
+//    700.00 W, chip_smoke.py phase 2).
+//  * register tiles (attention_panels_fma, attention_bwd_*_fma): 16 x 16
+//    threads, each a 4 x 4 tile of scores, float4 operands reused across
+//    four rows and four keys from registers, items by cp.async into two
+//    slots: K1 at D 64 and 128 (three and two blocks an SM), every forward
+//    above 128 and the pair above 128. Their sections say how.
 //
 // A batch entry whose keys are all masked gives mean(V) over its Lk keys, as
 // the plain version (attention_reference) does: all keys count as valid with
@@ -238,6 +245,7 @@ __device__ __forceinline__ void stage_mask(uint8_t* dst, const uint8_t* mask_b, 
 }
 
 // ---------------------------------------------------------------- K1, float32
+// At D 16 and 32; K1 at 64 and 128 runs attention_panels_fma.
 template <int D>
 __global__ void __launch_bounds__(kThreads)
 attention_whole_kv_kernel(const float* __restrict__ q, const float* __restrict__ k,
@@ -803,8 +811,9 @@ attention_flash_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // dK/dV kernel computes S^T = K Q^T, so that P^T comes out in the layout
 // pack_p turns into an A operand. At head dims 64, 128, 192 and 256 the
 // pair runs the Hopper bodies of the section after this one (wgmma, TMA),
-// on the same scheme with 128-row blocks. float32 keeps a CUDA-core body,
-// four threads a row as the forwards' float32 bodies.
+// on the same scheme with 128-row blocks. float32 keeps a CUDA-core body:
+// up to 128 four threads a row as the forwards' float32 bodies, above 128
+// the register-tiled pair attention_bwd_{dq,dkdv}_fma.
 
 static_assert(kRows == kFlashWarps * kWarpRows && kRows == kTileKeys && kRows == kFlashKeys,
               "the backward's row and key tiles are 64 in both types");
@@ -2013,71 +2022,6 @@ __device__ __forceinline__ void store_slice(float* row, int split, const float* 
     r[cc] = make_float4(x[4 * cc] * mul, x[4 * cc + 1] * mul, x[4 * cc + 2] * mul, x[4 * cc + 3] * mul);
 }
 
-// ---------------------------------------------------- K1, float32, D = 128
-// The contract of attention_whole_kv_kernel with the head dim split over a
-// row's four threads: every thread of a row walks every key, so the branch
-// on the mask is uniform over the warp and the shuffles over the quad.
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-attention_whole_kv_slice(const float* __restrict__ q, const float* __restrict__ k,
-                         const float* __restrict__ v, const uint8_t* __restrict__ mask,
-                         float* __restrict__ out, float* __restrict__ lse, int H, int Lq, int Lk,
-                         float scale_log2) {
-  constexpr int kSlice = D / kSplit;
-  extern __shared__ __align__(16) uint8_t smem[];
-  float* sk = reinterpret_cast<float*>(smem);
-  float* sv = sk + (size_t)Lk * D;
-  uint8_t* smask = reinterpret_cast<uint8_t*>(sv + (size_t)Lk * D);
-
-  const int bh = blockIdx.x;
-  const int b = bh / H;
-  const int q0 = blockIdx.y * kRows;
-  const int nq = min(kRows, Lq - q0);
-  const size_t kv_off = (size_t)bh * Lk * D;
-  const uint8_t* mask_b = mask ? mask + (size_t)b * Lk : nullptr;
-  stage_rows<D>(sk, k + kv_off, Lk);
-  stage_rows<D>(sv, v + kv_off, Lk);
-  stage_mask(smask, mask_b, 0, Lk);
-  const bool all_masked = !any_valid_key(mask_b, Lk);  // also the barrier for the staging
-
-  const int row = threadIdx.x / kSplit;
-  const int split = threadIdx.x % kSplit;
-  const unsigned quad = 0xfu << (threadIdx.x % 32 / kSplit * kSplit);
-  const bool live = row < nq;
-  const size_t q_row = (size_t)bh * Lq + q0 + (live ? row : 0);
-  float qf[kSlice];
-  load_slice<D>(q + q_row * D, split, qf);
-  if (!live) return;  // a row's four threads leave together
-
-  // Pass 1: row max and normalizer, online over the keys.
-  float m = -INFINITY, l = 0.f;
-  for (int j = 0; j < Lk; ++j) {
-    if (!all_masked && !smask[j]) continue;
-    const float dot = quad_total(quad, dot_slice<D>(sk, j, split, qf));
-    const float s = all_masked ? 0.f : dot * scale_log2;
-    if (s > m) {
-      l = l * exp2f(m - s) + 1.f;
-      m = s;
-    } else {
-      l += exp2f(s - m);
-    }
-  }
-  const float inv_l = 1.f / l;
-  if (lse != nullptr && split == 0) lse[q_row] = (m + log2f(l)) * kLn2;
-
-  // Pass 2: normalized probabilities times V.
-  float acc[kSlice];
-#pragma unroll
-  for (int d = 0; d < kSlice; ++d) acc[d] = 0.f;
-  for (int j = 0; j < Lk; ++j) {
-    if (!all_masked && !smask[j]) continue;
-    const float dot = quad_total(quad, dot_slice<D>(sk, j, split, qf));
-    const float s = all_masked ? 0.f : dot * scale_log2;
-    axpy_slice<D>(sv, j, split, exp2f(s - m) * inv_l, acc);
-  }
-  store_slice<D>(out + q_row * D, split, acc, 1.f);
-}
-
 // ---------------------------------------------------- K2, float32, D = 128
 // attention_flash_kernel's contract with the head dim split as above; the
 // running max moves key by key, and the output is rescaled only when it
@@ -2210,26 +2154,27 @@ attention_bwd_dq_slice(const float* __restrict__ q, const float* __restrict__ k,
   if (live) store_slice<D>(dq + q_row * D, split, acc, scale);
 }
 
-// ================================= the backward pair above head dim 128 (C.7)
-// What reaches these bodies: B.4's pair in float32 at every head dim above
-// 128 and in bf16 above 256 (320, ...); the bf16 pair at 192 and 256 (and
-// those padded to them) runs the wgmma bodies above, and every forward
-// above 128 the panel bodies of the next section. The float32 and mma.sync
-// pair keep a row's q (bf16: its Q fragments) in registers; above 128 it
-// does not fit. These bodies take the head dim in chunks instead, one
-// template for both types, on the CUDA cores: Q.K^T and g.V^T are summed
-// over 64-wide chunks of the head dim staged through shared memory as
-// float32, and the output columns are split over grid z in 128-wide
-// chunks, each z block recomputing the scores. The wrapper pads D to a
-// multiple of 64 (kernels/attention.py::kernel_head_dim). A block is 64
-// query rows (dK/dV: 64 keys) of four threads each; a thread holds 16
-// scores of a 64-key tile (key split + 4m) and 32 output columns (column
-// split + 4c of its chunk). Staged rows are padded to 65 (129) floats so
-// that the four threads of a row, which read four rows of the other
-// operand, hit four banks. They sum in float32 and round only their
-// results. Bound: operations, on the CUDA cores; they re-read their
-// operands from shared memory for every product, and speed is not their
-// aim yet (ROADMAP: the next kernel PRs).
+// ======================================= the bf16 pair above head dim 256
+// What reaches these bodies: B.4's pair in bf16 above 256 (320, ...); the
+// bf16 pair at 192 and 256 (and those padded to them) runs the wgmma
+// bodies above, the float32 pair above 128 the register-tiled bodies after
+// the panel section, and every forward above 128 the panel bodies. The
+// template takes the element type, but only its bf16 instances are built.
+// The mma.sync pair keeps a row's Q fragments in registers; above 128 they
+// do not fit. These bodies take the head dim in chunks instead, on the CUDA
+// cores: Q.K^T and g.V^T are summed over 64-wide chunks of the head dim
+// staged through shared memory as float32, and the output columns are
+// split over grid z in 128-wide chunks, each z block recomputing the
+// scores. The wrapper pads D to a multiple of 64
+// (kernels/attention.py::kernel_head_dim). A block is 64 query rows (dK/dV:
+// 64 keys) of four threads each; a thread holds 16 scores of a 64-key tile
+// (key split + 4m) and 32 output columns (column split + 4c of its chunk).
+// Staged rows are padded to 65 (129) floats so that the four threads of a
+// row, which read four rows of the other operand, hit four banks. They sum
+// in float32 and round only their results. Bound: operations, on the CUDA
+// cores; they re-read their operands from shared memory for every product
+// (one shared float an FMA) and stage element by element, and speed is not
+// their aim yet (ROADMAP: first in the kernel queue).
 constexpr int kWideChunk = 64;                 // head-dim columns of one staged chunk
 constexpr int kWideOut = 128;                  // output columns of one grid-z block
 constexpr int kWideS = kWideChunk + 1;         // staged row stride (floats)
@@ -2239,10 +2184,8 @@ constexpr int kWideCols = kWideOut / kSplit;   // output columns a thread keeps 
 constexpr int kWideTile = kRows * kWideS;      // floats of one staged 64 x 64 chunk
 constexpr int kWideOutTile = kRows * kWideO;   // floats of one staged 64 x 128 chunk
 
-__device__ __forceinline__ float wide_f(float x) { return x; }
 __device__ __forceinline__ float wide_f(bf16 x) { return __bfloat162float(x); }
 template <typename T> __device__ __forceinline__ T wide_t(float x);
-template <> __device__ __forceinline__ float wide_t<float>(float x) { return x; }
 template <> __device__ __forceinline__ bf16 wide_t<bf16>(float x) { return __float2bfloat16(x); }
 
 // Rows [0, n) of src (row stride D), columns [c0, c0 + w), as float32 into
@@ -2278,7 +2221,7 @@ __device__ __forceinline__ void wide_axpy(const float* p, int row, const float* 
   }
 }
 
-// B.4's dQ for D > 128, grid (B*H, Lq_pad/64, ceil(D/128)). Its z = 0 blocks
+// B.4's dQ in bf16 for D > 256, grid (B*H, Lq_pad/64, ceil(D/128)). Its z = 0 blocks
 // also write each row's lse2 (base 2) and D = rowsum(g * out) to the scratch
 // for the dK/dV kernel, as attention_bwd_dq_* do.
 template <typename T>
@@ -2360,7 +2303,7 @@ attention_wide_bwd_dq(const T* __restrict__ q, const T* __restrict__ k, const T*
     if (c < nc) o[split + kSplit * c] = wide_t<T>(acc[c] * scale);
 }
 
-// B.4's dK/dV for D > 128, grid (B*H, ceil(Lk/64), ceil(D/128)): a block
+// B.4's dK/dV in bf16 for D > 256, grid (B*H, ceil(Lk/64), ceil(D/128)): a block
 // owns 64 keys (a key's four threads split the query rows of a tile) and
 // 128 columns of dK and dV, and walks the query rows in 64-row tiles.
 template <typename T>
@@ -2494,7 +2437,7 @@ cudaError_t launch_backward_wide(const T* q, const T* k, const T* v, const uint8
 //    times what one block would spend (at D 320, 2 x 320 columns of Q.K^T
 //    products and 2 x 192 of P.V a key, where 320 + 320 would do with no
 //    split: 1.6x the products). panel_plan is the one rule;
-//    kernels/attention.py::wide_forward_plan mirrors it and
+//    kernels/attention.py::panel_forward_plan mirrors it and
 //    attention_forward_plan exports it.
 //  * A stream of items. A block walks one sequence of ring items: for each
 //    64-key tile the scores' operands, then (K2, and K1's second pass) the
@@ -2809,20 +2752,54 @@ attention_panels_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_cons
 }
 
 // ------------------------------------------------- float32, CUDA cores
+// float32 K1 at head dims 64 and 128 (33-128 padded to them) runs this body
+// too, instantiated at 64 and 128 accumulated columns: one panel, the whole
+// head. It was chosen over a body of its own because the scheme is the one
+// those head dims lacked (register tiles, float4 operands at compile-time
+// strides, cp.async items, shared memory independent of Lk), and one body
+// keeps one set of edges to test. What the small head dims add is
+// occupancy: the launch bounds ask for three blocks an SM at 64 (at most 80
+// registers a thread) and two at 128 (at most 128), so that another
+// block's warps run while one waits at a barrier or on a copy, and the
+// shared memory a block takes is held under an SM's share for that many
+// (panel_f32_min_blocks). At 128 that streams Q (see panel_f32_resident).
+// K1 walks its first pass from the last key tile to the first and keeps
+// tile 0's scores in registers for the second pass, which starts there:
+// one tile's Q.K^T fewer, and with one key tile (CLIP's 50 keys) a single
+// Q.K^T, as the exact two-pass softmax needs. A thread whose rows are all
+// past the block's last query row skips the products (the last row block
+// of 197 tokens holds 5 rows).
 constexpr int kPanelLdP = kPanelKeys + 4;  // row stride of a tile's p (floats)
 constexpr int kPanelLdC = kPanel + 4;      // of a streamed 64-column chunk of Q or K
+constexpr int kSmBytes = 233472;           // an SM's shared memory; a block also reserves 1 KB
 
-// Shared memory in floats: Q when it stays (64 rows of D + 4), two ring
-// slots of 64 rows of kAcc + 4 (a K tile over all of D, which is then kAcc;
-// a Q chunk and a K chunk of 64 + 4; or a V tile of kAcc columns), and the
-// tile's p (64 x 68). Rows are padded by 4 floats so that the 16 threads
-// that read 16 rows as float4s meet every bank in two wavefronts.
+// The blocks an SM that attention_panels_fma<kAcc, *> is built for (its
+// launch bounds' minimum): three at 64 accumulated columns, two at 128, one
+// above.
+__host__ __device__ constexpr int panel_f32_min_blocks(int acc) { return acc == 64 ? 3 : acc == 128 ? 2 : 1; }
+// Whether a block keeps Q in shared memory: with one panel (D <= acc), but
+// not at 128 columns, where Q (64 rows of 132 floats) beside the two slots
+// and p would take 118,784 B, over the 115,712 B a block may take when two
+// share an SM. Q streams there in 64-column chunks beside K's, as above 256.
+__host__ __device__ constexpr bool panel_f32_resident(int D, int acc) { return D <= acc && acc != 128; }
+// Floats of a ring slot: 64 rows of acc + 4 (a K tile over all of D when Q
+// stays, which is then acc; a V tile of acc columns), or a Q chunk and a K
+// chunk of 64 + 4 each when Q streams, whichever is larger.
+__host__ __device__ constexpr int panel_f32_slot(int acc, bool resident) {
+  return kRows * (resident || acc + 4 >= 2 * kPanelLdC ? acc + 4 : 2 * kPanelLdC);
+}
+// Shared memory in bytes: Q when it stays (64 rows of D + 4), two ring
+// slots and the tile's p (64 x 68). Rows are padded by 4 floats so that
+// the 16 threads that read 16 rows as float4s meet every bank in two
+// wavefronts.
 __host__ __device__ constexpr size_t panel_f32_smem_bytes(int D, int acc) {
-  return ((D <= acc ? (size_t)kRows * (D + 4) : 0) + 2 * (size_t)kRows * (acc + 4) + kRows * kPanelLdP) *
+  return ((panel_f32_resident(D, acc) ? (size_t)kRows * (D + 4) : 0) +
+          2 * (size_t)panel_f32_slot(acc, panel_f32_resident(D, acc)) + kRows * kPanelLdP) *
          sizeof(float);
 }
-static_assert(2 * kPanelLdC <= 192 + 4, "a Q and a K chunk fit a slot");
 static_assert(panel_f32_smem_bytes(256, 256) <= 232448, "a block's shared memory");
+static_assert(3 * (panel_f32_smem_bytes(64, 64) + 1024) <= kSmBytes, "three K1 blocks an SM at 64");
+static_assert(2 * (panel_f32_smem_bytes(128, 128) + 1024) <= kSmBytes, "two K1 blocks an SM at 128");
 
 // Rows [0, n) of a float array with rows of ld_src from column 0 on, kCols
 // columns, into shared rows of ld_dst floats, a 16-byte cp.async each;
@@ -2830,6 +2807,7 @@ static_assert(panel_f32_smem_bytes(256, 256) <= 232448, "a block's shared memory
 template <int kCols>
 __device__ __forceinline__ void stage_panel(float* dst, int ld_dst, const float* src, size_t ld_src, int n, int w) {
   constexpr int kC4 = kCols / 4;
+#pragma unroll 1
   for (int idx = threadIdx.x; idx < kRows * kC4; idx += kThreads) {
     const int r = idx / kC4, c = idx % kC4 * 4;
     const bool ok = r < n && c < w;
@@ -2840,32 +2818,50 @@ __device__ __forceinline__ void stage_panel(float* dst, int ld_dst, const float*
 // s[i][j] += a[ty + 16 i] . b[tx + 16 j] over DEPTH columns (rows of LD
 // floats, both compile-time, so that every shared load takes an immediate
 // offset), for key groups j < NJ: per step of 4 columns 4 + NJ float4 reads
-// and 16 NJ FMAs.
-template <int NJ, int LD, int DEPTH>
+// and 16 NJ FMAs. kLean (the bodies under a register cap of 80 or 128:
+// three or two blocks an SM) reads one key group's float4 at a time and does
+// not unroll the steps, so that 5 float4 operands are live, not 4 x 8.
+template <int NJ, int LD, int DEPTH, bool kLean>
 __device__ __forceinline__ void panel_dots(float (&s)[4][4], const float* a, const float* b) {
   a += (threadIdx.x / 16) * LD;
   b += (threadIdx.x % 16) * LD;
+  if constexpr (kLean) {
+#pragma unroll 1
+    for (int d = 0; d < DEPTH; d += 4) {
+      float4 x[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) x[r] = *reinterpret_cast<const float4*>(a + 16 * r * LD + d);
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const float4 y = *reinterpret_cast<const float4*>(b + 16 * j * LD + d);
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          s[r][j] = fmaf(x[r].w, y.w, fmaf(x[r].z, y.z, fmaf(x[r].y, y.y, fmaf(x[r].x, y.x, s[r][j]))));
+      }
+    }
+  } else {
 #pragma unroll 4
-  for (int d = 0; d < DEPTH; d += 4) {
-    float4 x[4], y[NJ];
+    for (int d = 0; d < DEPTH; d += 4) {
+      float4 x[4], y[NJ];
 #pragma unroll
-    for (int r = 0; r < 4; ++r) x[r] = *reinterpret_cast<const float4*>(a + 16 * r * LD + d);
+      for (int r = 0; r < 4; ++r) x[r] = *reinterpret_cast<const float4*>(a + 16 * r * LD + d);
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) y[j] = *reinterpret_cast<const float4*>(b + 16 * j * LD + d);
+      for (int j = 0; j < NJ; ++j) y[j] = *reinterpret_cast<const float4*>(b + 16 * j * LD + d);
 #pragma unroll
-    for (int r = 0; r < 4; ++r)
+      for (int r = 0; r < 4; ++r)
 #pragma unroll
-      for (int j = 0; j < NJ; ++j)
-        s[r][j] = fmaf(x[r].w, y[j].w, fmaf(x[r].z, y[j].z, fmaf(x[r].y, y[j].y, fmaf(x[r].x, y[j].x, s[r][j]))));
+        for (int j = 0; j < NJ; ++j)
+          s[r][j] = fmaf(x[r].w, y[j].w, fmaf(x[r].z, y[j].z, fmaf(x[r].y, y[j].y, fmaf(x[r].x, y[j].x, s[r][j]))));
+    }
   }
 }
 // The same over a tile of nk keys: the groups of 16 keys that hold one.
-template <int LD, int DEPTH>
+template <int LD, int DEPTH, bool kLean = false>
 __device__ __forceinline__ void panel_dots(float (&s)[4][4], const float* a, const float* b, int nk) {
-  if (nk > 48) panel_dots<4, LD, DEPTH>(s, a, b);
-  else if (nk > 32) panel_dots<3, LD, DEPTH>(s, a, b);
-  else if (nk > 16) panel_dots<2, LD, DEPTH>(s, a, b);
-  else panel_dots<1, LD, DEPTH>(s, a, b);
+  if (nk > 48) panel_dots<4, LD, DEPTH, kLean>(s, a, b);
+  else if (nk > 32) panel_dots<3, LD, DEPTH, kLean>(s, a, b);
+  else if (nk > 16) panel_dots<2, LD, DEPTH, kLean>(s, a, b);
+  else panel_dots<1, LD, DEPTH, kLean>(s, a, b);
 }
 
 // o[i][c] += sum_j p[ty + 16 i][j] * v[j][4 tx + 64 c .. + 3] over the
@@ -2911,35 +2907,62 @@ __device__ __forceinline__ float half_sum(float x) {
   return x;
 }
 
-// K1 (kTwoPass) and K2 in float32 above head dim 128. Grid (ceil(Lq / 64),
-// B*H, panels), kThreads threads, panel_f32_smem_bytes(D, kAcc) bytes.
+// Item i of the float32 body's stream (panel_item's, with K1's first pass
+// over the tiles from the last to the first, and its second pass taking
+// tile 0's V alone: tile 0's scores are still in registers).
+__device__ __forceinline__ PanelItem fma_item(int i, int tiles, int nqk, bool two_pass) {
+  if (!two_pass) return {i / (nqk + 1), i % (nqk + 1)};
+  if (i < tiles * nqk) return {tiles - 1 - i / nqk, i % nqk};
+  i -= tiles * nqk;
+  if (i == 0) return {0, nqk};
+  --i;
+  return {1 + i / (nqk + 1), i % (nqk + 1)};
+}
+__device__ __forceinline__ int fma_items(int tiles, int nqk, bool two_pass) {
+  return two_pass ? tiles * nqk + 1 + (tiles - 1) * (nqk + 1) : tiles * (nqk + 1);
+}
+
+// K1 (kTwoPass) and K2 in float32: above head dim 128, and K1 at 64 and
+// 128. Grid (ceil(Lq / 64), B*H, panels), at 64 and 128 (B*H, ceil(Lq /
+// 64)), kThreads threads, panel_f32_smem_bytes(D, kAcc) bytes.
 template <int kAcc, bool kTwoPass>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(kThreads, panel_f32_min_blocks(kAcc))
 attention_panels_fma(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
                      const uint8_t* __restrict__ mask, float* __restrict__ out, float* __restrict__ lse, int H,
                      int Lq, int Lk, int D, int P, float scale_log2) {
   constexpr int kC4 = kAcc / 64;  // float4 output columns a thread
-  constexpr int kLdV = kAcc + 4, kSlot = kRows * kLdV;
+  constexpr int kLdV = kAcc + 4;
+  // Under the register caps of three or two blocks an SM: panel_dots's lean
+  // form, and K1's row max and 1 / sum kept after pass 1 in the padding
+  // columns 64 and 65 of p's rows (no read of p reaches them; the 16 threads
+  // of a row write the same values) instead of 8 registers a thread.
+  constexpr bool kLean = kAcc <= 128;
   extern __shared__ __align__(16) float fsm[];
-  const bool resident = D <= kAcc;  // one panel: Q stays
-  const int ldq = D + 4;
+  const bool resident = panel_f32_resident(D, kAcc);  // Q stays
+  const int ldq = D + 4, slot = panel_f32_slot(kAcc, resident);
   float* sq = fsm;
   float* ring = fsm + (resident ? kRows * ldq : 0);
-  float* sp = ring + 2 * kSlot;
+  float* sp = ring + 2 * slot;
 
-  const int q0 = blockIdx.x * kRows, bh = blockIdx.y, c0 = blockIdx.z * P, tid = threadIdx.x;
+  // K1 at 64 and 128 walks the grid head first (x), so that every head's
+  // last, short row block comes at the end of the grid, where it fills the
+  // tail; the other bodies keep a head's row blocks side by side.
+  constexpr bool kHeadsFirst = kAcc <= 128;
+  const int q0 = (kHeadsFirst ? blockIdx.y : blockIdx.x) * kRows, bh = kHeadsFirst ? blockIdx.x : blockIdx.y;
+  const int c0 = blockIdx.z * P, tid = threadIdx.x;
   const int ty = tid / 16, tx = tid % 16;
   const int nq = min(kRows, Lq - q0), ncols = min(P, D - c0);
+  const bool rows_live = ty < nq;  // the thread's first row, and so some of its rows, are query rows
   const uint8_t* mask_b = mask ? mask + (size_t)(bh / H) * Lk : nullptr;
   const int tiles = (Lk + kPanelKeys - 1) / kPanelKeys, nqk = resident ? 1 : D / kPanel;
-  const int total = panel_items(tiles, nqk, kTwoPass);
+  const int total = fma_items(tiles, nqk, kTwoPass);
   const float* qb = q + ((size_t)bh * Lq + q0) * D;
   const float* kb = k + (size_t)bh * Lk * D;
   const float* vb = v + (size_t)bh * Lk * D;
 
   auto issue = [&](int i) {  // item i's copies into slot i % 2
-    float* dst = ring + (i % 2) * kSlot;
-    const PanelItem it = panel_item(i, tiles, nqk, kTwoPass);
+    float* dst = ring + (i % 2) * slot;
+    const PanelItem it = fma_item(i, tiles, nqk, kTwoPass);
     const int k0 = it.t * kPanelKeys, nk = min(kPanelKeys, Lk - k0);
     if (it.c == nqk) {
       stage_panel<kAcc>(dst, kLdV, vb + (size_t)k0 * D + c0, D, nk, D - c0);
@@ -2960,7 +2983,7 @@ attention_panels_fma(const float* __restrict__ q, const float* __restrict__ k, c
     cp_async_commit();
     cp_async_wait<1>();
     __syncthreads();
-    return ring + (i % 2) * kSlot;
+    return ring + (i % 2) * slot;
   };
   auto release = [&] {  // every thread is done with item i's slot
     __syncthreads();
@@ -2969,14 +2992,18 @@ attention_panels_fma(const float* __restrict__ q, const float* __restrict__ k, c
   // This thread's scaled, biased scores (log2 domain) of the tile at k0.
   auto scores = [&](int k0, float (&s)[4][4]) {
     const int nk = min(kPanelKeys, Lk - k0);
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[r][j] = 0.f;
     for (int c = 0; c < nqk; ++c) {
       const float* sl = acquire();
-      if (resident) panel_dots<kAcc + 4, kAcc>(s, sq, sl, nk);  // D == kAcc
-      else panel_dots<kPanelLdC, kPanel>(s, sl, sl + kRows * kPanelLdC, nk);
+      if (c == 0) {  // zeroed after the first item's copies are issued: no live sums while they are
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) s[r][j] = 0.f;
+      }
+      if (rows_live) {
+        if (resident) panel_dots<kAcc + 4, kAcc, kLean>(s, sq, sl, nk);  // D == kAcc
+        else panel_dots<kPanelLdC, kPanel, kLean>(s, sl, sl + kRows * kPanelLdC, nk);
+      }
       release();
     }
 #pragma unroll
@@ -2988,12 +3015,12 @@ attention_panels_fma(const float* __restrict__ q, const float* __restrict__ k, c
     }
   };
 
+  float s[4][4];  // the scores of the current tile (K1: from pass 1's last, tile 0, into pass 2)
   float m[4], l[4], inv[4];
 #pragma unroll
   for (int r = 0; r < 4; ++r) m[r] = -INFINITY, l[r] = 0.f, inv[r] = 1.f;
-  if constexpr (kTwoPass) {  // pass 1: each row's max and normaliser
-    for (int t = 0; t < tiles; ++t) {
-      float s[4][4];
+  if constexpr (kTwoPass) {  // pass 1: each row's max and normaliser, over the tiles from the last
+    for (int t = tiles - 1; t >= 0; --t) {
       scores(t * kPanelKeys, s);
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
@@ -3010,6 +3037,13 @@ attention_panels_fma(const float* __restrict__ q, const float* __restrict__ k, c
     for (int r = 0; r < 4; ++r) {
       l[r] = half_sum(l[r]);
       inv[r] = 1.f / l[r];
+      const int row = ty + 16 * r;
+      if (lse != nullptr && blockIdx.z == 0 && tx == 0 && row < nq)
+        lse[(size_t)bh * Lq + q0 + row] = (m[r] + log2f(l[r])) * kLn2;
+      if constexpr (kLean) {
+        sp[row * kPanelLdP + kPanelKeys] = m[r];
+        sp[row * kPanelLdP + kPanelKeys + 1] = inv[r];
+      }
     }
   }
   float4 o[4][kC4];
@@ -3019,13 +3053,14 @@ attention_panels_fma(const float* __restrict__ q, const float* __restrict__ k, c
     for (int c = 0; c < kC4; ++c) o[r][c] = make_float4(0.f, 0.f, 0.f, 0.f);
   for (int t = 0; t < tiles; ++t) {
     const int k0 = t * kPanelKeys;
-    float s[4][4];
-    scores(k0, s);
+    if (!kTwoPass || t > 0) scores(k0, s);
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
       if constexpr (kTwoPass) {
+        const float* stats = sp + (ty + 16 * r) * kPanelLdP + kPanelKeys;
+        const float mr = kLean ? stats[0] : m[r], ir = kLean ? stats[1] : inv[r];
 #pragma unroll
-        for (int j = 0; j < 4; ++j) s[r][j] = exp2f(s[r][j] - m[r]) * inv[r];
+        for (int j = 0; j < 4; ++j) s[r][j] = exp2f(s[r][j] - mr) * ir;
       } else {
         const float m_new = fmaxf(m[r], half_max(fmaxf(fmaxf(s[r][0], s[r][1]), fmaxf(s[r][2], s[r][3]))));
         const float mu = m_new == -INFINITY ? 0.f : m_new;
@@ -3046,7 +3081,7 @@ attention_panels_fma(const float* __restrict__ q, const float* __restrict__ k, c
       for (int j = 0; j < 4; ++j) sp[(ty + 16 * r) * kPanelLdP + tx + 16 * j] = s[r][j];
     }
     const float* sv = acquire();  // the tile's V; its barrier also publishes p
-    panel_pv<kC4>(o, sp, sv, kLdV, min(kPanelKeys, Lk - k0));
+    if (rows_live) panel_pv<kC4>(o, sp, sv, kLdV, min(kPanelKeys, Lk - k0));
     release();
   }
   if constexpr (!kTwoPass) {
@@ -3067,17 +3102,311 @@ attention_panels_fma(const float* __restrict__ q, const float* __restrict__ k, c
       if (4 * tx + 64 * c < ncols)
         *reinterpret_cast<float4*>(orow + 4 * tx + 64 * c) =
             make_float4(o[r][c].x * f, o[r][c].y * f, o[r][c].z * f, o[r][c].w * f);
-    if (lse != nullptr && blockIdx.z == 0 && tx == 0) lse[(size_t)bh * Lq + q0 + row] = (m[r] + log2f(l[r])) * kLn2;
+    if (!kTwoPass && lse != nullptr && blockIdx.z == 0 && tx == 0)
+      lse[(size_t)bh * Lq + q0 + row] = (m[r] + log2f(l[r])) * kLn2;
+  }
+}
+
+// ------------------------------- B.4's pair in float32 above head dim 128
+// The backward section's contract (dQ, dK, dV from the forward's
+// log-sum-exp; two launches, no atomics; the dQ kernel writes lse2 and D to
+// the scratch of scratch_rows, 64-row tiles) at every multiple of 64 above
+// 128 (the wrapper pads 136 to 192), on the float32 forward body's scheme:
+// FP32 FMAs (no TF32: the 1e-5 bar), a 16 x 16 grid of threads, each a 4 x
+// 4 tile of the scores and of their gradient in registers, float4 operands
+// from rows padded by 4 floats at compile-time strides (panel_dots,
+// panel_pv), and items by cp.async into two ring slots. Q and dO together
+// do not fit beside a ring at D 256 (2 x 64 x 260 x 4 B = 133 KB), so the
+// scores' operands stream at every D in 64-column chunks: an item holds
+// four 64 x 64 chunks (dQ: Q, K, dO, V; dK/dV: K, Q, V, dO), and shared
+// memory does not grow with D.
+//  * dQ: a block owns 64 query rows and at most 256 output columns, the
+//    forward's column panels on grid z (panel_plan: 192 -> 192, 256 -> 256,
+//    320 -> 2 x 160, ...). For each 64-key tile it sums S = Q K^T and dP =
+//    dO V^T over the D / 64 score items, forms dS = P * (dP - D) in
+//    registers and passes it through shared memory (as the forward passes
+//    p), then adds dS K into a register accumulator from an item of K's
+//    columns of the block's panel. Each z block recomputes S and dP over
+//    all of D (at D 320: 2 x 2 x 320 columns of score products a key for
+//    2 x 160 of dS K, where one block would do 640 + 320).
+//  * dK/dV: a block owns 64 keys and kPairOut output columns of dK and of
+//    dV, and walks the query rows in 64-row tiles: S^T = K Q^T and dP^T =
+//    V dO^T in 4 x 4 register tiles, P^T and dS^T through shared memory,
+//    then dV += P^T dO and dK += dS^T Q from two items of dO's and Q's
+//    output columns. Grid z takes ceil(D / kPairOut) column blocks, and
+//    each recomputes S^T and dP^T over all of D: at D 256 with 128 columns
+//    4 D + 2 D products a query-key pair against 4 D with one block, 1.5x,
+//    for twice the blocks (the D-256 VITW shapes have 8 heads x 4 key
+//    blocks). 256-column blocks, the other design, were slower and
+//    spilled (PERF.md).
+//  * Bound: operations, on the CUDA cores: 10 flops a query-key-dim over
+//    the valid keys (the forward's Q.K^T again, dP, dS K, P^T dO, dS^T Q) at
+//    67 TFLOP/s; at (2, 4, 197, 197, 256) 0.0097 ms. The grids are small at
+//    the VITW shapes (dQ: 4 row blocks x 8 heads), one block an SM.
+constexpr int kPairOut = 128;  // dK/dV: output columns a block
+constexpr int kPairChunk = kRows * kPanelLdC;  // floats of one staged 64 x 64 chunk
+
+// Floats of a ring slot: four chunks, or 64 rows of acc + 4 (an output item).
+__host__ __device__ constexpr int pair_slot(int acc) {
+  return 4 * kPairChunk > kRows * (acc + 4) ? 4 * kPairChunk : kRows * (acc + 4);
+}
+// dQ: two slots and the tile's dS (64 x 68).
+__host__ __device__ constexpr size_t pair_dq_smem_bytes(int acc) {
+  return ((size_t)2 * pair_slot(acc) + kRows * kPanelLdP) * sizeof(float);
+}
+// dK/dV: two slots, the tile's P^T and dS^T.
+__host__ __device__ constexpr size_t pair_dkdv_smem_bytes(int out) {
+  return ((size_t)2 * pair_slot(out) + 2 * kRows * kPanelLdP) * sizeof(float);
+}
+static_assert(pair_dq_smem_bytes(256) <= 232448 && pair_dkdv_smem_bytes(256) <= 232448, "a block's shared memory");
+
+// B.4's dQ in float32 above head dim 128. Grid (Lq_pad / 64, B*H, panels),
+// kThreads threads, pair_dq_smem_bytes(kAcc) bytes. Its z = 0 blocks write
+// each row's lse2 (base 2; +inf past Lq, so that those rows get P = 0) and
+// D = rowsum(dO * out) to the scratch for the dK/dV kernel.
+template <int kAcc>
+__global__ void __launch_bounds__(kThreads, 1)
+attention_bwd_dq_fma(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+                     const uint8_t* __restrict__ mask, const float* __restrict__ out,
+                     const float* __restrict__ lse, const float* __restrict__ g, float* __restrict__ dq,
+                     float* __restrict__ lse2_pad, float* __restrict__ dsum_pad, int H, int Lq, int Lk, int D, int P,
+                     int Lq_pad, float scale_log2, float scale) {
+  constexpr int kC4 = kAcc / 64, kLdO = kAcc + 4, kSlot = pair_slot(kAcc);
+  extern __shared__ __align__(16) float fsm[];
+  float* ring = fsm;
+  float* sds = fsm + 2 * kSlot;
+
+  const int q0 = blockIdx.x * kRows, bh = blockIdx.y, c0 = blockIdx.z * P, tid = threadIdx.x;
+  const int ty = tid / 16, tx = tid % 16;
+  const int nq = max(0, min(kRows, Lq - q0)), ncols = min(P, D - c0);
+  const bool rows_live = ty < nq;
+  const uint8_t* mask_b = mask ? mask + (size_t)(bh / H) * Lk : nullptr;
+  const int tiles = (Lk + kPanelKeys - 1) / kPanelKeys, nqk = D / kPanel, total = tiles * (nqk + 1);
+  const size_t q_off = ((size_t)bh * Lq + q0) * D;
+  const float* kb = k + (size_t)bh * Lk * D;
+  const float* vb = v + (size_t)bh * Lk * D;
+
+  // Item i: tile i / (nqk + 1); its chunks c < nqk of Q, K, dO and V, then
+  // (c == nqk) the tile's K over the block's accumulated columns.
+  auto issue = [&](int i) {
+    float* dst = ring + (i % 2) * kSlot;
+    const int t = i / (nqk + 1), c = i % (nqk + 1), k0 = t * kPanelKeys, nk = min(kPanelKeys, Lk - k0);
+    if (c == nqk) {
+      stage_panel<kAcc>(dst, kLdO, kb + (size_t)k0 * D + c0, D, nk, D - c0);
+    } else {
+      stage_panel<kPanel>(dst, kPanelLdC, q + q_off + c * kPanel, D, nq, kPanel);
+      stage_panel<kPanel>(dst + kPairChunk, kPanelLdC, kb + (size_t)k0 * D + c * kPanel, D, nk, kPanel);
+      stage_panel<kPanel>(dst + 2 * kPairChunk, kPanelLdC, g + q_off + c * kPanel, D, nq, kPanel);
+      stage_panel<kPanel>(dst + 3 * kPairChunk, kPanelLdC, vb + (size_t)k0 * D + c * kPanel, D, nk, kPanel);
+    }
+  };
+  issue(0);
+  cp_async_commit();
+
+  // Each of the thread's rows: D_i over the whole head dim, a float4 in 16
+  // of a row's 16 threads, and lse2.
+  float dsum[4], lse2[4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int row = ty + 16 * r;
+    float part = 0.f;
+    if (row < nq) {
+      const float* gr = g + q_off + (size_t)row * D;
+      const float* orow = out + q_off + (size_t)row * D;
+      for (int d = 4 * tx; d < D; d += 64) {
+        const float4 a = *reinterpret_cast<const float4*>(gr + d), b = *reinterpret_cast<const float4*>(orow + d);
+        part = fmaf(a.w, b.w, fmaf(a.z, b.z, fmaf(a.y, b.y, fmaf(a.x, b.x, part))));
+      }
+    }
+    dsum[r] = half_sum(part);
+    lse2[r] = row < nq ? lse[(size_t)bh * Lq + q0 + row] * kLog2e : INFINITY;
+    if (blockIdx.z == 0 && tx == 0) {
+      lse2_pad[(size_t)bh * Lq_pad + q0 + row] = lse2[r];
+      dsum_pad[(size_t)bh * Lq_pad + q0 + row] = dsum[r];
+    }
+  }
+  const bool all_masked = !any_valid_key(mask_b, Lk);
+
+  int i = 0;  // the item the block consumes next
+  auto acquire = [&]() -> const float* {  // start item i + 1, wait for item i
+    if (i + 1 < total) issue(i + 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    return ring + (i % 2) * kSlot;
+  };
+  auto release = [&] {
+    __syncthreads();
+    ++i;
+  };
+
+  float4 o[4][kC4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int c = 0; c < kC4; ++c) o[r][c] = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int t = 0; t < tiles; ++t) {
+    const int k0 = t * kPanelKeys, nk = min(kPanelKeys, Lk - k0);
+    float s[4][4] = {}, dp[4][4] = {};
+    for (int c = 0; c < nqk; ++c) {
+      const float* sl = acquire();
+      if (rows_live) {
+        panel_dots<kPanelLdC, kPanel>(s, sl, sl + kPairChunk, nk);                       // Q K^T
+        panel_dots<kPanelLdC, kPanel>(dp, sl + 2 * kPairChunk, sl + 3 * kPairChunk, nk);  // dO V^T
+      }
+      release();
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int key = k0 + tx + 16 * j;
+      const bool valid = key < Lk && (all_masked || mask_b == nullptr || mask_b[key]);
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const float p = valid ? exp2f((all_masked ? 0.f : s[r][j] * scale_log2) - lse2[r]) : 0.f;
+        sds[(ty + 16 * r) * kPanelLdP + tx + 16 * j] = p * (dp[r][j] - dsum[r]);
+      }
+    }
+    const float* sk = acquire();  // K's columns; its barrier also publishes dS
+    if (rows_live) panel_pv<kC4>(o, sds, sk, kLdO, nk);
+    release();
+  }
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int row = ty + 16 * r;
+    if (row >= nq) continue;
+    float* drow = dq + q_off + (size_t)row * D + c0;
+#pragma unroll
+    for (int c = 0; c < kC4; ++c)
+      if (4 * tx + 64 * c < ncols)
+        *reinterpret_cast<float4*>(drow + 4 * tx + 64 * c) =
+            make_float4(o[r][c].x * scale, o[r][c].y * scale, o[r][c].z * scale, o[r][c].w * scale);
+  }
+}
+
+// B.4's dK/dV in float32 above head dim 128. Grid (ceil(Lk / 64), B*H,
+// ceil(D / kPairOut)), kThreads threads, pair_dkdv_smem_bytes(kPairOut)
+// bytes. Thread (ty, tx) holds keys ty + 16 i and, in a tile, queries
+// tx + 16 j.
+__global__ void __launch_bounds__(kThreads, 1)
+attention_bwd_dkdv_fma(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+                       const uint8_t* __restrict__ mask, const float* __restrict__ g, float* __restrict__ dk,
+                       float* __restrict__ dv, const float* __restrict__ lse2_pad,
+                       const float* __restrict__ dsum_pad, int H, int Lq, int Lk, int D, int Lq_pad,
+                       float scale_log2, float scale) {
+  constexpr int kOut = kPairOut, kC4 = kOut / 64, kLdO = kOut + 4, kSlot = pair_slot(kOut);
+  extern __shared__ __align__(16) float fsm[];
+  float* ring = fsm;
+  float* sp = fsm + 2 * kSlot;         // P^T of the tile (key rows)
+  float* sds = sp + kRows * kPanelLdP;  // dS^T
+
+  const int k0 = blockIdx.x * kPanelKeys, bh = blockIdx.y, c0 = blockIdx.z * kOut, tid = threadIdx.x;
+  const int ty = tid / 16, tx = tid % 16;
+  const int nk = min(kPanelKeys, Lk - k0), ncols = min(kOut, D - c0);
+  const bool rows_live = ty < nk;
+  const uint8_t* mask_b = mask ? mask + (size_t)(bh / H) * Lk : nullptr;
+  const int tiles = Lq_pad / kRows, nqk = D / kPanel, per = nqk + 2, total = tiles * per;
+  const size_t kv_off = ((size_t)bh * Lk + k0) * D, q_base = (size_t)bh * Lq * D, pad_off = (size_t)bh * Lq_pad;
+
+  // Item i: query tile i / per; its chunks c < nqk of K, Q, V and dO; then
+  // dO's (c == nqk) and Q's (c == nqk + 1) rows over the block's columns.
+  auto issue = [&](int i) {
+    float* dst = ring + (i % 2) * kSlot;
+    const int t = i / per, c = i % per, r0 = t * kRows, nq = max(0, min(kRows, Lq - r0));
+    const float* qt = q + q_base + (size_t)r0 * D;
+    const float* gt = g + q_base + (size_t)r0 * D;
+    if (c >= nqk) {
+      stage_panel<kOut>(dst, kLdO, (c == nqk ? gt : qt) + c0, D, nq, D - c0);
+    } else {
+      stage_panel<kPanel>(dst, kPanelLdC, k + kv_off + c * kPanel, D, nk, kPanel);
+      stage_panel<kPanel>(dst + kPairChunk, kPanelLdC, qt + c * kPanel, D, nq, kPanel);
+      stage_panel<kPanel>(dst + 2 * kPairChunk, kPanelLdC, v + kv_off + c * kPanel, D, nk, kPanel);
+      stage_panel<kPanel>(dst + 3 * kPairChunk, kPanelLdC, gt + c * kPanel, D, nq, kPanel);
+    }
+  };
+  issue(0);
+  cp_async_commit();
+  const bool all_masked = !any_valid_key(mask_b, Lk);
+  bool valid[4];  // the thread's keys: P is 0 on a masked key and past Lk
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int key = k0 + ty + 16 * r;
+    valid[r] = key < Lk && (all_masked || mask_b == nullptr || mask_b[key]);
+  }
+
+  int i = 0;
+  auto acquire = [&]() -> const float* {
+    if (i + 1 < total) issue(i + 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    return ring + (i % 2) * kSlot;
+  };
+  auto release = [&] {
+    __syncthreads();
+    ++i;
+  };
+
+  float4 dk_acc[4][kC4], dv_acc[4][kC4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int c = 0; c < kC4; ++c) dk_acc[r][c] = dv_acc[r][c] = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int t = 0; t < tiles; ++t) {
+    const int r0 = t * kRows, nq = max(0, min(kRows, Lq - r0));
+    float l2[4], dd[4];  // the tile's queries' lse2 (+inf past Lq) and D, read before the products
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      l2[j] = lse2_pad[pad_off + r0 + tx + 16 * j];
+      dd[j] = dsum_pad[pad_off + r0 + tx + 16 * j];
+    }
+    float s[4][4] = {}, dp[4][4] = {};
+    for (int c = 0; c < nqk; ++c) {
+      const float* sl = acquire();
+      if (rows_live) {
+        panel_dots<kPanelLdC, kPanel>(s, sl, sl + kPairChunk, nq);                       // K Q^T
+        panel_dots<kPanelLdC, kPanel>(dp, sl + 2 * kPairChunk, sl + 3 * kPairChunk, nq);  // V dO^T
+      }
+      release();
+    }
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float p = valid[r] ? exp2f((all_masked ? 0.f : s[r][j] * scale_log2) - l2[j]) : 0.f;
+        sp[(ty + 16 * r) * kPanelLdP + tx + 16 * j] = p;
+        sds[(ty + 16 * r) * kPanelLdP + tx + 16 * j] = p * (dp[r][j] - dd[j]);
+      }
+    const float* sg = acquire();  // dO's columns; its barrier also publishes P^T and dS^T
+    if (rows_live) panel_pv<kC4>(dv_acc, sp, sg, kLdO, nq);
+    release();
+    const float* sq = acquire();  // Q's columns
+    if (rows_live) panel_pv<kC4>(dk_acc, sds, sq, kLdO, nq);
+    release();
+  }
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int key = ty + 16 * r;
+    if (key >= nk) continue;
+    float* krow = dk + kv_off + (size_t)key * D + c0;
+    float* vrow = dv + kv_off + (size_t)key * D + c0;
+#pragma unroll
+    for (int c = 0; c < kC4; ++c)
+      if (4 * tx + 64 * c < ncols) {
+        const float4 a = dk_acc[r][c];
+        *reinterpret_cast<float4*>(krow + 4 * tx + 64 * c) = make_float4(a.x * scale, a.y * scale, a.z * scale,
+                                                                          a.w * scale);
+        *reinterpret_cast<float4*>(vrow + 4 * tx + 64 * c) = dv_acc[r][c];
+      }
   }
 }
 
 // ===================================================================== launch
-// Dynamic shared memory of the float32 bodies: K1 (K and V, the query tile
-// below D = 128 and the mask bytes), the D = 128 K2 and dQ bodies (a 64-key
-// tile of K and V and its mask bytes) and dK/dV (a 64-row tile of Q and g,
-// and their lse2 and D).
+// Dynamic shared memory of the float32 bodies: K1 at D 16 and 32 (K and V,
+// the query tile and the mask bytes), the D = 128 K2 and dQ bodies (a
+// 64-key tile of K and V and its mask bytes) and dK/dV (a 64-row tile of Q
+// and g, and their lse2 and D).
 size_t whole_kv_f32_smem_bytes(int Lk, int D) {
-  return (size_t)2 * Lk * D * sizeof(float) + (D > 64 ? 0 : (size_t)kRows * D * sizeof(float)) + Lk;
+  return (size_t)2 * Lk * D * sizeof(float) + (size_t)kRows * D * sizeof(float) + Lk;
 }
 constexpr size_t flash_f32_slice_smem_bytes(int D) { return (size_t)2 * kFlashKeys * D * sizeof(float) + kFlashKeys; }
 constexpr size_t bwd_dkdv_f32_smem_bytes(int D) { return ((size_t)2 * kRows * D + 2 * kRows) * sizeof(float); }
@@ -3167,11 +3496,13 @@ cudaError_t launch_backward_wgmma(const bf16* q, const bf16* k, const bf16* v, c
   return cudaGetLastError();
 }
 
-// The forwards above head dim 128 that take the panel bodies: bf16 K1 at
+// The forwards that take the panel bodies: above head dim 128 bf16 K1 at
 // every D and bf16 K2 above 256 (attention_panels_wgmma), float32 K1 and K2
-// (attention_panels_fma). flash: K2 (online softmax), else K1 (two passes).
-bool panel_plan_ok(int D) {
+// (attention_panels_fma); float32 K1 also at 64 and 128 (one panel, the
+// whole head). flash: K2 (online softmax), else K1 (two passes).
+bool panel_plan_ok(int dtype, int D, bool flash) {
   const PanelPlan p = panel_plan(D);
+  if (dtype == 0 && !flash && (D == 64 || D == 128)) return true;
   return D > 128 && D % kPanel == 0 && (p.acc == 192 || p.acc == 256) && D - (p.panels - 1) * p.cols > 0;
 }
 
@@ -3183,7 +3514,7 @@ size_t panel_smem_bytes(int dtype, int D) {
 
 cudaError_t launch_panels(bool flash, const bf16* q, const bf16* k, const bf16* v, const uint8_t* mask, bf16* out,
                           float* lse, int B, int H, int Lq, int Lk, int D, float scale_log2, cudaStream_t stream) {
-  if (!panel_plan_ok(D) || B * H > 65535) return cudaErrorInvalidValue;
+  if (!panel_plan_ok(1, D, flash) || B * H > 65535) return cudaErrorInvalidValue;
   const PanelPlan p = panel_plan(D);
   cudaError_t err = bind_device(q);
   if (err != cudaSuccess) return err;
@@ -3203,22 +3534,26 @@ cudaError_t launch_panels(bool flash, const bf16* q, const bf16* k, const bf16* 
 cudaError_t launch_panels(bool flash, const float* q, const float* k, const float* v, const uint8_t* mask,
                           float* out, float* lse, int B, int H, int Lq, int Lk, int D, float scale_log2,
                           cudaStream_t stream) {
-  if (!panel_plan_ok(D) || B * H > 65535) return cudaErrorInvalidValue;
+  if (!panel_plan_ok(0, D, flash) || B * H > 65535) return cudaErrorInvalidValue;
   const PanelPlan p = panel_plan(D);
-  const auto kernel = p.acc == 192 ? (flash ? attention_panels_fma<192, false> : attention_panels_fma<192, true>)
-                                   : (flash ? attention_panels_fma<256, false> : attention_panels_fma<256, true>);
+  const auto kernel = p.acc == 64    ? attention_panels_fma<64, true>
+                      : p.acc == 128 ? attention_panels_fma<128, true>
+                      : p.acc == 192 ? (flash ? attention_panels_fma<192, false> : attention_panels_fma<192, true>)
+                                     : (flash ? attention_panels_fma<256, false> : attention_panels_fma<256, true>);
   const size_t smem = panel_smem_bytes(0, D);
   const cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((Lq + kRows - 1) / kRows, B * H, p.panels);
+  const int row_blocks = (Lq + kRows - 1) / kRows;  // K1 at 64 and 128: heads on x (see attention_panels_fma)
+  const dim3 grid = p.acc <= 128 ? dim3(B * H, row_blocks, 1) : dim3(row_blocks, B * H, p.panels);
   kernel<<<grid, kThreads, smem, stream>>>(q, k, v, mask, out, lse, H, Lq, Lk, D, p.cols, scale_log2);
   return cudaGetLastError();
 }
 
 // K1's grid: `blocks` query-row blocks per (batch*head) of `threads`
-// threads each, as kernels/attention.py::whole_kv_plan gives it. K2's grid
-// has no choice in it and is set here. lse may be null; K1's bf16 body
-// writes none and refuses a pointer.
+// threads each, as kernels/attention.py::whole_kv_plan gives it (float32 at
+// 64 and 128: the panel body's grid, which the launch checks the same way).
+// K2's grid has no choice in it and is set here. lse may be null; K1's bf16
+// body writes none and refuses a pointer.
 template <int D>
 cudaError_t launch_f32(bool flash, const float* q, const float* k, const float* v,
                        const uint8_t* mask, float* out, float* lse, int B, int H, int Lq, int Lk,
@@ -3237,16 +3572,15 @@ cudaError_t launch_f32(bool flash, const float* q, const float* k, const float* 
     }
   } else {
     if (threads != kThreads || blocks < 1 || blocks * kRows < Lq) return cudaErrorInvalidValue;
-    const dim3 grid(B * H, blocks);
-    const size_t smem = whole_kv_f32_smem_bytes(Lk, D);
-    auto kernel = [] {
-      if constexpr (D > 64) return attention_whole_kv_slice<D>;
-      else return attention_whole_kv_kernel<D>;
-    }();
-    cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-    kernel<<<grid, kThreads, smem, stream>>>(q, k, v, mask, out, lse, H, Lq, Lk, scale_log2);
+    if constexpr (D >= 64) {  // the panel body, any Lk
+      return launch_panels(false, q, k, v, mask, out, lse, B, H, Lq, Lk, D, scale_log2, stream);
+    } else {
+      const size_t smem = whole_kv_f32_smem_bytes(Lk, D);
+      const cudaError_t err = allow_smem(attention_whole_kv_kernel<D>, smem);
+      if (err != cudaSuccess) return err;
+      attention_whole_kv_kernel<D><<<dim3(B * H, blocks), kThreads, smem, stream>>>(q, k, v, mask, out, lse, H, Lq,
+                                                                                     Lk, scale_log2);
+    }
   }
   return cudaGetLastError();
 }
@@ -3385,6 +3719,33 @@ cudaError_t launch_backward(const T* q, const T* k, const T* v, const uint8_t* m
   }
 }
 
+// B.4's pair in float32 above head dim 128: the dQ kernel over 64-row
+// blocks and the forward's column panels (grid z), which writes the
+// scratch, then the dK/dV kernel over 64-key blocks, ceil(D / kPairOut) of
+// them a key block.
+cudaError_t launch_backward_fma(const float* q, const float* k, const float* v, const uint8_t* mask,
+                                const float* out, const float* lse, const float* g, float* dq, float* dk, float* dv,
+                                float* scratch, int B, int H, int Lq, int Lk, int D, float scale,
+                                cudaStream_t stream) {
+  if (!panel_plan_ok(0, D, true) || B * H > 65535) return cudaErrorInvalidValue;
+  const PanelPlan p = panel_plan(D);
+  const int Lq_pad = scratch_rows(0, Lq, D);
+  float* lse2_pad = scratch;
+  float* dsum_pad = scratch + (size_t)B * H * Lq_pad;
+  const float scale_log2 = kLog2e * scale;
+  const auto dq_kernel = p.acc == 192 ? attention_bwd_dq_fma<192> : attention_bwd_dq_fma<256>;
+  cudaError_t err;
+  if ((err = allow_smem(dq_kernel, pair_dq_smem_bytes(p.acc))) != cudaSuccess) return err;
+  dq_kernel<<<dim3(Lq_pad / kRows, B * H, p.panels), kThreads, pair_dq_smem_bytes(p.acc), stream>>>(
+      q, k, v, mask, out, lse, g, dq, lse2_pad, dsum_pad, H, Lq, Lk, D, p.cols, Lq_pad, scale_log2, scale);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if ((err = allow_smem(attention_bwd_dkdv_fma, pair_dkdv_smem_bytes(kPairOut))) != cudaSuccess) return err;
+  attention_bwd_dkdv_fma<<<dim3((Lk + kPanelKeys - 1) / kPanelKeys, B * H, (D + kPairOut - 1) / kPairOut), kThreads,
+                           pair_dkdv_smem_bytes(kPairOut), stream>>>(
+      q, k, v, mask, g, dk, dv, lse2_pad, dsum_pad, H, Lq, Lk, D, Lq_pad, scale_log2, scale);
+  return cudaGetLastError();
+}
+
 template <typename T>
 cudaError_t dispatch_backward(int D, const void* q, const void* k, const void* v, const void* mask,
                               const void* out, const void* lse, const void* g, void* dq, void* dk,
@@ -3407,8 +3768,12 @@ cudaError_t dispatch_backward(int D, const void* q, const void* k, const void* v
     if (D == 256)
       return launch_backward<T, 256>(tq, tk, tv, m, to, l, tg, tdq, tdk, tdv, sc, B, H, Lq, Lk, scale, stream);
   }
-  if (D > 128) return launch_backward_wide<T>(tq, tk, tv, m, to, l, tg, tdq, tdk, tdv, sc, B, H, Lq, Lk, D, scale, stream);
-  return cudaErrorInvalidValue;
+  if (D <= 128) return cudaErrorInvalidValue;
+  if constexpr (std::is_same_v<T, float>) {  // float32 above 128: the register-tiled pair
+    return launch_backward_fma(tq, tk, tv, m, to, l, tg, tdq, tdk, tdv, sc, B, H, Lq, Lk, D, scale, stream);
+  } else {  // bf16 above 256: the chunked pair
+    return launch_backward_wide(tq, tk, tv, m, to, l, tg, tdq, tdk, tdv, sc, B, H, Lq, Lk, D, scale, stream);
+  }
 }
 
 // Every attention kernel instantiation, for attention_kernel_attributes.
@@ -3429,8 +3794,6 @@ const Entry kKernels[] = {
     {"attention_flash_wgmma_inline<bf16,256>", (const void*)attention_flash_wgmma_inline<256>},
     {"attention_whole_kv_kernel<float,16>", (const void*)attention_whole_kv_kernel<16>},
     {"attention_whole_kv_kernel<float,32>", (const void*)attention_whole_kv_kernel<32>},
-    {"attention_whole_kv_kernel<float,64>", (const void*)attention_whole_kv_kernel<64>},
-    {"attention_whole_kv_slice<float,128>", (const void*)attention_whole_kv_slice<128>},
     {"attention_flash_kernel<float,16>", (const void*)attention_flash_kernel<16>},
     {"attention_flash_kernel<float,32>", (const void*)attention_flash_kernel<32>},
     {"attention_flash_kernel<float,64>", (const void*)attention_flash_kernel<64>},
@@ -3459,14 +3822,17 @@ const Entry kKernels[] = {
     {"attention_panels_wgmma<bf16,256,K1>", (const void*)attention_panels_wgmma<256, true>},
     {"attention_panels_wgmma<bf16,192,K2>", (const void*)attention_panels_wgmma<192, false>},
     {"attention_panels_wgmma<bf16,256,K2>", (const void*)attention_panels_wgmma<256, false>},
+    {"attention_panels_fma<float,64,K1>", (const void*)attention_panels_fma<64, true>},
+    {"attention_panels_fma<float,128,K1>", (const void*)attention_panels_fma<128, true>},
     {"attention_panels_fma<float,192,K1>", (const void*)attention_panels_fma<192, true>},
     {"attention_panels_fma<float,256,K1>", (const void*)attention_panels_fma<256, true>},
     {"attention_panels_fma<float,192,K2>", (const void*)attention_panels_fma<192, false>},
     {"attention_panels_fma<float,256,K2>", (const void*)attention_panels_fma<256, false>},
+    {"attention_bwd_dq_fma<float,192>", (const void*)attention_bwd_dq_fma<192>},
+    {"attention_bwd_dq_fma<float,256>", (const void*)attention_bwd_dq_fma<256>},
+    {"attention_bwd_dkdv_fma<float>", (const void*)attention_bwd_dkdv_fma},
     {"attention_wide_bwd_dq<bf16>", (const void*)attention_wide_bwd_dq<bf16>},
     {"attention_wide_bwd_dkdv<bf16>", (const void*)attention_wide_bwd_dkdv<bf16>},
-    {"attention_wide_bwd_dq<float>", (const void*)attention_wide_bwd_dq<float>},
-    {"attention_wide_bwd_dkdv<float>", (const void*)attention_wide_bwd_dkdv<float>},
 };
 
 }  // namespace
@@ -3523,17 +3889,37 @@ extern "C" int attention_backward_scratch_rows(int dtype, int Lq, int D) {
 }
 
 // The panel plan of a forward above head dim 128 at this dtype and head
-// dim D (a multiple of 64): blocks on grid z, output columns a block
-// (the last one D - (panels - 1) cols), columns a block accumulates, and
-// dynamic shared bytes a block. Returns cudaErrorInvalidValue for a dtype or
-// D the panel bodies do not take.
+// dim D (a multiple of 64), and of float32 K1 at 64 and 128: blocks on grid
+// z, output columns a block (the last one D - (panels - 1) cols), columns a
+// block accumulates, and dynamic shared bytes a block. Returns
+// cudaErrorInvalidValue for a dtype or D the panel bodies do not take.
 extern "C" int attention_forward_plan(int dtype, int D, int* panels, int* cols, int* acc, int* smem) {
-  if ((dtype != 0 && dtype != 1) || !panel_plan_ok(D)) return (int)cudaErrorInvalidValue;
+  if ((dtype != 0 && dtype != 1) || !panel_plan_ok(dtype, D, false)) return (int)cudaErrorInvalidValue;
   const PanelPlan p = panel_plan(D);
   *panels = p.panels;
   *cols = p.cols;
   *acc = p.acc;
   *smem = (int)panel_smem_bytes(dtype, D);
+  return 0;
+}
+
+// The float32 pair's plan above head dim 128 at head dim D (a multiple of
+// 64): the dQ kernel's column panels on grid z, output columns a block (the
+// last one D - (panels - 1) cols), columns it accumulates and its dynamic
+// shared bytes; then the dK/dV kernel's column blocks on grid z, output
+// columns a block (the last one D - (blocks - 1) cols) and its shared
+// bytes. Returns cudaErrorInvalidValue for a D the pair does not take.
+extern "C" int attention_backward_plan(int D, int* dq_panels, int* dq_cols, int* dq_acc, int* dq_smem,
+                                       int* dkdv_blocks, int* dkdv_cols, int* dkdv_smem) {
+  if (!panel_plan_ok(0, D, true)) return (int)cudaErrorInvalidValue;
+  const PanelPlan p = panel_plan(D);
+  *dq_panels = p.panels;
+  *dq_cols = p.cols;
+  *dq_acc = p.acc;
+  *dq_smem = (int)pair_dq_smem_bytes(p.acc);
+  *dkdv_blocks = (D + kPairOut - 1) / kPairOut;
+  *dkdv_cols = kPairOut;
+  *dkdv_smem = (int)pair_dkdv_smem_bytes(kPairOut);
   return 0;
 }
 

@@ -27,9 +27,10 @@ head dim runs: bf16 K2 and the pair take the Hopper bodies at 192 and 256;
 every other forward there takes the panel bodies (``attention_panels_*`` in
 the source: bf16 on ``wgmma`` and TMA, float32 on register-tiled FP32 FMAs;
 at most 256 output columns a block, more in column panels on grid z,
-:func:`wide_forward_plan`), and the float32 pair and the bf16 pair above 256
-the chunked bodies (``attention_wide_bwd_*``, C.7), which take any such
-multiple.
+:func:`panel_forward_plan`); the float32 pair the register-tiled pair
+(``attention_bwd_*_fma``, :func:`pair_backward_plan`) and the bf16 pair
+above 256 the chunked bodies (``attention_wide_bwd_*``, C.7), which take any
+such multiple.
 
 In bf16 the forwards and the backward pair run their products on the tensor
 cores: K1 up to head dim 128, and K2 and the pair at head dims 16 and 32, on
@@ -37,10 +38,12 @@ cores: K1 up to head dim 128, and K2 and the pair at head dims 16 and 32, on
 :func:`whole_kv_plan` gives K1's grid); K2 at every head dim above 32, K1
 above 128 and the pair at head dims 64 to 256 on Hopper's ``wgmma`` with TMA
 loads (:func:`is_wgmma_forward`, :func:`is_wgmma_pair`; two warpgroups of 64
-rows a block; the library sizes the pair's scratch). In float32 they keep a
-CUDA-core body (four threads per row, 64-row blocks; at head dim 128 the
-four split the head dim instead of the keys; above 128 the panel body's 16 x
-16 threads, each a 4 x 4 block of scores).
+rows a block; the library sizes the pair's scratch). In float32 they run on
+the CUDA cores: K1 at head dims 16 and 32, K2 and the pair up to 128 on four
+threads per row in 64-row blocks (at head dim 128 the four split the head
+dim instead of the keys); K1 at 64 and 128 (three and two blocks an SM),
+every forward above 128 and the pair above 128 on the register-tiled
+bodies' 16 x 16 threads, each a 4 x 4 block of scores.
 
 The source is compiled beside the port's other CUDA sources (an ``nvcc`` a
 source, in parallel) for ``sm_90a`` and linked with them into a shared
@@ -97,6 +100,16 @@ WGMMA_HEAD_DIMS = (64, 128, 192, 256)
 #: Most output columns a panel body's block accumulates (kPanelMax); wider
 #: heads are cut into column panels on grid z.
 PANEL_MAX = 256
+#: The float32 pair's dK/dV kernel: output columns a block (the source's
+#: kPairOut), on ceil(D / 128) blocks of grid z.
+PAIR_DKDV_COLS = 128
+#: An SM's shared memory, and what each resident block reserves of it.
+SM_SMEM_BYTES, BLOCK_RESERVED_SMEM = 233_472, 1024
+#: float32 K1 goes to K2 above these key counts (head dim 64 and 128): the
+#: routing cut of the whole-KV bodies that K1 ran there before the panel
+#: body, which takes any Lk, kept until float32 K2's redesign decides it on
+#: a paired reading (:func:`use_flash`).
+K1_FLOAT32_MAX_KEYS = {64: 421, 128: 226}
 #: bf16 panel body: query rows a block and slots of its ring of 64-key items
 #: (kWgRows, kPanelStages).
 PANEL_BF16_ROWS, PANEL_BF16_STAGES = 128, 4
@@ -142,49 +155,99 @@ def kernel_head_dim(head_dim: int) -> int:
 
 def is_wide(head_dim: int) -> bool:
     """Whether ``head_dim`` is above 128, where every forward but bf16 K2 at
-    192 and 256 runs a panel body (:func:`wide_forward_plan`), and the
-    float32 pair and the bf16 pair above 256 the chunked bodies."""
+    192 and 256 runs a panel body (:func:`panel_forward_plan`), the float32
+    pair the register-tiled pair and the bf16 pair above 256 the chunked
+    bodies."""
     return kernel_head_dim(head_dim) > HEAD_DIMS[-1]
 
 
-def wide_forward_plan(head_dim: int, dtype: torch.dtype) -> dict:
-    """The panel bodies' launch above head dim 128 (``panel_plan`` and
-    ``panel_smem_bytes`` in the source, which ``attention_forward_plan``
-    exports): a block accumulates at most :data:`PANEL_MAX` output columns,
-    so the padded head dim D is cut into ``panels`` = ceil(D / 256) column
-    panels on grid z of ``panel_cols`` = ceil(D / panels / 16) * 16 columns
-    each (``widths``: the last takes the rest), a block accumulating
-    ``acc_cols`` = ceil(panel_cols / 64) * 64 of them. Q stays in shared
-    memory when there is one panel (D <= 256) and streams through the ring
-    in 64-column chunks beside K above it, so ``smem_bytes`` does not grow
-    with D beyond 256's, nor with Lk.
+def blocks_an_sm(smem_bytes: int) -> int:
+    """Blocks of 256 threads that an SM's shared memory holds at
+    ``smem_bytes`` a block (at most 8: 2,048 threads an SM)."""
+    return min(8, SM_SMEM_BYTES // (smem_bytes + BLOCK_RESERVED_SMEM))
+
+
+def _panel_cols(d: int) -> tuple[int, int, list]:
+    """``panel_plan`` of the source: (panels, panel_cols, widths)."""
+    panels = _ceil(d, PANEL_MAX)
+    cols = _ceil(_ceil(d, panels), 16) * 16
+    return panels, cols, [cols] * (panels - 1) + [d - (panels - 1) * cols]
+
+
+def panel_forward_plan(head_dim: int, dtype: torch.dtype) -> dict:
+    """The panel bodies' launch (``panel_plan`` and ``panel_smem_bytes`` in
+    the source, which ``attention_forward_plan`` exports): every forward
+    above head dim 128 but bf16 K2 at 192 and 256, and float32 K1 at 64 and
+    128 (33-128 padded to them). A block accumulates at most
+    :data:`PANEL_MAX` output columns, so the padded head dim D is cut into
+    ``panels`` = ceil(D / 256) column panels on grid z of ``panel_cols`` =
+    ceil(D / panels / 16) * 16 columns each (``widths``: the last takes the
+    rest), a block accumulating ``acc_cols`` = ceil(panel_cols / 64) * 64
+    of them. Q stays in shared memory (``q_resident``) when there is one
+    panel (D <= 256), but for float32 at 128 columns, and streams through
+    the ring in 64-column chunks beside K otherwise, so ``smem_bytes`` does
+    not grow with D beyond 256's, nor with Lk. ``min_blocks``: the blocks
+    an SM the body's launch bounds ask for (float32: 3 at 64 accumulated
+    columns, 2 at 128, else 1; bf16 1).
 
     bf16 (128 query rows a block): Q, 128 rows x D x 2 B, when it stays; 4
     ring slots of acc_cols / 64 x 8 KB; a 64-float key bias a slot; 9
     mbarriers; 1 KB for the 1024-byte alignment. float32 (64 rows): Q, 64
     rows of D + 4 floats, when it stays; 2 slots of 64 rows of acc_cols + 4
-    floats; the tile's p, 64 x 68 floats.
+    floats (at least 2 x 68 when Q streams: a Q and a K chunk); the tile's
+    p, 64 x 68 floats. K1 at 64: 4 x 64 x 68 floats, 69,632 B; at 128 (Q
+    streamed): (2 x 64 x 136 + 64 x 68) floats, 87,040 B.
     """
     d = kernel_head_dim(head_dim)
-    if d <= HEAD_DIMS[-1]:
-        raise ValueError(f"head dim {head_dim} runs no panel body (those take head dims above 128)")
-    panels = _ceil(d, PANEL_MAX)
-    cols = _ceil(_ceil(d, panels), 16) * 16
-    widths = [cols] * (panels - 1) + [d - (panels - 1) * cols]
+    f32_k1 = dtype == torch.float32 and d in (64, 128)
+    if d <= HEAD_DIMS[-1] and not f32_k1:
+        raise ValueError(f"head dim {head_dim} in {dtype} runs no panel body (those take head dims above 128, "
+                         "and float32 K1 at 64 and 128)")
+    panels, cols, widths = _panel_cols(d)
     if widths[-1] <= 0:
         raise ValueError(f"head dim {head_dim}: no panel plan")
     acc = _ceil(cols, WIDE_CHUNK) * WIDE_CHUNK
-    resident = panels == 1
     if dtype == torch.bfloat16:
+        resident = panels == 1
         np_ = acc // WIDE_CHUNK
         smem = ((np_ * PANEL_BF16_ROWS * 128 if resident else 0) + PANEL_BF16_STAGES * np_ * 64 * 128
                 + PANEL_BF16_STAGES * 64 * 4 + 8 * (1 + 2 * PANEL_BF16_STAGES) + 1024)
-        rows = PANEL_BF16_ROWS
+        rows, min_blocks = PANEL_BF16_ROWS, 1
     else:
-        smem = ((QUERY_TILE * (d + 4) if resident else 0) + 2 * QUERY_TILE * (acc + 4) + QUERY_TILE * 68) * 4
-        rows = QUERY_TILE
+        resident = panels == 1 and acc != 128
+        slot = acc + 4 if resident else max(acc + 4, 2 * 68)
+        smem = ((QUERY_TILE * (d + 4) if resident else 0) + 2 * QUERY_TILE * slot + QUERY_TILE * 68) * 4
+        rows, min_blocks = QUERY_TILE, {64: 3, 128: 2}.get(acc, 1)
     return {"head_dim": d, "panels": panels, "panel_cols": cols, "widths": widths, "acc_cols": acc,
-            "query_rows": rows, "smem_bytes": smem}
+            "query_rows": rows, "smem_bytes": smem, "q_resident": resident, "min_blocks": min_blocks}
+
+
+def pair_backward_plan(head_dim: int) -> dict:
+    """The float32 pair's launch above head dim 128 (``launch_backward_fma``
+    in the source; ``attention_backward_plan`` exports it). The dQ kernel
+    takes the forward's column panels (:func:`panel_forward_plan`'s
+    ``panels``, ``panel_cols``, ``widths``, ``acc_cols``) on grid z, 64 query
+    rows a block; the dK/dV kernel ``dkdv_blocks`` = ceil(D / 128) blocks of
+    :data:`PAIR_DKDV_COLS` columns on grid z (``dkdv_widths``), 64 keys a
+    block. Shared memory, independent of D and of both lengths: two ring
+    slots of 64 rows of max(4 x 68, acc + 4) floats (four 64-column chunks
+    of the score operands, or an item of output columns), and 64 x 68 floats
+    of dS (dQ) or of P^T and dS^T (dK/dV): 156,672 and 174,080 B."""
+    d = kernel_head_dim(head_dim)
+    if d <= HEAD_DIMS[-1]:
+        raise ValueError(f"head dim {head_dim}: the register-tiled pair takes head dims above 128")
+    panels, cols, widths = _panel_cols(d)
+    acc = _ceil(cols, WIDE_CHUNK) * WIDE_CHUNK
+    blocks = _ceil(d, PAIR_DKDV_COLS)
+
+    def slot(n):
+        return QUERY_TILE * max(4 * 68, n + 4)
+
+    return {"head_dim": d, "dq_panels": panels, "dq_cols": cols, "dq_widths": widths, "dq_acc": acc,
+            "dq_smem_bytes": (2 * slot(acc) + QUERY_TILE * 68) * 4, "dkdv_blocks": blocks,
+            "dkdv_cols": PAIR_DKDV_COLS,
+            "dkdv_widths": [PAIR_DKDV_COLS] * (blocks - 1) + [d - (blocks - 1) * PAIR_DKDV_COLS],
+            "dkdv_smem_bytes": (2 * slot(PAIR_DKDV_COLS) + 2 * QUERY_TILE * 68) * 4}
 
 
 def padded_call(fn, q, k, v, *like_q):
@@ -215,28 +278,28 @@ def padded_call(fn, q, k, v, *like_q):
 def whole_kv_smem_bytes(lk: int, head_dim: int, dtype: torch.dtype) -> int:
     """Shared memory K1 takes for one block.
 
-    bf16: K and V of one (batch*head) padded to whole 64-key tiles (the pad
-    rows are zero-filled), and a float bias per key: at DETR's 920 keys and
-    D 32, 2*960*32*2 + 960*4 = 126,720 B. float32: K and V, the 64-row query
-    tile and one mask byte per key: 2*920*32*4 + 64*32*4 + 920 = 244,632 B;
-    at head dim 128 no query tile (each thread loads its quarter of the row):
-    2*197*128*4 + 197 = 201,925 B at ViT-H's 197 keys. Above 128 the panel
-    body's, whatever Lk (:func:`wide_forward_plan`): float32 at D 256
-    217,088 B, bf16 198,728 B.
+    bf16 up to head dim 128: K and V of one (batch*head) padded to whole
+    64-key tiles (the pad rows are zero-filled), and a float bias per key: at
+    DETR's 920 keys and D 32, 2*960*32*2 + 960*4 = 126,720 B. float32 at
+    head dims 16 and 32: K and V, the 64-row query tile and one mask byte per
+    key: 2*920*32*4 + 64*32*4 + 920 = 244,632 B. float32 at 64 and 128 and
+    both types above 128: the panel body's, whatever Lk
+    (:func:`panel_forward_plan`): float32 69,632 B at 64, 87,040 B at 128,
+    217,088 B at 256; bf16 198,728 B at 256.
     """
-    if is_wide(head_dim):
-        return wide_forward_plan(head_dim, dtype)["smem_bytes"]
-    head_dim = kernel_head_dim(head_dim)
+    d = kernel_head_dim(head_dim)
+    if is_wide(d) or (dtype == torch.float32 and d >= 64):
+        return panel_forward_plan(d, dtype)["smem_bytes"]
     if dtype == torch.bfloat16:
         keys = _ceil(lk, TILE_KEYS) * TILE_KEYS
-        return 2 * keys * head_dim * 2 + 4 * keys
-    item = torch.empty((), dtype=dtype).element_size()
-    query_tile = 0 if head_dim > 64 else QUERY_TILE * head_dim * item
-    return 2 * lk * head_dim * item + query_tile + lk
+        return 2 * keys * d * 2 + 4 * keys
+    return 2 * lk * d * 4 + QUERY_TILE * d * 4 + lk
 
 
 def whole_kv_fits(lk: int, head_dim: int, dtype: torch.dtype) -> bool:
-    """Whether one (batch*head)'s K1 block fits in the 227 KB a block can use."""
+    """Whether one (batch*head)'s K1 block fits in the 227 KB a block can
+    use: the bodies that stage the head's whole K and V (bf16 up to 128,
+    float32 at 16 and 32) up to a number of keys; the panel bodies at any."""
     return whole_kv_smem_bytes(lk, head_dim, dtype) <= BLOCK_SMEM_BYTES
 
 
@@ -250,13 +313,15 @@ def whole_kv_plan(lq: int, lk: int, head_dim: int, dtype: torch.dtype) -> dict:
     over them. Only one block fits on an SM at DETR's 920 keys (126,720 B),
     so a block takes as many rows as it can: 920 rows are 58 warp tiles, 4
     blocks of 15 warps (480 threads); 100 rows (the decoder) one block of 7
-    warps. float32: 64-row blocks of 256 threads. Above head dim 128 the
-    source sets the panel body's grid itself, which this reports: blocks of
-    256 threads, 64 query rows (float32) or 128 (bf16), on each of the
-    plan's column panels (grid z, :func:`wide_forward_plan`).
+    warps. float32: 64-row blocks of 256 threads (at 64 and 128 the panel
+    body's, which the source launches on the panel grid, checking this
+    plan). Above head dim 128 the source sets the panel body's grid itself,
+    which this reports: blocks of 256 threads, 64 query rows (float32) or
+    128 (bf16), on each of the plan's column panels (grid z,
+    :func:`panel_forward_plan`).
     """
     if is_wide(head_dim):
-        wide = wide_forward_plan(head_dim, dtype)
+        wide = panel_forward_plan(head_dim, dtype)
         blocks, threads = _ceil(lq, wide["query_rows"]), 4 * QUERY_TILE
     elif dtype == torch.bfloat16:
         tiles = _ceil(lq, WARP_ROWS)
@@ -269,7 +334,7 @@ def whole_kv_plan(lq: int, lk: int, head_dim: int, dtype: torch.dtype) -> dict:
 
 
 def use_flash(lk: int, head_dim: int, dtype: torch.dtype) -> bool:
-    """The whole-KV/flash switch, set by an H100 measurement.
+    """The whole-KV/flash switch, set by H100 measurements.
 
     bf16: always K2 (flash). Timed beside each other in ``chip_smoke.py``
     phase 2 (NVIDIA H100 80GB HBM3, 700.00 W; the run PERF.md's attention
@@ -280,16 +345,20 @@ def use_flash(lk: int, head_dim: int, dtype: torch.dtype) -> bool:
     exponential per score (it normalizes before rounding, as
     _fused_attn_kernel does) and, with a whole head's K/V in shared memory,
     runs one block an SM.
-    float32: K1 where its block fits in the 227 KB a block can use, K2
-    otherwise (DETR-R50's 920 keys need 244,632 B; DC5's 3680 more).
+    float32: K1 where its block fits in the 227 KB a block can use (head
+    dims 16 and 32: DETR-R50's 920 keys need 244,632 B; DC5's 3680 more), K2
+    otherwise. At 64 and 128 K1 is the panel body, which fits at any Lk;
+    the cut stays where the whole-KV bodies that it replaced stopped fitting
+    (:data:`K1_FLOAT32_MAX_KEYS`: 421 and 226 keys) until float32 K2's
+    redesign moves it on a paired reading. Above head dim 128 K1 is the
+    panel body too: bf16 takes K2 (the in-line Hopper body at 192 and 256,
+    the bf16 panel body above) and float32 K1 (the float32 panel body).
     (The JAX package's 8 MB ``_FLASH_BYTES_THRESHOLD`` is a TPU VMEM figure
     and does not apply.)
-    Above head dim 128 K1 is the panel body, whose shared memory does not
-    depend on Lk, so it always fits: bf16 takes K2 (the in-line Hopper body
-    at 192 and 256, the bf16 panel body above) and float32 K1 (the float32
-    panel body), by the same rule.
     """
-    return dtype == torch.bfloat16 or not whole_kv_fits(lk, head_dim, dtype)
+    if dtype == torch.bfloat16 or not whole_kv_fits(lk, head_dim, dtype):
+        return True
+    return lk > K1_FLOAT32_MAX_KEYS.get(kernel_head_dim(head_dim), lk)
 
 
 def is_wgmma_forward(head_dim: int, dtype: torch.dtype, flash: bool = True) -> bool:
@@ -325,6 +394,9 @@ def load_library() -> ctypes.CDLL:
     # (dtype, D, &panels, &cols, &acc, &smem): the panel bodies' plan
     lib.attention_forward_plan.argtypes = [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)] * 4
     lib.attention_forward_plan.restype = ctypes.c_int
+    # (D, 7 x &int): the float32 pair's plan above 128
+    lib.attention_backward_plan.argtypes = [ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 7
+    lib.attention_backward_plan.restype = ctypes.c_int
     for name in launch_counts:
         getattr(lib, name).restype = ctypes.c_int
     fn = lib.attention_kernel_attributes
@@ -335,7 +407,7 @@ def load_library() -> ctypes.CDLL:
 
 def library_forward_plan(head_dim: int, dtype: torch.dtype) -> dict:
     """The library's own panel plan at ``head_dim`` (padded) and ``dtype``
-    (``attention_forward_plan``), with :func:`wide_forward_plan`'s keys, to
+    (``attention_forward_plan``), with :func:`panel_forward_plan`'s keys, to
     hold that mirror against the source on the card."""
     d = kernel_head_dim(head_dim)
     vals = [ctypes.c_int() for _ in range(4)]
@@ -345,6 +417,21 @@ def library_forward_plan(head_dim: int, dtype: torch.dtype) -> dict:
     panels, cols, acc, smem = (x.value for x in vals)
     return {"panels": panels, "panel_cols": cols, "acc_cols": acc, "smem_bytes": smem,
             "widths": [cols] * (panels - 1) + [d - (panels - 1) * cols]}
+
+
+def library_backward_plan(head_dim: int) -> dict:
+    """The library's own plan of the float32 pair at ``head_dim`` (padded;
+    ``attention_backward_plan``), with :func:`pair_backward_plan`'s keys."""
+    d = kernel_head_dim(head_dim)
+    vals = [ctypes.c_int() for _ in range(7)]
+    err = load_library().attention_backward_plan(d, *map(ctypes.byref, vals))
+    if err != 0:
+        raise ValueError(f"the library has no float32 pair plan at head dim {d} (error {err})")
+    panels, cols, acc, dq_smem, blocks, out_cols, dkdv_smem = (x.value for x in vals)
+    return {"dq_panels": panels, "dq_cols": cols, "dq_acc": acc, "dq_smem_bytes": dq_smem,
+            "dq_widths": [cols] * (panels - 1) + [d - (panels - 1) * cols], "dkdv_blocks": blocks,
+            "dkdv_cols": out_cols, "dkdv_smem_bytes": dkdv_smem,
+            "dkdv_widths": [out_cols] * (blocks - 1) + [d - (blocks - 1) * out_cols]}
 
 
 def kernel_attributes() -> list[dict]:
@@ -418,6 +505,8 @@ def _plain(q, k, v, mask, with_lse: bool):
 
 def attention_whole_kv(q, k, v, key_padding_mask=None, *, with_lse: bool = False):
     """K1: q (B,H,Lq,D), k/v (B,H,Lk,D), mask (B,Lk) bool True = valid.
+    Any Lk in float32 at head dims above 32 and in bf16 above 128 (the panel
+    bodies); elsewhere what fits a block (:func:`whole_kv_fits`).
 
     ``with_lse``: also return each query row's float32 log-sum-exp (B,H,Lq),
     for the backward; in float32, and in bf16 above head dim 128 (the panel

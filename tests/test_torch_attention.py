@@ -144,13 +144,19 @@ def test_one_library_builds_every_source():
         (84, 16, torch.float32, False),  # small tier at 224x384
         (3681, 64, torch.bfloat16, True),  # ViT-base/16 at 736x1280
         (3681, 64, torch.float32, True),  # the same in float32
-        (197, 64, torch.float32, False),  # ViT-base at 224x224: K1 fits (117,445 B)
+        (197, 64, torch.float32, False),  # ViT-base at 224x224: K1 (the panel body, under the 421-key cut)
         (65, 48, torch.float32, False),  # a padded head dim takes the padded width's plan (64)
-        (197, 80, torch.float32, False),  # ViT-H/14 at 224x224 (80 padded to 128): K1 fits (201,925 B)
+        (197, 80, torch.float32, False),  # ViT-H/14 at 224x224 (80 padded to 128): K1, under the 226-key cut
         (3681, 128, torch.bfloat16, True),  # head dim 128 on the ViT detect's token count
         (197, 256, torch.float32, False),  # above 128 the chunked K1 fits at any Lk: float32 takes it
         (8192, 136, torch.float32, False),
         (8192, 256, torch.bfloat16, True),
+        # float32 K1 at 64 and 128 is the panel body, which takes any Lk; the routing cut stays where the
+        # whole-KV bodies it replaced stopped fitting (K1_FLOAT32_MAX_KEYS)
+        (421, 64, torch.float32, False),
+        (422, 64, torch.float32, True),
+        (226, 128, torch.float32, False),
+        (227, 80, torch.float32, True),
     ],
 )
 def test_dispatch_rule(lk, d, dtype, flash):
@@ -233,9 +239,12 @@ def test_whole_kv_smem_arithmetic():
     assert kernels.whole_kv_smem_bytes(920, 32, torch.bfloat16) == 126_720  # 960 keys: 15 tiles of 64
     assert kernels.whole_kv_smem_bytes(100, 32, torch.bfloat16) == 16_896  # 128 keys
     assert kernels.whole_kv_smem_bytes(920, 32, torch.float32) == 244_632
-    assert kernels.whole_kv_smem_bytes(197, 64, torch.float32) == 117_445  # ViT-base at 224x224
-    assert kernels.whole_kv_smem_bytes(197, 48, torch.float32) == 117_445  # padded to 64
-    assert kernels.whole_kv_smem_bytes(197, 80, torch.float32) == 201_925  # ViT-H: padded to 128, no query tile
+    # float32 at 64 and 128: the panel body, whatever Lk. At 64 Q (64 rows of 64 + 4 floats), two slots of the
+    # same and the tile's p; at 128 Q streams: two slots of a Q and a K chunk (2 x 68 floats a row) and p
+    assert kernels.whole_kv_smem_bytes(197, 64, torch.float32) == 4 * 64 * 68 * 4 == 69_632  # ViT-base at 224x224
+    assert kernels.whole_kv_smem_bytes(197, 48, torch.float32) == 69_632  # padded to 64
+    assert kernels.whole_kv_smem_bytes(4033, 64, torch.float32) == 69_632
+    assert kernels.whole_kv_smem_bytes(197, 80, torch.float32) == (2 * 64 * 136 + 64 * 68) * 4 == 87_040  # ViT-H
     assert kernels.whole_kv_smem_bytes(197, 128, torch.bfloat16) == 132_096  # 256 keys
     # above 128 the panel bodies, whatever Lk: float32 Q (64 rows of 256 + 4 floats), two slots of the same and the
     # tile's p (64 x 68 floats); bf16 Q (128 rows x 256 x 2 B), four slots of 4 x 8 KB, four 64-float bias vectors,
@@ -250,13 +259,15 @@ def test_whole_kv_smem_arithmetic():
     "lk,d,dtype,fits",
     [(920, 32, torch.bfloat16, True), (1728, 32, torch.bfloat16, True), (1729, 32, torch.bfloat16, False),
      (920, 32, torch.float32, False), (84, 16, torch.float32, True), (3680, 32, torch.bfloat16, False),
-     (421, 64, torch.float32, True), (422, 64, torch.float32, False), (832, 64, torch.bfloat16, True),
-     (833, 64, torch.bfloat16, False), (421, 40, torch.float32, True), (422, 33, torch.float32, False),
-     (226, 128, torch.float32, True), (227, 80, torch.float32, False), (448, 128, torch.bfloat16, True),
+     (421, 64, torch.float32, True), (422, 64, torch.float32, True), (832, 64, torch.bfloat16, True),
+     (833, 64, torch.bfloat16, False), (421, 40, torch.float32, True), (422, 33, torch.float32, True),
+     (226, 128, torch.float32, True), (227, 80, torch.float32, True), (448, 128, torch.bfloat16, True),
      (449, 100, torch.bfloat16, False)],
 )
 def test_whole_kv_fits(lk, d, dtype, fits):
-    """K1 takes K/V that fit a block's 227 KB; it raises beyond (K2 is there)."""
+    """K1 takes K/V that fit a block's 227 KB; it raises beyond (K2 is
+    there). float32 at 64 and 128 runs the panel body, which fits at any Lk
+    (use_flash keeps the old cut as a routing rule, test_dispatch_rule)."""
     assert kernels.whole_kv_fits(lk, d, dtype) is fits
 
 
@@ -272,6 +283,8 @@ def test_whole_kv_fits(lk, d, dtype, fits):
         (84, 84, 16, torch.float32, 2, 256),  # DETR-small (float32): 64-row blocks
         (256, 256, 128, torch.bfloat16, 2, 256),  # head dim 128: at most 8 warps a block
         (197, 197, 80, torch.bfloat16, 2, 224),  # ViT-H (80 padded to 128): 13 warp tiles, 2 blocks of 7
+        (197, 197, 64, torch.float32, 4, 256),  # ViT-base float32: the panel body's 64-row blocks
+        (50, 4033, 80, torch.float32, 1, 256),  # float32 at 128: any Lk
     ],
 )
 def test_whole_kv_plan(lq, lk, d, dtype, blocks, threads):
@@ -293,14 +306,14 @@ def test_wide_forward_plan(d, dtype):
     widths that are multiples of 16 and sum to D, Q kept only with one
     panel, and shared memory that fits a block's 227 KB and does not grow
     with D beyond 256's (nor with Lk: K1 fits at any)."""
-    plan = kernels.wide_forward_plan(d, dtype)
+    plan = kernels.panel_forward_plan(d, dtype)
     widths = plan["widths"]
     assert plan["panels"] == len(widths) == -(-d // kernels.PANEL_MAX)
     assert sum(widths) == d and all(w % 16 == 0 and 0 < w <= plan["panel_cols"] for w in widths)
     assert plan["panel_cols"] <= plan["acc_cols"] <= kernels.PANEL_MAX and plan["acc_cols"] in (192, 256)
     assert plan["acc_cols"] - plan["panel_cols"] < 64
     assert plan["smem_bytes"] <= build.BLOCK_SMEM_BYTES
-    assert plan["smem_bytes"] <= kernels.wide_forward_plan(256, dtype)["smem_bytes"]
+    assert plan["smem_bytes"] <= kernels.panel_forward_plan(256, dtype)["smem_bytes"]
     assert kernels.whole_kv_smem_bytes(100_000, d, dtype) == plan["smem_bytes"]
     assert kernels.whole_kv_fits(100_000, d, dtype)
     rows = 128 if dtype == torch.bfloat16 else 64
@@ -310,6 +323,45 @@ def test_wide_forward_plan(d, dtype):
         assert widths == [d // 2] * 2
     if d == 640:
         assert widths == [224, 224, 192]
+
+@pytest.mark.parametrize("kind,d", [("k1", 64), ("k1", 128), *(("pair", d) for d in range(192, 1025, 64))])
+def test_float32_register_tiled_plans(kind, d):
+    """The register-tiled float32 bodies' plans. K1 at 64 and 128 (one
+    panel, the whole head; 64-row blocks on a grid of ceil(Lq / 64)): its
+    shared memory fits a block, and three blocks an SM at 64 and two at 128
+    (the launch bounds' minimum) fit an SM's 228 KB with their 1 KB each; Q
+    stays at 64 and streams at 128. The pair at every multiple of 64 from
+    192 to 1024: the dQ kernel on the forward's column panels (widths that
+    are multiples of 16 and sum to D, at most 256 accumulated), the dK/dV
+    kernel on 128-column blocks (widths summing to D, multiples of 64), each
+    kernel's shared memory within a block's and the same at every D."""
+    if kind == "k1":
+        plan = kernels.panel_forward_plan(d, torch.float32)
+        assert plan["panels"] == 1 and plan["widths"] == [d] and plan["acc_cols"] == d
+        assert plan["min_blocks"] == {64: 3, 128: 2}[d] and plan["q_resident"] is (d == 64)
+        assert plan["smem_bytes"] <= build.BLOCK_SMEM_BYTES
+        assert plan["min_blocks"] * (plan["smem_bytes"] + 1024) <= 233_472
+        assert kernels.blocks_an_sm(plan["smem_bytes"]) >= plan["min_blocks"]
+        assert kernels.whole_kv_plan(197, 10_000, d, torch.float32) == {
+            "blocks_per_head": 4, "threads": 256, "smem_bytes": plan["smem_bytes"]}
+        assert f"attention_panels_fma<float,{d},K1>" in _COMPILED
+        assert not any(n.startswith("attention_whole_kv_slice") or n == "attention_whole_kv_kernel<float,64>"
+                       for n in _COMPILED)
+        return
+    plan = kernels.pair_backward_plan(d)
+    assert plan["dq_panels"] == len(plan["dq_widths"]) == -(-d // kernels.PANEL_MAX)
+    assert sum(plan["dq_widths"]) == d and all(w % 16 == 0 and 0 < w <= plan["dq_cols"] for w in plan["dq_widths"])
+    assert plan["dq_cols"] <= plan["dq_acc"] <= kernels.PANEL_MAX and plan["dq_acc"] in (192, 256)
+    assert plan["dq_acc"] == kernels.panel_forward_plan(d, torch.float32)["acc_cols"]
+    assert plan["dkdv_blocks"] == len(plan["dkdv_widths"]) == -(-d // kernels.PAIR_DKDV_COLS)
+    assert sum(plan["dkdv_widths"]) == d and all(w % 64 == 0 and 0 < w <= 128 for w in plan["dkdv_widths"])
+    assert plan["dq_smem_bytes"] == 156_672 and plan["dkdv_smem_bytes"] == 174_080
+    assert max(plan["dq_smem_bytes"], plan["dkdv_smem_bytes"]) <= build.BLOCK_SMEM_BYTES
+    assert f"attention_bwd_dq_fma<float,{plan['dq_acc']}>" in _COMPILED and "attention_bwd_dkdv_fma<float>" in _COMPILED
+    assert not any(n.startswith("attention_wide_bwd") and n.endswith("<float>") for n in _COMPILED)
+    with pytest.raises(ValueError):
+        kernels.pair_backward_plan(128)
+
 
 #: Every kernel instantiation the source names in its attributes table.
 _COMPILED = set(__import__("re").findall(r'\{"(attention_[^"]+)", \(const void\*\)',
@@ -338,7 +390,7 @@ def test_hopper_bodies_take_bf16_at_64_and_128(d, dtype):
         assert {f"attention_flash_wgmma{inline}<bf16,{kd}>", f"attention_bwd_dq_wgmma{inline}<bf16,{kd}>",
                 f"attention_bwd_dkdv_wgmma<bf16,{kd}>"} <= _COMPILED
     if kd > 128:
-        acc = kernels.wide_forward_plan(d, dtype)["acc_cols"]
+        acc = kernels.panel_forward_plan(d, dtype)["acc_cols"]
         body = "attention_panels_wgmma<bf16" if dtype == torch.bfloat16 else "attention_panels_fma<float"
         assert {f"{body},{acc},K1>", f"{body},{acc},K2>"} <= _COMPILED
     assert not any(n.startswith(("attention_flash_mma", "attention_bwd_dq_mma", "attention_bwd_dkdv_mma"))

@@ -99,7 +99,8 @@ def test_kernel_matches_plain(card, fn, dtype, D, masked):
 @pytest.mark.parametrize("fn", [kernels.attention_whole_kv, kernels.attention_flash])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("D,lengths", [*((d, "detr") for d in (*kernels.HEAD_DIMS, 48, 80, *WIDE_DIMS)),
-                                       *((d, "hopper") for d in HOPPER_DIMS), (256, "vitw_train")])
+                                       *((d, "hopper") for d in HOPPER_DIMS), (256, "vitw_train"),
+                                       (64, "long"), (128, "long")])
 @pytest.mark.parametrize("masked", [False, True])
 def test_kernel_matches_plain_at_tile_edges(card, fn, dtype, D, lengths, masked):
     """Every (Lq, Lk) pair of LQ x LK ("detr"), or of HOPPER_L x HOPPER_L
@@ -108,7 +109,9 @@ def test_kernel_matches_plain_at_tile_edges(card, fn, dtype, D, lengths, masked)
     device memory (the Hopper bodies' 3-D tensor maps must not read them).
     "vitw_train": (1, 4, 4033, 4033) at head dim 256, the VITW DETR's
     training tokens, where float32 K1 (the panel body, which takes any Lk)
-    walks 64 key tiles in each of its two passes.
+    walks 64 key tiles in each of its two passes. "long": (1, 4, 4033, 4033)
+    at 64 and (1, 8, 4033, 4033) at 128, which float32 K1 takes since it
+    runs the panel body there.
 
     bf16 is held relative to max(1, |ref|): with 15 keys an output reaches
     2.6, and the two roundings of the Pallas kernels (probabilities, then
@@ -117,7 +120,8 @@ def test_kernel_matches_plain_at_tile_edges(card, fn, dtype, D, lengths, masked)
     matches. float32 stays absolute (summation order only).
     """
     B, H, lqs, lks = {"detr": (2, 3, LQ, LK), "hopper": (2, 3, HOPPER_L, HOPPER_L),
-                      "vitw_train": (1, 4, (4033,), (4033,))}[lengths]
+                      "vitw_train": (1, 4, (4033,), (4033,)),
+                      "long": (1, 4 if D == 64 else 8, (4033,), (4033,))}[lengths]
     for i, lq in enumerate(lqs):
         for j, lk in enumerate(lks):
             if fn is kernels.attention_whole_kv and not kernels.whole_kv_fits(lk, D, dtype):
@@ -344,7 +348,8 @@ def _b4_errors(got, want):
                                      (37, 53, 80), (131, 67, 136), (100, 260, 192), (67, 131, 256),
                                      (1, 127, 64), (127, 129, 64), (129, 128, 80), (128, 127, 128), (1, 129, 128),
                                      (3681, 4033, 64), (4033, 3681, 128), (1, 129, 192), (129, 65, 192),
-                                     (33, 31, 256), (127, 129, 256), (4033, 3681, 256), (131, 67, 320)])
+                                     (33, 31, 256), (127, 129, 256), (4033, 3681, 256), (131, 67, 320),
+                                     (131, 67, 384), (1008, 1008, 256)])
 @pytest.mark.parametrize("all_masked", [False, True], ids=["ragged", "all_masked_entry"])
 def test_b4_gradients_match_plain_autograd(card, dtype, Lq, Lk, D, all_masked):
     """B.4: multi_head_attention under grad runs K1/K2 through
@@ -404,13 +409,16 @@ def test_b4_gradients_match_plain_autograd(card, dtype, Lq, Lk, D, all_masked):
      (kernels.attention_flash, torch.bfloat16, 127, 128, 128), (kernels.attention_flash, torch.bfloat16, 4033, 4033, 128),
      (kernels.attention_whole_kv, torch.bfloat16, 129, 67, 192), (kernels.attention_flash, torch.bfloat16, 67, 131, 320),
      (kernels.attention_whole_kv, torch.bfloat16, 131, 67, 384), (kernels.attention_whole_kv, torch.float32, 67, 131, 384),
-     (kernels.attention_flash, torch.float32, 131, 67, 320), (kernels.attention_flash, torch.bfloat16, 300, 260, 384)],
+     (kernels.attention_flash, torch.float32, 131, 67, 320), (kernels.attention_flash, torch.bfloat16, 300, 260, 384),
+     (kernels.attention_whole_kv, torch.float32, 131, 67, 128), (kernels.attention_whole_kv, torch.float32, 197, 197, 80),
+     (kernels.attention_whole_kv, torch.float32, 50, 50, 64), (kernels.attention_whole_kv, torch.float32, 1, 1000, 64)],
     ids=["k2_bf16_67x131", "k2_bf16_encoder_920", "k2_bf16_cross_1008", "k2_bf16_d16", "k2_float32_67x131",
          "k2_float32_d16", "k1_float32_67x131", "k1_float32_d16", "k1_float32_cross_d16", "k2_bf16_d64",
          "k2_float32_d64", "k1_float32_d64", "k2_bf16_d48", "k1_float32_d48", "k2_bf16_d192", "k1_bf16_d256",
          "k2_float32_d160", "k1_float32_d192", "k2_bf16_d64_1x129", "k2_bf16_d64_129x127", "k2_bf16_d64_vit_3681",
          "k2_bf16_d80_128x1", "k2_bf16_d128_127x128", "k2_bf16_d128_4033", "k1_bf16_d192", "k2_bf16_d320",
-         "k1_bf16_d384", "k1_float32_d384", "k2_float32_d320", "k2_bf16_d384_300x260"],
+         "k1_bf16_d384", "k1_float32_d384", "k2_float32_d320", "k2_bf16_d384_300x260", "k1_float32_d128",
+         "k1_float32_d80_vit_h", "k1_float32_d64_clip", "k1_float32_d64_1x1000"],
 )
 def test_forward_with_lse_is_bit_identical(card, fn, dtype, Lq, Lk, D):
     """K2 (both types) and K1 (float32, and bf16 above head dim 128) give
@@ -433,15 +441,40 @@ def test_forward_with_lse_is_bit_identical(card, fn, dtype, Lq, Lk, D):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_forward_plan_matches_the_library(card, dtype):
-    """kernels/attention.py::wide_forward_plan mirrors the source's panel
+    """kernels/attention.py::panel_forward_plan mirrors the source's panel
     plan (attention_forward_plan) at every multiple of 64 from 192 to 1024,
-    and the library refuses head dims the panel bodies do not take."""
-    for d in range(192, 1025, 64):
-        mine = kernels.wide_forward_plan(d, dtype)
+    and in float32 at 64 and 128 (K1), and the library refuses head dims the
+    panel bodies do not take (bf16 at 128, float32 at 32)."""
+    for d in [*((64, 128) if dtype == torch.float32 else ()), *range(192, 1025, 64)]:
+        mine = kernels.panel_forward_plan(d, dtype)
         assert kernels.library_forward_plan(d, dtype) == {k: mine[k] for k in ("panels", "panel_cols", "acc_cols",
                                                                                  "smem_bytes", "widths")}
     with pytest.raises(ValueError):
-        kernels.library_forward_plan(128, dtype)
+        kernels.library_forward_plan(32 if dtype == torch.float32 else 128, dtype)
+
+
+def test_pair_plan_matches_the_library(card):
+    """kernels/attention.py::pair_backward_plan mirrors the float32 pair's
+    launch (attention_backward_plan) at every multiple of 64 from 192 to
+    1024, and the library refuses 128."""
+    for d in range(192, 1025, 64):
+        mine = kernels.pair_backward_plan(d)
+        lib = kernels.library_backward_plan(d)
+        assert lib == {k: mine[k] for k in lib}
+    with pytest.raises(ValueError):
+        kernels.library_backward_plan(128)
+
+
+def test_float32_k1_bodies_fit_their_blocks_an_sm(card):
+    """The register-tiled float32 K1 at 64 and 128 compiles within its
+    launch bounds with no spill: three blocks of 256 threads an SM at 64
+    (at most 80 registers a thread), two at 128 (at most 128), as the plan's
+    shared memory allows."""
+    rows = {a["name"]: a for a in kernels.kernel_attributes()}
+    for d, blocks in ((64, 3), (128, 2)):
+        a = rows[f"attention_panels_fma<float,{d},K1>"]
+        assert a["local_bytes"] == 0 and a["regs"] * 256 * blocks <= 65_536
+        assert kernels.blocks_an_sm(kernels.panel_forward_plan(d, torch.float32)["smem_bytes"]) >= blocks
 
 
 @pytest.mark.parametrize("fn", [kernels.attention_whole_kv, kernels.attention_flash])
@@ -462,7 +495,7 @@ def test_k1_bf16_refuses_lse(card):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("D", [32, 64, 48, 128, 192, 80, 256, 320])
+@pytest.mark.parametrize("D", [32, 64, 48, 128, 192, 80, 256, 320, 384])
 @pytest.mark.parametrize("Lq,Lk", [(300, 260), (4033, 3681)])
 def test_backward_pair_is_deterministic(card, dtype, D, Lq, Lk):
     """Two calls of the pair on the same inputs give the same bits (no
@@ -505,7 +538,7 @@ def test_hopper_bodies_launch_from_a_fresh_thread(card, D):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("D", [32, 64, 128, 192, 256, 320])
+@pytest.mark.parametrize("D", [32, 64, 128, 192, 256, 320, 384])
 @pytest.mark.parametrize("Lq", [1, 127, 128, 129])
 def test_backward_fills_the_scratch_the_library_sizes(card, dtype, D, Lq):
     """attention_backward_scratch_rows is the one rule for the pair's

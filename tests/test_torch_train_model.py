@@ -40,14 +40,16 @@ T_ = torch.from_numpy
 #: (B, H, Lq, Lk, D), and the key mask: None, the fraction of keys masked,
 #: or "all_masked_entry" (0.3 masked, the last entry's keys all masked).
 #: Head dims 16 and 32; Lq != Lk, off the 64-row tiles. Then one case each
-#: at 192 and 256, the head dims of the Hopper bodies above 128.
+#: at 192 and 256, the head dims of the Hopper bodies above 128, and at 64
+#: and 80 (padded to 128 on the card), the ViT-base and ViT-H head dims.
 _FIRST_B4_CASES = [((2, 2, 37, 53, 16), 0.3), ((1, 2, 100, 130, 32), None)]
 B4_GRAD_CASES = _FIRST_B4_CASES + [
     case for case in (((B, H, Lq, Lk, D), m) for D in (16, 32)
                       for B, H, Lq, Lk in ((2, 2, 37, 53), (1, 2, 100, 130), (2, 1, 67, 131))
                       for m in (None, 0.3, "all_masked_entry"))
     if case not in _FIRST_B4_CASES
-] + [((2, 1, 33, 67, 192), 0.3), ((2, 1, 67, 33, 256), "all_masked_entry")]
+] + [((2, 1, 33, 67, 192), 0.3), ((2, 1, 67, 33, 256), "all_masked_entry"), ((2, 1, 67, 131, 64), 0.3),
+      ((2, 1, 37, 53, 80), "all_masked_entry")]
 
 
 @pytest.mark.parametrize("shape,mask_frac", B4_GRAD_CASES)

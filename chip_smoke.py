@@ -134,7 +134,8 @@ the pipeline phases 2-4, the entry point and the trainer:
    head dim 80 (padded to 128) and at 128 in both types against the plain
    version, timed against SDPA and the bound; B.4 at [10a]'s gate at 128 and
    80; then DETR with ViT-H/16's widths (4 of 32 layers) through
-   ``detect_batch``, its float32 forward at 224x224 card against CPU, and 8
+   ``detect_batch``, its float32 forward at 224x224 card against CPU (float32
+   K2's 3xTF32 body at 128), and 8
    of its training steps, which launch the D-128 bodies; (b) the upload
    routes (A.4, A.9): [8a]'s 288 frames through DETR-R50 bf16 on bgr, i420
    and i420d (i420d's detections equal to i420's bit for bit), the staging
@@ -144,8 +145,8 @@ the pipeline phases 2-4, the entry point and the trainer:
    ultralytics ``.pt`` route on the card, and ``main`` with
    ``detection.model: yolo`` on the one-hour video.
 14. the scale-out slice: (a) head dims above 128 (C.7 closed): the bf16
-   pair's chunked bodies' registers, spills (none allowed) and HMMA count
-   (none: CUDA cores), the forwards' panel bodies (bf16: no spill, HGMMA
+   pair above 256 (the wgmma pair on column panels: no spill, HGMMA and
+   UTMALDG, no HMMA), the forwards' panel bodies (bf16: no spill, HGMMA
    and UTMALDG, no HMMA; float32: no spill, no HMMA), the register-tiled
    float32 bodies (K1 at 64 and 128, the panel bodies, the float32 pair:
    no spill, FFMA and no HMMA or HGMMA, registers within their launch
@@ -156,7 +157,7 @@ the pipeline phases 2-4, the entry point and the trainer:
    K2, with and without a ragged mask: the output, the log-sum-exp and
    two calls bit for bit); K1/K2 at head dims 136 to 384 in both types
    against the plain version, timed against SDPA and the bound; B.4 at
-   [10a]'s gate at the same head dims and bf16 at 320; DETR with a ViT of
+   [10a]'s gate at the same head dims and bf16 at 320 and 384; DETR with a ViT of
    256-wide heads through ``detect_batch`` (K2 on the Hopper body), its
    float32 forward card against CPU (K1 on the float32 panel body), its
    float32 gradients card against CPU (the float32 pair above 128), and 8
@@ -172,11 +173,10 @@ the pipeline phases 2-4, the entry point and the trainer:
    sharded DETR and YOLO steps against the one-process step.
 15. the last modules: (a) the CLIP image tower of Re-ID's ``model_type:
    clip`` at openai/clip-vit-base-patch32's widths (seeded weights written
-   as a HF directory, loaded through ``ReIDFeatureExtractor``): 12 K1
-   launches a call of 64 crops (the register-tiled float32 K1, three blocks
-   an SM), features card against CPU, crops/s, and K1
-   at (64, 12, 50, 50, 64) float32 against the plain version, SDPA and the
-   bound; (b) [8a]'s frames into ``TrackingPhase`` with CLIP Re-ID (cascade,
+   as a HF directory, loaded through ``ReIDFeatureExtractor``): 12 K2
+   launches a call of 64 crops (float32 K2's 3xTF32 body), features card
+   against CPU, crops/s, and K2 at (64, 12, 50, 50, 64) float32 against the
+   plain version, SDPA and the bound; (b) [8a]'s frames into ``TrackingPhase`` with CLIP Re-ID (cascade,
    then the scan on the card with the CPU scan's ids); (c) ``main`` with
    ``output.save_attention_maps`` and ``save_side_by_side_video`` resumed
    after [9b]'s Phase 1: an overlay a frame, the attention maps card against
@@ -187,11 +187,13 @@ the pipeline phases 2-4, the entry point and the trainer:
    ``SessionDataLoader`` over [9a]'s and [15c]'s sessions.
 
 Any failed check raises, so the script exits non-zero and prints no result.
-Its last two lines are JSON: the kernels (launches, error, times, bound; K1,
-K2, K3, B.4 and its backward pair, K2, B.4 and the pair at head dim 64 on
-the ViT's path, K1, K2, B.4 and the pair at head dim 128 on the ViT-H-width path,
-the bodies above head dim 128 on the VITW path (the float32 pair on its
-float32 gradients), and K1 on the CLIP path) and the device.
+Its last two lines are JSON: the kernels (launches, error, times, bound; K2
+on the bf16 main path, K1 on DETR-small's, float32 K2 on DETR-R50's, K3, B.4 and its
+backward pair, K2, B.4 and the pair at head dim 64 on the ViT's path, K2 in
+both types, B.4 and the pair at head dim 128 on the ViT-H-width path, the
+bodies above head dim 128 on the VITW path (K1 on its float32 forward, the
+float32 pair on its float32 gradients), and the CLIP path's kernel) and the
+device.
 """
 
 from __future__ import annotations
@@ -384,19 +386,24 @@ def ops_of(counts: dict, name: str) -> dict:
 
 
 def check_tensor_cores(a: dict, ops: dict, where: str) -> str:
-    """A bf16 body runs its products on the tensor cores, a float32 one on
-    the CUDA cores: the Hopper bodies (``*_wgmma``) have HGMMA and UTMALDG,
-    no HMMA and no spill; the other bf16 bodies HMMA; float32 none of them.
-    Returns the counts as a log fragment."""
+    """A bf16 body runs its products on the tensor cores, and so does the
+    float32 3xTF32 body (``attention_flash_tf32``: float32 K2 up to 128);
+    every other float32 one the CUDA cores: the Hopper bodies (``*_wgmma``)
+    have HGMMA and UTMALDG, no HMMA and no spill; the other bf16 bodies and
+    the 3xTF32 body HMMA (``mma.sync``; the 3xTF32 body no spill either);
+    the other float32 bodies none of them. Returns the counts as a log
+    fragment."""
     name = a["name"]
     if "wgmma" in name:
         check(ops["HGMMA"] > 0 and ops["UTMALDG"] > 0 and ops["HMMA"] == 0 and a["local_bytes"] == 0,
               f"{where}: {name}: HGMMA {ops['HGMMA']}, UTMALDG {ops['UTMALDG']}, HMMA {ops['HMMA']}, spill "
               f"{a['local_bytes']} B (a Hopper body needs wgmma and TMA and may not spill)")
     else:
-        bf16 = "bf16" in name.split("<")[1]
-        check(bool(ops["HMMA"]) == bf16 and ops["HGMMA"] == 0,
-              f"{where}: {name}: {ops['HMMA']} HMMA, {ops['HGMMA']} HGMMA instructions in its SASS")
+        tensor = "bf16" in name.split("<")[1] or name.startswith("attention_flash_tf32<")
+        check(bool(ops["HMMA"]) == tensor and ops["HGMMA"] == 0
+              and (a["local_bytes"] == 0 or not name.startswith("attention_flash_tf32<")),
+              f"{where}: {name}: {ops['HMMA']} HMMA, {ops['HGMMA']} HGMMA instructions in its SASS, spill "
+              f"{a['local_bytes']} B")
     return f"HMMA {ops['HMMA']}  HGMMA {ops['HGMMA']}  UTMALDG {ops['UTMALDG']}"
 
 
@@ -416,13 +423,11 @@ def kernel_resources(ka, kb, build) -> None:
             log(f"[1] {a['name']:36s} regs {a['regs']:3d}  spill (local) {a['local_bytes']:4d} B  static smem "
                 f"{a['static_smem']:6d} B  dynamic smem {smem:6d} B (any head dim)  {ops}")
             continue
-        if base.startswith("attention_wide"):  # the bf16 pair's chunked bodies above head dim 256: CUDA cores
-            smem = {"attention_wide_bwd_dq": 5 * 64 * 65 * 4 + 64,
-                    "attention_wide_bwd_dkdv": (6 * 64 * 65 + 2 * 64) * 4}[base]
-            n_hmma = hmma_of_wide(counts, a["name"])
-            check(n_hmma == 0, f"{a['name']}: {n_hmma} HMMA instructions in its SASS (a CUDA-core body)")
+        if base in ("attention_bwd_dq_wgmma_panels", "attention_bwd_dkdv_wgmma_panels"):  # bf16 pair above 256
+            ops = check_tensor_cores(a, ops_of(counts, a["name"]), "1")
             log(f"[1] {a['name']:36s} regs {a['regs']:3d}  spill (local) {a['local_bytes']:4d} B  static smem "
-                f"{a['static_smem']:6d} B  dynamic smem {smem:6d} B (any head dim)  HMMA in SASS {n_hmma}")
+                f"{a['static_smem']:6d} B  dynamic smem PairDqLayout / PairDkdvLayout (source; any head dim above "
+                f"256)  {ops}")
             continue
         dtype = torch.bfloat16 if args.startswith("bf16") else torch.float32
         d = int(args.rstrip(">").split(",")[1])
@@ -434,11 +439,14 @@ def kernel_resources(ka, kb, build) -> None:
                 "none at Lk 920 (K2)"
         elif "wgmma" in base:  # the Hopper bodies: the source's WgLayout, bounded there by a static_assert
             dyn = "WgLayout (source)"
+        elif "tf32" in base:  # two stages of K (D + 8 floats a row), V (D + 4) and the key bias
+            keys = 32 if d == 128 else 64
+            dyn = f"{2 * (keys * (2 * d + 12) + keys) * 4:6d} B (two stages)"
         elif dtype == torch.bfloat16:  # the ring of csrc/attention.cu::Ring: 3 slots of two tiles and the vectors
             dyn = f"{3 * (2 * 64 * d * 2 + (2 if 'dkdv' in base else 1) * 64 * 4):6d} B (ring)"
         elif "dkdv" in base:  # a 64-row tile of Q and g, their lse2 and D
             dyn = f"{2 * 64 * d * 4 + 2 * 64 * 4:6d} B"
-        elif "slice" in base:  # a 64-key tile of K and V and its mask bytes
+        elif "slice" in base:  # the dQ body at 128: a 64-key tile of K and V and its mask bytes
             dyn = f"{2 * 64 * d * 4 + 64:6d} B"
         else:
             dyn = "     0 B"
@@ -2590,9 +2598,10 @@ def vit_detect_phase(ka, probe, smi: str, frames: np.ndarray, videos: Path, tmp:
     torch.cuda.empty_cache()
 
     # 12 ViT + 12 DETR calls at 3680-3681 keys take K2 in float32, the 6 decoder self-attentions K1
+    f32_counts = launches(whole_kv=6, flash=24)
     d_logits, d_boxes, cpu_secs = float32_card_vs_cpu(ka, DETRConfig(dtype="float32", backbone="vit"), frames[:1],
-                                                      launches(whole_kv=6, flash=24), "12b")
-    log(f"[12b] float32 ViT-base/16 DETR at 736x1280, batch 1, on the card (K1 x6, K2 x24) vs the CPU (plain, "
+                                                      f32_counts, "12b")
+    log(f"[12b] float32 ViT-base/16 DETR at 736x1280, batch 1, on the card ({f32_counts}) vs the CPU (plain, "
         f"{cpu_secs:.1f} s): max|dlogits| {d_logits:.2e} (atol {LOGITS_ATOL} rtol {LOGITS_RTOL}), "
         f"max|dboxes| {d_boxes:.2e} (atol {BOXES_ATOL})")
     torch.cuda.empty_cache()
@@ -2773,6 +2782,7 @@ D128_KERNEL_CASES = [
     ("attention_whole_kv", (8, 16, 197, 197, 80), "float32", False, "ViT-H/16 at 224x224, float32 (K1)"),
     ("attention_whole_kv", (8, 8, 197, 197, 128), "bfloat16", True, "K1's bf16 body at head dim 128"),
     ("attention_flash", (1, 8, 3681, 3681, 128), "float32", True, "K2's float32 body at head dim 128, batch 1"),
+    ("attention_flash", (8, 16, 197, 197, 80), "float32", False, "ViT-H/16 at 224x224, float32 (K2)"),
 ]
 D128_B4_CASES = [((1, 16, 4033, 4033, 80), "bfloat16", False, "ViT-H/16's heads training at 768x1344, batch 1"),
                  ((8, 8, 1008, 1008, 128), "bfloat16", False, "head dim 128 at DETR-R50's training tokens"),
@@ -2797,7 +2807,8 @@ def d128_phase(ka, build, smi: str, frames: np.ndarray, samples: list) -> dict:
     the forward cases and B.4 at [10a]'s gate; then the D-128 bodies on a
     model's path: the ViT-H-width DETR through DETRDetector.detect_batch
     (bf16, 736x1280, batch 8: K2), its float32 forward at 224x224 on the card
-    against the CPU (K1), and 8 of its bf16 training steps at 768x1344 (B.4)."""
+    against the CPU (K2's 3xTF32 body at 128), and 8 of its bf16 training
+    steps at 768x1344 (B.4)."""
     from office_person_detection_vit_torch import attention_kernel_bench as abench
     from office_person_detection_vit_torch.detection.detector import DETRDetector
     from office_person_detection_vit_torch.models.detr import DETRConfig
@@ -2846,13 +2857,15 @@ def d128_phase(ka, build, smi: str, frames: np.ndarray, samples: list) -> dict:
     del det
     torch.cuda.empty_cache()
 
-    # float32 at 224x224: the ViT's 197 tokens take K1 at head dim 80 -> 128
+    # float32 at 224x224: the ViT's 197 tokens at head dim 80 -> 128 take K2 (the 3xTF32 body), the DETR's 196
+    # and its 100 queries at head dim 32 K1
     ka.reset_head_dim_counts()
-    d_logits, d_boxes, cpu_secs = float32_card_vs_cpu(ka, DETRConfig(dtype="float32", **VITH), frames[:1],
-                                                      launches(whole_kv=VITH_CALLS), "13a", hw=(224, 224))
-    k1_d128 = d128_count(ka, "attention_whole_kv")
-    check(k1_d128 == 4, f"13a: the float32 forward launched {k1_d128} K1 at head dim 128, expected 4")
-    log(f"[13a] float32 ViT-H-width DETR at 224x224 on the card (K1 x{VITH_CALLS}, {k1_d128} at head dim 128) vs the "
+    f32_counts = launches(whole_kv=18, flash=4)
+    d_logits, d_boxes, cpu_secs = float32_card_vs_cpu(ka, DETRConfig(dtype="float32", **VITH), frames[:1], f32_counts,
+                                                      "13a", hw=(224, 224))
+    f32_d128 = d128_count(ka, "attention_flash")
+    check(f32_d128 == 4, f"13a: the float32 forward launched {f32_d128} K2 at head dim 128, expected 4")
+    log(f"[13a] float32 ViT-H-width DETR at 224x224 on the card ({f32_counts}, {f32_d128} K2 at head dim 128) vs the "
         f"CPU ({cpu_secs:.1f} s): max|dlogits| {d_logits:.2e} (atol {LOGITS_ATOL} rtol {LOGITS_RTOL}), max|dboxes| "
         f"{d_boxes:.2e} (atol {BOXES_ATOL})")
     torch.cuda.empty_cache()
@@ -2868,7 +2881,7 @@ def d128_phase(ka, build, smi: str, frames: np.ndarray, samples: list) -> dict:
           f"13a: 8 training steps launched {train_d128} at head dim 128, expected 4 B.4 pairs a step")
     log(f"[13a] phase {time.perf_counter() - t0:.1f} s")
     return {"bodies": bodies, "forward": rows, "b4": b4, "b4_path": b4_path, "detect_counts": detect_counts,
-            "k2_d128": k2_d128, "k1_d128": k1_d128, "train_d128": train_d128, "train": train}
+            "k2_d128": k2_d128, "f32_d128": f32_d128, "train_d128": train_d128, "train": train}
 
 
 # [13b]: the upload routes (ROADMAP A.4, A.9) at DETR-R50's main path: [8a]'s
@@ -3242,12 +3255,12 @@ def detector_slice(ka, build, probe, smi: str, frames: np.ndarray, day_frames: l
 def d128_kernel_rows(res: dict) -> list:
     """The kernels line's rows of the head-dim-128 bodies, each at the shape
     of the path its launches come from: K2 at the ViT-H-width DETR's detect,
-    K1 at its float32 forward, B.4 and its backward pair at its training
+    float32 K2 at its float32 forward, B.4 and its backward pair at its training
     shape VITH_TRAIN beside their launches in that model's 8 steps."""
     src = "office_person_detection_vit_torch/csrc/attention.cu"
     d128 = res["d128"]
     k2 = d128["forward"][D128_KERNEL_CASES[0][:3]]
-    k1 = d128["forward"][D128_KERNEL_CASES[2][:3]]
+    f32 = d128["forward"][D128_KERNEL_CASES[5][:3]]
     b4 = d128["b4_path"]
     train_path = "ViT-H/16-width DETR (4 of 32 layers) bf16 training at 768x1344, batch 8, 8 steps, phase 13a"
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape", "dtype")
@@ -3257,10 +3270,10 @@ def d128_kernel_rows(res: dict) -> list:
          "launches": d128["k2_d128"],
          "launches_on": "ViT-H/16-width DETR (4 of 32 layers) bf16 through detect_batch at 736x1280, 16 frames, "
                         "phase 13a", **{k: k2[k] for k in keys + ("instruction",)}},
-        {"name": "attention_whole_kv_d128", "route": "cuda", "source": src, "body": "attention_panels_fma<float,128,K1>",
-         "replaces": "office_person_detection_vit_tpu/ops/attention.py:60", "launches": d128["k1_d128"],
+        {"name": "attention_flash_d128_f32", "route": "cuda", "source": src, "body": "attention_flash_tf32<float,128>",
+         "replaces": "office_person_detection_vit_tpu/ops/attention.py:159", "launches": d128["f32_d128"],
          "launches_on": "ViT-H/16-width DETR float32 forward at 224x224 on the card, phase 13a",
-         **{k: k1[k] for k in keys + ("instruction",)}},
+         **{k: f32[k] for k in keys + ("instruction",)}},
         {"name": "attention_diff_d128", "route": "cuda", "source": src,
          "body": "attention_flash_wgmma<bf16,128> + attention_bwd_dq_wgmma<bf16,128> + "
                  "attention_bwd_dkdv_wgmma<bf16,128>",
@@ -3285,12 +3298,16 @@ def d128_kernel_rows(res: dict) -> list:
 # in csrc/attention.cu); every other forward above 128 the panel bodies
 # (attention_panels_wgmma in bf16: wgmma and TMA; attention_panels_fma in
 # float32: register-tiled FP32 FMAs; at most 256 output columns a block,
-# wider heads in column panels on grid z); the float32 pair and the bf16
-# pair above 256 the chunked bodies (attention_wide_bwd_*; CUDA cores, Q.K^T
-# over 64-wide head-dim chunks, output columns split over 128-wide grid-z
-# blocks). [14a] holds every forward above 128 at the tile edges, K1, K2
-# and B.4 at head dims 136, 192 and 256 in both types, K1 and K2 at 320 and
-# 384 and B.4 at 320, against the plain version at [2]'s bars
+# wider heads in column panels on grid z); the float32 pair the
+# register-tiled pair (attention_bwd_dq_fma, attention_bwd_dkdv_fma: FP32
+# FMAs, dQ on the forward's column panels, dK/dV on 128-column blocks) and
+# the bf16 pair above 256 the wgmma pair on column panels
+# (attention_bwd_dq_wgmma_panels, attention_bwd_dkdv_wgmma_panels: wgmma
+# and TMA, the score operands streamed in 64-column chunks, dQ on the
+# forward's column panels, dK/dV on 128-column blocks). [14a] holds every
+# forward above 128 at the tile edges, K1, K2 and B.4 at head dims 136, 192
+# and 256 in both types, K1 and K2 at 320 and 384 and B.4 at 320 and 384,
+# against the plain version at [2]'s bars
 # and B.4 at [10a]'s gate, times them against SDPA and
 # the bound, and drives them on a model's path: DETR with a ViT backbone
 # whose heads are 256 wide (hidden 1024 over 4 heads, MLP 4096, 2 layers;
@@ -3330,9 +3347,10 @@ WIDE_B4_CASES = [((2, 4, 300, 260, 136), "bfloat16", True, "head dim 136, padded
                  ((2, 4, 197, 197, 192), "float32", False, "heads of 192 at 224x224, float32"),
                  ((1, 4, 1008, 1008, 256), "bfloat16", False, "heads of 256 at 1008 tokens"),
                  ((2, 4, 197, 197, 256), "float32", True, "heads of 256 at 224x224, float32"),
-                 ((1, 4, 1008, 1008, 320), "bfloat16", True, "heads of 320 at 1008 tokens (the chunked bf16 pair)"),
+                 ((1, 4, 1008, 1008, 320), "bfloat16", True, "heads of 320 at 1008 tokens (the bf16 pair on panels)"),
                  ((1, 4, 1008, 1008, 256), "float32", False, "heads of 256 at 1008 tokens, float32"),
-                 ((2, 4, 300, 260, 384), "float32", True, "heads of 384, float32 (the pair's dQ on two panels)")]
+                 ((2, 4, 300, 260, 384), "float32", True, "heads of 384, float32 (the pair's dQ on two panels)"),
+                 ((1, 4, 1008, 1008, 384), "bfloat16", True, "heads of 384 at 1008 tokens (the bf16 pair on panels)")]
 VITW = dict(backbone="vit", vit_hidden=1024, vit_heads=4, vit_mlp=4096, vit_layers=2)
 VITW_CALLS = 2 + 18
 #: B.4 on that model's training path: 768x1344 (4033 tokens), batch 8.
@@ -3344,15 +3362,8 @@ def wide_count(ka, name: str) -> int:
     return sum(n for (wrapper, d), n in ka.head_dim_counts.items() if wrapper == name and d > 128)
 
 
-def hmma_of_wide(counts: dict, name: str) -> int:
-    """The HMMA count (ops_of) of the pair's chunked bodies, named
-    ``base<type>``: their template takes the type alone."""
-    base, dtype = name.rstrip(">").split("<")
-    typ = "13__nv_bfloat16" if dtype == "bf16" else "f"
-    mangled = re.compile(rf"{len(base)}{base}I{typ}E")
-    found = [n["HMMA"] for f, n in counts.items() if mangled.search(f)]
-    check(len(found) == 1, f"{name}: {len(found)} functions of its name in the SASS")
-    return found[0]
+#: The bf16 pair above head dim 256 (wgmma, TMA, column panels).
+PAIR_PANELS = ("attention_bwd_dq_wgmma_panels<", "attention_bwd_dkdv_wgmma_panels<")
 
 
 def wide_edges(ka) -> dict:
@@ -3405,8 +3416,8 @@ def wide_edges(ka) -> dict:
 
 
 def wide_phase(ka, build, smi: str, frames: np.ndarray, samples: list) -> dict:
-    """[14a]: the pair's chunked bodies' registers and spills (none allowed)
-    and HMMA count (none: CUDA cores), the forwards' panel bodies (no spill;
+    """[14a]: the bf16 pair above 256 (the wgmma pair on column panels: no
+    spill, HGMMA and UTMALDG, no HMMA), the forwards' panel bodies (no spill;
     bf16 HGMMA and UTMALDG and no HMMA, float32 no HMMA) and their plan
     against the library's, and [1]'s readings of every Hopper body at head
     dims 192 and 256 (no spill); every forward above 128 at the tile edges
@@ -3425,12 +3436,12 @@ def wide_phase(ka, build, smi: str, frames: np.ndarray, samples: list) -> dict:
     bodies = {}
     panels = {}
     for a in ka.kernel_attributes():
-        if a["name"].startswith("attention_wide"):  # the bf16 pair above 256
-            n_hmma = hmma_of_wide(counts, a["name"])
-            check(a["local_bytes"] == 0, f"14a: {a['name']} spills {a['local_bytes']} B a thread")
-            check(n_hmma == 0, f"14a: {a['name']}: {n_hmma} HMMA instructions (a CUDA-core body)")
-            bodies[a["name"]] = {"regs": a["regs"], "local_bytes": a["local_bytes"], "hmma": n_hmma}
-            log(f"[14a] {a['name']:36s} regs {a['regs']:3d}  spill (local) {a['local_bytes']} B  HMMA in SASS {n_hmma}")
+        if a["name"].startswith(PAIR_PANELS):  # the bf16 pair above 256
+            ops = ops_of(counts, a["name"])
+            text = check_tensor_cores(a, ops, "14a")
+            bodies[a["name"]] = {"regs": a["regs"], "local_bytes": a["local_bytes"], "hmma": ops["HMMA"],
+                                 "hgmma": ops["HGMMA"], "utmaldg": ops["UTMALDG"]}
+            log(f"[14a] {a['name']:36s} regs {a['regs']:3d}  spill (local) {a['local_bytes']} B  {text}")
         elif a["name"].startswith("attention_panels"):
             ops = ops_of(counts, a["name"])
             check(a["local_bytes"] == 0, f"14a: {a['name']} spills {a['local_bytes']} B a thread")
@@ -3438,8 +3449,8 @@ def wide_phase(ka, build, smi: str, frames: np.ndarray, samples: list) -> dict:
             panels[a["name"]] = {"regs": a["regs"], "local_bytes": a["local_bytes"], "hmma": ops["HMMA"],
                                  "hgmma": ops["HGMMA"], "utmaldg": ops["UTMALDG"]}
             log(f"[14a] {a['name']:36s} regs {a['regs']:3d}  spill (local) {a['local_bytes']} B  {text}")
-    check(len(bodies) == 2 and all(n.endswith("<bf16>") for n in bodies),
-          f"14a: chunked bodies {sorted(bodies)}, expected the bf16 pair's 2")
+    check(len(bodies) == 3, f"14a: the bf16 pair above 256 {sorted(bodies)}, expected dQ at 192 and 256 accumulated "
+                            "columns and dK/dV")
     check(len(panels) == 10, f"14a: {len(panels)} panel bodies, expected 10 (K1 and K2, 192 and 256, both types; "
                              "float32 K1 at 64 and 128)")
     register_tiled = check_register_tiled(ka, counts, "14a")
@@ -3457,7 +3468,7 @@ def wide_phase(ka, build, smi: str, frames: np.ndarray, samples: list) -> dict:
         "and float32 K1's at 64 and 128; the float32 pair's plan equals the library's from 192 to 1024")
     hopper = {}
     for a in ka.kernel_attributes():
-        if a["name"].endswith((",192>", ",256>")) and not a["name"].startswith(REGISTER_TILED):
+        if a["name"].endswith((",192>", ",256>")) and not a["name"].startswith((*REGISTER_TILED, *PAIR_PANELS)):
             ops = ops_of(counts, a["name"])
             check(a["local_bytes"] == 0, f"14a: {a['name']} spills {a['local_bytes']} B a thread")
             text = check_tensor_cores(a, ops, "14a")
@@ -3467,10 +3478,11 @@ def wide_phase(ka, build, smi: str, frames: np.ndarray, samples: list) -> dict:
     check(len(hopper) == 6 and all("wgmma" in n for n in hopper),
           f"14a: Hopper bodies at 192 and 256 {sorted(hopper)}, expected K2 and the pair at each")
     bf16 = torch.bfloat16
-    check(ka.is_wgmma_pair(256, bf16) and ka.is_wgmma_pair(136, bf16) and not ka.is_wgmma_pair(320, bf16)
+    check(ka.is_wgmma_pair(256, bf16) and ka.is_wgmma_pair(136, bf16) and ka.is_wgmma_pair(320, bf16)
+          and not ka.is_wgmma_pair(320, torch.float32)
           and ka.is_wgmma_forward(320, bf16) and ka.is_wgmma_forward(136, bf16, flash=False)
           and not ka.is_wgmma_forward(256, torch.float32),
-          "14a: is_wgmma_pair does not name bf16 at 136-256 alone, or is_wgmma_forward bf16 K2 and K1 above 128")
+          "14a: is_wgmma_pair does not name bf16 above 128, or is_wgmma_forward bf16 K2 and K1 above 128")
     edges = wide_edges(ka)
     rows = {}
     for seed, case in enumerate(WIDE_KERNEL_CASES):
@@ -4051,13 +4063,14 @@ def write_hour_video(out_dir: str) -> None:
 # openai/clip-vit-base-patch32's published widths (hidden 768, 12 layers of
 # 12 heads of 64, MLP 3072, patch 32 at 224: 50 tokens, projection 512) with
 # seeded random weights (the repo holds no CLIP checkpoint), written as a HF
-# directory and loaded through ReIDFeatureExtractor: 12 K1 launches a call
-# (float32, 50 keys fit K1's block) whatever the number of crops.
+# directory and loaded through ReIDFeatureExtractor: 12 K2 launches a call
+# (float32, 50 keys: K2's 3xTF32 body) whatever the number of crops.
 CLIP_CROPS, CLIP_CPU_CROPS, CLIP_CALLS = 64, 16, 12
-CLIP_K1 = ("attention_whole_kv", (CLIP_CROPS, 12, 50, 50, 64), "float32", False,
+CLIP_K2 = ("attention_flash", (CLIP_CROPS, 12, 50, 50, 64), "float32", False,
            "CLIP ViT-B/32 image tower, 64 crops a call (Re-ID model_type clip)")
 # float32 with TF32 off on both sides; the card sums in another order (cuBLAS,
-# cuDNN, K1) through 12 blocks: each component of the unit feature vectors.
+# cuDNN, the attention kernel) through 12 blocks: each component of the unit
+# feature vectors.
 CLIP_CARD_ATOL = 1e-4
 # [15c]: the attention maps of the DETR-small checkpoint (means of float32
 # softmax probabilities near 1/84), card against CPU.
@@ -4096,12 +4109,12 @@ def clip_boxes(n: int, seed: int = 15) -> list:
 
 def clip_phase(ka, smi: str, frame: np.ndarray, ckpt: Path) -> dict:
     """[15a]: the tower loaded through ReIDFeatureExtractor on the card and
-    on the CPU; its features card against CPU; K1 at its shape against the
-    plain version, SDPA and the bound; launches and crops/s."""
+    on the CPU; its features card against CPU; K2 at its shape against the
+    plain version, SDPA and the bound (its 50 float32 keys: K2's 3xTF32
+    body); launches and crops/s."""
     from office_person_detection_vit_torch import attention_kernel_bench as abench
     from office_person_detection_vit_torch.tracking.reid_feature_extractor import ReIDFeatureExtractor
 
-    check(not ka.use_flash(50, 64, torch.float32), "15a: use_flash sends CLIP's 50 float32 keys to K2")
     card = ReIDFeatureExtractor(model_type="clip", model_path=str(ckpt), device="cuda")
     card.load_model()
     check(card.backend == "clip" and card.feature_dim == 512, f"15a: backend {card.backend}, {card.feature_dim}-d")
@@ -4111,7 +4124,7 @@ def clip_phase(ka, smi: str, frame: np.ndarray, ckpt: Path) -> dict:
     ka.reset_launch_counts()
     feats = card.extract_features(frame, boxes)
     counts = dict(ka.launch_counts)
-    check(counts == launches(whole_kv=CLIP_CALLS), f"15a: a CLIP call launched {counts}, expected {CLIP_CALLS} K1")
+    check(counts == launches(flash=CLIP_CALLS), f"15a: a CLIP call launched {counts}, expected {CLIP_CALLS} K2")
     check(feats.shape == (CLIP_CROPS, 512) and np.isfinite(feats).all()
           and np.allclose(np.linalg.norm(feats, axis=1), 1.0, atol=1e-5), f"15a: features {feats.shape}")
     cpu = ReIDFeatureExtractor(model_type="clip", model_path=str(ckpt), device="cpu")
@@ -4130,7 +4143,7 @@ def clip_phase(ka, smi: str, frame: np.ndarray, ckpt: Path) -> dict:
     pixels = torch.randn(CLIP_CROPS, 3, 224, 224, device="cuda", generator=torch.Generator("cuda").manual_seed(1))
     with torch.inference_mode():
         tower_ms = abench.cuda_ms(lambda: card._clip(pixels), 10)
-    row = abench.measure(ka, CLIP_K1, 1500)
+    row = abench.measure(ka, CLIP_K2, 1500)
     check(row["max_abs_err"] <= row["tolerance"], f"15a: {abench.describe(row)}")
     rate = CLIP_CROPS / statistics.median(times)
     log(f"[15a] CLIP ViT-B/32 image tower (seeded weights, HF safetensors through ReIDFeatureExtractor, float32, "
@@ -4138,7 +4151,7 @@ def clip_phase(ka, smi: str, frame: np.ndarray, ckpt: Path) -> dict:
         f"max|dfeature| {err:.2e} (bar {CLIP_CARD_ATOL}; CPU {cpu_secs:.2f} s); {rate:.1f} crops/s median of 10 "
         f"calls (host clock: crops and cv2.resize on the host, one upload, the tower, L2 norm), the tower alone "
         f"{tower_ms:.3f} ms a call of {CLIP_CROPS} (CUDA events) on {smi}")
-    log(f"[15a] {abench.describe(row)} [{CLIP_K1[4]}]")
+    log(f"[15a] {abench.describe(row)} [{CLIP_K2[4]}]")
     return {"counts": counts, "row": row, "crops_per_s": rate, "tower_ms": tower_ms, "err": err}
 
 
@@ -4173,8 +4186,8 @@ def clip_tracking_phase(ka, smi: str, frames: list, stamps: list, ckpt: Path) ->
         torch.cuda.synchronize()
         secs[engine] = time.perf_counter() - t
         counts[engine] = dict(ka.launch_counts)
-        check(counts[engine] == launches(whole_kv=CLIP_CALLS * len(frames)),
-              f"15b: {engine} launched {counts[engine]}, expected {CLIP_CALLS} K1 a frame")
+        check(counts[engine] == launches(flash=CLIP_CALLS * len(frames)),
+              f"15b: {engine} launched {counts[engine]}, expected {CLIP_CALLS} K2 a frame")
         check(all(d.feature is not None and d.feature.shape == (512,) for r in results for d in r.detections),
               f"15b: {engine}: a detection without its CLIP feature")
         check(phase.statistics["unique_tracks"] > 0, f"15b: {engine}: no track ({phase.statistics})")
@@ -4187,7 +4200,7 @@ def clip_tracking_phase(ka, smi: str, frames: list, stamps: list, ckpt: Path) ->
     check([[d.track_id for d in r.detections] for r in scan] == [[d.track_id for d in r.detections] for r in cpu_runs],
           "15b: the scan's ids on the card differ from the port's scan on the CPU over the CLIP features")
     log(f"[15b] {len(frames)} frames of [8a] (the drawn person's box a frame) into TrackingPhase with "
-        f"tracking.reid model_type clip on the card: launches {counts['scan']} a run ({CLIP_CALLS} K1 a frame); "
+        f"tracking.reid model_type clip on the card: launches {counts['scan']} a run ({CLIP_CALLS} K2 a frame); "
         f"cascade {runs['cascade'][1]}; scan {runs['scan'][1]}, its ids equal to the port's CPU scan on the same "
         f"features; seconds (host clock, card synchronised): " + ", ".join(f"{k} {v:.3f}" for k, v in secs.items())
         + f" on {smi}")
@@ -4389,17 +4402,18 @@ def last_modules_slice(ka, probe, smi: str, frames: list, stamps: list, videos: 
 
 
 def clip_kernel_rows(res: dict) -> list:
-    """The kernels line's row of K1 on the CLIP path: its launches in one
-    ReIDFeatureExtractor call of [15a] and in [15b]'s scan run."""
+    """The kernels line's row of K2 (the 3xTF32 body) on the CLIP path: its
+    launches in one ReIDFeatureExtractor call of [15a] and in [15b]'s scan
+    run."""
     row = res["clip"]["row"]
-    return [{"name": "attention_whole_kv_clip", "route": "cuda",
-             "source": "office_person_detection_vit_torch/csrc/attention.cu", "body": "attention_panels_fma<float,64,K1>",
-             "replaces": "office_person_detection_vit_tpu/ops/attention.py:60",
-             "launches": res["clip"]["counts"]["attention_whole_kv"],
+    return [{"name": "attention_flash_clip", "route": "cuda",
+             "source": "office_person_detection_vit_torch/csrc/attention.cu", "body": "attention_flash_tf32<float,64>",
+             "replaces": "office_person_detection_vit_tpu/ops/attention.py:159",
+             "launches": res["clip"]["counts"]["attention_flash"],
              "launches_on": f"ReIDFeatureExtractor(model_type='clip').extract_features, {CLIP_CROPS} crops, "
                             "CLIP ViT-B/32 float32, phase 15a",
              "launches_other_paths": {"phase 15b TrackingPhase scan with CLIP Re-ID over 288 frames":
-                                          res["clip"]["tracking"]["counts"]["attention_whole_kv"]},
+                                          res["clip"]["tracking"]["counts"]["attention_flash"]},
              **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape",
                                     "dtype", "instruction")}}]
 
@@ -4601,9 +4615,9 @@ def run(writer: subprocess.Popen, videos: Path, dataset_writer: subprocess.Popen
         f"{fps[0]:.2f} worst (7 runs x 16 frames, host clock, uint8 frames in, DetectionBatch out) on {smi}")
     det.cleanup()
 
-    d_logits, d_boxes, _ = float32_card_vs_cpu(ka, DETRConfig(dtype="float32"), frames[:2], launches(whole_kv=6, flash=12),
-                                               "3")
-    log(f"[3] float32 DETR-R50 on the card (K1 x6, K2 x12) vs CPU (plain): max|dlogits| "
+    f32_counts = launches(whole_kv=6, flash=12)  # the encoder and cross-attention on K2 (3xTF32), the decoder K1
+    d_logits, d_boxes, _ = float32_card_vs_cpu(ka, DETRConfig(dtype="float32"), frames[:2], f32_counts, "3")
+    log(f"[3] float32 DETR-R50 on the card ({f32_counts}) vs CPU (plain): max|dlogits| "
         f"{d_logits:.2e} (atol {LOGITS_ATOL} rtol {LOGITS_RTOL}), max|dboxes| {d_boxes:.2e} (atol {BOXES_ATOL})")
 
     # ---- 4. DETR-DC5 detect: 3680 tokens go through K2
@@ -4721,7 +4735,9 @@ def run(writer: subprocess.Popen, videos: Path, dataset_writer: subprocess.Popen
     # Each attention kernel's row at the encoder shape of the path that
     # launches it, beside that path's own count: K2 runs the bf16 main path
     # (use_flash sends every bf16 call to it), K1 the float32 DETR-small;
-    # the port's entry point (9a, 9b) drives both paths.
+    # the port's entry point (9a, 9b) drives both paths. float32 K2 (the
+    # 3xTF32 body) has its row on [3]'s float32 DETR-R50 forward, beside
+    # CLIP's and [13a]'s.
     headline = {
         "attention_whole_kv": (("attention_whole_kv", (1, 8, 84, 84, 16), "float32"), hour_counts,
                                "DETR-small float32 through main on the card, 13 frames, phase 9b"),
@@ -4749,6 +4765,14 @@ def run(writer: subprocess.Popen, videos: Path, dataset_writer: subprocess.Popen
                                       "shape", "dtype", "instruction")}}
         for name, (key, counts, path) in headline.items()
     ] + [k3_row]
+    f32_k2 = rows["attention_flash", (8, 8, 920, 920, 32), "float32"]
+    kernels.append({
+        "name": "attention_flash_f32", "route": "cuda", "source": "office_person_detection_vit_torch/csrc/attention.cu",
+        "body": "attention_flash_tf32<float,32>", "replaces": replaces["attention_flash"],
+        "launches": f32_counts["attention_flash"],
+        "launches_on": "float32 DETR-R50 forward at 736x1280 on the card, 2 frames, phase 3",
+        **{k: f32_k2[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                  "shape", "dtype", "instruction")}})
     # B.4: K1/K2 forward with the log-sum-exp, the backward kernel pair; its
     # row at the full-width encoder shape of training, its launches
     # (forwards) on phase 10b's path. The pair has a row of its own beside

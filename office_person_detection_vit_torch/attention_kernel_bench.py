@@ -1,7 +1,8 @@
 """The attention kernels K1 and K2 at the shapes DETR's paths give them, on the card.
 
     python -m office_person_detection_vit_torch.attention_kernel_bench \\
-        [--against DIR] [--define NAME=VALUE ...] [--iters 20] [--json-out PATH]
+        [--against DIR] [--define NAME=VALUE ...] [--iters 20] [--ladder] [--only REGEX] [--reverse]
+        [--json-out PATH]
 
 For each case of :data:`CASES` and :data:`VIT_CASES` it holds the kernel (``kernels/attention.py``)
 against the plain version on the same inputs (:data:`TOLERANCE`, absolute)
@@ -11,14 +12,19 @@ the bound, the host's microseconds a wrapper call (:func:`host_us`) and the
 card's name and power limit. Then B.4's backward pair at each of
 :data:`BACKWARD_CASES` against the pair's plain version (:data:`B4_BAR`),
 beside the plain version's time, SDPA's backward and the pair's bound.
+``--ladder`` then times float32 K1 beside K2 (K1, K2, K2, K1) at every head
+dim and :data:`LADDER_LENGTHS` (:func:`ladder`), the reading ``use_flash``'s
+float32 cut comes from.
 
 ``--against DIR`` also times the kernels of the port checkout at ``DIR`` (an
 earlier commit, unpacked with ``git archive``) on the same inputs, through
 that checkout's own wrappers and library, built from its own sources into its
-own ``_build/``. Each case is timed this, other, other, this in one process,
-so both versions are timed by one method on one card (the pair on the same
-out, lse and g, from this checkout's forward), and so is the host's time a
-call. ``--define`` (repeatable) builds that checkout's library (this
+own ``_build/``. Each case is timed this, other, other, this in one process
+(``--reverse``: other, this, this, other), so both versions are timed by one
+method on one card (the pair on the same out, lse and g, from this
+checkout's forward), and so is the host's time a call. ``--only REGEX``
+keeps the cases whose shape and type (``"(8, 4, 4033, 4033, 256)
+bfloat16"``) match, each on the inputs it has in the whole run. ``--define`` (repeatable) builds that checkout's library (this
 checkout's, where no ``--against`` is given) with that ``nvcc`` define, so
 that a variant of the source is timed against the default in the same way:
 for example ``--define WGMMA_INLINE_ABOVE=0`` runs K2 and the dQ kernel at
@@ -32,6 +38,7 @@ import argparse
 import importlib
 import importlib.util
 import json
+import re
 import statistics
 import sys
 import time
@@ -57,6 +64,7 @@ CASES = [
     ("attention_flash", (2, 8, 100, 920, 32), "float32", True, "float32 R50 cross"),
     ("attention_whole_kv", (2, 8, 100, 100, 32), "float32", False, "float32 R50 decoder self"),
     ("attention_whole_kv", (1, 8, 84, 84, 16), "float32", True, "DETR-small encoder"),
+    ("attention_flash", (1, 8, 84, 84, 16), "float32", True, "DETR-small encoder (K2)"),
     ("attention_whole_kv", (1, 8, 25, 84, 16), "float32", True, "DETR-small cross"),
     ("attention_whole_kv", (1, 8, 25, 25, 16), "float32", False, "DETR-small decoder self"),
 ]
@@ -86,6 +94,8 @@ VIT_CASES = [
     ("attention_whole_kv", (8, 12, 197, 197, 64), "float32", False, "ViT-base/16 at 224x224, float32 K1"),
     ("attention_whole_kv", (64, 12, 50, 50, 64), "float32", False, "CLIP ViT-B/32 Re-ID, 64 crops, float32 K1"),
     ("attention_whole_kv", (8, 8, 197, 197, 128), "float32", False, "head dim 128 at 224x224, float32 K1"),
+    ("attention_flash", (1, 12, 3681, 3681, 64), "float32", False, "ViT-base/16 detect at 736x1280, float32, batch 1"),
+    ("attention_flash", (1, 8, 3681, 3681, 128), "float32", True, "head dim 128 on the ViT detect's tokens, float32"),
 ]
 #: B.4's backward pair: ((B, H, Lq, Lk, D), type, the path that gives the
 #: shape). ViT-base/16 training at 768x1344 (4033 tokens), head dim 128 at
@@ -101,8 +111,17 @@ BACKWARD_CASES = [
     ((2, 4, 197, 197, 256), "float32", "heads of 256 at 224x224, float32 (the VITW DETR's float32 gradients)"),
     ((1, 4, 1008, 1008, 256), "float32", "heads of 256 at 1008 tokens, float32"),
     ((2, 4, 300, 260, 136), "float32", "head dim 136, padded to 192, float32"),
-    ((1, 4, 1008, 1008, 320), "bfloat16", "heads of 320 at 1008 tokens (the chunked bf16 pair)"),
+    ((1, 4, 1008, 1008, 320), "bfloat16", "heads of 320 at 1008 tokens (the bf16 pair on column panels)"),
+    ((1, 4, 1008, 1008, 384), "bfloat16", "heads of 384 at 1008 tokens (the bf16 pair on column panels)"),
+    ((8, 4, 1008, 1008, 320), "bfloat16", "heads of 320 at 1008 tokens, batch 8 (the card full)"),
 ]
+#: float32 K1 and K2 beside each other, for use_flash's cut: every head dim
+#: the kernels are built for at each of these key counts (Lq = Lk), B 8 and
+#: H 8 up to 920 keys and B 1 at 3681, where K1's block fits
+#: (whole_kv_fits), and the two float32 K1 paths' own shapes.
+LADDER_LENGTHS = (50, 84, 197, 421, 920, 3681)
+LADDER_PATHS = [((64, 12, 50, 50, 64), "CLIP ViT-B/32 Re-ID, 64 crops"),
+                ((1, 8, 84, 84, 16), "DETR-small encoder at 224x384")]
 #: The pair against its plain version on the same values, relative
 #: (relative_errors): bf16 2^-6, the rounding of P, dS and the results.
 B4_BAR = {torch.bfloat16: 2.0**-6, torch.float32: 1e-5}
@@ -120,12 +139,16 @@ WGMMA_INSTRUCTION = "wgmma.m64nNk16 + TMA"
 #: head dims 64 and 128, every float32 forward above 128 and the float32
 #: pair above 128.
 PANEL_FMA_INSTRUCTION = "FFMA (CUDA cores, 4x4 register tiles)"
-#: The bf16 backward pair above 256: the chunked bodies (ROADMAP C.7).
-CHUNKED_INSTRUCTION = "FFMA (CUDA cores, head dim in 64-wide chunks)"
+#: float32 K2 up to head dim 128: three TF32 products a float32 product on
+#: the tensor cores (attention_flash_tf32).
+TF32_INSTRUCTION = "mma.sync.m16n8k8 3xTF32"
 # Published H100 SXM peaks (dense): HBM bytes/s; bf16 tensor-core and
 # non-tensor float32 FLOP/s.
 PEAK_BYTES = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+#: The float32 work rate of the 3xTF32 body: the TF32 tensor-core peak (495
+#: TFLOP/s, dense) over its three products a float32 product.
+TF32X3_FLOPS = 495e12 / 3
 
 _cycles_per_ms: float | None = None
 
@@ -158,16 +181,17 @@ def make_inputs(shape, dtype: torch.dtype, masked: bool, seed: int, device="cuda
     return q, k, v, ragged_mask(B, Lk).to(device) if masked else None
 
 
-def bound(shape, dtype: torch.dtype, mask) -> tuple[float, str]:
+def bound(shape, dtype: torch.dtype, mask, flops_rate: float | None = None) -> tuple[float, str]:
     """(least ms on an H100, "bytes" or "operations"): q, k, v read and out
     written once, the mask bytes read once; QK^T and P.V over the valid keys
-    of this mask."""
+    of this mask, at ``flops_rate`` (by default the type's peak,
+    :data:`PEAK_FLOPS`; the 3xTF32 body's :data:`TF32X3_FLOPS`)."""
     B, H, Lq, Lk, D = shape
     item = torch.empty((), dtype=dtype).element_size()
     valid_keys = Lk * B if mask is None else int(mask.sum().item())
     flops = 4.0 * H * Lq * valid_keys * D
     nbytes = (2 * B * H * Lq * D + 2 * B * H * Lk * D) * item + (0 if mask is None else B * Lk)
-    t_ops, t_bytes = flops / PEAK_FLOPS[dtype] * 1e3, nbytes / PEAK_BYTES * 1e3
+    t_ops, t_bytes = flops / (flops_rate or PEAK_FLOPS[dtype]) * 1e3, nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -271,7 +295,8 @@ def measure(kernels, case, seed: int, iters: int = 20) -> dict:
     q, k, v, mask = make_inputs(shape, dtype, masked, seed)
     err = max_error(fn, q, k, v, mask)
     sdpa_mask = None if mask is None else mask[:, None, None, :]
-    bound_ms, bound_by = bound(shape, dtype, mask)
+    tf32 = kernels.is_tf32_forward(shape[4], dtype, flash=name == "attention_flash")
+    bound_ms, bound_by = bound(shape, dtype, mask, TF32X3_FLOPS if tf32 else None)
     return {
         "name": name, "shape": list(shape), "dtype": dt, "masked": masked, "path": path,
         "max_abs_err": err, "tolerance": TOLERANCE[dtype],
@@ -292,11 +317,11 @@ def instruction(kernels, name: str, head_dim: int, dtype: torch.dtype) -> str:
     if name == "attention_backward":
         if kernels.is_wgmma_pair(head_dim, dtype):
             return WGMMA_INSTRUCTION
-        if wide:
-            return PANEL_FMA_INSTRUCTION if dtype == torch.float32 else CHUNKED_INSTRUCTION
-        return INSTRUCTION[dtype]
+        return PANEL_FMA_INSTRUCTION if wide else INSTRUCTION[dtype]
     if kernels.is_wgmma_forward(head_dim, dtype, flash=name == "attention_flash"):
         return WGMMA_INSTRUCTION
+    if kernels.is_tf32_forward(head_dim, dtype, flash=name == "attention_flash"):
+        return TF32_INSTRUCTION
     k1_tiled = name == "attention_whole_kv" and dtype == torch.float32 and kernels.kernel_head_dim(head_dim) >= 64
     return PANEL_FMA_INSTRUCTION if wide or k1_tiled else INSTRUCTION[dtype]
 
@@ -322,13 +347,13 @@ def library_kernels(fn, top: int = 3, calls: int = 5) -> list:
     return sorted(totals.items(), key=lambda r: -r[1])[:top]
 
 
-def measure_backward(kernels, case, seed: int, other=None, iters: int = 10) -> dict:
+def measure_backward(kernels, case, seed: int, other=None, iters: int = 10, reverse: bool = False) -> dict:
     """One case of :data:`BACKWARD_CASES`: the pair (``attention_backward``
     on this checkout's forward out and lse) against its plain version
     (``attention_backward_reference``) at :data:`B4_BAR`, its time and the
     host's time a call, the plain version's time, SDPA's backward and the
     bound; with ``other`` (another checkout's wrappers) that checkout's pair
-    too, this, other, other, this."""
+    too, this, other, other, this (``reverse``: other, this, this, other)."""
     from .ops.attention import attention_backward_reference
 
     shape, dt, path = case
@@ -359,17 +384,21 @@ def measure_backward(kernels, case, seed: int, other=None, iters: int = 10) -> d
         row.update(ms=cuda_ms(mine, iters), host_us=host_us(mine))
     else:
         theirs = lambda: other.attention_backward(q, k, v, None, out, lse, g)  # noqa: E731
-        row.update(abba(mine, theirs, iters), against_max_rel_err=errs["other"])
+        row.update(abba(mine, theirs, iters, reverse), against_max_rel_err=errs["other"])
     return row
 
 
-def abba(mine, theirs, iters: int) -> dict:
+def abba(mine, theirs, iters: int, reverse: bool = False) -> dict:
     """Device ms and host microseconds a call of two versions of one
-    function, timed this, other, other, this."""
-    t = [cuda_ms(f, iters) for f in (mine, theirs, theirs, mine)]
-    h = [host_us(f) for f in (mine, theirs, theirs, mine)]
-    return {"ms_abba": [t[0], t[3]], "against_ms_abba": [t[1], t[2]], "ms": (t[0] + t[3]) / 2,
-            "against_ms": (t[1] + t[2]) / 2, "host_us": (h[0] + h[3]) / 2, "against_host_us": (h[1] + h[2]) / 2}
+    function, timed this, other, other, this (``reverse``: other, this,
+    this, other); each version's two readings in the order taken."""
+    order = (theirs, mine, mine, theirs) if reverse else (mine, theirs, theirs, mine)
+    t = [cuda_ms(f, iters) for f in order]
+    h = [host_us(f) for f in order]
+    a, b = ((1, 2), (0, 3)) if reverse else ((0, 3), (1, 2))
+    return {"ms_abba": [t[i] for i in a], "against_ms_abba": [t[i] for i in b], "ms": (t[a[0]] + t[a[1]]) / 2,
+            "against_ms": (t[b[0]] + t[b[1]]) / 2, "host_us": (h[a[0]] + h[a[1]]) / 2,
+            "against_host_us": (h[b[0]] + h[b[1]]) / 2, "reverse": reverse}
 
 
 def describe_backward(row: dict) -> str:
@@ -387,7 +416,8 @@ def against(row: dict, err: float) -> str:
     """The line's part for the other checkout of a row timed by abba."""
     return (f" | against {row['against_ms']:.4f} ms host {row['against_host_us']:.1f} us (err {err:.2e}; "
             f"readings {row['against_ms_abba'][0]:.4f} {row['against_ms_abba'][1]:.4f}, this {row['ms_abba'][0]:.4f} "
-            f"{row['ms_abba'][1]:.4f}) -> {row['against_ms'] / row['ms']:.2f}x")
+            f"{row['ms_abba'][1]:.4f}{'; other first' if row.get('reverse') else ''}) -> "
+            f"{row['against_ms'] / row['ms']:.2f}x")
 
 
 def describe(row: dict) -> str:
@@ -396,6 +426,45 @@ def describe(row: dict) -> str:
             f"err {row['max_abs_err']:.2e} (tol {row['tolerance']:.0e}) ms {row['ms']:.4f} "
             f"host {row['host_us']:.1f} us plain {row['plain_ms']:.4f} sdpa {row['library_ms']:.4f} "
             f"bound {row['bound_ms']:.4f} ({row['bound_by']}, {100 * row['bound_ms'] / row['ms']:.1f}% of it)")
+
+
+def ladder_cases() -> list:
+    """((B, H, L, L, D), path) of the K1/K2 ladder: LADDER_LENGTHS at every
+    head dim of HEAD_DIMS, then LADDER_PATHS."""
+    return [((8 if n <= 920 else 1, 8, n, n, d), f"{n} keys at head dim {d}")
+            for d in (16, 32, 64, 128) for n in LADDER_LENGTHS] + LADDER_PATHS
+
+
+def ladder(kernels, iters: int = 20) -> list:
+    """float32 K1 and K2 beside each other at :func:`ladder_cases`, each
+    held against the plain version (:data:`TOLERANCE`) and timed K1, K2, K2,
+    K1 on the same inputs: K1's and K2's ms, the mean of their two readings
+    (K1 "none" where its block does not fit), the readings, the faster, and
+    what ``use_flash`` takes."""
+    rows = []
+    for seed, (shape, path) in enumerate(ladder_cases()):
+        q, k, v, _ = make_inputs(shape, torch.float32, False, 700 + seed)
+        row = {"shape": list(shape), "path": path, "use_flash": kernels.use_flash(shape[3], shape[4], torch.float32)}
+        k2_call = lambda: kernels.attention_flash(q, k, v, None)  # noqa: E731
+        max_error(kernels.attention_flash, q, k, v, None)
+        if kernels.whole_kv_fits(shape[3], shape[4], torch.float32):
+            k1_call = lambda: kernels.attention_whole_kv(q, k, v, None)  # noqa: E731
+            max_error(kernels.attention_whole_kv, q, k, v, None)
+            t = [cuda_ms(f, iters) for f in (k1_call, k2_call, k2_call, k1_call)]
+            row.update(attention_whole_kv=(t[0] + t[3]) / 2, attention_flash=(t[1] + t[2]) / 2,
+                       whole_kv_readings=[t[0], t[3]], flash_readings=[t[1], t[2]])
+        else:
+            t = [cuda_ms(k2_call, iters) for _ in range(2)]
+            row.update(attention_whole_kv=None, attention_flash=(t[0] + t[1]) / 2, flash_readings=t)
+        k1, k2 = row["attention_whole_kv"], row["attention_flash"]
+        row["faster"] = "K2" if k1 is None or k2 < k1 else "K1"
+        readings = " ".join(f"{x:.4f}" for x in row.get("whole_kv_readings", []) + row["flash_readings"])
+        print(f"ladder float32 {str(tuple(shape)):24s} K1 {'none' if k1 is None else f'{k1:.4f}':>8s} ms  "
+              f"K2 {k2:.4f} ms (readings {readings}) -> faster {row['faster']}; use_flash takes "
+              f"{'K2' if row['use_flash'] else 'K1'} [{path}]", flush=True)
+        rows.append(row)
+        torch.cuda.empty_cache()
+    return rows
 
 
 def load_port_module(root: Path, name: str):
@@ -434,6 +503,10 @@ def main(argv=None) -> dict:
     p.add_argument("--define", action="append", default=[], metavar="NAME=VALUE",
                    help="an nvcc define of the library timed beside this one (--against's, else this checkout's)")
     p.add_argument("--iters", type=int, default=20)
+    p.add_argument("--ladder", action="store_true",
+                   help="also time float32 K1 beside K2 at LADDER_LENGTHS x every head dim (use_flash's cut)")
+    p.add_argument("--only", metavar="REGEX", help="keep the cases whose '(B, H, Lq, Lk, D) type' matches")
+    p.add_argument("--reverse", action="store_true", help="time --against's version first: other, this, this, other")
     p.add_argument("--json-out", type=Path)
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
@@ -443,15 +516,20 @@ def main(argv=None) -> dict:
     print(f"device: {smi}", flush=True)
     root = args.against or (Path(__file__).resolve().parent.parent if args.define else None)
     other = load_kernels(root, defines=tuple(f"-D{d}" for d in args.define)) if root else None
+    def wanted(shape, dt) -> bool:
+        return args.only is None or re.search(args.only, f"{tuple(shape)} {dt}") is not None
+
     rows = []
     for seed, case in enumerate(CASES + VIT_CASES):
+        if not wanted(case[1], case[2]):
+            continue
         row = measure(kernels, case, seed, args.iters)
         if other is not None:
             name, shape, dt, masked, _ = case
             q, k, v, mask = make_inputs(shape, DTYPES[dt], masked, seed)
             mine, theirs = getattr(kernels, name), getattr(other, name)
             row["against_max_abs_err"] = max_error(theirs, q, k, v, mask)
-            row.update(abba(lambda: mine(q, k, v, mask), lambda: theirs(q, k, v, mask), args.iters))
+            row.update(abba(lambda: mine(q, k, v, mask), lambda: theirs(q, k, v, mask), args.iters, args.reverse))
         line = describe(row)
         if other is not None:
             line += against(row, row["against_max_abs_err"])
@@ -466,7 +544,9 @@ def main(argv=None) -> dict:
         torch.cuda.empty_cache()
     backward = []
     for seed, case in enumerate(BACKWARD_CASES):
-        row = measure_backward(kernels, case, 900 + seed, other, max(args.iters // 2, 5))
+        if not wanted(case[0], case[1]):
+            continue
+        row = measure_backward(kernels, case, 900 + seed, other, max(args.iters // 2, 5), args.reverse)
         line = describe_backward(row)
         if case[1] == "float32":
             q, k, v, _ = make_inputs(case[0], torch.float32, False, 900 + seed)
@@ -481,7 +561,7 @@ def main(argv=None) -> dict:
         torch.cuda.empty_cache()
     results = {"device": smi, "iters": args.iters, "against": str(root) if root else None,
                "defines": args.define,
-               "cases": rows, "backward": backward}
+               "cases": rows, "backward": backward, "ladder": ladder(kernels, args.iters) if args.ladder else None}
     if args.json_out:
         args.json_out.parent.mkdir(parents=True, exist_ok=True)
         args.json_out.write_text(json.dumps(results, indent=1))

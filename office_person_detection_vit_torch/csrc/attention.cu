@@ -61,9 +61,9 @@
 //    passes the true scale 1/sqrt(D), which every entry point takes as an
 //    argument. Above 128 the wrapper pads D up to a multiple of 64: bf16
 //    K2 and the pair take the wgmma bodies at 192 and 256, every other
-//    forward there the panel bodies (both types; wgmma in bf16) and the
-//    float32 pair and the bf16 pair above 256 the chunked bodies of the
-//    C.7 section below.
+//    forward there the panel bodies (both types; wgmma in bf16), the
+//    float32 pair the register-tiled pair and the bf16 pair above 256 the
+//    wgmma pair on column panels (the pair's sections below).
 //  * The mask becomes a float bias per key in shared memory (0 valid, -inf
 //    not), read once per batch entry by each block; s = acc * scale + bias.
 //    Ragged Lq and Lk are masked in the kernel; nothing is padded outside.
@@ -86,20 +86,20 @@
 //    At D = 128 K1 takes at most 8 warps a block (255 registers a thread
 //    instead of 128).
 //
-// float32 runs on the CUDA cores (FP32 FMAs): TF32 tensor cores would break
-// its 1e-5 tolerance and the whole-model float32 bar. Two designs:
-//  * four threads per query row, 64-row blocks: K1 at D 16 and 32 (DETR's,
-//    where it beats SDPA), K2 up to 128 and the pair up to 128. Up to D = 64
-//    a row's four threads split its keys and each keeps the whole row of q
-//    and of the output; at D = 128 that is 256 floats a thread, so the
-//    *_slice bodies split the head dim instead (each thread a quarter of q
-//    and of the output, the quad summing each dot product with two
-//    shuffles), and stage K/V in dynamic shared memory (64 KB a tile, over
-//    the 48 KB a static array may take). Each of its FMAs reads its operand
-//    from shared memory, a float4 for four FMAs, so it runs at a fraction
-//    of the FMA rate; at DETR-R50's encoder shape K2 in float32 runs level
-//    with SDPA in float32 (0.4890 against 0.4934 ms, NVIDIA H100 80GB HBM3,
-//    700.00 W, chip_smoke.py phase 2).
+// float32. One TF32 product would break the 1e-5 tolerance and the
+// whole-model float32 bar, so the float32 bodies keep float32's accuracy
+// in one of three designs:
+//  * K2 up to 128 on the tensor cores as three TF32 products a float32
+//    product (3xTF32, attention_flash_tf32; its section says how).
+//  * four threads per query row, 64-row blocks, FP32 FMAs: K1 at D 16 and
+//    32 (DETR's) and the pair up to 128. Up to D = 64 a row's four threads
+//    split its keys and each keeps the whole row of q and of the output; at
+//    D = 128 that is 256 floats a thread, so the *_slice bodies split the
+//    head dim instead (each thread a quarter of q and of the output, the
+//    quad summing each dot product with two shuffles), and stage K/V in
+//    dynamic shared memory (64 KB a tile, over the 48 KB a static array
+//    may take). Each of its FMAs reads its operand from shared memory, a
+//    float4 for four FMAs, so it runs at a fraction of the FMA rate.
 //  * register tiles (attention_panels_fma, attention_bwd_*_fma): 16 x 16
 //    threads, each a 4 x 4 tile of scores, float4 operands reused across
 //    four rows and four keys from registers, items by cp.async into two
@@ -312,79 +312,6 @@ attention_whole_kv_kernel(const float* __restrict__ q, const float* __restrict__
     }
   }
   write_row<D>(acc, 1.f, out + ((size_t)bh * Lq + q0 + row) * D, split, live);
-}
-
-// ---------------------------------------------------------------- K2, float32
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-attention_flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                       const float* __restrict__ v, const uint8_t* __restrict__ mask,
-                       float* __restrict__ out, float* __restrict__ lse, int H, int Lq, int Lk,
-                       float scale_log2) {
-  __shared__ __align__(16) float sk[kFlashKeys * D];
-  __shared__ __align__(16) float sv[kFlashKeys * D];
-  __shared__ uint8_t smask[kFlashKeys];
-
-  const int bh = blockIdx.x;
-  const int b = bh / H;
-  const int q0 = blockIdx.y * kRows;
-  const int nq = min(kRows, Lq - q0);
-  const size_t kv_off = (size_t)bh * Lk * D;
-  const uint8_t* mask_b = mask ? mask + (size_t)b * Lk : nullptr;
-  const bool all_masked = !any_valid_key(mask_b, Lk);
-
-  const int row = threadIdx.x / kSplit;
-  const int split = threadIdx.x % kSplit;
-  const bool live = row < nq;
-  float qf[D];
-  load_query<D>(q + ((size_t)bh * Lq + q0 + (live ? row : 0)) * D, qf);
-
-  constexpr int kPer = kFlashKeys / kSplit;  // keys per thread per tile
-  float m = -INFINITY, l = 0.f;
-  float acc[D];
-#pragma unroll
-  for (int d = 0; d < D; ++d) acc[d] = 0.f;
-
-  for (int k0 = 0; k0 < Lk; k0 += kFlashKeys) {
-    const int nk = min(kFlashKeys, Lk - k0);
-    __syncthreads();  // the previous tile is consumed
-    stage_rows<D>(sk, k + kv_off + (size_t)k0 * D, nk);
-    stage_rows<D>(sv, v + kv_off + (size_t)k0 * D, nk);
-    stage_mask(smask, mask_b, k0, nk);
-    __syncthreads();
-    if (!live) continue;
-
-    float s[kPer];
-    float tile_max = -INFINITY;
-#pragma unroll
-    for (int i = 0; i < kPer; ++i) {
-      const int j = i * kSplit + split;
-      const bool valid = j < nk && (all_masked || smask[j]);
-      s[i] = !valid ? -INFINITY : (all_masked ? 0.f : dot_row<D>(sk, j, qf) * scale_log2);
-      tile_max = fmaxf(tile_max, s[i]);
-    }
-    if (tile_max == -INFINITY) continue;  // no valid key of this thread in the tile
-    const float m_new = fmaxf(m, tile_max);
-    const float alpha = exp2f(m - m_new);  // 0 while m is -inf
-    l *= alpha;
-#pragma unroll
-    for (int d = 0; d < D; ++d) acc[d] *= alpha;
-#pragma unroll
-    for (int i = 0; i < kPer; ++i) {
-      if (s[i] == -INFINITY) continue;
-      const float p = exp2f(s[i] - m_new);
-      l += p;
-      axpy_row<D>(sv, i * kSplit + split, p, acc);
-    }
-    m = m_new;
-  }
-
-  float self_scale;
-  merge_stats(m, l, self_scale);
-  if (lse != nullptr && live && split == 0) lse[(size_t)bh * Lq + q0 + row] = (m + log2f(l)) * kLn2;
-#pragma unroll
-  for (int d = 0; d < D; ++d) acc[d] *= self_scale;
-  write_row<D>(acc, live ? 1.f / l : 0.f, out + ((size_t)bh * Lq + q0 + row) * D, split, live);
 }
 
 // ===================================================== bf16 (tensor cores)
@@ -774,6 +701,271 @@ attention_flash_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+// ================================= K2 in float32 up to head dim 128 (3xTF32)
+// float32 K2 at head dims 16, 32, 64 and 128 (and those padded to them) on
+// the tensor cores, at float32's accuracy: three TF32 products a float32
+// product, as CUTLASS's OpMultiplyAddFastF32 (which SDPA's float32 path
+// runs) does.
+//  * Each float32 operand x is split into hi = tf32(x) (10 bits of mantissa,
+//    rounded to nearest) and lo = x - hi (split_tf32), and a product a b is
+//    lo_a hi_b + hi_a lo_b + hi_a hi_b on
+//    mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32, summed in float32
+//    accumulators (the small terms first; P.V a group of 32 keys in an
+//    accumulator of its own, added to the output by FADD). What it drops, lo_a lo_b and lo's own
+//    truncation, is about 2^-21 of |a b|, where one TF32 product alone
+//    rounds each operand to 2^-11.
+//  * K2's bf16 skeleton (attention_flash_mma): a warp owns 16 query rows, 4
+//    warps a block (64 rows); K and V come in kKeys-key tiles (64; 32 at D
+//    128, for registers and shared memory) by 16-byte cp.async into two
+//    stages, the next tile loading under the current one's products, with
+//    the tile's key bias beside them; online softmax in base 2 in the
+//    m16n8 accumulator layout (a row's max and sum over the quad that holds
+//    it). Rows past Lk are zero-filled, rows past Lq are zero in Q and not
+//    stored. Grid (ceil(Lq / 64), B*H): a head's row blocks side by side,
+//    so that its K and V stay in L2.
+//  * Fragments come from shared memory by 32- and 64-bit loads (ldmatrix
+//    has no 32-bit transpose). The depth of each product is permuted inside
+//    each k8 step so that a thread's two depth values are neighbours: in
+//    Q.K^T columns 2t and 2t + 1 of Q and of K (one 64-bit load of K), in
+//    P.V keys 2t and 2t + 1, which is where the score accumulator already
+//    holds them, so p becomes P.V's A operand with no shuffle. K rows are
+//    padded to D + 8 floats and V rows to D + 4, so that each load of a warp
+//    meets every bank once.
+//  * Each operand is split once, where it is loaded, and its hi and lo
+//    serve all three products: Q from registers once a tile, p once, K and
+//    V as a warp reads them. A split kept in shared memory (once a staged
+//    tile for all four warps) would double the warps' shared reads (hi and
+//    lo); in registers it costs three ALU instructions an operand beside
+//    the tensor cores.
+//  * Bound: operations, on the tensor cores: Q.K^T and P.V over the valid
+//    keys, three TF32 products each, at 495 / 3 = 165 TFLOP/s of float32
+//    work; at ViT-base/16's float32 (1, 12, 3681, 3681, 64) 41.6 GFLOP,
+//    0.252 ms, and 163 M exponentials.
+template <int D> struct Tf32Flash {
+  static_assert(D == 16 || D == 32 || D == 64 || D == 128, "head dim 16, 32, 64 or 128");
+  static constexpr int kKeys = D == 128 ? 32 : 64;                   // keys a tile
+  static constexpr int kLdK = D + 8, kLdV = D + 4;                   // row strides (floats)
+  static constexpr int kStage = kKeys * (kLdK + kLdV) + kKeys;       // floats: K, V, the key bias
+  static constexpr size_t kSmem = 2 * (size_t)kStage * sizeof(float);
+  static constexpr int kMinBlocks = D >= 64 ? 2 : D == 16 ? 4 : 3;  // blocks an SM (launch bounds)
+};
+static_assert(3 * (Tf32Flash<32>::kSmem + 1024) <= 233472 && 2 * (Tf32Flash<128>::kSmem + 1024) <= 233472,
+              "the blocks an SM of the launch bounds fit its shared memory");
+
+// x = hi + lo: hi = x rounded to TF32's 10 bits of mantissa (to nearest,
+// ties away: an add and a mask of the bits; finite x), lo = x - hi exactly
+// in float32. lo goes to the product as it is: the tensor cores read a .tf32
+// operand's top 19 bits, so they truncate it to 10 bits of its own (2^-10 of
+// |lo| <= 2^-21 of |x|). cvt.rna.tf32.f32 would round lo too, but it
+// compiles to a dozen instructions that check for NaN and infinity, where
+// this split is three; it ran the body slower (PERF.md).
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+// The same, done where it is written: Q's split stays inside the tile loop.
+// Hoisted out of it (Q does not change), its hi and lo would hold D
+// registers a thread for the whole block where Q's floats hold D / 2.
+__device__ __forceinline__ void split_tf32_here(float x, uint32_t& hi, uint32_t& lo) {
+  asm volatile("{\n .reg .b32 t;\n add.u32 t, %1, 4096;\n and.b32 %0, t, 0xffffe000;\n}\n"
+               : "=r"(hi)
+               : "r"(__float_as_uint(x)));
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+// d += a (16x8, row) * b (8x8, col), TF32 in, float32 accumulate.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, "
+      "{%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+// d += a b in 3xTF32: the split operands' lo hi, hi lo, then hi hi.
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4], const uint32_t (&ah)[4], const uint32_t (&al)[4],
+                                           const uint32_t (&bh)[2], const uint32_t (&bl)[2]) {
+  mma_tf32(d, al, bh);
+  mma_tf32(d, ah, bl);
+  mma_tf32(d, ah, bh);
+}
+
+// Rows [0, n) of a row-major (.., D) float array into `rows` shared rows of
+// ld floats by 16-byte cp.async; rows n.. are zero-filled.
+template <int D>
+__device__ __forceinline__ void stage_f32_rows(float* dst, int ld, const float* src, int n, int rows) {
+  constexpr int kC = D / 4;
+#pragma unroll 1
+  for (int e = threadIdx.x; e < rows * kC; e += blockDim.x) {
+    const int r = e / kC, c = e % kC * 4;
+    const bool ok = r < n;
+    cp_async16(smem_u32(dst + r * ld + c), ok ? src + (size_t)r * D + c : src, ok);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kFlashWarps * 32, Tf32Flash<D>::kMinBlocks)
+attention_flash_tf32(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+                     const uint8_t* __restrict__ mask, float* __restrict__ out, float* __restrict__ lse, int H,
+                     int Lq, int Lk, float scale_log2) {
+  using T = Tf32Flash<D>;
+  constexpr int kKeys = T::kKeys, N = kKeys / 8;
+  extern __shared__ __align__(16) float tsm[];
+  auto stage = [&](int s) { return tsm + s * T::kStage; };  // K rows, V rows, the key bias
+
+  const int bh = blockIdx.y, tid = threadIdx.x, lane = tid % 32, g = lane / 4, t4 = lane % 4;
+  const uint8_t* mask_b = mask ? mask + (size_t)(bh / H) * Lk : nullptr;
+  const float* k_bh = k + (size_t)bh * Lk * D;
+  const float* v_bh = v + (size_t)bh * Lk * D;
+  const int tiles = (Lk + kKeys - 1) / kKeys;
+  const bool all_masked = !any_valid_key(mask_b, Lk);
+  const float scale = all_masked ? 0.f : scale_log2;
+
+  auto issue = [&](int t) {  // tile t's copies and key bias into stage t % 2 (an empty group past the end)
+    if (t < tiles) {
+      float* st = stage(t % 2);
+      const int k0 = t * kKeys, n = min(kKeys, Lk - k0);
+      stage_f32_rows<D>(st, T::kLdK, k_bh + (size_t)k0 * D, n, kKeys);
+      stage_f32_rows<D>(st + kKeys * T::kLdK, T::kLdV, v_bh + (size_t)k0 * D, n, kKeys);
+      for (int j = tid; j < kKeys; j += blockDim.x)
+        st[kKeys * (T::kLdK + T::kLdV) + j] = key_bias(mask_b, k0 + j, Lk, all_masked);
+    }
+    cp_async_commit();
+  };
+  issue(0);
+
+  // The warp's Q rows g and g + 8 from row0, in registers for the whole
+  // block: qf[kk] holds columns 8 kk + 2t and + 1 of both rows in Q.K^T's
+  // permuted A layout ({row g, row g + 8} x {2t, 2t + 1}); zero past Lq.
+  const int row0 = blockIdx.x * kRows + tid / 32 * kWarpRows;
+  const bool live = row0 < Lq;
+  float qf[D / 8][4];
+  {
+    const float* q_bh = q + (size_t)bh * Lq * D;
+    const bool v0 = row0 + g < Lq, v1 = row0 + g + 8 < Lq;
+    const float* r0 = q_bh + (size_t)(v0 ? row0 + g : 0) * D + 2 * t4;
+    const float* r1 = q_bh + (size_t)(v1 ? row0 + g + 8 : 0) * D + 2 * t4;
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk) {
+      const float2 a = v0 ? *reinterpret_cast<const float2*>(r0 + 8 * kk) : make_float2(0.f, 0.f);
+      const float2 b = v1 ? *reinterpret_cast<const float2*>(r1 + 8 * kk) : make_float2(0.f, 0.f);
+      qf[kk][0] = a.x;
+      qf[kk][1] = b.x;
+      qf[kk][2] = a.y;
+      qf[kk][3] = b.y;
+    }
+  }
+
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  float o[D / 8][4];
+#pragma unroll
+  for (int dn = 0; dn < D / 8; ++dn) o[dn][0] = o[dn][1] = o[dn][2] = o[dn][3] = 0.f;
+  for (int t = 0; t < tiles; ++t) {
+    cp_async_wait<0>();  // tile t has landed
+    __syncthreads();     // ... for every thread; tile t - 1's stage is free
+    issue(t + 1);
+    if (!live) continue;
+    const float* sk = stage(t % 2);
+    const float* sv = sk + kKeys * T::kLdK;
+    const float* bias = sv + kKeys * T::kLdV;
+
+    float sc[N][4];  // S = Q K^T: sc[n] the m16n8 accumulator of keys 8n..8n+7
+#pragma unroll
+    for (int n = 0; n < N; ++n) sc[n][0] = sc[n][1] = sc[n][2] = sc[n][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk) {
+      uint32_t ah[4], al[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) split_tf32_here(qf[kk][j], ah[j], al[j]);
+#pragma unroll
+      for (int n = 0; n < N; ++n) {
+        const float2 x = *reinterpret_cast<const float2*>(sk + (8 * n + g) * T::kLdK + 8 * kk + 2 * t4);
+        uint32_t bh2[2], bl2[2];
+        split_tf32(x.x, bh2[0], bl2[0]);
+        split_tf32(x.y, bh2[1], bl2[1]);
+        mma_3xtf32(sc[n], ah, al, bh2, bl2);
+      }
+    }
+
+    // Online softmax (attention_flash_mma's): s * scale + bias, the rows'
+    // new max and sum, p = 2^(s - max), the output rescaled.
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int n = 0; n < N; ++n) {
+      const float2 bb = *reinterpret_cast<const float2*>(bias + 8 * n + 2 * t4);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[n][e] = fmaf(sc[n][e], scale, e % 2 ? bb.y : bb.x);
+      mx[0] = fmaxf(mx[0], fmaxf(sc[n][0], sc[n][1]));
+      mx[1] = fmaxf(mx[1], fmaxf(sc[n][2], sc[n][3]));
+    }
+    float mu[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float m_new = fmaxf(m[r], quad_max(mx[r]));
+      mu[r] = m_new == -INFINITY ? 0.f : m_new;
+      const float alpha = exp2f(m[r] - mu[r]);  // 0 while m is -inf
+      l[r] *= alpha;
+#pragma unroll
+      for (int dn = 0; dn < D / 8; ++dn) {
+        o[dn][2 * r] *= alpha;
+        o[dn][2 * r + 1] *= alpha;
+      }
+      m[r] = m_new;
+    }
+#pragma unroll
+    for (int n = 0; n < N; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        sc[n][e] = exp2f(sc[n][e] - mu[e / 2]);
+        l[e / 2] += sc[n][e];
+      }
+
+    // O += P V: k8 step kk takes keys 8 kk + 2t and + 1 (the permuted depth),
+    // which sc[kk] holds: its accumulator is the step's A operand. The tile's
+    // keys go in groups of 32 (4 steps): each 8-column group sums a key
+    // group in an accumulator of its own, then adds it to o by a float32
+    // add. Summed on the tensor cores in o itself, over thousands of keys,
+    // the output drifted past the 1e-5 bar (1.45e-5 at 3681 keys, PERF.md):
+    // their float32 accumulation is less exact than an FADD's rounding. A
+    // group's split p is 32 registers whatever D.
+#pragma unroll
+    for (int k0 = 0; k0 < N; k0 += 4) {
+      uint32_t pah[4][4], pal[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        split_tf32(sc[k0 + kk][0], pah[kk][0], pal[kk][0]);  // row g, key 2t
+        split_tf32(sc[k0 + kk][2], pah[kk][1], pal[kk][1]);  // row g + 8, key 2t
+        split_tf32(sc[k0 + kk][1], pah[kk][2], pal[kk][2]);  // row g, key 2t + 1
+        split_tf32(sc[k0 + kk][3], pah[kk][3], pal[kk][3]);  // row g + 8, key 2t + 1
+      }
+#pragma unroll
+      for (int dn = 0; dn < D / 8; ++dn) {
+        float acc[4] = {0.f, 0.f, 0.f, 0.f};
+        const float* vr = sv + (8 * k0 + 2 * t4) * T::kLdV + 8 * dn + g;
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          uint32_t bh2[2], bl2[2];
+          split_tf32(vr[8 * kk * T::kLdV], bh2[0], bl2[0]);
+          split_tf32(vr[(8 * kk + 1) * T::kLdV], bh2[1], bl2[1]);
+          mma_3xtf32(acc, pah[kk], pal[kk], bh2, bl2);
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[dn][e] += acc[e];
+      }
+    }
+  }
+  cp_async_wait<0>();
+  if (!live) return;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + g + 8 * r;
+    const float sum = quad_sum(l[r]), inv = 1.f / sum;
+    if (row >= Lq) continue;
+    float* orow = out + ((size_t)bh * Lq + row) * D + 2 * t4;
+#pragma unroll
+    for (int dn = 0; dn < D / 8; ++dn)
+      *reinterpret_cast<float2*>(orow + 8 * dn) = make_float2(o[dn][2 * r] * inv, o[dn][2 * r + 1] * inv);
+    if (lse != nullptr && t4 == 0) lse[(size_t)bh * Lq + row] = (m[r] + log2f(sum)) * kLn2;
+  }
+}
+
 // ================================================== backward (B.4), both types
 // The vector-Jacobian product of the plain version (attention_reference) at
 // (q, k, v) for the output gradient g, as FlashAttention-2 computes it: the
@@ -811,9 +1003,10 @@ attention_flash_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // dK/dV kernel computes S^T = K Q^T, so that P^T comes out in the layout
 // pack_p turns into an A operand. At head dims 64, 128, 192 and 256 the
 // pair runs the Hopper bodies of the section after this one (wgmma, TMA),
-// on the same scheme with 128-row blocks. float32 keeps a CUDA-core body:
-// up to 128 four threads a row as the forwards' float32 bodies, above 128
-// the register-tiled pair attention_bwd_{dq,dkdv}_fma.
+// on the same scheme with 128-row blocks, and above 256 the wgmma pair on
+// column panels (after the forwards' panel section). float32 keeps a
+// CUDA-core body: up to 128 four threads a row as K1's float32 body at D 16
+// and 32, above 128 the register-tiled pair attention_bwd_{dq,dkdv}_fma.
 
 static_assert(kRows == kFlashWarps * kWarpRows && kRows == kTileKeys && kRows == kFlashKeys,
               "the backward's row and key tiles are 64 in both types");
@@ -2022,72 +2215,6 @@ __device__ __forceinline__ void store_slice(float* row, int split, const float* 
     r[cc] = make_float4(x[4 * cc] * mul, x[4 * cc + 1] * mul, x[4 * cc + 2] * mul, x[4 * cc + 3] * mul);
 }
 
-// ---------------------------------------------------- K2, float32, D = 128
-// attention_flash_kernel's contract with the head dim split as above; the
-// running max moves key by key, and the output is rescaled only when it
-// rises.
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-attention_flash_slice(const float* __restrict__ q, const float* __restrict__ k,
-                      const float* __restrict__ v, const uint8_t* __restrict__ mask,
-                      float* __restrict__ out, float* __restrict__ lse, int H, int Lq, int Lk,
-                      float scale_log2) {
-  constexpr int kSlice = D / kSplit;
-  extern __shared__ __align__(16) uint8_t smem[];  // flash_f32_slice_smem_bytes
-  float* sk = reinterpret_cast<float*>(smem);
-  float* sv = sk + kFlashKeys * D;
-  uint8_t* smask = reinterpret_cast<uint8_t*>(sv + kFlashKeys * D);
-
-  const int bh = blockIdx.x;
-  const int b = bh / H;
-  const int q0 = blockIdx.y * kRows;
-  const int nq = min(kRows, Lq - q0);
-  const size_t kv_off = (size_t)bh * Lk * D;
-  const uint8_t* mask_b = mask ? mask + (size_t)b * Lk : nullptr;
-  const bool all_masked = !any_valid_key(mask_b, Lk);
-
-  const int row = threadIdx.x / kSplit;
-  const int split = threadIdx.x % kSplit;
-  const unsigned quad = 0xfu << (threadIdx.x % 32 / kSplit * kSplit);
-  const bool live = row < nq;
-  const size_t q_row = (size_t)bh * Lq + q0 + (live ? row : 0);
-  float qf[kSlice], acc[kSlice];
-  load_slice<D>(q + q_row * D, split, qf);
-#pragma unroll
-  for (int d = 0; d < kSlice; ++d) acc[d] = 0.f;
-
-  float m = -INFINITY, l = 0.f;
-  for (int k0 = 0; k0 < Lk; k0 += kFlashKeys) {
-    const int nk = min(kFlashKeys, Lk - k0);
-    __syncthreads();  // the previous tile is consumed
-    stage_rows<D>(sk, k + kv_off + (size_t)k0 * D, nk);
-    stage_rows<D>(sv, v + kv_off + (size_t)k0 * D, nk);
-    stage_mask(smask, mask_b, k0, nk);
-    __syncthreads();
-    if (!live) continue;
-    for (int j = 0; j < nk; ++j) {
-      if (!all_masked && !smask[j]) continue;
-      const float dot = quad_total(quad, dot_slice<D>(sk, j, split, qf));
-      const float s = all_masked ? 0.f : dot * scale_log2;
-      float p = 1.f;
-      if (s > m) {  // the max rises: rescale what is summed so far (0 while m is -inf)
-        const float alpha = exp2f(m - s);
-        l *= alpha;
-#pragma unroll
-        for (int d = 0; d < kSlice; ++d) acc[d] *= alpha;
-        m = s;
-      } else {
-        p = exp2f(s - m);
-      }
-      l += p;
-      axpy_slice<D>(sv, j, split, p, acc);
-    }
-  }
-  if (!live) return;
-  if (lse != nullptr && split == 0) lse[q_row] = (m + log2f(l)) * kLn2;
-  store_slice<D>(out + q_row * D, split, acc, 1.f / l);
-}
-
 // ---------------------------------------------------- dQ, float32, D = 128
 // attention_bwd_dq_kernel's contract with the head dim split as above.
 template <int D>
@@ -2154,269 +2281,13 @@ attention_bwd_dq_slice(const float* __restrict__ q, const float* __restrict__ k,
   if (live) store_slice<D>(dq + q_row * D, split, acc, scale);
 }
 
-// ======================================= the bf16 pair above head dim 256
-// What reaches these bodies: B.4's pair in bf16 above 256 (320, ...); the
-// bf16 pair at 192 and 256 (and those padded to them) runs the wgmma
-// bodies above, the float32 pair above 128 the register-tiled bodies after
-// the panel section, and every forward above 128 the panel bodies. The
-// template takes the element type, but only its bf16 instances are built.
-// The mma.sync pair keeps a row's Q fragments in registers; above 128 they
-// do not fit. These bodies take the head dim in chunks instead, on the CUDA
-// cores: Q.K^T and g.V^T are summed over 64-wide chunks of the head dim
-// staged through shared memory as float32, and the output columns are
-// split over grid z in 128-wide chunks, each z block recomputing the
-// scores. The wrapper pads D to a multiple of 64
-// (kernels/attention.py::kernel_head_dim). A block is 64 query rows (dK/dV:
-// 64 keys) of four threads each; a thread holds 16 scores of a 64-key tile
-// (key split + 4m) and 32 output columns (column split + 4c of its chunk).
-// Staged rows are padded to 65 (129) floats so that the four threads of a
-// row, which read four rows of the other operand, hit four banks. They sum
-// in float32 and round only their results. Bound: operations, on the CUDA
-// cores; they re-read their operands from shared memory for every product
-// (one shared float an FMA) and stage element by element, and speed is not
-// their aim yet (ROADMAP: first in the kernel queue).
-constexpr int kWideChunk = 64;                 // head-dim columns of one staged chunk
-constexpr int kWideOut = 128;                  // output columns of one grid-z block
-constexpr int kWideS = kWideChunk + 1;         // staged row stride (floats)
-constexpr int kWideO = kWideOut + 1;           // output-chunk row stride (floats)
-constexpr int kWideKeys = kFlashKeys / kSplit; // scores a thread keeps (16)
-constexpr int kWideCols = kWideOut / kSplit;   // output columns a thread keeps (32)
-constexpr int kWideTile = kRows * kWideS;      // floats of one staged 64 x 64 chunk
-constexpr int kWideOutTile = kRows * kWideO;   // floats of one staged 64 x 128 chunk
-
-__device__ __forceinline__ float wide_f(bf16 x) { return __bfloat162float(x); }
-template <typename T> __device__ __forceinline__ T wide_t(float x);
-template <> __device__ __forceinline__ bf16 wide_t<bf16>(float x) { return __float2bfloat16(x); }
-
-// Rows [0, n) of src (row stride D), columns [c0, c0 + w), as float32 into
-// dst (row stride `stride`, kRows rows); zero past n rows and w columns.
-template <typename T>
-__device__ __forceinline__ void wide_stage(float* dst, int stride, const T* src, int n, int D, int c0,
-                                           int w, int cols) {
-  for (int idx = threadIdx.x; idx < kRows * cols; idx += blockDim.x) {
-    const int r = idx / cols, c = idx % cols;
-    dst[r * stride + c] = (r < n && c < w) ? wide_f(src[(size_t)r * D + c0 + c]) : 0.f;
-  }
-}
-
-// s[m] += x[row] . y[split + 4m] over one staged chunk (x, y: kWideTile each).
-__device__ __forceinline__ void wide_dots(const float* x, int row, const float* y, int split, float* s) {
-#pragma unroll 4
-  for (int d = 0; d < kWideChunk; ++d) {
-    const float a = x[row * kWideS + d];
-#pragma unroll
-    for (int m = 0; m < kWideKeys; ++m) s[m] = fmaf(a, y[(split + kSplit * m) * kWideS + d], s[m]);
-  }
-}
-
-// acc[c] += sum_j p[row][j] * y[j][split + 4c] over j < n (p: kWideTile,
-// y: kWideOutTile), for the first nc of a thread's columns.
-__device__ __forceinline__ void wide_axpy(const float* p, int row, const float* y, int split, int n, int nc,
-                                          float* acc) {
-  for (int j = 0; j < n; ++j) {
-    const float pj = p[row * kWideS + j];
-#pragma unroll
-    for (int c = 0; c < kWideCols; ++c)
-      if (c < nc) acc[c] = fmaf(pj, y[j * kWideO + split + kSplit * c], acc[c]);
-  }
-}
-
-// B.4's dQ in bf16 for D > 256, grid (B*H, Lq_pad/64, ceil(D/128)). Its z = 0 blocks
-// also write each row's lse2 (base 2) and D = rowsum(g * out) to the scratch
-// for the dK/dV kernel, as attention_bwd_dq_* do.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-attention_wide_bwd_dq(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                      const uint8_t* __restrict__ mask, const T* __restrict__ out,
-                      const float* __restrict__ lse, const T* __restrict__ g, T* __restrict__ dq,
-                      float* __restrict__ lse2_pad, float* __restrict__ dsum_pad, int H, int Lq, int Lk,
-                      int D, int Lq_pad, float scale_log2, float scale) {
-  extern __shared__ __align__(16) float wsm[];
-  float* sq = wsm;                  // Q, K, g, V chunks; then the K tile's output columns
-  float* sk = sq + kWideTile;
-  float* sg = sk + kWideTile;
-  float* sv = sg + kWideTile;
-  float* sout = wsm;
-  float* sds = sv + kWideTile;      // the tile's dS
-  uint8_t* svalid = reinterpret_cast<uint8_t*>(sds + kWideTile);
-
-  const int bh = blockIdx.x, r0 = blockIdx.y * kRows, c0 = blockIdx.z * kWideOut;
-  const int nq = max(0, min(kRows, Lq - r0)), w = min(kWideOut, D - c0), nc = w / kSplit;
-  const uint8_t* mask_b = mask ? mask + (size_t)(bh / H) * Lk : nullptr;
-  const bool all_masked = !any_valid_key(mask_b, Lk);
-  const int row = threadIdx.x / kSplit, split = threadIdx.x % kSplit;
-  const unsigned quad = 0xfu << (threadIdx.x % 32 / kSplit * kSplit);
-  const bool live = row < nq;
-  const size_t q_row = (size_t)bh * Lq + r0 + (live ? row : 0);
-
-  // D_i = sum(g_i * out_i) over the whole head dim, a quarter a thread.
-  float dsum = 0.f;
-  if (live)
-    for (int d = split; d < D; d += kSplit) dsum = fmaf(wide_f(g[q_row * D + d]), wide_f(out[q_row * D + d]), dsum);
-  dsum = quad_total(quad, dsum);
-  const float lse2 = live ? lse[q_row] * kLog2e : 0.f;
-  if (blockIdx.z == 0 && split == 0) {
-    lse2_pad[(size_t)bh * Lq_pad + r0 + row] = lse2;
-    dsum_pad[(size_t)bh * Lq_pad + r0 + row] = dsum;
-  }
-  const T* qb = q + ((size_t)bh * Lq + r0) * D;
-  const T* gb = g + ((size_t)bh * Lq + r0) * D;
-  const T* kb = k + (size_t)bh * Lk * D;
-  const T* vb = v + (size_t)bh * Lk * D;
-  float acc[kWideCols];
-#pragma unroll
-  for (int c = 0; c < kWideCols; ++c) acc[c] = 0.f;
-  for (int k0 = 0; k0 < Lk; k0 += kFlashKeys) {
-    const int nk = min(kFlashKeys, Lk - k0);
-    float s[kWideKeys], dp[kWideKeys];
-#pragma unroll
-    for (int m = 0; m < kWideKeys; ++m) s[m] = dp[m] = 0.f;
-    for (int d0 = 0; d0 < D; d0 += kWideChunk) {
-      __syncthreads();
-      wide_stage(sq, kWideS, qb, nq, D, d0, kWideChunk, kWideChunk);
-      wide_stage(sg, kWideS, gb, nq, D, d0, kWideChunk, kWideChunk);
-      wide_stage(sk, kWideS, kb + (size_t)k0 * D, nk, D, d0, kWideChunk, kWideChunk);
-      wide_stage(sv, kWideS, vb + (size_t)k0 * D, nk, D, d0, kWideChunk, kWideChunk);
-      if (d0 == 0 && threadIdx.x < kFlashKeys) {
-        const int j = threadIdx.x;
-        svalid[j] = j < nk && (all_masked || mask_b == nullptr || mask_b[k0 + j]);
-      }
-      __syncthreads();
-      wide_dots(sq, row, sk, split, s);
-      wide_dots(sg, row, sv, split, dp);
-    }
-#pragma unroll
-    for (int m = 0; m < kWideKeys; ++m) {
-      const int j = split + kSplit * m;
-      const float p = svalid[j] ? exp2f((all_masked ? 0.f : s[m] * scale_log2) - lse2) : 0.f;
-      sds[row * kWideS + j] = live ? p * (dp[m] - dsum) : 0.f;
-    }
-    __syncthreads();  // the chunks are consumed; sout reuses them
-    wide_stage(sout, kWideO, kb + (size_t)k0 * D, nk, D, c0, w, kWideOut);
-    __syncthreads();
-    wide_axpy(sds, row, sout, split, nk, nc, acc);
-  }
-  if (!live) return;
-  T* o = dq + q_row * D + c0;
-#pragma unroll
-  for (int c = 0; c < kWideCols; ++c)
-    if (c < nc) o[split + kSplit * c] = wide_t<T>(acc[c] * scale);
-}
-
-// B.4's dK/dV in bf16 for D > 256, grid (B*H, ceil(Lk/64), ceil(D/128)): a block
-// owns 64 keys (a key's four threads split the query rows of a tile) and
-// 128 columns of dK and dV, and walks the query rows in 64-row tiles.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-attention_wide_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                        const uint8_t* __restrict__ mask, const T* __restrict__ g, T* __restrict__ dk,
-                        T* __restrict__ dv, const float* __restrict__ lse2_pad,
-                        const float* __restrict__ dsum_pad, int H, int Lq, int Lk, int D, int Lq_pad,
-                        float scale_log2, float scale) {
-  extern __shared__ __align__(16) float wsm[];
-  float* sk = wsm;                  // K, V, Q, g chunks; then Q's and g's output columns
-  float* sv = sk + kWideTile;
-  float* sq = sv + kWideTile;
-  float* sg = sq + kWideTile;
-  float* soq = wsm;
-  float* sog = wsm + kWideOutTile;
-  float* sp = sg + kWideTile;       // P^T and dS^T of the tile (key rows)
-  float* sds = sp + kWideTile;
-  float* slse2 = sds + kWideTile;
-  float* sdsum = slse2 + kRows;
-
-  const int bh = blockIdx.x, k0 = blockIdx.y * kFlashKeys, c0 = blockIdx.z * kWideOut;
-  const int nk = min(kFlashKeys, Lk - k0), w = min(kWideOut, D - c0), nc = w / kSplit;
-  const uint8_t* mask_b = mask ? mask + (size_t)(bh / H) * Lk : nullptr;
-  const bool all_masked = !any_valid_key(mask_b, Lk);
-  const int row = threadIdx.x / kSplit, split = threadIdx.x % kSplit;
-  const bool live = row < nk;
-  const bool valid = live && (all_masked || mask_b == nullptr || mask_b[k0 + row]);
-  const T* kb = k + ((size_t)bh * Lk + k0) * D;
-  const T* vb = v + ((size_t)bh * Lk + k0) * D;
-  float dk_acc[kWideCols], dv_acc[kWideCols];
-#pragma unroll
-  for (int c = 0; c < kWideCols; ++c) dk_acc[c] = dv_acc[c] = 0.f;
-  for (int r0 = 0; r0 < Lq; r0 += kRows) {
-    const int nq = min(kRows, Lq - r0);
-    const T* qb = q + ((size_t)bh * Lq + r0) * D;
-    const T* gb = g + ((size_t)bh * Lq + r0) * D;
-    float s[kWideKeys], dp[kWideKeys];
-#pragma unroll
-    for (int m = 0; m < kWideKeys; ++m) s[m] = dp[m] = 0.f;
-    for (int d0 = 0; d0 < D; d0 += kWideChunk) {
-      __syncthreads();
-      wide_stage(sk, kWideS, kb, nk, D, d0, kWideChunk, kWideChunk);
-      wide_stage(sv, kWideS, vb, nk, D, d0, kWideChunk, kWideChunk);
-      wide_stage(sq, kWideS, qb, nq, D, d0, kWideChunk, kWideChunk);
-      wide_stage(sg, kWideS, gb, nq, D, d0, kWideChunk, kWideChunk);
-      if (d0 == 0 && threadIdx.x < kRows) {
-        slse2[threadIdx.x] = lse2_pad[(size_t)bh * Lq_pad + r0 + threadIdx.x];
-        sdsum[threadIdx.x] = dsum_pad[(size_t)bh * Lq_pad + r0 + threadIdx.x];
-      }
-      __syncthreads();
-      wide_dots(sk, row, sq, split, s);   // s[m] = k_row . q_(split+4m)
-      wide_dots(sv, row, sg, split, dp);  // dp[m] = v_row . g_(split+4m)
-    }
-#pragma unroll
-    for (int m = 0; m < kWideKeys; ++m) {
-      const int i = split + kSplit * m;
-      const float p = valid && i < nq ? exp2f((all_masked ? 0.f : s[m] * scale_log2) - slse2[i]) : 0.f;
-      sp[row * kWideS + i] = p;
-      sds[row * kWideS + i] = p * (dp[m] - sdsum[i]);
-    }
-    __syncthreads();  // the chunks are consumed; soq and sog reuse them
-    wide_stage(soq, kWideO, qb, nq, D, c0, w, kWideOut);
-    wide_stage(sog, kWideO, gb, nq, D, c0, w, kWideOut);
-    __syncthreads();
-    wide_axpy(sp, row, sog, split, nq, nc, dv_acc);
-    wide_axpy(sds, row, soq, split, nq, nc, dk_acc);
-  }
-  if (!live) return;
-  const size_t o = ((size_t)bh * Lk + k0 + row) * D + c0;
-#pragma unroll
-  for (int c = 0; c < kWideCols; ++c) {
-    if (c < nc) {
-      dk[o + split + kSplit * c] = wide_t<T>(dk_acc[c] * scale);
-      dv[o + split + kSplit * c] = wide_t<T>(dv_acc[c]);
-    }
-  }
-}
-
-constexpr size_t wide_dq_smem_bytes() { return (size_t)5 * kWideTile * sizeof(float) + kFlashKeys; }
-constexpr size_t wide_dkdv_smem_bytes() { return (size_t)(6 * kWideTile + 2 * kRows) * sizeof(float); }
-static_assert(2 * kWideOutTile <= 4 * kWideTile, "the output chunks fit where the four staged chunks were");
-
 // Query rows of the backward's scratch for one (batch*head): Lq rounded up
-// to the dQ kernel's row block, 128 for the bf16 Hopper pair (head dims 64,
-// 128, 192 and 256) and 64 for every other body. The one rule for it: the
-// launchers pad by it, and the wrapper allocates by
-// attention_backward_scratch_rows.
+// to the dQ kernel's row block, 128 for the bf16 Hopper pairs (head dims 64
+// and up) and 64 for every other body. The one rule for it: the launchers
+// pad by it, and the wrapper allocates by attention_backward_scratch_rows.
 int scratch_rows(int dtype, int Lq, int D) {
-  const int tile = dtype == 1 && (D == 64 || D == 128 || D == 192 || D == 256) ? kWgRows : kRows;
+  const int tile = dtype == 1 && D >= 64 ? kWgRows : kRows;
   return (Lq + tile - 1) / tile * tile;
-}
-
-template <typename T>
-cudaError_t launch_backward_wide(const T* q, const T* k, const T* v, const uint8_t* mask, const T* out,
-                                 const float* lse, const T* g, T* dq, T* dk, T* dv, float* scratch, int B,
-                                 int H, int Lq, int Lk, int D, float scale, cudaStream_t stream) {
-  if (D % kWideChunk != 0) return cudaErrorInvalidValue;
-  const int Lq_pad = scratch_rows(std::is_same_v<T, float> ? 0 : 1, Lq, D);
-  float* lse2_pad = scratch;
-  float* dsum_pad = scratch + (size_t)B * H * Lq_pad;
-  const float scale_log2 = kLog2e * scale;
-  const int zs = (D + kWideOut - 1) / kWideOut;
-  cudaError_t err;
-  if ((err = allow_smem(attention_wide_bwd_dq<T>, wide_dq_smem_bytes())) != cudaSuccess) return err;
-  attention_wide_bwd_dq<T><<<dim3(B * H, Lq_pad / kRows, zs), kThreads, wide_dq_smem_bytes(), stream>>>(
-      q, k, v, mask, out, lse, g, dq, lse2_pad, dsum_pad, H, Lq, Lk, D, Lq_pad, scale_log2, scale);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  if ((err = allow_smem(attention_wide_bwd_dkdv<T>, wide_dkdv_smem_bytes())) != cudaSuccess) return err;
-  attention_wide_bwd_dkdv<T><<<dim3(B * H, (Lk + kFlashKeys - 1) / kFlashKeys, zs), kThreads,
-                               wide_dkdv_smem_bytes(), stream>>>(
-      q, k, v, mask, g, dk, dv, lse2_pad, dsum_pad, H, Lq, Lk, D, Lq_pad, scale_log2, scale);
-  return cudaGetLastError();
 }
 
 // ================================= forwards above head dim 128, both types
@@ -2425,8 +2296,8 @@ cudaError_t launch_backward_wide(const T* q, const T* k, const T* v, const uint8
 // attention_flash_wgmma_inline). The wrapper pads D to a multiple of 64
 // (kernels/attention.py::kernel_head_dim). Two bodies on one plan: bf16 on
 // the tensor cores (attention_panels_wgmma: wgmma, TMA) and float32 on the
-// CUDA cores (attention_panels_fma: FP32 FMAs, no TF32, whose 1e-5 bar it
-// would break).
+// CUDA cores (attention_panels_fma: FP32 FMAs; one TF32 product would
+// break the 1e-5 bar).
 //  * Output panels. A block accumulates at most 256 output columns. Up to
 //    256 that is the whole head (one block on grid z); above it the output
 //    is cut into n = ceil(D / 256) panels on grid z of P = ceil(D / n / 16)
@@ -2748,6 +2619,383 @@ attention_panels_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_cons
       const int row = row0 + lane / 4 + 8 * r;
       if (row < Lq) lse[(size_t)bh * Lq + row] = (m[r] + log2f(l[r])) * kLn2;
     }
+  }
+}
+
+// ----------------------------- B.4's pair in bf16 above head dim 256, wgmma
+// The backward section's contract (FlashAttention-2's pair: the dQ kernel
+// writes each row's lse2 and D to the scratch of scratch_rows, 128-row
+// blocks here, then the dK/dV kernel runs; no atomics; S the forward's to
+// the bit, scale_log2 as K2 computes it) at every multiple of 64 above 256,
+// on the Hopper bodies' scheme: two consumer warpgroups of 64 rows (256
+// threads, 255 registers a thread), warp 0 the producer in line as in
+// attention_panels_wgmma (it starts item i + 4 once the block has consumed
+// item i), TMA items (the 128-byte swizzle) into a ring of four slots, wgmma
+// from shared memory for the score products, their accumulators rounded to
+// bf16 and repacked in registers as the A operand of the next product. A Q
+// or dO tile over the whole head does not fit beside a ring above 256 (128
+// rows of 320 bf16 are 80 KB), so the score operands stream in 64-column
+// chunks and shared memory does not grow with D:
+//  * dQ: grid (Lq_pad / 128, B*H, panels) on the forward's column panels
+//    (panel_plan: 320 -> 2 x 160, 384 -> 2 x 192, kAcc = 192 or 256
+//    accumulated columns). For each key tile (64 keys; 32 at kAcc 256,
+//    whose 128 accumulators a thread leave no room for 64-key S and dP
+//    tiles) the block sums S = Q K^T and dP = dO V^T over D / 64 items of
+//    four chunks (Q and dO: the block's 128 rows; K and V: the tile's keys),
+//    forms dS = P * (dP - D) in registers, then adds dS K into its panel's
+//    columns from one more item (K's columns of the panel, V's place in
+//    the forward's stream). A dQ row of 320 columns does not fit beside S
+//    and dP in 255 registers, so each z block recomputes S and dP over all
+//    of D (at D 320: 2 x 2 x 320 columns of score products a query-key pair
+//    for 2 x 160 of dS K, where one block would do 640 + 320).
+//  * dK/dV: grid (ceil(Lk / 128), B*H, ceil(D / 128)). A block owns 128
+//    keys (64 a warpgroup) and 128 columns of dK and of dV (two 64-column
+//    accumulators each, 128 floats a thread), and walks the query rows in
+//    64-row tiles: S^T = K Q^T and dP^T = V dO^T over D / 64 items of four
+//    chunks (K and V: the block's 128 keys; Q and dO: the tile's rows; the
+//    last also brings the tile's lse2 and D by bulk copy), then dV += P^T dO
+//    and dK += dS^T Q from one item of dO's and Q's columns. 128 columns
+//    are the widest split the registers hold: with the S^T and dP^T tiles
+//    (64 floats) a thread holds 192 floats; 192 columns (three panels)
+//    would be 256, and 160 would take a product over half a swizzle panel.
+//    Every column block recomputes S^T and dP^T over all of D (at D 320:
+//    3 blocks, 3 x 2 x 320 + 2 x 320 columns of products a query-key pair
+//    against 4 x 320 with no split, 2.0x).
+//  * Bound: operations, on the tensor cores: 10 flops a query-key-dim over
+//    the valid keys at 989 TFLOP/s; at (1, 4, 1008, 1008, 320) 0.0132 ms.
+//    The grids are small there (dQ 8 row blocks x 4 heads x 2 panels, dK/dV
+//    8 x 4 x 3 column blocks: 64 and 96 blocks for 132 SMs, one block an
+//    SM), so the batch-8 shape is the one that fills the card.
+template <int kAcc> struct PairDqLayout {
+  static constexpr int kKeys = kAcc == 256 ? 32 : 64;     // keys a tile
+  static constexpr int kNp = kAcc / kPanel;               // 64-column panels accumulated
+  static constexpr uint32_t kChunk = kWgRows * 128;       // 128 rows x 64 columns of Q or dO
+  static constexpr uint32_t kKChunk = kKeys * 128;        // a tile's 64 columns of K or V
+  static constexpr uint32_t kSlot = 2 * kChunk + 2 * kKChunk;
+  static constexpr uint32_t kBias = kPanelStages * kSlot;  // a key-bias vector a slot
+  static constexpr uint32_t kBars = kBias + kPanelStages * kKeys * 4;
+  static constexpr size_t kSmem = kBars + 8 * 2 * kPanelStages + 1024;
+  static_assert(kNp * kKChunk <= kSlot, "K's columns of a panel fit a slot");
+  static_assert(kSlot % 1024 == 0 && kKChunk % 1024 == 0, "swizzle atoms are 1024-byte aligned");
+  static_assert(kSmem <= 232448, "a block's shared memory");
+};
+struct PairDkdvLayout {
+  static constexpr int kCols = 2 * kPanel;                // dK and dV columns a block
+  static constexpr int kRowsQ = 64;                       // query rows a tile
+  static constexpr uint32_t kKV = kWgRows * 128;          // 128 keys x 64 columns of K or V
+  static constexpr uint32_t kQ = kRowsQ * 128;            // a tile's 64 columns of Q or dO
+  static constexpr uint32_t kSlot = 2 * kKV + 2 * kQ;     // four score chunks; an output item is 4 x kQ
+  static constexpr uint32_t kVec = kPanelStages * kSlot;  // a tile's lse2 and D, a slot
+  static constexpr uint32_t kBars = kVec + kPanelStages * 2 * kRowsQ * 4;
+  static constexpr size_t kSmem = kBars + 8 * 2 * kPanelStages + 1024;
+  static_assert(kSlot % 1024 == 0 && kQ % 1024 == 0, "swizzle atoms are 1024-byte aligned");
+  static_assert(kSmem <= 232448, "a block's shared memory");
+};
+
+// B.4's dQ in bf16 above head dim 256. Grid (Lq_pad / 128, B*H, panels),
+// 256 threads, PairDqLayout<kAcc>::kSmem bytes. Its z = 0 blocks write each
+// row's lse2 (base 2; +inf past Lq, so that those rows get P = 0) and D =
+// rowsum(dO * out) to the scratch for the dK/dV kernel.
+template <int kAcc>
+__global__ void __launch_bounds__(kWgConsumerThreads, 1)
+attention_bwd_dq_wgmma_panels(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tg,
+                              const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
+                              const uint8_t* __restrict__ mask, const bf16* __restrict__ out,
+                              const float* __restrict__ lse, const bf16* __restrict__ g, bf16* __restrict__ dq,
+                              float* __restrict__ lse2_pad, float* __restrict__ dsum_pad, int H, int Lq, int Lk,
+                              int D, int P, int Lq_pad, float scale_log2, float scale) {
+  using L = PairDqLayout<kAcc>;
+  constexpr int kKeys = L::kKeys, kNp = L::kNp, S = kPanelStages;
+  extern __shared__ __align__(128) uint8_t smem_raw[];
+  const WgSmem sm(smem_raw);
+  float* bias0 = reinterpret_cast<float*>(sm.ptr + L::kBias);
+  auto slot = [&](int s) { return sm.base + s * L::kSlot; };
+  auto full = [&](int s) { return sm.base + L::kBars + 8 * s; };
+  auto empty = [&](int s) { return sm.base + L::kBars + 8 * (S + s); };
+
+  const int q0 = blockIdx.x * kWgRows, bh = blockIdx.y, c0 = blockIdx.z * P, tid = threadIdx.x;
+  const int ncols = min(P, D - c0);
+  const uint8_t* mask_b = mask ? mask + (size_t)(bh / H) * Lk : nullptr;
+  const int tiles = (Lk + kKeys - 1) / kKeys, nqk = D / kPanel, total = tiles * (nqk + 1);
+  if (tid == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full(s), 32);  // warp 0's lanes, each after its bias values
+      mbar_init(empty(s), kWgConsumerThreads);
+    }
+    mbar_init_fence();
+  }
+  const bool all_masked = !any_valid_key(mask_b, Lk);  // also the barrier for the init
+
+  // Warp 0's producer work for item i (tile i / (nqk + 1); its chunks c <
+  // nqk of Q, dO, K and V, then c == nqk K's columns of the block's panel):
+  // wait until item i - S has been consumed, write the tile's key bias with
+  // its last score item, then start the item's loads (lane 0; the other
+  // lanes arrive on full once their bias values are written). K boxes that
+  // start past D are not loaded: their columns are past the panel.
+  auto load = [&](int i) {
+    const int s = i % S, lane = tid;
+    if (i >= S) mbar_wait(empty(s), (i / S - 1) & 1);
+    const int t = i / (nqk + 1), c = i % (nqk + 1), k0 = t * kKeys;
+    if (c == nqk - 1)
+      for (int j = lane; j < kKeys; j += 32) bias0[s * kKeys + j] = key_bias(mask_b, k0 + j, Lk, all_masked);
+    if (lane == 0) {
+      if (c == nqk) {
+        const int boxes = min(kNp, (D - c0 + kPanel - 1) / kPanel);
+        mbar_expect_tx(full(s), boxes * L::kKChunk);
+        for (int h = 0; h < boxes; ++h) tma_load(slot(s) + h * L::kKChunk, &tk, c0 + h * kPanel, k0, bh, full(s));
+      } else {
+        mbar_expect_tx(full(s), L::kSlot);
+        tma_load(slot(s), &tq, c * kPanel, q0, bh, full(s));
+        tma_load(slot(s) + L::kChunk, &tg, c * kPanel, q0, bh, full(s));
+        tma_load(slot(s) + 2 * L::kChunk, &tk, c * kPanel, k0, bh, full(s));
+        tma_load(slot(s) + 2 * L::kChunk + L::kKChunk, &tv, c * kPanel, k0, bh, full(s));
+      }
+    } else {
+      mbar_arrive(full(s));
+    }
+  };
+  if (tid < 32) {  // warp 0: the ring's first items
+    for (int i = 0; i < min(total, S); ++i) load(i);
+    __syncwarp();
+  }
+
+  const int wc = tid / kWgThreads, w = (tid / 32) % 4, lane = tid % 32, t4 = lane % 4;
+  const float scale_p = all_masked ? 0.f : scale_log2;
+  const int row0 = q0 + 64 * wc + 16 * w;
+  const size_t q_off = (size_t)bh * Lq * D;
+  // D and lse in base 2 of the warp's rows lane / 4 and + 8 (D over the whole
+  // head, the quad's four threads every fourth pair of columns, in the
+  // order attention_bwd_dq_wgmma sums them), into registers and the scratch.
+  float dsum[2], lse2[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + lane / 4 + 8 * r;
+    float part = 0.f;
+    if (row < Lq) {
+      const uint32_t* gr = reinterpret_cast<const uint32_t*>(g + q_off + (size_t)row * D);
+      const uint32_t* orow = reinterpret_cast<const uint32_t*>(out + q_off + (size_t)row * D);
+      for (int c = t4; c < D / 2; c += 4) {
+        const float2 a = unpack_bf16(gr[c]), b = unpack_bf16(orow[c]);
+        part = fmaf(a.y, b.y, fmaf(a.x, b.x, part));
+      }
+    }
+    dsum[r] = quad_sum(part);
+    lse2[r] = row < Lq ? lse[(size_t)bh * Lq + row] * kLog2e : INFINITY;
+    if (blockIdx.z == 0 && t4 == 0) {
+      lse2_pad[(size_t)bh * Lq_pad + row] = lse2[r];
+      dsum_pad[(size_t)bh * Lq_pad + row] = dsum[r];
+    }
+  }
+
+  int i = 0;  // the item the block consumes next
+  auto release = [&] {  // the block has consumed item i
+    mbar_arrive(empty(i % S));
+    if (tid < 32 && i + S < total) {
+      load(i + S);
+      __syncwarp();
+    }
+    ++i;
+  };
+  float acc[kNp][kPanel / 2];
+#pragma unroll
+  for (int h = 0; h < kNp; ++h)
+#pragma unroll
+    for (int e = 0; e < kPanel / 2; ++e) acc[h][e] = 0.f;
+  for (int t = 0; t < tiles; ++t) {
+    float sc[kKeys / 2], dp[kKeys / 2];
+    for (int c = 0; c < nqk; ++c) {
+      const int s = i % S;
+      mbar_wait(full(s), (i / S) & 1);
+      const uint32_t sq = slot(s), sg = sq + L::kChunk, sk = sg + L::kChunk, sv = sk + L::kKChunk;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        Gmma<kKeys>::template ss<0>(sc, desc_k<kWgRows>(sq, 64 * wc, kk), desc_k<kKeys>(sk, 0, kk), c + kk);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        Gmma<kKeys>::template ss<0>(dp, desc_k<kWgRows>(sg, 64 * wc, kk), desc_k<kKeys>(sv, 0, kk), c + kk);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+      fence_regs(dp);
+      if (c + 1 < nqk) release();
+    }
+    const float* b = bias0 + (i % S) * kKeys;
+#pragma unroll
+    for (int n = 0; n < kKeys / 8; ++n) {
+      const float2 bb = *reinterpret_cast<const float2*>(b + 8 * n + 2 * t4);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int j = 4 * n + e;
+        sc[j] = ex2(fmaf(sc[j], scale_p, e % 2 ? bb.y : bb.x) - lse2[e / 2]) * (dp[j] - dsum[e / 2]);
+      }
+    }
+    release();  // the tile's last score item: its bias has been read
+    uint32_t da[kKeys / 16][4];
+    pack_a<kKeys>(sc, da);
+    const int s = i % S;
+    mbar_wait(full(s), (i / S) & 1);
+    wgmma_fence();
+#pragma unroll
+    for (int h = 0; h < kNp; ++h)
+#pragma unroll
+      for (int kk = 0; kk < kKeys / 16; ++kk)
+        Gmma<kPanel>::template rs<1>(acc[h], da[kk], desc_mn<kKeys>(slot(s) + h * L::kKChunk, kk));
+    wgmma_commit();  // dQ += dS K
+    wgmma_wait<0>();
+#pragma unroll
+    for (int h = 0; h < kNp; ++h) fence_regs(acc[h]);
+    release();
+  }
+  const float sc2[2] = {scale, scale};
+#pragma unroll
+  for (int h = 0; h < kNp; ++h)
+    store_acc_cols<kPanel>(acc[h], sc2, dq + q_off, D, row0, Lq, c0 + h * kPanel, ncols - h * kPanel);
+}
+
+// B.4's dK/dV in bf16 above head dim 256. Grid (ceil(Lk / 128), B*H,
+// ceil(D / 128)), 256 threads, PairDkdvLayout::kSmem bytes.
+__global__ void __launch_bounds__(kWgConsumerThreads, 1)
+attention_bwd_dkdv_wgmma_panels(const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
+                                const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tg,
+                                const uint8_t* __restrict__ mask, bf16* __restrict__ dk, bf16* __restrict__ dv,
+                                const float* __restrict__ lse2_pad, const float* __restrict__ dsum_pad, int H,
+                                int Lq, int Lk, int D, int Lq_pad, float scale_log2, float scale) {
+  using L = PairDkdvLayout;
+  constexpr int S = kPanelStages, kR = L::kRowsQ;
+  extern __shared__ __align__(128) uint8_t smem_raw[];
+  const WgSmem sm(smem_raw);
+  auto slot = [&](int s) { return sm.base + s * L::kSlot; };
+  auto vec = [&](int s) { return sm.base + L::kVec + s * 2 * kR * 4; };  // lse2, then D
+  auto full = [&](int s) { return sm.base + L::kBars + 8 * s; };
+  auto empty = [&](int s) { return sm.base + L::kBars + 8 * (S + s); };
+
+  const int k0 = blockIdx.x * kWgRows, bh = blockIdx.y, c0 = blockIdx.z * L::kCols, tid = threadIdx.x;
+  const int ncols = min(L::kCols, D - c0), boxes = min(2, (ncols + kPanel - 1) / kPanel);
+  const uint8_t* mask_b = mask ? mask + (size_t)(bh / H) * Lk : nullptr;
+  const int tiles = Lq_pad / kR, nqk = D / kPanel, total = tiles * (nqk + 1);
+  const size_t pad_off = (size_t)bh * Lq_pad;
+  if (tid == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), kWgConsumerThreads);
+    }
+    mbar_init_fence();
+  }
+  const bool all_masked = !any_valid_key(mask_b, Lk);
+
+  // Thread 0's producer work for item i (query tile i / (nqk + 1); its
+  // chunks c < nqk of K, V, Q and dO, the last with the tile's lse2 and D,
+  // then c == nqk the tile's dO and Q over the block's columns).
+  auto load = [&](int i) {
+    const int s = i % S;
+    if (i >= S) mbar_wait(empty(s), (i / S - 1) & 1);
+    const int t = i / (nqk + 1), c = i % (nqk + 1), r0 = t * kR;
+    if (c == nqk) {
+      mbar_expect_tx(full(s), 2 * boxes * L::kQ);
+      for (int h = 0; h < boxes; ++h) {
+        tma_load(slot(s) + h * L::kQ, &tg, c0 + h * kPanel, r0, bh, full(s));
+        tma_load(slot(s) + (2 + h) * L::kQ, &tq, c0 + h * kPanel, r0, bh, full(s));
+      }
+    } else {
+      const bool last = c == nqk - 1;
+      mbar_expect_tx(full(s), L::kSlot + (last ? 2 * kR * 4 : 0));
+      tma_load(slot(s), &tk, c * kPanel, k0, bh, full(s));
+      tma_load(slot(s) + L::kKV, &tv, c * kPanel, k0, bh, full(s));
+      tma_load(slot(s) + 2 * L::kKV, &tq, c * kPanel, r0, bh, full(s));
+      tma_load(slot(s) + 2 * L::kKV + L::kQ, &tg, c * kPanel, r0, bh, full(s));
+      if (last) {
+        bulk_load(vec(s), lse2_pad + pad_off + r0, kR * 4, full(s));
+        bulk_load(vec(s) + kR * 4, dsum_pad + pad_off + r0, kR * 4, full(s));
+      }
+    }
+  };
+  if (tid == 0)
+    for (int i = 0; i < min(total, S); ++i) load(i);
+  __syncwarp();
+
+  const int wc = tid / kWgThreads, w = (tid / 32) % 4, lane = tid % 32, t4 = lane % 4;
+  const float scale_p = all_masked ? 0.f : scale_log2;
+  const int key0 = k0 + 64 * wc + 16 * w;
+  const float kbias[2] = {key_bias(mask_b, key0 + lane / 4, Lk, all_masked),
+                          key_bias(mask_b, key0 + lane / 4 + 8, Lk, all_masked)};
+  int i = 0;
+  auto release = [&] {
+    mbar_arrive(empty(i % S));
+    if (tid < 32) {
+      if (tid == 0 && i + S < total) load(i + S);
+      __syncwarp();
+    }
+    ++i;
+  };
+  float dka[2][kPanel / 2], dva[2][kPanel / 2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int e = 0; e < kPanel / 2; ++e) dka[h][e] = dva[h][e] = 0.f;
+  for (int t = 0; t < tiles; ++t) {
+    float p[kR / 2], ds[kR / 2];
+    for (int c = 0; c < nqk; ++c) {
+      const int s = i % S;
+      mbar_wait(full(s), (i / S) & 1);
+      const uint32_t sk = slot(s), sv = sk + L::kKV, sq = sv + L::kKV, sg = sq + L::kQ;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)  // S^T (unscaled): this warpgroup's keys x the tile's queries
+        Gmma<kR>::template ss<0>(p, desc_k<kWgRows>(sk, 64 * wc, kk), desc_k<kR>(sq, 0, kk), c + kk);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)  // dP^T = V dO^T
+        Gmma<kR>::template ss<0>(ds, desc_k<kWgRows>(sv, 64 * wc, kk), desc_k<kR>(sg, 0, kk), c + kk);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(p);
+      fence_regs(ds);
+      if (c + 1 < nqk) release();
+    }
+    const float* l2 = reinterpret_cast<const float*>(sm.ptr + (vec(i % S) - sm.base));
+    const float* dd = l2 + kR;
+#pragma unroll
+    for (int n = 0; n < kR / 8; ++n) {
+      const float2 l2p = *reinterpret_cast<const float2*>(l2 + 8 * n + 2 * t4);
+      const float2 ddp = *reinterpret_cast<const float2*>(dd + 8 * n + 2 * t4);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {  // e % 2: query 8n + 2 t4 + e % 2; e / 2: key row lane / 4 or + 8
+        const int j = 4 * n + e;
+        p[j] = ex2(fmaf(p[j], scale_p, kbias[e / 2]) - (e % 2 ? l2p.y : l2p.x));
+        ds[j] = p[j] * (ds[j] - (e % 2 ? ddp.y : ddp.x));
+      }
+    }
+    release();  // the tile's last score item: its lse2 and D have been read
+    uint32_t pa[kR / 16][4], da[kR / 16][4];
+    pack_a<kR>(p, pa);
+    pack_a<kR>(ds, da);
+    const int s = i % S;
+    mbar_wait(full(s), (i / S) & 1);
+    wgmma_fence();
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {  // a panel past D (boxes 1) reads what its slot held: its columns are not stored
+#pragma unroll
+      for (int kk = 0; kk < kR / 16; ++kk)
+        Gmma<kPanel>::template rs<1>(dva[h], pa[kk], desc_mn<kR>(slot(s) + h * L::kQ, kk));
+#pragma unroll
+      for (int kk = 0; kk < kR / 16; ++kk)
+        Gmma<kPanel>::template rs<1>(dka[h], da[kk], desc_mn<kR>(slot(s) + (2 + h) * L::kQ, kk));
+    }
+    wgmma_commit();  // dV += P^T dO, dK += dS^T Q
+    wgmma_wait<0>();
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      fence_regs(dva[h]);
+      fence_regs(dka[h]);
+    }
+    release();
+  }
+  const size_t kv_off = (size_t)bh * Lk * D;
+  const float sc[2] = {scale, scale}, one[2] = {1.f, 1.f};
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    store_acc_cols<kPanel>(dka[h], sc, dk + kv_off, D, key0, Lk, c0 + h * kPanel, ncols - h * kPanel);
+    store_acc_cols<kPanel>(dva[h], one, dv + kv_off, D, key0, Lk, c0 + h * kPanel, ncols - h * kPanel);
   }
 }
 
@@ -3402,9 +3650,9 @@ attention_bwd_dkdv_fma(const float* __restrict__ q, const float* __restrict__ k,
 
 // ===================================================================== launch
 // Dynamic shared memory of the float32 bodies: K1 at D 16 and 32 (K and V,
-// the query tile and the mask bytes), the D = 128 K2 and dQ bodies (a
-// 64-key tile of K and V and its mask bytes) and dK/dV (a 64-row tile of Q
-// and g, and their lse2 and D).
+// the query tile and the mask bytes), the D = 128 dQ body (a 64-key tile of
+// K and V and its mask bytes) and dK/dV (a 64-row tile of Q and g, and
+// their lse2 and D).
 size_t whole_kv_f32_smem_bytes(int Lk, int D) {
   return (size_t)2 * Lk * D * sizeof(float) + (size_t)kRows * D * sizeof(float) + Lk;
 }
@@ -3412,8 +3660,10 @@ constexpr size_t flash_f32_slice_smem_bytes(int D) { return (size_t)2 * kFlashKe
 constexpr size_t bwd_dkdv_f32_smem_bytes(int D) { return ((size_t)2 * kRows * D + 2 * kRows) * sizeof(float); }
 
 // The 3-D TMA map of a (B*H, L, D) bf16 tensor, read in boxes of `rows`
-// rows x 64 columns (a 128-byte panel, swizzled by 128 bytes): zero past row
-// L, and never into the next head.
+// rows x 64 columns (a 128-byte panel, swizzled by 128 bytes) from any
+// column a multiple of 64 (above 256 the panel bodies and the pair read a
+// wider head 64 columns a box): zero past row L and past column D, and
+// never into the next head.
 bool head_map(CUtensorMap* map, const void* x, int BH, int L, int D, int rows) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return false;
@@ -3558,18 +3808,13 @@ template <int D>
 cudaError_t launch_f32(bool flash, const float* q, const float* k, const float* v,
                        const uint8_t* mask, float* out, float* lse, int B, int H, int Lq, int Lk,
                        int blocks, int threads, float scale_log2, cudaStream_t stream) {
-  if (flash) {
-    const dim3 grid(B * H, (Lq + kRows - 1) / kRows);
-    if constexpr (D > 64) {
-      constexpr size_t smem = flash_f32_slice_smem_bytes(D);
-      const cudaError_t err = allow_smem(attention_flash_slice<D>, smem);
-      if (err != cudaSuccess) return err;
-      attention_flash_slice<D><<<grid, kThreads, smem, stream>>>(q, k, v, mask, out, lse, H, Lq, Lk,
-                                                                 scale_log2);
-    } else {
-      attention_flash_kernel<D><<<grid, kThreads, 0, stream>>>(q, k, v, mask, out, lse, H, Lq, Lk,
-                                                               scale_log2);
-    }
+  if (flash) {  // the 3xTF32 body: ceil(Lq / 64) x B*H blocks (a head's row blocks side by side)
+    if (B * H > 65535) return cudaErrorInvalidValue;
+    constexpr size_t smem = Tf32Flash<D>::kSmem;
+    const cudaError_t err = allow_smem(attention_flash_tf32<D>, smem);
+    if (err != cudaSuccess) return err;
+    attention_flash_tf32<D><<<dim3((Lq + kRows - 1) / kRows, B * H), kFlashWarps * 32, smem, stream>>>(
+        q, k, v, mask, out, lse, H, Lq, Lk, scale_log2);
   } else {
     if (threads != kThreads || blocks < 1 || blocks * kRows < Lq) return cudaErrorInvalidValue;
     if constexpr (D >= 64) {  // the panel body, any Lk
@@ -3746,6 +3991,43 @@ cudaError_t launch_backward_fma(const float* q, const float* k, const float* v, 
   return cudaGetLastError();
 }
 
+// B.4's pair in bf16 above head dim 256: the dQ kernel over 128-row blocks
+// and the forward's column panels (grid z), which writes the scratch (rows
+// padded to 128), then the dK/dV kernel over 128-key blocks, ceil(D / 128)
+// column blocks of 128 a key block.
+cudaError_t launch_backward_panels(const bf16* q, const bf16* k, const bf16* v, const uint8_t* mask, const bf16* out,
+                                   const float* lse, const bf16* g, bf16* dq, bf16* dk, bf16* dv, float* scratch,
+                                   int B, int H, int Lq, int Lk, int D, float scale, cudaStream_t stream) {
+  if (D <= 256 || !panel_plan_ok(1, D, true) || B * H > 65535) return cudaErrorInvalidValue;
+  const PanelPlan p = panel_plan(D);
+  const int BH = B * H, Lq_pad = scratch_rows(1, Lq, D);
+  float* lse2_pad = scratch;
+  float* dsum_pad = scratch + (size_t)BH * Lq_pad;
+  const float scale_log2 = kLog2e * scale;
+  const int keys = p.acc == 256 ? PairDqLayout<256>::kKeys : PairDqLayout<192>::kKeys;
+  cudaError_t err = bind_device(q);
+  if (err != cudaSuccess) return err;
+  CUtensorMap tq, tg, tk, tv, tk2, tv2, tq2, tg2;
+  constexpr int kR = PairDkdvLayout::kRowsQ;
+  if (!head_map(&tq, q, BH, Lq, D, kWgRows) || !head_map(&tg, g, BH, Lq, D, kWgRows) ||
+      !head_map(&tk, k, BH, Lk, D, keys) || !head_map(&tv, v, BH, Lk, D, keys) ||
+      !head_map(&tk2, k, BH, Lk, D, kWgRows) || !head_map(&tv2, v, BH, Lk, D, kWgRows) ||
+      !head_map(&tq2, q, BH, Lq, D, kR) || !head_map(&tg2, g, BH, Lq, D, kR))
+    return cudaErrorInvalidValue;
+  const auto dq_kernel = p.acc == 192 ? attention_bwd_dq_wgmma_panels<192> : attention_bwd_dq_wgmma_panels<256>;
+  const size_t dq_smem = p.acc == 192 ? PairDqLayout<192>::kSmem : PairDqLayout<256>::kSmem;
+  if ((err = allow_smem(dq_kernel, dq_smem)) != cudaSuccess) return err;
+  dq_kernel<<<dim3(Lq_pad / kWgRows, BH, p.panels), kWgConsumerThreads, dq_smem, stream>>>(
+      tq, tg, tk, tv, mask, out, lse, g, dq, lse2_pad, dsum_pad, H, Lq, Lk, D, p.cols, Lq_pad, scale_log2, scale);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if ((err = allow_smem(attention_bwd_dkdv_wgmma_panels, PairDkdvLayout::kSmem)) != cudaSuccess) return err;
+  attention_bwd_dkdv_wgmma_panels<<<dim3((Lk + kWgRows - 1) / kWgRows, BH,
+                                         (D + PairDkdvLayout::kCols - 1) / PairDkdvLayout::kCols),
+                                    kWgConsumerThreads, PairDkdvLayout::kSmem, stream>>>(
+      tk2, tv2, tq2, tg2, mask, dk, dv, lse2_pad, dsum_pad, H, Lq, Lk, D, Lq_pad, scale_log2, scale);
+  return cudaGetLastError();
+}
+
 template <typename T>
 cudaError_t dispatch_backward(int D, const void* q, const void* k, const void* v, const void* mask,
                               const void* out, const void* lse, const void* g, void* dq, void* dk,
@@ -3771,8 +4053,8 @@ cudaError_t dispatch_backward(int D, const void* q, const void* k, const void* v
   if (D <= 128) return cudaErrorInvalidValue;
   if constexpr (std::is_same_v<T, float>) {  // float32 above 128: the register-tiled pair
     return launch_backward_fma(tq, tk, tv, m, to, l, tg, tdq, tdk, tdv, sc, B, H, Lq, Lk, D, scale, stream);
-  } else {  // bf16 above 256: the chunked pair
-    return launch_backward_wide(tq, tk, tv, m, to, l, tg, tdq, tdk, tdv, sc, B, H, Lq, Lk, D, scale, stream);
+  } else {  // bf16 above 256: the wgmma pair on column panels
+    return launch_backward_panels(tq, tk, tv, m, to, l, tg, tdq, tdk, tdv, sc, B, H, Lq, Lk, D, scale, stream);
   }
 }
 
@@ -3794,10 +4076,10 @@ const Entry kKernels[] = {
     {"attention_flash_wgmma_inline<bf16,256>", (const void*)attention_flash_wgmma_inline<256>},
     {"attention_whole_kv_kernel<float,16>", (const void*)attention_whole_kv_kernel<16>},
     {"attention_whole_kv_kernel<float,32>", (const void*)attention_whole_kv_kernel<32>},
-    {"attention_flash_kernel<float,16>", (const void*)attention_flash_kernel<16>},
-    {"attention_flash_kernel<float,32>", (const void*)attention_flash_kernel<32>},
-    {"attention_flash_kernel<float,64>", (const void*)attention_flash_kernel<64>},
-    {"attention_flash_slice<float,128>", (const void*)attention_flash_slice<128>},
+    {"attention_flash_tf32<float,16>", (const void*)attention_flash_tf32<16>},
+    {"attention_flash_tf32<float,32>", (const void*)attention_flash_tf32<32>},
+    {"attention_flash_tf32<float,64>", (const void*)attention_flash_tf32<64>},
+    {"attention_flash_tf32<float,128>", (const void*)attention_flash_tf32<128>},
     {"attention_bwd_dq_mma<bf16,16>", (const void*)attention_bwd_dq_mma<16>},
     {"attention_bwd_dq_mma<bf16,32>", (const void*)attention_bwd_dq_mma<32>},
     {"attention_bwd_dq_wgmma<bf16,64>", (const void*)attention_bwd_dq_wgmma<64>},
@@ -3831,18 +4113,19 @@ const Entry kKernels[] = {
     {"attention_bwd_dq_fma<float,192>", (const void*)attention_bwd_dq_fma<192>},
     {"attention_bwd_dq_fma<float,256>", (const void*)attention_bwd_dq_fma<256>},
     {"attention_bwd_dkdv_fma<float>", (const void*)attention_bwd_dkdv_fma},
-    {"attention_wide_bwd_dq<bf16>", (const void*)attention_wide_bwd_dq<bf16>},
-    {"attention_wide_bwd_dkdv<bf16>", (const void*)attention_wide_bwd_dkdv<bf16>},
+    {"attention_bwd_dq_wgmma_panels<bf16,192>", (const void*)attention_bwd_dq_wgmma_panels<192>},
+    {"attention_bwd_dq_wgmma_panels<bf16,256>", (const void*)attention_bwd_dq_wgmma_panels<256>},
+    {"attention_bwd_dkdv_wgmma_panels<bf16>", (const void*)attention_bwd_dkdv_wgmma_panels},
 };
 
 }  // namespace
 
 // Plain C interface, loaded with ctypes. dtype: 0 = float32, 1 = bfloat16.
 // mask: (B, Lk) bytes (torch.bool), or null for no mask. lse: (B, H, Lq)
-// float32, or null to write none. D: 16, 32, 64, 128, or a multiple of 64
-// above 128 (bf16 K2 at 192 and 256 on the in-line Hopper body, every other
-// forward there on the panel bodies, which take any lse, and set their own
-// grid); scale: the softmax scale, 1/sqrt of the head dim before any zero
+// float32, or null to write none. D: 16, 32, 64, 128 (float32 K2 on the
+// 3xTF32 body), or a multiple of 64 above 128 (bf16 K2 at 192 and 256 on
+// the in-line Hopper body, every other forward there on the panel bodies,
+// which take any lse, and set their own grid); scale: the softmax scale, 1/sqrt of the head dim before any zero
 // padding (the wrapper pads other head dims). stream: a cudaStream_t.
 // Returns the cudaError_t of the launch (0 = success). K1 up to 128 takes
 // its grid (blocks per batch*head, threads a block) from

@@ -29,21 +29,25 @@ the source: bf16 on ``wgmma`` and TMA, float32 on register-tiled FP32 FMAs;
 at most 256 output columns a block, more in column panels on grid z,
 :func:`panel_forward_plan`); the float32 pair the register-tiled pair
 (``attention_bwd_*_fma``, :func:`pair_backward_plan`) and the bf16 pair
-above 256 the chunked bodies (``attention_wide_bwd_*``, C.7), which take any
-such multiple.
+above 256 the ``wgmma`` pair on column panels (``attention_bwd_*_wgmma_panels``:
+the score operands streamed in 64-column chunks, dQ on the forward's column
+panels, dK/dV on 128-column blocks), which take any such multiple.
 
 In bf16 the forwards and the backward pair run their products on the tensor
 cores: K1 up to head dim 128, and K2 and the pair at head dims 16 and 32, on
 ``mma.sync`` m16n8k16 (one warp per 16 query or key rows;
-:func:`whole_kv_plan` gives K1's grid); K2 at every head dim above 32, K1
-above 128 and the pair at head dims 64 to 256 on Hopper's ``wgmma`` with TMA
-loads (:func:`is_wgmma_forward`, :func:`is_wgmma_pair`; two warpgroups of 64
-rows a block; the library sizes the pair's scratch). In float32 they run on
-the CUDA cores: K1 at head dims 16 and 32, K2 and the pair up to 128 on four
-threads per row in 64-row blocks (at head dim 128 the four split the head
-dim instead of the keys); K1 at 64 and 128 (three and two blocks an SM),
-every forward above 128 and the pair above 128 on the register-tiled
-bodies' 16 x 16 threads, each a 4 x 4 block of scores.
+:func:`whole_kv_plan` gives K1's grid); K2 and the pair at every head dim
+above 32 and K1 above 128 on Hopper's ``wgmma`` with TMA loads
+(:func:`is_wgmma_forward`, :func:`is_wgmma_pair`; two warpgroups of 64 rows
+a block; the library sizes the pair's scratch). In float32, K2 up to head
+dim 128 runs on the tensor cores as three TF32 products a float32 product
+(``attention_flash_tf32``, 3xTF32, :func:`is_tf32_forward`: ``mma.sync``
+m16n8k8, float32's accuracy); the rest on the CUDA cores: K1 at head dims
+16 and 32 and the pair up to 128 on four threads per row in 64-row blocks
+(at head dim 128 the pair's four split the head dim instead of the keys);
+K1 at 64 and 128 (three and two blocks an SM), every forward above 128 and
+the pair above 128 on the register-tiled bodies' 16 x 16 threads, each a
+4 x 4 block of scores.
 
 The source is compiled beside the port's other CUDA sources (an ``nvcc`` a
 source, in parallel) for ``sm_90a`` and linked with them into a shared
@@ -90,13 +94,9 @@ WARP_ROWS, TILE_KEYS = 16, 64
 #: any head up to 128). Others up to 128 are padded.
 HEAD_DIMS = (16, 32, 64, 128)
 #: Above 128 a head dim is padded to a multiple of this width (kPanel in the
-#: source): the panel bodies stream Q and K in chunks of it above 256, and
-#: the chunked backward bodies sum Q.K^T over chunks of it.
+#: source): the panel bodies and the bf16 pair stream Q and K in chunks of
+#: it above 256.
 WIDE_CHUNK = 64
-#: The bf16 backward pair at these instantiated head dims runs the Hopper
-#: bodies (``*_wgmma`` in the source: wgmma, TMA, warpgroups); above 256 the
-#: chunked ones. bf16 K2 runs a Hopper body at every head dim above 32.
-WGMMA_HEAD_DIMS = (64, 128, 192, 256)
 #: Most output columns a panel body's block accumulates (kPanelMax); wider
 #: heads are cut into column panels on grid z.
 PANEL_MAX = 256
@@ -105,11 +105,6 @@ PANEL_MAX = 256
 PAIR_DKDV_COLS = 128
 #: An SM's shared memory, and what each resident block reserves of it.
 SM_SMEM_BYTES, BLOCK_RESERVED_SMEM = 233_472, 1024
-#: float32 K1 goes to K2 above these key counts (head dim 64 and 128): the
-#: routing cut of the whole-KV bodies that K1 ran there before the panel
-#: body, which takes any Lk, kept until float32 K2's redesign decides it on
-#: a paired reading (:func:`use_flash`).
-K1_FLOAT32_MAX_KEYS = {64: 421, 128: 226}
 #: bf16 panel body: query rows a block and slots of its ring of 64-key items
 #: (kWgRows, kPanelStages).
 PANEL_BF16_ROWS, PANEL_BF16_STAGES = 128, 4
@@ -156,8 +151,8 @@ def kernel_head_dim(head_dim: int) -> int:
 def is_wide(head_dim: int) -> bool:
     """Whether ``head_dim`` is above 128, where every forward but bf16 K2 at
     192 and 256 runs a panel body (:func:`panel_forward_plan`), the float32
-    pair the register-tiled pair and the bf16 pair above 256 the chunked
-    bodies."""
+    pair the register-tiled pair and the bf16 pair above 256 the ``wgmma``
+    pair on column panels."""
     return kernel_head_dim(head_dim) > HEAD_DIMS[-1]
 
 
@@ -345,20 +340,38 @@ def use_flash(lk: int, head_dim: int, dtype: torch.dtype) -> bool:
     exponential per score (it normalizes before rounding, as
     _fused_attn_kernel does) and, with a whole head's K/V in shared memory,
     runs one block an SM.
-    float32: K1 where its block fits in the 227 KB a block can use (head
-    dims 16 and 32: DETR-R50's 920 keys need 244,632 B; DC5's 3680 more), K2
-    otherwise. At 64 and 128 K1 is the panel body, which fits at any Lk;
-    the cut stays where the whole-KV bodies that it replaced stopped fitting
-    (:data:`K1_FLOAT32_MAX_KEYS`: 421 and 226 keys) until float32 K2's
-    redesign moves it on a paired reading. Above head dim 128 K1 is the
-    panel body too: bf16 takes K2 (the in-line Hopper body at 192 and 256,
-    the bf16 panel body above) and float32 K1 (the float32 panel body).
+    float32 at head dims 64 and 128 (33-128 padded): always K2 (its 3xTF32
+    body). Timed beside each other (K1, K2, K2, K1 on one input) at 50, 84,
+    197, 421, 920 and 3681 keys (Lq = Lk; B 8 and H 8 up to 920, B 1 at
+    3681) and every head dim (``attention_kernel_bench --ladder``, NVIDIA
+    H100 80GB HBM3, 700.00 W; PERF.md), K2 is faster at every length where
+    K1's block fits: at 50 keys 0.0063 / 0.0109 ms against K1's 0.0085 /
+    0.0126 at 64 / 128, at 197 keys 0.0246 / 0.0437 against 0.0496 /
+    0.0884, at 3681 0.5990 / 1.2638 against 1.6211 / 3.0946, and at CLIP's
+    (64, 12, 50, 50, 64) 0.0237 against 0.0321.
+    At head dims 16 and 32 K2 is faster too (0.0038 / 0.0045 against
+    0.0094 / 0.0134 ms at 50 keys, 0.0103 / 0.0147 against 0.0323 / 0.0501
+    at 197), yet float32 there keeps K1 where its block fits (up to 1,770
+    and 872 keys; K2 beyond, as DETR-R50's 920). The reason is neither speed
+    nor B.4's accuracy (the float32 pair holds 1e-5 against float64
+    autograd on K2's forward as well): two checks of ``chip_smoke.py`` that
+    hold the card against the CPU sit on near ties, and K1's results land on
+    the CPU's side of both while K2's do not. On K2 one association of the
+    DETR-small showcase's tracker ([11b]) went the other way, and the VITW
+    DETR's float32 gradients ([14a]) read 6.57e-3 of their bar's scale
+    against 2.83e-6 on K1 (bar 1e-3), where K2's own outputs are within
+    about 1e-6 of the plain version's. These head dims follow the ladder
+    once those checks are well conditioned. K1's float32 panel bodies at
+    64 and 128 have no call left. Above head dim 128 both types
+    run panel bodies: bf16 takes K2 (the in-line Hopper body at 192 and
+    256, the bf16 panel body above) and float32 K1 (the float32 panel
+    body), which fits at any Lk.
     (The JAX package's 8 MB ``_FLASH_BYTES_THRESHOLD`` is a TPU VMEM figure
     and does not apply.)
     """
-    if dtype == torch.bfloat16 or not whole_kv_fits(lk, head_dim, dtype):
+    if dtype == torch.bfloat16 or kernel_head_dim(head_dim) in (64, 128):
         return True
-    return lk > K1_FLOAT32_MAX_KEYS.get(kernel_head_dim(head_dim), lk)
+    return not whole_kv_fits(lk, head_dim, dtype)
 
 
 def is_wgmma_forward(head_dim: int, dtype: torch.dtype, flash: bool = True) -> bool:
@@ -372,10 +385,18 @@ def is_wgmma_forward(head_dim: int, dtype: torch.dtype, flash: bool = True) -> b
 
 def is_wgmma_pair(head_dim: int, dtype: torch.dtype) -> bool:
     """Whether the backward pair of a call of ``head_dim`` runs the Hopper
-    bodies: bf16 at an instantiated head dim of 64, 128, 192 or 256 (33 to
-    256: 48, 80, 100, 136, 200 ... padded to them); above 256 the chunked
-    bodies."""
-    return dtype == torch.bfloat16 and kernel_head_dim(head_dim) in WGMMA_HEAD_DIMS
+    bodies: bf16 at every head dim above 32 (64, 128, 192 and 256 and those
+    padded to them on ``attention_bwd_*_wgmma*``, above 256 on the column
+    panels of ``attention_bwd_*_wgmma_panels``); D 16 and 32 run
+    ``mma.sync``, float32 the CUDA cores."""
+    return dtype == torch.bfloat16 and kernel_head_dim(head_dim) > 32
+
+
+def is_tf32_forward(head_dim: int, dtype: torch.dtype, flash: bool = True) -> bool:
+    """Whether a forward of ``head_dim`` runs the 3xTF32 body
+    (``attention_flash_tf32``: three TF32 products a float32 product on the
+    tensor cores): float32 K2 up to head dim 128."""
+    return dtype == torch.float32 and flash and not is_wide(head_dim)
 
 
 def load_library() -> ctypes.CDLL:

@@ -139,24 +139,32 @@ def test_one_library_builds_every_source():
         (920, 32, torch.bfloat16, True),  # DETR-R50 encoder/cross-attention in bf16: K2 measured faster
         (100, 32, torch.bfloat16, True),  # its decoder self-attention in bf16: K2 measured faster too
         (920, 32, torch.float32, True),  # the same in float32: 244,632 B > 227 KB
-        (100, 32, torch.float32, False),  # decoder self-attention
+        (100, 32, torch.float32, False),  # decoder self-attention: float32 keeps K1 at 16 and 32 where it fits
+        (196, 32, torch.float32, False),  # the ViT DETRs' encoder at 224x224
+        (872, 32, torch.float32, False),  # the most keys K1's block holds at 32
+        (873, 32, torch.float32, True),
         (3680, 32, torch.bfloat16, True),  # DETR-DC5 at 736x1280
         (84, 16, torch.float32, False),  # small tier at 224x384
+        (25, 16, torch.float32, False),  # its decoder self-attention
+        (1770, 16, torch.float32, False),  # the most keys K1's block holds at 16
+        (1771, 16, torch.float32, True),
         (3681, 64, torch.bfloat16, True),  # ViT-base/16 at 736x1280
         (3681, 64, torch.float32, True),  # the same in float32
-        (197, 64, torch.float32, False),  # ViT-base at 224x224: K1 (the panel body, under the 421-key cut)
-        (65, 48, torch.float32, False),  # a padded head dim takes the padded width's plan (64)
-        (197, 80, torch.float32, False),  # ViT-H/14 at 224x224 (80 padded to 128): K1, under the 226-key cut
+        (197, 64, torch.float32, True),  # ViT-base at 224x224
+        (65, 48, torch.float32, True),  # a padded head dim
+        (197, 80, torch.float32, True),  # ViT-H/14 at 224x224 (80 padded to 128)
         (3681, 128, torch.bfloat16, True),  # head dim 128 on the ViT detect's token count
-        (197, 256, torch.float32, False),  # above 128 the chunked K1 fits at any Lk: float32 takes it
+        (197, 256, torch.float32, False),  # above 128 the panel K1 fits at any Lk: float32 takes it
         (8192, 136, torch.float32, False),
         (8192, 256, torch.bfloat16, True),
-        # float32 K1 at 64 and 128 is the panel body, which takes any Lk; the routing cut stays where the
-        # whole-KV bodies it replaced stopped fitting (K1_FLOAT32_MAX_KEYS)
-        (421, 64, torch.float32, False),
-        (422, 64, torch.float32, True),
-        (226, 128, torch.float32, False),
-        (227, 80, torch.float32, True),
+        # float32 at 64 and 128 from attention_kernel_bench --ladder: K2 (3xTF32) faster than K1 at every
+        # length (50 to 3681 keys), CLIP's 50 keys at 64 too
+        (50, 64, torch.float32, True),
+        (84, 64, torch.float32, True),
+        (50, 128, torch.float32, True),
+        (1, 33, torch.float32, True),
+        (1, 32, torch.float32, False),
+        (1, 1, torch.float32, False),
     ],
 )
 def test_dispatch_rule(lk, d, dtype, flash):
@@ -174,8 +182,8 @@ def test_kernel_head_dim(d, want):
 @pytest.mark.parametrize("d", [129, 256, 0])
 def test_head_dims_off_the_kernels_raise_naming_c7(d):
     """Until C.7 closed, head dims above 128 raised; now every head dim of
-    at least 1 runs: above 128 padded to a multiple of 64 for the chunked
-    bodies, and only a head dim of 0 raises."""
+    at least 1 runs: above 128 padded to a multiple of 64 for the panel and
+    Hopper bodies, and only a head dim of 0 raises."""
     if not d:
         with pytest.raises(ValueError, match="at least 1"):
             kernels.kernel_head_dim(d)
@@ -267,7 +275,7 @@ def test_whole_kv_smem_arithmetic():
 def test_whole_kv_fits(lk, d, dtype, fits):
     """K1 takes K/V that fit a block's 227 KB; it raises beyond (K2 is
     there). float32 at 64 and 128 runs the panel body, which fits at any Lk
-    (use_flash keeps the old cut as a routing rule, test_dispatch_rule)."""
+    (use_flash's cut is a routing rule, test_dispatch_rule)."""
     assert kernels.whole_kv_fits(lk, d, dtype) is fits
 
 
@@ -358,7 +366,7 @@ def test_float32_register_tiled_plans(kind, d):
     assert plan["dq_smem_bytes"] == 156_672 and plan["dkdv_smem_bytes"] == 174_080
     assert max(plan["dq_smem_bytes"], plan["dkdv_smem_bytes"]) <= build.BLOCK_SMEM_BYTES
     assert f"attention_bwd_dq_fma<float,{plan['dq_acc']}>" in _COMPILED and "attention_bwd_dkdv_fma<float>" in _COMPILED
-    assert not any(n.startswith("attention_wide_bwd") and n.endswith("<float>") for n in _COMPILED)
+    assert not any(n.startswith("attention_wide") for n in _COMPILED)
     with pytest.raises(ValueError):
         kernels.pair_backward_plan(128)
 
@@ -371,21 +379,27 @@ _COMPILED = set(__import__("re").findall(r'\{"(attention_[^"]+)", \(const void\*
 @pytest.mark.parametrize("d", [16, 32, 48, 64, 80, 100, 128, 136, 192, 256, 320])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_hopper_bodies_take_bf16_at_64_and_128(d, dtype):
-    """is_wgmma_pair (which labels the bench's rows) holds for bf16 at head
-    dims 64, 128, 192 and 256 and those padded to them (136 to 192), and
-    there the source compiles K2 and the pair as Hopper bodies (K2 and both
+    """is_wgmma_pair (which labels the bench's rows) holds for bf16 at every
+    head dim above 32: at 64, 128, 192 and 256 and those padded to them (136
+    to 192) the source compiles K2 and the pair as Hopper bodies (K2 and both
     kernels of the pair, in its attributes table; K2 and the dQ kernel as
     the in-line bodies above 128, ``*_wgmma_inline``) and no mma.sync body
-    of K2 or the pair is left; above 256 (320) the bf16 pair stays on the
-    chunked bodies. is_wgmma_forward holds for bf16 K2 at every head dim
-    above 32 (320 on the panel body) and for bf16 K1 above 128, where the
-    source compiles the panel body for both kernels."""
-    pair = dtype == torch.bfloat16 and 32 < d <= 256
+    of K2 or the pair is left; above 256 (320) the bf16 pair runs the wgmma
+    pair on column panels (``*_wgmma_panels``: dQ at the forward plan's
+    accumulated columns, dK/dV), and no chunked body is left.
+    is_wgmma_forward holds for bf16 K2 at every head dim above 32 (320 on
+    the panel body) and for bf16 K1 above 128, where the source compiles
+    the panel body for both kernels."""
+    pair = dtype == torch.bfloat16 and 32 < d
     assert kernels.is_wgmma_pair(d, dtype) is pair
     assert kernels.is_wgmma_forward(d, dtype) is (dtype == torch.bfloat16 and d > 32)
     assert kernels.is_wgmma_forward(d, dtype, flash=False) is (dtype == torch.bfloat16 and d > 128)
     kd = kernels.kernel_head_dim(d)
-    if pair:
+    if pair and kd > 256:
+        acc = kernels.panel_forward_plan(d, dtype)["acc_cols"]
+        assert {f"attention_bwd_dq_wgmma_panels<bf16,{acc}>", "attention_bwd_dkdv_wgmma_panels<bf16>"} <= _COMPILED
+        assert not any(n.startswith("attention_wide") for n in _COMPILED)
+    elif pair:
         inline = "_inline" if kd > 128 else ""
         assert {f"attention_flash_wgmma{inline}<bf16,{kd}>", f"attention_bwd_dq_wgmma{inline}<bf16,{kd}>",
                 f"attention_bwd_dkdv_wgmma<bf16,{kd}>"} <= _COMPILED
@@ -395,6 +409,41 @@ def test_hopper_bodies_take_bf16_at_64_and_128(d, dtype):
         assert {f"{body},{acc},K1>", f"{body},{acc},K2>"} <= _COMPILED
     assert not any(n.startswith(("attention_flash_mma", "attention_bwd_dq_mma", "attention_bwd_dkdv_mma"))
                    and n.endswith((",64>", ",128>")) for n in _COMPILED)
+
+
+@pytest.mark.parametrize("d", [16, 20, 32, 48, 64, 80, 128, 136, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_float32_k2_is_the_3xtf32_body(d, dtype):
+    """is_tf32_forward (which labels the bench's rows and sets their bound)
+    holds for float32 K2 up to head dim 128 and those padded to it, and
+    there the source compiles the 3xTF32 body (``attention_flash_tf32``) at
+    the padded head dim; float32 K1, bf16 and head dims above 128 are not
+    it. No float32 K2 body of the CUDA cores is left
+    (``attention_flash_kernel``, ``attention_flash_slice``)."""
+    tf32 = dtype == torch.float32 and d <= 128
+    assert kernels.is_tf32_forward(d, dtype) is tf32
+    assert not kernels.is_tf32_forward(d, dtype, flash=False)
+    if tf32:
+        assert f"attention_flash_tf32<float,{kernels.kernel_head_dim(d)}>" in _COMPILED
+    assert not any(n.startswith(("attention_flash_kernel", "attention_flash_slice")) for n in _COMPILED)
+    assert {f"attention_flash_tf32<float,{n}>" for n in kernels.HEAD_DIMS} <= _COMPILED
+
+
+def test_bench_bound_of_the_3xtf32_body():
+    """The 3xTF32 body's bound counts its float32 products at the TF32
+    tensor rate over three (495 / 3 TFLOP/s), not at the CUDA cores' float32
+    peak: at ViT-base/16's float32 (1, 12, 3681, 3681, 64) 41.6 GFLOP,
+    0.252 ms, under the FFMA bound (0.621 ms); the bench's float32 K2 rows
+    take it and its K1 rows do not."""
+    shape = (1, 12, 3681, 3681, 64)
+    flops = 4.0 * 12 * 3681 * 3681 * 64
+    assert abench.TF32X3_FLOPS == pytest.approx(495e12 / 3)
+    assert abench.bound(shape, torch.float32, None, abench.TF32X3_FLOPS) == (
+        pytest.approx(flops / (495e12 / 3) * 1e3, rel=1e-12), "operations")
+    assert abench.bound(shape, torch.float32, None)[0] == pytest.approx(flops / 67e12 * 1e3, rel=1e-12)
+    assert abench.instruction(kernels, "attention_flash", 64, torch.float32) == abench.TF32_INSTRUCTION
+    assert abench.instruction(kernels, "attention_whole_kv", 32, torch.float32) == abench.INSTRUCTION[torch.float32]
+    assert abench.instruction(kernels, "attention_backward", 320, torch.bfloat16) == abench.WGMMA_INSTRUCTION
 
 
 def test_chip_smoke_counts_wgmma_apart_from_mma():

@@ -86,6 +86,10 @@ HOPPER_L = (1, 127, 128, 129, 3681, 4033)
 #: Head dims the Hopper bodies take: 64, 128, 192 and 256, and 80 and 136
 #: padded to 128 and 192.
 HOPPER_DIMS = (64, 80, 128, 136, 192, 256)
+#: Lengths across float32 K2's edges (the 3xTF32 body: 16-row warps, 64-row
+#: blocks, 64-key tiles, 32 at head dim 128) and the pairs' 64- and 128-row
+#: tiles: (Lq, Lk) every pair of these.
+EDGE_LQ, EDGE_LK = (1, 63, 65, 127, 129, 300), (1, 63, 65, 127, 129, 260)
 
 
 @pytest.mark.parametrize("fn", [kernels.attention_whole_kv, kernels.attention_flash])
@@ -100,11 +104,13 @@ def test_kernel_matches_plain(card, fn, dtype, D, masked):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("D,lengths", [*((d, "detr") for d in (*kernels.HEAD_DIMS, 48, 80, *WIDE_DIMS)),
                                        *((d, "hopper") for d in HOPPER_DIMS), (256, "vitw_train"),
-                                       (64, "long"), (128, "long")])
+                                       (64, "long"), (128, "long"), *((d, "edges") for d in kernels.HEAD_DIMS)])
 @pytest.mark.parametrize("masked", [False, True])
 def test_kernel_matches_plain_at_tile_edges(card, fn, dtype, D, lengths, masked):
-    """Every (Lq, Lk) pair of LQ x LK ("detr"), or of HOPPER_L x HOPPER_L
-    ("hopper"); with the mask, batch entry 0 has every key masked (mean(V)).
+    """Every (Lq, Lk) pair of LQ x LK ("detr"), of HOPPER_L x HOPPER_L
+    ("hopper"), or of EDGE_LQ x EDGE_LK ("edges": float32 K2's 3xTF32 body
+    at every head dim up to 128); with the mask, batch entry 0 has every
+    key masked (mean(V)).
     B * H = 6, so a tile that runs past L meets the next head's rows in
     device memory (the Hopper bodies' 3-D tensor maps must not read them).
     "vitw_train": (1, 4, 4033, 4033) at head dim 256, the VITW DETR's
@@ -119,7 +125,7 @@ def test_kernel_matches_plain_at_tile_edges(card, fn, dtype, D, lengths, masked)
     in an exact emulation of K1's rounding on the CPU, which the kernel
     matches. float32 stays absolute (summation order only).
     """
-    B, H, lqs, lks = {"detr": (2, 3, LQ, LK), "hopper": (2, 3, HOPPER_L, HOPPER_L),
+    B, H, lqs, lks = {"detr": (2, 3, LQ, LK), "hopper": (2, 3, HOPPER_L, HOPPER_L), "edges": (2, 3, EDGE_LQ, EDGE_LK),
                       "vitw_train": (1, 4, (4033,), (4033,)),
                       "long": (1, 4 if D == 64 else 8, (4033,), (4033,))}[lengths]
     for i, lq in enumerate(lqs):
@@ -349,7 +355,8 @@ def _b4_errors(got, want):
                                      (1, 127, 64), (127, 129, 64), (129, 128, 80), (128, 127, 128), (1, 129, 128),
                                      (3681, 4033, 64), (4033, 3681, 128), (1, 129, 192), (129, 65, 192),
                                      (33, 31, 256), (127, 129, 256), (4033, 3681, 256), (131, 67, 320),
-                                     (131, 67, 384), (1008, 1008, 256)])
+                                     (131, 67, 384), (1008, 1008, 256), (1, 129, 320), (63, 65, 384),
+                                     (65, 63, 320), (127, 129, 384), (129, 127, 320), (300, 260, 384)])
 @pytest.mark.parametrize("all_masked", [False, True], ids=["ragged", "all_masked_entry"])
 def test_b4_gradients_match_plain_autograd(card, dtype, Lq, Lk, D, all_masked):
     """B.4: multi_head_attention under grad runs K1/K2 through
@@ -360,7 +367,9 @@ def test_b4_gradients_match_plain_autograd(card, dtype, Lq, Lk, D, all_masked):
     ``all_masked`` batch entry 0 has every key masked: uniform probabilities,
     and dq, dk not zero. The Hopper pair's edges (64-row warpgroups, 128-row
     blocks, 64-row tiles, 32-row ones at D 256; ViT-base's 3681 and 4033
-    tokens) are here with a
+    tokens) are here, and the bf16 pair above 256 on column panels at 320
+    and 384 (128-row dQ blocks, 64-key tiles, 128-key dK/dV blocks, 64-row
+    query tiles), each with a
     single query; a single key is held in the forward tests only, since
     there every row's P is 1 and dq, dk vanish: the bar's second reading
     (relative to the largest |ref|) would divide rounding by rounding."""
@@ -411,14 +420,20 @@ def test_b4_gradients_match_plain_autograd(card, dtype, Lq, Lk, D, all_masked):
      (kernels.attention_whole_kv, torch.bfloat16, 131, 67, 384), (kernels.attention_whole_kv, torch.float32, 67, 131, 384),
      (kernels.attention_flash, torch.float32, 131, 67, 320), (kernels.attention_flash, torch.bfloat16, 300, 260, 384),
      (kernels.attention_whole_kv, torch.float32, 131, 67, 128), (kernels.attention_whole_kv, torch.float32, 197, 197, 80),
-     (kernels.attention_whole_kv, torch.float32, 50, 50, 64), (kernels.attention_whole_kv, torch.float32, 1, 1000, 64)],
+     (kernels.attention_whole_kv, torch.float32, 50, 50, 64), (kernels.attention_whole_kv, torch.float32, 1, 1000, 64),
+     (kernels.attention_flash, torch.float32, 1, 63, 16), (kernels.attention_flash, torch.float32, 63, 65, 32),
+     (kernels.attention_flash, torch.float32, 65, 127, 64), (kernels.attention_flash, torch.float32, 129, 1, 128),
+     (kernels.attention_flash, torch.float32, 127, 129, 128), (kernels.attention_flash, torch.float32, 300, 260, 128),
+     (kernels.attention_flash, torch.float32, 300, 260, 16), (kernels.attention_flash, torch.float32, 129, 65, 32)],
     ids=["k2_bf16_67x131", "k2_bf16_encoder_920", "k2_bf16_cross_1008", "k2_bf16_d16", "k2_float32_67x131",
          "k2_float32_d16", "k1_float32_67x131", "k1_float32_d16", "k1_float32_cross_d16", "k2_bf16_d64",
          "k2_float32_d64", "k1_float32_d64", "k2_bf16_d48", "k1_float32_d48", "k2_bf16_d192", "k1_bf16_d256",
          "k2_float32_d160", "k1_float32_d192", "k2_bf16_d64_1x129", "k2_bf16_d64_129x127", "k2_bf16_d64_vit_3681",
          "k2_bf16_d80_128x1", "k2_bf16_d128_127x128", "k2_bf16_d128_4033", "k1_bf16_d192", "k2_bf16_d320",
          "k1_bf16_d384", "k1_float32_d384", "k2_float32_d320", "k2_bf16_d384_300x260", "k1_float32_d128",
-         "k1_float32_d80_vit_h", "k1_float32_d64_clip", "k1_float32_d64_1x1000"],
+         "k1_float32_d80_vit_h", "k1_float32_d64_clip", "k1_float32_d64_1x1000", "k2_float32_d16_1x63",
+         "k2_float32_d32_63x65", "k2_float32_d64_65x127", "k2_float32_d128_129x1", "k2_float32_d128_127x129",
+         "k2_float32_d128_300x260", "k2_float32_d16_300x260", "k2_float32_d32_129x65"],
 )
 def test_forward_with_lse_is_bit_identical(card, fn, dtype, Lq, Lk, D):
     """K2 (both types) and K1 (float32, and bf16 above head dim 128) give

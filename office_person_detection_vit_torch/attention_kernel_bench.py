@@ -50,7 +50,9 @@ from .ops.attention import attention_reference
 
 #: (kernel, (B, H, Lq, Lk, D), type, ragged key mask, the path that gives the
 #: shape). DETR-R50 and DC5 at 736x1280 (920 and 3680 tokens, 100 queries),
-#: DETR-small at 224x384 (84 tokens, 25 queries, head dim 16).
+#: DETR-small at 224x384 (84 tokens, 25 queries, head dim 16). The float32
+#: K1 rows at head dims 16 and 32 are the bench's only: every float32 call up
+#: to head dim 128 goes to K2 (use_flash).
 CASES = [
     ("attention_whole_kv", (8, 8, 920, 920, 32), "bfloat16", True, "R50 encoder, beside K2"),
     ("attention_whole_kv", (8, 8, 100, 920, 32), "bfloat16", True, "R50 cross, beside K2"),
@@ -62,11 +64,14 @@ CASES = [
     ("attention_flash", (8, 8, 100, 100, 32), "bfloat16", False, "R50 decoder self (main path)"),
     ("attention_flash", (8, 8, 920, 920, 32), "float32", True, "float32 encoder, B 8"),
     ("attention_flash", (2, 8, 100, 920, 32), "float32", True, "float32 R50 cross"),
-    ("attention_whole_kv", (2, 8, 100, 100, 32), "float32", False, "float32 R50 decoder self"),
-    ("attention_whole_kv", (1, 8, 84, 84, 16), "float32", True, "DETR-small encoder"),
-    ("attention_flash", (1, 8, 84, 84, 16), "float32", True, "DETR-small encoder (K2)"),
-    ("attention_whole_kv", (1, 8, 25, 84, 16), "float32", True, "DETR-small cross"),
-    ("attention_whole_kv", (1, 8, 25, 25, 16), "float32", False, "DETR-small decoder self"),
+    ("attention_whole_kv", (2, 8, 100, 100, 32), "float32", False, "float32 R50 decoder self, K1 (no path caller, B.S5)"),
+    ("attention_whole_kv", (1, 8, 84, 84, 16), "float32", True, "DETR-small encoder, K1 (no path caller, B.S5)"),
+    ("attention_flash", (1, 8, 84, 84, 16), "float32", True, "DETR-small encoder"),
+    ("attention_whole_kv", (1, 8, 25, 84, 16), "float32", True, "DETR-small cross, K1 (no path caller, B.S5)"),
+    ("attention_whole_kv", (1, 8, 25, 25, 16), "float32", False, "DETR-small decoder self, K1 (no path caller, B.S5)"),
+    ("attention_flash", (2, 8, 100, 100, 32), "float32", False, "float32 R50 decoder self"),
+    ("attention_flash", (1, 8, 25, 84, 16), "float32", True, "DETR-small cross"),
+    ("attention_flash", (1, 8, 25, 25, 16), "float32", False, "DETR-small decoder self"),
 ]
 #: The ViT paths' shapes (head dims 64 and 128, 80 padded to 128, and the
 #: VITW DETR's 256, 192 and 136 padded to 192): the Hopper bodies; then the
@@ -114,6 +119,11 @@ BACKWARD_CASES = [
     ((1, 4, 1008, 1008, 320), "bfloat16", "heads of 320 at 1008 tokens (the bf16 pair on column panels)"),
     ((1, 4, 1008, 1008, 384), "bfloat16", "heads of 384 at 1008 tokens (the bf16 pair on column panels)"),
     ((8, 4, 1008, 1008, 320), "bfloat16", "heads of 320 at 1008 tokens, batch 8 (the card full)"),
+    ((1, 8, 84, 84, 16), "float32", "DETR-small encoder at 224x384 (the float32 pair, [10a]'s shape)"),
+    ((2, 8, 196, 196, 32), "float32", "the ViT DETRs' float32 gradients at 224x224, DETR's encoder"),
+    ((2, 8, 197, 197, 128), "float32", "head dim 128 at 224x224, float32 ([13a]'s shape)"),
+    ((2, 12, 1008, 1008, 64), "float32", "head dim 64 at 1008 tokens, float32 (384 dQ blocks)"),
+    ((8, 8, 1008, 1008, 32), "float32", "DETR-R50 training encoder at 768x1344, float32"),
 ]
 #: float32 K1 and K2 beside each other, for use_flash's cut: every head dim
 #: the kernels are built for at each of these key counts (Lq = Lk), B 8 and
@@ -139,8 +149,9 @@ WGMMA_INSTRUCTION = "wgmma.m64nNk16 + TMA"
 #: head dims 64 and 128, every float32 forward above 128 and the float32
 #: pair above 128.
 PANEL_FMA_INSTRUCTION = "FFMA (CUDA cores, 4x4 register tiles)"
-#: float32 K2 up to head dim 128: three TF32 products a float32 product on
-#: the tensor cores (attention_flash_tf32).
+#: float32 K2 and the float32 pair up to head dim 128: three TF32 products
+#: a float32 product on the tensor cores (attention_flash_tf32,
+#: attention_bwd_{dq,dkdv}_tf32).
 TF32_INSTRUCTION = "mma.sync.m16n8k8 3xTF32"
 # Published H100 SXM peaks (dense): HBM bytes/s; bf16 tensor-core and
 # non-tensor float32 FLOP/s.
@@ -195,14 +206,16 @@ def bound(shape, dtype: torch.dtype, mask, flops_rate: float | None = None) -> t
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def b4_bound(shape, dtype, mask, backward_only: bool = False) -> tuple[float, str]:
+def b4_bound(shape, dtype, mask, backward_only: bool = False, flops_rate: float | None = None) -> tuple[float, str]:
     """(least ms, "bytes" or "operations") of B.4's forward and backward:
     q, k, v, the mask and dO read once, O, dQ, dK, dV written once; the
     products of the forward (QK^T, P.V) and of the backward (QK^T again,
     dV = P^T dO, dP = dO V^T, dQ = dS K, dK = dS^T Q) over this mask's valid
     keys: 14 H Lq D flops a valid key. ``backward_only``: the backward pair's
     own work, q, k, v, O, dO, the mask and the log-sum-exp read once, dQ, dK,
-    dV written once, and its five products: 10 H Lq D flops a valid key."""
+    dV written once, and its five products: 10 H Lq D flops a valid key.
+    ``flops_rate``: by default the type's peak (:data:`PEAK_FLOPS`); the
+    3xTF32 bodies' :data:`TF32X3_FLOPS` (:func:`pair_rate`)."""
     B, H, Lq, Lk, D = shape
     item = torch.empty((), dtype=dtype).element_size()
     valid = Lk * B if mask is None else int(mask.sum().item())
@@ -210,8 +223,15 @@ def b4_bound(shape, dtype, mask, backward_only: bool = False) -> tuple[float, st
     nbytes = 4 * B * H * (Lq + Lk) * D * item + (0 if mask is None else B * Lk)
     if backward_only:
         nbytes = (3 * Lq + 2 * Lk + Lq + 2 * Lk) * B * H * D * item + 4 * B * H * Lq + (0 if mask is None else B * Lk)
-    t_ops, t_bytes = flops / PEAK_FLOPS[dtype] * 1e3, nbytes / PEAK_BYTES * 1e3
+    t_ops, t_bytes = flops / (flops_rate or PEAK_FLOPS[dtype]) * 1e3, nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def pair_rate(kernels, head_dim: int, dtype: torch.dtype) -> float | None:
+    """The work rate of the backward pair at ``head_dim`` for b4_bound:
+    :data:`TF32X3_FLOPS` where it runs the 3xTF32 bodies
+    (``kernels.is_tf32_pair``), else None (the type's peak)."""
+    return TF32X3_FLOPS if kernels.is_tf32_pair(head_dim, dtype) else None
 
 
 def _sleep_cycles_per_ms() -> float:
@@ -317,6 +337,8 @@ def instruction(kernels, name: str, head_dim: int, dtype: torch.dtype) -> str:
     if name == "attention_backward":
         if kernels.is_wgmma_pair(head_dim, dtype):
             return WGMMA_INSTRUCTION
+        if kernels.is_tf32_pair(head_dim, dtype):
+            return TF32_INSTRUCTION
         return PANEL_FMA_INSTRUCTION if wide else INSTRUCTION[dtype]
     if kernels.is_wgmma_forward(head_dim, dtype, flash=name == "attention_flash"):
         return WGMMA_INSTRUCTION
@@ -373,7 +395,7 @@ def measure_backward(kernels, case, seed: int, other=None, iters: int = 10, reve
     del twin
     qq, kk, vv = (t.detach().requires_grad_(True) for t in (q, k, v))
     sdpa_out = torch.nn.functional.scaled_dot_product_attention(qq, kk, vv)
-    bound_ms, bound_by = b4_bound(shape, dtype, None, backward_only=True)
+    bound_ms, bound_by = b4_bound(shape, dtype, None, True, pair_rate(kernels, shape[4], dtype))
     row = {"name": "attention_backward", "shape": list(shape), "dtype": dt, "path": path, "max_rel_err": errs["this"],
            "bar": B4_BAR[dtype], "instruction": instruction(kernels, "attention_backward", shape[4], dtype),
            "library_ms": cuda_ms(lambda: torch.autograd.grad(sdpa_out, (qq, kk, vv), g, retain_graph=True), iters),
@@ -444,7 +466,7 @@ def ladder(kernels, iters: int = 20) -> list:
     rows = []
     for seed, (shape, path) in enumerate(ladder_cases()):
         q, k, v, _ = make_inputs(shape, torch.float32, False, 700 + seed)
-        row = {"shape": list(shape), "path": path, "use_flash": kernels.use_flash(shape[3], shape[4], torch.float32)}
+        row = {"shape": list(shape), "path": path, "use_flash": kernels.use_flash(shape[4], torch.float32)}
         k2_call = lambda: kernels.attention_flash(q, k, v, None)  # noqa: E731
         max_error(kernels.attention_flash, q, k, v, None)
         if kernels.whole_kv_fits(shape[3], shape[4], torch.float32):

@@ -89,17 +89,15 @@
 // float32. One TF32 product would break the 1e-5 tolerance and the
 // whole-model float32 bar, so the float32 bodies keep float32's accuracy
 // in one of three designs:
-//  * K2 up to 128 on the tensor cores as three TF32 products a float32
-//    product (3xTF32, attention_flash_tf32; its section says how).
+//  * K2 and the backward pair up to 128 on the tensor cores as three TF32
+//    products a float32 product (3xTF32: attention_flash_tf32, and
+//    attention_bwd_{dq,dkdv}_tf32; their sections say how).
 //  * four threads per query row, 64-row blocks, FP32 FMAs: K1 at D 16 and
-//    32 (DETR's) and the pair up to 128. Up to D = 64 a row's four threads
-//    split its keys and each keeps the whole row of q and of the output; at
-//    D = 128 that is 256 floats a thread, so the *_slice bodies split the
-//    head dim instead (each thread a quarter of q and of the output, the
-//    quad summing each dot product with two shuffles), and stage K/V in
-//    dynamic shared memory (64 KB a tile, over the 48 KB a static array
-//    may take). Each of its FMAs reads its operand from shared memory, a
-//    float4 for four FMAs, so it runs at a fraction of the FMA rate.
+//    32 (DETR's; no path calls it since float32 K2 takes those head dims
+//    too). A row's four threads split its keys and each keeps the whole
+//    row of q and of the output. Each of its FMAs reads its operand from
+//    shared memory, a float4 for four FMAs, so it runs at a fraction of
+//    the FMA rate.
 //  * register tiles (attention_panels_fma, attention_bwd_*_fma): 16 x 16
 //    threads, each a 4 x 4 tile of scores, float4 operands reused across
 //    four rows and four keys from registers, items by cp.async into two
@@ -1004,9 +1002,10 @@ attention_flash_tf32(const float* __restrict__ q, const float* __restrict__ k, c
 // pack_p turns into an A operand. At head dims 64, 128, 192 and 256 the
 // pair runs the Hopper bodies of the section after this one (wgmma, TMA),
 // on the same scheme with 128-row blocks, and above 256 the wgmma pair on
-// column panels (after the forwards' panel section). float32 keeps a
-// CUDA-core body: up to 128 four threads a row as K1's float32 body at D 16
-// and 32, above 128 the register-tiled pair attention_bwd_{dq,dkdv}_fma.
+// column panels (after the forwards' panel section). float32 runs the
+// 3xTF32 pair attention_bwd_{dq,dkdv}_tf32 up to 128 (mma.sync m16n8k8, its
+// section after the Hopper bodies) and the register-tiled pair
+// attention_bwd_{dq,dkdv}_fma above 128 (CUDA cores).
 
 static_assert(kRows == kFlashWarps * kWarpRows && kRows == kTileKeys && kRows == kFlashKeys,
               "the backward's row and key tiles are 64 in both types");
@@ -2019,272 +2018,386 @@ attention_bwd_dq_wgmma_inline(const __grid_constant__ CUtensorMap tq, const __gr
   for (int h = 0; h < kPanels; ++h) store_acc<D, kPanel>(acc[h], sc2, dq + q_off, row0, Lq, h * kPanel);
 }
 
-// --------------------------------------------------------------- dQ, float32
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-attention_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                        const float* __restrict__ v, const uint8_t* __restrict__ mask,
-                        const float* __restrict__ out, const float* __restrict__ lse,
-                        const float* __restrict__ g, float* __restrict__ dq,
-                        float* __restrict__ lse2_pad, float* __restrict__ dsum_pad, int H, int Lq,
-                        int Lk, int Lq_pad, float scale_log2, float scale) {
-  __shared__ __align__(16) float sk[kFlashKeys * D];
-  __shared__ __align__(16) float sv[kFlashKeys * D];
-  __shared__ uint8_t smask[kFlashKeys];
+// ===================== B.4's pair in float32 up to head dim 128 (3xTF32)
+// The float32 pair at head dims 16, 32, 64 and 128 (and those padded to
+// them) on the tensor cores, at float32's accuracy: each of its five
+// products is three TF32 products (3xTF32, as float32 K2: split_tf32,
+// mma_tf32, mma_3xtf32 above), on mma.sync.m16n8k8.
+//  * The scheme is the bf16 pair's (attention_bwd_dq_mma and _dkdv_mma):
+//    4 warps a block, a warp 16 query rows (dQ) or 16 keys (dK/dV), the
+//    streamed operand in kTile-row tiles through two cp.async stages (the
+//    next tile loading under the current one's products). The dQ kernel
+//    recomputes S = Q K^T and dP = dO V^T for its 64 rows and each key
+//    tile, then dQ += dS K; first it writes lse2 and D for its rows to the
+//    scratch. The dK/dV kernel recomputes S^T = K Q^T and dP^T = V dO^T for
+//    its 64 keys and each query tile, then dV += P^T dO and dK += dS^T Q.
+//  * What a block keeps (its 64 rows of Q and dO, or of K and V) stays in
+//    shared memory, not in registers: the A fragments of the recomputed
+//    products are read from there in each tile, so a thread holds only its
+//    outputs (dQ: D / 2 floats; dK and dV: kOut / 2 each) and one group of
+//    scores. Its split into hi and lo is done where it is read, as K2
+//    splits Q in each tile.
+//  * P, P^T, dS and dS^T leave their products as m16n8 accumulators (rows
+//    g and g + 8, columns 2t and 2t + 1). The depth of each k8 step of the
+//    products they feed is permuted as K2's P.V is (logical t and t + 4 are
+//    keys or query rows 2t and 2t + 1), so an accumulator is the next
+//    product's A operand with no shuffle, and its B operand (K, dO or Q,
+//    read down a column) is two 32-bit loads at rows 2t and 2t + 1. In the
+//    recomputed products the depth is the head dim, permuted as in K2's
+//    Q.K^T: each B value pair is one 64-bit load.
+//  * Every staged row is D + 8 floats: a warp's 64-bit loads (8 rows x 4
+//    column pairs) then meet every bank once; its 32-bit loads down a
+//    column (rows 2t, 2t + 1) meet each bank twice (D + 4 would serve those
+//    and not the 64-bit ones; one stride serves both products of a tile).
+//  * The sums over keys (dQ) and over query rows (dK, dV) run to thousands:
+//    each group of kGroup keys or rows (32; a whole 16-row tile at D 128)
+//    sums in an accumulator of its own, added to the output by a float32
+//    add, as K2's P.V (its drift on the tensor cores' accumulation).
+//  * S in the dQ kernel is the forward's (attention_flash_tf32) to the
+//    bit: the same split of the same Q and K values, the same three
+//    products in the same order, the head dim in the same k8 order, and
+//    s * scale + bias by the same fmaf. The dK/dV kernel takes the products
+//    in that order too, with K and Q in each other's places.
+//  * Tiles: 64 keys or rows at D 16 and 32, 32 at 64, 16 at 128, so that
+//    the block's shared memory (its own 64 rows of two operands and two
+//    stages of two tiles) lets three blocks an SM up to D 64 and two at
+//    128. At D 128 the dK/dV kernel takes its output in two 64-column
+//    halves on grid z (kOut), each recomputing S^T and dP^T: one block of
+//    all 128 columns holds 128 floats of dK and dV a thread (255 registers)
+//    and ran 1.25x slower, on half the blocks (PERF.md).
+//  * Bound: operations on the tensor cores, 10 flops a query-key-dim (the
+//    five products over the valid keys) at 165 TFLOP/s of float32 work
+//    (three TF32 products at 495); at (2, 12, 1008, 1008, 64) 15.6 GFLOP,
+//    0.095 ms.
+template <int D> struct Tf32Pair {
+  static_assert(D == 16 || D == 32 || D == 64 || D == 128, "head dim 16, 32, 64 or 128");
+  static constexpr int kLd = D + 8;                                // row stride of every staged tile (floats)
+  static constexpr int kTile = D <= 32 ? 64 : D == 64 ? 32 : 16;   // keys (dQ) or query rows (dK/dV) a ring tile
+  static constexpr int kGroup = kTile < 32 ? kTile : 32;           // keys or rows summed in one accumulator
+  static constexpr int kOut = D == 128 ? 64 : D;                  // dK/dV output columns a block (grid z)
+  static constexpr int kFixed = 2 * kRows * kLd + 2 * kRows;       // floats: the block's 64 rows of two operands, 2 vectors
+  static constexpr int kStage = 2 * kTile * kLd + 2 * kTile;       // floats: a tile of two operands, 2 vectors
+  static constexpr size_t kSmem = (size_t)(kFixed + 2 * kStage) * sizeof(float);
+  // Blocks an SM (launch bounds): three where their registers allow it
+  // without a spill (ptxas, CUDA 12.8: the dK/dV kernel at D 64 spilled 44
+  // bytes a thread in 168 registers), else two.
+  static constexpr int kMinBlocksDq = D <= 64 ? 3 : 2;
+  static constexpr int kMinBlocksDkdv = D <= 32 ? 3 : 2;
+  static_assert(D % kOut == 0 && kOut % 8 == 0 && kRows % kTile == 0, "column blocks and tiles divide evenly");
+};
+static_assert(3 * (Tf32Pair<64>::kSmem + 1024) <= 233472 && 2 * (Tf32Pair<128>::kSmem + 1024) <= 233472,
+              "the blocks an SM of the launch bounds fit its shared memory");
 
-  const int bh = blockIdx.x;
-  const int q0 = blockIdx.y * kRows;
-  const int nq = min(kRows, Lq - q0);
-  const size_t kv_off = (size_t)bh * Lk * D;
-  const uint8_t* mask_b = mask ? mask + (size_t)(bh / H) * Lk : nullptr;
-  const bool all_masked = !any_valid_key(mask_b, Lk);
+// d += a b in 3xTF32 with a and b in each other's places: the hi lo, lo hi,
+// hi hi order of mma_3xtf32(d, b, a), so that K Q^T sums the terms of
+// Q K^T in the same order.
+__device__ __forceinline__ void mma_3xtf32_swapped(float (&d)[4], const uint32_t (&ah)[4], const uint32_t (&al)[4],
+                                                   const uint32_t (&bh)[2], const uint32_t (&bl)[2]) {
+  mma_tf32(d, ah, bl);
+  mma_tf32(d, al, bh);
+  mma_tf32(d, ah, bh);
+}
 
-  const int row = threadIdx.x / kSplit;
-  const int split = threadIdx.x % kSplit;
-  const bool live = row < nq;
-  const size_t q_row = (size_t)bh * Lq + q0 + (live ? row : 0);
-  float qf[D], gf[D];
-  load_query<D>(q + q_row * D, qf);
-  load_query<D>(g + q_row * D, gf);
-  float dsum = 0.f;
-  {
-    float of[D];
-    load_query<D>(out + q_row * D, of);
+// The A fragment of k8 step kk of a warp's 16 staged rows (row g at r, row
+// g + 8 at r + 8 ld), columns 8 kk + 2t and + 1, split: the permuted layout
+// of K2's Q.
+__device__ __forceinline__ void split_rows(const float* r, int ld, int kk, uint32_t (&h)[4], uint32_t (&l)[4]) {
+  const float2 a = *reinterpret_cast<const float2*>(r + 8 * kk);
+  const float2 b = *reinterpret_cast<const float2*>(r + 8 * ld + 8 * kk);
+  split_tf32(a.x, h[0], l[0]);
+  split_tf32(b.x, h[1], l[1]);
+  split_tf32(a.y, h[2], l[2]);
+  split_tf32(b.y, h[3], l[3]);
+}
+
+// An m16n8 accumulator as the A fragment of the next product's k8 step
+// (depth: its columns 2t and 2t + 1), split.
+__device__ __forceinline__ void split_acc(const float (&c)[4], uint32_t (&h)[4], uint32_t (&l)[4]) {
+  split_tf32(c[0], h[0], l[0]);  // row g, column 2t
+  split_tf32(c[2], h[1], l[1]);  // row g + 8, column 2t
+  split_tf32(c[1], h[2], l[2]);  // row g, column 2t + 1
+  split_tf32(c[3], h[3], l[3]);  // row g + 8, column 2t + 1
+}
+
+// s[n] += A B^T for the warp's 16 rows of A (a: row g of them, staged) and
+// the 8N rows of B from b0 (n: rows 8n .. 8n + 7), over the head dim,
+// 3xTF32 (swapped: the order with A and B in each other's places).
+template <int D, int N, bool kSwapped>
+__device__ __forceinline__ void tf32_scores(const float* a, const float* b0, float (&s)[N][4]) {
+  constexpr int kLd = Tf32Pair<D>::kLd;
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
 #pragma unroll
-    for (int d = 0; d < D; ++d) dsum = fmaf(gf[d], of[d], dsum);
-  }
-  if (!live) dsum = 0.f;
-  const float lse2 = live ? lse[q_row] * kLog2e : INFINITY;
-  if (split == 0) {
-    lse2_pad[(size_t)bh * Lq_pad + q0 + row] = lse2;
-    dsum_pad[(size_t)bh * Lq_pad + q0 + row] = dsum;
-  }
-
-  float acc[D];
+  for (int kk = 0; kk < D / 8; ++kk) {
+    uint32_t ah[4], al[4];
+    split_rows(a, kLd, kk, ah, al);
 #pragma unroll
-  for (int d = 0; d < D; ++d) acc[d] = 0.f;
-  for (int k0 = 0; k0 < Lk; k0 += kFlashKeys) {
-    const int nk = min(kFlashKeys, Lk - k0);
-    __syncthreads();  // the previous tile is consumed
-    stage_rows<D>(sk, k + kv_off + (size_t)k0 * D, nk);
-    stage_rows<D>(sv, v + kv_off + (size_t)k0 * D, nk);
-    stage_mask(smask, mask_b, k0, nk);
-    __syncthreads();
-    if (!live) continue;
-    for (int j = split; j < nk; j += kSplit) {
-      if (!all_masked && !smask[j]) continue;
-      const float s = all_masked ? 0.f : dot_row<D>(sk, j, qf) * scale_log2;
-      const float ds = exp2f(s - lse2) * (dot_row<D>(sv, j, gf) - dsum);
-      axpy_row<D>(sk, j, ds, acc);
+    for (int n = 0; n < N; ++n) {
+      const float2 x = *reinterpret_cast<const float2*>(b0 + (8 * n + g) * kLd + 8 * kk + 2 * t);
+      uint32_t bh[2], bl[2];
+      split_tf32(x.x, bh[0], bl[0]);
+      split_tf32(x.y, bh[1], bl[1]);
+      if constexpr (kSwapped) mma_3xtf32_swapped(s[n], ah, al, bh, bl);
+      else mma_3xtf32(s[n], ah, al, bh, bl);
     }
   }
-  write_row<D>(acc, scale, dq + ((size_t)bh * Lq + q0 + row) * D, split, live);
+}
+
+// o[dn] += C B over the kOut / 8 column groups of B from b0 (row 0 of the
+// group's 8N depth rows, column c0): c[kk] the accumulator whose columns are
+// depth rows 8 kk + 2t and + 1. The group sums in an accumulator of its
+// own, added to o by a float32 add.
+template <int D, int N, int kOut>
+__device__ __forceinline__ void tf32_accumulate(const float (&c)[N][4], const float* b0, float (&o)[kOut / 8][4]) {
+  constexpr int kLd = Tf32Pair<D>::kLd;
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  uint32_t ch[N][4], cl[N][4];
+#pragma unroll
+  for (int kk = 0; kk < N; ++kk) split_acc(c[kk], ch[kk], cl[kk]);
+#pragma unroll
+  for (int dn = 0; dn < kOut / 8; ++dn) {
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+    const float* br = b0 + 2 * t * kLd + 8 * dn + g;
+#pragma unroll
+    for (int kk = 0; kk < N; ++kk) {
+      uint32_t bh[2], bl[2];
+      split_tf32(br[8 * kk * kLd], bh[0], bl[0]);
+      split_tf32(br[(8 * kk + 1) * kLd], bh[1], bl[1]);
+      mma_3xtf32(acc, ch[kk], cl[kk], bh, bl);
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[dn][e] += acc[e];
+  }
+}
+
+// --------------------------------------------------------------- dQ, float32
+template <int D>
+__global__ void __launch_bounds__(kFlashWarps * 32, Tf32Pair<D>::kMinBlocksDq)
+attention_bwd_dq_tf32(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+                      const uint8_t* __restrict__ mask, const float* __restrict__ out, const float* __restrict__ lse,
+                      const float* __restrict__ g, float* __restrict__ dq, float* __restrict__ lse2_pad,
+                      float* __restrict__ dsum_pad, int H, int Lq, int Lk, int Lq_pad, float scale_log2, float scale) {
+  using P = Tf32Pair<D>;
+  constexpr int kKeys = P::kTile, kLd = P::kLd, N = P::kGroup / 8;
+  extern __shared__ __align__(16) float psm[];
+  float* sq = psm;                  // the block's 64 rows of Q
+  float* sg = sq + kRows * kLd;     // ... and of dO
+  float* sl = sg + kRows * kLd;     // lse2 of those rows
+  float* sd = sl + kRows;           // D of those rows
+  auto stage = [&](int s) { return psm + P::kFixed + s * P::kStage; };  // K rows, V rows, the key bias
+
+  const int bh = blockIdx.y, tid = threadIdx.x, lane = tid % 32, gq = lane / 4, t4 = lane % 4;
+  const int q0 = blockIdx.x * kRows, nq = min(kRows, Lq - q0);
+  const uint8_t* mask_b = mask ? mask + (size_t)(bh / H) * Lk : nullptr;
+  const float* k_bh = k + (size_t)bh * Lk * D;
+  const float* v_bh = v + (size_t)bh * Lk * D;
+  const size_t q_off = ((size_t)bh * Lq + q0) * D;
+  const int tiles = (Lk + kKeys - 1) / kKeys;
+  const bool all_masked = !any_valid_key(mask_b, Lk);
+  const float scale_p = all_masked ? 0.f : scale_log2;
+
+  stage_f32_rows<D>(sq, kLd, q + q_off, nq, kRows);
+  stage_f32_rows<D>(sg, kLd, g + q_off, nq, kRows);
+  cp_async_commit();
+  auto issue = [&](int t) {  // key tile t's copies and key bias into stage t % 2 (an empty group past the end)
+    if (t < tiles) {
+      float* st = stage(t % 2);
+      const int k0 = t * kKeys, n = min(kKeys, Lk - k0);
+      stage_f32_rows<D>(st, kLd, k_bh + (size_t)k0 * D, n, kKeys);
+      stage_f32_rows<D>(st + kKeys * kLd, kLd, v_bh + (size_t)k0 * D, n, kKeys);
+      for (int j = tid; j < kKeys; j += blockDim.x) st[2 * kKeys * kLd + j] = key_bias(mask_b, k0 + j, Lk, all_masked);
+    }
+    cp_async_commit();
+  };
+  issue(0);
+
+  // D = rowsum(dO * O) and lse in base 2 of the block's rows, two threads a
+  // row (each half the head dim), into shared memory for the warps and into
+  // the scratch for the dK/dV kernel; rows past Lq get D = 0 and lse2 = +inf
+  // (P = 0), and the scratch's rows up to Lq_pad are all written.
+  cp_async_wait<1>();  // Q and dO have landed
+  __syncthreads();
+  {
+    const int r = tid / 2, h = tid % 2, row = q0 + r;
+    float part = 0.f;
+    if (row < Lq) {
+      const float* orow = out + ((size_t)bh * Lq + row) * D + h * (D / 2);
+      const float* grow = sg + r * kLd + h * (D / 2);
+#pragma unroll
+      for (int c = 0; c < D / 2; c += 4) {
+        const float4 a = *reinterpret_cast<const float4*>(orow + c);
+        const float4 b = *reinterpret_cast<const float4*>(grow + c);
+        part = fmaf(a.w, b.w, fmaf(a.z, b.z, fmaf(a.y, b.y, fmaf(a.x, b.x, part))));
+      }
+    }
+    const float dsum = part + __shfl_xor_sync(0xffffffffu, part, 1);
+    if (h == 0) {
+      const float l2 = row < Lq ? lse[(size_t)bh * Lq + row] * kLog2e : INFINITY;
+      sl[r] = l2;
+      sd[r] = dsum;
+      lse2_pad[(size_t)bh * Lq_pad + row] = l2;
+      dsum_pad[(size_t)bh * Lq_pad + row] = dsum;
+    }
+  }
+  __syncthreads();
+
+  const int wr = tid / 32 * kWarpRows;  // the warp's first row in the block
+  const bool live = q0 + wr < Lq;
+  const float* wq = sq + (wr + gq) * kLd + 2 * t4;
+  const float* wg = sg + (wr + gq) * kLd + 2 * t4;
+  const float lse2[2] = {sl[wr + gq], sl[wr + gq + 8]}, dsum[2] = {sd[wr + gq], sd[wr + gq + 8]};
+  float o[D / 8][4];
+#pragma unroll
+  for (int dn = 0; dn < D / 8; ++dn) o[dn][0] = o[dn][1] = o[dn][2] = o[dn][3] = 0.f;
+  for (int t = 0; t < tiles; ++t) {
+    cp_async_wait<0>();  // key tile t has landed
+    __syncthreads();     // ... for every thread; tile t - 1's stage is free
+    issue(t + 1);
+    if (!live) continue;
+    const float* sk = stage(t % 2);
+    const float* sv = sk + kKeys * kLd;
+    const float* bias = sv + kKeys * kLd;
+#pragma unroll 1
+    for (int k0 = 0; k0 < kKeys; k0 += P::kGroup) {
+      float s[N][4], dp[N][4];
+#pragma unroll
+      for (int n = 0; n < N; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+      tf32_scores<D, N, false>(wq, sk + k0 * kLd, s);   // S = Q K^T, the forward's
+      tf32_scores<D, N, false>(wg, sv + k0 * kLd, dp);  // dP = dO V^T
+#pragma unroll
+      for (int n = 0; n < N; ++n) {
+        const float2 bb = *reinterpret_cast<const float2*>(bias + k0 + 8 * n + 2 * t4);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)  // dS = P (dP - D), P = 2^(s scale + bias - lse2)
+          s[n][e] = exp2f(fmaf(s[n][e], scale_p, e % 2 ? bb.y : bb.x) - lse2[e / 2]) * (dp[n][e] - dsum[e / 2]);
+      }
+      tf32_accumulate<D, N, D>(s, sk + k0 * kLd, o);  // dQ += dS K
+    }
+  }
+  cp_async_wait<0>();
+  if (!live) return;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + wr + gq + 8 * r;
+    if (row >= Lq) continue;
+    float* drow = dq + ((size_t)bh * Lq + row) * D + 2 * t4;
+#pragma unroll
+    for (int dn = 0; dn < D / 8; ++dn)
+      *reinterpret_cast<float2*>(drow + 8 * dn) = make_float2(o[dn][2 * r] * scale, o[dn][2 * r + 1] * scale);
+  }
 }
 
 // ------------------------------------------------------------ dK/dV, float32
-// A key's four threads split the head dim, not the queries: each keeps a
-// quarter of the key's K and V rows and of both accumulators (D/4 values
-// each, 64 floats a thread at D = 64 instead of 4 D, which spilled), takes
-// its part of each dot product over the query rows of the tile, and the quad
-// sums the parts with two shuffles. The four threads of a warp that read one
-// query row read four different chunks of it: a broadcast, no bank conflict.
 template <int D>
-__device__ __forceinline__ float dot_slice(const float* rows, int i, int split, const float* x) {
-  using L = Layout<D>;
-  constexpr int kC = L::kChunks / kSplit;
-  const uint4* r = reinterpret_cast<const uint4*>(rows) + i * L::kChunks;
-  float acc = 0.f;
-#pragma unroll
-  for (int cc = 0; cc < kC; ++cc) {
-    float y[kVec];
-    unpack(r[L::chunk(i, split * kC + cc)], y);
-#pragma unroll
-    for (int e = 0; e < kVec; ++e) acc = fmaf(x[cc * kVec + e], y[e], acc);
-  }
-  return acc;
-}
+__global__ void __launch_bounds__(kFlashWarps * 32, Tf32Pair<D>::kMinBlocksDkdv)
+attention_bwd_dkdv_tf32(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+                        const uint8_t* __restrict__ mask, const float* __restrict__ g, float* __restrict__ dk,
+                        float* __restrict__ dv, const float* __restrict__ lse2_pad,
+                        const float* __restrict__ dsum_pad, int H, int Lq, int Lk, int Lq_pad, float scale_log2,
+                        float scale) {
+  using P = Tf32Pair<D>;
+  constexpr int kQ = P::kTile, kLd = P::kLd, kOut = P::kOut, N = P::kGroup / 8;
+  extern __shared__ __align__(16) float psm[];
+  float* sk = psm;                // the block's 64 keys' rows of K
+  float* sv = sk + kRows * kLd;   // ... and of V
+  auto stage = [&](int s) { return psm + P::kFixed + s * P::kStage; };  // Q rows, dO rows, lse2, D
 
-template <int D>
-__device__ __forceinline__ void axpy_slice(const float* rows, int i, int split, float p, float* acc) {
-  using L = Layout<D>;
-  constexpr int kC = L::kChunks / kSplit;
-  const uint4* r = reinterpret_cast<const uint4*>(rows) + i * L::kChunks;
-#pragma unroll
-  for (int cc = 0; cc < kC; ++cc) {
-    float y[kVec];
-    unpack(r[L::chunk(i, split * kC + cc)], y);
-#pragma unroll
-    for (int e = 0; e < kVec; ++e) acc[cc * kVec + e] = fmaf(p, y[e], acc[cc * kVec + e]);
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-attention_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                          const float* __restrict__ v, const uint8_t* __restrict__ mask,
-                          const float* __restrict__ g, float* __restrict__ dk,
-                          float* __restrict__ dv, const float* __restrict__ lse2_pad,
-                          const float* __restrict__ dsum_pad, int H, int Lq, int Lk, int Lq_pad,
-                          float scale_log2, float scale) {
-  constexpr int kSlice = D / kSplit;  // head-dim values a thread keeps
-  static_assert(kSlice % kVec == 0, "a thread's slice is whole 16-byte chunks");
-  // Dynamic (bwd_dkdv_f32_smem_bytes): the two tiles are 64 KB at D = 128.
-  extern __shared__ __align__(16) uint8_t smem[];
-  float* sq = reinterpret_cast<float*>(smem);
-  float* sg = sq + kRows * D;
-  float* slse2 = sg + kRows * D;
-  float* sdsum = slse2 + kRows;
-
-  const int bh = blockIdx.x;
-  const int k0 = blockIdx.y * kFlashKeys;
-  const int nk = min(kFlashKeys, Lk - k0);
+  const int bh = blockIdx.y, tid = threadIdx.x, lane = tid % 32, gk = lane / 4, t4 = lane % 4;
+  const int key0 = blockIdx.x * kRows, c0 = blockIdx.z * kOut;  // the block's keys and first output column
   const uint8_t* mask_b = mask ? mask + (size_t)(bh / H) * Lk : nullptr;
+  const size_t q_off = (size_t)bh * Lq * D, kv_off = ((size_t)bh * Lk + key0) * D, pad_off = (size_t)bh * Lq_pad;
+  const int tiles = (Lq + kQ - 1) / kQ;
   const bool all_masked = !any_valid_key(mask_b, Lk);
+  const float scale_p = all_masked ? 0.f : scale_log2;
 
-  const int row = threadIdx.x / kSplit;
-  const int split = threadIdx.x % kSplit;
-  const unsigned quad = 0xfu << (threadIdx.x % 32 / kSplit * kSplit);  // this key's four lanes
-  const bool live = row < nk;
-  const bool valid = live && (all_masked || mask_b == nullptr || mask_b[k0 + row]);
-  const size_t k_row = (size_t)bh * Lk + k0 + (live ? row : 0);
-  float kf[kSlice], vf[kSlice];
-  {
-    const uint4* kr = reinterpret_cast<const uint4*>(k + k_row * D + split * kSlice);
-    const uint4* vr = reinterpret_cast<const uint4*>(v + k_row * D + split * kSlice);
-#pragma unroll
-    for (int cc = 0; cc < kSlice / kVec; ++cc) {
-      unpack(kr[cc], kf + cc * kVec);
-      unpack(vr[cc], vf + cc * kVec);
+  stage_f32_rows<D>(sk, kLd, k + kv_off, min(kRows, Lk - key0), kRows);
+  stage_f32_rows<D>(sv, kLd, v + kv_off, min(kRows, Lk - key0), kRows);
+  cp_async_commit();
+  // Query tile t's copies into stage t % 2: Q and dO rows (zero past Lq),
+  // and their lse2 and D, kQ / 4 chunks of 16 bytes each (the scratch is
+  // padded to 64 rows, a multiple of kQ).
+  auto issue = [&](int t) {
+    if (t < tiles) {
+      float* st = stage(t % 2);
+      const int r0 = t * kQ, n = min(kQ, Lq - r0);
+      stage_f32_rows<D>(st, kLd, q + q_off + (size_t)r0 * D, n, kQ);
+      stage_f32_rows<D>(st + kQ * kLd, kLd, g + q_off + (size_t)r0 * D, n, kQ);
+      if (tid < kQ / 2) {
+        const bool is_lse = tid < kQ / 4;
+        const int c = 4 * (tid % (kQ / 4));
+        cp_async16(smem_u32(st + 2 * kQ * kLd + (is_lse ? 0 : kQ) + c), (is_lse ? lse2_pad : dsum_pad) + pad_off + r0 + c,
+                   true);
+      }
     }
-  }
+    cp_async_commit();
+  };
+  issue(0);
 
-  float dk_acc[kSlice], dv_acc[kSlice];
+  const int wk = tid / 32 * kWarpRows;  // the warp's first key in the block
+  const bool live = key0 + wk < Lk;
+  const float kbias[2] = {key_bias(mask_b, key0 + wk + gk, Lk, all_masked),
+                          key_bias(mask_b, key0 + wk + gk + 8, Lk, all_masked)};
+  const float* wkr = sk + (wk + gk) * kLd + 2 * t4;
+  const float* wvr = sv + (wk + gk) * kLd + 2 * t4;
+  float dka[kOut / 8][4], dva[kOut / 8][4];
 #pragma unroll
-  for (int d = 0; d < kSlice; ++d) dk_acc[d] = dv_acc[d] = 0.f;
-  for (int r0 = 0; r0 < Lq; r0 += kRows) {
-    const int nq = min(kRows, Lq - r0);
-    __syncthreads();  // the previous tile is consumed
-    stage_rows<D>(sq, q + ((size_t)bh * Lq + r0) * D, nq);
-    stage_rows<D>(sg, g + ((size_t)bh * Lq + r0) * D, nq);
-    if (threadIdx.x < kRows) {
-      slse2[threadIdx.x] = lse2_pad[(size_t)bh * Lq_pad + r0 + threadIdx.x];
-      sdsum[threadIdx.x] = dsum_pad[(size_t)bh * Lq_pad + r0 + threadIdx.x];
-    }
-    __syncthreads();
-    if (!valid) continue;  // a masked key gets dK = dV = 0 (its whole quad skips)
-    for (int i = 0; i < nq; ++i) {
-      float s = dot_slice<D>(sq, i, split, kf), dp = dot_slice<D>(sg, i, split, vf);
-      s += __shfl_xor_sync(quad, s, 1);
-      dp += __shfl_xor_sync(quad, dp, 1);
-      s += __shfl_xor_sync(quad, s, 2);
-      dp += __shfl_xor_sync(quad, dp, 2);
-      const float p = exp2f((all_masked ? 0.f : s * scale_log2) - slse2[i]);
-      axpy_slice<D>(sg, i, split, p, dv_acc);
-      axpy_slice<D>(sq, i, split, p * (dp - sdsum[i]), dk_acc);
-    }
-  }
-  if (!live) return;
-  const size_t out = ((size_t)bh * Lk + k0 + row) * D + split * kSlice;
+  for (int dn = 0; dn < kOut / 8; ++dn)
 #pragma unroll
-  for (int d = 0; d < kSlice; ++d) {
-    dk[out + d] = dk_acc[d] * scale;
-    dv[out + d] = dv_acc[d];
-  }
-}
-
-
-// Sum a dot product's four parts over the quad of a row (quad: its lanes).
-__device__ __forceinline__ float quad_total(unsigned quad, float x) {
-  x += __shfl_xor_sync(quad, x, 1);
-  return x + __shfl_xor_sync(quad, x, 2);
-}
-
-// This thread's quarter of a row of D floats from device memory.
-template <int D>
-__device__ __forceinline__ void load_slice(const float* row, int split, float* x) {
-  const uint4* r = reinterpret_cast<const uint4*>(row + split * (D / kSplit));
-#pragma unroll
-  for (int cc = 0; cc < D / kSplit / kVec; ++cc) unpack(r[cc], x + cc * kVec);
-}
-
-template <int D>
-__device__ __forceinline__ void store_slice(float* row, int split, const float* x, float mul) {
-  float4* r = reinterpret_cast<float4*>(row + split * (D / kSplit));
-#pragma unroll
-  for (int cc = 0; cc < D / kSplit / kVec; ++cc)
-    r[cc] = make_float4(x[4 * cc] * mul, x[4 * cc + 1] * mul, x[4 * cc + 2] * mul, x[4 * cc + 3] * mul);
-}
-
-// ---------------------------------------------------- dQ, float32, D = 128
-// attention_bwd_dq_kernel's contract with the head dim split as above.
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-attention_bwd_dq_slice(const float* __restrict__ q, const float* __restrict__ k,
-                       const float* __restrict__ v, const uint8_t* __restrict__ mask,
-                       const float* __restrict__ out, const float* __restrict__ lse,
-                       const float* __restrict__ g, float* __restrict__ dq,
-                       float* __restrict__ lse2_pad, float* __restrict__ dsum_pad, int H, int Lq,
-                       int Lk, int Lq_pad, float scale_log2, float scale) {
-  constexpr int kSlice = D / kSplit;
-  extern __shared__ __align__(16) uint8_t smem[];  // flash_f32_slice_smem_bytes
-  float* sk = reinterpret_cast<float*>(smem);
-  float* sv = sk + kFlashKeys * D;
-  uint8_t* smask = reinterpret_cast<uint8_t*>(sv + kFlashKeys * D);
-
-  const int bh = blockIdx.x;
-  const int q0 = blockIdx.y * kRows;
-  const int nq = min(kRows, Lq - q0);
-  const size_t kv_off = (size_t)bh * Lk * D;
-  const uint8_t* mask_b = mask ? mask + (size_t)(bh / H) * Lk : nullptr;
-  const bool all_masked = !any_valid_key(mask_b, Lk);
-
-  const int row = threadIdx.x / kSplit;
-  const int split = threadIdx.x % kSplit;
-  const unsigned quad = 0xfu << (threadIdx.x % 32 / kSplit * kSplit);
-  const bool live = row < nq;
-  const size_t q_row = (size_t)bh * Lq + q0 + (live ? row : 0);
-  float qf[kSlice], gf[kSlice], acc[kSlice];
-  load_slice<D>(q + q_row * D, split, qf);
-  load_slice<D>(g + q_row * D, split, gf);
-  float dsum = 0.f;
-  {
-    float of[kSlice];
-    load_slice<D>(out + q_row * D, split, of);
-#pragma unroll
-    for (int d = 0; d < kSlice; ++d) dsum = fmaf(gf[d], of[d], dsum);
-  }
-  dsum = live ? quad_total(quad, dsum) : 0.f;
-  const float lse2 = live ? lse[q_row] * kLog2e : INFINITY;
-  if (split == 0) {
-    lse2_pad[(size_t)bh * Lq_pad + q0 + row] = lse2;
-    dsum_pad[(size_t)bh * Lq_pad + q0 + row] = dsum;
-  }
-
-#pragma unroll
-  for (int d = 0; d < kSlice; ++d) acc[d] = 0.f;
-  for (int k0 = 0; k0 < Lk; k0 += kFlashKeys) {
-    const int nk = min(kFlashKeys, Lk - k0);
-    __syncthreads();  // the previous tile is consumed
-    stage_rows<D>(sk, k + kv_off + (size_t)k0 * D, nk);
-    stage_rows<D>(sv, v + kv_off + (size_t)k0 * D, nk);
-    stage_mask(smask, mask_b, k0, nk);
-    __syncthreads();
+    for (int e = 0; e < 4; ++e) dka[dn][e] = dva[dn][e] = 0.f;
+  for (int t = 0; t < tiles; ++t) {
+    cp_async_wait<0>();  // query tile t (and, first, K and V) has landed
+    __syncthreads();     // ... for every thread; tile t - 1's stage is free
+    issue(t + 1);
     if (!live) continue;
-    for (int j = 0; j < nk; ++j) {
-      if (!all_masked && !smask[j]) continue;
-      const float dot = quad_total(quad, dot_slice<D>(sk, j, split, qf));
-      const float dp = quad_total(quad, dot_slice<D>(sv, j, split, gf));
-      const float s = all_masked ? 0.f : dot * scale_log2;
-      axpy_slice<D>(sk, j, split, exp2f(s - lse2) * (dp - dsum), acc);
+    const float* sq = stage(t % 2);
+    const float* sg = sq + kQ * kLd;
+    const float* sl = sg + kQ * kLd;
+    const float* sd = sl + kQ;
+#pragma unroll 1
+    for (int r0 = 0; r0 < kQ; r0 += P::kGroup) {
+      float s[N][4], dp[N][4];  // S^T and dP^T: the warp's keys (rows) x the group's queries (columns)
+#pragma unroll
+      for (int n = 0; n < N; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+      tf32_scores<D, N, true>(wkr, sq + r0 * kLd, s);   // S^T = K Q^T
+      tf32_scores<D, N, true>(wvr, sg + r0 * kLd, dp);  // dP^T = V dO^T
+#pragma unroll
+      for (int n = 0; n < N; ++n) {
+        const float2 l2 = *reinterpret_cast<const float2*>(sl + r0 + 8 * n + 2 * t4);
+        const float2 dd = *reinterpret_cast<const float2*>(sd + r0 + 8 * n + 2 * t4);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {  // e % 2: query 2t + e % 2; e / 2: key row g or g + 8
+          s[n][e] = exp2f(fmaf(s[n][e], scale_p, kbias[e / 2]) - (e % 2 ? l2.y : l2.x));
+          dp[n][e] = s[n][e] * (dp[n][e] - (e % 2 ? dd.y : dd.x));
+        }
+      }
+      tf32_accumulate<D, N, kOut>(s, sg + r0 * kLd + c0, dva);   // dV += P^T dO
+      tf32_accumulate<D, N, kOut>(dp, sq + r0 * kLd + c0, dka);  // dK += dS^T Q
     }
   }
-  if (live) store_slice<D>(dq + q_row * D, split, acc, scale);
+  cp_async_wait<0>();
+  if (!live) return;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = key0 + wk + gk + 8 * r;
+    if (key >= Lk) continue;
+    const size_t at = ((size_t)bh * Lk + key) * D + c0 + 2 * t4;
+#pragma unroll
+    for (int dn = 0; dn < kOut / 8; ++dn) {
+      *reinterpret_cast<float2*>(dk + at + 8 * dn) = make_float2(dka[dn][2 * r] * scale, dka[dn][2 * r + 1] * scale);
+      *reinterpret_cast<float2*>(dv + at + 8 * dn) = make_float2(dva[dn][2 * r], dva[dn][2 * r + 1]);
+    }
+  }
 }
 
 // Query rows of the backward's scratch for one (batch*head): Lq rounded up
 // to the dQ kernel's row block, 128 for the bf16 Hopper pairs (head dims 64
-// and up) and 64 for every other body. The one rule for it: the launchers
-// pad by it, and the wrapper allocates by attention_backward_scratch_rows.
+// and up) and 64 for every other body (the bf16 mma.sync pair, the float32
+// 3xTF32 pair and the register-tiled one above 128: 64-row dQ blocks, and
+// dK/dV query tiles that divide 64). The one rule for it: the launchers pad
+// by it, and the wrapper allocates by attention_backward_scratch_rows.
 int scratch_rows(int dtype, int Lq, int D) {
   const int tile = dtype == 1 && D >= 64 ? kWgRows : kRows;
   return (Lq + tile - 1) / tile * tile;
@@ -3649,15 +3762,11 @@ attention_bwd_dkdv_fma(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ===================================================================== launch
-// Dynamic shared memory of the float32 bodies: K1 at D 16 and 32 (K and V,
-// the query tile and the mask bytes), the D = 128 dQ body (a 64-key tile of
-// K and V and its mask bytes) and dK/dV (a 64-row tile of Q and g, and
-// their lse2 and D).
+// Dynamic shared memory of float32 K1 at D 16 and 32: K and V, the query
+// tile and the mask bytes.
 size_t whole_kv_f32_smem_bytes(int Lk, int D) {
   return (size_t)2 * Lk * D * sizeof(float) + (size_t)kRows * D * sizeof(float) + Lk;
 }
-constexpr size_t flash_f32_slice_smem_bytes(int D) { return (size_t)2 * kFlashKeys * D * sizeof(float) + kFlashKeys; }
-constexpr size_t bwd_dkdv_f32_smem_bytes(int D) { return ((size_t)2 * kRows * D + 2 * kRows) * sizeof(float); }
 
 // The 3-D TMA map of a (B*H, L, D) bf16 tensor, read in boxes of `rows`
 // rows x 64 columns (a 128-byte panel, swizzled by 128 bytes) from any
@@ -3916,6 +4025,29 @@ int dispatch(bool flash, int dtype, const void* q, const void* k, const void* v,
   return (int)err;
 }
 
+// B.4's float32 pair up to head dim 128 (3xTF32): the dQ kernel over 64-row
+// query blocks (it writes the scratch, rows padded to 64), then the dK/dV
+// kernel over 64-key blocks, D / kOut of them a key block (grid z).
+template <int D>
+cudaError_t launch_backward_tf32(const float* q, const float* k, const float* v, const uint8_t* mask,
+                                 const float* out, const float* lse, const float* g, float* dq, float* dk, float* dv,
+                                 float* lse2_pad, float* dsum_pad, int B, int H, int Lq, int Lk, int Lq_pad,
+                                 float scale_log2, float scale, cudaStream_t stream) {
+  using P = Tf32Pair<D>;
+  const int BH = B * H;
+  if (BH > 65535 || Lq_pad % kRows != 0) return cudaErrorInvalidValue;
+  cudaError_t err;
+  if ((err = allow_smem(attention_bwd_dq_tf32<D>, P::kSmem)) != cudaSuccess) return err;
+  attention_bwd_dq_tf32<D><<<dim3(Lq_pad / kRows, BH), kFlashWarps * 32, P::kSmem, stream>>>(
+      q, k, v, mask, out, lse, g, dq, lse2_pad, dsum_pad, H, Lq, Lk, Lq_pad, scale_log2, scale);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if ((err = allow_smem(attention_bwd_dkdv_tf32<D>, P::kSmem)) != cudaSuccess) return err;
+  attention_bwd_dkdv_tf32<D><<<dim3((Lk + kRows - 1) / kRows, BH, D / P::kOut), kFlashWarps * 32, P::kSmem,
+                               stream>>>(q, k, v, mask, g, dk, dv, lse2_pad, dsum_pad, H, Lq, Lk, Lq_pad, scale_log2,
+                                         scale);
+  return cudaGetLastError();
+}
+
 // The backward pair: the dQ kernel (which writes the scratch), then the
 // dK/dV kernel, both on `stream`. scratch holds lse2 then D, each
 // (B*H, Lq_pad) floats.
@@ -3928,38 +4060,23 @@ cudaError_t launch_backward(const T* q, const T* k, const T* v, const uint8_t* m
   float* dsum_pad = scratch + (size_t)B * H * Lq_pad;
   // scale_log2 as the forward computes it, so that S is the forward's to the bit
   const float scale_log2 = kLog2e * scale;
-  if constexpr (!std::is_same_v<T, float> && D >= 64) {  // the Hopper pair
+  if constexpr (std::is_same_v<T, float>) {  // the 3xTF32 pair
+    return launch_backward_tf32<D>(q, k, v, mask, out, lse, g, dq, dk, dv, lse2_pad, dsum_pad, B, H, Lq, Lk, Lq_pad,
+                                   scale_log2, scale, stream);
+  } else if constexpr (D >= 64) {  // the Hopper pair
     return launch_backward_wgmma<D>(q, k, v, mask, out, lse, g, dq, dk, dv, lse2_pad, dsum_pad, B, H, Lq, Lk,
                                     Lq_pad, scale_log2, scale, stream);
   } else {
     const dim3 grid_q(B * H, Lq_pad / kRows), grid_k(B * H, (Lk + kTileKeys - 1) / kTileKeys);
     cudaError_t err;
-    if constexpr (std::is_same_v<T, float> && D > 64) {
-      constexpr size_t smem = flash_f32_slice_smem_bytes(D);
-      if ((err = allow_smem(attention_bwd_dq_slice<D>, smem)) != cudaSuccess) return err;
-      attention_bwd_dq_slice<D><<<grid_q, kThreads, smem, stream>>>(
-          q, k, v, mask, out, lse, g, dq, lse2_pad, dsum_pad, H, Lq, Lk, Lq_pad, scale_log2, scale);
-    } else if constexpr (std::is_same_v<T, float>) {
-      attention_bwd_dq_kernel<D><<<grid_q, kThreads, 0, stream>>>(
-          q, k, v, mask, out, lse, g, dq, lse2_pad, dsum_pad, H, Lq, Lk, Lq_pad, scale_log2, scale);
-    } else {
-      constexpr size_t smem = Ring<D, 1>::kBytes;
-      if ((err = allow_smem(attention_bwd_dq_mma<D>, smem)) != cudaSuccess) return err;
-      attention_bwd_dq_mma<D><<<grid_q, kFlashWarps * 32, smem, stream>>>(
-          q, k, v, mask, out, lse, g, dq, lse2_pad, dsum_pad, H, Lq, Lk, Lq_pad, scale_log2, scale);
-    }
+    constexpr size_t smem = Ring<D, 1>::kBytes;
+    if ((err = allow_smem(attention_bwd_dq_mma<D>, smem)) != cudaSuccess) return err;
+    attention_bwd_dq_mma<D><<<grid_q, kFlashWarps * 32, smem, stream>>>(
+        q, k, v, mask, out, lse, g, dq, lse2_pad, dsum_pad, H, Lq, Lk, Lq_pad, scale_log2, scale);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    if constexpr (std::is_same_v<T, float>) {
-      constexpr size_t smem = bwd_dkdv_f32_smem_bytes(D);
-      if ((err = allow_smem(attention_bwd_dkdv_kernel<D>, smem)) != cudaSuccess) return err;
-      attention_bwd_dkdv_kernel<D><<<grid_k, kThreads, smem, stream>>>(
-          q, k, v, mask, g, dk, dv, lse2_pad, dsum_pad, H, Lq, Lk, Lq_pad, scale_log2, scale);
-    } else {
-      constexpr size_t smem = Ring<D, 2>::kBytes;
-      if ((err = allow_smem(attention_bwd_dkdv_mma<D>, smem)) != cudaSuccess) return err;
-      attention_bwd_dkdv_mma<D><<<grid_k, kFlashWarps * 32, smem, stream>>>(
-          q, k, v, mask, g, dk, dv, lse2_pad, dsum_pad, H, Lq, Lk, Lq_pad, scale_log2, scale);
-    }
+    if ((err = allow_smem(attention_bwd_dkdv_mma<D>, Ring<D, 2>::kBytes)) != cudaSuccess) return err;
+    attention_bwd_dkdv_mma<D><<<grid_k, kFlashWarps * 32, Ring<D, 2>::kBytes, stream>>>(
+        q, k, v, mask, g, dk, dv, lse2_pad, dsum_pad, H, Lq, Lk, Lq_pad, scale_log2, scale);
     return cudaGetLastError();
   }
 }
@@ -4092,14 +4209,14 @@ const Entry kKernels[] = {
     {"attention_bwd_dkdv_wgmma<bf16,128>", (const void*)attention_bwd_dkdv_wgmma<128>},
     {"attention_bwd_dkdv_wgmma<bf16,192>", (const void*)attention_bwd_dkdv_wgmma<192>},
     {"attention_bwd_dkdv_wgmma<bf16,256>", (const void*)attention_bwd_dkdv_wgmma<256>},
-    {"attention_bwd_dq_kernel<float,16>", (const void*)attention_bwd_dq_kernel<16>},
-    {"attention_bwd_dq_kernel<float,32>", (const void*)attention_bwd_dq_kernel<32>},
-    {"attention_bwd_dq_kernel<float,64>", (const void*)attention_bwd_dq_kernel<64>},
-    {"attention_bwd_dq_slice<float,128>", (const void*)attention_bwd_dq_slice<128>},
-    {"attention_bwd_dkdv_kernel<float,16>", (const void*)attention_bwd_dkdv_kernel<16>},
-    {"attention_bwd_dkdv_kernel<float,32>", (const void*)attention_bwd_dkdv_kernel<32>},
-    {"attention_bwd_dkdv_kernel<float,64>", (const void*)attention_bwd_dkdv_kernel<64>},
-    {"attention_bwd_dkdv_kernel<float,128>", (const void*)attention_bwd_dkdv_kernel<128>},
+    {"attention_bwd_dq_tf32<float,16>", (const void*)attention_bwd_dq_tf32<16>},
+    {"attention_bwd_dq_tf32<float,32>", (const void*)attention_bwd_dq_tf32<32>},
+    {"attention_bwd_dq_tf32<float,64>", (const void*)attention_bwd_dq_tf32<64>},
+    {"attention_bwd_dq_tf32<float,128>", (const void*)attention_bwd_dq_tf32<128>},
+    {"attention_bwd_dkdv_tf32<float,16>", (const void*)attention_bwd_dkdv_tf32<16>},
+    {"attention_bwd_dkdv_tf32<float,32>", (const void*)attention_bwd_dkdv_tf32<32>},
+    {"attention_bwd_dkdv_tf32<float,64>", (const void*)attention_bwd_dkdv_tf32<64>},
+    {"attention_bwd_dkdv_tf32<float,128>", (const void*)attention_bwd_dkdv_tf32<128>},
     {"attention_panels_wgmma<bf16,192,K1>", (const void*)attention_panels_wgmma<192, true>},
     {"attention_panels_wgmma<bf16,256,K1>", (const void*)attention_panels_wgmma<256, true>},
     {"attention_panels_wgmma<bf16,192,K2>", (const void*)attention_panels_wgmma<192, false>},

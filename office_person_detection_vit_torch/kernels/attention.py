@@ -40,14 +40,15 @@ cores: K1 up to head dim 128, and K2 and the pair at head dims 16 and 32, on
 above 32 and K1 above 128 on Hopper's ``wgmma`` with TMA loads
 (:func:`is_wgmma_forward`, :func:`is_wgmma_pair`; two warpgroups of 64 rows
 a block; the library sizes the pair's scratch). In float32, K2 up to head
-dim 128 runs on the tensor cores as three TF32 products a float32 product
-(``attention_flash_tf32``, 3xTF32, :func:`is_tf32_forward`: ``mma.sync``
-m16n8k8, float32's accuracy); the rest on the CUDA cores: K1 at head dims
-16 and 32 and the pair up to 128 on four threads per row in 64-row blocks
-(at head dim 128 the pair's four split the head dim instead of the keys);
-K1 at 64 and 128 (three and two blocks an SM), every forward above 128 and
-the pair above 128 on the register-tiled bodies' 16 x 16 threads, each a
-4 x 4 block of scores.
+dim 128 and the backward pair up to 128 run on the tensor cores as three
+TF32 products a float32 product (``attention_flash_tf32`` and
+``attention_bwd_{dq,dkdv}_tf32``, 3xTF32, :func:`is_tf32_forward`,
+:func:`is_tf32_pair`: ``mma.sync`` m16n8k8, float32's accuracy); the rest on
+the CUDA cores: K1 at head dims 16 and 32 on four threads per row in 64-row
+blocks; K1 at 64 and 128 (three and two blocks an SM), every forward above
+128 and the pair above 128 on the register-tiled bodies' 16 x 16 threads,
+each a 4 x 4 block of scores. No path calls float32 K1 up to 128
+(:func:`use_flash`).
 
 The source is compiled beside the port's other CUDA sources (an ``nvcc`` a
 source, in parallel) for ``sm_90a`` and linked with them into a shared
@@ -328,8 +329,9 @@ def whole_kv_plan(lq: int, lk: int, head_dim: int, dtype: torch.dtype) -> dict:
             "smem_bytes": whole_kv_smem_bytes(lk, head_dim, dtype)}
 
 
-def use_flash(lk: int, head_dim: int, dtype: torch.dtype) -> bool:
-    """The whole-KV/flash switch, set by H100 measurements.
+def use_flash(head_dim: int, dtype: torch.dtype) -> bool:
+    """The whole-KV/flash switch, set by H100 measurements: by the padded
+    head dim and the type alone (the key count does not enter).
 
     bf16: always K2 (flash). Timed beside each other in ``chip_smoke.py``
     phase 2 (NVIDIA H100 80GB HBM3, 700.00 W; the run PERF.md's attention
@@ -340,46 +342,42 @@ def use_flash(lk: int, head_dim: int, dtype: torch.dtype) -> bool:
     exponential per score (it normalizes before rounding, as
     _fused_attn_kernel does) and, with a whole head's K/V in shared memory,
     runs one block an SM.
-    float32 at head dims 64 and 128 (33-128 padded): always K2 (its 3xTF32
-    body). Timed beside each other (K1, K2, K2, K1 on one input) at 50, 84,
-    197, 421, 920 and 3681 keys (Lq = Lk; B 8 and H 8 up to 920, B 1 at
-    3681) and every head dim (``attention_kernel_bench --ladder``, NVIDIA
-    H100 80GB HBM3, 700.00 W; PERF.md), K2 is faster at every length where
-    K1's block fits: at 50 keys 0.0063 / 0.0109 ms against K1's 0.0085 /
-    0.0126 at 64 / 128, at 197 keys 0.0246 / 0.0437 against 0.0496 /
-    0.0884, at 3681 0.5990 / 1.2638 against 1.6211 / 3.0946, and at CLIP's
-    (64, 12, 50, 50, 64) 0.0237 against 0.0321.
-    At head dims 16 and 32 K2 is faster too (0.0038 / 0.0045 against
-    0.0094 / 0.0134 ms at 50 keys, 0.0103 / 0.0147 against 0.0323 / 0.0501
-    at 197), yet float32 there keeps K1 where its block fits (up to 1,770
-    and 872 keys; K2 beyond, as DETR-R50's 920). The reason is neither speed
-    nor B.4's accuracy (the float32 pair holds 1e-5 against float64
-    autograd on K2's forward as well): two checks of ``chip_smoke.py`` that
-    hold the card against the CPU sit on near ties, and K1's results land on
-    the CPU's side of both while K2's do not. On K2 one association of the
-    DETR-small showcase's tracker ([11b]) went the other way, and the VITW
-    DETR's float32 gradients ([14a]) read 6.57e-3 of their bar's scale
-    against 2.83e-6 on K1 (bar 1e-3), where K2's own outputs are within
-    about 1e-6 of the plain version's. These head dims follow the ladder
-    once those checks are well conditioned. K1's float32 panel bodies at
-    64 and 128 have no call left. Above head dim 128 both types
-    run panel bodies: bf16 takes K2 (the in-line Hopper body at 192 and
-    256, the bf16 panel body above) and float32 K1 (the float32 panel
-    body), which fits at any Lk.
+    float32 up to head dim 128 (every head dim padded to 16, 32, 64 or 128):
+    always K2 (its 3xTF32 body). Timed beside each other (K1, K2, K2, K1 on
+    one input) at 50, 84, 197, 421, 920 and 3681 keys (Lq = Lk; B 8 and H 8
+    up to 920, B 1 at 3681) and every head dim (``attention_kernel_bench
+    --ladder``, NVIDIA H100 80GB HBM3, 700.00 W; PERF.md §6), K2 is
+    faster at every length where K1's block fits: at 50 keys
+    0.0038 / 0.0045 / 0.0063 / 0.0109 ms against K1's 0.0094 / 0.0134 /
+    0.0085 / 0.0126 at head dims 16 / 32 / 64 / 128, at 197 keys 0.0103 /
+    0.0147 / 0.0246 / 0.0437 against 0.0323 / 0.0501 / 0.0496 / 0.0884, at
+    3681 0.5990 / 1.2638 against 1.6211 / 3.0946 at 64 / 128, at CLIP's
+    (64, 12, 50, 50, 64) 0.0237 against 0.0321 and at DETR-small's
+    encoder (1, 8, 84, 84, 16) 0.0049 against 0.0133.
+    Head dims 16 and 32 once kept K1 where its block fits, for two
+    card-against-CPU checks of ``chip_smoke.py`` that sat on near ties
+    ([11b]'s tracker, [14a]'s float32 gradients); those checks now hold the
+    card's continuous outputs to their bars and take the discrete branches
+    from one side (``check_conditioning``), so nothing keeps K1 there.
+    Above head dim 128 both types run panel bodies: bf16 takes K2 (the
+    in-line Hopper body at 192 and 256, the bf16 panel body above) and
+    float32 K1 (the float32 panel body), which fits at any Lk. No path
+    calls float32 K1 up to 128 (its bodies stay for the bench, ROADMAP
+    B.S5).
     (The JAX package's 8 MB ``_FLASH_BYTES_THRESHOLD`` is a TPU VMEM figure
     and does not apply.)
     """
-    if dtype == torch.bfloat16 or kernel_head_dim(head_dim) in (64, 128):
-        return True
-    return not whole_kv_fits(lk, head_dim, dtype)
+    return dtype == torch.bfloat16 or not is_wide(head_dim)
 
 
 def is_wgmma_forward(head_dim: int, dtype: torch.dtype, flash: bool = True) -> bool:
     """Whether a forward of ``head_dim`` runs a Hopper body (wgmma, TMA):
     bf16 K2 (``flash``) at every head dim above 32 (64 and 128 the
     producer-warp body, 192 and 256 the in-line one, above 256 the panel
-    body), bf16 K1 above 128 (the panel body); K1 up to 128 and K2 at 16
-    and 32 run ``mma.sync``, float32 the CUDA cores."""
+    body), bf16 K1 above 128 (the panel body); bf16 K1 up to 128 and K2 at
+    16 and 32 run ``mma.sync``; float32 K2 up to 128 runs ``mma.sync`` in
+    3xTF32 (:func:`is_tf32_forward`), every other float32 forward the CUDA
+    cores."""
     return dtype == torch.bfloat16 and kernel_head_dim(head_dim) > (32 if flash else HEAD_DIMS[-1])
 
 
@@ -387,8 +385,9 @@ def is_wgmma_pair(head_dim: int, dtype: torch.dtype) -> bool:
     """Whether the backward pair of a call of ``head_dim`` runs the Hopper
     bodies: bf16 at every head dim above 32 (64, 128, 192 and 256 and those
     padded to them on ``attention_bwd_*_wgmma*``, above 256 on the column
-    panels of ``attention_bwd_*_wgmma_panels``); D 16 and 32 run
-    ``mma.sync``, float32 the CUDA cores."""
+    panels of ``attention_bwd_*_wgmma_panels``); bf16 at D 16 and 32 runs
+    ``mma.sync``, float32 up to 128 ``mma.sync`` in 3xTF32
+    (:func:`is_tf32_pair`) and above 128 the CUDA cores."""
     return dtype == torch.bfloat16 and kernel_head_dim(head_dim) > 32
 
 
@@ -397,6 +396,14 @@ def is_tf32_forward(head_dim: int, dtype: torch.dtype, flash: bool = True) -> bo
     (``attention_flash_tf32``: three TF32 products a float32 product on the
     tensor cores): float32 K2 up to head dim 128."""
     return dtype == torch.float32 and flash and not is_wide(head_dim)
+
+
+def is_tf32_pair(head_dim: int, dtype: torch.dtype) -> bool:
+    """Whether the backward pair of a call of ``head_dim`` runs the 3xTF32
+    bodies (``attention_bwd_dq_tf32`` + ``attention_bwd_dkdv_tf32``: three
+    TF32 products a float32 product on the tensor cores): float32 up to
+    head dim 128."""
+    return dtype == torch.float32 and not is_wide(head_dim)
 
 
 def load_library() -> ctypes.CDLL:

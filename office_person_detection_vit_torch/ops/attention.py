@@ -114,7 +114,7 @@ def attention_backward_reference(q, k, v, key_padding_mask, out, lse, g, scale=N
 def _kernel_forward(q, k, v, key_padding_mask, with_lse=False):
     from ..kernels import attention as kernels
 
-    fn = kernels.attention_flash if kernels.use_flash(k.shape[2], q.shape[3], q.dtype) else kernels.attention_whole_kv
+    fn = kernels.attention_flash if kernels.use_flash(q.shape[3], q.dtype) else kernels.attention_whole_kv
     return fn(q, k, v, key_padding_mask, with_lse=with_lse)
 
 

@@ -134,41 +134,36 @@ def test_one_library_builds_every_source():
 
 
 @pytest.mark.parametrize(
-    "lk,d,dtype,flash",
+    "d,dtype,flash",
     [
-        (920, 32, torch.bfloat16, True),  # DETR-R50 encoder/cross-attention in bf16: K2 measured faster
-        (100, 32, torch.bfloat16, True),  # its decoder self-attention in bf16: K2 measured faster too
-        (920, 32, torch.float32, True),  # the same in float32: 244,632 B > 227 KB
-        (100, 32, torch.float32, False),  # decoder self-attention: float32 keeps K1 at 16 and 32 where it fits
-        (196, 32, torch.float32, False),  # the ViT DETRs' encoder at 224x224
-        (872, 32, torch.float32, False),  # the most keys K1's block holds at 32
-        (873, 32, torch.float32, True),
-        (3680, 32, torch.bfloat16, True),  # DETR-DC5 at 736x1280
-        (84, 16, torch.float32, False),  # small tier at 224x384
-        (25, 16, torch.float32, False),  # its decoder self-attention
-        (1770, 16, torch.float32, False),  # the most keys K1's block holds at 16
-        (1771, 16, torch.float32, True),
-        (3681, 64, torch.bfloat16, True),  # ViT-base/16 at 736x1280
-        (3681, 64, torch.float32, True),  # the same in float32
-        (197, 64, torch.float32, True),  # ViT-base at 224x224
-        (65, 48, torch.float32, True),  # a padded head dim
-        (197, 80, torch.float32, True),  # ViT-H/14 at 224x224 (80 padded to 128)
-        (3681, 128, torch.bfloat16, True),  # head dim 128 on the ViT detect's token count
-        (197, 256, torch.float32, False),  # above 128 the panel K1 fits at any Lk: float32 takes it
-        (8192, 136, torch.float32, False),
-        (8192, 256, torch.bfloat16, True),
-        # float32 at 64 and 128 from attention_kernel_bench --ladder: K2 (3xTF32) faster than K1 at every
-        # length (50 to 3681 keys), CLIP's 50 keys at 64 too
-        (50, 64, torch.float32, True),
-        (84, 64, torch.float32, True),
-        (50, 128, torch.float32, True),
-        (1, 33, torch.float32, True),
-        (1, 32, torch.float32, False),
-        (1, 1, torch.float32, False),
+        (32, torch.bfloat16, True),  # DETR-R50 and DC5 in bf16: K2 measured faster at all three R50 shapes
+        (16, torch.bfloat16, True),
+        (64, torch.bfloat16, True),  # ViT-base/16 at 736x1280
+        (80, torch.bfloat16, True),  # ViT-H (80 padded to 128)
+        (128, torch.bfloat16, True),
+        (136, torch.bfloat16, True),  # padded to 192: the in-line Hopper body
+        (256, torch.bfloat16, True),  # the VITW DETR
+        (320, torch.bfloat16, True),  # the bf16 panel body
+        # float32 up to 128 from attention_kernel_bench --ladder: K2 (3xTF32) faster than K1 at every
+        # length (50 to 3681 keys) and head dim, CLIP's 50 keys at 64 too; the key count does not enter
+        (1, torch.float32, True),
+        (16, torch.float32, True),  # DETR-small at 224x384: K2 0.0049 ms against K1's 0.0133
+        (17, torch.float32, True),
+        (32, torch.float32, True),  # DETR-R50 in float32, the ViT DETRs' encoder at 224x224
+        (33, torch.float32, True),
+        (48, torch.float32, True),  # a padded head dim
+        (64, torch.float32, True),  # ViT-base and CLIP ViT-B/32 Re-ID
+        (80, torch.float32, True),  # ViT-H/14 at 224x224 (80 padded to 128)
+        (128, torch.float32, True),
+        (129, torch.float32, False),  # above 128 the panel K1 fits at any Lk: float32 takes it
+        (136, torch.float32, False),
+        (192, torch.float32, False),
+        (256, torch.float32, False),  # the VITW DETR in float32
+        (320, torch.float32, False),
     ],
 )
-def test_dispatch_rule(lk, d, dtype, flash):
-    assert kernels.use_flash(lk, d, dtype) is flash
+def test_dispatch_rule(d, dtype, flash):
+    assert kernels.use_flash(d, dtype) is flash
 
 
 @pytest.mark.parametrize("d,want", [(1, 16), (16, 16), (17, 32), (32, 32), (33, 64), (48, 64), (64, 64),
@@ -192,7 +187,7 @@ def test_head_dims_off_the_kernels_raise_naming_c7(d):
     seen = []
     out = kernels.padded_call(lambda *t, scale: seen.append((t[0].shape[-1], scale)) or t[0], q, q, q)
     assert out.shape == q.shape and seen == [(kernels.kernel_head_dim(d), pytest.approx(d**-0.5))]
-    assert not kernels.use_flash(197, d, torch.float32) and kernels.whole_kv_fits(4096, d, torch.float32)
+    assert not kernels.use_flash(d, torch.float32) and kernels.whole_kv_fits(4096, d, torch.float32)
 
 
 def _scaled_plain(q, k, v, mask, with_lse):
@@ -429,6 +424,27 @@ def test_float32_k2_is_the_3xtf32_body(d, dtype):
     assert {f"attention_flash_tf32<float,{n}>" for n in kernels.HEAD_DIMS} <= _COMPILED
 
 
+@pytest.mark.parametrize("d", [16, 20, 32, 48, 64, 80, 128, 136, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_float32_pair_is_the_3xtf32_body(d, dtype):
+    """is_tf32_pair (which labels the bench's backward rows and sets their
+    bound) holds for the float32 pair up to head dim 128 and those padded
+    to it, and there the source compiles both 3xTF32 kernels
+    (``attention_bwd_dq_tf32``, ``attention_bwd_dkdv_tf32``) at the padded
+    head dim; bf16 and head dims above 128 are not it. The float32 pair of
+    the CUDA cores up to 128 is gone (``attention_bwd_dq_kernel``,
+    ``attention_bwd_dq_slice``, ``attention_bwd_dkdv_kernel``)."""
+    tf32 = dtype == torch.float32 and d <= 128
+    assert kernels.is_tf32_pair(d, dtype) is tf32
+    assert not (tf32 and kernels.is_wgmma_pair(d, dtype))
+    if tf32:
+        kd = kernels.kernel_head_dim(d)
+        assert {f"attention_bwd_dq_tf32<float,{kd}>", f"attention_bwd_dkdv_tf32<float,{kd}>"} <= _COMPILED
+    assert not any(n.startswith(("attention_bwd_dq_kernel", "attention_bwd_dq_slice", "attention_bwd_dkdv_kernel"))
+                   for n in _COMPILED)
+    assert {f"attention_bwd_{k}_tf32<float,{n}>" for k in ("dq", "dkdv") for n in kernels.HEAD_DIMS} <= _COMPILED
+
+
 def test_bench_bound_of_the_3xtf32_body():
     """The 3xTF32 body's bound counts its float32 products at the TF32
     tensor rate over three (495 / 3 TFLOP/s), not at the CUDA cores' float32
@@ -444,6 +460,13 @@ def test_bench_bound_of_the_3xtf32_body():
     assert abench.instruction(kernels, "attention_flash", 64, torch.float32) == abench.TF32_INSTRUCTION
     assert abench.instruction(kernels, "attention_whole_kv", 32, torch.float32) == abench.INSTRUCTION[torch.float32]
     assert abench.instruction(kernels, "attention_backward", 320, torch.bfloat16) == abench.WGMMA_INSTRUCTION
+    # the float32 pair up to 128: its five products at the same rate (10 flops a query-key-dim)
+    pair = (2, 8, 197, 197, 128)
+    assert abench.instruction(kernels, "attention_backward", 128, torch.float32) == abench.TF32_INSTRUCTION
+    assert abench.pair_rate(kernels, 128, torch.float32) == abench.TF32X3_FLOPS
+    assert abench.pair_rate(kernels, 256, torch.float32) is None and abench.pair_rate(kernels, 64, torch.bfloat16) is None
+    assert abench.b4_bound(pair, torch.float32, None, True, abench.TF32X3_FLOPS) == (
+        pytest.approx(10.0 * 8 * 197 * 2 * 197 * 128 / (495e12 / 3) * 1e3, rel=1e-12), "operations")
 
 
 def test_chip_smoke_counts_wgmma_apart_from_mma():

@@ -152,8 +152,9 @@ def test_kernel_matches_plain_at_the_main_path_shapes(card, fn, shape):
 
 
 def test_dispatch_takes_the_kernels(card):
-    """multi_head_attention launches the kernel use_flash names: bf16 K2 at
-    920 and at 100 keys; float32 K2 at 920 keys (K1 does not fit), K1 at 100."""
+    """multi_head_attention launches the kernel use_flash names: K2 at 920
+    and at 100 keys in both types (float32 takes K2 at every head dim up to
+    128, the 3xTF32 body)."""
     q, k, v, mask = _case(1, 2, 50, 920, 32, torch.float32, True)
     short = [t[:, :, :100].contiguous() for t in (k, v)]
     before = dict(kernels.launch_counts)
@@ -161,8 +162,8 @@ def test_dispatch_takes_the_kernels(card):
     multi_head_attention(q, *short, mask[:, :100].contiguous())
     multi_head_attention(q.bfloat16(), k.bfloat16(), v.bfloat16(), mask)
     multi_head_attention(q.bfloat16(), *(t.bfloat16() for t in short), mask[:, :100].contiguous())
-    assert kernels.launch_counts["attention_flash"] == before["attention_flash"] + 3
-    assert kernels.launch_counts["attention_whole_kv"] == before["attention_whole_kv"] + 1
+    assert kernels.launch_counts["attention_flash"] == before["attention_flash"] + 4
+    assert kernels.launch_counts["attention_whole_kv"] == before["attention_whole_kv"]
 
 
 @pytest.mark.parametrize(
@@ -373,6 +374,31 @@ def test_b4_gradients_match_plain_autograd(card, dtype, Lq, Lk, D, all_masked):
     single query; a single key is held in the forward tests only, since
     there every row's P is 1 and dq, dk vanish: the bar's second reading
     (relative to the largest |ref|) would divide rounding by rounding."""
+    _check_b4(dtype, Lq, Lk, D, all_masked)
+
+
+#: (Lq, Lk) across the float32 3xTF32 pair's edges: 16-row warps, 64-row dQ
+#: blocks and 64-key dK/dV blocks, key and query tiles of 64, 32 and 16
+#: rows (D 16/32, 64, 128), and a single query.
+TF32_PAIR_L = ((1, 15), (15, 17), (17, 15), (63, 65), (65, 63), (127, 129), (129, 127), (300, 260))
+
+
+@pytest.mark.parametrize("D", [16, 32, 64, 128])
+@pytest.mark.parametrize("Lq,Lk", [*TF32_PAIR_L, (4033, 3681)])
+@pytest.mark.parametrize("all_masked", [False, True], ids=["ragged", "all_masked_entry"])
+def test_tf32_pair_matches_plain_autograd_at_tile_edges(card, D, Lq, Lk, all_masked):
+    """The float32 pair up to head dim 128 (attention_bwd_{dq,dkdv}_tf32,
+    three TF32 products a float32 product) through B.4 at its tile edges,
+    with a ragged mask and an all-masked entry, against float64 autograd
+    and the pair's plain version at 1e-5 (test_b4_gradients_match_plain_
+    autograd's checks); 4033 query rows summed into dK and dV and 3681 keys
+    into dQ, for the tensor cores' accumulation (each group of 32 summed
+    apart)."""
+    assert kernels.is_tf32_pair(D, torch.float32)
+    _check_b4(torch.float32, Lq, Lk, D, all_masked)
+
+
+def _check_b4(dtype, Lq, Lk, D, all_masked):
     from office_person_detection_vit_torch.ops import attention as oa
 
     q, k, v, mask = _case(2, 2, Lq, Lk, D, dtype, True, seed=5)
@@ -510,7 +536,7 @@ def test_k1_bf16_refuses_lse(card):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("D", [32, 64, 48, 128, 192, 80, 256, 320, 384])
+@pytest.mark.parametrize("D", [16, 32, 64, 48, 128, 192, 80, 256, 320, 384])
 @pytest.mark.parametrize("Lq,Lk", [(300, 260), (4033, 3681)])
 def test_backward_pair_is_deterministic(card, dtype, D, Lq, Lk):
     """Two calls of the pair on the same inputs give the same bits (no

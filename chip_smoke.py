@@ -447,6 +447,8 @@ def kernel_resources(ka, kb, build) -> None:
             fits = ka.whole_kv_fits(920, d, dtype)
             dyn = f"{ka.whole_kv_plan(920, 920, d, dtype)['smem_bytes']:6d} B at Lk 920" if fits else \
                 "none at Lk 920 (K2)"
+        elif "wgmma_narrow" in base:  # D 16 and 32: the source's NarrowLayout (64 rows a consumer warpgroup)
+            dyn = "NarrowLayout (source)"
         elif "wgmma" in base:  # the Hopper bodies: the source's WgLayout, bounded there by a static_assert
             dyn = "WgLayout (source)"
         elif base.startswith("attention_bwd_") and "tf32" in base:  # the 3xTF32 pair (Tf32Pair in the source)
@@ -456,8 +458,6 @@ def kernel_resources(ka, kb, build) -> None:
         elif "tf32" in base:  # two stages of K (D + 8 floats a row), V (D + 4) and the key bias
             keys = 32 if d == 128 else 64
             dyn = f"{2 * (keys * (2 * d + 12) + keys) * 4:6d} B (two stages)"
-        elif dtype == torch.bfloat16:  # the ring of csrc/attention.cu::Ring: 3 slots of two tiles and the vectors
-            dyn = f"{3 * (2 * 64 * d * 2 + (2 if 'dkdv' in base else 1) * 64 * 4):6d} B (ring)"
         else:
             dyn = "     0 B"
         ops = check_tensor_cores(a, ops_of(counts, a["name"]), "1")
@@ -1476,6 +1476,7 @@ TRAIN_HW, TRAIN_BATCH, TRAIN_IMAGES = (768, 1344), 8, 16
 B4_CASES = [((8, 8, 1008, 1008, 32), "bfloat16", True, "R50 encoder, 768x1344"),
             ((8, 8, 100, 1008, 32), "bfloat16", True, "R50 cross, 768x1344"),
             ((8, 8, 100, 100, 32), "bfloat16", False, "R50 decoder self"),
+            ((1, 8, 84, 84, 16), "bfloat16", True, "head dim 16 in bf16 at DETR-small's encoder shape"),
             ((1, 8, 84, 84, 16), "float32", True, "DETR-small encoder"),
             ((2, 8, 196, 196, 32), "float32", True, "the ViT DETRs' float32 encoder at 224x224")]
 # DETR-small's card step against its CPU step (float32, TF32 off): each
@@ -4735,9 +4736,14 @@ def run(writer: subprocess.Popen, videos: Path, dataset_writer: subprocess.Popen
                                        "phase 10d main --fine-tune, 2 steps": train["handoff"]["attention_flash"],
                                        "phase 11c DETR-R50 through phases 2-4 with tracking":
                                            tracking["load"]["attention_flash"]}}
+    # The bodies bf16 K2 runs on DETR-R50's path (use_flash, narrow_wg in the
+    # source): the encoder's 920 queries two consumer warpgroups a block, the
+    # decoder's 100 one.
+    bodies = {"attention_flash": "attention_flash_wgmma_narrow<bf16,32,2> (encoder), "
+                                 "attention_flash_wgmma_narrow<bf16,32,1> (decoder cross and self)"}
     kernels = [
         {"name": name, "route": "cuda", "source": "office_person_detection_vit_torch/csrc/attention.cu",
-         "replaces": replaces[name], "launches": counts[name], "launches_on": path,
+         "body": bodies[name], "replaces": replaces[name], "launches": counts[name], "launches_on": path,
          "launches_other_paths": other_paths[name],
          **{k: rows[key][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                                       "shape", "dtype", "instruction")}}
@@ -4777,8 +4783,10 @@ def run(writer: subprocess.Popen, videos: Path, dataset_writer: subprocess.Popen
                                "forward_ms", "backward_ms", "backward_bound_ms", "backward_bound_by",
                                "shape", "dtype")},
         "backward_library_ms": enc["library_backward_ms"],
-        "instruction": "mma.sync.m16n8k16 (bf16: the K2 forward and the backward pair); mma.sync.m16n8k8 3xTF32 "
-                       "(float32 up to head dim 128)",
+        "body": "attention_flash_wgmma_narrow<bf16,32,2> (the encoder; <bf16,32,1> at the decoder's 100 "
+                "queries) + attention_bwd_dq_wgmma_narrow<bf16,32> + attention_bwd_dkdv_wgmma_narrow<bf16,32>",
+        "instruction": "wgmma.m64nNk16 + TMA (bf16: the K2 forward and the backward pair); mma.sync.m16n8k8 "
+                       "3xTF32 (float32 up to head dim 128)",
     })
     kernels.append({
         "name": "attention_backward", "route": "cuda", "source": "office_person_detection_vit_torch/csrc/attention.cu",
@@ -4789,7 +4797,8 @@ def run(writer: subprocess.Popen, videos: Path, dataset_writer: subprocess.Popen
         "max_abs_err": enc["max_abs_err"], "ms": enc["pair_ms"], "plain_ms": enc["plain_backward_ms"],
         "bound_ms": enc["backward_bound_ms"], "bound_by": enc["backward_bound_by"],
         "library_ms": enc["library_backward_ms"], "shape": enc["shape"], "dtype": enc["dtype"],
-        "instruction": "mma.sync.m16n8k16 (bf16); mma.sync.m16n8k8 3xTF32 (float32 up to head dim 128)",
+        "body": "attention_bwd_dq_wgmma_narrow<bf16,32> + attention_bwd_dkdv_wgmma_narrow<bf16,32>",
+        "instruction": "wgmma.m64nNk16 + TMA (bf16); mma.sync.m16n8k8 3xTF32 (float32 up to head dim 128)",
     })
     # The float32 pair up to head dim 128 (attention_bwd_{dq,dkdv}_tf32, 3xTF32): its row at [10a]'s
     # D-32 shape, its launches on [14a]'s float32 VITW gradients (the DETR's 18 calls at head dim 32).

@@ -8,8 +8,11 @@ For each case of :data:`CASES` and :data:`VIT_CASES` it holds the kernel (``kern
 against the plain version on the same inputs (:data:`TOLERANCE`, absolute)
 and reports its device time (:func:`cuda_ms`), the plain version's, SDPA's
 (``scaled_dot_product_attention``, the library call for the same function),
-the bound, the host's microseconds a wrapper call (:func:`host_us`) and the
-card's name and power limit. Then B.4's backward pair at each of
+the bound and beside it the exponentials' least time at the card's maximum
+SM clock (:func:`exp_ms`), the
+host's microseconds a wrapper call (:func:`host_us`) and the card's name and
+power limit; the :data:`PADDED_64` row runs the head-dim-64 body on DETR-R50's
+encoder input zero-padded to 64. Then B.4's backward pair at each of
 :data:`BACKWARD_CASES` against the pair's plain version (:data:`B4_BAR`),
 beside the plain version's time, SDPA's backward and the pair's bound.
 ``--ladder`` then times float32 K1 beside K2 (K1, K2, K2, K1) at every head
@@ -40,6 +43,7 @@ import importlib.util
 import json
 import re
 import statistics
+import subprocess
 import sys
 import time
 from pathlib import Path
@@ -48,6 +52,10 @@ import torch
 
 from .ops.attention import attention_reference
 
+#: The D-64 Hopper K2 on an input zero-padded to head dim 64 (with the true
+#: scale; the padding is done before the timed calls), the route the narrow
+#: bodies at D 16 and 32 must beat.
+PADDED_64 = "attention_flash_padded_64"
 #: (kernel, (B, H, Lq, Lk, D), type, ragged key mask, the path that gives the
 #: shape). DETR-R50 and DC5 at 736x1280 (920 and 3680 tokens, 100 queries),
 #: DETR-small at 224x384 (84 tokens, 25 queries, head dim 16). The float32
@@ -60,8 +68,10 @@ CASES = [
     ("attention_flash", (2, 8, 3680, 3680, 32), "bfloat16", True, "DC5 encoder"),
     ("attention_flash", (2, 8, 100, 3680, 32), "bfloat16", True, "DC5 cross"),
     ("attention_flash", (8, 8, 920, 920, 32), "bfloat16", True, "R50 encoder (main path)"),
+    (PADDED_64, (8, 8, 920, 920, 32), "bfloat16", True, "R50 encoder on the D-64 body, input zero-padded to 64"),
     ("attention_flash", (8, 8, 100, 920, 32), "bfloat16", True, "R50 cross (main path)"),
     ("attention_flash", (8, 8, 100, 100, 32), "bfloat16", False, "R50 decoder self (main path)"),
+    ("attention_flash", (1, 8, 84, 84, 16), "bfloat16", True, "head dim 16 in bf16 (DETR-small's encoder shape)"),
     ("attention_flash", (8, 8, 920, 920, 32), "float32", True, "float32 encoder, B 8"),
     ("attention_flash", (2, 8, 100, 920, 32), "float32", True, "float32 R50 cross"),
     ("attention_whole_kv", (2, 8, 100, 100, 32), "float32", False, "float32 R50 decoder self, K1 (no path caller, B.S5)"),
@@ -110,7 +120,9 @@ BACKWARD_CASES = [
     ((8, 12, 4033, 4033, 64), "bfloat16", "ViT-base/16 training at 768x1344, batch 8"),
     ((8, 8, 1008, 1008, 128), "bfloat16", "head dim 128 at DETR-R50's training tokens"),
     ((8, 16, 4033, 4033, 80), "bfloat16", "ViT-H/16's heads training (80, padded to 128)"),
-    ((8, 8, 1008, 1008, 32), "bfloat16", "DETR-R50 training encoder (mma.sync bodies)"),
+    ((8, 8, 1008, 1008, 32), "bfloat16", "DETR-R50 training encoder (the narrow wgmma pair)"),
+    ((8, 8, 100, 1008, 32), "bfloat16", "DETR-R50 training cross-attention (100 queries)"),
+    ((8, 8, 100, 100, 32), "bfloat16", "DETR-R50 training decoder self-attention"),
     ((8, 4, 4033, 4033, 256), "bfloat16", "the VITW DETR's training at 768x1344, batch 8"),
     ((1, 4, 1008, 1008, 192), "bfloat16", "heads of 192 at 1008 tokens"),
     ((2, 4, 197, 197, 256), "float32", "heads of 256 at 224x224, float32 (the VITW DETR's float32 gradients)"),
@@ -142,8 +154,8 @@ DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 TOLERANCE = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 #: The instruction that does the products, by type.
 INSTRUCTION = {torch.bfloat16: "mma.sync.m16n8k16", torch.float32: "FFMA (CUDA cores)"}
-#: The Hopper bodies: bf16 K2 above head dim 32, bf16 K1 above 128 and the
-#: pair at 64 to 256.
+#: The Hopper bodies: bf16 K2 and the bf16 pair at every head dim, bf16 K1
+#: above 128.
 WGMMA_INSTRUCTION = "wgmma.m64nNk16 + TMA"
 #: The register-tiled float32 bodies (4 x 4 tiles a thread): float32 K1 at
 #: head dims 64 and 128, every float32 forward above 128 and the float32
@@ -157,11 +169,16 @@ TF32_INSTRUCTION = "mma.sync.m16n8k8 3xTF32"
 # non-tensor float32 FLOP/s.
 PEAK_BYTES = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+#: Exponentials the SFUs issue an SM a clock. At DETR's head dims in bf16
+#: these, not the products, set the floor (:func:`exp_ms`, at
+#: :func:`exp_rate`).
+EXP_PER_SM_CLOCK = 16
 #: The float32 work rate of the 3xTF32 body: the TF32 tensor-core peak (495
 #: TFLOP/s, dense) over its three products a float32 product.
 TF32X3_FLOPS = 495e12 / 3
 
 _cycles_per_ms: float | None = None
+_exp_rate: float | None = None
 
 
 def relative_errors(got, want) -> tuple[float, float]:
@@ -204,6 +221,28 @@ def bound(shape, dtype: torch.dtype, mask, flops_rate: float | None = None) -> t
     nbytes = (2 * B * H * Lq * D + 2 * B * H * Lk * D) * item + (0 if mask is None else B * Lk)
     t_ops, t_bytes = flops / (flops_rate or PEAK_FLOPS[dtype]) * 1e3, nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def exp_rate() -> float:
+    """The card's exponentials a second at its peak: :data:`EXP_PER_SM_CLOCK`
+    on each of its SMs at its maximum SM clock (nvidia-smi's
+    ``clocks.max.sm``), read once."""
+    global _exp_rate
+    if _exp_rate is None:
+        mhz = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                             capture_output=True, text=True, check=True).stdout.split()[0]
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        _exp_rate = EXP_PER_SM_CLOCK * sms * float(mhz) * 1e6
+    return _exp_rate
+
+
+def exp_ms(shape, mask, per_score: int = 1, rate: float | None = None) -> float:
+    """Least ms of the exponentials of a call at ``rate`` a second (by
+    default the card's, :func:`exp_rate`): ``per_score`` (K2 one, the
+    backward pair two: P in both kernels) for each query and valid key."""
+    B, H, Lq, Lk, _ = shape
+    valid = Lk * B if mask is None else int(mask.sum().item())
+    return per_score * H * Lq * valid / (rate or exp_rate()) * 1e3
 
 
 def b4_bound(shape, dtype, mask, backward_only: bool = False, flops_rate: float | None = None) -> tuple[float, str]:
@@ -311,8 +350,8 @@ def measure(kernels, case, seed: int, iters: int = 20) -> dict:
     error, times and bound."""
     name, shape, dt, masked, path = case
     dtype = DTYPES[dt]
-    fn = getattr(kernels, name)
     q, k, v, mask = make_inputs(shape, dtype, masked, seed)
+    fn = wrapper(kernels, name, q, k, v)
     err = max_error(fn, q, k, v, mask)
     sdpa_mask = None if mask is None else mask[:, None, None, :]
     tf32 = kernels.is_tf32_forward(shape[4], dtype, flash=name == "attention_flash")
@@ -325,9 +364,25 @@ def measure(kernels, case, seed: int, iters: int = 20) -> dict:
         "plain_ms": cuda_ms(lambda: attention_reference(q, k, v, mask), 5),
         "library_ms": cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
             q, k, v, attn_mask=sdpa_mask), iters),
-        "bound_ms": bound_ms, "bound_by": bound_by,
-        "instruction": instruction(kernels, name, shape[4], dtype),
+        "bound_ms": bound_ms, "bound_by": bound_by, "exp_ms": exp_ms(shape, mask),
+        "instruction": instruction(kernels, "attention_flash" if name == PADDED_64 else name,
+                                   64 if name == PADDED_64 else shape[4], dtype),
     }
+
+
+def wrapper(kernels, name: str, q, k, v):
+    """The wrapper of a case: ``kernels.<name>``, or for :data:`PADDED_64`
+    K2 at head dim 64 on q, k, v zero-padded to it once, here (the true
+    scale; the result cut back to the true head dim)."""
+    if name != PADDED_64:
+        return getattr(kernels, name)
+    d = q.shape[-1]
+    padded = [torch.nn.functional.pad(t, (0, 64 - d)) for t in (q, k, v)]
+
+    def attention_flash_padded_64(q, k, v, mask):
+        return kernels._launch("attention_flash", *padded, mask, False, 1.0 / d**0.5)[..., :d]
+
+    return attention_flash_padded_64
 
 
 def instruction(kernels, name: str, head_dim: int, dtype: torch.dtype) -> str:
@@ -400,7 +455,7 @@ def measure_backward(kernels, case, seed: int, other=None, iters: int = 10, reve
            "bar": B4_BAR[dtype], "instruction": instruction(kernels, "attention_backward", shape[4], dtype),
            "library_ms": cuda_ms(lambda: torch.autograd.grad(sdpa_out, (qq, kk, vv), g, retain_graph=True), iters),
            "plain_ms": cuda_ms(lambda: attention_backward_reference(q, k, v, None, out, lse, g), 2, 1),
-           "bound_ms": bound_ms, "bound_by": bound_by}
+           "bound_ms": bound_ms, "bound_by": bound_by, "exp_ms": exp_ms(shape, None, 2)}
     mine = lambda: kernels.attention_backward(q, k, v, None, out, lse, g)  # noqa: E731
     if other is None:
         row.update(ms=cuda_ms(mine, iters), host_us=host_us(mine))
@@ -428,7 +483,7 @@ def describe_backward(row: dict) -> str:
     line = (f"{row['name']:19s} {str(tuple(row['shape'])):26s} {row['dtype']:8s} {row['instruction']:18s} "
             f"err {row['max_rel_err']:.2e} (bar {row['bar']:.2e}) ms {row['ms']:.4f} host {row['host_us']:.1f} us "
             f"plain {row['plain_ms']:.4f} sdpa backward {row['library_ms']:.4f} bound {row['bound_ms']:.4f} "
-            f"({row['bound_by']}, {100 * row['bound_ms'] / row['ms']:.1f}% of it)")
+            f"({row['bound_by']}, {100 * row['bound_ms'] / row['ms']:.1f}% of it) exponentials {row['exp_ms']:.4f}")
     if "against_ms" in row:
         line += against(row, row["against_max_rel_err"])
     return line
@@ -447,7 +502,8 @@ def describe(row: dict) -> str:
     return (f"{row['name']:19s} {str(tuple(row['shape'])):26s} {row['dtype']:8s} {row['instruction']:18s} "
             f"err {row['max_abs_err']:.2e} (tol {row['tolerance']:.0e}) ms {row['ms']:.4f} "
             f"host {row['host_us']:.1f} us plain {row['plain_ms']:.4f} sdpa {row['library_ms']:.4f} "
-            f"bound {row['bound_ms']:.4f} ({row['bound_by']}, {100 * row['bound_ms'] / row['ms']:.1f}% of it)")
+            f"bound {row['bound_ms']:.4f} ({row['bound_by']}, {100 * row['bound_ms'] / row['ms']:.1f}% of it) "
+            f"exponentials {row['exp_ms']:.4f}")
 
 
 def ladder_cases() -> list:
@@ -536,6 +592,8 @@ def main(argv=None) -> dict:
 
     smi = card()
     print(f"device: {smi}", flush=True)
+    print(f"exponentials' rate: {exp_rate():.6e} a second ({EXP_PER_SM_CLOCK} an SM a clock, "
+          f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs, clocks.max.sm)", flush=True)
     root = args.against or (Path(__file__).resolve().parent.parent if args.define else None)
     other = load_kernels(root, defines=tuple(f"-D{d}" for d in args.define)) if root else None
     def wanted(shape, dt) -> bool:
@@ -549,7 +607,7 @@ def main(argv=None) -> dict:
         if other is not None:
             name, shape, dt, masked, _ = case
             q, k, v, mask = make_inputs(shape, DTYPES[dt], masked, seed)
-            mine, theirs = getattr(kernels, name), getattr(other, name)
+            mine, theirs = wrapper(kernels, name, q, k, v), wrapper(other, name, q, k, v)
             row["against_max_abs_err"] = max_error(theirs, q, k, v, mask)
             row.update(abba(lambda: mine(q, k, v, mask), lambda: theirs(q, k, v, mask), args.iters, args.reverse))
         line = describe(row)
@@ -581,7 +639,7 @@ def main(argv=None) -> dict:
         print(line, flush=True)
         backward.append(row)
         torch.cuda.empty_cache()
-    results = {"device": smi, "iters": args.iters, "against": str(root) if root else None,
+    results = {"device": smi, "exp_rate": exp_rate(), "iters": args.iters, "against": str(root) if root else None,
                "defines": args.define,
                "cases": rows, "backward": backward, "ladder": ladder(kernels, args.iters) if args.ladder else None}
     if args.json_out:

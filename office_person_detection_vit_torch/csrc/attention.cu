@@ -32,13 +32,14 @@
 // with 100 queries (decoder cross- and self-attention, 0.0025 and 0.0005 ms)
 // are bound by the bytes of K and V.
 //
-// bf16 design (tensor cores). K2 and the backward pair at head dims 64,
-// 128, 192 and 256 run the Hopper bodies of the wgmma section below (two
-// warpgroups of 64 rows, TMA, wgmma; ViT-base/16's D 64, ViT-H/16's 80
-// padded to 128, the VITW DETR's 256), K1 above 128 and K2 above 256 the
-// panel bodies (wgmma, TMA) of the section after the C.7 one.
-// K1 up to 128, and K2 and the pair at 16 and 32 (DETR's), run the
-// mma.sync bodies described here:
+// bf16 design (tensor cores). K2 and the backward pair at every head dim
+// run Hopper bodies (TMA, wgmma): at 64, 128, 192 and 256 those of the
+// wgmma section below (two warpgroups of 64 rows; ViT-base/16's D 64,
+// ViT-H/16's 80 padded to 128, the VITW DETR's 256), at 16 and 32 (DETR's
+// own heads) the narrow bodies of the section after it (the 64- and
+// 32-byte swizzles; the softmax overlapped with the products), K1 above
+// 128 and K2 above 256 the panel bodies (wgmma, TMA) of the section after
+// the C.7 one. K1 up to 128 runs the mma.sync body described here:
 //  * One warp owns 16 query rows. QK^T and P.V are
 //    mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32: the warp's Q
 //    fragments are loaded once from device memory and stay in registers, K
@@ -76,15 +77,11 @@
 //    rows are 4 blocks of 15 warps, so each SM holds 15 warps and stages K/V
 //    once for 240 rows. kernels/attention.py::whole_kv_plan chooses this
 //    grid and passes it in; the launch checks that it covers Lq.
-//  * K2 is 4 warps (64 rows) that walk K/V in 64-key tiles through a ring of
-//    three shared-memory stages: while one tile is computed the next two are
-//    in flight (cp.async.commit_group / wait_group), and the mask bytes of
-//    the newest tile are loaded into registers and stored as its bias after
-//    the current tile's compute. Online max and normalizer as in
-//    _flash_attn_kernel; the loop inside the block replaces the TPU's
-//    sequential KV grid axis. The ring is dynamic shared memory (Ring<D>).
-//    At D = 128 K1 takes at most 8 warps a block (255 registers a thread
+//  * At D = 128 K1 takes at most 8 warps a block (255 registers a thread
 //    instead of 128).
+//  * K2 (every bf16 body) walks K/V in tiles with the online max and
+//    normalizer of _flash_attn_kernel; the loop inside the block replaces
+//    the TPU's sequential KV grid axis.
 //
 // float32. One TF32 product would break the 1e-5 tolerance and the
 // whole-model float32 bar, so the float32 bodies keep float32's accuracy
@@ -318,8 +315,7 @@ constexpr int kTileKeys = 64;          // keys per score tile
 // K1: at most 256 query rows a block (launch bounds); 128 at D = 128, where
 // a thread needs more than the 128 registers 16 warps leave it.
 constexpr int whole_kv_max_warps(int D) { return D <= 64 ? 16 : 8; }
-constexpr int kFlashWarps = 4;         // K2: 64 query rows a block
-constexpr int kFlashStages = 3;        // K2: tiles in the shared-memory ring
+constexpr int kFlashWarps = 4;         // float32 K2 and pair: 64 query rows a block
 
 // smem_u32, cp_async16/commit/wait, ldsm_x4(_trans), mma_bf16 and pack_bf16
 // come from sm90.cuh.
@@ -497,22 +493,6 @@ size_t whole_kv_bf16_smem_bytes(int Lk) {
   return 2 * keys * D * sizeof(bf16) + keys * sizeof(float);
 }
 
-// The ring of K2 and of the backward pair, in dynamic shared memory:
-// kFlashStages slots of two 64-row bf16 tiles (K and V, or Q and g), then
-// kVecs float vectors of 64 per slot (the key bias; lse2 and D).
-template <int D, int kVecs> struct Ring {
-  static constexpr int kTile = kTileKeys * D * (int)sizeof(bf16);
-  static constexpr size_t kBytes = kFlashStages * (2 * kTile + kVecs * kTileKeys * sizeof(float));
-  // Shared addresses of slot s of the first and second tile, and vector i of slot s.
-  __device__ __forceinline__ static uint32_t a(uint32_t base, int s) { return base + s * kTile; }
-  __device__ __forceinline__ static uint32_t b(uint32_t base, int s) {
-    return base + (kFlashStages + s) * kTile;
-  }
-  __device__ __forceinline__ static float* vec(uint8_t* base, int i, int s) {
-    return reinterpret_cast<float*>(base + 2 * kFlashStages * kTile) + (i * kFlashStages + s) * kTileKeys;
-  }
-};
-
 // Opt a kernel in to `bytes` of dynamic shared memory (needed above 48 KB).
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, size_t bytes) {
@@ -602,103 +582,6 @@ attention_whole_kv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
   store_o<D>(o, one, out + (size_t)bh * Lq * D, row0, Lq);
 }
 
-// ------------------------------------------------------------------- K2, bf16
-template <int D>
-__global__ void __launch_bounds__(kFlashWarps * 32, 4)
-attention_flash_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, const uint8_t* __restrict__ mask,
-                    bf16* __restrict__ out, float* __restrict__ lse, int H, int Lq, int Lk,
-                    float scale_log2) {
-  using R = Ring<D, 1>;
-  extern __shared__ __align__(128) uint8_t smem_kv[];
-  const uint32_t ring = smem_u32(smem_kv);
-  auto ring_bias = [&](int s) { return R::vec(smem_kv, 0, s); };
-
-  const int bh = blockIdx.x;
-  const uint8_t* mask_b = mask ? mask + (size_t)(bh / H) * Lk : nullptr;
-  const bf16* k_bh = k + (size_t)bh * Lk * D;
-  const bf16* v_bh = v + (size_t)bh * Lk * D;
-  const int tiles = (Lk + kTileKeys - 1) / kTileKeys;
-  const bool all_masked = !any_valid_key(mask_b, Lk);
-  const float scale = all_masked ? 0.f : scale_log2;
-  const int tid = threadIdx.x;
-
-  // Start tile t's K/V copies into its ring slot (an empty group past the end).
-  auto issue = [&](int t) {
-    if (t < tiles) {
-      const int k0 = t * kTileKeys, n = min(kTileKeys, Lk - k0);
-      stage_async<D>(R::a(ring, t % kFlashStages), k_bh + (size_t)k0 * D, n, kTileKeys);
-      stage_async<D>(R::b(ring, t % kFlashStages), v_bh + (size_t)k0 * D, n, kTileKeys);
-    }
-    cp_async_commit();
-  };
-  for (int t = 0; t < kFlashStages - 1; ++t) {
-    issue(t);
-    if (tid < kTileKeys) ring_bias(t)[tid] = key_bias(mask_b, t * kTileKeys + tid, Lk, all_masked);
-  }
-
-  const int row0 = blockIdx.y * kFlashWarps * kWarpRows + tid / 32 * kWarpRows;
-  const bool live = row0 < Lq;
-  uint32_t qa[D / 16][4];
-  load_q<D>(q + (size_t)bh * Lq * D, row0, Lq, qa);
-
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-  float o[D / 8][4] = {};
-  for (int t = 0; t < tiles; ++t) {
-    cp_async_wait<kFlashStages - 2>();  // tile t has landed
-    __syncthreads();                    // ... for every thread; tile t - 1's slot is free
-    const int next = t + kFlashStages - 1;
-    issue(next);
-    // The newest tile's mask bytes load while this tile is computed.
-    const float next_bias =
-        tid < kTileKeys ? key_bias(mask_b, next * kTileKeys + tid, Lk, all_masked) : 0.f;
-
-    if (live) {
-      const int slot = t % kFlashStages;
-      float s[8][4], mx[2];
-      score_tile<D>(qa, R::a(ring, slot), ring_bias(slot), 0, scale, s);
-      tile_max(s, mx);
-      float mu[2];
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const float m_new = fmaxf(m[r], quad_max(mx[r]));
-        mu[r] = m_new == -INFINITY ? 0.f : m_new;
-        const float alpha = ex2(m[r] - mu[r]);  // 0 while m is -inf
-        l[r] *= alpha;
-#pragma unroll
-        for (int dn = 0; dn < D / 8; ++dn) {
-          o[dn][2 * r] *= alpha;
-          o[dn][2 * r + 1] *= alpha;
-        }
-        m[r] = m_new;
-      }
-#pragma unroll
-      for (int n = 0; n < 8; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          s[n][e] = ex2(s[n][e] - mu[e / 2]);
-          l[e / 2] += s[n][e];
-        }
-      uint32_t pa[4][4];
-      pack_p(s, pa);
-      pv_tile<D>(pa, R::b(ring, slot), 0, o);
-    }
-    if (tid < kTileKeys) ring_bias(next % kFlashStages)[tid] = next_bias;
-  }
-  cp_async_wait<0>();
-  if (!live) return;
-  const float sum[2] = {quad_sum(l[0]), quad_sum(l[1])};
-  const float inv[2] = {1.f / sum[0], 1.f / sum[1]};
-  store_o<D>(o, inv, out + (size_t)bh * Lq * D, row0, Lq);
-  if (lse != nullptr && tid % 4 == 0) {
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int row = row0 + (tid % 32) / 4 + 8 * r;
-      if (row < Lq) lse[(size_t)bh * Lq + row] = (m[r] + log2f(sum[r])) * kLn2;
-    }
-  }
-}
-
 // ================================= K2 in float32 up to head dim 128 (3xTF32)
 // float32 K2 at head dims 16, 32, 64 and 128 (and those padded to them) on
 // the tensor cores, at float32's accuracy: three TF32 products a float32
@@ -712,7 +595,8 @@ attention_flash_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
 //    accumulator of its own, added to the output by FADD). What it drops, lo_a lo_b and lo's own
 //    truncation, is about 2^-21 of |a b|, where one TF32 product alone
 //    rounds each operand to 2^-11.
-//  * K2's bf16 skeleton (attention_flash_mma): a warp owns 16 query rows, 4
+//  * The skeleton of the bf16 K2 that ran at D 16 and 32 until the narrow
+//    Hopper bodies: a warp owns 16 query rows, 4
 //    warps a block (64 rows); K and V come in kKeys-key tiles (64; 32 at D
 //    128, for registers and shared memory) by 16-byte cp.async into two
 //    stages, the next tile loading under the current one's products, with
@@ -882,7 +766,7 @@ attention_flash_tf32(const float* __restrict__ q, const float* __restrict__ k, c
       }
     }
 
-    // Online softmax (attention_flash_mma's): s * scale + bias, the rows'
+    // Online softmax (flash_softmax's): s * scale + bias, the rows'
     // new max and sum, p = 2^(s - max), the output rescaled.
     float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
@@ -978,13 +862,13 @@ attention_flash_tf32(const float* __restrict__ q, const float* __restrict__ k, c
 // scale) but keeps the true scale in dQ and dK: the plain version's autograd
 // passes the score gradient through its -1e30 bias, so they are not zero.
 //
-// Two launches, deterministic (no atomics). The dQ kernel: one block per 64
-// query rows of a (batch*head), walking K/V tiles through K2's ring; first it
+// Two launches, deterministic (no atomics). The dQ kernel: one block per
+// query block of a (batch*head), walking K/V tiles through a ring; first it
 // writes, for its rows, lse in base 2 (+inf past Lq, so that padded rows get
 // P = 0) and D to a float32 scratch of Lq rounded up to its row blocks
-// (scratch_rows: 64 here, 128 for the Hopper pair). Then the dK/dV kernel:
-// one block per 64 keys, which keeps its K, V and key bias and
-// walks 64-row tiles of Q, g and the scratch through the same kind of ring.
+// (scratch_rows: 128 for the bf16 Hopper pair at 64 and up, 64 otherwise).
+// Then the dK/dV kernel: one block per key block, which keeps its K, V and
+// key bias and walks tiles of Q, g and the scratch through a ring.
 //
 // What bounds it on an H100: seven products of 2 Lq Lk D flops over the
 // valid keys (QK^T and gV^T in both kernels, dS K, P^T g, dS^T Q), 10 flops a
@@ -993,16 +877,15 @@ attention_flash_tf32(const float* __restrict__ q, const float* __restrict__ k, c
 // training encoder (8,8,1008,1008,32) 29 GFLOP and 130 M exponentials (P in
 // both kernels) against 33 MB.
 //
-// bf16 at head dims 16 and 32 (tensor cores): K2's body. mma.sync.m16n8k16
-// with the A operand held in registers (Q and g in the dQ kernel, K and V in
-// the dK/dV kernel), B from swizzled rows by ldmatrix, and a product's
-// float32 accumulator rounded to bf16 and repacked in registers as the A
-// operand of the next (dS for dS K; P and dS for P^T g and dS^T Q). The
-// dK/dV kernel computes S^T = K Q^T, so that P^T comes out in the layout
-// pack_p turns into an A operand. At head dims 64, 128, 192 and 256 the
-// pair runs the Hopper bodies of the section after this one (wgmma, TMA),
-// on the same scheme with 128-row blocks, and above 256 the wgmma pair on
-// column panels (after the forwards' panel section). float32 runs the
+// bf16 runs Hopper bodies (wgmma, TMA): a product's float32 accumulator is
+// rounded to bf16 and repacked in registers as the A operand of the next
+// (dS for dS K; P and dS for P^T g and dS^T Q), and the dK/dV kernel
+// computes S^T = K Q^T, so that P^T comes out in the layout pack_a turns
+// into an A operand. At head dims 64, 128, 192 and 256 the pair runs the
+// bodies of the section after this one (128-row blocks), at 16 and 32 the
+// narrow ones of the section after that (64-row blocks), and above 256
+// the wgmma pair on column panels (after the forwards' panel section).
+// float32 runs the
 // 3xTF32 pair attention_bwd_{dq,dkdv}_tf32 up to 128 (mma.sync m16n8k8, its
 // section after the Hopper bodies) and the register-tiled pair
 // attention_bwd_{dq,dkdv}_fma above 128 (CUDA cores).
@@ -1013,216 +896,6 @@ static_assert(kRows == kFlashWarps * kWarpRows && kRows == kTileKeys && kRows ==
 // The bf16 pair of a fragment register as floats (lower column in .x).
 __device__ __forceinline__ float2 unpack_bf16(uint32_t x) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&x));
-}
-
-// How the bf16 pair splits its work at head dim D. Above 64 (no longer
-// instantiated: the Hopper bodies take 64 and 128) it ran two blocks a tile
-// (grid z), each half the head dim of its outputs, in 32-row steps. At 16
-// and 32 it is one block a tile in one 64-row step; the bodies and their
-// helpers keep this text, so that they compile to the code DETR's path has
-// been measured with.
-template <int D> struct Backward {
-  static constexpr int kHalves = D > 64 ? 2 : 1;  // blocks a tile (grid z), each DO output columns
-  static constexpr int DO = D / kHalves;
-  static constexpr int kSub = D > 64 ? 32 : 64;  // rows of a ring tile a step takes (one step, not unrolled)
-  static constexpr int N = kSub / 8;             // score tile: N m16n8 accumulators
-};
-
-// ------------------------------------------------------------------ dQ, bf16
-template <int D>
-__global__ void __launch_bounds__(kFlashWarps * 32, D <= 32 ? 3 : 2)
-attention_bwd_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, const uint8_t* __restrict__ mask,
-                     const bf16* __restrict__ out, const float* __restrict__ lse,
-                     const bf16* __restrict__ g, bf16* __restrict__ dq,
-                     float* __restrict__ lse2_pad, float* __restrict__ dsum_pad, int H, int Lq,
-                     int Lk, int Lq_pad, float scale_log2, float scale) {
-  using R = Ring<D, 1>;
-  extern __shared__ __align__(128) uint8_t smem_kv[];
-  const uint32_t ring = smem_u32(smem_kv);
-  auto ring_bias = [&](int s) { return R::vec(smem_kv, 0, s); };
-
-  const int bh = blockIdx.x;
-  const uint8_t* mask_b = mask ? mask + (size_t)(bh / H) * Lk : nullptr;
-  const bf16* k_bh = k + (size_t)bh * Lk * D;
-  const bf16* v_bh = v + (size_t)bh * Lk * D;
-  const int tiles = (Lk + kTileKeys - 1) / kTileKeys;
-  const bool all_masked = !any_valid_key(mask_b, Lk);
-  const float scale_p = all_masked ? 0.f : scale_log2;
-  const int tid = threadIdx.x;
-
-  auto issue = [&](int t) {  // as K2
-    if (t < tiles) {
-      const int k0 = t * kTileKeys, n = min(kTileKeys, Lk - k0);
-      stage_async<D>(R::a(ring, t % kFlashStages), k_bh + (size_t)k0 * D, n, kTileKeys);
-      stage_async<D>(R::b(ring, t % kFlashStages), v_bh + (size_t)k0 * D, n, kTileKeys);
-    }
-    cp_async_commit();
-  };
-  for (int t = 0; t < kFlashStages - 1; ++t) {
-    issue(t);
-    if (tid < kTileKeys) ring_bias(t)[tid] = key_bias(mask_b, t * kTileKeys + tid, Lk, all_masked);
-  }
-
-  const int row0 = blockIdx.y * kFlashWarps * kWarpRows + tid / 32 * kWarpRows;
-  const bool live = row0 < Lq;
-  const size_t q_off = (size_t)bh * Lq * D;
-  uint32_t qa[D / 16][4], ga[D / 16][4];
-  load_q<D>(q + q_off, row0, Lq, qa);
-  load_q<D>(g + q_off, row0, Lq, ga);
-
-  // D and lse in base 2 of the warp's rows g and g + 8, into registers and
-  // the scratch. Rows past Lq have g = 0, so D = 0, and lse2 = +inf.
-  const int quad_row = (tid % 32) / 4;
-  float dsum[2], lse2[2];
-  {
-    uint32_t oa[D / 16][4];
-    load_q<D>(out + q_off, row0, Lq, oa);
-    float part[2] = {0.f, 0.f};
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {  // registers 0, 2 hold row g; 1, 3 row g + 8
-        const float2 a = unpack_bf16(ga[kk][j]), b = unpack_bf16(oa[kk][j]);
-        part[j % 2] = fmaf(a.y, b.y, fmaf(a.x, b.x, part[j % 2]));
-      }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int row = row0 + quad_row + 8 * r;
-      dsum[r] = quad_sum(part[r]);
-      lse2[r] = row < Lq ? lse[(size_t)bh * Lq + row] * kLog2e : INFINITY;
-      if (tid % 4 == 0 && blockIdx.z == 0) {
-        lse2_pad[(size_t)bh * Lq_pad + row] = lse2[r];
-        dsum_pad[(size_t)bh * Lq_pad + row] = dsum[r];
-      }
-    }
-  }
-
-  using W = Backward<D>;
-  constexpr int N = W::N;
-  float o[W::DO / 8][4] = {};
-  for (int t = 0; t < tiles; ++t) {
-    cp_async_wait<kFlashStages - 2>();  // tile t has landed
-    __syncthreads();                    // ... for every thread; tile t - 1's slot is free
-    const int next = t + kFlashStages - 1;
-    issue(next);
-    const float next_bias =
-        tid < kTileKeys ? key_bias(mask_b, next * kTileKeys + tid, Lk, all_masked) : 0.f;
-
-    if (live) {
-      const int slot = t % kFlashStages;
-#pragma unroll 1
-      for (int kb = 0; kb < kTileKeys; kb += W::kSub) {
-        float s[N][4], dp[N][4];
-        score_tile<D, N>(qa, R::a(ring, slot), ring_bias(slot), kb, scale_p, s);
-        product_tile<D, N>(ga, R::b(ring, slot), kb, dp);
-#pragma unroll
-        for (int n = 0; n < N; ++n)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) s[n][e] = ex2(s[n][e] - lse2[e / 2]) * (dp[n][e] - dsum[e / 2]);
-        uint32_t da[N / 2][4];
-        pack_p<N>(s, da);
-        pv_tile<D, N / 2, W::DO>(da, R::a(ring, slot), kb, o, blockIdx.z * W::DO / 8);  // dQ += dS K
-      }
-    }
-    if (tid < kTileKeys) ring_bias(next % kFlashStages)[tid] = next_bias;
-  }
-  cp_async_wait<0>();
-  if (!live) return;
-  const float sc[2] = {scale, scale};
-  store_o<D, W::DO>(o, sc, dq + q_off, row0, Lq, blockIdx.z * W::DO);
-}
-
-// ---------------------------------------------------------------- dK/dV, bf16
-template <int D>
-__global__ void __launch_bounds__(kFlashWarps * 32, D <= 32 ? 3 : 2)
-attention_bwd_dkdv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                       const bf16* __restrict__ v, const uint8_t* __restrict__ mask,
-                       const bf16* __restrict__ g, bf16* __restrict__ dk, bf16* __restrict__ dv,
-                       const float* __restrict__ lse2_pad, const float* __restrict__ dsum_pad,
-                       int H, int Lq, int Lk, int Lq_pad, float scale_log2, float scale) {
-  using R = Ring<D, 2>;
-  extern __shared__ __align__(128) uint8_t smem_kv[];
-  const uint32_t ring = smem_u32(smem_kv);
-  auto ring_lse2 = [&](int s) { return R::vec(smem_kv, 0, s); };
-  auto ring_dsum = [&](int s) { return R::vec(smem_kv, 1, s); };
-
-  const int bh = blockIdx.x;
-  const uint8_t* mask_b = mask ? mask + (size_t)(bh / H) * Lk : nullptr;
-  const bool all_masked = !any_valid_key(mask_b, Lk);
-  const float scale_p = all_masked ? 0.f : scale_log2;
-  const int tid = threadIdx.x;
-  const size_t q_off = (size_t)bh * Lq * D, pad_off = (size_t)bh * Lq_pad;
-  const int tiles = Lq_pad / kTileKeys;
-
-  // Start query tile t's copies: Q and g rows (zero past Lq), and its lse2
-  // and D, 16 chunks of 16 bytes each (the scratch is padded to the tile).
-  auto issue = [&](int t) {
-    if (t < tiles) {
-      const int r0 = t * kTileKeys, n = min(kTileKeys, Lq - r0), slot = t % kFlashStages;
-      stage_async<D>(R::a(ring, slot), q + q_off + (size_t)r0 * D, n, kTileKeys);
-      stage_async<D>(R::b(ring, slot), g + q_off + (size_t)r0 * D, n, kTileKeys);
-      constexpr int kChunks = kTileKeys / 4;
-      if (tid < 2 * kChunks) {
-        const int c = 4 * (tid % kChunks);
-        const bool is_lse = tid < kChunks;
-        cp_async16(smem_u32((is_lse ? ring_lse2(slot) : ring_dsum(slot)) + c),
-                   (is_lse ? lse2_pad : dsum_pad) + pad_off + r0 + c, true);
-      }
-    }
-    cp_async_commit();
-  };
-  for (int t = 0; t < kFlashStages - 1; ++t) issue(t);
-
-  const int key0 = blockIdx.y * kFlashWarps * kWarpRows + tid / 32 * kWarpRows;
-  const bool live = key0 < Lk;
-  const size_t kv_off = (size_t)bh * Lk * D;
-  uint32_t ka[D / 16][4], va[D / 16][4];
-  load_q<D>(k + kv_off, key0, Lk, ka);
-  load_q<D>(v + kv_off, key0, Lk, va);
-  const int quad_row = (tid % 32) / 4, t4 = tid % 4;
-  const float kbias[2] = {key_bias(mask_b, key0 + quad_row, Lk, all_masked),
-                          key_bias(mask_b, key0 + quad_row + 8, Lk, all_masked)};
-
-  using W = Backward<D>;
-  constexpr int N = W::N;
-  const int c0 = blockIdx.z * W::DO / 8;  // this block's first output column chunk
-  float dk_acc[W::DO / 8][4] = {}, dv_acc[W::DO / 8][4] = {};
-  for (int t = 0; t < tiles; ++t) {
-    cp_async_wait<kFlashStages - 2>();  // tile t has landed
-    __syncthreads();                    // ... for every thread; tile t - 1's slot is free
-    issue(t + kFlashStages - 1);
-    if (live) {
-      const int slot = t % kFlashStages;
-      const uint32_t sq = R::a(ring, slot), sg = R::b(ring, slot);
-#pragma unroll 1
-      for (int qb = 0; qb < kTileKeys; qb += W::kSub) {
-        float p[N][4], ds[N][4];
-        product_tile<D, N>(ka, sq, qb, p);   // S^T (unscaled): the warp's keys x the step's queries
-        product_tile<D, N>(va, sg, qb, ds);  // dP^T = V g^T
-#pragma unroll
-        for (int n = 0; n < N; ++n) {
-          const float2 l2 = *reinterpret_cast<const float2*>(ring_lse2(slot) + qb + 8 * n + 2 * t4);
-          const float2 dd = *reinterpret_cast<const float2*>(ring_dsum(slot) + qb + 8 * n + 2 * t4);
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {  // e % 2: query 2 t4 + e % 2; e / 2: key row g or g + 8
-            p[n][e] = ex2(fmaf(p[n][e], scale_p, kbias[e / 2]) - (e % 2 ? l2.y : l2.x));
-            ds[n][e] = p[n][e] * (ds[n][e] - (e % 2 ? dd.y : dd.x));
-          }
-        }
-        uint32_t pa[N / 2][4];
-        pack_p<N>(p, pa);
-        pv_tile<D, N / 2, W::DO>(pa, sg, qb, dv_acc, c0);  // dV += P^T g
-        pack_p<N>(ds, pa);
-        pv_tile<D, N / 2, W::DO>(pa, sq, qb, dk_acc, c0);  // dK += dS^T Q
-      }
-    }
-  }
-  cp_async_wait<0>();
-  if (!live) return;
-  const float sc[2] = {scale, scale}, one[2] = {1.f, 1.f};
-  store_o<D, W::DO>(dk_acc, sc, dk + kv_off, key0, Lk, c0 * 8);
-  store_o<D, W::DO>(dv_acc, one, dv + kv_off, key0, Lk, c0 * 8);
 }
 
 // ======================= bf16 at head dims 64, 128, 192, 256 (wgmma, TMA)
@@ -1759,12 +1432,13 @@ attention_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tk, const __grid_co
   }
 }
 
-// ------------------------------------------ K2 and dQ at D 192 and 256, wgmma
 // The producer's work for ring tile t of K2 or the dQ kernel (layout L,
-// kKeys keys a tile), done in line by warp 0 of a 256-thread block: wait
-// until tile t - kStages has been consumed, write tile t's key bias, then
-// start its K and V loads (lane 0; the other lanes arrive on full once
-// their bias values are written).
+// kKeys keys a tile), done by one warp: at D 192 and 256 warp 0 of a
+// 256-thread block in line, at D 16 and 32 the narrow bodies' producer
+// warp. Wait until tile t - kStages has been consumed, write tile t's key
+// bias, then start its K and V loads (lane 0; in D / 64 column panels, or
+// below 64 columns the whole row as one box; the other lanes arrive on full
+// once their bias values are written).
 template <typename L, int D, int kKeys>
 __device__ __forceinline__ void load_kv_tile(const WgSmem& sm, int t, int lane, const CUtensorMap& tk,
                                              const CUtensorMap& tv, int bh, const uint8_t* mask_b, int Lk,
@@ -1777,7 +1451,7 @@ __device__ __forceinline__ void load_kv_tile(const WgSmem& sm, int t, int lane, 
   if (lane == 0) {
     mbar_expect_tx(full, 2 * L::kTile);
 #pragma unroll
-    for (int h = 0; h < D / kPanel; ++h) {
+    for (int h = 0; h < (D < kPanel ? 1 : D / kPanel); ++h) {
       tma_load(sm.base + L::kA + s * L::kTile + h * kKeys * 128, &tk, h * kPanel, t * kKeys, bh, full);
       tma_load(sm.base + L::kB + s * L::kTile + h * kKeys * 128, &tv, h * kPanel, t * kKeys, bh, full);
     }
@@ -1786,6 +1460,418 @@ __device__ __forceinline__ void load_kv_tile(const WgSmem& sm, int t, int lane, 
   }
 }
 
+// ============================ bf16 at head dims 16 and 32 (wgmma, TMA; DETR's)
+// K2 and B.4's pair at DETR's head dims (32 at full size: 8 heads of 32;
+// 16 in the tiny and small models) on the producer-warp skeleton above:
+// consumer warpgroups of 64 rows, a producer warp that keeps the TMA busy
+// through a ring of full and empty mbarriers, S = Q K^T (dP = g V^T) and
+// the products after it on wgmma.m64nNk16, P (dS) rounded to bf16 and
+// repacked in registers as the next product's A operand. What differs:
+//  * A bf16 row of D values is 64 bytes at D = 32 and 32 bytes at D = 16,
+//    so the TMA writes the tiles in the 64-byte and the 32-byte swizzle
+//    (head_map: the box is the row, the swizzle span the row's bytes) and
+//    the descriptors name those layouts (gmma_desc_narrow): K-major for the
+//    score products (8-row atoms of 512 / 256 bytes, a k16 step 32 bytes on
+//    in the row), MN-major for the products over keys or queries, whose N
+//    is the whole row (one span of the swizzle).
+//  * What bounds them is the exponentials, not the products: at DETR-R50's
+//    encoder (8, 8, 920, 920, 32) 54 M of them, which the SFUs issue at 16
+//    an SM a clock (0.0130 ms on an H100 SXM5's 132 SMs at its maximum
+//    1980 MHz), against 0.0070 ms of products at 989 TFLOP/s (the training
+//    pair: 130 M, 0.031 ms, against 0.029).
+//    So K2 overlaps the softmax with the tensor cores inside a warpgroup,
+//    as FlashAttention-3 does: it issues tile t's S = Q K^T and tile t-1's
+//    O += P V together, waits for S alone, and computes tile t's softmax
+//    while P.V runs; once P.V has landed, O takes its factor alpha and P
+//    is repacked (not before: writing P's registers while P.V reads them
+//    makes ptxas serialize every wgmma of the body, its warning C7513).
+//    And the blocks are sized for several an SM, so that one warpgroup's
+//    exponentials overlap another's products: 64-key (64-query) ring
+//    tiles, whose score tile is 32 floats a thread.
+//  * K2's rows a block follow Lq: two warpgroups (128 rows, K / V loaded
+//    once for both, 288 threads, two blocks an SM) above kNarrowOneWgUpto
+//    rows, one (64 rows, 160 threads, three blocks an SM) at or below it,
+//    so that the calls with 100 queries (DETR's decoder) give 2 B H blocks
+//    and not B H (64 at B 8, H 8, for 132 SMs). Paired on an H100, the
+//    two-warpgroup blocks took 0.0371 ms at DETR-R50's encoder (8, 8, 920,
+//    920, 32) and 0.1278 at DC5's (2, 8, 3680, 3680, 32), against 0.0429
+//    and 0.1601 for one warpgroup (kNarrowOneWgUpto set to 4096 and timed
+//    by attention_kernel_bench --against the unchanged source).
+//  * The pair's kernels are one warpgroup a block at every length (three
+//    blocks an SM, 128 registers): with two (one block an SM, since at two
+//    ptxas left them 96 registers and both spilled) the training encoder's
+//    pair (8, 8, 1008, 1008, 32) took 0.1172 ms against 0.0969, and the
+//    100-query ones were no faster. Its scratch rows are 64 (scratch_rows).
+constexpr int kNarrowOneWgUpto = 192;
+
+template <int D> struct Narrow {
+  static_assert(D == 16 || D == 32, "the narrow bodies take head dims 16 and 32");
+  static constexpr int kRow = 2 * D;      // bytes of a bf16 row: the swizzle span
+  static constexpr int kAtom = 8 * kRow;  // 8 rows: 512 or 256 bytes
+  // The k16 step kk of rows [r0, r0 + 64) of a tile (K-major).
+  __device__ __forceinline__ static uint64_t desc_k(uint32_t tile, int r0, int kk) {
+    return gmma_desc_narrow<kRow>(tile + r0 * kRow + kk * 32, 16, kAtom);
+  }
+  // Rows [16 kk, 16 kk + 16) of a tile as the depth of a product over its D
+  // columns (MN-major).
+  __device__ __forceinline__ static uint64_t desc_mn(uint32_t tile, int kk) {
+    return gmma_desc_narrow<kRow>(tile + kk * 16 * kRow, kAtom, kAtom);
+  }
+};
+
+// Shared memory of the narrow bodies, byte offsets from a 1024-byte aligned
+// base: kFixed tiles of 64 kWG rows (K2: Q; dQ: Q, g; dK/dV: K, V), the
+// ring's kStages stages of two kRing-row tiles, kVecs float vectors of kRing
+// a stage (K2, dQ: the key bias; dK/dV: lse2 and D) and the mbarriers
+// (fixed, full[s], empty[s]).
+template <int D, int kWG, int kFixed, int kVecs> struct NarrowLayout {
+  static constexpr int kRing = 64, kStages = 4;
+  static constexpr int kRows = 64 * kWG;  // rows of a fixed tile: the block's queries (dK/dV: keys)
+  static constexpr uint32_t kFix = kRows * 2 * D;
+  static constexpr uint32_t kTile = kRing * 2 * D;
+  static constexpr uint32_t kA = kFixed * kFix;
+  static constexpr uint32_t kB = kA + kStages * kTile;
+  static constexpr uint32_t kVec = kB + kStages * kTile;
+  static constexpr uint32_t kBar = kVec + kStages * kVecs * kRing * 4;
+  static constexpr size_t kSmem = kBar + 8 * (1 + 2 * kStages) + 1024;
+  static_assert(kFix % 1024 == 0 && kTile % 1024 == 0, "swizzle atoms are aligned to their size");
+};
+
+// The mbarriers of a narrow layout L: the fixed tiles' (one arrival), then
+// full[s] (full_count arrivals) and empty[s] (empty_count) of each stage.
+template <typename L>
+__device__ __forceinline__ void init_narrow_barriers(uint32_t bar, int full_count, int empty_count) {
+  mbar_init(bar, 1);
+  for (int s = 0; s < L::kStages; ++s) {
+    mbar_init(bar + 8 * (1 + s), full_count);
+    mbar_init(bar + 8 * (1 + L::kStages + s), empty_count);
+  }
+  mbar_init_fence();
+}
+
+// Threads of a narrow block, and the blocks an SM its registers are sized
+// for. The register file is split over the SM's four quadrants, so a
+// thread's share is that of the most warps one quadrant holds: three
+// 160-thread blocks (15 warps, 4 a quadrant) leave 128 registers, two
+// 288-thread ones (18 warps, 5) 96.
+constexpr int narrow_threads(int kWG) { return kWgThreads * kWG + 32; }
+constexpr int narrow_blocks(int kWG) { return kWG == 1 ? 3 : 2; }
+// K2's consumer warpgroups a block over Lq query rows.
+inline int narrow_wg(int Lq) { return Lq <= kNarrowOneWgUpto ? 1 : 2; }
+
+// ------------------------------------------------------ K2, narrow wgmma
+template <int D, int kWG>
+__global__ void __launch_bounds__(narrow_threads(kWG), narrow_blocks(kWG))
+attention_flash_wgmma_narrow(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                             const __grid_constant__ CUtensorMap tv, const uint8_t* __restrict__ mask,
+                             bf16* __restrict__ out, float* __restrict__ lse, int H, int Lq, int Lk,
+                             float scale_log2) {
+  using N = Narrow<D>;
+  using L = NarrowLayout<D, kWG, 1, 1>;
+  constexpr int kKeys = L::kRing, kConsumers = kWgThreads * kWG;
+  extern __shared__ __align__(128) uint8_t smem_raw[];
+  const WgSmem sm(smem_raw);
+  const uint32_t s_q = sm.base, bar_q = sm.base + L::kBar;
+  auto s_k = [&](int s) { return sm.base + L::kA + s * L::kTile; };
+  auto s_v = [&](int s) { return sm.base + L::kB + s * L::kTile; };
+  auto bias = [&](int s) { return reinterpret_cast<float*>(sm.ptr + L::kVec) + s * kKeys; };
+  auto full = [&](int s) { return bar_q + 8 * (1 + s); };
+  auto empty = [&](int s) { return bar_q + 8 * (1 + L::kStages + s); };
+
+  const int q0 = blockIdx.y * L::kRows, bh = blockIdx.x, tid = threadIdx.x;
+  const uint8_t* mask_b = mask ? mask + (size_t)(bh / H) * Lk : nullptr;
+  const int tiles = (Lk + kKeys - 1) / kKeys;
+  // full: the producer warp's lanes, each after its bias values
+  if (tid == 0) init_narrow_barriers<L>(bar_q, 32, kConsumers);
+  const bool all_masked = !any_valid_key(mask_b, Lk);  // also the barrier for the init
+
+  if (tid >= kConsumers) {  // the producer warp
+    const int lane = tid - kConsumers;
+    if (lane == 0) {
+      mbar_expect_tx(bar_q, L::kFix);
+      tma_load(s_q, &tq, 0, q0, bh, bar_q);
+    }
+    for (int t = 0; t < tiles; ++t) load_kv_tile<L, D, kKeys>(sm, t, lane, tk, tv, bh, mask_b, Lk, all_masked);
+  } else {  // the consumers
+    const int wc = tid / kWgThreads, w = (tid / 32) % 4, lane = tid % 32, t4 = lane % 4;
+    const float scale = all_masked ? 0.f : scale_log2;
+    float o[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, alpha[2];
+    float sc[kKeys / 2];
+    uint32_t pa[kKeys / 16][4];
+    // S = Q K_t^T into sc (issued, not waited for).
+    auto scores = [&](int s) {
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        Gmma<kKeys>::template ss<0>(sc, N::desc_k(s_q, 64 * wc, kk), N::desc_k(s_k(s), 0, kk), kk);
+      wgmma_commit();
+    };
+    // O += P V_t (issued, not waited for).
+    auto pv = [&](int s) {
+#pragma unroll
+      for (int kk = 0; kk < kKeys / 16; ++kk) Gmma<D>::template rs<1>(o, pa[kk], N::desc_mn(s_v(s), kk));
+      wgmma_commit();
+    };
+    mbar_wait(bar_q, 0);
+    mbar_wait(full(0), 0);
+    wgmma_fence();
+    scores(0);
+    wgmma_wait<0>();
+    fence_regs(sc);
+    flash_softmax<kKeys>(sc, bias(0), scale, m, l, alpha);
+    pack_a<kKeys>(sc, pa);
+    for (int t = 1; t < tiles; ++t) {
+      const int s = t % L::kStages, sp = (t - 1) % L::kStages;
+      mbar_wait(full(s), (t / L::kStages) & 1);
+      wgmma_fence();
+      scores(s);   // tile t's scores ...
+      pv(sp);      // ... and tile t-1's P.V, on the tensor cores together
+      wgmma_wait<1>();
+      fence_regs(sc);
+      flash_softmax<kKeys>(sc, bias(s), scale, m, l, alpha);  // while P.V runs
+      wgmma_wait<0>();
+      fence_regs(o);
+      // Only now are P's registers free: writing them while P.V reads them
+      // makes ptxas serialize every wgmma of the body (C7513).
+      pack_a<kKeys>(sc, pa);
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i / 2) % 2];
+      mbar_arrive(empty(sp));
+    }
+    wgmma_fence();
+    pv((tiles - 1) % L::kStages);
+    wgmma_wait<0>();
+    fence_regs(o);
+    const int row0 = q0 + 64 * wc + 16 * w;
+    const float sum[2] = {quad_sum(l[0]), quad_sum(l[1])};
+    const float inv[2] = {1.f / sum[0], 1.f / sum[1]};
+    store_acc<D>(o, inv, out + (size_t)bh * Lq * D, row0, Lq);
+    if (lse != nullptr && t4 == 0) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = row0 + lane / 4 + 8 * r;
+        if (row < Lq) lse[(size_t)bh * Lq + row] = (m[r] + log2f(sum[r])) * kLn2;
+      }
+    }
+  }
+}
+
+// ------------------------------------------------------ dQ, narrow wgmma
+template <int D>
+__global__ void __launch_bounds__(narrow_threads(1), narrow_blocks(1))
+attention_bwd_dq_wgmma_narrow(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tg,
+                              const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
+                              const uint8_t* __restrict__ mask, const bf16* __restrict__ out,
+                              const float* __restrict__ lse, const bf16* __restrict__ g, bf16* __restrict__ dq,
+                              float* __restrict__ lse2_pad, float* __restrict__ dsum_pad, int H, int Lq, int Lk,
+                              int Lq_pad, float scale_log2, float scale) {
+  using N = Narrow<D>;
+  using L = NarrowLayout<D, 1, 2, 1>;
+  constexpr int kKeys = L::kRing, kConsumers = kWgThreads;
+  extern __shared__ __align__(128) uint8_t smem_raw[];
+  const WgSmem sm(smem_raw);
+  const uint32_t s_q = sm.base, s_g = sm.base + L::kFix, bar_q = sm.base + L::kBar;
+  auto s_k = [&](int s) { return sm.base + L::kA + s * L::kTile; };
+  auto s_v = [&](int s) { return sm.base + L::kB + s * L::kTile; };
+  auto bias = [&](int s) { return reinterpret_cast<float*>(sm.ptr + L::kVec) + s * kKeys; };
+  auto full = [&](int s) { return bar_q + 8 * (1 + s); };
+  auto empty = [&](int s) { return bar_q + 8 * (1 + L::kStages + s); };
+
+  const int q0 = blockIdx.y * L::kRows, bh = blockIdx.x, tid = threadIdx.x;
+  const uint8_t* mask_b = mask ? mask + (size_t)(bh / H) * Lk : nullptr;
+  const int tiles = (Lk + kKeys - 1) / kKeys;
+  if (tid == 0) init_narrow_barriers<L>(bar_q, 32, kConsumers);
+  const bool all_masked = !any_valid_key(mask_b, Lk);
+
+  if (tid >= kConsumers) {  // the producer warp, as K2's
+    const int lane = tid - kConsumers;
+    if (lane == 0) {
+      mbar_expect_tx(bar_q, 2 * L::kFix);
+      tma_load(s_q, &tq, 0, q0, bh, bar_q);
+      tma_load(s_g, &tg, 0, q0, bh, bar_q);
+    }
+    for (int t = 0; t < tiles; ++t) load_kv_tile<L, D, kKeys>(sm, t, lane, tk, tv, bh, mask_b, Lk, all_masked);
+  } else {  // the consumers
+    const int wc = tid / kWgThreads, w = (tid / 32) % 4, lane = tid % 32, t4 = lane % 4;
+    const float scale_p = all_masked ? 0.f : scale_log2;
+    const int row0 = q0 + 64 * wc + 16 * w;
+    const size_t q_off = (size_t)bh * Lq * D;
+    // D and lse in base 2 of the warp's rows lane / 4 and + 8, into registers
+    // and the scratch. Rows past Lq have g = 0, so D = 0, and lse2 = +inf.
+    float dsum[2], lse2[2];
+    {
+      uint32_t ga[D / 16][4], oa[D / 16][4];
+      load_q<D>(g + q_off, row0, Lq, ga);
+      load_q<D>(out + q_off, row0, Lq, oa);
+      float part[2] = {0.f, 0.f};
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {  // registers 0, 2 hold row lane / 4; 1, 3 row lane / 4 + 8
+          const float2 a = unpack_bf16(ga[kk][j]), b = unpack_bf16(oa[kk][j]);
+          part[j % 2] = fmaf(a.y, b.y, fmaf(a.x, b.x, part[j % 2]));
+        }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = row0 + lane / 4 + 8 * r;
+        dsum[r] = quad_sum(part[r]);
+        lse2[r] = row < Lq ? lse[(size_t)bh * Lq + row] * kLog2e : INFINITY;
+        if (t4 == 0) {
+          lse2_pad[(size_t)bh * Lq_pad + row] = lse2[r];
+          dsum_pad[(size_t)bh * Lq_pad + row] = dsum[r];
+        }
+      }
+    }
+
+    float acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    mbar_wait(bar_q, 0);
+    for (int t = 0; t < tiles; ++t) {
+      const int s = t % L::kStages;
+      mbar_wait(full(s), (t / L::kStages) & 1);
+      float sc[kKeys / 2], dp[kKeys / 2];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        Gmma<kKeys>::template ss<0>(sc, N::desc_k(s_q, 64 * wc, kk), N::desc_k(s_k(s), 0, kk), kk);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        Gmma<kKeys>::template ss<0>(dp, N::desc_k(s_g, 64 * wc, kk), N::desc_k(s_v(s), 0, kk), kk);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+      fence_regs(dp);
+      const float* b = bias(s);
+#pragma unroll
+      for (int n = 0; n < kKeys / 8; ++n) {
+        const float2 bb = *reinterpret_cast<const float2*>(b + 8 * n + 2 * t4);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = 4 * n + e;
+          sc[i] = ex2(fmaf(sc[i], scale_p, e % 2 ? bb.y : bb.x) - lse2[e / 2]) * (dp[i] - dsum[e / 2]);
+        }
+      }
+      uint32_t da[kKeys / 16][4];
+      pack_a<kKeys>(sc, da);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kKeys / 16; ++kk) Gmma<D>::template rs<1>(acc, da[kk], N::desc_mn(s_k(s), kk));
+      wgmma_commit();  // dQ += dS K
+      wgmma_wait<0>();
+      fence_regs(acc);
+      mbar_arrive(empty(s));
+    }
+    const float sc2[2] = {scale, scale};
+    store_acc<D>(acc, sc2, dq + q_off, row0, Lq);
+  }
+}
+
+// --------------------------------------------------- dK/dV, narrow wgmma
+template <int D>
+__global__ void __launch_bounds__(narrow_threads(1), narrow_blocks(1))
+attention_bwd_dkdv_wgmma_narrow(const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
+                                const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tg,
+                                const uint8_t* __restrict__ mask, bf16* __restrict__ dk, bf16* __restrict__ dv,
+                                const float* __restrict__ lse2_pad, const float* __restrict__ dsum_pad, int H,
+                                int Lq, int Lk, int Lq_pad, float scale_log2, float scale) {
+  using N = Narrow<D>;
+  using L = NarrowLayout<D, 1, 2, 2>;
+  constexpr int kQRows = L::kRing, kConsumers = kWgThreads;
+  extern __shared__ __align__(128) uint8_t smem_raw[];
+  const WgSmem sm(smem_raw);
+  const uint32_t s_k = sm.base, s_v = sm.base + L::kFix, bar_kv = sm.base + L::kBar;
+  auto s_q = [&](int s) { return sm.base + L::kA + s * L::kTile; };
+  auto s_g = [&](int s) { return sm.base + L::kB + s * L::kTile; };
+  auto vec = [&](int s) { return sm.base + L::kVec + s * 2 * kQRows * 4; };  // lse2, then D
+  auto full = [&](int s) { return bar_kv + 8 * (1 + s); };
+  auto empty = [&](int s) { return bar_kv + 8 * (1 + L::kStages + s); };
+
+  const int k0 = blockIdx.y * L::kRows, bh = blockIdx.x, tid = threadIdx.x;
+  const uint8_t* mask_b = mask ? mask + (size_t)(bh / H) * Lk : nullptr;
+  const int tiles = Lq_pad / kQRows;
+  const size_t pad_off = (size_t)bh * Lq_pad;
+  if (tid == 0) init_narrow_barriers<L>(bar_kv, 1, kConsumers);
+  const bool all_masked = !any_valid_key(mask_b, Lk);
+
+  if (tid >= kConsumers) {  // the producer warp: K and V once, then Q, g, lse2 and D a query tile
+    const int lane = tid - kConsumers;
+    if (lane == 0) {
+      mbar_expect_tx(bar_kv, 2 * L::kFix);
+      tma_load(s_k, &tk, 0, k0, bh, bar_kv);
+      tma_load(s_v, &tv, 0, k0, bh, bar_kv);
+      for (int t = 0; t < tiles; ++t) {
+        const int s = t % L::kStages, r0 = t * kQRows;
+        if (t >= L::kStages) mbar_wait(empty(s), (t / L::kStages - 1) & 1);
+        mbar_expect_tx(full(s), 2 * L::kTile + 2 * kQRows * 4);
+        tma_load(s_q(s), &tq, 0, r0, bh, full(s));
+        tma_load(s_g(s), &tg, 0, r0, bh, full(s));
+        bulk_load(vec(s), lse2_pad + pad_off + r0, kQRows * 4, full(s));
+        bulk_load(vec(s) + kQRows * 4, dsum_pad + pad_off + r0, kQRows * 4, full(s));
+      }
+    }
+  } else {  // the consumers
+    const int wc = tid / kWgThreads, w = (tid / 32) % 4, lane = tid % 32, t4 = lane % 4;
+    const float scale_p = all_masked ? 0.f : scale_log2;
+    const int key0 = k0 + 64 * wc + 16 * w;
+    const float kbias[2] = {key_bias(mask_b, key0 + lane / 4, Lk, all_masked),
+                            key_bias(mask_b, key0 + lane / 4 + 8, Lk, all_masked)};
+    float dka[D / 2], dva[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dka[i] = dva[i] = 0.f;
+    mbar_wait(bar_kv, 0);
+    for (int t = 0; t < tiles; ++t) {
+      const int s = t % L::kStages;
+      mbar_wait(full(s), (t / L::kStages) & 1);
+      float p[kQRows / 2], ds[kQRows / 2];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)  // S^T (unscaled): this warpgroup's keys x the tile's queries
+        Gmma<kQRows>::template ss<0>(p, N::desc_k(s_k, 64 * wc, kk), N::desc_k(s_q(s), 0, kk), kk);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)  // dP^T = V g^T
+        Gmma<kQRows>::template ss<0>(ds, N::desc_k(s_v, 64 * wc, kk), N::desc_k(s_g(s), 0, kk), kk);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(p);
+      fence_regs(ds);
+      const float* l2 = reinterpret_cast<const float*>(sm.ptr + (vec(s) - sm.base));
+      const float* dd = l2 + kQRows;
+#pragma unroll
+      for (int n = 0; n < kQRows / 8; ++n) {
+        const float2 l2p = *reinterpret_cast<const float2*>(l2 + 8 * n + 2 * t4);
+        const float2 ddp = *reinterpret_cast<const float2*>(dd + 8 * n + 2 * t4);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {  // e % 2: query 8n + 2 t4 + e % 2; e / 2: key row lane / 4 or + 8
+          const int i = 4 * n + e;
+          p[i] = ex2(fmaf(p[i], scale_p, kbias[e / 2]) - (e % 2 ? l2p.y : l2p.x));
+          ds[i] = p[i] * (ds[i] - (e % 2 ? ddp.y : ddp.x));
+        }
+      }
+      uint32_t pa[kQRows / 16][4], da[kQRows / 16][4];
+      pack_a<kQRows>(p, pa);
+      pack_a<kQRows>(ds, da);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kQRows / 16; ++kk) Gmma<D>::template rs<1>(dva, pa[kk], N::desc_mn(s_g(s), kk));
+#pragma unroll
+      for (int kk = 0; kk < kQRows / 16; ++kk) Gmma<D>::template rs<1>(dka, da[kk], N::desc_mn(s_q(s), kk));
+      wgmma_commit();  // dV += P^T g, dK += dS^T Q
+      wgmma_wait<0>();
+      fence_regs(dva);
+      fence_regs(dka);
+      mbar_arrive(empty(s));
+    }
+    const size_t kv_off = (size_t)bh * Lk * D;
+    const float sc[2] = {scale, scale}, one[2] = {1.f, 1.f};
+    store_acc<D>(dka, sc, dk + kv_off, key0, Lk);
+    store_acc<D>(dva, one, dv + kv_off, key0, Lk);
+  }
+}
+
+// ------------------------------------------ K2 and dQ at D 192 and 256, wgmma
 // K2 at D 192 and 256 (the section's note): attention_flash_wgmma's
 // contract and tiles, in a block of the two consumer warpgroups alone, with
 // warp 0 as the producer in line and the output accumulator in D / 64
@@ -2023,7 +2109,7 @@ attention_bwd_dq_wgmma_inline(const __grid_constant__ CUtensorMap tq, const __gr
 // them) on the tensor cores, at float32's accuracy: each of its five
 // products is three TF32 products (3xTF32, as float32 K2: split_tf32,
 // mma_tf32, mma_3xtf32 above), on mma.sync.m16n8k8.
-//  * The scheme is the bf16 pair's (attention_bwd_dq_mma and _dkdv_mma):
+//  * The scheme is that of the bf16 mma.sync pair it was built from:
 //    4 warps a block, a warp 16 query rows (dQ) or 16 keys (dK/dV), the
 //    streamed operand in kTile-row tiles through two cp.async stages (the
 //    next tile loading under the current one's products). The dQ kernel
@@ -2393,11 +2479,12 @@ attention_bwd_dkdv_tf32(const float* __restrict__ q, const float* __restrict__ k
 }
 
 // Query rows of the backward's scratch for one (batch*head): Lq rounded up
-// to the dQ kernel's row block, 128 for the bf16 Hopper pairs (head dims 64
-// and up) and 64 for every other body (the bf16 mma.sync pair, the float32
-// 3xTF32 pair and the register-tiled one above 128: 64-row dQ blocks, and
-// dK/dV query tiles that divide 64). The one rule for it: the launchers pad
-// by it, and the wrapper allocates by attention_backward_scratch_rows.
+// to the dQ kernel's row block, 128 for the bf16 Hopper pairs at head dims
+// 64 and up and 64 for every other body (the narrow bf16 pair at 16 and 32,
+// the float32 3xTF32 pair and the register-tiled one above 128: 64-row dQ
+// blocks, and dK/dV query tiles that divide 64). The one rule for it: the
+// launchers pad by it, and the wrapper allocates by
+// attention_backward_scratch_rows.
 int scratch_rows(int dtype, int Lq, int D) {
   const int tile = dtype == 1 && D >= 64 ? kWgRows : kRows;
   return (Lq + tile - 1) / tile * tile;
@@ -3771,17 +3858,24 @@ size_t whole_kv_f32_smem_bytes(int Lk, int D) {
 // The 3-D TMA map of a (B*H, L, D) bf16 tensor, read in boxes of `rows`
 // rows x 64 columns (a 128-byte panel, swizzled by 128 bytes) from any
 // column a multiple of 64 (above 256 the panel bodies and the pair read a
-// wider head 64 columns a box): zero past row L and past column D, and
-// never into the next head.
+// wider head 64 columns a box), and at D 16 and 32 of `rows` whole rows:
+// zero past row L and past column D, and never into the next head.
 bool head_map(CUtensorMap* map, const void* x, int BH, int L, int D, int rows) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return false;
+  // Head dims 16 and 32 (the narrow bodies): the box is the whole row, in
+  // the swizzle of the row's 32 or 64 bytes.
+  const int cols = D < kPanel ? D : kPanel;
+  if (cols != kPanel && cols != 32 && cols != 16) return false;
+  const CUtensorMapSwizzle swizzle = cols == kPanel ? CU_TENSOR_MAP_SWIZZLE_128B
+                                     : cols == 32   ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                    : CU_TENSOR_MAP_SWIZZLE_32B;
   const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)L, (cuuint64_t)BH};
   const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)L * D * 2};
-  const cuuint32_t box[3] = {kPanel, (cuuint32_t)rows, 1};
+  const cuuint32_t box[3] = {(cuuint32_t)cols, (cuuint32_t)rows, 1};
   const cuuint32_t unit[3] = {1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(x), dims, strides, box, unit,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
@@ -3852,6 +3946,57 @@ cudaError_t launch_backward_wgmma(const bf16* q, const bf16* k, const bf16* v, c
   attention_bwd_dkdv_wgmma<D><<<dim3((Lk + kWgRows - 1) / kWgRows, BH, D / kPanel), kWgBlockThreads,
                                 DkdvLayout<D>::kSmem, stream>>>(tk2, tv2, tq2, tg2, mask, dk, dv, lse2_pad, dsum_pad, H, Lq, Lk, Lq_pad,
                                           scale_log2, scale);
+  return cudaGetLastError();
+}
+
+// K2 at head dim 16 or 32: B*H x ceil(Lq / (64 kWG)) blocks of kWG
+// consumer warpgroups (narrow_wg(Lq)).
+template <int D>
+cudaError_t launch_flash_narrow(const bf16* q, const bf16* k, const bf16* v, const uint8_t* mask, bf16* out,
+                                float* lse, int B, int H, int Lq, int Lk, float scale_log2, cudaStream_t stream) {
+  const int wg = narrow_wg(Lq), rows = 64 * wg;
+  cudaError_t err = bind_device(q);
+  if (err != cudaSuccess) return err;
+  CUtensorMap tq, tk, tv;
+  constexpr int kKeys = NarrowLayout<D, 1, 1, 1>::kRing;
+  if ((Lq + rows - 1) / rows > 65535 || !head_map(&tq, q, B * H, Lq, D, rows) ||
+      !head_map(&tk, k, B * H, Lk, D, kKeys) || !head_map(&tv, v, B * H, Lk, D, kKeys))
+    return cudaErrorInvalidValue;
+  const auto kernel = wg == 1 ? attention_flash_wgmma_narrow<D, 1> : attention_flash_wgmma_narrow<D, 2>;
+  const size_t smem = wg == 1 ? NarrowLayout<D, 1, 1, 1>::kSmem : NarrowLayout<D, 2, 1, 1>::kSmem;
+  if ((err = allow_smem(kernel, smem)) != cudaSuccess) return err;
+  kernel<<<dim3(B * H, (Lq + rows - 1) / rows), narrow_threads(wg), smem, stream>>>(tq, tk, tv, mask, out, lse, H,
+                                                                                     Lq, Lk, scale_log2);
+  return cudaGetLastError();
+}
+
+// B.4's pair at head dim 16 or 32: the dQ kernel over 64-row query blocks
+// (it writes the scratch, rows padded to 64), then the dK/dV kernel over
+// 64-key blocks, a block all D columns; B*H on grid x in both.
+template <int D>
+cudaError_t launch_backward_narrow(const bf16* q, const bf16* k, const bf16* v, const uint8_t* mask,
+                                   const bf16* out, const float* lse, const bf16* g, bf16* dq, bf16* dk, bf16* dv,
+                                   float* lse2_pad, float* dsum_pad, int B, int H, int Lq, int Lk, int Lq_pad,
+                                   float scale_log2, float scale, cudaStream_t stream) {
+  using Dq = NarrowLayout<D, 1, 2, 1>;
+  using Dkdv = NarrowLayout<D, 1, 2, 2>;
+  const int BH = B * H;
+  cudaError_t err = bind_device(q);
+  if (err != cudaSuccess) return err;
+  CUtensorMap tq, tg, tk, tv;  // every box 64 rows: the blocks' fixed tiles and the ring's
+  if (Lq_pad / Dq::kRows > 65535 || (Lk + Dkdv::kRows - 1) / Dkdv::kRows > 65535 || Lq_pad % Dq::kRows != 0 ||
+      !head_map(&tq, q, BH, Lq, D, Dq::kRows) ||
+      !head_map(&tg, g, BH, Lq, D, Dq::kRows) || !head_map(&tk, k, BH, Lk, D, Dq::kRing) ||
+      !head_map(&tv, v, BH, Lk, D, Dq::kRing))
+    return cudaErrorInvalidValue;
+  if ((err = allow_smem(attention_bwd_dq_wgmma_narrow<D>, Dq::kSmem)) != cudaSuccess) return err;
+  attention_bwd_dq_wgmma_narrow<D><<<dim3(BH, Lq_pad / Dq::kRows), narrow_threads(1), Dq::kSmem, stream>>>(
+      tq, tg, tk, tv, mask, out, lse, g, dq, lse2_pad, dsum_pad, H, Lq, Lk, Lq_pad, scale_log2, scale);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if ((err = allow_smem(attention_bwd_dkdv_wgmma_narrow<D>, Dkdv::kSmem)) != cudaSuccess) return err;
+  attention_bwd_dkdv_wgmma_narrow<D><<<dim3(BH, (Lk + Dkdv::kRows - 1) / Dkdv::kRows), narrow_threads(1),
+                                       Dkdv::kSmem, stream>>>(tk, tv, tq, tg, mask, dk, dv, lse2_pad, dsum_pad, H,
+                                                              Lq, Lk, Lq_pad, scale_log2, scale);
   return cudaGetLastError();
 }
 
@@ -3943,18 +4088,9 @@ template <int D>
 cudaError_t launch_bf16(bool flash, const bf16* q, const bf16* k, const bf16* v,
                         const uint8_t* mask, bf16* out, float* lse, int B, int H, int Lq, int Lk,
                         int blocks, int threads, float scale_log2, cudaStream_t stream) {
-  if (flash) {
-    if constexpr (D >= 64) {  // the Hopper body
-      return launch_flash_wgmma<D>(q, k, v, mask, out, lse, B, H, Lq, Lk, scale_log2, stream);
-    } else {
-      const int warp_tiles = (Lq + kWarpRows - 1) / kWarpRows;
-      const dim3 grid(B * H, (warp_tiles + kFlashWarps - 1) / kFlashWarps);
-      constexpr size_t smem = Ring<D, 1>::kBytes;
-      const cudaError_t err = allow_smem(attention_flash_mma<D>, smem);
-      if (err != cudaSuccess) return err;
-      attention_flash_mma<D><<<grid, kFlashWarps * 32, smem, stream>>>(q, k, v, mask, out, lse, H, Lq,
-                                                                       Lk, scale_log2);
-    }
+  if (flash) {  // the Hopper bodies
+    if constexpr (D >= 64) return launch_flash_wgmma<D>(q, k, v, mask, out, lse, B, H, Lq, Lk, scale_log2, stream);
+    else return launch_flash_narrow<D>(q, k, v, mask, out, lse, B, H, Lq, Lk, scale_log2, stream);
   } else {
     const int warps = threads / 32;
     if (lse != nullptr || threads % 32 != 0 || warps < 1 || warps > whole_kv_max_warps(D) ||
@@ -4066,18 +4202,9 @@ cudaError_t launch_backward(const T* q, const T* k, const T* v, const uint8_t* m
   } else if constexpr (D >= 64) {  // the Hopper pair
     return launch_backward_wgmma<D>(q, k, v, mask, out, lse, g, dq, dk, dv, lse2_pad, dsum_pad, B, H, Lq, Lk,
                                     Lq_pad, scale_log2, scale, stream);
-  } else {
-    const dim3 grid_q(B * H, Lq_pad / kRows), grid_k(B * H, (Lk + kTileKeys - 1) / kTileKeys);
-    cudaError_t err;
-    constexpr size_t smem = Ring<D, 1>::kBytes;
-    if ((err = allow_smem(attention_bwd_dq_mma<D>, smem)) != cudaSuccess) return err;
-    attention_bwd_dq_mma<D><<<grid_q, kFlashWarps * 32, smem, stream>>>(
-        q, k, v, mask, out, lse, g, dq, lse2_pad, dsum_pad, H, Lq, Lk, Lq_pad, scale_log2, scale);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    if ((err = allow_smem(attention_bwd_dkdv_mma<D>, Ring<D, 2>::kBytes)) != cudaSuccess) return err;
-    attention_bwd_dkdv_mma<D><<<grid_k, kFlashWarps * 32, Ring<D, 2>::kBytes, stream>>>(
-        q, k, v, mask, g, dk, dv, lse2_pad, dsum_pad, H, Lq, Lk, Lq_pad, scale_log2, scale);
-    return cudaGetLastError();
+  } else {  // the narrow Hopper pair
+    return launch_backward_narrow<D>(q, k, v, mask, out, lse, g, dq, dk, dv, lse2_pad, dsum_pad, B, H, Lq, Lk,
+                                     Lq_pad, scale_log2, scale, stream);
   }
 }
 
@@ -4185,8 +4312,10 @@ const Entry kKernels[] = {
     {"attention_whole_kv_mma<bf16,32>", (const void*)attention_whole_kv_mma<32>},
     {"attention_whole_kv_mma<bf16,64>", (const void*)attention_whole_kv_mma<64>},
     {"attention_whole_kv_mma<bf16,128>", (const void*)attention_whole_kv_mma<128>},
-    {"attention_flash_mma<bf16,16>", (const void*)attention_flash_mma<16>},
-    {"attention_flash_mma<bf16,32>", (const void*)attention_flash_mma<32>},
+    {"attention_flash_wgmma_narrow<bf16,16,1>", (const void*)attention_flash_wgmma_narrow<16, 1>},
+    {"attention_flash_wgmma_narrow<bf16,16,2>", (const void*)attention_flash_wgmma_narrow<16, 2>},
+    {"attention_flash_wgmma_narrow<bf16,32,1>", (const void*)attention_flash_wgmma_narrow<32, 1>},
+    {"attention_flash_wgmma_narrow<bf16,32,2>", (const void*)attention_flash_wgmma_narrow<32, 2>},
     {"attention_flash_wgmma<bf16,64>", (const void*)attention_flash_wgmma<64>},
     {"attention_flash_wgmma<bf16,128>", (const void*)attention_flash_wgmma<128>},
     {"attention_flash_wgmma_inline<bf16,192>", (const void*)attention_flash_wgmma_inline<192>},
@@ -4197,14 +4326,14 @@ const Entry kKernels[] = {
     {"attention_flash_tf32<float,32>", (const void*)attention_flash_tf32<32>},
     {"attention_flash_tf32<float,64>", (const void*)attention_flash_tf32<64>},
     {"attention_flash_tf32<float,128>", (const void*)attention_flash_tf32<128>},
-    {"attention_bwd_dq_mma<bf16,16>", (const void*)attention_bwd_dq_mma<16>},
-    {"attention_bwd_dq_mma<bf16,32>", (const void*)attention_bwd_dq_mma<32>},
+    {"attention_bwd_dq_wgmma_narrow<bf16,16>", (const void*)attention_bwd_dq_wgmma_narrow<16>},
+    {"attention_bwd_dq_wgmma_narrow<bf16,32>", (const void*)attention_bwd_dq_wgmma_narrow<32>},
     {"attention_bwd_dq_wgmma<bf16,64>", (const void*)attention_bwd_dq_wgmma<64>},
     {"attention_bwd_dq_wgmma<bf16,128>", (const void*)attention_bwd_dq_wgmma<128>},
     {"attention_bwd_dq_wgmma_inline<bf16,192>", (const void*)attention_bwd_dq_wgmma_inline<192>},
     {"attention_bwd_dq_wgmma_inline<bf16,256>", (const void*)attention_bwd_dq_wgmma_inline<256>},
-    {"attention_bwd_dkdv_mma<bf16,16>", (const void*)attention_bwd_dkdv_mma<16>},
-    {"attention_bwd_dkdv_mma<bf16,32>", (const void*)attention_bwd_dkdv_mma<32>},
+    {"attention_bwd_dkdv_wgmma_narrow<bf16,16>", (const void*)attention_bwd_dkdv_wgmma_narrow<16>},
+    {"attention_bwd_dkdv_wgmma_narrow<bf16,32>", (const void*)attention_bwd_dkdv_wgmma_narrow<32>},
     {"attention_bwd_dkdv_wgmma<bf16,64>", (const void*)attention_bwd_dkdv_wgmma<64>},
     {"attention_bwd_dkdv_wgmma<bf16,128>", (const void*)attention_bwd_dkdv_wgmma<128>},
     {"attention_bwd_dkdv_wgmma<bf16,192>", (const void*)attention_bwd_dkdv_wgmma<192>},

@@ -151,6 +151,19 @@ __device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo, uint3
   return (uint64_t)((addr & 0x3FFFF) >> 4) | (uint64_t)((lbo >> 4) & 0x3FFF) << 16 |
          (uint64_t)((sbo >> 4) & 0x3FFF) << 32 | (uint64_t)1 << 62;
 }
+// The same for the 64-byte and 32-byte swizzles (layout types 2 and 3), in
+// which the TMA writes bf16 rows of 32 and 16 values (a row is the whole
+// swizzle span; 8 rows to a 512- or 256-byte atom, atoms aligned to their
+// size). K-major: sbo = the atom (the next 8 rows), a k16 step 32 bytes on
+// in the row. MN-major: sbo = the atom (the next 8 rows of depth); lbo,
+// the step to the next span of N, is never taken, since a row is all of N.
+template <int kSwizzle>
+__device__ __forceinline__ uint64_t gmma_desc_narrow(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  static_assert(kSwizzle == 64 || kSwizzle == 32, "the 64-byte or the 32-byte swizzle");
+  constexpr uint64_t kLayout = kSwizzle == 64 ? 2 : 3;
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | (uint64_t)((lbo >> 4) & 0x3FFF) << 16 |
+         (uint64_t)((sbo >> 4) & 0x3FFF) << 32 | kLayout << 62;
+}
 // Order this thread's register and shared writes before the next wgmma.
 __device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
 __device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
@@ -167,11 +180,37 @@ template <int N> __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 // N accumulator d, N/2 floats a thread (warp w rows 16w..16w+15; d[4j..4j+3]
 // the m16n8 accumulator of columns 8j..8j+7, as mma.sync's). ss: A and B
 // from shared memory (descriptors); accumulate = 0 overwrites d. rs: A from
-// registers in mma.sync's m16n8k16 A layout (warp w its 16 rows). N 32 has
-// ss only (the attention bodies' 32-row score tiles at head dim 256).
+// registers in mma.sync's m16n8k16 A layout (warp w its 16 rows). N 16 has
+// rs only (P.V and the gradients' products at head dim 16).
 template <int N> struct Gmma;
 
+template <> struct Gmma<16> {
+  // d += A (64 x 16, four bf16x2 registers a thread) * B (16 x 16, shared; kTransB: MN-major).
+  template <int kTransB>
+  __device__ __forceinline__ static void rs(float (&d)[8], const uint32_t (&a)[4], uint64_t b) {
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, %14;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1), "n"(kTransB));
+  }
+};
+
 template <> struct Gmma<32> {
+  // d += A (64 x 16, four bf16x2 registers a thread) * B (16 x 32, shared; kTransB: MN-major).
+  template <int kTransB>
+  __device__ __forceinline__ static void rs(float (&d)[16], const uint32_t (&a)[4], uint64_t b) {
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "{%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
+        :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1), "n"(kTransB));
+  }
   // d (+)= A (64 x 16, shared, K-major) * B (16 x 32, shared; kTransB: MN-major).
   template <int kTransB>
   __device__ __forceinline__ static void ss(float (&d)[16], uint64_t a, uint64_t b, int accumulate) {

@@ -7,7 +7,7 @@ Counterparts of the Pallas kernels in
   ``_fused_attn_kernel`` (K1): the head's whole K and V in shared memory, an
   exact two-pass softmax;
 - :func:`attention_flash` replaces ``attention_pallas_flash`` /
-  ``_flash_attn_kernel`` (K2): K/V streamed in 64-key tiles with an online
+  ``_flash_attn_kernel`` (K2): K/V streamed in tiles with an online
   softmax;
 - :func:`attention_backward` is the backward of ``_attention_pallas_diff``
   (B.4), which the JAX package computes by differentiating
@@ -34,12 +34,12 @@ the score operands streamed in 64-column chunks, dQ on the forward's column
 panels, dK/dV on 128-column blocks), which take any such multiple.
 
 In bf16 the forwards and the backward pair run their products on the tensor
-cores: K1 up to head dim 128, and K2 and the pair at head dims 16 and 32, on
-``mma.sync`` m16n8k16 (one warp per 16 query or key rows;
-:func:`whole_kv_plan` gives K1's grid); K2 and the pair at every head dim
-above 32 and K1 above 128 on Hopper's ``wgmma`` with TMA loads
-(:func:`is_wgmma_forward`, :func:`is_wgmma_pair`; two warpgroups of 64 rows
-a block; the library sizes the pair's scratch). In float32, K2 up to head
+cores: K1 up to head dim 128 on ``mma.sync`` m16n8k16 (one warp per 16
+query rows; :func:`whole_kv_plan` gives K1's grid); K2 and the pair at every
+head dim and K1 above 128 on Hopper's ``wgmma`` with TMA loads
+(:func:`is_wgmma_forward`, :func:`is_wgmma_pair`; warpgroups of 64 rows, two
+a block, and at head dims 16 and 32 one a block over short sequences; the
+library sizes the pair's scratch). In float32, K2 up to head
 dim 128 and the backward pair up to 128 run on the tensor cores as three
 TF32 products a float32 product (``attention_flash_tf32`` and
 ``attention_bwd_{dq,dkdv}_tf32``, 3xTF32, :func:`is_tf32_forward`,
@@ -333,12 +333,12 @@ def use_flash(head_dim: int, dtype: torch.dtype) -> bool:
     """The whole-KV/flash switch, set by H100 measurements: by the padded
     head dim and the type alone (the key count does not enter).
 
-    bf16: always K2 (flash). Timed beside each other in ``chip_smoke.py``
-    phase 2 (NVIDIA H100 80GB HBM3, 700.00 W; the run PERF.md's attention
-    table cites), K2 is faster at all three of DETR-R50's shapes (B 8, H 8,
-    D 32): encoder 920x920 0.0577 against K1's 0.0673 ms, cross-attention
-    100x920 0.0169 against 0.0223, decoder self-attention 100x100 0.0044
-    against 0.0060. K1 pays a second
+    bf16: always K2 (flash). Timed beside each other
+    (``attention_kernel_bench``, NVIDIA H100 80GB HBM3, 700.00 W; PERF.md
+    §6), K2 (the narrow Hopper body) is faster at all three of DETR-R50's
+    shapes (B 8, H 8, D 32): encoder 920x920 0.0372 against K1's 0.0678 ms,
+    cross-attention 100x920 0.0126 against 0.0223, decoder self-attention
+    100x100 0.0040 against 0.0058. K1 pays a second
     exponential per score (it normalizes before rounding, as
     _fused_attn_kernel does) and, with a whole head's K/V in shared memory,
     runs one block an SM.
@@ -372,23 +372,23 @@ def use_flash(head_dim: int, dtype: torch.dtype) -> bool:
 
 def is_wgmma_forward(head_dim: int, dtype: torch.dtype, flash: bool = True) -> bool:
     """Whether a forward of ``head_dim`` runs a Hopper body (wgmma, TMA):
-    bf16 K2 (``flash``) at every head dim above 32 (64 and 128 the
-    producer-warp body, 192 and 256 the in-line one, above 256 the panel
-    body), bf16 K1 above 128 (the panel body); bf16 K1 up to 128 and K2 at
-    16 and 32 run ``mma.sync``; float32 K2 up to 128 runs ``mma.sync`` in
-    3xTF32 (:func:`is_tf32_forward`), every other float32 forward the CUDA
-    cores."""
-    return dtype == torch.bfloat16 and kernel_head_dim(head_dim) > (32 if flash else HEAD_DIMS[-1])
+    bf16 K2 (``flash``) at every head dim (16 and 32 the narrow body
+    ``attention_flash_wgmma_narrow``, 64 and 128 the producer-warp body, 192
+    and 256 the in-line one, above 256 the panel body), bf16 K1 above 128
+    (the panel body); bf16 K1 up to 128 runs ``mma.sync``; float32 K2 up to
+    128 runs ``mma.sync`` in 3xTF32 (:func:`is_tf32_forward`), every other
+    float32 forward the CUDA cores."""
+    return dtype == torch.bfloat16 and (flash or kernel_head_dim(head_dim) > HEAD_DIMS[-1])
 
 
 def is_wgmma_pair(head_dim: int, dtype: torch.dtype) -> bool:
     """Whether the backward pair of a call of ``head_dim`` runs the Hopper
-    bodies: bf16 at every head dim above 32 (64, 128, 192 and 256 and those
-    padded to them on ``attention_bwd_*_wgmma*``, above 256 on the column
-    panels of ``attention_bwd_*_wgmma_panels``); bf16 at D 16 and 32 runs
-    ``mma.sync``, float32 up to 128 ``mma.sync`` in 3xTF32
-    (:func:`is_tf32_pair`) and above 128 the CUDA cores."""
-    return dtype == torch.bfloat16 and kernel_head_dim(head_dim) > 32
+    bodies: bf16 at every head dim (16 and 32 on
+    ``attention_bwd_*_wgmma_narrow``, 64, 128, 192 and 256 and those padded
+    to them on ``attention_bwd_*_wgmma*``, above 256 on the column panels of
+    ``attention_bwd_*_wgmma_panels``); float32 up to 128 runs ``mma.sync``
+    in 3xTF32 (:func:`is_tf32_pair`) and above 128 the CUDA cores."""
+    return dtype == torch.bfloat16
 
 
 def is_tf32_forward(head_dim: int, dtype: torch.dtype, flash: bool = True) -> bool:

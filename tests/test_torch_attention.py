@@ -375,22 +375,27 @@ _COMPILED = set(__import__("re").findall(r'\{"(attention_[^"]+)", \(const void\*
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_hopper_bodies_take_bf16_at_64_and_128(d, dtype):
     """is_wgmma_pair (which labels the bench's rows) holds for bf16 at every
-    head dim above 32: at 64, 128, 192 and 256 and those padded to them (136
-    to 192) the source compiles K2 and the pair as Hopper bodies (K2 and both
-    kernels of the pair, in its attributes table; K2 and the dQ kernel as
-    the in-line bodies above 128, ``*_wgmma_inline``) and no mma.sync body
-    of K2 or the pair is left; above 256 (320) the bf16 pair runs the wgmma
-    pair on column panels (``*_wgmma_panels``: dQ at the forward plan's
-    accumulated columns, dK/dV), and no chunked body is left.
-    is_wgmma_forward holds for bf16 K2 at every head dim above 32 (320 on
-    the panel body) and for bf16 K1 above 128, where the source compiles
-    the panel body for both kernels."""
-    pair = dtype == torch.bfloat16 and 32 < d
+    head dim: at 16 and 32 (48 padded to 64) the source compiles K2 and the
+    pair as the narrow Hopper bodies (``*_wgmma_narrow``; K2 with one and
+    with two consumer warpgroups a block); at 64, 128, 192 and 256 and those padded
+    to them (136 to 192) as the Hopper bodies (K2 and both kernels of the
+    pair, in its attributes table; K2 and the dQ kernel as the in-line
+    bodies above 128, ``*_wgmma_inline``), and no mma.sync body of K2 or
+    the pair is left at any head dim; above 256 (320) the bf16 pair runs
+    the wgmma pair on column panels (``*_wgmma_panels``: dQ at the forward
+    plan's accumulated columns, dK/dV), and no chunked body is left.
+    is_wgmma_forward holds for bf16 K2 at every head dim (320 on the panel
+    body) and for bf16 K1 above 128, where the source compiles the panel
+    body for both kernels."""
+    pair = dtype == torch.bfloat16
     assert kernels.is_wgmma_pair(d, dtype) is pair
-    assert kernels.is_wgmma_forward(d, dtype) is (dtype == torch.bfloat16 and d > 32)
+    assert kernels.is_wgmma_forward(d, dtype) is (dtype == torch.bfloat16)
     assert kernels.is_wgmma_forward(d, dtype, flash=False) is (dtype == torch.bfloat16 and d > 128)
     kd = kernels.kernel_head_dim(d)
-    if pair and kd > 256:
+    if pair and kd <= 32:
+        assert {f"attention_flash_wgmma_narrow<bf16,{kd},{wg}>" for wg in (1, 2)} <= _COMPILED
+        assert {f"attention_bwd_dq_wgmma_narrow<bf16,{kd}>", f"attention_bwd_dkdv_wgmma_narrow<bf16,{kd}>"} <= _COMPILED
+    elif pair and kd > 256:
         acc = kernels.panel_forward_plan(d, dtype)["acc_cols"]
         assert {f"attention_bwd_dq_wgmma_panels<bf16,{acc}>", "attention_bwd_dkdv_wgmma_panels<bf16>"} <= _COMPILED
         assert not any(n.startswith("attention_wide") for n in _COMPILED)
@@ -403,7 +408,7 @@ def test_hopper_bodies_take_bf16_at_64_and_128(d, dtype):
         body = "attention_panels_wgmma<bf16" if dtype == torch.bfloat16 else "attention_panels_fma<float"
         assert {f"{body},{acc},K1>", f"{body},{acc},K2>"} <= _COMPILED
     assert not any(n.startswith(("attention_flash_mma", "attention_bwd_dq_mma", "attention_bwd_dkdv_mma"))
-                   and n.endswith((",64>", ",128>")) for n in _COMPILED)
+                   for n in _COMPILED)
 
 
 @pytest.mark.parametrize("d", [16, 20, 32, 48, 64, 80, 128, 136, 256])
@@ -469,11 +474,38 @@ def test_bench_bound_of_the_3xtf32_body():
         pytest.approx(10.0 * 8 * 197 * 2 * 197 * 128 / (495e12 / 3) * 1e3, rel=1e-12), "operations")
 
 
+#: An H100 SXM5's exponentials a second: 16 an SM a clock on 132 SMs at
+#: its maximum SM clock, 1980 MHz (nvidia-smi's clocks.max.sm).
+H100_SXM_EXP_RATE = 16 * 132 * 1.98e9
+
+
+@pytest.mark.parametrize("shape,per_score,want_ms", [((8, 8, 920, 920, 32), 1, 0.012954),
+                                                     ((8, 8, 1008, 1008, 32), 2, 0.031101)],
+                         ids=["r50_encoder_k2", "r50_training_pair"])
+def test_bench_exponentials_figure(shape, per_score, want_ms):
+    """The exponentials' figure beside the bound at DETR's head dims: one a
+    query and valid key for K2, two for the pair (P in both kernels), at the
+    rate given (on the card, the card's own at its maximum SM clock); on an
+    H100 SXM5 above the products' bound at the R50 encoder (0.0060 ms) and
+    the training pair (0.0181). A mask counts only its valid keys."""
+    assert abench.EXP_PER_SM_CLOCK == 16
+    got = abench.exp_ms(shape, None, per_score, H100_SXM_EXP_RATE)
+    B, H, Lq, Lk, _ = shape
+    assert got == pytest.approx(per_score * B * H * Lq * Lk / H100_SXM_EXP_RATE * 1e3, rel=1e-12)
+    assert got == pytest.approx(want_ms, rel=1e-4)
+    assert got > abench.b4_bound(shape, torch.bfloat16, None, per_score == 2)[0] if per_score == 2 else \
+        got > abench.bound(shape, torch.bfloat16, None)[0]
+    mask = abench.ragged_mask(shape[0], shape[3])
+    share = mask.sum().item() / mask.numel()
+    assert abench.exp_ms(shape, mask, per_score, H100_SXM_EXP_RATE) == pytest.approx(got * share, rel=1e-12)
+
+
 def test_chip_smoke_counts_wgmma_apart_from_mma():
     """chip_smoke.py's SASS reading: HGMMA (wgmma) and UTMALDG (TMA loads)
     are counted apart from HMMA (mma.sync), and each attributes name finds
-    its one function (the Hopper body's name is no prefix match of the
-    mma.sync one's)."""
+    its one function (no body's name is a prefix match of another's: the
+    narrow Hopper body, two int template arguments, beside the D-64 one, and
+    bf16 K1, the one mma.sync attention body left)."""
     import importlib.util
 
     spec = importlib.util.spec_from_file_location("chip_smoke", REPO / "chip_smoke.py")
@@ -484,12 +516,17 @@ def test_chip_smoke_counts_wgmma_apart_from_mma():
         /*0a80*/                   UTMALDG.3D [UR8], [UR4], desc[UR10] ;
         /*0b80*/                   HGMMA.64x128x16.F32.BF16 R24, gdesc[UR4], RZ, !UPT ;
         /*0c80*/                   HGMMA.64x64x16.F32.BF16 R88, R152, gdesc[UR8], R88 ;
-        Function : _ZN45_GLOBAL__N__45d6_12_attention_cu_c412ab1f19attention_flash_mmaILi32EEEvPK13__nv_bfloat16
+        Function : _ZN45_GLOBAL__N__45d6_12_attention_cu_c412ab1f28attention_flash_wgmma_narrowILi32ELi2EEEv14CUtensorMap_st
+        /*0a80*/                   UTMALDG.3D [UR8], [UR4], desc[UR10] ;
+        /*0a90*/                   UTMALDG.3D [UR12], [UR4], desc[UR10] ;
+        /*0b80*/                   HGMMA.64x64x16.F32.BF16 R24, gdesc[UR4], RZ, !UPT ;
+        Function : _ZN45_GLOBAL__N__45d6_12_attention_cu_c412ab1f22attention_whole_kv_mmaILi32EEEvPK13__nv_bfloat16
         /*0a80*/                   HMMA.16816.F32.BF16 R4, R12, R20, R4 ;
     """
     counts = smoke.count_ops(sass)
     assert smoke.ops_of(counts, "attention_flash_wgmma<bf16,64>") == {"HMMA": 0, "HGMMA": 2, "UTMALDG": 1}
-    assert smoke.ops_of(counts, "attention_flash_mma<bf16,32>") == {"HMMA": 1, "HGMMA": 0, "UTMALDG": 0}
+    assert smoke.ops_of(counts, "attention_flash_wgmma_narrow<bf16,32,2>") == {"HMMA": 0, "HGMMA": 1, "UTMALDG": 2}
+    assert smoke.ops_of(counts, "attention_whole_kv_mma<bf16,32>") == {"HMMA": 1, "HGMMA": 0, "UTMALDG": 0}
 
 
 @pytest.mark.parametrize(

@@ -579,7 +579,7 @@ def test_hopper_bodies_launch_from_a_fresh_thread(card, D):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("D", [32, 64, 128, 192, 256, 320, 384])
+@pytest.mark.parametrize("D", [16, 32, 64, 128, 192, 256, 320, 384])
 @pytest.mark.parametrize("Lq", [1, 127, 128, 129])
 def test_backward_fills_the_scratch_the_library_sizes(card, dtype, D, Lq):
     """attention_backward_scratch_rows is the one rule for the pair's
@@ -610,6 +610,72 @@ def test_backward_fills_the_scratch_the_library_sizes(card, dtype, D, Lq):
     want = kernels.attention_backward(q, k, v, mask, out, lse, g)
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip((dq, dk, dv), want))
+
+
+#: (Lq, Lk) across the narrow Hopper bodies' edges (bf16 K2 and the pair at
+#: head dims 16 and 32): 64-row warpgroups, one-warpgroup blocks up to 192
+#: rows (kNarrowOneWgUpto) and two-warpgroup ones above, 64-key and
+#: 64-query ring tiles, and DETR-R50's 100, 920 and 1008 tokens.
+NARROW_L = ((1, 65), (63, 64), (100, 100), (100, 920), (192, 193), (193, 129), (920, 920), (1008, 1008),
+            (100, 1008))
+
+
+@pytest.mark.parametrize("D", [16, 32])
+@pytest.mark.parametrize("Lq,Lk", NARROW_L)
+def test_narrow_bodies_match_plain_at_their_edges(card, D, Lq, Lk):
+    """bf16 K2 and the pair at head dims 16 and 32 run the narrow Hopper
+    bodies (``attention_*_wgmma_narrow``): with a ragged mask and batch
+    entry 0 all masked (mean(V) there), K2 within 1e-2 of the plain version
+    and its lse within 1e-4 of attention_lse, the same bits with and
+    without the lse and from call to call; the pair's dq/dk/dv within 2^-6
+    of float64 autograd and of its plain version, the same bits from call
+    to call."""
+    from office_person_detection_vit_torch.ops.attention import attention_backward_reference, attention_lse
+
+    assert kernels.is_wgmma_forward(D, torch.bfloat16) and kernels.is_wgmma_pair(D, torch.bfloat16)
+    q, k, v, mask = _case(2, 3, Lq, Lk, D, torch.bfloat16, True, seed=13)
+    plain = kernels.attention_flash(q, k, v, mask)
+    out, lse = kernels.attention_flash(q, k, v, mask, with_lse=True)
+    again = kernels.attention_flash(q, k, v, mask, with_lse=True)
+    torch.cuda.synchronize()
+    assert torch.equal(plain, out) and torch.equal(again[0], out) and torch.equal(again[1], lse)
+    f32 = [t.float() for t in (q, k, v)]
+    want = attention_reference(*f32, mask)
+    assert bool(torch.isfinite(out).all()) and (out.float() - want).abs().max().item() <= TOL[torch.bfloat16]
+    assert (out[0].float() - f32[2][0].mean(dim=-2, keepdim=True)).abs().max().item() <= TOL[torch.bfloat16]
+    want_lse = attention_lse(*f32[:2], mask)
+    assert ((lse - want_lse).abs() / want_lse.abs().clamp(min=1.0)).max().item() <= LSE_TOL[torch.bfloat16]
+    g = torch.randn_like(q)
+    grads = kernels.attention_backward(q, k, v, mask, out, lse, g)
+    twice = kernels.attention_backward(q, k, v, mask, out, lse, g)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(grads, twice))
+    assert all(a.dtype == torch.bfloat16 and bool(torch.isfinite(a).all()) for a in grads)
+    x64 = [t.double().requires_grad_(True) for t in (q, k, v)]
+    exact = torch.autograd.grad(attention_reference(*x64, mask), x64, g.double())
+    twin = attention_backward_reference(*f32, mask, out.float(), lse, g.float())
+    assert _b4_errors(grads, exact) <= B4_TOL[torch.bfloat16]
+    assert _b4_errors(grads, twin) <= B4_TOL[torch.bfloat16]
+
+
+@pytest.mark.parametrize("D", [16, 32])
+def test_narrow_bodies_take_more_heads_than_a_grid_row(card, D):
+    """The narrow bodies put B*H on the grid's x (up to 2^31 - 1), not on y
+    (up to 65535): at B*H = 65600 (two row blocks, ragged), K2's output and
+    lse and the pair's dq/dk/dv of the first and the last heads of each
+    batch entry are the bits of the same heads run alone (a block's work
+    does not depend on where the grid puts it)."""
+    B, H = 2, 32800
+    q, k, v, mask = _case(B, H, 65, 64, D, torch.bfloat16, True, seed=17)
+    g = torch.randn_like(q)
+    out, lse = kernels.attention_flash(q, k, v, mask, with_lse=True)
+    grads = kernels.attention_backward(q, k, v, mask, out, lse, g)
+    for heads in (slice(0, 3), slice(H - 3, H)):
+        part = [t[:, heads].contiguous() for t in (q, k, v)]
+        out_p, lse_p = kernels.attention_flash(*part, mask, with_lse=True)
+        assert torch.equal(out_p, out[:, heads]) and torch.equal(lse_p, lse[:, heads])
+        grads_p = kernels.attention_backward(*part, mask, out_p, lse_p, g[:, heads].contiguous())
+        assert all(torch.equal(a, b[:, heads]) for a, b in zip(grads_p, grads))
 
 
 def test_backward_wrapper_rejects_what_the_pair_does_not_take(card):
